@@ -6,16 +6,29 @@
 Phases, each raising on failure:
   1. device: torch / CUDA versions, the card's name and power limit; build
      the CUDA kernels from csrc/ (one nvcc per source, in parallel).
-  2. kernels: each kernel on the card, at this slice's shapes (Wan-1.3B at
-     480p x 21 frames = 9,360 tokens, bf16), against its plain PyTorch
-     version on the same inputs, with kernel / plain / library / bound times.
-  3. model check: a 2-block Wan-1.3B-width forward on the card (bf16,
-     kernels) against the same weights on the CPU (f32, plain versions).
-  4. main path: vorta_tpu_torch.cli.sample at full width and depth (30
-     blocks), --native_attention, 2 UniPC steps with CFG 5.0 = 4 DiT
-     forwards, after one warm-up forward of a 2-block model at the same
-     shapes; finite output of the right shape; exact launch counts.
-  5. one 720p x 77-frame forward (72,000 tokens), timed.
+  2. kernels: each kernel on the card against its plain PyTorch version on
+     the same inputs, with kernel / plain / library / bound times: flash,
+     AdaLN norm and qk prologue at the routing-off path's shapes (Wan-1.3B
+     at 480p x 21 frames = 9,360 tokens, bf16); flash_manual, sta_pipe,
+     pool_qkv and unpool at the routed path's (480p x 77 frames = 31,200
+     tokens; sta_pipe also at 720p's tile), some heads routed away.
+  3. model checks: a 2-block Wan-1.3B-width forward on the card (bf16,
+     kernels) against the same weights on the CPU (f32, plain versions),
+     routing off, then routed hard with the heads sent to all three experts.
+  4. main path, routing off: vorta_tpu_torch.cli.sample at full width and
+     depth (30 blocks), --native_attention, 480p x 21 frames, 2 UniPC steps
+     with CFG 5.0 = 4 DiT forwards, after one warm-up forward of a 2-block
+     model at the same shapes; finite output of the right shape; exact
+     launch counts.
+  5. main path, routed: the same CLI at its defaults (480p x 77 frames,
+     routing hard), 2 UniPC steps with CFG = 4 forwards after a warm-up
+     forward; launch counts exact against the routing tables the run used,
+     all three experts used.
+  6. one 720p x 77-frame forward (72,000 tokens), timed, routing off; then
+     bench.py's routed arm: routed hard at t = 500 by the JAX package's
+     trained router (assets/bench_router_wan1_3b_720p_half.npz), fed the
+     time embedder of the model it was trained against
+     (port_assets/wan1_3b_time_embedder_rngs0.npz).
 Then a {"kernels": [...]} line, the card line, and the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
 CUDA or without the package beside this file.
@@ -37,7 +50,15 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
 GRID_480P = (6, 30, 52)  # Wan latent grid of 480 x 832 x 21 frames: 9,360 tokens
+GRID_480P_77F = (20, 30, 52)  # 480 x 832 x 77 frames: 31,200 tokens, the CLI's default
+GRID_720P = (20, 45, 80)  # 720 x 1280 x 77 frames: 72,000 tokens
 TEXT_LEN = 512
+ROUTER_720P = "assets/bench_router_wan1_3b_720p_half.npz"
+# bench.py's model's time embedder (nnx.Rngs(0)), which the router reads
+TEMB_720P = "port_assets/wan1_3b_time_embedder_rngs0.npz"
+# heads (full, lowres, sta) that the JAX package routes there at t = 500
+# (BENCH_r05.json's routing_mix; port_assets/export_time_embedder.py --mix)
+JAX_MIX_720P = (0, 164, 196)
 
 
 def log(msg: str) -> None:
@@ -82,18 +103,24 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     with torch.inference_mode():
-        kernels = check_kernels(torch, card)
+        kernels = check_kernels(torch, card) + check_routed_kernels(torch, card)
         check_model(torch)
-        launches, per_step = run_main_path(torch, card)
+        check_routed_model(torch)
+        launches_off, per_step = run_main_path(torch, card)
+        launches_hard, per_step_hard = run_routed_main_path(torch, card)
         run_720p_forward(torch, card)
 
-    expected = {"flash": 240, "fused_norm": 244, "prologue": 120}
     for k in kernels:
-        k["launches"] = launches[k["_counter"]]
-        del k["_counter"]
+        name = k.pop("_counter")
+        k["launches"] = launches_hard[name]
+        k["launches_by_path"] = {"off_480p_21f": launches_off[name],
+                                 "hard_480p_77f": launches_hard[name]}
+        if not k["launches"] > 0:
+            raise RuntimeError(f"{name}: not launched on the routed main path")
     print(json.dumps({"kernels": kernels}))
-    print(f"card: {card}; main path {per_step:.3f} s per denoise step "
-          f"(4 forwards, 2 UniPC steps); launches {launches} == {expected}")
+    print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
+          f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
+          f"2 UniPC steps each); launches off {launches_off}, routed {launches_hard}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -279,6 +306,196 @@ def check_kernels(torch, card: str) -> list:
              max_abs_err=err_pro, **pro_t),
     ]
 
+# Heads routed to the expert under test in the kernel checks: 8 of 12, the
+# others routed away (zero counts / inactive), as the masked dispatch runs.
+ACTIVE_HEADS = (1, 0, 1, 1, 0, 1, 1, 1, 0, 1, 1, 0)
+# Pool picks: the kernel's f32 similarity sums run in another order than the
+# plain version's, so an arg-min between two margins closer than this may
+# flip; every disagreement must sit at such a near-tie.
+PICK_EPS = 1e-5
+
+
+def check_routed_kernels(torch, card: str) -> list:
+    """The routed experts' kernels at Wan-1.3B 480p x 77f (31,200 tokens,
+    12 heads x 128, bf16), against their plain versions."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.geometry import inverse_permutation, sta_tile_mask, tile_permutation
+    from vorta_tpu_torch.ops.coreset_pallas import (
+        pick_gaps,
+        pool_qkv,
+        pool_qkv_ref,
+        unpool,
+        unpool_ref,
+    )
+    from vorta_tpu_torch.ops.experts import lowres_groups_for
+    from vorta_tpu_torch.ops.flash_manual import (
+        sparse_flash_attention_manual,
+        sparse_flash_attention_manual_ref,
+    )
+    from vorta_tpu_torch.ops.routed_fused import routed_geometry
+    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    h, d = 12, 128
+    scale = d**-0.5
+    cfg = attention_config("wan-1_3B", GRID_480P_77F)
+    s = cfg.seq_len
+    geo = routed_geometry(cfg)
+    groups = lowres_groups_for(cfg)
+    act = torch.tensor(ACTIVE_HEADS, device=dev)
+    n_act = int(act.sum().item())
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):  # unit RMS: the scale of qk-normed q/k
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    out = []
+
+    # ---- flash_manual: FULL (1,12,31744,128), tables (1,31,31), per-head counts,
+    # and LOWRES (1,12,16384,128), tables (1,16,16).  The padded tails hold
+    # random values: a kernel that ignored kv_valid_len would attend to them.
+    fm = {}
+    for name, call in (("full", geo.full), ("lowres", geo.lowres)):
+        q, k, v = (randn(1, h, call.q_pad, d) for _ in range(3))
+        ki, kc = call.tables.on(dev)
+        cnt = torch.where(act[:, None] > 0, kc, 0).to(torch.int32)
+        kw = dict(scale=scale, block_q=call.block_q, block_kv=call.block_kv,
+                  kv_valid_len=call.valid_len)
+        kern = lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **kw)  # noqa: E731
+        plain = lambda: sparse_flash_attention_manual_ref(q, k, v, ki, cnt, **kw)  # noqa: E731
+        n = call.valid_len
+        got, want = kern()[:, :, :n], plain()[:, :, :n]
+        err = compare(torch, f"flash_manual {name} (1,12,{call.q_pad},128), valid {n}, "
+                      f"{n_act} of 12 heads routed", got, want)
+        if got[:, act == 0].any():
+            raise RuntimeError(f"flash_manual {name}: a head routed away wrote non-zeros")
+        unmasked = sparse_flash_attention_manual_ref(q, k, v, ki, cnt, **{**kw, "kv_valid_len": None})
+        miss = worst_ratio(torch, unmasked[:, :, :n][:, act > 0], want[:, act > 0])
+        log(f"flash_manual {name} without the tail mask: worst ratio {miss:.3e} "
+            f"(must exceed the tolerance {TOL:g})")
+        if not miss > TOL:
+            raise RuntimeError(f"flash_manual {name} check cannot tell a missing tail mask")
+        del got, want, unmasked
+        flops = 4.0 * n * n * d * n_act
+        b_ms, b_by = bound_ms(flops, 4 * n * d * 2 * n_act, PEAK_BF16)
+        qa, ka, va = (x[:, act > 0, :n] for x in (q, k, v))
+        fm[name] = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1),
+                        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                            qa, ka, va), 10), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        log(f"flash_manual {name}: {fm[name]} (achieved {flops / fm[name]['ms'] / 1e9:.1f} "
+            f"TFLOP/s on {n_act} heads)")
+        del q, k, v, qa, ka, va
+    out.append(dict(name="flash_manual", route="cuda",
+                    source="vorta_tpu_torch/csrc/flash_manual.cu",
+                    replaces="vorta_tpu/ops/flash_manual.py:31", _counter="flash_manual",
+                    **{**fm["full"], "max_abs_err": max(fm["full"]["max_abs_err"],
+                                                        fm["lowres"]["max_abs_err"])},
+                    shapes={"full_31200": fm["full"], "lowres_15600": fm["lowres"]}))
+
+    # ---- sta_pipe at the 480p tile (4,6,4) and the 720p tile (5,9,8)
+    st = {}
+    for name, grid, tile in (("480p_77f", GRID_480P_77F, (4, 6, 4)),
+                             ("720p_77f", GRID_720P, (5, 9, 8))):
+        n = grid[0] * grid[1] * grid[2]
+        q, k, v = (randn(1, h, n, d) for _ in range(3))
+        kw = dict(latent_shape=grid, tile=tile, window=(3, 3, 3), scale=scale)
+        kern = lambda: sta_pipe_attention(q, k, v, act, **kw)  # noqa: E731
+        plain = lambda: sta_pipe_attention_ref(q, k, v, act, **kw)  # noqa: E731
+        got = kern()
+        err = compare(torch, f"sta_pipe {name} (1,12,{n},128), tile {tile}, {n_act} of 12 "
+                      "heads active", got, plain())
+        if got[:, act == 0].any():
+            raise RuntimeError(f"sta_pipe {name}: an inactive head wrote non-zeros")
+        del got
+        keys = int(np.prod([min(3, grid[a] // tile[a]) * tile[a] for a in range(3)]))
+        flops = 4.0 * n * keys * d * n_act
+        b_ms, b_by = bound_ms(flops, 4 * n * d * 2 * n_act, PEAK_BF16)
+        lib = None
+        if name == "480p_77f":  # SDPA with the boolean STA mask, on the active heads
+            tpt = int(np.prod(tile))  # tile index of each raster token
+            tile_of = torch.from_numpy(inverse_permutation(tile_permutation(grid, tile)) // tpt)
+            tile_of = tile_of.to(dev).long()
+            tmask = torch.from_numpy(sta_tile_mask(grid, (3, 3, 3), tile)).to(dev)
+            mask = tmask[tile_of][:, tile_of]  # (S, S) bool, one index dim at a time
+            qa, ka, va = (x[:, act > 0] for x in (q, k, v))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qa, ka, va, attn_mask=mask), 3, 1)
+            del mask, qa, ka, va
+        st[name] = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1),
+                        library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        log(f"sta_pipe {name}: {keys} keys per query; {st[name]} "
+            f"(achieved {flops / st[name]['ms'] / 1e9:.1f} TFLOP/s on {n_act} heads)")
+        del q, k, v
+    out.append(dict(name="sta_pipe", route="cuda", source="vorta_tpu_torch/csrc/sta_pipe.cu",
+                    replaces="vorta_tpu/ops/sta_pipe.py:121", _counter="sta_pipe",
+                    **{**st["480p_77f"], "max_abs_err": max(x["max_abs_err"] for x in st.values())},
+                    shapes=st))
+
+    # ---- pool_qkv / unpool: (1,12,31200,128) -> 3 x (1,12,15600,128) + picks
+    q, k, v = (randn(1, h, s, d) for _ in range(3))
+    pool = lambda: pool_qkv(q, k, v, groups, active=act, return_picks=True)  # noqa: E731
+    pool_plain = lambda: pool_qkv_ref(q, k, v, groups, active=act)  # noqa: E731
+    got, want = pool(), pool_plain()
+    torch.cuda.synchronize()
+    gaps = pick_gaps(got[3], want[3], q, groups)
+    n_picks = n_act * groups.num_groups * groups.num_kept_margins
+    log(f"pool_qkv picks: {gaps.numel()} of {n_picks} disagree with the plain version's, "
+        f"largest |dsim| {gaps.max().item() if gaps.numel() else 0.0:.3e} "
+        f"(each must be a near-tie, < {PICK_EPS:g})")
+    if gaps.numel() and not gaps.max().item() < PICK_EPS:
+        raise RuntimeError("pool_qkv: a pick disagrees away from a near-tie")
+    # selection only: bitwise equal wherever the picks agree
+    sh = (1, h, groups.num_groups, groups.num_kept_margins)
+    agree = (got[3].reshape(sh) == want[3].reshape(sh)).all(-1)  # (1, H, G)
+    for name, a, w in zip("qkv", got[:3], want[:3]):
+        gsz = groups.num_groups
+        kept_a = a[:, :, gsz:].reshape(*sh, d)[agree]
+        kept_w = w[:, :, gsz:].reshape(*sh, d)[agree]
+        if not (torch.equal(a[:, :, :gsz], w[:, :, :gsz]) and torch.equal(kept_a, kept_w)):
+            raise RuntimeError(f"pool_qkv {name}: pooled rows differ where the picks agree")
+    # the same kernel on bf16 q against the plain version on the unrounded
+    # f32 q: the pick flip rate between a bf16 forward and an f32 one
+    q32 = torch.randn((1, h, s, d), generator=g, device=dev)
+    q16 = q32.to(bf16)
+    flip = pick_gaps(pool_qkv(q16, q16, q16, groups, return_picks=True)[3],
+                     pool_qkv_ref(q32, q32, q32, groups)[3], q32, groups).numel()
+    log(f"pool_qkv picks from bf16 q vs from f32 q: {flip} of "
+        f"{h * groups.num_groups * groups.num_kept_margins} differ")
+    del q32, q16
+    # reads all of q (the matching) but only the center and kept rows of k
+    # and v; writes every head's pooled rows (zeros where inactive) and picks
+    p_bytes = (n_act * (s + 2 * groups.pooled_length) * d * 2
+               + h * (3 * groups.pooled_length * d * 2 + sh[2] * sh[3] * 4))
+    bp_ms, bp_by = bound_ms(0.0, p_bytes, PEAK_BF16)
+    pool_t = dict(ms=time_ms(torch, pool, 20), plain_ms=time_ms(torch, pool_plain, 3, 1),
+                  library_ms=None, bound_ms=bp_ms, bound_by=bp_by, max_abs_err=0.0,
+                  pick_disagreements=gaps.numel(), picks=n_picks, bf16_vs_f32_pick_flips=flip)
+    log(f"pool_qkv: {pool_t}")
+    picks = got[3]
+    out_p = randn(1, h, groups.pooled_length, d)
+    unp = lambda: unpool(out_p, q, groups, active=act, picks=picks)  # noqa: E731
+    unp_plain = lambda: unpool_ref(out_p, q, groups, active=act, picks=picks)  # noqa: E731
+    if not torch.equal(unp(), unp_plain()):
+        raise RuntimeError("unpool: kernel and plain version differ (pure selection)")
+    log("unpool (1,12,15600,128) -> (1,12,31200,128): bitwise equal to the plain version")
+    # reads the pooled rows and picks of the active heads, writes every head
+    u_bytes = n_act * (groups.pooled_length * d * 2 + sh[2] * sh[3] * 4) + h * s * d * 2
+    bu_ms, bu_by = bound_ms(0.0, u_bytes, PEAK_BF16)
+    unpool_t = dict(ms=time_ms(torch, unp, 20), plain_ms=time_ms(torch, unp_plain, 3, 1),
+                    library_ms=None, bound_ms=bu_ms, bound_by=bu_by, max_abs_err=0.0)
+    log(f"unpool: {unpool_t}")
+    out.append(dict(name="pool_qkv", route="cuda", source="vorta_tpu_torch/csrc/coreset_pool.cu",
+                    replaces="vorta_tpu/ops/coreset_pallas.py:102", _counter="pool_qkv",
+                    **pool_t))
+    out.append(dict(name="unpool", route="cuda", source="vorta_tpu_torch/csrc/coreset_pool.cu",
+                    replaces="vorta_tpu/ops/coreset_pallas.py:181", _counter="unpool",
+                    **unpool_t))
+    return out
+
 
 def check_model(torch) -> None:
     """2 blocks at Wan-1.3B widths: card (bf16, kernels) vs CPU (f32, plain)."""
@@ -307,6 +524,58 @@ def check_model(torch) -> None:
         f"CPU f32 = {rel:.4f} (tolerance 0.05)")
     if not rel < 0.05:
         raise RuntimeError("model check: the card's forward disagrees with the CPU's")
+
+
+def check_routed_model(torch) -> None:
+    """2 blocks at Wan-1.3B widths routed hard: card (bf16, kernels) vs CPU
+    (f32, plain versions).  The routers' weights are 0 and their biases
+    one-hot logits, so 4 heads go to each expert in both runs."""
+    import dataclasses
+
+    from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
+    # 3,840 tokens; tiles (2, 4, 5) per axis, so the 3-tile STA window is
+    # narrower than the grid on h and w
+    grid = (8, 24, 20)
+    attn = AttentionConfig(latent_shape=grid, sta_tile=(4, 6, 4), sta_window=(3, 3, 3),
+                           lowres_window=(2, 3, 2))
+    ref_model = WanModel(cfg, dtype=torch.float32, device="cpu", seed=5)
+    experts = torch.tensor([0, 1, 2] * 4)
+    with torch.no_grad():
+        for block in ref_model.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(4.0 * torch.eye(3)[experts].reshape(-1))
+    gpu_model = WanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=5)
+    gpu_model.load_state_dict(ref_model.state_dict())
+    g = torch.Generator().manual_seed(6)
+    lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=g)
+    ctx = torch.randn((1, TEXT_LEN, cfg.text_dim), generator=g)
+    t = torch.tensor([700.0])
+    want = ref_model(lat, t, ctx, attn_cfg=attn, routing_mode="hard").sample
+    _build.reset_launches()
+    res = gpu_model(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=attn, routing_mode="hard")
+    got = res.sample.float().cpu()
+    launches = dict(_build.launches)
+    if not (res.expert_ids == experts.numpy()).all():
+        raise RuntimeError(f"routed model check: routing {res.expert_ids}")
+    expected = {"flash": 2, "fused_norm": 5, "prologue": 2, "flash_manual": 4, "sta_pipe": 2,
+                "pool_qkv": 2, "unpool": 2}
+    if launches != expected:
+        raise RuntimeError(f"routed model check: launches {launches} != {expected}")
+    if not torch.isfinite(got).all():
+        raise RuntimeError("routed model check: non-finite output on the card")
+    rel = ((got - want).norm() / want.norm()).item()
+    # bf16 activations against f32 through 2 blocks, as the routing-off check,
+    # plus the lowres picks that bf16 rounding flips (kernels phase: the flip
+    # count) and that then swap a token's own output for its center's
+    log(f"routed model check (2 blocks, 1.3B widths, {grid} = 3,840 tokens, 4 heads per "
+        f"expert): rel L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); "
+        f"launches {launches}")
+    if not rel < 0.05:
+        raise RuntimeError("routed model check: the card's forward disagrees with the CPU's")
 
 
 def run_main_path(torch, card: str):
@@ -340,13 +609,65 @@ def run_main_path(torch, card: str):
     if tuple(lat.shape) != (1, 6, 60, 104, 16) or not torch.isfinite(lat).all():
         raise RuntimeError(f"main path: output {tuple(lat.shape)}, finite "
                            f"{bool(torch.isfinite(lat).all())}")
-    expected = {"flash": 60 * 4, "fused_norm": 61 * 4, "prologue": 30 * 4}
+    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 60 * 4, "fused_norm": 61 * 4,
+                "prologue": 30 * 4}
     if launches != expected:
         raise RuntimeError(f"main path launches {launches} != expected {expected}")
     per_step = res.denoise_s / res.steps
     log(f"main path: Wan-1.3B 30 blocks, 9,360 tokens, 2 UniPC steps x CFG: "
         f"{res.denoise_s:.3f} s ({per_step:.3f} s/step; model build {res.build_s:.1f} s) "
         f"on {card}; output std {lat.std().item():.4f}")
+    return launches, per_step
+
+
+def run_routed_main_path(torch, card: str):
+    """cli.sample at its defaults: 480p x 77f, routing hard, 30 blocks."""
+    import dataclasses
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.cli.sample import main as sample_main
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+
+    t_grid, h_grid, w_grid = GRID_480P_77F
+    warm = WanModel(dataclasses.replace(WAN_1_3B, num_layers=2), dtype=torch.bfloat16,
+                    device="cuda", seed=1)
+    warm(torch.randn((1, t_grid, 2 * h_grid, 2 * w_grid, 16), device="cuda"),
+         torch.tensor([900.0], device="cuda"), torch.randn((1, TEXT_LEN, 4096), device="cuda"),
+         attn_cfg=attention_config("wan-1_3B", GRID_480P_77F), routing_mode="hard")
+    del warm
+    torch.cuda.synchronize()
+
+    out = HERE / "results" / "port_smoke" / "latents_routed.npy"
+    _build.reset_launches()
+    res = sample_main(["--model", "wan-1_3B", "--random_embeds", "--num_inference_steps", "2",
+                       "--seed", "0", "--device", "cuda", "--output", str(out)])
+    launches = dict(_build.launches)
+    lat = res.latents
+    if tuple(lat.shape) != (1, 20, 60, 104, 16) or not torch.isfinite(lat).all():
+        raise RuntimeError(f"routed main path: output {tuple(lat.shape)}, finite "
+                           f"{bool(torch.isfinite(lat).all())}")
+    tables = np.stack(res.routing)  # (forwards, blocks, heads)
+    if tables.shape != (4, 30, 12):
+        raise RuntimeError(f"routed main path: routing tables {tables.shape}")
+    heads = np.bincount(tables.reshape(-1), minlength=3)
+    has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
+    n_fwd = tables.shape[0]
+    expected = {"flash": 30 * n_fwd, "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd,
+                "flash_manual": int(has[0].sum() + has[1].sum()), "sta_pipe": int(has[2].sum()),
+                "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
+    if launches != expected:
+        raise RuntimeError(f"routed main path launches {launches} != expected {expected}")
+    if not (heads > 0).all():
+        raise RuntimeError(f"routed main path: an expert got no head: {heads}")
+    per_step = res.denoise_s / res.steps
+    log(f"routed main path: Wan-1.3B 30 blocks, 31,200 tokens, routing hard, 2 UniPC steps x "
+        f"CFG: {res.denoise_s:.3f} s ({per_step:.3f} s/step; model build {res.build_s:.1f} s) "
+        f"on {card}; heads per expert over the run: full {heads[0]}, lowres {heads[1]}, "
+        f"sta {heads[2]}; launches {launches} (exact); output std {lat.std().item():.4f}")
     return launches, per_step
 
 
@@ -372,6 +693,32 @@ def run_720p_forward(torch, card: str) -> None:
         raise RuntimeError("720p forward: non-finite output")
     log(f"720p x 77f forward (72,000 tokens, 30 blocks, routing off): {dt * 1e3:.1f} ms "
         f"on {card}")
+
+    # bench.py's routed arm: the same forward routed hard by the JAX
+    # package's router trained at this geometry (tile (5, 9, 8)), reading
+    # the timestep embedding of the model it was trained against
+    import numpy as np
+
+    from vorta_tpu_torch.io.from_jax import load_jax_params, load_router_npz
+
+    load_router_npz(model, HERE / ROUTER_720P)
+    load_jax_params(model, HERE / TEMB_720P)
+    routed = AttentionConfig(latent_shape=grid, sta_tile=(5, 9, 8), sta_window=(3, 3, 3),
+                             lowres_window=(2, 3, 2), tau_sparse=0.3)
+    t500 = torch.tensor([500.0], device="cuda")
+    model(lat, t500, ctx, attn_cfg=routed, routing_mode="hard")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = model(lat, t500, ctx, attn_cfg=routed, routing_mode="hard")
+    torch.cuda.synchronize()
+    dt_r = time.time() - t0
+    if not torch.isfinite(res.sample).all():
+        raise RuntimeError("720p routed forward: non-finite output")
+    heads = np.bincount(res.expert_ids.reshape(-1), minlength=3)
+    log(f"720p x 77f forward routed hard ({ROUTER_720P}, {TEMB_720P}, t = 500): "
+        f"{dt_r * 1e3:.1f} ms on {card}; routing off / routed = {dt / dt_r:.3f}; heads over "
+        f"30 blocks: full {heads[0]}, lowres {heads[1]}, sta {heads[2]} (the JAX package: "
+        f"full {JAX_MIX_720P[0]}, lowres {JAX_MIX_720P[1]}, sta {JAX_MIX_720P[2]})")
 
 
 if __name__ == "__main__":

@@ -194,8 +194,21 @@ def test_prologue_equals_unfused_path():
 
 def test_cpu_wrappers_launch_nothing():
     """On CPU tensors the wrappers run the plain versions: no build, no count."""
+    from vorta_tpu_torch.geometry import build_lowres_groups
+    from vorta_tpu_torch.ops.coreset_pallas import pool_qkv, unpool
+    from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual
+    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention
+
     _build.reset_launches()
     x = torch.ones((1, 16, 128))
     fused_norm(x, None, None, None, None, False, 1e-6, False)
+    q = torch.ones((1, 2, 64, 64))
+    tab = dense_tables(2, 2)
+    sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count, block_q=32, block_kv=32)
+    sta_pipe_attention(q, q, q, torch.ones(2), latent_shape=(4, 4, 4), tile=(2, 2, 2))
+    groups = build_lowres_groups((4, 4, 4), (2, 2, 2))
+    pq, pk, pv, picks = pool_qkv(q, q, q, groups, return_picks=True)
+    unpool(pq, q, groups, picks=picks)
     assert sum(_build.launches.values()) == 0
+    assert set(_build.launches) == set(_build.KERNELS)
     assert not _build._libs

@@ -1,28 +1,51 @@
 """Where one Wan forward's device time goes, on the GPU.
 
-Runs the routing-off model (random weights from a seed) once to warm up,
-then once under ``torch.profiler``, and prints the device time per kernel
-group (the port's three kernels, matmuls, the rest), the top kernels by
-device time, and the device's idle share over the profiled forward.
+Runs the model (random weights from a seed) once to warm up, then once
+under ``torch.profiler``, and prints the device time per kernel group (the
+port's kernels, matmuls, the rest), the top kernels by device time, and the
+device's idle share over the profiled forward.  ``--routing hard`` routes
+each head with the CLI's attention geometry (``--sta_tile`` overrides the
+tile) and random routers, or the routers of ``--router`` (an npz of the JAX
+package's router training, io/from_jax.load_router_npz).  Those routers
+were trained against the JAX benchmark model (``nnx.Rngs(0)``) and read its
+timestep embedding, so ``--router`` also loads that model's time embedder
+(``port_assets/``, io/from_jax.load_jax_params).
 
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 21 --height 480 --width 832
+  python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --routing hard
+  python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --height 720 --width 1280 \
+      --routing hard --sta_tile 5 9 8 --t 500 \
+      --router assets/bench_router_wan1_3b_720p_half.npz
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..config import WAN_1_3B, AttentionConfig
 from ..device import resolve_device
 from ..geometry import WAN_GEOMETRY
+from ..io.from_jax import load_jax_params, load_router_npz
 from ..models.wan import WanModel
+from .sample import attention_config
 
-GROUPS = (
+# the time embedder of the model the JAX package's routers were trained against
+TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
+                 / "wan1_3b_time_embedder_rngs0.npz")
+
+GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("flash", ("flash_fwd_kernel",)),
+    ("flash_manual", ("flash_manual_kernel",)),
+    ("sta_pipe", ("sta_kernel",)),
+    ("unpool", ("unpool_kernel",)),
+    ("pool_qkv", ("pool_kernel",)),
     ("fused_norm", ("fused_norm_kernel",)),
     ("qk_prologue", ("prologue_kernel",)),
     ("matmul", ("gemm", "sm90_xmma", "cutlass", "nvjet", "cublas", "conv")),
@@ -43,6 +66,10 @@ def main(argv=None) -> dict:
     p.add_argument("--num_frames", type=int, default=21)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=832)
+    p.add_argument("--routing", default="off", choices=["off", "hard"])
+    p.add_argument("--sta_tile", type=int, nargs=3, default=None)
+    p.add_argument("--router", default=None, help="router npz (routing hard)")
+    p.add_argument("--t", type=float, default=900.0, help="timestep")
     args = p.parse_args(argv)
 
     from torch.profiler import ProfilerActivity, profile
@@ -55,14 +82,21 @@ def main(argv=None) -> dict:
     lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], cfg.in_channels), generator=g,
                       device=device)
     ctx = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g, device=device)
-    t = torch.tensor([900.0], device=device)
+    t = torch.tensor([args.t], device=device)
     attn = AttentionConfig(latent_shape=grid)
+    if args.routing == "hard":
+        attn = attention_config("wan-1_3B", grid)
+        if args.sta_tile:
+            attn = dataclasses.replace(attn, sta_tile=tuple(args.sta_tile))
+        if args.router:
+            load_router_npz(model, args.router)
+            load_jax_params(model, TIME_EMBEDDER)
     with torch.inference_mode():
-        model(lat, t, ctx, attn_cfg=attn)
+        model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model(lat, t, ctx, attn_cfg=attn)
+            out = model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -79,8 +113,14 @@ def main(argv=None) -> dict:
         acc = groups.setdefault(gname, [0.0, 0])
         acc[0] += ms
         acc[1] += n
+    heads = None
+    if args.routing == "hard":
+        heads = dict(zip(("full", "lowres", "sta"),
+                         np.bincount(out.expert_ids.reshape(-1), minlength=3).tolist()))
     result = {
         "tokens": grid[0] * grid[1] * grid[2], "layers": cfg.num_layers,
+        "routing": args.routing, "t": args.t, "sta_tile": attn.sta_tile if heads else None,
+        "heads_per_expert": heads,
         "wall_ms": wall_ms, "device_ms": device_ms,
         "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "groups": {k: {"ms": v[0], "launches": v[1], "share": v[0] / device_ms}

@@ -1,14 +1,17 @@
 """Text-to-video latent sampling on the GPU (counterpart of cli/sample.py).
 
-This slice serves full attention (``--native_attention``, the baseline that
-routing's speed-up is measured against); routed sampling is the next port
-slice.  Conditioning comes from ``--prompt_embeds x.npy`` (UMT5 states,
-(L, text_dim) or (1, L, text_dim)) or ``--random_embeds``.  Weights are
-random, drawn from ``--seed``.  Writes the final latents as .npy.
+Each head of each block is routed per step to its expert (full, lowres or
+sliding-tile attention; ``--tau_sparse`` is the confidence below which a
+head falls back to full attention) unless ``--native_attention`` asks for
+full attention everywhere, the baseline of routing's speed-up.
+Conditioning comes from ``--prompt_embeds x.npy`` (UMT5 states,
+(L, text_dim) or (1, L, text_dim)) or ``--random_embeds``.  Weights, the
+routers' among them, are random, drawn from ``--seed``.  Writes the final
+latents as .npy and prints the heads routed to each expert.
 
 Example:
-  python -m vorta_tpu_torch.cli.sample --model wan-1_3B --native_attention \\
-      --random_embeds --num_frames 21 --num_inference_steps 2 --output out.npy
+  python -m vorta_tpu_torch.cli.sample --model wan-1_3B --random_embeds \\
+      --num_frames 77 --num_inference_steps 2 --output out.npy
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ def parse_args(argv=None):
     p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--native_attention", action="store_true",
-                   help="full 3D attention (routing off); required in this slice")
+                   help="full 3D attention baseline (routing off)")
+    p.add_argument("--tau_sparse", type=float, default=0.3)
     p.add_argument("--prompt_embeds", default=None, help=".npy UMT5 states (L, text_dim)")
     p.add_argument("--random_embeds", action="store_true")
     p.add_argument("--num_frames", type=int, default=77)
@@ -64,14 +68,14 @@ def load_embeds(path, cfg) -> np.ndarray:
     return arr[:, : cfg.text_len]
 
 
-def attention_config(model: str, grid) -> AttentionConfig:
+def attention_config(model: str, grid, tau_sparse: float = 0.3) -> AttentionConfig:
     """The JAX CLI's attention geometry for a fresh run (no resume dir)."""
     if model == "wan-tiny":
         return AttentionConfig(latent_shape=grid, sta_tile=(2, 2, 2), sta_window=(3, 3, 1),
                                lowres_window=(2, 2, 2), block_q=16, block_kv=16,
-                               sta_block_q=8, sta_block_kv=8)
+                               sta_block_q=8, sta_block_kv=8, tau_sparse=tau_sparse)
     return AttentionConfig(latent_shape=grid, sta_tile=(4, 6, 4), sta_window=(3, 3, 3),
-                           lowres_window=(2, 3, 2))
+                           lowres_window=(2, 3, 2), tau_sparse=tau_sparse)
 
 
 @dataclasses.dataclass
@@ -80,20 +84,21 @@ class SampleResult:
     build_s: float  # model, embeddings and noise made, synchronised
     denoise_s: float  # the sampling loop, synchronised
     steps: int
+    # one (num_layers, H) table of expert ids per hard-routed forward
+    routing: list = dataclasses.field(default_factory=list)
 
 
 def main(argv=None) -> SampleResult:
     """Runs the sampler and writes the final latents as .npy."""
     args = parse_args(argv)
-    if not args.native_attention:
-        raise NotImplementedError(
-            "routed sampling is the next port slice; pass --native_attention")
     device = resolve_device(args.device)
     model_cfg = MODELS[args.model]
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     grid = WAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
-    attn_cfg = attention_config(args.model, grid)
-    print(f"[sample] model={args.model} grid={grid} routing=off device={device}", flush=True)
+    attn_cfg = attention_config(args.model, grid, args.tau_sparse)
+    routing_mode = "off" if args.native_attention else "hard"
+    print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}",
+          flush=True)
 
     t0 = time.time()
     model = WanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
@@ -117,19 +122,24 @@ def main(argv=None) -> SampleResult:
 
     sampling = SamplingConfig(
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
-        flow_shift=args.flow_shift, scheduler=args.scheduler, routing_mode="off")
+        flow_shift=args.flow_shift, scheduler=args.scheduler, routing_mode=routing_mode)
+    routing = []
     t0 = time.time()
-    final = pipe(latents, pe, ne, sampling=sampling)
+    final = pipe(latents, pe, ne, sampling=sampling, routing=routing)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     print(f"[sample] denoised in {dt:.2f}s ({dt / args.num_inference_steps:.3f}s/step)",
           flush=True)
+    if routing:
+        heads = np.bincount(np.concatenate([r.reshape(-1) for r in routing]), minlength=3)
+        print(f"[sample] heads routed over {len(routing)} forwards: full {heads[0]}, "
+              f"lowres {heads[1]}, sta {heads[2]}", flush=True)
     out = Path(args.output).with_suffix(".npy")
     out.parent.mkdir(parents=True, exist_ok=True)
     np.save(out, final.cpu().numpy())
     print(f"[sample] wrote {out}", flush=True)
-    return SampleResult(final, build_s, dt, args.num_inference_steps)
+    return SampleResult(final, build_s, dt, args.num_inference_steps, routing)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,236 @@
+// Coreset pooling of the low-resolution attention expert, for Hopper
+// (sm_90a): pool (q, k, v) -> pooled sequences + picks, and unpool.
+//
+// Replaces vorta_tpu/ops/coreset_pallas.py:_pool_kernel (reached through
+// pool_qkv) and :_unpool_kernel (reached through unpool), in their
+// "active" mode with picks.  Same function: per non-overlapping
+// (wt, wh, ww) window ("group") of the raster grid, rank the margin slots
+// by (c.m) * rsqrt(max(|m|^2, 1e-24)) in f32 from Q (c the center slot),
+// the center excluded by a +inf sentinel, then U arg-min passes with ties to
+// the lower slot; K and V share Q's picks.  Pooled layout:
+// [G centers | G*U kept margins, group-major, least similar first]; picks:
+// (B, H, G, U) int32 slot ids, the TPU's (B, H, T2, H3, W2, U).  Unpool
+// writes each slot its kept value if picked, else its group center.
+// Inactive heads write zeros.  Values are moved, never computed: pooled
+// and unpooled rows equal their sources bit for bit.
+//
+// Bound on this card: bytes.  At Wan-1.3B 480p x 77f (31,200 tokens,
+// d = 128, window (2, 3, 2): 2,600 groups of 12, U = 5) pool reads all of
+// Q (8 MB) and only the 15,600 center and kept rows of K and V (2 x 4 MB),
+// and writes 3 x 4 MB per head: 28 MB, 8.4 us at 3.35 TB/s; unpool reads
+// 4 MB and writes 8 MB per head (3.6 us).  Design: one warp per group, each lane
+// holding d / 32 elements of a row, so a row is one coalesced 256-byte
+// access; the similarity sums reduce by warp shuffles, lane s keeps slot
+// s's similarity (a group has at most 32 slots) and the arg-min passes are
+// warp reductions.  No shared memory.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int WARPS = 8;  // groups per block
+
+// d / 32 bf16 elements per lane as one load
+template <int D>
+using LaneVec = typename std::conditional<D == 128, uint2, uint32_t>::type;
+
+struct Group {
+  int g2t, g2h, g2w;
+  __device__ Group(int g, int HH, int W, int wh, int ww)
+      : g2t(g / ((HH / wh) * (W / ww))), g2h((g / (W / ww)) % (HH / wh)), g2w(g % (W / ww)) {}
+  // raster token of slot s (raster order inside the window)
+  __device__ int token(int s, int wt, int wh, int ww, int HH, int W) const {
+    return ((g2t * wt + s / (wh * ww)) * HH + g2h * wh + (s / ww) % wh) * W + g2w * ww + s % ww;
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void copy_row(__nv_bfloat16* dst, const __nv_bfloat16* src, int lane) {
+  static_assert(sizeof(LaneVec<D>) == D / 32 * 2, "lane vector width");
+  reinterpret_cast<LaneVec<D>*>(dst)[lane] = reinterpret_cast<const LaneVec<D>*>(src)[lane];
+}
+
+template <int D>
+__device__ __forceinline__ void zero_row(__nv_bfloat16* dst, int lane) {
+  reinterpret_cast<LaneVec<D>*>(dst)[lane] = LaneVec<D>{};
+}
+
+template <int D>
+__device__ __forceinline__ void load_f32(float* x, const __nv_bfloat16* src, int lane) {
+  constexpr int EPL = D / 32;
+#pragma unroll
+  for (int e = 0; e < EPL; ++e) x[e] = __bfloat162float(src[lane * EPL + e]);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_min(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32)
+pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ pq,
+            __nv_bfloat16* __restrict__ pk, __nv_bfloat16* __restrict__ pv,
+            int* __restrict__ picks, const int* __restrict__ active, int H, int T, int HH, int W,
+            int wt, int wh, int ww, int U) {
+  constexpr int EPL = D / 32;
+  const int lane = threadIdx.x % 32;
+  const int gs = wt * wh * ww, G = (T / wt) * (HH / wh) * (W / ww);
+  const int g = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (g >= G) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const size_t in0 = bh * T * HH * W, out0 = bh * G * (1 + U);
+  const int cs = (wt / 2) * wh * ww + (wh / 2) * ww + ww / 2;
+  const Group grp(g, HH, W, wh, ww);
+  auto src = [&](const __nv_bfloat16* x, int s) {
+    return x + (in0 + grp.token(s, wt, wh, ww, HH, W)) * D;
+  };
+  auto dst_row = [&](int i) { return (out0 + (i < 0 ? g : G + g * U + i)) * D; };
+
+  if (active[h] == 0) {
+    for (int i = -1; i < U; ++i) {
+      zero_row<D>(pq + dst_row(i), lane);
+      zero_row<D>(pk + dst_row(i), lane);
+      zero_row<D>(pv + dst_row(i), lane);
+    }
+    if (lane < U) picks[(bh * G + g) * U + lane] = 0;
+    return;
+  }
+
+  // similarity of every slot to the center, from Q, in f32
+  float c[EPL], x[EPL];
+  load_f32<D>(c, src(q, cs), lane);
+  float my_sim = CUDART_INF_F;  // lane s holds slot s; the center and lanes >= gs stay +inf
+  for (int s = 0; s < gs; ++s) {
+    load_f32<D>(x, src(q, s), lane);
+    float dot = 0.f, sq = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) {
+      dot += x[e] * c[e];
+      sq += x[e] * x[e];
+    }
+    dot = warp_sum(dot);
+    sq = warp_sum(sq);
+    if (lane == s && s != cs) my_sim = dot * rsqrtf(fmaxf(sq, 1e-24f));
+  }
+
+  copy_row<D>(pq + dst_row(-1), src(q, cs), lane);
+  copy_row<D>(pk + dst_row(-1), src(k, cs), lane);
+  copy_row<D>(pv + dst_row(-1), src(v, cs), lane);
+  for (int i = 0; i < U; ++i) {
+    const float m = warp_min(my_sim);
+    const int pick = warp_min(my_sim <= m ? lane : 32);  // ties to the lower slot
+    if (lane == pick) my_sim = CUDART_INF_F;
+    if (lane == 0) picks[(bh * G + g) * U + i] = pick;
+    copy_row<D>(pq + dst_row(i), src(q, pick), lane);
+    copy_row<D>(pk + dst_row(i), src(k, pick), lane);
+    copy_row<D>(pv + dst_row(i), src(v, pick), lane);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32)
+unpool_kernel(const __nv_bfloat16* __restrict__ pooled, const int* __restrict__ picks,
+              const int* __restrict__ active, __nv_bfloat16* __restrict__ out, int H, int T,
+              int HH, int W, int wt, int wh, int ww, int U) {
+  const int lane = threadIdx.x % 32;
+  const int gs = wt * wh * ww, G = (T / wt) * (HH / wh) * (W / ww);
+  const int g = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (g >= G) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const size_t out0 = bh * T * HH * W, in0 = bh * G * (1 + U);
+  const Group grp(g, HH, W, wh, ww);
+  const bool on = active[h] != 0;
+  const int my_pick = (on && lane < U) ? picks[(bh * G + g) * U + lane] : -1;
+  for (int s = 0; s < gs; ++s) {
+    __nv_bfloat16* dst = out + (out0 + grp.token(s, wt, wh, ww, HH, W)) * D;
+    if (!on) {
+      zero_row<D>(dst, lane);
+      continue;
+    }
+    size_t row = g;  // dropped slots and the center take the center
+    for (int i = 0; i < U; ++i)
+      if (__shfl_sync(0xffffffffu, my_pick, i) == s) row = G + static_cast<size_t>(g) * U + i;
+    copy_row<D>(dst, pooled + (in0 + row) * D, lane);
+  }
+}
+
+bool bad_shape(int T, int HH, int W, int D, int wt, int wh, int ww, int U) {
+  return T % wt || HH % wh || W % ww || (D != 64 && D != 128) || wt * wh * ww > 32 || U < 0 ||
+         U >= wt * wh * ww;
+}
+
+dim3 grid_of(int B, int H, int T, int HH, int W, int wt, int wh, int ww) {
+  const int G = (T / wt) * (HH / wh) * (W / ww);
+  return dim3((G + WARPS - 1) / WARPS, H, B);
+}
+
+}  // namespace
+
+// q, k, v: contiguous raster (B, H, T*HH*W, D) bf16; pq, pk, pv: (B, H,
+// G*(1+U), D) bf16; picks: (B, H, G, U) int32; active: (H,) int32.
+extern "C" int vorta_coreset_pool_bf16(const void* q, const void* k, const void* v, void* pq,
+                                       void* pk, void* pv, void* picks, const void* active,
+                                       int B, int H, int T, int HH, int W, int D, int wt, int wh,
+                                       int ww, int U, void* stream) {
+  if (bad_shape(T, HH, W, D, wt, wh, ww, U)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = grid_of(B, H, T, HH, W, wt, wh, ww);
+  auto st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  auto* qq = static_cast<const bf*>(q);
+  auto* kk = static_cast<const bf*>(k);
+  auto* vv = static_cast<const bf*>(v);
+  auto* oq = static_cast<bf*>(pq);
+  auto* ok = static_cast<bf*>(pk);
+  auto* ov = static_cast<bf*>(pv);
+  auto* pi = static_cast<int*>(picks);
+  auto* act = static_cast<const int*>(active);
+  if (D == 128)
+    pool_kernel<128><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, H, T, HH, W,
+                                                  wt, wh, ww, U);
+  else
+    pool_kernel<64><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, H, T, HH, W,
+                                                 wt, wh, ww, U);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pooled: contiguous (B, H, G*(1+U), D) bf16; picks: (B, H, G, U) int32;
+// active: (H,) int32; out: raster (B, H, T*HH*W, D) bf16.
+extern "C" int vorta_coreset_unpool_bf16(const void* pooled, const void* picks,
+                                         const void* active, void* out, int B, int H, int T,
+                                         int HH, int W, int D, int wt, int wh, int ww, int U,
+                                         void* stream) {
+  if (bad_shape(T, HH, W, D, wt, wh, ww, U)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = grid_of(B, H, T, HH, W, wt, wh, ww);
+  auto st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  auto* pp = static_cast<const bf*>(pooled);
+  auto* pi = static_cast<const int*>(picks);
+  auto* act = static_cast<const int*>(active);
+  auto* oo = static_cast<bf*>(out);
+  if (D == 128)
+    unpool_kernel<128><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, oo, H, T, HH, W, wt, wh, ww, U);
+  else
+    unpool_kernel<64><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, oo, H, T, HH, W, wt, wh, ww, U);
+  return static_cast<int>(cudaGetLastError());
+}

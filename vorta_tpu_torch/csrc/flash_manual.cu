@@ -1,0 +1,167 @@
+// Block-sparse flash attention forward with an exact per-row kv loop and
+// the fast softmax, for Hopper (sm_90a).
+//
+// Replaces vorta_tpu/ops/flash_manual.py:_kernel (reached through
+// sparse_flash_attention_manual) in its routed-expert form: for q block i of
+// head h, visit the kv blocks kv_index[th, i, :kv_count[tc, i]] (th / tc = 0
+// when the index table / the counts are shared by all heads), so a row
+// routed away (count 0) costs one block launch and writes zeros.  q arrives
+// pre-scaled by scale * log2(e) (rounded to bf16 by the wrapper, as the JAX
+// wrapper rounds it); p = exp2(q.k) with no running max (qk-normed inputs),
+// masked entries give p = 0, a kv_valid_len tail mask on block
+// kv_valid_len // block_kv only, P rounded to bf16 before the PV product,
+// rows normalised by l (l == 0 -> 0).
+//
+// Bound on this card: the FULL expert at Wan-1.3B 480p x 77f (31,200
+// tokens, d = 128) does 4 * 31,200^2 * 128 = 5.0e11 FLOP per routed head
+// against 24 MB of operands, so the tensor cores bound it (0.504 ms per head
+// at 989 TFLOP/s bf16).  Design: the tile code of csrc/flash.cu
+// (mma.sync m16n8k16, Q fragments in registers for the whole sweep, 64-row
+// K/V sub-tiles in shared memory shared by the block's 4 warps); without
+// the running max there is no rescaling of the accumulator, so each
+// sub-tile costs the two products, one exp2 per score and the row sums.
+// Simple first: no wgmma, TMA or cp.async pipelining yet.
+#include "mma_bf16.cuh"
+
+namespace {
+
+using namespace vorta;
+
+constexpr int BLOCK_N = 64;  // kv rows per shared-memory sub-tile
+
+template <int D, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                    const int* __restrict__ kv_index, const int* __restrict__ kv_count, int H,
+                    int Sq, int Skv, int nq, int width, int shared_idx, int shared_cnt,
+                    int block_q, int block_kv, int last_block, int valid_in_block) {
+  constexpr int BLOCK_M = 16 * WARPS;
+  constexpr int LDS = D + 8;  // padded row: conflict-free ldmatrix
+  constexpr int NT_S = BLOCK_N / 8;
+  constexpr int NT_O = D / 8;
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_N * LDS];
+  __shared__ __align__(16) __nv_bfloat16 Vs[BLOCK_N * LDS];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * BLOCK_M;
+  const int qi = row0 / block_q;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const __nv_bfloat16* qp = q + (bh * Sq + row0 + warp * 16) * D;
+  const __nv_bfloat16* kp = k + bh * Skv * D;
+  const __nv_bfloat16* vp = v + bh * Skv * D;
+
+  uint32_t qa[D / 16][4];
+  load_q_frags<D>(qa, qp + g * D, qp + (g + 8) * D, t);
+  float oacc[NT_O][4];
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float l_part[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  const int count = kv_count[(shared_cnt ? 0 : h) * nq + qi];
+  const int* idx = kv_index + static_cast<size_t>((shared_idx ? 0 : h) * nq + qi) * width;
+
+  for (int j = 0; j < count; ++j) {
+    const int kvb = idx[j];
+    const int limit_blk = (kvb == last_block) ? valid_in_block : block_kv;
+    for (int n0 = 0; n0 < block_kv; n0 += BLOCK_N) {
+      const int rows = min(BLOCK_N, block_kv - n0);
+      const int nvalid = min(rows, limit_blk - n0);
+      if (nvalid <= 0) continue;  // fully masked: adds nothing to acc or l
+      const size_t base = static_cast<size_t>(kvb) * block_kv + n0;
+      __syncthreads();  // previous sub-tile fully consumed
+      for (int e = tid; e < BLOCK_N * CHUNKS; e += WARPS * 32) {
+        const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
+        uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+        if (r < rows) {
+          kv4 = *reinterpret_cast<const uint4*>(kp + (base + r) * D + c);
+          vv4 = *reinterpret_cast<const uint4*>(vp + (base + r) * D + c);
+        }
+        *reinterpret_cast<uint4*>(Ks + r * LDS + c) = kv4;
+        *reinterpret_cast<uint4*>(Vs + r * LDS + c) = vv4;
+      }
+      __syncthreads();
+
+      float s[NT_S][4];
+      qk_tile<D, NT_S, LDS>(s, qa, Ks, lane);
+#pragma unroll
+      for (int n = 0; n < NT_S; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n * 8 + 2 * t + (e & 1);
+          const float p = (col < nvalid) ? exp2f(s[n][e]) : 0.f;
+          s[n][e] = p;
+          l_part[e >> 1] += p;
+        }
+      }
+      pv_tile<D, NT_S, LDS>(oacc, s, Vs, lane);
+    }
+  }
+
+  const float l0 = row_sum(l_part[0]), l1 = row_sum(l_part[1]);
+  __nv_bfloat16* op = out + (bh * Sq + row0 + warp * 16) * D;
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) {
+    const int c = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(op + g * D + c) = pack_bf16(oacc[n][0] / l0, oacc[n][1] / l0);
+    *reinterpret_cast<uint32_t*>(op + (g + 8) * D + c) =
+        pack_bf16(oacc[n][2] / l1, oacc[n][3] / l1);
+  }
+}
+
+template <int D, int WARPS>
+cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __nv_bfloat16* k,
+                   const __nv_bfloat16* v, __nv_bfloat16* out, const int* ki, const int* kc,
+                   int H, int Sq, int Skv, int nq, int width, int shared_idx, int shared_cnt,
+                   int block_q, int block_kv, int last_block, int valid_in_block) {
+  flash_manual_kernel<D, WARPS><<<grid, WARPS * 32, 0, st>>>(
+      q, k, v, out, ki, kc, H, Sq, Skv, nq, width, shared_idx, shared_cnt, block_q, block_kv,
+      last_block, valid_in_block);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q (pre-scaled), k, v, out: contiguous (B, H, S, D) bf16.  kv_index
+// (idx_heads, nq, width), kv_count (cnt_heads, nq): int32 on the device,
+// idx_heads / cnt_heads 1 or H.  Returns the CUDA error code.
+extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const void* v,
+                                           void* out, const void* kv_index,
+                                           const void* kv_count, int B, int H, int Sq, int Skv,
+                                           int D, int idx_heads, int cnt_heads, int nq,
+                                           int width, int block_q, int block_kv,
+                                           int kv_valid_len, void* stream) {
+  if (Sq % block_q || Skv % block_kv || block_q % 16 || (D != 64 && D != 128) ||
+      (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
+      nq != Sq / block_q)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = (block_q % 64 == 0) ? 4 : 1;
+  const int has_tail = kv_valid_len % block_kv != 0;
+  const int last_block = has_tail ? kv_valid_len / block_kv : -1;
+  const int valid_in_block = kv_valid_len % block_kv;
+  const dim3 grid(Sq / (16 * warps), H, B);
+  auto* qq = static_cast<const __nv_bfloat16*>(q);
+  auto* kk = static_cast<const __nv_bfloat16*>(k);
+  auto* vv = static_cast<const __nv_bfloat16*>(v);
+  auto* oo = static_cast<__nv_bfloat16*>(out);
+  auto* ki = static_cast<const int*>(kv_index);
+  auto* kc = static_cast<const int*>(kv_count);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int si = idx_heads == 1, sc = cnt_heads == 1;
+  cudaError_t err;
+  if (D == 128)
+    err = warps == 4 ? launch<128, 4>(grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, si,
+                                      sc, block_q, block_kv, last_block, valid_in_block)
+                     : launch<128, 1>(grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, si,
+                                      sc, block_q, block_kv, last_block, valid_in_block);
+  else
+    err = warps == 4 ? launch<64, 4>(grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, si,
+                                     sc, block_q, block_kv, last_block, valid_in_block)
+                     : launch<64, 1>(grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, si,
+                                     sc, block_q, block_kv, last_block, valid_in_block);
+  return static_cast<int>(err);
+}

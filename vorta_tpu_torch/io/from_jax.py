@@ -16,11 +16,19 @@ jax; this module takes only numpy.
   * router parameters come along.
 
 A missing or extra key, or a shape that does not match, raises.
+
+``load_router_npz`` carries only the routers, from the npz files of the JAX
+package's router training (``bench.py:load_router_npz``'s input, e.g.
+``assets/bench_router_wan1_3b_720p_half.npz``), into a built model.
+``load_jax_params`` carries any subset of the parameters into a built
+model, e.g. ``port_assets/wan1_3b_time_embedder_rngs0.npz``, the time
+embedder that the trained router was trained against.
 """
 
 from __future__ import annotations
 
 import re
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,25 +56,31 @@ def _convert(parts: list, arr: np.ndarray) -> tuple:
     return name, arr
 
 
-def wan_state_from_jax(flat: dict, cfg: WanModelConfig) -> dict:
-    """{keystr path: array} of the JAX WanModel -> the port's state_dict."""
-    from ..models.wan import WanModel
-
+def _flat_to_state(flat, num_layers: int) -> dict:
+    """{keystr path: array} -> {port parameter name: tensor}, blocks unstacked."""
     state = {}
-    for key, arr in flat.items():
+    for key in flat:
         parts = _PART.findall(key)
         if not parts:
             raise KeyError(f"not a keystr path: {key!r}")
-        arr = np.asarray(arr)
+        arr = np.asarray(flat[key])
         if parts[0] == "blocks":
-            if arr.shape[0] != cfg.num_layers:
-                raise ValueError(f"{key}: leading axis {arr.shape[0]} != {cfg.num_layers} layers")
-            for i in range(cfg.num_layers):
+            if arr.shape[0] != num_layers:
+                raise ValueError(f"{key}: leading axis {arr.shape[0]} != {num_layers} layers")
+            for i in range(num_layers):
                 name, a = _convert(parts[1:], arr[i])
                 state[f"blocks.{i}.{name}"] = _to_tensor(a)
         else:
             name, a = _convert(parts, arr)
             state[name] = _to_tensor(a)
+    return state
+
+
+def wan_state_from_jax(flat: dict, cfg: WanModelConfig) -> dict:
+    """{keystr path: array} of the JAX WanModel -> the port's state_dict."""
+    from ..models.wan import WanModel
+
+    state = _flat_to_state(flat, cfg.num_layers)
     for i in range(cfg.num_layers):
         for p in ("weight", "bias"):
             keys = [f"blocks.{i}.attn1.to_{n}.{p}" for n in "qkv"]
@@ -82,3 +96,51 @@ def wan_state_from_jax(flat: dict, cfg: WanModelConfig) -> dict:
         if tuple(t.shape) != tuple(state[name].shape):
             raise ValueError(f"{name}: {tuple(state[name].shape)} != {tuple(t.shape)}")
     return state
+
+
+ROUTER_KEYS = {
+    "weight": "['blocks']['router']['linear']['kernel'].value",  # (L, dim, H*E)
+    "bias": "['blocks']['router']['linear']['bias'].value",  # (L, H*E)
+}
+
+
+def load_router_npz(model, source) -> None:
+    """Set every block's router of the port's ``WanModel`` from the stacked
+    JAX router arrays: ``source`` is an npz path or a {keystr: array}
+    mapping.  A missing key, a missing block or a wrong shape raises."""
+    data = np.load(source) if isinstance(source, (str, Path)) else source
+    n, dim = len(model.blocks), model.cfg.dim
+    out = model.blocks[0].router.linear.out_features
+    want = {"weight": (n, dim, out), "bias": (n, out)}
+    arrays = {}
+    for name, key in ROUTER_KEYS.items():
+        if key not in data:
+            raise KeyError(f"router key {key!r} missing")
+        arrays[name] = np.asarray(data[key], np.float32)
+        if arrays[name].shape != want[name]:
+            raise ValueError(f"{key}: shape {arrays[name].shape} != {want[name]} "
+                             f"({n} blocks, dim {dim}, {out} router outputs)")
+    with torch.no_grad():
+        for i, block in enumerate(model.blocks):
+            lin = block.router.linear
+            lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(arrays["weight"][i].T)))
+            lin.bias.copy_(torch.from_numpy(arrays["bias"][i]))
+
+
+def load_jax_params(model, source) -> None:
+    """Set the parameters that ``source`` (an npz path or a {keystr: array}
+    mapping of JAX WanModel paths) names, and no others, in the port's
+    built ``WanModel``.  A path the model does not have or a wrong shape
+    raises before anything is set."""
+    data = np.load(source) if isinstance(source, (str, Path)) else source
+    state = _flat_to_state(data, len(model.blocks))
+    params = model.state_dict()
+    unknown = sorted(set(state) - set(params))
+    if unknown:
+        raise KeyError(f"the model has no parameter {unknown[:8]}")
+    for name, t in state.items():
+        if tuple(t.shape) != tuple(params[name].shape):
+            raise ValueError(f"{name}: {tuple(t.shape)} != {tuple(params[name].shape)}")
+    with torch.no_grad():
+        for name, t in state.items():
+            params[name].copy_(t)

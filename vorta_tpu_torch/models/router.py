@@ -2,8 +2,8 @@
 
 Maps the pre-projection timestep embedding to a per-head distribution over
 the three attention experts: SiLU -> Linear -> softmax.  Its parameters live
-in every block and carry across from the JAX model; the routing-off path
-never calls it.
+in every block and carry across from the JAX model (io/from_jax.py); only
+the routed modes call it.
 """
 
 from __future__ import annotations

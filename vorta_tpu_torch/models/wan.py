@@ -1,12 +1,16 @@
 """Wan 2.1 video Diffusion Transformer in PyTorch (counterpart of
-vorta_tpu/models/wan.py), routing-off serving path.
+vorta_tpu/models/wan.py), serving path.
 
 Channels-last latents (B, T, H, W, C) in, the same layout out.  The 30
 blocks are an ``nn.ModuleList`` walked by a Python loop (the JAX model
-stacks them and scans).  Self-attention runs full attention through the
-flash kernel; hard or soft routing belongs to the next port slice and
-raises NotImplementedError.  No sequence parallelism, step cache, quantized
-blocks, I2V image branch or training losses in this slice.
+stacks them and scans).  Self-attention runs full attention
+(``routing_mode="off"``) or routes each head to an expert
+(``"hard"``, the serving path; ``"hard_ref"`` and ``"soft"``, the oracles).
+Every block's router reads only the timestep embedding, so all blocks'
+routing is made at the start of the forward and brought to the host once
+per forward: each block then launches only the experts that have heads.
+No sequence parallelism, step cache, quantized blocks, I2V image branch or
+training losses in this slice.
 """
 
 from __future__ import annotations
@@ -21,9 +25,10 @@ from torch import nn
 
 from ..config import AttentionConfig, WanModelConfig
 from ..device import resolve_device
-from ..ops.experts import full_attention, padded_dense_attention
+from ..ops.experts import full_attention, padded_dense_attention, routed_attention
 from ..ops.prologue import fused_qk_prologue, use_fused_prologue
 from ..ops.qmm import FusedLinear
+from ..ops.routed_fused import route_expert_ids
 from ..ops.rope import apply_rope_half, rope_cos_sin
 from .common import (
     FP32LayerNorm,
@@ -36,16 +41,17 @@ from .common import (
 )
 from .router import Router
 
-
-def _routing_not_ported(routing_mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"routing_mode={routing_mode!r}: routed attention is the next port slice; "
-        "this slice serves routing_mode='off'")
+ROUTING_MODES = ("off", "hard", "hard_ref", "soft")
 
 
 @dataclasses.dataclass
 class WanOutput:
     sample: torch.Tensor  # (B, T, H, W, C) latent-space prediction
+    # (num_layers, B, H, E) router scores with return_scores (zeros when
+    # routing is off, as in the JAX model)
+    routing_scores: Optional[torch.Tensor] = None
+    # (num_layers, H) expert ids of a hard-routed forward, on the host
+    expert_ids: Optional[np.ndarray] = None
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -71,12 +77,13 @@ class WanSelfAttention(nn.Module):
         self.norm_k = RMSNorm(dim, cfg.eps, device=device) if cfg.qk_norm else None
 
     def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
-                attn_cfg: AttentionConfig) -> torch.Tensor:
+                attn_cfg: AttentionConfig, scores: Optional[torch.Tensor] = None,
+                routing_mode: str = "off", expert_ids=None) -> torch.Tensor:
         # one qkv product; q/k columns and gains are stored in the
         # half-permuted RoPE layout (ops/rope.py permute_qk_to_half)
         q, k, v = self.qkv(x)
         cos, sin = rope
-        if use_fused_prologue():
+        if use_fused_prologue(routing_mode, x.shape[1], x.shape[2], self.num_heads):
             q, k, v = fused_qk_prologue(
                 q, k, v,
                 self.norm_q.weight if self.norm_q is not None else None,
@@ -91,7 +98,11 @@ class WanSelfAttention(nn.Module):
             q = apply_rope_half(_split_heads(q, self.num_heads), cos, sin)
             k = apply_rope_half(_split_heads(k, self.num_heads), cos, sin)
             v = _split_heads(v, self.num_heads)
-        out = full_attention(q, k, v, attn_cfg)
+        if routing_mode == "off":
+            out = full_attention(q, k, v, attn_cfg)
+        else:
+            out = routed_attention(q, k, v, scores, attn_cfg, mode=routing_mode,
+                                   expert_ids=expert_ids)
         return self.to_out(_merge_heads(out))
 
 
@@ -143,12 +154,15 @@ class WanBlock(nn.Module):
         self.router = Router(dim, cfg.num_heads, device=device)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, temb6: torch.Tensor,
-                rope: Tuple[torch.Tensor, torch.Tensor], attn_cfg: AttentionConfig
-                ) -> torch.Tensor:
+                rope: Tuple[torch.Tensor, torch.Tensor], attn_cfg: AttentionConfig,
+                scores: Optional[torch.Tensor] = None, routing_mode: str = "off",
+                expert_ids=None) -> torch.Tensor:
+        """``scores``: this block's (B, H, E) router scores; ``expert_ids``:
+        its hard routing as (ids on the device, the same ids on the host)."""
         mod = self.scale_shift_table + temb6.float()  # (B, 6, dim) f32
         gate_msa, c_gate = mod[:, 2][:, None, :], mod[:, 5][:, None, :]
         norm_x = self.norm1.modulated(x, mod[:, 1], mod[:, 0])
-        attn_out = self.attn1(norm_x, rope, attn_cfg)
+        attn_out = self.attn1(norm_x, rope, attn_cfg, scores, routing_mode, expert_ids)
         # self-attention and FFN residuals add in f32, then cast
         x = (x.float() + attn_out.float() * gate_msa).to(x.dtype)
         # the cross-attention residual adds in x's dtype
@@ -225,11 +239,11 @@ class WanModel(nn.Module):
         return self._rope_cache[grid]
 
     def forward(self, latents: torch.Tensor, timestep: torch.Tensor, context: torch.Tensor,
-                attn_cfg: Optional[AttentionConfig] = None,
-                routing_mode: str = "off") -> WanOutput:
+                attn_cfg: Optional[AttentionConfig] = None, routing_mode: str = "off",
+                return_scores: bool = False) -> WanOutput:
         """latents (B, T, H, W, C_in), timestep (B,), context (B, L, text_dim)."""
-        if routing_mode != "off":
-            raise _routing_not_ported(routing_mode)
+        if routing_mode not in ROUTING_MODES:
+            raise ValueError(f"unknown routing mode {routing_mode!r}")
         cfg = self.cfg
         b, t_px, h_px, w_px, _ = latents.shape
         pt, ph, pw = cfg.patch_size
@@ -246,12 +260,25 @@ class WanModel(nn.Module):
 
         temb, temb6, ctx = self.condition_embedder(timestep, context.to(self.dtype))
         rope = self._rope(grid)
-        for block in self.blocks:
-            x = block(x, ctx, temb6, rope, attn_cfg)
+        scores = None  # (num_layers, B, H, E): every router reads only temb
+        if routing_mode != "off":
+            scores = torch.stack([block.router(temb) for block in self.blocks])
+        ids, ids_host = [None] * len(self.blocks), None
+        if routing_mode == "hard":
+            ids_dev = torch.stack([route_expert_ids(sc, attn_cfg.tau_sparse) for sc in scores])
+            ids_host = ids_dev.cpu().numpy()  # the forward's one sync
+            ids = list(zip(ids_dev, ids_host))
+        for i, block in enumerate(self.blocks):
+            x = block(x, ctx, temb6, rope, attn_cfg, scores[i] if scores is not None else None,
+                      routing_mode, ids[i])
 
         mod = self.scale_shift_table + temb.float()[:, None, :]
         out = self.proj_out(self.norm_out.modulated(x, mod[:, 1], mod[:, 0]))
-        return WanOutput(sample=self._unpatchify(out, b, grid))
+        if return_scores and scores is None:
+            scores = torch.zeros((len(self.blocks), b, cfg.num_heads, attn_cfg.num_experts),
+                                 device=x.device)
+        return WanOutput(sample=self._unpatchify(out, b, grid),
+                         routing_scores=scores if return_scores else None, expert_ids=ids_host)
 
     def _unpatchify(self, out: torch.Tensor, b: int, grid: Tuple[int, int, int]) -> torch.Tensor:
         t, h, w = grid

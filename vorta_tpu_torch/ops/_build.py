@@ -7,8 +7,9 @@ headers, so a build takes seconds.  All sources build at first use, one
 (listed in ``.gitignore``), keyed by a hash of the sources and flags so an
 edited kernel is rebuilt.  Nothing builds when a module is imported.
 
-``launches`` counts kernel launches per source; each wrapper adds one where
-it launches its kernel, and nowhere else.
+``launches`` counts kernel launches per kernel (``coreset_pool.cu`` holds
+two, ``pool_qkv`` and ``unpool``); each wrapper adds one where it launches
+its kernel, and nowhere else.  Headers (``*.cuh``) are part of the hash.
 """
 
 from __future__ import annotations
@@ -24,13 +25,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash", "fused_norm", "prologue")
+SOURCES = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "coreset_pool")
+KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_qkv", "unpool")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {name: 0 for name in SOURCES}
+launches = {name: 0 for name in KERNELS}
 ptxas_logs: dict = {}  # source -> nvcc's register / shared-memory report
 _libs: dict = {}
 
@@ -50,7 +52,7 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -1,0 +1,188 @@
+"""Fused pooling for the low-resolution attention expert (counterpart of
+vorta_tpu/ops/coreset_pallas.py): ``pool_qkv`` and ``unpool``.
+
+``pool_qkv`` reads q/k/v (B, H, S, D) in raster order, computes Q's
+kept-margin matching per group in f32 (shared by K and V), and writes the
+pooled sequences [G centers | G*U kept margins, group-major, least similar
+first] and, with ``return_picks``, the picked slot ids as (B, H, T2, H3,
+W2, U) int32, the TPU kernel's layout.  ``unpool`` scatters a pooled
+attention output back through those picks, dropped slots taking their
+group center.  The selection semantics are those of ops/coreset.py.
+``active`` (H,) masks heads: inactive heads write zeros.
+
+On CUDA tensors both launch ``csrc/coreset_pool.cu`` (bf16, D 64 or 128,
+at most 32 slots per group; ``unpool`` there needs ``picks``); on CPU
+tensors they run the plain versions built from ops/coreset.py.  The TPU
+kernels' head-map mode was measured slower on the TPU and is not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..geometry import LowresGroups
+from . import _build
+from .coreset import (
+    geometry_of,
+    group_view,
+    match_slots,
+    pool_grouped,
+    slot_similarity,
+    unpool_grouped,
+)
+from .layout import untile_sequence
+
+
+def _picks_shape(groups: LowresGroups, b: int, h: int):
+    t, hh, w = geometry_of(groups).latent_shape
+    wt, wh, ww = geometry_of(groups).window
+    return (b, h, t // wt, hh // wh, w // ww, groups.num_kept_margins)
+
+
+def _head_mask(active, h: int, device) -> Optional[torch.Tensor]:
+    if active is None:
+        return None
+    return torch.as_tensor(active, device=device).reshape(1, h, 1, 1) > 0
+
+
+def _masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return x
+    return torch.where(mask.reshape((1, -1) + (1,) * (x.ndim - 2)), x,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def pool_qkv_ref(q, k, v, groups: LowresGroups, *, kv_matching_from_k: bool = False,
+                 active=None):
+    """Plain PyTorch version: (pq, pk, pv, picks)."""
+    b, h = q.shape[:2]
+    cs = geometry_of(groups).center_slot
+    u = groups.num_kept_margins
+    qg, kg, vg = group_view(q, groups), group_view(k, groups), group_view(v, groups)
+    slots = match_slots(qg, u, cs)
+    kv_slots = match_slots(kg, u, cs) if kv_matching_from_k else slots
+    mask = _head_mask(active, h, q.device)
+    pooled = (pool_grouped(qg, slots, cs), pool_grouped(kg, kv_slots, cs),
+              pool_grouped(vg, kv_slots, cs))
+    picks = slots.to(torch.int32).reshape(_picks_shape(groups, b, h))
+    return tuple(_masked(x, mask) for x in pooled) + (_masked(picks, mask),)
+
+
+def unpool_ref(pooled_out, q, groups: LowresGroups, *, active=None, picks=None):
+    """Plain PyTorch version: with ``picks`` the pool pass's matching, else
+    Q's matching derived again."""
+    b, h, _, d = pooled_out.shape
+    geom = geometry_of(groups)
+    if picks is None:
+        slots = match_slots(group_view(q, groups), groups.num_kept_margins, geom.center_slot)
+    else:
+        slots = picks.reshape(b, h, groups.num_groups, groups.num_kept_margins).long()
+    full = unpool_grouped(pooled_out[:, :, :groups.pooled_length], slots, groups.group_size)
+    out = untile_sequence(full.reshape(b, h, groups.full_length, d), geom.latent_shape,
+                          geom.window)
+    return _masked(out, _head_mask(active, h, q.device))
+
+
+def pick_gaps(picks: torch.Tensor, picks_ref: torch.Tensor, q: torch.Tensor,
+              groups: LowresGroups) -> torch.Tensor:
+    """|sim(pick) - sim(reference pick)| at every position where two picks
+    tensors disagree, from Q's f32 similarities (an arg-min that flips
+    between two margins this close is a near-tie, not an error)."""
+    b, h = q.shape[:2]
+    shape = (b, h, groups.num_groups, groups.num_kept_margins)
+    a, r = picks.reshape(shape).long(), picks_ref.reshape(shape).long()
+    sim = slot_similarity(group_view(q, groups), geometry_of(groups).center_slot)
+    diff = a != r
+    return (sim.gather(3, a) - sim.gather(3, r)).abs()[diff]
+
+
+def _fn(name: str, n_int: int, n_ptr: int):
+    fn = getattr(_build.load("coreset_pool"), name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _cuda_args(x: torch.Tensor, groups: LowresGroups, active):
+    """Checks shared by both kernels; returns (device, active int32, ints)."""
+    dev = _build.require_cuda(x)
+    b, h, s, d = x.shape
+    geom = geometry_of(groups)
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(f"the CUDA pool/unpool kernels take bf16, got {x.dtype}")
+    if d not in (64, 128) or groups.group_size > 32:
+        raise NotImplementedError(f"the CUDA pool/unpool kernels take D 64/128 and at most "
+                                  f"32 slots per group, got D={d}, {groups.group_size}")
+    if active is None:
+        active = torch.ones(h, dtype=torch.int32, device=dev)
+    active = torch.as_tensor(active, device=dev).to(torch.int32).contiguous()
+    if active.shape != (h,):
+        raise ValueError(f"active {tuple(active.shape)} for {h} heads")
+    ints = (b, h, *geom.latent_shape, d, *geom.window, groups.num_kept_margins)
+    return dev, active, ints
+
+
+def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGroups, *,
+             kv_matching_from_k: bool = False, active=None, head_map=None, num_active=None,
+             return_picks: bool = False):
+    """Pool (B, H, S, D) q/k/v to (B, H, P, D); with ``return_picks`` also the
+    picks (B, H, T2, H3, W2, U) int32 for ``unpool``."""
+    if head_map is not None or num_active is not None:
+        raise NotImplementedError("the head-map mode is not ported (slower on the TPU)")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.shape[2] != groups.full_length:
+        raise ValueError(f"seq len {q.shape[2]} != groups.full_length {groups.full_length}")
+    if q.device.type == "cpu":
+        out = pool_qkv_ref(q, k, v, groups, kv_matching_from_k=kv_matching_from_k,
+                           active=active)
+        return out if return_picks else out[:3]
+
+    if kv_matching_from_k:
+        raise NotImplementedError("K's own matching (Hunyuan) belongs to the Hunyuan slice")
+    dev, active, ints = _cuda_args(q, groups, active)
+    if k.dtype != q.dtype or v.dtype != q.dtype or _build.require_cuda(q, k, v) != dev:
+        raise ValueError("q, k and v must share one dtype and device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    b, h, _, d = q.shape
+    pooled = [torch.empty((b, h, groups.pooled_length, d), dtype=q.dtype, device=dev)
+              for _ in range(3)]
+    picks = torch.empty(_picks_shape(groups, b, h), dtype=torch.int32, device=dev)
+    err = _fn("vorta_coreset_pool_bf16", len(ints), 8)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(p.data_ptr() for p in pooled),
+        picks.data_ptr(), active.data_ptr(), *ints, _build.stream_ptr(dev))
+    _build.check(err, "pool_qkv")
+    _build.launches["pool_qkv"] += 1
+    return tuple(pooled) + ((picks,) if return_picks else ())
+
+
+def unpool(pooled_out: torch.Tensor, q: torch.Tensor, groups: LowresGroups, *, active=None,
+           head_map=None, num_active=None, picks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scatter a pooled (B, H, P, D) attention output back to (B, H, S, D)."""
+    if head_map is not None or num_active is not None:
+        raise NotImplementedError("the head-map mode is not ported (slower on the TPU)")
+    b, h, p, d = pooled_out.shape
+    if p != groups.pooled_length or q.shape[:2] != (b, h) or q.shape[2] != groups.full_length:
+        raise ValueError(f"pooled {tuple(pooled_out.shape)}, q {tuple(q.shape)} for "
+                         f"{groups.pooled_length} pooled of {groups.full_length} tokens")
+    if pooled_out.device.type == "cpu":
+        return unpool_ref(pooled_out, q, groups, active=active, picks=picks)
+
+    if picks is None:
+        raise NotImplementedError("the CUDA unpool kernel takes the pool pass's picks")
+    dev, active, ints = _cuda_args(pooled_out, groups, active)
+    if tuple(picks.shape) != _picks_shape(groups, b, h) or picks.dtype != torch.int32:
+        raise ValueError(f"picks {tuple(picks.shape)} {picks.dtype}")
+    _build.require_cuda(pooled_out, picks)
+    pooled_out, picks = pooled_out.contiguous(), picks.contiguous()
+    out = torch.empty((b, h, groups.full_length, d), dtype=pooled_out.dtype, device=dev)
+    err = _fn("vorta_coreset_unpool_bf16", len(ints), 4)(
+        pooled_out.data_ptr(), picks.data_ptr(), active.data_ptr(), out.data_ptr(),
+        *ints, _build.stream_ptr(dev))
+    _build.check(err, "unpool")
+    _build.launches["unpool"] += 1
+    return out

@@ -1,10 +1,21 @@
-"""Attention experts (counterpart of vorta_tpu/ops/experts.py).
+"""The three attention experts and the routing combine (counterpart of
+vorta_tpu/ops/experts.py).
 
-This slice carries the two that the routing-off path runs: full attention
-over the raster sequence, and padded dense attention for cross-attention to
-the text.  Both run through the block-sparse flash kernel (ops/flash.py)
-with dense tables; only their block sizes and padding differ.  The lowres
-and sliding-tile experts and hard routing belong to the next port slice.
+  0. FULL: dense attention over the raster sequence
+  1. LOWRES: attention over the similarity-pooled sequence (ops/coreset.py)
+  2. STA: sliding-tile attention over the tile-contiguous sequence
+
+Here each expert runs through the block-sparse flash kernel (ops/flash.py,
+stable softmax) with its own static tables; cross-attention to the text is
+``padded_dense_attention`` on the same kernel.  ``routed_attention`` combines
+them: "soft" weights all three outputs by the router scores (the training
+formulation), "hard_ref" one-hots the scores with the ``tau_sparse``
+fallback to FULL and evaluates every expert (the oracle), and "hard"
+dispatches each expert once over the heads routed to it through
+ops/routed_fused.py, the serving path.  Forward only.  On the card "soft"
+and "hard_ref" raise where the flash kernel's block limits refuse the STA
+tables (blocks of one tile, e.g. 360 tokens at Wan 720p): they are the CPU
+oracle, not the card's path.
 """
 
 from __future__ import annotations
@@ -16,8 +27,17 @@ import torch
 import torch.nn.functional as F
 
 from ..config import AttentionConfig
-from ..geometry import cdiv
-from .flash import dense_tables, sparse_flash_attention_raw
+from ..geometry import LowresGroups, build_lowres_groups, cdiv, expand_tile_mask, sta_tile_mask
+from .coreset import pool_by_similarity, unpool_by_similarity
+from .flash import BlockTables, dense_tables, sparse_flash_attention_raw, tables_from_block_mask
+from .layout import tile_sequence, untile_sequence
+
+FULL, LOWRES, STA = 0, 1, 2
+
+
+@functools.lru_cache(maxsize=32)
+def lowres_groups_for(cfg: AttentionConfig) -> LowresGroups:
+    return build_lowres_groups(cfg.latent_shape, cfg.lowres_window, cfg.lowres_reduction)
 
 
 @functools.lru_cache(maxsize=32)
@@ -26,6 +46,25 @@ def _full_tables(cfg: AttentionConfig):
     nq = cdiv(s, cfg.block_q)
     nkv = cdiv(s, cfg.block_kv)
     return dense_tables(nq, nkv), nq * cfg.block_q, nkv * cfg.block_kv
+
+
+def _lowres_tables(cfg: AttentionConfig):
+    """Dense tables over the pooled sequence (q blocks wholly past it idle),
+    the routed LOWRES expert's own."""
+    from .routed_fused import routed_geometry
+
+    call = routed_geometry(cfg).lowres
+    return call.tables, call.q_pad, call.kv_pad
+
+
+@functools.lru_cache(maxsize=32)
+def _sta_tables(cfg: AttentionConfig) -> BlockTables:
+    bq, bkv = cfg.sta_blocks
+    tpt = cfg.tokens_per_tile
+    if tpt % bq or tpt % bkv:
+        raise ValueError(f"sta blocks ({bq},{bkv}) must divide tokens_per_tile {tpt}")
+    tile_mask = sta_tile_mask(cfg.latent_shape, cfg.sta_window, cfg.sta_tile)
+    return tables_from_block_mask(expand_tile_mask(tile_mask, tpt, bq, bkv))
 
 
 @functools.lru_cache(maxsize=64)
@@ -54,6 +93,38 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: Atten
     return out[:, :, :s]
 
 
+def lowres_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: AttentionConfig,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Expert 1: pool by Q's matching, attend over the pooled sequence,
+    unpool (dropped positions take their group center's output)."""
+    groups = lowres_groups_for(cfg)
+    pq, matching = pool_by_similarity(q, groups)
+    pk, _ = pool_by_similarity(k, groups, matching)
+    pv, _ = pool_by_similarity(v, groups, matching)
+    tab, sq_pad, skv_pad = _lowres_tables(cfg)
+    p = groups.pooled_length
+    kv_index, kv_count = tab.on(q.device)
+    out = sparse_flash_attention_raw(
+        _pad_seq(pq, sq_pad), _pad_seq(pk, skv_pad), _pad_seq(pv, skv_pad),
+        kv_index, kv_count, scale=scale, block_q=cfg.block_q, block_kv=cfg.block_kv,
+        kv_valid_len=p if p != skv_pad else None)
+    return unpool_by_similarity(out[:, :, :p], groups, matching).to(q.dtype)
+
+
+def sta_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: AttentionConfig,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Expert 2: sliding-tile attention over the tile-contiguous layout with
+    tile-granular block tables (the oracle of ops/sta_pipe.py)."""
+    bq, bkv = cfg.sta_blocks
+    shape, tile = cfg.latent_shape, cfg.sta_tile
+    kv_index, kv_count = _sta_tables(cfg).on(q.device)
+    out = sparse_flash_attention_raw(
+        tile_sequence(q, shape, tile), tile_sequence(k, shape, tile),
+        tile_sequence(v, shape, tile), kv_index, kv_count, scale=scale, block_q=bq,
+        block_kv=bkv)
+    return untile_sequence(out, shape, tile)
+
+
 def padded_dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            block_q: Optional[int] = None, block_kv: int = 512,
                            scale: Optional[float] = None) -> torch.Tensor:
@@ -76,3 +147,43 @@ def padded_dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_valid_len=skv if skv != nkv * block_kv else None,
     )
     return out[:, :, :sq]
+
+
+def harden_scores(scores: torch.Tensor, tau: float) -> torch.Tensor:
+    """(B, H, E) soft scores -> one-hot of the first batch row's top expert,
+    FULL where its score is below ``tau``, broadcast over the batch (CFG
+    pairs route alike)."""
+    s0 = scores[0]
+    idx = torch.where(s0.amax(dim=-1) < tau, FULL, s0.argmax(dim=-1))
+    onehot = F.one_hot(idx, scores.shape[-1]).to(scores.dtype)
+    return onehot[None].expand(scores.shape)
+
+
+def routed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scores: Optional[torch.Tensor], cfg: AttentionConfig, mode: str = "soft",
+                     scale: Optional[float] = None, expert_ids=None) -> torch.Tensor:
+    """Run the experts and combine by routing scores (B, H, E).
+
+    mode="hard" dispatches through ops/routed_fused.py; ``expert_ids`` then
+    may carry the routing already made, as ``(ids on q's device, the same
+    ids on the host)``, else it is made here from ``scores``.
+    """
+    if mode == "hard":
+        from .routed_fused import fused_routed_attention, route_expert_ids
+
+        if expert_ids is None:
+            ids = route_expert_ids(scores, cfg.tau_sparse)
+            expert_ids = (ids, ids.cpu().numpy())
+        return fused_routed_attention(q, k, v, expert_ids[0], cfg, scale=scale,
+                                      expert_ids_host=expert_ids[1])
+    if mode == "hard_ref":
+        scores = harden_scores(scores, cfg.tau_sparse)
+    elif mode != "soft":
+        raise ValueError(f"unknown routing mode {mode!r}")
+    outs = torch.stack([
+        full_attention(q, k, v, cfg, scale=scale),
+        lowres_attention(q, k, v, cfg, scale=scale),
+        sta_attention(q, k, v, cfg, scale=scale),
+    ], dim=2)  # (B, H, E, S, D)
+    w = scores.float()[:, :, :, None, None]
+    return (w * outs.float()).sum(dim=2).to(q.dtype)

@@ -26,10 +26,19 @@ from . import _build
 _PROLOGUE_MODE = os.environ.get("VORTA_PROLOGUE", "fused")
 
 
-def use_fused_prologue() -> bool:
-    """Whether the model takes the fused prologue (routing off, the only
-    mode of this slice; the JAX package also keeps soft routing unfused)."""
-    return _PROLOGUE_MODE == "fused"
+def supports_prologue(s: int, dim: int, num_heads: int) -> bool:
+    """Shapes the CUDA kernel takes (any S; its row stats in 48 KB of shared
+    memory, at most 64 heads, an even head dim)."""
+    d = dim // num_heads
+    return dim == num_heads * d and d % 2 == 0 and num_heads <= 64 and 2 * dim * 4 <= 48 * 1024
+
+
+def use_fused_prologue(routing_mode: str, s: int, dim: int, num_heads: int) -> bool:
+    """The gate of every call site, as in the JAX package: soft routing (the
+    training formulation) keeps the unfused ops, as do shapes the kernel
+    does not take and ``VORTA_PROLOGUE=off``."""
+    return (routing_mode != "soft" and _PROLOGUE_MODE == "fused"
+            and supports_prologue(s, dim, num_heads))
 
 
 def _prologue_ref(q, k, v, gain_q, gain_k, cos, sin, *, num_heads, eps, qk_norm, norm_scope):
@@ -113,7 +122,7 @@ def fused_qk_prologue(
     dev = _build.require_cuda(q, k, v, cos, sin)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(f"prologue kernel: dtype {q.dtype}")
-    if num_heads > 64 or 2 * dim * 4 > 48 * 1024:
+    if not supports_prologue(s, dim, num_heads):
         raise NotImplementedError(f"prologue kernel: {num_heads} heads, dim {dim}")
     (q, q_row), (k, k_row), (v, v_row) = _rows(q), _rows(k), _rows(v)
     gq = gain_q.float().contiguous() if qk_norm else None

@@ -1,0 +1,212 @@
+"""Sliding-tile attention on the raster layout (counterpart of
+vorta_tpu/ops/sta_pipe.py), forward only.
+
+Each query attends to every token of the ``prod(window)`` tiles of its
+tile's window, the window center clamped so it never hangs off the grid
+(``geometry.window_starts``, the clamping of ``geometry.sta_tile_mask``).
+The keys of one q tile form a box of ``win*tile`` tokens per axis, read
+straight from the raster (B, H, S, D) tensors: no relayout.  Softmax is
+the TPU kernel's fast form: q pre-scaled by ``scale * log2(e)`` in q's
+dtype, ``p = exp2(q.k)`` with no running max (for qk-RMSNormed models
+``|s| <= scale*log2e*d*g^2`` stays far inside f32's exp2 range), P cast to
+v's dtype before the PV product.  Heads whose ``active`` entry is 0 write
+zeros.
+
+The TPU kernel has per-w-tile, grouped-width and masked-width variants;
+they are VMEM layouts of one function, so the port has one kernel for
+every tile width: it needs only tiles that divide the grid.
+``supports_pipe`` is the TPU kernel's own eligibility test (its VMEM
+budget), kept for the routed dispatch, which chooses by it as the JAX
+package does.
+
+On CUDA tensors ``sta_pipe_attention`` launches ``csrc/sta_pipe.cu``; on
+CPU tensors it runs the plain version ``sta_pipe_attention_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..geometry import row_starts, w_window_starts, window_starts
+from . import _build
+from .flash_manual import _prescale
+from .layout import tile_sequence, untile_sequence
+
+Shape3 = Tuple[int, int, int]
+
+
+def _q_mult(latent_shape: Shape3, tile: Shape3, window: Shape3) -> int:
+    """2 when consecutive t-tile rows share their clamped t window start
+    (the TPU kernel then runs both rows in one grid cell)."""
+    t, hh, _ = latent_shape
+    nt, nh = t // tile[0], hh // tile[1]
+    if nt % 2:
+        return 1
+    starts = row_starts(latent_shape, tile, window).reshape(nt, nh, 2)
+    for r in range(0, nt, 2):
+        if not (starts[r] == starts[r + 1]).all():
+            return 1
+    return 2
+
+
+def _w_groups(latent_shape: Shape3, tile: Shape3, window: Shape3):
+    """(w_pad, n_groups, bw8, los) of the TPU kernel's grouped-width variant:
+    8-token w groups, each reading the union of its tiles' windows."""
+    w = latent_shape[2]
+    tw = tile[2]
+    nw = w // tw
+    bw_tok = min(window[2], nw) * tw
+    starts = w_window_starts(latent_shape, tile, window)
+    w_pad = ((w + 7) // 8) * 8
+    n_groups = w_pad // 8
+    spans = []
+    for gi in range(n_groups):
+        t0, t1 = (gi * 8) // tw, min(nw - 1, (gi * 8 + 7) // tw)
+        ws = starts[t0:t1 + 1]
+        spans.append(((min(ws) // 8) * 8, -(-(max(ws) + bw_tok) // 8) * 8))
+    bw8 = min(max(hi - lo for lo, hi in spans), w_pad)
+    los = tuple(max(0, min(lo, w_pad - bw8)) for lo, _ in spans)
+    return w_pad, n_groups, bw8, los
+
+
+def supports_pipe(latent_shape: Shape3, tile: Shape3, d: int, itemsize: int = 2,
+                  text_len: int = 0, window: Shape3 = (3, 3, 3)) -> bool:
+    """The TPU kernel's eligibility test: tiles divide the grid and its
+    double-buffered slabs and softmax states fit 40 MiB of VMEM.  The CUDA
+    kernel has no such limit; the routed dispatch keeps the test so that it
+    chooses as the JAX package does."""
+    t, hh, w = latent_shape
+    tt, th, tw = tile
+    if t % tt or hh % th or w % tw:
+        return False
+    nw = w // tw
+    tpt = tt * th * tw
+    slab = tt * th * w * d * itemsize
+    bw = min(window[2], nw) * tw
+    common = 2 * 2 * slab + 2 * 2 * slab + 2 * 2 * text_len * d * itemsize
+    if tw % 8 and 8 % tw == 0:  # grouped-width variant
+        qm = _q_mult(latent_shape, tile, window)
+        w_pad, n_groups, bw8, _ = _w_groups(latent_shape, tile, window)
+        slab_p = tt * th * w_pad * d * itemsize
+        rows_g = qm * tt * th * 8
+        est = (2 * 2 * slab_p + 2 * 2 * slab_p + 2 * 2 * text_len * d * itemsize
+               + n_groups * rows_g * (d + 2) * 4 + n_groups * 8 * tt * th * bw8 * 4
+               + 2 * rows_g * tt * th * bw8 * 4)
+    elif tw % 8:  # masked-width variant
+        rows = _q_mult(latent_shape, tile, window) * tt * th * w
+        kv_len = tt * th * w
+        est = common + rows * (d + 2) * 4 + rows * kv_len * 4 + 2 * rows * kv_len * 4
+    else:
+        est = common + nw * tpt * (d + 2) * 4 + 3 * tpt * tt * th * bw * 4
+    return est < 40 * 2**20
+
+
+@functools.lru_cache(maxsize=16)
+def _window_keys(latent_shape: Shape3, tile: Shape3, window: Shape3) -> np.ndarray:
+    """(n_tiles, n_keys) raster indices of each q tile's window box, in the
+    order the kernel visits them (t, then h, then w)."""
+    t, hh, w = latent_shape
+    ext = [min(window[a], latent_shape[a] // tile[a]) * tile[a] for a in range(3)]
+    box = (np.arange(ext[0])[:, None, None] * hh * w + np.arange(ext[1])[None, :, None] * w
+           + np.arange(ext[2])[None, None, :]).reshape(-1)
+    st = window_starts(latent_shape, tile, window).astype(np.int64)
+    base = (st[:, 0] * hh + st[:, 1]) * w + st[:, 2]
+    return base[:, None] + box[None, :]
+
+
+def sta_pipe_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
+                           window: Shape3 = (3, 3, 3), scale: Optional[float] = None):
+    """Plain PyTorch version of the kernel, a few q tiles at a time."""
+    b, h, s, d = q.shape
+    scale = d**-0.5 if scale is None else scale
+    keys = torch.from_numpy(_window_keys(latent_shape, tile, window)).to(q.device)
+    n_tiles, nk = keys.shape
+    tpt = s // n_tiles
+    tq = tile_sequence(_prescale(q, scale), latent_shape, tile).reshape(b, h, n_tiles, tpt, d)
+    out = torch.empty((b, h, n_tiles, tpt, d), dtype=q.dtype, device=q.device)
+    chunk = max(1, 2**28 // (b * h * tpt * nk))
+    for c0 in range(0, n_tiles, chunk):
+        idx = keys[c0:c0 + chunk]
+        kc = k[:, :, idx].float()  # (B, H, c, nk, D)
+        vc = v[:, :, idx].float()
+        p = torch.exp2(torch.einsum("bhcqd,bhckd->bhcqk", tq[:, :, c0:c0 + chunk].float(), kc))
+        l = p.sum(dim=-1, keepdim=True)
+        if v.dtype != torch.float32:
+            p = p.to(v.dtype).float()
+        o = torch.einsum("bhcqk,bhckd->bhcqd", p, vc)
+        out[:, :, c0:c0 + chunk] = (o / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+    out = untile_sequence(out.reshape(b, h, s, d), latent_shape, tile)
+    a = torch.as_tensor(active, device=q.device).reshape(1, h, 1, 1) > 0
+    return torch.where(a, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _sta_fn():
+    fn = _build.load("sta_pipe").vorta_sta_fwd_bf16
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p] + [i] * 12 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def sta_pipe_attention(
+    q: torch.Tensor,  # (B, H, S, D) raster
+    k: torch.Tensor,
+    v: torch.Tensor,
+    active,  # (H,) int: heads routed to this expert
+    *,
+    latent_shape: Shape3,
+    tile: Shape3,
+    window: Shape3 = (3, 3, 3),
+    scale: Optional[float] = None,
+    text_k: Optional[torch.Tensor] = None,
+    text_v: Optional[torch.Tensor] = None,
+    text_bias: Optional[torch.Tensor] = None,
+    cast_p_to_v_dtype: bool = True,
+    softmax: str = "fast",
+    variant: str = "full",
+    qk_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sliding-tile attention; on CUDA bf16 q/k/v with D 64 or 128."""
+    if text_k is not None or text_v is not None or text_bias is not None:
+        raise NotImplementedError("the joint text tail belongs to the Hunyuan slice")
+    if qk_scale is not None:
+        raise NotImplementedError("int8 QK (qk_scale) belongs to the quantized serving slice")
+    if softmax != "fast" or variant != "full" or not cast_p_to_v_dtype:
+        raise NotImplementedError(
+            f"softmax={softmax!r}, variant={variant!r}: only the fast full variant is served")
+    b, h, s, d = q.shape
+    t, hh, w = latent_shape
+    if s != t * hh * w:
+        raise ValueError(f"seq len {s} != prod(latent_shape) {latent_shape}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if any(latent_shape[a] % tile[a] for a in range(3)):
+        raise ValueError(f"tile {tile} does not divide the latent grid {latent_shape}")
+    scale = d**-0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return sta_pipe_attention_ref(q, k, v, active, latent_shape=latent_shape, tile=tile,
+                                      window=window, scale=scale)
+
+    dev = _build.require_cuda(q, k, v)
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"the CUDA sta_pipe kernel takes bf16, got {q.dtype}")
+    if d not in (64, 128):
+        raise NotImplementedError(f"the CUDA sta_pipe kernel takes D 64/128, got {d}")
+    active = torch.as_tensor(active, device=dev).to(torch.int32).contiguous()
+    if active.shape != (h,):
+        raise ValueError(f"active {tuple(active.shape)} for {h} heads")
+    qs = _prescale(q, scale).contiguous()
+    k, v = k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    err = _sta_fn()(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
+        b, h, t, hh, w, d, *tile, *window, _build.stream_ptr(dev))
+    _build.check(err, "sta_pipe")
+    _build.launches["sta_pipe"] += 1
+    return out

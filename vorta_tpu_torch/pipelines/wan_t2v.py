@@ -5,8 +5,12 @@ Classifier-free guidance with two transformer evaluations per step (or one
 batch-2B evaluation with ``cfg_batch``), UniPC or flow-match Euler
 integration.  Latents are carried in f32 and cast to the model's dtype for
 each forward; the guided velocity is ``vu + g * (vc - vu)``.  A Python loop
-drives the steps (the JAX version scans under one jit).  No mesh, step cache
-or routing in this slice.
+drives the steps (the JAX version scans under one jit).  ``routing_mode``
+("off", or "hard" to route each head per block and step) goes to every
+forward; with CFG both passes route alike, since routing reads only the
+timestep.  A caller that passes a ``routing`` list gets each hard-routed
+forward's (num_layers, H) expert ids appended to it.  No mesh or step
+cache in this slice.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ class SamplingConfig:
     num_inference_steps: int = 50
     guidance_scale: float = 5.0
     flow_shift: float = 5.0
-    routing_mode: str = "off"
+    routing_mode: str = "off"  # off | hard (hard_ref / soft: the CPU oracles)
     scheduler: str = "unipc"  # unipc (reference inference default) | euler
     # run the CFG cond+uncond passes as ONE batch-2B forward
     cfg_batch: bool = False
@@ -49,26 +53,33 @@ class WanT2VPipeline:
         return torch.randn(shape, generator=generator, dtype=torch.float32,
                            device=self.model.device)
 
-    def _velocity(self, x, t, pe, ne, sampling: SamplingConfig) -> torch.Tensor:
+    def _velocity(self, x, t, pe, ne, sampling: SamplingConfig, routing) -> torch.Tensor:
         model, dtype = self.model, self.model.dtype
         kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode)
+
+        def forward(*args):
+            out = model(*args, **kw)
+            if routing is not None and out.expert_ids is not None:
+                routing.append(out.expert_ids)
+            return out.sample.float()
+
         g = float(sampling.guidance_scale)
         do_cfg = sampling.guidance_scale > 1.0
         if do_cfg and sampling.cfg_batch:
-            out = model(torch.cat([x, x]).to(dtype), torch.cat([t, t]),
-                        torch.cat([pe, ne]), **kw).sample.float()
+            out = forward(torch.cat([x, x]).to(dtype), torch.cat([t, t]), torch.cat([pe, ne]))
             vc, vu = out[: x.shape[0]], out[x.shape[0]:]
             return vu + g * (vc - vu)
-        v = model(x.to(dtype), t, pe, **kw).sample.float()
+        v = forward(x.to(dtype), t, pe)
         if do_cfg:
-            vu = model(x.to(dtype), t, ne, **kw).sample.float()
+            vu = forward(x.to(dtype), t, ne)
             v = vu + g * (v - vu)
         return v
 
     @torch.no_grad()
     def __call__(self, latents: torch.Tensor, prompt_embeds: torch.Tensor,
                  negative_prompt_embeds: Optional[torch.Tensor] = None,
-                 sampling: SamplingConfig = SamplingConfig()) -> torch.Tensor:
+                 sampling: SamplingConfig = SamplingConfig(),
+                 routing: Optional[list] = None) -> torch.Tensor:
         """latents (B, T, H, W, C) initial noise; prompt embeds (B, L, text_dim).
         Returns the final latents, f32."""
         if sampling.scheduler == "unipc":
@@ -85,7 +96,7 @@ class WanT2VPipeline:
         m_prev, m_prev2, x_prev = torch.zeros_like(x), torch.zeros_like(x), x
         for i in range(n):
             t = torch.full((x.shape[0],), float(schedule.timesteps[i]), device=x.device)
-            v = self._velocity(x, t, prompt_embeds, negative_prompt_embeds, sampling)
+            v = self._velocity(x, t, prompt_embeds, negative_prompt_embeds, sampling, routing)
             if sampling.scheduler == "unipc":
                 x_next, m_i, x_hist = unipc_sample_step(
                     x, v, i, schedule.sigmas, m_prev, x_prev, n, m_prev2=m_prev2)
