@@ -29,6 +29,19 @@ Phases, each raising on failure:
      trained router (assets/bench_router_wan1_3b_720p_half.npz), fed the
      time embedder of the model it was trained against
      (port_assets/wan1_3b_time_embedder_rngs0.npz).
+Phases 1-6 run under torch.inference_mode(); the training phases do not:
+  7. training kernels: the flash forward with its log-sum-exp, and the dq
+     and dk/dv backward kernels, each against its plain version at the four
+     shapes the trainer gives them (480p x 77f: FULL, LOWRES, STA's
+     96-token tiles, cross-attention to 512 text tokens), with SDPA's
+     backward (forward + backward, minus forward) as the library yardstick.
+  8. gradient check: one router train step of a 2-block Wan-1.3B-width
+     model on the card (bf16, kernels) against the CPU (f32, plain
+     versions), same weights and draws: loss and router gradients.
+  9. main path, training: vorta_tpu_torch.cli.train at full width and depth
+     (480p x 77f, soft routing with the teacher, remat), 2 optimizer steps
+     of 2 micro-steps, a checkpoint, then resumed for a third step; launch
+     counts exact against the count derived from the graph (train_launches).
 Then a {"kernels": [...]} line, the card line, and the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
 CUDA or without the package beside this file.
@@ -109,18 +122,28 @@ def main() -> int:
         launches_off, per_step = run_main_path(torch, card)
         launches_hard, per_step_hard = run_routed_main_path(torch, card)
         run_720p_forward(torch, card)
+    torch.cuda.empty_cache()
+    kernels += check_training_kernels(torch, card)
+    check_train_grads(torch)
+    launches_train, train = run_train_main_path(torch, card)
 
     for k in kernels:
         name = k.pop("_counter")
-        k["launches"] = launches_hard[name]
-        k["launches_by_path"] = {"off_480p_21f": launches_off[name],
-                                 "hard_480p_77f": launches_hard[name]}
-        if not k["launches"] > 0:
-            raise RuntimeError(f"{name}: not launched on the routed main path")
+        paths = {"off_480p_21f": launches_off[name], "hard_480p_77f": launches_hard[name],
+                 "train_480p_77f": launches_train[name]}
+        # the count of the path the kernel's slice brought: serving's routed
+        # path, or training for the kernels only training launches
+        k["launches"] = paths["hard_480p_77f"] or paths["train_480p_77f"]
+        k["launches_by_path"] = paths
+        if not any(paths.values()):
+            raise RuntimeError(f"{name}: launched on no main path")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
-          f"2 UniPC steps each); launches off {launches_off}, routed {launches_hard}")
+          f"2 UniPC steps each); training (480p x 77f) {train['micro_s']:.3f} s per "
+          f"micro-step, {train['step_s']:.3f} s per optimizer step, peak "
+          f"{train['max_memory_gib']:.2f} GiB; launches off {launches_off}, routed "
+          f"{launches_hard}, training {launches_train}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -322,7 +345,6 @@ def check_routed_kernels(torch, card: str) -> list:
     import torch.nn.functional as F
 
     from vorta_tpu_torch.cli.sample import attention_config
-    from vorta_tpu_torch.geometry import inverse_permutation, sta_tile_mask, tile_permutation
     from vorta_tpu_torch.ops.coreset_pallas import (
         pick_gaps,
         pool_qkv,
@@ -414,19 +436,23 @@ def check_routed_kernels(torch, card: str) -> list:
         keys = int(np.prod([min(3, grid[a] // tile[a]) * tile[a] for a in range(3)]))
         flops = 4.0 * n * keys * d * n_act
         b_ms, b_by = bound_ms(flops, 4 * n * d * 2 * n_act, PEAK_BF16)
-        lib = None
-        if name == "480p_77f":  # SDPA with the boolean STA mask, on the active heads
-            tpt = int(np.prod(tile))  # tile index of each raster token
-            tile_of = torch.from_numpy(inverse_permutation(tile_permutation(grid, tile)) // tpt)
-            tile_of = tile_of.to(dev).long()
-            tmask = torch.from_numpy(sta_tile_mask(grid, (3, 3, 3), tile)).to(dev)
-            mask = tmask[tile_of][:, tile_of]  # (S, S) bool, one index dim at a time
-            qa, ka, va = (x[:, act > 0] for x in (q, k, v))
+        # SDPA with the boolean STA mask (S^2 bytes: 0.97 GB at 480p, 5.2 GB at
+        # 720p), on the active heads; where the card refuses it, its error
+        lib, lib_err = None, None
+        mask = sta_raster_mask(torch, grid, tile, dev)
+        qa, ka, va = (x[:, act > 0] for x in (q, k, v))
+        try:
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qa, ka, va, attn_mask=mask), 3, 1)
-            del mask, qa, ka, va
+        except (torch.OutOfMemoryError, RuntimeError) as e:
+            lib_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+            log(f"sta_pipe {name}: SDPA with the boolean mask failed: {lib_err}")
+        del mask, qa, ka, va
+        torch.cuda.empty_cache()
         st[name] = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1),
                         library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        if lib_err:
+            st[name]["library_error"] = lib_err
         log(f"sta_pipe {name}: {keys} keys per query; {st[name]} "
             f"(achieved {flops / st[name]['ms'] / 1e9:.1f} TFLOP/s on {n_act} heads)")
         del q, k, v
@@ -497,6 +523,19 @@ def check_routed_kernels(torch, card: str) -> list:
     return out
 
 
+def sta_raster_mask(torch, grid, tile, dev, window=(3, 3, 3)):
+    """(S, S) bool: which raster tokens each raster token sees under STA."""
+    import numpy as np
+
+    from vorta_tpu_torch.geometry import inverse_permutation, sta_tile_mask, tile_permutation
+
+    tpt = int(np.prod(tile))  # tile index of each raster token
+    tile_of = torch.from_numpy(inverse_permutation(tile_permutation(grid, tile)) // tpt)
+    tile_of = tile_of.to(dev).long()
+    tmask = torch.from_numpy(sta_tile_mask(grid, window, tile)).to(dev)
+    return tmask[tile_of][:, tile_of]  # one index dim at a time
+
+
 def check_model(torch) -> None:
     """2 blocks at Wan-1.3B widths: card (bf16, kernels) vs CPU (f32, plain)."""
     import dataclasses
@@ -561,8 +600,8 @@ def check_routed_model(torch) -> None:
     launches = dict(_build.launches)
     if not (res.expert_ids == experts.numpy()).all():
         raise RuntimeError(f"routed model check: routing {res.expert_ids}")
-    expected = {"flash": 2, "fused_norm": 5, "prologue": 2, "flash_manual": 4, "sta_pipe": 2,
-                "pool_qkv": 2, "unpool": 2}
+    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 2, "fused_norm": 5, "prologue": 2,
+                "flash_manual": 4, "sta_pipe": 2, "pool_qkv": 2, "unpool": 2}
     if launches != expected:
         raise RuntimeError(f"routed model check: launches {launches} != {expected}")
     if not torch.isfinite(got).all():
@@ -656,7 +695,8 @@ def run_routed_main_path(torch, card: str):
     heads = np.bincount(tables.reshape(-1), minlength=3)
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
     n_fwd = tables.shape[0]
-    expected = {"flash": 30 * n_fwd, "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd,
+    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 30 * n_fwd,
+                "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd,
                 "flash_manual": int(has[0].sum() + has[1].sum()), "sta_pipe": int(has[2].sum()),
                 "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
     if launches != expected:
@@ -719,6 +759,298 @@ def run_720p_forward(torch, card: str) -> None:
         f"{dt_r * 1e3:.1f} ms on {card}; routing off / routed = {dt / dt_r:.3f}; heads over "
         f"30 blocks: full {heads[0]}, lowres {heads[1]}, sta {heads[2]} (the JAX package: "
         f"full {JAX_MIX_720P[0]}, lowres {JAX_MIX_720P[1]}, sta {JAX_MIX_720P[2]})")
+
+
+# ---- training ------------------------------------------------------------------
+
+# lse tolerance: the kernel and the plain version take the same f32 logits
+# and sum their exponentials in another order, so ~1e-6 relative; the
+# backward outputs are bf16 and held by the TOL rule
+LSE_RTOL, LSE_ATOL = 1e-5, 1e-4
+
+
+def training_calls(torch):
+    """The attention calls the trainer makes per block at 480p x 77f, as the
+    expert wrappers build them: tables, padded lengths, valid lengths."""
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops.experts import (
+        _dense_tables_cached,
+        _full_tables,
+        _lowres_tables,
+        _sta_tables,
+        lowres_groups_for,
+    )
+
+    cfg = attention_config("wan-1_3B", GRID_480P_77F)
+    s, p = cfg.seq_len, lowres_groups_for(cfg).pooled_length
+    full, full_q, full_kv = _full_tables(cfg)
+    low, low_q, low_kv = _lowres_tables(cfg)
+    bq, bkv = cfg.sta_blocks
+    return {
+        "full_31200": dict(tables=full, sq=full_q, skv=full_kv, q_valid=s, kv_valid=s,
+                           bq=cfg.block_q, bkv=cfg.block_kv),
+        "lowres_15600": dict(tables=low, sq=low_q, skv=low_kv, q_valid=p, kv_valid=p,
+                             bq=cfg.block_q, bkv=cfg.block_kv),
+        "sta_31200_tile96": dict(tables=_sta_tables(cfg), sq=s, skv=s, q_valid=s, kv_valid=s,
+                                 bq=bq, bkv=bkv),
+        "cross_31200x512": dict(tables=_dense_tables_cached(16, 1), sq=16 * 2048, skv=TEXT_LEN,
+                                q_valid=s, kv_valid=TEXT_LEN, bq=2048, bkv=TEXT_LEN),
+    }
+
+
+def visible_pairs(c: dict) -> int:
+    """(q, kv) pairs the function needs: valid q rows times the valid kv
+    columns of the blocks their q block visits."""
+    tab, bq, bkv = c["tables"], c["bq"], c["bkv"]
+    n = 0
+    for i in range(tab.kv_count.shape[1]):
+        rows = min(max(c["q_valid"] - i * bq, 0), bq)
+        cols = sum(min(max(c["kv_valid"] - int(j) * bkv, 0), bkv)
+                   for j in tab.kv_index[0, i, :tab.kv_count[0, i]])
+        n += rows * cols
+    return n
+
+
+def check_training_kernels(torch, card: str) -> list:
+    """The forward's lse and the dq / dk/dv kernels at the trainer's four
+    shapes (12 heads x 128, bf16), against their plain versions."""
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, sparse_flash_attention_ref
+    from vorta_tpu_torch.ops.flash_bwd import (
+        flash_backward,
+        flash_backward_ref,
+        transpose_tables,
+    )
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    h, d = 12, 128
+    scale = d**-0.5
+    g = torch.Generator(device=dev).manual_seed(11)
+    res = {"lse": {}, "dq": {}, "dkv": {}}
+    for name, c in training_calls(torch).items():
+        sq, skv, qv, kvv = c["sq"], c["skv"], c["q_valid"], c["kv_valid"]
+        q = torch.randn((1, h, sq, d), generator=g, device=dev).to(bf16)
+        k, v = (torch.randn((1, h, skv, d), generator=g, device=dev).to(bf16) for _ in range(2))
+        dout = torch.randn((1, h, sq, d), generator=g, device=dev).to(bf16)
+        dout[:, :, qv:] = 0  # the trainer slices the padded rows off the output
+        ki, kc = c["tables"].on(dev)
+        qi, qc = (torch.from_numpy(a).to(dev) for a in transpose_tables(
+            c["tables"].kv_index, c["tables"].kv_count, skv // c["bkv"]))
+        kw = dict(scale=scale, block_q=c["bq"], block_kv=c["bkv"])
+        valid = kvv if kvv != skv else None
+        fwd = lambda: sparse_flash_attention_raw(q, k, v, ki, kc, kv_valid_len=valid,  # noqa: E731
+                                                 return_lse=True, **kw)
+        fwd_plain = lambda: sparse_flash_attention_ref(q, k, v, ki, kc, kv_valid_len=valid,  # noqa: E731
+                                                       return_lse=True, **kw)
+        out, lse = fwd()
+        want_out, want_lse = fwd_plain()
+        err = compare(torch, f"flash + lse {name} (1,12,{sq},128) x {skv}",
+                      out[:, :, :qv], want_out[:, :, :qv])
+        lse_err = (lse - want_lse).abs()
+        bad = lse_err > LSE_ATOL + LSE_RTOL * want_lse.abs()
+        log(f"flash lse {name}: max |err| {lse_err.max().item():.3e} (tolerance {LSE_ATOL:g} + "
+            f"{LSE_RTOL:g} x |plain|), sentinel rows {int((want_lse == 1e30).sum())}")
+        if bad.any() or not torch.isfinite(lse).all():
+            raise RuntimeError(f"flash lse {name}: kernel disagrees with its plain version")
+        del want_out, want_lse
+        bkw = dict(kv_valid_len=kvv, **kw)
+        bwd = lambda **o: flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, **bkw, **o)  # noqa: E731
+        bwd_plain = lambda: flash_backward_ref(q, k, v, out, lse, dout, ki, kc, **bkw)  # noqa: E731
+        got, want = bwd(), bwd_plain()
+        errs = [compare(torch, f"flash backward d{n} {name}", a, w)
+                for n, a, w in zip(("q", "k", "v"), got, want)]
+        if got[1][:, :, kvv:].any() or got[2][:, :, kvv:].any():
+            raise RuntimeError(f"flash backward {name}: padded kv rows got non-zero dk / dv")
+        del got, want
+        torch.cuda.empty_cache()
+
+        # bounds: products over the visible pairs; each operand read once
+        pairs = visible_pairs(c) * h
+        rows_q, rows_kv = qv * h * d * 2, kvv * h * d * 2  # bytes of one (S, d) operand set
+        fl_ms, fl_by = bound_ms(4.0 * pairs * d, 2 * rows_q + 2 * rows_kv + qv * h * 4, PEAK_BF16)
+        dq_ms, dq_by = bound_ms(6.0 * pairs * d, 3 * rows_q + 2 * rows_kv + 2 * qv * h * 4,
+                                PEAK_BF16)
+        dkv_ms, dkv_by = bound_ms(8.0 * pairs * d, 2 * rows_q + 4 * rows_kv + 2 * qv * h * 4,
+                                  PEAK_BF16)
+        # library yardstick: SDPA on the valid rows (STA with the window's
+        # boolean mask), forward and forward + backward; backward = the difference
+        qs = q[:, :, :qv].detach().requires_grad_()
+        ks = k[:, :, :kvv].detach().requires_grad_()
+        vs = v[:, :, :kvv].detach().requires_grad_()
+        go = dout[:, :, :qv]
+        mask = (sta_raster_mask(torch, GRID_480P_77F, (4, 6, 4), dev)
+                if name.startswith("sta") else None)
+        lib_fwd = lib_bwd = None
+        try:
+            with torch.no_grad():
+                lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask), 5, 1)
+            lib_fb = time_ms(torch, lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), (qs, ks, vs), go),
+                5, 1)
+            lib_bwd = lib_fb - lib_fwd
+        except (torch.OutOfMemoryError, RuntimeError) as e:
+            log(f"{name}: SDPA yardstick failed: {type(e).__name__}: {str(e).splitlines()[0]}")
+        del qs, ks, vs, mask
+        torch.cuda.empty_cache()
+        plain_bwd = time_ms(torch, bwd_plain, 2, 1)
+        res["lse"][name] = dict(ms=time_ms(torch, fwd, 10), plain_ms=time_ms(torch, fwd_plain, 2, 1),
+                                library_ms=lib_fwd, bound_ms=fl_ms, bound_by=fl_by,
+                                max_abs_err=max(err, lse_err.max().item()))
+        res["dq"][name] = dict(ms=time_ms(torch, lambda: bwd(need_dkv=False), 10),
+                               plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=dq_ms,
+                               bound_by=dq_by, max_abs_err=errs[0])
+        res["dkv"][name] = dict(ms=time_ms(torch, lambda: bwd(need_dq=False), 10),
+                                plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=dkv_ms,
+                                bound_by=dkv_by, max_abs_err=max(errs[1:]))
+        for kind in ("lse", "dq", "dkv"):
+            r = res[kind][name]
+            log(f"{kind} {name}: {r} (achieved "
+                f"{(4.0, 6.0, 8.0)[('lse', 'dq', 'dkv').index(kind)] * pairs * d / r['ms'] / 1e9:.1f}"
+                f" TFLOP/s)")
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+
+    def entry(kind, name, source, replaces):
+        shapes = res[kind]
+        worst = max(x["max_abs_err"] for x in shapes.values())
+        return dict(name=name, route="cuda", source=source, replaces=replaces, _counter=name,
+                    **{**shapes["full_31200"], "max_abs_err": worst}, shapes=shapes,
+                    **({"library_covers": "SDPA's backward computes dq, dk and dv in one call"}
+                       if kind != "lse" else {}))
+
+    return [entry("lse", "flash_lse", "vorta_tpu_torch/csrc/flash.cu", "vorta_tpu/ops/flash.py:237"),
+            entry("dq", "flash_dq", "vorta_tpu_torch/csrc/flash_bwd.cu",
+                  "vorta_tpu/ops/flash_bwd.py:75"),
+            entry("dkv", "flash_dkv", "vorta_tpu_torch/csrc/flash_bwd.cu",
+                  "vorta_tpu/ops/flash_bwd.py:116")]
+
+
+def check_train_grads(torch) -> None:
+    """One router train step of a 2-block Wan-1.3B-width model: the card
+    (bf16, kernels) against the CPU (f32, plain versions), the same weights
+    and draws.  Grid (4, 12, 8): the STA tile (4, 6, 4) and the lowres
+    window (2, 3, 2) divide it, so all three experts and their backward run."""
+    import dataclasses
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.schedulers.flow_match import train_sigmas
+    from vorta_tpu_torch.training.step import LossWeights, make_router_train_step, router_partition
+
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
+    grid = (4, 12, 8)
+    attn = attention_config("wan-1_3B", grid)
+    sig = train_sigmas(5.0)
+    step = make_router_train_step(attn, LossWeights(), timestep_table=sig * 1000.0,
+                                  sigma_table=sig)
+    gen = torch.Generator().manual_seed(12)
+    lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=gen)
+    ctx = torch.randn((1, TEXT_LEN, cfg.text_dim), generator=gen)
+    eps = torch.randn(lat.shape, generator=gen)
+    t, s = torch.tensor([float(sig[300] * 1000.0)]), torch.tensor([float(sig[300])])
+    ref = WanModel(cfg, dtype=torch.float32, device="cpu", seed=13)
+
+    def run(model, dev):
+        routers = router_partition(model)
+        loss, m = step.loss(model, *(x.to(dev) for x in (lat, ctx, t, s, eps)))
+        grads = torch.autograd.grad(loss, list(routers.values()))
+        return loss.item(), torch.cat([x.flatten().float().cpu() for x in grads]), m
+
+    gpu = WanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=13)
+    gpu.load_state_dict(ref.state_dict())
+    loss_g, grads_g, m = run(gpu, "cuda")
+    del gpu
+    loss_c, grads_c, _ = run(ref, "cpu")
+    rel_loss = abs(loss_g - loss_c) / abs(loss_c)
+    rel = ((grads_g - grads_c).norm() / grads_c.norm()).item()
+    log(f"gradient check (2 blocks, 1.3B widths, {grid} = 384 tokens, t = {t.item():.1f}): "
+        f"loss card {loss_g:.6f} vs CPU {loss_c:.6f} (rel {rel_loss:.2e}, tolerance 0.02); router "
+        f"gradients rel L2 {rel:.4f} (tolerance 0.1; |grad| {grads_c.norm().item():.3e}); "
+        f"card metrics { {k: round(float(v), 6) for k, v in m.items()} }")
+    if not torch.isfinite(grads_g).all() or not (rel_loss <= 0.02 and rel <= 0.1):
+        raise RuntimeError("gradient check: the card's train step disagrees with the CPU's")
+
+
+def train_launches(kernels, num_layers: int) -> dict:
+    """Kernel launches of one training micro-step (soft routing, teacher
+    interleaved, remat on), derived from the graph:
+      teacher, per block, no grad: flash self + cross without lse, the qk
+        prologue, 2 AdaLN norms; its output head: 1 norm;
+      student, per block, its forward run twice (once more in the backward,
+        by the per-block recompute): 2 AdaLN norms, 3 expert flash + 1 cross
+        flash.  Block 0's self-attention inputs need no gradient (frozen
+        patch embedding and projections), so its experts run without lse
+        and get no backward; its cross-attention q does (through the routed
+        residual), so it runs with lse and gets dq only: the text k and v
+        are frozen.  Blocks 1..L-1: 4 flash with lse; backward dq x 4 and
+        dk/dv x 3 (the experts); the student's head: 1 norm."""
+    n = num_layers
+    return {**dict.fromkeys(kernels, 0), "flash": 2 * n + 2 * 4 * n,
+            "flash_lse": 2 * (1 + 4 * (n - 1)), "flash_dq": 1 + 4 * (n - 1),
+            "flash_dkv": 3 * (n - 1), "fused_norm": 2 * n + 1 + 2 * 2 * n + 1, "prologue": n}
+
+
+def run_train_main_path(torch, card: str):
+    """cli.train at full width and depth (480p x 77f): 2 optimizer steps of 2
+    micro-steps and a checkpoint, then resumed for a third step."""
+    import math
+    import shutil
+
+    from vorta_tpu_torch.cli.train import main as train_main
+    from vorta_tpu_torch.ops import _build
+
+    out_dir = HERE / "results" / "port_smoke" / "train"  # listed in .gitignore
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = ["--model", "wan-1_3B", "--synthetic_data", "--gradient_accumulation_steps", "2",
+            "--output_dir", str(out_dir)]
+    per_micro = train_launches(_build.KERNELS, 30)
+    runs = []
+    for extra, micro in ((["--max_train_steps", "2"], 4),
+                         (["--max_train_steps", "3", "--resume_from_checkpoint", "latest"], 2)):
+        _build.reset_launches()
+        res = train_main(base + extra)
+        launches = dict(_build.launches)
+        expected = {k: v * micro for k, v in per_micro.items()}
+        if launches != expected:
+            raise RuntimeError(f"training main path launches {launches} != expected {expected}")
+        if len(res.micro_s) != micro:
+            raise RuntimeError(f"training main path: {len(res.micro_s)} micro-steps, not {micro}")
+        runs.append((res, launches))
+    (first, launches), (second, _) = runs
+    shutil.rmtree(out_dir, ignore_errors=True)
+    metrics = first.metrics + second.metrics
+    if not all(math.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")):
+        raise RuntimeError(f"training main path: non-finite metrics {metrics}")
+    moved = max((first.router_final[k] - first.router_init[k]).abs().max().item()
+                for k in first.router_init)
+    if not moved > 0:
+        raise RuntimeError("training main path: the routers did not change")
+    if (first.final_step, second.init_step, second.final_step) != (2, 2, 3):
+        raise RuntimeError(f"training main path: steps {first.final_step}, resumed at "
+                           f"{second.init_step}, ended {second.final_step}")
+    if any(not torch.equal(second.router_init[k], first.router_final[k])
+           for k in first.router_final):
+        raise RuntimeError("training main path: the resumed run did not start from the checkpoint")
+    micro = first.micro_s[1:] + second.micro_s[1:]  # the first of each run warms up
+    stats = dict(micro_s=sum(micro) / len(micro), step_s=second.step_s[0],
+                 first_micro_s=first.micro_s[0],
+                 max_memory_gib=max(first.max_memory_bytes, second.max_memory_bytes) / 2**30)
+    log(f"training main path: Wan-1.3B 30 blocks, 31,200 tokens, soft routing + teacher, remat: "
+        f"micro-steps {[round(x, 3) for x in first.micro_s + second.micro_s]} s, optimizer "
+        f"steps {[round(x, 3) for x in first.step_s + second.step_s]} s; steady "
+        f"{stats['micro_s']:.3f} s per micro-step, {stats['step_s']:.3f} s per optimizer step "
+        f"(resumed run); peak memory {stats['max_memory_gib']:.2f} GiB; routers moved by up to "
+        f"{moved:.3e}; resumed at step {second.init_step} on {card}")
+    for m in metrics:
+        log(f"training step {m['step']}: " + ", ".join(
+            f"{k} {m[k]:.6g}" for k in ("loss", "l_fm", "l_reg", "l_last", "l_hidden",
+                                         "grad_norm", "timestep")))
+    log(f"training launches per micro-step {per_micro} (exact over 4 + 2 micro-steps)")
+    return launches, stats
 
 
 if __name__ == "__main__":

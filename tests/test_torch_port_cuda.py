@@ -13,7 +13,10 @@ prologue's head scope, qk_norm off and odd sequence lengths, flash and
 flash_manual at head dim 64, small blocks, per-head tables and counts,
 sta_pipe at every tile-width class with clamped and whole-axis windows,
 pool/unpool with inactive heads, and that the options each wrapper leaves
-to later slices raise.  Tolerances: 1e-5 x max
+to later slices raise; for training, the forward's lse, the dq and dk/dv
+kernels (1, 2 and 4 warps, tails, empty q blocks), the autograd rules of
+the attention and the norm, the grad guards of the forward-only wrappers,
+a train step against the CPU and the trainer CLI.  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -395,8 +398,9 @@ def test_routed_forward_on_card_matches_cpu(card):
         want = cpu(lat, t, ctx, attn_cfg=attn, routing_mode="hard").sample
     n = cfg.num_layers
     assert (res.expert_ids == np.array([0, 1, 2, 2])).all()
-    assert launches == {"flash": n, "fused_norm": 2 * n + 1, "prologue": n,
-                        "flash_manual": 2 * n, "sta_pipe": n, "pool_qkv": n, "unpool": n}
+    assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
+                        "fused_norm": 2 * n + 1, "prologue": n, "flash_manual": 2 * n,
+                        "sta_pipe": n, "pool_qkv": n, "unpool": n}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -410,3 +414,245 @@ def test_cli_routes_on_card(card, tmp_path):
                 "--output", str(out)])
     assert np.load(out).shape == (1, 4, 8, 8, 16) and np.isfinite(np.load(out)).all()
     assert len(res.routing) == 4 and res.latents.device.type == "cuda"
+
+
+# --- training: the forward's lse, the flash backward, autograd rules ----------
+
+def _bwd_inputs(card, b, h, sq, skv, d, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, dout = (_randn(g, (b, h, sq, d), torch.bfloat16) for _ in range(2))
+    k, v = (_randn(g, (b, h, skv, d), torch.bfloat16) for _ in range(2))
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,block,seq,valid", [
+    ("dense", 32, 128, 100),
+    ("dense", 1024, 2048, 1500),  # FULL's blocks, tail mid-block
+    ("shared", 64, 256, 250),     # q block 0 sees nothing: the 1e30 sentinel
+    ("dense", 96, 384, None),     # STA's 96-token tiles: 2 warps per CUDA block
+    ("dense", 16, 64, 50),
+])
+def test_flash_lse_matches_plain(card, d, kind, block, seq, valid):
+    """The forward kernel's lse (f32) against the plain version's: the same
+    f32 logits summed in another order, so rtol 1e-5 (atol 1e-4 for lse
+    near 0); empty rows carry exactly 1e30."""
+    q, k, v, _ = _bwd_inputs(card, 2, 3, seq, seq, d, 3)
+    ki, kc = _tables(kind, 3, seq // block, seq // block).on(card)
+    kw = dict(block_q=block, block_kv=block, kv_valid_len=valid, scale=d**-0.5)
+    _build.reset_launches()
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, return_lse=True, **kw)
+    assert (_build.launches["flash"], _build.launches["flash_lse"]) == (1, 1)
+    want_out, want_lse = sparse_flash_attention_ref(q, k, v, ki, kc, return_lse=True, **kw)
+    _close(out, want_out)
+    torch.cuda.synchronize()
+    assert lse.shape == (2, 3, seq, 1) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    if kind == "shared":
+        assert (lse[:, :, :block] == 1e30).all()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [
+    ("dense", 64, 64, 256, 256, 200),          # kv tail mid-block
+    ("shared", 64, 64, 256, 256, None),        # sparse, q block 0 empty
+    ("dense", 96, 96, 384, 384, None),         # STA's 96-token blocks: 2 warps
+    ("dense", 256, 64, 512, 128, 100),         # cross-attention's shape class
+    ("dense", 1024, 1024, 2048, 2048, 1500),   # FULL's blocks
+    ("dense", 16, 16, 64, 64, 50),             # 1 warp
+])
+def test_flash_backward_kernels_match_plain(card, d, kind, bq, bkv, sq, skv, valid):
+    """dq and dk/dv kernels against flash_backward_ref on the same inputs,
+    the forward kernel's out and lse; padded kv rows get exactly zero dk and
+    dv, an empty q block exactly zero dq."""
+    from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
+
+    q, k, v, dout = _bwd_inputs(card, 2, 3, sq, skv, d, 4)
+    tab = _tables(kind, 1, sq // bq, skv // bkv)
+    ki, kc = tab.on(card)
+    qi, qc = (torch.from_numpy(a).to(card)
+              for a in transpose_tables(tab.kv_index, tab.kv_count, skv // bkv))
+    kw = dict(scale=d**-0.5, block_q=bq, block_kv=bkv)
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, kv_valid_len=valid, return_lse=True,
+                                          **kw)
+    _build.reset_launches()
+    got = flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, kv_valid_len=valid or skv, **kw)
+    assert (_build.launches["flash_dq"], _build.launches["flash_dkv"]) == (1, 1)
+    want = flash_backward_ref(q, k, v, out, lse, dout, ki, kc, kv_valid_len=valid or skv, **kw)
+    for a, w in zip(got, want):
+        _close(a, w)
+    if valid:
+        assert not got[1][:, :, valid:].any() and not got[2][:, :, valid:].any()
+    if kind == "shared":
+        assert not got[0][:, :, :bq].any()
+    _build.reset_launches()
+    dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc,
+                                kv_valid_len=valid or skv, need_dkv=False, **kw)
+    assert dk is None and dv is None and torch.equal(dq, got[0])
+    assert (_build.launches["flash_dq"], _build.launches["flash_dkv"]) == (1, 0)
+
+
+@pytest.mark.parametrize("kv_grad", [True, False])
+def test_sparse_attention_grads_on_card_match_cpu(card, kv_grad):
+    """make_sparse_attention's autograd on the card (bf16, kernels) against
+    the CPU (f32, plain versions): rel L2 below 0.02 (bf16 inputs and
+    outputs, ds and p rounded to bf16).  Without grad on k and v (the
+    cross-attention's frozen text) the dk/dv kernel is not launched."""
+    from vorta_tpu_torch.ops.flash import make_sparse_attention
+
+    tab = tables_from_block_mask(np.array([[1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1],
+                                           [0, 0, 0, 0]], bool))
+    attn = make_sparse_attention(tab, n_kv_blocks=4, block_q=64, block_kv=64, kv_valid_len=230)
+    gen = torch.Generator().manual_seed(8)
+    q, k, v, gout = (torch.randn((1, 2, 256, 128), generator=gen) for _ in range(4))
+
+    def grads(dev, dtype):
+        qq, kk, vv = (t.to(dev, dtype).requires_grad_(n)
+                      for t, n in zip((q, k, v), (True, kv_grad, kv_grad)))
+        out = attn(qq, kk, vv)
+        (out.float() * gout.to(dev)).sum().backward()
+        return [t.grad.float().cpu() for t in (qq, kk, vv) if t.grad is not None]
+
+    _build.reset_launches()
+    got = grads(card, torch.bfloat16)
+    assert _build.launches["flash_lse"] == 1 and _build.launches["flash_dq"] == 1
+    assert _build.launches["flash_dkv"] == (1 if kv_grad else 0)
+    want = grads("cpu", torch.float32)
+    assert len(got) == len(want) == (3 if kv_grad else 1)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert ((a - w).norm() / w.norm()).item() < 0.02
+
+
+@pytest.mark.parametrize("rms,affine,mod", [(False, "none", True), (False, "gamma_beta", False),
+                                            (True, "gamma", False), (False, "gamma", True)])
+def test_norm_backward_on_card_matches_plain(card, rms, affine, mod):
+    """fused_norm's autograd rule on the card (kernel forward, plain
+    backward) against autograd of the plain version on the same tensors:
+    bf16 dx by the 2^-5 rule, f32 parameter gradients to 1e-4 x max (sums
+    over 4,096 rows in another order)."""
+    g = torch.Generator(device=card).manual_seed(9)
+    b, s, dim = 2, 2048, 512
+    x = _randn(g, (b, s, dim), torch.bfloat16, 3.0)
+    vec = {n: 0.3 * torch.randn(shape, generator=g, device=card)
+           for n, shape in (("scale", (b, dim)), ("shift", (b, dim)), ("gamma", (dim,)),
+                            ("beta", (dim,)))}
+    use = {"scale": mod, "shift": mod, "gamma": affine != "none", "beta": affine == "gamma_beta"}
+    gout = torch.randn((b, s, dim), generator=g, device=card)
+
+    def run(fn):
+        xs = x.clone().requires_grad_(True)
+        args = [vec[n].clone().requires_grad_(True) if use[n] else None
+                for n in ("scale", "shift", "gamma", "beta")]
+        (fn(xs, *args).float() * gout).sum().backward()
+        return [xs.grad] + [a.grad for a in args if a is not None]
+
+    _build.reset_launches()
+    got = run(lambda *a: fused_norm(*a, rms, 1e-6, False))
+    assert _build.launches["fused_norm"] == 1
+    want = run(lambda *a: _norm_ref(*a, rms=rms, eps=1e-6, out_f32=False))
+    _close(got[0], want[0])
+    for a, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-4 * w.abs().max().item())
+
+
+def test_forward_only_kernels_raise_under_grad(card):
+    """The wrappers with no backward in the JAX package raise on CUDA
+    tensors that require grad under grad mode, and run under no_grad."""
+    from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual
+    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention
+
+    q = torch.zeros((1, 2, 64, 64), device=card, dtype=torch.bfloat16, requires_grad=True)
+    ki, kc = dense_tables(1, 1).on(card)
+    groups = build_lowres_groups((4, 4, 4), (2, 2, 2))
+    x = torch.zeros((1, 64, 128), device=card, dtype=torch.bfloat16, requires_grad=True)
+    cos = torch.ones((64, 32), device=card)
+    calls = [
+        lambda: sparse_flash_attention_raw(q, q, q, ki, kc, block_q=64, block_kv=64),
+        lambda: sparse_flash_attention_manual(q, q, q, ki, kc, block_q=64, block_kv=64),
+        lambda: sta_pipe_attention(q, q, q, torch.ones(2, device=card), latent_shape=(4, 4, 4),
+                                   tile=(2, 2, 2)),
+        lambda: pool_qkv(q, q, q, groups),
+        lambda: unpool(q[:, :, :groups.pooled_length], q, groups,
+                       picks=torch.zeros((1, 2, 2, 2, 2, groups.num_kept_margins),
+                                         dtype=torch.int32, device=card)),
+        lambda: fused_qk_prologue(x, x, x, None, None, cos, cos, num_heads=2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+
+
+def _train_cfg():
+    from vorta_tpu_torch.config import WAN_TINY, AttentionConfig
+
+    cfg = dataclasses.replace(WAN_TINY, dim=512, ffn_dim=1024, num_heads=4, head_dim=128,
+                              text_dim=64, text_len=16, freq_dim=64)
+    # 16-token STA tiles, so the flash kernel's 16-row blocks take them
+    attn = AttentionConfig(latent_shape=(4, 8, 8), sta_tile=(2, 2, 4), sta_window=(3, 3, 1),
+                           lowres_window=(2, 2, 2), block_q=64, block_kv=64)
+    return cfg, attn
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One router train step's loss and router gradients on the card (bf16,
+    kernels) against the CPU (f32, plain versions) from the same weights and
+    draws: loss within 2%, router gradients rel L2 below 0.1 (bf16 through
+    the forward and the backward of 2 blocks).  The launches per micro-step
+    follow the graph: block 0's self-attention inputs need no gradient (no
+    lse, no backward kernels), its cross-attention q does (dq only: the text
+    k and v are frozen), and remat runs each student block's forward twice."""
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.schedulers.flow_match import train_sigmas
+    from vorta_tpu_torch.training.step import LossWeights, make_router_train_step, router_partition
+
+    cfg, attn = _train_cfg()
+    sig = train_sigmas(3.0)
+    step = make_router_train_step(attn, LossWeights(hidden_layer_distill=1.0),
+                                  timestep_table=sig * 1000.0, sigma_table=sig)
+    gen = torch.Generator().manual_seed(10)
+    lat = torch.randn((1, 4, 16, 16, 16), generator=gen)
+    ctx = torch.randn((1, 16, 64), generator=gen)
+    eps = torch.randn(lat.shape, generator=gen)
+    t, s = torch.tensor([700.0]), torch.tensor([0.7])
+
+    cpu_model = WanModel(cfg, dtype=torch.float32, device="cpu", seed=3)
+
+    def run(dev, dtype):
+        model = WanModel(cfg, dtype=dtype, device=dev, seed=3)
+        model.load_state_dict(cpu_model.state_dict())  # the card's generator draws others
+        routers = router_partition(model)
+        loss, metrics = step.loss(model, *(x.to(dev) for x in (lat, ctx, t, s, eps)))
+        grads = torch.autograd.grad(loss, list(routers.values()))
+        return loss.item(), torch.cat([g.flatten().cpu() for g in grads])
+
+    _build.reset_launches()
+    loss_g, grads_g = run(card, torch.bfloat16)
+    launches = dict(_build.launches)
+    loss_c, grads_c = run("cpu", torch.float32)
+    n = cfg.num_layers
+    assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": 10 * n,
+                        "flash_lse": 8 * n - 6, "flash_dq": 4 * n - 3, "flash_dkv": 3 * n - 3,
+                        "fused_norm": 6 * n + 2, "prologue": n}
+    assert abs(loss_g - loss_c) <= 0.02 * abs(loss_c)
+    assert torch.isfinite(grads_g).all()
+    assert ((grads_g - grads_c).norm() / grads_c.norm()).item() < 0.1
+
+
+def test_train_cli_on_card(card, tmp_path):
+    """The trainer CLI on the card: 2 optimizer steps of 2 micro-steps, a
+    checkpoint, a resumed third step; finite losses, routers moved."""
+    from vorta_tpu_torch.cli.train import main
+
+    args = ["--model", "wan-1_3B", "--num_latent_t", "4", "--video_height", "384",
+            "--video_width", "256", "--sta_tile", "4", "4", "4", "--synthetic_data",
+            "--gradient_accumulation_steps", "2", "--output_dir", str(tmp_path)]
+    first = main(args + ["--max_train_steps", "2"])
+    second = main(args + ["--max_train_steps", "3", "--resume_from_checkpoint", "latest"])
+    assert (first.final_step, second.init_step, second.final_step) == (2, 2, 3)
+    assert all(np.isfinite(m["loss"]) for m in first.metrics + second.metrics)
+    moved = max((first.router_final[k] - first.router_init[k]).abs().max().item()
+                for k in first.router_init)
+    assert moved > 0

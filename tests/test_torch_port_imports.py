@@ -32,8 +32,13 @@ def test_port_imports_no_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 20, proc.stdout  # every module was walked
+    assert int(n) >= 30, proc.stdout  # every module was walked
     assert bad == "[]", f"the port loaded {bad}"
+    names = {m.name for m in pkgutil.walk_packages(vorta_tpu_torch.__path__, "vorta_tpu_torch.")}
+    assert {"vorta_tpu_torch.ops.flash_bwd", "vorta_tpu_torch.training.step",
+            "vorta_tpu_torch.training.sampling", "vorta_tpu_torch.training.data",
+            "vorta_tpu_torch.io.checkpoint", "vorta_tpu_torch.io.metrics",
+            "vorta_tpu_torch.cli.train"} <= names
 
 
 def test_every_module_imports_without_building():

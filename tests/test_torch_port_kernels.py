@@ -109,11 +109,13 @@ def test_flash_dense_equals_oracles():
 
 
 def test_flash_unported_features_raise():
+    """Per-head kv_valid and pair_bits belong to the Hunyuan slice."""
     q = torch.zeros((1, 1, 32, 64))
     tab = dense_tables(1, 1)
-    with pytest.raises(NotImplementedError):
-        sparse_flash_attention_raw(q, q, q, tab.kv_index, tab.kv_count, block_q=32,
-                                   block_kv=32, return_lse=True)
+    for kw in (dict(kv_valid=torch.tensor([20])), dict(pair_bits=torch.zeros((1, 1, 1)))):
+        with pytest.raises(NotImplementedError):
+            sparse_flash_attention_raw(q, q, q, tab.kv_index, tab.kv_count, block_q=32,
+                                       block_kv=32, **kw)
 
 
 # --- AdaLN norm ---------------------------------------------------------------

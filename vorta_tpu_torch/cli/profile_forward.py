@@ -9,13 +9,17 @@ tile) and random routers, or the routers of ``--router`` (an npz of the JAX
 package's router training, io/from_jax.load_router_npz).  Those routers
 were trained against the JAX benchmark model (``nnx.Rngs(0)``) and read its
 timestep embedding, so ``--router`` also loads that model's time embedder
-(``port_assets/``, io/from_jax.load_jax_params).
+(``port_assets/``, io/from_jax.load_jax_params).  ``--train`` profiles one
+router-training micro-step instead (training/step.py: soft routing with the
+teacher interleaved, per-block recompute, the backward to the routers),
+at the trainer's geometry, after one warm-up micro-step.
 
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 21 --height 480 --width 832
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --routing hard
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --height 720 --width 1280 \
       --routing hard --sta_tile 5 9 8 --t 500 \
       --router assets/bench_router_wan1_3b_720p_half.npz
+  python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --train
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
 
 GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("flash", ("flash_fwd_kernel",)),
+    ("flash_dq", ("flash_dq_kernel",)),
+    ("flash_dkv", ("flash_dkv_kernel",)),
     ("flash_manual", ("flash_manual_kernel",)),
     ("sta_pipe", ("sta_kernel",)),
     ("unpool", ("unpool_kernel",)),
@@ -70,6 +76,8 @@ def main(argv=None) -> dict:
     p.add_argument("--sta_tile", type=int, nargs=3, default=None)
     p.add_argument("--router", default=None, help="router npz (routing hard)")
     p.add_argument("--t", type=float, default=900.0, help="timestep")
+    p.add_argument("--train", action="store_true",
+                   help="profile one router-training micro-step instead of a forward")
     args = p.parse_args(argv)
 
     from torch.profiler import ProfilerActivity, profile
@@ -91,14 +99,21 @@ def main(argv=None) -> dict:
         if args.router:
             load_router_npz(model, args.router)
             load_jax_params(model, TIME_EMBEDDER)
-    with torch.inference_mode():
-        model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing)
+    if args.train:
+        attn = attention_config("wan-1_3B", grid)
+        run = _train_micro_step(model, attn, lat, ctx, t)
+    else:
+        def run():
+            with torch.inference_mode():
+                return model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels = {}
     for ev in prof.events():
@@ -114,12 +129,14 @@ def main(argv=None) -> dict:
         acc[0] += ms
         acc[1] += n
     heads = None
-    if args.routing == "hard":
+    if args.routing == "hard" and not args.train:
         heads = dict(zip(("full", "lowres", "sta"),
                          np.bincount(out.expert_ids.reshape(-1), minlength=3).tolist()))
     result = {
         "tokens": grid[0] * grid[1] * grid[2], "layers": cfg.num_layers,
-        "routing": args.routing, "t": args.t, "sta_tile": attn.sta_tile if heads else None,
+        "routing": "soft (train micro-step)" if args.train else args.routing, "t": args.t,
+        "sta_tile": attn.sta_tile if heads or args.train else None,
+        "max_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,
         "heads_per_expert": heads,
         "wall_ms": wall_ms, "device_ms": device_ms,
         "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
@@ -132,6 +149,28 @@ def main(argv=None) -> dict:
     }
     print(json.dumps(result, indent=1))
     return result
+
+
+def _train_micro_step(model, attn, lat, ctx, t):
+    """One micro-step of the trainer at timestep ``t``: loss, then the
+    router gradients (the optimizer's update is a few hundred elementwise
+    launches over 0.1% of the parameters, left out)."""
+    from ..schedulers.flow_match import train_sigmas
+    from ..training.step import LossWeights, make_router_train_step, router_partition
+
+    routers = list(router_partition(model).values())
+    sig = train_sigmas(5.0)
+    step = make_router_train_step(attn, LossWeights(), timestep_table=sig * 1000.0,
+                                  sigma_table=sig)
+    sigma = torch.tensor([float(sig[int((1000.0 - t.item()))])], device=t.device)
+    eps = torch.randn(lat.shape, generator=torch.Generator(lat.device).manual_seed(2),
+                      device=lat.device)
+
+    def run():
+        loss, _ = step.loss(model, lat, ctx, t, sigma, eps)
+        return torch.autograd.grad(loss, routers)
+
+    return run
 
 
 if __name__ == "__main__":

@@ -5,9 +5,12 @@ sliding-tile attention; ``--tau_sparse`` is the confidence below which a
 head falls back to full attention) unless ``--native_attention`` asks for
 full attention everywhere, the baseline of routing's speed-up.
 Conditioning comes from ``--prompt_embeds x.npy`` (UMT5 states,
-(L, text_dim) or (1, L, text_dim)) or ``--random_embeds``.  Weights, the
-routers' among them, are random, drawn from ``--seed``.  Writes the final
-latents as .npy and prints the heads routed to each expert.
+(L, text_dim) or (1, L, text_dim)) or ``--random_embeds``.  Weights are
+random, drawn from ``--seed``; ``--router_checkpoint`` loads the routers
+from a step dir that the port's trainer wrote (``<output_dir>/ckpt/
+step-XXXXXX``), and ``--resume_dir`` reads that run's attention geometry
+from its ``config.json``.  Writes the final latents as .npy and prints the
+heads routed to each expert.
 
 Example:
   python -m vorta_tpu_torch.cli.sample --model wan-1_3B --random_embeds \\
@@ -27,6 +30,7 @@ import torch
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
 from ..device import resolve_device
 from ..geometry import WAN_GEOMETRY
+from ..io.checkpoint import apply_router_state, load_router_checkpoint
 from ..models.wan import WanModel
 from ..pipelines.wan_t2v import SamplingConfig, WanT2VPipeline
 
@@ -39,6 +43,10 @@ def parse_args(argv=None):
     p.add_argument("--model", default="wan-1_3B", choices=sorted(MODELS))
     p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--resume_dir", default=None,
+                   help="training output dir: reads config.json's attention geometry")
+    p.add_argument("--router_checkpoint", default=None,
+                   help="router checkpoint step dir written by vorta_tpu_torch.cli.train")
     p.add_argument("--native_attention", action="store_true",
                    help="full 3D attention baseline (routing off)")
     p.add_argument("--tau_sparse", type=float, default=0.3)
@@ -96,12 +104,29 @@ def main(argv=None) -> SampleResult:
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     grid = WAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
     attn_cfg = attention_config(args.model, grid, args.tau_sparse)
+    if args.resume_dir and (Path(args.resume_dir) / "config.json").exists():
+        attn_cfg = AttentionConfig.load(Path(args.resume_dir) / "config.json")
+        if attn_cfg.latent_shape != grid:
+            raise ValueError(f"config.json geometry {attn_cfg.latent_shape} != requested "
+                             f"video grid {grid}")
+        attn_cfg = dataclasses.replace(attn_cfg, tau_sparse=args.tau_sparse)
+    router_state = None
+    if args.router_checkpoint:
+        rp = Path(args.router_checkpoint)
+        if rp.suffix in (".pt", ".bin", ".safetensors"):
+            raise NotImplementedError(
+                f"{rp.name}: reference torch router checkpoints need the weight importer "
+                "(io/torch_import), a later port slice; pass a step dir of the port's trainer")
+        router_state, _ = load_router_checkpoint(rp)
     routing_mode = "off" if args.native_attention else "hard"
     print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}",
           flush=True)
 
     t0 = time.time()
     model = WanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+    if router_state is not None:
+        apply_router_state(model, router_state)
+        print(f"[sample] router loaded from {args.router_checkpoint}", flush=True)
     gen = torch.Generator(device=device)
     if args.prompt_embeds:
         pe = torch.from_numpy(load_embeds(args.prompt_embeds, model_cfg)).to(device)

@@ -1,0 +1,277 @@
+"""Router-distillation trainer on one GPU (counterpart of cli/train.py).
+
+The JAX trainer's recipe and arguments: a frozen DiT with trainable f32
+routers, flow-match distillation against the frozen full-attention teacher
+(interleaved per block, each student block recomputed in the backward),
+the interval curriculum, AdamW with global-norm clipping and gradient
+accumulation, router-only checkpoints under ``<output_dir>/ckpt`` and the
+attention geometry persisted to ``<output_dir>/config.json``.  SIGTERM or
+SIGINT saves a checkpoint at the next optimizer step and exits.  Weights
+are random, drawn from ``--seed``; ``--synthetic_data`` (or no
+``--data_json_path``) draws latents and text embeddings from it too.  Runs
+on CUDA unless ``--device cpu``.
+
+  python -m vorta_tpu_torch.cli.train --model wan-1_3B --synthetic_data \\
+      --max_train_steps 2 --gradient_accumulation_steps 2 --output_dir out/exp
+  python -m vorta_tpu_torch.cli.train --model wan-tiny --device cpu --dtype fp32 \\
+      --synthetic_data --max_train_steps 2 --output_dir /tmp/exp
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import signal
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
+from ..device import resolve_device
+from ..geometry import WAN_GEOMETRY
+from ..io.checkpoint import (
+    apply_router_state,
+    latest_checkpoint,
+    load_router_checkpoint,
+    save_router_checkpoint,
+)
+from ..io.metrics import MetricsLogger
+from ..models.wan import WanModel
+from ..schedulers.flow_match import train_sigmas
+from ..training.data import LatentDataset, epoch_iterator
+from ..training.step import (
+    LossWeights,
+    MultiSteps,
+    make_optimizer,
+    make_router_train_step,
+    router_partition,
+)
+
+MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    # model
+    p.add_argument("--model", default="wan-1_3B",
+                   choices=["wan-1_3B", "wan-14B", "wan-tiny", "hunyuan-13B", "hunyuan-tiny"])
+    p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--torch_checkpoint", default=None,
+                   help="path to torch/safetensors DiT weights to import")
+    # data
+    p.add_argument("--data_json_path", default=None)
+    p.add_argument("--synthetic_data", action="store_true",
+                   help="random latents/embeds (smoke testing)")
+    p.add_argument("--num_latent_t", type=int, default=20)
+    p.add_argument("--video_height", type=int, default=480)
+    p.add_argument("--video_width", type=int, default=832)
+    p.add_argument("--cfg_rate", type=float, default=0.1)
+    # attention geometry (persisted to config.json)
+    p.add_argument("--sta_window", type=int, nargs=3, default=[3, 3, 3])
+    p.add_argument("--sta_tile", type=int, nargs=3, default=[4, 6, 4])
+    p.add_argument("--lowres_window", type=int, nargs=3, default=[2, 3, 2])
+    p.add_argument("--lowres_reduction_rate", type=float, default=0.5)
+    p.add_argument("--tau_sparse", type=float, default=0.3)
+    # parallelism
+    p.add_argument("--sp_size", type=int, default=1)
+    p.add_argument("--shard_frozen", action="store_true",
+                   help="layer-shard the frozen DiT over the dp axis")
+    p.add_argument("--dp_size", type=int, default=None)
+    # optimization (reference defaults: train.sh)
+    p.add_argument("--train_batch_size", type=int, default=1,
+                   help="per-step global batch (before grad accumulation)")
+    p.add_argument("--gradient_accumulation_steps", type=int, default=4)
+    p.add_argument("--max_train_steps", type=int, default=100)
+    p.add_argument("--learning_rate", type=float, default=1e-2)
+    p.add_argument("--lr_scheduler", default="constant", choices=["constant", "linear", "cosine"])
+    p.add_argument("--lr_warmup_steps", type=int, default=0)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--max_grad_norm", type=float, default=1.0)
+    p.add_argument("--flow_shift", type=float, default=5.0)
+    p.add_argument("--precondition_outputs", action="store_true")
+    # losses (reference train.sh)
+    p.add_argument("--diffusion_loss_weight", type=float, default=1.0)
+    p.add_argument("--reg_loss_weight", type=float, default=0.02)
+    p.add_argument("--last_layer_distill_loss_weight", type=float, default=20.0)
+    p.add_argument("--hidden_layer_distill_loss_weight", type=float, default=0.0)
+    # run management
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--checkpointing_steps", type=int, default=100)
+    p.add_argument("--report_interval", type=int, default=1)
+    p.add_argument("--resume_from_checkpoint", default=None,
+                   help="'latest' or a step dir path")
+    args = p.parse_args(argv)
+    unported = (
+        (args.model.startswith("hunyuan"), f"--model {args.model}: HunyuanVideo is the next "
+                                           "port slice"),
+        (args.sp_size > 1 or (args.dp_size or 1) > 1 or args.shard_frozen,
+         "--sp_size / --dp_size / --shard_frozen: multi-card training belongs to the "
+         "sequence-parallelism port slice"),
+        (args.torch_checkpoint is not None,
+         "--torch_checkpoint: the diffusers weight importer (io/torch_import) belongs to a "
+         "later port slice"),
+    )
+    for bad, why in unported:
+        if bad:
+            raise NotImplementedError(why)
+    if args.dtype == "fp32" and args.device != "cpu":
+        p.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
+    return args
+
+
+def attention_config(args) -> AttentionConfig:
+    """The JAX trainer's geometry for ``args.model``."""
+    if args.model == "wan-tiny":
+        return AttentionConfig(latent_shape=(4, 4, 4), sta_window=(3, 3, 1), sta_tile=(2, 2, 2),
+                               lowres_window=(2, 2, 2), block_q=16, block_kv=16,
+                               sta_block_q=8, sta_block_kv=8, tau_sparse=args.tau_sparse)
+    _, lh, lw = WAN_GEOMETRY.tokens((1, args.video_height, args.video_width))
+    return AttentionConfig(latent_shape=(args.num_latent_t, lh, lw),
+                           sta_window=tuple(args.sta_window), sta_tile=tuple(args.sta_tile),
+                           lowres_window=tuple(args.lowres_window),
+                           lowres_reduction=args.lowres_reduction_rate,
+                           tau_sparse=args.tau_sparse)
+
+
+@dataclasses.dataclass
+class TrainResult:
+    init_step: int  # the optimizer step the run started from (resumed or 0)
+    final_step: int
+    metrics: list  # one dict of floats per reported optimizer step
+    micro_s: list  # seconds per micro-step, synchronised
+    step_s: list  # seconds per optimizer step, synchronised
+    max_memory_bytes: int  # torch.cuda.max_memory_allocated (0 on the CPU)
+    checkpoints: list  # step dirs written
+    router_init: dict  # the routers when the loop started, on the CPU
+    router_final: dict
+
+
+def _batches(args, model_cfg, latent_shape, batch: int):
+    if args.synthetic_data or args.data_json_path is None:
+        t, lh, lw = latent_shape
+        pt, ph, pw = model_cfg.patch_size
+        rng = np.random.default_rng(args.seed)
+        while True:
+            latents = rng.standard_normal(
+                (batch, t * pt, lh * ph, lw * pw, model_cfg.in_channels), np.float32)
+            text = rng.standard_normal((batch, model_cfg.text_len, model_cfg.text_dim),
+                                       np.float32)
+            yield latents, text
+    ds = LatentDataset(args.data_json_path, args.num_latent_t, args.cfg_rate, args.seed)
+    for latents, embeds, _ in epoch_iterator(ds, batch, seed=args.seed):
+        yield latents, embeds
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> TrainResult:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    out_dir = Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    model_cfg = MODELS[args.model]
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    attn_cfg = attention_config(args)
+    # the geometry contract: persisted at train time, re-read at inference
+    attn_cfg.save(out_dir / "config.json")
+    (out_dir / "args.json").write_text(json.dumps(vars(args), indent=2, default=str))
+    print(f"[train] model={args.model} latent={attn_cfg.latent_shape} device={device}",
+          flush=True)
+
+    model = WanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+    routers = router_partition(model)  # f32, the only trainable parameters
+    optimizer = MultiSteps(
+        make_optimizer(routers, lr=args.learning_rate, weight_decay=args.weight_decay,
+                       max_grad_norm=args.max_grad_norm, warmup_steps=args.lr_warmup_steps,
+                       total_steps=args.max_train_steps, schedule=args.lr_scheduler),
+        args.gradient_accumulation_steps)
+
+    init_step = 0
+    if args.resume_from_checkpoint:
+        path = (latest_checkpoint(out_dir / "ckpt") if args.resume_from_checkpoint == "latest"
+                else Path(args.resume_from_checkpoint))
+        if path is not None and path.exists():
+            router_state, opt_state = load_router_checkpoint(path)
+            apply_router_state(model, router_state)
+            if opt_state is not None:
+                optimizer.load_state_dict(opt_state)
+            init_step = int(path.name.split("-")[1])
+            print(f"[train] resumed from {path} at step {init_step}", flush=True)
+
+    sigmas = train_sigmas(shift=args.flow_shift)
+    weights = LossWeights(
+        diffusion=args.diffusion_loss_weight, reg=args.reg_loss_weight,
+        last_layer_distill=args.last_layer_distill_loss_weight,
+        hidden_layer_distill=args.hidden_layer_distill_loss_weight,
+        precondition_outputs=args.precondition_outputs)
+    step_fn = make_router_train_step(attn_cfg, weights, timestep_table=sigmas * 1000.0,
+                                     sigma_table=sigmas)
+    data = _batches(args, model_cfg, attn_cfg.latent_shape, args.train_batch_size)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    logger = MetricsLogger(out_dir)
+
+    # SIGTERM / SIGINT ask for a checkpoint at the next optimizer step
+    # boundary instead of dying mid-step, so --resume_from_checkpoint latest
+    # always finds a consistent state
+    stop = {"flag": False}
+
+    def _request_stop(signum, frame):
+        stop["flag"] = True
+        print(f"[train] signal {signum}: checkpoint + exit at step boundary", flush=True)
+
+    prev = {s: signal.signal(s, _request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
+    res = TrainResult(init_step, init_step, [], [], [], 0, [],
+                      {k: v.detach().cpu().clone() for k, v in routers.items()}, {})
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    try:
+        for step in range(init_step, args.max_train_steps):
+            t_step = time.time()
+            for _ in range(args.gradient_accumulation_steps):
+                t_micro = time.time()
+                latents, text = next(data)
+                metrics = step_fn(model, optimizer, torch.from_numpy(latents).to(device),
+                                  torch.from_numpy(text).to(device), generator)
+                _sync(device)
+                res.micro_s.append(time.time() - t_micro)
+            res.step_s.append(time.time() - t_step)
+            res.final_step = step + 1
+            if (step + 1) % args.report_interval == 0:
+                values = {k: float(v) for k, v in metrics.items()}
+                res.metrics.append({"step": step + 1, **values})
+                line = logger.log(step + 1, values)
+                print(f"[train] {line} ({res.step_s[-1]:.2f}s/step, "
+                      f"{res.step_s[-1] / args.gradient_accumulation_steps:.2f}s/micro-step)",
+                      flush=True)
+            if ((step + 1) % args.checkpointing_steps == 0 or step + 1 == args.max_train_steps
+                    or stop["flag"]):
+                path = save_router_checkpoint(out_dir / "ckpt", step + 1, routers,
+                                              optimizer.state_dict())
+                res.checkpoints.append(path)
+                print(f"[train] {'preempted: ' if stop['flag'] else ''}checkpoint -> {path}",
+                      flush=True)
+            if stop["flag"]:
+                break
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+        logger.close()
+    if device.type == "cuda":
+        res.max_memory_bytes = torch.cuda.max_memory_allocated(device)
+    res.router_final = {k: v.detach().cpu().clone() for k, v in routers.items()}
+    print(f"[train] done: steps {init_step}..{res.final_step}, peak memory "
+          f"{res.max_memory_bytes / 2**30:.2f} GiB", flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -6,6 +6,10 @@
 // tables), base-2 online softmax with scores (q.k) * scale * log2(e) in f32,
 // masked entries -1e30, a kv_valid_len tail mask on the last valid kv block,
 // P cast to bf16 before the PV product, rows normalised by l (l == 0 -> 0).
+// With an lse pointer it also writes each row's base-2 log-sum-exp in the
+// scaled domain, m + log2(l) from the running max and sum it already keeps,
+// or the sentinel 1e30 where the row saw no key (l == 0), so that the
+// backward's exp2(s - lse) underflows to 0 there (flash.py:237-241).
 //
 // Bound on this card: at Wan-1.3B self-attention (S = 9,360, d = 128,
 // 12 heads) the work is 4*S^2*d*H = 5.4e11 FLOP against ~115 MB of operands,
@@ -17,8 +21,10 @@
 // goes back to device memory; K/V sub-tiles of 64 rows are staged in shared
 // memory once per block and shared by its 4 warps.  The tables stay in the
 // caller's units (block_q, block_kv): a CUDA block of 64 q rows lies in one
-// table q block and walks its kv list in 64-row sub-tiles.  Simple first:
-// no wgmma, TMA or cp.async pipelining yet.
+// table q block and walks its kv list in 64-row sub-tiles (32 rows and 2
+// warps where block_q is a multiple of 32 but not 64, e.g. the 96-token STA
+// tiles; else 16 rows and 1 warp).  Simple first: no wgmma, TMA or cp.async
+// pipelining yet.
 #include "mma_bf16.cuh"
 
 namespace {
@@ -32,9 +38,10 @@ template <int D, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 const int* __restrict__ kv_index, const int* __restrict__ kv_count,
-                 int H, int Sq, int Skv, int nq, int width, int shared_tab, int block_q,
-                 int block_kv, int last_block, int valid_in_block, float scale_log2) {
+                 float* __restrict__ lse, const int* __restrict__ kv_index,
+                 const int* __restrict__ kv_count, int H, int Sq, int Skv, int nq, int width,
+                 int shared_tab, int block_q, int block_kv, int last_block, int valid_in_block,
+                 float scale_log2) {
   constexpr int BLOCK_M = 16 * WARPS;
   constexpr int LDS = D + 8;  // padded row: conflict-free ldmatrix
   constexpr int KSTEPS = D / 16;
@@ -181,10 +188,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   float l[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    float x = l_part[hr];
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    const float x = quad_sum(l_part[hr]);
     l[hr] = (x == 0.f) ? 1.f : x;
+    if (lse != nullptr && t == 0)
+      lse[bh * Sq + row0 + warp * 16 + g + 8 * hr] =
+          (x == 0.f) ? 1e30f : m_run[hr] + log2f(x);
   }
   __nv_bfloat16* op = out + (bh * Sq + row0 + warp * 16) * D;
 #pragma unroll
@@ -199,34 +207,38 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 template <int D>
 cudaError_t launch(int warps, dim3 grid, cudaStream_t stream, const __nv_bfloat16* q,
                    const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
-                   const int* kv_index, const int* kv_count, int H, int Sq, int Skv, int nq,
-                   int width, int shared_tab, int block_q, int block_kv, int last_block,
+                   float* lse, const int* kv_index, const int* kv_count, int H, int Sq, int Skv,
+                   int nq, int width, int shared_tab, int block_q, int block_kv, int last_block,
                    int valid_in_block, float scale_log2) {
-  if (warps == 4) {
-    flash_fwd_kernel<D, 4><<<grid, 128, 0, stream>>>(q, k, v, out, kv_index, kv_count, H, Sq, Skv,
-                                                     nq, width, shared_tab, block_q, block_kv,
+  if (warps == 4)
+    flash_fwd_kernel<D, 4><<<grid, 128, 0, stream>>>(q, k, v, out, lse, kv_index, kv_count, H, Sq,
+                                                     Skv, nq, width, shared_tab, block_q, block_kv,
                                                      last_block, valid_in_block, scale_log2);
-  } else {
-    flash_fwd_kernel<D, 1><<<grid, 32, 0, stream>>>(q, k, v, out, kv_index, kv_count, H, Sq, Skv,
-                                                    nq, width, shared_tab, block_q, block_kv,
+  else if (warps == 2)
+    flash_fwd_kernel<D, 2><<<grid, 64, 0, stream>>>(q, k, v, out, lse, kv_index, kv_count, H, Sq,
+                                                    Skv, nq, width, shared_tab, block_q, block_kv,
                                                     last_block, valid_in_block, scale_log2);
-  }
+  else
+    flash_fwd_kernel<D, 1><<<grid, 32, 0, stream>>>(q, k, v, out, lse, kv_index, kv_count, H, Sq,
+                                                    Skv, nq, width, shared_tab, block_q, block_kv,
+                                                    last_block, valid_in_block, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out: contiguous (B, H, S, D) bf16.  kv_index (h_tab, nq, width),
-// kv_count (h_tab, nq): int32 on the device.  Returns the CUDA error code.
+// q, k, v, out: contiguous (B, H, S, D) bf16; lse: (B, H, Sq) f32 or null.
+// kv_index (h_tab, nq, width), kv_count (h_tab, nq): int32 on the device.
+// Returns the CUDA error code.
 extern "C" int vorta_flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                                    const void* kv_index, const void* kv_count, int B, int H,
-                                    int Sq, int Skv, int D, int h_tab, int nq, int width,
+                                    void* lse, const void* kv_index, const void* kv_count, int B,
+                                    int H, int Sq, int Skv, int D, int h_tab, int nq, int width,
                                     int block_q, int block_kv, int kv_valid_len,
                                     float scale_log2, void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 16 || (D != 64 && D != 128) ||
       (h_tab != 1 && h_tab != H) || nq != Sq / block_q)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = (block_q % 64 == 0) ? 4 : 1;
+  const int warps = warps_for(block_q);
   // the tail mask applies to block kv_valid_len // block_kv only, as on the TPU
   const int has_tail = kv_valid_len % block_kv != 0;
   const int last_block = has_tail ? kv_valid_len / block_kv : -1;
@@ -236,15 +248,16 @@ extern "C" int vorta_flash_fwd_bf16(const void* q, const void* k, const void* v,
   auto* kk = static_cast<const __nv_bfloat16*>(k);
   auto* vv = static_cast<const __nv_bfloat16*>(v);
   auto* oo = static_cast<__nv_bfloat16*>(out);
+  auto* ls = static_cast<float*>(lse);
   auto* ki = static_cast<const int*>(kv_index);
   auto* kc = static_cast<const int*>(kv_count);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 128)
-    err = launch<128>(warps, grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, h_tab == 1,
-                      block_q, block_kv, last_block, valid_in_block, scale_log2);
+    err = launch<128>(warps, grid, st, qq, kk, vv, oo, ls, ki, kc, H, Sq, Skv, nq, width,
+                      h_tab == 1, block_q, block_kv, last_block, valid_in_block, scale_log2);
   else
-    err = launch<64>(warps, grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, h_tab == 1,
-                     block_q, block_kv, last_block, valid_in_block, scale_log2);
+    err = launch<64>(warps, grid, st, qq, kk, vv, oo, ls, ki, kc, H, Sq, Skv, nq, width,
+                     h_tab == 1, block_q, block_kv, last_block, valid_in_block, scale_log2);
   return static_cast<int>(err);
 }

@@ -94,12 +94,48 @@ __device__ __forceinline__ void pv_tile(float (*oacc)[4], float (*p)[4],
   }
 }
 
+// C = A B^T for one warp: A is 16 rows x D staged in shared memory at As,
+// B is NT * 8 rows x D at Bs (both row stride LDS), C in the accumulator
+// layout.  The backward's kv-row products (K Q^T, V dO^T) take both operands
+// from shared memory this way.
+template <int D, int NT, int LDS>
+__device__ __forceinline__ void abt_tile(float (*c)[4], const __nv_bfloat16* As,
+                                         const __nv_bfloat16* Bs, int lane) {
+  const int mi = lane / 8, mr = lane % 8;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, As + ((mi & 1) * 8 + mr) * LDS + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, Bs + ((n + (mi >> 1)) * 8 + mr) * LDS + kk * 16 + (mi & 1) * 8);
+      mma_bf16(c[n], a, r[0], r[1]);
+      mma_bf16(c[n + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// Sum a per-thread partial row sum over the 4 threads of a quad.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
 // Reduce a per-thread partial row sum over the 4 threads of a quad; l == 0
 // becomes 1 so that a row with no visible key writes 0.
 __device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  x = quad_sum(x);
   return x == 0.f ? 1.f : x;
+}
+
+// Rows of a CUDA block for a table block of `rows` rows: 64 (4 warps) where
+// they tile it, else 32 (2 warps), else 16 (1 warp).
+__host__ __forceinline__ int warps_for(int rows) {
+  return rows % 64 == 0 ? 4 : (rows % 32 == 0 ? 2 : 1);
 }
 
 }  // namespace vorta

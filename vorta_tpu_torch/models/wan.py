@@ -1,16 +1,28 @@
 """Wan 2.1 video Diffusion Transformer in PyTorch (counterpart of
-vorta_tpu/models/wan.py), serving path.
+vorta_tpu/models/wan.py), serving and router-distillation training.
 
 Channels-last latents (B, T, H, W, C) in, the same layout out.  The 30
 blocks are an ``nn.ModuleList`` walked by a Python loop (the JAX model
 stacks them and scans).  Self-attention runs full attention
 (``routing_mode="off"``) or routes each head to an expert
-(``"hard"``, the serving path; ``"hard_ref"`` and ``"soft"``, the oracles).
+(``"hard"``, the serving path; ``"hard_ref"`` and ``"soft"``, the oracles,
+and ``"soft"`` the training formulation).
 Every block's router reads only the timestep embedding, so all blocks'
 routing is made at the start of the forward and brought to the host once
 per forward: each block then launches only the experts that have heads.
-No sequence parallelism, step cache, quantized blocks, I2V image branch or
-training losses in this slice.
+
+Training (``return_losses``, soft routing): the frozen teacher stream runs
+each block with routing off under ``torch.no_grad``, interleaved with the
+student block by block as the JAX scan body does, and the forward returns
+the distillation losses: ``reg_loss`` = sum over blocks of
+mean(score_full^2), ``hidden_layer_distill_loss`` = sum over blocks of the
+MSE between the two streams, ``last_layer_distill_loss`` = the MSE of the
+two streams through the output head.  ``remat_blocks`` recomputes each
+student block in the backward (``torch.utils.checkpoint``, non-reentrant,
+early stop off, so every block reruns whole).  The routers' parameters are
+f32 whatever the model's dtype, as the JAX trainer casts them.
+No sequence parallelism, step cache, quantized blocks or I2V image branch
+in the port yet.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import AttentionConfig, WanModelConfig
@@ -52,6 +65,10 @@ class WanOutput:
     routing_scores: Optional[torch.Tensor] = None
     # (num_layers, H) expert ids of a hard-routed forward, on the host
     expert_ids: Optional[np.ndarray] = None
+    # training losses (return_losses), f32 scalars
+    reg_loss: Optional[torch.Tensor] = None
+    last_layer_distill_loss: Optional[torch.Tensor] = None
+    hidden_layer_distill_loss: Optional[torch.Tensor] = None
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -240,10 +257,13 @@ class WanModel(nn.Module):
 
     def forward(self, latents: torch.Tensor, timestep: torch.Tensor, context: torch.Tensor,
                 attn_cfg: Optional[AttentionConfig] = None, routing_mode: str = "off",
-                return_scores: bool = False) -> WanOutput:
+                return_scores: bool = False, return_losses: bool = False,
+                remat_blocks: bool = False) -> WanOutput:
         """latents (B, T, H, W, C_in), timestep (B,), context (B, L, text_dim)."""
         if routing_mode not in ROUTING_MODES:
             raise ValueError(f"unknown routing mode {routing_mode!r}")
+        if return_losses and routing_mode == "off":
+            raise ValueError("return_losses requires routed attention")
         cfg = self.cfg
         b, t_px, h_px, w_px, _ = latents.shape
         pt, ph, pw = cfg.patch_size
@@ -268,17 +288,44 @@ class WanModel(nn.Module):
             ids_dev = torch.stack([route_expert_ids(sc, attn_cfg.tau_sparse) for sc in scores])
             ids_host = ids_dev.cpu().numpy()  # the forward's one sync
             ids = list(zip(ids_dev, ids_host))
+        remat = remat_blocks and torch.is_grad_enabled()
+        x_t, reg, hid = x, None, None
+        if return_losses:
+            reg = hid = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, block in enumerate(self.blocks):
-            x = block(x, ctx, temb6, rope, attn_cfg, scores[i] if scores is not None else None,
-                      routing_mode, ids[i])
+            args = (x, ctx, temb6, rope, attn_cfg, scores[i] if scores is not None else None,
+                    routing_mode, ids[i])
+            if remat:
+                with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+                    x = torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False,
+                                                          preserve_rng_state=False)
+            else:
+                x = block(*args)
+            if return_losses:
+                with torch.no_grad():  # the frozen teacher: routing off
+                    x_t = block(x_t, ctx, temb6, rope, attn_cfg)
+                # L2 on the full-attention routing weight, and the per-block
+                # distance between the streams
+                reg = reg + scores[i][:, :, 0].square().mean()
+                hid = hid + (x_t.float() - x.float()).square().mean()
 
-        mod = self.scale_shift_table + temb.float()[:, None, :]
-        out = self.proj_out(self.norm_out.modulated(x, mod[:, 1], mod[:, 0]))
+        out = self._head(x, temb)
+        last = None
+        if return_losses:
+            with torch.no_grad():
+                out_t = self._head(x_t, temb)
+            last = (out_t.float() - out.float()).square().mean()
         if return_scores and scores is None:
             scores = torch.zeros((len(self.blocks), b, cfg.num_heads, attn_cfg.num_experts),
                                  device=x.device)
         return WanOutput(sample=self._unpatchify(out, b, grid),
-                         routing_scores=scores if return_scores else None, expert_ids=ids_host)
+                         routing_scores=scores if return_scores else None, expert_ids=ids_host,
+                         reg_loss=reg, last_layer_distill_loss=last,
+                         hidden_layer_distill_loss=hid)
+
+    def _head(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        mod = self.scale_shift_table + temb.float()[:, None, :]
+        return self.proj_out(self.norm_out.modulated(x, mod[:, 1], mod[:, 0]))
 
     def _unpatchify(self, out: torch.Tensor, b: int, grid: Tuple[int, int, int]) -> torch.Tensor:
         t, h, w = grid

@@ -8,8 +8,11 @@ headers, so a build takes seconds.  All sources build at first use, one
 edited kernel is rebuilt.  Nothing builds when a module is imported.
 
 ``launches`` counts kernel launches per kernel (``coreset_pool.cu`` holds
-two, ``pool_qkv`` and ``unpool``); each wrapper adds one where it launches
-its kernel, and nowhere else.  Headers (``*.cuh``) are part of the hash.
+two, ``pool_qkv`` and ``unpool``; ``flash_bwd.cu`` two, ``flash_dq`` and
+``flash_dkv``); each wrapper adds one where it launches its kernel, and
+nowhere else.  ``flash_lse`` counts the flash launches that also write the
+row log-sum-exp (a subset of ``flash``).  Headers (``*.cuh``) are part of
+the hash.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "coreset_pool")
-KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_qkv", "unpool")
+SOURCES = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "coreset_pool",
+           "flash_bwd")
+KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_qkv", "unpool",
+           "flash_lse", "flash_dq", "flash_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,6 +110,17 @@ def stream_ptr(device: torch.device) -> int:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be asked for one: grad
+    mode is on and an input requires grad.  Called only for tensors off the
+    CPU (the plain versions are differentiable), so the graph is never cut
+    silently."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward; call it under torch.no_grad() or "
+            "detach its inputs")
 
 
 def require_cuda(*tensors) -> torch.device:

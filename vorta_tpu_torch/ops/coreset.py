@@ -12,6 +12,12 @@ Selection semantics, exactly as the JAX package: ranking by
 group alike, so it is left out), the center excluded by a +inf sentinel,
 then U arg-min passes, ties to the lower slot.  Gathers and scatters are
 pure selection, so pooled values equal their inputs bit for bit.
+
+Gradients flow through the pooled and unpooled values only: the matching
+is discrete (computed on detached values), as the JAX package's one-hot
+built from comparisons is.  The gather's gradient scatters back to the
+picked slots; the unpool's sends every slot that took its center's output
+back to that center.
 """
 
 from __future__ import annotations
@@ -106,7 +112,7 @@ def pool_by_similarity(x: torch.Tensor, groups: LowresGroups,
     cs = geometry_of(groups).center_slot
     xg = group_view(x, groups)
     if matching is None:
-        slots = match_slots(xg, groups.num_kept_margins, cs)
+        slots = match_slots(xg.detach(), groups.num_kept_margins, cs)
         matching = Matching(slots=slots, kept=slots - (slots > cs).long())
     return pool_grouped(xg, matching.slots, cs), matching
 

@@ -14,6 +14,8 @@ On CUDA tensors both launch ``csrc/coreset_pool.cu`` (bf16, D 64 or 128,
 at most 32 slots per group; ``unpool`` there needs ``picks``); on CPU
 tensors they run the plain versions built from ops/coreset.py.  The TPU
 kernels' head-map mode was measured slower on the TPU and is not ported.
+Forward only, as in the JAX package: on CUDA both raise where grad mode is
+on and an input requires grad.
 """
 
 from __future__ import annotations
@@ -142,6 +144,7 @@ def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGr
                            active=active)
         return out if return_picks else out[:3]
 
+    _build.forward_only("pool_qkv", q, k, v)
     if kv_matching_from_k:
         raise NotImplementedError("K's own matching (Hunyuan) belongs to the Hunyuan slice")
     dev, active, ints = _cuda_args(q, groups, active)
@@ -172,6 +175,7 @@ def unpool(pooled_out: torch.Tensor, q: torch.Tensor, groups: LowresGroups, *, a
     if pooled_out.device.type == "cpu":
         return unpool_ref(pooled_out, q, groups, active=active, picks=picks)
 
+    _build.forward_only("unpool", pooled_out)
     if picks is None:
         raise NotImplementedError("the CUDA unpool kernel takes the pool pass's picks")
     dev, active, ints = _cuda_args(pooled_out, groups, active)

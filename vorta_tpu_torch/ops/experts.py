@@ -6,16 +6,17 @@ vorta_tpu/ops/experts.py).
   2. STA: sliding-tile attention over the tile-contiguous sequence
 
 Here each expert runs through the block-sparse flash kernel (ops/flash.py,
-stable softmax) with its own static tables; cross-attention to the text is
+stable softmax) with its own static tables, through
+``make_sparse_attention``, so gradients flow through the flash backward
+kernels (ops/flash_bwd.py); cross-attention to the text is
 ``padded_dense_attention`` on the same kernel.  ``routed_attention`` combines
 them: "soft" weights all three outputs by the router scores (the training
-formulation), "hard_ref" one-hots the scores with the ``tau_sparse``
-fallback to FULL and evaluates every expert (the oracle), and "hard"
-dispatches each expert once over the heads routed to it through
-ops/routed_fused.py, the serving path.  Forward only.  On the card "soft"
-and "hard_ref" raise where the flash kernel's block limits refuse the STA
-tables (blocks of one tile, e.g. 360 tokens at Wan 720p): they are the CPU
-oracle, not the card's path.
+formulation, differentiable in q, k, v and the scores), "hard_ref" one-hots
+the scores with the ``tau_sparse`` fallback to FULL and evaluates every
+expert (the oracle), and "hard" dispatches each expert once over the heads
+routed to it through ops/routed_fused.py, the serving path (forward only).
+On the card "soft" and "hard_ref" raise where the flash kernel's block
+limits refuse the STA tables (blocks not a multiple of 16 tokens).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from ..config import AttentionConfig
 from ..geometry import LowresGroups, build_lowres_groups, cdiv, expand_tile_mask, sta_tile_mask
 from .coreset import pool_by_similarity, unpool_by_similarity
-from .flash import BlockTables, dense_tables, sparse_flash_attention_raw, tables_from_block_mask
+from .flash import BlockTables, dense_tables, make_sparse_attention, tables_from_block_mask
 from .layout import tile_sequence, untile_sequence
 
 FULL, LOWRES, STA = 0, 1, 2
@@ -84,12 +85,10 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: Atten
     """Expert 0: dense attention over the raster sequence, (B, H, S, d)."""
     tab, sq_pad, skv_pad = _full_tables(cfg)
     s = q.shape[2]
-    kv_index, kv_count = tab.on(q.device)
-    out = sparse_flash_attention_raw(
-        _pad_seq(q, sq_pad), _pad_seq(k, skv_pad), _pad_seq(v, skv_pad),
-        kv_index, kv_count, scale=scale, block_q=cfg.block_q,
-        block_kv=cfg.block_kv, kv_valid_len=s if s != skv_pad else None,
-    )
+    attn = make_sparse_attention(
+        tab, n_kv_blocks=skv_pad // cfg.block_kv, scale=scale, block_q=cfg.block_q,
+        block_kv=cfg.block_kv, kv_valid_len=s if s != skv_pad else None)
+    out = attn(_pad_seq(q, sq_pad), _pad_seq(k, skv_pad), _pad_seq(v, skv_pad))
     return out[:, :, :s]
 
 
@@ -103,11 +102,10 @@ def lowres_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: Att
     pv, _ = pool_by_similarity(v, groups, matching)
     tab, sq_pad, skv_pad = _lowres_tables(cfg)
     p = groups.pooled_length
-    kv_index, kv_count = tab.on(q.device)
-    out = sparse_flash_attention_raw(
-        _pad_seq(pq, sq_pad), _pad_seq(pk, skv_pad), _pad_seq(pv, skv_pad),
-        kv_index, kv_count, scale=scale, block_q=cfg.block_q, block_kv=cfg.block_kv,
-        kv_valid_len=p if p != skv_pad else None)
+    attn = make_sparse_attention(
+        tab, n_kv_blocks=skv_pad // cfg.block_kv, scale=scale, block_q=cfg.block_q,
+        block_kv=cfg.block_kv, kv_valid_len=p if p != skv_pad else None)
+    out = attn(_pad_seq(pq, sq_pad), _pad_seq(pk, skv_pad), _pad_seq(pv, skv_pad))
     return unpool_by_similarity(out[:, :, :p], groups, matching).to(q.dtype)
 
 
@@ -117,11 +115,10 @@ def sta_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: Attent
     tile-granular block tables (the oracle of ops/sta_pipe.py)."""
     bq, bkv = cfg.sta_blocks
     shape, tile = cfg.latent_shape, cfg.sta_tile
-    kv_index, kv_count = _sta_tables(cfg).on(q.device)
-    out = sparse_flash_attention_raw(
-        tile_sequence(q, shape, tile), tile_sequence(k, shape, tile),
-        tile_sequence(v, shape, tile), kv_index, kv_count, scale=scale, block_q=bq,
-        block_kv=bkv)
+    attn = make_sparse_attention(_sta_tables(cfg), n_kv_blocks=cfg.seq_len // bkv, scale=scale,
+                                 block_q=bq, block_kv=bkv)
+    out = attn(tile_sequence(q, shape, tile), tile_sequence(k, shape, tile),
+               tile_sequence(v, shape, tile))
     return untile_sequence(out, shape, tile)
 
 
@@ -140,12 +137,11 @@ def padded_dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block_q = min(block_q, max(8, 1 << (sq - 1).bit_length()))
     block_kv = min(block_kv, max(8, 1 << (skv - 1).bit_length()))
     nq, nkv = cdiv(sq, block_q), cdiv(skv, block_kv)
-    kv_index, kv_count = _dense_tables_cached(nq, nkv).on(q.device)
-    out = sparse_flash_attention_raw(
-        _pad_seq(q, nq * block_q), _pad_seq(k, nkv * block_kv), _pad_seq(v, nkv * block_kv),
-        kv_index, kv_count, scale=scale, block_q=block_q, block_kv=block_kv,
-        kv_valid_len=skv if skv != nkv * block_kv else None,
-    )
+    attn = make_sparse_attention(
+        _dense_tables_cached(nq, nkv), n_kv_blocks=nkv, scale=scale, block_q=block_q,
+        block_kv=block_kv, kv_valid_len=skv if skv != nkv * block_kv else None)
+    out = attn(_pad_seq(q, nq * block_q), _pad_seq(k, nkv * block_kv),
+               _pad_seq(v, nkv * block_kv))
     return out[:, :, :sq]
 
 

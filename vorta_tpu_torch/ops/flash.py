@@ -8,13 +8,24 @@ hand-written kernel in ``csrc/flash.cu``; on CPU tensors it runs the plain
 version, ``sparse_flash_attention_ref``, which repeats the kernel's
 arithmetic: base-2 softmax of ``(q.k) * scale * log2(e)`` in f32, masked
 entries -1e30, P cast to v's dtype before the PV product, rows with no
-visible key give 0.
+visible key give 0.  ``return_lse`` also returns each row's base-2
+log-sum-exp ``m + log2(l)`` (B, H, Sq, 1) f32, 1e30 for a row with no
+visible key, which the backward reads.
+
+``sparse_flash_attention_raw`` is forward only, as in the JAX package: on
+CUDA it raises where grad mode is on and an input requires grad.
+Differentiable attention is ``make_sparse_attention``: a
+``torch.autograd.Function`` whose forward saves the lse and whose backward
+is ``ops/flash_bwd.py:flash_backward`` (head-shared tables), or, with
+``xla_bwd=True`` or per-head tables, autograd through
+``ops/attention_ref.py:attention_chunked``, the oracle.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -111,8 +122,10 @@ def sparse_flash_attention_ref(
     block_kv: int,
     scale: Optional[float] = None,
     kv_valid_len: Optional[int] = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of the flash kernel, one q block at a time."""
+    return_lse: bool = False,
+):
+    """Plain PyTorch version of the flash kernel, one q block at a time.
+    With ``return_lse``: ``(out, lse)``, lse (B, H, Sq, 1) f32."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if kv_valid_len is None:
@@ -129,6 +142,7 @@ def sparse_flash_attention_ref(
     col_ok = _kv_column_limit(skv, block_kv, kv_valid_len, q.device)
     kf, vf = k.float(), v.float()
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     for i in range(sq // block_q):
         rows = slice(i * block_q, (i + 1) * block_q)
         vis = block_mask[:, i].repeat_interleave(block_kv, dim=-1) & col_ok  # (Ht, Skv)
@@ -143,14 +157,15 @@ def sparse_flash_attention_ref(
             p = p.to(v.dtype).float()
         o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
         out[:, :, rows] = (o / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
-    return out
+        lse[:, :, rows] = torch.where(l == 0.0, 1e30, m + torch.log2(torch.where(l == 0.0, 1.0, l)))
+    return (out, lse) if return_lse else out
 
 
 def _flash_fn():
     fn = _build.load("flash").vorta_flash_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -169,14 +184,14 @@ def sparse_flash_attention_raw(
     kv_valid: Optional[torch.Tensor] = None,
     pair_bits: Optional[torch.Tensor] = None,
     return_lse: bool = False,
-) -> torch.Tensor:
-    """Block-sparse flash attention forward.
+):
+    """Block-sparse flash attention forward; ``(out, lse)`` with ``return_lse``.
 
     q: (B, H, Sq, D); k/v: (B, H, Skv, D).  kv_index: (H_tab, Sq//block_q, W)
     and kv_count: (H_tab, Sq//block_q), int32 tensors (or numpy) with H_tab
     1 or H.  On CUDA: bf16 q/k/v, D 64 or 128, block_q a multiple of 16.
-    ``kv_valid``, ``pair_bits`` and ``return_lse`` belong to the routed and
-    training slices and raise NotImplementedError here.
+    ``kv_valid`` and ``pair_bits`` belong to the Hunyuan slice and raise
+    NotImplementedError here.
     """
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -186,9 +201,9 @@ def sparse_flash_attention_raw(
         raise ValueError(f"seq lens ({sq},{skv}) not divisible by blocks ({block_q},{block_kv})")
     if kv_index.shape[0] not in (1, h) or kv_index.shape[1] != sq // block_q:
         raise ValueError(f"tables {tuple(kv_index.shape)} for {h} heads, {sq // block_q} q blocks")
-    if kv_valid is not None or pair_bits is not None or return_lse:
+    if kv_valid is not None or pair_bits is not None:
         raise NotImplementedError(
-            "kv_valid, pair_bits and return_lse belong to the routed and training port slices")
+            "per-head kv_valid and pair_bits belong to the Hunyuan port slice")
     if kv_valid_len is None:
         kv_valid_len = skv
     if scale is None:
@@ -196,8 +211,10 @@ def sparse_flash_attention_raw(
     if q.device.type == "cpu":
         return sparse_flash_attention_ref(
             q, k, v, kv_index, kv_count, scale=scale, block_q=block_q,
-            block_kv=block_kv, kv_valid_len=kv_valid_len)
+            block_kv=block_kv, kv_valid_len=kv_valid_len, return_lse=return_lse)
 
+    _build.forward_only("sparse_flash_attention_raw (differentiable: make_sparse_attention)",
+                        q, k, v)
     dev = _build.require_cuda(q, k, v)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(f"the CUDA flash kernel takes bf16, got {q.dtype}")
@@ -208,11 +225,120 @@ def sparse_flash_attention_raw(
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=dev) if return_lse else None
     err = _flash_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
         kv_index.data_ptr(), kv_count.data_ptr(), b, h, sq, skv, d,
         kv_index.shape[0], kv_index.shape[1], kv_index.shape[2],
         block_q, block_kv, int(kv_valid_len), float(scale * LOG2E), _build.stream_ptr(dev))
     _build.check(err, "flash")
     _build.launches["flash"] += 1
+    if return_lse:
+        _build.launches["flash_lse"] += 1
+        return out, lse
     return out
+
+
+class SparseAttention:
+    """Differentiable block-sparse attention over static tables: the value
+    ``make_sparse_attention`` returns, called as ``attn(q, k, v)``.
+
+    Where grad mode is on and q, k or v requires grad, the call goes through
+    ``_FlashFunction``: the forward kernel with ``return_lse`` saves (q, k,
+    v, out, lse), and the backward computes only the gradients its inputs
+    need (``ctx.needs_input_grad``): dq through the dq kernel, dk and dv
+    through the dk/dv kernel, each skipped where no input asks for it.
+    Otherwise the call is the plain forward, without the lse.
+    """
+
+    def __init__(self, tables: BlockTables, *, n_kv_blocks: int, scale: Optional[float],
+                 block_q: int, block_kv: int, kv_valid_len: Optional[int], xla_bwd: bool):
+        self.tables = tables
+        self.n_kv_blocks = n_kv_blocks
+        self.scale = scale
+        self.block_q, self.block_kv = block_q, block_kv
+        self.kv_valid_len = kv_valid_len
+        self.kernel_bwd = not xla_bwd and tables.kv_index.shape[0] == 1
+        self._mask = {}
+        if self.kernel_bwd:
+            from .flash_bwd import transpose_tables
+
+            q_index, q_count = transpose_tables(tables.kv_index, tables.kv_count, n_kv_blocks)
+            self.q_tables = BlockTables(kv_index=q_index, kv_count=q_count)
+
+    def forward(self, q, k, v, return_lse: bool = False):
+        kv_index, kv_count = self.tables.on(q.device)
+        return sparse_flash_attention_raw(
+            q, k, v, kv_index, kv_count, scale=self.scale, block_q=self.block_q,
+            block_kv=self.block_kv, kv_valid_len=self.kv_valid_len, return_lse=return_lse)
+
+    def reference(self, q, k, v):
+        """``attention_chunked`` over the densified block mask: the oracle."""
+        from .attention_ref import attention_chunked
+
+        key = str(q.device)
+        if key not in self._mask:
+            self._mask[key] = torch.from_numpy(self.tables.block_mask(self.n_kv_blocks)).to(q.device)
+        mask = self._mask[key].expand(q.shape[1], -1, -1)
+        return attention_chunked(q, k, v, block_mask=mask, scale=self.scale,
+                                 block_q=self.block_q, block_kv=self.block_kv,
+                                 kv_valid_len=self.kv_valid_len)
+
+    def __call__(self, q, k, v):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return _FlashFunction.apply(q, k, v, self)
+        return self.forward(q, k, v)
+
+
+class _FlashFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, attn: SparseAttention):
+        ctx.attn = attn
+        if attn.kernel_bwd:
+            out, lse = attn.forward(q, k, v, return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            out = attn.forward(q, k, v)
+            ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        attn = ctx.attn
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        if not attn.kernel_bwd:  # the oracle: autograd through attention_chunked
+            q, k, v = (t.detach().requires_grad_(n) for t, n in
+                       zip(ctx.saved_tensors, (need_q, need_k, need_v)))
+            with torch.enable_grad():
+                out = attn.reference(q, k, v)
+                wrt = [t for t in (q, k, v) if t.requires_grad]
+                got = iter(torch.autograd.grad(out, wrt, dout))
+            return (*(next(got) if t.requires_grad else None for t in (q, k, v)), None)
+        from .flash_bwd import flash_backward
+
+        q, k, v, out, lse = ctx.saved_tensors
+        kv_index, kv_count = attn.tables.on(q.device)
+        q_index, q_count = attn.q_tables.on(q.device)
+        d = q.shape[-1]
+        dq, dk, dv = flash_backward(
+            q, k, v, out, lse, dout, kv_index, kv_count, q_index, q_count,
+            scale=float(attn.scale) if attn.scale is not None else d**-0.5,
+            block_q=attn.block_q, block_kv=attn.block_kv,
+            kv_valid_len=(attn.kv_valid_len if attn.kv_valid_len is not None
+                          else attn.n_kv_blocks * attn.block_kv),
+            need_dq=need_q, need_dkv=need_k or need_v)
+        return dq, dk if need_k else None, dv if need_v else None, None
+
+
+@functools.lru_cache(maxsize=64)
+def make_sparse_attention(tables: BlockTables, *, n_kv_blocks: int, scale: Optional[float] = None,
+                          block_q: int = 256, block_kv: int = 256,
+                          kv_valid_len: Optional[int] = None,
+                          xla_bwd: bool = False) -> SparseAttention:
+    """Differentiable block-sparse attention with static tables (see
+    ``SparseAttention``).  ``xla_bwd=True`` keeps the recompute backward
+    through ``attention_chunked``, the oracle the kernel gradients are held
+    to; per-head tables take it too, as in the JAX package.  Cached per
+    tables object (``BlockTables`` hash by identity)."""
+    return SparseAttention(tables, n_kv_blocks=n_kv_blocks, scale=scale, block_q=block_q,
+                           block_kv=block_kv, kv_valid_len=kv_valid_len, xla_bwd=xla_bwd)

@@ -1,0 +1,174 @@
+"""Block-sparse flash attention backward: dq and dk/dv (counterpart of
+vorta_tpu/ops/flash_bwd.py).
+
+The standard flash backward over the forward's static, head-shared block
+tables:
+
+  forward   saves out and the base-2 row log-sum-exp lse2 = m + log2(l) in
+            the scale * log2(e) domain (ops/flash.py, ``return_lse``)
+  backward  delta = rowsum(dout * out), f32, plain PyTorch as in JAX
+            dq  : over each q block's kv list (the forward's tables)
+                  p = 2^(s2 - lse2); ds = p (dp - delta); dq += ds k
+            dkv : over each kv block's q list (``transpose_tables``)
+                  dv += p^T dout;  dk += ds^T q
+
+with ``ds`` rounded to the inputs' dtype before ``ds k`` and ``ds^T q``,
+``p`` before ``p^T dout``, and ``scale`` applied to dq and dk at the end.
+Masked logits are -1e30 under the forward's tail rule, so padded kv rows
+get zero dk and dv; an empty row's lse sentinel 1e30 gives p = 0.
+
+On CUDA tensors ``flash_backward`` launches the two kernels of
+``csrc/flash_bwd.cu`` (bf16, D 64 or 128, blocks multiples of 16); on CPU
+tensors it runs ``flash_backward_ref``, which repeats their arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+NEG_INF = float(-1e30)
+LOG2E = 1.4426950408889634
+
+
+def transpose_tables(kv_index: np.ndarray, kv_count: np.ndarray,
+                     n_kv_blocks: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(1, nq, W) kv tables -> (1, nkv, WT) q tables: which q blocks visit
+    each kv block, in increasing order."""
+    if kv_index.shape[0] != 1:
+        raise ValueError("the backward takes head-shared tables")
+    nq = kv_index.shape[1]
+    lists = [[] for _ in range(n_kv_blocks)]
+    for i in range(nq):
+        for j in range(int(kv_count[0, i])):
+            lists[int(kv_index[0, i, j])].append(i)
+    wt = max(1, max(len(lst) for lst in lists))
+    q_index = np.zeros((1, n_kv_blocks, wt), np.int32)
+    q_count = np.zeros((1, n_kv_blocks), np.int32)
+    for j, lst in enumerate(lists):
+        q_count[0, j] = len(lst)
+        q_index[0, j, :len(lst)] = lst
+    return q_index, q_count
+
+
+def flash_backward_ref(q, k, v, out, lse2, dout, kv_index, kv_count, *, scale: float,
+                       block_q: int, block_kv: int, kv_valid_len: int,
+                       need_dq: bool = True, need_dkv: bool = True):
+    """Plain PyTorch version of both kernels, one q block at a time against
+    every kv column, the invisible ones masked as the forward masks them."""
+    from .flash import _kv_column_limit
+
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    nkv = skv // block_kv
+    delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    kv_index = torch.as_tensor(kv_index, device=q.device).long()
+    kv_count = torch.as_tensor(kv_count, device=q.device).long()
+    active = torch.arange(kv_index.shape[2], device=q.device) < kv_count[..., None]
+    block_mask = (torch.nn.functional.one_hot(kv_index, nkv).bool()
+                  & active[..., None]).any(dim=2)[0]  # (nq, nkv)
+    col_ok = _kv_column_limit(skv, block_kv, kv_valid_len, q.device)
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for i in range(sq // block_q):
+        if not block_mask[i].any():
+            continue  # a q block with no kv block contributes nothing
+        rows = slice(i * block_q, (i + 1) * block_q)
+        qi, doi = q[:, :, rows].float(), dout[:, :, rows].float()
+        vis = block_mask[i].repeat_interleave(block_kv) & col_ok  # (Skv,)
+        s2 = torch.einsum("bhqd,bhkd->bhqk", qi, kf) * (scale * LOG2E)
+        s2 = torch.where(vis, s2, NEG_INF)
+        p = torch.exp2(s2 - lse2[:, :, rows])
+        dp = torch.einsum("bhqd,bhkd->bhqk", doi, vf)
+        ds = (p * (dp - delta[:, :, rows])).to(q.dtype).float()
+        if need_dq:
+            dq[:, :, rows] = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+        if need_dkv:
+            dv += torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(), doi)
+            dk += torch.einsum("bhqk,bhqd->bhkd", ds, qi)
+    return ((dq * scale).to(q.dtype) if need_dq else None,
+            (dk * scale).to(k.dtype) if need_dkv else None,
+            dv.to(v.dtype) if need_dkv else None)
+
+
+def _fn(name: str, n_ptr: int, n_int: int):
+    fn = getattr(_build.load("flash_bwd"), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count, *,
+                   scale: float, block_q: int, block_kv: int, kv_valid_len: int,
+                   need_dq: bool = True, need_dkv: bool = True):
+    """(dq, dk, dv) of the block-sparse attention, each None where not asked.
+
+    q, out, dout: (B, H, Sq, D); k, v: (B, H, Skv, D); lse2: (B, H, Sq, 1)
+    f32 from the forward.  kv_index / kv_count: the forward's (1, nq, W) /
+    (1, nq) tables; q_index / q_count: ``transpose_tables`` of them (read
+    only by the dk/dv kernel).  ``need_dq`` / ``need_dkv`` skip a kernel
+    whose gradients no input needs.
+    """
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if k.shape != (b, h, skv, d) or v.shape != k.shape or out.shape != q.shape \
+            or dout.shape != q.shape or lse2.shape != (b, h, sq, 1):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse2.shape)}")
+    if sq % block_q or skv % block_kv:
+        raise ValueError(f"seq lens ({sq},{skv}) not divisible by blocks ({block_q},{block_kv})")
+    if kv_index.shape[0] != 1 or kv_index.shape[1] != sq // block_q \
+            or q_index.shape[0] != 1 or q_index.shape[1] != skv // block_kv:
+        raise ValueError(f"head-shared tables {tuple(kv_index.shape)}, transposed "
+                         f"{tuple(q_index.shape)} for {sq // block_q} q / "
+                         f"{skv // block_kv} kv blocks")
+    if q.device.type == "cpu":
+        return flash_backward_ref(q, k, v, out, lse2, dout, kv_index, kv_count, scale=scale,
+                                  block_q=block_q, block_kv=block_kv,
+                                  kv_valid_len=kv_valid_len, need_dq=need_dq,
+                                  need_dkv=need_dkv)
+
+    dev = _build.require_cuda(q, k, v, out, lse2, dout)
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, out, dout)):
+        raise NotImplementedError(f"the CUDA flash backward takes bf16, got {q.dtype}")
+    if d not in (64, 128) or block_q % 16 or block_kv % 16:
+        raise NotImplementedError(f"the CUDA flash backward takes D 64/128 and blocks % 16 == 0, "
+                                  f"got D={d}, blocks ({block_q}, {block_kv})")
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    lse2 = lse2.float().contiguous()
+    delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    common = (b, h, sq, skv, d)
+    dq = dk = dv = None
+    if need_dq:
+        kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
+        kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
+        dq = torch.empty_like(q)
+        err = _fn("vorta_flash_bwd_dq_bf16", 9, 9)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), kv_index.data_ptr(), kv_count.data_ptr(),
+            *common, kv_index.shape[2], block_q, block_kv, int(kv_valid_len), float(scale),
+            _build.stream_ptr(dev))
+        _build.check(err, "flash_dq")
+        _build.launches["flash_dq"] += 1
+    if need_dkv:
+        q_index = torch.as_tensor(q_index, dtype=torch.int32, device=dev).contiguous()
+        q_count = torch.as_tensor(q_count, dtype=torch.int32, device=dev).contiguous()
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        err = _fn("vorta_flash_bwd_dkv_bf16", 10, 9)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_index.data_ptr(),
+            q_count.data_ptr(), *common, q_index.shape[2], block_q, block_kv,
+            int(kv_valid_len), float(scale), _build.stream_ptr(dev))
+        _build.check(err, "flash_dkv")
+        _build.launches["flash_dkv"] += 1
+    return dq, dk, dv

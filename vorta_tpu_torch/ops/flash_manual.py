@@ -1,5 +1,6 @@
 """Block-sparse flash attention that loops over exactly each row's kv blocks
-(counterpart of vorta_tpu/ops/flash_manual.py), forward only.
+(counterpart of vorta_tpu/ops/flash_manual.py), forward only: on CUDA it
+raises where grad mode is on and an input requires grad.
 
 For q block ``i`` of head ``h`` the kernel visits
 ``kv_index[th, i, :kv_count[tc, i]]`` (``th``/``tc`` are 0 when the index
@@ -145,6 +146,7 @@ def sparse_flash_attention_manual(
             q, k, v, kv_index, kv_count, block_q=block_q, block_kv=block_kv, scale=scale,
             kv_valid_len=kv_valid_len)
 
+    _build.forward_only("sparse_flash_attention_manual", q, k, v)
     dev = _build.require_cuda(q, k, v)
     _check(q, k, v, kv_index, kv_count, block_q, block_kv)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:

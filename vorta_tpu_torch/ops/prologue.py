@@ -7,8 +7,9 @@ f32, times the gain, rounded through the input dtype (so the result equals
 the unfused RMSNorm -> split -> ``apply_rope_half`` path), then the rotation
 of contiguous halves.  On CUDA tensors ``fused_qk_prologue`` launches
 ``csrc/prologue.cu`` (bf16, any S, any even d; other dtypes raise); on CPU
-tensors it runs the plain version ``_prologue_ref``.  Inference only: no
-autograd rule.
+tensors it runs the plain version ``_prologue_ref``.  Inference only, as
+in the JAX package: on CUDA it raises where grad mode is on and an input
+requires grad (the plain version on the CPU stays differentiable).
 """
 
 from __future__ import annotations
@@ -119,6 +120,7 @@ def fused_qk_prologue(
                              num_heads=num_heads, eps=eps, qk_norm=qk_norm,
                              norm_scope=norm_scope)
 
+    _build.forward_only("fused_qk_prologue", q, k, v, gain_q, gain_k)
     dev = _build.require_cuda(q, k, v, cos, sin)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(f"prologue kernel: dtype {q.dtype}")

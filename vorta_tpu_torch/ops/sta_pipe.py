@@ -1,5 +1,6 @@
 """Sliding-tile attention on the raster layout (counterpart of
-vorta_tpu/ops/sta_pipe.py), forward only.
+vorta_tpu/ops/sta_pipe.py), forward only: on CUDA it raises where grad mode
+is on and an input requires grad.
 
 Each query attends to every token of the ``prod(window)`` tiles of its
 tile's window, the window center clamped so it never hangs off the grid
@@ -193,6 +194,7 @@ def sta_pipe_attention(
         return sta_pipe_attention_ref(q, k, v, active, latent_shape=latent_shape, tile=tile,
                                       window=window, scale=scale)
 
+    _build.forward_only("sta_pipe_attention", q, k, v)
     dev = _build.require_cuda(q, k, v)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(f"the CUDA sta_pipe kernel takes bf16, got {q.dtype}")

@@ -4,6 +4,9 @@ vorta_tpu/schedulers/flow_match.py).
   sigma(t) = t / T on a linspace grid, then time-shifted
   sigma' = shift * sigma / (1 + (shift - 1) * sigma)
   x_{i+1} = x_i + (sigma_{i+1} - sigma_i) * v_theta(x_i, t_i)
+
+``train_sigmas`` is the trainer's table of shifted sigmas over every
+training timestep.
 """
 
 from __future__ import annotations
@@ -43,3 +46,11 @@ class FlowMatchEulerSchedule:
         """One Euler step on a tensor or an array, dt in f32."""
         dt = np.float32(self.sigmas[i + 1] - self.sigmas[i])
         return x + float(dt) * velocity
+
+
+def train_sigmas(shift: float = 5.0, num_train_timesteps: int = 1000) -> np.ndarray:
+    """The training-time sigma table indexed by integer timestep order
+    (descending timesteps T..1), as the trainer reads it (vorta_tpu's
+    ``train_sigmas``)."""
+    t = np.linspace(num_train_timesteps, 1.0, num_train_timesteps, dtype=np.float64)
+    return time_shift(t / num_train_timesteps, shift).astype(np.float32)
