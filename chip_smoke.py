@@ -29,7 +29,27 @@ Phases, each raising on failure:
      trained router (assets/bench_router_wan1_3b_720p_half.npz), fed the
      time embedder of the model it was trained against
      (port_assets/wan1_3b_time_embedder_rngs0.npz).
-Phases 1-6 run under torch.inference_mode(); the training phases do not:
+HunyuanVideo-13B (its phases free the Wan models first):
+  a. kernels at HunyuanVideo's 720p x 45f shapes (grid (12, 45, 80) =
+     43,200 video + 256 text tokens, 83 valid, 24 heads x 128, 16 of them
+     routed to the expert under test): flash_manual with kv_bias on the
+     FULL and LOWRES joint layouts and the STA text rows (block_q 256,
+     block_kv 1024, kv_valid_len + bias), and with a bias that masks the
+     kv block every row visits first; sta_pipe with the text tail (432-token
+     tiles); pool_qkv with K's own matching, and unpool; the qk prologue
+     (head scope) and the AdaLN norm on the single block's joint stream.
+  b. model check: a 1 dual + 1 single-block model at 13B widths on the card
+     (bf16, kernels) against the same weights on the CPU (f32, plain
+     versions), routing off and routed hard with the heads on all three
+     experts.
+  c. main path: vorta_tpu_torch.cli.sample --model hunyuan-13B at full width
+     and depth (20 + 40 blocks), 720p x 45f, 2 Euler steps = 2 forwards,
+     routing off (--native_attention) and routed hard (its default), after
+     warm-up forwards of a 1 + 1-block model; launch counts exact (routed:
+     against the run's routing tables), all three experts used.
+  d. HunyuanVideo's reference shape, 720p x 117f (108,000 + 256 tokens):
+     one timed forward routed hard, then one routing off.
+Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
      shapes the trainer gives them (480p x 77f: FULL, LOWRES, STA's
@@ -72,6 +92,13 @@ TEMB_720P = "port_assets/wan1_3b_time_embedder_rngs0.npz"
 # heads (full, lowres, sta) that the JAX package routes there at t = 500
 # (BENCH_r05.json's routing_mix; port_assets/export_time_embedder.py --mix)
 JAX_MIX_720P = (0, 164, 196)
+# HunyuanVideo-13B: latent grids of 720 x 1280 at 45 and 117 frames, its
+# text length and the text tokens --random_embeds marks valid
+GRID_HY_45F = (12, 45, 80)  # 43,200 video tokens
+GRID_HY_117F = (30, 45, 80)  # 108,000: the paper's reference shape
+HY_TEXT, HY_VALID = 256, 83
+# heads routed to the expert under test in the Hunyuan kernel checks: 16 of 24
+HY_ACTIVE = tuple(int(i % 3 != 0) for i in range(24))
 
 
 def log(msg: str) -> None:
@@ -115,26 +142,48 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    import gc
+
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_s[name] = round(time.time() - t0, 1)
+        log(f"phase {name}: {phase_s[name]} s")
+        return out
+
     with torch.inference_mode():
-        kernels = check_kernels(torch, card) + check_routed_kernels(torch, card)
-        check_model(torch)
-        check_routed_model(torch)
-        launches_off, per_step = run_main_path(torch, card)
-        launches_hard, per_step_hard = run_routed_main_path(torch, card)
-        run_720p_forward(torch, card)
-    torch.cuda.empty_cache()
-    kernels += check_training_kernels(torch, card)
-    check_train_grads(torch)
-    launches_train, train = run_train_main_path(torch, card)
+        kernels = phase("kernels", lambda: check_kernels(torch, card)
+                        + check_routed_kernels(torch, card))
+        phase("model_checks", lambda: (check_model(torch), check_routed_model(torch)))
+        launches_off, per_step = phase("main_off", run_main_path, torch, card)
+        launches_hard, per_step_hard = phase("main_routed", run_routed_main_path, torch, card)
+        phase("720p", run_720p_forward, torch, card)
+        hy_kernels = phase("hunyuan_kernels", check_hunyuan_kernels, torch, card)
+        phase("hunyuan_model_check", check_hunyuan_model, torch)
+        hy_launches, hy_per_step = phase("hunyuan_main", run_hunyuan_main_path, torch, card)
+        hy_ref = phase("hunyuan_117f", run_hunyuan_reference_shape, torch, card)
+    kernels += phase("training_kernels", check_training_kernels, torch, card)
+    phase("train_grads", check_train_grads, torch)
+    launches_train, train = phase("train_main", run_train_main_path, torch, card)
 
     for k in kernels:
         name = k.pop("_counter")
         paths = {"off_480p_21f": launches_off[name], "hard_480p_77f": launches_hard[name],
-                 "train_480p_77f": launches_train[name]}
+                 "train_480p_77f": launches_train[name],
+                 "hunyuan": hy_launches["hunyuan"][name],
+                 "hunyuan_off": hy_launches["hunyuan_off"][name]}
         # the count of the path the kernel's slice brought: serving's routed
         # path, or training for the kernels only training launches
         k["launches"] = paths["hard_480p_77f"] or paths["train_480p_77f"]
         k["launches_by_path"] = paths
+        if name in hy_kernels:  # the Hunyuan shapes join the kernel's other shapes
+            k["shapes"] = {**k.get("shapes", {}), **hy_kernels[name]}
+            k["max_abs_err"] = max([k["max_abs_err"]] + [x["max_abs_err"]
+                                                         for x in hy_kernels[name].values()])
         if not any(paths.values()):
             raise RuntimeError(f"{name}: launched on no main path")
     print(json.dumps({"kernels": kernels}))
@@ -142,8 +191,11 @@ def main() -> int:
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
           f"2 UniPC steps each); training (480p x 77f) {train['micro_s']:.3f} s per "
           f"micro-step, {train['step_s']:.3f} s per optimizer step, peak "
-          f"{train['max_memory_gib']:.2f} GiB; launches off {launches_off}, routed "
-          f"{launches_hard}, training {launches_train}")
+          f"{train['max_memory_gib']:.2f} GiB; HunyuanVideo-13B 720p x 45f off "
+          f"{hy_per_step['hunyuan_off']:.3f}, routed {hy_per_step['hunyuan']:.3f} s per Euler "
+          f"step (1 forward each); 720p x 117f forward routed {hy_ref['hard_ms']:.1f} ms, off "
+          f"{hy_ref['off_ms']:.1f} ms; launches off {launches_off}, routed {launches_hard}, "
+          f"training {launches_train}, hunyuan {hy_launches}; phases {phase_s}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -759,6 +811,457 @@ def run_720p_forward(torch, card: str) -> None:
         f"{dt_r * 1e3:.1f} ms on {card}; routing off / routed = {dt / dt_r:.3f}; heads over "
         f"30 blocks: full {heads[0]}, lowres {heads[1]}, sta {heads[2]} (the JAX package: "
         f"full {JAX_MIX_720P[0]}, lowres {JAX_MIX_720P[1]}, sta {JAX_MIX_720P[2]})")
+
+
+# ---- HunyuanVideo-13B ----------------------------------------------------------
+
+
+def hy_text_mask(torch, dev, batch: int = 1):
+    """(B, 256) bool: the first 83 text tokens valid, as --random_embeds makes them."""
+    return (torch.arange(HY_TEXT, device=dev) < HY_VALID)[None].expand(batch, HY_TEXT)
+
+
+def check_hunyuan_kernels(torch, card: str) -> dict:
+    """The joint experts' kernels at HunyuanVideo-13B's 720p x 45f shapes,
+    against their plain versions: {kernel counter: {shape: numbers}}."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, hunyuan_rope_tables
+    from vorta_tpu_torch.ops import joint_experts as joint
+    from vorta_tpu_torch.ops.coreset import group_view, slot_similarity
+    from vorta_tpu_torch.ops.coreset_pallas import (
+        pick_gaps,
+        pool_qkv,
+        pool_qkv_ref,
+        unpool,
+        unpool_ref,
+    )
+    from vorta_tpu_torch.ops.experts import lowres_groups_for
+    from vorta_tpu_torch.ops.flash import dense_tables
+    from vorta_tpu_torch.ops.flash_manual import (
+        sparse_flash_attention_manual,
+        sparse_flash_attention_manual_ref,
+    )
+    from vorta_tpu_torch.ops.fused_norm import _norm_ref, fused_norm
+    from vorta_tpu_torch.ops.prologue import _prologue_ref, fused_qk_prologue
+    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    h, d = 24, 128
+    scale = d**-0.5
+    cfg = attention_config("hunyuan-13B", GRID_HY_45F)
+    jcfg = joint.JointConfig(cfg, HY_TEXT)
+    layouts = joint.joint_layouts(jcfg)
+    sv = cfg.seq_len
+    groups = lowres_groups_for(cfg)
+    act = torch.tensor(HY_ACTIVE, device=dev)
+    n_act = int(act.sum().item())
+    mask = hy_text_mask(torch, dev)
+    text_bias = joint._text_bias(mask)
+    g = torch.Generator(device=dev).manual_seed(40)
+
+    def randn(*shape):  # unit RMS: the scale of qk-normed q/k
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    out = {k: {} for k in ("flash_manual", "sta_pipe", "pool_qkv", "unpool", "prologue",
+                           "fused_norm")}
+
+    # ---- flash_manual with kv_bias: the FULL and LOWRES joint layouts (text at a
+    # 1024 boundary), the STA expert's text rows (block_q 256 over [video | text]
+    # padded to 1024, kv_valid_len + bias), and that call with the bias also
+    # masking kv block 0, the first every row visits.  Padding holds random
+    # values: a kernel that ignored the bias would attend to it.
+    p = groups.pooled_length
+    s_all = sv + HY_TEXT
+    rows_t = layouts["sta_text_rows"]
+    bias_t = joint._bias(mask, rows_t, sv)
+    bias_first = bias_t.clone()
+    bias_first[:, :1024] = -1e30
+    cases = (  # name, layout, bias, kv_valid_len, q rows used, visible keys
+        ("full", layouts["full"], joint._bias(mask, layouts["full"], sv), None,
+         sv + HY_TEXT, sv + HY_VALID),
+        ("lowres", layouts["lowres"], joint._bias(mask, layouts["lowres"], p), None,
+         p + HY_TEXT, p + HY_VALID),
+        ("sta_text_rows", rows_t, bias_t, s_all, HY_TEXT, sv + HY_VALID),
+        ("bias_masks_first_block", rows_t, bias_first, s_all, HY_TEXT, sv - 1024 + HY_VALID),
+    )
+    for name, lay, bias, valid, q_rows, keys in cases:
+        sq = lay.total if lay.block_q == lay.block_kv else lay.block_q
+        q = randn(1, h, sq, d)
+        k, v = (randn(1, h, lay.total, d) for _ in range(2))
+        ki, kc = dense_tables(sq // lay.block_q, lay.total // lay.block_kv).on(dev)
+        cnt = torch.where(act[:, None] > 0, kc, 0).to(torch.int32)
+        kw = dict(scale=scale, block_q=lay.block_q, block_kv=lay.block_kv, kv_valid_len=valid,
+                  kv_bias=bias)
+        kern = lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **kw)  # noqa: E731
+        plain = lambda: sparse_flash_attention_manual_ref(q, k, v, ki, cnt, **kw)  # noqa: E731
+        got, want = kern(), plain()
+        err = compare(torch, f"flash_manual kv_bias {name} (1,24,{sq},128) x {lay.total}, "
+                      f"blocks {lay.block_q}/{lay.block_kv}, {n_act} of 24 heads", got, want)
+        if got[:, act == 0].any():
+            raise RuntimeError(f"flash_manual {name}: a head routed away wrote non-zeros")
+        ratio = worst_ratio(torch, got, want)
+        unbiased = sparse_flash_attention_manual_ref(q, k, v, ki, cnt, **{**kw, "kv_bias": None})
+        miss = worst_ratio(torch, unbiased[:, act > 0], want[:, act > 0])
+        log(f"flash_manual {name} without the bias: worst ratio {miss:.3e}")
+        if name in ("full", "bias_masks_first_block") and not miss > TOL:
+            raise RuntimeError(f"flash_manual {name} check cannot tell a missing bias")
+        del got, want, unbiased
+        flops = 4.0 * q_rows * keys * d * n_act
+        b_ms, b_by = bound_ms(flops, (2 * q_rows + 2 * keys) * d * 2 * n_act + lay.total * 4,
+                              PEAK_BF16)
+        lib, lib_err = None, None
+        qa, ka, va = (x[:, act > 0] for x in (q, k, v))
+        try:  # SDPA with the bias as an additive float mask
+            fmask = bias.to(bf16)[None, None]
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qa, ka, va, attn_mask=fmask), 5, 1)
+        except (torch.OutOfMemoryError, RuntimeError) as e:
+            lib_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+            log(f"flash_manual {name}: SDPA with the float mask failed: {lib_err}")
+        del qa, ka, va
+        r = dict(ms=time_ms(torch, kern, 5), plain_ms=time_ms(torch, plain, 2, 1),
+                 library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                 worst_ratio=ratio, missing_bias_worst_ratio=miss)
+        if lib_err:
+            r["library_error"] = lib_err
+        out["flash_manual"][f"hunyuan_{name}"] = r
+        log(f"flash_manual {name}: {r} (achieved {flops / r['ms'] / 1e9:.1f} TFLOP/s on "
+            f"{n_act} heads)")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # ---- sta_pipe with the text tail: (1,24,43200,128), 432-token tiles, 256 text keys
+    tile = cfg.sta_tile
+    q, k, v = (randn(1, h, sv, d) for _ in range(3))
+    tk, tv = (randn(1, h, HY_TEXT, d) for _ in range(2))
+    kw = dict(latent_shape=GRID_HY_45F, tile=tile, window=cfg.sta_window, scale=scale,
+              text_k=tk, text_v=tv, text_bias=text_bias)
+    kern = lambda: sta_pipe_attention(q, k, v, act, **kw)  # noqa: E731
+    plain = lambda: sta_pipe_attention_ref(q, k, v, act, **kw)  # noqa: E731
+    got, want = kern(), plain()
+    err = compare(torch, f"sta_pipe + text tail (1,24,{sv},128) + 256 text, tile {tile}, "
+                  f"{n_act} of 24 heads", got, want)
+    if got[:, act == 0].any():
+        raise RuntimeError("sta_pipe text tail: an inactive head wrote non-zeros")
+    ratio = worst_ratio(torch, got, want)
+    no_tail = sta_pipe_attention_ref(q, k, v, act, **{**kw, "text_k": None, "text_v": None,
+                                                       "text_bias": None})
+    miss = worst_ratio(torch, no_tail[:, act > 0], want[:, act > 0])
+    log(f"sta_pipe without the text tail: worst ratio {miss:.3e} (must exceed {TOL:g})")
+    if not miss > TOL:
+        raise RuntimeError("sta_pipe check cannot tell a missing text tail")
+    del got, want, no_tail
+    window_keys = int(np.prod([min(3, GRID_HY_45F[a] // tile[a]) * tile[a] for a in range(3)]))
+    keys = window_keys + HY_VALID
+    flops = 4.0 * sv * keys * d * n_act
+    b_ms, b_by = bound_ms(flops, (4 * sv + 2 * HY_TEXT) * d * 2 * n_act, PEAK_BF16)
+    lib, lib_err = None, None
+    try:  # SDPA over [video | text] with the window's boolean mask and the text mask
+        smask = torch.cat([sta_raster_mask(torch, GRID_HY_45F, tile, dev),
+                           mask.expand(sv, HY_TEXT)], dim=1)
+        qa = q[:, act > 0]
+        ka, va = (torch.cat([a, b], dim=2)[:, act > 0] for a, b in ((k, tk), (v, tv)))
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qa, ka, va, attn_mask=smask), 3, 1)
+        del smask, qa, ka, va
+    except (torch.OutOfMemoryError, RuntimeError) as e:
+        lib_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        log(f"sta_pipe: masked SDPA failed: {lib_err}")
+    torch.cuda.empty_cache()
+    r = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1), library_ms=lib,
+             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, worst_ratio=ratio,
+             missing_tail_worst_ratio=miss)
+    if lib_err:
+        r["library_error"] = lib_err
+    out["sta_pipe"]["hunyuan_45f_text_tail"] = r
+    log(f"sta_pipe text tail: {window_keys} window + {HY_VALID} text keys per query; {r} "
+        f"(achieved {flops / r['ms'] / 1e9:.1f} TFLOP/s on {n_act} heads)")
+    del q, k, v, tk, tv
+
+    # ---- pool_qkv with K's own matching, and unpool: (1,24,43200,128) -> 21,600
+    q, k, v = (randn(1, h, sv, d) for _ in range(3))
+    pool = lambda: pool_qkv(q, k, v, groups, kv_matching_from_k=True, active=act,  # noqa: E731
+                            return_picks=True)
+    pool_plain = lambda: pool_qkv_ref(q, k, v, groups, kv_matching_from_k=True,  # noqa: E731
+                                      active=act)
+    got, want = pool(), pool_plain()
+    torch.cuda.synchronize()
+    gaps = pick_gaps(got[3], want[3], q, groups)
+    n_picks = n_act * groups.num_groups * groups.num_kept_margins
+    log(f"pool_qkv (K matching) Q picks: {gaps.numel()} of {n_picks} disagree with the plain "
+        f"version's, largest |dsim| {gaps.max().item() if gaps.numel() else 0.0:.3e} "
+        f"(each must be a near-tie, < {PICK_EPS:g})")
+    if gaps.numel() and not gaps.max().item() < PICK_EPS:
+        raise RuntimeError("pool_qkv: a pick disagrees away from a near-tie")
+    sh = (1, h, groups.num_groups, groups.num_kept_margins)
+    q_agree = (got[3].reshape(sh) == want[3].reshape(sh)).all(-1)
+    k_sim = slot_similarity(group_view(k, groups), groups._geom.center_slot)
+    k_clear = k_sim.sort(dim=-1).values[..., :-1].diff(dim=-1).min(dim=-1).values > PICK_EPS
+    gsz = groups.num_groups
+    for name, a, w, agree in zip("qkv", got[:3], want[:3], (q_agree, k_clear, k_clear)):
+        kept_a = a[:, :, gsz:].reshape(*sh, d)[agree]
+        kept_w = w[:, :, gsz:].reshape(*sh, d)[agree]
+        if not (torch.equal(a[:, :, :gsz], w[:, :, :gsz]) and torch.equal(kept_a, kept_w)):
+            raise RuntimeError(f"pool_qkv {name}: pooled rows differ away from near-ties")
+    log(f"pool_qkv (K matching): pooled q equal where Q's picks agree, k and v where K's "
+        f"ranking has no near-tie ({int(k_clear[:, act > 0].sum())} of {n_act * gsz} groups)")
+    # reads all of q and k (the two matchings) and the kept rows of v
+    p_bytes = (n_act * (2 * sv + p) * d * 2 + h * (3 * p * d * 2 + sh[2] * sh[3] * 4))
+    bp_ms, bp_by = bound_ms(0.0, p_bytes, PEAK_BF16)
+    out["pool_qkv"]["hunyuan_45f_k_matching"] = dict(
+        ms=time_ms(torch, pool, 20), plain_ms=time_ms(torch, pool_plain, 2, 1), library_ms=None,
+        bound_ms=bp_ms, bound_by=bp_by, max_abs_err=0.0, pick_disagreements=gaps.numel(),
+        picks=n_picks)
+    log(f"pool_qkv (K matching): {out['pool_qkv']['hunyuan_45f_k_matching']}")
+    picks = got[3]
+    out_p = randn(1, h, p, d)
+    unp = lambda: unpool(out_p, q, groups, active=act, picks=picks)  # noqa: E731
+    unp_plain = lambda: unpool_ref(out_p, q, groups, active=act, picks=picks)  # noqa: E731
+    if not torch.equal(unp(), unp_plain()):
+        raise RuntimeError("unpool: kernel and plain version differ (pure selection)")
+    u_bytes = n_act * (p * d * 2 + sh[2] * sh[3] * 4) + h * sv * d * 2
+    bu_ms, bu_by = bound_ms(0.0, u_bytes, PEAK_BF16)
+    out["unpool"]["hunyuan_45f"] = dict(
+        ms=time_ms(torch, unp, 20), plain_ms=time_ms(torch, unp_plain, 2, 1), library_ms=None,
+        bound_ms=bu_ms, bound_by=bu_by, max_abs_err=0.0)
+    log(f"unpool (1,24,21600,128) -> (1,24,43200,128), bitwise: {out['unpool']['hunyuan_45f']}")
+    del q, k, v, got, want, out_p
+
+    # ---- the qk prologue (head scope) and the AdaLN norm on the single block's
+    # joint stream (1, 43456, 3072): column slices of its fused projection,
+    # RoPE the identity on the 256 text rows
+    dim = HUNYUAN_13B.dim
+    sj = sv + HY_TEXT
+    fused = randn(1, sj, 3 * dim + HUNYUAN_13B.mlp_dim).mul_(3.0)
+    pq, pk, pv, _ = fused.split([dim, dim, dim, HUNYUAN_13B.mlp_dim], dim=-1)
+    gq, gk = (1.0 + 0.1 * torch.randn(d, generator=g, device=dev) for _ in range(2))
+    cos, sin = hunyuan_rope_tables(GRID_HY_45F, HUNYUAN_13B)
+    cos = torch.from_numpy(np.concatenate([cos, np.ones((HY_TEXT, d // 2), np.float32)])).to(dev)
+    sin = torch.from_numpy(np.concatenate([sin, np.zeros((HY_TEXT, d // 2), np.float32)])).to(dev)
+    pkw = dict(num_heads=h, eps=1e-6, norm_scope="head")
+    pro = lambda: fused_qk_prologue(pq, pk, pv, gq.repeat(h), gk.repeat(h), cos, sin,  # noqa: E731
+                                    **pkw)
+    pro_plain = lambda: _prologue_ref(pq, pk, pv, gq.repeat(h), gk.repeat(h), cos,  # noqa: E731
+                                      sin, qk_norm=True, **pkw)
+    got, want = pro(), pro_plain()
+    err = max(compare(torch, f"prologue {n} (1,{sj},3072), head scope", a, b)
+              for n, a, b in zip("qkv", got, want))
+    ratio = max(worst_ratio(torch, a, b) for a, b in zip(got, want))
+    del got, want
+    pro_bytes = 6 * sj * dim * 2 + 2 * cos.numel() * 4 + 2 * dim * 4
+    bp_ms, bp_by = bound_ms(20.0 * sj * dim, pro_bytes, PEAK_F32)
+    out["prologue"]["hunyuan_joint_43456"] = dict(
+        ms=time_ms(torch, pro, 20), plain_ms=time_ms(torch, pro_plain, 3, 1), library_ms=None,
+        bound_ms=bp_ms, bound_by=bp_by, max_abs_err=err, worst_ratio=ratio)
+    log(f"prologue (Hunyuan joint stream): {out['prologue']['hunyuan_joint_43456']}")
+    del fused, pq, pk, pv
+    x = randn(1, sj, dim).mul_(3.0)
+    sc, shf = (0.3 * torch.randn(1, dim, generator=g, device=dev) for _ in range(2))
+    nrm = lambda: fused_norm(x, sc, shf, None, None, False, 1e-6, False)  # noqa: E731
+    nrm_plain = lambda: _norm_ref(x, sc, shf, None, None, rms=False, eps=1e-6,  # noqa: E731
+                                  out_f32=False)
+    got, want = nrm(), nrm_plain()
+    err = compare(torch, f"AdaLN norm (1,{sj},3072)", got, want)
+    ratio = worst_ratio(torch, got, want)
+    del got, want
+    w_lib, b_lib = (1.0 + sc[0]).to(bf16), shf[0].to(bf16)
+    bn_ms, bn_by = bound_ms(10.0 * sj * dim, 2 * x.numel() * 2 + 2 * dim * 4, PEAK_F32)
+    out["fused_norm"]["hunyuan_joint_43456"] = dict(
+        ms=time_ms(torch, nrm, 20), plain_ms=time_ms(torch, nrm_plain, 5),
+        library_ms=time_ms(torch, lambda: F.layer_norm(x, (dim,), w_lib, b_lib, eps=1e-6), 20),
+        bound_ms=bn_ms, bound_by=bn_by, max_abs_err=err, worst_ratio=ratio)
+    log(f"AdaLN norm (Hunyuan joint stream): {out['fused_norm']['hunyuan_joint_43456']}")
+    return out
+
+
+def hy_inputs(torch, grid, dev, seed: int):
+    """Latents for a token grid, Llama-width text states, CLIP pooled, mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=g, device=dev)
+    text = torch.randn((1, HY_TEXT, 4096), generator=g, device=dev)
+    pooled = torch.randn((1, 768), generator=g, device=dev)
+    return lat, text, hy_text_mask(torch, dev), pooled
+
+
+def hy_hard_launches(tables) -> dict:
+    """Kernel launches of hard-routed Hunyuan forwards from their routing
+    tables (forwards, 60 blocks, heads): per forward the prologue 60 and the
+    AdaLN norm 121 (4 per dual block, 1 per single block, 1 in the head);
+    per block one flash_manual per routed expert (STA's for its text rows),
+    sta_pipe with STA, pool_qkv and unpool with LOWRES."""
+    from vorta_tpu_torch.ops import _build
+
+    has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
+    n_fwd = tables.shape[0]
+    return {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
+            "fused_norm": 121 * n_fwd,
+            "flash_manual": int(has[0].sum() + has[1].sum() + has[2].sum()),
+            "sta_pipe": int(has[2].sum()), "pool_qkv": int(has[1].sum()),
+            "unpool": int(has[1].sum())}
+
+
+def check_hunyuan_model(torch) -> None:
+    """1 dual + 1 single block at HunyuanVideo-13B widths: card (bf16,
+    kernels) vs CPU (f32, plain versions) from the same weights, routing off
+    and routed hard with 8 heads on each expert, on a window-dense grid
+    (6, 9, 16) (tile (6, 9, 8): 864 tokens) with 83 of 256 text tokens valid."""
+    import dataclasses
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.ops import _build
+
+    cfg = dataclasses.replace(HUNYUAN_13B, dual_layers=1, single_layers=1)
+    grid = (6, 9, 16)
+    attn = attention_config("hunyuan-13B", grid)
+    experts = torch.tensor([0, 1, 2] * 8)
+    gpu = HunyuanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=3)
+    for block in gpu.blocks:
+        block.router.linear.weight.zero_()
+        block.router.linear.bias.copy_(4.0 * torch.eye(3, device="cuda")[experts].reshape(-1))
+    cpu = HunyuanModel(cfg, dtype=torch.float32, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(gpu.state_dict())  # the same (bf16-rounded) weights in f32
+    lat, text, mask, pooled = hy_inputs(torch, grid, torch.device("cuda"), 9)
+    args = (lat, torch.tensor([700.0], device="cuda"), text, mask, pooled)
+    g = torch.tensor([6000.0], device="cuda")
+    for mode in ("off", "hard"):
+        want = cpu(*(a.cpu() for a in args), guidance=g.cpu(), attn_cfg=attn,
+                   routing_mode=mode).sample
+        _build.reset_launches()
+        res = gpu(*args, guidance=g, attn_cfg=attn, routing_mode=mode)
+        got = res.sample.float().cpu()
+        launches = dict(_build.launches)
+        expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 2, "prologue": 2,
+                    "fused_norm": 6}
+        if mode == "hard":
+            if not (res.expert_ids == experts.numpy()).all():
+                raise RuntimeError(f"Hunyuan model check: routing {res.expert_ids}")
+            expected = hy_hard_launches(np.asarray(res.expert_ids)[None])
+            expected.update(prologue=2, fused_norm=6)
+        if launches != expected:
+            raise RuntimeError(f"Hunyuan model check {mode}: launches {launches} != {expected}")
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"Hunyuan model check {mode}: non-finite output on the card")
+        rel = ((got - want).norm() / want.norm()).item()
+        log(f"Hunyuan model check (1 + 1 blocks, 13B widths, {grid} = 864 + 256 tokens, "
+            f"{mode}): rel L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); "
+            f"launches {launches}")
+        if not rel < 0.05:
+            raise RuntimeError("Hunyuan model check: the card's forward disagrees with the CPU's")
+    del gpu, cpu
+
+
+def hy_warm_up(torch, grid, modes) -> None:
+    """Warm cuBLAS and the caching allocator at a grid's shapes with a
+    1 + 1-block model of HunyuanVideo-13B's widths."""
+    import dataclasses
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+
+    warm = HunyuanModel(dataclasses.replace(HUNYUAN_13B, dual_layers=1, single_layers=1),
+                        dtype=torch.bfloat16, device="cuda", seed=1)
+    lat, text, mask, pooled = hy_inputs(torch, grid, torch.device("cuda"), 2)
+    for mode in modes:
+        warm(lat, torch.tensor([900.0], device="cuda"), text, mask, pooled,
+             guidance=torch.tensor([6000.0], device="cuda"),
+             attn_cfg=attention_config("hunyuan-13B", grid), routing_mode=mode)
+    torch.cuda.synchronize()
+
+
+def run_hunyuan_main_path(torch, card: str):
+    """cli.sample --model hunyuan-13B at 720p x 45f, 60 blocks, 2 Euler steps:
+    routing off, then routed hard (the CLI's default)."""
+    import gc
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import main as sample_main
+    from vorta_tpu_torch.ops import _build
+
+    hy_warm_up(torch, GRID_HY_45F, ("off", "hard"))
+    launches, per_step = {}, {}
+    for name, extra in (("hunyuan_off", ["--native_attention"]), ("hunyuan", [])):
+        out = HERE / "results" / "port_smoke" / f"{name}_latents.npy"
+        _build.reset_launches()
+        res = sample_main(["--model", "hunyuan-13B", *extra, "--random_embeds",
+                           "--num_frames", "45", "--height", "720", "--width", "1280",
+                           "--num_inference_steps", "2", "--seed", "0", "--device", "cuda",
+                           "--output", str(out)])
+        launches[name] = dict(_build.launches)
+        lat = res.latents
+        if tuple(lat.shape) != (1, 12, 90, 160, 16) or not torch.isfinite(lat).all():
+            raise RuntimeError(f"Hunyuan main path {name}: output {tuple(lat.shape)}, finite "
+                               f"{bool(torch.isfinite(lat).all())}")
+        if name == "hunyuan_off":
+            expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60 * 2,
+                        "prologue": 60 * 2, "fused_norm": 121 * 2}
+            heads = None
+        else:
+            tables = np.stack(res.routing)  # (forwards, blocks, heads)
+            if tables.shape != (2, 60, 24):
+                raise RuntimeError(f"Hunyuan main path: routing tables {tables.shape}")
+            expected = hy_hard_launches(tables)
+            heads = np.bincount(tables.reshape(-1), minlength=3)
+            if not (heads > 0).all():
+                raise RuntimeError(f"Hunyuan main path: an expert got no head: {heads}")
+        if launches[name] != expected:
+            raise RuntimeError(f"Hunyuan main path {name}: launches {launches[name]} != "
+                               f"expected {expected}")
+        per_step[name] = res.denoise_s / res.steps
+        log(f"Hunyuan main path {name}: HunyuanVideo-13B 20 + 40 blocks, 43,200 + 256 tokens, "
+            f"2 Euler steps (1 forward each): {res.denoise_s:.3f} s ({per_step[name]:.3f} "
+            f"s/step; model build {res.build_s:.1f} s) on {card}; "
+            + (f"heads per expert over the run: full {heads[0]}, lowres {heads[1]}, sta "
+               f"{heads[2]}; " if heads is not None else "")
+            + f"launches {launches[name]} (exact); output std {lat.std().item():.4f}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        del res, lat
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, per_step
+
+
+def run_hunyuan_reference_shape(torch, card: str) -> dict:
+    """One HunyuanVideo-13B forward at 720p x 117f (108,000 + 256 tokens),
+    routed hard by random routers, then one routing off; timed after a
+    warm-up of a 1 + 1-block model at the same shapes."""
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+
+    hy_warm_up(torch, GRID_HY_117F, ("hard", "off"))
+    model = HunyuanModel(HUNYUAN_13B, dtype=torch.bfloat16, device="cuda", seed=0)
+    lat, text, mask, pooled = hy_inputs(torch, GRID_HY_117F, torch.device("cuda"), 1)
+    attn = attention_config("hunyuan-13B", GRID_HY_117F)
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("hard", "off"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = model(lat, torch.tensor([500.0], device="cuda"), text, mask, pooled,
+                    guidance=torch.tensor([6000.0], device="cuda"), attn_cfg=attn,
+                    routing_mode=mode)
+        torch.cuda.synchronize()
+        res[f"{mode}_ms"] = (time.time() - t0) * 1e3
+        if not torch.isfinite(out.sample).all():
+            raise RuntimeError(f"Hunyuan 117f forward {mode}: non-finite output")
+        heads = ("" if out.expert_ids is None else
+                 "; heads over 60 blocks: full {}, lowres {}, sta {}".format(
+                     *np.bincount(out.expert_ids.reshape(-1), minlength=3)))
+        log(f"HunyuanVideo-13B 720p x 117f forward (108,000 + 256 tokens, 60 blocks, {mode}, "
+            f"t = 500): {res[f'{mode}_ms']:.1f} ms on {card}{heads}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        del out
+    log(f"720p x 117f: routing off / routed = {res['off_ms'] / res['hard_ms']:.3f}")
+    return res
 
 
 # ---- training ------------------------------------------------------------------

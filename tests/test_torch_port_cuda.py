@@ -13,8 +13,12 @@ prologue's head scope, qk_norm off and odd sequence lengths, flash and
 flash_manual at head dim 64, small blocks, per-head tables and counts,
 sta_pipe at every tile-width class with clamped and whole-axis windows,
 pool/unpool with inactive heads, and that the options each wrapper leaves
-to later slices raise; for training, the forward's lse, the dq and dk/dv
-kernels (1, 2 and 4 warps, tails, empty q blocks), the autograd rules of
+to later slices raise; for HunyuanVideo, flash_manual's kv_bias (with and
+without kv_valid_len, the joint experts' blocks), sta_pipe's text tail
+(active and inactive heads, 24 and 256 text keys, 432-token tiles), the
+pool's K matching, a 1 + 1-block model off and routed and the tiny CLI;
+for training, the forward's lse, the dq and dk/dv kernels (1, 2 and 4
+warps, tails, empty q blocks), the autograd rules of
 the attention and the norm, the grad guards of the forward-only wrappers,
 a train step against the CPU and the trainer CLI.  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
@@ -168,10 +172,13 @@ def test_flash_manual_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 64, 128), device=card, dtype=torch.bfloat16)
     ki, kc = dense_tables(1, 1).on(card)
     kw = dict(block_q=64, block_kv=64)
-    for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=ki), dict(kv_bias=q[0, :1, :, 0]),
+    for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=ki),
                 dict(qk_scale=torch.ones(2)), dict(softmax="stable")):
         with pytest.raises(NotImplementedError):
             sparse_flash_attention_manual(q, q, q, ki, kc, **kw, **bad)
+    with pytest.raises(ValueError, match="kv_bias"):
+        sparse_flash_attention_manual(q, q, q, ki, kc, kv_bias=torch.zeros((1, 32), device=card),
+                                      **kw)
     with pytest.raises(NotImplementedError, match="bf16"):
         sparse_flash_attention_manual(q.float(), q.float(), q.float(), ki, kc, **kw)
 
@@ -205,10 +212,11 @@ def test_sta_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 4 * 6 * 16, 128), device=card, dtype=torch.bfloat16)
     kw = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
     act = torch.ones(2, device=card, dtype=torch.int32)
-    for bad in (dict(text_k=q[:, :, :8]), dict(qk_scale=torch.ones(2)), dict(softmax="stable"),
-                dict(variant="sT")):
+    for bad in (dict(qk_scale=torch.ones(2)), dict(softmax="stable"), dict(variant="sT")):
         with pytest.raises(NotImplementedError):
             sta_pipe_attention(q, q, q, act, **kw, **bad)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sta_pipe_attention(q, q, q, act, text_k=q[:, :, :12], text_v=q[:, :, :12], **kw)
     with pytest.raises(NotImplementedError, match="bf16"):
         sta_pipe_attention(q.float(), q.float(), q.float(), act, **kw)
 
@@ -245,13 +253,157 @@ def test_pool_unpool_kernels_reject_what_they_do_not_take(card):
     groups = build_lowres_groups((4, 6, 16), (2, 3, 2), 0.5)
     q = torch.zeros((1, 2, 384, 128), device=card, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        pool_qkv(q, q, q, groups, kv_matching_from_k=True)
-    with pytest.raises(NotImplementedError):
         pool_qkv(q, q, q, groups, head_map=torch.zeros(2), num_active=1)
     with pytest.raises(NotImplementedError, match="picks"):
         unpool(q[:, :, :groups.pooled_length], q, groups)
     with pytest.raises(NotImplementedError, match="bf16"):
         pool_qkv(q.float(), q.float(), q.float(), groups)
+
+
+# --- HunyuanVideo's joint features: kv_bias, the text tail, K's matching --------
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block_q,block_kv,sq,skv,valid", [
+    (32, 32, 128, 128, 100),         # small blocks, one warp
+    (1024, 1024, 2048, 2048, None),  # the FULL / LOWRES joint layouts' blocks
+    (256, 1024, 256, 3072, 2900),    # the STA text rows: kv_valid_len and the bias
+])
+def test_flash_manual_kv_bias_kernel_matches_plain(card, d, block_q, block_kv, sq, skv, valid):
+    """The (1, Skv) bias added to the pre-scaled scores: -1e30 on 30% of
+    the keys and on all of kv block 0, which every row visits first (no
+    garbage may enter the sums), random finite values elsewhere."""
+    b, h = 2, 3
+    g = torch.Generator(device=card).manual_seed(20)
+    q = _randn(g, (b, h, sq, d), torch.bfloat16)
+    k, v = (_randn(g, (b, h, skv, d), torch.bfloat16) for _ in range(2))
+    bias = torch.randn((1, skv), generator=g, device=card)
+    bias = torch.where(torch.rand((1, skv), generator=g, device=card) < 0.3, -1e30, bias)
+    bias[:, :block_kv] = -1e30
+    ki, kc = dense_tables(sq // block_q, skv // block_kv).on(card)
+    kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
+    kw = dict(block_q=block_q, block_kv=block_kv, kv_valid_len=valid, scale=d**-0.5,
+              kv_bias=bias)
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q, k, v, ki, kc, **kw)
+    assert _build.launches["flash_manual"] == 1
+    _close(got, sparse_flash_attention_manual_ref(q, k, v, ki, kc, **kw))
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("latent,tile,lt,with_bias", [
+    ((4, 6, 16), (4, 6, 8), 24, True),      # the joint CPU tests' window-dense geometry
+    ((12, 18, 16), (6, 9, 8), 256, True),   # HunyuanVideo's 432-token tile, 256 text keys
+    ((8, 6, 20), (2, 3, 4), 8, False),      # tw | 8; text_bias None: zeros
+])
+def test_sta_kernel_text_tail_matches_plain(card, d, latent, tile, lt, with_bias):
+    b, h = 2, 3
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(21)
+    q, k, v = (_randn(g, (b, h, s, d), torch.bfloat16) for _ in range(3))
+    tk, tv = (_randn(g, (b, h, lt, d), torch.bfloat16) for _ in range(2))
+    bias = (torch.where(torch.arange(lt, device=card) < lt - 5, 0.0, -1e30)[None]
+            if with_bias else None)
+    active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=d**-0.5, text_k=tk,
+              text_v=tv, text_bias=bias)
+    _build.reset_launches()
+    got = sta_pipe_attention(q, k, v, active, **kw)
+    assert _build.launches["sta_pipe"] == 1
+    _close(got, sta_pipe_attention_ref(q, k, v, active, **kw))
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("latent,window", [((4, 6, 16), (2, 3, 2)), ((4, 8, 8), (2, 2, 2))])
+def test_pool_kv_matching_from_k_kernel_matches_plain(card, latent, window):
+    """K and V pooled by K's own matching, the picks Q's: picks equal but
+    at near-ties; pooled rows equal wherever no group's K ranking has a
+    near-tie (pure selection)."""
+    from vorta_tpu_torch.ops.coreset import group_view, slot_similarity
+
+    b, h, d = 2, 3, 128
+    groups = build_lowres_groups(latent, window, 0.5)
+    g = torch.Generator(device=card).manual_seed(22)
+    q, k, v = (_randn(g, (b, h, int(np.prod(latent)), d), torch.bfloat16) for _ in range(3))
+    active = torch.tensor([1, 1, 0], device=card, dtype=torch.int32)
+    got = pool_qkv(q, k, v, groups, kv_matching_from_k=True, active=active, return_picks=True)
+    want = pool_qkv_ref(q, k, v, groups, kv_matching_from_k=True, active=active)
+    torch.cuda.synchronize()
+    assert (pick_gaps(got[3], want[3], q, groups) < 1e-5).all()
+    sim = slot_similarity(group_view(k, groups), groups._geom.center_slot)
+    gaps = sim.sort(dim=-1).values[..., :-1].diff(dim=-1)
+    if gaps.min().item() > 1e-5:
+        for a, w in zip(got[1:3], want[1:3]):
+            assert torch.equal(a, w)
+    q_only = pool_qkv(q, k, v, groups, active=active)
+    assert not torch.equal(q_only[1], got[1])
+
+
+def _hunyuan_card_cfg():
+    from vorta_tpu_torch.models.hunyuan import HunyuanModelConfig
+
+    return HunyuanModelConfig(dim=384, num_heads=3, head_dim=128, dual_layers=1,
+                              single_layers=1, text_dim=64, text_len=24, pooled_dim=32,
+                              freq_dim=64, refiner_layers=1)
+
+
+@pytest.mark.parametrize("mode", ["off", "hard"])
+def test_hunyuan_forward_on_card_matches_cpu(card, mode):
+    """A 1 + 1-block model at head dim 128, window-dense geometry: the card
+    (bf16, kernels) against the CPU (f32, plain versions) from the same
+    weights, rel L2 below 0.05; routed hard, the heads go to all three
+    experts and each kernel launches as the dispatch says."""
+    from vorta_tpu_torch.config import AttentionConfig
+    from vorta_tpu_torch.models.hunyuan import HunyuanModel
+
+    cfg = _hunyuan_card_cfg()
+    attn = AttentionConfig(latent_shape=(4, 6, 16), sta_tile=(4, 6, 8), lowres_window=(2, 2, 2),
+                           block_q=32, block_kv=32)
+    cpu = HunyuanModel(cfg, dtype=torch.float32, device="cpu", seed=4)
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(torch.eye(3).reshape(-1) * 4.0)
+    gpu = HunyuanModel(cfg, dtype=torch.bfloat16, device=card, seed=4)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(8)
+    lat = torch.randn((1, 4, 12, 32, 16), generator=gen)
+    text = torch.randn((1, 24, 64), generator=gen)
+    pooled = torch.randn((1, 32), generator=gen)
+    mask = (torch.arange(24) < 17)[None]
+    args = (lat, torch.tensor([600.0]), text, mask, pooled)
+    kw = dict(guidance=torch.tensor([6000.0]), attn_cfg=attn, routing_mode=mode)
+    _build.reset_launches()
+    with torch.inference_mode():
+        res = gpu(*(x.to(card) for x in args), **{**kw, "guidance": kw["guidance"].to(card)})
+        got = res.sample.float().cpu()
+        launches = dict(_build.launches)
+        want = cpu(*args, **kw).sample
+    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 2, "prologue": 2,
+                "fused_norm": 6}
+    if mode == "hard":
+        assert (res.expert_ids == np.array([[0, 1, 2]] * 2)).all()
+        expected.update(flash_manual=6, sta_pipe=2, pool_qkv=2, unpool=2)
+    assert launches == expected
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() < 0.05
+
+
+def test_hunyuan_cli_on_card(card, tmp_path):
+    import json
+
+    from vorta_tpu_torch.cli.sample import main
+
+    base = ["--model", "hunyuan-tiny", "--random_embeds", "--num_frames", "13",
+            "--height", "96", "--width", "256", "--num_inference_steps", "2"]
+    res = main(base + ["--native_attention", "--output", str(tmp_path / "off.npy")])
+    assert res.latents.device.type == "cuda" and np.isfinite(np.load(tmp_path / "off.npy")).all()
+    (tmp_path / "config.json").write_text(json.dumps(dict(
+        latent_shape=[4, 6, 16], sta_tile=[4, 6, 8], lowres_window=[2, 2, 2], block_q=32,
+        block_kv=32)))
+    res = main(base + ["--resume_dir", str(tmp_path), "--output", str(tmp_path / "hard.npy")])
+    assert np.load(tmp_path / "hard.npy").shape == (1, 4, 12, 32, 16)
+    assert len(res.routing) == 2
 
 
 # --- AdaLN norm ---------------------------------------------------------------

@@ -38,7 +38,8 @@ def test_port_imports_no_jax():
     assert {"vorta_tpu_torch.ops.flash_bwd", "vorta_tpu_torch.training.step",
             "vorta_tpu_torch.training.sampling", "vorta_tpu_torch.training.data",
             "vorta_tpu_torch.io.checkpoint", "vorta_tpu_torch.io.metrics",
-            "vorta_tpu_torch.cli.train"} <= names
+            "vorta_tpu_torch.cli.train", "vorta_tpu_torch.ops.joint_experts",
+            "vorta_tpu_torch.models.hunyuan", "vorta_tpu_torch.pipelines.hunyuan_t2v"} <= names
 
 
 def test_every_module_imports_without_building():
@@ -50,7 +51,7 @@ def test_every_module_imports_without_building():
     assert not _build._libs
 
 
-@pytest.mark.parametrize("entry", ["model", "cli"])
+@pytest.mark.parametrize("entry", ["model", "cli", "hunyuan_model", "hunyuan_cli"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     """With no device given, an entry point asks for CUDA and raises without it."""
     from vorta_tpu_torch.config import WAN_TINY
@@ -60,7 +61,12 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "model":
             WanModel(WAN_TINY)
+        elif entry == "hunyuan_model":
+            from vorta_tpu_torch.models.hunyuan import HUNYUAN_TINY, HunyuanModel
+
+            HunyuanModel(HUNYUAN_TINY)
         else:
             from vorta_tpu_torch.cli.sample import main
 
-            main(["--model", "wan-tiny", "--native_attention", "--random_embeds"])
+            model = "hunyuan-tiny" if entry == "hunyuan_cli" else "wan-tiny"
+            main(["--model", model, "--native_attention", "--random_embeds"])

@@ -109,7 +109,8 @@ def test_flash_dense_equals_oracles():
 
 
 def test_flash_unported_features_raise():
-    """Per-head kv_valid and pair_bits belong to the Hunyuan slice."""
+    """Per-head kv_valid and pair_bits of the flash kernel are not ported (no
+    call site on the served paths passes them)."""
     q = torch.zeros((1, 1, 32, 64))
     tab = dense_tables(1, 1)
     for kw in (dict(kv_valid=torch.tensor([20])), dict(pair_bits=torch.zeros((1, 1, 1)))):

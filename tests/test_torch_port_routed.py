@@ -188,12 +188,16 @@ def test_flash_manual_matches_pallas(valid, per_head_index, d):
 
 
 def test_flash_manual_unported_options_raise():
+    """kv_bias is served (the joint experts' text mask); per-head kv_valid,
+    pair_bits, int8 QK and the stable softmax still raise."""
     q = torch.zeros((1, 2, 32, 64))
     tab = tables_from_block_mask(np.ones((1, 1), bool))
     kw = dict(block_q=32, block_kv=32)
+    out = sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count,
+                                        kv_bias=torch.zeros((1, 32)), **kw)
+    assert out.shape == q.shape
     for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=torch.zeros((1, 1, 1))),
-                dict(kv_bias=torch.zeros((1, 32))), dict(qk_scale=torch.ones(2)),
-                dict(softmax="stable")):
+                dict(qk_scale=torch.ones(2)), dict(softmax="stable")):
         with pytest.raises(NotImplementedError):
             sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count, **kw, **bad)
 

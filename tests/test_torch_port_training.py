@@ -161,7 +161,7 @@ def jax_step():
     draws = tuple(torch.from_numpy(np.asarray(x)) for x in (t, s, eps))
     return dict(state=state, sig=sig, latents=latents, embeds=embeds, draws=draws,
                 metrics={k: float(v) for k, v in metrics.items()},
-                router=_flat_to_state(router, JAX_WAN_TINY.num_layers))
+                router=_flat_to_state(router, {"blocks": JAX_WAN_TINY.num_layers}))
 
 
 def _port_model(state):

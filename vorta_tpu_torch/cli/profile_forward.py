@@ -1,4 +1,4 @@
-"""Where one Wan forward's device time goes, on the GPU.
+"""Where one Wan or HunyuanVideo forward's device time goes, on the GPU.
 
 Runs the model (random weights from a seed) once to warm up, then once
 under ``torch.profiler``, and prints the device time per kernel group (the
@@ -12,7 +12,10 @@ timestep embedding, so ``--router`` also loads that model's time embedder
 (``port_assets/``, io/from_jax.load_jax_params).  ``--train`` profiles one
 router-training micro-step instead (training/step.py: soft routing with the
 teacher interleaved, per-block recompute, the backward to the routers),
-at the trainer's geometry, after one warm-up micro-step.
+at the trainer's geometry, after one warm-up micro-step.  ``--model
+hunyuan-13B`` profiles HunyuanVideo-13B (60 blocks, random weights and
+routers, random text states with 83 of 256 tokens valid, embedded guidance
+6.0) at the CLI's attention geometry, routing off or hard.
 
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 21 --height 480 --width 832
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --routing hard
@@ -20,6 +23,8 @@ at the trainer's geometry, after one warm-up micro-step.
       --routing hard --sta_tile 5 9 8 --t 500 \
       --router assets/bench_router_wan1_3b_720p_half.npz
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --train
+  python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
+      --height 720 --width 1280 --routing hard
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ import torch
 
 from ..config import WAN_1_3B, AttentionConfig
 from ..device import resolve_device
-from ..geometry import WAN_GEOMETRY
+from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
 from ..io.from_jax import load_jax_params, load_router_npz
+from ..models.hunyuan import HUNYUAN_13B, HunyuanModel
 from ..models.wan import WanModel
-from .sample import attention_config
+from .sample import RANDOM_TEXT_VALID, attention_config
 
 # the time embedder of the model the JAX package's routers were trained against
 TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
@@ -69,6 +75,7 @@ def _group(name: str) -> str:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", default="wan-1_3B", choices=["wan-1_3B", "hunyuan-13B"])
     p.add_argument("--num_frames", type=int, default=21)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=832)
@@ -79,10 +86,16 @@ def main(argv=None) -> dict:
     p.add_argument("--train", action="store_true",
                    help="profile one router-training micro-step instead of a forward")
     args = p.parse_args(argv)
+    if args.model == "hunyuan-13B" and (args.train or args.router):
+        p.error("--train and --router profile Wan-1.3B only")
 
     from torch.profiler import ProfilerActivity, profile
 
     device = resolve_device("cuda")
+    if args.model == "hunyuan-13B":
+        grid, attn, run = _hunyuan_forward(args, device)
+        return _profile(args, HUNYUAN_13B.dual_layers + HUNYUAN_13B.single_layers, grid, attn,
+                        run, device, profile, ProfilerActivity)
     cfg = WAN_1_3B
     grid = WAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
     model = WanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
@@ -106,6 +119,35 @@ def main(argv=None) -> dict:
         def run():
             with torch.inference_mode():
                 return model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing)
+    return _profile(args, cfg.num_layers, grid, attn, run, device, profile, ProfilerActivity)
+
+
+def _hunyuan_forward(args, device):
+    """(grid, attention config, closure of one HunyuanVideo-13B forward) at
+    the CLI's geometry."""
+    cfg = HUNYUAN_13B
+    grid = HUNYUAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
+    attn = attention_config("hunyuan-13B", grid)
+    if args.sta_tile:
+        attn = dataclasses.replace(attn, sta_tile=tuple(args.sta_tile))
+    model = HunyuanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    g = torch.Generator(device=device).manual_seed(1)
+    lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], cfg.in_channels), generator=g,
+                      device=device)
+    text = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g, device=device)
+    pooled = torch.randn((1, cfg.pooled_dim), generator=g, device=device)
+    mask = (torch.arange(cfg.text_len, device=device) < RANDOM_TEXT_VALID)[None]
+    t = torch.tensor([args.t], device=device)
+    guidance = torch.tensor([6000.0], device=device)
+
+    def run():
+        with torch.inference_mode():
+            return model(lat, t, text, mask, pooled, guidance=guidance, attn_cfg=attn,
+                         routing_mode=args.routing)
+    return grid, attn, run
+
+
+def _profile(args, layers: int, grid, attn, run, device, profile, ProfilerActivity) -> dict:
     run()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -133,7 +175,7 @@ def main(argv=None) -> dict:
         heads = dict(zip(("full", "lowres", "sta"),
                          np.bincount(out.expert_ids.reshape(-1), minlength=3).tolist()))
     result = {
-        "tokens": grid[0] * grid[1] * grid[2], "layers": cfg.num_layers,
+        "model": args.model, "tokens": grid[0] * grid[1] * grid[2], "layers": layers,
         "routing": "soft (train micro-step)" if args.train else args.routing, "t": args.t,
         "sta_tile": attn.sta_tile if heads or args.train else None,
         "max_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,

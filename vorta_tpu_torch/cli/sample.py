@@ -29,12 +29,18 @@ import torch
 
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
 from ..device import resolve_device
-from ..geometry import WAN_GEOMETRY
+from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
 from ..io.checkpoint import apply_router_state, load_router_checkpoint
+from ..models.hunyuan import HUNYUAN_13B, HUNYUAN_TINY, HunyuanModel
 from ..models.wan import WanModel
+from ..pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
 from ..pipelines.wan_t2v import SamplingConfig, WanT2VPipeline
 
-MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY}
+MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY,
+          "hunyuan-13B": HUNYUAN_13B, "hunyuan-tiny": HUNYUAN_TINY}
+# text tokens --random_embeds marks valid for Hunyuan: not a multiple of 8
+# or 16, so the kernels' text-padding bias really masks
+RANDOM_TEXT_VALID = 83
 
 
 def parse_args(argv=None):
@@ -58,7 +64,8 @@ def parse_args(argv=None):
     p.add_argument("--num_inference_steps", type=int, default=50)
     p.add_argument("--guidance_scale", type=float, default=5.0)
     p.add_argument("--flow_shift", type=float, default=5.0)
-    p.add_argument("--scheduler", default="unipc", choices=["unipc", "euler"])
+    p.add_argument("--scheduler", default=None, choices=["unipc", "euler"],
+                   help="default: unipc for wan, euler for hunyuan")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--output", default="results/sample.npy")
     args = p.parse_args(argv)
@@ -78,6 +85,13 @@ def load_embeds(path, cfg) -> np.ndarray:
 
 def attention_config(model: str, grid, tau_sparse: float = 0.3) -> AttentionConfig:
     """The JAX CLI's attention geometry for a fresh run (no resume dir)."""
+    if model == "hunyuan-tiny":
+        return AttentionConfig(latent_shape=grid, sta_window=(3, 3, 3), sta_tile=(2, 2, 2),
+                               lowres_window=(2, 2, 2), block_q=32, block_kv=32,
+                               sta_block_q=8, sta_block_kv=8, tau_sparse=tau_sparse)
+    if model == "hunyuan-13B":
+        return AttentionConfig(latent_shape=grid, sta_window=(3, 3, 3), sta_tile=(6, 9, 8),
+                               lowres_window=(2, 3, 2), tau_sparse=tau_sparse)
     if model == "wan-tiny":
         return AttentionConfig(latent_shape=grid, sta_tile=(2, 2, 2), sta_window=(3, 3, 1),
                                lowres_window=(2, 2, 2), block_q=16, block_kv=16,
@@ -102,7 +116,9 @@ def main(argv=None) -> SampleResult:
     device = resolve_device(args.device)
     model_cfg = MODELS[args.model]
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    grid = WAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
+    hunyuan = args.model.startswith("hunyuan")
+    geometry = HUNYUAN_GEOMETRY if hunyuan else WAN_GEOMETRY
+    grid = geometry.tokens((args.num_frames, args.height, args.width))
     attn_cfg = attention_config(args.model, grid, args.tau_sparse)
     if args.resume_dir and (Path(args.resume_dir) / "config.json").exists():
         attn_cfg = AttentionConfig.load(Path(args.resume_dir) / "config.json")
@@ -110,6 +126,9 @@ def main(argv=None) -> SampleResult:
             raise ValueError(f"config.json geometry {attn_cfg.latent_shape} != requested "
                              f"video grid {grid}")
         attn_cfg = dataclasses.replace(attn_cfg, tau_sparse=args.tau_sparse)
+    routing_mode = "off" if args.native_attention else "hard"
+    if hunyuan:
+        return _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode)
     router_state = None
     if args.router_checkpoint:
         rp = Path(args.router_checkpoint)
@@ -118,7 +137,6 @@ def main(argv=None) -> SampleResult:
                 f"{rp.name}: reference torch router checkpoints need the weight importer "
                 "(io/torch_import), a later port slice; pass a step dir of the port's trainer")
         router_state, _ = load_router_checkpoint(rp)
-    routing_mode = "off" if args.native_attention else "hard"
     print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}",
           flush=True)
 
@@ -147,10 +165,17 @@ def main(argv=None) -> SampleResult:
 
     sampling = SamplingConfig(
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
-        flow_shift=args.flow_shift, scheduler=args.scheduler, routing_mode=routing_mode)
+        flow_shift=args.flow_shift, scheduler=args.scheduler or "unipc",
+        routing_mode=routing_mode)
     routing = []
     t0 = time.time()
     final = pipe(latents, pe, ne, sampling=sampling, routing=routing)
+    return _finish(args, device, final, build_s, t0, routing)
+
+
+def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
+            routing: list) -> SampleResult:
+    """Synchronise, report the denoise time and the routing, write the latents."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -165,6 +190,48 @@ def main(argv=None) -> SampleResult:
     np.save(out, final.cpu().numpy())
     print(f"[sample] wrote {out}", flush=True)
     return SampleResult(final, build_s, dt, args.num_inference_steps, routing)
+
+
+def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg,
+                  routing_mode: str) -> SampleResult:
+    """HunyuanVideo sampling (the JAX CLI's _main_hunyuan, latents out)."""
+    if args.router_checkpoint:
+        raise NotImplementedError("Hunyuan router checkpoints come from Hunyuan router "
+                                  "training, a later slice of the port")
+    print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}",
+          flush=True)
+    t0 = time.time()
+    model = HunyuanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+    gen = torch.Generator(device=device)
+    lt = model_cfg.text_len
+    if args.prompt_embeds:
+        text = torch.from_numpy(load_embeds(args.prompt_embeds, model_cfg)).to(device)
+        pooled = text[:, 0, :model_cfg.pooled_dim]
+        mask = (text != 0).any(dim=-1)
+    elif args.random_embeds:
+        gen.manual_seed(args.seed + 1)
+        text = torch.randn((1, lt, model_cfg.text_dim), generator=gen, device=device)
+        pooled = torch.randn((1, model_cfg.pooled_dim), generator=gen, device=device)
+        valid = min(RANDOM_TEXT_VALID, lt - 7)
+        mask = (torch.arange(lt, device=device) < valid)[None]
+    else:
+        raise SystemExit("need --prompt_embeds or --random_embeds")
+    pipe = HunyuanT2VPipeline(model, attn_cfg=attn_cfg)
+    latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
+                                   args.height, args.width)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    build_s = time.time() - t0
+    print(f"[sample] model built in {build_s:.1f}s; {int(mask.sum())} of {lt} text tokens "
+          "valid", flush=True)
+    sampling = HunyuanSamplingConfig(
+        num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
+        flow_shift=args.flow_shift, scheduler=args.scheduler or "euler",
+        routing_mode=routing_mode)
+    routing = []
+    t0 = time.time()
+    final = pipe(latents, text, mask, pooled, sampling=sampling, routing=routing)
+    return _finish(args, device, final, build_s, t0, routing)
 
 
 if __name__ == "__main__":

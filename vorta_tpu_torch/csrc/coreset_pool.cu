@@ -7,7 +7,10 @@
 // (wt, wh, ww) window ("group") of the raster grid, rank the margin slots
 // by (c.m) * rsqrt(max(|m|^2, 1e-24)) in f32 from Q (c the center slot),
 // the center excluded by a +inf sentinel, then U arg-min passes with ties to
-// the lower slot; K and V share Q's picks.  Pooled layout:
+// the lower slot; K and V share Q's picks, or (kv_from_k, HunyuanVideo's
+// joint experts: coreset_pallas.py kv_matching_from_k) are pooled by K's own
+// matching under the same rule, while the picks written stay Q's (unpool
+// scatters the queries' outputs).  Pooled layout:
 // [G centers | G*U kept margins, group-major, least similar first]; picks:
 // (B, H, G, U) int32 slot ids, the TPU's (B, H, T2, H3, W2, U).  Unpool
 // writes each slot its kept value if picked, else its group center.
@@ -17,7 +20,8 @@
 // Bound on this card: bytes.  At Wan-1.3B 480p x 77f (31,200 tokens,
 // d = 128, window (2, 3, 2): 2,600 groups of 12, U = 5) pool reads all of
 // Q (8 MB) and only the 15,600 center and kept rows of K and V (2 x 4 MB),
-// and writes 3 x 4 MB per head: 28 MB, 8.4 us at 3.35 TB/s; unpool reads
+// and writes 3 x 4 MB per head: 28 MB, 8.4 us at 3.35 TB/s (with K's own
+// matching it reads all of K too: 32 MB); unpool reads
 // 4 MB and writes 8 MB per head (3.6 us).  Design: one warp per group, each lane
 // holding d / 32 elements of a row, so a row is one coalesced 256-byte
 // access; the similarity sums reduce by warp shuffles, lane s keeps slot
@@ -89,8 +93,8 @@ __global__ void __launch_bounds__(WARPS * 32)
 pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ pq,
             __nv_bfloat16* __restrict__ pk, __nv_bfloat16* __restrict__ pv,
-            int* __restrict__ picks, const int* __restrict__ active, int H, int T, int HH, int W,
-            int wt, int wh, int ww, int U) {
+            int* __restrict__ picks, const int* __restrict__ active, int kv_from_k, int H, int T,
+            int HH, int W, int wt, int wh, int ww, int U) {
   constexpr int EPL = D / 32;
   const int lane = threadIdx.x % 32;
   const int gs = wt * wh * ww, G = (T / wt) * (HH / wh) * (W / ww);
@@ -116,34 +120,46 @@ pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     return;
   }
 
-  // similarity of every slot to the center, from Q, in f32
-  float c[EPL], x[EPL];
-  load_f32<D>(c, src(q, cs), lane);
-  float my_sim = CUDART_INF_F;  // lane s holds slot s; the center and lanes >= gs stay +inf
-  for (int s = 0; s < gs; ++s) {
-    load_f32<D>(x, src(q, s), lane);
-    float dot = 0.f, sq = 0.f;
+  // similarity of every slot to the center, in f32; lane s holds slot s's,
+  // the center and lanes >= gs stay +inf
+  auto similarity = [&](const __nv_bfloat16* x) {
+    float c[EPL], y[EPL];
+    load_f32<D>(c, src(x, cs), lane);
+    float my_sim = CUDART_INF_F;
+    for (int s = 0; s < gs; ++s) {
+      load_f32<D>(y, src(x, s), lane);
+      float dot = 0.f, sq = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      dot += x[e] * c[e];
-      sq += x[e] * x[e];
+      for (int e = 0; e < EPL; ++e) {
+        dot += y[e] * c[e];
+        sq += y[e] * y[e];
+      }
+      dot = warp_sum(dot);
+      sq = warp_sum(sq);
+      if (lane == s && s != cs) my_sim = dot * rsqrtf(fmaxf(sq, 1e-24f));
     }
-    dot = warp_sum(dot);
-    sq = warp_sum(sq);
-    if (lane == s && s != cs) my_sim = dot * rsqrtf(fmaxf(sq, 1e-24f));
-  }
+    return my_sim;
+  };
+  // the next arg-min pass: the least similar slot left, ties to the lower
+  auto next_pick = [&](float& my_sim) {
+    const float m = warp_min(my_sim);
+    const int pick = warp_min(my_sim <= m ? lane : 32);
+    if (lane == pick) my_sim = CUDART_INF_F;
+    return pick;
+  };
+  float sim_q = similarity(q);
+  float sim_k = kv_from_k ? similarity(k) : 0.f;
 
   copy_row<D>(pq + dst_row(-1), src(q, cs), lane);
   copy_row<D>(pk + dst_row(-1), src(k, cs), lane);
   copy_row<D>(pv + dst_row(-1), src(v, cs), lane);
   for (int i = 0; i < U; ++i) {
-    const float m = warp_min(my_sim);
-    const int pick = warp_min(my_sim <= m ? lane : 32);  // ties to the lower slot
-    if (lane == pick) my_sim = CUDART_INF_F;
+    const int pick = next_pick(sim_q);
+    const int kv_pick = kv_from_k ? next_pick(sim_k) : pick;
     if (lane == 0) picks[(bh * G + g) * U + i] = pick;
     copy_row<D>(pq + dst_row(i), src(q, pick), lane);
-    copy_row<D>(pk + dst_row(i), src(k, pick), lane);
-    copy_row<D>(pv + dst_row(i), src(v, pick), lane);
+    copy_row<D>(pk + dst_row(i), src(k, kv_pick), lane);
+    copy_row<D>(pv + dst_row(i), src(v, kv_pick), lane);
   }
 }
 
@@ -188,11 +204,12 @@ dim3 grid_of(int B, int H, int T, int HH, int W, int wt, int wh, int ww) {
 }  // namespace
 
 // q, k, v: contiguous raster (B, H, T*HH*W, D) bf16; pq, pk, pv: (B, H,
-// G*(1+U), D) bf16; picks: (B, H, G, U) int32; active: (H,) int32.
+// G*(1+U), D) bf16; picks: (B, H, G, U) int32 (Q's); active: (H,) int32;
+// kv_from_k: 1 to pool K and V by K's own matching.
 extern "C" int vorta_coreset_pool_bf16(const void* q, const void* k, const void* v, void* pq,
                                        void* pk, void* pv, void* picks, const void* active,
-                                       int B, int H, int T, int HH, int W, int D, int wt, int wh,
-                                       int ww, int U, void* stream) {
+                                       int kv_from_k, int B, int H, int T, int HH, int W, int D,
+                                       int wt, int wh, int ww, int U, void* stream) {
   if (bad_shape(T, HH, W, D, wt, wh, ww, U)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = grid_of(B, H, T, HH, W, wt, wh, ww);
   auto st = static_cast<cudaStream_t>(stream);
@@ -206,11 +223,11 @@ extern "C" int vorta_coreset_pool_bf16(const void* q, const void* k, const void*
   auto* pi = static_cast<int*>(picks);
   auto* act = static_cast<const int*>(active);
   if (D == 128)
-    pool_kernel<128><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, H, T, HH, W,
-                                                  wt, wh, ww, U);
+    pool_kernel<128><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, kv_from_k, H,
+                                                  T, HH, W, wt, wh, ww, U);
   else
-    pool_kernel<64><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, H, T, HH, W,
-                                                 wt, wh, ww, U);
+    pool_kernel<64><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, kv_from_k, H,
+                                                 T, HH, W, wt, wh, ww, U);
   return static_cast<int>(cudaGetLastError());
 }
 

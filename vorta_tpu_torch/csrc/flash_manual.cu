@@ -10,7 +10,12 @@
 // wrapper rounds it); p = exp2(q.k) with no running max (qk-normed inputs),
 // masked entries give p = 0, a kv_valid_len tail mask on block
 // kv_valid_len // block_kv only, P rounded to bf16 before the PV product,
-// rows normalised by l (l == 0 -> 0).
+// rows normalised by l (l == 0 -> 0).  An optional kv_bias, a (1, Skv) f32
+// additive logits bias shared by every batch row and head (the joint
+// experts' text-padding mask, -1e30 on padded keys), is added to the
+// pre-scaled scores as the TPU kernel adds it (flash_manual.py:144-148):
+// p = exp2(q.k + bias), so a masked key gives exactly 0 whatever block it
+// lies in, and it combines with the kv_valid_len tail rule.
 //
 // Bound on this card: the FULL expert at Wan-1.3B 480p x 77f (31,200
 // tokens, d = 128) does 4 * 31,200^2 * 128 = 5.0e11 FLOP per routed head
@@ -33,9 +38,10 @@ template <int D, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                    const int* __restrict__ kv_index, const int* __restrict__ kv_count, int H,
-                    int Sq, int Skv, int nq, int width, int shared_idx, int shared_cnt,
-                    int block_q, int block_kv, int last_block, int valid_in_block) {
+                    const int* __restrict__ kv_index, const int* __restrict__ kv_count,
+                    const float* __restrict__ kv_bias, int H, int Sq, int Skv, int nq, int width,
+                    int shared_idx, int shared_cnt, int block_q, int block_kv, int last_block,
+                    int valid_in_block) {
   constexpr int BLOCK_M = 16 * WARPS;
   constexpr int LDS = D + 8;  // padded row: conflict-free ldmatrix
   constexpr int NT_S = BLOCK_N / 8;
@@ -43,6 +49,7 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
   __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_N * LDS];
   __shared__ __align__(16) __nv_bfloat16 Vs[BLOCK_N * LDS];
+  __shared__ float Bs[BLOCK_N];  // the sub-tile's slice of kv_bias (0 without one)
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -84,6 +91,8 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         *reinterpret_cast<uint4*>(Ks + r * LDS + c) = kv4;
         *reinterpret_cast<uint4*>(Vs + r * LDS + c) = vv4;
       }
+      for (int r = tid; r < BLOCK_N; r += WARPS * 32)
+        Bs[r] = (kv_bias != nullptr && r < rows) ? kv_bias[base + r] : 0.f;
       __syncthreads();
 
       float s[NT_S][4];
@@ -93,7 +102,7 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = n * 8 + 2 * t + (e & 1);
-          const float p = (col < nvalid) ? exp2f(s[n][e]) : 0.f;
+          const float p = (col < nvalid) ? exp2f(s[n][e] + Bs[col]) : 0.f;
           s[n][e] = p;
           l_part[e >> 1] += p;
         }
@@ -116,11 +125,12 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 template <int D, int WARPS>
 cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, const int* ki, const int* kc,
-                   int H, int Sq, int Skv, int nq, int width, int shared_idx, int shared_cnt,
-                   int block_q, int block_kv, int last_block, int valid_in_block) {
+                   const float* bias, int H, int Sq, int Skv, int nq, int width, int shared_idx,
+                   int shared_cnt, int block_q, int block_kv, int last_block,
+                   int valid_in_block) {
   flash_manual_kernel<D, WARPS><<<grid, WARPS * 32, 0, st>>>(
-      q, k, v, out, ki, kc, H, Sq, Skv, nq, width, shared_idx, shared_cnt, block_q, block_kv,
-      last_block, valid_in_block);
+      q, k, v, out, ki, kc, bias, H, Sq, Skv, nq, width, shared_idx, shared_cnt, block_q,
+      block_kv, last_block, valid_in_block);
   return cudaGetLastError();
 }
 
@@ -128,13 +138,14 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __n
 
 // q (pre-scaled), k, v, out: contiguous (B, H, S, D) bf16.  kv_index
 // (idx_heads, nq, width), kv_count (cnt_heads, nq): int32 on the device,
-// idx_heads / cnt_heads 1 or H.  Returns the CUDA error code.
+// idx_heads / cnt_heads 1 or H; kv_bias: (Skv,) f32 on the device, or null.
+// Returns the CUDA error code.
 extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const void* v,
                                            void* out, const void* kv_index,
-                                           const void* kv_count, int B, int H, int Sq, int Skv,
-                                           int D, int idx_heads, int cnt_heads, int nq,
-                                           int width, int block_q, int block_kv,
-                                           int kv_valid_len, void* stream) {
+                                           const void* kv_count, const void* kv_bias, int B,
+                                           int H, int Sq, int Skv, int D, int idx_heads,
+                                           int cnt_heads, int nq, int width, int block_q,
+                                           int block_kv, int kv_valid_len, void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 16 || (D != 64 && D != 128) ||
       (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
       nq != Sq / block_q)
@@ -150,18 +161,17 @@ extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const v
   auto* oo = static_cast<__nv_bfloat16*>(out);
   auto* ki = static_cast<const int*>(kv_index);
   auto* kc = static_cast<const int*>(kv_count);
+  auto* kb = static_cast<const float*>(kv_bias);
   auto st = static_cast<cudaStream_t>(stream);
   const int si = idx_heads == 1, sc = cnt_heads == 1;
+  auto run = [&](auto launcher) {
+    return launcher(grid, st, qq, kk, vv, oo, ki, kc, kb, H, Sq, Skv, nq, width, si, sc,
+                    block_q, block_kv, last_block, valid_in_block);
+  };
   cudaError_t err;
   if (D == 128)
-    err = warps == 4 ? launch<128, 4>(grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, si,
-                                      sc, block_q, block_kv, last_block, valid_in_block)
-                     : launch<128, 1>(grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, si,
-                                      sc, block_q, block_kv, last_block, valid_in_block);
+    err = warps == 4 ? run(launch<128, 4>) : run(launch<128, 1>);
   else
-    err = warps == 4 ? launch<64, 4>(grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, si,
-                                     sc, block_q, block_kv, last_block, valid_in_block)
-                     : launch<64, 1>(grid, st, qq, kk, vv, oo, ki, kc, H, Sq, Skv, nq, width, si,
-                                     sc, block_q, block_kv, last_block, valid_in_block);
+    err = warps == 4 ? run(launch<64, 4>) : run(launch<64, 1>);
   return static_cast<int>(err);
 }

@@ -9,9 +9,13 @@
 // scale * log2(e) (rounded to bf16 by the wrapper, as the JAX wrapper
 // rounds it); p = exp2(q.k) with no running max (qk-normed inputs), P
 // rounded to bf16 before the PV product, rows normalised by l.  Heads whose
-// active entry is 0 write zeros.  The TPU kernel's per-w-tile, grouped-width
-// and masked-width variants are VMEM layouts of this one function, so this
-// kernel serves every tile width.
+// active entry is 0 write zeros.  With a joint text tail (HunyuanVideo's
+// text_k / text_v, (B, H, Lt, D), and text_bias, (Lt,) f32), every query
+// of an active head also attends to the Lt text keys, the bias added to
+// their scores (p = exp2(q.k + bias), -1e30 on padded text), after its
+// window's keys, as the TPU kernel's last step does (sta_pipe.py:308-318).
+// The TPU kernel's per-w-tile, grouped-width and masked-width variants are
+// VMEM layouts of this one function, so this kernel serves every tile width.
 //
 // Bound on this card: at Wan-1.3B 480p x 77f (31,200 tokens, tile (4, 6, 4),
 // window (3, 3, 3): 2,592 keys per query) the work is 4 * 31,200 * 2,592 *
@@ -24,6 +28,8 @@
 // relayout pass); products on mma.sync m16n8k16 with the tile code of
 // csrc/flash.cu.  The q tiles of one window re-read its keys from L2.
 // Simple first: no wgmma, TMA or cp.async pipelining yet.
+#include <type_traits>
+
 #include "mma_bf16.cuh"
 
 namespace {
@@ -42,8 +48,10 @@ template <int D, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
 sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-           const int* __restrict__ active, int H, int T, int HH, int W, int tt, int th, int tw,
-           int win_t, int win_h, int win_w, int chunks) {
+           const int* __restrict__ active, const __nv_bfloat16* __restrict__ text_k,
+           const __nv_bfloat16* __restrict__ text_v, const float* __restrict__ text_bias, int Lt,
+           int H, int T, int HH, int W, int tt, int th, int tw, int win_t, int win_h, int win_w,
+           int chunks) {
   constexpr int BLOCK_M = 16 * WARPS;
   constexpr int LDS = D + 8;
   constexpr int NT_S = BLOCK_N / 8;
@@ -51,6 +59,7 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   constexpr int CHUNKS = D / 8;
   __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_N * LDS];
   __shared__ __align__(16) __nv_bfloat16 Vs[BLOCK_N * LDS];
+  __shared__ float Bs[BLOCK_N];  // text_bias of a text sub-tile
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -92,22 +101,25 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   for (int n = 0; n < NT_O; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   float l_part[2] = {0.f, 0.f};
 
-  for (int n0 = 0; n0 < nk; n0 += BLOCK_N) {
-    const int nvalid = min(BLOCK_N, nk - n0);
+  // one 64-key sub-tile: stage K / V rows (key r at kv_row(r), r < nvalid)
+  // and, for text keys, their bias; accumulate exp2(s + bias) into l and O
+  auto step = [&](int nvalid, auto kv_row, auto text_key) {
+    constexpr bool TEXT = decltype(text_key)::value;
     __syncthreads();  // previous sub-tile fully consumed
     for (int e = tid; e < BLOCK_N * CHUNKS; e += WARPS * 32) {
       const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
       if (r < nvalid) {
-        const int n = n0 + r;
-        const size_t tok = base + static_cast<size_t>(
-            ((t0 + n / (bh_ * bw)) * HH + h0 + (n / bw) % bh_) * W + w0 + n % bw);
-        kv4 = *reinterpret_cast<const uint4*>(k + tok * D + c);
-        vv4 = *reinterpret_cast<const uint4*>(v + tok * D + c);
+        const size_t row = kv_row(r);
+        kv4 = *reinterpret_cast<const uint4*>((TEXT ? text_k : k) + row * D + c);
+        vv4 = *reinterpret_cast<const uint4*>((TEXT ? text_v : v) + row * D + c);
       }
       *reinterpret_cast<uint4*>(Ks + r * LDS + c) = kv4;
       *reinterpret_cast<uint4*>(Vs + r * LDS + c) = vv4;
     }
+    if constexpr (TEXT)
+      for (int r = tid; r < BLOCK_N; r += WARPS * 32)
+        Bs[r] = r < nvalid ? text_bias[kv_row(r) % Lt] : 0.f;
     __syncthreads();
 
     float s[NT_S][4];
@@ -117,13 +129,24 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n * 8 + 2 * t + (e & 1);
-        const float p = (col < nvalid) ? exp2f(s[n][e]) : 0.f;
+        const float p = (col < nvalid) ? exp2f(TEXT ? s[n][e] + Bs[col] : s[n][e]) : 0.f;
         s[n][e] = p;
         l_part[e >> 1] += p;
       }
     }
     pv_tile<D, NT_S, LDS>(oacc, s, Vs, lane);
-  }
+  };
+
+  for (int n0 = 0; n0 < nk; n0 += BLOCK_N)
+    step(min(BLOCK_N, nk - n0), [&](int r) {
+      const int n = n0 + r;
+      return base + static_cast<size_t>(
+          ((t0 + n / (bh_ * bw)) * HH + h0 + (n / bw) % bh_) * W + w0 + n % bw);
+    }, std::false_type{});
+  const size_t text0 = (static_cast<size_t>(b) * H + h) * Lt;
+  for (int n0 = 0; n0 < Lt; n0 += BLOCK_N)
+    step(min(BLOCK_N, Lt - n0), [&](int r) { return text0 + n0 + r; },
+         std::true_type{});
 
   const float l0 = row_sum(l_part[0]), l1 = row_sum(l_part[1]);
 #pragma unroll
@@ -140,46 +163,53 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
 
 template <int D, int WARPS>
 cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
-                   const __nv_bfloat16* v, __nv_bfloat16* out, const int* active, int T, int HH,
-                   int W, int tt, int th, int tw, int win_t, int win_h, int win_w,
-                   cudaStream_t st) {
+                   const __nv_bfloat16* v, __nv_bfloat16* out, const int* active,
+                   const __nv_bfloat16* text_k, const __nv_bfloat16* text_v,
+                   const float* text_bias, int Lt, int T, int HH, int W, int tt, int th, int tw,
+                   int win_t, int win_h, int win_w, cudaStream_t st) {
   const int tpt = tt * th * tw, chunks = (tpt + 16 * WARPS - 1) / (16 * WARPS);
   const dim3 grid((T / tt) * (HH / th) * (W / tw) * chunks, H, B);
-  sta_kernel<D, WARPS><<<grid, WARPS * 32, 0, st>>>(q, k, v, out, active, H, T, HH, W, tt, th,
-                                                     tw, win_t, win_h, win_w, chunks);
+  sta_kernel<D, WARPS><<<grid, WARPS * 32, 0, st>>>(q, k, v, out, active, text_k, text_v,
+                                                     text_bias, Lt, H, T, HH, W, tt, th, tw,
+                                                     win_t, win_h, win_w, chunks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (pre-scaled), k, v, out: contiguous raster (B, H, T*HH*W, D) bf16;
-// active: (H,) int32 on the device.  Returns the CUDA error code.
+// active: (H,) int32 on the device; text_k / text_v: contiguous (B, H, Lt, D)
+// bf16 and text_bias (Lt,) f32, or null with Lt = 0.  Returns the CUDA error
+// code.
 extern "C" int vorta_sta_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                                  const void* active, int B, int H, int T, int HH, int W, int D,
-                                  int tt, int th, int tw, int win_t, int win_h, int win_w,
-                                  void* stream) {
+                                  const void* active, const void* text_k, const void* text_v,
+                                  const void* text_bias, int Lt, int B, int H, int T, int HH,
+                                  int W, int D, int tt, int th, int tw, int win_t, int win_h,
+                                  int win_w, void* stream) {
   if (T % tt || HH % th || W % tw || (D != 64 && D != 128) || win_t < 1 || win_h < 1 ||
-      win_w < 1)
+      win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* qq = static_cast<const __nv_bfloat16*>(q);
-  auto* kk = static_cast<const __nv_bfloat16*>(k);
-  auto* vv = static_cast<const __nv_bfloat16*>(v);
-  auto* oo = static_cast<__nv_bfloat16*>(out);
+  using bf = __nv_bfloat16;
+  auto* qq = static_cast<const bf*>(q);
+  auto* kk = static_cast<const bf*>(k);
+  auto* vv = static_cast<const bf*>(v);
+  auto* oo = static_cast<bf*>(out);
   auto* act = static_cast<const int*>(active);
+  auto* tk = static_cast<const bf*>(text_k);
+  auto* tv = static_cast<const bf*>(text_v);
+  auto* tb = static_cast<const float*>(text_bias);
   auto st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto launcher) {
+    return launcher(B, H, qq, kk, vv, oo, act, tk, tv, tb, Lt, T, HH, W, tt, th, tw, win_t,
+                    win_h, win_w, st);
+  };
   // 2 warps (32 q rows) where that tiles the q tile exactly and 4 would not
   const int tpt = tt * th * tw;
   const bool two = tpt % 64 != 0 && tpt % 32 == 0;
   cudaError_t err;
   if (D == 128)
-    err = two ? launch<128, 2>(B, H, qq, kk, vv, oo, act, T, HH, W, tt, th, tw, win_t, win_h,
-                               win_w, st)
-              : launch<128, 4>(B, H, qq, kk, vv, oo, act, T, HH, W, tt, th, tw, win_t, win_h,
-                               win_w, st);
+    err = two ? run(launch<128, 2>) : run(launch<128, 4>);
   else
-    err = two ? launch<64, 2>(B, H, qq, kk, vv, oo, act, T, HH, W, tt, th, tw, win_t, win_h,
-                              win_w, st)
-              : launch<64, 4>(B, H, qq, kk, vv, oo, act, T, HH, W, tt, th, tw, win_t, win_h,
-                              win_w, st);
+    err = two ? run(launch<64, 2>) : run(launch<64, 4>);
   return static_cast<int>(err);
 }

@@ -62,6 +62,7 @@ class TokenGeometry:
 
 
 WAN_GEOMETRY = TokenGeometry(temporal_vae=4, spatial_vae=8)
+HUNYUAN_GEOMETRY = TokenGeometry(temporal_vae=4, spatial_vae=8)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,504 @@
+"""HunyuanVideo MMDiT in PyTorch (counterpart of vorta_tpu/models/hunyuan.py),
+serving.
+
+20 dual-stream blocks (separate video and text streams, joint attention)
+then 40 single-stream blocks (the concatenated sequence, attention and MLP
+in parallel from one norm), the llama text states refined by a
+timestep-conditioned token refiner, the CLIP pooled and guidance embeddings
+added to the timestep conditioning, per-head RMS qk-norm, and (16, 56, 56)
+axis-split RoPE at theta 256 on the video tokens only.  Channels-last
+latents (B, T, H, W, C) in, the same layout out.  The blocks are
+``nn.ModuleList``s walked by a Python loop (the JAX model stacks and scans
+them).
+
+Attention runs through ops/joint_experts.py: full attention over
+[video | text] (``routing_mode="off"``), each head routed to its expert
+(``"hard"``, the serving path) or the experts' plain versions weighted by
+the router scores (``"soft"``).  Every block's router reads only the
+timestep embedding, so all 60 blocks' routing is made at the start of the
+forward and brought to the host once.  The text padding mask rides the
+kernels as an additive kv bias.
+
+Concatenated projections: the dual block's video q / k / v (``attn.qkv``)
+and text q / k / v (``attn.add_qkv``) are one product each; the single
+block's q / k / v and MLP input one product (``qkv_mlp``).  The qk prologue
+(per-head RMSNorm + half-RoPE + head split) runs as one kernel with
+``norm_scope="head"``; in the single block over the whole joint stream,
+with the identity rotation on the text rows.
+
+Not in this slice (they raise): the training losses (``return_losses``),
+per-block recompute, sequence parallelism, the int8 paths, the step cache
+and the token-replace image-to-video variant.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import AttentionConfig
+from ..device import resolve_device
+from ..ops.attention_ref import attention_dense
+from ..ops.joint_experts import MODES, JointConfig, routed_joint_attention
+from ..ops.prologue import fused_qk_prologue, use_fused_prologue
+from ..ops.qmm import FusedLinear
+from ..ops.rope import apply_rope_half
+from ..ops.routed_fused import route_expert_ids
+from .common import (
+    FP32LayerNorm,
+    GELUFeedForward,
+    TimestepEmbedding,
+    init_flax_defaults,
+    sinusoidal_timestep_embedding,
+)
+from .router import Router
+
+Shape3 = Tuple[int, int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class HunyuanModelConfig:
+    dim: int = 3072
+    num_heads: int = 24
+    head_dim: int = 128
+    dual_layers: int = 20
+    single_layers: int = 40
+    mlp_ratio: float = 4.0
+    in_channels: int = 16
+    out_channels: int = 16
+    patch_size: Shape3 = (1, 2, 2)
+    text_dim: int = 4096
+    text_len: int = 256
+    pooled_dim: int = 768
+    rope_axes: Shape3 = (16, 56, 56)
+    rope_theta: float = 256.0
+    guidance_embeds: bool = True
+    refiner_layers: int = 2
+    freq_dim: int = 256
+    eps: float = 1e-6
+    image_condition_type: Optional[str] = None  # None | "token_replace" (not ported)
+
+    def __post_init__(self):
+        if self.dim != self.num_heads * self.head_dim:
+            raise ValueError("dim != num_heads * head_dim")
+        if sum(self.rope_axes) != self.head_dim:
+            raise ValueError("rope axes must sum to head_dim")
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.dim * self.mlp_ratio)
+
+
+HUNYUAN_13B = HunyuanModelConfig()
+HUNYUAN_TINY = HunyuanModelConfig(
+    dim=128, num_heads=2, head_dim=64, dual_layers=2, single_layers=2,
+    text_dim=48, text_len=24, pooled_dim=32, rope_axes=(16, 24, 24),
+    freq_dim=32, refiner_layers=1,
+)
+
+
+@dataclasses.dataclass
+class HunyuanOutput:
+    sample: torch.Tensor  # (B, T, H, W, C) latent-space prediction
+    # (dual + single layers, B, H, E) router scores with return_scores
+    # (zeros when routing is off, as in the JAX model)
+    routing_scores: Optional[torch.Tensor] = None
+    # (dual + single layers, H) expert ids of a hard-routed forward, on the host
+    expert_ids: Optional[np.ndarray] = None
+
+
+def hunyuan_rope_tables(grid: Shape3, cfg: HunyuanModelConfig):
+    """Axis-split angles ((S, head_dim // 2) cos and sin, f32): ``rope_axes``
+    give the real dims of each axis, half of them complex frequencies."""
+    t, h, w = grid
+    counts = [d // 2 for d in cfg.rope_axes]
+    parts = []
+    for ax, (n, c) in enumerate(zip(grid, counts)):
+        inv = cfg.rope_theta ** (-np.arange(c, dtype=np.float64) / c)
+        ang = np.outer(np.arange(n, dtype=np.float64), inv)
+        shape = [1, 1, 1, c]
+        shape[ax] = n
+        parts.append(np.broadcast_to(ang.reshape(shape), (t, h, w, c)))
+    angles = np.concatenate(parts, axis=-1).reshape(t * h * w, sum(counts))
+    return np.cos(angles).astype(np.float32), np.sin(angles).astype(np.float32)
+
+
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, num_heads, -1).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _gated(x: torch.Tensor, y: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """x + y * gate[:, None], added in f32 and cast back to x's dtype."""
+    return (x.float() + y.float() * gate[:, None]).to(x.dtype)
+
+
+class PerHeadRMSNorm(nn.Module):
+    """RMSNorm over the head dim of (B, H, S, D), computed in f32."""
+
+    def __init__(self, head_dim: int, eps: float, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(head_dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        rms = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps)
+        return (xf * rms * self.weight).to(x.dtype)
+
+
+class AdaLNModulation(nn.Module):
+    """SiLU -> Linear(dim, n * dim), split into n f32 (B, dim) chunks."""
+
+    def __init__(self, dim: int, n: int, *, dtype, device):
+        super().__init__()
+        self.n = n
+        self.linear = nn.Linear(dim, n * dim, dtype=dtype, device=device)
+
+    def forward(self, temb: torch.Tensor):
+        return self.linear(F.silu(temb)).float().chunk(self.n, dim=-1)
+
+
+def _qk_prologue(attn, qp, kp, vp, cos, sin, routing_mode: str):
+    """Per-head qk RMSNorm + half-RoPE + head split of (B, S, dim) q / k / v:
+    the fused kernel where the gate takes it, else the same ops unfused."""
+    h = attn.num_heads
+    if use_fused_prologue(routing_mode, qp.shape[1], qp.shape[2], h):
+        return fused_qk_prologue(qp, kp, vp, attn.norm_q.weight.repeat(h),
+                                 attn.norm_k.weight.repeat(h), cos, sin, num_heads=h,
+                                 eps=attn.norm_q.eps, norm_scope="head")
+    q = apply_rope_half(attn.norm_q(_split_heads(qp, h)), cos, sin)
+    k = apply_rope_half(attn.norm_k(_split_heads(kp, h)), cos, sin)
+    return q, k, _split_heads(vp, h)
+
+
+class HunyuanJointAttention(nn.Module):
+    """Dual-stream joint attention (separate text projections)."""
+
+    def __init__(self, cfg: HunyuanModelConfig, *, dtype, device):
+        super().__init__()
+        dim = cfg.dim
+        kw = dict(dtype=dtype, device=device)
+        self.num_heads = cfg.num_heads
+        self.qkv = FusedLinear(dim, (dim, dim, dim), **kw)  # to_q | to_k | to_v
+        self.add_qkv = FusedLinear(dim, (dim, dim, dim), **kw)  # add_{q,k,v}_proj
+        self.norm_q = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
+        self.norm_k = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
+        self.norm_added_q = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
+        self.norm_added_k = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
+        self.to_out = nn.Linear(dim, dim, **kw)
+        self.to_add_out = nn.Linear(dim, dim, **kw)
+
+    def forward(self, x, ctx, rope, text_mask, jcfg, scores, routing_mode, expert_ids):
+        h = self.num_heads
+        qv, kv_, vv = _qk_prologue(self, *self.qkv(x), *rope, routing_mode)
+        qt, kt, vt = self.add_qkv(ctx)
+        qt = self.norm_added_q(_split_heads(qt, h))
+        kt = self.norm_added_k(_split_heads(kt, h))
+        video, text = routed_joint_attention(qv, kv_, vv, qt, kt, _split_heads(vt, h), scores,
+                                             text_mask, jcfg, mode=routing_mode,
+                                             expert_ids=expert_ids)
+        return self.to_out(_merge_heads(video)), self.to_add_out(_merge_heads(text))
+
+
+class HunyuanSingleAttention(nn.Module):
+    """Single-stream attention over [video | text]: its q / k / v come from
+    the block's fused projection; it holds the qk norms."""
+
+    def __init__(self, cfg: HunyuanModelConfig, *, device):
+        super().__init__()
+        self.num_heads = cfg.num_heads
+        self.norm_q = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
+        self.norm_k = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
+
+    def forward(self, qkv, video_len, rope_joint, text_mask, jcfg, scores, routing_mode,
+                expert_ids):
+        # the RoPE tables cover the joint rows, the identity on the text
+        q, k, v = _qk_prologue(self, *qkv, *rope_joint, routing_mode)
+        video, text = routed_joint_attention(
+            q[:, :, :video_len], k[:, :, :video_len], v[:, :, :video_len],
+            q[:, :, video_len:], k[:, :, video_len:], v[:, :, video_len:], scores, text_mask,
+            jcfg, mode=routing_mode, expert_ids=expert_ids)
+        return _merge_heads(torch.cat([video, text], dim=2))
+
+
+class HunyuanDualBlock(nn.Module):
+    def __init__(self, cfg: HunyuanModelConfig, *, dtype, device):
+        super().__init__()
+        dim = cfg.dim
+        kw = dict(dtype=dtype, device=device)
+        self.norm1_mod = AdaLNModulation(dim, 6, **kw)
+        self.norm1 = FP32LayerNorm(dim, cfg.eps, affine=False, device=device)
+        self.norm1_context_mod = AdaLNModulation(dim, 6, **kw)
+        self.norm1_context = FP32LayerNorm(dim, cfg.eps, affine=False, device=device)
+        self.attn = HunyuanJointAttention(cfg, **kw)
+        self.norm2 = FP32LayerNorm(dim, cfg.eps, affine=False, device=device)
+        self.norm2_context = FP32LayerNorm(dim, cfg.eps, affine=False, device=device)
+        self.ff = GELUFeedForward(dim, cfg.mlp_dim, **kw)
+        self.ff_context = GELUFeedForward(dim, cfg.mlp_dim, **kw)
+        self.router = Router(dim, cfg.num_heads, device=device)
+
+    def forward(self, x, ctx, temb, rope, rope_joint, text_mask, jcfg, scores=None,
+                routing_mode="off", expert_ids=None):
+        sh, sc, gate, sh_mlp, sc_mlp, gate_mlp = self.norm1_mod(temb)
+        csh, csc, cgate, csh_mlp, csc_mlp, cgate_mlp = self.norm1_context_mod(temb)
+        attn_x, attn_c = self.attn(self.norm1.modulated(x, sc, sh),
+                                   self.norm1_context.modulated(ctx, csc, csh), rope, text_mask,
+                                   jcfg, scores, routing_mode, expert_ids)
+        x, ctx = _gated(x, attn_x, gate), _gated(ctx, attn_c, cgate)
+        x = _gated(x, self.ff(self.norm2.modulated(x, sc_mlp, sh_mlp)), gate_mlp)
+        ctx = _gated(ctx, self.ff_context(self.norm2_context.modulated(ctx, csc_mlp, csh_mlp)),
+                     cgate_mlp)
+        return x, ctx
+
+
+class HunyuanSingleBlock(nn.Module):
+    def __init__(self, cfg: HunyuanModelConfig, *, dtype, device):
+        super().__init__()
+        dim = cfg.dim
+        kw = dict(dtype=dtype, device=device)
+        self.norm_mod = AdaLNModulation(dim, 3, **kw)
+        self.norm = FP32LayerNorm(dim, cfg.eps, affine=False, device=device)
+        self.attn = HunyuanSingleAttention(cfg, device=device)
+        # attn.to_q | attn.to_k | attn.to_v | proj_mlp of the JAX block: the
+        # parallel attention and MLP read the same modulated norm
+        self.qkv_mlp = FusedLinear(dim, (dim, dim, dim, cfg.mlp_dim), **kw)
+        self.proj_out = nn.Linear(dim + cfg.mlp_dim, dim, **kw)
+        self.router = Router(dim, cfg.num_heads, device=device)
+
+    def forward(self, x, ctx, temb, rope, rope_joint, text_mask, jcfg, scores=None,
+                routing_mode="off", expert_ids=None):
+        video_len = x.shape[1]
+        joint = torch.cat([x, ctx], dim=1)
+        sh, sc, gate = self.norm_mod(temb)
+        qp, kp, vp, mlp_in = self.qkv_mlp(self.norm.modulated(joint, sc, sh))
+        mlp = F.gelu(mlp_in, approximate="tanh")
+        del mlp_in
+        attn = self.attn((qp, kp, vp), video_len, rope_joint, text_mask, jcfg, scores,
+                         routing_mode, expert_ids)
+        del qp, kp, vp
+        joint = _gated(joint, self.proj_out(torch.cat([attn, mlp], dim=2)), gate)
+        return joint[:, :video_len], joint[:, video_len:]
+
+
+class TokenRefinerBlock(nn.Module):
+    def __init__(self, cfg: HunyuanModelConfig, *, dtype, device):
+        super().__init__()
+        dim = cfg.dim
+        kw = dict(dtype=dtype, device=device)
+        self.num_heads = cfg.num_heads
+        self.norm1 = FP32LayerNorm(dim, cfg.eps, affine=True, device=device)
+        self.to_q = nn.Linear(dim, dim, **kw)
+        self.to_k = nn.Linear(dim, dim, **kw)
+        self.to_v = nn.Linear(dim, dim, **kw)
+        self.to_out = nn.Linear(dim, dim, **kw)
+        self.norm2 = FP32LayerNorm(dim, cfg.eps, affine=True, device=device)
+        self.ff = GELUFeedForward(dim, cfg.mlp_dim, **kw)
+        self.gates = AdaLNModulation(dim, 2, **kw)
+
+    def forward(self, x, c, mask):
+        gate_attn, gate_mlp = self.gates(c)
+        norm_x = self.norm1(x)
+        h = self.num_heads
+        # plain masked attention over the (256) text tokens, as the JAX
+        # package runs it outside its kernels
+        attn = attention_dense(_split_heads(self.to_q(norm_x), h),
+                               _split_heads(self.to_k(norm_x), h),
+                               _split_heads(self.to_v(norm_x), h), mask=mask[:, None, None, :])
+        x = _gated(x, self.to_out(_merge_heads(attn)), gate_attn)
+        return _gated(x, self.ff(self.norm2(x)), gate_mlp)
+
+
+class TokenRefiner(nn.Module):
+    """Timestep-conditioned refinement of the llama text states
+    (diffusers HunyuanVideoTokenRefiner)."""
+
+    def __init__(self, cfg: HunyuanModelConfig, *, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.freq_dim = cfg.freq_dim
+        self.proj_in = nn.Linear(cfg.text_dim, cfg.dim, **kw)
+        self.time_embedder = TimestepEmbedding(cfg.freq_dim, cfg.dim, **kw)
+        self.text_pool_embedder = nn.Linear(cfg.text_dim, cfg.dim, **kw)
+        self.text_pool_out = nn.Linear(cfg.dim, cfg.dim, **kw)
+        self.blocks = nn.ModuleList(TokenRefinerBlock(cfg, **kw)
+                                    for _ in range(cfg.refiner_layers))
+
+    def forward(self, text_states, timestep, mask):
+        dtype = self.proj_in.weight.dtype
+        t_emb = self.time_embedder(
+            sinusoidal_timestep_embedding(timestep, self.freq_dim).to(dtype))
+        m = mask.float()[:, :, None]
+        pooled = (text_states.float() * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
+        c = t_emb + self.text_pool_out(F.silu(self.text_pool_embedder(pooled.to(dtype))))
+        x = self.proj_in(text_states)
+        for block in self.blocks:
+            x = block(x, c, mask)
+        return x
+
+
+class HunyuanCombinedEmbed(nn.Module):
+    """Timestep + guidance + pooled-CLIP conditioning; also returns the bare
+    timestep embedding, which the routers read."""
+
+    def __init__(self, cfg: HunyuanModelConfig, *, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.freq_dim = cfg.freq_dim
+        self.timestep_embedder = TimestepEmbedding(cfg.freq_dim, cfg.dim, **kw)
+        self.guidance_embedder = (TimestepEmbedding(cfg.freq_dim, cfg.dim, **kw)
+                                  if cfg.guidance_embeds else None)
+        self.text_embedder_1 = nn.Linear(cfg.pooled_dim, cfg.dim, **kw)
+        self.text_embedder_2 = nn.Linear(cfg.dim, cfg.dim, **kw)
+
+    def forward(self, timestep, pooled_text, guidance=None):
+        dtype = self.text_embedder_1.weight.dtype
+
+        def sinusoid(t):
+            return sinusoidal_timestep_embedding(t, self.freq_dim).to(dtype)
+
+        t_emb = self.timestep_embedder(sinusoid(timestep))
+        temb = t_emb + self.text_embedder_2(F.silu(self.text_embedder_1(pooled_text)))
+        if self.guidance_embedder is not None and guidance is not None:
+            temb = temb + self.guidance_embedder(sinusoid(guidance))
+        return temb, t_emb
+
+
+class HunyuanModel(nn.Module):
+    """HunyuanVideoTransformer3DModel, channels-last.
+
+    ``device`` defaults to CUDA and raises without it.  Weights are random,
+    drawn on ``device`` from ``seed`` with Flax's default initialisers (the
+    13B is built in bf16 on the card: in f32 on the host it would take about
+    50 GB); ``io/from_jax.py`` carries a JAX model's across.
+    """
+
+    def __init__(self, cfg: HunyuanModelConfig, *, dtype=torch.float32, device=None,
+                 seed: int = 0):
+        super().__init__()
+        if cfg.image_condition_type is not None:
+            raise NotImplementedError(
+                f"image_condition_type={cfg.image_condition_type!r} (token-replace image to "
+                "video) belongs to a later slice")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.x_embedder = nn.Conv3d(cfg.in_channels, cfg.dim, kernel_size=cfg.patch_size,
+                                    stride=cfg.patch_size, **kw)
+        self.context_embedder = TokenRefiner(cfg, **kw)
+        self.time_text_embed = HunyuanCombinedEmbed(cfg, **kw)
+        self.dual_blocks = nn.ModuleList(HunyuanDualBlock(cfg, **kw)
+                                         for _ in range(cfg.dual_layers))
+        self.single_blocks = nn.ModuleList(HunyuanSingleBlock(cfg, **kw)
+                                           for _ in range(cfg.single_layers))
+        self.norm_out = FP32LayerNorm(cfg.dim, cfg.eps, affine=False, device=device)
+        self.norm_out_mod = AdaLNModulation(cfg.dim, 2, **kw)
+        self.proj_out = nn.Linear(cfg.dim, cfg.out_channels * int(np.prod(cfg.patch_size)),
+                                  **kw)
+        self._rope_cache: dict = {}
+        if device.type != "meta":
+            with torch.no_grad():
+                init_flax_defaults(self, torch.Generator(device=device).manual_seed(seed))
+
+    @property
+    def device(self) -> torch.device:
+        return self.proj_out.weight.device
+
+    @property
+    def blocks(self) -> list:
+        """The dual blocks then the single blocks, in the order they run."""
+        return list(self.dual_blocks) + list(self.single_blocks)
+
+    def _rope(self, grid: Shape3):
+        """(cos, sin) of the video rows, and of the joint rows with the
+        identity rotation on the text rows, on the model's device."""
+        if grid not in self._rope_cache:
+            cos, sin = hunyuan_rope_tables(grid, self.cfg)
+            lt = self.cfg.text_len
+            cos_j = np.concatenate([cos, np.ones((lt, cos.shape[1]), np.float32)])
+            sin_j = np.concatenate([sin, np.zeros((lt, sin.shape[1]), np.float32)])
+            self._rope_cache[grid] = tuple(
+                (torch.from_numpy(c).to(self.device), torch.from_numpy(s).to(self.device))
+                for c, s in ((cos, sin), (cos_j, sin_j)))
+        return self._rope_cache[grid]
+
+    def forward(self, latents: torch.Tensor, timestep: torch.Tensor, text_states: torch.Tensor,
+                text_mask: torch.Tensor, pooled_text: torch.Tensor,
+                guidance: Optional[torch.Tensor] = None,
+                attn_cfg: Optional[AttentionConfig] = None, routing_mode: str = "off",
+                return_scores: bool = False, return_losses: bool = False,
+                remat_blocks: bool = False, mm_precision: str = "bf16",
+                sp_axis=None, step_cache=None) -> HunyuanOutput:
+        """latents (B, T, H, W, C_in), timestep (B,), text_states (B, L,
+        text_dim), text_mask (B, L) bool, pooled_text (B, pooled_dim),
+        guidance (B,) = guidance scale x 1000."""
+        unported = (
+            (return_losses, "return_losses (Hunyuan router training) belongs to a later slice"),
+            (remat_blocks, "remat_blocks (Hunyuan router training) belongs to a later slice"),
+            (mm_precision != "bf16", f"mm_precision={mm_precision!r}: the int8 paths belong "
+                                     "to the quantized serving slice"),
+            (sp_axis is not None, "sequence parallelism belongs to a later slice"),
+            (step_cache is not None, "the step cache belongs to a later slice"),
+        )
+        for bad, why in unported:
+            if bad:
+                raise NotImplementedError(why)
+        if routing_mode not in MODES:
+            raise ValueError(f"unknown routing mode {routing_mode!r}")
+        cfg = self.cfg
+        b, t_px, h_px, w_px, _ = latents.shape
+        pt, ph, pw = cfg.patch_size
+        grid = (t_px // pt, h_px // ph, w_px // pw)
+        if attn_cfg is None:
+            attn_cfg = AttentionConfig(latent_shape=grid, sta_tile=grid)
+        elif attn_cfg.latent_shape != grid:
+            raise ValueError(
+                f"attention config latent_shape {attn_cfg.latent_shape} != token grid {grid}")
+        if text_states.shape[1] != cfg.text_len:
+            raise ValueError(f"text_states {tuple(text_states.shape)}: text_len {cfg.text_len}")
+        jcfg = JointConfig(video=attn_cfg, text_len=cfg.text_len)
+        text_mask = text_mask.bool()
+
+        # NDHWC VALID conv with stride = patch, as a Conv3d on NCDHW
+        x = self.x_embedder(latents.to(self.dtype).permute(0, 4, 1, 2, 3))
+        x = x.flatten(2).transpose(1, 2).contiguous()  # (B, S, dim), raster order
+        temb, clean_temb = self.time_text_embed(
+            timestep, pooled_text.to(self.dtype),
+            None if guidance is None else guidance.to(timestep.device))
+        ctx = self.context_embedder(text_states.to(self.dtype), timestep, text_mask)
+        rope, rope_joint = self._rope(grid)
+
+        blocks = self.blocks
+        scores = None  # (layers, B, H, E): every router reads only the timestep embedding
+        if routing_mode != "off":
+            scores = torch.stack([block.router(clean_temb) for block in blocks])
+        ids, ids_host = [None] * len(blocks), None
+        if routing_mode == "hard":
+            ids_dev = torch.stack([route_expert_ids(sc, attn_cfg.tau_sparse) for sc in scores])
+            ids_host = ids_dev.cpu().numpy()  # the forward's one sync
+            ids = list(zip(ids_dev, ids_host))
+        for i, block in enumerate(blocks):
+            x, ctx = block(x, ctx, temb, rope, rope_joint, text_mask, jcfg,
+                           scores[i] if scores is not None else None, routing_mode, ids[i])
+
+        sc, sh = self.norm_out_mod(temb)  # AdaLayerNormContinuous: scale first
+        out = self.proj_out(self.norm_out.modulated(x, sc, sh))
+        if return_scores and scores is None:
+            scores = torch.zeros((len(blocks), b, cfg.num_heads, attn_cfg.num_experts),
+                                 device=x.device)
+        t, h, w = grid
+        sample = out.reshape(b, t, h, w, pt, ph, pw, cfg.out_channels).permute(
+            0, 1, 4, 2, 5, 3, 6, 7).reshape(b, t * pt, h * ph, w * pw, cfg.out_channels)
+        return HunyuanOutput(sample=sample, routing_scores=scores if return_scores else None,
+                             expert_ids=ids_host)

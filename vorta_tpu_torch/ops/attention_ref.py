@@ -40,12 +40,14 @@ def attention_chunked(
     block_q: int = 256,
     block_kv: int = 256,
     kv_valid_len: Optional[int] = None,
+    kv_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Online-softmax attention over kv chunks, O(S * block) memory.
 
     q: (B, H, Sq, D), k/v: (B, H, Skv, D); Sq % block_q == Skv % block_kv == 0.
     block_mask: optional (H, Sq // block_q, Skv // block_kv) bool.
     kv_valid_len: mask kv positions >= this logical length.
+    kv_bias: optional (B or 1, Skv) additive logits bias (-1e30 masks a key).
     Fully masked q rows produce zeros.
     """
     b, h, sq, d = q.shape
@@ -59,6 +61,8 @@ def attention_chunked(
         kv_valid_len = skv
     qf = (q.float() * scale).reshape(b, h, nq, block_q, d)
     col_valid = (torch.arange(skv, device=q.device) < kv_valid_len).reshape(nkv, block_kv)
+    bias = (torch.zeros((1, skv), device=q.device) if kv_bias is None
+            else kv_bias.float().reshape(-1, skv))
     m = torch.full((b, h, nq, block_q), NEG_INF, device=q.device)
     l = torch.zeros((b, h, nq, block_q), device=q.device)
     acc = torch.zeros((b, h, nq, block_q, d), device=q.device)
@@ -68,6 +72,7 @@ def attention_chunked(
         mj = (torch.ones((h, nq), dtype=torch.bool, device=q.device)
               if block_mask is None else block_mask[:, :, j])
         s = torch.einsum("bhnqd,bhkd->bhnqk", qf, kj)
+        s = s + bias[:, None, None, None, j * block_kv:(j + 1) * block_kv]
         s = torch.where(mj[None, :, :, None, None], s, NEG_INF)
         s = torch.where(col_valid[j][None, None, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))

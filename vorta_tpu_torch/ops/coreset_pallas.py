@@ -2,7 +2,9 @@
 vorta_tpu/ops/coreset_pallas.py): ``pool_qkv`` and ``unpool``.
 
 ``pool_qkv`` reads q/k/v (B, H, S, D) in raster order, computes Q's
-kept-margin matching per group in f32 (shared by K and V), and writes the
+kept-margin matching per group in f32 (shared by K and V, or with
+``kv_matching_from_k`` K's own matching, the same rule on K, pools K and
+V: HunyuanVideo's joint experts), and writes the
 pooled sequences [G centers | G*U kept margins, group-major, least similar
 first] and, with ``return_picks``, the picked slot ids as (B, H, T2, H3,
 W2, U) int32, the TPU kernel's layout.  ``unpool`` scatters a pooled
@@ -132,7 +134,8 @@ def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGr
              kv_matching_from_k: bool = False, active=None, head_map=None, num_active=None,
              return_picks: bool = False):
     """Pool (B, H, S, D) q/k/v to (B, H, P, D); with ``return_picks`` also the
-    picks (B, H, T2, H3, W2, U) int32 for ``unpool``."""
+    picks (B, H, T2, H3, W2, U) int32 for ``unpool`` (Q's, whichever
+    matching pools K and V)."""
     if head_map is not None or num_active is not None:
         raise NotImplementedError("the head-map mode is not ported (slower on the TPU)")
     if k.shape != q.shape or v.shape != q.shape:
@@ -145,8 +148,6 @@ def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGr
         return out if return_picks else out[:3]
 
     _build.forward_only("pool_qkv", q, k, v)
-    if kv_matching_from_k:
-        raise NotImplementedError("K's own matching (Hunyuan) belongs to the Hunyuan slice")
     dev, active, ints = _cuda_args(q, groups, active)
     if k.dtype != q.dtype or v.dtype != q.dtype or _build.require_cuda(q, k, v) != dev:
         raise ValueError("q, k and v must share one dtype and device")
@@ -155,9 +156,10 @@ def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGr
     pooled = [torch.empty((b, h, groups.pooled_length, d), dtype=q.dtype, device=dev)
               for _ in range(3)]
     picks = torch.empty(_picks_shape(groups, b, h), dtype=torch.int32, device=dev)
-    err = _fn("vorta_coreset_pool_bf16", len(ints), 8)(
+    err = _fn("vorta_coreset_pool_bf16", 1 + len(ints), 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *(p.data_ptr() for p in pooled),
-        picks.data_ptr(), active.data_ptr(), *ints, _build.stream_ptr(dev))
+        picks.data_ptr(), active.data_ptr(), int(kv_matching_from_k), *ints,
+        _build.stream_ptr(dev))
     _build.check(err, "pool_qkv")
     _build.launches["pool_qkv"] += 1
     return tuple(pooled) + ((picks,) if return_picks else ())

@@ -12,7 +12,11 @@ wrapper does, so the rounding matches), ``p = exp2(q.k)`` with no running
 max (safe for qk-normed DiT tensors, see ops/sta_pipe.py), P is cast to
 v's dtype before the PV product, and rows with ``l == 0`` give 0.
 ``kv_valid_len`` masks the tail as the TPU kernel does: only block
-``kv_valid_len // block_kv`` is cut.
+``kv_valid_len // block_kv`` is cut.  ``kv_bias``, a (1, Skv) f32 additive
+logits bias shared by every batch row and head (the joint experts'
+text-padding mask: -1e30 on padded keys), is added to the pre-scaled
+scores in the log2 domain, with no ``log2(e)`` factor, as the TPU kernel
+adds it: ``p = exp2(q.k + bias)``.
 
 On CUDA tensors ``sparse_flash_attention_manual`` launches
 ``csrc/flash_manual.cu``; on CPU tensors it runs the plain version,
@@ -49,6 +53,13 @@ def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
     return q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
 
 
+def _bias_row(kv_bias: torch.Tensor, skv: int) -> torch.Tensor:
+    """(1, Skv) or (Skv,) bias -> (Skv,) f32."""
+    if kv_bias.numel() != skv or (kv_bias.ndim == 2 and kv_bias.shape[0] != 1):
+        raise ValueError(f"kv_bias {tuple(kv_bias.shape)} for {skv} keys")
+    return kv_bias.reshape(skv).float()
+
+
 def sparse_flash_attention_manual_ref(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -60,6 +71,7 @@ def sparse_flash_attention_manual_ref(
     block_kv: int,
     scale: Optional[float] = None,
     kv_valid_len: Optional[int] = None,
+    kv_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, one q block at a time."""
     b, h, sq, d = q.shape
@@ -75,13 +87,14 @@ def sparse_flash_attention_manual_ref(
     onehot = torch.nn.functional.one_hot(kv_index, nkv).bool() & active[..., None]
     block_mask = onehot.any(dim=2)  # (max(Hi, Hc), nq, nkv)
     col_ok = _kv_column_limit(skv, block_kv, kv_valid_len, q.device)
+    bias = 0.0 if kv_bias is None else _bias_row(kv_bias, skv).to(q.device)
     qs = _prescale(q, scale)
     kf, vf = k.float(), v.float()
     out = torch.empty_like(q)
     for i in range(sq // block_q):
         rows = slice(i * block_q, (i + 1) * block_q)
         vis = block_mask[:, i].repeat_interleave(block_kv, dim=-1) & col_ok  # (Hm, Skv)
-        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, rows].float(), kf)
+        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, rows].float(), kf) + bias
         p = torch.where(vis[None, :, None, :], torch.exp2(s), 0.0)
         l = p.sum(dim=-1, keepdim=True)
         if v.dtype != torch.float32:
@@ -95,7 +108,7 @@ def _flash_manual_fn():
     fn = _build.load("flash_manual").vorta_flash_manual_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p] + [i] * 12 + [p]
+        fn.argtypes = [p, p, p, p, p, p, p] + [i] * 12 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -120,15 +133,15 @@ def sparse_flash_attention_manual(
     qk_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, H, Skv, D).  kv_index: (1 or H, Sq//block_q,
-    W) and kv_count: (1 or H, Sq//block_q) int32 tensors (or numpy).  On
-    CUDA: bf16 q/k/v, D 64 or 128, block_q a multiple of 16.  Only the fast
+    W) and kv_count: (1 or H, Sq//block_q) int32 tensors (or numpy);
+    kv_bias: (1, Skv) f32 or None.  On CUDA: bf16 q/k/v, D 64 or 128,
+    block_q a multiple of 16.  Only the fast
     softmax is served (the JAX wrapper defaults to the stable one; every
     routed caller passes "fast")."""
     unported = (
         (kv_valid is not None, "per-head kv_valid belongs to the Hunyuan joint-attention slice"),
         (pair_bits is not None or tokens_per_tile is not None,
          "pair_bits belong to the sta_batched fallback and the joint experts (Hunyuan slice)"),
-        (kv_bias is not None, "kv_bias belongs to the Hunyuan joint-attention slice"),
         (qk_scale is not None, "int8 QK (qk_scale) belongs to the quantized serving slice"),
         (softmax != "fast", f"softmax={softmax!r}: the stable softmax of this kernel belongs "
                             "to a later slice (ops/flash.py serves it)"),
@@ -144,7 +157,7 @@ def sparse_flash_attention_manual(
     if q.device.type == "cpu":
         return sparse_flash_attention_manual_ref(
             q, k, v, kv_index, kv_count, block_q=block_q, block_kv=block_kv, scale=scale,
-            kv_valid_len=kv_valid_len)
+            kv_valid_len=kv_valid_len, kv_bias=kv_bias)
 
     _build.forward_only("sparse_flash_attention_manual", q, k, v)
     dev = _build.require_cuda(q, k, v)
@@ -156,12 +169,14 @@ def sparse_flash_attention_manual(
                                   f"block_q % 16 == 0, got D={d}, block_q={block_q}")
     kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
+    bias = None if kv_bias is None else _bias_row(kv_bias, skv).contiguous()
+    _build.require_cuda(q, bias)
     qs = _prescale(q, scale).contiguous()
     k, v = k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     err = _flash_manual_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kv_index.data_ptr(), kv_count.data_ptr(), b, h, sq, skv, d,
+        kv_index.data_ptr(), kv_count.data_ptr(), _build.ptr(bias), b, h, sq, skv, d,
         kv_index.shape[0], kv_count.shape[0], kv_index.shape[1], kv_index.shape[2],
         block_q, block_kv, kv_valid_len, _build.stream_ptr(dev))
     _build.check(err, "flash_manual")

@@ -83,23 +83,34 @@ def route_expert_ids(scores: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.where(s0.amax(dim=-1) < tau, FULL, s0.argmax(dim=-1))
 
 
-def _unserved_sta_kernel(cfg: AttentionConfig, d: int, itemsize: int) -> Optional[str]:
-    """None where the JAX package's masked dispatch runs sta_pipe, else the
-    name of the TPU kernel it would run instead (its own gates, copied)."""
-    shape, tile, window = cfg.latent_shape, cfg.sta_tile, cfg.sta_window
-    if supports_pipe(shape, tile, d, itemsize, window=window):
-        return None
-    t, hh, w = shape
+def prefer_window_dense(latent_shape, tile) -> bool:
+    """The JAX package's choice of its window-dense STA kernels
+    (sta_window.py:prefer_window_dense): tiles divide the grid, are 8-aligned
+    in w or in size, and hold at least 192 tokens."""
     tt, th, tw = tile
-    if t % tt or hh % th or w % tw:
-        return "sta_batched"
     tpt = tt * th * tw
-    if not ((tw % 8 == 0 or tpt % 8 == 0) and tpt >= 192):  # prefer_window_dense
+    if any(latent_shape[a] % tile[a] for a in range(3)):
+        return False
+    return (tw % 8 == 0 or tpt % 8 == 0) and tpt >= 192
+
+
+def _unserved_sta_kernel(cfg: AttentionConfig, d: int, itemsize: int,
+                         text_len: int = 0) -> Optional[str]:
+    """None where the JAX package's masked dispatch runs sta_pipe, else the
+    name of the TPU kernel it would run instead (its own gates, copied;
+    ``text_len``: the joint text tail's keys, which the VMEM budgets count)."""
+    shape, tile, window = cfg.latent_shape, cfg.sta_tile, cfg.sta_window
+    if supports_pipe(shape, tile, d, itemsize, text_len=text_len, window=window):
+        return None
+    if not prefer_window_dense(shape, tile):
         return "sta_batched"
+    w = shape[2]
+    tt, th, tw = tile
+    tpt = tt * th * tw
     nw = w // tw
     slab = tt * th * w * d * itemsize
     row_est = (4 * slab + 4 * slab + nw * tpt * (d + 2) * 4
-               + 3 * tpt * tt * th * min(window[2], nw) * tw * 4)
+               + 3 * tpt * tt * th * min(window[2], nw) * tw * 4 + 2 * text_len * d * itemsize)
     if tw % 8 == 0 and row_est < 40 * 2**20:  # supports_row_dense
         return "sta_row"
     return "sta_window"

@@ -11,7 +11,11 @@ the TPU kernel's fast form: q pre-scaled by ``scale * log2(e)`` in q's
 dtype, ``p = exp2(q.k)`` with no running max (for qk-RMSNormed models
 ``|s| <= scale*log2e*d*g^2`` stays far inside f32's exp2 range), P cast to
 v's dtype before the PV product.  Heads whose ``active`` entry is 0 write
-zeros.
+zeros.  The joint text tail (HunyuanVideo): with ``text_k`` / ``text_v``
+(B, H, Lt, D) every query of an active head also attends to the Lt text
+keys, ``text_bias`` (1, Lt) f32 added to their scores (zeros when it is
+None; -1e30 masks a padded text token), as one more online-softmax step
+after its window's keys.
 
 The TPU kernel has per-w-tile, grouped-width and masked-width variants;
 they are VMEM layouts of one function, so the port has one kernel for
@@ -120,9 +124,31 @@ def _window_keys(latent_shape: Shape3, tile: Shape3, window: Shape3) -> np.ndarr
     return base[:, None] + box[None, :]
 
 
+def _text_tail(text_k, text_v, text_bias, q: torch.Tensor):
+    """Checks the joint text tail; returns (text_k, text_v, (Lt,) f32 bias) or Nones."""
+    if text_k is None and text_v is None and text_bias is None:
+        return None, None, None
+    if text_k is None or text_v is None:
+        raise ValueError("the text tail needs both text_k and text_v")
+    b, h, _, d = q.shape
+    lt = text_k.shape[2]
+    if text_k.shape != (b, h, lt, d) or text_v.shape != text_k.shape:
+        raise ValueError(f"text_k {tuple(text_k.shape)}, text_v {tuple(text_v.shape)} for "
+                         f"q {tuple(q.shape)}")
+    if lt % 8:
+        raise ValueError(f"text_len {lt} must be a multiple of 8")
+    if text_bias is None:
+        text_bias = torch.zeros((1, lt), dtype=torch.float32, device=q.device)
+    if text_bias.numel() != lt:
+        raise ValueError(f"text_bias {tuple(text_bias.shape)} for {lt} text keys")
+    return text_k, text_v, text_bias.reshape(lt).float()
+
+
 def sta_pipe_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
-                           window: Shape3 = (3, 3, 3), scale: Optional[float] = None):
+                           window: Shape3 = (3, 3, 3), scale: Optional[float] = None,
+                           text_k=None, text_v=None, text_bias=None):
     """Plain PyTorch version of the kernel, a few q tiles at a time."""
+    text_k, text_v, text_bias = _text_tail(text_k, text_v, text_bias, q)
     b, h, s, d = q.shape
     scale = d**-0.5 if scale is None else scale
     keys = torch.from_numpy(_window_keys(latent_shape, tile, window)).to(q.device)
@@ -135,11 +161,18 @@ def sta_pipe_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Shape
         idx = keys[c0:c0 + chunk]
         kc = k[:, :, idx].float()  # (B, H, c, nk, D)
         vc = v[:, :, idx].float()
-        p = torch.exp2(torch.einsum("bhcqd,bhckd->bhcqk", tq[:, :, c0:c0 + chunk].float(), kc))
+        qc = tq[:, :, c0:c0 + chunk].float()
+        p = torch.exp2(torch.einsum("bhcqd,bhckd->bhcqk", qc, kc))
         l = p.sum(dim=-1, keepdim=True)
         if v.dtype != torch.float32:
             p = p.to(v.dtype).float()
         o = torch.einsum("bhcqk,bhckd->bhcqd", p, vc)
+        if text_k is not None:
+            pt = torch.exp2(torch.einsum("bhcqd,bhkd->bhcqk", qc, text_k.float()) + text_bias)
+            l = l + pt.sum(dim=-1, keepdim=True)
+            if v.dtype != torch.float32:
+                pt = pt.to(v.dtype).float()
+            o = o + torch.einsum("bhcqk,bhkd->bhcqd", pt, text_v.float())
         out[:, :, c0:c0 + chunk] = (o / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
     out = untile_sequence(out.reshape(b, h, s, d), latent_shape, tile)
     a = torch.as_tensor(active, device=q.device).reshape(1, h, 1, 1) > 0
@@ -150,7 +183,7 @@ def _sta_fn():
     fn = _build.load("sta_pipe").vorta_sta_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p] + [i] * 12 + [p]
+        fn.argtypes = [p] * 8 + [i] * 13 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -173,9 +206,8 @@ def sta_pipe_attention(
     variant: str = "full",
     qk_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Sliding-tile attention; on CUDA bf16 q/k/v with D 64 or 128."""
-    if text_k is not None or text_v is not None or text_bias is not None:
-        raise NotImplementedError("the joint text tail belongs to the Hunyuan slice")
+    """Sliding-tile attention, with the joint text tail where ``text_k`` and
+    ``text_v`` are given; on CUDA bf16 q/k/v (and text) with D 64 or 128."""
     if qk_scale is not None:
         raise NotImplementedError("int8 QK (qk_scale) belongs to the quantized serving slice")
     if softmax != "fast" or variant != "full" or not cast_p_to_v_dtype:
@@ -190,13 +222,15 @@ def sta_pipe_attention(
     if any(latent_shape[a] % tile[a] for a in range(3)):
         raise ValueError(f"tile {tile} does not divide the latent grid {latent_shape}")
     scale = d**-0.5 if scale is None else scale
+    text_k, text_v, text_bias = _text_tail(text_k, text_v, text_bias, q)
     if q.device.type == "cpu":
         return sta_pipe_attention_ref(q, k, v, active, latent_shape=latent_shape, tile=tile,
-                                      window=window, scale=scale)
+                                      window=window, scale=scale, text_k=text_k,
+                                      text_v=text_v, text_bias=text_bias)
 
-    _build.forward_only("sta_pipe_attention", q, k, v)
-    dev = _build.require_cuda(q, k, v)
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+    _build.forward_only("sta_pipe_attention", q, k, v, text_k, text_v)
+    dev = _build.require_cuda(q, k, v, text_k, text_v, text_bias)
+    if any(x is not None and x.dtype != torch.bfloat16 for x in (q, k, v, text_k, text_v)):
         raise NotImplementedError(f"the CUDA sta_pipe kernel takes bf16, got {q.dtype}")
     if d not in (64, 128):
         raise NotImplementedError(f"the CUDA sta_pipe kernel takes D 64/128, got {d}")
@@ -205,9 +239,11 @@ def sta_pipe_attention(
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
     qs = _prescale(q, scale).contiguous()
     k, v = k.contiguous(), v.contiguous()
+    text = [None if x is None else x.contiguous() for x in (text_k, text_v, text_bias)]
     out = torch.empty_like(q)
     err = _sta_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
+        *(_build.ptr(x) for x in text), 0 if text_k is None else text_k.shape[2],
         b, h, t, hh, w, d, *tile, *window, _build.stream_ptr(dev))
     _build.check(err, "sta_pipe")
     _build.launches["sta_pipe"] += 1
