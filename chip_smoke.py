@@ -12,9 +12,20 @@ Phases, each raising on failure:
      at 480p x 21 frames = 9,360 tokens, bf16); flash_manual, sta_pipe,
      pool_qkv and unpool at the routed path's (480p x 77 frames = 31,200
      tokens; sta_pipe also at 720p's tile), some heads routed away.
+  2q. int8 kernels (quantized serving): flash_manual's and sta_pipe's int8
+     QK modes against their plain versions on the same int8 q / k (Wan FULL
+     (1,12,31744,128) and LOWRES (1,12,16384,128), 8 heads routed; the
+     HunyuanVideo FULL joint layout (1,24,45056,128) with kv_bias; sta_pipe
+     (1,12,31200,128) tile (4,6,4), and (1,24,43200,128) + 256 int8 text
+     keys), each with its bracket (the plain version with qk_scale ignored
+     must fail), the quality gate against the bf16 mode (mean relative
+     error < 0.05), times against the bf16 mode and SDPA; W8A8
+     int8_linear at the Wan FFN's 31,200 x 1,536 -> 8,960 and back against
+     its plain version (the int8 product in f64, exact) and bf16 nn.Linear.
   3. model checks: a 2-block Wan-1.3B-width forward on the card (bf16,
      kernels) against the same weights on the CPU (f32, plain versions),
-     routing off, then routed hard with the heads sent to all three experts.
+     routing off, then routed hard with the heads sent to all three experts,
+     in bf16 and with qk_int8 + W8A8.
   4. main path, routing off: vorta_tpu_torch.cli.sample at full width and
      depth (30 blocks), --native_attention, 480p x 21 frames, 2 UniPC steps
      with CFG 5.0 = 4 DiT forwards, after one warm-up forward of a 2-block
@@ -23,7 +34,11 @@ Phases, each raising on failure:
   5. main path, routed: the same CLI at its defaults (480p x 77 frames,
      routing hard), 2 UniPC steps with CFG = 4 forwards after a warm-up
      forward; launch counts exact against the routing tables the run used,
-     all three experts used.
+     all three experts used; then the same with --qk_int8 --mm int8, the
+     int8 QK mode launched wherever flash_manual is.
+  5s. static scales: calibrate_mm on the card over one 480p x 77f routed
+     W8A8 forward, then the forward with those static scales (amax / 127),
+     its distance from the dynamic one and both times.
   6. one 720p x 77-frame forward (72,000 tokens), timed, routing off; then
      bench.py's routed arm: routed hard at t = 500 by the JAX package's
      trained router (assets/bench_router_wan1_3b_720p_half.npz), fed the
@@ -47,8 +62,13 @@ HunyuanVideo-13B (its phases free the Wan models first):
      routing off (--native_attention) and routed hard (its default), after
      warm-up forwards of a 1 + 1-block model; launch counts exact (routed:
      against the run's routing tables), all three experts used.
+     Phases b and c run again with qk_int8 + W8A8 (the CLI's --qk_int8
+     --mm int8): FULL and LOWRES in the int8 QK mode, routing off too.
   d. HunyuanVideo's reference shape, 720p x 117f (108,000 + 256 tokens):
      one timed forward routed hard, then one routing off.
+  e. Wan-14B (40 blocks, dim 5120) from an int4 stack through a depth-1
+     model: its GiB, one 480p x 77f forward routed hard with its time and
+     peak memory, and a 2-block check, card vs CPU on the same stack.
 Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
@@ -62,7 +82,9 @@ Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
      (480p x 77f, soft routing with the teacher, remat), 2 optimizer steps
      of 2 micro-steps, a checkpoint, then resumed for a third step; launch
      counts exact against the count derived from the graph (train_launches).
-Then a {"kernels": [...]} line, the card line, and the last line
+Then a line of the W8A8, static-scale and Wan-14B numbers, a {"kernels":
+[...]} line (flash_manual's int8 mode a row of its own; sta_pipe's, which
+no main path runs, under its row's "modes"), the card line, and the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
 CUDA or without the package beside this file.
 """
@@ -158,14 +180,25 @@ def main() -> int:
     with torch.inference_mode():
         kernels = phase("kernels", lambda: check_kernels(torch, card)
                         + check_routed_kernels(torch, card))
-        phase("model_checks", lambda: (check_model(torch), check_routed_model(torch)))
+        int8 = phase("int8_kernels", check_int8_kernels, torch, card)
+        phase("model_checks", lambda: (check_model(torch), check_routed_model(torch),
+                                       check_routed_model(torch, int8=True)))
         launches_off, per_step = phase("main_off", run_main_path, torch, card)
         launches_hard, per_step_hard = phase("main_routed", run_routed_main_path, torch, card)
+        launches_int8, per_step_int8 = phase("main_routed_int8", run_routed_main_path, torch,
+                                             card, True)
+        static = phase("static_scales", run_static_scales, torch, card)
         phase("720p", run_720p_forward, torch, card)
         hy_kernels = phase("hunyuan_kernels", check_hunyuan_kernels, torch, card)
         phase("hunyuan_model_check", check_hunyuan_model, torch)
         hy_launches, hy_per_step = phase("hunyuan_main", run_hunyuan_main_path, torch, card)
         hy_ref = phase("hunyuan_117f", run_hunyuan_reference_shape, torch, card)
+        q14 = phase("wan14b_int4", run_quantized_blocks, torch, card)
+    kernels += int8_kernel_rows(int8)
+    for k in kernels:
+        if k["name"] == "sta_pipe":
+            k["modes"] = {"int8_qk": {"replaces": "vorta_tpu/ops/sta_pipe.py:197",
+                                      "on_main_path": False, **int8["sta_pipe_int8"]}}
     kernels += phase("training_kernels", check_training_kernels, torch, card)
     phase("train_grads", check_train_grads, torch)
     launches_train, train = phase("train_main", run_train_main_path, torch, card)
@@ -173,12 +206,14 @@ def main() -> int:
     for k in kernels:
         name = k.pop("_counter")
         paths = {"off_480p_21f": launches_off[name], "hard_480p_77f": launches_hard[name],
+                 "hard_480p_77f_int8": launches_int8[name],
                  "train_480p_77f": launches_train[name],
-                 "hunyuan": hy_launches["hunyuan"][name],
-                 "hunyuan_off": hy_launches["hunyuan_off"][name]}
+                 **{p: hy_launches[p][name] for p in hy_launches}}
         # the count of the path the kernel's slice brought: serving's routed
-        # path, or training for the kernels only training launches
-        k["launches"] = paths["hard_480p_77f"] or paths["train_480p_77f"]
+        # path (in int8 for the int8 mode), or training for the kernels only
+        # training launches
+        k["launches"] = (paths["hard_480p_77f"] or paths["hard_480p_77f_int8"]
+                         or paths["train_480p_77f"])
         k["launches_by_path"] = paths
         if name in hy_kernels:  # the Hunyuan shapes join the kernel's other shapes
             k["shapes"] = {**k.get("shapes", {}), **hy_kernels[name]}
@@ -186,6 +221,7 @@ def main() -> int:
                                                          for x in hy_kernels[name].values()])
         if not any(paths.values()):
             raise RuntimeError(f"{name}: launched on no main path")
+    print(json.dumps({"w8a8": int8["w8a8"], "static_scales": static, "wan14b_int4": q14}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
@@ -194,8 +230,13 @@ def main() -> int:
           f"{train['max_memory_gib']:.2f} GiB; HunyuanVideo-13B 720p x 45f off "
           f"{hy_per_step['hunyuan_off']:.3f}, routed {hy_per_step['hunyuan']:.3f} s per Euler "
           f"step (1 forward each); 720p x 117f forward routed {hy_ref['hard_ms']:.1f} ms, off "
-          f"{hy_ref['off_ms']:.1f} ms; launches off {launches_off}, routed {launches_hard}, "
-          f"training {launches_train}, hunyuan {hy_launches}; phases {phase_s}")
+          f"{hy_ref['off_ms']:.1f} ms; --qk_int8 --mm int8: Wan routed {per_step_int8:.3f} s "
+          f"per denoise step, HunyuanVideo-13B off {hy_per_step['hunyuan_off_int8']:.3f}, "
+          f"routed {hy_per_step['hunyuan_int8']:.3f} s per Euler step; Wan-14B int4 stack "
+          f"{q14['stack_gib']:.2f} GiB, forward {q14['forward_ms']:.1f} ms, peak "
+          f"{q14['peak_gib']:.2f} GiB; launches off {launches_off}, routed {launches_hard}, "
+          f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}; "
+          f"phases {phase_s}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -617,10 +658,11 @@ def check_model(torch) -> None:
         raise RuntimeError("model check: the card's forward disagrees with the CPU's")
 
 
-def check_routed_model(torch) -> None:
+def check_routed_model(torch, int8: bool = False) -> None:
     """2 blocks at Wan-1.3B widths routed hard: card (bf16, kernels) vs CPU
     (f32, plain versions).  The routers' weights are 0 and their biases
-    one-hot logits, so 4 heads go to each expert in both runs."""
+    one-hot logits, so 4 heads go to each expert in both runs.  ``int8``:
+    with qk_int8 and W8A8 on both sides."""
     import dataclasses
 
     from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
@@ -632,7 +674,8 @@ def check_routed_model(torch) -> None:
     # narrower than the grid on h and w
     grid = (8, 24, 20)
     attn = AttentionConfig(latent_shape=grid, sta_tile=(4, 6, 4), sta_window=(3, 3, 3),
-                           lowres_window=(2, 3, 2))
+                           lowres_window=(2, 3, 2), qk_int8=int8)
+    mm = "int8" if int8 else "bf16"
     ref_model = WanModel(cfg, dtype=torch.float32, device="cpu", seed=5)
     experts = torch.tensor([0, 1, 2] * 4)
     with torch.no_grad():
@@ -645,15 +688,17 @@ def check_routed_model(torch) -> None:
     lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=g)
     ctx = torch.randn((1, TEXT_LEN, cfg.text_dim), generator=g)
     t = torch.tensor([700.0])
-    want = ref_model(lat, t, ctx, attn_cfg=attn, routing_mode="hard").sample
+    want = ref_model(lat, t, ctx, attn_cfg=attn, routing_mode="hard", mm_precision=mm).sample
     _build.reset_launches()
-    res = gpu_model(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=attn, routing_mode="hard")
+    res = gpu_model(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=attn, routing_mode="hard",
+                    mm_precision=mm)
     got = res.sample.float().cpu()
     launches = dict(_build.launches)
     if not (res.expert_ids == experts.numpy()).all():
         raise RuntimeError(f"routed model check: routing {res.expert_ids}")
     expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 2, "fused_norm": 5, "prologue": 2,
-                "flash_manual": 4, "sta_pipe": 2, "pool_qkv": 2, "unpool": 2}
+                "flash_manual": 4, "sta_pipe": 2, "pool_qkv": 2, "unpool": 2,
+                "flash_manual_int8": 4 if int8 else 0}
     if launches != expected:
         raise RuntimeError(f"routed model check: launches {launches} != {expected}")
     if not torch.isfinite(got).all():
@@ -663,8 +708,8 @@ def check_routed_model(torch) -> None:
     # plus the lowres picks that bf16 rounding flips (kernels phase: the flip
     # count) and that then swap a token's own output for its center's
     log(f"routed model check (2 blocks, 1.3B widths, {grid} = 3,840 tokens, 4 heads per "
-        f"expert): rel L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); "
-        f"launches {launches}")
+        f"expert{', qk_int8 + W8A8' if int8 else ''}): rel L2 err card bf16 vs CPU f32 = "
+        f"{rel:.4f} (tolerance 0.05); launches {launches}")
     if not rel < 0.05:
         raise RuntimeError("routed model check: the card's forward disagrees with the CPU's")
 
@@ -711,8 +756,10 @@ def run_main_path(torch, card: str):
     return launches, per_step
 
 
-def run_routed_main_path(torch, card: str):
-    """cli.sample at its defaults: 480p x 77f, routing hard, 30 blocks."""
+def run_routed_main_path(torch, card: str, int8: bool = False):
+    """cli.sample at its defaults: 480p x 77f, routing hard, 30 blocks;
+    ``int8``: with --qk_int8 --mm int8, the int8 QK mode launched wherever
+    flash_manual is."""
     import dataclasses
 
     import numpy as np
@@ -732,10 +779,11 @@ def run_routed_main_path(torch, card: str):
     del warm
     torch.cuda.synchronize()
 
-    out = HERE / "results" / "port_smoke" / "latents_routed.npy"
+    out = HERE / "results" / "port_smoke" / f"latents_routed{'_int8' if int8 else ''}.npy"
+    quant = ["--qk_int8", "--mm", "int8"] if int8 else []
     _build.reset_launches()
     res = sample_main(["--model", "wan-1_3B", "--random_embeds", "--num_inference_steps", "2",
-                       "--seed", "0", "--device", "cuda", "--output", str(out)])
+                       "--seed", "0", "--device", "cuda", "--output", str(out), *quant])
     launches = dict(_build.launches)
     lat = res.latents
     if tuple(lat.shape) != (1, 20, 60, 104, 16) or not torch.isfinite(lat).all():
@@ -751,13 +799,15 @@ def run_routed_main_path(torch, card: str):
                 "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd,
                 "flash_manual": int(has[0].sum() + has[1].sum()), "sta_pipe": int(has[2].sum()),
                 "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
+    if int8:
+        expected["flash_manual_int8"] = expected["flash_manual"]
     if launches != expected:
         raise RuntimeError(f"routed main path launches {launches} != expected {expected}")
     if not (heads > 0).all():
         raise RuntimeError(f"routed main path: an expert got no head: {heads}")
     per_step = res.denoise_s / res.steps
-    log(f"routed main path: Wan-1.3B 30 blocks, 31,200 tokens, routing hard, 2 UniPC steps x "
-        f"CFG: {res.denoise_s:.3f} s ({per_step:.3f} s/step; model build {res.build_s:.1f} s) "
+    log(f"routed main path{' --qk_int8 --mm int8' if int8 else ''}: Wan-1.3B 30 blocks, 31,200 "
+        f"tokens, routing hard, 2 UniPC steps x CFG: {res.denoise_s:.3f} s ({per_step:.3f} s/step; model build {res.build_s:.1f} s) "
         f"on {card}; heads per expert over the run: full {heads[0]}, lowres {heads[1]}, "
         f"sta {heads[2]}; launches {launches} (exact); output std {lat.std().item():.4f}")
     return launches, per_step
@@ -1087,12 +1137,13 @@ def hy_inputs(torch, grid, dev, seed: int):
     return lat, text, hy_text_mask(torch, dev), pooled
 
 
-def hy_hard_launches(tables) -> dict:
+def hy_hard_launches(tables, int8: bool = False) -> dict:
     """Kernel launches of hard-routed Hunyuan forwards from their routing
     tables (forwards, 60 blocks, heads): per forward the prologue 60 and the
     AdaLN norm 121 (4 per dual block, 1 per single block, 1 in the head);
     per block one flash_manual per routed expert (STA's for its text rows),
-    sta_pipe with STA, pool_qkv and unpool with LOWRES."""
+    sta_pipe with STA, pool_qkv and unpool with LOWRES; ``int8``: FULL's and
+    LOWRES's flash_manual in the int8 QK mode (the STA text rows stay bf16)."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
@@ -1101,14 +1152,16 @@ def hy_hard_launches(tables) -> dict:
             "fused_norm": 121 * n_fwd,
             "flash_manual": int(has[0].sum() + has[1].sum() + has[2].sum()),
             "sta_pipe": int(has[2].sum()), "pool_qkv": int(has[1].sum()),
-            "unpool": int(has[1].sum())}
+            "unpool": int(has[1].sum()),
+            "flash_manual_int8": int(has[0].sum() + has[1].sum()) if int8 else 0}
 
 
 def check_hunyuan_model(torch) -> None:
     """1 dual + 1 single block at HunyuanVideo-13B widths: card (bf16,
     kernels) vs CPU (f32, plain versions) from the same weights, routing off
     and routed hard with 8 heads on each expert, on a window-dense grid
-    (6, 9, 16) (tile (6, 9, 8): 864 tokens) with 83 of 256 text tokens valid."""
+    (6, 9, 16) (tile (6, 9, 8): 864 tokens) with 83 of 256 text tokens valid;
+    each in bf16 and with qk_int8 + W8A8."""
     import dataclasses
 
     import numpy as np
@@ -1130,19 +1183,21 @@ def check_hunyuan_model(torch) -> None:
     lat, text, mask, pooled = hy_inputs(torch, grid, torch.device("cuda"), 9)
     args = (lat, torch.tensor([700.0], device="cuda"), text, mask, pooled)
     g = torch.tensor([6000.0], device="cuda")
-    for mode in ("off", "hard"):
-        want = cpu(*(a.cpu() for a in args), guidance=g.cpu(), attn_cfg=attn,
-                   routing_mode=mode).sample
+    for mode, int8 in (("off", False), ("hard", False), ("off", True), ("hard", True)):
+        a = dataclasses.replace(attn, qk_int8=int8)
+        mm = "int8" if int8 else "bf16"
+        want = cpu(*(x.cpu() for x in args), guidance=g.cpu(), attn_cfg=a, routing_mode=mode,
+                   mm_precision=mm).sample
         _build.reset_launches()
-        res = gpu(*args, guidance=g, attn_cfg=attn, routing_mode=mode)
+        res = gpu(*args, guidance=g, attn_cfg=a, routing_mode=mode, mm_precision=mm)
         got = res.sample.float().cpu()
         launches = dict(_build.launches)
         expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 2, "prologue": 2,
-                    "fused_norm": 6}
+                    "fused_norm": 6, "flash_manual_int8": 2 if int8 else 0}
         if mode == "hard":
             if not (res.expert_ids == experts.numpy()).all():
                 raise RuntimeError(f"Hunyuan model check: routing {res.expert_ids}")
-            expected = hy_hard_launches(np.asarray(res.expert_ids)[None])
+            expected = hy_hard_launches(np.asarray(res.expert_ids)[None], int8)
             expected.update(prologue=2, fused_norm=6)
         if launches != expected:
             raise RuntimeError(f"Hunyuan model check {mode}: launches {launches} != {expected}")
@@ -1150,7 +1205,7 @@ def check_hunyuan_model(torch) -> None:
             raise RuntimeError(f"Hunyuan model check {mode}: non-finite output on the card")
         rel = ((got - want).norm() / want.norm()).item()
         log(f"Hunyuan model check (1 + 1 blocks, 13B widths, {grid} = 864 + 256 tokens, "
-            f"{mode}): rel L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); "
+            f"{mode}{', qk_int8 + W8A8' if int8 else ''}): rel L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); "
             f"launches {launches}")
         if not rel < 0.05:
             raise RuntimeError("Hunyuan model check: the card's forward disagrees with the CPU's")
@@ -1187,7 +1242,10 @@ def run_hunyuan_main_path(torch, card: str):
 
     hy_warm_up(torch, GRID_HY_45F, ("off", "hard"))
     launches, per_step = {}, {}
-    for name, extra in (("hunyuan_off", ["--native_attention"]), ("hunyuan", [])):
+    quant = ["--qk_int8", "--mm", "int8"]
+    for name, extra in (("hunyuan_off", ["--native_attention"]), ("hunyuan", []),
+                        ("hunyuan_off_int8", ["--native_attention", *quant]),
+                        ("hunyuan_int8", quant)):
         out = HERE / "results" / "port_smoke" / f"{name}_latents.npy"
         _build.reset_launches()
         res = sample_main(["--model", "hunyuan-13B", *extra, "--random_embeds",
@@ -1199,15 +1257,17 @@ def run_hunyuan_main_path(torch, card: str):
         if tuple(lat.shape) != (1, 12, 90, 160, 16) or not torch.isfinite(lat).all():
             raise RuntimeError(f"Hunyuan main path {name}: output {tuple(lat.shape)}, finite "
                                f"{bool(torch.isfinite(lat).all())}")
-        if name == "hunyuan_off":
+        int8 = name.endswith("int8")
+        if name.startswith("hunyuan_off"):
             expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60 * 2,
-                        "prologue": 60 * 2, "fused_norm": 121 * 2}
+                        "prologue": 60 * 2, "fused_norm": 121 * 2,
+                        "flash_manual_int8": 60 * 2 if int8 else 0}
             heads = None
         else:
             tables = np.stack(res.routing)  # (forwards, blocks, heads)
             if tables.shape != (2, 60, 24):
                 raise RuntimeError(f"Hunyuan main path: routing tables {tables.shape}")
-            expected = hy_hard_launches(tables)
+            expected = hy_hard_launches(tables, int8)
             heads = np.bincount(tables.reshape(-1), minlength=3)
             if not (heads > 0).all():
                 raise RuntimeError(f"Hunyuan main path: an expert got no head: {heads}")
@@ -1215,7 +1275,8 @@ def run_hunyuan_main_path(torch, card: str):
             raise RuntimeError(f"Hunyuan main path {name}: launches {launches[name]} != "
                                f"expected {expected}")
         per_step[name] = res.denoise_s / res.steps
-        log(f"Hunyuan main path {name}: HunyuanVideo-13B 20 + 40 blocks, 43,200 + 256 tokens, "
+        log(f"Hunyuan main path {name}{' (--qk_int8 --mm int8)' if int8 else ''}: "
+            f"HunyuanVideo-13B 20 + 40 blocks, 43,200 + 256 tokens, "
             f"2 Euler steps (1 forward each): {res.denoise_s:.3f} s ({per_step[name]:.3f} "
             f"s/step; model build {res.build_s:.1f} s) on {card}; "
             + (f"heads per expert over the run: full {heads[0]}, lowres {heads[1]}, sta "
@@ -1262,6 +1323,333 @@ def run_hunyuan_reference_shape(torch, card: str) -> dict:
         del out
     log(f"720p x 117f: routing off / routed = {res['off_ms'] / res['hard_ms']:.3f}")
     return res
+
+
+# ---- quantized serving --------------------------------------------------------
+
+# the card's dense int8 tensor-core rate (data sheet), the QK product of the
+# int8 modes; their PV product stays bf16
+PEAK_INT8 = 1979e12
+# the JAX package's quality gate for int8 QK (tests/test_routed_fused.py):
+# mean |int8 - bf16| / mean |bf16| over the routed heads
+INT8_GATE = 0.05
+
+
+def mean_rel(got, ref) -> float:
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().mean() / ref.abs().mean().clamp(min=1e-6)).item()
+
+
+def int8_bound(qk_flops: float, pv_flops: float, nbytes: float) -> tuple:
+    t_ops = (qk_flops / PEAK_INT8 + pv_flops / PEAK_BF16) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def int8_case(torch, name, kern8, plain8, bracket, kern16, act, flops, nbytes, lib, rows=None):
+    """One int8 QK kernel check: the kernel against its plain version on the
+    same int8 q / k (tolerance TOL), heads routed away zero, the plain
+    version with qk_scale ignored (the bracket) failing the tolerance, the
+    quality gate against the bf16 mode on the unquantized q / k, and times.
+    ``flops``: (QK, PV) operations; ``rows``: the output rows compared."""
+    cut = (lambda x: x) if rows is None else (lambda x: x[:, :, :rows])
+    got, want = cut(kern8()), cut(plain8())
+    err = compare(torch, name, got, want)
+    if got[:, act == 0].any():
+        raise RuntimeError(f"{name}: a head routed away wrote non-zeros")
+    ratio = worst_ratio(torch, got, want)
+    miss = worst_ratio(torch, cut(bracket())[:, act > 0], want[:, act > 0])
+    log(f"{name}, the plain version with qk_scale ignored: worst ratio {miss:.3e} (must fail "
+        f"the tolerance {TOL:g})")
+    if miss <= TOL:
+        raise RuntimeError(f"{name}: the check cannot tell a missing qk_scale")
+    rel = mean_rel(got[:, act > 0], cut(kern16())[:, act > 0])
+    log(f"{name}: mean |int8 - bf16| / mean |bf16| = {rel:.4f} (gate {INT8_GATE})")
+    if not rel < INT8_GATE:
+        raise RuntimeError(f"{name}: the int8 mode fails the quality gate against bf16")
+    del got, want
+    b_ms, b_by = int8_bound(*flops, nbytes)
+    # without qk_scale the int8 sums overflow exp2: the bracket's output is
+    # not finite, which JSON cannot hold as a number
+    r = dict(ms=time_ms(torch, kern8, 5), bf16_ms=time_ms(torch, kern16, 5),
+             plain_ms=time_ms(torch, plain8, 1, 1), library_ms=lib(), bound_ms=b_ms,
+             bound_by=b_by, max_abs_err=err, worst_ratio=ratio,
+             bracket_worst_ratio=miss if abs(miss) < float("inf") else "non-finite",
+             mean_rel_vs_bf16=rel)
+    log(f"{name}: {r} (int8 / bf16 time {r['ms'] / r['bf16_ms']:.3f}; achieved "
+        f"{sum(flops) / r['ms'] / 1e9:.1f} T/s)")
+    return r
+
+
+def check_int8_kernels(torch, card: str) -> dict:
+    """flash_manual's and sta_pipe's int8 QK modes at the main paths' shapes
+    (Wan-1.3B 480p x 77f FULL and LOWRES, 8 of 12 heads routed; the
+    HunyuanVideo-13B 720p x 45f FULL joint layout with kv_bias, 16 of 24;
+    sta_pipe at the 480p tile and with Hunyuan's text tail), q and k unit-RMS
+    bf16 quantized per head as the dispatch does; and W8A8 at the Wan FFN's
+    shapes.  Returns {"flash_manual_int8": {...}, "sta_pipe_int8": {...},
+    "w8a8": {...}}."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops import joint_experts as joint
+    from vorta_tpu_torch.ops.flash import dense_tables
+    from vorta_tpu_torch.ops.flash_manual import (
+        sparse_flash_attention_manual,
+        sparse_flash_attention_manual_ref,
+    )
+    from vorta_tpu_torch.ops.qmm import int8_linear, int8_matmul_ref
+    from vorta_tpu_torch.ops.routed_fused import quantize_per_head, quantize_qk, routed_geometry
+    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    d = 128
+    scale = d**-0.5
+    g = torch.Generator(device=dev).manual_seed(50)
+
+    def randn(*shape):  # unit RMS: the scale of qk-normed q/k
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    out = {"flash_manual_int8": {}, "sta_pipe_int8": {}}
+
+    # ---- flash_manual: Wan FULL / LOWRES, and Hunyuan's FULL joint layout + kv_bias
+    wan = attention_config("wan-1_3B", GRID_480P_77F)
+    geo = routed_geometry(wan)
+    hy = joint.JointConfig(attention_config("hunyuan-13B", GRID_HY_45F), HY_TEXT)
+    hy_full = joint.joint_layouts(hy)["full"]
+    hy_bias = joint._bias(hy_text_mask(torch, dev), hy_full, hy.video.seq_len)
+    cases = (  # name, heads routed, padded length, blocks, tables, kv_valid_len, bias, rows, keys
+        ("wan_full_31200", ACTIVE_HEADS, geo.full.q_pad, geo.full.block_q,
+         geo.full.tables.on(dev), geo.full.valid_len, None, geo.full.valid_len,
+         geo.full.valid_len),
+        ("wan_lowres_15600", ACTIVE_HEADS, geo.lowres.q_pad, geo.lowres.block_q,
+         geo.lowres.tables.on(dev), geo.lowres.valid_len, None, geo.lowres.valid_len,
+         geo.lowres.valid_len),
+        ("hunyuan_full_joint", HY_ACTIVE, hy_full.total, hy_full.block_q,
+         dense_tables(hy_full.total // hy_full.block_q, hy_full.total // hy_full.block_q).on(dev),
+         None, hy_bias, None, hy.video.seq_len + HY_VALID),
+    )
+    for name, heads, n, block, (ki, kc), valid, bias, rows, keys in cases:
+        act = torch.tensor(heads, device=dev)
+        n_act = int(act.sum().item())
+        h = act.numel()
+        q, k, v = (randn(1, h, n, d) for _ in range(3))
+        q8, k8, qk_scale = quantize_qk(q, k)
+        cnt = torch.where(act[:, None] > 0, kc, 0).to(torch.int32)
+        kw = dict(scale=scale, block_q=block, block_kv=block, kv_valid_len=valid, kv_bias=bias)
+        kw8 = dict(kw, qk_scale=qk_scale)
+        qa, ka, va = (x[:, act > 0, :keys] for x in (q, k, v))
+        fmask = None if bias is None else bias[:, :keys].to(bf16)[None, None]
+        q_rows = rows or n
+        out["flash_manual_int8"][name] = int8_case(
+            torch, f"flash_manual int8 {name} (1,{h},{n},128), {n_act} of {h} heads routed",
+            lambda: sparse_flash_attention_manual(q8, k8, v, ki, cnt, **kw8),
+            lambda: sparse_flash_attention_manual_ref(q8, k8, v, ki, cnt, **kw8),
+            lambda: sparse_flash_attention_manual_ref(q8.to(bf16), k8.to(bf16), v, ki, cnt, **kw),
+            lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **kw),
+            act, (2.0 * q_rows * keys * d * n_act,) * 2,
+            (q_rows * d * 3 + keys * d * 3) * n_act,  # int8 q / k, bf16 v / out
+            lambda: time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qa, ka, va, attn_mask=fmask), 5, 1),
+            rows=rows)
+        del q, k, v, q8, k8, qa, ka, va
+        torch.cuda.empty_cache()
+
+    # ---- sta_pipe: Wan's 480p tile, and Hunyuan's 432-token tiles with the text tail
+    cases = (
+        ("wan_480p_77f", ACTIVE_HEADS, GRID_480P_77F, (4, 6, 4), 0),
+        ("hunyuan_45f_text_tail", HY_ACTIVE, GRID_HY_45F, (6, 9, 8), HY_TEXT),
+    )
+    for name, heads, grid, tile, lt in cases:
+        act = torch.tensor(heads, device=dev, dtype=torch.int32)
+        n_act = int(act.sum().item())
+        h = act.numel()
+        n = int(np.prod(grid))
+        q, k, v = (randn(1, h, n, d) for _ in range(3))
+        kw = dict(latent_shape=grid, tile=tile, window=(3, 3, 3), scale=scale)
+        text = 0
+        if lt:  # text_k shares k's per-head scale: quantized together
+            tk, tv = randn(1, h, lt, d), randn(1, h, lt, d)
+            q8, sq = quantize_per_head(q)
+            kt8, sk = quantize_per_head(torch.cat([k, tk], dim=2))
+            k8, tk8, qk_scale = kt8[:, :, :n], kt8[:, :, n:], sq * sk
+            tail = dict(text_v=tv, text_bias=joint._text_bias(hy_text_mask(torch, dev)))
+            kw8 = dict(kw, qk_scale=qk_scale, text_k=tk8, **tail)
+            kw.update(tail, text_k=tk)
+            bracket_kw = dict(kw8, text_k=tk8.to(bf16), qk_scale=None)
+            text = HY_VALID
+        else:
+            q8, k8, qk_scale = quantize_qk(q, k)
+            kw8 = dict(kw, qk_scale=qk_scale)
+            bracket_kw = kw
+        keys = int(np.prod([min(3, grid[a] // tile[a]) * tile[a] for a in range(3)])) + text
+        qa, ka, va = (x[:, act > 0] for x in (q, k, v))
+        out["sta_pipe_int8"][name] = int8_case(
+            torch, f"sta_pipe int8 {name} (1,{h},{n},128), tile {tile}, {n_act} of {h} heads",
+            lambda: sta_pipe_attention(q8, k8, v, act, **kw8),
+            lambda: sta_pipe_attention_ref(q8, k8, v, act, **kw8),
+            lambda: sta_pipe_attention_ref(q8.to(bf16), k8.to(bf16), v, act, **bracket_kw),
+            lambda: sta_pipe_attention(q, k, v, act, **kw),
+            act, (2.0 * n * keys * d * n_act,) * 2,
+            (n * d * 4 + 3 * lt * d) * n_act,
+            lambda: time_ms(torch, lambda: F.scaled_dot_product_attention(qa, ka, va), 3, 1))
+        out["sta_pipe_int8"][name]["library"] = "SDPA over the whole sequence, no mask"
+        del q, k, v, q8, k8, qa, ka, va
+        torch.cuda.empty_cache()
+
+    # ---- W8A8 at the Wan FFN's shapes: 31,200 x 1,536 -> 8,960 and back.  The
+    # plain version takes the int8 product in f64 (exact): the outputs agree
+    # to the last bit but for the output rounding
+    w8 = {}
+    m = int(np.prod(GRID_480P_77F))
+    for name, kin, kout in (("ffn_in_1536_8960", 1536, 8960), ("ffn_out_8960_1536", 8960, 1536)):
+        x = randn(1, m, kin).mul_(3.0)
+        w = (torch.randn((kout, kin), generator=g, device=dev) * kin**-0.5).to(bf16)
+        b = randn(kout)
+        kern = lambda: int8_linear(x, w, b)  # noqa: E731
+        plain = lambda: int8_linear(x, w, b, matmul=int8_matmul_ref)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        ratio = worst_ratio(torch, got, want)
+        log(f"W8A8 {name}: worst |int8_linear - plain| / max(|plain|, RMS) {ratio:.3e} "
+            f"(tolerance 2^-8, one bf16 ulp: the int32 sums are exact)")
+        if not ratio <= 2.0**-8:
+            raise RuntimeError(f"W8A8 {name}: int8_linear disagrees with its plain version")
+        rel = mean_rel(got, F.linear(x, w, b))
+        del got, want
+        flops = 2.0 * m * kin * kout
+        b_ms, b_by = bound_ms(flops, (m * kin + kin * kout + m * kout) * 2, PEAK_INT8)
+        w8[name] = dict(ms=time_ms(torch, kern, 10), bf16_linear_ms=time_ms(
+            torch, lambda: F.linear(x, w, b), 10), plain_ms=time_ms(torch, plain, 2, 1),
+            bound_ms=b_ms, bound_by=b_by, worst_ratio=ratio, mean_rel_vs_bf16=rel)
+        log(f"W8A8 {name}: {w8[name]} (int8 / bf16 nn.Linear "
+            f"{w8[name]['ms'] / w8[name]['bf16_linear_ms']:.3f})")
+        del x, w, b
+    out["w8a8"] = w8
+    return out
+
+
+def int8_kernel_rows(int8: dict) -> list:
+    """The int8 QK modes' rows of the kernels line: flash_manual's (launched
+    on the int8 main paths) as a row of its own; sta_pipe's, which no main
+    path runs (the STA expert stays bf16 under qk_int8, as in the JAX
+    package), under the sta_pipe row's ``modes``."""
+    fm = int8["flash_manual_int8"]
+    first = fm["wan_full_31200"]
+    return [dict(name="flash_manual (int8 QK mode)", route="cuda",
+                 source="vorta_tpu_torch/csrc/flash_manual.cu",
+                 replaces="vorta_tpu/ops/flash_manual.py:125", _counter="flash_manual_int8",
+                 **{**first, "max_abs_err": max(x["max_abs_err"] for x in fm.values())},
+                 shapes=fm)]
+
+
+def run_static_scales(torch, card: str) -> dict:
+    """Calibrate on the card (calibrate_mm: each site's per-layer max |x|)
+    over one Wan-1.3B forward at 480p x 77f, routed hard, W8A8; then the
+    same forward with those static scales (amax / 127), against the dynamic
+    one: its distance and both times."""
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.models.wan import WanModel
+
+    model = WanModel(WAN_1_3B, dtype=torch.bfloat16, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t_grid, h_grid, w_grid = GRID_480P_77F
+    lat = torch.randn((1, t_grid, 2 * h_grid, 2 * w_grid, 16), generator=g, device="cuda")
+    ctx = torch.randn((1, TEXT_LEN, 4096), generator=g, device="cuda")
+    t = torch.tensor([700.0], device="cuda")
+    attn = attention_config("wan-1_3B", GRID_480P_77F)
+    kw = dict(attn_cfg=attn, routing_mode="hard", mm_precision="int8")
+    calib = model(lat, t, ctx, calibrate_mm=True, **kw).mm_calibration
+    scales = {site: amax / 127.0 for site, amax in calib.items()}
+    log(f"calibration: {len(scales)} sites x {len(next(iter(scales.values())))} layers: "
+        + ", ".join(f"{k} [{v.min().item():.3g}, {v.max().item():.3g}]"
+                    for k, v in sorted(scales.items())))
+    res = {}
+    for name, extra in (("dynamic", {}), ("static", {"act_scales": scales}),
+                        ("bf16", {"mm_precision": "bf16"})):
+        run = lambda: model(lat, t, ctx, **{**kw, **extra}).sample  # noqa: E731
+        res[name] = run()
+        res[f"{name}_ms"] = time_ms(torch, run, 2, 1)
+    rel_static = ((res["static"].float() - res["dynamic"].float()).norm()
+                  / res["dynamic"].float().norm()).item()
+    rel_bf16 = ((res["dynamic"].float() - res["bf16"].float()).norm()
+                / res["bf16"].float().norm()).item()
+    if not torch.isfinite(res["static"]).all():
+        raise RuntimeError("static-scale forward: non-finite output")
+    out = {"rel_l2_static_vs_dynamic": rel_static, "rel_l2_dynamic_vs_bf16": rel_bf16,
+           **{k: v for k, v in res.items() if k.endswith("_ms")}}
+    log(f"static int8 scales (480p x 77f, hard, W8A8, one forward): {out} on {card}")
+    del model
+    return out
+
+
+def run_quantized_blocks(torch, card: str) -> dict:
+    """Wan-14B (40 blocks, dim 5120) served from an int4 stack through a
+    depth-1 model: one hard-routed forward at 480p x 77f (its stack's GiB,
+    time and peak memory); then a 2-block check, the card against the CPU
+    (f32, plain versions) on the same quantized stack."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_14B, AttentionConfig
+    from vorta_tpu_torch.io.quant_serving import build_quantized_wan
+    from vorta_tpu_torch.models.wan import WanModel
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model, stack = build_quantized_wan(WAN_14B, bits=4, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    stack_gib = stack.nbytes / 2**30
+    g = torch.Generator(device="cuda").manual_seed(4)
+    t_grid, h_grid, w_grid = GRID_480P_77F
+    lat = torch.randn((1, t_grid, 2 * h_grid, 2 * w_grid, 16), generator=g, device="cuda")
+    ctx = torch.randn((1, TEXT_LEN, 4096), generator=g, device="cuda")
+    attn = attention_config("wan-1_3B", GRID_480P_77F)
+    t0 = time.time()
+    res = model(lat, torch.tensor([700.0], device="cuda"), ctx, attn_cfg=attn,
+                routing_mode="hard", quantized_blocks=stack)
+    torch.cuda.synchronize()
+    fwd_ms = (time.time() - t0) * 1e3
+    if tuple(res.sample.shape) != tuple(lat.shape) or not torch.isfinite(res.sample).all():
+        raise RuntimeError("Wan-14B int4 forward: wrong shape or non-finite output")
+    heads = np.bincount(res.expert_ids.reshape(-1), minlength=3)
+    out = dict(stack_gib=stack_gib, build_s=build_s, forward_ms=fwd_ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               heads=dict(zip(("full", "lowres", "sta"), heads.tolist())))
+    del res, lat, ctx
+    # the 2-block check: the first two layers of the same stack, routing off,
+    # 160 tokens, the non-block weights carried to the CPU model
+    two = stack.first_layers(2)
+    cpu = WanModel(dataclasses.replace(WAN_14B, num_layers=1), dtype=torch.float32,
+                   device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    grid = (2, 8, 10)
+    g = torch.Generator().manual_seed(5)
+    lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=g)
+    ctx = torch.randn((1, TEXT_LEN, 4096), generator=g)
+    t = torch.tensor([700.0])
+    a = AttentionConfig(latent_shape=grid)
+    got = model(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=a, quantized_blocks=two)
+    want = cpu(lat, t, ctx, attn_cfg=a, quantized_blocks=two.to("cpu")).sample
+    got = got.sample.float().cpu()
+    rel = ((got - want).norm() / want.norm()).item()
+    out["two_block_rel_l2"] = rel
+    log(f"Wan-14B from an int4 stack (40 blocks, dim 5120): stack {stack_gib:.2f} GiB, built "
+        f"{build_s:.1f} s; one forward 480p x 77f routed hard {fwd_ms:.1f} ms on {card}; peak "
+        f"{out['peak_gib']:.2f} GiB; heads {out['heads']}; 2-block check card bf16 vs CPU f32 "
+        f"on the same stack: rel L2 {rel:.4f} (tolerance 0.05)")
+    if not rel < 0.05:
+        raise RuntimeError("Wan-14B int4 2-block check: the card disagrees with the CPU")
+    del model, stack, two, cpu
+    gc.collect()
+    return out
 
 
 # ---- training ------------------------------------------------------------------

@@ -20,7 +20,13 @@ pool's K matching, a 1 + 1-block model off and routed and the tiny CLI;
 for training, the forward's lse, the dq and dk/dv kernels (1, 2 and 4
 warps, tails, empty q blocks), the autograd rules of
 the attention and the norm, the grad guards of the forward-only wrappers,
-a train step against the CPU and the trainer CLI.  Tolerances: 1e-5 x max
+a train step against the CPU and the trainer CLI; for quantized serving,
+flash_manual's and sta_pipe's int8 QK modes (D 64 / 128, bias, tail, text
+tail, inactive heads) on the same int8 inputs as their plain versions,
+W8A8 ``int8_linear`` at odd shapes (int32 sums exact: within one bf16 ulp
+of the plain version), 2-block models with ``qk_int8`` + ``mm int8`` and
+from a quantized stack against the CPU, and the CLIs' four quantization
+flags.  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -172,10 +178,16 @@ def test_flash_manual_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 64, 128), device=card, dtype=torch.bfloat16)
     ki, kc = dense_tables(1, 1).on(card)
     kw = dict(block_q=64, block_kv=64)
-    for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=ki),
-                dict(qk_scale=torch.ones(2)), dict(softmax="stable")):
+    for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=ki), dict(softmax="stable")):
         with pytest.raises(NotImplementedError):
             sparse_flash_attention_manual(q, q, q, ki, kc, **kw, **bad)
+    # the int8 mode is served: int8 q / k, bf16 v
+    qk_scale = torch.ones(2, device=card)
+    with pytest.raises(ValueError, match="int8"):
+        sparse_flash_attention_manual(q, q, q, ki, kc, qk_scale=qk_scale, **kw)
+    q8 = q.to(torch.int8)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        sparse_flash_attention_manual(q8, q8, q.float(), ki, kc, qk_scale=qk_scale, **kw)
     with pytest.raises(ValueError, match="kv_bias"):
         sparse_flash_attention_manual(q, q, q, ki, kc, kv_bias=torch.zeros((1, 32), device=card),
                                       **kw)
@@ -212,9 +224,16 @@ def test_sta_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 4 * 6 * 16, 128), device=card, dtype=torch.bfloat16)
     kw = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
     act = torch.ones(2, device=card, dtype=torch.int32)
-    for bad in (dict(qk_scale=torch.ones(2)), dict(softmax="stable"), dict(variant="sT")):
+    for bad in (dict(softmax="stable"), dict(variant="sT")):
         with pytest.raises(NotImplementedError):
             sta_pipe_attention(q, q, q, act, **kw, **bad)
+    # the int8 mode is served: int8 q / k / text_k, bf16 v
+    qk_scale = torch.ones(2, device=card)
+    with pytest.raises(ValueError, match="int8"):
+        sta_pipe_attention(q, q, q, act, qk_scale=qk_scale, **kw)
+    q8 = q.to(torch.int8)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        sta_pipe_attention(q8, q8, q.float(), act, qk_scale=qk_scale, **kw)
     with pytest.raises(ValueError, match="multiple of 8"):
         sta_pipe_attention(q, q, q, act, text_k=q[:, :, :12], text_v=q[:, :, :12], **kw)
     with pytest.raises(NotImplementedError, match="bf16"):
@@ -808,3 +827,197 @@ def test_train_cli_on_card(card, tmp_path):
     moved = max((first.router_final[k] - first.router_init[k]).abs().max().item()
                 for k in first.router_init)
     assert moved > 0
+
+
+# --- quantized serving: the int8 QK modes, W8A8, quantized stacks --------------------
+
+def _int8_qk(card, g, shape, kshape=None):
+    """int8 q, k quantized per head from bf16 draws, and their qk_scale."""
+    from vorta_tpu_torch.ops.routed_fused import quantize_qk
+
+    return quantize_qk(_randn(g, shape, torch.bfloat16), _randn(g, kshape or shape, torch.bfloat16))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block_q,block_kv,sq,skv,valid,with_bias", [
+    (32, 32, 128, 128, 100, False),        # small blocks, one warp, the tail rule
+    (1024, 1024, 2048, 2048, 1500, False),  # the routed experts' blocks
+    (1024, 1024, 2048, 2048, None, True),  # the joint layouts: kv_bias
+])
+def test_flash_manual_int8_kernel_matches_plain(card, d, block_q, block_kv, sq, skv, valid,
+                                                with_bias):
+    """The int8 QK mode on the same int8 q / k as the plain version (exact
+    int32 scores on both sides), a head routed away."""
+    b, h = 2, 3
+    g = torch.Generator(device=card).manual_seed(30)
+    q8, k8, qk_scale = _int8_qk(card, g, (b, h, sq, d), (b, h, skv, d))
+    v = _randn(g, (b, h, skv, d), torch.bfloat16)
+    ki, kc = dense_tables(sq // block_q, skv // block_kv).on(card)
+    kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
+    kw = dict(block_q=block_q, block_kv=block_kv, kv_valid_len=valid, scale=d**-0.5,
+              qk_scale=qk_scale)
+    if with_bias:
+        bias = torch.where(torch.rand((1, skv), generator=g, device=card) < 0.3, -1e30, 0.0)
+        bias[:, :block_kv] = -1e30
+        kw["kv_bias"] = bias
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q8, k8, v, ki, kc, **kw)
+    assert _build.launches["flash_manual"] == 1 and _build.launches["flash_manual_int8"] == 1
+    _close(got, sparse_flash_attention_manual_ref(q8, k8, v, ki, kc, **kw))
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("latent,tile,lt", [
+    ((12, 18, 20), (4, 6, 4), 0),         # the 480p tile, 2 warps
+    ((8, 6, 32), (2, 3, 8), 0),           # clamping on t and w
+    ((12, 18, 16), (6, 9, 8), 256),       # HunyuanVideo's 432-token tile, int8 text keys
+])
+def test_sta_kernel_int8_matches_plain(card, d, latent, tile, lt):
+    b, h = 2, 3
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(31)
+    q8, k8, qk_scale = _int8_qk(card, g, (b, h, s, d))
+    v = _randn(g, (b, h, s, d), torch.bfloat16)
+    active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=d**-0.5,
+              qk_scale=qk_scale)
+    if lt:
+        from vorta_tpu_torch.ops.routed_fused import quantize_per_head
+
+        kw.update(text_k=quantize_per_head(_randn(g, (b, h, lt, d), torch.bfloat16))[0],
+                  text_v=_randn(g, (b, h, lt, d), torch.bfloat16),
+                  text_bias=torch.where(torch.arange(lt, device=card) < 83, 0.0, -1e30)[None])
+    _build.reset_launches()
+    got = sta_pipe_attention(q8, k8, v, active, **kw)
+    assert _build.launches["sta_pipe"] == 1 and _build.launches["sta_pipe_int8"] == 1
+    _close(got, sta_pipe_attention_ref(q8, k8, v, active, **kw))
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("m,k,n,static", [
+    (4096, 1536, 8960, False),  # the Wan FFN's input projection, 4,096 tokens
+    (300, 200, 100, True),      # K, N not multiples of 8: zero-padded for _int_mm
+    (5, 64, 48, False),         # M below _int_mm's 17 rows
+])
+def test_int8_linear_on_card_matches_plain(card, m, k, n, static):
+    """W8A8 on the card (torch._int_mm) against the same function on the
+    CPU: the quantized operands and the int32 sums are exact, so the bf16
+    outputs agree within one ulp."""
+    from vorta_tpu_torch.ops.qmm import int8_linear
+
+    g = torch.Generator(device=card).manual_seed(32)
+    x = _randn(g, (1, m, k), torch.bfloat16)
+    w = _randn(g, (n, k), torch.bfloat16, scale=k**-0.5)
+    b = _randn(g, (n,), torch.bfloat16)
+    xs = torch.tensor(0.02, device=card) if static else None
+    got = int8_linear(x, w, b, x_scale=xs)
+    want = int8_linear(x.cpu(), w.cpu(), b.cpu(), x_scale=None if xs is None else xs.cpu())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    err = (got.float().cpu() - want.float()).abs()
+    floor = torch.maximum(want.float().abs(), want.float().pow(2).mean().sqrt())
+    assert (err / floor).max().item() <= 2.0**-8
+
+
+def test_quantized_wan_forward_on_card_matches_cpu(card):
+    """qk_int8 + mm int8, routed hard to all three experts, and the same
+    from an int8 quantized stack: the card (bf16, kernels, _int_mm) against
+    the CPU (f32, plain versions), rel L2 below 0.05; the int8 modes launch
+    where the bf16 ones did."""
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_TINY
+    from vorta_tpu_torch.io.quant_serving import random_block_stack
+    from vorta_tpu_torch.models.wan import WanModel
+
+    cfg = dataclasses.replace(WAN_TINY, dim=512, ffn_dim=1024, num_heads=4, head_dim=128,
+                              text_dim=64, text_len=16, freq_dim=64)
+    attn = dataclasses.replace(attention_config("wan-tiny", (4, 8, 8)), qk_int8=True)
+    cpu = WanModel(cfg, dtype=torch.float32, device="cpu", seed=2)
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(torch.eye(3)[[0, 1, 2, 2]].reshape(-1) * 4.0)
+    gpu = WanModel(cfg, dtype=torch.bfloat16, device=card, seed=2)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(7)
+    lat, ctx, t = torch.randn((1, 4, 16, 16, 16), generator=gen), torch.randn((1, 16, 64), generator=gen), torch.tensor([600.0])
+    kw = dict(attn_cfg=attn, routing_mode="hard", mm_precision="int8")
+    n = cfg.num_layers
+    stacks = {}
+    for where, model, dev in (("gpu", gpu, card), ("cpu", cpu, "cpu")):
+        stacks[where] = random_block_stack("blocks", model.blocks[0], n, 8, 5, dev)
+        for key, w in stacks[where].leaves.items():
+            if "router" in key:  # one-hot routing, as above
+                stacks[where].set_leaf(key, torch.zeros_like(w) if "kernel" in key else
+                                       (torch.eye(3)[[0, 1, 2, 2]].reshape(-1) * 4.0)
+                                       .to(w).expand_as(w).contiguous())
+    _build.reset_launches()
+    with torch.inference_mode():
+        res = gpu(lat.to(card), t.to(card), ctx.to(card), **kw)
+        launches = dict(_build.launches)
+        want = cpu(lat, t, ctx, **kw).sample
+        got_q = gpu(lat.to(card), t.to(card), ctx.to(card), quantized_blocks=stacks["gpu"], **kw)
+        want_q = cpu(lat, t, ctx, quantized_blocks=stacks["cpu"], **kw).sample
+    assert (res.expert_ids == np.array([0, 1, 2, 2])).all()
+    assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
+                        "fused_norm": 2 * n + 1, "prologue": n, "flash_manual": 2 * n,
+                        "flash_manual_int8": 2 * n, "sta_pipe": n, "pool_qkv": n, "unpool": n}
+    for got, ref in ((res.sample, want), (got_q.sample, want_q)):
+        got = got.float().cpu()
+        assert torch.isfinite(got).all()
+        assert ((got - ref).norm() / ref.norm()).item() < 0.05
+
+
+@pytest.mark.parametrize("mode", ["off", "hard"])
+def test_quantized_hunyuan_forward_on_card_matches_cpu(card, mode):
+    """qk_int8 + mm int8 on a 1 + 1-block model, routing off (FULL in int8
+    on both blocks) and hard: card against CPU, rel L2 below 0.05."""
+    from vorta_tpu_torch.config import AttentionConfig
+    from vorta_tpu_torch.models.hunyuan import HunyuanModel
+
+    cfg = _hunyuan_card_cfg()
+    attn = AttentionConfig(latent_shape=(4, 6, 16), sta_tile=(4, 6, 8), lowres_window=(2, 2, 2),
+                           block_q=32, block_kv=32, qk_int8=True)
+    cpu = HunyuanModel(cfg, dtype=torch.float32, device="cpu", seed=4)
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(torch.eye(3).reshape(-1) * 4.0)
+    gpu = HunyuanModel(cfg, dtype=torch.bfloat16, device=card, seed=4)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(8)
+    args = (torch.randn((1, 4, 12, 32, 16), generator=gen), torch.tensor([600.0]),
+            torch.randn((1, 24, 64), generator=gen), (torch.arange(24) < 17)[None],
+            torch.randn((1, 32), generator=gen))
+    kw = dict(attn_cfg=attn, routing_mode=mode, mm_precision="int8")
+    _build.reset_launches()
+    with torch.inference_mode():
+        got = gpu(*(x.to(card) for x in args), guidance=torch.tensor([6000.0], device=card),
+                  **kw).sample.float().cpu()
+        launches = dict(_build.launches)
+        want = cpu(*args, guidance=torch.tensor([6000.0]), **kw).sample
+    assert launches["flash_manual_int8"] == (2 if mode == "off" else 4)
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() < 0.05
+
+
+def test_cli_quantized_on_card(card, tmp_path):
+    """The CLI's four flags on the card: wan-tiny routed with all four
+    (static scales from a table), hunyuan-tiny off with int8 QK and W8A8."""
+    from vorta_tpu_torch.cli.sample import main
+
+    sites = ["attn1.to_q", "attn1.to_k", "attn1.to_v", "attn1.to_out", "attn2.to_q",
+             "attn2.to_out", "ffn.proj_in", "ffn.proj_out"]
+    np.savez(tmp_path / "scales.npz", **{s: np.full(2, 0.05, np.float32) for s in sites})
+    out = tmp_path / "q.npy"
+    res = main(["--model", "wan-tiny", "--random_embeds", "--num_frames", "13", "--height", "64",
+                "--width", "64", "--num_inference_steps", "2", "--qk_int8", "--mm", "int8",
+                "--act_scales", str(tmp_path / "scales.npz"), "--quantize_blocks", "int4",
+                "--output", str(out)])
+    assert np.isfinite(np.load(out)).all() and len(res.routing) == 4
+    res = main(["--model", "hunyuan-tiny", "--random_embeds", "--num_frames", "13",
+                "--height", "96", "--width", "256", "--num_inference_steps", "2",
+                "--native_attention", "--qk_int8", "--mm", "int8", "--quantize_blocks", "int8",
+                "--output", str(tmp_path / "hy.npy")])
+    assert np.isfinite(np.load(tmp_path / "hy.npy")).all()

@@ -180,10 +180,13 @@ def test_unported_options_raise(models, inputs):
     _, tmodel, _ = models
     args = _args(inputs, 500.0, False)
     kw = dict(attn_cfg=AttentionConfig(**ATTN))
-    for bad in (dict(return_losses=True), dict(remat_blocks=True), dict(mm_precision="int8"),
-                dict(sp_axis="sp"), dict(step_cache=object())):
+    for bad in (dict(return_losses=True), dict(remat_blocks=True), dict(sp_axis="sp"),
+                dict(step_cache=object())):
         with pytest.raises(NotImplementedError):
             tmodel(*args, **kw, **bad)
+    # W8A8 is served (tests/test_torch_port_quant_hunyuan.py holds it to JAX)
+    with torch.no_grad():
+        assert torch.isfinite(tmodel(*args, **kw, mm_precision="int8").sample).all()
     with pytest.raises(ValueError, match="routing mode"):
         tmodel(*args, **kw, routing_mode="hard_ref")
     with pytest.raises(NotImplementedError, match="token"):

@@ -188,16 +188,21 @@ def test_flash_manual_matches_pallas(valid, per_head_index, d):
 
 
 def test_flash_manual_unported_options_raise():
-    """kv_bias is served (the joint experts' text mask); per-head kv_valid,
-    pair_bits, int8 QK and the stable softmax still raise."""
+    """kv_bias and int8 QK are served (the joint experts' text mask,
+    quantized serving); per-head kv_valid, pair_bits and the stable softmax
+    still raise."""
     q = torch.zeros((1, 2, 32, 64))
     tab = tables_from_block_mask(np.ones((1, 1), bool))
     kw = dict(block_q=32, block_kv=32)
     out = sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count,
                                         kv_bias=torch.zeros((1, 32)), **kw)
     assert out.shape == q.shape
+    q8 = q.to(torch.int8)
+    out = sparse_flash_attention_manual(q8, q8, q, tab.kv_index, tab.kv_count,
+                                        qk_scale=torch.ones(2), **kw)
+    assert out.shape == q.shape and out.dtype == q.dtype
     for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=torch.zeros((1, 1, 1))),
-                dict(qk_scale=torch.ones(2)), dict(softmax="stable")):
+                dict(softmax="stable")):
         with pytest.raises(NotImplementedError):
             sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count, **kw, **bad)
 
@@ -288,8 +293,11 @@ def test_unserved_geometries_and_options_raise(monkeypatch):
     ids = torch.tensor([FULL, STA, LOWRES, STA])
     with pytest.raises(NotImplementedError, match="sta_batched"):  # tiles do not divide
         fused_routed_attention(q, k, v, ids, AttentionConfig(**{**ROUTED, "sta_tile": (3, 2, 2)}))
-    with pytest.raises(NotImplementedError, match="qk_int8"):
-        fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED, qk_int8=True))
+    # qk_int8 is served: the STA heads stay bf16, bitwise
+    out8 = fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED, qk_int8=True))
+    out = fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED))
+    torch.testing.assert_close(out8[:, ids == STA], out[:, ids == STA], rtol=0, atol=0)
+    assert (out8[:, ids != STA] - out[:, ids != STA]).abs().mean() < 0.05 * out.abs().mean()
     monkeypatch.setenv("VORTA_ROUTED_DISPATCH", "switch")
     with pytest.raises(NotImplementedError, match="masked dispatch"):
         fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED))

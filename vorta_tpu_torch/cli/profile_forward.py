@@ -15,7 +15,10 @@ teacher interleaved, per-block recompute, the backward to the routers),
 at the trainer's geometry, after one warm-up micro-step.  ``--model
 hunyuan-13B`` profiles HunyuanVideo-13B (60 blocks, random weights and
 routers, random text states with 83 of 256 tokens valid, embedded guidance
-6.0) at the CLI's attention geometry, routing off or hard.
+6.0) at the CLI's attention geometry, routing off or hard.  The sample
+CLI's quantized serving flags apply as there: ``--qk_int8``, ``--mm int8``,
+``--act_scales x.npz`` and ``--quantize_blocks int4|int8`` (with ``--model
+wan-14B`` too).
 
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 21 --height 480 --width 832
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --routing hard
@@ -25,6 +28,8 @@ routers, random text states with 83 of 256 tokens valid, embedded guidance
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --train
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
       --height 720 --width 1280 --routing hard
+  python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
+      --height 720 --width 1280 --t 500 --qk_int8 --mm int8
 """
 
 from __future__ import annotations
@@ -38,10 +43,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import WAN_1_3B, AttentionConfig
+from ..config import WAN_1_3B, WAN_14B, AttentionConfig
 from ..device import resolve_device
 from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
-from ..io.from_jax import load_jax_params, load_router_npz
+from ..io.from_jax import load_act_scales, load_jax_params, load_router_npz
+from ..io.quant_serving import build_quantized_hunyuan, build_quantized_wan
 from ..models.hunyuan import HUNYUAN_13B, HunyuanModel
 from ..models.wan import WanModel
 from .sample import RANDOM_TEXT_VALID, attention_config
@@ -75,7 +81,7 @@ def _group(name: str) -> str:
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", default="wan-1_3B", choices=["wan-1_3B", "hunyuan-13B"])
+    p.add_argument("--model", default="wan-1_3B", choices=["wan-1_3B", "wan-14B", "hunyuan-13B"])
     p.add_argument("--num_frames", type=int, default=21)
     p.add_argument("--height", type=int, default=480)
     p.add_argument("--width", type=int, default=832)
@@ -85,28 +91,42 @@ def main(argv=None) -> dict:
     p.add_argument("--t", type=float, default=900.0, help="timestep")
     p.add_argument("--train", action="store_true",
                    help="profile one router-training micro-step instead of a forward")
+    p.add_argument("--mm", default="bf16", choices=["bf16", "int8"])
+    p.add_argument("--qk_int8", action="store_true")
+    p.add_argument("--act_scales", default=None, help="npz {site: (L,)} static int8 scales")
+    p.add_argument("--quantize_blocks", default=None, choices=["int4", "int8"])
     args = p.parse_args(argv)
-    if args.model == "hunyuan-13B" and (args.train or args.router):
+    if args.model != "wan-1_3B" and (args.train or args.router):
         p.error("--train and --router profile Wan-1.3B only")
+    quant = args.mm != "bf16" or args.qk_int8 or args.act_scales or args.quantize_blocks
+    if args.train and quant:
+        p.error("the quantized serving flags profile forwards, not training")
 
     from torch.profiler import ProfilerActivity, profile
 
     device = resolve_device("cuda")
+    serve = dict(mm_precision=args.mm,
+                 act_scales=load_act_scales(args.act_scales) if args.act_scales else None)
+    bits = int(args.quantize_blocks[3:]) if args.quantize_blocks else None
     if args.model == "hunyuan-13B":
-        grid, attn, run = _hunyuan_forward(args, device)
+        grid, attn, run = _hunyuan_forward(args, device, serve, bits)
         return _profile(args, HUNYUAN_13B.dual_layers + HUNYUAN_13B.single_layers, grid, attn,
                         run, device, profile, ProfilerActivity)
-    cfg = WAN_1_3B
+    cfg = WAN_14B if args.model == "wan-14B" else WAN_1_3B
     grid = WAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
-    model = WanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    if bits:
+        model, serve["quantized_blocks"] = build_quantized_wan(cfg, bits, seed=0,
+                                                               device=device)
+    else:
+        model = WanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
     g = torch.Generator(device=device).manual_seed(1)
     lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], cfg.in_channels), generator=g,
                       device=device)
     ctx = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g, device=device)
     t = torch.tensor([args.t], device=device)
-    attn = AttentionConfig(latent_shape=grid)
+    attn = AttentionConfig(latent_shape=grid, qk_int8=args.qk_int8)
     if args.routing == "hard":
-        attn = attention_config("wan-1_3B", grid)
+        attn = dataclasses.replace(attention_config("wan-1_3B", grid), qk_int8=args.qk_int8)
         if args.sta_tile:
             attn = dataclasses.replace(attn, sta_tile=tuple(args.sta_tile))
         if args.router:
@@ -118,19 +138,23 @@ def main(argv=None) -> dict:
     else:
         def run():
             with torch.inference_mode():
-                return model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing)
+                return model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing, **serve)
     return _profile(args, cfg.num_layers, grid, attn, run, device, profile, ProfilerActivity)
 
 
-def _hunyuan_forward(args, device):
+def _hunyuan_forward(args, device, serve: dict, bits):
     """(grid, attention config, closure of one HunyuanVideo-13B forward) at
     the CLI's geometry."""
     cfg = HUNYUAN_13B
     grid = HUNYUAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
-    attn = attention_config("hunyuan-13B", grid)
+    attn = dataclasses.replace(attention_config("hunyuan-13B", grid), qk_int8=args.qk_int8)
     if args.sta_tile:
         attn = dataclasses.replace(attn, sta_tile=tuple(args.sta_tile))
-    model = HunyuanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    if bits:
+        model, serve["quantized_blocks"] = build_quantized_hunyuan(cfg, bits, seed=0,
+                                                                   device=device)
+    else:
+        model = HunyuanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
     g = torch.Generator(device=device).manual_seed(1)
     lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], cfg.in_channels), generator=g,
                       device=device)
@@ -143,7 +167,7 @@ def _hunyuan_forward(args, device):
     def run():
         with torch.inference_mode():
             return model(lat, t, text, mask, pooled, guidance=guidance, attn_cfg=attn,
-                         routing_mode=args.routing)
+                         routing_mode=args.routing, **serve)
     return grid, attn, run
 
 
@@ -176,6 +200,8 @@ def _profile(args, layers: int, grid, attn, run, device, profile, ProfilerActivi
                          np.bincount(out.expert_ids.reshape(-1), minlength=3).tolist()))
     result = {
         "model": args.model, "tokens": grid[0] * grid[1] * grid[2], "layers": layers,
+        "quantization": {"mm": args.mm, "qk_int8": args.qk_int8,
+                         "act_scales": args.act_scales, "quantize_blocks": args.quantize_blocks},
         "routing": "soft (train micro-step)" if args.train else args.routing, "t": args.t,
         "sta_tile": attn.sta_tile if heads or args.train else None,
         "max_memory_gib": torch.cuda.max_memory_allocated(device) / 2**30,

@@ -12,6 +12,14 @@ step-XXXXXX``), and ``--resume_dir`` reads that run's attention geometry
 from its ``config.json``.  Writes the final latents as .npy and prints the
 heads routed to each expert.
 
+Quantized serving, the JAX CLI's four flags: ``--qk_int8`` runs the full
+and low-res experts' QK^T in int8 (flash_manual's int8 mode; sliding-tile
+stays bf16), ``--mm int8`` the block projections in W8A8 (ops/qmm.py),
+``--act_scales x.npz`` gives them static activation scales (the JAX
+tool's ``{site: (L,)}`` table, tools/calibrate_int8.py), and
+``--quantize_blocks int4|int8`` serves the blocks from a quantized stack
+through a depth-1 model (io/quant_serving.py; random weights from the seed).
+
 Example:
   python -m vorta_tpu_torch.cli.sample --model wan-1_3B --random_embeds \\
       --num_frames 77 --num_inference_steps 2 --output out.npy
@@ -31,6 +39,8 @@ from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
 from ..device import resolve_device
 from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
 from ..io.checkpoint import apply_router_state, load_router_checkpoint
+from ..io.from_jax import load_act_scales
+from ..io.quant_serving import build_quantized_hunyuan, build_quantized_wan
 from ..models.hunyuan import HUNYUAN_13B, HUNYUAN_TINY, HunyuanModel
 from ..models.wan import WanModel
 from ..pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
@@ -56,6 +66,15 @@ def parse_args(argv=None):
     p.add_argument("--native_attention", action="store_true",
                    help="full 3D attention baseline (routing off)")
     p.add_argument("--tau_sparse", type=float, default=0.3)
+    p.add_argument("--mm", default="bf16", choices=["bf16", "int8"],
+                   help="int8: W8A8 block projections (ops/qmm.py)")
+    p.add_argument("--qk_int8", action="store_true",
+                   help="int8 QK^T in the full / low-res experts (sliding-tile stays bf16)")
+    p.add_argument("--act_scales", default=None,
+                   help="npz of static int8 activation scales {site: (L,)} for --mm int8")
+    p.add_argument("--quantize_blocks", default=None, choices=["int4", "int8"],
+                   help="serve the blocks from an int4 / int8 stack, one block dequantized "
+                        "at a time (io/quant_serving.py)")
     p.add_argument("--prompt_embeds", default=None, help=".npy UMT5 states (L, text_dim)")
     p.add_argument("--random_embeds", action="store_true")
     p.add_argument("--num_frames", type=int, default=77)
@@ -126,9 +145,18 @@ def main(argv=None) -> SampleResult:
             raise ValueError(f"config.json geometry {attn_cfg.latent_shape} != requested "
                              f"video grid {grid}")
         attn_cfg = dataclasses.replace(attn_cfg, tau_sparse=args.tau_sparse)
+    if args.qk_int8:
+        attn_cfg = dataclasses.replace(attn_cfg, qk_int8=True)
     routing_mode = "off" if args.native_attention else "hard"
+    act_scales = None
+    if args.act_scales:
+        act_scales = load_act_scales(args.act_scales)
+        print(f"[sample] static int8 scales: {len(act_scales)} sites from {args.act_scales}",
+              flush=True)
+    bits = int(args.quantize_blocks[3:]) if args.quantize_blocks else None
     if hunyuan:
-        return _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode)
+        return _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode,
+                             act_scales, bits)
     router_state = None
     if args.router_checkpoint:
         rp = Path(args.router_checkpoint)
@@ -137,13 +165,19 @@ def main(argv=None) -> SampleResult:
                 f"{rp.name}: reference torch router checkpoints need the weight importer "
                 "(io/torch_import), a later port slice; pass a step dir of the port's trainer")
         router_state, _ = load_router_checkpoint(rp)
-    print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}",
-          flush=True)
+    print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}"
+          f"{_quant_note(args)}", flush=True)
 
     t0 = time.time()
-    model = WanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+    qblocks = None
+    if bits:
+        model, qblocks = build_quantized_wan(model_cfg, bits, router_state=router_state,
+                                             seed=args.seed, dtype=dtype, device=device)
+    else:
+        model = WanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+        if router_state is not None:
+            apply_router_state(model, router_state)
     if router_state is not None:
-        apply_router_state(model, router_state)
         print(f"[sample] router loaded from {args.router_checkpoint}", flush=True)
     gen = torch.Generator(device=device)
     if args.prompt_embeds:
@@ -155,7 +189,8 @@ def main(argv=None) -> SampleResult:
     else:
         raise SystemExit("need --prompt_embeds or --random_embeds")
     ne = torch.zeros_like(pe)  # the unconditional (empty) prompt
-    pipe = WanT2VPipeline(model, attn_cfg=attn_cfg)
+    pipe = WanT2VPipeline(model, attn_cfg=attn_cfg, act_scales=act_scales,
+                          quantized_blocks=qblocks)
     latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
                                    args.height, args.width)
     if device.type == "cuda":
@@ -166,11 +201,19 @@ def main(argv=None) -> SampleResult:
     sampling = SamplingConfig(
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
         flow_shift=args.flow_shift, scheduler=args.scheduler or "unipc",
-        routing_mode=routing_mode)
+        routing_mode=routing_mode, mm_precision=args.mm)
     routing = []
     t0 = time.time()
     final = pipe(latents, pe, ne, sampling=sampling, routing=routing)
     return _finish(args, device, final, build_s, t0, routing)
+
+
+def _quant_note(args) -> str:
+    on = [f"mm={args.mm}"] if args.mm != "bf16" else []
+    on += ["qk_int8"] if args.qk_int8 else []
+    on += [f"act_scales={args.act_scales}"] if args.act_scales else []
+    on += [f"quantize_blocks={args.quantize_blocks}"] if args.quantize_blocks else []
+    return (" " + " ".join(on)) if on else ""
 
 
 def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
@@ -192,16 +235,21 @@ def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
     return SampleResult(final, build_s, dt, args.num_inference_steps, routing)
 
 
-def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg,
-                  routing_mode: str) -> SampleResult:
+def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: str,
+                  act_scales, bits) -> SampleResult:
     """HunyuanVideo sampling (the JAX CLI's _main_hunyuan, latents out)."""
     if args.router_checkpoint:
         raise NotImplementedError("Hunyuan router checkpoints come from Hunyuan router "
                                   "training, a later slice of the port")
-    print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}",
-          flush=True)
+    print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}"
+          f"{_quant_note(args)}", flush=True)
     t0 = time.time()
-    model = HunyuanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+    qblocks = None
+    if bits:
+        model, qblocks = build_quantized_hunyuan(model_cfg, bits, seed=args.seed, dtype=dtype,
+                                                 device=device)
+    else:
+        model = HunyuanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
     gen = torch.Generator(device=device)
     lt = model_cfg.text_len
     if args.prompt_embeds:
@@ -216,7 +264,8 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg,
         mask = (torch.arange(lt, device=device) < valid)[None]
     else:
         raise SystemExit("need --prompt_embeds or --random_embeds")
-    pipe = HunyuanT2VPipeline(model, attn_cfg=attn_cfg)
+    pipe = HunyuanT2VPipeline(model, attn_cfg=attn_cfg, act_scales=act_scales,
+                              quantized_blocks=qblocks)
     latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
                                    args.height, args.width)
     if device.type == "cuda":
@@ -227,7 +276,7 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg,
     sampling = HunyuanSamplingConfig(
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
         flow_shift=args.flow_shift, scheduler=args.scheduler or "euler",
-        routing_mode=routing_mode)
+        routing_mode=routing_mode, mm_precision=args.mm)
     routing = []
     t0 = time.time()
     final = pipe(latents, text, mask, pooled, sampling=sampling, routing=routing)

@@ -26,7 +26,16 @@
 // the running max there is no rescaling of the accumulator, so each
 // sub-tile costs the two products, one exp2 per score and the row sums.
 // Simple first: no wgmma, TMA or cp.async pipelining yet.
-#include "mma_bf16.cuh"
+//
+// The int8 QK mode (qk_scale, flash_manual.py:125-133): q and k arrive as
+// int8 (symmetric per-head quantization), q not pre-scaled, with an (H,) f32
+// qk_scale = q_scale * k_scale; the scores are the exact int32 sums of
+// mma.sync m16n8k32 s8 (mma_s8.cuh), turned into f32 by one multiply with
+// qk_scale[h] * scale * log2(e), before the bias and the tail rule.  K's
+// shared-memory tile halves; V, P and the PV product stay bf16.  The card
+// runs int8 mma at twice the bf16 rate (1,979 vs 989 T/s dense), so the QK
+// half of the work is bounded at half the time.
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -34,20 +43,24 @@ using namespace vorta;
 
 constexpr int BLOCK_N = 64;  // kv rows per shared-memory sub-tile
 
-template <int D, int WARPS>
+// I8: q and k are int8 (qk_scale mode), handled as rows of DK = D / 2 b16
+// values; else bf16, DK = D.
+template <int D, int WARPS, bool I8>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     const int* __restrict__ kv_index, const int* __restrict__ kv_count,
-                    const float* __restrict__ kv_bias, int H, int Sq, int Skv, int nq, int width,
-                    int shared_idx, int shared_cnt, int block_q, int block_kv, int last_block,
-                    int valid_in_block) {
+                    const float* __restrict__ kv_bias, const float* __restrict__ qkc,
+                    int H, int Sq, int Skv, int nq, int width, int shared_idx, int shared_cnt,
+                    int block_q, int block_kv, int last_block, int valid_in_block) {
   constexpr int BLOCK_M = 16 * WARPS;
-  constexpr int LDS = D + 8;  // padded row: conflict-free ldmatrix
+  constexpr int DK = I8 ? D / 2 : D;  // a q / k row in b16 units
+  constexpr int LDK = DK + 8;  // padded rows: conflict-free ldmatrix
+  constexpr int LDS = D + 8;
   constexpr int NT_S = BLOCK_N / 8;
   constexpr int NT_O = D / 8;
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_N * LDS];
+  constexpr int CHUNKS = D / 8;  // 16-byte chunks per V row
+  __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_N * LDK];
   __shared__ __align__(16) __nv_bfloat16 Vs[BLOCK_N * LDS];
   __shared__ float Bs[BLOCK_N];  // the sub-tile's slice of kv_bias (0 without one)
 
@@ -58,12 +71,13 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int row0 = blockIdx.x * BLOCK_M;
   const int qi = row0 / block_q;
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const __nv_bfloat16* qp = q + (bh * Sq + row0 + warp * 16) * D;
-  const __nv_bfloat16* kp = k + bh * Skv * D;
+  const __nv_bfloat16* qp = q + (bh * Sq + row0 + warp * 16) * DK;
+  const __nv_bfloat16* kp = k + bh * Skv * DK;
   const __nv_bfloat16* vp = v + bh * Skv * D;
 
-  uint32_t qa[D / 16][4];
-  load_q_frags<D>(qa, qp + g * D, qp + (g + 8) * D, t);
+  uint32_t qa[DK / 16][4];
+  load_q_frags<DK>(qa, qp + g * DK, qp + (g + 8) * DK, t);
+  const float qk_factor = I8 ? qkc[h] : 1.f;
   float oacc[NT_O][4];
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
@@ -81,22 +95,43 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       if (nvalid <= 0) continue;  // fully masked: adds nothing to acc or l
       const size_t base = static_cast<size_t>(kvb) * block_kv + n0;
       __syncthreads();  // previous sub-tile fully consumed
-      for (int e = tid; e < BLOCK_N * CHUNKS; e += WARPS * 32) {
-        const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-        uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-        if (r < rows) {
-          kv4 = *reinterpret_cast<const uint4*>(kp + (base + r) * D + c);
-          vv4 = *reinterpret_cast<const uint4*>(vp + (base + r) * D + c);
+      if constexpr (I8) {
+        // K's rows are half as long as V's: one pass each (a merged pass,
+        // as below, ran this mode 1.4x slower on the H100)
+        for (int e = tid; e < BLOCK_N * DK / 8; e += WARPS * 32) {
+          const int r = e / (DK / 8), c = (e % (DK / 8)) * 8;
+          *reinterpret_cast<uint4*>(Ks + r * LDK + c) =
+              r < rows ? *reinterpret_cast<const uint4*>(kp + (base + r) * DK + c)
+                       : make_uint4(0, 0, 0, 0);
         }
-        *reinterpret_cast<uint4*>(Ks + r * LDS + c) = kv4;
-        *reinterpret_cast<uint4*>(Vs + r * LDS + c) = vv4;
+        for (int e = tid; e < BLOCK_N * CHUNKS; e += WARPS * 32) {
+          const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
+          *reinterpret_cast<uint4*>(Vs + r * LDS + c) =
+              r < rows ? *reinterpret_cast<const uint4*>(vp + (base + r) * D + c)
+                       : make_uint4(0, 0, 0, 0);
+        }
+      } else {
+        // one pass, both loads issued before the stores
+        for (int e = tid; e < BLOCK_N * CHUNKS; e += WARPS * 32) {
+          const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
+          uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+          if (r < rows) {
+            kv4 = *reinterpret_cast<const uint4*>(kp + (base + r) * D + c);
+            vv4 = *reinterpret_cast<const uint4*>(vp + (base + r) * D + c);
+          }
+          *reinterpret_cast<uint4*>(Ks + r * LDK + c) = kv4;
+          *reinterpret_cast<uint4*>(Vs + r * LDS + c) = vv4;
+        }
       }
       for (int r = tid; r < BLOCK_N; r += WARPS * 32)
         Bs[r] = (kv_bias != nullptr && r < rows) ? kv_bias[base + r] : 0.f;
       __syncthreads();
 
       float s[NT_S][4];
-      qk_tile<D, NT_S, LDS>(s, qa, Ks, lane);
+      if constexpr (I8)
+        qk_tile_s8<DK, NT_S, LDK>(s, qa, Ks, qk_factor, lane);
+      else
+        qk_tile<D, NT_S, LDS>(s, qa, Ks, lane);
 #pragma unroll
       for (int n = 0; n < NT_S; ++n) {
 #pragma unroll
@@ -122,14 +157,14 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-template <int D, int WARPS>
+template <int D, int WARPS, bool I8>
 cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, const int* ki, const int* kc,
-                   const float* bias, int H, int Sq, int Skv, int nq, int width, int shared_idx,
-                   int shared_cnt, int block_q, int block_kv, int last_block,
-                   int valid_in_block) {
-  flash_manual_kernel<D, WARPS><<<grid, WARPS * 32, 0, st>>>(
-      q, k, v, out, ki, kc, bias, H, Sq, Skv, nq, width, shared_idx, shared_cnt, block_q,
+                   const float* bias, const float* qkc, int H, int Sq, int Skv, int nq,
+                   int width, int shared_idx, int shared_cnt, int block_q, int block_kv,
+                   int last_block, int valid_in_block) {
+  flash_manual_kernel<D, WARPS, I8><<<grid, WARPS * 32, 0, st>>>(
+      q, k, v, out, ki, kc, bias, qkc, H, Sq, Skv, nq, width, shared_idx, shared_cnt, block_q,
       block_kv, last_block, valid_in_block);
   return cudaGetLastError();
 }
@@ -139,13 +174,15 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __n
 // q (pre-scaled), k, v, out: contiguous (B, H, S, D) bf16.  kv_index
 // (idx_heads, nq, width), kv_count (cnt_heads, nq): int32 on the device,
 // idx_heads / cnt_heads 1 or H; kv_bias: (Skv,) f32 on the device, or null.
-// Returns the CUDA error code.
+// qk_factor: null, or (H,) f32 qk_scale * scale * log2(e) on the device,
+// and then q and k are int8 (q not pre-scaled).  Returns the CUDA error code.
 extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const void* v,
                                            void* out, const void* kv_index,
-                                           const void* kv_count, const void* kv_bias, int B,
-                                           int H, int Sq, int Skv, int D, int idx_heads,
-                                           int cnt_heads, int nq, int width, int block_q,
-                                           int block_kv, int kv_valid_len, void* stream) {
+                                           const void* kv_count, const void* kv_bias,
+                                           const void* qk_factor, int B, int H, int Sq,
+                                           int Skv, int D, int idx_heads, int cnt_heads, int nq,
+                                           int width, int block_q, int block_kv,
+                                           int kv_valid_len, void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 16 || (D != 64 && D != 128) ||
       (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
       nq != Sq / block_q)
@@ -162,16 +199,23 @@ extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const v
   auto* ki = static_cast<const int*>(kv_index);
   auto* kc = static_cast<const int*>(kv_count);
   auto* kb = static_cast<const float*>(kv_bias);
+  auto* qf = static_cast<const float*>(qk_factor);
   auto st = static_cast<cudaStream_t>(stream);
   const int si = idx_heads == 1, sc = cnt_heads == 1;
   auto run = [&](auto launcher) {
-    return launcher(grid, st, qq, kk, vv, oo, ki, kc, kb, H, Sq, Skv, nq, width, si, sc,
+    return launcher(grid, st, qq, kk, vv, oo, ki, kc, kb, qf, H, Sq, Skv, nq, width, si, sc,
                     block_q, block_kv, last_block, valid_in_block);
   };
   cudaError_t err;
-  if (D == 128)
-    err = warps == 4 ? run(launch<128, 4>) : run(launch<128, 1>);
-  else
-    err = warps == 4 ? run(launch<64, 4>) : run(launch<64, 1>);
+  if (qf != nullptr) {
+    if (D == 128)
+      err = warps == 4 ? run(launch<128, 4, true>) : run(launch<128, 1, true>);
+    else
+      err = warps == 4 ? run(launch<64, 4, true>) : run(launch<64, 1, true>);
+  } else if (D == 128) {
+    err = warps == 4 ? run(launch<128, 4, false>) : run(launch<128, 1, false>);
+  } else {
+    err = warps == 4 ? run(launch<64, 4, false>) : run(launch<64, 1, false>);
+  }
   return static_cast<int>(err);
 }

@@ -28,9 +28,15 @@
 // relayout pass); products on mma.sync m16n8k16 with the tile code of
 // csrc/flash.cu.  The q tiles of one window re-read its keys from L2.
 // Simple first: no wgmma, TMA or cp.async pipelining yet.
+//
+// The int8 QK mode (qk_scale, sta_pipe.py:197-210): q, k and text_k arrive
+// as int8 with an (H,) f32 qk_scale = q_scale * k_scale, q not pre-scaled;
+// the window's and the text tail's scores are exact int32 sums of mma.sync
+// m16n8k32 s8 (mma_s8.cuh) times qk_scale[h] * scale * log2(e), then as
+// above.  K's shared-memory tile halves; V, P and PV stay bf16.
 #include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -44,20 +50,24 @@ __device__ __forceinline__ int window_start(int qt, int n, int win, int tile) {
   return min(max(qt - win / 2, 0), n - win_eff) * tile;
 }
 
-template <int D, int WARPS>
+// I8: q, k and text_k are int8 (qk_scale mode), rows of DK = D / 2 b16
+// values; else bf16, DK = D.
+template <int D, int WARPS, bool I8>
 __global__ void __launch_bounds__(WARPS * 32)
 sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
            const int* __restrict__ active, const __nv_bfloat16* __restrict__ text_k,
-           const __nv_bfloat16* __restrict__ text_v, const float* __restrict__ text_bias, int Lt,
-           int H, int T, int HH, int W, int tt, int th, int tw, int win_t, int win_h, int win_w,
-           int chunks) {
+           const __nv_bfloat16* __restrict__ text_v, const float* __restrict__ text_bias,
+           const float* __restrict__ qkc, int Lt, int H, int T, int HH, int W, int tt, int th,
+           int tw, int win_t, int win_h, int win_w, int chunks) {
   constexpr int BLOCK_M = 16 * WARPS;
+  constexpr int DK = I8 ? D / 2 : D;  // a q / k row in b16 units
+  constexpr int LDK = DK + 8;
   constexpr int LDS = D + 8;
   constexpr int NT_S = BLOCK_N / 8;
   constexpr int NT_O = D / 8;
   constexpr int CHUNKS = D / 8;
-  __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_N * LDS];
+  __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_N * LDK];
   __shared__ __align__(16) __nv_bfloat16 Vs[BLOCK_N * LDS];
   __shared__ float Bs[BLOCK_N];  // text_bias of a text sub-tile
 
@@ -93,9 +103,10 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   const int nk = min(win_t, nt) * tt * bh_ * bw;
 
   const int rg = row0 + warp * 16 + g, rg8 = rg + 8;
-  uint32_t qa[D / 16][4];
-  load_q_frags<D>(qa, rg < tpt ? q + (base + q_token(rg)) * D : nullptr,
-                  rg8 < tpt ? q + (base + q_token(rg8)) * D : nullptr, t);
+  uint32_t qa[DK / 16][4];
+  load_q_frags<DK>(qa, rg < tpt ? q + (base + q_token(rg)) * DK : nullptr,
+                   rg8 < tpt ? q + (base + q_token(rg8)) * DK : nullptr, t);
+  const float qk_factor = I8 ? qkc[h] : 1.f;
   float oacc[NT_O][4];
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
@@ -106,15 +117,17 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   auto step = [&](int nvalid, auto kv_row, auto text_key) {
     constexpr bool TEXT = decltype(text_key)::value;
     __syncthreads();  // previous sub-tile fully consumed
+    // one pass over V's chunks, K's (DK / 8 per row) among them: kv_row's
+    // divisions once per chunk, both loads issued before the stores
     for (int e = tid; e < BLOCK_N * CHUNKS; e += WARPS * 32) {
       const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
       if (r < nvalid) {
         const size_t row = kv_row(r);
-        kv4 = *reinterpret_cast<const uint4*>((TEXT ? text_k : k) + row * D + c);
+        if (c < DK) kv4 = *reinterpret_cast<const uint4*>((TEXT ? text_k : k) + row * DK + c);
         vv4 = *reinterpret_cast<const uint4*>((TEXT ? text_v : v) + row * D + c);
       }
-      *reinterpret_cast<uint4*>(Ks + r * LDS + c) = kv4;
+      if (c < DK) *reinterpret_cast<uint4*>(Ks + r * LDK + c) = kv4;
       *reinterpret_cast<uint4*>(Vs + r * LDS + c) = vv4;
     }
     if constexpr (TEXT)
@@ -123,7 +136,10 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
     __syncthreads();
 
     float s[NT_S][4];
-    qk_tile<D, NT_S, LDS>(s, qa, Ks, lane);
+    if constexpr (I8)
+      qk_tile_s8<DK, NT_S, LDK>(s, qa, Ks, qk_factor, lane);
+    else
+      qk_tile<D, NT_S, LDS>(s, qa, Ks, lane);
 #pragma unroll
     for (int n = 0; n < NT_S; ++n) {
 #pragma unroll
@@ -161,17 +177,17 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   }
 }
 
-template <int D, int WARPS>
+template <int D, int WARPS, bool I8>
 cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, const int* active,
                    const __nv_bfloat16* text_k, const __nv_bfloat16* text_v,
-                   const float* text_bias, int Lt, int T, int HH, int W, int tt, int th, int tw,
-                   int win_t, int win_h, int win_w, cudaStream_t st) {
+                   const float* text_bias, const float* qkc, int Lt, int T, int HH, int W,
+                   int tt, int th, int tw, int win_t, int win_h, int win_w, cudaStream_t st) {
   const int tpt = tt * th * tw, chunks = (tpt + 16 * WARPS - 1) / (16 * WARPS);
   const dim3 grid((T / tt) * (HH / th) * (W / tw) * chunks, H, B);
-  sta_kernel<D, WARPS><<<grid, WARPS * 32, 0, st>>>(q, k, v, out, active, text_k, text_v,
-                                                     text_bias, Lt, H, T, HH, W, tt, th, tw,
-                                                     win_t, win_h, win_w, chunks);
+  sta_kernel<D, WARPS, I8><<<grid, WARPS * 32, 0, st>>>(
+      q, k, v, out, active, text_k, text_v, text_bias, qkc, Lt, H, T, HH, W, tt, th, tw, win_t,
+      win_h, win_w, chunks);
   return cudaGetLastError();
 }
 
@@ -179,13 +195,14 @@ cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 // q (pre-scaled), k, v, out: contiguous raster (B, H, T*HH*W, D) bf16;
 // active: (H,) int32 on the device; text_k / text_v: contiguous (B, H, Lt, D)
-// bf16 and text_bias (Lt,) f32, or null with Lt = 0.  Returns the CUDA error
-// code.
+// bf16 and text_bias (Lt,) f32, or null with Lt = 0.  qk_factor: null, or
+// (H,) f32 qk_scale * scale * log2(e) on the device, and then q, k and
+// text_k are int8 (q not pre-scaled).  Returns the CUDA error code.
 extern "C" int vorta_sta_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                   const void* active, const void* text_k, const void* text_v,
-                                  const void* text_bias, int Lt, int B, int H, int T, int HH,
-                                  int W, int D, int tt, int th, int tw, int win_t, int win_h,
-                                  int win_w, void* stream) {
+                                  const void* text_bias, const void* qk_factor, int Lt, int B,
+                                  int H, int T, int HH, int W, int D, int tt, int th, int tw,
+                                  int win_t, int win_h, int win_w, void* stream) {
   if (T % tt || HH % th || W % tw || (D != 64 && D != 128) || win_t < 1 || win_h < 1 ||
       win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -198,18 +215,25 @@ extern "C" int vorta_sta_fwd_bf16(const void* q, const void* k, const void* v, v
   auto* tk = static_cast<const bf*>(text_k);
   auto* tv = static_cast<const bf*>(text_v);
   auto* tb = static_cast<const float*>(text_bias);
+  auto* qf = static_cast<const float*>(qk_factor);
   auto st = static_cast<cudaStream_t>(stream);
   auto run = [&](auto launcher) {
-    return launcher(B, H, qq, kk, vv, oo, act, tk, tv, tb, Lt, T, HH, W, tt, th, tw, win_t,
+    return launcher(B, H, qq, kk, vv, oo, act, tk, tv, tb, qf, Lt, T, HH, W, tt, th, tw, win_t,
                     win_h, win_w, st);
   };
   // 2 warps (32 q rows) where that tiles the q tile exactly and 4 would not
   const int tpt = tt * th * tw;
   const bool two = tpt % 64 != 0 && tpt % 32 == 0;
   cudaError_t err;
-  if (D == 128)
-    err = two ? run(launch<128, 2>) : run(launch<128, 4>);
-  else
-    err = two ? run(launch<64, 2>) : run(launch<64, 4>);
+  if (qf != nullptr) {
+    if (D == 128)
+      err = two ? run(launch<128, 2, true>) : run(launch<128, 4, true>);
+    else
+      err = two ? run(launch<64, 2, true>) : run(launch<64, 4, true>);
+  } else if (D == 128) {
+    err = two ? run(launch<128, 2, false>) : run(launch<128, 4, false>);
+  } else {
+    err = two ? run(launch<64, 2, false>) : run(launch<64, 4, false>);
+  }
   return static_cast<int>(err);
 }

@@ -29,6 +29,15 @@ package's router training (``bench.py:load_router_npz``'s input, e.g.
 ``load_jax_params`` carries any subset of the parameters into a built
 model, e.g. ``port_assets/wan1_3b_time_embedder_rngs0.npz``, the time
 embedder that the trained router was trained against.
+
+Quantized serving: ``block_stack_from_jax`` carries a JAX quantized block
+stack (``io/quant_serving``'s, its ``QTensor`` leaves given as dicts of
+numpy ``q`` / ``scale`` and ``shape`` / ``dtype`` / ``bits``) into the port's
+``ops.quant.BlockStack``, keeping the JAX layout; ``block_targets`` maps
+each of its leaves onto a port block's parameter (and the rows of it, for
+the fused projections), ``block_leaf_shapes`` goes the other way, from a
+port block to the JAX leaves, in the JAX package's flattening order.
+``load_act_scales`` reads the JAX tool's static int8 scale table.
 """
 
 from __future__ import annotations
@@ -124,19 +133,28 @@ def wan_state_from_jax(flat: dict, cfg: WanModelConfig) -> dict:
     return _check_against(state, WanModel(cfg, device="meta").state_dict())
 
 
+# per block stack: (prefix, the JAX projections, the port's fused one)
+FUSED = {
+    "blocks": (("attn1.", ("to_q", "to_k", "to_v"), "qkv"),),
+    "dual_blocks": (("attn.", ("to_q", "to_k", "to_v"), "qkv"),
+                    ("attn.", ("add_q_proj", "add_k_proj", "add_v_proj"), "add_qkv")),
+    "single_blocks": (("", ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp"), "qkv_mlp"),),
+}
+
+
+def _fuse_stacks(state: dict, stacks: dict) -> None:
+    for stack, n in stacks.items():
+        for i in range(n):
+            for prefix, parts, fused in FUSED[stack]:
+                _fuse(state, f"{stack}.{i}.{prefix}", parts, fused)
+
+
 def _fuse_wan(state: dict, num_layers: int) -> None:
-    for i in range(num_layers):
-        _fuse(state, f"blocks.{i}.attn1.", ("to_q", "to_k", "to_v"), "qkv")
+    _fuse_stacks(state, {"blocks": num_layers})
 
 
 def _fuse_hunyuan(state: dict, stacks: dict) -> None:
-    for i in range(stacks.get("dual_blocks", 0)):
-        pre = f"dual_blocks.{i}.attn."
-        _fuse(state, pre, ("to_q", "to_k", "to_v"), "qkv")
-        _fuse(state, pre, ("add_q_proj", "add_k_proj", "add_v_proj"), "add_qkv")
-    for i in range(stacks.get("single_blocks", 0)):
-        _fuse(state, f"single_blocks.{i}.", ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp"),
-              "qkv_mlp")
+    _fuse_stacks(state, stacks)
 
 
 def hunyuan_state_from_jax(flat: dict, cfg, meta: bool = False) -> dict:
@@ -206,3 +224,88 @@ def load_jax_params(model, source) -> None:
     with torch.no_grad():
         for name, t in state.items():
             params[name].copy_(t)
+
+
+# --- quantized block stacks -------------------------------------------------------
+
+
+def _keystr(parts) -> str:
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']" for p in parts) + ".value"
+
+
+def _fused_part(stack: str, block, name: str):
+    """(fused parameter name, first row) where ``name`` (a JAX-named port
+    parameter, e.g. "attn1.to_k.weight") is part of a fused projection."""
+    for prefix, parts, fused in FUSED[stack]:
+        for j, part in enumerate(parts):
+            if name.startswith(f"{prefix}{part}."):
+                sizes = block.get_submodule(prefix + fused).out_sizes
+                return f"{prefix}{fused}.{name.rsplit('.', 1)[1]}", sum(sizes[:j])
+    return name, 0
+
+
+def block_targets(stack: str, block, keys) -> dict:
+    """{JAX leaf path: (port parameter, first row, transpose)} for one block
+    of ``stack``; every parameter of ``block`` must be covered exactly."""
+    params = dict(block.named_parameters())
+    targets, covered = {}, {}
+    for key in keys:
+        parts = _parts(key)
+        kernel = parts[-1] == "kernel"
+        name = ".".join(parts[:-1] + ["weight"] if kernel else parts)
+        param, row0 = _fused_part(stack, block, name)
+        if param not in params:
+            raise KeyError(f"{stack} leaf {key}: the block has no parameter {param}")
+        targets[key] = (param, row0, kernel)
+        covered[param] = covered.get(param, 0) + 1
+    missing = sorted(set(params) - set(covered))
+    if missing:
+        raise KeyError(f"{stack}: no leaf for {missing[:8]}")
+    return targets
+
+
+def block_leaf_shapes(stack: str, block, depth: int) -> dict:
+    """{JAX leaf path: (depth, ...) shape in the JAX layout} of one port
+    block, in the JAX package's flattening order (sorted paths)."""
+    leaves = {}
+    for name, p in block.named_parameters():
+        owner, tail = name.rsplit(".", 1) if "." in name else ("", name)
+        module = block.get_submodule(owner)
+        pieces = [(name, tuple(p.shape))]
+        for pre, parts, fused in FUSED[stack]:
+            if owner == pre + fused:
+                pieces = [(f"{pre}{part}.{tail}", (n,) + tuple(p.shape[1:]))
+                          for part, n in zip(parts, module.out_sizes)]
+        for pname, shape in pieces:
+            parts = pname.split(".")
+            if isinstance(module, torch.nn.Linear) and tail == "weight":
+                parts[-1], shape = "kernel", shape[::-1]
+            leaves[tuple(parts)] = (depth,) + shape
+    return {_keystr(k): leaves[k] for k in sorted(leaves)}
+
+
+def qtensor_from_jax(leaf: dict):
+    """A JAX ``QTensor``, as {"q", "scale", "shape", "dtype", "bits"} of numpy
+    arrays and its static fields, -> ``ops.quant.QTensor``."""
+    from ..ops.quant import QTensor
+
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+             "float16": torch.float16}[np.dtype(leaf["dtype"]).name]
+    return QTensor(q=_to_tensor(leaf["q"]), scale=_to_tensor(leaf["scale"]).float(),
+                   shape=tuple(leaf["shape"]), dtype=dtype, bits=int(leaf["bits"]))
+
+
+def block_stack_from_jax(flat: dict, stack: str):
+    """{JAX leaf path: array, or a QTensor's dict} of one stacked block state
+    (the JAX package's quantized stack) -> ``ops.quant.BlockStack``."""
+    from ..ops.quant import BlockStack
+
+    return BlockStack({key: qtensor_from_jax(v) if isinstance(v, dict) else _to_tensor(v)
+                       for key, v in flat.items()}, stack)
+
+
+def load_act_scales(source) -> dict:
+    """The JAX tool's static int8 activation scales (an npz path or a
+    mapping, ``{site: (L,) scale}``) -> {site: (L,) f32 tensor}."""
+    data = np.load(source) if isinstance(source, (str, Path)) else source
+    return {k: torch.from_numpy(np.asarray(data[k], np.float32).reshape(-1)) for k in data}

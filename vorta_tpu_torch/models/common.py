@@ -10,6 +10,7 @@ sinusoid, ``[cos, sin]``.  Parameter names follow the JAX modules so that
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -109,12 +110,21 @@ class TimestepEmbedding(nn.Module):
 
 
 class GELUFeedForward(nn.Module):
-    """linear -> tanh-approximate gelu -> linear."""
+    """linear -> tanh-approximate gelu -> linear; both projections obey the
+    int8 switch (ops/qmm.py QLinear), named ``<site_prefix>.proj_in`` /
+    ``.proj_out`` for the static-scale table, or unnamed (dynamic scales)."""
 
-    def __init__(self, dim: int, inner_dim: int, *, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, inner_dim: int, *, dtype=torch.float32, device=None,
+                 site_prefix: Optional[str] = None):
         super().__init__()
-        self.proj_in = nn.Linear(dim, inner_dim, dtype=dtype, device=device)
-        self.proj_out = nn.Linear(inner_dim, dim, dtype=dtype, device=device)
+        from ..ops.qmm import QLinear
+
+        def site(name):
+            return f"{site_prefix}.{name}" if site_prefix else None
+
+        self.proj_in = QLinear(dim, inner_dim, dtype=dtype, device=device, site=site("proj_in"))
+        self.proj_out = QLinear(inner_dim, dim, dtype=dtype, device=device,
+                                site=site("proj_out"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj_out(F.gelu(self.proj_in(x), approximate="tanh"))

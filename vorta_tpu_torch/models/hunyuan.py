@@ -26,9 +26,19 @@ block's q / k / v and MLP input one product (``qkv_mlp``).  The qk prologue
 ``norm_scope="head"``; in the single block over the whole joint stream,
 with the identity rotation on the text rows.
 
+Quantized serving, as in models/wan.py: ``mm_precision="int8"`` runs the
+projections the JAX model runs in W8A8 (the dual block's video q / k / v /
+out and its FFN, the text stream's FFN and the token refiner's FFN, both
+unnamed so with dynamic scales, the single block's q / k / v + MLP input
+and its output; the text q / k / v / out projections, the modulations and
+the embedders stay in the model's dtype), ``act_scales`` the static scales
+("dual." / "single." sites, one table across both stacks),
+``calibrate_mm`` the per-layer max |x|, and ``quantized_blocks`` a pair of
+``BlockStack`` (dual, single) served through a depth-(1, 1) model.
+
 Not in this slice (they raise): the training losses (``return_losses``),
-per-block recompute, sequence parallelism, the int8 paths, the step cache
-and the token-replace image-to-video variant.
+per-block recompute, sequence parallelism, the step cache and the
+token-replace image-to-video variant.
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ from ..device import resolve_device
 from ..ops.attention_ref import attention_dense
 from ..ops.joint_experts import MODES, JointConfig, routed_joint_attention
 from ..ops.prologue import fused_qk_prologue, use_fused_prologue
-from ..ops.qmm import FusedLinear
+from ..ops import qmm
+from ..ops.qmm import FusedLinear, QLinear
 from ..ops.rope import apply_rope_half
 from ..ops.routed_fused import route_expert_ids
 from .common import (
@@ -110,6 +121,8 @@ class HunyuanOutput:
     routing_scores: Optional[torch.Tensor] = None
     # (dual + single layers, H) expert ids of a hard-routed forward, on the host
     expert_ids: Optional[np.ndarray] = None
+    # {site: (layers of its stack,) f32 max |x|} with calibrate_mm
+    mm_calibration: Optional[dict] = None
 
 
 def hunyuan_rope_tables(grid: Shape3, cfg: HunyuanModelConfig):
@@ -190,13 +203,15 @@ class HunyuanJointAttention(nn.Module):
         dim = cfg.dim
         kw = dict(dtype=dtype, device=device)
         self.num_heads = cfg.num_heads
-        self.qkv = FusedLinear(dim, (dim, dim, dim), **kw)  # to_q | to_k | to_v
-        self.add_qkv = FusedLinear(dim, (dim, dim, dim), **kw)  # add_{q,k,v}_proj
+        # to_q | to_k | to_v obey the int8 switch; the text's add_{q,k,v}_proj stay
+        self.qkv = FusedLinear(dim, (dim, dim, dim),
+                               sites=("dual.attn.to_q", "dual.attn.to_k", "dual.attn.to_v"), **kw)
+        self.add_qkv = FusedLinear(dim, (dim, dim, dim), **kw)
         self.norm_q = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
         self.norm_k = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
         self.norm_added_q = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
         self.norm_added_k = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
-        self.to_out = nn.Linear(dim, dim, **kw)
+        self.to_out = QLinear(dim, dim, site="dual.attn.to_out", **kw)
         self.to_add_out = nn.Linear(dim, dim, **kw)
 
     def forward(self, x, ctx, rope, text_mask, jcfg, scores, routing_mode, expert_ids):
@@ -244,8 +259,8 @@ class HunyuanDualBlock(nn.Module):
         self.attn = HunyuanJointAttention(cfg, **kw)
         self.norm2 = FP32LayerNorm(dim, cfg.eps, affine=False, device=device)
         self.norm2_context = FP32LayerNorm(dim, cfg.eps, affine=False, device=device)
-        self.ff = GELUFeedForward(dim, cfg.mlp_dim, **kw)
-        self.ff_context = GELUFeedForward(dim, cfg.mlp_dim, **kw)
+        self.ff = GELUFeedForward(dim, cfg.mlp_dim, site_prefix="dual.ff", **kw)
+        self.ff_context = GELUFeedForward(dim, cfg.mlp_dim, **kw)  # unnamed: dynamic scales
         self.router = Router(dim, cfg.num_heads, device=device)
 
     def forward(self, x, ctx, temb, rope, rope_joint, text_mask, jcfg, scores=None,
@@ -272,8 +287,10 @@ class HunyuanSingleBlock(nn.Module):
         self.attn = HunyuanSingleAttention(cfg, device=device)
         # attn.to_q | attn.to_k | attn.to_v | proj_mlp of the JAX block: the
         # parallel attention and MLP read the same modulated norm
-        self.qkv_mlp = FusedLinear(dim, (dim, dim, dim, cfg.mlp_dim), **kw)
-        self.proj_out = nn.Linear(dim + cfg.mlp_dim, dim, **kw)
+        self.qkv_mlp = FusedLinear(dim, (dim, dim, dim, cfg.mlp_dim),
+                                   sites=("single.attn.to_q", "single.attn.to_k",
+                                          "single.attn.to_v", "single.proj_mlp"), **kw)
+        self.proj_out = QLinear(dim + cfg.mlp_dim, dim, site="single.proj_out", **kw)
         self.router = Router(dim, cfg.num_heads, device=device)
 
     def forward(self, x, ctx, temb, rope, rope_joint, text_mask, jcfg, scores=None,
@@ -433,21 +450,28 @@ class HunyuanModel(nn.Module):
                 for c, s in ((cos, sin), (cos_j, sin_j)))
         return self._rope_cache[grid]
 
-    def forward(self, latents: torch.Tensor, timestep: torch.Tensor, text_states: torch.Tensor,
-                text_mask: torch.Tensor, pooled_text: torch.Tensor,
-                guidance: Optional[torch.Tensor] = None,
-                attn_cfg: Optional[AttentionConfig] = None, routing_mode: str = "off",
-                return_scores: bool = False, return_losses: bool = False,
-                remat_blocks: bool = False, mm_precision: str = "bf16",
-                sp_axis=None, step_cache=None) -> HunyuanOutput:
+    def forward(self, *args, mm_precision: str = "bf16", **kwargs) -> HunyuanOutput:
+        """See ``_forward``; ``mm_precision="int8"`` runs the projections the
+        JAX model runs in W8A8 (ops/qmm.py) for this call."""
+        with qmm.mm_precision(mm_precision):
+            return self._forward(*args, **kwargs)
+
+    def _forward(self, latents: torch.Tensor, timestep: torch.Tensor, text_states: torch.Tensor,
+                 text_mask: torch.Tensor, pooled_text: torch.Tensor,
+                 guidance: Optional[torch.Tensor] = None,
+                 attn_cfg: Optional[AttentionConfig] = None, routing_mode: str = "off",
+                 return_scores: bool = False, return_losses: bool = False,
+                 remat_blocks: bool = False, act_scales: Optional[dict] = None,
+                 calibrate_mm: bool = False, quantized_blocks=None,
+                 sp_axis=None, step_cache=None) -> HunyuanOutput:
         """latents (B, T, H, W, C_in), timestep (B,), text_states (B, L,
         text_dim), text_mask (B, L) bool, pooled_text (B, pooled_dim),
-        guidance (B,) = guidance scale x 1000."""
+        guidance (B,) = guidance scale x 1000.  ``act_scales``: {site:
+        (layers,)} static int8 activation scales; ``quantized_blocks``: a
+        (dual, single) pair of ``BlockStack`` the blocks run from."""
         unported = (
             (return_losses, "return_losses (Hunyuan router training) belongs to a later slice"),
             (remat_blocks, "remat_blocks (Hunyuan router training) belongs to a later slice"),
-            (mm_precision != "bf16", f"mm_precision={mm_precision!r}: the int8 paths belong "
-                                     "to the quantized serving slice"),
             (sp_axis is not None, "sequence parallelism belongs to a later slice"),
             (step_cache is not None, "the step cache belongs to a later slice"),
         )
@@ -479,26 +503,49 @@ class HunyuanModel(nn.Module):
         ctx = self.context_embedder(text_states.to(self.dtype), timestep, text_mask)
         rope, rope_joint = self._rope(grid)
 
-        blocks = self.blocks
+        # (block list, its stack or None, its layers, its static scales)
+        stacks = []
+        for name, stack, prefix in zip(("dual_blocks", "single_blocks"),
+                                       quantized_blocks or (None, None), ("dual.", "single.")):
+            blocks = getattr(self, name)
+            n = len(blocks) if stack is None else stack.num_layers
+            table = {k: v for k, v in (act_scales or {}).items() if k.startswith(prefix)}
+            stacks.append((blocks, stack, n, qmm.layer_scale_table(table, x.device)))
+
+        def blocks_in_order(prefix: str = ""):
+            for blocks, stack, n, scales in stacks:
+                for i in range(n):
+                    block = blocks[i] if stack is None else stack.load(i, blocks[0], prefix)
+                    yield block, scales(i)
+
         scores = None  # (layers, B, H, E): every router reads only the timestep embedding
         if routing_mode != "off":
-            scores = torch.stack([block.router(clean_temb) for block in blocks])
-        ids, ids_host = [None] * len(blocks), None
+            scores = torch.stack([block.router(clean_temb)
+                                  for block, _ in blocks_in_order("router.")])
+        n_layers = sum(n for _, _, n, _ in stacks)
+        ids, ids_host = [None] * n_layers, None
         if routing_mode == "hard":
             ids_dev = torch.stack([route_expert_ids(sc, attn_cfg.tau_sparse) for sc in scores])
             ids_host = ids_dev.cpu().numpy()  # the forward's one sync
             ids = list(zip(ids_dev, ids_host))
-        for i, block in enumerate(blocks):
-            x, ctx = block(x, ctx, temb, rope, rope_joint, text_mask, jcfg,
-                           scores[i] if scores is not None else None, routing_mode, ids[i])
+        calib = {"dual.": [], "single.": []}
+        for i, (block, scales) in enumerate(blocks_in_order()):
+            with qmm.layer_act_scales(scales), qmm.calibration(calibrate_mm) as sink:
+                x, ctx = block(x, ctx, temb, rope, rope_joint, text_mask, jcfg,
+                               scores[i] if scores is not None else None, routing_mode, ids[i])
+            calib["dual." if isinstance(block, HunyuanDualBlock) else "single."].append(sink)
 
         sc, sh = self.norm_out_mod(temb)  # AdaLayerNormContinuous: scale first
         out = self.proj_out(self.norm_out.modulated(x, sc, sh))
         if return_scores and scores is None:
-            scores = torch.zeros((len(blocks), b, cfg.num_heads, attn_cfg.num_experts),
+            scores = torch.zeros((n_layers, b, cfg.num_heads, attn_cfg.num_experts),
                                  device=x.device)
         t, h, w = grid
         sample = out.reshape(b, t, h, w, pt, ph, pw, cfg.out_channels).permute(
             0, 1, 4, 2, 5, 3, 6, 7).reshape(b, t * pt, h * ph, w * pw, cfg.out_channels)
+        mm_calibration = None
+        if calibrate_mm:
+            mm_calibration = {k: v for layers in calib.values() if layers
+                              for k, v in qmm.stack_calibration(layers).items()}
         return HunyuanOutput(sample=sample, routing_scores=scores if return_scores else None,
-                             expert_ids=ids_host)
+                             expert_ids=ids_host, mm_calibration=mm_calibration)

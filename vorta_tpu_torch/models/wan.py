@@ -21,8 +21,16 @@ two streams through the output head.  ``remat_blocks`` recomputes each
 student block in the backward (``torch.utils.checkpoint``, non-reentrant,
 early stop off, so every block reruns whole).  The routers' parameters are
 f32 whatever the model's dtype, as the JAX trainer casts them.
-No sequence parallelism, step cache, quantized blocks or I2V image branch
-in the port yet.
+
+Quantized serving: ``mm_precision="int8"`` runs the block projections the
+JAX model runs in W8A8 (ops/qmm.py: attn1 q / k / v / out, attn2 q / out,
+the FFN; attn2's text k / v and the embedders stay in the model's dtype),
+with ``act_scales`` ({site: (L,)}) giving each layer its static activation
+scales, and ``calibrate_mm`` returning each site's per-layer max |x|
+(``mm_calibration``).  ``quantized_blocks`` (ops/quant.py ``BlockStack``)
+serves the blocks from a quantized stack: each layer is dequantized into the
+model's one block (a depth-1 model) just before it runs.
+No sequence parallelism, step cache or I2V image branch in the port yet.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ from ..config import AttentionConfig, WanModelConfig
 from ..device import resolve_device
 from ..ops.experts import full_attention, padded_dense_attention, routed_attention
 from ..ops.prologue import fused_qk_prologue, use_fused_prologue
-from ..ops.qmm import FusedLinear
+from ..ops import qmm
+from ..ops.qmm import FusedLinear, QLinear
 from ..ops.routed_fused import route_expert_ids
 from ..ops.rope import apply_rope_half, rope_cos_sin
 from .common import (
@@ -69,6 +78,8 @@ class WanOutput:
     reg_loss: Optional[torch.Tensor] = None
     last_layer_distill_loss: Optional[torch.Tensor] = None
     hidden_layer_distill_loss: Optional[torch.Tensor] = None
+    # {site: (num_layers,) f32 max |x|} with calibrate_mm
+    mm_calibration: Optional[dict] = None
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -88,8 +99,9 @@ class WanSelfAttention(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.num_heads = cfg.num_heads
         # to_q | to_k | to_v of the JAX model, concatenated
-        self.qkv = FusedLinear(dim, (dim, dim, dim), **kw)
-        self.to_out = nn.Linear(dim, dim, **kw)
+        self.qkv = FusedLinear(dim, (dim, dim, dim),
+                               sites=("attn1.to_q", "attn1.to_k", "attn1.to_v"), **kw)
+        self.to_out = QLinear(dim, dim, site="attn1.to_out", **kw)
         self.norm_q = RMSNorm(dim, cfg.eps, device=device) if cfg.qk_norm else None
         self.norm_k = RMSNorm(dim, cfg.eps, device=device) if cfg.qk_norm else None
 
@@ -131,10 +143,11 @@ class WanCrossAttention(nn.Module):
         dim = cfg.dim
         kw = dict(dtype=dtype, device=device)
         self.num_heads = cfg.num_heads
-        self.to_q = nn.Linear(dim, dim, **kw)
+        # the video-length q / out obey the int8 switch; the text k / v stay
+        self.to_q = QLinear(dim, dim, site="attn2.to_q", **kw)
         self.to_k = nn.Linear(dim, dim, **kw)
         self.to_v = nn.Linear(dim, dim, **kw)
-        self.to_out = nn.Linear(dim, dim, **kw)
+        self.to_out = QLinear(dim, dim, site="attn2.to_out", **kw)
         self.norm_q = RMSNorm(dim, cfg.eps, device=device) if cfg.qk_norm else None
         self.norm_k = RMSNorm(dim, cfg.eps, device=device) if cfg.qk_norm else None
 
@@ -165,7 +178,8 @@ class WanBlock(nn.Module):
         self.attn2 = WanCrossAttention(cfg, dtype=dtype, device=device)
         self.norm2 = FP32LayerNorm(dim, cfg.eps, affine=cfg.cross_attn_norm, device=device)
         self.norm3 = FP32LayerNorm(dim, cfg.eps, affine=False, device=device)
-        self.ffn = GELUFeedForward(dim, cfg.ffn_dim, dtype=dtype, device=device)
+        self.ffn = GELUFeedForward(dim, cfg.ffn_dim, dtype=dtype, device=device,
+                                   site_prefix="ffn")
         self.scale_shift_table = nn.Parameter(
             torch.empty((1, 6, dim), dtype=torch.float32, device=device))
         self.router = Router(dim, cfg.num_heads, device=device)
@@ -255,15 +269,29 @@ class WanModel(nn.Module):
                                       torch.from_numpy(sin).to(self.device))
         return self._rope_cache[grid]
 
-    def forward(self, latents: torch.Tensor, timestep: torch.Tensor, context: torch.Tensor,
-                attn_cfg: Optional[AttentionConfig] = None, routing_mode: str = "off",
-                return_scores: bool = False, return_losses: bool = False,
-                remat_blocks: bool = False) -> WanOutput:
-        """latents (B, T, H, W, C_in), timestep (B,), context (B, L, text_dim)."""
+    def forward(self, *args, mm_precision: str = "bf16", **kwargs) -> WanOutput:
+        """See ``_forward``; ``mm_precision="int8"`` runs the block
+        projections in W8A8 (ops/qmm.py) for this call."""
+        with qmm.mm_precision(mm_precision):
+            return self._forward(*args, **kwargs)
+
+    def _forward(self, latents: torch.Tensor, timestep: torch.Tensor, context: torch.Tensor,
+                 attn_cfg: Optional[AttentionConfig] = None, routing_mode: str = "off",
+                 return_scores: bool = False, return_losses: bool = False,
+                 remat_blocks: bool = False, act_scales: Optional[dict] = None,
+                 calibrate_mm: bool = False, quantized_blocks=None) -> WanOutput:
+        """latents (B, T, H, W, C_in), timestep (B,), context (B, L, text_dim).
+        ``act_scales``: {site: (num_layers,)} static int8 activation scales;
+        ``quantized_blocks``: a ``BlockStack`` the blocks run from."""
         if routing_mode not in ROUTING_MODES:
             raise ValueError(f"unknown routing mode {routing_mode!r}")
         if return_losses and routing_mode == "off":
             raise ValueError("return_losses requires routed attention")
+        serving_only = (quantized_blocks is not None or act_scales or calibrate_mm
+                        or qmm.current_mm_precision() != "bf16")
+        if serving_only and (return_losses or remat_blocks):
+            raise NotImplementedError("the int8, calibration and quantized-block modes serve; "
+                                      "router training (return_losses, remat) runs bf16")
         cfg = self.cfg
         b, t_px, h_px, w_px, _ = latents.shape
         pt, ph, pw = cfg.patch_size
@@ -280,10 +308,17 @@ class WanModel(nn.Module):
 
         temb, temb6, ctx = self.condition_embedder(timestep, context.to(self.dtype))
         rope = self._rope(grid)
+        n_layers = len(self.blocks) if quantized_blocks is None else quantized_blocks.num_layers
+
+        def block_at(i: int, prefix: str = "") -> WanBlock:
+            if quantized_blocks is None:
+                return self.blocks[i]
+            return quantized_blocks.load(i, self.blocks[0], prefix)
+
         scores = None  # (num_layers, B, H, E): every router reads only temb
         if routing_mode != "off":
-            scores = torch.stack([block.router(temb) for block in self.blocks])
-        ids, ids_host = [None] * len(self.blocks), None
+            scores = torch.stack([block_at(i, "router.").router(temb) for i in range(n_layers)])
+        ids, ids_host = [None] * n_layers, None
         if routing_mode == "hard":
             ids_dev = torch.stack([route_expert_ids(sc, attn_cfg.tau_sparse) for sc in scores])
             ids_host = ids_dev.cpu().numpy()  # the forward's one sync
@@ -292,7 +327,10 @@ class WanModel(nn.Module):
         x_t, reg, hid = x, None, None
         if return_losses:
             reg = hid = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, block in enumerate(self.blocks):
+        scales = qmm.layer_scale_table(act_scales, x.device)
+        calib = []
+        for i in range(n_layers):
+            block = block_at(i)
             args = (x, ctx, temb6, rope, attn_cfg, scores[i] if scores is not None else None,
                     routing_mode, ids[i])
             if remat:
@@ -300,7 +338,9 @@ class WanModel(nn.Module):
                     x = torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False,
                                                           preserve_rng_state=False)
             else:
-                x = block(*args)
+                with qmm.layer_act_scales(scales(i)), qmm.calibration(calibrate_mm) as sink:
+                    x = block(*args)
+                calib.append(sink)
             if return_losses:
                 with torch.no_grad():  # the frozen teacher: routing off
                     x_t = block(x_t, ctx, temb6, rope, attn_cfg)
@@ -316,12 +356,13 @@ class WanModel(nn.Module):
                 out_t = self._head(x_t, temb)
             last = (out_t.float() - out.float()).square().mean()
         if return_scores and scores is None:
-            scores = torch.zeros((len(self.blocks), b, cfg.num_heads, attn_cfg.num_experts),
+            scores = torch.zeros((n_layers, b, cfg.num_heads, attn_cfg.num_experts),
                                  device=x.device)
         return WanOutput(sample=self._unpatchify(out, b, grid),
                          routing_scores=scores if return_scores else None, expert_ids=ids_host,
                          reg_loss=reg, last_layer_distill_loss=last,
-                         hidden_layer_distill_loss=hid)
+                         hidden_layer_distill_loss=hid,
+                         mm_calibration=qmm.stack_calibration(calib) if calibrate_mm else None)
 
     def _head(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         mod = self.scale_shift_table + temb.float()[:, None, :]

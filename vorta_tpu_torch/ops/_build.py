@@ -11,7 +11,9 @@ edited kernel is rebuilt.  Nothing builds when a module is imported.
 two, ``pool_qkv`` and ``unpool``; ``flash_bwd.cu`` two, ``flash_dq`` and
 ``flash_dkv``); each wrapper adds one where it launches its kernel, and
 nowhere else.  ``flash_lse`` counts the flash launches that also write the
-row log-sum-exp (a subset of ``flash``).  Headers (``*.cuh``) are part of
+row log-sum-exp (a subset of ``flash``), ``flash_manual_int8`` and
+``sta_pipe_int8`` the launches in the int8 QK mode (subsets of
+``flash_manual`` and ``sta_pipe``).  Headers (``*.cuh``) are part of
 the hash.
 """
 
@@ -31,7 +33,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "coreset_pool",
            "flash_bwd")
 KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_qkv", "unpool",
-           "flash_lse", "flash_dq", "flash_dkv")
+           "flash_lse", "flash_dq", "flash_dkv", "flash_manual_int8", "sta_pipe_int8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

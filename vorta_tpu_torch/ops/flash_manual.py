@@ -18,6 +18,16 @@ text-padding mask: -1e30 on padded keys), is added to the pre-scaled
 scores in the log2 domain, with no ``log2(e)`` factor, as the TPU kernel
 adds it: ``p = exp2(q.k + bias)``.
 
+The int8 QK mode (``qk_scale``, the JAX package's quantized serving): q and
+k arrive as int8 (symmetric per-head quantization, ops/routed_fused.py
+``quantize_per_head``), q not pre-scaled, with an (H,) f32 ``qk_scale`` =
+q_scale * k_scale.  The scores are the int32 sums q.k turned into f32 by one
+multiply with ``qk_scale[h] * scale * log2(e)`` (the factor in f32, as the
+JAX wrapper forms it); the bias, the tail rule, the fast softmax and the
+bf16 PV product follow unchanged, and the output has v's dtype.  The plain
+version's f32 einsum of the int8 values is exact (|q.k| <= 127^2 * 128 <
+2^24), so it gives the kernel's int32 sums.
+
 On CUDA tensors ``sparse_flash_attention_manual`` launches
 ``csrc/flash_manual.cu``; on CPU tensors it runs the plain version,
 ``sparse_flash_attention_manual_ref``.  The TPU wrapper's other options
@@ -53,6 +63,33 @@ def _prescale(q: torch.Tensor, scale: float) -> torch.Tensor:
     return q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
 
 
+def qk_factor(qk_scale: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
+    """(H,) f32 ``qk_scale * (scale * log2 e)``: the int8 mode's one
+    dequantization factor per head."""
+    qk_scale = torch.as_tensor(qk_scale)
+    if qk_scale.numel() != heads:
+        raise ValueError(f"qk_scale {tuple(qk_scale.shape)} for {heads} heads")
+    return qk_scale.reshape(heads).float() * (scale * LOG2E)
+
+
+def check_int8_qk(q, k, softmax: str = "fast") -> None:
+    """The int8 mode's preconditions, the JAX wrapper's."""
+    if softmax != "fast":
+        raise ValueError("qk_scale (int8 QK) requires softmax='fast'")
+    if q.dtype != torch.int8 or k.dtype != torch.int8:
+        raise ValueError(f"qk_scale requires int8 q and k, got {q.dtype}, {k.dtype}")
+
+
+def scores_log2(q: torch.Tensor, k: torch.Tensor, scale: float, qkc) -> torch.Tensor:
+    """f32 scores in the log2 domain: q pre-scaled in q's dtype then q.k, or,
+    with ``qkc`` ((H,) f32, the int8 mode), the exact int8 sums times qkc.
+    q: (B, H, ..., Sq, D), k: (B, H, ..., Skv, D)."""
+    if qkc is None:
+        return torch.einsum("bh...qd,bh...kd->bh...qk", _prescale(q, scale).float(), k.float())
+    s = torch.einsum("bh...qd,bh...kd->bh...qk", q.float(), k.float())
+    return s * qkc.to(s.device).reshape((1, -1) + (1,) * (s.ndim - 2))
+
+
 def _bias_row(kv_bias: torch.Tensor, skv: int) -> torch.Tensor:
     """(1, Skv) or (Skv,) bias -> (Skv,) f32."""
     if kv_bias.numel() != skv or (kv_bias.ndim == 2 and kv_bias.shape[0] != 1):
@@ -72,6 +109,7 @@ def sparse_flash_attention_manual_ref(
     scale: Optional[float] = None,
     kv_valid_len: Optional[int] = None,
     kv_bias: Optional[torch.Tensor] = None,
+    qk_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, one q block at a time."""
     b, h, sq, d = q.shape
@@ -88,19 +126,19 @@ def sparse_flash_attention_manual_ref(
     block_mask = onehot.any(dim=2)  # (max(Hi, Hc), nq, nkv)
     col_ok = _kv_column_limit(skv, block_kv, kv_valid_len, q.device)
     bias = 0.0 if kv_bias is None else _bias_row(kv_bias, skv).to(q.device)
-    qs = _prescale(q, scale)
-    kf, vf = k.float(), v.float()
-    out = torch.empty_like(q)
+    qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h)
+    vf = v.float()
+    out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
     for i in range(sq // block_q):
         rows = slice(i * block_q, (i + 1) * block_q)
         vis = block_mask[:, i].repeat_interleave(block_kv, dim=-1) & col_ok  # (Hm, Skv)
-        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, rows].float(), kf) + bias
+        s = scores_log2(q[:, :, rows], k, scale, qkc) + bias
         p = torch.where(vis[None, :, None, :], torch.exp2(s), 0.0)
         l = p.sum(dim=-1, keepdim=True)
         if v.dtype != torch.float32:
             p = p.to(v.dtype).float()
         o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
-        out[:, :, rows] = (o / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+        out[:, :, rows] = (o / torch.where(l == 0.0, 1.0, l)).to(v.dtype)
     return out
 
 
@@ -108,7 +146,7 @@ def _flash_manual_fn():
     fn = _build.load("flash_manual").vorta_flash_manual_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p] + [i] * 12 + [p]
+        fn.argtypes = [p] * 8 + [i] * 12 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -134,15 +172,16 @@ def sparse_flash_attention_manual(
 ) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, H, Skv, D).  kv_index: (1 or H, Sq//block_q,
     W) and kv_count: (1 or H, Sq//block_q) int32 tensors (or numpy);
-    kv_bias: (1, Skv) f32 or None.  On CUDA: bf16 q/k/v, D 64 or 128,
-    block_q a multiple of 16.  Only the fast
-    softmax is served (the JAX wrapper defaults to the stable one; every
-    routed caller passes "fast")."""
+    kv_bias: (1, Skv) f32 or None; qk_scale: (H,) f32 with int8 q / k, or
+    None.  On CUDA: bf16 v (and q / k unless int8), D 64 or 128, block_q a
+    multiple of 16.  Only the fast softmax is served (the JAX wrapper
+    defaults to the stable one; every routed caller passes "fast")."""
+    if qk_scale is not None:
+        check_int8_qk(q, k, softmax)
     unported = (
-        (kv_valid is not None, "per-head kv_valid belongs to the Hunyuan joint-attention slice"),
+        (kv_valid is not None, "per-head kv_valid is not ported (no JAX call site passes it)"),
         (pair_bits is not None or tokens_per_tile is not None,
-         "pair_bits belong to the sta_batched fallback and the joint experts (Hunyuan slice)"),
-        (qk_scale is not None, "int8 QK (qk_scale) belongs to the quantized serving slice"),
+         "pair_bits belong to the sta_batched fallback, not ported yet"),
         (softmax != "fast", f"softmax={softmax!r}: the stable softmax of this kernel belongs "
                             "to a later slice (ops/flash.py serves it)"),
         (not cast_p_to_v_dtype, "P is always cast to v's dtype here"),
@@ -157,28 +196,33 @@ def sparse_flash_attention_manual(
     if q.device.type == "cpu":
         return sparse_flash_attention_manual_ref(
             q, k, v, kv_index, kv_count, block_q=block_q, block_kv=block_kv, scale=scale,
-            kv_valid_len=kv_valid_len, kv_bias=kv_bias)
+            kv_valid_len=kv_valid_len, kv_bias=kv_bias, qk_scale=qk_scale)
 
     _build.forward_only("sparse_flash_attention_manual", q, k, v)
     dev = _build.require_cuda(q, k, v)
     _check(q, k, v, kv_index, kv_count, block_q, block_kv)
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(f"the CUDA flash_manual kernel takes bf16, got {q.dtype}")
+    qk_dtype = torch.bfloat16 if qk_scale is None else torch.int8
+    if v.dtype != torch.bfloat16 or q.dtype != qk_dtype or k.dtype != qk_dtype:
+        raise NotImplementedError(f"the CUDA flash_manual kernel takes bf16 (q / k int8 with "
+                                  f"qk_scale), got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in (64, 128) or block_q % 16:
         raise NotImplementedError(f"the CUDA flash_manual kernel takes D 64/128 and "
                                   f"block_q % 16 == 0, got D={d}, block_q={block_q}")
     kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
     bias = None if kv_bias is None else _bias_row(kv_bias, skv).contiguous()
-    _build.require_cuda(q, bias)
-    qs = _prescale(q, scale).contiguous()
+    qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
+    _build.require_cuda(q, bias, qkc)
+    qs = (_prescale(q, scale) if qkc is None else q).contiguous()
     k, v = k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     err = _flash_manual_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kv_index.data_ptr(), kv_count.data_ptr(), _build.ptr(bias), b, h, sq, skv, d,
-        kv_index.shape[0], kv_count.shape[0], kv_index.shape[1], kv_index.shape[2],
-        block_q, block_kv, kv_valid_len, _build.stream_ptr(dev))
+        kv_index.data_ptr(), kv_count.data_ptr(), _build.ptr(bias), _build.ptr(qkc),
+        b, h, sq, skv, d, kv_index.shape[0], kv_count.shape[0], kv_index.shape[1],
+        kv_index.shape[2], block_q, block_kv, kv_valid_len, _build.stream_ptr(dev))
     _build.check(err, "flash_manual")
     _build.launches["flash_manual"] += 1
+    if qkc is not None:
+        _build.launches["flash_manual_int8"] += 1
     return out

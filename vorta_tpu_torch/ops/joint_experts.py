@@ -22,7 +22,12 @@ the text tail for the video rows, ``flash_manual`` with ``kv_bias`` and
 ``kv_valid_len`` for the text rows.  Where the JAX package would run an STA
 kernel the port has not ported (sta_batched at small tiles or a text length
 not a multiple of 8, sta_row, sta_window), the port raises
-NotImplementedError naming it, as its int8 QK (``qk_int8``) does.
+NotImplementedError naming it.
+
+``qk_int8`` (quantized serving, routing off included): full and low-res
+quantize the assembled joint q and k per head (video, text and the
+alignment zeros, which leave the amax unchanged) and run flash_manual's
+int8 QK mode, ``kv_bias`` as before; sliding-tile stays bf16.
 
 Hard routing is the masked dispatch of ops/routed_fused.py: each routed
 expert runs once over all heads with an (H,) active mask, and each head's
@@ -49,7 +54,12 @@ from .coreset_pallas import pool_qkv, unpool
 from .experts import FULL, LOWRES, STA, _dense_tables_cached, lowres_groups_for
 from .flash_manual import sparse_flash_attention_manual
 from .layout import tile_sequence, untile_sequence
-from .routed_fused import _unserved_sta_kernel, prefer_window_dense, route_expert_ids
+from .routed_fused import (
+    _unserved_sta_kernel,
+    prefer_window_dense,
+    quantize_qk,
+    route_expert_ids,
+)
 from .sta_pipe import sta_pipe_attention
 
 NEG = -1e30
@@ -150,32 +160,32 @@ def _active(active, h: int, device) -> torch.Tensor:
     return torch.as_tensor(active, device=device).reshape(h).bool()
 
 
-def _flash(q, k, v, layout: JointLayout, active, bias, scale, kv_valid_len=None):
+def _flash(q, k, v, layout: JointLayout, active, bias, scale, kv_valid_len=None,
+           qk_int8: bool = False):
     """One flash_manual launch over all heads of an aligned layout, dense
-    tables, count 0 for the heads routed away."""
+    tables, count 0 for the heads routed away; ``qk_int8``: q and k
+    quantized per head first."""
     idx, cnt = _dense_tables_cached(q.shape[2] // layout.block_q,
                                     k.shape[2] // layout.block_kv).on(q.device)
     counts = torch.where(active[:, None], cnt, 0).to(torch.int32)
+    qk_scale = None
+    if qk_int8:
+        q, k, qk_scale = quantize_qk(q, k)
     return sparse_flash_attention_manual(
         q, k, v, idx, counts, scale=scale,
         block_q=layout.block_q, block_kv=layout.block_kv, kv_valid_len=kv_valid_len,
-        kv_bias=bias.to(q.device), softmax="fast")
-
-
-def _refuse_qk_int8(jcfg: JointConfig) -> None:
-    if jcfg.video.qk_int8:
-        raise NotImplementedError("cfg.qk_int8 (int8 QK) belongs to the quantized serving slice")
+        kv_bias=bias.to(q.device), softmax="fast", qk_scale=qk_scale)
 
 
 def joint_full_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig,
                          active=None, scale: Optional[float] = None):
     """Dense attention over [video | text]: (video (B,H,Sv,D), text (B,H,L,D))."""
-    _refuse_qk_int8(jcfg)
     layout = joint_layouts(jcfg)["full"]
     q, k, v = (_assemble(a, b, layout.text_off, layout.total)
                for a, b in ((qv, qt), (kv_, kt), (vv, vt)))
     out = _flash(q, k, v, layout, _active(active, qv.shape[1], qv.device),
-                 _bias(text_mask, layout, jcfg.video.seq_len), scale)
+                 _bias(text_mask, layout, jcfg.video.seq_len), scale,
+                 qk_int8=jcfg.video.qk_int8)
     return _split(out, layout, jcfg.video.seq_len, jcfg.text_len)
 
 
@@ -183,7 +193,6 @@ def joint_lowres_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig
                            active=None, scale: Optional[float] = None):
     """Pooled video (Q by Q's matching, K / V by K's own) + verbatim text;
     the video output unpooled through Q's picks."""
-    _refuse_qk_int8(jcfg)
     groups = lowres_groups_for(jcfg.video)
     layout = joint_layouts(jcfg)["lowres"]
     act = _active(active, qv.shape[1], qv.device)
@@ -193,7 +202,8 @@ def joint_lowres_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig
     q, k, v = (_assemble(a, b, layout.text_off, layout.total)
                for a, b in ((pq, qt), (pk, kt), (pv, vt)))
     del pq, pk, pv
-    out = _flash(q, k, v, layout, act, _bias(text_mask, layout, groups.pooled_length), scale)
+    out = _flash(q, k, v, layout, act, _bias(text_mask, layout, groups.pooled_length), scale,
+                 qk_int8=jcfg.video.qk_int8)
     pooled_out, text_out = _split(out, layout, groups.pooled_length, jcfg.text_len)
     return unpool(pooled_out, qv, groups, active=act_i, picks=picks), text_out
 

@@ -15,10 +15,13 @@ which experts run costs no device sync.
 Only the geometries where the JAX package takes this masked dispatch with
 its sta_pipe kernel are served; the others name the TPU kernel the JAX
 package would run instead (sta_row, sta_window or sta_batched) and raise
-NotImplementedError, as do its per-head switch dispatch
-(VORTA_ROUTED_DISPATCH) and int8 QK (``cfg.qk_int8``).  The JAX package's
-sta_batched pair-bit tables (``RoutedGeometry.sta``) belong to that
-fallback and are not carried.
+NotImplementedError, as does its per-head switch dispatch
+(VORTA_ROUTED_DISPATCH).  The JAX package's sta_batched pair-bit tables
+(``RoutedGeometry.sta``) belong to that fallback and are not carried.
+
+``cfg.qk_int8`` (quantized serving): FULL and LOWRES quantize q and k per
+head (``quantize_per_head``, dynamic symmetric int8) before padding, LOWRES
+after the pool, and run flash_manual's int8 QK mode; STA stays bf16.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from .coreset_pallas import pool_qkv, unpool
 from .experts import FULL, LOWRES, STA, _pad_seq, lowres_groups_for
 from .flash import BlockTables
 from .flash_manual import sparse_flash_attention_manual
+from .qmm import divide
 from .sta_pipe import sta_pipe_attention, supports_pipe
 
 
@@ -116,15 +120,36 @@ def _unserved_sta_kernel(cfg: AttentionConfig, d: int, itemsize: int,
     return "sta_window"
 
 
-def _masked_call(call: ExpertCall, q, k, v, active: torch.Tensor, scale) -> torch.Tensor:
+def quantize_per_head(x: torch.Tensor):
+    """Symmetric per-head int8 quantization with a dynamic amax over batch,
+    sequence and dim: (int8 x, (H,) f32 scales), the JAX package's
+    ``_quantize_per_head`` (divide, round half to even, clip to +-127)."""
+    xf = x.float()
+    s = divide(xf.abs().amax(dim=(0, 2, 3)).clamp(min=1e-12), 127.0)
+    return torch.round(xf / s[None, :, None, None]).clamp(-127, 127).to(torch.int8), s
+
+
+def quantize_qk(q: torch.Tensor, k: torch.Tensor):
+    """(int8 q, int8 k, (H,) qk_scale = q_scale * k_scale)."""
+    q8, sq = quantize_per_head(q)
+    k8, sk = quantize_per_head(k)
+    return q8, k8, sq * sk
+
+
+def _masked_call(call: ExpertCall, q, k, v, active: torch.Tensor, scale,
+                 qk_int8: bool = False) -> torch.Tensor:
     """One flash_manual launch over all heads; rows of inactive heads get
-    count 0.  ``active``: (H,) bool on q's device."""
+    count 0.  ``active``: (H,) bool on q's device.  ``qk_int8``: q and k
+    quantized per head first (before the padding)."""
     kv_index, kv_count = call.tables.on(q.device)
     cnt = torch.where(active[:, None], kv_count, 0).to(torch.int32)  # (H, nq)
+    qk_scale = None
+    if qk_int8:
+        q, k, qk_scale = quantize_qk(q, k)
     return sparse_flash_attention_manual(
         _pad_seq(q, call.q_pad), _pad_seq(k, call.kv_pad), _pad_seq(v, call.kv_pad),
         kv_index, cnt, scale=scale, block_q=call.block_q, block_kv=call.block_kv,
-        kv_valid_len=call.valid_len, softmax="fast")
+        kv_valid_len=call.valid_len, softmax="fast", qk_scale=qk_scale)
 
 
 def fused_routed_attention(
@@ -139,8 +164,6 @@ def fused_routed_attention(
     """Hard-routed attention (B, H, S, D), each expert launched once over
     the heads routed to it.  ``expert_ids_host``: the same ids on the host,
     else read back from ``expert_id`` (a device sync)."""
-    if getattr(cfg, "qk_int8", False):
-        raise NotImplementedError("cfg.qk_int8 (int8 QK) belongs to the quantized serving slice")
     if os.environ.get("VORTA_ROUTED_DISPATCH", "masked") != "masked":
         raise NotImplementedError("only the masked dispatch is ported; the per-head switch "
                                   "dispatch (VORTA_ROUTED_DISPATCH) is not")
@@ -166,12 +189,13 @@ def fused_routed_attention(
                                latent_shape=cfg.latent_shape, tile=cfg.sta_tile,
                                window=cfg.sta_window, scale=scale))
     if FULL in routed:
-        add(_masked_call(geo.full, q, k, v, expert_id == FULL, scale)[:, :, :s])
+        add(_masked_call(geo.full, q, k, v, expert_id == FULL, scale, cfg.qk_int8)[:, :, :s])
     if LOWRES in routed:
         groups = lowres_groups_for(cfg)
         active = expert_id == LOWRES
         pq, pk, pv, picks = pool_qkv(q, k, v, groups, active=active.to(torch.int32),
                                      return_picks=True)
-        out_p = _masked_call(geo.lowres, pq, pk, pv, active, scale)[:, :, :groups.pooled_length]
+        out_p = _masked_call(geo.lowres, pq, pk, pv, active, scale,
+                             cfg.qk_int8)[:, :, :groups.pooled_length]
         add(unpool(out_p, q, groups, active=active.to(torch.int32), picks=picks))
     return torch.zeros_like(q) if out is None else out

@@ -17,6 +17,13 @@ keys, ``text_bias`` (1, Lt) f32 added to their scores (zeros when it is
 None; -1e30 masks a padded text token), as one more online-softmax step
 after its window's keys.
 
+The int8 QK mode (``qk_scale``): q, k and ``text_k`` arrive as int8 with an
+(H,) f32 ``qk_scale`` = q_scale * k_scale, q not pre-scaled; the scores are
+the int32 sums times ``qk_scale[h] * scale * log2(e)``, as in
+ops/flash_manual.py, the output in v's dtype.  No served call site passes it
+(the routed and joint STA experts stay bf16 under ``qk_int8``, as in the JAX
+package); the JAX package's int8 probe tool does.
+
 The TPU kernel has per-w-tile, grouped-width and masked-width variants;
 they are VMEM layouts of one function, so the port has one kernel for
 every tile width: it needs only tiles that divide the grid.
@@ -39,7 +46,7 @@ import torch
 
 from ..geometry import row_starts, w_window_starts, window_starts
 from . import _build
-from .flash_manual import _prescale
+from .flash_manual import _prescale, check_int8_qk, qk_factor, scores_log2
 from .layout import tile_sequence, untile_sequence
 
 Shape3 = Tuple[int, int, int]
@@ -146,34 +153,35 @@ def _text_tail(text_k, text_v, text_bias, q: torch.Tensor):
 
 def sta_pipe_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
                            window: Shape3 = (3, 3, 3), scale: Optional[float] = None,
-                           text_k=None, text_v=None, text_bias=None):
+                           text_k=None, text_v=None, text_bias=None, qk_scale=None):
     """Plain PyTorch version of the kernel, a few q tiles at a time."""
     text_k, text_v, text_bias = _text_tail(text_k, text_v, text_bias, q)
     b, h, s, d = q.shape
     scale = d**-0.5 if scale is None else scale
+    qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).to(q.device)
     keys = torch.from_numpy(_window_keys(latent_shape, tile, window)).to(q.device)
     n_tiles, nk = keys.shape
     tpt = s // n_tiles
-    tq = tile_sequence(_prescale(q, scale), latent_shape, tile).reshape(b, h, n_tiles, tpt, d)
-    out = torch.empty((b, h, n_tiles, tpt, d), dtype=q.dtype, device=q.device)
+    tq = tile_sequence(q, latent_shape, tile).reshape(b, h, n_tiles, tpt, d)
+    out = torch.empty((b, h, n_tiles, tpt, d), dtype=v.dtype, device=q.device)
     chunk = max(1, 2**28 // (b * h * tpt * nk))
     for c0 in range(0, n_tiles, chunk):
         idx = keys[c0:c0 + chunk]
-        kc = k[:, :, idx].float()  # (B, H, c, nk, D)
-        vc = v[:, :, idx].float()
-        qc = tq[:, :, c0:c0 + chunk].float()
-        p = torch.exp2(torch.einsum("bhcqd,bhckd->bhcqk", qc, kc))
+        vc = v[:, :, idx].float()  # (B, H, c, nk, D)
+        qc = tq[:, :, c0:c0 + chunk]
+        p = torch.exp2(scores_log2(qc, k[:, :, idx], scale, qkc))
         l = p.sum(dim=-1, keepdim=True)
         if v.dtype != torch.float32:
             p = p.to(v.dtype).float()
         o = torch.einsum("bhcqk,bhckd->bhcqd", p, vc)
         if text_k is not None:
-            pt = torch.exp2(torch.einsum("bhcqd,bhkd->bhcqk", qc, text_k.float()) + text_bias)
+            tk = text_k[:, :, None].expand(-1, -1, qc.shape[2], -1, -1)
+            pt = torch.exp2(scores_log2(qc, tk, scale, qkc) + text_bias)
             l = l + pt.sum(dim=-1, keepdim=True)
             if v.dtype != torch.float32:
                 pt = pt.to(v.dtype).float()
             o = o + torch.einsum("bhcqk,bhkd->bhcqd", pt, text_v.float())
-        out[:, :, c0:c0 + chunk] = (o / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+        out[:, :, c0:c0 + chunk] = (o / torch.where(l == 0.0, 1.0, l)).to(v.dtype)
     out = untile_sequence(out.reshape(b, h, s, d), latent_shape, tile)
     a = torch.as_tensor(active, device=q.device).reshape(1, h, 1, 1) > 0
     return torch.where(a, out, torch.zeros((), dtype=out.dtype, device=out.device))
@@ -183,7 +191,7 @@ def _sta_fn():
     fn = _build.load("sta_pipe").vorta_sta_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 13 + [p]
+        fn.argtypes = [p] * 9 + [i] * 13 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -207,9 +215,14 @@ def sta_pipe_attention(
     qk_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sliding-tile attention, with the joint text tail where ``text_k`` and
-    ``text_v`` are given; on CUDA bf16 q/k/v (and text) with D 64 or 128."""
+    ``text_v`` are given; on CUDA bf16 q/k/v (and text) with D 64 or 128,
+    q / k / text_k int8 with ``qk_scale``."""
     if qk_scale is not None:
-        raise NotImplementedError("int8 QK (qk_scale) belongs to the quantized serving slice")
+        if variant != "full":
+            raise ValueError("qk_scale requires softmax='fast', variant='full'")
+        check_int8_qk(q, k, softmax)
+        if text_k is not None and text_k.dtype != torch.int8:
+            raise ValueError(f"qk_scale requires int8 text_k, got {text_k.dtype}")
     if softmax != "fast" or variant != "full" or not cast_p_to_v_dtype:
         raise NotImplementedError(
             f"softmax={softmax!r}, variant={variant!r}: only the fast full variant is served")
@@ -226,25 +239,33 @@ def sta_pipe_attention(
     if q.device.type == "cpu":
         return sta_pipe_attention_ref(q, k, v, active, latent_shape=latent_shape, tile=tile,
                                       window=window, scale=scale, text_k=text_k,
-                                      text_v=text_v, text_bias=text_bias)
+                                      text_v=text_v, text_bias=text_bias, qk_scale=qk_scale)
 
     _build.forward_only("sta_pipe_attention", q, k, v, text_k, text_v)
     dev = _build.require_cuda(q, k, v, text_k, text_v, text_bias)
-    if any(x is not None and x.dtype != torch.bfloat16 for x in (q, k, v, text_k, text_v)):
-        raise NotImplementedError(f"the CUDA sta_pipe kernel takes bf16, got {q.dtype}")
+    qk_dtype = torch.bfloat16 if qk_scale is None else torch.int8
+    if (any(x is not None and x.dtype != qk_dtype for x in (q, k, text_k))
+            or any(x is not None and x.dtype != torch.bfloat16 for x in (v, text_v))):
+        raise NotImplementedError(f"the CUDA sta_pipe kernel takes bf16 (q / k / text_k int8 "
+                                  f"with qk_scale), got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in (64, 128):
         raise NotImplementedError(f"the CUDA sta_pipe kernel takes D 64/128, got {d}")
     active = torch.as_tensor(active, device=dev).to(torch.int32).contiguous()
     if active.shape != (h,):
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
-    qs = _prescale(q, scale).contiguous()
+    qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
+    _build.require_cuda(q, qkc)
+    qs = (_prescale(q, scale) if qkc is None else q).contiguous()
     k, v = k.contiguous(), v.contiguous()
     text = [None if x is None else x.contiguous() for x in (text_k, text_v, text_bias)]
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     err = _sta_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
-        *(_build.ptr(x) for x in text), 0 if text_k is None else text_k.shape[2],
-        b, h, t, hh, w, d, *tile, *window, _build.stream_ptr(dev))
+        *(_build.ptr(x) for x in text), _build.ptr(qkc),
+        0 if text_k is None else text_k.shape[2], b, h, t, hh, w, d, *tile, *window,
+        _build.stream_ptr(dev))
     _build.check(err, "sta_pipe")
     _build.launches["sta_pipe"] += 1
+    if qkc is not None:
+        _build.launches["sta_pipe_int8"] += 1
     return out

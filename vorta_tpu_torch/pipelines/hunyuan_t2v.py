@@ -10,7 +10,9 @@ is ``vu + s * (vc - vu)``.  The text mask goes to every forward.  Latents
 are carried in f32 and cast to the model's dtype for each forward.  A
 Python loop drives the steps (the JAX version scans under one jit).  A
 caller that passes a ``routing`` list gets each hard-routed forward's
-(layers, H) expert ids appended to it.  Returns latents: the VAE decode,
+(layers, H) expert ids appended to it.  The quantized serving options
+(``mm_precision``, ``act_scales``, ``quantized_blocks``) go to every
+forward, as in pipelines/wan_t2v.py.  Returns latents: the VAE decode,
 the step cache and the mesh belong to later slices.
 """
 
@@ -37,14 +39,21 @@ class HunyuanSamplingConfig:
     scheduler: str = "euler"  # euler (reference Hunyuan default) | unipc
     # run the true-CFG cond + uncond passes as ONE batch-2B forward
     cfg_batch: bool = False
+    mm_precision: str = "bf16"  # bf16 | int8 (W8A8 block projections, ops/qmm.py)
 
 
 class HunyuanT2VPipeline:
     """Latent-space T2V sampler on the model's device."""
 
-    def __init__(self, model: HunyuanModel, attn_cfg: Optional[AttentionConfig] = None):
+    def __init__(self, model: HunyuanModel, attn_cfg: Optional[AttentionConfig] = None,
+                 act_scales: Optional[dict] = None, quantized_blocks=None):
+        """``act_scales``: {site: (L,)} static int8 activation scales;
+        ``quantized_blocks``: the quantized stack the blocks run from
+        (io/quant_serving.py), with ``model`` its depth-1 model."""
         self.model = model
         self.attn_cfg = attn_cfg
+        self.act_scales = act_scales
+        self.quantized_blocks = quantized_blocks
 
     def prepare_latents(self, generator: torch.Generator, batch: int, frames: int,
                         height: int, width: int) -> torch.Tensor:
@@ -57,7 +66,9 @@ class HunyuanT2VPipeline:
     def _velocity(self, x, t, text, mask, pooled, neg_text, neg_pooled, guidance,
                   sampling: HunyuanSamplingConfig, routing) -> torch.Tensor:
         model, dtype = self.model, self.model.dtype
-        kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode)
+        kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode,
+                  mm_precision=sampling.mm_precision, act_scales=self.act_scales,
+                  quantized_blocks=self.quantized_blocks)
 
         def forward(*args, g):
             out = model(*args, guidance=g, **kw)

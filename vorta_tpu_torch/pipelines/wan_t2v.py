@@ -9,8 +9,10 @@ drives the steps (the JAX version scans under one jit).  ``routing_mode``
 ("off", or "hard" to route each head per block and step) goes to every
 forward; with CFG both passes route alike, since routing reads only the
 timestep.  A caller that passes a ``routing`` list gets each hard-routed
-forward's (num_layers, H) expert ids appended to it.  No mesh or step
-cache in this slice.
+forward's (num_layers, H) expert ids appended to it.  The quantized
+serving options (``SamplingConfig.mm_precision``, the pipeline's
+``act_scales`` and ``quantized_blocks``) go to every forward too.  No mesh
+or step cache in this slice.
 """
 
 from __future__ import annotations
@@ -35,14 +37,21 @@ class SamplingConfig:
     scheduler: str = "unipc"  # unipc (reference inference default) | euler
     # run the CFG cond+uncond passes as ONE batch-2B forward
     cfg_batch: bool = False
+    mm_precision: str = "bf16"  # bf16 | int8 (W8A8 block projections, ops/qmm.py)
 
 
 class WanT2VPipeline:
     """Latent-space T2V sampler on the model's device."""
 
-    def __init__(self, model: WanModel, attn_cfg: Optional[AttentionConfig] = None):
+    def __init__(self, model: WanModel, attn_cfg: Optional[AttentionConfig] = None,
+                 act_scales: Optional[dict] = None, quantized_blocks=None):
+        """``act_scales``: {site: (L,)} static int8 activation scales;
+        ``quantized_blocks``: the quantized stack the blocks run from
+        (io/quant_serving.py), with ``model`` its depth-1 model."""
         self.model = model
         self.attn_cfg = attn_cfg
+        self.act_scales = act_scales
+        self.quantized_blocks = quantized_blocks
 
     def prepare_latents(self, generator: torch.Generator, batch: int, frames: int,
                         height: int, width: int) -> torch.Tensor:
@@ -55,7 +64,9 @@ class WanT2VPipeline:
 
     def _velocity(self, x, t, pe, ne, sampling: SamplingConfig, routing) -> torch.Tensor:
         model, dtype = self.model, self.model.dtype
-        kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode)
+        kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode,
+                  mm_precision=sampling.mm_precision, act_scales=self.act_scales,
+                  quantized_blocks=self.quantized_blocks)
 
         def forward(*args):
             out = model(*args, **kw)
