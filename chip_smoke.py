@@ -22,10 +22,19 @@ Phases, each raising on failure:
      error < 0.05), times against the bf16 mode and SDPA; W8A8
      int8_linear at the Wan FFN's 31,200 x 1,536 -> 8,960 and back against
      its plain version (the int8 product in f64, exact) and bf16 nn.Linear.
+  2f. the STA fallbacks: sta_window at Wan 720p (1,12,72000,128) tile
+     (4, 9, 10), 8 heads active, and at HunyuanVideo 45f (1,24,43200,128)
+     tile (4, 9, 10) with 256 text keys (83 valid); sta_batched on the
+     HunyuanVideo (2, 9, 8) joint layout (1,24,48384,128), blocks 432 / 1008,
+     pair bits and kv_bias, 16 heads active; sta_row (a direct call) at Wan
+     720p tile (5, 9, 8) and HunyuanVideo 45f tile (6, 9, 8) with the text
+     tail; each against its plain version with its bracket, times against
+     SDPA with the boolean / float mask and the bound of the visible pairs.
   3. model checks: a 2-block Wan-1.3B-width forward on the card (bf16,
      kernels) against the same weights on the CPU (f32, plain versions),
      routing off, then routed hard with the heads sent to all three experts,
-     in bf16 and with qk_int8 + W8A8.
+     in bf16 and with qk_int8 + W8A8, and routed hard at tile (4, 9, 10) on
+     a (4, 18, 80) grid, where the gates pick sta_window.
   4. main path, routing off: vorta_tpu_torch.cli.sample at full width and
      depth (30 blocks), --native_attention, 480p x 21 frames, 2 UniPC steps
      with CFG 5.0 = 4 DiT forwards, after one warm-up forward of a 2-block
@@ -44,6 +53,10 @@ Phases, each raising on failure:
      trained router (assets/bench_router_wan1_3b_720p_half.npz), fed the
      time embedder of the model it was trained against
      (port_assets/wan1_3b_time_embedder_rngs0.npz).
+  6f. main path, STA fallback: the CLI with --resume_dir at Wan-1.3B 720p x
+     77f from the config.json that cli.train --sta_tile 4 9 10 writes (STA
+     heads through sta_window), 2 UniPC steps with CFG = 4 forwards, random
+     routers on all three experts; launch counts exact, sta_pipe never.
 HunyuanVideo-13B (its phases free the Wan models first):
   a. kernels at HunyuanVideo's 720p x 45f shapes (grid (12, 45, 80) =
      43,200 video + 256 text tokens, 83 valid, 24 heads x 128, 16 of them
@@ -64,6 +77,13 @@ HunyuanVideo-13B (its phases free the Wan models first):
      against the run's routing tables), all three experts used.
      Phases b and c run again with qk_int8 + W8A8 (the CLI's --qk_int8
      --mm int8): FULL and LOWRES in the int8 QK mode, routing off too.
+     Phase b also runs routed hard at tile (2, 9, 8) on a (6, 18, 32) grid
+     (sta_batched).  The CLI's --random_embeds marks all 256 text tokens
+     valid, as the JAX CLI does.
+  cf. main path, STA fallback: the CLI with --resume_dir at HunyuanVideo-13B
+     720p x 45f from a config.json with sta_tile (2, 9, 8) (STA heads
+     through sta_batched on the joint layout), 2 Euler steps; launch counts
+     exact, sta_pipe never.
   d. HunyuanVideo's reference shape, 720p x 117f (108,000 + 256 tokens):
      one timed forward routed hard, then one routing off.
   e. Wan-14B (40 blocks, dim 5120) from an int4 stack through a depth-1
@@ -84,7 +104,9 @@ Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
      counts exact against the count derived from the graph (train_launches).
 Then a line of the W8A8, static-scale and Wan-14B numbers, a {"kernels":
 [...]} line (flash_manual's int8 mode a row of its own; sta_pipe's, which
-no main path runs, under its row's "modes"), the card line, and the last line
+no main path runs, under its row's "modes"; sta_row, which no geometry of
+the port's paths reaches, with "on_main_path": false), the card line, and
+the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
 CUDA or without the package beside this file.
 """
@@ -181,20 +203,29 @@ def main() -> int:
         kernels = phase("kernels", lambda: check_kernels(torch, card)
                         + check_routed_kernels(torch, card))
         int8 = phase("int8_kernels", check_int8_kernels, torch, card)
+        fallback = phase("fallback_kernels", check_fallback_kernels, torch, card)
         phase("model_checks", lambda: (check_model(torch), check_routed_model(torch),
-                                       check_routed_model(torch, int8=True)))
+                                       check_routed_model(torch, int8=True),
+                                       check_routed_model(torch, grid=(4, 18, 80),
+                                                          tile=WAN_TILE_4910)))
         launches_off, per_step = phase("main_off", run_main_path, torch, card)
         launches_hard, per_step_hard = phase("main_routed", run_routed_main_path, torch, card)
         launches_int8, per_step_int8 = phase("main_routed_int8", run_routed_main_path, torch,
                                              card, True)
         static = phase("static_scales", run_static_scales, torch, card)
         phase("720p", run_720p_forward, torch, card)
+        launches_4910, per_step_4910 = phase("wan_4910", run_wan_fallback_path, torch, card)
         hy_kernels = phase("hunyuan_kernels", check_hunyuan_kernels, torch, card)
-        phase("hunyuan_model_check", check_hunyuan_model, torch)
+        phase("hunyuan_model_check", lambda: (
+            check_hunyuan_model(torch),
+            check_hunyuan_model(torch, grid=(6, 18, 32), tile=HY_TILE_298,
+                                modes=(("hard", False),))))
         hy_launches, hy_per_step = phase("hunyuan_main", run_hunyuan_main_path, torch, card)
+        launches_298, per_step_298 = phase("hunyuan_298", run_hunyuan_fallback_path, torch,
+                                           card)
         hy_ref = phase("hunyuan_117f", run_hunyuan_reference_shape, torch, card)
         q14 = phase("wan14b_int4", run_quantized_blocks, torch, card)
-    kernels += int8_kernel_rows(int8)
+    kernels += int8_kernel_rows(int8) + fallback_kernel_rows(fallback)
     for k in kernels:
         if k["name"] == "sta_pipe":
             k["modes"] = {"int8_qk": {"replaces": "vorta_tpu/ops/sta_pipe.py:197",
@@ -208,18 +239,23 @@ def main() -> int:
         paths = {"off_480p_21f": launches_off[name], "hard_480p_77f": launches_hard[name],
                  "hard_480p_77f_int8": launches_int8[name],
                  "train_480p_77f": launches_train[name],
-                 **{p: hy_launches[p][name] for p in hy_launches}}
+                 **{p: hy_launches[p][name] for p in hy_launches},
+                 "hard_720p_77f_4910": launches_4910[name],
+                 "hunyuan_45f_298": launches_298[name]}
         # the count of the path the kernel's slice brought: serving's routed
-        # path (in int8 for the int8 mode), or training for the kernels only
-        # training launches
-        k["launches"] = (paths["hard_480p_77f"] or paths["hard_480p_77f_int8"]
-                         or paths["train_480p_77f"])
+        # path (in int8 for the int8 mode), training for the kernels only
+        # training launches, the STA fallbacks' two paths for theirs
+        k["launches"] = next((paths[p] for p in ("hard_480p_77f", "hard_480p_77f_int8",
+                                                 "train_480p_77f", "hard_720p_77f_4910",
+                                                 "hunyuan_45f_298") if paths[p]), 0)
         k["launches_by_path"] = paths
         if name in hy_kernels:  # the Hunyuan shapes join the kernel's other shapes
             k["shapes"] = {**k.get("shapes", {}), **hy_kernels[name]}
             k["max_abs_err"] = max([k["max_abs_err"]] + [x["max_abs_err"]
                                                          for x in hy_kernels[name].values()])
-        if not any(paths.values()):
+        if name == "sta_row":  # the JAX package's gates give no path of the port's sta_row
+            k["on_main_path"] = False
+        elif not any(paths.values()):
             raise RuntimeError(f"{name}: launched on no main path")
     print(json.dumps({"w8a8": int8["w8a8"], "static_scales": static, "wan14b_int4": q14}))
     print(json.dumps({"kernels": kernels}))
@@ -234,8 +270,12 @@ def main() -> int:
           f"per denoise step, HunyuanVideo-13B off {hy_per_step['hunyuan_off_int8']:.3f}, "
           f"routed {hy_per_step['hunyuan_int8']:.3f} s per Euler step; Wan-14B int4 stack "
           f"{q14['stack_gib']:.2f} GiB, forward {q14['forward_ms']:.1f} ms, peak "
-          f"{q14['peak_gib']:.2f} GiB; launches off {launches_off}, routed {launches_hard}, "
-          f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}; "
+          f"{q14['peak_gib']:.2f} GiB; STA fallbacks: Wan-1.3B 720p x 77f tile (4, 9, 10) "
+          f"(sta_window) {per_step_4910:.3f} s per denoise step, HunyuanVideo-13B 720p x 45f "
+          f"tile (2, 9, 8) (sta_batched) {per_step_298:.3f} s per Euler step; "
+          f"launches off {launches_off}, routed {launches_hard}, "
+          f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
+          f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}; "
           f"phases {phase_s}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -531,16 +571,10 @@ def check_routed_kernels(torch, card: str) -> list:
         b_ms, b_by = bound_ms(flops, 4 * n * d * 2 * n_act, PEAK_BF16)
         # SDPA with the boolean STA mask (S^2 bytes: 0.97 GB at 480p, 5.2 GB at
         # 720p), on the active heads; where the card refuses it, its error
-        lib, lib_err = None, None
         mask = sta_raster_mask(torch, grid, tile, dev)
-        qa, ka, va = (x[:, act > 0] for x in (q, k, v))
-        try:
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qa, ka, va, attn_mask=mask), 3, 1)
-        except (torch.OutOfMemoryError, RuntimeError) as e:
-            lib_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
-            log(f"sta_pipe {name}: SDPA with the boolean mask failed: {lib_err}")
-        del mask, qa, ka, va
+        lib, lib_err = masked_sdpa_ms(torch, f"sta_pipe {name}",
+                                      *(x[:, act > 0] for x in (q, k, v)), mask)
+        del mask
         torch.cuda.empty_cache()
         st[name] = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1),
                         library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
@@ -658,23 +692,24 @@ def check_model(torch) -> None:
         raise RuntimeError("model check: the card's forward disagrees with the CPU's")
 
 
-def check_routed_model(torch, int8: bool = False) -> None:
+def check_routed_model(torch, int8: bool = False, grid=(8, 24, 20), tile=(4, 6, 4)) -> None:
     """2 blocks at Wan-1.3B widths routed hard: card (bf16, kernels) vs CPU
     (f32, plain versions).  The routers' weights are 0 and their biases
     one-hot logits, so 4 heads go to each expert in both runs.  ``int8``:
-    with qk_int8 and W8A8 on both sides."""
+    with qk_int8 and W8A8 on both sides.  The default grid has 3,840 tokens
+    in tiles (2, 4, 5) per axis, so the 3-tile STA window is narrower than
+    the grid on h and w; the STA heads take the kernel the gates pick."""
     import dataclasses
 
     from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
     from vorta_tpu_torch.models.wan import WanModel
     from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.routed_fused import routed_sta_kernel
 
     cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
-    # 3,840 tokens; tiles (2, 4, 5) per axis, so the 3-tile STA window is
-    # narrower than the grid on h and w
-    grid = (8, 24, 20)
-    attn = AttentionConfig(latent_shape=grid, sta_tile=(4, 6, 4), sta_window=(3, 3, 3),
+    attn = AttentionConfig(latent_shape=grid, sta_tile=tile, sta_window=(3, 3, 3),
                            lowres_window=(2, 3, 2), qk_int8=int8)
+    sta_kernel = routed_sta_kernel(attn, 128, 2)
     mm = "int8" if int8 else "bf16"
     ref_model = WanModel(cfg, dtype=torch.float32, device="cpu", seed=5)
     experts = torch.tensor([0, 1, 2] * 4)
@@ -697,7 +732,7 @@ def check_routed_model(torch, int8: bool = False) -> None:
     if not (res.expert_ids == experts.numpy()).all():
         raise RuntimeError(f"routed model check: routing {res.expert_ids}")
     expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 2, "fused_norm": 5, "prologue": 2,
-                "flash_manual": 4, "sta_pipe": 2, "pool_qkv": 2, "unpool": 2,
+                "flash_manual": 4, sta_kernel: 2, "pool_qkv": 2, "unpool": 2,
                 "flash_manual_int8": 4 if int8 else 0}
     if launches != expected:
         raise RuntimeError(f"routed model check: launches {launches} != {expected}")
@@ -707,9 +742,9 @@ def check_routed_model(torch, int8: bool = False) -> None:
     # bf16 activations against f32 through 2 blocks, as the routing-off check,
     # plus the lowres picks that bf16 rounding flips (kernels phase: the flip
     # count) and that then swap a token's own output for its center's
-    log(f"routed model check (2 blocks, 1.3B widths, {grid} = 3,840 tokens, 4 heads per "
-        f"expert{', qk_int8 + W8A8' if int8 else ''}): rel L2 err card bf16 vs CPU f32 = "
-        f"{rel:.4f} (tolerance 0.05); launches {launches}")
+    log(f"routed model check (2 blocks, 1.3B widths, {grid} = {attn.seq_len:,} tokens, tile "
+        f"{tile} ({sta_kernel}), 4 heads per expert{', qk_int8 + W8A8' if int8 else ''}): rel "
+        f"L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); launches {launches}")
     if not rel < 0.05:
         raise RuntimeError("routed model check: the card's forward disagrees with the CPU's")
 
@@ -793,12 +828,7 @@ def run_routed_main_path(torch, card: str, int8: bool = False):
     if tables.shape != (4, 30, 12):
         raise RuntimeError(f"routed main path: routing tables {tables.shape}")
     heads = np.bincount(tables.reshape(-1), minlength=3)
-    has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
-    n_fwd = tables.shape[0]
-    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 30 * n_fwd,
-                "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd,
-                "flash_manual": int(has[0].sum() + has[1].sum()), "sta_pipe": int(has[2].sum()),
-                "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
+    expected = routed_wan_launches(tables, "sta_pipe", tables.shape[0])
     if int8:
         expected["flash_manual_int8"] = expected["flash_manual"]
     if launches != expected:
@@ -1009,18 +1039,12 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
     keys = window_keys + HY_VALID
     flops = 4.0 * sv * keys * d * n_act
     b_ms, b_by = bound_ms(flops, (4 * sv + 2 * HY_TEXT) * d * 2 * n_act, PEAK_BF16)
-    lib, lib_err = None, None
-    try:  # SDPA over [video | text] with the window's boolean mask and the text mask
-        smask = torch.cat([sta_raster_mask(torch, GRID_HY_45F, tile, dev),
-                           mask.expand(sv, HY_TEXT)], dim=1)
-        qa = q[:, act > 0]
-        ka, va = (torch.cat([a, b], dim=2)[:, act > 0] for a, b in ((k, tk), (v, tv)))
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qa, ka, va, attn_mask=smask), 3, 1)
-        del smask, qa, ka, va
-    except (torch.OutOfMemoryError, RuntimeError) as e:
-        lib_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
-        log(f"sta_pipe: masked SDPA failed: {lib_err}")
+    # SDPA over [video | text] with the window's boolean mask and the text mask
+    smask = torch.cat([sta_raster_mask(torch, GRID_HY_45F, tile, dev),
+                       mask.expand(sv, HY_TEXT)], dim=1)
+    ka, va = (torch.cat([a, b], dim=2)[:, act > 0] for a, b in ((k, tk), (v, tv)))
+    lib, lib_err = masked_sdpa_ms(torch, "sta_pipe", q[:, act > 0], ka, va, smask)
+    del smask, ka, va
     torch.cuda.empty_cache()
     r = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1), library_ms=lib,
              bound_ms=b_ms, bound_by=b_by, max_abs_err=err, worst_ratio=ratio,
@@ -1137,31 +1161,36 @@ def hy_inputs(torch, grid, dev, seed: int):
     return lat, text, hy_text_mask(torch, dev), pooled
 
 
-def hy_hard_launches(tables, int8: bool = False) -> dict:
+def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -> dict:
     """Kernel launches of hard-routed Hunyuan forwards from their routing
     tables (forwards, 60 blocks, heads): per forward the prologue 60 and the
     AdaLN norm 121 (4 per dual block, 1 per single block, 1 in the head);
-    per block one flash_manual per routed expert (STA's for its text rows),
-    sta_pipe with STA, pool_qkv and unpool with LOWRES; ``int8``: FULL's and
-    LOWRES's flash_manual in the int8 QK mode (the STA text rows stay bf16)."""
+    per block one flash_manual per routed expert (STA's for its text rows,
+    except with sta_batched, which takes them itself), the STA kernel with
+    STA, pool_qkv and unpool with LOWRES; ``int8``: FULL's and LOWRES's
+    flash_manual in the int8 QK mode (the STA text rows stay bf16)."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
     n_fwd = tables.shape[0]
+    text_rows = 0 if sta_kernel == "sta_batched" else int(has[2].sum())
     return {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
             "fused_norm": 121 * n_fwd,
-            "flash_manual": int(has[0].sum() + has[1].sum() + has[2].sum()),
-            "sta_pipe": int(has[2].sum()), "pool_qkv": int(has[1].sum()),
+            "flash_manual": int(has[0].sum() + has[1].sum()) + text_rows,
+            sta_kernel: int(has[2].sum()), "pool_qkv": int(has[1].sum()),
             "unpool": int(has[1].sum()),
             "flash_manual_int8": int(has[0].sum() + has[1].sum()) if int8 else 0}
 
 
-def check_hunyuan_model(torch) -> None:
+HY_MODEL_MODES = (("off", False), ("hard", False), ("off", True), ("hard", True))
+
+
+def check_hunyuan_model(torch, grid=(6, 9, 16), tile=(6, 9, 8), modes=HY_MODEL_MODES) -> None:
     """1 dual + 1 single block at HunyuanVideo-13B widths: card (bf16,
     kernels) vs CPU (f32, plain versions) from the same weights, routing off
-    and routed hard with 8 heads on each expert, on a window-dense grid
-    (6, 9, 16) (tile (6, 9, 8): 864 tokens) with 83 of 256 text tokens valid;
-    each in bf16 and with qk_int8 + W8A8."""
+    and routed hard with 8 heads on each expert, by default on a
+    window-dense grid (6, 9, 16) (tile (6, 9, 8): 864 tokens), with 83 of 256
+    text tokens valid; each in bf16 and with qk_int8 + W8A8 (``modes``)."""
     import dataclasses
 
     import numpy as np
@@ -1169,10 +1198,11 @@ def check_hunyuan_model(torch) -> None:
     from vorta_tpu_torch.cli.sample import attention_config
     from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
     from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.joint_experts import JointConfig, joint_sta_kernel
 
     cfg = dataclasses.replace(HUNYUAN_13B, dual_layers=1, single_layers=1)
-    grid = (6, 9, 16)
-    attn = attention_config("hunyuan-13B", grid)
+    attn = dataclasses.replace(attention_config("hunyuan-13B", grid), sta_tile=tile)
+    sta_kernel = joint_sta_kernel(JointConfig(attn, HY_TEXT), 128, 2)
     experts = torch.tensor([0, 1, 2] * 8)
     gpu = HunyuanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=3)
     for block in gpu.blocks:
@@ -1183,7 +1213,7 @@ def check_hunyuan_model(torch) -> None:
     lat, text, mask, pooled = hy_inputs(torch, grid, torch.device("cuda"), 9)
     args = (lat, torch.tensor([700.0], device="cuda"), text, mask, pooled)
     g = torch.tensor([6000.0], device="cuda")
-    for mode, int8 in (("off", False), ("hard", False), ("off", True), ("hard", True)):
+    for mode, int8 in modes:
         a = dataclasses.replace(attn, qk_int8=int8)
         mm = "int8" if int8 else "bf16"
         want = cpu(*(x.cpu() for x in args), guidance=g.cpu(), attn_cfg=a, routing_mode=mode,
@@ -1197,24 +1227,25 @@ def check_hunyuan_model(torch) -> None:
         if mode == "hard":
             if not (res.expert_ids == experts.numpy()).all():
                 raise RuntimeError(f"Hunyuan model check: routing {res.expert_ids}")
-            expected = hy_hard_launches(np.asarray(res.expert_ids)[None], int8)
+            expected = hy_hard_launches(np.asarray(res.expert_ids)[None], int8, sta_kernel)
             expected.update(prologue=2, fused_norm=6)
         if launches != expected:
             raise RuntimeError(f"Hunyuan model check {mode}: launches {launches} != {expected}")
         if not torch.isfinite(got).all():
             raise RuntimeError(f"Hunyuan model check {mode}: non-finite output on the card")
         rel = ((got - want).norm() / want.norm()).item()
-        log(f"Hunyuan model check (1 + 1 blocks, 13B widths, {grid} = 864 + 256 tokens, "
-            f"{mode}{', qk_int8 + W8A8' if int8 else ''}): rel L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); "
-            f"launches {launches}")
+        log(f"Hunyuan model check (1 + 1 blocks, 13B widths, {grid} = {attn.seq_len:,} + 256 "
+            f"tokens, tile {tile} ({sta_kernel}), {mode}{', qk_int8 + W8A8' if int8 else ''}): "
+            f"rel L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); launches {launches}")
         if not rel < 0.05:
             raise RuntimeError("Hunyuan model check: the card's forward disagrees with the CPU's")
     del gpu, cpu
 
 
-def hy_warm_up(torch, grid, modes) -> None:
+def hy_warm_up(torch, grid, modes, attn=None) -> None:
     """Warm cuBLAS and the caching allocator at a grid's shapes with a
-    1 + 1-block model of HunyuanVideo-13B's widths."""
+    1 + 1-block model of HunyuanVideo-13B's widths (``attn``: the attention
+    config, by default the CLI's)."""
     import dataclasses
 
     from vorta_tpu_torch.cli.sample import attention_config
@@ -1226,7 +1257,7 @@ def hy_warm_up(torch, grid, modes) -> None:
     for mode in modes:
         warm(lat, torch.tensor([900.0], device="cuda"), text, mask, pooled,
              guidance=torch.tensor([6000.0], device="cuda"),
-             attn_cfg=attention_config("hunyuan-13B", grid), routing_mode=mode)
+             attn_cfg=attn or attention_config("hunyuan-13B", grid), routing_mode=mode)
     torch.cuda.synchronize()
 
 
@@ -1323,6 +1354,332 @@ def run_hunyuan_reference_shape(torch, card: str) -> dict:
         del out
     log(f"720p x 117f: routing off / routed = {res['off_ms'] / res['hard_ms']:.3f}")
     return res
+
+
+# ---- the STA fallbacks: sta_window, sta_batched, sta_row ----------------------------
+
+# the STA tiles where the JAX package leaves sta_pipe (its gates): Wan 720p
+# (4, 9, 10) runs sta_window, HunyuanVideo 720p x 45f (2, 9, 8) sta_batched
+WAN_TILE_4910 = (4, 9, 10)
+HY_TILE_298 = (2, 9, 8)
+
+
+def masked_sdpa_ms(torch, name: str, qa, ka, va, mask):
+    """SDPA with a boolean or float mask on the active heads: (ms, error);
+    where the card refuses it (memory), None and the error."""
+    import torch.nn.functional as F
+
+    try:
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qa, ka, va, attn_mask=mask), 3, 1), None
+    except (torch.OutOfMemoryError, RuntimeError) as e:
+        err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        log(f"{name}: SDPA with the mask failed: {err}")
+        return None, err
+
+
+def window_case(torch, name, kernel, plain, grid, tile, act, text=False, seed=50):
+    """One window-dense STA kernel (sta_window or sta_row) against its plain
+    version at a full-width shape: 720p Wan (12 heads) or HunyuanVideo 45f
+    (24 heads, 256 text keys with 83 valid); times, bound and SDPA."""
+    import numpy as np
+
+    from vorta_tpu_torch.ops import joint_experts as joint
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, d = act.numel(), 128
+    n = grid[0] * grid[1] * grid[2]
+    q, k, v = (torch.randn((1, h, n, d), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    kw = dict(latent_shape=grid, tile=tile, window=(3, 3, 3), scale=d**-0.5)
+    mask = hy_text_mask(torch, dev)
+    if text:
+        kw.update(text_k=torch.randn((1, h, HY_TEXT, d), generator=g, device=dev).bfloat16(),
+                  text_v=torch.randn((1, h, HY_TEXT, d), generator=g, device=dev).bfloat16(),
+                  text_bias=joint._text_bias(mask))
+    n_act = int(act.sum().item())
+    kern = lambda: kernel(q, k, v, act, **kw)  # noqa: E731
+    plain_fn = lambda: plain(q, k, v, act, **kw)  # noqa: E731
+    got, want = kern(), plain_fn()
+    err = compare(torch, f"{name} (1,{h},{n},128){' + 256 text' if text else ''}, tile {tile}, "
+                  f"{n_act} of {h} heads active", got, want)
+    if got[:, act == 0].any():
+        raise RuntimeError(f"{name}: an inactive head wrote non-zeros")
+    r = dict(worst_ratio=worst_ratio(torch, got, want))
+    if text:  # bracket: the plain version without the text tail must fail
+        no_tail = plain(q, k, v, act, **{**kw, "text_k": None, "text_v": None,
+                                         "text_bias": None})
+        r["missing_tail_worst_ratio"] = worst_ratio(torch, no_tail[:, act > 0], want[:, act > 0])
+        if not r["missing_tail_worst_ratio"] > TOL:
+            raise RuntimeError(f"{name} check cannot tell a missing text tail")
+        del no_tail
+    del got, want
+    window_keys = int(np.prod([min(3, grid[a] // tile[a]) * tile[a] for a in range(3)]))
+    keys = window_keys + (HY_VALID if text else 0)
+    flops = 4.0 * n * keys * d * n_act
+    b_ms, b_by = bound_ms(flops, (4 * n + (2 * HY_TEXT if text else 0)) * d * 2 * n_act,
+                          PEAK_BF16)
+    qa = q[:, act > 0]
+    smask = sta_raster_mask(torch, grid, tile, dev)
+    if text:
+        smask = torch.cat([smask, mask.expand(n, HY_TEXT)], dim=1)
+        ka, va = (torch.cat([a, b], dim=2)[:, act > 0] for a, b in ((k, kw["text_k"]),
+                                                                     (v, kw["text_v"])))
+    else:
+        ka, va = k[:, act > 0], v[:, act > 0]
+    lib, lib_err = masked_sdpa_ms(torch, name, qa, ka, va, smask)
+    del smask, qa, ka, va
+    torch.cuda.empty_cache()
+    r.update(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain_fn, 2, 1), library_ms=lib,
+             bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    if lib_err:
+        r["library_error"] = lib_err
+    log(f"{name}: {window_keys} window keys per query; {r} (achieved "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s on {n_act} heads)")
+    return r
+
+
+def check_fallback_kernels(torch, card: str) -> dict:
+    """sta_window, sta_batched and sta_row on the card against their plain
+    versions at the slice's full-width shapes: {kernel: {shape: numbers}}."""
+    import dataclasses
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops import joint_experts as joint
+    from vorta_tpu_torch.ops.routed_fused import routed_sta_kernel
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
+    from vorta_tpu_torch.ops.sta_row import (
+        sta_row_attention,
+        sta_row_attention_ref,
+        supports_row_dense,
+    )
+    from vorta_tpu_torch.ops.sta_window import sta_window_attention, sta_window_attention_ref
+
+    dev = torch.device("cuda")
+    wan_act = torch.tensor(ACTIVE_HEADS, device=dev)
+    hy_act = torch.tensor(HY_ACTIVE, device=dev)
+    out = {"sta_window": {}, "sta_batched": {}, "sta_row": {}}
+
+    # ---- sta_window: Wan 720p (4, 9, 10), where the routed dispatch runs it, and
+    # HunyuanVideo 45f (4, 9, 10) with the text tail
+    wan = dataclasses.replace(attention_config("wan-1_3B", GRID_720P), sta_tile=WAN_TILE_4910)
+    if routed_sta_kernel(wan, 128, 2) != "sta_window":
+        raise RuntimeError("Wan 720p (4, 9, 10): the gates do not pick sta_window")
+    out["sta_window"]["wan_720p_4910"] = window_case(
+        torch, "sta_window", sta_window_attention, sta_window_attention_ref, GRID_720P,
+        WAN_TILE_4910, wan_act)
+    out["sta_window"]["hunyuan_45f_4910_text"] = window_case(
+        torch, "sta_window", sta_window_attention, sta_window_attention_ref, GRID_HY_45F,
+        WAN_TILE_4910, hy_act, text=True)
+
+    # ---- sta_batched: the HunyuanVideo 45f (2, 9, 8) joint layout (1,24,48384,128),
+    # pair bits (3 x 7 sub-tiles), the bias of 83 valid text tokens, 16 heads active
+    hy = dataclasses.replace(attention_config("hunyuan-13B", GRID_HY_45F), sta_tile=HY_TILE_298)
+    jcfg = joint.JointConfig(hy, HY_TEXT)
+    if joint.joint_sta_kernel(jcfg, 128, 2) != "sta_batched":
+        raise RuntimeError("HunyuanVideo (2, 9, 8): the gates do not pick sta_batched")
+    lay = joint.joint_layouts(jcfg)["sta"]
+    ki, kc, bits = joint._joint_sta_tables(jcfg).on(dev)
+    mask = hy_text_mask(torch, dev)
+    bias = joint._bias(mask, lay, hy.seq_len)
+    g = torch.Generator(device=dev).manual_seed(51)
+    h, d, tpt = 24, 128, hy.tokens_per_tile
+    q, k, v = (torch.randn((1, h, lay.total, d), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    kw = dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias, scale=d**-0.5,
+              block_q=lay.block_q, block_kv=lay.block_kv)
+    kern = lambda: sta_flash_headbatched(q, k, v, ki, kc, hy_act, **kw)  # noqa: E731
+    plain = lambda: sta_flash_headbatched_ref(q, k, v, ki, kc, hy_act, **kw)  # noqa: E731
+    got, want = kern(), plain()
+    n_act = int(hy_act.sum().item())
+    err = compare(torch, f"sta_batched (1,24,{lay.total},128), blocks {lay.block_q}/"
+                  f"{lay.block_kv}, pair bits, kv_bias, {n_act} of 24 heads", got, want)
+    if got[:, hy_act == 0].any():
+        raise RuntimeError("sta_batched: an inactive head wrote non-zeros")
+    r = dict(worst_ratio=worst_ratio(torch, got, want))
+    for bracket, extra in (("missing_bias", {"kv_bias": None}),
+                           ("missing_bits", {"pair_bits": None})):
+        miss = sta_flash_headbatched_ref(q, k, v, ki, kc, hy_act, **{**kw, **extra})
+        r[f"{bracket}_worst_ratio"] = worst_ratio(torch, miss[:, hy_act > 0],
+                                                  want[:, hy_act > 0])
+        del miss
+        if not r[f"{bracket}_worst_ratio"] > TOL:
+            raise RuntimeError(f"sta_batched check cannot tell a {bracket.replace('_', ' ')}")
+    del got, want
+    # the pairs this run's data needs: visible (q, kv) sub-tile pairs times the
+    # q rows of a sub-tile and the live (bias > -1e30) keys of the kv sub-tile
+    vis = torch.from_numpy(joint._joint_sta_subtile_mask(jcfg)[0]).to(dev)
+    live = (bias.reshape(-1, tpt) > -1e29).sum(dim=1)
+    pairs = int((vis.long() * live[None]).sum().item()) * tpt
+    flops = 4.0 * pairs * d * n_act
+    b_ms, b_by = bound_ms(flops, 4 * lay.total * d * 2 * n_act + lay.total * 4, PEAK_BF16)
+    full = vis.repeat_interleave(tpt, 0).repeat_interleave(tpt, 1)  # (S, S) bool, 2.3 GB
+    fmask = torch.where(full, bias.to(torch.bfloat16), float("-inf"))
+    del full
+    lib, lib_err = masked_sdpa_ms(torch, "sta_batched", *(x[:, hy_act > 0] for x in (q, k, v)),
+                                  fmask[None, None])
+    del fmask
+    torch.cuda.empty_cache()
+    r.update(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1), library_ms=lib,
+             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, pairs_per_head=pairs)
+    if lib_err:
+        r["library_error"] = lib_err
+    out["sta_batched"]["hunyuan_45f_298_joint"] = r
+    log(f"sta_batched: {pairs:,} visible pairs per head; {r} (achieved "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s on {n_act} heads)")
+    del q, k, v
+
+    # ---- sta_row, a direct call (no geometry of this slice's paths reaches it):
+    # Wan 720p (5, 9, 8) and HunyuanVideo 45f (6, 9, 8) with the text tail, both
+    # admitted by the JAX package's row-dense gate
+    for name, grid, tile, act, text in (("wan_720p_598", GRID_720P, (5, 9, 8), wan_act, False),
+                                        ("hunyuan_45f_698_text", GRID_HY_45F, (6, 9, 8), hy_act,
+                                         True)):
+        if not supports_row_dense(grid, tile, 128, 2, HY_TEXT if text else 0):
+            raise RuntimeError(f"sta_row {name}: the row-dense gate refuses it")
+        out["sta_row"][name] = window_case(torch, "sta_row", sta_row_attention,
+                                           sta_row_attention_ref, grid, tile, act, text=text,
+                                           seed=52)
+    return out
+
+
+def fallback_kernel_rows(fb: dict) -> list:
+    """The kernels line's rows of sta_window, sta_batched and sta_row, each
+    with its first shape's numbers on top and all of them under ``shapes``."""
+    meta = (("sta_window", "vorta_tpu/ops/sta_window.py:71"),
+            ("sta_batched", "vorta_tpu/ops/sta_batched.py:30"),
+            ("sta_row", "vorta_tpu/ops/sta_row.py:65"))
+    rows = []
+    for name, replaces in meta:
+        shapes = fb[name]
+        first = next(iter(shapes.values()))
+        rows.append(dict(name=name, route="cuda", source=f"vorta_tpu_torch/csrc/{name}.cu",
+                         replaces=replaces, _counter=name,
+                         **{**first, "max_abs_err": max(x["max_abs_err"] for x in shapes.values())},
+                         shapes=shapes))
+    return rows
+
+
+def routed_wan_launches(tables, sta_kernel: str, n_fwd: int) -> dict:
+    """Kernel launches of hard-routed Wan forwards from their routing tables
+    (forwards, 30 blocks, heads)."""
+    from vorta_tpu_torch.ops import _build
+
+    has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
+    return {**dict.fromkeys(_build.KERNELS, 0), "flash": 30 * n_fwd,
+            "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd,
+            "flash_manual": int(has[0].sum() + has[1].sum()), sta_kernel: int(has[2].sum()),
+            "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
+
+
+def run_wan_fallback_path(torch, card: str):
+    """cli.sample --resume_dir at Wan-1.3B 720p x 77f (72,000 tokens, 30
+    blocks, routed hard by random routers), from the config.json that
+    ``cli.train --sta_tile 4 9 10`` writes at 720p: the STA heads run
+    sta_window; 2 UniPC steps with CFG = 4 forwards after a warm-up forward
+    of a 2-block model; launch counts exact, sta_pipe never."""
+    import dataclasses
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import main as sample_main
+    from vorta_tpu_torch.cli.train import attention_config as train_attention_config
+    from vorta_tpu_torch.cli.train import parse_args as train_args
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+
+    run_dir = HERE / "results" / "port_smoke" / "wan_720p_4910"
+    attn = train_attention_config(train_args([
+        "--synthetic_data", "--output_dir", str(run_dir), "--video_height", "720",
+        "--video_width", "1280", "--sta_tile", *map(str, WAN_TILE_4910)]))
+    if attn.latent_shape != GRID_720P:
+        raise RuntimeError(f"trainer geometry {attn.latent_shape}")
+    run_dir.mkdir(parents=True, exist_ok=True)
+    attn.save(run_dir / "config.json")  # the file the trainer writes
+    warm = WanModel(dataclasses.replace(WAN_1_3B, num_layers=2), dtype=torch.bfloat16,
+                    device="cuda", seed=1)
+    warm(torch.randn((1, 20, 90, 160, 16), device="cuda"), torch.tensor([900.0], device="cuda"),
+         torch.randn((1, TEXT_LEN, 4096), device="cuda"), attn_cfg=attn, routing_mode="hard")
+    del warm
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = sample_main(["--model", "wan-1_3B", "--random_embeds", "--num_frames", "77",
+                       "--height", "720", "--width", "1280", "--num_inference_steps", "2",
+                       "--seed", "0", "--device", "cuda", "--resume_dir", str(run_dir),
+                       "--output", str(run_dir / "latents.npy")])
+    launches = dict(_build.launches)
+    lat = res.latents
+    if tuple(lat.shape) != (1, 20, 90, 160, 16) or not torch.isfinite(lat).all():
+        raise RuntimeError(f"Wan (4, 9, 10) path: output {tuple(lat.shape)}, finite "
+                           f"{bool(torch.isfinite(lat).all())}")
+    tables = np.stack(res.routing)
+    if tables.shape != (4, 30, 12):
+        raise RuntimeError(f"Wan (4, 9, 10) path: routing tables {tables.shape}")
+    heads = np.bincount(tables.reshape(-1), minlength=3)
+    expected = routed_wan_launches(tables, "sta_window", 4)
+    if launches != expected or launches["sta_pipe"]:
+        raise RuntimeError(f"Wan (4, 9, 10) path launches {launches} != expected {expected}")
+    if not (heads > 0).all():
+        raise RuntimeError(f"Wan (4, 9, 10) path: an expert got no head: {heads}")
+    per_step = res.denoise_s / res.steps
+    log(f"Wan (4, 9, 10) path: Wan-1.3B 30 blocks, 720p x 77f = 72,000 tokens, --resume_dir "
+        f"config.json (sta_tile {WAN_TILE_4910}), routing hard, 2 UniPC steps x CFG: "
+        f"{res.denoise_s:.3f} s ({per_step:.3f} s/step; model build {res.build_s:.1f} s) on "
+        f"{card}; heads per expert over the run: full {heads[0]}, lowres {heads[1]}, sta "
+        f"{heads[2]}; launches {launches} (exact); output std {lat.std().item():.4f}")
+    return launches, per_step
+
+
+def run_hunyuan_fallback_path(torch, card: str):
+    """cli.sample --model hunyuan-13B --resume_dir at 720p x 45f (43,200 +
+    256 tokens, 60 blocks, routed hard by random routers), from a
+    config.json with the CLI's geometry but sta_tile (2, 9, 8): the STA heads
+    run sta_batched over the joint layout (432 / 1008 blocks); 2 Euler steps
+    after warm-up forwards of a 1 + 1-block model; launch counts exact,
+    sta_pipe never."""
+    import dataclasses
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.cli.sample import main as sample_main
+    from vorta_tpu_torch.ops import _build
+
+    run_dir = HERE / "results" / "port_smoke" / "hunyuan_45f_298"
+    attn = dataclasses.replace(attention_config("hunyuan-13B", GRID_HY_45F),
+                               sta_tile=HY_TILE_298)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    attn.save(run_dir / "config.json")
+    hy_warm_up(torch, GRID_HY_45F, ("hard",), attn)
+    _build.reset_launches()
+    res = sample_main(["--model", "hunyuan-13B", "--random_embeds", "--num_frames", "45",
+                       "--height", "720", "--width", "1280", "--num_inference_steps", "2",
+                       "--seed", "0", "--device", "cuda", "--resume_dir", str(run_dir),
+                       "--output", str(run_dir / "latents.npy")])
+    launches = dict(_build.launches)
+    lat = res.latents
+    if tuple(lat.shape) != (1, 12, 90, 160, 16) or not torch.isfinite(lat).all():
+        raise RuntimeError(f"Hunyuan (2, 9, 8) path: output {tuple(lat.shape)}, finite "
+                           f"{bool(torch.isfinite(lat).all())}")
+    tables = np.stack(res.routing)
+    if tables.shape != (2, 60, 24):
+        raise RuntimeError(f"Hunyuan (2, 9, 8) path: routing tables {tables.shape}")
+    heads = np.bincount(tables.reshape(-1), minlength=3)
+    expected = hy_hard_launches(tables, sta_kernel="sta_batched")
+    if launches != expected or launches["sta_pipe"]:
+        raise RuntimeError(f"Hunyuan (2, 9, 8) path launches {launches} != expected {expected}")
+    if not (heads > 0).all():
+        raise RuntimeError(f"Hunyuan (2, 9, 8) path: an expert got no head: {heads}")
+    per_step = res.denoise_s / res.steps
+    log(f"Hunyuan (2, 9, 8) path: HunyuanVideo-13B 20 + 40 blocks, 43,200 + 256 tokens (all "
+        f"text valid, --random_embeds), --resume_dir config.json (sta_tile {HY_TILE_298}), "
+        f"routing hard, 2 Euler steps: {res.denoise_s:.3f} s ({per_step:.3f} s/step; model "
+        f"build {res.build_s:.1f} s) on {card}; heads per expert over the run: full "
+        f"{heads[0]}, lowres {heads[1]}, sta {heads[2]}; launches {launches} (exact); output "
+        f"std {lat.std().item():.4f}; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return launches, per_step
 
 
 # ---- quantized serving --------------------------------------------------------

@@ -12,7 +12,11 @@ model runs on the card): the norm's rms / affine / out_f32 flags, the
 prologue's head scope, qk_norm off and odd sequence lengths, flash and
 flash_manual at head dim 64, small blocks, per-head tables and counts,
 sta_pipe at every tile-width class with clamped and whole-axis windows,
-pool/unpool with inactive heads, and that the options each wrapper leaves
+the STA fallbacks (sta_batched on joint layouts with pair bits and kv_bias,
+blocks 40 / 48 and 432 / 1008; sta_window and sta_row with and without the
+text tail, tile_w 8-aligned or not, more w tiles than a CUDA block takes;
+1 + 1-block Hunyuan and 2-block Wan forwards against the CPU where the
+gates pick them), pool/unpool with inactive heads, and that the options each wrapper leaves
 to later slices raise; for HunyuanVideo, flash_manual's kv_bias (with and
 without kv_valid_len, the joint experts' blocks), sta_pipe's text tail
 (active and inactive heads, 24 and 256 text keys, 432-token tiles), the
@@ -240,6 +244,233 @@ def test_sta_kernel_rejects_what_it_does_not_take(card):
         sta_pipe_attention(q.float(), q.float(), q.float(), act, **kw)
 
 
+# --- the STA fallbacks: sta_batched, sta_window, sta_row -------------------------------
+
+def _joint_sta_case(latent, tile, text_len, card, valid=17):
+    """The joint layout's sta_batched inputs: tables, pair bits, the bias of
+    ``valid`` text tokens."""
+    from vorta_tpu_torch.config import AttentionConfig
+    from vorta_tpu_torch.ops import joint_experts as joint
+
+    jcfg = joint.JointConfig(AttentionConfig(latent_shape=latent, sta_tile=tile,
+                                             lowres_window=(2, 2, 2)), text_len)
+    lay = joint.joint_layouts(jcfg)["sta"]
+    mask = (torch.arange(text_len) < valid)[None]
+    bias = joint._bias(mask, lay, jcfg.video.seq_len).to(card)
+    return lay, joint._joint_sta_tables(jcfg).on(card), bias, jcfg.video.tokens_per_tile
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("latent,tile,text_len", [
+    ((4, 4, 8), (2, 2, 2), 24),     # 8-token tiles: blocks 40 / 48 (not multiples of 16)
+    ((4, 18, 16), (2, 9, 8), 24),   # HunyuanVideo's (2, 9, 8): blocks 432 / 1008
+    ((4, 6, 16), (2, 3, 8), 20),    # 48-token tiles, text length not a multiple of 8
+])
+def test_sta_batched_kernel_matches_plain(card, d, latent, tile, text_len):
+    """The joint layout: pair bits (all-ones text blocks), kv bias, heads 1
+    routed away; and the same tables without bits or bias."""
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
+
+    lay, (ki, kc, bits), bias, tpt = _joint_sta_case(latent, tile, text_len, card)
+    g = torch.Generator(device=card).manual_seed(31)
+    q, k, v = (_randn(g, (2, 3, lay.total, d), torch.bfloat16) for _ in range(3))
+    active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
+    for extra in (dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias), {}):
+        kw = dict(block_q=lay.block_q, block_kv=lay.block_kv, scale=1.1 * d**-0.5, **extra)
+        _build.reset_launches()
+        got = sta_flash_headbatched(q, k, v, ki, kc, active, **kw)
+        assert _build.launches["sta_batched"] == 1
+        _close(got, sta_flash_headbatched_ref(q, k, v, ki, kc, active, **kw))
+        assert not got[:, 1].any()
+
+
+def test_sta_batched_kernel_rejects_what_it_does_not_take(card):
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched
+
+    lay, (ki, kc, bits), bias, tpt = _joint_sta_case((4, 4, 8), (2, 2, 2), 24, card)
+    q = torch.zeros((1, 2, lay.total, 128), device=card, dtype=torch.bfloat16)
+    act = torch.ones(2, device=card, dtype=torch.int32)
+    kw = dict(block_q=lay.block_q, block_kv=lay.block_kv, pair_bits=bits, tokens_per_tile=tpt)
+    for bad in (dict(softmax="stable"), dict(cast_p_to_v_dtype=False)):
+        with pytest.raises(NotImplementedError):
+            sta_flash_headbatched(q, q, q, ki, kc, act, **kw, **bad)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        sta_flash_headbatched(q.float(), q.float(), q.float(), ki, kc, act, **kw)
+    with pytest.raises(NotImplementedError, match="D 64/128"):
+        sta_flash_headbatched(q[..., :32], q[..., :32], q[..., :32], ki, kc, act, **kw)
+    with pytest.raises(ValueError, match="tokens_per_tile"):
+        sta_flash_headbatched(q, q, q, ki, kc, act, **{**kw, "tokens_per_tile": None})
+    with pytest.raises(ValueError, match="32 bits"):
+        sta_flash_headbatched(q, q, q, ki, kc, act, **{**kw, "tokens_per_tile": 4})
+    with pytest.raises(ValueError, match="head-shared"):
+        sta_flash_headbatched(q, q, q, ki.expand(2, -1, -1), kc.expand(2, -1), act, **kw)
+    blocks = dict(block_q=20, block_kv=20)  # not multiples of 8
+    q20 = q[:, :, :240]
+    ki20, kc20 = dense_tables(12, 12).on(card)
+    with pytest.raises(NotImplementedError, match="multiples of 8"):
+        sta_flash_headbatched(q20, q20, q20, ki20, kc20, act, **blocks)
+
+
+WINDOW_CASES = [  # (latent, tile): tile_w 8-aligned, 10 (misaligned), 4; clamping on every axis
+    ((4, 6, 32), (2, 3, 8)),
+    ((6, 4, 30), (2, 2, 10)),
+    ((12, 18, 20), (4, 6, 4)),
+    ((4, 9, 80), (4, 9, 10)),
+]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("text", [False, True])
+@pytest.mark.parametrize("latent,tile", WINDOW_CASES)
+def test_sta_window_kernel_matches_plain(card, d, latent, tile, text):
+    """Stable softmax over the clamped window, with and without the text
+    tail (24 keys, 17 valid), head 1 routed away."""
+    from vorta_tpu_torch.ops.sta_window import sta_window_attention, sta_window_attention_ref
+
+    _check_window_dense(card, d, latent, tile, text, "sta_window", sta_window_attention,
+                        sta_window_attention_ref)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("text", [False, True])
+@pytest.mark.parametrize("latent,tile", [
+    ((4, 6, 32), (2, 3, 8)),    # 4 w tiles in one CUDA block
+    ((4, 6, 80), (2, 3, 8)),    # 10 w tiles: two groups of 5
+    ((8, 6, 16), (2, 3, 16)),   # tile_w 16, 1 w tile per row
+    ((4, 4, 8), (2, 2, 8)),     # 1 w tile, the window spans every axis
+])
+def test_sta_row_kernel_matches_plain(card, d, latent, tile, text):
+    from vorta_tpu_torch.ops.sta_row import sta_row_attention, sta_row_attention_ref
+
+    _check_window_dense(card, d, latent, tile, text, "sta_row", sta_row_attention,
+                        sta_row_attention_ref)
+
+
+def _check_window_dense(card, d, latent, tile, text, name, kernel, plain):
+    b, h, lt = 2, 3, 24
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(32)
+    q, k, v = (_randn(g, (b, h, s, d), torch.bfloat16) for _ in range(3))
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=1.1 * d**-0.5)
+    if text:
+        kw.update(text_k=_randn(g, (b, h, lt, d), torch.bfloat16),
+                  text_v=_randn(g, (b, h, lt, d), torch.bfloat16),
+                  text_bias=torch.where(torch.arange(lt, device=card) < 17, 0.0, -1e30)[None])
+    active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
+    _build.reset_launches()
+    got = kernel(q, k, v, active, **kw)
+    assert _build.launches[name] == 1
+    _close(got, plain(q, k, v, active, **kw))
+    assert not got[:, 1].any()
+
+
+def test_sta_window_and_row_kernels_reject_what_they_do_not_take(card):
+    from vorta_tpu_torch.ops.sta_row import sta_row_attention
+    from vorta_tpu_torch.ops.sta_window import sta_window_attention
+
+    q = torch.zeros((1, 2, 4 * 6 * 16, 128), device=card, dtype=torch.bfloat16)
+    kw = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
+    act = torch.ones(2, device=card, dtype=torch.int32)
+    for fn in (sta_window_attention, sta_row_attention):
+        with pytest.raises(NotImplementedError, match="bf16"):
+            fn(q.float(), q.float(), q.float(), act, **kw)
+        with pytest.raises(NotImplementedError, match="D 64/128"):
+            fn(q[..., :32], q[..., :32], q[..., :32], act, **kw)
+        with pytest.raises(NotImplementedError):
+            fn(q, q, q, act, cast_p_to_v_dtype=False, **kw)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            fn(q, q, q, act, text_k=q[:, :, :12], text_v=q[:, :, :12], **kw)
+        with pytest.raises(ValueError):  # tiles that do not divide the grid
+            fn(q, q, q, act, latent_shape=(4, 6, 16), tile=(3, 3, 8))
+    with pytest.raises(ValueError, match="row-dense"):  # tile_w not a multiple of 8
+        sta_row_attention(q, q, q, act, latent_shape=(4, 6, 16), tile=(2, 3, 4))
+
+
+@pytest.mark.parametrize("kernel,latent,tile", [
+    ("sta_batched", (4, 6, 16), (2, 2, 2)),   # the tiny models' own 8-token tiles
+    ("sta_window", (4, 9, 80), (4, 9, 10)),   # 360-token tiles, tile_w 10
+])
+def test_hunyuan_forward_sta_fallbacks_on_card_matches_cpu(card, kernel, latent, tile):
+    """A 1 + 1-block model at head dim 128, routed hard with the heads on
+    all three experts, at a geometry where the JAX package's gates pick
+    ``kernel`` for the STA heads: the card (bf16, kernels) against the CPU
+    (f32, plain versions), rel L2 below 0.05, each kernel launched as the
+    dispatch says (sta_batched takes the STA text rows itself)."""
+    from vorta_tpu_torch.config import AttentionConfig
+    from vorta_tpu_torch.models.hunyuan import HunyuanModel
+    from vorta_tpu_torch.ops.joint_experts import JointConfig, joint_sta_kernel
+
+    cfg = _hunyuan_card_cfg()
+    attn = AttentionConfig(latent_shape=latent, sta_tile=tile, lowres_window=(2, 3, 2),
+                           block_q=32, block_kv=32)
+    assert joint_sta_kernel(JointConfig(attn, cfg.text_len), 128, 2) == kernel
+    cpu = HunyuanModel(cfg, dtype=torch.float32, device="cpu", seed=5)
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(torch.eye(3).reshape(-1) * 4.0)
+    gpu = HunyuanModel(cfg, dtype=torch.bfloat16, device=card, seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(9)
+    lat = torch.randn((1, latent[0], 2 * latent[1], 2 * latent[2], 16), generator=gen)
+    text = torch.randn((1, 24, 64), generator=gen)
+    pooled = torch.randn((1, 32), generator=gen)
+    mask = (torch.arange(24) < 17)[None]
+    args = (lat, torch.tensor([600.0]), text, mask, pooled)
+    kw = dict(guidance=torch.tensor([6000.0]), attn_cfg=attn, routing_mode="hard")
+    _build.reset_launches()
+    with torch.inference_mode():
+        res = gpu(*(x.to(card) for x in args), **{**kw, "guidance": kw["guidance"].to(card)})
+        got = res.sample.float().cpu()
+        launches = dict(_build.launches)
+        want = cpu(*args, **kw).sample
+    assert (res.expert_ids == np.array([[0, 1, 2]] * 2)).all()
+    text_rows = 2 if kernel == "sta_window" else 0  # flash_manual over the STA text rows
+    assert launches == {**dict.fromkeys(_build.KERNELS, 0), "prologue": 2, "fused_norm": 6,
+                        "flash_manual": 4 + text_rows, kernel: 2, "pool_qkv": 2, "unpool": 2}
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() < 0.05
+
+
+def test_routed_forward_sta_window_on_card_matches_cpu(card):
+    """Wan hard routing at tile (4, 9, 10) on a 80-wide grid, where the JAX
+    package's gates give the STA heads sta_window: card vs CPU, rel L2 below
+    0.05, sta_window launched once per block and sta_pipe never."""
+    from vorta_tpu_torch.config import WAN_TINY, AttentionConfig
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops.routed_fused import routed_sta_kernel
+
+    cfg = dataclasses.replace(WAN_TINY, dim=384, ffn_dim=768, num_heads=3, head_dim=128,
+                              text_dim=64, text_len=16, freq_dim=64)
+    attn = AttentionConfig(latent_shape=(4, 9, 80), sta_tile=(4, 9, 10), lowres_window=(2, 3, 2),
+                           block_q=64, block_kv=64)
+    assert routed_sta_kernel(attn, 128, 2) == "sta_window"
+    cpu = WanModel(cfg, dtype=torch.float32, device="cpu", seed=3)
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(torch.eye(3).reshape(-1) * 4.0)
+    gpu = WanModel(cfg, dtype=torch.bfloat16, device=card, seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(8)
+    lat = torch.randn((1, 4, 18, 160, 16), generator=gen)
+    ctx = torch.randn((1, 16, 64), generator=gen)
+    t = torch.tensor([600.0])
+    _build.reset_launches()
+    with torch.inference_mode():
+        res = gpu(lat.to(card), t.to(card), ctx.to(card), attn_cfg=attn, routing_mode="hard")
+        got = res.sample.float().cpu()
+        launches = dict(_build.launches)
+        want = cpu(lat, t, ctx, attn_cfg=attn, routing_mode="hard").sample
+    n = cfg.num_layers
+    assert (res.expert_ids == np.array([0, 1, 2])).all()
+    assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
+                        "fused_norm": 2 * n + 1, "prologue": n, "flash_manual": 2 * n,
+                        "sta_window": n, "pool_qkv": n, "unpool": n}
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() < 0.05
+
+
 # --- coreset pool / unpool (routed LOWRES expert) ------------------------------------
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -423,6 +654,11 @@ def test_hunyuan_cli_on_card(card, tmp_path):
     res = main(base + ["--resume_dir", str(tmp_path), "--output", str(tmp_path / "hard.npy")])
     assert np.load(tmp_path / "hard.npy").shape == (1, 4, 12, 32, 16)
     assert len(res.routing) == 2
+    # hard routing at the tiny model's own 8-token tiles: sta_batched
+    _build.reset_launches()
+    res = main(base + ["--output", str(tmp_path / "own.npy")])
+    assert np.isfinite(np.load(tmp_path / "own.npy")).all() and len(res.routing) == 2
+    assert _build.launches["sta_batched"] > 0 and _build.launches["sta_pipe"] == 0
 
 
 # --- AdaLN norm ---------------------------------------------------------------
@@ -731,7 +967,10 @@ def test_forward_only_kernels_raise_under_grad(card):
     """The wrappers with no backward in the JAX package raise on CUDA
     tensors that require grad under grad mode, and run under no_grad."""
     from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched
     from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention
+    from vorta_tpu_torch.ops.sta_row import sta_row_attention
+    from vorta_tpu_torch.ops.sta_window import sta_window_attention
 
     q = torch.zeros((1, 2, 64, 64), device=card, dtype=torch.bfloat16, requires_grad=True)
     ki, kc = dense_tables(1, 1).on(card)
@@ -748,6 +987,12 @@ def test_forward_only_kernels_raise_under_grad(card):
                        picks=torch.zeros((1, 2, 2, 2, 2, groups.num_kept_margins),
                                          dtype=torch.int32, device=card)),
         lambda: fused_qk_prologue(x, x, x, None, None, cos, cos, num_heads=2),
+        lambda: sta_flash_headbatched(q, q, q, ki, kc, torch.ones(2, device=card), block_q=64,
+                                      block_kv=64),
+        lambda: sta_window_attention(q, q, q, torch.ones(2, device=card), latent_shape=(4, 4, 4),
+                                     tile=(2, 2, 2)),
+        lambda: sta_row_attention(q, q, q, torch.ones(2, device=card), latent_shape=(1, 1, 64),
+                                  tile=(1, 1, 8)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no backward"):

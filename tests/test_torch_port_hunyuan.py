@@ -177,7 +177,10 @@ def test_forward_unfused_prologue_matches_fused(models, inputs, monkeypatch):
 
 
 def test_unported_options_raise(models, inputs):
-    _, tmodel, _ = models
+    """The options the port does not serve raise; the tiny model's own STA
+    tile (2, 2, 2), where the JAX package runs sta_batched, is served now and
+    routes hard as the JAX model does."""
+    jmodel, tmodel, _ = models
     args = _args(inputs, 500.0, False)
     kw = dict(attn_cfg=AttentionConfig(**ATTN))
     for bad in (dict(return_losses=True), dict(remat_blocks=True), dict(sp_axis="sp"),
@@ -192,10 +195,13 @@ def test_unported_options_raise(models, inputs):
     with pytest.raises(NotImplementedError, match="token"):
         HunyuanModel(dataclasses.replace(HUNYUAN_TINY, image_condition_type="token_replace"),
                      device="meta")
-    # the tiny model's own STA tile: the JAX package runs sta_batched there
-    small = AttentionConfig(**{**ATTN, "sta_tile": (2, 2, 2)})
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="sta_batched"):
-        tmodel(*args, attn_cfg=small, routing_mode="hard")
+    # the tiny model's own STA tile: sta_batched in both packages
+    small = {**ATTN, "sta_tile": (2, 2, 2)}
+    want = jmodel(*_args(inputs, 500.0, True), attn_cfg=JaxAttentionConfig(**small),
+                  routing_mode="hard", interpret=True)
+    with torch.no_grad():
+        got = tmodel(*args, attn_cfg=AttentionConfig(**small), routing_mode="hard")
+    _close(got.sample, want.sample)
 
 
 def test_routed_sampling_matches_jax(models, inputs):
@@ -238,9 +244,10 @@ def test_true_cfg_batch_equals_sequential(models, inputs, scheduler):
 
 
 def test_cli_samples_hunyuan_tiny_on_the_cpu(tmp_path, capsys):
-    """--native_attention at the tiny model's own geometry; hard routing with
-    a window-dense geometry from --resume_dir's config.json (the tiny
-    model's own 8-token tiles would take the unported sta_batched)."""
+    """--native_attention and hard routing (sta_batched) at the tiny model's
+    own geometry, --random_embeds marking every text token valid as the JAX
+    CLI does; hard routing at a window-dense geometry from --resume_dir's
+    config.json."""
     from vorta_tpu_torch.cli.sample import main
 
     base = ["--model", "hunyuan-tiny", "--device", "cpu", "--random_embeds", "--dtype", "fp32",
@@ -249,7 +256,9 @@ def test_cli_samples_hunyuan_tiny_on_the_cpu(tmp_path, capsys):
     res = main(base + ["--native_attention", "--output", str(tmp_path / "off.npy")])
     assert res.routing == [] and np.load(tmp_path / "off.npy").shape == (1, 4, 12, 32, 16)
     printed = capsys.readouterr().out
-    assert "routing=off" in printed and "17 of 24 text tokens valid" in printed
+    assert "routing=off" in printed and "24 of 24 text tokens valid" in printed
+    res = main(base + ["--output", str(tmp_path / "own.npy")])
+    assert len(res.routing) == 2 and np.isfinite(np.load(tmp_path / "own.npy")).all()
 
     (tmp_path / "config.json").write_text(json.dumps(ATTN))
     res = main(base + ["--resume_dir", str(tmp_path), "--output", str(tmp_path / "hard.npy")])

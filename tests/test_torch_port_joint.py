@@ -314,18 +314,23 @@ def test_routed_joint_attention_matches_jax(mode):
 @pytest.mark.parametrize("video,kernel", [({"sta_tile": (2, 2, 2)}, "sta_batched"),
                                           ({"text_len": 16}, None)])
 def test_hard_routing_raises_where_jax_runs_an_unported_kernel(video, kernel):
-    """At a small-tile geometry the JAX package runs sta_batched for the STA
-    heads: the port raises naming it, and runs FULL and LOWRES heads."""
-    tj, _ = _jcfgs(**video)
+    """Hard routing at a small-tile geometry, where the JAX package runs
+    sta_batched for the STA heads, now runs it too (no longer raises): the
+    STA head equals the JAX package's sliding-tile expert, text rows
+    included; so at a text length of 16 (window-dense, sta_pipe).  FULL and
+    LOWRES heads run as before."""
+    tj, jj = _jcfgs(**video)
     lt = tj.text_len
-    (t_in, _) = _both(_inputs(34, lt=lt, eff=min(EFF, lt)))
+    eff = min(EFF, lt)
+    (t_in, j_in) = _both(_inputs(34, lt=lt, eff=eff))
+    assert joint.joint_sta_kernel(tj, 16, 4) == (kernel or "sta_pipe")
     args = (*t_in[:6], None, t_in[6], tj)
     ids = torch.tensor([FULL, LOWRES, STA])
-    if kernel:
-        with pytest.raises(NotImplementedError, match=kernel):
-            joint.routed_joint_attention(*args, mode="hard", expert_ids=(ids, ids.numpy()))
-        with pytest.raises(NotImplementedError, match=kernel):
-            joint.joint_sta_attention(*t_in[:6], t_in[6], tj)
+    video_out, text_out = joint.routed_joint_attention(*args, mode="hard",
+                                                       expert_ids=(ids, ids.numpy()))
+    want = jjoint.joint_sta_attention(*j_in[:6], j_in[6], jj, interpret=True)
+    _close(video_out[:, 2], want[0][:, 2])
+    _close(text_out[:, 2, :eff], want[1][:, 2, :eff])
     ids = torch.tensor([FULL, LOWRES, LOWRES])
     video_out, _ = joint.routed_joint_attention(*args, mode="hard",
                                                 expert_ids=(ids, ids.numpy()))

@@ -291,8 +291,12 @@ def test_routed_attention_matches_jax(mode):
 def test_unserved_geometries_and_options_raise(monkeypatch):
     (_, (q, k, v)) = _routed_inputs(10)
     ids = torch.tensor([FULL, STA, LOWRES, STA])
-    with pytest.raises(NotImplementedError, match="sta_batched"):  # tiles do not divide
-        fused_routed_attention(q, k, v, ids, AttentionConfig(**{**ROUTED, "sta_tile": (3, 2, 2)}))
+    # 12-token tiles: the JAX package's sta_batched tables refuse them (ValueError)
+    bad = {**ROUTED, "sta_tile": (3, 2, 2)}
+    with pytest.raises(ValueError, match="tokens_per_tile 12 must be a multiple of 8"):
+        jrouted.routed_geometry(JaxAttentionConfig(**bad))
+    with pytest.raises(ValueError, match="tokens_per_tile 12 must be a multiple of 8"):
+        fused_routed_attention(q, k, v, ids, AttentionConfig(**bad))
     # qk_int8 is served: the STA heads stay bf16, bitwise
     out8 = fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED, qk_int8=True))
     out = fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED))

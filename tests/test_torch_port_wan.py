@@ -26,6 +26,7 @@ from flax import nnx
 from vorta_tpu.config import AttentionConfig as JaxAttentionConfig
 from vorta_tpu.config import WanModelConfig as JaxWanModelConfig
 from vorta_tpu.models.wan import WanModel as JaxWanModel
+from vorta_tpu.ops import routed_fused as jrouted
 from vorta_tpu.pipelines.wan_t2v import SamplingConfig as JaxSamplingConfig
 from vorta_tpu.pipelines.wan_t2v import WanT2VPipeline as JaxPipeline
 from vorta_tpu_torch.config import AttentionConfig, WanModelConfig
@@ -113,16 +114,20 @@ def test_forward_unfused_prologue_matches_fused(models, inputs, monkeypatch):
 
 
 def test_routed_modes_raise(models, inputs):
-    """An unknown routing mode raises, and hard routing raises where the JAX
-    package would run an STA kernel the port has not ported yet."""
+    """An unknown routing mode raises, and hard routing raises the JAX
+    package's ValueError where its STA tables refuse the tile (12 tokens, not
+    a multiple of 8)."""
     _, tmodel = models
     latents, pe, _ = inputs
     args = (torch.from_numpy(latents), torch.tensor([1.0]), torch.from_numpy(pe))
     with pytest.raises(ValueError, match="routing mode"):
         tmodel(*args, attn_cfg=AttentionConfig(**ATTN_ROUTED), routing_mode="sparse")
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="sta_batched"):
-        tmodel(*args, attn_cfg=AttentionConfig(**{**ATTN_ROUTED, "sta_tile": (3, 2, 2)}),
-               routing_mode="hard")
+    bad = {**ATTN_ROUTED, "sta_tile": (3, 2, 2)}
+    with pytest.raises(ValueError, match="tokens_per_tile 12 must be a multiple of 8"):
+        jrouted.routed_geometry(JaxAttentionConfig(**bad))
+    with torch.no_grad(), pytest.raises(ValueError,
+                                        match="tokens_per_tile 12 must be a multiple of 8"):
+        tmodel(*args, attn_cfg=AttentionConfig(**bad), routing_mode="hard")
 
 
 @pytest.mark.parametrize("mode", ["soft", "hard_ref", "hard"])

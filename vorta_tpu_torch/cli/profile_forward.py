@@ -30,6 +30,10 @@ wan-14B`` too).
       --height 720 --width 1280 --routing hard
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
       --height 720 --width 1280 --t 500 --qk_int8 --mm int8
+  python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --height 720 --width 1280 \
+      --routing hard --sta_tile 4 9 10 --t 500   # the STA heads through sta_window
+  python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
+      --height 720 --width 1280 --routing hard --sta_tile 2 9 8 --t 500   # sta_batched
 """
 
 from __future__ import annotations
@@ -50,8 +54,11 @@ from ..io.from_jax import load_act_scales, load_jax_params, load_router_npz
 from ..io.quant_serving import build_quantized_hunyuan, build_quantized_wan
 from ..models.hunyuan import HUNYUAN_13B, HunyuanModel
 from ..models.wan import WanModel
-from .sample import RANDOM_TEXT_VALID, attention_config
+from .sample import attention_config
 
+# text tokens the HunyuanVideo profile marks valid: not a multiple of 8 or 16,
+# so the kernels' text-padding bias really masks (PERF.md's profiles)
+TEXT_VALID = 83
 # the time embedder of the model the JAX package's routers were trained against
 TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
                  / "wan1_3b_time_embedder_rngs0.npz")
@@ -62,6 +69,9 @@ GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("flash_dkv", ("flash_dkv_kernel",)),
     ("flash_manual", ("flash_manual_kernel",)),
     ("sta_pipe", ("sta_kernel",)),
+    ("sta_window", ("sta_window_kernel",)),
+    ("sta_row", ("sta_row_kernel",)),
+    ("sta_batched", ("sta_batched_kernel",)),
     ("unpool", ("unpool_kernel",)),
     ("pool_qkv", ("pool_kernel",)),
     ("fused_norm", ("fused_norm_kernel",)),
@@ -160,7 +170,7 @@ def _hunyuan_forward(args, device, serve: dict, bits):
                       device=device)
     text = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g, device=device)
     pooled = torch.randn((1, cfg.pooled_dim), generator=g, device=device)
-    mask = (torch.arange(cfg.text_len, device=device) < RANDOM_TEXT_VALID)[None]
+    mask = (torch.arange(cfg.text_len, device=device) < TEXT_VALID)[None]
     t = torch.tensor([args.t], device=device)
     guidance = torch.tensor([6000.0], device=device)
 

@@ -9,8 +9,11 @@ Conditioning comes from ``--prompt_embeds x.npy`` (UMT5 states,
 random, drawn from ``--seed``; ``--router_checkpoint`` loads the routers
 from a step dir that the port's trainer wrote (``<output_dir>/ckpt/
 step-XXXXXX``), and ``--resume_dir`` reads that run's attention geometry
-from its ``config.json``.  Writes the final latents as .npy and prints the
-heads routed to each expert.
+from its ``config.json`` (``cli.train --sta_tile T H W`` writes the tile
+there): for Wan its grid must be the requested video's and
+``--tau_sparse`` overrides its threshold; for HunyuanVideo it is taken as
+it is, as the JAX CLI does.  Writes the final latents as .npy and prints
+the heads routed to each expert.
 
 Quantized serving, the JAX CLI's four flags: ``--qk_int8`` runs the full
 and low-res experts' QK^T in int8 (flash_manual's int8 mode; sliding-tile
@@ -48,9 +51,6 @@ from ..pipelines.wan_t2v import SamplingConfig, WanT2VPipeline
 
 MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY,
           "hunyuan-13B": HUNYUAN_13B, "hunyuan-tiny": HUNYUAN_TINY}
-# text tokens --random_embeds marks valid for Hunyuan: not a multiple of 8
-# or 16, so the kernels' text-padding bias really masks
-RANDOM_TEXT_VALID = 83
 
 
 def parse_args(argv=None):
@@ -119,6 +119,25 @@ def attention_config(model: str, grid, tau_sparse: float = 0.3) -> AttentionConf
                            lowres_window=(2, 3, 2), tau_sparse=tau_sparse)
 
 
+def resolve_attention_config(args, grid) -> AttentionConfig:
+    """The run's attention geometry: ``--resume_dir``'s ``config.json`` where
+    it has one, else the CLI's (``attention_config``); ``--qk_int8`` on top.
+    For Wan the file's grid must be the requested video's and
+    ``--tau_sparse`` overrides its threshold; the JAX CLI's Hunyuan branch
+    takes the file as it is."""
+    attn_cfg = attention_config(args.model, grid, args.tau_sparse)
+    if args.resume_dir and (Path(args.resume_dir) / "config.json").exists():
+        attn_cfg = AttentionConfig.load(Path(args.resume_dir) / "config.json")
+        if not args.model.startswith("hunyuan"):
+            if attn_cfg.latent_shape != grid:
+                raise ValueError(f"config.json geometry {attn_cfg.latent_shape} != requested "
+                                 f"video grid {grid}")
+            attn_cfg = dataclasses.replace(attn_cfg, tau_sparse=args.tau_sparse)
+    if args.qk_int8:
+        attn_cfg = dataclasses.replace(attn_cfg, qk_int8=True)
+    return attn_cfg
+
+
 @dataclasses.dataclass
 class SampleResult:
     latents: torch.Tensor  # final latents (B, T, H/8, W/8, C) f32
@@ -138,15 +157,7 @@ def main(argv=None) -> SampleResult:
     hunyuan = args.model.startswith("hunyuan")
     geometry = HUNYUAN_GEOMETRY if hunyuan else WAN_GEOMETRY
     grid = geometry.tokens((args.num_frames, args.height, args.width))
-    attn_cfg = attention_config(args.model, grid, args.tau_sparse)
-    if args.resume_dir and (Path(args.resume_dir) / "config.json").exists():
-        attn_cfg = AttentionConfig.load(Path(args.resume_dir) / "config.json")
-        if attn_cfg.latent_shape != grid:
-            raise ValueError(f"config.json geometry {attn_cfg.latent_shape} != requested "
-                             f"video grid {grid}")
-        attn_cfg = dataclasses.replace(attn_cfg, tau_sparse=args.tau_sparse)
-    if args.qk_int8:
-        attn_cfg = dataclasses.replace(attn_cfg, qk_int8=True)
+    attn_cfg = resolve_attention_config(args, grid)
     routing_mode = "off" if args.native_attention else "hard"
     act_scales = None
     if args.act_scales:
@@ -260,8 +271,7 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
         gen.manual_seed(args.seed + 1)
         text = torch.randn((1, lt, model_cfg.text_dim), generator=gen, device=device)
         pooled = torch.randn((1, model_cfg.pooled_dim), generator=gen, device=device)
-        valid = min(RANDOM_TEXT_VALID, lt - 7)
-        mask = (torch.arange(lt, device=device) < valid)[None]
+        mask = torch.ones((1, lt), dtype=torch.bool, device=device)  # all valid, as in JAX
     else:
         raise SystemExit("need --prompt_embeds or --random_embeds")
     pipe = HunyuanT2VPipeline(model, attn_cfg=attn_cfg, act_scales=act_scales,

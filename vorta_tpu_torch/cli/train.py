@@ -108,8 +108,9 @@ def parse_args(argv=None):
                    help="'latest' or a step dir path")
     args = p.parse_args(argv)
     unported = (
-        (args.model.startswith("hunyuan"), f"--model {args.model}: HunyuanVideo is the next "
-                                           "port slice"),
+        (args.model.startswith("hunyuan"), f"--model {args.model}: Hunyuan router training "
+                                           "(make_hunyuan_router_train_step) belongs to a "
+                                           "later port slice"),
         (args.sp_size > 1 or (args.dp_size or 1) > 1 or args.shard_frozen,
          "--sp_size / --dp_size / --shard_frozen: multi-card training belongs to the "
          "sequence-parallelism port slice"),

@@ -37,18 +37,13 @@
 #include <type_traits>
 
 #include "mma_s8.cuh"
+#include "sta_common.cuh"
 
 namespace {
 
 using namespace vorta;
 
 constexpr int BLOCK_N = 64;  // keys per shared-memory sub-tile
-
-// element start of the clamped window of tile qt on an axis of n tiles
-__device__ __forceinline__ int window_start(int qt, int n, int win, int tile) {
-  const int win_eff = min(win, n);
-  return min(max(qt - win / 2, 0), n - win_eff) * tile;
-}
 
 // I8: q, k and text_k are int8 (qk_scale mode), rows of DK = D / 2 b16
 // values; else bf16, DK = D.

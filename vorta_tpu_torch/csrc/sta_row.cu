@@ -1,0 +1,200 @@
+// Window-dense sliding-tile attention with the stable softmax, a row of q
+// tiles sharing one K/V slab, for Hopper (sm_90a).
+//
+// Replaces vorta_tpu/ops/sta_row.py:_kernel (reached through
+// sta_row_attention).  Same function as sta_window.cu: every query of a
+// tile attends to all tokens of the prod(window) tiles of its clamped
+// window (geometry.window_starts), stable softmax with scores q.k * (scale
+// * log2(e)) in f32, P rounded to bf16 before PV, inactive heads zero, and
+// the optional joint text tail (text_k / text_v, text_bias added after the
+// scale, sta_row.py:205).  The q tiles of one row (t-tile, h-tile) share
+// their (t, h) window, so they share one slab of win_t * tile_t x win_h *
+// tile_h lines of the latent's width; each tile takes its own w window of
+// every line.  Needs tile_w % 8 == 0 (the TPU kernel's own condition,
+// supports_row_dense): then every 8-key n-block of a line lies in one w
+// window or outside it.
+//
+// Bound on this card: at Wan-1.3B 720p x 77f with tile (5, 9, 8) (72,000
+// tokens, 9,720 keys per query) 4 * 72,000 * 9,720 * 128 = 3.6e11 FLOP per
+// head against 74 MB of operands: the tensor cores bound it (0.36 ms per
+// head at 989 TFLOP/s bf16).  Design: one CUDA block per (row of q tiles,
+// group of at most 8 of its w tiles, 16-row stripe of each tile, head,
+// batch), one warp per w tile of the group; the block stages the union of
+// its tiles' w windows, line by line, in 64-key sub-tiles of shared memory,
+// and each warp runs an online-softmax step on mma.sync m16n8k16 over the
+// n-blocks inside its own window only (sta_common.cuh), so a staged key
+// serves every warp whose window holds it.  Simple first: no wgmma, TMA or
+// cp.async pipelining yet.
+#include "sta_common.cuh"
+
+namespace {
+
+using namespace vorta;
+
+constexpr int BLOCK_N = 64;  // keys per shared-memory sub-tile
+constexpr int MAX_WARPS = 8;  // w tiles per CUDA block
+
+template <int D>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+sta_row_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+               const int* __restrict__ active, const __nv_bfloat16* __restrict__ text_k,
+               const __nv_bfloat16* __restrict__ text_v, const float* __restrict__ text_bias,
+               float sl, int Lt, int H, int T, int HH, int W, int tt, int th, int tw, int win_t,
+               int win_h, int win_w, int groups, int per_group, int stripes) {
+  constexpr int LDS = D + 8;
+  constexpr int NT_O = D / 8;
+  constexpr int CHUNKS = D / 8;
+  __shared__ __align__(16) __nv_bfloat16 Ks[BLOCK_N * LDS];
+  __shared__ __align__(16) __nv_bfloat16 Vs[BLOCK_N * LDS];
+  __shared__ float Bs[BLOCK_N];
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nt = T / tt, nh = HH / th, nw = W / tw;
+  const int row = blockIdx.x / (groups * stripes);
+  const int grp = (blockIdx.x / stripes) % groups, stripe = blockIdx.x % stripes;
+  const int it = row / nh, ih = row % nh;
+  const int w_first = grp * per_group, w_last = min(nw, w_first + per_group) - 1;
+  const int iw = w_first + warp;  // this warp's q tile
+  const bool live = iw <= w_last;
+  const int tpt = tt * th * tw;
+  const size_t base = (static_cast<size_t>(b) * H + h) * T * HH * W;
+  auto q_token = [&](int r) {
+    return ((it * tt + r / (th * tw)) * HH + ih * th + (r / tw) % th) * W + iw * tw + r % tw;
+  };
+  const int rg = stripe * 16 + g, rg8 = rg + 8;
+  const bool ok0 = live && rg < tpt, ok1 = live && rg8 < tpt;
+
+  if (active[h] == 0) {
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (ok0) *reinterpret_cast<uint32_t*>(out + (base + q_token(rg)) * D + c) = 0u;
+      if (ok1) *reinterpret_cast<uint32_t*>(out + (base + q_token(rg8)) * D + c) = 0u;
+    }
+    return;
+  }
+
+  // the row's slab: lines (t, h) of its clamped (t, h) window, columns
+  // [wlo, wlo + wspan) = the union of the group's w windows
+  const int t0 = window_start(it, nt, win_t, tt);
+  const int h0 = window_start(ih, nh, win_h, th);
+  const int bw = min(win_w, nw) * tw;
+  const int wlo = window_start(w_first, nw, win_w, tw);
+  const int wspan = window_start(w_last, nw, win_w, tw) + bw - wlo;
+  const int bh_ = min(win_h, nh) * th;
+  const int nk = min(win_t, nt) * tt * bh_ * wspan;
+  const int ws = live ? window_start(iw, nw, win_w, tw) : 0;  // this warp's window
+
+  uint32_t qa[D / 16][4];
+  load_q_frags<D>(qa, ok0 ? q + (base + q_token(rg)) * D : nullptr,
+                  ok1 ? q + (base + q_token(rg8)) * D : nullptr, t);
+  float oacc[NT_O][4];
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  auto stage = [&](int nvalid, const __nv_bfloat16* kk, const __nv_bfloat16* vv, auto kv_row) {
+    __syncthreads();  // previous sub-tile fully consumed
+    for (int e = tid; e < BLOCK_N * CHUNKS; e += nthreads) {
+      const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
+      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
+      if (r < nvalid) {
+        const size_t rr = kv_row(r);
+        kv4 = *reinterpret_cast<const uint4*>(kk + rr * D + c);
+        vv4 = *reinterpret_cast<const uint4*>(vv + rr * D + c);
+      }
+      *reinterpret_cast<uint4*>(Ks + r * LDS + c) = kv4;
+      *reinterpret_cast<uint4*>(Vs + r * LDS + c) = vv4;
+    }
+  };
+
+  for (int n0 = 0; n0 < nk; n0 += BLOCK_N) {
+    const int nvalid = min(BLOCK_N, nk - n0);
+    stage(nvalid, k, v, [&](int r) {
+      const int n = n0 + r, line = n / wspan;
+      return base + static_cast<size_t>(((t0 + line / bh_) * HH + h0 + line % bh_) * W + wlo +
+                                        n % wspan);
+    });
+    __syncthreads();
+    // the n-blocks of this sub-tile inside this warp's w window (wspan is a
+    // multiple of 8, so an n-block never straddles two lines)
+    uint32_t rel = 0u;
+#pragma unroll
+    for (int nb = 0; nb < BLOCK_N / 8; ++nb) {
+      const int n8 = n0 + nb * 8;
+      const int w8 = wlo + n8 % wspan;
+      if (live && n8 < nk && w8 >= ws && w8 < ws + bw) rel |= 1u << nb;
+    }
+    if (rel)  // warp-uniform
+      online_softmax_step<D, LDS>(qa, Ks, Vs, nullptr, nvalid, rel, sl, m, l, oacc, lane);
+  }
+  const size_t text0 = (static_cast<size_t>(b) * H + h) * Lt;
+  for (int n0 = 0; n0 < Lt; n0 += BLOCK_N) {
+    const int nvalid = min(BLOCK_N, Lt - n0);
+    stage(nvalid, text_k, text_v, [&](int r) { return text0 + n0 + r; });
+    for (int r = tid; r < BLOCK_N; r += nthreads) Bs[r] = r < nvalid ? text_bias[n0 + r] : 0.f;
+    __syncthreads();
+    if (live)
+      online_softmax_step<D, LDS>(qa, Ks, Vs, Bs, nvalid, (1u << ((nvalid + 7) / 8)) - 1u, sl,
+                                  m, l, oacc, lane);
+  }
+
+  const float l0 = row_sum(l[0]), l1 = row_sum(l[1]);
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (ok0)
+      *reinterpret_cast<uint32_t*>(out + (base + q_token(rg)) * D + c) =
+          pack_bf16(oacc[n][0] / l0, oacc[n][1] / l0);
+    if (ok1)
+      *reinterpret_cast<uint32_t*>(out + (base + q_token(rg8)) * D + c) =
+          pack_bf16(oacc[n][2] / l1, oacc[n][3] / l1);
+  }
+}
+
+template <int D>
+cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
+                   const __nv_bfloat16* v, __nv_bfloat16* out, const int* active,
+                   const __nv_bfloat16* text_k, const __nv_bfloat16* text_v,
+                   const float* text_bias, float sl, int Lt, int T, int HH, int W, int tt, int th,
+                   int tw, int win_t, int win_h, int win_w, cudaStream_t st) {
+  const int nw = W / tw;
+  const int groups = (nw + MAX_WARPS - 1) / MAX_WARPS;
+  const int per_group = (nw + groups - 1) / groups;
+  const int stripes = (tt * th * tw + 15) / 16;
+  const dim3 grid((T / tt) * (HH / th) * groups * stripes, H, B);
+  sta_row_kernel<D><<<grid, per_group * 32, 0, st>>>(
+      q, k, v, out, active, text_k, text_v, text_bias, sl, Lt, H, T, HH, W, tt, th, tw, win_t,
+      win_h, win_w, groups, per_group, stripes);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, out: contiguous raster (B, H, T*HH*W, D) bf16 (q not pre-scaled);
+// active: (H,) int32 on the device; text_k / text_v: contiguous (B, H, Lt, D)
+// bf16 and text_bias (Lt,) f32, or null with Lt = 0; sl = scale * log2(e);
+// tile_w a multiple of 8.  Returns the CUDA error code.
+extern "C" int vorta_sta_row_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                                      const void* active, const void* text_k,
+                                      const void* text_v, const void* text_bias, float sl,
+                                      int Lt, int B, int H, int T, int HH, int W, int D, int tt,
+                                      int th, int tw, int win_t, int win_h, int win_w,
+                                      void* stream) {
+  if (T % tt || HH % th || W % tw || tw % 8 || (D != 64 && D != 128) || win_t < 1 ||
+      win_h < 1 || win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  auto run = [&](auto launcher) {
+    return launcher(B, H, static_cast<const bf*>(q), static_cast<const bf*>(k),
+                    static_cast<const bf*>(v), static_cast<bf*>(out),
+                    static_cast<const int*>(active), static_cast<const bf*>(text_k),
+                    static_cast<const bf*>(text_v), static_cast<const float*>(text_bias), sl, Lt,
+                    T, HH, W, tt, th, tw, win_t, win_h, win_w, static_cast<cudaStream_t>(stream));
+  };
+  return static_cast<int>(D == 128 ? run(launch<128>) : run(launch<64>));
+}

@@ -31,9 +31,10 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "coreset_pool",
-           "flash_bwd")
+           "flash_bwd", "sta_batched", "sta_window", "sta_row")
 KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_qkv", "unpool",
-           "flash_lse", "flash_dq", "flash_dkv", "flash_manual_int8", "sta_pipe_int8")
+           "flash_lse", "flash_dq", "flash_dkv", "flash_manual_int8", "sta_pipe_int8",
+           "sta_batched", "sta_window", "sta_row")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -49,12 +49,14 @@ def _full_tables(cfg: AttentionConfig):
     return dense_tables(nq, nkv), nq * cfg.block_q, nkv * cfg.block_kv
 
 
+@functools.lru_cache(maxsize=32)
 def _lowres_tables(cfg: AttentionConfig):
     """Dense tables over the pooled sequence (q blocks wholly past it idle),
     the routed LOWRES expert's own."""
-    from .routed_fused import routed_geometry
+    from .routed_fused import _dense_call
 
-    call = routed_geometry(cfg).lowres
+    pooled = lowres_groups_for(cfg).pooled_length
+    call = _dense_call(pooled, cfg.block_q, cfg.block_kv, pooled)
     return call.tables, call.q_pad, call.kv_pad
 
 

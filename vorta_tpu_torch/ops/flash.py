@@ -190,8 +190,8 @@ def sparse_flash_attention_raw(
     q: (B, H, Sq, D); k/v: (B, H, Skv, D).  kv_index: (H_tab, Sq//block_q, W)
     and kv_count: (H_tab, Sq//block_q), int32 tensors (or numpy) with H_tab
     1 or H.  On CUDA: bf16 q/k/v, D 64 or 128, block_q a multiple of 16.
-    ``kv_valid`` and ``pair_bits`` belong to the Hunyuan slice and raise
-    NotImplementedError here.
+    ``kv_valid`` (per-head valid lengths) and ``pair_bits`` raise
+    NotImplementedError: no JAX call site passes them to this kernel.
     """
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -203,7 +203,8 @@ def sparse_flash_attention_raw(
         raise ValueError(f"tables {tuple(kv_index.shape)} for {h} heads, {sq // block_q} q blocks")
     if kv_valid is not None or pair_bits is not None:
         raise NotImplementedError(
-            "per-head kv_valid and pair_bits belong to the Hunyuan port slice")
+            "per-head kv_valid and pair_bits of the flash kernel are not ported: no JAX call "
+            "site passes them (the STA pair bits run in ops/sta_batched.py)")
     if kv_valid_len is None:
         kv_valid_len = skv
     if scale is None:

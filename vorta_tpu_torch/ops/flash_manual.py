@@ -181,7 +181,8 @@ def sparse_flash_attention_manual(
     unported = (
         (kv_valid is not None, "per-head kv_valid is not ported (no JAX call site passes it)"),
         (pair_bits is not None or tokens_per_tile is not None,
-         "pair_bits belong to the sta_batched fallback, not ported yet"),
+         "pair_bits of this kernel are not ported: no JAX call site passes them (the STA "
+         "pair bits run in ops/sta_batched.py)"),
         (softmax != "fast", f"softmax={softmax!r}: the stable softmax of this kernel belongs "
                             "to a later slice (ops/flash.py serves it)"),
         (not cast_p_to_v_dtype, "P is always cast to v's dtype here"),

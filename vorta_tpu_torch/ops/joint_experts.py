@@ -16,13 +16,14 @@ alignment padding between the segments.
 
 Kernels: full and low-res go through ``flash_manual`` with ``kv_bias``
 (per-head counts, zero for a head routed away), low-res pools with
-``pool_qkv(kv_matching_from_k=True)`` and scatters back with ``unpool``;
-sliding-tile takes the JAX package's window-dense branch: ``sta_pipe`` with
-the text tail for the video rows, ``flash_manual`` with ``kv_bias`` and
-``kv_valid_len`` for the text rows.  Where the JAX package would run an STA
-kernel the port has not ported (sta_batched at small tiles or a text length
-not a multiple of 8, sta_row, sta_window), the port raises
-NotImplementedError naming it.
+``pool_qkv(kv_matching_from_k=True)`` and scatters back with ``unpool``.
+Sliding-tile runs the kernel the JAX package runs (``joint_sta_kernel``,
+its gates): where tiles hold at least 192 tokens and the text length is a
+multiple of 8, its window-dense branch, the video rows through
+``sta_pipe``, ``sta_row`` or ``sta_window`` with the text tail and the text
+rows through ``flash_manual`` with ``kv_bias`` and ``kv_valid_len``; else
+``sta_batched`` over the tiled-video-plus-text layout, text rows included,
+with the pair bits of ``_joint_sta_tables`` and the layout's ``kv_bias``.
 
 ``qk_int8`` (quantized serving, routing off included): full and low-res
 quantize the assembled joint q and k per head (video, text and the
@@ -41,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,12 +56,14 @@ from .experts import FULL, LOWRES, STA, _dense_tables_cached, lowres_groups_for
 from .flash_manual import sparse_flash_attention_manual
 from .layout import tile_sequence, untile_sequence
 from .routed_fused import (
-    _unserved_sta_kernel,
-    prefer_window_dense,
+    _sta_blocks,
     quantize_qk,
     route_expert_ids,
+    routed_sta_kernel,
+    sta_dispatch,
 )
-from .sta_pipe import sta_pipe_attention
+from .sta_batched import PairBitTables, pair_bit_tables, sta_flash_headbatched
+from .sta_window import prefer_window_dense
 
 NEG = -1e30
 MODES = ("off", "hard", "soft")
@@ -86,17 +89,6 @@ def _aligned_layout(video_len: int, text_len: int, bq: int, bkv: int) -> JointLa
     align = int(np.lcm(bq, bkv))
     text_off = align * cdiv(video_len, align)
     return JointLayout(video_len, text_off, text_off + align * cdiv(text_len, align), bq, bkv)
-
-
-def _sta_blocks(cfg: AttentionConfig) -> Tuple[int, int]:
-    """The JAX package's head-batched STA blocks (routed_fused.py:_sta_blocks),
-    which size the STA layout."""
-    tpt = cfg.tokens_per_tile
-    if tpt % 8:
-        raise ValueError(f"tokens_per_tile {tpt} must be a multiple of 8")
-    m = max(1, min(5, 512 // tpt))
-    k = max(1, min(32 // m, 1024 // tpt))
-    return m * tpt, k * tpt
 
 
 @functools.lru_cache(maxsize=16)
@@ -209,36 +201,31 @@ def joint_lowres_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig
 
 
 def joint_sta_kernel(jcfg: JointConfig, d: int, itemsize: int) -> str:
-    """The STA kernel the JAX package runs for this joint geometry (its gates,
-    copied): "sta_pipe" (the port's), or the unported "sta_batched",
-    "sta_row" or "sta_window"."""
+    """The STA kernel the JAX package runs for this joint geometry (its
+    gates): "sta_batched" unless tiles are window-dense with at least 192
+    tokens and the text length is a multiple of 8, else "sta_pipe",
+    "sta_row" or "sta_window" as for the routed dispatch, the text tail's
+    keys counted."""
     cfg = jcfg.video
     if not (prefer_window_dense(cfg.latent_shape, cfg.sta_tile) and jcfg.text_len % 8 == 0):
         return "sta_batched"
-    return _unserved_sta_kernel(cfg, d, itemsize, text_len=jcfg.text_len) or "sta_pipe"
-
-
-def _require_sta_pipe(jcfg: JointConfig, q: torch.Tensor) -> None:
-    kernel = joint_sta_kernel(jcfg, q.shape[-1], q.element_size())
-    if kernel != "sta_pipe":
-        cfg = jcfg.video
-        raise NotImplementedError(
-            f"latent {cfg.latent_shape}, tile {cfg.sta_tile}, text {jcfg.text_len}: the JAX "
-            f"package runs its {kernel} kernel here, which is not ported yet")
+    return routed_sta_kernel(cfg, d, itemsize, text_len=jcfg.text_len)
 
 
 def joint_sta_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig,
                         active=None, scale: Optional[float] = None):
-    """Sliding-tile joint attention, the JAX package's window-dense branch:
-    video rows through sta_pipe with the text tail, the text rows densely
-    over [raster video | text] through flash_manual."""
-    _require_sta_pipe(jcfg, qv)
+    """Sliding-tile joint attention through the kernel the JAX package runs
+    here: sta_batched over the tiled layout, or its window-dense branch, the
+    video rows through sta_pipe / sta_row / sta_window with the text tail
+    and the text rows densely over [raster video | text] through
+    flash_manual."""
     cfg = jcfg.video
     act = _active(active, qv.shape[1], qv.device)
-    video_out = sta_pipe_attention(qv, kv_, vv, act.to(torch.int32),
-                                   latent_shape=cfg.latent_shape, tile=cfg.sta_tile,
-                                   window=cfg.sta_window, scale=scale, text_k=kt, text_v=vt,
-                                   text_bias=_text_bias(text_mask).to(qv.device))
+    kernel = joint_sta_kernel(jcfg, qv.shape[-1], qv.element_size())
+    if kernel == "sta_batched":
+        return _joint_sta_batched(qv, kv_, vv, qt, kt, vt, text_mask, jcfg, act, scale)
+    video_out = sta_dispatch(kernel, qv, kv_, vv, act.to(torch.int32), cfg, scale, text_k=kt,
+                             text_v=vt, text_bias=_text_bias(text_mask).to(qv.device))
     sv, lt = cfg.seq_len, jcfg.text_len
     layout = joint_layouts(jcfg)["sta_text_rows"]
     k, v = (_assemble(a, b, sv, layout.total) for a, b in ((kv_, kt), (vv, vt)))
@@ -247,6 +234,37 @@ def joint_sta_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig,
     out_t = _flash(q, k, v, layout, act, _bias(text_mask, layout, sv), scale,
                    kv_valid_len=sv + lt)
     return video_out, out_t[:, :, :lt]
+
+
+@functools.lru_cache(maxsize=16)
+def _joint_sta_tables(jcfg: JointConfig) -> PairBitTables:
+    """sta_batched's tables and pair bits over the tiled-video-plus-text
+    layout (the JAX package's): video q blocks visit their tiles' windows
+    and every text block; text q blocks every real video tile and every
+    text block; text blocks carry all 32 bits (the bias masks their
+    padding)."""
+    layout = joint_layouts(jcfg)["sta"]
+    tpt = jcfg.video.tokens_per_tile
+    return pair_bit_tables(_joint_sta_subtile_mask(jcfg)[0], layout.block_q // tpt,
+                           layout.block_kv // tpt, all_ones_from=layout.text_off // layout.block_kv)
+
+
+def _joint_sta_batched(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig, act, scale):
+    """One sta_batched launch over the tiled video and the text of the STA
+    layout, text query rows included."""
+    cfg = jcfg.video
+    layout = joint_layouts(jcfg)["sta"]
+    shape, tile = cfg.latent_shape, cfg.sta_tile
+    q, k, v = (_assemble(tile_sequence(a, shape, tile), b, layout.text_off, layout.total)
+               for a, b in ((qv, qt), (kv_, kt), (vv, vt)))
+    kv_index, kv_count, pair_bits = _joint_sta_tables(jcfg).on(q.device)
+    out = sta_flash_headbatched(
+        q, k, v, kv_index, kv_count, act.to(torch.int32), pair_bits=pair_bits,
+        tokens_per_tile=cfg.tokens_per_tile,
+        kv_bias=_bias(text_mask, layout, cfg.seq_len).to(q.device),
+        scale=scale, block_q=layout.block_q, block_kv=layout.block_kv)
+    tiled_out, text_out = _split(out, layout, cfg.seq_len, jcfg.text_len)
+    return untile_sequence(tiled_out, shape, tile), text_out
 
 
 # --- plain versions ----------------------------------------------------------------
@@ -286,10 +304,9 @@ def joint_lowres_attention_ref(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointCo
 @functools.lru_cache(maxsize=16)
 def _joint_sta_subtile_mask(jcfg: JointConfig) -> np.ndarray:
     """(1, n_sub, n_sub) bool visibility of the tiled-video-plus-text STA
-    layout at tile granularity, the JAX package's pair-bit tables
-    (joint_experts.py:_joint_sta_tables) densified: video tiles see their
-    window and every text block; text rows see every real video tile and
-    every text block (the bias masks the text padding)."""
+    layout at tile granularity (``_joint_sta_tables`` packs it): video
+    tiles see their window and every text block; text rows see every real
+    video tile and every text block (the bias masks the text padding)."""
     cfg = jcfg.video
     layout = joint_layouts(jcfg)["sta"]
     tpt = cfg.tokens_per_tile
@@ -340,8 +357,6 @@ def routed_joint_attention(qv, kv_, vv, qt, kt, vt, scores: Optional[torch.Tenso
         ids, ids_host = expert_ids
         ids = ids.to(qv.device)
         routed = set(int(e) for e in np.asarray(ids_host).reshape(-1))
-        if STA in routed:
-            _require_sta_pipe(jcfg, qv)
         video = text = None
         for e, fn in ((STA, joint_sta_attention), (FULL, joint_full_attention),
                       (LOWRES, joint_lowres_attention)):

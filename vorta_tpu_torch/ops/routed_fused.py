@@ -12,12 +12,12 @@ zeros).  An expert no head is routed to is not launched: the caller hands
 the routing over on the host as well (``expert_ids_host``), so deciding
 which experts run costs no device sync.
 
-Only the geometries where the JAX package takes this masked dispatch with
-its sta_pipe kernel are served; the others name the TPU kernel the JAX
-package would run instead (sta_row, sta_window or sta_batched) and raise
-NotImplementedError, as does its per-head switch dispatch
-(VORTA_ROUTED_DISPATCH).  The JAX package's sta_batched pair-bit tables
-(``RoutedGeometry.sta``) belong to that fallback and are not carried.
+The STA heads run the kernel the JAX package runs for the geometry, by
+its own gates (``routed_sta_kernel``): one of its window-dense kernels,
+sta_pipe, sta_row or sta_window (``sta_dispatch``), or, for tiles it
+gives none of them, the tiled pair-bits kernel sta_batched over
+``RoutedGeometry.sta``'s tables.  The JAX package's per-head switch
+dispatch (VORTA_ROUTED_DISPATCH) raises NotImplementedError.
 
 ``cfg.qk_int8`` (quantized serving): FULL and LOWRES quantize q and k per
 head (``quantize_per_head``, dynamic symmetric int8) before padding, LOWRES
@@ -28,23 +28,27 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import AttentionConfig
-from ..geometry import cdiv
+from ..geometry import cdiv, sta_tile_mask
 from .coreset_pallas import pool_qkv, unpool
 from .experts import FULL, LOWRES, STA, _pad_seq, lowres_groups_for
 from .flash import BlockTables
 from .flash_manual import sparse_flash_attention_manual
+from .layout import tile_sequence, untile_sequence
 from .qmm import divide
+from .sta_batched import pair_bit_tables, sta_flash_headbatched
 from .sta_pipe import sta_pipe_attention, supports_pipe
+from .sta_row import sta_row_attention, supports_row_dense
+from .sta_window import prefer_window_dense, sta_window_attention
 
 
 class ExpertCall(NamedTuple):
-    tables: BlockTables  # (1, nq, W) index table, (1, nq) counts
+    tables: BlockTables  # (1, nq, W) index table, (1, nq) counts (+ pair bits for STA)
     block_q: int
     block_kv: int
     q_pad: int  # padded q length
@@ -55,6 +59,7 @@ class ExpertCall(NamedTuple):
 class RoutedGeometry(NamedTuple):
     full: ExpertCall
     lowres: ExpertCall
+    sta: ExpertCall  # sta_batched's tables over the tiled sequence
     tokens_per_tile: int
 
 
@@ -70,14 +75,42 @@ def _dense_call(valid_len: int, block_q: int, block_kv: int, q_len: int) -> Expe
     return ExpertCall(BlockTables(idx, cnt), block_q, block_kv, q_pad, kv_pad, valid_len)
 
 
+def _sta_blocks(cfg: AttentionConfig) -> Tuple[int, int]:
+    """sta_batched's blocks (the JAX package's): a few tiles each, roughly
+    square, their sub-tile pairs within the 32 bits of a pair-bit word."""
+    tpt = cfg.tokens_per_tile
+    if tpt % 8:
+        raise ValueError(f"tokens_per_tile {tpt} must be a multiple of 8")
+    m = max(1, min(5, 512 // tpt))
+    k = max(1, min(32 // m, 1024 // tpt))
+    return m * tpt, k * tpt
+
+
+def _sta_call(cfg: AttentionConfig) -> ExpertCall:
+    """sta_batched's tables over the tiled sequence, padded to its blocks:
+    q sub-tile (one tile) m sees kv sub-tile k where the STA tile mask says
+    so; the padding sees nothing."""
+    s, tpt = cfg.seq_len, cfg.tokens_per_tile
+    bq, bkv = _sta_blocks(cfg)
+    q_pad, kv_pad = bq * cdiv(s, bq), bkv * cdiv(s, bkv)
+    tile_mask = sta_tile_mask(cfg.latent_shape, cfg.sta_window, cfg.sta_tile)
+    n_tiles = tile_mask.shape[0]
+    vis = np.zeros((q_pad // tpt, kv_pad // tpt), bool)
+    vis[:n_tiles, :n_tiles] = tile_mask
+    return ExpertCall(pair_bit_tables(vis, bq // tpt, bkv // tpt), bq, bkv, q_pad, kv_pad, s)
+
+
 @functools.lru_cache(maxsize=16)
 def routed_geometry(cfg: AttentionConfig) -> RoutedGeometry:
+    """Every expert's tables; raises ValueError where the JAX package's
+    does (sta_batched's tables need tiles that divide the grid and hold a
+    multiple of 8 tokens)."""
     s = cfg.seq_len
     pooled = lowres_groups_for(cfg).pooled_length
     bq, bkv = cfg.block_q, cfg.block_kv
     return RoutedGeometry(full=_dense_call(s, bq, bkv, s),
                           lowres=_dense_call(pooled, bq, bkv, pooled),
-                          tokens_per_tile=cfg.tokens_per_tile)
+                          sta=_sta_call(cfg), tokens_per_tile=cfg.tokens_per_tile)
 
 
 def route_expert_ids(scores: torch.Tensor, tau: float) -> torch.Tensor:
@@ -87,37 +120,45 @@ def route_expert_ids(scores: torch.Tensor, tau: float) -> torch.Tensor:
     return torch.where(s0.amax(dim=-1) < tau, FULL, s0.argmax(dim=-1))
 
 
-def prefer_window_dense(latent_shape, tile) -> bool:
-    """The JAX package's choice of its window-dense STA kernels
-    (sta_window.py:prefer_window_dense): tiles divide the grid, are 8-aligned
-    in w or in size, and hold at least 192 tokens."""
-    tt, th, tw = tile
-    tpt = tt * th * tw
-    if any(latent_shape[a] % tile[a] for a in range(3)):
-        return False
-    return (tw % 8 == 0 or tpt % 8 == 0) and tpt >= 192
-
-
-def _unserved_sta_kernel(cfg: AttentionConfig, d: int, itemsize: int,
-                         text_len: int = 0) -> Optional[str]:
-    """None where the JAX package's masked dispatch runs sta_pipe, else the
-    name of the TPU kernel it would run instead (its own gates, copied;
-    ``text_len``: the joint text tail's keys, which the VMEM budgets count)."""
+def routed_sta_kernel(cfg: AttentionConfig, d: int, itemsize: int, text_len: int = 0) -> str:
+    """The STA kernel the JAX package's masked dispatch runs for this
+    geometry, by its own gates: "sta_pipe", "sta_row" or "sta_window" (its
+    window-dense kernels, in that order of preference), else
+    "sta_batched".  ``text_len``: the joint text tail's keys, which the
+    VMEM budgets count."""
     shape, tile, window = cfg.latent_shape, cfg.sta_tile, cfg.sta_window
     if supports_pipe(shape, tile, d, itemsize, text_len=text_len, window=window):
-        return None
+        return "sta_pipe"
     if not prefer_window_dense(shape, tile):
         return "sta_batched"
-    w = shape[2]
-    tt, th, tw = tile
-    tpt = tt * th * tw
-    nw = w // tw
-    slab = tt * th * w * d * itemsize
-    row_est = (4 * slab + 4 * slab + nw * tpt * (d + 2) * 4
-               + 3 * tpt * tt * th * min(window[2], nw) * tw * 4 + 2 * text_len * d * itemsize)
-    if tw % 8 == 0 and row_est < 40 * 2**20:  # supports_row_dense
+    if supports_row_dense(shape, tile, d, itemsize, text_len=text_len, window=window):
         return "sta_row"
     return "sta_window"
+
+
+WINDOW_DENSE = {"sta_pipe": sta_pipe_attention, "sta_row": sta_row_attention,
+                "sta_window": sta_window_attention}
+
+
+def sta_dispatch(kernel: str, q, k, v, active, cfg: AttentionConfig, scale, **text):
+    """One launch of the window-dense STA kernel ``kernel`` over all heads
+    (raster layout), with the joint text tail in ``text``."""
+    return WINDOW_DENSE[kernel](q, k, v, active, latent_shape=cfg.latent_shape,
+                                tile=cfg.sta_tile, window=cfg.sta_window, scale=scale, **text)
+
+
+def _sta_batched(call: ExpertCall, q, k, v, active, cfg: AttentionConfig, scale):
+    """The STA heads through sta_batched: tiled layout, padded to its
+    blocks, over ``RoutedGeometry.sta``'s tables."""
+    shape, tile = cfg.latent_shape, cfg.sta_tile
+    kv_index, kv_count, pair_bits = call.tables.on(q.device)
+    out = sta_flash_headbatched(
+        *(_pad_seq(tile_sequence(x, shape, tile), pad)
+          for x, pad in ((q, call.q_pad), (k, call.kv_pad), (v, call.kv_pad))),
+        kv_index, kv_count, active, pair_bits=pair_bits,
+        tokens_per_tile=cfg.tokens_per_tile, scale=scale, block_q=call.block_q,
+        block_kv=call.block_kv)
+    return untile_sequence(out[:, :, :cfg.seq_len], shape, tile)
 
 
 def quantize_per_head(x: torch.Tensor):
@@ -164,20 +205,15 @@ def fused_routed_attention(
     """Hard-routed attention (B, H, S, D), each expert launched once over
     the heads routed to it.  ``expert_ids_host``: the same ids on the host,
     else read back from ``expert_id`` (a device sync)."""
+    geo = routed_geometry(cfg)
     if os.environ.get("VORTA_ROUTED_DISPATCH", "masked") != "masked":
         raise NotImplementedError("only the masked dispatch is ported; the per-head switch "
                                   "dispatch (VORTA_ROUTED_DISPATCH) is not")
-    fallback = _unserved_sta_kernel(cfg, q.shape[-1], q.element_size())
-    if fallback is not None:
-        raise NotImplementedError(
-            f"latent {cfg.latent_shape}, tile {cfg.sta_tile}: the JAX package runs its "
-            f"{fallback} kernel here, which is not ported yet")
     if expert_ids_host is None:
         expert_ids_host = expert_id.cpu().numpy()
     routed = set(int(e) for e in np.asarray(expert_ids_host).reshape(-1))
     expert_id = expert_id.to(q.device)
     s = cfg.seq_len
-    geo = routed_geometry(cfg)
     out = None
 
     def add(x):
@@ -185,9 +221,10 @@ def fused_routed_attention(
         out = x if out is None else out.add_(x)
 
     if STA in routed:
-        add(sta_pipe_attention(q, k, v, (expert_id == STA).to(torch.int32),
-                               latent_shape=cfg.latent_shape, tile=cfg.sta_tile,
-                               window=cfg.sta_window, scale=scale))
+        active = (expert_id == STA).to(torch.int32)
+        kernel = routed_sta_kernel(cfg, q.shape[-1], q.element_size())
+        add(_sta_batched(geo.sta, q, k, v, active, cfg, scale) if kernel == "sta_batched"
+            else sta_dispatch(kernel, q, k, v, active, cfg, scale))
     if FULL in routed:
         add(_masked_call(geo.full, q, k, v, expert_id == FULL, scale, cfg.qk_int8)[:, :, :s])
     if LOWRES in routed:

@@ -1,0 +1,89 @@
+"""Window-dense sliding-tile attention by rows of q tiles (counterpart of
+vorta_tpu/ops/sta_row.py), forward only: on CUDA it raises where grad mode
+is on and an input requires grad.
+
+The same function as ops/sta_window.py (stable softmax, inactive heads
+zero, the optional joint text tail with ``text_bias`` added after the
+scale), computed another way: the q tiles of one (t, h) row share their
+(t, h) window, so they share one slab of K/V lines across the latent's
+width, and each tile takes its own w window of every line.  The kernel
+needs tile_w to be a multiple of 8; ``supports_row_dense`` is the TPU
+kernel's eligibility test (that condition and its VMEM budget), which the
+routed and joint dispatches use to choose as the JAX package does.
+
+On CUDA tensors ``sta_row_attention`` launches ``csrc/sta_row.cu`` (bf16,
+D 64 or 128); on CPU tensors it runs the plain version
+``sta_row_attention_ref``, sta_window's.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .sta_pipe import _text_tail
+from .sta_window import check_window_dense, launch_window_dense, sta_window_attention_ref
+
+Shape3 = Tuple[int, int, int]
+
+
+def supports_row_dense(latent_shape: Shape3, tile: Shape3, d: int, itemsize: int = 2,
+                       text_len: int = 0, window: Shape3 = (3, 3, 3)) -> bool:
+    """The TPU kernel's eligibility test: tiles divide the grid, tile_w is a
+    multiple of 8, and its slabs and softmax states fit 40 MiB of VMEM."""
+    t, hh, w = latent_shape
+    tt, th, tw = tile
+    if t % tt or hh % th or w % tw or tw % 8:
+        return False
+    nw = w // tw
+    tpt = tt * th * tw
+    slab = tt * th * w * d * itemsize
+    bw = min(window[2], nw) * tw
+    est = (2 * 2 * slab + 2 * 2 * slab + nw * tpt * (d + 2) * 4
+           + 3 * tpt * tt * th * bw * 4 + 2 * text_len * d * itemsize)
+    return est < 40 * 2**20
+
+
+def sta_row_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
+                          window: Shape3 = (3, 3, 3), scale: Optional[float] = None,
+                          text_k=None, text_v=None, text_bias=None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: sta_window's, the same function."""
+    return sta_window_attention_ref(q, k, v, active, latent_shape=latent_shape, tile=tile,
+                                    window=window, scale=scale, text_k=text_k, text_v=text_v,
+                                    text_bias=text_bias)
+
+
+def sta_row_attention(
+    q: torch.Tensor,  # (B, H, S, D) raster
+    k: torch.Tensor,
+    v: torch.Tensor,
+    active,  # (H,) int: heads routed to this expert
+    *,
+    latent_shape: Shape3,
+    tile: Shape3,
+    window: Shape3 = (3, 3, 3),
+    scale: Optional[float] = None,
+    text_k: Optional[torch.Tensor] = None,
+    text_v: Optional[torch.Tensor] = None,
+    text_bias: Optional[torch.Tensor] = None,
+    cast_p_to_v_dtype: bool = True,
+) -> torch.Tensor:
+    """Row-dense STA: the contract of sta_window_attention, for the
+    geometries ``supports_row_dense`` admits."""
+    if not cast_p_to_v_dtype:
+        raise NotImplementedError("P is always cast to v's dtype here (the JAX package's "
+                                  "only callers)")
+    check_window_dense(q, k, v, latent_shape)
+    lt = 0 if text_k is None else text_k.shape[2]
+    if not supports_row_dense(latent_shape, tile, q.shape[-1], q.element_size(), lt,
+                              window=window):
+        raise ValueError(f"geometry (latent {latent_shape}, tile {tile}) not eligible for the "
+                         "row-dense kernel")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    text_k, text_v, text_bias = _text_tail(text_k, text_v, text_bias, q)
+    kw = dict(latent_shape=latent_shape, tile=tile, window=window, scale=scale, text_k=text_k,
+              text_v=text_v, text_bias=text_bias)
+    if q.device.type == "cpu":
+        return sta_row_attention_ref(q, k, v, active, **kw)
+    return launch_window_dense("sta_row", q, k, v, active, **kw)
