@@ -12,6 +12,13 @@ Phases, each raising on failure:
      at 480p x 21 frames = 9,360 tokens, bf16); flash_manual, sta_pipe,
      pool_qkv and unpool at the routed path's (480p x 77 frames = 31,200
      tokens; sta_pipe also at 720p's tile), some heads routed away.
+  2h. the pool's head-map mode (pool_qkv / unpool over the routed heads
+     alone) at HunyuanVideo 720p x 45f (1,24,43200,128) with K's own
+     matching, 16 of 24 heads routed, and at Wan 720p x 77f
+     (1,12,72000,128), 5 and 12 of 12 routed, against their plain versions
+     and the active mode on the routed heads, timed beside the active mode;
+     the copy probe of tools/bench_pool.py at Wan 720p, bitwise against its
+     plain version, beside pool_qkv, index_select and its bytes bound.
   2q. int8 kernels (quantized serving): flash_manual's and sta_pipe's int8
      QK modes against their plain versions on the same int8 q / k (Wan FULL
      (1,12,31744,128) and LOWRES (1,12,16384,128), 8 heads routed; the
@@ -34,7 +41,9 @@ Phases, each raising on failure:
      kernels) against the same weights on the CPU (f32, plain versions),
      routing off, then routed hard with the heads sent to all three experts,
      in bf16 and with qk_int8 + W8A8, and routed hard at tile (4, 9, 10) on
-     a (4, 18, 80) grid, where the gates pick sta_window.
+     a (4, 18, 80) grid, where the gates pick sta_window; routed hard under
+     each of the JAX package's dispatch variables (VORTA_LOWRES_DISPATCH=
+     batched / hybrid, VORTA_ROUTED_DISPATCH=switch), launches exact.
   4. main path, routing off: vorta_tpu_torch.cli.sample at full width and
      depth (30 blocks), --native_attention, 480p x 21 frames, 2 UniPC steps
      with CFG 5.0 = 4 DiT forwards, after one warm-up forward of a 2-block
@@ -45,6 +54,12 @@ Phases, each raising on failure:
      forward; launch counts exact against the routing tables the run used,
      all three experts used; then the same with --qk_int8 --mm int8, the
      int8 QK mode launched wherever flash_manual is.
+  5d. the routed forward under each dispatch: one Wan-1.3B 480p x 77f
+     forward at full width and depth (random routers) masked, batched,
+     hybrid and switch; launch counts exact, ms per forward, each output
+     against the masked dispatch's.
+  5b. tools/bench_pool.py's five stages (both, pool, copy, headmap5,
+     headmap12) at Wan 720p, the plain and the kernel arms, ms per stage.
   5s. static scales: calibrate_mm on the card over one 480p x 77f routed
      W8A8 forward, then the forward with those static scales (amax / 127),
      its distance from the dynamic one and both times.
@@ -74,7 +89,8 @@ HunyuanVideo-13B (its phases free the Wan models first):
      and depth (20 + 40 blocks), 720p x 45f, 2 Euler steps = 2 forwards,
      routing off (--native_attention) and routed hard (its default), after
      warm-up forwards of a 1 + 1-block model; launch counts exact (routed:
-     against the run's routing tables), all three experts used.
+     against the run's routing tables, the LOWRES pool and unpool counted in
+     head-map mode, as the JAX package pools there), all three experts used.
      Phases b and c run again with qk_int8 + W8A8 (the CLI's --qk_int8
      --mm int8): FULL and LOWRES in the int8 QK mode, routing off too.
      Phase b also runs routed hard at tile (2, 9, 8) on a (6, 18, 32) grid
@@ -93,18 +109,28 @@ Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
      shapes the trainer gives them (480p x 77f: FULL, LOWRES, STA's
-     96-token tiles, cross-attention to 512 text tokens), with SDPA's
-     backward (forward + backward, minus forward) as the library yardstick.
+     96-token tiles, cross-attention to 512 text tokens), at the STA
+     expert's shape at the bench router's geometry ((1,12,36000,128),
+     blocks 360 = 8 x 45) and at 24-token blocks (8 x 3, tile (2, 3, 4) on
+     (8, 30, 52)), with SDPA's backward (forward + backward, minus forward)
+     as the library yardstick.
   8. gradient check: one router train step of a 2-block Wan-1.3B-width
      model on the card (bf16, kernels) against the CPU (f32, plain
-     versions), same weights and draws: loss and router gradients.
+     versions), same weights and draws: loss and router gradients; again at
+     a 360-token tile (grid (10, 18, 16), tile (5, 9, 8)).
   9. main path, training: vorta_tpu_torch.cli.train at full width and depth
      (480p x 77f, soft routing with the teacher, remat), 2 optimizer steps
      of 2 micro-steps, a checkpoint, then resumed for a third step; launch
      counts exact against the count derived from the graph (train_launches).
+  9h. main path, training at the bench router's geometry: cli.train
+     --num_latent_t 10 --video_height 720 --video_width 1280 --sta_tile 5 9 8
+     (36,000 tokens, 360-token tiles) at full width and depth, 2 optimizer
+     steps of 1 micro-step; s per micro-step, peak memory, exact launches.
 Then a line of the W8A8, static-scale and Wan-14B numbers, a {"kernels":
 [...]} line (flash_manual's int8 mode a row of its own; sta_pipe's, which
-no main path runs, under its row's "modes"; sta_row, which no geometry of
+no main path runs, under its row's "modes"; pool_qkv's and unpool's
+head-map mode under theirs, with the HunyuanVideo routed path's launches;
+copy_probe a row whose launches are the pool benchmark tool's; sta_row, which no geometry of
 the port's paths reaches, with "on_main_path": false), the card line, and
 the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
@@ -202,14 +228,19 @@ def main() -> int:
     with torch.inference_mode():
         kernels = phase("kernels", lambda: check_kernels(torch, card)
                         + check_routed_kernels(torch, card))
+        headmap = phase("headmap_kernels", check_headmap_kernels, torch, card)
         int8 = phase("int8_kernels", check_int8_kernels, torch, card)
         fallback = phase("fallback_kernels", check_fallback_kernels, torch, card)
         phase("model_checks", lambda: (check_model(torch), check_routed_model(torch),
                                        check_routed_model(torch, int8=True),
                                        check_routed_model(torch, grid=(4, 18, 80),
-                                                          tile=WAN_TILE_4910)))
+                                                          tile=WAN_TILE_4910),
+                                       [check_routed_model(torch, dispatch=disp)
+                                        for disp in DISPATCHES]))
         launches_off, per_step = phase("main_off", run_main_path, torch, card)
         launches_hard, per_step_hard = phase("main_routed", run_routed_main_path, torch, card)
+        launches_disp, disp_ms = phase("wan_dispatch", run_wan_dispatch_paths, torch, card)
+        launches_bench, bench_ms = phase("bench_pool", run_bench_pool, torch, card)
         launches_int8, per_step_int8 = phase("main_routed_int8", run_routed_main_path, torch,
                                              card, True)
         static = phase("static_scales", run_static_scales, torch, card)
@@ -231,24 +262,45 @@ def main() -> int:
             k["modes"] = {"int8_qk": {"replaces": "vorta_tpu/ops/sta_pipe.py:197",
                                       "on_main_path": False, **int8["sta_pipe_int8"]}}
     kernels += phase("training_kernels", check_training_kernels, torch, card)
-    phase("train_grads", check_train_grads, torch)
+    phase("train_grads", lambda: (check_train_grads(torch),
+                                  check_train_grads(torch, grid=(10, 18, 16), tile=TILE_360)))
     launches_train, train = phase("train_main", run_train_main_path, torch, card)
+    launches_720h, train_720h = phase("train_720p_half", run_train_720p_half, torch, card)
+    kernels.append(headmap["copy_probe"])
+
+    def by_path(name):
+        return {"off_480p_21f": launches_off[name], "hard_480p_77f": launches_hard[name],
+                "hard_480p_77f_int8": launches_int8[name],
+                **{f"hard_480p_77f_{d}": launches_disp[d][name] for d in launches_disp},
+                "train_480p_77f": launches_train[name],
+                "train_720p_half": launches_720h[name],
+                **{p: hy_launches[p][name] for p in hy_launches},
+                "hard_720p_77f_4910": launches_4910[name],
+                "hunyuan_45f_298": launches_298[name],
+                "bench_pool": launches_bench[name]}
 
     for k in kernels:
         name = k.pop("_counter")
-        paths = {"off_480p_21f": launches_off[name], "hard_480p_77f": launches_hard[name],
-                 "hard_480p_77f_int8": launches_int8[name],
-                 "train_480p_77f": launches_train[name],
-                 **{p: hy_launches[p][name] for p in hy_launches},
-                 "hard_720p_77f_4910": launches_4910[name],
-                 "hunyuan_45f_298": launches_298[name]}
+        paths = by_path(name)
         # the count of the path the kernel's slice brought: serving's routed
         # path (in int8 for the int8 mode), training for the kernels only
-        # training launches, the STA fallbacks' two paths for theirs
+        # training launches, the STA fallbacks' two paths for theirs, the
+        # pool benchmark tool for its copy probe
         k["launches"] = next((paths[p] for p in ("hard_480p_77f", "hard_480p_77f_int8",
                                                  "train_480p_77f", "hard_720p_77f_4910",
-                                                 "hunyuan_45f_298") if paths[p]), 0)
+                                                 "hunyuan_45f_298", "bench_pool")
+                              if paths[p]), 0)
         k["launches_by_path"] = paths
+        if name in ("pool_qkv", "unpool"):  # the head-map mode: HunyuanVideo's routed path
+            hm_paths = by_path(f"{name}_headmap")
+            if not hm_paths["hunyuan"]:
+                raise RuntimeError(f"{name}: the head-map mode was not launched on the "
+                                   "HunyuanVideo routed path")
+            k["modes"] = {"head_map": dict(
+                replaces="vorta_tpu/ops/coreset_pallas.py:" + ("418" if name == "pool_qkv"
+                                                               else "545"),
+                on_main_path=True, launches=hm_paths["hunyuan"], launches_by_path=hm_paths,
+                **headmap[name]["hunyuan_45f_16of24"], shapes=headmap[name])}
         if name in hy_kernels:  # the Hunyuan shapes join the kernel's other shapes
             k["shapes"] = {**k.get("shapes", {}), **hy_kernels[name]}
             k["max_abs_err"] = max([k["max_abs_err"]] + [x["max_abs_err"]
@@ -272,10 +324,15 @@ def main() -> int:
           f"{q14['stack_gib']:.2f} GiB, forward {q14['forward_ms']:.1f} ms, peak "
           f"{q14['peak_gib']:.2f} GiB; STA fallbacks: Wan-1.3B 720p x 77f tile (4, 9, 10) "
           f"(sta_window) {per_step_4910:.3f} s per denoise step, HunyuanVideo-13B 720p x 45f "
-          f"tile (2, 9, 8) (sta_batched) {per_step_298:.3f} s per Euler step; "
+          f"tile (2, 9, 8) (sta_batched) {per_step_298:.3f} s per Euler step; training at "
+          f"the bench router's geometry (10, 45, 80) tile (5, 9, 8) {train_720h['micro_s']:.3f} "
+          f"s per micro-step, peak {train_720h['max_memory_gib']:.2f} GiB; Wan 480p x 77f "
+          f"routed forward ms by dispatch {disp_ms}; bench_pool ms by stage {bench_ms}; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
-          f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}; "
+          f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
+          f"720p_half {launches_720h}, wan dispatches {launches_disp}, bench_pool "
+          f"{launches_bench}; "
           f"phases {phase_s}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -650,6 +707,158 @@ def check_routed_kernels(torch, card: str) -> list:
     return out
 
 
+def headmap_case(torch, name: str, q, k, v, groups, routed, kv_from_k: bool) -> dict:
+    """pool_qkv and unpool in head-map mode over the heads ``routed`` (a
+    (H,) 0/1 tuple) against their plain versions, compared on the routed
+    heads only (the other heads' rows are uninitialized by contract), and
+    timed beside the active mode on the same heads."""
+    import numpy as np
+
+    from vorta_tpu_torch.ops.coreset import group_view, slot_similarity
+    from vorta_tpu_torch.ops.coreset_pallas import (
+        head_map_for,
+        pick_gaps,
+        pool_qkv,
+        pool_qkv_ref,
+        unpool,
+        unpool_ref,
+    )
+
+    dev = q.device
+    b, h, s, d = q.shape
+    on = torch.tensor(routed, device=dev) > 0
+    hm, n = head_map_for(on)
+    act = on.to(torch.int32)
+    kw = dict(head_map=hm, num_active=n)
+    pool = lambda: pool_qkv(q, k, v, groups, kv_matching_from_k=kv_from_k,  # noqa: E731
+                            return_picks=True, **kw)
+    pool_act = lambda: pool_qkv(q, k, v, groups, kv_matching_from_k=kv_from_k,  # noqa: E731
+                                return_picks=True, active=act)
+    pool_plain = lambda: pool_qkv_ref(q, k, v, groups, kv_matching_from_k=kv_from_k,  # noqa: E731
+                                      **kw)
+    got, want = pool(), pool_plain()
+    torch.cuda.synchronize()
+    gaps = pick_gaps(got[3][:, on], want[3][:, on], q[:, on], groups)
+    sh = (b, n, groups.num_groups, groups.num_kept_margins)
+    log(f"pool_qkv head-map {name}: {n} of {h} heads routed; Q picks: {gaps.numel()} of "
+        f"{int(np.prod(sh))} disagree with the plain version's, largest |dsim| "
+        f"{gaps.max().item() if gaps.numel() else 0.0:.3e} (each must be a near-tie, < "
+        f"{PICK_EPS:g})")
+    if gaps.numel() and not gaps.max().item() < PICK_EPS:
+        raise RuntimeError(f"pool_qkv head-map {name}: a pick disagrees away from a near-tie")
+    q_agree = (got[3][:, on].reshape(sh) == want[3][:, on].reshape(sh)).all(-1)
+    if kv_from_k:  # K and V follow K's matching: compare where its ranking has no near-tie
+        k_sim = slot_similarity(group_view(k[:, on], groups), groups._geom.center_slot)
+        kv_agree = k_sim.sort(dim=-1).values[..., :-1].diff(dim=-1).min(dim=-1).values > PICK_EPS
+    else:
+        kv_agree = q_agree
+    gsz = groups.num_groups
+    for x, a, w, agree in zip("qkv", got[:3], want[:3], (q_agree, kv_agree, kv_agree)):
+        a, w = a[:, on], w[:, on]
+        kept_a = a[:, :, gsz:].reshape(*sh, d)[agree]
+        kept_w = w[:, :, gsz:].reshape(*sh, d)[agree]
+        if not (torch.equal(a[:, :, :gsz], w[:, :, :gsz]) and torch.equal(kept_a, kept_w)):
+            raise RuntimeError(f"pool_qkv head-map {name} {x}: routed heads' rows differ")
+    # and against the active mode on the same heads: the same kernel body
+    ref_act = pool_act()
+    if not all(torch.equal(a[:, on], r[:, on]) for a, r in zip(got, ref_act)):
+        raise RuntimeError(f"pool_qkv head-map {name}: routed heads differ from the active mode")
+    del want, ref_act
+    p = groups.pooled_length
+    picks_b = int(np.prod(sh)) * 4
+    # head-map mode reads and writes the routed heads only: all of q (and of k
+    # with K's matching), the kept rows of k and v otherwise; 3 pooled outputs
+    reads = n * ((1 + kv_from_k) * s + (2 - kv_from_k) * p) * d * 2
+    p_bytes = reads + n * 3 * p * d * 2 + picks_b
+    bp_ms, bp_by = bound_ms(0.0, p_bytes, PEAK_BF16)
+    pool_r = dict(ms=time_ms(torch, pool, 20), active_ms=time_ms(torch, pool_act, 20),
+                  plain_ms=time_ms(torch, pool_plain, 2, 1), library_ms=None, bound_ms=bp_ms,
+                  bound_by=bp_by, max_abs_err=0.0, heads=n, pick_disagreements=gaps.numel())
+    log(f"pool_qkv head-map {name}: {pool_r}")
+    picks = got[3]
+    out_p = torch.randn((b, h, p, d), device=dev).to(q.dtype)
+    unp = lambda: unpool(out_p, q, groups, picks=picks, **kw)  # noqa: E731
+    unp_act = lambda: unpool(out_p, q, groups, picks=picks, active=act)  # noqa: E731
+    unp_plain = lambda: unpool_ref(out_p, q, groups, picks=picks, **kw)  # noqa: E731
+    up = unp()
+    if not (torch.equal(up[:, on], unp_plain()[:, on]) and torch.equal(up[:, on],
+                                                                        unp_act()[:, on])):
+        raise RuntimeError(f"unpool head-map {name}: routed heads differ from the plain "
+                           "version or the active mode")
+    u_bytes = n * (p * d * 2 + s * d * 2) + picks_b
+    bu_ms, bu_by = bound_ms(0.0, u_bytes, PEAK_BF16)
+    unpool_r = dict(ms=time_ms(torch, unp, 20), active_ms=time_ms(torch, unp_act, 20),
+                    plain_ms=time_ms(torch, unp_plain, 2, 1), library_ms=None, bound_ms=bu_ms,
+                    bound_by=bu_by, max_abs_err=0.0, heads=n)
+    log(f"unpool head-map {name}: bitwise on the routed heads; {unpool_r}")
+    return {"pool_qkv": pool_r, "unpool": unpool_r}
+
+
+def check_headmap_kernels(torch, card: str) -> dict:
+    """The pool's head-map mode at HunyuanVideo 720p x 45f (1,24,43200,128)
+    with K's own matching, 16 of 24 heads routed, and at Wan 720p x 77f
+    (1,12,72000,128), 5 and 12 of 12 routed; and the copy probe of
+    tools/bench_pool.py at Wan 720p against its plain version, bitwise,
+    beside pool_qkv and its bytes bound."""
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops.coreset_pallas import pool_qkv
+    from vorta_tpu_torch.ops.experts import lowres_groups_for
+    from vorta_tpu_torch.ops.layout import tile_sequence
+    from vorta_tpu_torch.tools.bench_pool import copy_probe, copy_probe_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(60)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    out = {"pool_qkv": {}, "unpool": {}}
+    hy_groups = lowres_groups_for(attention_config("hunyuan-13B", GRID_HY_45F))
+    q, k, v = (randn(1, 24, hy_groups.full_length, 128) for _ in range(3))
+    for kern, r in headmap_case(torch, "hunyuan_45f_16of24", q, k, v, hy_groups, HY_ACTIVE,
+                                True).items():
+        out[kern]["hunyuan_45f_16of24"] = r
+    del q, k, v
+    torch.cuda.empty_cache()
+    groups = lowres_groups_for(attention_config("wan-1_3B", GRID_720P))
+    q, k, v = (randn(1, 12, groups.full_length, 128) for _ in range(3))
+    for n in (5, 12):
+        name = f"wan_720p_{n}of12"
+        for kern, r in headmap_case(torch, name, q, k, v, groups,
+                                    tuple(int(i < n) for i in range(12)), False).items():
+            out[kern][name] = r
+
+    # copy_probe: slot 0 as center, slots 0..U-1 as margins, no matching
+    probe = lambda: copy_probe(q, k, v, groups)  # noqa: E731
+    plain = lambda: copy_probe_ref(q, k, v, groups)  # noqa: E731
+    if not all(torch.equal(a, w) for a, w in zip(probe(), plain())):
+        raise RuntimeError("copy_probe: kernel and plain version differ (pure selection)")
+    u, gn = groups.num_kept_margins, groups.num_groups
+    # reads slots 0..U-1 of each group (slot 0 serves both), writes 1 + U rows, x 3 tensors
+    c_bytes = 3 * 12 * gn * (u + 1 + u) * 128 * 2
+    bc_ms, bc_by = bound_ms(0.0, c_bytes, PEAK_BF16)
+    # one gather per tensor: torch.index_select of the probe's token indices
+    tok = torch.arange(groups.full_length, device=dev).reshape(1, 1, -1, 1).float()
+    slots = tile_sequence(tok, groups._geom.latent_shape, groups._geom.window).reshape(
+        gn, groups.group_size).long()
+    idx = torch.cat([slots[:, 0], slots[:, :u].reshape(-1)])
+    lib = time_ms(torch, lambda: [torch.index_select(x, 2, idx) for x in (q, k, v)], 20)
+    if not torch.equal(torch.index_select(q, 2, idx), probe()[0]):
+        raise RuntimeError("copy_probe: index_select yardstick computes another function")
+    pool_ms = time_ms(torch, lambda: pool_qkv(q, k, v, groups, return_picks=True), 20)
+    cp = dict(ms=time_ms(torch, probe, 20), plain_ms=time_ms(torch, plain, 3, 1),
+              library_ms=lib, bound_ms=bc_ms, bound_by=bc_by, max_abs_err=0.0,
+              pool_qkv_ms=pool_ms,
+              library_covers="torch.index_select, one call per tensor (q, k, v)")
+    log(f"copy_probe (1,12,72000,128) -> 3 x (1,12,{groups.pooled_length},128): bitwise; {cp} "
+        f"(pool_qkv, every head, with the matching: {pool_ms:.3f} ms)")
+    del q, k, v
+    out["copy_probe"] = dict(name="copy_probe", route="cuda",
+                             source="vorta_tpu_torch/csrc/coreset_pool.cu",
+                             replaces="tools/bench_pool.py:50", _counter="copy_probe", **cp)
+    return out
+
+
 def sta_raster_mask(torch, grid, tile, dev, window=(3, 3, 3)):
     """(S, S) bool: which raster tokens each raster token sees under STA."""
     import numpy as np
@@ -692,14 +901,18 @@ def check_model(torch) -> None:
         raise RuntimeError("model check: the card's forward disagrees with the CPU's")
 
 
-def check_routed_model(torch, int8: bool = False, grid=(8, 24, 20), tile=(4, 6, 4)) -> None:
+def check_routed_model(torch, int8: bool = False, grid=(8, 24, 20), tile=(4, 6, 4),
+                       dispatch=(None, None, "masked")) -> None:
     """2 blocks at Wan-1.3B widths routed hard: card (bf16, kernels) vs CPU
     (f32, plain versions).  The routers' weights are 0 and their biases
     one-hot logits, so 4 heads go to each expert in both runs.  ``int8``:
     with qk_int8 and W8A8 on both sides.  The default grid has 3,840 tokens
     in tiles (2, 4, 5) per axis, so the 3-tile STA window is narrower than
-    the grid on h and w; the STA heads take the kernel the gates pick."""
+    the grid on h and w; the STA heads take the kernel the gates pick.
+    ``dispatch``: one of DISPATCHES, its variable set on both sides."""
     import dataclasses
+
+    import numpy as np
 
     from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
     from vorta_tpu_torch.models.wan import WanModel
@@ -723,17 +936,19 @@ def check_routed_model(torch, int8: bool = False, grid=(8, 24, 20), tile=(4, 6, 
     lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=g)
     ctx = torch.randn((1, TEXT_LEN, cfg.text_dim), generator=g)
     t = torch.tensor([700.0])
-    want = ref_model(lat, t, ctx, attn_cfg=attn, routing_mode="hard", mm_precision=mm).sample
-    _build.reset_launches()
-    res = gpu_model(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=attn, routing_mode="hard",
-                    mm_precision=mm)
+    with dispatch_env(*dispatch[:2]):
+        want = ref_model(lat, t, ctx, attn_cfg=attn, routing_mode="hard",
+                         mm_precision=mm).sample
+        _build.reset_launches()
+        res = gpu_model(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=attn, routing_mode="hard",
+                        mm_precision=mm)
     got = res.sample.float().cpu()
     launches = dict(_build.launches)
     if not (res.expert_ids == experts.numpy()).all():
         raise RuntimeError(f"routed model check: routing {res.expert_ids}")
-    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 2, "fused_norm": 5, "prologue": 2,
-                "flash_manual": 4, sta_kernel: 2, "pool_qkv": 2, "unpool": 2,
-                "flash_manual_int8": 4 if int8 else 0}
+    expected = routed_wan_launches(np.asarray(res.expert_ids)[None], sta_kernel, 1, dispatch[2])
+    if int8:
+        expected["flash_manual_int8"] = expected["flash_manual"]
     if launches != expected:
         raise RuntimeError(f"routed model check: launches {launches} != {expected}")
     if not torch.isfinite(got).all():
@@ -743,7 +958,8 @@ def check_routed_model(torch, int8: bool = False, grid=(8, 24, 20), tile=(4, 6, 
     # plus the lowres picks that bf16 rounding flips (kernels phase: the flip
     # count) and that then swap a token's own output for its center's
     log(f"routed model check (2 blocks, 1.3B widths, {grid} = {attn.seq_len:,} tokens, tile "
-        f"{tile} ({sta_kernel}), 4 heads per expert{', qk_int8 + W8A8' if int8 else ''}): rel "
+        f"{tile} ({sta_kernel}), 4 heads per expert{', qk_int8 + W8A8' if int8 else ''}, "
+        f"dispatch {dispatch[2]}): rel "
         f"L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); launches {launches}")
     if not rel < 0.05:
         raise RuntimeError("routed model check: the card's forward disagrees with the CPU's")
@@ -1167,8 +1383,10 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
     AdaLN norm 121 (4 per dual block, 1 per single block, 1 in the head);
     per block one flash_manual per routed expert (STA's for its text rows,
     except with sta_batched, which takes them itself), the STA kernel with
-    STA, pool_qkv and unpool with LOWRES; ``int8``: FULL's and LOWRES's
-    flash_manual in the int8 QK mode (the STA text rows stay bf16)."""
+    STA, pool_qkv and unpool in head-map mode with LOWRES (as the JAX
+    package's joint_lowres_attention pools whenever it is given its heads);
+    ``int8``: FULL's and LOWRES's flash_manual in the int8 QK mode (the STA
+    text rows stay bf16)."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
@@ -1177,8 +1395,8 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
     return {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
             "fused_norm": 121 * n_fwd,
             "flash_manual": int(has[0].sum() + has[1].sum()) + text_rows,
-            sta_kernel: int(has[2].sum()), "pool_qkv": int(has[1].sum()),
-            "unpool": int(has[1].sum()),
+            sta_kernel: int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
+            "unpool_headmap": int(has[1].sum()),
             "flash_manual_int8": int(has[0].sum() + has[1].sum()) if int8 else 0}
 
 
@@ -1561,16 +1779,46 @@ def fallback_kernel_rows(fb: dict) -> list:
     return rows
 
 
-def routed_wan_launches(tables, sta_kernel: str, n_fwd: int) -> dict:
+def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "masked") -> dict:
     """Kernel launches of hard-routed Wan forwards from their routing tables
-    (forwards, 30 blocks, heads)."""
+    (forwards, blocks, heads) under a dispatch: "masked" (the default: each
+    routed expert once per block, the pool in active mode), "batched" (the
+    pool and unpool in head-map mode), "hybrid" (a pool and an unpool per
+    LOWRES head) or "switch" (each head its own expert: a flash_manual per
+    FULL / LOWRES head, an STA launch per STA head)."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
-    return {**dict.fromkeys(_build.KERNELS, 0), "flash": 30 * n_fwd,
-            "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd,
-            "flash_manual": int(has[0].sum() + has[1].sum()), sta_kernel: int(has[2].sum()),
-            "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
+    heads = [(tables == e).sum(-1) for e in range(3)]
+    blocks = tables.shape[1]
+    out = {**dict.fromkeys(_build.KERNELS, 0), "flash": blocks * n_fwd,
+           "fused_norm": (2 * blocks + 1) * n_fwd, "prologue": blocks * n_fwd,
+           "flash_manual": int(has[0].sum() + has[1].sum()), sta_kernel: int(has[2].sum()),
+           "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
+    if dispatch == "batched":
+        out.update(pool_qkv=0, unpool=0, pool_qkv_headmap=int(has[1].sum()),
+                   unpool_headmap=int(has[1].sum()))
+    elif dispatch in ("hybrid", "switch"):
+        out.update(pool_qkv=int(heads[1].sum()), unpool=int(heads[1].sum()))
+    if dispatch == "switch":
+        out.update({"flash_manual": int(heads[0].sum() + heads[1].sum()),
+                    sta_kernel: int(heads[2].sum())})
+    return out
+
+
+# the JAX package's alternative routed dispatches: (variable, value, name)
+DISPATCHES = (("VORTA_LOWRES_DISPATCH", "batched", "batched"),
+              ("VORTA_LOWRES_DISPATCH", "hybrid", "hybrid"),
+              ("VORTA_ROUTED_DISPATCH", "switch", "switch"))
+
+
+def dispatch_env(var=None, value=None):
+    """A with-block with one dispatch variable set (none for the masked
+    dispatch), the environment restored after it."""
+    import os
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {var: value} if var else {})
 
 
 def run_wan_fallback_path(torch, card: str):
@@ -2017,9 +2265,20 @@ def run_quantized_blocks(torch, card: str) -> dict:
 LSE_RTOL, LSE_ATOL = 1e-5, 1e-4
 
 
+# the bench router's training geometry (tools/train_bench_router.py --geom
+# 720p_half): 720 x 1280 x 37 frames, STA tile (5, 9, 8) = 360 tokens
+GRID_720P_HALF, TILE_360 = (10, 45, 80), (5, 9, 8)
+
+
 def training_calls(torch):
     """The attention calls the trainer makes per block at 480p x 77f, as the
-    expert wrappers build them: tables, padded lengths, valid lengths."""
+    expert wrappers build them: tables, padded lengths, valid lengths; and
+    the STA expert's at the bench router's geometry (10, 45, 80), tile
+    (5, 9, 8): blocks of 360 = 8 x 45, 27 tiles per q block, and at a tile
+    of 24 = 8 x 3 tokens, (2, 3, 4) on (8, 30, 52), whose 8-row tail warp
+    opens a CUDA block."""
+    import dataclasses
+
     from vorta_tpu_torch.cli.sample import attention_config
     from vorta_tpu_torch.ops.experts import (
         _dense_tables_cached,
@@ -2034,15 +2293,24 @@ def training_calls(torch):
     full, full_q, full_kv = _full_tables(cfg)
     low, low_q, low_kv = _lowres_tables(cfg)
     bq, bkv = cfg.sta_blocks
+
+    def sta(grid, tile):
+        c = dataclasses.replace(attention_config("wan-1_3B", grid), sta_tile=tile)
+        n, b = c.seq_len, c.tokens_per_tile
+        return dict(tables=_sta_tables(c), sq=n, skv=n, q_valid=n, kv_valid=n, bq=b, bkv=b,
+                    grid=grid, tile=tile)
+
     return {
         "full_31200": dict(tables=full, sq=full_q, skv=full_kv, q_valid=s, kv_valid=s,
                            bq=cfg.block_q, bkv=cfg.block_kv),
         "lowres_15600": dict(tables=low, sq=low_q, skv=low_kv, q_valid=p, kv_valid=p,
                              bq=cfg.block_q, bkv=cfg.block_kv),
         "sta_31200_tile96": dict(tables=_sta_tables(cfg), sq=s, skv=s, q_valid=s, kv_valid=s,
-                                 bq=bq, bkv=bkv),
+                                 bq=bq, bkv=bkv, grid=GRID_480P_77F, tile=(4, 6, 4)),
         "cross_31200x512": dict(tables=_dense_tables_cached(16, 1), sq=16 * 2048, skv=TEXT_LEN,
                                 q_valid=s, kv_valid=TEXT_LEN, bq=2048, bkv=TEXT_LEN),
+        "sta_36000_tile360": sta(GRID_720P_HALF, TILE_360),
+        "sta_12480_tile24": sta((8, 30, 52), (2, 3, 4)),
     }
 
 
@@ -2128,8 +2396,7 @@ def check_training_kernels(torch, card: str) -> list:
         ks = k[:, :, :kvv].detach().requires_grad_()
         vs = v[:, :, :kvv].detach().requires_grad_()
         go = dout[:, :, :qv]
-        mask = (sta_raster_mask(torch, GRID_480P_77F, (4, 6, 4), dev)
-                if name.startswith("sta") else None)
+        mask = sta_raster_mask(torch, c["grid"], c["tile"], dev) if "tile" in c else None
         lib_fwd = lib_bwd = None
         try:
             with torch.no_grad():
@@ -2176,11 +2443,13 @@ def check_training_kernels(torch, card: str) -> list:
                   "vorta_tpu/ops/flash_bwd.py:116")]
 
 
-def check_train_grads(torch) -> None:
+def check_train_grads(torch, grid=(4, 12, 8), tile=(4, 6, 4)) -> None:
     """One router train step of a 2-block Wan-1.3B-width model: the card
     (bf16, kernels) against the CPU (f32, plain versions), the same weights
     and draws.  Grid (4, 12, 8): the STA tile (4, 6, 4) and the lowres
-    window (2, 3, 2) divide it, so all three experts and their backward run."""
+    window (2, 3, 2) divide it, so all three experts and their backward run;
+    grid (10, 18, 16) with tile (5, 9, 8): the STA expert's flash forward
+    and backward at blocks of 360 tokens."""
     import dataclasses
 
     from vorta_tpu_torch.cli.sample import attention_config
@@ -2190,8 +2459,7 @@ def check_train_grads(torch) -> None:
     from vorta_tpu_torch.training.step import LossWeights, make_router_train_step, router_partition
 
     cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
-    grid = (4, 12, 8)
-    attn = attention_config("wan-1_3B", grid)
+    attn = dataclasses.replace(attention_config("wan-1_3B", grid), sta_tile=tile)
     sig = train_sigmas(5.0)
     step = make_router_train_step(attn, LossWeights(), timestep_table=sig * 1000.0,
                                   sigma_table=sig)
@@ -2215,7 +2483,8 @@ def check_train_grads(torch) -> None:
     loss_c, grads_c, _ = run(ref, "cpu")
     rel_loss = abs(loss_g - loss_c) / abs(loss_c)
     rel = ((grads_g - grads_c).norm() / grads_c.norm()).item()
-    log(f"gradient check (2 blocks, 1.3B widths, {grid} = 384 tokens, t = {t.item():.1f}): "
+    log(f"gradient check (2 blocks, 1.3B widths, {grid} = {attn.seq_len} tokens, tile {tile}, "
+        f"t = {t.item():.1f}): "
         f"loss card {loss_g:.6f} vs CPU {loss_c:.6f} (rel {rel_loss:.2e}, tolerance 0.02); router "
         f"gradients rel L2 {rel:.4f} (tolerance 0.1; |grad| {grads_c.norm().item():.3e}); "
         f"card metrics { {k: round(float(v), 6) for k, v in m.items()} }")
@@ -2299,6 +2568,118 @@ def run_train_main_path(torch, card: str):
                                          "grad_norm", "timestep")))
     log(f"training launches per micro-step {per_micro} (exact over 4 + 2 micro-steps)")
     return launches, stats
+
+
+def run_train_720p_half(torch, card: str):
+    """cli.train at the bench router's geometry (tools/train_bench_router.py
+    --geom 720p_half): Wan-1.3B at full width and depth, 720 x 1280 x 37
+    frames = (10, 45, 80) = 36,000 tokens, STA tile (5, 9, 8) = 360 tokens
+    (the flash forward and backward at blocks of 8 x 45), 2 optimizer steps
+    of 1 micro-step; launch counts exact, finite loss."""
+    import json as _json
+    import math
+    import shutil
+
+    from vorta_tpu_torch.cli.train import main as train_main
+    from vorta_tpu_torch.ops import _build
+
+    out_dir = HERE / "results" / "port_smoke" / "train_720p_half"  # listed in .gitignore
+    shutil.rmtree(out_dir, ignore_errors=True)
+    _build.reset_launches()
+    res = train_main(["--model", "wan-1_3B", "--synthetic_data", "--num_latent_t", "10",
+                      "--video_height", "720", "--video_width", "1280", "--sta_tile", "5", "9",
+                      "8", "--gradient_accumulation_steps", "1", "--max_train_steps", "2",
+                      "--output_dir", str(out_dir)])
+    launches = dict(_build.launches)
+    saved = _json.loads((out_dir / "config.json").read_text())
+    shutil.rmtree(out_dir, ignore_errors=True)
+    expected = {k: 2 * v for k, v in train_launches(_build.KERNELS, 30).items()}
+    if launches != expected:
+        raise RuntimeError(f"720p_half training launches {launches} != expected {expected}")
+    if tuple(saved["latent_shape"]) != GRID_720P_HALF or tuple(saved["sta_tile"]) != TILE_360:
+        raise RuntimeError(f"720p_half training: config.json {saved}")
+    if res.final_step != 2 or len(res.micro_s) != 2 or not all(
+            math.isfinite(m[k]) for m in res.metrics for k in ("loss", "grad_norm")):
+        raise RuntimeError(f"720p_half training: steps {res.final_step}, metrics {res.metrics}")
+    stats = dict(micro_s=res.micro_s[1], first_micro_s=res.micro_s[0],
+                 max_memory_gib=res.max_memory_bytes / 2**30)
+    log(f"training at the bench router's geometry: Wan-1.3B 30 blocks, {GRID_720P_HALF} = "
+        f"36,000 tokens, tile {TILE_360} (360 tokens), soft routing + teacher, remat: "
+        f"micro-steps {[round(x, 3) for x in res.micro_s]} s (the second {stats['micro_s']:.3f} "
+        f"s), peak memory {stats['max_memory_gib']:.2f} GiB on {card}; losses "
+        f"{[round(m['loss'], 6) for m in res.metrics]}; launches {launches} (exact)")
+    return launches, stats
+
+
+def run_wan_dispatch_paths(torch, card: str):
+    """One full-width Wan-1.3B 480p x 77f forward (30 blocks, random weights
+    and routers, routed hard at the CLI's geometry) under the masked dispatch
+    and under each of the JAX package's dispatch variables: launch counts
+    exact against the forward's routing, the output against the masked
+    dispatch's, ms per forward (after a warm-up forward under the same
+    variable)."""
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+
+    model = WanModel(WAN_1_3B, dtype=torch.bfloat16, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t_g, h_g, w_g = GRID_480P_77F
+    lat = torch.randn((1, t_g, 2 * h_g, 2 * w_g, 16), generator=g, device="cuda")
+    ctx = torch.randn((1, TEXT_LEN, 4096), generator=g, device="cuda")
+    t = torch.tensor([700.0], device="cuda")
+    attn = attention_config("wan-1_3B", GRID_480P_77F)
+    launches, ms, ref = {}, {}, None
+    for var, value, name in ((None, None, "masked"),) + DISPATCHES:
+        with dispatch_env(var, value):
+            model(lat, t, ctx, attn_cfg=attn, routing_mode="hard")  # warm-up
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.time()
+            res = model(lat, t, ctx, attn_cfg=attn, routing_mode="hard")
+            torch.cuda.synchronize()
+            ms[name] = (time.time() - t0) * 1e3
+        launches[name] = dict(_build.launches)
+        tables = np.asarray(res.expert_ids)[None]
+        expected = routed_wan_launches(tables, "sta_pipe", 1, name)
+        heads = np.bincount(tables.reshape(-1), minlength=3)
+        if launches[name] != expected or not (heads > 0).all():
+            raise RuntimeError(f"Wan dispatch {name}: launches {launches[name]} != {expected}, "
+                               f"heads per expert {heads}")
+        out = res.sample.float()
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"Wan dispatch {name}: non-finite output")
+        if ref is None:
+            ref = out
+        rel = ((out - ref).norm() / ref.norm()).item()
+        log(f"Wan-1.3B 480p x 77f forward, dispatch {name}: {ms[name]:.1f} ms on {card}; heads "
+            f"per expert full {heads[0]}, lowres {heads[1]}, sta {heads[2]}; rel L2 vs the "
+            f"masked dispatch {rel:.2e} (tolerance 1e-2); launches {launches[name]} (exact)")
+        if not rel < 1e-2:
+            raise RuntimeError(f"Wan dispatch {name}: output differs from the masked dispatch's")
+    del model
+    return launches, ms
+
+
+def run_bench_pool(torch, card: str):
+    """python -m vorta_tpu_torch.tools.bench_pool at every stage, both arms,
+    in this process (the launch counters see it): ms per iteration."""
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.tools.bench_pool import STAGES
+    from vorta_tpu_torch.tools.bench_pool import main as bench_main
+
+    times, launches = {}, dict.fromkeys(_build.KERNELS, 0)
+    for stage in STAGES:
+        _build.reset_launches()
+        times[stage] = bench_main(["--stage", stage])
+        for k, v in _build.launches.items():
+            launches[k] += v
+        log(f"bench_pool --stage {stage}: {times[stage]} ms per iteration on {card}; "
+            f"launches {dict((k, v) for k, v in _build.launches.items() if v)}")
+    return launches, times
 
 
 if __name__ == "__main__":

@@ -16,13 +16,17 @@ the STA fallbacks (sta_batched on joint layouts with pair bits and kv_bias,
 blocks 40 / 48 and 432 / 1008; sta_window and sta_row with and without the
 text tail, tile_w 8-aligned or not, more w tiles than a CUDA block takes;
 1 + 1-block Hunyuan and 2-block Wan forwards against the CPU where the
-gates pick them), pool/unpool with inactive heads, and that the options each wrapper leaves
+gates pick them), pool/unpool with inactive heads and in head-map mode
+(the routed heads against the plain version, head-map launches counted
+apart), the copy probe of tools/bench_pool.py, the routed dispatch under
+each of the JAX package's dispatch variables (batched, hybrid, switch)
+against the CPU with exact launch counts, and that the options each wrapper leaves
 to later slices raise; for HunyuanVideo, flash_manual's kv_bias (with and
 without kv_valid_len, the joint experts' blocks), sta_pipe's text tail
 (active and inactive heads, 24 and 256 text keys, 432-token tiles), the
 pool's K matching, a 1 + 1-block model off and routed and the tiny CLI;
 for training, the forward's lse, the dq and dk/dv kernels (1, 2 and 4
-warps, tails, empty q blocks), the autograd rules of
+warps, tails, empty q blocks, blocks of 8 x odd: 360 and 24), the autograd rules of
 the attention and the norm, the grad guards of the forward-only wrappers,
 a train step against the CPU and the trainer CLI; for quantized serving,
 flash_manual's and sta_pipe's int8 QK modes (D 64 / 128, bias, tail, text
@@ -426,8 +430,10 @@ def test_hunyuan_forward_sta_fallbacks_on_card_matches_cpu(card, kernel, latent,
         want = cpu(*args, **kw).sample
     assert (res.expert_ids == np.array([[0, 1, 2]] * 2)).all()
     text_rows = 2 if kernel == "sta_window" else 0  # flash_manual over the STA text rows
+    # the LOWRES head pools and unpools in head-map mode, as the JAX package's does
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "prologue": 2, "fused_norm": 6,
-                        "flash_manual": 4 + text_rows, kernel: 2, "pool_qkv": 2, "unpool": 2}
+                        "flash_manual": 4 + text_rows, kernel: 2, "pool_qkv_headmap": 2,
+                        "unpool_headmap": 2}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -500,14 +506,90 @@ def test_pool_unpool_kernels_match_plain(card, d, latent, window):
 
 
 def test_pool_unpool_kernels_reject_what_they_do_not_take(card):
+    """The head-map mode runs (it raised before it was ported): on the
+    routed heads the kernels equal their plain versions, bitwise where the
+    picks agree, and only the head-map counters count; unpool without
+    picks and non-bf16 inputs still raise."""
     groups = build_lowres_groups((4, 6, 16), (2, 3, 2), 0.5)
-    q = torch.zeros((1, 2, 384, 128), device=card, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        pool_qkv(q, q, q, groups, head_map=torch.zeros(2), num_active=1)
+    g = torch.Generator(device=card).manual_seed(14)
+    q, k, v = (_randn(g, (1, 4, 384, 128), torch.bfloat16) for _ in range(3))
+    for head_map, n in (([1, 3, 3, 3], 2), ([2, 2, 2, 2], 1), ([3, 0, 1, 2], 4)):
+        routed = sorted(head_map[:n])
+        kw = dict(head_map=torch.tensor(head_map, dtype=torch.int32), num_active=n)
+        _build.reset_launches()
+        got = pool_qkv(q, k, v, groups, kv_matching_from_k=n == 1, return_picks=True, **kw)
+        want = pool_qkv_ref(q, k, v, groups, kv_matching_from_k=n == 1, **kw)
+        torch.cuda.synchronize()
+        assert (pick_gaps(got[3][:, routed], want[3][:, routed], q[:, routed], groups)
+                < 1e-5).all()
+        same = (got[3][:, routed] == want[3][:, routed]).all().item()
+        for a, w in zip(got[:3], want[:3]):
+            assert torch.equal(a[:, routed], w[:, routed]) or not same
+        out_p = _randn(g, (1, 4, groups.pooled_length, 128), torch.bfloat16)
+        up = unpool(out_p, q, groups, picks=got[3], **kw)
+        assert torch.equal(up[:, routed],
+                           unpool_ref(out_p, q, groups, picks=got[3], **kw)[:, routed])
+        assert _build.launches == {**dict.fromkeys(_build.KERNELS, 0), "pool_qkv_headmap": 1,
+                                   "unpool_headmap": 1}
+    q = q[:, :2]
+    with pytest.raises(ValueError, match="distinct"):
+        pool_qkv(q, q, q, groups, head_map=torch.zeros(2), num_active=2)
     with pytest.raises(NotImplementedError, match="picks"):
         unpool(q[:, :, :groups.pooled_length], q, groups)
     with pytest.raises(NotImplementedError, match="bf16"):
         pool_qkv(q.float(), q.float(), q.float(), groups)
+
+
+DISPATCH_LAUNCHES = {  # heads (LOWRES, STA, LOWRES, FULL): launches per dispatch
+    None: dict(sta_pipe=1, flash_manual=2, pool_qkv=1, unpool=1),
+    ("VORTA_LOWRES_DISPATCH", "batched"): dict(sta_pipe=1, flash_manual=2, pool_qkv_headmap=1,
+                                               unpool_headmap=1),
+    ("VORTA_LOWRES_DISPATCH", "hybrid"): dict(sta_pipe=1, flash_manual=2, pool_qkv=2, unpool=2),
+    ("VORTA_ROUTED_DISPATCH", "switch"): dict(sta_pipe=1, flash_manual=3, pool_qkv=2,
+                                              unpool=2),
+}
+
+
+@pytest.mark.parametrize("env", list(DISPATCH_LAUNCHES))
+def test_routed_dispatch_variables_on_card_match_cpu(card, env, monkeypatch):
+    """fused_routed_attention under each dispatch variable on the card
+    (bf16, kernels) against the CPU (the plain versions, f32, from the same
+    bf16 values): rel L2 below 0.02, and against the card's masked dispatch
+    within the bf16 gate; launch counts exact."""
+    from vorta_tpu_torch.config import AttentionConfig
+    from vorta_tpu_torch.ops.experts import FULL, LOWRES, STA
+    from vorta_tpu_torch.ops.routed_fused import fused_routed_attention
+
+    cfg = AttentionConfig(latent_shape=(4, 6, 16), sta_tile=(2, 3, 8), sta_window=(3, 3, 3),
+                          lowres_window=(2, 3, 2), block_q=64, block_kv=64)
+    ids = torch.tensor([LOWRES, STA, LOWRES, FULL])
+    g = torch.Generator(device=card).manual_seed(16)
+    q, k, v = (_randn(g, (1, 4, cfg.seq_len, 128), torch.bfloat16) for _ in range(3))
+    masked = fused_routed_attention(q, k, v, ids.to(card), cfg, expert_ids_host=ids.numpy())
+    if env is not None:
+        monkeypatch.setenv(*env)
+    _build.reset_launches()
+    got = fused_routed_attention(q, k, v, ids.to(card), cfg, expert_ids_host=ids.numpy())
+    assert _build.launches == {**dict.fromkeys(_build.KERNELS, 0), **DISPATCH_LAUNCHES[env]}
+    want = fused_routed_attention(*(x.float().cpu() for x in (q, k, v)), ids, cfg)
+    assert torch.isfinite(got).all()
+    assert ((got.float().cpu() - want).norm() / want.norm()).item() < 0.02
+    _close(got, masked)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_copy_probe_kernel_matches_plain(card, d):
+    """tools/bench_pool.py's copy probe: pure selection, bitwise."""
+    from vorta_tpu_torch.tools.bench_pool import copy_probe, copy_probe_ref
+
+    groups = build_lowres_groups((4, 6, 16), (2, 3, 2), 0.5)
+    g = torch.Generator(device=card).manual_seed(15)
+    q, k, v = (_randn(g, (2, 3, 384, d), torch.bfloat16) for _ in range(3))
+    _build.reset_launches()
+    got = copy_probe(q, k, v, groups)
+    assert _build.launches["copy_probe"] == 1
+    for a, w in zip(got, copy_probe_ref(q, k, v, groups)):
+        assert torch.equal(a, w)
 
 
 # --- HunyuanVideo's joint features: kv_bias, the text tail, K's matching --------
@@ -633,7 +715,7 @@ def test_hunyuan_forward_on_card_matches_cpu(card, mode):
                 "fused_norm": 6}
     if mode == "hard":
         assert (res.expert_ids == np.array([[0, 1, 2]] * 2)).all()
-        expected.update(flash_manual=6, sta_pipe=2, pool_qkv=2, unpool=2)
+        expected.update(flash_manual=6, sta_pipe=2, pool_qkv_headmap=2, unpool_headmap=2)
     assert launches == expected
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
@@ -839,6 +921,8 @@ def _bwd_inputs(card, b, h, sq, skv, d, seed):
     ("shared", 64, 256, 250),     # q block 0 sees nothing: the 1e30 sentinel
     ("dense", 96, 384, None),     # STA's 96-token tiles: 2 warps per CUDA block
     ("dense", 16, 64, 50),
+    ("dense", 360, 1080, 1000),   # 720p's 360-token STA tiles: a ragged last CUDA block
+    ("shared", 24, 96, 90),       # 8 x 3: the 8-row tail warp opens a CUDA block
 ])
 def test_flash_lse_matches_plain(card, d, kind, block, seq, valid):
     """The forward kernel's lse (f32) against the plain version's: the same
@@ -867,6 +951,10 @@ def test_flash_lse_matches_plain(card, d, kind, block, seq, valid):
     ("dense", 256, 64, 512, 128, 100),         # cross-attention's shape class
     ("dense", 1024, 1024, 2048, 2048, 1500),   # FULL's blocks
     ("dense", 16, 16, 64, 64, 50),             # 1 warp
+    ("dense", 360, 360, 1080, 1080, 1000),     # 720p's 360-token STA tiles
+    ("shared", 360, 360, 1080, 1080, None),
+    ("shared", 24, 24, 96, 96, 90),            # 8 x 3: tail warps open CUDA blocks
+    ("dense", 24, 360, 96, 720, 700),          # mixed: q blocks 24, kv blocks 360
 ])
 def test_flash_backward_kernels_match_plain(card, d, kind, bq, bkv, sq, skv, valid):
     """dq and dk/dv kernels against flash_backward_ref on the same inputs,

@@ -289,7 +289,7 @@ def test_routed_attention_matches_jax(mode):
 
 
 def test_unserved_geometries_and_options_raise(monkeypatch):
-    (_, (q, k, v)) = _routed_inputs(10)
+    ((qn, kn, vn), (q, k, v)) = _routed_inputs(10)
     ids = torch.tensor([FULL, STA, LOWRES, STA])
     # 12-token tiles: the JAX package's sta_batched tables refuse them (ValueError)
     bad = {**ROUTED, "sta_tile": (3, 2, 2)}
@@ -302,6 +302,12 @@ def test_unserved_geometries_and_options_raise(monkeypatch):
     out = fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED))
     torch.testing.assert_close(out8[:, ids == STA], out[:, ids == STA], rtol=0, atol=0)
     assert (out8[:, ids != STA] - out[:, ids != STA]).abs().mean() < 0.05 * out.abs().mean()
+    # the per-head switch dispatch is served: equal to the JAX package's under
+    # the same variable (this geometry takes its fused branch: sta_pipe), and
+    # to the masked dispatch
     monkeypatch.setenv("VORTA_ROUTED_DISPATCH", "switch")
-    with pytest.raises(NotImplementedError, match="masked dispatch"):
-        fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED))
+    got = fused_routed_attention(q, k, v, ids, AttentionConfig(**ROUTED))
+    _close(got, jrouted.fused_routed_attention(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
+                                               jnp.asarray(ids.numpy(), jnp.int32),
+                                               JaxAttentionConfig(**ROUTED), interpret=True))
+    _close(got, out.numpy())

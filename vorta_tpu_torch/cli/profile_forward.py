@@ -12,7 +12,8 @@ timestep embedding, so ``--router`` also loads that model's time embedder
 (``port_assets/``, io/from_jax.load_jax_params).  ``--train`` profiles one
 router-training micro-step instead (training/step.py: soft routing with the
 teacher interleaved, per-block recompute, the backward to the routers),
-at the trainer's geometry, after one warm-up micro-step.  ``--model
+at the trainer's geometry (``--sta_tile`` overrides its tile), after one
+warm-up micro-step.  ``--model
 hunyuan-13B`` profiles HunyuanVideo-13B (60 blocks, random weights and
 routers, random text states with 83 of 256 tokens valid, embedded guidance
 6.0) at the CLI's attention geometry, routing off or hard.  The sample
@@ -26,6 +27,8 @@ wan-14B`` too).
       --routing hard --sta_tile 5 9 8 --t 500 \
       --router assets/bench_router_wan1_3b_720p_half.npz
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --train
+  python -m vorta_tpu_torch.cli.profile_forward --num_frames 37 --height 720 --width 1280 \
+      --train --sta_tile 5 9 8   # the bench router's training geometry
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
       --height 720 --width 1280 --routing hard
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
@@ -144,6 +147,8 @@ def main(argv=None) -> dict:
             load_jax_params(model, TIME_EMBEDDER)
     if args.train:
         attn = attention_config("wan-1_3B", grid)
+        if args.sta_tile:
+            attn = dataclasses.replace(attn, sta_tile=tuple(args.sta_tile))
         run = _train_micro_step(model, attn, lat, ctx, t)
     else:
         def run():

@@ -3,7 +3,8 @@
 //
 // Replaces vorta_tpu/ops/coreset_pallas.py:_pool_kernel (reached through
 // pool_qkv) and :_unpool_kernel (reached through unpool), in their
-// "active" mode with picks.  Same function: per non-overlapping
+// "active" and "head-map" modes with picks, and the copy probe of
+// tools/bench_pool.py (main.copy_probe).  Same function: per non-overlapping
 // (wt, wh, ww) window ("group") of the raster grid, rank the margin slots
 // by (c.m) * rsqrt(max(|m|^2, 1e-24)) in f32 from Q (c the center slot),
 // the center excluded by a +inf sentinel, then U arg-min passes with ties to
@@ -14,8 +15,19 @@
 // [G centers | G*U kept margins, group-major, least similar first]; picks:
 // (B, H, G, U) int32 slot ids, the TPU's (B, H, T2, H3, W2, U).  Unpool
 // writes each slot its kept value if picked, else its group center.
-// Inactive heads write zeros.  Values are moved, never computed: pooled
-// and unpooled rows equal their sources bit for bit.
+// Inactive heads write zeros.  Head-map mode (head_map + num_active, the
+// TPU kernels' "headmap"): the grid's head dimension covers num_active
+// positions, position i pooling / unpooling head head_map[i]; the rows of
+// every other head are not written (the caller allocates with torch.empty
+// and masks downstream), so data movement and matching scale with the routed
+// heads.  Values are moved, never computed: pooled and unpooled rows equal
+// their sources bit for bit.
+//
+// The copy probe (tools/bench_pool.py's copy_probe, the pool's data-movement
+// floor): the same cells (one warp per group) with no matching: it writes
+// slot 0 of each group as the "center" and slots 0..U-1 as the "margins", for
+// q, k and v, into the pooled layout.  It reads (1 + U) rows and writes
+// (1 + U) rows per group and tensor, against the pool's full Q read.
 //
 // Bound on this card: bytes.  At Wan-1.3B 480p x 77f (31,200 tokens,
 // d = 128, window (2, 3, 2): 2,600 groups of 12, U = 5) pool reads all of
@@ -93,14 +105,15 @@ __global__ void __launch_bounds__(WARPS * 32)
 pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ pq,
             __nv_bfloat16* __restrict__ pk, __nv_bfloat16* __restrict__ pv,
-            int* __restrict__ picks, const int* __restrict__ active, int kv_from_k, int H, int T,
-            int HH, int W, int wt, int wh, int ww, int U) {
+            int* __restrict__ picks, const int* __restrict__ active,
+            const int* __restrict__ head_map, int kv_from_k, int H, int T, int HH, int W, int wt,
+            int wh, int ww, int U) {
   constexpr int EPL = D / 32;
   const int lane = threadIdx.x % 32;
   const int gs = wt * wh * ww, G = (T / wt) * (HH / wh) * (W / ww);
   const int g = blockIdx.x * WARPS + threadIdx.x / 32;
   if (g >= G) return;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = head_map != nullptr ? head_map[blockIdx.y] : blockIdx.y, b = blockIdx.z;
   const size_t bh = static_cast<size_t>(b) * H + h;
   const size_t in0 = bh * T * HH * W, out0 = bh * G * (1 + U);
   const int cs = (wt / 2) * wh * ww + (wh / 2) * ww + ww / 2;
@@ -110,7 +123,7 @@ pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   };
   auto dst_row = [&](int i) { return (out0 + (i < 0 ? g : G + g * U + i)) * D; };
 
-  if (active[h] == 0) {
+  if (active != nullptr && active[h] == 0) {
     for (int i = -1; i < U; ++i) {
       zero_row<D>(pq + dst_row(i), lane);
       zero_row<D>(pk + dst_row(i), lane);
@@ -166,17 +179,18 @@ pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 unpool_kernel(const __nv_bfloat16* __restrict__ pooled, const int* __restrict__ picks,
-              const int* __restrict__ active, __nv_bfloat16* __restrict__ out, int H, int T,
-              int HH, int W, int wt, int wh, int ww, int U) {
+              const int* __restrict__ active, const int* __restrict__ head_map,
+              __nv_bfloat16* __restrict__ out, int H, int T, int HH, int W, int wt, int wh,
+              int ww, int U) {
   const int lane = threadIdx.x % 32;
   const int gs = wt * wh * ww, G = (T / wt) * (HH / wh) * (W / ww);
   const int g = blockIdx.x * WARPS + threadIdx.x / 32;
   if (g >= G) return;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = head_map != nullptr ? head_map[blockIdx.y] : blockIdx.y, b = blockIdx.z;
   const size_t bh = static_cast<size_t>(b) * H + h;
   const size_t out0 = bh * T * HH * W, in0 = bh * G * (1 + U);
   const Group grp(g, HH, W, wh, ww);
-  const bool on = active[h] != 0;
+  const bool on = active == nullptr || active[h] != 0;
   const int my_pick = (on && lane < U) ? picks[(bh * G + g) * U + lane] : -1;
   for (int s = 0; s < gs; ++s) {
     __nv_bfloat16* dst = out + (out0 + grp.token(s, wt, wh, ww, HH, W)) * D;
@@ -191,27 +205,58 @@ unpool_kernel(const __nv_bfloat16* __restrict__ pooled, const int* __restrict__ 
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32)
+copy_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ pq,
+                  __nv_bfloat16* __restrict__ pk, __nv_bfloat16* __restrict__ pv, int H, int T,
+                  int HH, int W, int wt, int wh, int ww, int U) {
+  const int lane = threadIdx.x % 32;
+  const int G = (T / wt) * (HH / wh) * (W / ww);
+  const int g = blockIdx.x * WARPS + threadIdx.x / 32;
+  if (g >= G) return;
+  const size_t bh = static_cast<size_t>(blockIdx.z) * H + blockIdx.y;
+  const size_t in0 = bh * T * HH * W, out0 = bh * G * (1 + U);
+  const Group grp(g, HH, W, wh, ww);
+  const __nv_bfloat16* src[3] = {q, k, v};
+  __nv_bfloat16* dst[3] = {pq, pk, pv};
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    const __nv_bfloat16* s0 = src[x] + (in0 + grp.token(0, wt, wh, ww, HH, W)) * D;
+    copy_row<D>(dst[x] + (out0 + g) * D, s0, lane);
+    for (int i = 0; i < U; ++i)
+      copy_row<D>(dst[x] + (out0 + G + static_cast<size_t>(g) * U + i) * D,
+                  src[x] + (in0 + grp.token(i, wt, wh, ww, HH, W)) * D, lane);
+  }
+}
+
 bool bad_shape(int T, int HH, int W, int D, int wt, int wh, int ww, int U) {
   return T % wt || HH % wh || W % ww || (D != 64 && D != 128) || wt * wh * ww > 32 || U < 0 ||
          U >= wt * wh * ww;
 }
 
-dim3 grid_of(int B, int H, int T, int HH, int W, int wt, int wh, int ww) {
+// one warp per group; the head dimension covers `heads` positions
+dim3 grid_of(int B, int heads, int T, int HH, int W, int wt, int wh, int ww) {
   const int G = (T / wt) * (HH / wh) * (W / ww);
-  return dim3((G + WARPS - 1) / WARPS, H, B);
+  return dim3((G + WARPS - 1) / WARPS, heads, B);
 }
 
 }  // namespace
 
 // q, k, v: contiguous raster (B, H, T*HH*W, D) bf16; pq, pk, pv: (B, H,
-// G*(1+U), D) bf16; picks: (B, H, G, U) int32 (Q's); active: (H,) int32;
-// kv_from_k: 1 to pool K and V by K's own matching.
+// G*(1+U), D) bf16; picks: (B, H, G, U) int32 (Q's); kv_from_k: 1 to pool K
+// and V by K's own matching.  Either active: (H,) int32 (head_map null,
+// num_active ignored), or head_map: (>= num_active,) int32 distinct head ids
+// (active null), only heads head_map[:num_active] written.
 extern "C" int vorta_coreset_pool_bf16(const void* q, const void* k, const void* v, void* pq,
                                        void* pk, void* pv, void* picks, const void* active,
-                                       int kv_from_k, int B, int H, int T, int HH, int W, int D,
-                                       int wt, int wh, int ww, int U, void* stream) {
-  if (bad_shape(T, HH, W, D, wt, wh, ww, U)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = grid_of(B, H, T, HH, W, wt, wh, ww);
+                                       const void* head_map, int num_active, int kv_from_k,
+                                       int B, int H, int T, int HH, int W, int D, int wt, int wh,
+                                       int ww, int U, void* stream) {
+  if (bad_shape(T, HH, W, D, wt, wh, ww, U) || (active == nullptr) == (head_map == nullptr) ||
+      (head_map != nullptr && (num_active < 1 || num_active > H)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = grid_of(B, head_map != nullptr ? num_active : H, T, HH, W, wt, wh, ww);
   auto st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   auto* qq = static_cast<const bf*>(q);
@@ -222,32 +267,64 @@ extern "C" int vorta_coreset_pool_bf16(const void* q, const void* k, const void*
   auto* ov = static_cast<bf*>(pv);
   auto* pi = static_cast<int*>(picks);
   auto* act = static_cast<const int*>(active);
+  auto* hm = static_cast<const int*>(head_map);
   if (D == 128)
-    pool_kernel<128><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, kv_from_k, H,
-                                                  T, HH, W, wt, wh, ww, U);
+    pool_kernel<128><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, hm,
+                                                  kv_from_k, H, T, HH, W, wt, wh, ww, U);
   else
-    pool_kernel<64><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, kv_from_k, H,
-                                                 T, HH, W, wt, wh, ww, U);
+    pool_kernel<64><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, hm, kv_from_k,
+                                                 H, T, HH, W, wt, wh, ww, U);
   return static_cast<int>(cudaGetLastError());
 }
 
 // pooled: contiguous (B, H, G*(1+U), D) bf16; picks: (B, H, G, U) int32;
-// active: (H,) int32; out: raster (B, H, T*HH*W, D) bf16.
+// out: raster (B, H, T*HH*W, D) bf16; active / head_map + num_active as for
+// the pool.
 extern "C" int vorta_coreset_unpool_bf16(const void* pooled, const void* picks,
-                                         const void* active, void* out, int B, int H, int T,
-                                         int HH, int W, int D, int wt, int wh, int ww, int U,
-                                         void* stream) {
-  if (bad_shape(T, HH, W, D, wt, wh, ww, U)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = grid_of(B, H, T, HH, W, wt, wh, ww);
+                                         const void* active, const void* head_map, void* out,
+                                         int num_active, int B, int H, int T, int HH, int W,
+                                         int D, int wt, int wh, int ww, int U, void* stream) {
+  if (bad_shape(T, HH, W, D, wt, wh, ww, U) || (active == nullptr) == (head_map == nullptr) ||
+      (head_map != nullptr && (num_active < 1 || num_active > H)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = grid_of(B, head_map != nullptr ? num_active : H, T, HH, W, wt, wh, ww);
   auto st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   auto* pp = static_cast<const bf*>(pooled);
   auto* pi = static_cast<const int*>(picks);
   auto* act = static_cast<const int*>(active);
+  auto* hm = static_cast<const int*>(head_map);
   auto* oo = static_cast<bf*>(out);
   if (D == 128)
-    unpool_kernel<128><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, oo, H, T, HH, W, wt, wh, ww, U);
+    unpool_kernel<128><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt, wh,
+                                                    ww, U);
   else
-    unpool_kernel<64><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, oo, H, T, HH, W, wt, wh, ww, U);
+    unpool_kernel<64><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt, wh, ww,
+                                                   U);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The copy probe: q, k, v raster (B, H, T*HH*W, D) bf16 -> pq, pk, pv (B, H,
+// G*(1+U), D) bf16, slot 0 as each group's center, slots 0..U-1 as its
+// margins.
+extern "C" int vorta_copy_probe_bf16(const void* q, const void* k, const void* v, void* pq,
+                                     void* pk, void* pv, int B, int H, int T, int HH, int W,
+                                     int D, int wt, int wh, int ww, int U, void* stream) {
+  if (bad_shape(T, HH, W, D, wt, wh, ww, U)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = grid_of(B, H, T, HH, W, wt, wh, ww);
+  auto st = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  auto* qq = static_cast<const bf*>(q);
+  auto* kk = static_cast<const bf*>(k);
+  auto* vv = static_cast<const bf*>(v);
+  auto* oq = static_cast<bf*>(pq);
+  auto* ok = static_cast<bf*>(pk);
+  auto* ov = static_cast<bf*>(pv);
+  if (D == 128)
+    copy_probe_kernel<128><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, H, T, HH, W, wt,
+                                                        wh, ww, U);
+  else
+    copy_probe_kernel<64><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, H, T, HH, W, wt,
+                                                       wh, ww, U);
   return static_cast<int>(cudaGetLastError());
 }

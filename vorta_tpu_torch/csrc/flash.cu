@@ -23,8 +23,13 @@
 // caller's units (block_q, block_kv): a CUDA block of 64 q rows lies in one
 // table q block and walks its kv list in 64-row sub-tiles (32 rows and 2
 // warps where block_q is a multiple of 32 but not 64, e.g. the 96-token STA
-// tiles; else 16 rows and 1 warp).  Simple first: no wgmma, TMA or cp.async
-// pipelining yet.
+// tiles; 16 rows and 1 warp for another multiple of 16).  A block_q that is
+// a multiple of 8 but not of 16 (the 360-token STA tiles of 720p training)
+// takes ceil(block_q / rows) CUDA blocks per table q block: the last one's
+// last busy warp holds 8 rows, any warp past the block's end none.  Rows
+// past the table block are read as zeros and never stored, so they neither
+// see the next q block's kv list nor overwrite its rows.  Simple first: no
+// wgmma, TMA or cp.async pipelining yet.
 #include "mma_bf16.cuh"
 
 namespace {
@@ -55,24 +60,23 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int row0 = blockIdx.x * BLOCK_M;
-  const int qi = row0 / block_q;
+  // this warp's first row inside table q block qi, and which of its two
+  // 8-row halves (rows g and g + 8) lie inside that block
+  const int cblocks = (block_q + BLOCK_M - 1) / BLOCK_M;
+  const int qi = blockIdx.x / cblocks;
+  const int local = (blockIdx.x % cblocks) * BLOCK_M + warp * 16;
+  const bool row_ok[2] = {local < block_q, local + 16 <= block_q};
+  const int row0 = qi * block_q + local;
   const int th = shared_tab ? 0 : h;
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const __nv_bfloat16* qp = q + (bh * Sq + row0 + warp * 16) * D;
+  const __nv_bfloat16* qp = q + (bh * Sq + row0) * D;
   const __nv_bfloat16* kp = k + bh * Skv * D;
   const __nv_bfloat16* vp = v + bh * Skv * D;
 
-  // Q fragments, held in registers for the whole sweep
+  // Q fragments, held in registers for the whole sweep (zeros past the block)
   uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(qp + g * D + c);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(qp + (g + 8) * D + c);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(qp + g * D + c + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(qp + (g + 8) * D + c + 8);
-  }
+  load_q_frags<D>(qa, row_ok[0] ? qp + g * D : nullptr, row_ok[1] ? qp + (g + 8) * D : nullptr,
+                  t);
 
   float oacc[NT_O][4];
 #pragma unroll
@@ -190,17 +194,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int hr = 0; hr < 2; ++hr) {
     const float x = quad_sum(l_part[hr]);
     l[hr] = (x == 0.f) ? 1.f : x;
-    if (lse != nullptr && t == 0)
-      lse[bh * Sq + row0 + warp * 16 + g + 8 * hr] =
-          (x == 0.f) ? 1e30f : m_run[hr] + log2f(x);
+    if (lse != nullptr && t == 0 && row_ok[hr])
+      lse[bh * Sq + row0 + g + 8 * hr] = (x == 0.f) ? 1e30f : m_run[hr] + log2f(x);
   }
-  __nv_bfloat16* op = out + (bh * Sq + row0 + warp * 16) * D;
+  __nv_bfloat16* op = out + (bh * Sq + row0) * D;
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) {
     const int c = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(op + g * D + c) = pack_bf16(oacc[n][0] / l[0], oacc[n][1] / l[0]);
-    *reinterpret_cast<uint32_t*>(op + (g + 8) * D + c) =
-        pack_bf16(oacc[n][2] / l[1], oacc[n][3] / l[1]);
+    if (row_ok[0])
+      *reinterpret_cast<uint32_t*>(op + g * D + c) =
+          pack_bf16(oacc[n][0] / l[0], oacc[n][1] / l[0]);
+    if (row_ok[1])
+      *reinterpret_cast<uint32_t*>(op + (g + 8) * D + c) =
+          pack_bf16(oacc[n][2] / l[1], oacc[n][3] / l[1]);
   }
 }
 
@@ -235,7 +241,7 @@ extern "C" int vorta_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                     int H, int Sq, int Skv, int D, int h_tab, int nq, int width,
                                     int block_q, int block_kv, int kv_valid_len,
                                     float scale_log2, void* stream) {
-  if (Sq % block_q || Skv % block_kv || block_q % 16 || (D != 64 && D != 128) ||
+  if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128) ||
       (h_tab != 1 && h_tab != H) || nq != Sq / block_q)
     return static_cast<int>(cudaErrorInvalidValue);
   const int warps = warps_for(block_q);
@@ -243,7 +249,7 @@ extern "C" int vorta_flash_fwd_bf16(const void* q, const void* k, const void* v,
   const int has_tail = kv_valid_len % block_kv != 0;
   const int last_block = has_tail ? kv_valid_len / block_kv : -1;
   const int valid_in_block = kv_valid_len % block_kv;
-  dim3 grid(Sq / (16 * warps), H, B);
+  dim3 grid(nq * ((block_q + 16 * warps - 1) / (16 * warps)), H, B);
   auto* qq = static_cast<const __nv_bfloat16*>(q);
   auto* kk = static_cast<const __nv_bfloat16*>(k);
   auto* vv = static_cast<const __nv_bfloat16*>(v);

@@ -29,8 +29,13 @@
 //       and the result does not depend on the order blocks run in.  This is
 //       the CUDA form of the TPU kernel's sequential "arbitrary" grid axis.
 // Blocks of 32 rows (2 warps) serve tables whose blocks 64 does not divide
-// (the 96-token STA tiles); 16 rows (1 warp) any multiple of 16.  Simple
-// first: no wgmma, TMA or cp.async pipelining yet.
+// (the 96-token STA tiles); 16 rows (1 warp) any other multiple of 16.  A
+// block that is a multiple of 8 but not of 16 (the 360-token STA tiles of
+// 720p training) takes ceil(block / rows) CUDA blocks per table block, as in
+// the forward: rows past the table block (the 8-row half of its last busy
+// warp, and any warp past its end) are staged as zeros, masked out of every
+// product, and never stored.  Simple first: no wgmma, TMA or cp.async
+// pipelining yet.
 #include "mma_bf16.cuh"
 
 namespace {
@@ -72,18 +77,25 @@ flash_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int row0 = blockIdx.x * BLOCK_M;
-  const int qi = row0 / block_q;
+  // this warp's first row inside table q block qi; rows g / g + 8 past the
+  // block's end are read as zeros and not stored
+  const int cblocks = (block_q + BLOCK_M - 1) / BLOCK_M;
+  const int qi = blockIdx.x / cblocks;
+  const int local = (blockIdx.x % cblocks) * BLOCK_M + warp * 16;
+  const bool row_ok[2] = {local < block_q, local + 16 <= block_q};
   const size_t bh = static_cast<size_t>(b) * H + h;
-  const size_t r_g = bh * Sq + row0 + warp * 16 + g;  // this thread's rows r_g, r_g + 8
+  const size_t r_g = bh * Sq + qi * block_q + local + g;  // this thread's rows r_g, r_g + 8
   const __nv_bfloat16* kp = k + bh * Skv * D;
   const __nv_bfloat16* vp = v + bh * Skv * D;
 
   uint32_t qa[D / 16][4], da[D / 16][4];
-  load_q_frags<D>(qa, q + r_g * D, q + (r_g + 8) * D, t);
-  load_q_frags<D>(da, dout + r_g * D, dout + (r_g + 8) * D, t);
-  const float lse_r[2] = {lse[r_g], lse[r_g + 8]};
-  const float dl_r[2] = {delta[r_g], delta[r_g + 8]};
+  load_q_frags<D>(qa, row_ok[0] ? q + r_g * D : nullptr,
+                  row_ok[1] ? q + (r_g + 8) * D : nullptr, t);
+  load_q_frags<D>(da, row_ok[0] ? dout + r_g * D : nullptr,
+                  row_ok[1] ? dout + (r_g + 8) * D : nullptr, t);
+  // a row past the block: the sentinel makes every p 0
+  const float lse_r[2] = {row_ok[0] ? lse[r_g] : 1e30f, row_ok[1] ? lse[r_g + 8] : 1e30f};
+  const float dl_r[2] = {row_ok[0] ? delta[r_g] : 0.f, row_ok[1] ? delta[r_g + 8] : 0.f};
 
   float acc[NT_O][4];
 #pragma unroll
@@ -124,10 +136,12 @@ flash_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) {
     const int c = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dq + r_g * D + c) =
-        pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
-    *reinterpret_cast<uint32_t*>(dq + (r_g + 8) * D + c) =
-        pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+    if (row_ok[0])
+      *reinterpret_cast<uint32_t*>(dq + r_g * D + c) =
+          pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
+    if (row_ok[1])
+      *reinterpret_cast<uint32_t*>(dq + (r_g + 8) * D + c) =
+          pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
   }
 }
 
@@ -160,8 +174,14 @@ flash_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int row0 = blockIdx.x * ROWS;
-  const int kvb = row0 / block_kv;
+  // this CUDA block's first row inside table kv block kvb, and its rows
+  // there (fewer than ROWS in the last CUDA block of a block that ROWS does
+  // not divide: the rest are staged as zeros, masked and not stored)
+  const int cblocks = (block_kv + ROWS - 1) / ROWS;
+  const int kvb = blockIdx.x / cblocks;
+  const int local0 = (blockIdx.x % cblocks) * ROWS;
+  const int n_rows = min(ROWS, block_kv - local0);
+  const int row0 = kvb * block_kv + local0;
   const size_t bh = static_cast<size_t>(b) * H + h;
   const __nv_bfloat16* qp = q + bh * Sq * D;
   const __nv_bfloat16* dop = dout + bh * Sq * D;
@@ -169,13 +189,15 @@ flash_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const float* dlp = delta + bh * Sq;
 
   // this thread's kv rows (g, g + 8 of its warp) inside the kv block, and
-  // whether the tail rule leaves them visible
+  // whether the tail rule leaves them visible (limit_blk <= block_kv, so
+  // rows past the block are never visible)
   const int limit_blk = (kvb == last_block) ? valid_in_block : block_kv;
-  const int in_blk = row0 - kvb * block_kv + warp * 16 + g;
+  const int in_blk = local0 + warp * 16 + g;
   const bool row_ok[2] = {in_blk < limit_blk, in_blk + 8 < limit_blk};
+  const bool row_in[2] = {in_blk < block_kv, in_blk + 8 < block_kv};
 
-  stage_rows<D, LDS, WARPS * 32>(Ks, k + (bh * Skv + row0) * D, ROWS, ROWS);
-  stage_rows<D, LDS, WARPS * 32>(Vs, v + (bh * Skv + row0) * D, ROWS, ROWS);
+  stage_rows<D, LDS, WARPS * 32>(Ks, k + (bh * Skv + row0) * D, n_rows, ROWS);
+  stage_rows<D, LDS, WARPS * 32>(Vs, v + (bh * Skv + row0) * D, n_rows, ROWS);
 
   float dk_acc[NT_O][4], dv_acc[NT_O][4];
 #pragma unroll
@@ -224,12 +246,17 @@ flash_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) {
     const int c = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(dk + r_g * D + c) =
-        pack_bf16(dk_acc[n][0] * scale, dk_acc[n][1] * scale);
-    *reinterpret_cast<uint32_t*>(dk + (r_g + 8) * D + c) =
-        pack_bf16(dk_acc[n][2] * scale, dk_acc[n][3] * scale);
-    *reinterpret_cast<uint32_t*>(dv + r_g * D + c) = pack_bf16(dv_acc[n][0], dv_acc[n][1]);
-    *reinterpret_cast<uint32_t*>(dv + (r_g + 8) * D + c) = pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+    if (row_in[0]) {
+      *reinterpret_cast<uint32_t*>(dk + r_g * D + c) =
+          pack_bf16(dk_acc[n][0] * scale, dk_acc[n][1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + r_g * D + c) = pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+    }
+    if (row_in[1]) {
+      *reinterpret_cast<uint32_t*>(dk + (r_g + 8) * D + c) =
+          pack_bf16(dk_acc[n][2] * scale, dk_acc[n][3] * scale);
+      *reinterpret_cast<uint32_t*>(dv + (r_g + 8) * D + c) =
+          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+    }
   }
 }
 
@@ -244,7 +271,8 @@ struct Args {
 template <int D, int WARPS>
 cudaError_t launch_dq(const Args& a, __nv_bfloat16* dq, const int* kv_index, const int* kv_count,
                       int width) {
-  dim3 grid(a.Sq / (16 * WARPS), a.H, a.B);
+  const int nq = a.Sq / a.block_q;
+  dim3 grid(nq * ((a.block_q + 16 * WARPS - 1) / (16 * WARPS)), a.H, a.B);
   flash_dq_kernel<D, WARPS><<<grid, WARPS * 32, 0, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, dq, kv_index, kv_count, a.H, a.Sq, a.Skv, width,
       a.block_q, a.block_kv, a.last_block, a.valid_in_block, a.scale_log2, a.scale);
@@ -258,7 +286,8 @@ cudaError_t launch_dkv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv, cons
   cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<D, WARPS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.Skv / (16 * WARPS), a.H, a.B);
+  const int nkv = a.Skv / a.block_kv;
+  dim3 grid(nkv * ((a.block_kv + 16 * WARPS - 1) / (16 * WARPS)), a.H, a.B);
   flash_dkv_kernel<D, WARPS><<<grid, WARPS * 32, smem, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, dk, dv, q_index, q_count, a.H, a.Sq, a.Skv, width_t,
       a.block_q, a.block_kv, a.last_block, a.valid_in_block, a.scale_log2, a.scale);
@@ -287,7 +316,7 @@ cudaError_t dispatch_dkv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv, co
 bool make_args(Args& a, const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, int B, int H, int Sq, int Skv, int D,
                int block_q, int block_kv, int kv_valid_len, float scale, void* stream) {
-  if (Sq % block_q || Skv % block_kv || block_q % 16 || block_kv % 16 || (D != 64 && D != 128))
+  if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128))
     return false;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);

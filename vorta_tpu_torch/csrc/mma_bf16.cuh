@@ -133,8 +133,12 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Rows of a CUDA block for a table block of `rows` rows: 64 (4 warps) where
-// they tile it, else 32 (2 warps), else 16 (1 warp).
+// they tile it, else 32 (2 warps), else 16 (1 warp).  A multiple of 8 that
+// 16 does not divide leaves a ragged CUDA block per table block, whose rows
+// past the table block the kernels mask: 64 rows for blocks above 64
+// (the 360-token STA tiles: 6 CUDA blocks, the last with 40 rows), else 16.
 __host__ __forceinline__ int warps_for(int rows) {
+  if (rows % 16) return rows > 64 ? 4 : 1;
   return rows % 64 == 0 ? 4 : (rows % 32 == 0 ? 2 : 1);
 }
 

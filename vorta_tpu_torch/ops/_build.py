@@ -8,13 +8,16 @@ headers, so a build takes seconds.  All sources build at first use, one
 edited kernel is rebuilt.  Nothing builds when a module is imported.
 
 ``launches`` counts kernel launches per kernel (``coreset_pool.cu`` holds
-two, ``pool_qkv`` and ``unpool``; ``flash_bwd.cu`` two, ``flash_dq`` and
+three, ``pool_qkv``, ``unpool`` and ``copy_probe``, the copy probe of
+``tools/bench_pool.py``; ``flash_bwd.cu`` two, ``flash_dq`` and
 ``flash_dkv``); each wrapper adds one where it launches its kernel, and
 nowhere else.  ``flash_lse`` counts the flash launches that also write the
 row log-sum-exp (a subset of ``flash``), ``flash_manual_int8`` and
 ``sta_pipe_int8`` the launches in the int8 QK mode (subsets of
-``flash_manual`` and ``sta_pipe``).  Headers (``*.cuh``) are part of
-the hash.
+``flash_manual`` and ``sta_pipe``).  ``pool_qkv_headmap`` and
+``unpool_headmap`` count the pool's head-map launches, apart from its
+plain / active ones (``pool_qkv``, ``unpool``).  Headers (``*.cuh``) are
+part of the hash.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ SOURCES = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "cores
            "flash_bwd", "sta_batched", "sta_window", "sta_row")
 KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_qkv", "unpool",
            "flash_lse", "flash_dq", "flash_dkv", "flash_manual_int8", "sta_pipe_int8",
-           "sta_batched", "sta_window", "sta_row")
+           "sta_batched", "sta_window", "sta_row", "pool_qkv_headmap", "unpool_headmap",
+           "copy_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

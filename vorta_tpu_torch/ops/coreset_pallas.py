@@ -10,20 +10,31 @@ first] and, with ``return_picks``, the picked slot ids as (B, H, T2, H3,
 W2, U) int32, the TPU kernel's layout.  ``unpool`` scatters a pooled
 attention output back through those picks, dropped slots taking their
 group center.  The selection semantics are those of ops/coreset.py.
-``active`` (H,) masks heads: inactive heads write zeros.
+
+Three modes, as the TPU kernels' (``_mode_plan``): "plain" (every head),
+"active" (``active`` (H,) masks heads: inactive heads write zeros) and
+"headmap" (``head_map`` + ``num_active``: only heads
+``head_map[:num_active]`` are pooled / unpooled, each once; the rows of
+every other head come back uninitialized and the caller masks them, as
+ops/routed_fused.py's ``lowres_all_batched`` and ops/joint_experts.py's
+``joint_lowres_attention`` do).  ``head_map_for`` packs an (H,) routing
+mask into the JAX package's head map: the routed heads first, the
+last one repeated.  In head-map mode the CUDA launch covers only the
+``num_active`` routed heads (the port routes on the host, so the count
+sizes the grid); the plain versions fill the other heads' rows with NaN
+(picks with -1), so that a caller that forgets the mask shows it.
 
 On CUDA tensors both launch ``csrc/coreset_pool.cu`` (bf16, D 64 or 128,
 at most 32 slots per group; ``unpool`` there needs ``picks``); on CPU
-tensors they run the plain versions built from ops/coreset.py.  The TPU
-kernels' head-map mode was measured slower on the TPU and is not ported.
-Forward only, as in the JAX package: on CUDA both raise where grad mode is
-on and an input requires grad.
+tensors they run the plain versions built from ops/coreset.py.  Forward
+only, as in the JAX package: on CUDA both raise where grad mode is on and
+an input requires grad.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,10 +70,59 @@ def _masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _mode_plan(active, head_map, num_active) -> str:
+    """"plain", "active" or "headmap", with the JAX package's ValueErrors."""
+    if head_map is not None:
+        if num_active is None:
+            raise ValueError("head_map requires num_active")
+        if active is not None:
+            raise ValueError("head_map and active are mutually exclusive")
+        return "headmap"
+    return "active" if active is not None else "plain"
+
+
+def head_map_for(active, num_active: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+    """(H,) routing mask -> (head_map (H,) int32 on the mask's device,
+    num_active): the routed heads first in head order, the last repeated as
+    padding, and max(routed, 1), as the JAX package's callers build them.
+    ``num_active``: the routed count where the caller has it on the host
+    (else it is read from the mask: a device sync for a CUDA mask)."""
+    act = torch.as_tensor(active).reshape(-1).bool()
+    n = max(int(act.sum()) if num_active is None else int(num_active), 1)
+    order = torch.sort((~act).to(torch.int32), stable=True).indices
+    pos = torch.clamp(torch.arange(act.numel(), device=act.device), max=n - 1)
+    return order[pos].to(torch.int32), n
+
+
+def _mapped_heads(head_map, num_active, h: int) -> torch.Tensor:
+    """The (num_active,) distinct head ids a head-map call pools, checked."""
+    n = int(num_active)
+    heads = torch.as_tensor(head_map).reshape(-1)[:n].long().cpu()
+    if not 1 <= n <= h or heads.numel() != n or len(set(heads.tolist())) != n \
+            or not ((heads >= 0) & (heads < h)).all():
+        raise ValueError(f"head_map {torch.as_tensor(head_map).tolist()} with num_active {n} "
+                         f"for {h} heads: needs {n} distinct head ids")
+    return heads
+
+
+def _scatter_heads(x: torch.Tensor, heads: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, n, ...) rows of ``heads`` into a (B, H, ...) tensor whose other
+    heads hold NaN (-1 for int picks): the head-map mode's uninitialized rows."""
+    fill = -1 if not x.is_floating_point() else float("nan")
+    out = torch.full((x.shape[0], h) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=x.device)
+    out[:, heads.to(x.device)] = x
+    return out
+
+
 def pool_qkv_ref(q, k, v, groups: LowresGroups, *, kv_matching_from_k: bool = False,
-                 active=None):
+                 active=None, head_map=None, num_active=None):
     """Plain PyTorch version: (pq, pk, pv, picks)."""
     b, h = q.shape[:2]
+    if _mode_plan(active, head_map, num_active) == "headmap":
+        heads = _mapped_heads(head_map, num_active, h).to(q.device)
+        out = pool_qkv_ref(q[:, heads], k[:, heads], v[:, heads], groups,
+                           kv_matching_from_k=kv_matching_from_k)
+        return tuple(_scatter_heads(x, heads, h) for x in out)
     cs = geometry_of(groups).center_slot
     u = groups.num_kept_margins
     qg, kg, vg = group_view(q, groups), group_view(k, groups), group_view(v, groups)
@@ -75,10 +135,16 @@ def pool_qkv_ref(q, k, v, groups: LowresGroups, *, kv_matching_from_k: bool = Fa
     return tuple(_masked(x, mask) for x in pooled) + (_masked(picks, mask),)
 
 
-def unpool_ref(pooled_out, q, groups: LowresGroups, *, active=None, picks=None):
+def unpool_ref(pooled_out, q, groups: LowresGroups, *, active=None, head_map=None,
+               num_active=None, picks=None):
     """Plain PyTorch version: with ``picks`` the pool pass's matching, else
     Q's matching derived again."""
     b, h, _, d = pooled_out.shape
+    if _mode_plan(active, head_map, num_active) == "headmap":
+        heads = _mapped_heads(head_map, num_active, h).to(pooled_out.device)
+        out = unpool_ref(pooled_out[:, heads], q[:, heads], groups,
+                         picks=None if picks is None else picks[:, heads])
+        return _scatter_heads(out, heads, h)
     geom = geometry_of(groups)
     if picks is None:
         slots = match_slots(group_view(q, groups), groups.num_kept_margins, geom.center_slot)
@@ -111,8 +177,9 @@ def _fn(name: str, n_int: int, n_ptr: int):
     return fn
 
 
-def _cuda_args(x: torch.Tensor, groups: LowresGroups, active):
-    """Checks shared by both kernels; returns (device, active int32, ints)."""
+def _cuda_args(x: torch.Tensor, groups: LowresGroups, active, head_map, num_active):
+    """Checks shared by both kernels; returns (device, active int32 or None,
+    head map int32 or None, num_active, ints)."""
     dev = _build.require_cuda(x)
     b, h, s, d = x.shape
     geom = geometry_of(groups)
@@ -121,13 +188,21 @@ def _cuda_args(x: torch.Tensor, groups: LowresGroups, active):
     if d not in (64, 128) or groups.group_size > 32:
         raise NotImplementedError(f"the CUDA pool/unpool kernels take D 64/128 and at most "
                                   f"32 slots per group, got D={d}, {groups.group_size}")
+    ints = (b, h, *geom.latent_shape, d, *geom.window, groups.num_kept_margins)
+    if _mode_plan(active, head_map, num_active) == "headmap":
+        n = int(num_active)
+        if not (torch.is_tensor(head_map) and head_map.is_cuda):  # checked where it costs no sync
+            _mapped_heads(head_map, n, h)
+        hm = torch.as_tensor(head_map, device=dev).reshape(-1).to(torch.int32).contiguous()
+        if hm.numel() < n or not 1 <= n <= h:
+            raise ValueError(f"head_map of {hm.numel()} with num_active {n} for {h} heads")
+        return dev, None, hm, n, ints
     if active is None:
         active = torch.ones(h, dtype=torch.int32, device=dev)
     active = torch.as_tensor(active, device=dev).to(torch.int32).contiguous()
     if active.shape != (h,):
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
-    ints = (b, h, *geom.latent_shape, d, *geom.window, groups.num_kept_margins)
-    return dev, active, ints
+    return dev, active, None, 0, ints
 
 
 def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGroups, *,
@@ -135,20 +210,19 @@ def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGr
              return_picks: bool = False):
     """Pool (B, H, S, D) q/k/v to (B, H, P, D); with ``return_picks`` also the
     picks (B, H, T2, H3, W2, U) int32 for ``unpool`` (Q's, whichever
-    matching pools K and V)."""
-    if head_map is not None or num_active is not None:
-        raise NotImplementedError("the head-map mode is not ported (slower on the TPU)")
+    matching pools K and V).  ``head_map`` (H,) int32 (tensor or numpy) and
+    ``num_active`` (an int on CUDA): head-map mode, see the module doc."""
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.shape[2] != groups.full_length:
         raise ValueError(f"seq len {q.shape[2]} != groups.full_length {groups.full_length}")
     if q.device.type == "cpu":
         out = pool_qkv_ref(q, k, v, groups, kv_matching_from_k=kv_matching_from_k,
-                           active=active)
+                           active=active, head_map=head_map, num_active=num_active)
         return out if return_picks else out[:3]
 
     _build.forward_only("pool_qkv", q, k, v)
-    dev, active, ints = _cuda_args(q, groups, active)
+    dev, active, hm, n, ints = _cuda_args(q, groups, active, head_map, num_active)
     if k.dtype != q.dtype or v.dtype != q.dtype or _build.require_cuda(q, k, v) != dev:
         raise ValueError("q, k and v must share one dtype and device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -156,39 +230,40 @@ def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGr
     pooled = [torch.empty((b, h, groups.pooled_length, d), dtype=q.dtype, device=dev)
               for _ in range(3)]
     picks = torch.empty(_picks_shape(groups, b, h), dtype=torch.int32, device=dev)
-    err = _fn("vorta_coreset_pool_bf16", 1 + len(ints), 8)(
+    err = _fn("vorta_coreset_pool_bf16", 2 + len(ints), 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *(p.data_ptr() for p in pooled),
-        picks.data_ptr(), active.data_ptr(), int(kv_matching_from_k), *ints,
-        _build.stream_ptr(dev))
+        picks.data_ptr(), _build.ptr(active), _build.ptr(hm), n, int(kv_matching_from_k),
+        *ints, _build.stream_ptr(dev))
     _build.check(err, "pool_qkv")
-    _build.launches["pool_qkv"] += 1
+    _build.launches["pool_qkv" if hm is None else "pool_qkv_headmap"] += 1
     return tuple(pooled) + ((picks,) if return_picks else ())
 
 
 def unpool(pooled_out: torch.Tensor, q: torch.Tensor, groups: LowresGroups, *, active=None,
            head_map=None, num_active=None, picks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Scatter a pooled (B, H, P, D) attention output back to (B, H, S, D)."""
-    if head_map is not None or num_active is not None:
-        raise NotImplementedError("the head-map mode is not ported (slower on the TPU)")
+    """Scatter a pooled (B, H, P, D) attention output back to (B, H, S, D);
+    ``head_map`` / ``num_active`` as for ``pool_qkv`` (picks from a head-map
+    pool feed a head-map unpool)."""
     b, h, p, d = pooled_out.shape
     if p != groups.pooled_length or q.shape[:2] != (b, h) or q.shape[2] != groups.full_length:
         raise ValueError(f"pooled {tuple(pooled_out.shape)}, q {tuple(q.shape)} for "
                          f"{groups.pooled_length} pooled of {groups.full_length} tokens")
     if pooled_out.device.type == "cpu":
-        return unpool_ref(pooled_out, q, groups, active=active, picks=picks)
+        return unpool_ref(pooled_out, q, groups, active=active, head_map=head_map,
+                          num_active=num_active, picks=picks)
 
     _build.forward_only("unpool", pooled_out)
     if picks is None:
         raise NotImplementedError("the CUDA unpool kernel takes the pool pass's picks")
-    dev, active, ints = _cuda_args(pooled_out, groups, active)
+    dev, active, hm, n, ints = _cuda_args(pooled_out, groups, active, head_map, num_active)
     if tuple(picks.shape) != _picks_shape(groups, b, h) or picks.dtype != torch.int32:
         raise ValueError(f"picks {tuple(picks.shape)} {picks.dtype}")
     _build.require_cuda(pooled_out, picks)
     pooled_out, picks = pooled_out.contiguous(), picks.contiguous()
     out = torch.empty((b, h, groups.full_length, d), dtype=pooled_out.dtype, device=dev)
-    err = _fn("vorta_coreset_unpool_bf16", len(ints), 4)(
-        pooled_out.data_ptr(), picks.data_ptr(), active.data_ptr(), out.data_ptr(),
-        *ints, _build.stream_ptr(dev))
+    err = _fn("vorta_coreset_unpool_bf16", 1 + len(ints), 5)(
+        pooled_out.data_ptr(), picks.data_ptr(), _build.ptr(active), _build.ptr(hm),
+        out.data_ptr(), n, *ints, _build.stream_ptr(dev))
     _build.check(err, "unpool")
-    _build.launches["unpool"] += 1
+    _build.launches["unpool" if hm is None else "unpool_headmap"] += 1
     return out

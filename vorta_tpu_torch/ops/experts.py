@@ -16,7 +16,8 @@ the scores with the ``tau_sparse`` fallback to FULL and evaluates every
 expert (the oracle), and "hard" dispatches each expert once over the heads
 routed to it through ops/routed_fused.py, the serving path (forward only).
 On the card "soft" and "hard_ref" raise where the flash kernel's block
-limits refuse the STA tables (blocks not a multiple of 16 tokens).
+limits refuse the STA tables (blocks not a multiple of 8 tokens, which the
+TPU refuses too).
 """
 
 from __future__ import annotations

@@ -189,7 +189,8 @@ def sparse_flash_attention_raw(
 
     q: (B, H, Sq, D); k/v: (B, H, Skv, D).  kv_index: (H_tab, Sq//block_q, W)
     and kv_count: (H_tab, Sq//block_q), int32 tensors (or numpy) with H_tab
-    1 or H.  On CUDA: bf16 q/k/v, D 64 or 128, block_q a multiple of 16.
+    1 or H.  On CUDA: bf16 q/k/v, D 64 or 128, block_q and block_kv
+    multiples of 8 (the TPU kernel's rule).
     ``kv_valid`` (per-head valid lengths) and ``pair_bits`` raise
     NotImplementedError: no JAX call site passes them to this kernel.
     """
@@ -219,9 +220,9 @@ def sparse_flash_attention_raw(
     dev = _build.require_cuda(q, k, v)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(f"the CUDA flash kernel takes bf16, got {q.dtype}")
-    if d not in (64, 128) or block_q % 16:
-        raise NotImplementedError(f"the CUDA flash kernel takes D 64/128 and block_q % 16 == 0, "
-                                  f"got D={d}, block_q={block_q}")
+    if d not in (64, 128) or block_q % 8 or block_kv % 8:
+        raise NotImplementedError(f"the CUDA flash kernel takes D 64/128 and blocks that are "
+                                  f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
     kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

@@ -18,7 +18,7 @@ Masked logits are -1e30 under the forward's tail rule, so padded kv rows
 get zero dk and dv; an empty row's lse sentinel 1e30 gives p = 0.
 
 On CUDA tensors ``flash_backward`` launches the two kernels of
-``csrc/flash_bwd.cu`` (bf16, D 64 or 128, blocks multiples of 16); on CPU
+``csrc/flash_bwd.cu`` (bf16, D 64 or 128, blocks multiples of 8); on CPU
 tensors it runs ``flash_backward_ref``, which repeats their arithmetic.
 """
 
@@ -141,9 +141,9 @@ def flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_coun
     dev = _build.require_cuda(q, k, v, out, lse2, dout)
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, out, dout)):
         raise NotImplementedError(f"the CUDA flash backward takes bf16, got {q.dtype}")
-    if d not in (64, 128) or block_q % 16 or block_kv % 16:
-        raise NotImplementedError(f"the CUDA flash backward takes D 64/128 and blocks % 16 == 0, "
-                                  f"got D={d}, blocks ({block_q}, {block_kv})")
+    if d not in (64, 128) or block_q % 8 or block_kv % 8:
+        raise NotImplementedError(f"the CUDA flash backward takes D 64/128 and blocks that are "
+                                  f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
     q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
     lse2 = lse2.float().contiguous()
     delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)

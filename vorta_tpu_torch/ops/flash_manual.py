@@ -138,7 +138,9 @@ def sparse_flash_attention_manual_ref(
         if v.dtype != torch.float32:
             p = p.to(v.dtype).float()
         o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
-        out[:, :, rows] = (o / torch.where(l == 0.0, 1.0, l)).to(v.dtype)
+        # a row that sees no key is 0, whatever v holds (the kernel reads no v
+        # for it: the uninitialized rows of a head-map pool stay out)
+        out[:, :, rows] = torch.where(l == 0.0, 0.0, o / torch.where(l == 0.0, 1.0, l)).to(v.dtype)
     return out
 
 

@@ -16,7 +16,12 @@ alignment padding between the segments.
 
 Kernels: full and low-res go through ``flash_manual`` with ``kv_bias``
 (per-head counts, zero for a head routed away), low-res pools with
-``pool_qkv(kv_matching_from_k=True)`` and scatters back with ``unpool``.
+``pool_qkv(kv_matching_from_k=True)`` and scatters back with ``unpool``;
+given ``active``, as the JAX package's ``joint_lowres_attention`` does, in
+head-map mode over the routed heads alone (``head_map_for``), the other
+heads' uninitialized pooled rows kept out by their zero counts (their
+per-head int8 scales stay their own) and their unpooled rows masked at the
+end.
 Sliding-tile runs the kernel the JAX package runs (``joint_sta_kernel``,
 its gates): where tiles hold at least 192 tokens and the text length is a
 multiple of 8, its window-dense branch, the video rows through
@@ -51,7 +56,7 @@ from ..config import AttentionConfig
 from ..geometry import cdiv, sta_tile_mask
 from .attention_ref import attention_chunked
 from .coreset import pool_by_similarity, unpool_by_similarity
-from .coreset_pallas import pool_qkv, unpool
+from .coreset_pallas import head_map_for, pool_qkv, unpool
 from .experts import FULL, LOWRES, STA, _dense_tables_cached, lowres_groups_for
 from .flash_manual import sparse_flash_attention_manual
 from .layout import tile_sequence, untile_sequence
@@ -182,22 +187,32 @@ def joint_full_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig,
 
 
 def joint_lowres_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig,
-                           active=None, scale: Optional[float] = None):
+                           active=None, scale: Optional[float] = None,
+                           num_active: Optional[int] = None):
     """Pooled video (Q by Q's matching, K / V by K's own) + verbatim text;
-    the video output unpooled through Q's picks."""
+    the video output unpooled through Q's picks.  ``active`` (H,) bool:
+    head-map pooling over the routed heads; ``num_active``, their count on
+    the host, spares the device read that sizes the launch."""
     groups = lowres_groups_for(jcfg.video)
     layout = joint_layouts(jcfg)["lowres"]
     act = _active(active, qv.shape[1], qv.device)
-    act_i = act.to(torch.int32)
-    pq, pk, pv, picks = pool_qkv(qv, kv_, vv, groups, kv_matching_from_k=True, active=act_i,
-                                 return_picks=True)
+    hm_kw = {}
+    if active is not None:
+        head_map, n = head_map_for(act, num_active)
+        hm_kw = dict(head_map=head_map, num_active=n)
+    pq, pk, pv, picks = pool_qkv(qv, kv_, vv, groups, kv_matching_from_k=True,
+                                 return_picks=True, **hm_kw)
     q, k, v = (_assemble(a, b, layout.text_off, layout.total)
                for a, b in ((pq, qt), (pk, kt), (pv, vt)))
     del pq, pk, pv
     out = _flash(q, k, v, layout, act, _bias(text_mask, layout, groups.pooled_length), scale,
                  qk_int8=jcfg.video.qk_int8)
     pooled_out, text_out = _split(out, layout, groups.pooled_length, jcfg.text_len)
-    return unpool(pooled_out, qv, groups, active=act_i, picks=picks), text_out
+    video_out = unpool(pooled_out, qv, groups, picks=picks, **hm_kw)
+    if active is not None:  # the head-map unpool leaves the other heads' rows uninitialized
+        video_out = torch.where(act[None, :, None, None], video_out,
+                                torch.zeros((), dtype=video_out.dtype, device=video_out.device))
+    return video_out, text_out
 
 
 def joint_sta_kernel(jcfg: JointConfig, d: int, itemsize: int) -> str:
@@ -356,13 +371,16 @@ def routed_joint_attention(qv, kv_, vv, qt, kt, vt, scores: Optional[torch.Tenso
             expert_ids = (ids, ids.cpu().numpy())
         ids, ids_host = expert_ids
         ids = ids.to(qv.device)
-        routed = set(int(e) for e in np.asarray(ids_host).reshape(-1))
+        ids_host = np.asarray(ids_host).reshape(-1)
+        routed = set(int(e) for e in ids_host)
         video = text = None
         for e, fn in ((STA, joint_sta_attention), (FULL, joint_full_attention),
                       (LOWRES, joint_lowres_attention)):
             if e in routed:
+                # LOWRES sizes its head-map launch from the host's count
+                kw = dict(num_active=int((ids_host == e).sum())) if e == LOWRES else {}
                 ve, te = fn(qv, kv_, vv, qt, kt, vt, text_mask, jcfg, active=ids == e,
-                            scale=scale)
+                            scale=scale, **kw)
                 video = ve if video is None else video.add_(ve)
                 text = te if text is None else text + te
         if video is None:

@@ -1,5 +1,5 @@
 """Per-head routed sparse attention, the serving path (counterpart of
-vorta_tpu/ops/routed_fused.py, its masked dispatch).
+vorta_tpu/ops/routed_fused.py).
 
 Routing is a participation mask: each expert runs as ONE kernel launch over
 all heads in its natural layout, and only the heads routed to it do work.
@@ -16,8 +16,28 @@ The STA heads run the kernel the JAX package runs for the geometry, by
 its own gates (``routed_sta_kernel``): one of its window-dense kernels,
 sta_pipe, sta_row or sta_window (``sta_dispatch``), or, for tiles it
 gives none of them, the tiled pair-bits kernel sta_batched over
-``RoutedGeometry.sta``'s tables.  The JAX package's per-head switch
-dispatch (VORTA_ROUTED_DISPATCH) raises NotImplementedError.
+``RoutedGeometry.sta``'s tables.
+
+The JAX package's alternative dispatches, selected by the same environment
+variables, read at each call as it reads them (outputs equal to the masked
+dispatch's, launches differ):
+
+  * ``VORTA_LOWRES_DISPATCH=batched`` (``lowres_all_batched``, both
+    branches): one pool in head-map mode over the LOWRES heads (``head_map``
+    the routed heads first, the last repeated; ``num_active`` their count),
+    one flash_manual over all heads, one head-map unpool, the other heads'
+    uninitialized rows masked at the end;
+  * ``VORTA_LOWRES_DISPATCH=hybrid`` (``lowres_all_hybrid``, where a
+    window-dense STA kernel serves the STA heads, JAX's "fused" branch): a
+    pool of each LOWRES head alone into a zero pooled buffer, one
+    flash_manual over all heads, an unpool of each LOWRES head alone;
+  * ``VORTA_ROUTED_DISPATCH`` other than ``masked`` (the fused branch only,
+    as in JAX): the per-head switch, each head running its own expert on a
+    one-head slice.  The routing is on the host, so the port loops over
+    the heads with no device ``cond``.
+
+Neither variable set: the masked dispatch above, the LOWRES pool in
+``active`` mode (JAX runs its per-head pool there; the outputs agree).
 
 ``cfg.qk_int8`` (quantized serving): FULL and LOWRES quantize q and k per
 head (``quantize_per_head``, dynamic symmetric int8) before padding, LOWRES
@@ -35,7 +55,7 @@ import torch
 
 from ..config import AttentionConfig
 from ..geometry import cdiv, sta_tile_mask
-from .coreset_pallas import pool_qkv, unpool
+from .coreset_pallas import head_map_for, pool_qkv, unpool
 from .experts import FULL, LOWRES, STA, _pad_seq, lowres_groups_for
 from .flash import BlockTables
 from .flash_manual import sparse_flash_attention_manual
@@ -193,6 +213,75 @@ def _masked_call(call: ExpertCall, q, k, v, active: torch.Tensor, scale,
         kv_valid_len=call.valid_len, softmax="fast", qk_scale=qk_scale)
 
 
+def _lowres_head(geo: RoutedGeometry, q, k, v, cfg: AttentionConfig, scale) -> torch.Tensor:
+    """The LOWRES expert on a one-head slice (the JAX package's
+    ``lowres_head``): pool, one flash_manual, unpool through the picks."""
+    groups = lowres_groups_for(cfg)
+    pq, pk, pv, picks = pool_qkv(q, k, v, groups, return_picks=True)
+    one = torch.ones(1, dtype=torch.bool, device=q.device)
+    out_p = _masked_call(geo.lowres, pq, pk, pv, one, scale,
+                         cfg.qk_int8)[:, :, :groups.pooled_length]
+    return unpool(out_p, q, groups, picks=picks)
+
+
+def lowres_all_batched(geo: RoutedGeometry, q, k, v, expert_id, ids_host,
+                       cfg: AttentionConfig, scale) -> torch.Tensor:
+    """VORTA_LOWRES_DISPATCH=batched: one head-map pool over the LOWRES
+    heads, one masked flash_manual over all heads, one head-map unpool; the
+    other heads' uninitialized rows masked at the end."""
+    groups = lowres_groups_for(cfg)
+    lh = expert_id == LOWRES
+    head_map, n = head_map_for(lh, int((ids_host == LOWRES).sum()))
+    pq, pk, pv, picks = pool_qkv(q, k, v, groups, head_map=head_map, num_active=n,
+                                 return_picks=True)
+    out_p = _masked_call(geo.lowres, pq, pk, pv, lh, scale,
+                         cfg.qk_int8)[:, :, :groups.pooled_length]
+    up = unpool(out_p, q, groups, head_map=head_map, num_active=n, picks=picks)
+    return torch.where(lh[None, :, None, None], up, torch.zeros((), dtype=up.dtype,
+                                                                 device=up.device))
+
+
+def lowres_all_hybrid(geo: RoutedGeometry, q, k, v, expert_id, ids_host,
+                      cfg: AttentionConfig, scale) -> torch.Tensor:
+    """VORTA_LOWRES_DISPATCH=hybrid: each LOWRES head pooled alone into a
+    zero pooled buffer, one masked flash_manual over all heads, each LOWRES
+    head unpooled alone; the other heads' outputs zero."""
+    groups = lowres_groups_for(cfg)
+    b, h, _, d = q.shape
+    p = groups.pooled_length
+    pooled = [torch.zeros((b, h, p, d), dtype=q.dtype, device=q.device) for _ in range(3)]
+    picks = {}
+    for i in np.flatnonzero(ids_host == LOWRES):
+        sl = slice(int(i), int(i) + 1)
+        *xs, picks[int(i)] = pool_qkv(q[:, sl], k[:, sl], v[:, sl], groups, return_picks=True)
+        for buf, x in zip(pooled, xs):
+            buf[:, sl] = x
+    out_p = _masked_call(geo.lowres, *pooled, expert_id == LOWRES, scale, cfg.qk_int8)[:, :, :p]
+    out = torch.zeros_like(q)
+    for i, head_picks in picks.items():
+        out[:, i:i + 1] = unpool(out_p[:, i:i + 1], q[:, i:i + 1], groups, picks=head_picks)
+    return out
+
+
+def _switch_dispatch(geo: RoutedGeometry, q, k, v, ids_host, sta_kernel: str,
+                     cfg: AttentionConfig, scale) -> torch.Tensor:
+    """VORTA_ROUTED_DISPATCH != masked: each head through its own expert on
+    a one-head slice, the outputs concatenated (the JAX package's per-head
+    ``lax.switch``, a host loop here)."""
+    one = torch.ones(1, dtype=torch.bool, device=q.device)
+    outs = []
+    for i, e in enumerate(ids_host):
+        qh, kh, vh = (x[:, i:i + 1] for x in (q, k, v))
+        if e == FULL:
+            outs.append(_masked_call(geo.full, qh, kh, vh, one, scale,
+                                     cfg.qk_int8)[:, :, :cfg.seq_len])
+        elif e == LOWRES:
+            outs.append(_lowres_head(geo, qh, kh, vh, cfg, scale))
+        else:
+            outs.append(sta_dispatch(sta_kernel, qh, kh, vh, one.to(torch.int32), cfg, scale))
+    return torch.cat(outs, dim=1)
+
+
 def fused_routed_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -203,17 +292,21 @@ def fused_routed_attention(
     expert_ids_host: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """Hard-routed attention (B, H, S, D), each expert launched once over
-    the heads routed to it.  ``expert_ids_host``: the same ids on the host,
-    else read back from ``expert_id`` (a device sync)."""
+    the heads routed to it (or as the dispatch variables say, see the module
+    doc).  ``expert_ids_host``: the same ids on the host, else read back
+    from ``expert_id`` (a device sync)."""
     geo = routed_geometry(cfg)
-    if os.environ.get("VORTA_ROUTED_DISPATCH", "masked") != "masked":
-        raise NotImplementedError("only the masked dispatch is ported; the per-head switch "
-                                  "dispatch (VORTA_ROUTED_DISPATCH) is not")
     if expert_ids_host is None:
         expert_ids_host = expert_id.cpu().numpy()
-    routed = set(int(e) for e in np.asarray(expert_ids_host).reshape(-1))
+    ids_host = np.asarray(expert_ids_host).reshape(-1)
+    routed = set(int(e) for e in ids_host)
     expert_id = expert_id.to(q.device)
     s = cfg.seq_len
+    kernel = routed_sta_kernel(cfg, q.shape[-1], q.element_size())
+    fused = kernel != "sta_batched"  # the JAX package's fused branch
+    if fused and os.environ.get("VORTA_ROUTED_DISPATCH", "masked") != "masked":
+        return _switch_dispatch(geo, q, k, v, ids_host, kernel, cfg, scale)
+    lowres_mode = os.environ.get("VORTA_LOWRES_DISPATCH", "")
     out = None
 
     def add(x):
@@ -222,17 +315,21 @@ def fused_routed_attention(
 
     if STA in routed:
         active = (expert_id == STA).to(torch.int32)
-        kernel = routed_sta_kernel(cfg, q.shape[-1], q.element_size())
         add(_sta_batched(geo.sta, q, k, v, active, cfg, scale) if kernel == "sta_batched"
             else sta_dispatch(kernel, q, k, v, active, cfg, scale))
     if FULL in routed:
         add(_masked_call(geo.full, q, k, v, expert_id == FULL, scale, cfg.qk_int8)[:, :, :s])
     if LOWRES in routed:
-        groups = lowres_groups_for(cfg)
-        active = expert_id == LOWRES
-        pq, pk, pv, picks = pool_qkv(q, k, v, groups, active=active.to(torch.int32),
-                                     return_picks=True)
-        out_p = _masked_call(geo.lowres, pq, pk, pv, active, scale,
-                             cfg.qk_int8)[:, :, :groups.pooled_length]
-        add(unpool(out_p, q, groups, active=active.to(torch.int32), picks=picks))
+        if lowres_mode == "batched":
+            add(lowres_all_batched(geo, q, k, v, expert_id, ids_host, cfg, scale))
+        elif lowres_mode == "hybrid" and fused:
+            add(lowres_all_hybrid(geo, q, k, v, expert_id, ids_host, cfg, scale))
+        else:
+            groups = lowres_groups_for(cfg)
+            active = expert_id == LOWRES
+            pq, pk, pv, picks = pool_qkv(q, k, v, groups, active=active.to(torch.int32),
+                                         return_picks=True)
+            out_p = _masked_call(geo.lowres, pq, pk, pv, active, scale,
+                                 cfg.qk_int8)[:, :, :groups.pooled_length]
+            add(unpool(out_p, q, groups, active=active.to(torch.int32), picks=picks))
     return torch.zeros_like(q) if out is None else out
