@@ -37,6 +37,20 @@ Phases, each raising on failure:
      720p tile (5, 9, 8) and HunyuanVideo 45f tile (6, 9, 8) with the text
      tail; each against its plain version with its bracket, times against
      SDPA with the boolean / float mask and the bound of the visible pairs.
+  2o. the kernels and modes of PR 8, each against its plain version and
+     timed beside the call it would replace: fused_residual_norm at Wan
+     (1,31200,1536) gate + AdaLN and HunyuanVideo (1,43456,3072) gate +
+     affine + beta (x_new bitwise, y within the tolerance, beside the
+     residual line then the fused_norm kernel) and its backward at
+     (1,256,1536) (all seven gradients, relative L2 <= 1e-2); the five
+     sta_diag variants at the tool's default (1,12,72000,128), tile
+     (5,9,8) (dma_only all zeros, no_dma timed only), beside sta_pipe's
+     fast call and SDPA with the STA mask; sta_pipe's stable softmax and
+     dots / qk / sT variants at the same call (and stable with
+     HunyuanVideo's 256-key text tail at (1,24,43200,128)); flash_manual's
+     stable softmax at Wan FULL (1,12,31744,128) and the HunyuanVideo FULL
+     joint layout with kv_bias; sta_batched's stable softmax on the
+     (2, 9, 8) joint layout.
   3. model checks: a 2-block Wan-1.3B-width forward on the card (bf16,
      kernels) against the same weights on the CPU (f32, plain versions),
      routing off, then routed hard with the heads sent to all three experts,
@@ -60,6 +74,9 @@ Phases, each raising on failure:
      against the masked dispatch's.
   5b. tools/bench_pool.py's five stages (both, pool, copy, headmap5,
      headmap12) at Wan 720p, the plain and the kernel arms, ms per stage.
+  5t. python -m vorta_tpu_torch.tools.sta_diag with its five variants at
+     Wan 720p, in this process: ms per call, launches exact (warm-up and
+     timed calls, 8 per variant).
   5s. static scales: calibrate_mm on the card over one 480p x 77f routed
      W8A8 forward, then the forward with those static scales (amax / 127),
      its distance from the dynamic one and both times.
@@ -131,7 +148,9 @@ Then a line of the W8A8, static-scale and Wan-14B numbers, a {"kernels":
 no main path runs, under its row's "modes"; pool_qkv's and unpool's
 head-map mode under theirs, with the HunyuanVideo routed path's launches;
 copy_probe a row whose launches are the pool benchmark tool's; sta_row, which no geometry of
-the port's paths reaches, with "on_main_path": false), the card line, and
+the port's paths reaches, fused_residual_norm, which no model calls, and sta_diag, whose
+launches are the sta_diag tool's, with "on_main_path": false; the stable softmax and
+sta_pipe's variants under their kernels' "modes"), the card line, and
 the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
 CUDA or without the package beside this file.
@@ -231,6 +250,7 @@ def main() -> int:
         headmap = phase("headmap_kernels", check_headmap_kernels, torch, card)
         int8 = phase("int8_kernels", check_int8_kernels, torch, card)
         fallback = phase("fallback_kernels", check_fallback_kernels, torch, card)
+        opt = phase("options_kernels", check_options_kernels, torch, card)
         phase("model_checks", lambda: (check_model(torch), check_routed_model(torch),
                                        check_routed_model(torch, int8=True),
                                        check_routed_model(torch, grid=(4, 18, 80),
@@ -241,6 +261,7 @@ def main() -> int:
         launches_hard, per_step_hard = phase("main_routed", run_routed_main_path, torch, card)
         launches_disp, disp_ms = phase("wan_dispatch", run_wan_dispatch_paths, torch, card)
         launches_bench, bench_ms = phase("bench_pool", run_bench_pool, torch, card)
+        launches_diag, diag_ms = phase("sta_diag", run_sta_diag_path, torch, card)
         launches_int8, per_step_int8 = phase("main_routed_int8", run_routed_main_path, torch,
                                              card, True)
         static = phase("static_scales", run_static_scales, torch, card)
@@ -256,11 +277,15 @@ def main() -> int:
                                            card)
         hy_ref = phase("hunyuan_117f", run_hunyuan_reference_shape, torch, card)
         q14 = phase("wan14b_int4", run_quantized_blocks, torch, card)
-    kernels += int8_kernel_rows(int8) + fallback_kernel_rows(fallback)
+    kernels += (int8_kernel_rows(int8) + fallback_kernel_rows(fallback)
+                + options_kernel_rows(opt, diag_ms))
     for k in kernels:
         if k["name"] == "sta_pipe":
             k["modes"] = {"int8_qk": {"replaces": "vorta_tpu/ops/sta_pipe.py:197",
-                                      "on_main_path": False, **int8["sta_pipe_int8"]}}
+                                      "on_main_path": False, **int8["sta_pipe_int8"]},
+                          **{m: mode_row(opt["sta_pipe"][m]) for m in opt["sta_pipe"]}}
+        elif k["name"] in ("flash_manual", "sta_batched"):
+            k["modes"] = {"stable": mode_row(opt[k["name"]])}
     kernels += phase("training_kernels", check_training_kernels, torch, card)
     phase("train_grads", lambda: (check_train_grads(torch),
                                   check_train_grads(torch, grid=(10, 18, 16), tile=TILE_360)))
@@ -277,7 +302,7 @@ def main() -> int:
                 **{p: hy_launches[p][name] for p in hy_launches},
                 "hard_720p_77f_4910": launches_4910[name],
                 "hunyuan_45f_298": launches_298[name],
-                "bench_pool": launches_bench[name]}
+                "bench_pool": launches_bench[name], "sta_diag": launches_diag[name]}
 
     for k in kernels:
         name = k.pop("_counter")
@@ -288,9 +313,14 @@ def main() -> int:
         # pool benchmark tool for its copy probe
         k["launches"] = next((paths[p] for p in ("hard_480p_77f", "hard_480p_77f_int8",
                                                  "train_480p_77f", "hard_720p_77f_4910",
-                                                 "hunyuan_45f_298", "bench_pool")
+                                                 "hunyuan_45f_298", "bench_pool", "sta_diag")
                               if paths[p]), 0)
         k["launches_by_path"] = paths
+        for mode, row in k.get("modes", {}).items():  # the softmax modes: no path runs them
+            counter = f"{name}_{mode}"
+            if counter in _build.launches:
+                row["launches_by_path"] = by_path(counter)
+                row["launches"] = sum(row["launches_by_path"].values())
         if name in ("pool_qkv", "unpool"):  # the head-map mode: HunyuanVideo's routed path
             hm_paths = by_path(f"{name}_headmap")
             if not hm_paths["hunyuan"]:
@@ -305,8 +335,13 @@ def main() -> int:
             k["shapes"] = {**k.get("shapes", {}), **hy_kernels[name]}
             k["max_abs_err"] = max([k["max_abs_err"]] + [x["max_abs_err"]
                                                          for x in hy_kernels[name].values()])
-        if name == "sta_row":  # the JAX package's gates give no path of the port's sta_row
+        if name in ("sta_row", "fused_residual_norm", "sta_diag"):
+            # sta_row: the JAX package's gates give no path of the port's sta_row;
+            # fused_residual_norm: no model calls it, as in the JAX package;
+            # sta_diag: a tool's kernel, launched on the sta_diag tool path
             k["on_main_path"] = False
+            if name == "sta_diag" and not paths["sta_diag"]:
+                raise RuntimeError("sta_diag: launched on no run of the sta_diag tool")
         elif not any(paths.values()):
             raise RuntimeError(f"{name}: launched on no main path")
     print(json.dumps({"w8a8": int8["w8a8"], "static_scales": static, "wan14b_int4": q14}))
@@ -328,6 +363,7 @@ def main() -> int:
           f"the bench router's geometry (10, 45, 80) tile (5, 9, 8) {train_720h['micro_s']:.3f} "
           f"s per micro-step, peak {train_720h['max_memory_gib']:.2f} GiB; Wan 480p x 77f "
           f"routed forward ms by dispatch {disp_ms}; bench_pool ms by stage {bench_ms}; "
+          f"sta_diag ms per call by variant {diag_ms}; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
           f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
@@ -2679,6 +2715,331 @@ def run_bench_pool(torch, card: str):
             launches[k] += v
         log(f"bench_pool --stage {stage}: {times[stage]} ms per iteration on {card}; "
             f"launches {dict((k, v) for k, v in _build.launches.items() if v)}")
+    return launches, times
+
+
+def timed_once(torch, fn):
+    """(fn(), ms) with CUDA events around one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def mode_case(torch, name, kern, plain, fast, flops, nbytes, replaces, lib=None,
+              rows=None) -> dict:
+    """One softmax mode or variant of a ported kernel: held against its
+    plain version (on ``rows`` of the sequence axis where given: the rows
+    its caller reads back), timed beside the fast full call it would
+    replace."""
+    want, plain_ms = timed_once(torch, plain)
+    got = kern()
+    if rows is not None:
+        pad = torch.ones(got.shape[2], dtype=torch.bool, device=got.device)
+        pad[rows] = False
+        log(f"{name}: on the {int(pad.sum())} padding rows its caller drops, worst ratio "
+            f"{worst_ratio(torch, got[:, :, pad], want[:, :, pad]):.3e} (not gated)")
+        got, want = got[:, :, rows], want[:, :, rows]
+    err = compare(torch, name, got, want)
+    del got, want
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16)
+    r = dict(replaces=replaces, on_main_path=False, ms=time_ms(torch, kern, 5),
+             plain_ms=plain_ms, fast_ms=time_ms(torch, fast, 5), bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib, max_abs_err=err)
+    log(f"{name}: {r}")
+    return r
+
+
+def mode_row(shapes: dict) -> dict:
+    """A mode's entry in its kernel's ``modes``: its first shape's numbers on
+    top, all of them under ``shapes``."""
+    first = next(iter(shapes.values()))
+    return {**first, "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+            "shapes": shapes}
+
+
+def check_options_kernels(torch, card: str) -> dict:
+    """The kernels and modes PR 8 brought, on the card against their plain
+    versions, timed: fused_residual_norm (forward at Wan / HunyuanVideo
+    widths, backward at a small shape), the sta_diag variants at the tool's
+    default, sta_pipe's stable softmax and variants, flash_manual's and
+    sta_batched's stable softmax."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops import joint_experts as joint
+    from vorta_tpu_torch.ops.flash import dense_tables
+    from vorta_tpu_torch.ops.flash_manual import (
+        sparse_flash_attention_manual,
+        sparse_flash_attention_manual_ref,
+    )
+    from vorta_tpu_torch.ops.fused_norm import _res_norm_ref, fused_norm, fused_residual_norm
+    from vorta_tpu_torch.ops.routed_fused import routed_geometry
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
+    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+    from vorta_tpu_torch.tools.sta_diag import VARIANTS, sta_diag_attention, sta_diag_ref
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev).manual_seed(80)
+
+    def randn(*shape, dtype=bf16, scale=1.0):  # unit RMS: the scale of qk-normed q/k
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    out = {"fused_residual_norm": {}, "sta_diag": {}, "sta_pipe": {}, "flash_manual": {},
+           "sta_batched": {}}
+
+    # ---- fused_residual_norm: gate + AdaLN modulation at Wan-1.3B 480p x 77f, gate +
+    # affine + beta at HunyuanVideo-13B 720p x 45f's joint stream
+    for name, (n, dim), opts in (("wan_31200x1536_gate_mod", (31200, 1536), "gate_mod"),
+                                 ("hunyuan_43456x3072_gate_affine_beta", (43456, 3072),
+                                  "gate_affine")):
+        x, dl = randn(1, n, dim), randn(1, n, dim)
+        gate = randn(1, dim, dtype=f32, scale=0.3)
+        sc = sh = ga = be = None
+        if opts == "gate_mod":
+            sc, sh = randn(1, dim, dtype=f32, scale=0.2), randn(1, dim, dtype=f32, scale=0.2)
+        else:
+            ga, be = 1 + randn(dim, dtype=f32, scale=0.1), randn(dim, dtype=f32, scale=0.1)
+        args = (x, dl, gate, sc, sh, ga, be, 1e-6)
+        kern = lambda: fused_residual_norm(*args)  # noqa: E731
+        plain = lambda: _res_norm_ref(*args)  # noqa: E731
+        xr, yr = plain()
+        xn, y = kern()
+        if not torch.equal(xn, xr):
+            raise RuntimeError(f"fused_residual_norm {name}: x_new differs from the plain "
+                               "version's (one rounding of the same f32 sum on both sides)")
+        err = compare(torch, f"fused_residual_norm y {name}", y, yr)
+        del xn, y, xr, yr
+
+        def unfused():  # the residual line of models/wan.py, then the fused_norm kernel
+            xu = (x.float() + dl.float() * gate[:, None, :]).to(bf16)
+            return xu, fused_norm(xu, sc, sh, ga, be, False, 1e-6, False)
+
+        b_ms, b_by = bound_ms(0.0, 4.0 * n * dim * 2, PEAK_BF16)
+        out["fused_residual_norm"][name] = r = dict(
+            ms=time_ms(torch, kern, 20), plain_ms=time_ms(torch, plain, 3, 1),
+            unfused_ms=time_ms(torch, unfused, 20),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        log(f"fused_residual_norm {name}: {r} ({4.0 * n * dim * 2 / r['ms'] / 1e6:.1f} GB/s)")
+        del x, dl
+    # the backward through the Function against the plain version's autograd
+    with torch.inference_mode(False), torch.enable_grad():
+        b, n, dim = 1, 256, 1536
+        vals = [randn(b, n, dim), randn(b, n, dim), randn(b, dim, dtype=f32, scale=0.3),
+                randn(b, dim, dtype=f32, scale=0.2), randn(b, dim, dtype=f32, scale=0.2),
+                1 + randn(dim, dtype=f32, scale=0.1), randn(dim, dtype=f32, scale=0.1)]
+        w1, w2 = randn(b, n, dim, dtype=f32), randn(b, n, dim, dtype=f32)
+        grads = []
+        for fn in (fused_residual_norm, _res_norm_ref):
+            leaves = [t.clone().requires_grad_() for t in vals]
+            xn, y = fn(*leaves, 1e-6)
+            ((xn.float() * w1).sum() + (y.float() * w2).sum()).backward()
+            grads.append([t.grad.float() for t in leaves])
+        rel = max(((a - w).norm() / w.norm()).item() for a, w in zip(*grads))
+        log(f"fused_residual_norm backward (1,256,1536), all seven inputs: worst relative L2 "
+            f"{rel:.3e} (tolerance 1e-2)")
+        if not rel <= 1e-2:
+            raise RuntimeError("fused_residual_norm: gradients disagree with the plain version's")
+        out["fused_residual_norm"]["backward_rel_l2"] = rel
+        del vals, grads, w1, w2
+
+    # ---- sta_diag at the tool's default: (1,12,72000,128), tile (5,9,8), window (3,3,3)
+    grid, tile, h, d = GRID_720P, (5, 9, 8), 12, 128
+    n = grid[0] * grid[1] * grid[2]
+    keys = int(np.prod([min(3, grid[a] // tile[a]) * tile[a] for a in range(3)]))
+    q, k, v = (randn(1, h, n, d) for _ in range(3))
+    all12 = torch.ones(h, device=dev, dtype=torch.int32)
+    skw = dict(latent_shape=grid, tile=tile, window=(3, 3, 3))
+    pipe_fast = lambda: sta_pipe_attention(q, k, v, all12, **skw)  # noqa: E731
+    pipe_fast_ms = time_ms(torch, pipe_fast, 5)
+    flops = 4.0 * n * keys * d * h
+    box_bytes = h * (n // int(np.prod(tile))) * keys * d * 2 * 2  # each tile's K / V box
+    for var in VARIANTS:
+        kern = lambda: sta_diag_attention(q, k, v, variant=var, **skw)  # noqa: E731
+        if var == "dma_only":
+            got = kern()
+            torch.cuda.synchronize()
+            if got.any():
+                raise RuntimeError("sta_diag dma_only: a non-zero output")
+            err, plain_ms = 0.0, None
+            del got
+        elif var == "no_dma":  # undefined output: timed, not compared
+            err, plain_ms = None, None
+        else:
+            want, plain_ms = timed_once(torch, lambda: sta_diag_ref(q, k, v, variant=var, **skw))
+            err = compare(torch, f"sta_diag {var} (1,12,72000,128) tile {tile}", kern(), want)
+            del want
+        if var == "dma_only":
+            b_ms, b_by = bound_ms(0.0, 4.0 * n * d * 2 * h, PEAK_BF16)
+        else:
+            b_ms, b_by = bound_ms(flops, 4.0 * n * d * 2 * h, PEAK_BF16)
+        out["sta_diag"][var] = r = dict(ms=time_ms(torch, kern, 5), plain_ms=plain_ms,
+                                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                                        sta_pipe_fast_ms=pipe_fast_ms)
+        log(f"sta_diag {var}: {r}; box reads {box_bytes / 1e9:.2f} GB through L2 "
+            f"({box_bytes / r['ms'] / 1e6:.1f} GB/s at one read per 360-row tile; the kernel's "
+            f"128-row blocks read each box 3 times)")
+    out["sta_diag"]["box_bytes"] = box_bytes
+    mask = sta_raster_mask(torch, grid, tile, dev)
+    out["sta_diag"]["library_ms"], lib_err = masked_sdpa_ms(torch, "sta_diag", q, k, v, mask)
+    if lib_err:
+        out["sta_diag"]["library_error"] = lib_err
+    del mask
+    torch.cuda.empty_cache()
+
+    # ---- sta_pipe's stable softmax and variants at the same call (12 heads)
+    for mode, extra in (("stable", dict(softmax="stable")), ("dots", dict(variant="dots")),
+                        ("qk", dict(variant="qk")), ("sT", dict(variant="sT"))):
+        line = "228" if mode == "stable" else {"dots": "298", "qk": "294", "sT": "273"}[mode]
+        mflops = flops / 2 if mode == "qk" else flops  # qk: no PV product
+        out["sta_pipe"][mode] = {"720p_77f_12_heads": mode_case(
+            torch, f"sta_pipe {mode} (1,12,72000,128) tile {tile}",
+            lambda: sta_pipe_attention(q, k, v, all12, **skw, **extra),
+            lambda: sta_pipe_attention_ref(q, k, v, all12, **skw, **extra), pipe_fast,
+            mflops, 4.0 * n * d * 2 * h, f"vorta_tpu/ops/sta_pipe.py:{line}")}
+    del q, k, v
+    # stable with HunyuanVideo's text tail: (1,24,43200,128) + 256 keys (83 valid), 16 heads
+    hgrid, htile, h = GRID_HY_45F, (6, 9, 8), 24
+    n = hgrid[0] * hgrid[1] * hgrid[2]
+    act = torch.tensor(HY_ACTIVE, device=dev)
+    n_act = int(act.sum().item())
+    q, k, v = (randn(1, h, n, d) for _ in range(3))
+    tk, tv = randn(1, h, HY_TEXT, d), randn(1, h, HY_TEXT, d)
+    tb = torch.where(torch.arange(HY_TEXT, device=dev) < HY_VALID, 0.0, -1e30)[None]
+    hkw = dict(latent_shape=hgrid, tile=htile, window=(3, 3, 3), text_k=tk, text_v=tv,
+               text_bias=tb)
+    hkeys = int(np.prod([min(3, hgrid[a] // htile[a]) * htile[a] for a in range(3)])) + HY_VALID
+    out["sta_pipe"]["stable"]["hunyuan_45f_text"] = mode_case(
+        torch, f"sta_pipe stable (1,24,{n},128) + {HY_TEXT} text ({HY_VALID} valid), "
+        f"{n_act} of 24 heads",
+        lambda: sta_pipe_attention(q, k, v, act, softmax="stable", **hkw),
+        lambda: sta_pipe_attention_ref(q, k, v, act, softmax="stable", **hkw),
+        lambda: sta_pipe_attention(q, k, v, act, **hkw), 4.0 * n * hkeys * d * n_act,
+        (4.0 * n + 2 * HY_TEXT) * d * 2 * n_act, "vorta_tpu/ops/sta_pipe.py:228")
+    del q, k, v, tk, tv
+
+    # ---- flash_manual's stable softmax: Wan FULL (1,12,31744,128), 8 routed, and the
+    # HunyuanVideo FULL joint layout with kv_bias (1,24,45056,128), 16 routed
+    call = routed_geometry(attention_config("wan-1_3B", GRID_480P_77F)).full
+    wact = torch.tensor(ACTIVE_HEADS, device=dev)
+    w_act = int(wact.sum().item())
+    q, k, v = (randn(1, 12, call.q_pad, d) for _ in range(3))
+    ki, kc = call.tables.on(dev)
+    cnt = torch.where(wact[:, None] > 0, kc, 0).to(torch.int32)
+    fkw = dict(scale=d**-0.5, block_q=call.block_q, block_kv=call.block_kv,
+               kv_valid_len=call.valid_len)
+    nv = call.valid_len
+    qa, ka, va = (x[:, wact > 0, :nv] for x in (q, k, v))
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qa, ka, va), 5)
+    del qa, ka, va
+    out["flash_manual"]["wan_full_31200"] = mode_case(
+        torch, f"flash_manual stable (1,12,{call.q_pad},128), valid {nv}, {w_act} routed",
+        lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, softmax="stable", **fkw),
+        lambda: sparse_flash_attention_manual_ref(q, k, v, ki, cnt, softmax="stable", **fkw),
+        lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **fkw),
+        4.0 * nv * nv * d * w_act, 4.0 * nv * d * 2 * w_act,
+        "vorta_tpu/ops/flash_manual.py:181", lib)
+    del q, k, v
+    hcfg = attention_config("hunyuan-13B", GRID_HY_45F)
+    jcfg = joint.JointConfig(hcfg, HY_TEXT)
+    lay = joint.joint_layouts(jcfg)["full"]
+    mask = hy_text_mask(torch, dev)
+    bias = joint._bias(mask, lay, hcfg.seq_len)
+    q, k, v = (randn(1, h, lay.total, d) for _ in range(3))
+    ki, kc = dense_tables(lay.total // lay.block_q, lay.total // lay.block_kv).on(dev)
+    cnt = torch.where(act[:, None] > 0, kc, 0).to(torch.int32)
+    fkw = dict(scale=d**-0.5, block_q=lay.block_q, block_kv=lay.block_kv, kv_bias=bias)
+    rows, vis = hcfg.seq_len + HY_TEXT, hcfg.seq_len + HY_VALID
+    qa, ka, va = (x[:, act > 0] for x in (q, k, v))
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qa, ka, va, attn_mask=bias.to(bf16)[None, None]), 3)
+    del qa, ka, va
+    out["flash_manual"]["hunyuan_full_joint"] = mode_case(
+        torch, f"flash_manual stable (1,24,{lay.total},128) with kv_bias, {n_act} routed",
+        lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, softmax="stable", **fkw),
+        lambda: sparse_flash_attention_manual_ref(q, k, v, ki, cnt, softmax="stable", **fkw),
+        lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **fkw),
+        4.0 * rows * vis * d * n_act, (2 * rows + 2 * vis) * d * 2 * n_act + lay.total * 4,
+        "vorta_tpu/ops/flash_manual.py:181", lib)
+    del q, k, v
+
+    # ---- sta_batched's stable softmax: the HunyuanVideo (2, 9, 8) joint layout
+    hy = dataclasses.replace(hcfg, sta_tile=HY_TILE_298)
+    jcfg = joint.JointConfig(hy, HY_TEXT)
+    lay = joint.joint_layouts(jcfg)["sta"]
+    ki, kc, bits = joint._joint_sta_tables(jcfg).on(dev)
+    bias = joint._bias(mask, lay, hy.seq_len)
+    tpt = hy.tokens_per_tile
+    q, k, v = (randn(1, h, lay.total, d) for _ in range(3))
+    bkw = dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias, scale=d**-0.5,
+               block_q=lay.block_q, block_kv=lay.block_kv)
+    vis_t = torch.from_numpy(joint._joint_sta_subtile_mask(jcfg)[0]).to(dev)
+    live = (bias.reshape(-1, tpt) > -1e29).sum(dim=1)
+    pairs = int((vis_t.long() * live[None]).sum().item()) * tpt
+    out["sta_batched"]["hunyuan_45f_298_joint"] = mode_case(
+        torch, f"sta_batched stable (1,24,{lay.total},128), pair bits, kv_bias, {n_act} heads",
+        lambda: sta_flash_headbatched(q, k, v, ki, kc, act, softmax="stable", **bkw),
+        lambda: sta_flash_headbatched_ref(q, k, v, ki, kc, act, softmax="stable", **bkw),
+        lambda: sta_flash_headbatched(q, k, v, ki, kc, act, **bkw),
+        4.0 * pairs * d * n_act, 4 * lay.total * d * 2 * n_act + lay.total * 4,
+        "vorta_tpu/ops/sta_batched.py:155",
+        # the joint STA expert reads back the video rows and the text rows; the
+        # padding rows between them see only the text keys, where a few terms
+        # cancel and bf16's rounding of P is not held to the gate's RMS floor
+        rows=torch.cat([torch.arange(lay.video_len, device=dev),
+                        torch.arange(lay.text_off, lay.text_off + HY_TEXT, device=dev)]))
+    del q, k, v
+    return out
+
+
+def options_kernel_rows(opt: dict, diag_ms: dict) -> list:
+    """The kernels line's rows of fused_residual_norm and sta_diag."""
+    frn = opt["fused_residual_norm"]
+    first = frn["wan_31200x1536_gate_mod"]
+    shapes = {k: v for k, v in frn.items() if isinstance(v, dict)}
+    diag = opt["sta_diag"]
+    variants = {k: v for k, v in diag.items() if isinstance(v, dict)}
+    full = variants["full"]
+    return [
+        dict(name="fused_residual_norm", route="cuda", source="vorta_tpu_torch/csrc/fused_norm.cu",
+             replaces="vorta_tpu/ops/fused_norm.py:234", _counter="fused_residual_norm",
+             **{**first, "max_abs_err": max(x["max_abs_err"] for x in shapes.values())},
+             shapes=shapes, backward_rel_l2=frn["backward_rel_l2"],
+             no_path="no model calls it, as in the JAX package (vorta_tpu/models/wan.py keeps "
+                     "the residual adds in XLA); held against its plain version and timed in "
+                     "the options_kernels phase"),
+        dict(name="sta_diag", route="cuda", source="vorta_tpu_torch/csrc/sta_diag.cu",
+             replaces="tools/sta_diag.py:45", _counter="sta_diag",
+             **{**{k: full[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": diag["library_ms"],
+                "max_abs_err": max(x["max_abs_err"] for x in variants.values()
+                                   if x["max_abs_err"] is not None)},
+             variants=variants, box_bytes=diag["box_bytes"],
+             tool_ms_per_call=diag_ms,
+             library_covers="scaled_dot_product_attention with the boolean STA mask, 12 heads"),
+    ]
+
+
+def run_sta_diag_path(torch, card: str):
+    """python -m vorta_tpu_torch.tools.sta_diag with all five variants, in
+    this process (the launch counters see it): ms per call by variant."""
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.tools import sta_diag
+
+    _build.reset_launches()
+    times = sta_diag.main(list(sta_diag.VARIANTS))
+    launches = dict(_build.launches)
+    want = {**dict.fromkeys(_build.KERNELS, 0), "sta_diag": 2 * 4 * len(sta_diag.VARIANTS)}
+    if set(times) != set(sta_diag.VARIANTS) or launches != want:
+        raise RuntimeError(f"sta_diag tool: times {times}, launches {launches} (want {want})")
+    log(f"sta_diag tool on {card}: ms per call {times}; launches {launches['sta_diag']}")
     return launches, times
 
 

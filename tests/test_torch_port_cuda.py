@@ -34,7 +34,12 @@ tail, inactive heads) on the same int8 inputs as their plain versions,
 W8A8 ``int8_linear`` at odd shapes (int32 sums exact: within one bf16 ulp
 of the plain version), 2-block models with ``qk_int8`` + ``mm int8`` and
 from a quantized stack against the CPU, and the CLIs' four quantization
-flags.  Tolerances: 1e-5 x max
+flags; and (PR 8) the stable softmax of flash_manual, sta_pipe and
+sta_batched, sta_pipe's dots / qk / sT variants at every tile-width class
+with and without the text tail (each mode's launches counted apart),
+fused_residual_norm (x_new bitwise, y, the gradients through its Function)
+and its refusals, the five sta_diag variants (dma_only all zeros, no_dma
+launched only) and the sta_diag tool's launches.  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -156,6 +161,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
 
 # --- flash_manual (routed FULL / LOWRES experts) -----------------------------------
 
+@pytest.mark.parametrize("softmax", ["fast", "stable"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("kind,block,seq,valid", [
     ("dense", 32, 128, 100),      # small blocks, one warp per CUDA block
@@ -163,9 +169,10 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
     ("shared", 64, 256, 250),
     ("per_head", 32, 256, None),  # per-head index tables and counts
 ])
-def test_flash_manual_kernel_matches_plain(card, d, kind, block, seq, valid):
+def test_flash_manual_kernel_matches_plain(card, d, kind, block, seq, valid, softmax):
     """Head-shared index tables with per-head counts (some heads routed
-    away: count 0 writes zeros), as the routed experts launch it."""
+    away: count 0 writes zeros), as the routed experts launch it; the fast
+    softmax and the stable one."""
     b, h = 2, 3
     g = torch.Generator(device=card).manual_seed(10)
     # unit-RMS q/k, as the qk-normed model feeds the fast softmax
@@ -173,10 +180,12 @@ def test_flash_manual_kernel_matches_plain(card, d, kind, block, seq, valid):
     ki, kc = _tables(kind, h, seq // block, seq // block).on(card)
     if kind != "per_head":  # per-head counts over the shared index table
         kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
-    kw = dict(block_q=block, block_kv=block, kv_valid_len=valid, scale=1.1 * d**-0.5)
+    kw = dict(block_q=block, block_kv=block, kv_valid_len=valid, scale=1.1 * d**-0.5,
+              softmax=softmax)
     _build.reset_launches()
     got = sparse_flash_attention_manual(q, k, v, ki, kc, **kw)
     assert _build.launches["flash_manual"] == 1
+    assert _build.launches["flash_manual_stable"] == (softmax == "stable")
     _close(got, sparse_flash_attention_manual_ref(q, k, v, ki, kc, **kw))
     if kind != "per_head":
         assert not got[:, 1].any()  # the head routed away
@@ -186,9 +195,18 @@ def test_flash_manual_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 64, 128), device=card, dtype=torch.bfloat16)
     ki, kc = dense_tables(1, 1).on(card)
     kw = dict(block_q=64, block_kv=64)
-    for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=ki), dict(softmax="stable")):
-        with pytest.raises(NotImplementedError):
+    for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=ki),
+                dict(cast_p_to_v_dtype=False)):
+        with pytest.raises(NotImplementedError, match="PR 9"):
             sparse_flash_attention_manual(q, q, q, ki, kc, **kw, **bad)
+    # the stable softmax is served, with kv_bias too
+    g = torch.Generator(device=card).manual_seed(12)
+    qs, ks, vs = (_randn(g, (1, 2, 64, 128), torch.bfloat16) for _ in range(3))
+    bias = torch.where(torch.arange(64, device=card) % 5 == 0, -1e30, 0.5)[None]
+    for extra in ({}, dict(kv_bias=bias)):
+        skw = dict(softmax="stable", kv_valid_len=50, **kw, **extra)
+        _close(sparse_flash_attention_manual(qs, ks, vs, ki, kc, **skw),
+               sparse_flash_attention_manual_ref(qs, ks, vs, ki, kc, **skw))
     # the int8 mode is served: int8 q / k, bf16 v
     qk_scale = torch.ones(2, device=card)
     with pytest.raises(ValueError, match="int8"):
@@ -232,9 +250,14 @@ def test_sta_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 4 * 6 * 16, 128), device=card, dtype=torch.bfloat16)
     kw = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
     act = torch.ones(2, device=card, dtype=torch.int32)
-    for bad in (dict(softmax="stable"), dict(variant="sT")):
-        with pytest.raises(NotImplementedError):
-            sta_pipe_attention(q, q, q, act, **kw, **bad)
+    with pytest.raises(NotImplementedError, match="PR 9"):
+        sta_pipe_attention(q, q, q, act, cast_p_to_v_dtype=False, **kw)
+    # the stable softmax and the sT variant are served
+    g = torch.Generator(device=card).manual_seed(13)
+    qs, ks, vs = (_randn(g, q.shape, torch.bfloat16) for _ in range(3))
+    for extra in (dict(softmax="stable"), dict(variant="sT")):
+        _close(sta_pipe_attention(qs, ks, vs, act, **kw, **extra),
+               sta_pipe_attention_ref(qs, ks, vs, act, **kw, **extra))
     # the int8 mode is served: int8 q / k / text_k, bf16 v
     qk_scale = torch.ones(2, device=card)
     with pytest.raises(ValueError, match="int8"):
@@ -246,6 +269,128 @@ def test_sta_kernel_rejects_what_it_does_not_take(card):
         sta_pipe_attention(q, q, q, act, text_k=q[:, :, :12], text_v=q[:, :, :12], **kw)
     with pytest.raises(NotImplementedError, match="bf16"):
         sta_pipe_attention(q.float(), q.float(), q.float(), act, **kw)
+
+
+@pytest.mark.parametrize("softmax,variant", [
+    ("stable", "full"), ("fast", "dots"), ("fast", "qk"), ("fast", "sT"), ("stable", "sT"),
+    ("stable", "qk"),
+])
+@pytest.mark.parametrize("latent,tile,text_len", [
+    ((8, 6, 32), (2, 3, 8), 0),     # tw % 8 == 0: the variant runs
+    ((8, 6, 32), (2, 3, 8), 24),    # with the text tail (fast or stable by the softmax)
+    ((8, 6, 20), (2, 3, 4), 16),    # tw | 8: the softmax runs whatever the variant
+    ((4, 18, 16), (2, 9, 8), 0),    # 144-token tiles (4 warps, a ragged CUDA block)
+])
+def test_sta_kernel_modes_match_plain(card, latent, tile, text_len, softmax, variant):
+    """The stable softmax and the diagnostic variants, each counted apart."""
+    b, h, d = 2, 3, 128
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(15)
+    q, k, v = (_randn(g, (b, h, s, d), torch.bfloat16) for _ in range(3))
+    active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, scale=1.1 * d**-0.5, softmax=softmax,
+              variant=variant)
+    if text_len:
+        kw.update(text_k=_randn(g, (b, h, text_len, d), torch.bfloat16),
+                  text_v=_randn(g, (b, h, text_len, d), torch.bfloat16),
+                  text_bias=torch.where(torch.arange(text_len, device=card) < 9, 0.0, -1e30)[None])
+    _build.reset_launches()
+    got = sta_pipe_attention(q, k, v, active, **kw)
+    ran = variant if tile[2] % 8 == 0 and variant != "full" else None
+    assert _build.launches["sta_pipe"] == 1
+    assert _build.launches["sta_pipe_stable"] == (softmax == "stable")
+    assert all(_build.launches[f"sta_pipe_{x}"] == (x == ran) for x in ("dots", "qk", "sT"))
+    _close(got, sta_pipe_attention_ref(q, k, v, active, **kw))
+    assert not got[:, 1].any()
+
+
+# --- the fused residual norm and the STA bisection tool --------------------------------
+
+@pytest.mark.parametrize("b,s,dim", [(2, 100, 1536), (1, 300, 3072), (1, 7, 128)])
+@pytest.mark.parametrize("gate,mod,affine", [
+    (True, True, False), (False, False, True), (True, True, True), (False, False, False),
+])
+def test_fused_residual_norm_kernel_matches_plain(card, b, s, dim, gate, mod, affine):
+    """x_new bitwise (one rounding of the f32 residual on both sides), y
+    within the bf16 tolerance; then the gradients through the Function."""
+    from vorta_tpu_torch.ops.fused_norm import _res_norm_ref, fused_residual_norm
+
+    g = torch.Generator(device=card).manual_seed(16)
+    x, dl = (_randn(g, (b, s, dim), torch.bfloat16) for _ in range(2))
+    f32 = torch.float32
+    gt = _randn(g, (b, dim), f32, 0.3) if gate else None
+    sc, sh = (_randn(g, (b, dim), f32, 0.2) if mod else None for _ in range(2))
+    ga, be = (1 + _randn(g, (dim,), f32, 0.1), _randn(g, (dim,), f32, 0.1)) if affine else (None,
+                                                                                           None)
+    args = (x, dl, gt, sc, sh, ga, be, 1e-6)
+    _build.reset_launches()
+    with torch.no_grad():
+        xn, y = fused_residual_norm(*args)
+    assert _build.launches["fused_residual_norm"] == 1
+    xr, yr = _res_norm_ref(*args)
+    assert torch.equal(xn, xr)
+    _close(y, yr)
+    leaves = [t.clone().requires_grad_() if t is not None else None for t in args[:7]]
+    xn, y = fused_residual_norm(*leaves, 1e-6)
+    w = _randn(g, y.shape, torch.bfloat16)
+    ((xn.float() * w.float()).sum() + (y.float() * w.float()).sum()).backward()
+    ref_leaves = [t.detach().clone().requires_grad_() if t is not None else None
+                  for t in args[:7]]
+    xr, yr = _res_norm_ref(*ref_leaves, 1e-6)
+    ((xr.float() * w.float()).sum() + (yr.float() * w.float()).sum()).backward()
+    for a, r in zip(leaves, ref_leaves):
+        if a is not None:
+            got, want = a.grad.float(), r.grad.float()
+            assert (got - want).norm() <= 1e-2 * want.norm()
+
+
+def test_fused_residual_norm_kernel_rejects_what_it_does_not_take(card):
+    from vorta_tpu_torch.ops.fused_norm import fused_residual_norm
+
+    x = torch.zeros((1, 4, 128), device=card)
+    with pytest.raises(NotImplementedError, match="dtype"):
+        fused_residual_norm(x, x, None, None, None, None, None, 1e-6)
+    xb = torch.zeros((1, 4, 16384), device=card, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="12288"):
+        fused_residual_norm(xb, xb, None, None, None, None, None, 1e-6)
+    xb = xb[..., :128]
+    with pytest.raises(NotImplementedError, match="delta"):
+        fused_residual_norm(xb, xb.float(), None, None, None, None, None, 1e-6)
+    with pytest.raises(ValueError, match="together"):
+        fused_residual_norm(xb, xb, None, torch.zeros((1, 128), device=card), None, None, None,
+                            1e-6)
+
+
+@pytest.mark.parametrize("variant", ["full", "full_unroll", "dots_only", "dma_only", "no_dma"])
+@pytest.mark.parametrize("latent,tile,d", [
+    ((4, 6, 16), (2, 3, 8), 64),      # one chunk per chain, whole-axis windows
+    ((8, 18, 32), (4, 9, 8), 128),    # 144-row tiles: a ragged 128-row CUDA block
+    ((10, 18, 40), (5, 9, 8), 128),   # the tool's tile, clamped windows, 17 sub-tiles a chunk
+])
+def test_sta_diag_kernel_matches_plain(card, latent, tile, d, variant):
+    from vorta_tpu_torch.tools.sta_diag import sta_diag_attention, sta_diag_ref
+
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(17)
+    q, k, v = (_randn(g, (2, 2, s, d), torch.bfloat16) for _ in range(3))
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), variant=variant)
+    _build.reset_launches()
+    got = sta_diag_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["sta_diag"] == 1
+    if variant == "dma_only":
+        assert not got.any()
+    elif variant != "no_dma":  # no_dma's output is undefined
+        _close(got, sta_diag_ref(q, k, v, **kw))
+
+
+def test_sta_diag_tool_times_every_variant(card):
+    from vorta_tpu_torch.tools import sta_diag
+
+    _build.reset_launches()
+    times = sta_diag.main(["--latent", "10", "18", "40", "--iters", "2", *sta_diag.VARIANTS])
+    assert set(times) == set(sta_diag.VARIANTS) and all(t > 0 for t in times.values())
+    assert _build.launches["sta_diag"] == 4 * len(sta_diag.VARIANTS)  # warm-up + timed
 
 
 # --- the STA fallbacks: sta_batched, sta_window, sta_row -------------------------------
@@ -270,9 +415,10 @@ def _joint_sta_case(latent, tile, text_len, card, valid=17):
     ((4, 18, 16), (2, 9, 8), 24),   # HunyuanVideo's (2, 9, 8): blocks 432 / 1008
     ((4, 6, 16), (2, 3, 8), 20),    # 48-token tiles, text length not a multiple of 8
 ])
-def test_sta_batched_kernel_matches_plain(card, d, latent, tile, text_len):
+@pytest.mark.parametrize("softmax", ["fast", "stable"])
+def test_sta_batched_kernel_matches_plain(card, d, latent, tile, text_len, softmax):
     """The joint layout: pair bits (all-ones text blocks), kv bias, heads 1
-    routed away; and the same tables without bits or bias."""
+    routed away; and the same tables without bits or bias; both softmaxes."""
     from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
 
     lay, (ki, kc, bits), bias, tpt = _joint_sta_case(latent, tile, text_len, card)
@@ -280,10 +426,12 @@ def test_sta_batched_kernel_matches_plain(card, d, latent, tile, text_len):
     q, k, v = (_randn(g, (2, 3, lay.total, d), torch.bfloat16) for _ in range(3))
     active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
     for extra in (dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias), {}):
-        kw = dict(block_q=lay.block_q, block_kv=lay.block_kv, scale=1.1 * d**-0.5, **extra)
+        kw = dict(block_q=lay.block_q, block_kv=lay.block_kv, scale=1.1 * d**-0.5,
+                  softmax=softmax, **extra)
         _build.reset_launches()
         got = sta_flash_headbatched(q, k, v, ki, kc, active, **kw)
         assert _build.launches["sta_batched"] == 1
+        assert _build.launches["sta_batched_stable"] == (softmax == "stable")
         _close(got, sta_flash_headbatched_ref(q, k, v, ki, kc, active, **kw))
         assert not got[:, 1].any()
 
@@ -295,9 +443,16 @@ def test_sta_batched_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, lay.total, 128), device=card, dtype=torch.bfloat16)
     act = torch.ones(2, device=card, dtype=torch.int32)
     kw = dict(block_q=lay.block_q, block_kv=lay.block_kv, pair_bits=bits, tokens_per_tile=tpt)
-    for bad in (dict(softmax="stable"), dict(cast_p_to_v_dtype=False)):
-        with pytest.raises(NotImplementedError):
-            sta_flash_headbatched(q, q, q, ki, kc, act, **kw, **bad)
+    with pytest.raises(NotImplementedError, match="PR 9"):
+        sta_flash_headbatched(q, q, q, ki, kc, act, cast_p_to_v_dtype=False, **kw)
+    # the stable softmax is served
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched_ref
+
+    g = torch.Generator(device=card).manual_seed(14)
+    qs, ks, vs = (_randn(g, q.shape, torch.bfloat16) for _ in range(3))
+    _close(sta_flash_headbatched(qs, ks, vs, ki, kc, act, softmax="stable", kv_bias=bias, **kw),
+           sta_flash_headbatched_ref(qs, ks, vs, ki, kc, act, softmax="stable", kv_bias=bias,
+                                     **kw))
     with pytest.raises(NotImplementedError, match="bf16"):
         sta_flash_headbatched(q.float(), q.float(), q.float(), ki, kc, act, **kw)
     with pytest.raises(NotImplementedError, match="D 64/128"):

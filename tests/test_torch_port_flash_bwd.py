@@ -36,6 +36,18 @@ from vorta_tpu_torch.ops.flash import (
 from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
 from vorta_tpu_torch.ops.fused_norm import fused_norm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, H, S, D, BLK = 1, 2, 64, 32, 16
 NB = S // BLK
 

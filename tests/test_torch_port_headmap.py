@@ -52,6 +52,17 @@ from vorta_tpu_torch.ops.flash import (
 from vorta_tpu_torch.ops.routed_fused import fused_routed_attention, routed_sta_kernel
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rtol=1e-4, atol_rel=1e-4):
     want = np.asarray(want, np.float32)
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)

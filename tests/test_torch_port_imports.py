@@ -11,6 +11,18 @@ import torch
 
 import vorta_tpu_torch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "vorta_tpu")
 

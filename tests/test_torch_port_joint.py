@@ -35,6 +35,18 @@ from vorta_tpu_torch.ops.flash import tables_from_block_mask
 from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual
 from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VIDEO = dict(latent_shape=(4, 6, 16), sta_window=(3, 3, 3), sta_tile=(4, 6, 8),
              lowres_window=(2, 2, 2), block_q=32, block_kv=32)
 L, EFF = 24, 17  # padded text length, valid text tokens

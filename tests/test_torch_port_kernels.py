@@ -28,6 +28,18 @@ from vorta_tpu_torch.ops.fused_norm import fused_norm
 from vorta_tpu_torch.ops.prologue import fused_qk_prologue
 from vorta_tpu_torch.ops.rope import apply_rope_half
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 1e-5),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16, 2e-2)}
 

@@ -28,6 +28,18 @@ from vorta_tpu_torch.config import AttentionConfig
 from vorta_tpu_torch.io.from_jax import block_stack_from_jax, hunyuan_state_from_jax
 from vorta_tpu_torch.models.hunyuan import HUNYUAN_TINY, HunyuanModel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HY_ATTN = dict(latent_shape=(4, 6, 16), sta_window=(3, 3, 3), sta_tile=(4, 6, 8),
                lowres_window=(2, 2, 2), block_q=32, block_kv=32)
 INT8_REL = 0.02

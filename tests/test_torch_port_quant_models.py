@@ -37,6 +37,18 @@ from vorta_tpu_torch.config import AttentionConfig, WanModelConfig
 from vorta_tpu_torch.io.from_jax import block_stack_from_jax, wan_state_from_jax
 from vorta_tpu_torch.models.wan import WanModel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(dim=128, ffn_dim=256, num_heads=4, head_dim=32, num_layers=2, text_dim=32,
            text_len=16, freq_dim=32)
 ATTN = dict(latent_shape=(4, 8, 8), sta_tile=(2, 2, 2), sta_window=(3, 3, 1),

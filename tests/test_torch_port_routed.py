@@ -36,6 +36,17 @@ from vorta_tpu_torch.ops.routed_fused import fused_routed_attention, route_exper
 from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, supports_pipe
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rtol=1e-4, atol_rel=1e-4):
     want = np.asarray(want, np.float32)
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
@@ -188,12 +199,20 @@ def test_flash_manual_matches_pallas(valid, per_head_index, d):
 
 
 def test_flash_manual_unported_options_raise():
-    """kv_bias and int8 QK are served (the joint experts' text mask,
-    quantized serving); per-head kv_valid, pair_bits and the stable softmax
-    still raise."""
+    """kv_bias, int8 QK and the stable softmax are served (the joint
+    experts' text mask, quantized serving, the JAX wrapper's default
+    softmax, held here to the Pallas kernel); per-head kv_valid and
+    pair_bits still raise."""
     q = torch.zeros((1, 2, 32, 64))
     tab = tables_from_block_mask(np.ones((1, 1), bool))
     kw = dict(block_q=32, block_kv=32)
+    qs, ks, vs = _qkv(9, (1, 2, 32, 64))
+    want = jax_manual(*(jnp.asarray(x) for x in (qs, ks, vs)), jnp.asarray(tab.kv_index),
+                      jnp.asarray(tab.kv_count), kv_valid_len=20, interpret=True, **kw)
+    got = sparse_flash_attention_manual(*(torch.from_numpy(x) for x in (qs, ks, vs)),
+                                        tab.kv_index, tab.kv_count, kv_valid_len=20,
+                                        softmax="stable", **kw)
+    _close(got, want)
     out = sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count,
                                         kv_bias=torch.zeros((1, 32)), **kw)
     assert out.shape == q.shape
@@ -201,8 +220,7 @@ def test_flash_manual_unported_options_raise():
     out = sparse_flash_attention_manual(q8, q8, q, tab.kv_index, tab.kv_count,
                                         qk_scale=torch.ones(2), **kw)
     assert out.shape == q.shape and out.dtype == q.dtype
-    for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=torch.zeros((1, 1, 1))),
-                dict(softmax="stable")):
+    for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=torch.zeros((1, 1, 1)))):
         with pytest.raises(NotImplementedError):
             sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count, **kw, **bad)
 

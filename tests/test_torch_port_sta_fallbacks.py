@@ -41,6 +41,17 @@ from vorta_tpu_torch.ops.sta_row import sta_row_attention
 from vorta_tpu_torch.ops.sta_window import sta_window_attention
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rtol=1e-4, atol_rel=1e-4):
     want = np.asarray(want, np.float32)
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)

@@ -34,6 +34,18 @@ from vorta_tpu_torch.io.from_jax import wan_state_from_jax
 from vorta_tpu_torch.models.wan import WanModel
 from vorta_tpu_torch.pipelines.wan_t2v import SamplingConfig, WanT2VPipeline
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(dim=512, ffn_dim=1024, num_heads=4, head_dim=128, num_layers=2,
            text_dim=64, text_len=16, freq_dim=64)
 ATTN = dict(latent_shape=(4, 8, 8), block_q=64, block_kv=64)

@@ -35,6 +35,15 @@
 // shared-memory tile halves; V, P and the PV product stay bf16.  The card
 // runs int8 mma at twice the bf16 rate (1,979 vs 989 T/s dense), so the QK
 // half of the work is bounded at half the time.
+//
+// The stable softmax (STABLE; flash_manual.py:140-169, the JAX wrapper's
+// default): q is NOT pre-scaled; the f32 scores are scaled by
+// sl = scale * log2(e) after the product, then kv_bias is added and the
+// masked columns (the kv_valid_len tail) set to -1e30; a running max per
+// row with the TPU kernel's m_safe (0 while the max is still -1e30), the
+// sums and the accumulator rescaled by exp2(m_old - m_safe) at every
+// sub-tile (stable_update, mma_bf16.cuh).  Counts 0 and rows that see
+// nothing still give 0.  bf16 q / k only (the int8 mode is fast-only).
 #include "mma_s8.cuh"
 
 namespace {
@@ -45,14 +54,15 @@ constexpr int BLOCK_N = 64;  // kv rows per shared-memory sub-tile
 
 // I8: q and k are int8 (qk_scale mode), handled as rows of DK = D / 2 b16
 // values; else bf16, DK = D.
-template <int D, int WARPS, bool I8>
+template <int D, int WARPS, bool I8, bool STABLE>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     const int* __restrict__ kv_index, const int* __restrict__ kv_count,
                     const float* __restrict__ kv_bias, const float* __restrict__ qkc,
                     int H, int Sq, int Skv, int nq, int width, int shared_idx, int shared_cnt,
-                    int block_q, int block_kv, int last_block, int valid_in_block) {
+                    int block_q, int block_kv, int last_block, int valid_in_block, float sl) {
+  static_assert(!(I8 && STABLE), "the int8 mode is fast-only");
   constexpr int BLOCK_M = 16 * WARPS;
   constexpr int DK = I8 ? D / 2 : D;  // a q / k row in b16 units
   constexpr int LDK = DK + 8;  // padded rows: conflict-free ldmatrix
@@ -82,6 +92,7 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   float l_part[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float m_run[2] = {NEG_INF, NEG_INF};  // STABLE: the running row max
 
   const int count = kv_count[(shared_cnt ? 0 : h) * nq + qi];
   const int* idx = kv_index + static_cast<size_t>((shared_idx ? 0 : h) * nq + qi) * width;
@@ -132,14 +143,25 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         qk_tile_s8<DK, NT_S, LDK>(s, qa, Ks, qk_factor, lane);
       else
         qk_tile<D, NT_S, LDS>(s, qa, Ks, lane);
+      if constexpr (STABLE) {
 #pragma unroll
-      for (int n = 0; n < NT_S; ++n) {
+        for (int n = 0; n < NT_S; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + 2 * t + (e & 1);
-          const float p = (col < nvalid) ? exp2f(s[n][e] + Bs[col]) : 0.f;
-          s[n][e] = p;
-          l_part[e >> 1] += p;
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + 2 * t + (e & 1);
+            s[n][e] = (col < nvalid) ? s[n][e] * sl + Bs[col] : NEG_INF;
+          }
+        stable_update<NT_S, NT_O>(s, m_run, l_part, oacc);
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT_S; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + 2 * t + (e & 1);
+            const float p = (col < nvalid) ? exp2f(s[n][e] + Bs[col]) : 0.f;
+            s[n][e] = p;
+            l_part[e >> 1] += p;
+          }
         }
       }
       pv_tile<D, NT_S, LDS>(oacc, s, Vs, lane);
@@ -157,15 +179,15 @@ flash_manual_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
-template <int D, int WARPS, bool I8>
+template <int D, int WARPS, bool I8, bool STABLE>
 cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, const int* ki, const int* kc,
                    const float* bias, const float* qkc, int H, int Sq, int Skv, int nq,
                    int width, int shared_idx, int shared_cnt, int block_q, int block_kv,
-                   int last_block, int valid_in_block) {
-  flash_manual_kernel<D, WARPS, I8><<<grid, WARPS * 32, 0, st>>>(
+                   int last_block, int valid_in_block, float sl) {
+  flash_manual_kernel<D, WARPS, I8, STABLE><<<grid, WARPS * 32, 0, st>>>(
       q, k, v, out, ki, kc, bias, qkc, H, Sq, Skv, nq, width, shared_idx, shared_cnt, block_q,
-      block_kv, last_block, valid_in_block);
+      block_kv, last_block, valid_in_block, sl);
   return cudaGetLastError();
 }
 
@@ -175,17 +197,20 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __n
 // (idx_heads, nq, width), kv_count (cnt_heads, nq): int32 on the device,
 // idx_heads / cnt_heads 1 or H; kv_bias: (Skv,) f32 on the device, or null.
 // qk_factor: null, or (H,) f32 qk_scale * scale * log2(e) on the device,
-// and then q and k are int8 (q not pre-scaled).  Returns the CUDA error code.
+// and then q and k are int8 (q not pre-scaled).  stable: the stable softmax,
+// q not pre-scaled, scores scaled by sl = scale * log2(e) (bf16 q / k only).
+// Returns the CUDA error code.
 extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const void* v,
                                            void* out, const void* kv_index,
                                            const void* kv_count, const void* kv_bias,
                                            const void* qk_factor, int B, int H, int Sq,
                                            int Skv, int D, int idx_heads, int cnt_heads, int nq,
                                            int width, int block_q, int block_kv,
-                                           int kv_valid_len, void* stream) {
+                                           int kv_valid_len, int stable, float sl,
+                                           void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 16 || (D != 64 && D != 128) ||
       (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
-      nq != Sq / block_q)
+      nq != Sq / block_q || (stable && qk_factor != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int warps = (block_q % 64 == 0) ? 4 : 1;
   const int has_tail = kv_valid_len % block_kv != 0;
@@ -204,18 +229,23 @@ extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const v
   const int si = idx_heads == 1, sc = cnt_heads == 1;
   auto run = [&](auto launcher) {
     return launcher(grid, st, qq, kk, vv, oo, ki, kc, kb, qf, H, Sq, Skv, nq, width, si, sc,
-                    block_q, block_kv, last_block, valid_in_block);
+                    block_q, block_kv, last_block, valid_in_block, sl);
   };
   cudaError_t err;
   if (qf != nullptr) {
     if (D == 128)
-      err = warps == 4 ? run(launch<128, 4, true>) : run(launch<128, 1, true>);
+      err = warps == 4 ? run(launch<128, 4, true, false>) : run(launch<128, 1, true, false>);
     else
-      err = warps == 4 ? run(launch<64, 4, true>) : run(launch<64, 1, true>);
+      err = warps == 4 ? run(launch<64, 4, true, false>) : run(launch<64, 1, true, false>);
+  } else if (stable) {
+    if (D == 128)
+      err = warps == 4 ? run(launch<128, 4, false, true>) : run(launch<128, 1, false, true>);
+    else
+      err = warps == 4 ? run(launch<64, 4, false, true>) : run(launch<64, 1, false, true>);
   } else if (D == 128) {
-    err = warps == 4 ? run(launch<128, 4, false>) : run(launch<128, 1, false>);
+    err = warps == 4 ? run(launch<128, 4, false, false>) : run(launch<128, 1, false, false>);
   } else {
-    err = warps == 4 ? run(launch<64, 4, false>) : run(launch<64, 1, false>);
+    err = warps == 4 ? run(launch<64, 4, false, false>) : run(launch<64, 1, false, false>);
   }
   return static_cast<int>(err);
 }

@@ -118,6 +118,48 @@ __device__ __forceinline__ void abt_tile(float (*c)[4], const __nv_bfloat16* As,
   }
 }
 
+// The stable online-softmax update of the JAX kernels (flash_manual.py,
+// sta_batched.py: the running max with m_safe) for one warp's rows g and
+// g + 8: x holds their NT_S * 8 scores of a sub-tile, scaled, biased and
+// masked (NEG_INF, or -inf); m_run moves to the new row max, m_safe is 0
+// where that max is still NEG_INF, l_part and oacc are rescaled by
+// exp2(m_old - m_safe), and x becomes p = exp2(x - m_safe), added to l_part.
+template <int NT_S, int NT_O>
+__device__ __forceinline__ void stable_update(float (*x)[4], float* m_run, float* l_part,
+                                              float (*oacc)[4]) {
+  float mc[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int n = 0; n < NT_S; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mc[e >> 1] = fmaxf(mc[e >> 1], x[n][e]);
+  float alpha[2], m_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
+    mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
+    const float m_new = fmaxf(m_run[r], mc[r]);
+    m_safe[r] = (m_new <= NEG_INF) ? 0.f : m_new;
+    alpha[r] = exp2f(m_run[r] - m_safe[r]);
+    m_run[r] = m_new;
+    l_part[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NT_S; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(x[n][e] - m_safe[e >> 1]);
+      x[n][e] = p;
+      l_part[e >> 1] += p;
+    }
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) {
+    oacc[n][0] *= alpha[0];
+    oacc[n][1] *= alpha[0];
+    oacc[n][2] *= alpha[1];
+    oacc[n][3] *= alpha[1];
+  }
+}
+
 // Sum a per-thread partial row sum over the 4 threads of a quad.
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);

@@ -31,6 +31,14 @@
 // -1e30 is exactly 0, so the skip changes no bit); products on mma.sync
 // m16n8k16 (mma_bf16.cuh).  Simple first: no wgmma, TMA or cp.async
 // pipelining yet.
+//
+// The stable softmax (STABLE; sta_batched.py:126-171, the JAX wrapper's
+// default): q is not pre-scaled; the f32 scores are scaled by sl = scale *
+// log2(e), kv_bias added, the pairs the bits hide set to -1e30; a running
+// max per row with the TPU kernel's m_safe, the sums and the accumulator
+// rescaled at every sub-tile (stable_update, mma_bf16.cuh).  The skipped
+// sub-tiles (no pair bit, or every key masked by the bias) change nothing
+// here either: they could only offer -1e30 to the max.
 #include <math.h>
 
 #include "mma_bf16.cuh"
@@ -48,14 +56,14 @@ __device__ __forceinline__ bool bit_at(uint32_t word, int idx) {
   return idx < 32 && ((word >> idx) & 1u);
 }
 
-template <int D>
+template <int D, bool STABLE>
 __global__ void __launch_bounds__(WARPS * 32)
 sta_batched_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                    const int* __restrict__ kv_index, const int* __restrict__ kv_count,
                    const int* __restrict__ pair_bits, const float* __restrict__ kv_bias,
                    const int* __restrict__ active, int H, int Sq, int Skv, int width,
-                   int block_q, int block_kv, int tpt, int k_sub, int chunks) {
+                   int block_q, int block_kv, int tpt, int k_sub, int chunks, float sl) {
   constexpr int LDS = D + 8;  // padded rows: conflict-free ldmatrix
   constexpr int NT_S = BLOCK_N / 8;
   constexpr int NT_O = D / 8;
@@ -85,6 +93,7 @@ sta_batched_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   float l_part[2] = {0.f, 0.f};
+  float m_run[2] = {NEG_INF, NEG_INF};  // STABLE: the running row max
   const bool has_bits = pair_bits != nullptr;
   const int rt0 = rg / tpt * k_sub, rt1 = rg8 / tpt * k_sub;  // bit offsets of the two rows
   const int mt_lo = r0 / tpt, mt_hi = (r0 + rows - 1) / tpt;  // the chunk's row tiles
@@ -133,11 +142,16 @@ sta_batched_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
         for (int e = 0; e < 4; ++e) {
           const int col = n * 8 + 2 * t + (e & 1);
           const bool vis = !has_bits || bit_at(bits, ((e >> 1) ? rt1 : rt0) + Ct[col]);
-          const float p = vis ? exp2f(s[n][e] + Bs[col]) : 0.f;  // exp2(-inf) = 0
-          s[n][e] = p;
-          l_part[e >> 1] += p;
+          if constexpr (STABLE) {
+            s[n][e] = vis ? s[n][e] * sl + Bs[col] : NEG_INF;  // Bs -inf past the block
+          } else {
+            const float p = vis ? exp2f(s[n][e] + Bs[col]) : 0.f;  // exp2(-inf) = 0
+            s[n][e] = p;
+            l_part[e >> 1] += p;
+          }
         }
       }
+      if constexpr (STABLE) stable_update<NT_S, NT_O>(s, m_run, l_part, oacc);
       pv_tile<D, NT_S, LDS>(oacc, s, Vs, lane);
     }
   }
@@ -155,16 +169,17 @@ sta_batched_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 }
 
-template <int D>
+template <int D, bool STABLE>
 cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, const int* ki, const int* kc,
                    const int* bits, const float* bias, const int* active, int Sq, int Skv,
-                   int width, int block_q, int block_kv, int tpt, int k_sub, cudaStream_t st) {
+                   int width, int block_q, int block_kv, int tpt, int k_sub, float sl,
+                   cudaStream_t st) {
   const int chunks = (block_q + BLOCK_M - 1) / BLOCK_M;
   const dim3 grid((Sq / block_q) * chunks, H, B);
-  sta_batched_kernel<D><<<grid, WARPS * 32, 0, st>>>(q, k, v, out, ki, kc, bits, bias, active, H,
-                                                     Sq, Skv, width, block_q, block_kv, tpt,
-                                                     k_sub, chunks);
+  sta_batched_kernel<D, STABLE><<<grid, WARPS * 32, 0, st>>>(
+      q, k, v, out, ki, kc, bits, bias, active, H, Sq, Skv, width, block_q, block_kv, tpt, k_sub,
+      chunks, sl);
   return cudaGetLastError();
 }
 
@@ -173,14 +188,16 @@ cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
 // q (pre-scaled), k, v, out: contiguous (B, H, S, D) bf16, tile-major.
 // kv_index / pair_bits (nq, width), kv_count (nq,): int32 on the device,
 // shared by all heads; pair_bits null for none (then tpt / k_sub unused);
-// kv_bias: (Skv,) f32 on the device, or null; active: (H,) int32.
-// Returns the CUDA error code.
+// kv_bias: (Skv,) f32 on the device, or null; active: (H,) int32.  stable:
+// the stable softmax, q not pre-scaled, scores scaled by sl = scale *
+// log2(e).  Returns the CUDA error code.
 extern "C" int vorta_sta_batched_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                           const void* kv_index, const void* kv_count,
                                           const void* pair_bits, const void* kv_bias,
                                           const void* active, int B, int H, int Sq, int Skv,
                                           int D, int nq, int width, int block_q, int block_kv,
-                                          int tpt, int k_sub, void* stream) {
+                                          int tpt, int k_sub, int stable, float sl,
+                                          void* stream) {
   if (block_q < 8 || block_kv < 8 || block_q % 8 || block_kv % 8 || Sq % block_q ||
       Skv % block_kv || nq != Sq / block_q || width < 1 || (D != 64 && D != 128) ||
       (pair_bits && (tpt < 1 || k_sub < 1)))
@@ -192,7 +209,9 @@ extern "C" int vorta_sta_batched_fwd_bf16(const void* q, const void* k, const vo
                     static_cast<const int*>(kv_index), static_cast<const int*>(kv_count),
                     static_cast<const int*>(pair_bits), static_cast<const float*>(kv_bias),
                     static_cast<const int*>(active), Sq, Skv, width, block_q, block_kv,
-                    pair_bits ? tpt : 1, pair_bits ? k_sub : 1, static_cast<cudaStream_t>(stream));
+                    pair_bits ? tpt : 1, pair_bits ? k_sub : 1, sl,
+                    static_cast<cudaStream_t>(stream));
   };
-  return static_cast<int>(D == 128 ? run(launch<128>) : run(launch<64>));
+  if (stable) return static_cast<int>(D == 128 ? run(launch<128, true>) : run(launch<64, true>));
+  return static_cast<int>(D == 128 ? run(launch<128, false>) : run(launch<64, false>));
 }

@@ -34,6 +34,19 @@
 // the window's and the text tail's scores are exact int32 sums of mma.sync
 // m16n8k32 s8 (mma_s8.cuh) times qk_scale[h] * scale * log2(e), then as
 // above.  K's shared-memory tile halves; V, P and PV stay bf16.
+//
+// MODE selects the window's softmax and the TPU kernel's diagnostic
+// variants (sta_pipe.py:270-302): FAST (above); STABLE, a running max per
+// row (the online step of sta_common.cuh on the pre-scaled scores, no
+// m_safe, as sta_pipe.py:260-269); and with the fast or stable text tail
+// (text_stable), DOTS (p = bf16(s * 1e-3), no max, no l), QK (O += rowsum(s)
+// * 1e-3 on every column, no PV product, no l) and ST (the fast softmax on
+// the transposed scores S^T = K Q^T: K the A operand, Q's fragments the B
+// operand, P^T turned into P's A fragments by movmatrix.trans, the row sums
+// taken down the columns of P^T; its output is FAST's).  The variants leave
+// the running max at -1e30, so a stable text tail after them rescales the
+// window's sums by exp2(-1e30 - m) = 0, as the TPU kernel's does.  The text
+// tail is always the softmax step (sta_pipe.py:309-318), whatever the mode.
 #include <type_traits>
 
 #include "mma_s8.cuh"
@@ -45,16 +58,25 @@ using namespace vorta;
 
 constexpr int BLOCK_N = 64;  // keys per shared-memory sub-tile
 
-// I8: q, k and text_k are int8 (qk_scale mode), rows of DK = D / 2 b16
-// values; else bf16, DK = D.
-template <int D, int WARPS, bool I8>
+enum Mode { FAST = 0, STABLE = 1, DOTS = 2, QK = 3, ST = 4 };
+
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// I8: q, k and text_k are int8 (qk_scale mode, FAST only), rows of DK = D /
+// 2 b16 values; else bf16, DK = D.
+template <int D, int WARPS, bool I8, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
            const int* __restrict__ active, const __nv_bfloat16* __restrict__ text_k,
            const __nv_bfloat16* __restrict__ text_v, const float* __restrict__ text_bias,
            const float* __restrict__ qkc, int Lt, int H, int T, int HH, int W, int tt, int th,
-           int tw, int win_t, int win_h, int win_w, int chunks) {
+           int tw, int win_t, int win_h, int win_w, int chunks, int text_stable) {
+  static_assert(!I8 || MODE == FAST, "the int8 mode is the fast full variant only");
   constexpr int BLOCK_M = 16 * WARPS;
   constexpr int DK = I8 ? D / 2 : D;  // a q / k row in b16 units
   constexpr int LDK = DK + 8;
@@ -106,9 +128,53 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
 #pragma unroll
   for (int n = 0; n < NT_O; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   float l_part[2] = {0.f, 0.f};
+  float m[2] = {NEG_INF, NEG_INF};  // running max (STABLE, a stable text tail)
+  float l_st[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // ST: column sums of P^T, queries 8ni + 2t + e
+
+  // ST: S^T = K Q^T for the 64 staged keys (4 m-tiles of 16) x this warp's 16
+  // queries (2 n-tiles of 8: Q's fragments qa[kk][0 / 2] and qa[kk][1 / 3]
+  // are the B operand), p^T = exp2(S^T), then O += P V with P's A fragments
+  // the movmatrix transposes of P^T's accumulator blocks
+  auto st_step = [&](int nvalid) {
+    const int mi = lane / 8, mr = lane % 8;
+#pragma unroll
+    for (int mt = 0; mt < BLOCK_N / 16; ++mt) {
+      float st[2][4];
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) st[ni][0] = st[ni][1] = st[ni][2] = st[ni][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, Ks + (mt * 16 + (mi & 1) * 8 + mr) * LDK + kk * 16 + (mi >> 1) * 8);
+        mma_bf16(st[0], a, qa[kk][0], qa[kk][2]);
+        mma_bf16(st[1], a, qa[kk][1], qa[kk][3]);
+      }
+      uint32_t x[2][2];  // [ni][key half]: P^T blocks keys 16mt + 8 half + g, queries 8ni + 2t
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = mt * 16 + g + 8 * (e >> 1);
+          const float p = key < nvalid ? exp2f(st[ni][e]) : 0.f;
+          st[ni][e] = p;
+          l_st[ni][e & 1] += p;
+        }
+        x[ni][0] = movmatrix_trans(pack_bf16(st[ni][0], st[ni][1]));
+        x[ni][1] = movmatrix_trans(pack_bf16(st[ni][2], st[ni][3]));
+      }
+      const uint32_t pa[4] = {x[0][0], x[1][0], x[0][1], x[1][1]};
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, Vs + (mt * 16 + (mi & 1) * 8 + mr) * LDS + n * 8 + (mi >> 1) * 8);
+        mma_bf16(oacc[n], pa, r[0], r[1]);
+        mma_bf16(oacc[n + 1], pa, r[2], r[3]);
+      }
+    }
+  };
 
   // one 64-key sub-tile: stage K / V rows (key r at kv_row(r), r < nvalid)
-  // and, for text keys, their bias; accumulate exp2(s + bias) into l and O
+  // and, for text keys, their bias; then the mode's step (text: the softmax)
   auto step = [&](int nvalid, auto kv_row, auto text_key) {
     constexpr bool TEXT = decltype(text_key)::value;
     __syncthreads();  // previous sub-tile fully consumed
@@ -130,19 +196,55 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
         Bs[r] = r < nvalid ? text_bias[kv_row(r) % Lt] : 0.f;
     __syncthreads();
 
+    if constexpr (!I8 && MODE != FAST) {
+      // FAST's text tail is fast and STABLE's stable; a variant's follows text_stable
+      if (TEXT ? (MODE == STABLE || text_stable != 0) : MODE == STABLE) {
+        const unsigned rel = (1u << ((nvalid + 7) / 8)) - 1u;
+        online_softmax_step<D, LDS>(qa, Ks, Vs, TEXT ? Bs : nullptr, nvalid, rel, 1.f, m,
+                                    l_part, oacc, lane);
+        return;
+      }
+      if constexpr (!TEXT && MODE == ST) {
+        st_step(nvalid);
+        return;
+      }
+    }
     float s[NT_S][4];
     if constexpr (I8)
       qk_tile_s8<DK, NT_S, LDK>(s, qa, Ks, qk_factor, lane);
     else
       qk_tile<D, NT_S, LDS>(s, qa, Ks, lane);
+    if constexpr (!TEXT && MODE == QK) {
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NT_S; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n * 8 + 2 * t + (e & 1) < nvalid) rs[e >> 1] += s[n][e];
+      rs[0] = quad_sum(rs[0]) * 1e-3f;
+      rs[1] = quad_sum(rs[1]) * 1e-3f;
+#pragma unroll
+      for (int n = 0; n < NT_O; ++n) {
+        oacc[n][0] += rs[0];
+        oacc[n][1] += rs[0];
+        oacc[n][2] += rs[1];
+        oacc[n][3] += rs[1];
+      }
+      return;
+    }
 #pragma unroll
     for (int n = 0; n < NT_S; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n * 8 + 2 * t + (e & 1);
-        const float p = (col < nvalid) ? exp2f(TEXT ? s[n][e] + Bs[col] : s[n][e]) : 0.f;
+        float p;
+        if constexpr (!TEXT && MODE == DOTS) {
+          p = (col < nvalid) ? s[n][e] * 1e-3f : 0.f;
+        } else {
+          p = (col < nvalid) ? exp2f(TEXT ? s[n][e] + Bs[col] : s[n][e]) : 0.f;
+          l_part[e >> 1] += p;
+        }
         s[n][e] = p;
-        l_part[e >> 1] += p;
       }
     }
     pv_tile<D, NT_S, LDS>(oacc, s, Vs, lane);
@@ -154,6 +256,22 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
       return base + static_cast<size_t>(
           ((t0 + n / (bh_ * bw)) * HH + h0 + (n / bw) % bh_) * W + w0 + n % bw);
     }, std::false_type{});
+  if constexpr (MODE == ST) {
+    // P^T's column sums down the 8 key rows of each block (lanes g), then
+    // row g's and g + 8's sums to this thread, into the quad's first lane
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o *= 2) l_st[ni][e] += __shfl_xor_sync(0xffffffffu, l_st[ni][e], o);
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const float e0 = __shfl_sync(0xffffffffu, l_st[ni][0], g >> 1);
+      const float e1 = __shfl_sync(0xffffffffu, l_st[ni][1], g >> 1);
+      l_part[ni] = t == 0 ? ((g & 1) ? e1 : e0) : 0.f;
+    }
+  }
   const size_t text0 = (static_cast<size_t>(b) * H + h) * Lt;
   for (int n0 = 0; n0 < Lt; n0 += BLOCK_N)
     step(min(BLOCK_N, Lt - n0), [&](int r) { return text0 + n0 + r; },
@@ -172,18 +290,40 @@ sta_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   }
 }
 
-template <int D, int WARPS, bool I8>
+template <int D, int WARPS, bool I8, int MODE>
 cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, const int* active,
                    const __nv_bfloat16* text_k, const __nv_bfloat16* text_v,
                    const float* text_bias, const float* qkc, int Lt, int T, int HH, int W,
-                   int tt, int th, int tw, int win_t, int win_h, int win_w, cudaStream_t st) {
+                   int tt, int th, int tw, int win_t, int win_h, int win_w, int text_stable,
+                   cudaStream_t st) {
   const int tpt = tt * th * tw, chunks = (tpt + 16 * WARPS - 1) / (16 * WARPS);
   const dim3 grid((T / tt) * (HH / th) * (W / tw) * chunks, H, B);
-  sta_kernel<D, WARPS, I8><<<grid, WARPS * 32, 0, st>>>(
+  sta_kernel<D, WARPS, I8, MODE><<<grid, WARPS * 32, 0, st>>>(
       q, k, v, out, active, text_k, text_v, text_bias, qkc, Lt, H, T, HH, W, tt, th, tw, win_t,
-      win_h, win_w, chunks);
+      win_h, win_w, chunks, text_stable);
   return cudaGetLastError();
+}
+
+template <int D, int WARPS>
+cudaError_t launch_mode(int mode, bool i8, int B, int H, const __nv_bfloat16* q,
+                        const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
+                        const int* active, const __nv_bfloat16* text_k,
+                        const __nv_bfloat16* text_v, const float* text_bias, const float* qkc,
+                        int Lt, int T, int HH, int W, int tt, int th, int tw, int win_t,
+                        int win_h, int win_w, int text_stable, cudaStream_t st) {
+  auto run = [&](auto launcher) {
+    return launcher(B, H, q, k, v, out, active, text_k, text_v, text_bias, qkc, Lt, T, HH, W, tt,
+                    th, tw, win_t, win_h, win_w, text_stable, st);
+  };
+  if (i8) return run(launch<D, WARPS, true, FAST>);
+  switch (mode) {
+    case FAST: return run(launch<D, WARPS, false, FAST>);
+    case STABLE: return run(launch<D, WARPS, false, STABLE>);
+    case DOTS: return run(launch<D, WARPS, false, DOTS>);
+    case QK: return run(launch<D, WARPS, false, QK>);
+    default: return run(launch<D, WARPS, false, ST>);
+  }
 }
 
 }  // namespace
@@ -192,14 +332,18 @@ cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
 // active: (H,) int32 on the device; text_k / text_v: contiguous (B, H, Lt, D)
 // bf16 and text_bias (Lt,) f32, or null with Lt = 0.  qk_factor: null, or
 // (H,) f32 qk_scale * scale * log2(e) on the device, and then q, k and
-// text_k are int8 (q not pre-scaled).  Returns the CUDA error code.
+// text_k are int8 (q not pre-scaled).  mode: 0 fast, 1 stable, 2 dots, 3 qk,
+// 4 sT (0 with qk_factor); text_stable: the text tail's softmax is the
+// stable one (the caller's softmax="stable").  Returns the CUDA error code.
 extern "C" int vorta_sta_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                   const void* active, const void* text_k, const void* text_v,
                                   const void* text_bias, const void* qk_factor, int Lt, int B,
                                   int H, int T, int HH, int W, int D, int tt, int th, int tw,
-                                  int win_t, int win_h, int win_w, void* stream) {
+                                  int win_t, int win_h, int win_w, int mode, int text_stable,
+                                  void* stream) {
   if (T % tt || HH % th || W % tw || (D != 64 && D != 128) || win_t < 1 || win_h < 1 ||
-      win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)))
+      win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)) || mode < 0 ||
+      mode > 4 || (qk_factor && (mode != FAST || text_stable)))
     return static_cast<int>(cudaErrorInvalidValue);
   using bf = __nv_bfloat16;
   auto* qq = static_cast<const bf*>(q);
@@ -213,22 +357,16 @@ extern "C" int vorta_sta_fwd_bf16(const void* q, const void* k, const void* v, v
   auto* qf = static_cast<const float*>(qk_factor);
   auto st = static_cast<cudaStream_t>(stream);
   auto run = [&](auto launcher) {
-    return launcher(B, H, qq, kk, vv, oo, act, tk, tv, tb, qf, Lt, T, HH, W, tt, th, tw, win_t,
-                    win_h, win_w, st);
+    return launcher(mode, qf != nullptr, B, H, qq, kk, vv, oo, act, tk, tv, tb, qf, Lt, T, HH, W,
+                    tt, th, tw, win_t, win_h, win_w, text_stable, st);
   };
   // 2 warps (32 q rows) where that tiles the q tile exactly and 4 would not
   const int tpt = tt * th * tw;
   const bool two = tpt % 64 != 0 && tpt % 32 == 0;
   cudaError_t err;
-  if (qf != nullptr) {
-    if (D == 128)
-      err = two ? run(launch<128, 2, true>) : run(launch<128, 4, true>);
-    else
-      err = two ? run(launch<64, 2, true>) : run(launch<64, 4, true>);
-  } else if (D == 128) {
-    err = two ? run(launch<128, 2, false>) : run(launch<128, 4, false>);
-  } else {
-    err = two ? run(launch<64, 2, false>) : run(launch<64, 4, false>);
-  }
+  if (D == 128)
+    err = two ? run(launch_mode<128, 2>) : run(launch_mode<128, 4>);
+  else
+    err = two ? run(launch_mode<64, 2>) : run(launch_mode<64, 4>);
   return static_cast<int>(err);
 }

@@ -16,8 +16,13 @@ row log-sum-exp (a subset of ``flash``), ``flash_manual_int8`` and
 ``sta_pipe_int8`` the launches in the int8 QK mode (subsets of
 ``flash_manual`` and ``sta_pipe``).  ``pool_qkv_headmap`` and
 ``unpool_headmap`` count the pool's head-map launches, apart from its
-plain / active ones (``pool_qkv``, ``unpool``).  Headers (``*.cuh``) are
-part of the hash.
+plain / active ones (``pool_qkv``, ``unpool``).  ``fused_norm.cu`` holds
+``fused_norm`` and ``fused_residual_norm``; ``sta_diag.cu`` the bisection
+kernel of ``tools/sta_diag.py``.  The softmax modes count apart too, as
+subsets of their kernel: ``flash_manual_stable``, ``sta_batched_stable``,
+``sta_pipe_stable`` (the stable softmax) and ``sta_pipe_dots``,
+``sta_pipe_qk``, ``sta_pipe_sT`` (sta_pipe's diagnostic variants).  Headers
+(``*.cuh``) are part of the hash.
 """
 
 from __future__ import annotations
@@ -34,11 +39,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "coreset_pool",
-           "flash_bwd", "sta_batched", "sta_window", "sta_row")
+           "flash_bwd", "sta_batched", "sta_window", "sta_row", "sta_diag")
 KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_qkv", "unpool",
            "flash_lse", "flash_dq", "flash_dkv", "flash_manual_int8", "sta_pipe_int8",
            "sta_batched", "sta_window", "sta_row", "pool_qkv_headmap", "unpool_headmap",
-           "copy_probe")
+           "copy_probe", "fused_residual_norm", "sta_diag", "flash_manual_stable",
+           "sta_batched_stable", "sta_pipe_stable", "sta_pipe_dots", "sta_pipe_qk",
+           "sta_pipe_sT")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

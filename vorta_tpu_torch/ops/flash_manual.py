@@ -28,10 +28,17 @@ bf16 PV product follow unchanged, and the output has v's dtype.  The plain
 version's f32 einsum of the int8 values is exact (|q.k| <= 127^2 * 128 <
 2^24), so it gives the kernel's int32 sums.
 
+``softmax="stable"`` (the JAX wrapper's default; the port's default stays
+"fast", what every routed and joint caller passes): q is not pre-scaled, the
+f32 scores ``q.k`` are scaled by ``scale * log2(e)``, then ``kv_bias`` is
+added and the masked columns set to -1e30, with a running max per row (0
+while it is still -1e30, the TPU kernel's ``m_safe``); it combines with
+``kv_valid_len``, shared or per-head counts and the count-0 rows.
+
 On CUDA tensors ``sparse_flash_attention_manual`` launches
 ``csrc/flash_manual.cu``; on CPU tensors it runs the plain version,
 ``sparse_flash_attention_manual_ref``.  The TPU wrapper's other options
-belong to later slices and raise NotImplementedError.
+belong to later slices (PR 9) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,6 +50,9 @@ import torch
 
 from . import _build
 from .flash import LOG2E, _kv_column_limit
+
+NEG = -1e30
+SOFTMAXES = ("fast", "stable")
 
 
 def _check(q, k, v, kv_index, kv_count, block_q, block_kv):
@@ -110,8 +120,13 @@ def sparse_flash_attention_manual_ref(
     kv_valid_len: Optional[int] = None,
     kv_bias: Optional[torch.Tensor] = None,
     qk_scale: Optional[torch.Tensor] = None,
+    softmax: str = "fast",
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, one q block at a time."""
+    if softmax not in SOFTMAXES:
+        raise ValueError(f"softmax {softmax!r} not in {SOFTMAXES}")
+    if qk_scale is not None:
+        check_int8_qk(q, k, softmax)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     kv_valid_len = skv if kv_valid_len is None else kv_valid_len
@@ -132,8 +147,14 @@ def sparse_flash_attention_manual_ref(
     for i in range(sq // block_q):
         rows = slice(i * block_q, (i + 1) * block_q)
         vis = block_mask[:, i].repeat_interleave(block_kv, dim=-1) & col_ok  # (Hm, Skv)
-        s = scores_log2(q[:, :, rows], k, scale, qkc) + bias
-        p = torch.where(vis[None, :, None, :], torch.exp2(s), 0.0)
+        if softmax == "stable":  # q not pre-scaled: the f32 scores are scaled
+            s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows].float(), k.float())
+            s = torch.where(vis[None, :, None, :], s * (scale * LOG2E) + bias, NEG)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp2(s - torch.where(m <= NEG, 0.0, m))
+        else:
+            s = scores_log2(q[:, :, rows], k, scale, qkc) + bias
+            p = torch.where(vis[None, :, None, :], torch.exp2(s), 0.0)
         l = p.sum(dim=-1, keepdim=True)
         if v.dtype != torch.float32:
             p = p.to(v.dtype).float()
@@ -148,7 +169,7 @@ def _flash_manual_fn():
     fn = _build.load("flash_manual").vorta_flash_manual_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 12 + [p]
+        fn.argtypes = [p] * 8 + [i] * 13 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -176,18 +197,20 @@ def sparse_flash_attention_manual(
     W) and kv_count: (1 or H, Sq//block_q) int32 tensors (or numpy);
     kv_bias: (1, Skv) f32 or None; qk_scale: (H,) f32 with int8 q / k, or
     None.  On CUDA: bf16 v (and q / k unless int8), D 64 or 128, block_q a
-    multiple of 16.  Only the fast softmax is served (the JAX wrapper
-    defaults to the stable one; every routed caller passes "fast")."""
+    multiple of 16.  softmax "fast" (the port's default, what every routed
+    caller passes) or "stable" (the JAX wrapper's default)."""
     if qk_scale is not None:
         check_int8_qk(q, k, softmax)
+    if softmax not in SOFTMAXES:
+        raise ValueError(f"softmax {softmax!r} not in {SOFTMAXES}")
     unported = (
-        (kv_valid is not None, "per-head kv_valid is not ported (no JAX call site passes it)"),
+        (kv_valid is not None, "per-head kv_valid belongs to a later slice (PR 9): no JAX "
+                               "call site passes it"),
         (pair_bits is not None or tokens_per_tile is not None,
-         "pair_bits of this kernel are not ported: no JAX call site passes them (the STA "
-         "pair bits run in ops/sta_batched.py)"),
-        (softmax != "fast", f"softmax={softmax!r}: the stable softmax of this kernel belongs "
-                            "to a later slice (ops/flash.py serves it)"),
-        (not cast_p_to_v_dtype, "P is always cast to v's dtype here"),
+         "pair_bits of this kernel belong to a later slice (PR 9): no JAX call site passes "
+         "them (the STA pair bits run in ops/sta_batched.py)"),
+        (not cast_p_to_v_dtype, "cast_p_to_v_dtype=False (P kept in f32) belongs to a later "
+                                "slice (PR 9): P is always cast to v's dtype here"),
     )
     for bad, why in unported:
         if bad:
@@ -199,7 +222,7 @@ def sparse_flash_attention_manual(
     if q.device.type == "cpu":
         return sparse_flash_attention_manual_ref(
             q, k, v, kv_index, kv_count, block_q=block_q, block_kv=block_kv, scale=scale,
-            kv_valid_len=kv_valid_len, kv_bias=kv_bias, qk_scale=qk_scale)
+            kv_valid_len=kv_valid_len, kv_bias=kv_bias, qk_scale=qk_scale, softmax=softmax)
 
     _build.forward_only("sparse_flash_attention_manual", q, k, v)
     dev = _build.require_cuda(q, k, v)
@@ -207,7 +230,8 @@ def sparse_flash_attention_manual(
     qk_dtype = torch.bfloat16 if qk_scale is None else torch.int8
     if v.dtype != torch.bfloat16 or q.dtype != qk_dtype or k.dtype != qk_dtype:
         raise NotImplementedError(f"the CUDA flash_manual kernel takes bf16 (q / k int8 with "
-                                  f"qk_scale), got {q.dtype}, {k.dtype}, {v.dtype}")
+                                  f"qk_scale; f32: a later slice, PR 10), got {q.dtype}, "
+                                  f"{k.dtype}, {v.dtype}")
     if d not in (64, 128) or block_q % 16:
         raise NotImplementedError(f"the CUDA flash_manual kernel takes D 64/128 and "
                                   f"block_q % 16 == 0, got D={d}, block_q={block_q}")
@@ -216,16 +240,20 @@ def sparse_flash_attention_manual(
     bias = None if kv_bias is None else _bias_row(kv_bias, skv).contiguous()
     qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
     _build.require_cuda(q, bias, qkc)
-    qs = (_prescale(q, scale) if qkc is None else q).contiguous()
+    stable = softmax == "stable"
+    qs = (_prescale(q, scale) if qkc is None and not stable else q).contiguous()
     k, v = k.contiguous(), v.contiguous()
     out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     err = _flash_manual_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         kv_index.data_ptr(), kv_count.data_ptr(), _build.ptr(bias), _build.ptr(qkc),
         b, h, sq, skv, d, kv_index.shape[0], kv_count.shape[0], kv_index.shape[1],
-        kv_index.shape[2], block_q, block_kv, kv_valid_len, _build.stream_ptr(dev))
+        kv_index.shape[2], block_q, block_kv, kv_valid_len, int(stable), float(scale * LOG2E),
+        _build.stream_ptr(dev))
     _build.check(err, "flash_manual")
     _build.launches["flash_manual"] += 1
     if qkc is not None:
         _build.launches["flash_manual_int8"] += 1
+    if stable:
+        _build.launches["flash_manual_stable"] += 1
     return out

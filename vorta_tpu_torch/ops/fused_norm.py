@@ -1,5 +1,5 @@
-"""Fused LayerNorm / RMSNorm (+ AdaLN modulation), counterpart of
-vorta_tpu/ops/fused_norm.py.
+"""Fused LayerNorm / RMSNorm (+ AdaLN modulation), and the residual update
+fused with the LayerNorm after it, counterpart of vorta_tpu/ops/fused_norm.py.
 
 f32 statistics regardless of the activation dtype (diffusers FP32LayerNorm
 semantics), optional affine gamma/beta, optional AdaLN
@@ -11,6 +11,16 @@ norms, so ``fused_norm`` is a ``torch.autograd.Function`` on both devices:
 its backward, ``_norm_bwd``, recomputes the f32 statistics in plain
 PyTorch, the port of the JAX package's ``_fused_norm_bwd`` (XLA there, not
 Pallas).
+
+``fused_residual_norm`` returns ``(x_new, y)``: ``x_new = x + delta * gate``
+rounded to x's dtype, and ``y`` the LayerNorm of that rounded ``x_new``
+(the statistics on the rounded values, as the unfused code computes them)
+with the same optional affine and AdaLN terms, in x's dtype.  On CUDA it
+launches the second entry of ``csrc/fused_norm.cu`` under ``fused_norm``'s
+rule (bf16, dim up to 12,288; the rest raises), on the CPU it runs
+``_res_norm_ref``; its backward, ``_res_norm_bwd``, is plain PyTorch, as the
+JAX package's ``_frn_bwd`` is plain XLA.  No model calls it, as in the JAX
+package (its blocks keep the residual adds apart).
 """
 
 from __future__ import annotations
@@ -59,16 +69,23 @@ def _f32_vec(t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
     return t
 
 
+def _check_kernel_rule(what: str, x: torch.Tensor) -> None:
+    """The shapes the norm kernels take: bf16, a row of f32 in 48 KiB of
+    shared memory."""
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(f"{what} kernel: dtype {x.dtype} (bf16 only; f32 belongs to a "
+                                  "later slice, PR 10)")
+    if x.shape[-1] * 4 > 48 * 1024:
+        raise NotImplementedError(f"{what} kernel: dim {x.shape[-1]} > 12288")
+
+
 def _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32):
     if x.device.type == "cpu":
         return _norm_ref(x, scale, shift, gamma, beta, rms=rms, eps=eps, out_f32=out_f32)
 
     b, s, dim = x.shape
     dev = _build.require_cuda(x, scale, shift, gamma, beta)
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"fused_norm kernel: dtype {x.dtype}")
-    if dim * 4 > 48 * 1024:
-        raise NotImplementedError(f"fused_norm kernel: dim {dim} > 12288")
+    _check_kernel_rule("fused_norm", x)
     scale, shift = _f32_vec(scale, (b, dim)), _f32_vec(shift, (b, dim))
     gamma, beta = _f32_vec(gamma, (dim,)), _f32_vec(beta, (dim,))
     x = x.contiguous()
@@ -141,3 +158,89 @@ def fused_norm(x: torch.Tensor, scale: Optional[torch.Tensor], shift: Optional[t
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift come together")
     return _FusedNorm.apply(x, scale, shift, gamma, beta, rms, eps, out_f32)
+
+
+# ---- residual + norm fusion ---------------------------------------------------
+
+def _res_norm_ref(x, delta, gate, scale, shift, gamma, beta, eps):
+    """Plain PyTorch version of the residual kernel: (x_new, y)."""
+    df = delta.float()
+    if gate is not None:
+        df = df * gate.float()[:, None, :]
+    x_new = (x.float() + df).to(x.dtype)
+    return x_new, _norm_ref(x_new, scale, shift, gamma, beta, rms=False, eps=eps, out_f32=False)
+
+
+def _res_norm_fn():
+    fn = _build.load("fused_norm").vorta_fused_residual_norm
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _res_norm_fwd(x, delta, gate, scale, shift, gamma, beta, eps):
+    if x.device.type == "cpu":
+        return _res_norm_ref(x, delta, gate, scale, shift, gamma, beta, eps)
+
+    b, s, dim = x.shape
+    dev = _build.require_cuda(x, delta, gate, scale, shift, gamma, beta)
+    _check_kernel_rule("fused_residual_norm", x)
+    if delta.dtype != x.dtype:
+        raise NotImplementedError(f"fused_residual_norm kernel: delta {delta.dtype}, x {x.dtype}")
+    gate, scale, shift = (_f32_vec(t, (b, dim)) for t in (gate, scale, shift))
+    gamma, beta = _f32_vec(gamma, (dim,)), _f32_vec(beta, (dim,))
+    x, delta = x.contiguous(), delta.contiguous()
+    x_new, y = torch.empty_like(x), torch.empty_like(x)
+    err = _res_norm_fn()(
+        x.data_ptr(), delta.data_ptr(), x_new.data_ptr(), y.data_ptr(), _build.ptr(gate),
+        _build.ptr(scale), _build.ptr(shift), _build.ptr(gamma), _build.ptr(beta), b, s, dim,
+        float(eps), _build.stream_ptr(dev))
+    _build.check(err, "fused_residual_norm")
+    _build.launches["fused_residual_norm"] += 1
+    return x_new, y
+
+
+def _res_norm_bwd(g_xnew, g_y, x, delta, gate, scale, shift, gamma, beta, eps):
+    """Gradients of ``_res_norm_ref``: the LayerNorm backward at the rounded
+    x_new, then through the residual, exactly the JAX package's
+    ``_frn_bwd``."""
+    df = delta.float()
+    gatef = None if gate is None else gate.float()[:, None, :]
+    xn = (x.float() + (df if gatef is None else df * gatef)).to(x.dtype)  # forward rounding
+    d_x, d_scale, d_shift, d_gamma, d_beta = _norm_bwd(g_y, xn, scale, shift, gamma, beta,
+                                                       False, eps)
+    d_xnew = g_xnew.float() + d_x.float()
+    d_delta = d_xnew if gatef is None else d_xnew * gatef
+    d_gate = None if gate is None else (d_xnew * df).sum(dim=1).to(gate.dtype)
+    return (d_xnew.to(x.dtype), d_delta.to(delta.dtype), d_gate, d_scale, d_shift, d_gamma,
+            d_beta)
+
+
+class _FusedResidualNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, delta, gate, scale, shift, gamma, beta, eps):
+        ctx.save_for_backward(x, delta, gate, scale, shift, gamma, beta)
+        ctx.eps = eps
+        return _res_norm_fwd(x, delta, gate, scale, shift, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g_xnew, g_y):
+        grads = _res_norm_bwd(g_xnew, g_y, *ctx.saved_tensors, ctx.eps)
+        return (*grads, None)
+
+
+def fused_residual_norm(x: torch.Tensor, delta: torch.Tensor, gate: Optional[torch.Tensor],
+                        scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
+                        gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
+                        eps: float):
+    """(x + delta * gate, LayerNorm(x + delta * gate) modulated), both in x's
+    dtype.  x / delta: (B, S, dim); gate / scale / shift: (B, dim) or None;
+    gamma / beta: (dim,) or None.  Differentiable in every tensor input."""
+    if x.ndim != 3 or delta.shape != x.shape:
+        raise ValueError(f"fused_residual_norm takes x and delta (B, S, dim), got "
+                         f"{tuple(x.shape)} and {tuple(delta.shape)}")
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift come together")
+    return _FusedResidualNorm.apply(x, delta, gate, scale, shift, gamma, beta, eps)

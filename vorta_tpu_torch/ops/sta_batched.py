@@ -15,11 +15,14 @@ neither of its window-dense kernels, and the joint STA expert's small tiles
 or text lengths not a multiple of 8, run here (ops/routed_fused.py,
 ops/joint_experts.py).
 
-Softmax is the TPU kernel's fast form, the only one its callers pass: q
-pre-scaled by ``scale * log2(e)`` in q's dtype, ``p = exp2(q.k + bias)``
-with no running max and no ``log2(e)`` on the bias, a masked entry exactly
-0, P cast to v's dtype before the PV product, ``l == 0`` rows (a q block
-with count 0, a row that sees nothing) giving 0.  Heads whose ``active``
+Softmax ``"fast"`` is the TPU kernel's fast form, the one its callers pass
+(and the port's default): q pre-scaled by ``scale * log2(e)`` in q's dtype,
+``p = exp2(q.k + bias)`` with no running max and no ``log2(e)`` on the
+bias, a masked entry exactly 0, P cast to v's dtype before the PV product,
+``l == 0`` rows (a q block with count 0, a row that sees nothing) giving 0.
+``"stable"`` (the JAX wrapper's default): q not pre-scaled, the f32 scores
+scaled by ``scale * log2(e)``, the bias added, hidden pairs -1e30, and a
+running max per row with the TPU kernel's ``m_safe``.  Heads whose ``active``
 entry is 0 write zeros: the TPU wrapper's callers pack the routed heads
 first so that whole head groups skip; the port launches over all heads with
 the mask, and each head's output is the same.
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .flash import BlockTables
+from .flash import LOG2E, BlockTables
 from .flash_manual import _bias_row, _prescale
 
 NEG = -1e30
@@ -126,10 +129,11 @@ def _check(q, k, v, kv_index, kv_count, active, pair_bits, block_q: int, block_k
 
 
 def _check_options(softmax: str, cast_p_to_v_dtype: bool) -> None:
-    if softmax != "fast" or not cast_p_to_v_dtype:
-        raise NotImplementedError(
-            f"softmax={softmax!r}, cast_p_to_v_dtype={cast_p_to_v_dtype}: only the fast "
-            "softmax with P cast to v's dtype is served (the JAX package's only callers)")
+    if softmax not in ("fast", "stable"):
+        raise ValueError(f"softmax {softmax!r} not in ('fast', 'stable')")
+    if not cast_p_to_v_dtype:
+        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) belongs to a later "
+                                  "slice (PR 9): P is always cast to v's dtype here")
 
 
 def sta_flash_headbatched_ref(q, k, v, kv_index, kv_count, active, *, pair_bits=None,
@@ -149,7 +153,8 @@ def sta_flash_headbatched_ref(q, k, v, kv_index, kv_count, active, *, pair_bits=
     skv = k.shape[2]
     scale = d**-0.5 if scale is None else scale
     sub = _subtile(pair_bits, tokens_per_tile, block_q, block_kv)
-    qs = _prescale(q, scale).float()
+    stable = softmax == "stable"
+    qs = q.float() if stable else _prescale(q, scale).float()
     kb = k.float().reshape(b, h, skv // block_kv, block_kv, d)
     vb = v.float().reshape(b, h, skv // block_kv, block_kv, d)
     bias = None if kv_bias is None else _bias_row(kv_bias, skv).to(dev).reshape(-1, block_kv)
@@ -167,13 +172,19 @@ def sta_flash_headbatched_ref(q, k, v, kv_index, kv_count, active, *, pair_bits=
         rows = slice(i * block_q, (i + 1) * block_q)
         s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, rows],
                          kb[:, :, blocks].reshape(b, h, c * block_kv, d))
+        if stable:  # q not pre-scaled: the f32 scores are scaled
+            s = s * (scale * LOG2E)
         if bias is not None:
             s = s + bias[blocks].reshape(-1)
         if sub is not None:
             w = words[i, :c][None, :, None]  # (1, c, 1)
             vis = torch.where(shift < 32, (w >> shift.clamp(max=31)) & 1, 0).bool()
             s = torch.where(vis.reshape(block_q, c * block_kv), s, NEG)
-        p = torch.exp2(s)
+        if stable:
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp2(s - torch.where(m <= NEG, 0.0, m))
+        else:
+            p = torch.exp2(s)
         l = p.sum(dim=-1, keepdim=True)
         if v.dtype != torch.float32:
             p = p.to(v.dtype).float()
@@ -187,7 +198,7 @@ def _sta_batched_fn():
     fn = _build.load("sta_batched").vorta_sta_batched_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 11 + [p]
+        fn.argtypes = [p] * 9 + [i] * 12 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -216,7 +227,7 @@ def sta_flash_headbatched(
         return sta_flash_headbatched_ref(
             q, k, v, kv_index, kv_count, active, pair_bits=pair_bits,
             tokens_per_tile=tokens_per_tile, kv_bias=kv_bias, scale=scale, block_q=block_q,
-            block_kv=block_kv)
+            block_kv=block_kv, softmax=softmax)
 
     _build.forward_only("sta_flash_headbatched", q, k, v)
     dev = _build.require_cuda(q, k, v)
@@ -229,15 +240,16 @@ def sta_flash_headbatched(
     skv = k.shape[2]
     sub = _subtile(pair_bits, tokens_per_tile, block_q, block_kv)
     if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise NotImplementedError(f"the CUDA sta_batched kernel takes bf16, got {q.dtype}, "
-                                  f"{k.dtype}, {v.dtype}")
+        raise NotImplementedError(f"the CUDA sta_batched kernel takes bf16 (f32: a later slice, "
+                                  f"PR 10), got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
         raise NotImplementedError(f"the CUDA sta_batched kernel takes D 64/128 and blocks that "
                                   f"are multiples of 8, got D={d}, blocks {block_q}/{block_kv}")
     scale = d**-0.5 if scale is None else scale
     bias = None if kv_bias is None else _bias_row(kv_bias, skv).contiguous()
     _build.require_cuda(q, bias)
-    qs = _prescale(q, scale).contiguous()
+    stable = softmax == "stable"
+    qs = (q if stable else _prescale(q, scale)).contiguous()
     k, v = k.contiguous(), v.contiguous()
     out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     tpt, _, k_sub = sub if sub is not None else (0, 0, 0)
@@ -245,7 +257,9 @@ def sta_flash_headbatched(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_index.data_ptr(),
         kv_count.data_ptr(), _build.ptr(pair_bits), _build.ptr(bias), active.data_ptr(),
         b, h, sq, skv, d, sq // block_q, kv_index.shape[2], block_q, block_kv, tpt, k_sub,
-        _build.stream_ptr(dev))
+        int(stable), float(scale * LOG2E), _build.stream_ptr(dev))
     _build.check(err, "sta_batched")
     _build.launches["sta_batched"] += 1
+    if stable:
+        _build.launches["sta_batched_stable"] += 1
     return out

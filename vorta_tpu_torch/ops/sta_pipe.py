@@ -24,6 +24,17 @@ ops/flash_manual.py, the output in v's dtype.  No served call site passes it
 (the routed and joint STA experts stay bf16 under ``qk_int8``, as in the JAX
 package); the JAX package's int8 probe tool does.
 
+``softmax="stable"`` keeps a running max per row (q still pre-scaled, as
+the JAX wrapper pre-scales it; the text tail follows the same rule), and
+``variant`` selects the TPU kernel's diagnostic bodies (sta_pipe.py:270-302):
+``dots`` (``p = bf16(s * 1e-3)``, no max, no l), ``qk`` (``acc += rowsum(s)
+* 1e-3`` on every column, no PV) and ``sT`` (the fast softmax on the
+transposed scores: the fast ``full`` output).  As in the JAX kernel, a
+variant runs only where ``tile_w`` is a multiple of 8: elsewhere the TPU
+kernel's masked-width branch runs the softmax whatever the variant; the text
+tail is always the softmax step, and a stable tail after a variant rescales
+the variant's sums by ``exp2(-1e30 - m) = 0``.
+
 The TPU kernel has per-w-tile, grouped-width and masked-width variants;
 they are VMEM layouts of one function, so the port has one kernel for
 every tile width: it needs only tiles that divide the grid.
@@ -151,10 +162,29 @@ def _text_tail(text_k, text_v, text_bias, q: torch.Tensor):
     return text_k, text_v, text_bias.reshape(lt).float()
 
 
+SOFTMAXES = ("fast", "stable")
+VARIANTS = ("full", "dots", "qk", "sT")
+NEG = -1e30
+MODES = ("fast", "stable", "dots", "qk", "sT")  # the kernel's mode numbers
+
+
+def _modes(softmax: str, variant: str, tile: Shape3) -> str:
+    """The window's mode: the variant where tile_w is a multiple of 8 (the
+    TPU kernel's per-w-tile branch), else the softmax (its masked-width and
+    grouped-width branches run only the softmax)."""
+    if softmax not in SOFTMAXES:
+        raise ValueError(f"softmax {softmax!r} not in {SOFTMAXES}")
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    return variant if variant != "full" and tile[2] % 8 == 0 else softmax
+
+
 def sta_pipe_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
                            window: Shape3 = (3, 3, 3), scale: Optional[float] = None,
-                           text_k=None, text_v=None, text_bias=None, qk_scale=None):
+                           text_k=None, text_v=None, text_bias=None, qk_scale=None,
+                           softmax: str = "fast", variant: str = "full"):
     """Plain PyTorch version of the kernel, a few q tiles at a time."""
+    mode = _modes(softmax, variant, tile)
     text_k, text_v, text_bias = _text_tail(text_k, text_v, text_bias, q)
     b, h, s, d = q.shape
     scale = d**-0.5 if scale is None else scale
@@ -164,21 +194,40 @@ def sta_pipe_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Shape
     tpt = s // n_tiles
     tq = tile_sequence(q, latent_shape, tile).reshape(b, h, n_tiles, tpt, d)
     out = torch.empty((b, h, n_tiles, tpt, d), dtype=v.dtype, device=q.device)
+    cast = v.dtype != torch.float32
     chunk = max(1, 2**28 // (b * h * tpt * nk))
     for c0 in range(0, n_tiles, chunk):
         idx = keys[c0:c0 + chunk]
         vc = v[:, :, idx].float()  # (B, H, c, nk, D)
         qc = tq[:, :, c0:c0 + chunk]
-        p = torch.exp2(scores_log2(qc, k[:, :, idx], scale, qkc))
-        l = p.sum(dim=-1, keepdim=True)
-        if v.dtype != torch.float32:
-            p = p.to(v.dtype).float()
-        o = torch.einsum("bhcqk,bhckd->bhcqd", p, vc)
+        sc = scores_log2(qc, k[:, :, idx], scale, qkc)
+        m = torch.full(sc.shape[:-1] + (1,), NEG, device=q.device)  # a variant keeps no max
+        l = torch.zeros_like(m)
+        if mode == "qk":
+            o = (sc.sum(dim=-1, keepdim=True) * 1e-3).expand(-1, -1, -1, -1, d)
+        else:
+            if mode == "dots":
+                p = sc * 1e-3
+            else:
+                if mode == "stable":
+                    m = sc.amax(dim=-1, keepdim=True)
+                p = torch.exp2(sc - m) if mode == "stable" else torch.exp2(sc)
+                l = p.sum(dim=-1, keepdim=True)
+            if cast:
+                p = p.to(v.dtype).float()
+            o = torch.einsum("bhcqk,bhckd->bhcqd", p, vc)
         if text_k is not None:
             tk = text_k[:, :, None].expand(-1, -1, qc.shape[2], -1, -1)
-            pt = torch.exp2(scores_log2(qc, tk, scale, qkc) + text_bias)
+            st = scores_log2(qc, tk, scale, qkc) + text_bias
+            if softmax == "stable":  # one more online step after the window's keys
+                m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                pt = torch.exp2(st - m_new)
+                l, o = l * alpha, o * alpha
+            else:
+                pt = torch.exp2(st)
             l = l + pt.sum(dim=-1, keepdim=True)
-            if v.dtype != torch.float32:
+            if cast:
                 pt = pt.to(v.dtype).float()
             o = o + torch.einsum("bhcqk,bhkd->bhcqd", pt, text_v.float())
         out[:, :, c0:c0 + chunk] = (o / torch.where(l == 0.0, 1.0, l)).to(v.dtype)
@@ -191,7 +240,7 @@ def _sta_fn():
     fn = _build.load("sta_pipe").vorta_sta_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 13 + [p]
+        fn.argtypes = [p] * 9 + [i] * 15 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -216,16 +265,17 @@ def sta_pipe_attention(
 ) -> torch.Tensor:
     """Sliding-tile attention, with the joint text tail where ``text_k`` and
     ``text_v`` are given; on CUDA bf16 q/k/v (and text) with D 64 or 128,
-    q / k / text_k int8 with ``qk_scale``."""
+    q / k / text_k int8 with ``qk_scale`` (fast full only)."""
     if qk_scale is not None:
         if variant != "full":
             raise ValueError("qk_scale requires softmax='fast', variant='full'")
         check_int8_qk(q, k, softmax)
         if text_k is not None and text_k.dtype != torch.int8:
             raise ValueError(f"qk_scale requires int8 text_k, got {text_k.dtype}")
-    if softmax != "fast" or variant != "full" or not cast_p_to_v_dtype:
-        raise NotImplementedError(
-            f"softmax={softmax!r}, variant={variant!r}: only the fast full variant is served")
+    mode = _modes(softmax, variant, tile)
+    if not cast_p_to_v_dtype:
+        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) belongs to a later "
+                                  "slice (PR 9): P is always cast to v's dtype here")
     b, h, s, d = q.shape
     t, hh, w = latent_shape
     if s != t * hh * w:
@@ -239,7 +289,8 @@ def sta_pipe_attention(
     if q.device.type == "cpu":
         return sta_pipe_attention_ref(q, k, v, active, latent_shape=latent_shape, tile=tile,
                                       window=window, scale=scale, text_k=text_k,
-                                      text_v=text_v, text_bias=text_bias, qk_scale=qk_scale)
+                                      text_v=text_v, text_bias=text_bias, qk_scale=qk_scale,
+                                      softmax=softmax, variant=variant)
 
     _build.forward_only("sta_pipe_attention", q, k, v, text_k, text_v)
     dev = _build.require_cuda(q, k, v, text_k, text_v, text_bias)
@@ -247,7 +298,8 @@ def sta_pipe_attention(
     if (any(x is not None and x.dtype != qk_dtype for x in (q, k, text_k))
             or any(x is not None and x.dtype != torch.bfloat16 for x in (v, text_v))):
         raise NotImplementedError(f"the CUDA sta_pipe kernel takes bf16 (q / k / text_k int8 "
-                                  f"with qk_scale), got {q.dtype}, {k.dtype}, {v.dtype}")
+                                  f"with qk_scale; f32: a later slice, PR 10), got {q.dtype}, "
+                                  f"{k.dtype}, {v.dtype}")
     if d not in (64, 128):
         raise NotImplementedError(f"the CUDA sta_pipe kernel takes D 64/128, got {d}")
     active = torch.as_tensor(active, device=dev).to(torch.int32).contiguous()
@@ -263,9 +315,13 @@ def sta_pipe_attention(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
         *(_build.ptr(x) for x in text), _build.ptr(qkc),
         0 if text_k is None else text_k.shape[2], b, h, t, hh, w, d, *tile, *window,
-        _build.stream_ptr(dev))
+        MODES.index(mode), int(softmax == "stable"), _build.stream_ptr(dev))
     _build.check(err, "sta_pipe")
     _build.launches["sta_pipe"] += 1
     if qkc is not None:
         _build.launches["sta_pipe_int8"] += 1
+    if softmax == "stable":
+        _build.launches["sta_pipe_stable"] += 1
+    if mode not in SOFTMAXES:  # a diagnostic variant ran
+        _build.launches[f"sta_pipe_{mode}"] += 1
     return out
