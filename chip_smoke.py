@@ -5,11 +5,18 @@
 
 Phases, each raising on failure:
   1. device: torch / CUDA versions, the card's name and power limit; build
-     the CUDA kernels from csrc/ (one nvcc per source, in parallel).
+     the CUDA kernels from csrc/ (one nvcc per source, in parallel); ptxas's
+     registers and spills of every kernel, and of the Hopper path's two
+     instantiations (csrc/attn_sm90.cuh, which must not spill) with its
+     dynamic shared memory.  Every flash and flash_manual row reports its
+     achieved TFLOP/s, its share of the bound and its ratio to the library
+     call.
   2. kernels: each kernel on the card against its plain PyTorch version on
      the same inputs, with kernel / plain / library / bound times: flash,
      AdaLN norm and qk prologue at the routing-off path's shapes (Wan-1.3B
-     at 480p x 21 frames = 9,360 tokens, bf16); flash_manual, sta_pipe,
+     at 480p x 21 frames = 9,360 tokens, bf16), flash also at 720p x 77f
+     self-attention (1,12,72000,128), held against the plain version on one
+     head, beside SDPA on all twelve; flash_manual, sta_pipe,
      pool_qkv and unpool at the routed path's (480p x 77 frames = 31,200
      tokens; sta_pipe also at 720p's tile), some heads routed away.
   2h. the pool's head-map mode (pool_qkv / unpool over the routed heads
@@ -122,6 +129,11 @@ HunyuanVideo-13B (its phases free the Wan models first):
   e. Wan-14B (40 blocks, dim 5120) from an int4 stack through a depth-1
      model: its GiB, one 480p x 77f forward routed hard with its time and
      peak memory, and a 2-block check, card vs CPU on the same stack.
+Every main path's launch counts are exact, the Hopper path's subset
+counters (flash_wgmma, flash_manual_wgmma) included: on the served paths
+every flash and flash_manual launch takes that path (flash_manual's int8 QK
+mode too), in training all but the STA expert's (96- and 360-token
+tiles).  Phase 6 counts its forwards' launches too.
 Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
@@ -199,6 +211,68 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def with_rate(t: dict, flops: float) -> dict:
+    """A timing (ms, bound_ms, library_ms) with its achieved TFLOP/s, its
+    share of the bound and its ratio to the library call added."""
+    t["tflops"] = flops / t["ms"] / 1e9
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    if t.get("library_ms"):
+        t["vs_library"] = t["ms"] / t["library_ms"]
+    return t
+
+
+def served_on_wgmma(launches: dict, what: str) -> None:
+    """On a served path every flash and flash_manual launch (the int8 QK mode
+    too) takes the Hopper path (its counters are subsets)."""
+    want = (launches["flash"], launches["flash_manual"])
+    got = (launches["flash_wgmma"], launches["flash_manual_wgmma"])
+    if got != want:
+        raise RuntimeError(f"{what}: Hopper-path launches (flash, flash_manual) {got} != {want}")
+    log(f"{what}: flash {got[0]} of {launches['flash']}, flash_manual {got[1]} of "
+        f"{launches['flash_manual']} launches on the Hopper path")
+
+
+def ptxas_entries(logs: dict, entry: str) -> list:
+    """(source, entry, registers line, spill line) of every kernel whose
+    mangled name holds ``entry``, from nvcc's -Xptxas -v reports."""
+    out = []
+    for src, text in logs.items():
+        name = spill = None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1] if "'" in line else line
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line and name and entry in name:
+                out.append((src, name, line.strip(), spill))
+    return out
+
+
+def build_kernels() -> None:
+    """Build every kernel (one nvcc per source, in parallel) and report
+    ptxas's registers and spills; the Hopper path's two instantiations must
+    not spill."""
+    from vorta_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.build_all()
+    log(f"kernels built in {time.time() - t0:.1f}s into {_build.build_dir()}")
+    for name, text in _build.ptxas_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+    hopper = ptxas_entries(_build.ptxas_logs, "sm90_kernel")
+    smem = _build.load("flash").vorta_attn_sm90_smem_bytes()
+    for src, entry, regs, spill in hopper:
+        log(f"ptxas Hopper path {src} {entry}: {regs}; {spill}; dynamic shared memory "
+            f"{smem} bytes")
+    if sorted(src for src, *_ in hopper) != ["flash", "flash_manual", "flash_manual"] or any(
+            spill is None or "0 bytes spill stores, 0 bytes spill loads" not in spill
+            for *_, spill in hopper):
+        raise RuntimeError(f"the Hopper path's instantiations: {hopper} (flash's, "
+                           "flash_manual's bf16 and int8; no spills)")
+
+
 def main() -> int:
     import torch
 
@@ -223,13 +297,7 @@ def main() -> int:
         f"{torch.cuda.device_count()} device(s))")
     from vorta_tpu_torch.ops import _build
 
-    t0 = time.time()
-    _build.build_all()
-    log(f"kernels built in {time.time() - t0:.1f}s into {_build.build_dir()}")
-    for name, text in _build.ptxas_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+    build_kernels()
 
     import gc
 
@@ -265,7 +333,7 @@ def main() -> int:
         launches_int8, per_step_int8 = phase("main_routed_int8", run_routed_main_path, torch,
                                              card, True)
         static = phase("static_scales", run_static_scales, torch, card)
-        phase("720p", run_720p_forward, torch, card)
+        fwd_720p = phase("720p", run_720p_forward, torch, card)
         launches_4910, per_step_4910 = phase("wan_4910", run_wan_fallback_path, torch, card)
         hy_kernels = phase("hunyuan_kernels", check_hunyuan_kernels, torch, card)
         phase("hunyuan_model_check", lambda: (
@@ -307,6 +375,10 @@ def main() -> int:
     for k in kernels:
         name = k.pop("_counter")
         paths = by_path(name)
+        if f"{name}_wgmma" in _build.launches:  # the Hopper path's share of the launches
+            k["wgmma_launches_by_path"] = {**by_path(f"{name}_wgmma"), "720p_77f_off": fwd_720p[
+                "launches_off"][f"{name}_wgmma"], "720p_77f_routed": fwd_720p[
+                "launches_routed"][f"{name}_wgmma"]}
         # the count of the path the kernel's slice brought: serving's routed
         # path (in int8 for the int8 mode), training for the kernels only
         # training launches, the STA fallbacks' two paths for theirs, the
@@ -352,7 +424,10 @@ def main() -> int:
           f"micro-step, {train['step_s']:.3f} s per optimizer step, peak "
           f"{train['max_memory_gib']:.2f} GiB; HunyuanVideo-13B 720p x 45f off "
           f"{hy_per_step['hunyuan_off']:.3f}, routed {hy_per_step['hunyuan']:.3f} s per Euler "
-          f"step (1 forward each); 720p x 117f forward routed {hy_ref['hard_ms']:.1f} ms, off "
+          f"step (1 forward each); Wan 720p x 77f forward off {fwd_720p['off_ms']:.1f} ms, routed "
+          f"(trained router, t = 500) {fwd_720p['routed_ms']:.1f} ms, off / routed "
+          f"{fwd_720p['off_over_routed']:.3f}; Hunyuan 720p x 117f forward routed "
+          f"{hy_ref['hard_ms']:.1f} ms, off "
           f"{hy_ref['off_ms']:.1f} ms; --qk_int8 --mm int8: Wan routed {per_step_int8:.3f} s "
           f"per denoise step, HunyuanVideo-13B off {hy_per_step['hunyuan_off_int8']:.3f}, "
           f"routed {hy_per_step['hunyuan_int8']:.3f} s per Euler step; Wan-14B int4 stack "
@@ -466,11 +541,38 @@ def check_kernels(torch, card: str) -> list:
     del want, unmasked
     flops = 4.0 * s * s * d * h
     b_ms, b_by = bound_ms(flops, 4 * q.numel() * 2, PEAK_BF16)
-    self_t = dict(ms=time_ms(torch, flash, 10), plain_ms=time_ms(torch, plain, 2, 1),
-                  library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                      q[:, :, :s], k[:, :, :s], v[:, :, :s]), 10),
-                  bound_ms=b_ms, bound_by=b_by)
-    log(f"flash self-attention: {self_t} (achieved {flops / self_t['ms'] / 1e9:.1f} TFLOP/s)")
+    self_t = with_rate(dict(ms=time_ms(torch, flash, 10), plain_ms=time_ms(torch, plain, 2, 1),
+                            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                                q[:, :, :s], k[:, :, :s], v[:, :, :s]), 10),
+                            bound_ms=b_ms, bound_by=b_by), flops)
+    log(f"flash self-attention: {self_t}")
+    del q, k, v
+
+    # ---- flash at Wan 720p x 77f self-attention (1,12,72000,128), padded to
+    # 71 x 1024: the largest flash call of the main path (one per block of a
+    # 720p forward), against the plain version on head 0 (the plain version
+    # on all twelve would hold 3.6 GB of scores per q block), SDPA on all
+    s7 = GRID_720P[0] * GRID_720P[1] * GRID_720P[2]
+    p7 = -(-s7 // 1024) * 1024
+    q7, k7, v7 = (randn(1, h, p7, d) for _ in range(3))
+    i7, c7 = dense_tables(p7 // 1024, p7 // 1024).on(dev)
+    kw7 = dict(scale=d**-0.5, block_q=1024, block_kv=1024, kv_valid_len=s7)
+    flash7 = lambda: sparse_flash_attention_raw(q7, k7, v7, i7, c7, **kw7)  # noqa: E731
+    plain7 = lambda: sparse_flash_attention_ref(q7[:, :1], k7[:, :1], v7[:, :1],  # noqa: E731
+                                                i7, c7, **kw7)
+    want7, plain7_ms = timed_once(torch, plain7)
+    err_720 = compare(torch, f"flash self-attention 720p, head 0 of (1,12,{p7},128), valid {s7}",
+                      flash7()[:, :1, :s7], want7[:, :, :s7])
+    del want7
+    flops7 = 4.0 * s7 * s7 * d * h
+    b7_ms, b7_by = bound_ms(flops7, 4 * h * s7 * d * 2, PEAK_BF16)
+    t720 = with_rate(dict(ms=time_ms(torch, flash7, 3, 1), plain_ms=None,
+                          plain_ms_one_head=plain7_ms,
+                          library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                              q7[:, :, :s7], k7[:, :, :s7], v7[:, :, :s7]), 3, 1),
+                          bound_ms=b7_ms, bound_by=b7_by, max_abs_err=err_720), flops7)
+    log(f"flash self-attention 720p: {t720}")
+    del q7, k7, v7
 
     # ---- flash: cross-attention to 512 text tokens, q padded to 5 x 2048
     qc = randn(1, h, sp, d)
@@ -482,13 +584,13 @@ def check_kernels(torch, card: str) -> list:
                         sparse_flash_attention_ref(qc, kcx, vcx, ti, tc, **kw_c)[:, :, :s])
     flops_c = 4.0 * s * TEXT_LEN * d * h
     bc_ms, bc_by = bound_ms(flops_c, (2 * qc.numel() + 2 * kcx.numel()) * 2, PEAK_BF16)
-    cross_t = dict(
+    cross_t = with_rate(dict(
         ms=time_ms(torch, lambda: sparse_flash_attention_raw(qc, kcx, vcx, ti, tc, **kw_c), 20),
         plain_ms=time_ms(torch, lambda: sparse_flash_attention_ref(qc, kcx, vcx, ti, tc,
                                                                    **kw_c), 3, 1),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qc[:, :, :s], kcx, vcx), 20),
-        bound_ms=bc_ms, bound_by=bc_by)
+        bound_ms=bc_ms, bound_by=bc_by), flops_c)
     log(f"flash cross-attention: {cross_t}")
 
     # ---- flash: small per-head tables with zero counts and a tail
@@ -545,8 +647,9 @@ def check_kernels(torch, card: str) -> list:
     return [
         dict(name="flash", route="cuda", source="vorta_tpu_torch/csrc/flash.cu",
              replaces="vorta_tpu/ops/flash.py:128", _counter="flash",
-             max_abs_err=max(err_self, err_cross, err_sparse), **self_t,
-             shapes={"self_attention_9360": self_t, "cross_attention_9360x512": cross_t}),
+             max_abs_err=max(err_self, err_cross, err_sparse, err_720), **self_t,
+             shapes={"self_attention_9360": self_t, "cross_attention_9360x512": cross_t,
+                     "self_attention_720p_72000": t720}),
         dict(name="fused_norm", route="cuda", source="vorta_tpu_torch/csrc/fused_norm.cu",
              replaces="vorta_tpu/ops/fused_norm.py:44", _counter="fused_norm",
              max_abs_err=err_norm, **norm_t),
@@ -631,11 +734,12 @@ def check_routed_kernels(torch, card: str) -> list:
         flops = 4.0 * n * n * d * n_act
         b_ms, b_by = bound_ms(flops, 4 * n * d * 2 * n_act, PEAK_BF16)
         qa, ka, va = (x[:, act > 0, :n] for x in (q, k, v))
-        fm[name] = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1),
-                        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                            qa, ka, va), 10), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        log(f"flash_manual {name}: {fm[name]} (achieved {flops / fm[name]['ms'] / 1e9:.1f} "
-            f"TFLOP/s on {n_act} heads)")
+        fm[name] = with_rate(dict(ms=time_ms(torch, kern, 10),
+                                  plain_ms=time_ms(torch, plain, 2, 1),
+                                  library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                                      qa, ka, va), 10), bound_ms=b_ms, bound_by=b_by,
+                                  max_abs_err=err), flops)
+        log(f"flash_manual {name}: {fm[name]} ({n_act} heads)")
         del q, k, v, qa, ka, va
     out.append(dict(name="flash_manual", route="cuda",
                     source="vorta_tpu_torch/csrc/flash_manual.cu",
@@ -982,9 +1086,8 @@ def check_routed_model(torch, int8: bool = False, grid=(8, 24, 20), tile=(4, 6, 
     launches = dict(_build.launches)
     if not (res.expert_ids == experts.numpy()).all():
         raise RuntimeError(f"routed model check: routing {res.expert_ids}")
-    expected = routed_wan_launches(np.asarray(res.expert_ids)[None], sta_kernel, 1, dispatch[2])
-    if int8:
-        expected["flash_manual_int8"] = expected["flash_manual"]
+    expected = routed_wan_launches(np.asarray(res.expert_ids)[None], sta_kernel, 1, dispatch[2],
+                                   int8=int8)
     if launches != expected:
         raise RuntimeError(f"routed model check: launches {launches} != {expected}")
     if not torch.isfinite(got).all():
@@ -1032,10 +1135,11 @@ def run_main_path(torch, card: str):
     if tuple(lat.shape) != (1, 6, 60, 104, 16) or not torch.isfinite(lat).all():
         raise RuntimeError(f"main path: output {tuple(lat.shape)}, finite "
                            f"{bool(torch.isfinite(lat).all())}")
-    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 60 * 4, "fused_norm": 61 * 4,
-                "prologue": 30 * 4}
+    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 60 * 4, "flash_wgmma": 60 * 4,
+                "fused_norm": 61 * 4, "prologue": 30 * 4}
     if launches != expected:
         raise RuntimeError(f"main path launches {launches} != expected {expected}")
+    served_on_wgmma(launches, "main path off")
     per_step = res.denoise_s / res.steps
     log(f"main path: Wan-1.3B 30 blocks, 9,360 tokens, 2 UniPC steps x CFG: "
         f"{res.denoise_s:.3f} s ({per_step:.3f} s/step; model build {res.build_s:.1f} s) "
@@ -1080,11 +1184,10 @@ def run_routed_main_path(torch, card: str, int8: bool = False):
     if tables.shape != (4, 30, 12):
         raise RuntimeError(f"routed main path: routing tables {tables.shape}")
     heads = np.bincount(tables.reshape(-1), minlength=3)
-    expected = routed_wan_launches(tables, "sta_pipe", tables.shape[0])
-    if int8:
-        expected["flash_manual_int8"] = expected["flash_manual"]
+    expected = routed_wan_launches(tables, "sta_pipe", tables.shape[0], int8=int8)
     if launches != expected:
         raise RuntimeError(f"routed main path launches {launches} != expected {expected}")
+    served_on_wgmma(launches, f"routed main path{' int8' if int8 else ''}")
     if not (heads > 0).all():
         raise RuntimeError(f"routed main path: an expert got no head: {heads}")
     per_step = res.denoise_s / res.steps
@@ -1095,10 +1198,13 @@ def run_routed_main_path(torch, card: str, int8: bool = False):
     return launches, per_step
 
 
-def run_720p_forward(torch, card: str) -> None:
-    """One Wan-1.3B forward at 720p x 77 frames (72,000 tokens)."""
+def run_720p_forward(torch, card: str) -> dict:
+    """One Wan-1.3B forward at 720p x 77 frames (72,000 tokens), routing off
+    then routed by the trained router: ms of each, their ratio, the routed
+    arm's heads per expert (must be the JAX package's mix), launches exact."""
     from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
     from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
 
     grid = (20, 45, 80)
     model = WanModel(WAN_1_3B, dtype=torch.bfloat16, device="cuda", seed=0)
@@ -1109,12 +1215,19 @@ def run_720p_forward(torch, card: str) -> None:
     attn = AttentionConfig(latent_shape=grid)
     model(lat, t, ctx, attn_cfg=attn)  # warm-up
     torch.cuda.synchronize()
+    _build.reset_launches()
     t0 = time.time()
     out = model(lat, t, ctx, attn_cfg=attn).sample
     torch.cuda.synchronize()
     dt = time.time() - t0
+    launches_off = dict(_build.launches)
     if not torch.isfinite(out).all():
         raise RuntimeError("720p forward: non-finite output")
+    expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 60, "flash_wgmma": 60,
+                "fused_norm": 61, "prologue": 30}
+    if launches_off != expected:
+        raise RuntimeError(f"720p forward: launches {launches_off} != expected {expected}")
+    served_on_wgmma(launches_off, "720p forward off")
     log(f"720p x 77f forward (72,000 tokens, 30 blocks, routing off): {dt * 1e3:.1f} ms "
         f"on {card}")
 
@@ -1132,10 +1245,12 @@ def run_720p_forward(torch, card: str) -> None:
     t500 = torch.tensor([500.0], device="cuda")
     model(lat, t500, ctx, attn_cfg=routed, routing_mode="hard")  # warm-up
     torch.cuda.synchronize()
+    _build.reset_launches()
     t0 = time.time()
     res = model(lat, t500, ctx, attn_cfg=routed, routing_mode="hard")
     torch.cuda.synchronize()
     dt_r = time.time() - t0
+    launches_r = dict(_build.launches)
     if not torch.isfinite(res.sample).all():
         raise RuntimeError("720p routed forward: non-finite output")
     heads = np.bincount(res.expert_ids.reshape(-1), minlength=3)
@@ -1143,6 +1258,15 @@ def run_720p_forward(torch, card: str) -> None:
         f"{dt_r * 1e3:.1f} ms on {card}; routing off / routed = {dt / dt_r:.3f}; heads over "
         f"30 blocks: full {heads[0]}, lowres {heads[1]}, sta {heads[2]} (the JAX package: "
         f"full {JAX_MIX_720P[0]}, lowres {JAX_MIX_720P[1]}, sta {JAX_MIX_720P[2]})")
+    if tuple(int(x) for x in heads) != JAX_MIX_720P:
+        raise RuntimeError(f"720p routed forward: heads per expert {heads} != the JAX "
+                           f"package's {JAX_MIX_720P}")
+    expected = routed_wan_launches(np.asarray(res.expert_ids)[None], "sta_pipe", 1)
+    if launches_r != expected:
+        raise RuntimeError(f"720p routed forward: launches {launches_r} != expected {expected}")
+    served_on_wgmma(launches_r, "720p forward routed")
+    return dict(off_ms=dt * 1e3, routed_ms=dt_r * 1e3, off_over_routed=dt / dt_r,
+                launches_off=launches_off, launches_routed=launches_r)
 
 
 # ---- HunyuanVideo-13B ----------------------------------------------------------
@@ -1255,14 +1379,13 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
             lib_err = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
             log(f"flash_manual {name}: SDPA with the float mask failed: {lib_err}")
         del qa, ka, va
-        r = dict(ms=time_ms(torch, kern, 5), plain_ms=time_ms(torch, plain, 2, 1),
-                 library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                 worst_ratio=ratio, missing_bias_worst_ratio=miss)
+        r = with_rate(dict(ms=time_ms(torch, kern, 5), plain_ms=time_ms(torch, plain, 2, 1),
+                           library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                           worst_ratio=ratio, missing_bias_worst_ratio=miss), flops)
         if lib_err:
             r["library_error"] = lib_err
         out["flash_manual"][f"hunyuan_{name}"] = r
-        log(f"flash_manual {name}: {r} (achieved {flops / r['ms'] / 1e9:.1f} TFLOP/s on "
-            f"{n_act} heads)")
+        log(f"flash_manual {name}: {r} ({n_act} heads)")
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -1422,18 +1545,18 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
     STA, pool_qkv and unpool in head-map mode with LOWRES (as the JAX
     package's joint_lowres_attention pools whenever it is given its heads);
     ``int8``: FULL's and LOWRES's flash_manual in the int8 QK mode (the STA
-    text rows stay bf16)."""
+    text rows stay bf16).  Every flash_manual launch takes the Hopper path."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
     n_fwd = tables.shape[0]
     text_rows = 0 if sta_kernel == "sta_batched" else int(has[2].sum())
+    experts = int(has[0].sum() + has[1].sum())
     return {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
-            "fused_norm": 121 * n_fwd,
-            "flash_manual": int(has[0].sum() + has[1].sum()) + text_rows,
+            "fused_norm": 121 * n_fwd, "flash_manual": experts + text_rows,
             sta_kernel: int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
-            "unpool_headmap": int(has[1].sum()),
-            "flash_manual_int8": int(has[0].sum() + has[1].sum()) if int8 else 0}
+            "unpool_headmap": int(has[1].sum()), "flash_manual_int8": experts if int8 else 0,
+            "flash_manual_wgmma": experts + text_rows}
 
 
 HY_MODEL_MODES = (("off", False), ("hard", False), ("off", True), ("hard", True))
@@ -1477,7 +1600,8 @@ def check_hunyuan_model(torch, grid=(6, 9, 16), tile=(6, 9, 8), modes=HY_MODEL_M
         got = res.sample.float().cpu()
         launches = dict(_build.launches)
         expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 2, "prologue": 2,
-                    "fused_norm": 6, "flash_manual_int8": 2 if int8 else 0}
+                    "fused_norm": 6, "flash_manual_int8": 2 if int8 else 0,
+                    "flash_manual_wgmma": 2}
         if mode == "hard":
             if not (res.expert_ids == experts.numpy()).all():
                 raise RuntimeError(f"Hunyuan model check: routing {res.expert_ids}")
@@ -1546,7 +1670,8 @@ def run_hunyuan_main_path(torch, card: str):
         if name.startswith("hunyuan_off"):
             expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60 * 2,
                         "prologue": 60 * 2, "fused_norm": 121 * 2,
-                        "flash_manual_int8": 60 * 2 if int8 else 0}
+                        "flash_manual_int8": 60 * 2 if int8 else 0,
+                        "flash_manual_wgmma": 60 * 2}
             heads = None
         else:
             tables = np.stack(res.routing)  # (forwards, blocks, heads)
@@ -1559,6 +1684,7 @@ def run_hunyuan_main_path(torch, card: str):
         if launches[name] != expected:
             raise RuntimeError(f"Hunyuan main path {name}: launches {launches[name]} != "
                                f"expected {expected}")
+        served_on_wgmma(launches[name], f"Hunyuan main path {name}")
         per_step[name] = res.denoise_s / res.steps
         log(f"Hunyuan main path {name}{' (--qk_int8 --mm int8)' if int8 else ''}: "
             f"HunyuanVideo-13B 20 + 40 blocks, 43,200 + 256 tokens, "
@@ -1815,13 +1941,16 @@ def fallback_kernel_rows(fb: dict) -> list:
     return rows
 
 
-def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "masked") -> dict:
+def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "masked",
+                        int8: bool = False) -> dict:
     """Kernel launches of hard-routed Wan forwards from their routing tables
     (forwards, blocks, heads) under a dispatch: "masked" (the default: each
     routed expert once per block, the pool in active mode), "batched" (the
     pool and unpool in head-map mode), "hybrid" (a pool and an unpool per
     LOWRES head) or "switch" (each head its own expert: a flash_manual per
-    FULL / LOWRES head, an STA launch per STA head)."""
+    FULL / LOWRES head, an STA launch per STA head).  Every flash and
+    flash_manual launch takes the Hopper path; ``int8``: flash_manual in the
+    int8 QK mode."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
@@ -1839,6 +1968,9 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
     if dispatch == "switch":
         out.update({"flash_manual": int(heads[0].sum() + heads[1].sum()),
                     sta_kernel: int(heads[2].sum())})
+    out["flash_wgmma"] = out["flash"]
+    out["flash_manual_wgmma"] = out["flash_manual"]
+    out["flash_manual_int8"] = out["flash_manual"] if int8 else 0
     return out
 
 
@@ -2017,8 +2149,8 @@ def int8_case(torch, name, kern8, plain8, bracket, kern16, act, flops, nbytes, l
              bound_by=b_by, max_abs_err=err, worst_ratio=ratio,
              bracket_worst_ratio=miss if abs(miss) < float("inf") else "non-finite",
              mean_rel_vs_bf16=rel)
-    log(f"{name}: {r} (int8 / bf16 time {r['ms'] / r['bf16_ms']:.3f}; achieved "
-        f"{sum(flops) / r['ms'] / 1e9:.1f} T/s)")
+    with_rate(r, sum(flops))
+    log(f"{name}: {r} (int8 / bf16 time {r['ms'] / r['bf16_ms']:.3f})")
     return r
 
 
@@ -2456,11 +2588,8 @@ def check_training_kernels(torch, card: str) -> list:
         res["dkv"][name] = dict(ms=time_ms(torch, lambda: bwd(need_dq=False), 10),
                                 plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=dkv_ms,
                                 bound_by=dkv_by, max_abs_err=max(errs[1:]))
-        for kind in ("lse", "dq", "dkv"):
-            r = res[kind][name]
-            log(f"{kind} {name}: {r} (achieved "
-                f"{(4.0, 6.0, 8.0)[('lse', 'dq', 'dkv').index(kind)] * pairs * d / r['ms'] / 1e9:.1f}"
-                f" TFLOP/s)")
+        for kind, per_pair in (("lse", 4.0), ("dq", 6.0), ("dkv", 8.0)):
+            log(f"{kind} {name}: {with_rate(res[kind][name], per_pair * pairs * d)}")
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
 
@@ -2540,9 +2669,13 @@ def train_launches(kernels, num_layers: int) -> dict:
         and get no backward; its cross-attention q does (through the routed
         residual), so it runs with lse and gets dq only: the text k and v
         are frozen.  Blocks 1..L-1: 4 flash with lse; backward dq x 4 and
-        dk/dv x 3 (the experts); the student's head: 1 norm."""
+        dk/dv x 3 (the experts); the student's head: 1 norm.
+      The Hopper path takes every flash launch but the STA expert's (its
+      96- and 360-token tiles stay on mma.sync): the teacher's 2, and FULL,
+      LOWRES and cross of each student forward."""
     n = num_layers
     return {**dict.fromkeys(kernels, 0), "flash": 2 * n + 2 * 4 * n,
+            "flash_wgmma": 2 * n + 2 * 3 * n,
             "flash_lse": 2 * (1 + 4 * (n - 1)), "flash_dq": 1 + 4 * (n - 1),
             "flash_dkv": 3 * (n - 1), "fused_norm": 2 * n + 1 + 2 * 2 * n + 1, "prologue": n}
 
@@ -2746,9 +2879,9 @@ def mode_case(torch, name, kern, plain, fast, flops, nbytes, replaces, lib=None,
     err = compare(torch, name, got, want)
     del got, want
     b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16)
-    r = dict(replaces=replaces, on_main_path=False, ms=time_ms(torch, kern, 5),
-             plain_ms=plain_ms, fast_ms=time_ms(torch, fast, 5), bound_ms=b_ms, bound_by=b_by,
-             library_ms=lib, max_abs_err=err)
+    r = with_rate(dict(replaces=replaces, on_main_path=False, ms=time_ms(torch, kern, 5),
+                       plain_ms=plain_ms, fast_ms=time_ms(torch, fast, 5), bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib, max_abs_err=err), flops)
     log(f"{name}: {r}")
     return r
 

@@ -39,7 +39,13 @@ sta_batched, sta_pipe's dots / qk / sT variants at every tile-width class
 with and without the text tail (each mode's launches counted apart),
 fused_residual_norm (x_new bitwise, y, the gradients through its Function)
 and its refusals, the five sta_diag variants (dma_only all zeros, no_dma
-launched only) and the sta_diag tool's launches.  Tolerances: 1e-5 x max
+launched only) and the sta_diag tool's launches; and the Hopper
+path of flash and flash_manual (csrc/attn_sm90.cuh: wgmma, the TMA ring):
+its probe (one tile's two products against torch.matmul), count-0 rows
+beside full ones, per-head and shared tables, kv_valid_len tails inside a
+128-key sub-tile and on its edge, kv_bias with -1e30 columns, batch 2, the
+lse sentinel, blocks 2048 x 512 and 256 x 1024, the backward kernels fed
+the new forward's lse, and which launches take the path.  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -63,6 +69,7 @@ from vorta_tpu_torch.ops.coreset_pallas import (
 )
 from vorta_tpu_torch.ops.flash import (
     dense_tables,
+    sm90_probe,
     sparse_flash_attention_raw,
     sparse_flash_attention_ref,
     tables_from_block_mask,
@@ -1509,3 +1516,164 @@ def test_cli_quantized_on_card(card, tmp_path):
                 "--native_attention", "--qk_int8", "--mm", "int8", "--quantize_blocks", "int8",
                 "--output", str(tmp_path / "hy.npy")])
     assert np.isfinite(np.load(tmp_path / "hy.npy")).all()
+
+
+# --- the Hopper path of flash and flash_manual (csrc/attn_sm90.cuh) -----------------
+
+def test_sm90_probe_matches_matmul(card):
+    """One 128 x 128 tile through the path's TMA loads and descriptors: S =
+    Q K^T from shared memory (K-major both), O = bf16(S) V with P from
+    registers and V MN-major, against torch.matmul in f32."""
+    g = torch.Generator(device=card).manual_seed(30)
+    q, k, v = (_randn(g, (128, 128), torch.bfloat16) for _ in range(3))
+    s, o = sm90_probe(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(o, s.to(torch.bfloat16).float() @ v.float(), rtol=1e-5, atol=1e-4)
+
+
+def _hopper_tables(kind: str, h: int, nq: int, nkv: int):
+    """dense; shared / per_head: random block masks with q block 0 empty
+    (count 0 beside full rows) and q block 1 seeing kv block 0."""
+    if kind == "dense":
+        return dense_tables(nq, nkv)
+    rng = np.random.default_rng(7)
+    mask = rng.random((h if kind == "per_head" else 1, nq, nkv)) < 0.6
+    mask[..., 0, :] = False
+    mask[..., 1, 0] = True
+    return tables_from_block_mask(mask)
+
+
+HOPPER_CASES = [  # kind, block_q, block_kv, sq, skv, kv_valid_len
+    ("dense", 256, 256, 1024, 1024, 1000),   # tail inside the last 128-key sub-tile
+    ("dense", 256, 256, 1024, 1024, 896),    # tail on a sub-tile edge (768 + 128)
+    ("shared", 256, 256, 1024, 1024, 1000),  # q block 0 count 0 beside full rows
+    ("per_head", 128, 128, 768, 768, None),  # per-head tables
+    ("dense", 2048, 512, 4096, 512, 300),    # cross-attention's blocks, text tail
+    ("dense", 256, 1024, 256, 3072, 2900),   # the STA text rows' blocks
+    ("dense", 1024, 1024, 2048, 2048, None),  # the experts' blocks, no tail
+]
+
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", HOPPER_CASES)
+def test_flash_hopper_path_matches_plain(card, kind, bq, bkv, sq, skv, valid):
+    """flash with the lse on the Hopper path, batch 2, against the plain
+    version: out within the bf16 tolerance, the lse within 1e-4 + 1e-5 x
+    |plain|, exactly 1e30 (and zero rows) where a q block sees nothing."""
+    q, k, v, _ = _bwd_inputs(card, 2, 3, sq, skv, 128, 31)
+    ki, kc = _hopper_tables(kind, 3, sq // bq, skv // bkv).on(card)
+    kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, scale=1.1 * 128**-0.5)
+    _build.reset_launches()
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, return_lse=True, **kw)
+    assert (_build.launches["flash"], _build.launches["flash_wgmma"]) == (1, 1)
+    want_out, want_lse = sparse_flash_attention_ref(q, k, v, ki, kc, return_lse=True, **kw)
+    _close(out, want_out)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    if kind != "dense":
+        assert not out[:, :, :bq].any() and (lse[:, :, :bq] == 1e30).all()
+    _build.reset_launches()
+    _close(sparse_flash_attention_raw(q, k, v, ki, kc, **kw), want_out)
+    assert (_build.launches["flash_wgmma"], _build.launches["flash_lse"]) == (1, 0)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", HOPPER_CASES)
+def test_flash_manual_hopper_path_matches_plain(card, kind, bq, bkv, sq, skv, valid, with_bias):
+    """flash_manual's fast softmax on the Hopper path, batch 2: per-head
+    counts over the tables (head 1 routed away writes zeros), and a kv_bias
+    with -1e30 on 30% of the keys and on all of kv block 0, which row
+    block 1 visits first (on its first half where there is one kv block, so
+    that some keys stay visible)."""
+    q, k, v, _ = _bwd_inputs(card, 2, 3, sq, skv, 128, 32)
+    ki, kc = _hopper_tables(kind, 3, sq // bq, skv // bkv).on(card)
+    if kind != "per_head":
+        kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
+    bias = None
+    if with_bias:
+        g = torch.Generator(device=card).manual_seed(33)
+        bias = torch.randn((1, skv), generator=g, device=card)
+        bias = torch.where(torch.rand((1, skv), generator=g, device=card) < 0.3, -1e30, bias)
+        bias[:, :min(bkv, skv // 2)] = -1e30
+    kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, scale=128**-0.5, kv_bias=bias)
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q, k, v, ki, kc, **kw)
+    assert (_build.launches["flash_manual"], _build.launches["flash_manual_wgmma"]) == (1, 1)
+    _close(got, sparse_flash_attention_manual_ref(q, k, v, ki, kc, **kw))
+    if kind != "per_head":
+        assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", HOPPER_CASES[:4] + HOPPER_CASES[5:])
+def test_flash_manual_int8_hopper_path_matches_plain(card, kind, bq, bkv, sq, skv, valid):
+    """The int8 QK mode on the Hopper path (wgmma s8): int8 q / k, bf16 v, a
+    per-head qk_scale and a kv_bias, against the plain version on the same
+    int8 inputs (its f32 einsum of int8 values is exact)."""
+    g = torch.Generator(device=card).manual_seed(36)
+    q, k = (torch.randint(-127, 128, (2, 3, n, 128), generator=g, device=card,
+                          dtype=torch.int8) for n in (sq, skv))
+    v = _randn(g, (2, 3, skv, 128), torch.bfloat16)
+    qk_scale = torch.tensor([0.4, 0.5, 0.6], device=card) / 127.0**2
+    ki, kc = _hopper_tables(kind, 3, sq // bq, skv // bkv).on(card)
+    if kind != "per_head":
+        kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
+    bias = torch.where(torch.arange(skv, device=card) % 7 == 0, -1e30, 0.25)[None]
+    kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, scale=128**-0.5, kv_bias=bias,
+              qk_scale=qk_scale)
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q, k, v, ki, kc, **kw)
+    assert (_build.launches["flash_manual_int8"], _build.launches["flash_manual_wgmma"]) == (1, 1)
+    _close(got, sparse_flash_attention_manual_ref(q, k, v, ki, kc, **kw))
+
+
+def test_hopper_path_rule_on_the_card(card):
+    """The same wrapper sends D = 64, blocks 128 does not tile and the stable
+    softmax to the mma.sync kernel (counted in the total only), and D = 128
+    with blocks of 128 to the Hopper path, flash_manual's int8 QK mode too."""
+    g = torch.Generator(device=card).manual_seed(34)
+    cases = [(128, 128, True), (64, 128, False), (128, 96, False), (128, 64, False)]
+    for d, block, hopper in cases:
+        q, k, v = (_randn(g, (1, 2, 384, d), torch.bfloat16) for _ in range(3))
+        ki, kc = dense_tables(384 // block, 384 // block).on(card)
+        _build.reset_launches()
+        sparse_flash_attention_raw(q, k, v, ki, kc, block_q=block, block_kv=block)
+        sparse_flash_attention_manual(q, k, v, ki, kc, block_q=block, block_kv=block)
+        assert (_build.launches["flash_wgmma"], _build.launches["flash_manual_wgmma"]) == (
+            int(hopper), int(hopper)), (d, block)
+    ki, kc = dense_tables(3, 3).on(card)
+    _build.reset_launches()
+    sparse_flash_attention_manual(q, k, v, ki, kc, block_q=128, block_kv=128, softmax="stable")
+    q8 = q.to(torch.int8)
+    sparse_flash_attention_manual(q8, q8, v, ki, kc, block_q=128, block_kv=128,
+                                  qk_scale=torch.ones(2, device=card))
+    assert (_build.launches["flash_manual"], _build.launches["flash_manual_wgmma"]) == (2, 1)
+    assert _build.launches["flash_manual_int8"] == 1
+
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [
+    ("dense", 1024, 1024, 2048, 2048, 1500),
+    ("shared", 256, 256, 1024, 1024, 1000),
+    ("dense", 2048, 512, 4096, 512, 300),
+])
+def test_flash_backward_on_hopper_forward_lse(card, kind, bq, bkv, sq, skv, valid):
+    """The dq and dk/dv kernels fed the Hopper path's out and lse, against
+    flash_backward_ref on the same out and lse; that lse against the plain
+    forward's (the backward reads exp2(s - lse))."""
+    from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
+
+    q, k, v, dout = _bwd_inputs(card, 2, 3, sq, skv, 128, 35)
+    tab = _hopper_tables(kind, 1, sq // bq, skv // bkv)
+    ki, kc = tab.on(card)
+    qi, qc = (torch.from_numpy(a).to(card)
+              for a in transpose_tables(tab.kv_index, tab.kv_count, skv // bkv))
+    kw = dict(scale=128**-0.5, block_q=bq, block_kv=bkv)
+    _build.reset_launches()
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, kv_valid_len=valid, return_lse=True,
+                                          **kw)
+    assert _build.launches["flash_wgmma"] == 1
+    _, want_lse = sparse_flash_attention_ref(q, k, v, ki, kc, kv_valid_len=valid,
+                                             return_lse=True, **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    got = flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, kv_valid_len=valid or skv, **kw)
+    want = flash_backward_ref(q, k, v, out, lse, dout, ki, kc, kv_valid_len=valid or skv, **kw)
+    for a, w in zip(got, want):
+        _close(a, w)

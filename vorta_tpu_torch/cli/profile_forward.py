@@ -67,10 +67,10 @@ TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
                  / "wan1_3b_time_embedder_rngs0.npz")
 
 GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
-    ("flash", ("flash_fwd_kernel",)),
+    ("flash", ("flash_fwd_kernel", "flash_sm90_kernel")),
     ("flash_dq", ("flash_dq_kernel",)),
     ("flash_dkv", ("flash_dkv_kernel",)),
-    ("flash_manual", ("flash_manual_kernel",)),
+    ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel")),
     ("sta_pipe", ("sta_kernel",)),
     ("sta_window", ("sta_window_kernel",)),
     ("sta_row", ("sta_row_kernel",)),

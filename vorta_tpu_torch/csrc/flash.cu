@@ -13,24 +13,36 @@
 //
 // Bound on this card: at Wan-1.3B self-attention (S = 9,360, d = 128,
 // 12 heads) the work is 4*S^2*d*H = 5.4e11 FLOP against ~115 MB of operands,
-// so the tensor cores bound it (~0.54 ms at 989 TFLOP/s bf16).  Design: the
-// products run on the tensor cores through mma.sync m16n8k16 (bf16 in, f32
-// accumulate); each warp owns 16 q rows whose Q fragments stay in registers
-// for the whole kv sweep, so Q is read once; the running max, sum and the
-// 16 x d output accumulator live in registers, so nothing but the final row
-// goes back to device memory; K/V sub-tiles of 64 rows are staged in shared
-// memory once per block and shared by its 4 warps.  The tables stay in the
-// caller's units (block_q, block_kv): a CUDA block of 64 q rows lies in one
-// table q block and walks its kv list in 64-row sub-tiles (32 rows and 2
-// warps where block_q is a multiple of 32 but not 64, e.g. the 96-token STA
-// tiles; 16 rows and 1 warp for another multiple of 16).  A block_q that is
-// a multiple of 8 but not of 16 (the 360-token STA tiles of 720p training)
-// takes ceil(block_q / rows) CUDA blocks per table q block: the last one's
-// last busy warp holds 8 rows, any warp past the block's end none.  Rows
-// past the table block are read as zeros and never stored, so they neither
-// see the next q block's kv list nor overwrite its rows.  Simple first: no
-// wgmma, TMA or cp.async pipelining yet.
-#include "mma_bf16.cuh"
+// so the tensor cores bound it (~0.54 ms at 989 TFLOP/s bf16).
+//
+// Two designs, chosen per call by the wrapper's shape rule
+// (ops/flash.py:wgmma_path, the same rule on both sides):
+//
+// - The Hopper path (D = 128, block_q and block_kv multiples of 128: every
+//   served geometry, self- and cross-attention and training's FULL / LOWRES
+//   with the lse): csrc/attn_sm90.cuh's mainloop with the online softmax
+//   policy.  128-row CTAs of two consumer warpgroups and a producer
+//   warpgroup; Q and a two-slot ring of 128-key K/V tiles loaded by TMA
+//   with mbarriers; both products on wgmma (S = Q K^T from shared memory,
+//   O += P V with P from registers and V MN-major), each tile's softmax
+//   running while the previous tile's PV product is in flight; the running
+//   max, the sums and the output accumulator stay in registers.
+// - The mma.sync path (D = 64, and blocks 128 does not divide: the 96- and
+//   360-token STA tiles of training, 24-token tiles, the 8-row tails), below:
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate); each warp owns 16 q rows
+//   whose Q fragments stay in registers for the whole kv sweep; K/V
+//   sub-tiles of 64 rows are staged in shared memory once per block and
+//   shared by its 4 warps.  The tables stay in the caller's units (block_q,
+//   block_kv): a CUDA block of 64 q rows lies in one table q block and walks
+//   its kv list in 64-row sub-tiles (32 rows and 2 warps where block_q is a
+//   multiple of 32 but not 64, e.g. the 96-token STA tiles; 16 rows and 1
+//   warp for another multiple of 16).  A block_q that is a multiple of 8 but
+//   not of 16 (the 360-token STA tiles of 720p training) takes
+//   ceil(block_q / rows) CUDA blocks per table q block: the last one's last
+//   busy warp holds 8 rows, any warp past the block's end none.  Rows past
+//   the table block are read as zeros and never stored, so they neither see
+//   the next q block's kv list nor overwrite its rows.
+#include "attn_sm90.cuh"
 
 namespace {
 
@@ -231,24 +243,106 @@ cudaError_t launch(int warps, dim3 grid, cudaStream_t stream, const __nv_bfloat1
   return cudaGetLastError();
 }
 
+
+// The Hopper path (csrc/attn_sm90.cuh) with the online softmax and the lse.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const sm90::Params p) {
+  sm90::attn_mainloop<sm90::Softmax::Online>(tq, tk, tv, p);
+}
+
+// Test-only probe of the Hopper path's pieces on one 128 x 128 tile (one
+// CTA, the mainloop's warp roles, TMA loads and descriptors): S = Q K^T in
+// f32 from the shared-memory product, and O = bf16(S) V from the register-A
+// product with V MN-major.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+sm90_probe_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, float* s_out, float* o_out) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_smem = base, k_smem = base + Q_BYTES, v_smem = base + Q_BYTES + KV_BYTES;
+  const uint32_t bar = base + BAR_OFF;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = tid / 128;
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<40>();
+    if (tid == CONSUMERS * 128) {
+      mbar_expect_tx(bar, Q_BYTES + STAGE_BYTES);
+      for (int c = 0; c < 2; ++c) {
+        tma_load(q_smem + c * BM * ROW_BYTES, &tq, bar, 64 * c, 0);
+        tma_load(k_smem + c * BN * ROW_BYTES, &tk, bar, 64 * c, 0);
+        tma_load(v_smem + c * BN * ROW_BYTES, &tv, bar, 64 * c, 0);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+  const int lane = tid % 32, warp = (tid % 128) / 32, g = lane / 4, t = lane % 4;
+  mbar_wait(bar, 0);
+  float s[64], o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n128(s, kmajor_desc(q_smem, BM, wg * 64, kk), kmajor_desc(k_smem, BN, 0, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  uint32_t pa[32];
+  pack_p(pa, s);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_n128(o, &pa[4 * kk], vmajor_desc(v_smem, kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int row = wg * 64 + warp * 16 + g + 8 * ((i >> 1) & 1);
+    const int col = 8 * (i / 4) + 2 * t + (i & 1);
+    s_out[row * 128 + col] = s[i];
+    o_out[row * 128 + col] = o[i];
+  }
+}
+
 }  // namespace
 
 // q, k, v, out: contiguous (B, H, S, D) bf16; lse: (B, H, Sq) f32 or null.
 // kv_index (h_tab, nq, width), kv_count (h_tab, nq): int32 on the device.
-// Returns the CUDA error code.
+// hopper: the wrapper's shape rule chose the Hopper path (D = 128, block_q and
+// block_kv multiples of 128; anything else there is an error, never a
+// fallback).  Returns the CUDA error code.
 extern "C" int vorta_flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                     void* lse, const void* kv_index, const void* kv_count, int B,
                                     int H, int Sq, int Skv, int D, int h_tab, int nq, int width,
                                     int block_q, int block_kv, int kv_valid_len,
-                                    float scale_log2, void* stream) {
+                                    float scale_log2, int hopper, void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128) ||
       (h_tab != 1 && h_tab != H) || nq != Sq / block_q)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = warps_for(block_q);
   // the tail mask applies to block kv_valid_len // block_kv only, as on the TPU
   const int has_tail = kv_valid_len % block_kv != 0;
   const int last_block = has_tail ? kv_valid_len / block_kv : -1;
   const int valid_in_block = kv_valid_len % block_kv;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (hopper) {  // the wrapper's rule picked the Hopper path: its shapes or an error
+    if (D != sm90::D) return static_cast<int>(cudaErrorInvalidValue);
+    const sm90::Params p{static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+                         static_cast<const int*>(kv_index), static_cast<const int*>(kv_count),
+                         nullptr, H, Sq, Skv, nq, width, h_tab == 1, h_tab == 1, block_q,
+                         block_kv, last_block, valid_in_block, scale_log2, nullptr};
+    return static_cast<int>(sm90::launch(flash_sm90_kernel, q, k, v, B, p, st));
+  }
+  const int warps = warps_for(block_q);
   dim3 grid(nq * ((block_q + 16 * warps - 1) / (16 * warps)), H, B);
   auto* qq = static_cast<const __nv_bfloat16*>(q);
   auto* kk = static_cast<const __nv_bfloat16*>(k);
@@ -257,7 +351,6 @@ extern "C" int vorta_flash_fwd_bf16(const void* q, const void* k, const void* v,
   auto* ls = static_cast<float*>(lse);
   auto* ki = static_cast<const int*>(kv_index);
   auto* kc = static_cast<const int*>(kv_count);
-  auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 128)
     err = launch<128>(warps, grid, st, qq, kk, vv, oo, ls, ki, kc, H, Sq, Skv, nq, width,
@@ -267,3 +360,22 @@ extern "C" int vorta_flash_fwd_bf16(const void* q, const void* k, const void* v,
                      h_tab == 1, block_q, block_kv, last_block, valid_in_block, scale_log2);
   return static_cast<int>(err);
 }
+
+// Test-only: the Hopper path's probe on one (128, 128) bf16 tile each of q,
+// k, v (contiguous, 16-byte aligned); s, o: (128, 128) f32.
+extern "C" int vorta_attn_sm90_probe(const void* q, const void* k, const void* v, void* s,
+                                     void* o, void* stream) {
+  using namespace vorta::sm90;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, BM, BM) || !make_map(&tk, k, BN, BN) || !make_map(&tv, v, BN, BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(sm90_probe_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sm90_probe_kernel<<<1, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<float*>(s), static_cast<float*>(o));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Hopper path's dynamic shared memory per CTA, in bytes (for reports).
+extern "C" int vorta_attn_sm90_smem_bytes() { return vorta::sm90::SMEM_BYTES; }

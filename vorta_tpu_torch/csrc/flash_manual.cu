@@ -20,21 +20,39 @@
 // Bound on this card: the FULL expert at Wan-1.3B 480p x 77f (31,200
 // tokens, d = 128) does 4 * 31,200^2 * 128 = 5.0e11 FLOP per routed head
 // against 24 MB of operands, so the tensor cores bound it (0.504 ms per head
-// at 989 TFLOP/s bf16).  Design: the tile code of csrc/flash.cu
-// (mma.sync m16n8k16, Q fragments in registers for the whole sweep, 64-row
-// K/V sub-tiles in shared memory shared by the block's 4 warps); without
-// the running max there is no rescaling of the accumulator, so each
-// sub-tile costs the two products, one exp2 per score and the row sums.
-// Simple first: no wgmma, TMA or cp.async pipelining yet.
+// at 989 TFLOP/s bf16).
+//
+// Two designs, chosen per call by the wrapper's shape and mode rule
+// (ops/flash_manual.py:manual_wgmma_path, the same rule on both sides):
+//
+// - The Hopper path (the fast softmax, bf16 or int8 q / k, D = 128, block_q
+//   and block_kv multiples of 128: every served geometry, Wan's FULL and
+//   LOWRES, Hunyuan's joint FULL / LOWRES with kv_bias and its STA text rows
+//   at 256 x 1024): csrc/attn_sm90.cuh's mainloop with the fast policy, p =
+//   exp2(q.k + bias) with no running max (flash_manual_sm90_kernel, and
+//   flash_manual_sm90_kernel_i8 for the int8 QK mode).  128-row CTAs of two
+//   consumer warpgroups and a producer warpgroup; Q and a two-slot ring of
+//   128-key K/V tiles (and their 512 B of kv_bias) loaded by TMA with
+//   mbarriers; both products on wgmma, each tile's softmax running while
+//   the previous tile's PV product is in flight.  A CTA whose count is 0 (a
+//   head routed away, q blocks past valid_len) writes zeros and exits.
+// - The mma.sync path (D = 64, other blocks, and the stable softmax),
+//   below: mma.sync m16n8k16, Q fragments in registers for the whole sweep,
+//   64-row K/V sub-tiles staged in shared memory by the block's 4 warps;
+//   without the running max there is no rescaling of the accumulator, so
+//   each sub-tile costs the two products, one exp2 per score and the row
+//   sums.
 //
 // The int8 QK mode (qk_scale, flash_manual.py:125-133): q and k arrive as
 // int8 (symmetric per-head quantization), q not pre-scaled, with an (H,) f32
 // qk_scale = q_scale * k_scale; the scores are the exact int32 sums of
-// mma.sync m16n8k32 s8 (mma_s8.cuh), turned into f32 by one multiply with
-// qk_scale[h] * scale * log2(e), before the bias and the tail rule.  K's
-// shared-memory tile halves; V, P and the PV product stay bf16.  The card
-// runs int8 mma at twice the bf16 rate (1,979 vs 989 T/s dense), so the QK
-// half of the work is bounded at half the time.
+// wgmma s8 m64n128k32 on the Hopper path (a row of 128 int8 is one 128-byte
+// box; both operands K-major, as s8 requires) or of mma.sync m16n8k32 s8
+// (mma_s8.cuh) on the other, turned into f32 by one multiply with
+// qk_scale[h] * scale * log2(e), before the bias and the tail rule.  Q's and
+// K's tiles halve; V, P and the PV product stay bf16.  The card runs int8
+// at twice the bf16 rate (1,979 vs 989 T/s dense), so the QK half of the
+// work is bounded at half the time.
 //
 // The stable softmax (STABLE; flash_manual.py:140-169, the JAX wrapper's
 // default): q is NOT pre-scaled; the f32 scores are scaled by
@@ -44,6 +62,7 @@
 // sums and the accumulator rescaled by exp2(m_old - m_safe) at every
 // sub-tile (stable_update, mma_bf16.cuh).  Counts 0 and rows that see
 // nothing still give 0.  bf16 q / k only (the int8 mode is fast-only).
+#include "attn_sm90.cuh"
 #include "mma_s8.cuh"
 
 namespace {
@@ -191,6 +210,22 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __n
   return cudaGetLastError();
 }
 
+// The Hopper path (csrc/attn_sm90.cuh) with the fast softmax and kv_bias.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+flash_manual_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const sm90::Params p) {
+  sm90::attn_mainloop<sm90::Softmax::Fast>(tq, tk, tv, p);
+}
+
+// The same with int8 q / k (the qk_scale mode): S from wgmma s8.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+flash_manual_sm90_kernel_i8(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, const sm90::Params p) {
+  sm90::attn_mainloop<sm90::Softmax::Fast, true>(tq, tk, tv, p);
+}
+
 }  // namespace
 
 // q (pre-scaled), k, v, out: contiguous (B, H, S, D) bf16.  kv_index
@@ -199,7 +234,10 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __n
 // qk_factor: null, or (H,) f32 qk_scale * scale * log2(e) on the device,
 // and then q and k are int8 (q not pre-scaled).  stable: the stable softmax,
 // q not pre-scaled, scores scaled by sl = scale * log2(e) (bf16 q / k only).
-// Returns the CUDA error code.
+// hopper: the wrapper's rule chose the Hopper path (the fast softmax, bf16
+// or int8 q / k, D = 128, block_q and block_kv multiples of 128; kv_bias
+// 16-byte aligned; anything else there is an error, never a fallback).  Returns the CUDA
+// error code.
 extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const void* v,
                                            void* out, const void* kv_index,
                                            const void* kv_count, const void* kv_bias,
@@ -207,15 +245,27 @@ extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const v
                                            int Skv, int D, int idx_heads, int cnt_heads, int nq,
                                            int width, int block_q, int block_kv,
                                            int kv_valid_len, int stable, float sl,
-                                           void* stream) {
+                                           int hopper, void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 16 || (D != 64 && D != 128) ||
       (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
       nq != Sq / block_q || (stable && qk_factor != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = (block_q % 64 == 0) ? 4 : 1;
   const int has_tail = kv_valid_len % block_kv != 0;
   const int last_block = has_tail ? kv_valid_len / block_kv : -1;
   const int valid_in_block = kv_valid_len % block_kv;
+  if (hopper) {  // the wrapper's rule picked the Hopper path: its shapes or an error
+    if (D != sm90::D || stable) return static_cast<int>(cudaErrorInvalidValue);
+    const sm90::Params p{static_cast<__nv_bfloat16*>(out), nullptr,
+                         static_cast<const int*>(kv_index), static_cast<const int*>(kv_count),
+                         static_cast<const float*>(kv_bias), H, Sq, Skv, nq, width,
+                         idx_heads == 1, cnt_heads == 1, block_q, block_kv, last_block,
+                         valid_in_block, 0.f, static_cast<const float*>(qk_factor)};
+    auto st = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(
+        qk_factor != nullptr ? sm90::launch(flash_manual_sm90_kernel_i8, q, k, v, B, p, st)
+                             : sm90::launch(flash_manual_sm90_kernel, q, k, v, B, p, st));
+  }
+  const int warps = (block_q % 64 == 0) ? 4 : 1;
   const dim3 grid(Sq / (16 * warps), H, B);
   auto* qq = static_cast<const __nv_bfloat16*>(q);
   auto* kk = static_cast<const __nv_bfloat16*>(k);

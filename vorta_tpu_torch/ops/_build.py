@@ -21,8 +21,12 @@ plain / active ones (``pool_qkv``, ``unpool``).  ``fused_norm.cu`` holds
 kernel of ``tools/sta_diag.py``.  The softmax modes count apart too, as
 subsets of their kernel: ``flash_manual_stable``, ``sta_batched_stable``,
 ``sta_pipe_stable`` (the stable softmax) and ``sta_pipe_dots``,
-``sta_pipe_qk``, ``sta_pipe_sT`` (sta_pipe's diagnostic variants).  Headers
-(``*.cuh``) are part of the hash.
+``sta_pipe_qk``, ``sta_pipe_sT`` (sta_pipe's diagnostic variants).
+``flash_wgmma`` and ``flash_manual_wgmma`` count the launches that took the
+Hopper path (``csrc/attn_sm90.cuh``: wgmma, TMA, warp specialisation), as
+subsets of ``flash`` and ``flash_manual``; the wrappers choose it by a shape
+rule (``ops/flash.py:wgmma_path``).  Headers (``*.cuh``) are part of the
+hash.
 """
 
 from __future__ import annotations
@@ -45,14 +49,14 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "sta_batched", "sta_window", "sta_row", "pool_qkv_headmap", "unpool_headmap",
            "copy_probe", "fused_residual_norm", "sta_diag", "flash_manual_stable",
            "sta_batched_stable", "sta_pipe_stable", "sta_pipe_dots", "sta_pipe_qk",
-           "sta_pipe_sT")
+           "sta_pipe_sT", "flash_wgmma", "flash_manual_wgmma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 launches = {name: 0 for name in KERNELS}
-ptxas_logs: dict = {}  # source -> nvcc's register / shared-memory report
+ptxas_logs: dict = {}  # source -> nvcc's register / smem report (kept beside its library)
 _libs: dict = {}
 
 
@@ -86,6 +90,9 @@ def build_all() -> dict:
     procs = {}
     for name, so in paths.items():
         if so.exists():
+            report = so.with_suffix(".ptxas.txt")
+            if name not in ptxas_logs and report.exists():
+                ptxas_logs[name] = report.read_text()
             continue
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -98,6 +105,7 @@ def build_all() -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{err}")
             continue
+        so.with_suffix(".ptxas.txt").write_text(ptxas_logs[name])
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -124,6 +132,14 @@ def stream_ptr(device: torch.device) -> int:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def aligned16(t):
+    """``t`` itself where its data starts on a 16-byte boundary (what TMA and
+    the bulk copies of the Hopper path need), else a copy; None stays None."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
 
 
 def forward_only(what: str, *tensors) -> None:

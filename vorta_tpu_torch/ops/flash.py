@@ -12,6 +12,15 @@ visible key give 0.  ``return_lse`` also returns each row's base-2
 log-sum-exp ``m + log2(l)`` (B, H, Sq, 1) f32, 1e30 for a row with no
 visible key, which the backward reads.
 
+Which kernel runs on CUDA is a pure-Python shape rule, ``wgmma_path``: head
+dim 128 with ``block_q`` and ``block_kv`` multiples of 128 (every served
+geometry, and training's FULL / LOWRES / cross-attention) take the Hopper
+path of ``csrc/flash.cu`` (``csrc/attn_sm90.cuh``: wgmma, a TMA-fed K/V ring,
+warp specialisation; counted as ``flash_wgmma`` too); D = 64 and blocks 128
+does not divide (the 96- and 360-token STA tiles of training, 24-token
+tiles) take its mma.sync kernel.  The rule alone decides: neither path
+falls back to the other.
+
 ``sparse_flash_attention_raw`` is forward only, as in the JAX package: on
 CUDA it raises where grad mode is on and an input requires grad.
 Differentiable attention is ``make_sparse_attention``: a
@@ -161,13 +170,42 @@ def sparse_flash_attention_ref(
     return (out, lse) if return_lse else out
 
 
+WGMMA_TILE = 128  # q rows per CTA and keys per ring slot of the Hopper path
+
+
+def wgmma_path(d: int, block_q: int, block_kv: int) -> bool:
+    """The shape rule of the Hopper path (``csrc/attn_sm90.cuh``): head dim
+    128, q blocks that its 128-row CTAs tile and kv blocks that its 128-key
+    ring slots tile.  The same rule on both sides: the C entry refuses the
+    Hopper path for anything else."""
+    return d == 128 and block_q % WGMMA_TILE == 0 and block_kv % WGMMA_TILE == 0
+
+
 def _flash_fn():
     fn = _build.load("flash").vorta_flash_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p] + [i] * 11 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def sm90_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Test-only: the Hopper path's pieces on one (128, 128) bf16 tile each
+    of q, k, v on the card (``vorta_attn_sm90_probe``).  Returns f32 (s, o):
+    s = q k^T from the shared-memory wgmma, o = bf16(s) v from the
+    register-A wgmma with v MN-major."""
+    dev = _build.require_cuda(q, k, v)
+    for t in (q, k, v):
+        if t.shape != (128, 128) or t.dtype != torch.bfloat16:
+            raise ValueError(f"sm90_probe takes (128, 128) bf16 tiles, got {tuple(t.shape)}")
+    q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
+    s, o = (torch.empty((128, 128), dtype=torch.float32, device=dev) for _ in range(2))
+    fn = _build.load("flash").vorta_attn_sm90_probe
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 6, ctypes.c_int
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(),
+                    _build.stream_ptr(dev)), "sm90_probe")
+    return s, o
 
 
 def sparse_flash_attention_raw(
@@ -226,16 +264,20 @@ def sparse_flash_attention_raw(
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
     kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    hopper = wgmma_path(d, block_q, block_kv)
+    q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=dev) if return_lse else None
     err = _flash_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
         kv_index.data_ptr(), kv_count.data_ptr(), b, h, sq, skv, d,
         kv_index.shape[0], kv_index.shape[1], kv_index.shape[2],
-        block_q, block_kv, int(kv_valid_len), float(scale * LOG2E), _build.stream_ptr(dev))
+        block_q, block_kv, int(kv_valid_len), float(scale * LOG2E), int(hopper),
+        _build.stream_ptr(dev))
     _build.check(err, "flash")
     _build.launches["flash"] += 1
+    if hopper:
+        _build.launches["flash_wgmma"] += 1
     if return_lse:
         _build.launches["flash_lse"] += 1
         return out, lse

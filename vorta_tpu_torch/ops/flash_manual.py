@@ -36,7 +36,12 @@ while it is still -1e30, the TPU kernel's ``m_safe``); it combines with
 ``kv_valid_len``, shared or per-head counts and the count-0 rows.
 
 On CUDA tensors ``sparse_flash_attention_manual`` launches
-``csrc/flash_manual.cu``; on CPU tensors it runs the plain version,
+``csrc/flash_manual.cu``: the Hopper path (``csrc/attn_sm90.cuh``: wgmma, a
+TMA-fed K/V ring, warp specialisation; counted as ``flash_manual_wgmma``
+too) where ``manual_wgmma_path`` says so (the fast softmax, bf16 or int8 q /
+k, the shapes of ``ops/flash.py:wgmma_path``: every served geometry), else
+its mma.sync kernel (D = 64, other blocks, the stable softmax); on CPU
+tensors it runs the plain version,
 ``sparse_flash_attention_manual_ref``.  The TPU wrapper's other options
 belong to later slices (PR 9) and raise NotImplementedError.
 """
@@ -49,7 +54,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash import LOG2E, _kv_column_limit
+from .flash import LOG2E, _kv_column_limit, wgmma_path
 
 NEG = -1e30
 SOFTMAXES = ("fast", "stable")
@@ -165,11 +170,18 @@ def sparse_flash_attention_manual_ref(
     return out
 
 
+def manual_wgmma_path(d: int, block_q: int, block_kv: int, *, stable: bool = False) -> bool:
+    """The Hopper path's rule for this kernel: the fast softmax (bf16 q / k,
+    or int8 in the qk_scale mode) at the shapes of ``ops/flash.py:wgmma_path``.
+    The stable softmax stays on the mma.sync kernel."""
+    return not stable and wgmma_path(d, block_q, block_kv)
+
+
 def _flash_manual_fn():
     fn = _build.load("flash_manual").vorta_flash_manual_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 13 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 8 + [i] * 13 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -241,17 +253,20 @@ def sparse_flash_attention_manual(
     qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
     _build.require_cuda(q, bias, qkc)
     stable = softmax == "stable"
+    hopper = manual_wgmma_path(d, block_q, block_kv, stable=stable)
     qs = (_prescale(q, scale) if qkc is None and not stable else q).contiguous()
-    k, v = k.contiguous(), v.contiguous()
+    qs, k, v, bias = (_build.aligned16(t) for t in (qs, k.contiguous(), v.contiguous(), bias))
     out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     err = _flash_manual_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         kv_index.data_ptr(), kv_count.data_ptr(), _build.ptr(bias), _build.ptr(qkc),
         b, h, sq, skv, d, kv_index.shape[0], kv_count.shape[0], kv_index.shape[1],
         kv_index.shape[2], block_q, block_kv, kv_valid_len, int(stable), float(scale * LOG2E),
-        _build.stream_ptr(dev))
+        int(hopper), _build.stream_ptr(dev))
     _build.check(err, "flash_manual")
     _build.launches["flash_manual"] += 1
+    if hopper:
+        _build.launches["flash_manual_wgmma"] += 1
     if qkc is not None:
         _build.launches["flash_manual_int8"] += 1
     if stable:
