@@ -6,11 +6,15 @@
 Phases, each raising on failure:
   1. device: torch / CUDA versions, the card's name and power limit; build
      the CUDA kernels from csrc/ (one nvcc per source, in parallel); ptxas's
-     registers and spills of every kernel, and of the Hopper path's two
-     instantiations (csrc/attn_sm90.cuh, which must not spill) with its
-     dynamic shared memory.  Every flash and flash_manual row reports its
-     achieved TFLOP/s, its share of the bound and its ratio to the library
-     call.
+     registers and spills of every kernel, and of the Hopper path's four
+     instantiations (csrc/attn_sm90.cuh: flash's, flash_manual's bf16 and
+     int8, sta_pipe's window walk; none may spill) with its dynamic shared
+     memory, and of the norm's warp-per-row kernels (no spills either).
+     Every flash, flash_manual and sta_pipe row reports its achieved
+     TFLOP/s, its share of the bound and its ratio to the library call;
+     every sta_pipe row also the mma.sync kernel's time in the same call,
+     every fused_norm row its GB/s and share of the bytes bound beside
+     F.layer_norm(x, (dim,), 1 + scale, shift) at B = 1, the same function.
   2. kernels: each kernel on the card against its plain PyTorch version on
      the same inputs, with kernel / plain / library / bound times: flash,
      AdaLN norm and qk prologue at the routing-off path's shapes (Wan-1.3B
@@ -18,7 +22,8 @@ Phases, each raising on failure:
      self-attention (1,12,72000,128), held against the plain version on one
      head, beside SDPA on all twelve; flash_manual, sta_pipe,
      pool_qkv and unpool at the routed path's (480p x 77 frames = 31,200
-     tokens; sta_pipe also at 720p's tile), some heads routed away.
+     tokens; sta_pipe also at 720p's tile), some heads routed away; the
+     AdaLN norm also at 480p x 77f (1,31200,1536).
   2h. the pool's head-map mode (pool_qkv / unpool over the routed heads
      alone) at HunyuanVideo 720p x 45f (1,24,43200,128) with K's own
      matching, 16 of 24 heads routed, and at Wan 720p x 77f
@@ -125,15 +130,17 @@ HunyuanVideo-13B (its phases free the Wan models first):
      through sta_batched on the joint layout), 2 Euler steps; launch counts
      exact, sta_pipe never.
   d. HunyuanVideo's reference shape, 720p x 117f (108,000 + 256 tokens):
-     one timed forward routed hard, then one routing off.
+     one timed forward routed hard, then one routing off; launch counts
+     exact (the STA heads through the kernel the gates pick there).
   e. Wan-14B (40 blocks, dim 5120) from an int4 stack through a depth-1
      model: its GiB, one 480p x 77f forward routed hard with its time and
      peak memory, and a 2-block check, card vs CPU on the same stack.
 Every main path's launch counts are exact, the Hopper path's subset
-counters (flash_wgmma, flash_manual_wgmma) included: on the served paths
-every flash and flash_manual launch takes that path (flash_manual's int8 QK
-mode too), in training all but the STA expert's (96- and 360-token
-tiles).  Phase 6 counts its forwards' launches too.
+counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma) included: on the
+served paths every flash, flash_manual and sta_pipe launch takes that path
+(flash_manual's int8 QK mode too), in training all but the STA expert's
+(96- and 360-token tiles); sta_pipe's int8 QK mode, stable softmax and
+variants (phases 2q, 2o) stay on its mma.sync kernel, counted there.  Phase 6 counts its forwards' launches too.
 Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
@@ -222,14 +229,41 @@ def with_rate(t: dict, flops: float) -> dict:
 
 
 def served_on_wgmma(launches: dict, what: str) -> None:
-    """On a served path every flash and flash_manual launch (the int8 QK mode
-    too) takes the Hopper path (its counters are subsets)."""
-    want = (launches["flash"], launches["flash_manual"])
-    got = (launches["flash_wgmma"], launches["flash_manual_wgmma"])
+    """On a served path every flash, flash_manual (the int8 QK mode too) and
+    sta_pipe launch takes the Hopper path (its counters are subsets)."""
+    want = (launches["flash"], launches["flash_manual"], launches["sta_pipe"])
+    got = (launches["flash_wgmma"], launches["flash_manual_wgmma"], launches["sta_pipe_wgmma"])
     if got != want:
-        raise RuntimeError(f"{what}: Hopper-path launches (flash, flash_manual) {got} != {want}")
+        raise RuntimeError(f"{what}: Hopper-path launches (flash, flash_manual, sta_pipe) {got} "
+                           f"!= {want}")
     log(f"{what}: flash {got[0]} of {launches['flash']}, flash_manual {got[1]} of "
-        f"{launches['flash_manual']} launches on the Hopper path")
+        f"{launches['flash_manual']}, sta_pipe {got[2]} of {launches['sta_pipe']} launches on "
+        "the Hopper path")
+
+
+def sta_rates(t: dict, flops: float) -> dict:
+    """``with_rate`` for an sta_pipe timing, and the mma.sync kernel's share
+    of the bound and its time over the Hopper path's, from the same call."""
+    with_rate(t, flops)
+    t["mma_sync_tflops"] = flops / t["mma_sync_ms"] / 1e9
+    t["mma_sync_bound_share"] = t["bound_ms"] / t["mma_sync_ms"]
+    t["mma_sync_over_hopper"] = t["mma_sync_ms"] / t["ms"]
+    return t
+
+
+def sta_path_once(torch, what: str, fn, hopper: bool) -> None:
+    """One sta_pipe call, counted: launched once, on the Hopper path
+    (sta_pipe_wgmma) exactly where ``hopper``."""
+    from vorta_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    got = (_build.launches["sta_pipe"], _build.launches["sta_pipe_wgmma"])
+    if got != (1, int(hopper)):
+        raise RuntimeError(f"{what}: launches (sta_pipe, sta_pipe_wgmma) {got}, want "
+                           f"(1, {int(hopper)})")
+    log(f"{what}: {'on the Hopper path' if hopper else 'on the mma.sync kernel'}")
 
 
 def ptxas_entries(logs: dict, entry: str) -> list:
@@ -250,8 +284,8 @@ def ptxas_entries(logs: dict, entry: str) -> list:
 
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and report
-    ptxas's registers and spills; the Hopper path's two instantiations must
-    not spill."""
+    ptxas's registers and spills; the Hopper path's four instantiations and
+    the norm's warp-per-row kernels must not spill."""
     from vorta_tpu_torch.ops import _build
 
     t0 = time.time()
@@ -261,16 +295,31 @@ def build_kernels() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    from vorta_tpu_torch.ops.sta_pipe import window_walk
+
     hopper = ptxas_entries(_build.ptxas_logs, "sm90_kernel")
     smem = _build.load("flash").vorta_attn_sm90_smem_bytes()
+    # sta_pipe's CTA also holds its walk table: per served geometry
+    sta_smem = {name: _build.load("sta_pipe").vorta_sta_sm90_smem_bytes(
+        window_walk(grid, tile, (3, 3, 3), lt).shape[0])
+        for name, grid, tile, lt in (("wan_480p_77f", GRID_480P_77F, (4, 6, 4), 0),
+                                     ("wan_720p_77f", GRID_720P, (5, 9, 8), 0),
+                                     ("hunyuan_45f", GRID_HY_45F, (6, 9, 8), HY_TEXT))}
     for src, entry, regs, spill in hopper:
         log(f"ptxas Hopper path {src} {entry}: {regs}; {spill}; dynamic shared memory "
-            f"{smem} bytes")
-    if sorted(src for src, *_ in hopper) != ["flash", "flash_manual", "flash_manual"] or any(
+            f"{sta_smem if src == 'sta_pipe' else smem} bytes")
+    if sorted(src for src, *_ in hopper) != ["flash", "flash_manual", "flash_manual",
+                                            "sta_pipe"] or any(
             spill is None or "0 bytes spill stores, 0 bytes spill loads" not in spill
             for *_, spill in hopper):
         raise RuntimeError(f"the Hopper path's instantiations: {hopper} (flash's, "
-                           "flash_manual's bf16 and int8; no spills)")
+                           "flash_manual's bf16 and int8, sta_pipe's; no spills)")
+    rows = ptxas_entries(_build.ptxas_logs, "fused_norm_rows_kernel")
+    log(f"ptxas fused_norm warp-per-row kernels: {len(rows)} instantiations, registers "
+        f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
+    if len(rows) != 48 or any(spill is None or "0 bytes spill stores, 0 bytes spill loads"
+                              not in spill for *_, spill in rows):
+        raise RuntimeError(f"the norm's warp-per-row kernels: {rows} (48; no spills)")
 
 
 def main() -> int:
@@ -349,6 +398,8 @@ def main() -> int:
                 + options_kernel_rows(opt, diag_ms))
     for k in kernels:
         if k["name"] == "sta_pipe":
+            k["shapes"]["720p_77f_12_heads"] = opt["sta_pipe_fast"]
+            k["max_abs_err"] = max(k["max_abs_err"], opt["sta_pipe_fast"]["max_abs_err"])
             k["modes"] = {"int8_qk": {"replaces": "vorta_tpu/ops/sta_pipe.py:197",
                                       "on_main_path": False, **int8["sta_pipe_int8"]},
                           **{m: mode_row(opt["sta_pipe"][m]) for m in opt["sta_pipe"]}}
@@ -494,6 +545,84 @@ def compare(torch, name: str, got, want) -> float:
     return err
 
 
+# The AdaLN norm's library yardstick: at B = 1 it is one F.layer_norm with
+# weight 1 + scale and bias shift.  CUDA's layer_norm takes them in x's
+# dtype, so they are rounded to bf16 first (outside the timed call).
+NORM_LIBRARY = ("F.layer_norm(x, (dim,), 1 + scale, shift) at B = 1: the same function (its "
+                "weight and bias rounded to bf16, the dtype CUDA's layer_norm takes)")
+
+
+def device_ms(torch, fn, iters: int, warmup: int = 2) -> float:
+    """``time_ms`` with the host's enqueue hidden: a sleep kernel queued
+    first (~30 ms at the H100's clock) keeps the card busy while the host
+    queues the whole run, so the events time the kernels back to back on
+    the card, not the launches; for calls shorter than their wrapper's
+    host time, which back-to-back launches would measure instead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn`` launched back to back (the card's
+    queue drained after): where it reaches the kernel's time, the launches
+    and not the card pace back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def norm_case(torch, name: str, x, sc, sh, iters: int) -> dict:
+    """The AdaLN norm kernel on x (1, S, dim) with (1, dim) scale / shift
+    against its plain version, timed on the card beside F.layer_norm
+    (NORM_LIBRARY), with its GB/s and share of the bytes bound (x read, the
+    output written, scale / shift read once); and both calls launched back
+    to back with their host time per call."""
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.ops.fused_norm import _norm_ref, fused_norm
+
+    dim = x.shape[-1]
+    kern = lambda: fused_norm(x, sc, sh, None, None, False, 1e-6, False)  # noqa: E731
+    plain = lambda: _norm_ref(x, sc, sh, None, None, rms=False, eps=1e-6,  # noqa: E731
+                              out_f32=False)
+    got, want = kern(), plain()
+    err = compare(torch, name, got, want)
+    ratio = worst_ratio(torch, got, want)
+    w_lib, b_lib = (1.0 + sc[0]).to(x.dtype), sh[0].to(x.dtype)
+    lib = lambda: F.layer_norm(x, (dim,), w_lib, b_lib, eps=1e-6)  # noqa: E731
+    log(f"{name}: F.layer_norm (bf16 weight / bias) against the plain version: worst ratio "
+        f"{worst_ratio(torch, lib(), want):.3e}")
+    del got, want
+    nbytes = 2 * x.numel() * x.element_size() + 2 * dim * 4
+    b_ms, b_by = bound_ms(10.0 * x.numel(), nbytes, PEAK_F32)
+    # the card's time of each call (device_ms), then the same calls launched
+    # back to back from the host, where the wrapper's host time can pace them
+    r = dict(ms=device_ms(torch, kern, iters), library_ms=device_ms(torch, lib, iters),
+             plain_ms=time_ms(torch, plain, 5, 1), library=NORM_LIBRARY, bound_ms=b_ms,
+             bound_by=b_by, max_abs_err=err, worst_ratio=ratio,
+             back_to_back_ms=time_ms(torch, kern, iters),
+             library_back_to_back_ms=time_ms(torch, lib, iters),
+             host_us=host_us(torch, kern), library_host_us=host_us(torch, lib))
+    r.update(gbps=nbytes / r["ms"] / 1e6, bound_share=b_ms / r["ms"],
+             vs_library=r["ms"] / r["library_ms"])
+    log(f"{name}: {r}")
+    return r
+
+
 def check_kernels(torch, card: str) -> list:
     import torch.nn.functional as F
 
@@ -503,7 +632,6 @@ def check_kernels(torch, card: str) -> list:
         sparse_flash_attention_ref,
         tables_from_block_mask,
     )
-    from vorta_tpu_torch.ops.fused_norm import _norm_ref, fused_norm
     from vorta_tpu_torch.ops.prologue import _prologue_ref, fused_qk_prologue
     from vorta_tpu_torch.ops.rope import rope_cos_sin
 
@@ -625,24 +753,15 @@ def check_kernels(torch, card: str) -> list:
                  library_ms=None, bound_ms=bp_ms, bound_by=bp_by)
     log(f"prologue: {pro_t}")
 
-    # ---- AdaLN norm (1, 9360, 1536) with (1, 1536) scale / shift
-    x = randn(1, s, dim, scale=3.0)
-    sc, sh = (0.3 * torch.randn(1, dim, generator=g, device=dev) for _ in range(2))
-    nrm = lambda: fused_norm(x, sc, sh, None, None, False, 1e-6, False)  # noqa: E731
-    nrm_plain = lambda: _norm_ref(x, sc, sh, None, None, rms=False, eps=1e-6,  # noqa: E731
-                                  out_f32=False)
-    err_norm = compare(torch, "AdaLN norm (1,9360,1536)", nrm(), nrm_plain())
-    # Library yardstick: at B = 1 the AdaLN norm is one F.layer_norm with
-    # weight 1 + scale and bias shift.  CUDA's layer_norm takes them in x's
-    # dtype, so they are rounded to bf16 first (outside the timed call).
-    w_lib, b_lib = (1.0 + sc[0]).to(bf16), sh[0].to(bf16)
-    lib = lambda: F.layer_norm(x, (dim,), w_lib, b_lib, eps=1e-6)  # noqa: E731
-    log(f"AdaLN norm: F.layer_norm (bf16 weight / bias) against the plain version: "
-        f"worst ratio {worst_ratio(torch, lib(), nrm_plain()):.3e}")
-    bn_ms, bn_by = bound_ms(10.0 * s * dim, 2 * x.numel() * 2 + 2 * dim * 4, PEAK_F32)
-    norm_t = dict(ms=time_ms(torch, nrm, 50), plain_ms=time_ms(torch, nrm_plain, 10),
-                  library_ms=time_ms(torch, lib, 50), bound_ms=bn_ms, bound_by=bn_by)
-    log(f"AdaLN norm: {norm_t}")
+    # ---- AdaLN norm with (1, 1536) scale / shift, as AdaLN passes them (column
+    # slices of the (1, 6, 1536) modulation): (1, 9360, 1536), and the routed
+    # path's (1, 31200, 1536), whose 192 MB of traffic exceed the 50 MB L2
+    norms = {}
+    for name, rows in (("wan_480p_21f_9360", s), ("wan_480p_77f_31200", 31200)):
+        mod = torch.randn((1, 6, dim), generator=g, device=dev) * 0.3
+        norms[name] = norm_case(torch, f"AdaLN norm (1,{rows},{dim})",
+                                randn(1, rows, dim, scale=3.0), mod[:, 1], mod[:, 0], 50)
+    norm_t = norms["wan_480p_21f_9360"]
 
     return [
         dict(name="flash", route="cuda", source="vorta_tpu_torch/csrc/flash.cu",
@@ -652,7 +771,8 @@ def check_kernels(torch, card: str) -> list:
                      "self_attention_720p_72000": t720}),
         dict(name="fused_norm", route="cuda", source="vorta_tpu_torch/csrc/fused_norm.cu",
              replaces="vorta_tpu/ops/fused_norm.py:44", _counter="fused_norm",
-             max_abs_err=err_norm, **norm_t),
+             **{**norm_t, "max_abs_err": max(x["max_abs_err"] for x in norms.values())},
+             shapes=norms),
         dict(name="qk_prologue", route="cuda", source="vorta_tpu_torch/csrc/prologue.cu",
              replaces="vorta_tpu/ops/prologue.py:67", _counter="prologue",
              max_abs_err=err_pro, **pro_t),
@@ -687,7 +807,11 @@ def check_routed_kernels(torch, card: str) -> list:
         sparse_flash_attention_manual_ref,
     )
     from vorta_tpu_torch.ops.routed_fused import routed_geometry
-    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+    from vorta_tpu_torch.ops.sta_pipe import (
+        sta_pipe_attention,
+        sta_pipe_attention_mma_sync,
+        sta_pipe_attention_ref,
+    )
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -756,13 +880,16 @@ def check_routed_kernels(torch, card: str) -> list:
         q, k, v = (randn(1, h, n, d) for _ in range(3))
         kw = dict(latent_shape=grid, tile=tile, window=(3, 3, 3), scale=scale)
         kern = lambda: sta_pipe_attention(q, k, v, act, **kw)  # noqa: E731
+        mma = lambda: sta_pipe_attention_mma_sync(q, k, v, act, **kw)  # noqa: E731
         plain = lambda: sta_pipe_attention_ref(q, k, v, act, **kw)  # noqa: E731
-        got = kern()
+        sta_path_once(torch, f"sta_pipe {name}", kern, True)
+        got, want = kern(), plain()
         err = compare(torch, f"sta_pipe {name} (1,12,{n},128), tile {tile}, {n_act} of 12 "
-                      "heads active", got, plain())
+                      "heads active", got, want)
         if got[:, act == 0].any():
             raise RuntimeError(f"sta_pipe {name}: an inactive head wrote non-zeros")
-        del got
+        compare(torch, f"sta_pipe {name} on the mma.sync kernel", mma(), want)
+        del got, want
         keys = int(np.prod([min(3, grid[a] // tile[a]) * tile[a] for a in range(3)]))
         flops = 4.0 * n * keys * d * n_act
         b_ms, b_by = bound_ms(flops, 4 * n * d * 2 * n_act, PEAK_BF16)
@@ -773,12 +900,13 @@ def check_routed_kernels(torch, card: str) -> list:
                                       *(x[:, act > 0] for x in (q, k, v)), mask)
         del mask
         torch.cuda.empty_cache()
-        st[name] = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1),
-                        library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        st[name] = sta_rates(dict(ms=time_ms(torch, kern, 10),
+                                  mma_sync_ms=time_ms(torch, mma, 10),
+                                  plain_ms=time_ms(torch, plain, 2, 1), library_ms=lib,
+                                  bound_ms=b_ms, bound_by=b_by, max_abs_err=err), flops)
         if lib_err:
             st[name]["library_error"] = lib_err
-        log(f"sta_pipe {name}: {keys} keys per query; {st[name]} "
-            f"(achieved {flops / st[name]['ms'] / 1e9:.1f} TFLOP/s on {n_act} heads)")
+        log(f"sta_pipe {name}: {keys} keys per query; {st[name]} ({n_act} heads)")
         del q, k, v
     out.append(dict(name="sta_pipe", route="cuda", source="vorta_tpu_torch/csrc/sta_pipe.cu",
                     replaces="vorta_tpu/ops/sta_pipe.py:121", _counter="sta_pipe",
@@ -1300,9 +1428,12 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
         sparse_flash_attention_manual,
         sparse_flash_attention_manual_ref,
     )
-    from vorta_tpu_torch.ops.fused_norm import _norm_ref, fused_norm
     from vorta_tpu_torch.ops.prologue import _prologue_ref, fused_qk_prologue
-    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+    from vorta_tpu_torch.ops.sta_pipe import (
+        sta_pipe_attention,
+        sta_pipe_attention_mma_sync,
+        sta_pipe_attention_ref,
+    )
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -1396,10 +1527,13 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
     kw = dict(latent_shape=GRID_HY_45F, tile=tile, window=cfg.sta_window, scale=scale,
               text_k=tk, text_v=tv, text_bias=text_bias)
     kern = lambda: sta_pipe_attention(q, k, v, act, **kw)  # noqa: E731
+    mma = lambda: sta_pipe_attention_mma_sync(q, k, v, act, **kw)  # noqa: E731
     plain = lambda: sta_pipe_attention_ref(q, k, v, act, **kw)  # noqa: E731
+    sta_path_once(torch, "sta_pipe + text tail", kern, True)
     got, want = kern(), plain()
     err = compare(torch, f"sta_pipe + text tail (1,24,{sv},128) + 256 text, tile {tile}, "
                   f"{n_act} of 24 heads", got, want)
+    compare(torch, "sta_pipe + text tail on the mma.sync kernel", mma(), want)
     if got[:, act == 0].any():
         raise RuntimeError("sta_pipe text tail: an inactive head wrote non-zeros")
     ratio = worst_ratio(torch, got, want)
@@ -1421,14 +1555,15 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
     lib, lib_err = masked_sdpa_ms(torch, "sta_pipe", q[:, act > 0], ka, va, smask)
     del smask, ka, va
     torch.cuda.empty_cache()
-    r = dict(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1), library_ms=lib,
-             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, worst_ratio=ratio,
-             missing_tail_worst_ratio=miss)
+    r = sta_rates(dict(ms=time_ms(torch, kern, 10), mma_sync_ms=time_ms(torch, mma, 10),
+                       plain_ms=time_ms(torch, plain, 2, 1), library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by, max_abs_err=err, worst_ratio=ratio,
+                       missing_tail_worst_ratio=miss), flops)
     if lib_err:
         r["library_error"] = lib_err
     out["sta_pipe"]["hunyuan_45f_text_tail"] = r
     log(f"sta_pipe text tail: {window_keys} window + {HY_VALID} text keys per query; {r} "
-        f"(achieved {flops / r['ms'] / 1e9:.1f} TFLOP/s on {n_act} heads)")
+        f"({n_act} heads)")
     del q, k, v, tk, tv
 
     # ---- pool_qkv with K's own matching, and unpool: (1,24,43200,128) -> 21,600
@@ -1508,22 +1643,10 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
         bound_ms=bp_ms, bound_by=bp_by, max_abs_err=err, worst_ratio=ratio)
     log(f"prologue (Hunyuan joint stream): {out['prologue']['hunyuan_joint_43456']}")
     del fused, pq, pk, pv
-    x = randn(1, sj, dim).mul_(3.0)
-    sc, shf = (0.3 * torch.randn(1, dim, generator=g, device=dev) for _ in range(2))
-    nrm = lambda: fused_norm(x, sc, shf, None, None, False, 1e-6, False)  # noqa: E731
-    nrm_plain = lambda: _norm_ref(x, sc, shf, None, None, rms=False, eps=1e-6,  # noqa: E731
-                                  out_f32=False)
-    got, want = nrm(), nrm_plain()
-    err = compare(torch, f"AdaLN norm (1,{sj},3072)", got, want)
-    ratio = worst_ratio(torch, got, want)
-    del got, want
-    w_lib, b_lib = (1.0 + sc[0]).to(bf16), shf[0].to(bf16)
-    bn_ms, bn_by = bound_ms(10.0 * sj * dim, 2 * x.numel() * 2 + 2 * dim * 4, PEAK_F32)
-    out["fused_norm"]["hunyuan_joint_43456"] = dict(
-        ms=time_ms(torch, nrm, 20), plain_ms=time_ms(torch, nrm_plain, 5),
-        library_ms=time_ms(torch, lambda: F.layer_norm(x, (dim,), w_lib, b_lib, eps=1e-6), 20),
-        bound_ms=bn_ms, bound_by=bn_by, max_abs_err=err, worst_ratio=ratio)
-    log(f"AdaLN norm (Hunyuan joint stream): {out['fused_norm']['hunyuan_joint_43456']}")
+    mod = torch.randn((1, 6, dim), generator=g, device=dev) * 0.3
+    out["fused_norm"]["hunyuan_joint_43456"] = norm_case(
+        torch, f"AdaLN norm (Hunyuan joint stream) (1,{sj},3072)",
+        randn(1, sj, dim).mul_(3.0), mod[:, 1], mod[:, 0], 20)
     return out
 
 
@@ -1545,7 +1668,8 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
     STA, pool_qkv and unpool in head-map mode with LOWRES (as the JAX
     package's joint_lowres_attention pools whenever it is given its heads);
     ``int8``: FULL's and LOWRES's flash_manual in the int8 QK mode (the STA
-    text rows stay bf16).  Every flash_manual launch takes the Hopper path."""
+    text rows stay bf16).  Every flash_manual and sta_pipe launch takes the
+    Hopper path."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
@@ -1556,7 +1680,8 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
             "fused_norm": 121 * n_fwd, "flash_manual": experts + text_rows,
             sta_kernel: int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
             "unpool_headmap": int(has[1].sum()), "flash_manual_int8": experts if int8 else 0,
-            "flash_manual_wgmma": experts + text_rows}
+            "flash_manual_wgmma": experts + text_rows,
+            "sta_pipe_wgmma": int(has[2].sum()) if sta_kernel == "sta_pipe" else 0}
 
 
 HY_MODEL_MODES = (("off", False), ("hard", False), ("off", True), ("hard", True))
@@ -1703,28 +1828,43 @@ def run_hunyuan_main_path(torch, card: str):
 def run_hunyuan_reference_shape(torch, card: str) -> dict:
     """One HunyuanVideo-13B forward at 720p x 117f (108,000 + 256 tokens),
     routed hard by random routers, then one routing off; timed after a
-    warm-up of a 1 + 1-block model at the same shapes."""
+    warm-up of a 1 + 1-block model at the same shapes; launch counts exact
+    (the STA kernel the gates pick at this geometry)."""
     import numpy as np
 
     from vorta_tpu_torch.cli.sample import attention_config
     from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.joint_experts import JointConfig, joint_sta_kernel
 
     hy_warm_up(torch, GRID_HY_117F, ("hard", "off"))
     model = HunyuanModel(HUNYUAN_13B, dtype=torch.bfloat16, device="cuda", seed=0)
     lat, text, mask, pooled = hy_inputs(torch, GRID_HY_117F, torch.device("cuda"), 1)
     attn = attention_config("hunyuan-13B", GRID_HY_117F)
-    res = {}
+    sta_kernel = joint_sta_kernel(JointConfig(attn, HY_TEXT), 128, 2)
+    res = {"sta_kernel": sta_kernel}
     torch.cuda.reset_peak_memory_stats()
     for mode in ("hard", "off"):
         torch.cuda.synchronize()
+        _build.reset_launches()
         t0 = time.time()
         out = model(lat, torch.tensor([500.0], device="cuda"), text, mask, pooled,
                     guidance=torch.tensor([6000.0], device="cuda"), attn_cfg=attn,
                     routing_mode=mode)
         torch.cuda.synchronize()
         res[f"{mode}_ms"] = (time.time() - t0) * 1e3
+        launches = dict(_build.launches)
         if not torch.isfinite(out.sample).all():
             raise RuntimeError(f"Hunyuan 117f forward {mode}: non-finite output")
+        if mode == "hard":
+            expected = hy_hard_launches(np.asarray(out.expert_ids)[None], sta_kernel=sta_kernel)
+        else:
+            expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60,
+                        "prologue": 60, "fused_norm": 121, "flash_manual_wgmma": 60}
+        if launches != expected:
+            raise RuntimeError(f"Hunyuan 117f forward {mode}: launches {launches} != "
+                               f"{expected}")
+        served_on_wgmma(launches, f"Hunyuan 117f forward {mode} (STA: {sta_kernel})")
         heads = ("" if out.expert_ids is None else
                  "; heads over 60 blocks: full {}, lowres {}, sta {}".format(
                      *np.bincount(out.expert_ids.reshape(-1), minlength=3)))
@@ -1948,9 +2088,9 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
     routed expert once per block, the pool in active mode), "batched" (the
     pool and unpool in head-map mode), "hybrid" (a pool and an unpool per
     LOWRES head) or "switch" (each head its own expert: a flash_manual per
-    FULL / LOWRES head, an STA launch per STA head).  Every flash and
-    flash_manual launch takes the Hopper path; ``int8``: flash_manual in the
-    int8 QK mode."""
+    FULL / LOWRES head, an STA launch per STA head).  Every flash,
+    flash_manual and sta_pipe launch takes the Hopper path; ``int8``:
+    flash_manual in the int8 QK mode."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
@@ -1970,6 +2110,7 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
                     sta_kernel: int(heads[2].sum())})
     out["flash_wgmma"] = out["flash"]
     out["flash_manual_wgmma"] = out["flash_manual"]
+    out["sta_pipe_wgmma"] = out["sta_pipe"]
     out["flash_manual_int8"] = out["flash_manual"] if int8 else 0
     return out
 
@@ -2269,6 +2410,8 @@ def check_int8_kernels(torch, card: str) -> dict:
             (n * d * 4 + 3 * lt * d) * n_act,
             lambda: time_ms(torch, lambda: F.scaled_dot_product_attention(qa, ka, va), 3, 1))
         out["sta_pipe_int8"][name]["library"] = "SDPA over the whole sequence, no mask"
+        sta_path_once(torch, f"sta_pipe int8 {name}",
+                      lambda: sta_pipe_attention(q8, k8, v, act, **kw8), False)
         del q, k, v, q8, k8, qa, ka, va
         torch.cuda.empty_cache()
 
@@ -2915,7 +3058,11 @@ def check_options_kernels(torch, card: str) -> dict:
     from vorta_tpu_torch.ops.fused_norm import _res_norm_ref, fused_norm, fused_residual_norm
     from vorta_tpu_torch.ops.routed_fused import routed_geometry
     from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
-    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+    from vorta_tpu_torch.ops.sta_pipe import (
+        sta_pipe_attention,
+        sta_pipe_attention_mma_sync,
+        sta_pipe_attention_ref,
+    )
     from vorta_tpu_torch.tools.sta_diag import VARIANTS, sta_diag_attention, sta_diag_ref
 
     dev = torch.device("cuda")
@@ -2993,6 +3140,18 @@ def check_options_kernels(torch, card: str) -> dict:
     pipe_fast = lambda: sta_pipe_attention(q, k, v, all12, **skw)  # noqa: E731
     pipe_fast_ms = time_ms(torch, pipe_fast, 5)
     flops = 4.0 * n * keys * d * h
+    # the fast call itself, every head active: the Hopper path against its plain
+    # version, beside the mma.sync kernel in this call (its row under sta_pipe)
+    sta_path_once(torch, "sta_pipe fast (1,12,72000,128)", pipe_fast, True)
+    want, fast_plain_ms = timed_once(torch, lambda: sta_pipe_attention_ref(q, k, v, all12,
+                                                                           **skw))
+    fast_err = compare(torch, f"sta_pipe fast (1,12,72000,128) tile {tile}, 12 heads",
+                       pipe_fast(), want)
+    del want
+    fast_b_ms, fast_b_by = bound_ms(flops, 4.0 * n * d * 2 * h, PEAK_BF16)
+    out["sta_pipe_fast"] = dict(ms=pipe_fast_ms, mma_sync_ms=time_ms(
+        torch, lambda: sta_pipe_attention_mma_sync(q, k, v, all12, **skw), 5),
+        plain_ms=fast_plain_ms, bound_ms=fast_b_ms, bound_by=fast_b_by, max_abs_err=fast_err)
     box_bytes = h * (n // int(np.prod(tile))) * keys * d * 2 * 2  # each tile's K / V box
     for var in VARIANTS:
         kern = lambda: sta_diag_attention(q, k, v, variant=var, **skw)  # noqa: E731
@@ -3024,6 +3183,9 @@ def check_options_kernels(torch, card: str) -> dict:
     out["sta_diag"]["library_ms"], lib_err = masked_sdpa_ms(torch, "sta_diag", q, k, v, mask)
     if lib_err:
         out["sta_diag"]["library_error"] = lib_err
+    out["sta_pipe_fast"]["library_ms"] = out["sta_diag"]["library_ms"]
+    sta_rates(out["sta_pipe_fast"], flops)
+    log(f"sta_pipe fast (1,12,72000,128), 12 heads: {out['sta_pipe_fast']}")
     del mask
     torch.cuda.empty_cache()
 
@@ -3032,6 +3194,8 @@ def check_options_kernels(torch, card: str) -> dict:
                         ("qk", dict(variant="qk")), ("sT", dict(variant="sT"))):
         line = "228" if mode == "stable" else {"dots": "298", "qk": "294", "sT": "273"}[mode]
         mflops = flops / 2 if mode == "qk" else flops  # qk: no PV product
+        sta_path_once(torch, f"sta_pipe {mode}",
+                      lambda: sta_pipe_attention(q, k, v, all12, **skw, **extra), False)
         out["sta_pipe"][mode] = {"720p_77f_12_heads": mode_case(
             torch, f"sta_pipe {mode} (1,12,72000,128) tile {tile}",
             lambda: sta_pipe_attention(q, k, v, all12, **skw, **extra),
@@ -3049,6 +3213,8 @@ def check_options_kernels(torch, card: str) -> dict:
     hkw = dict(latent_shape=hgrid, tile=htile, window=(3, 3, 3), text_k=tk, text_v=tv,
                text_bias=tb)
     hkeys = int(np.prod([min(3, hgrid[a] // htile[a]) * htile[a] for a in range(3)])) + HY_VALID
+    sta_path_once(torch, "sta_pipe stable + text tail",
+                  lambda: sta_pipe_attention(q, k, v, act, softmax="stable", **hkw), False)
     out["sta_pipe"]["stable"]["hunyuan_45f_text"] = mode_case(
         torch, f"sta_pipe stable (1,24,{n},128) + {HY_TEXT} text ({HY_VALID} valid), "
         f"{n_act} of 24 heads",

@@ -78,9 +78,14 @@ from vorta_tpu_torch.ops.flash_manual import (
     sparse_flash_attention_manual,
     sparse_flash_attention_manual_ref,
 )
-from vorta_tpu_torch.ops.fused_norm import _norm_ref, fused_norm
+from vorta_tpu_torch.ops.fused_norm import _norm_ref, fused_norm, norm_layout
 from vorta_tpu_torch.ops.prologue import _prologue_ref, fused_qk_prologue
-from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+from vorta_tpu_torch.ops.sta_pipe import (
+    sta_pipe_attention,
+    sta_pipe_attention_mma_sync,
+    sta_pipe_attention_ref,
+    sta_wgmma_path,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -204,7 +209,7 @@ def test_flash_manual_kernel_rejects_what_it_does_not_take(card):
     kw = dict(block_q=64, block_kv=64)
     for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=ki),
                 dict(cast_p_to_v_dtype=False)):
-        with pytest.raises(NotImplementedError, match="PR 9"):
+        with pytest.raises(NotImplementedError, match="item 11"):
             sparse_flash_attention_manual(q, q, q, ki, kc, **kw, **bad)
     # the stable softmax is served, with kv_bias too
     g = torch.Generator(device=card).manual_seed(12)
@@ -257,7 +262,7 @@ def test_sta_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, 4 * 6 * 16, 128), device=card, dtype=torch.bfloat16)
     kw = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
     act = torch.ones(2, device=card, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="PR 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         sta_pipe_attention(q, q, q, act, cast_p_to_v_dtype=False, **kw)
     # the stable softmax and the sT variant are served
     g = torch.Generator(device=card).manual_seed(13)
@@ -450,7 +455,7 @@ def test_sta_batched_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros((1, 2, lay.total, 128), device=card, dtype=torch.bfloat16)
     act = torch.ones(2, device=card, dtype=torch.int32)
     kw = dict(block_q=lay.block_q, block_kv=lay.block_kv, pair_bits=bits, tokens_per_tile=tpt)
-    with pytest.raises(NotImplementedError, match="PR 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         sta_flash_headbatched(q, q, q, ki, kc, act, cast_p_to_v_dtype=False, **kw)
     # the stable softmax is served
     from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched_ref
@@ -703,12 +708,13 @@ def test_pool_unpool_kernels_reject_what_they_do_not_take(card):
 
 
 DISPATCH_LAUNCHES = {  # heads (LOWRES, STA, LOWRES, FULL): launches per dispatch
-    None: dict(sta_pipe=1, flash_manual=2, pool_qkv=1, unpool=1),
-    ("VORTA_LOWRES_DISPATCH", "batched"): dict(sta_pipe=1, flash_manual=2, pool_qkv_headmap=1,
-                                               unpool_headmap=1),
-    ("VORTA_LOWRES_DISPATCH", "hybrid"): dict(sta_pipe=1, flash_manual=2, pool_qkv=2, unpool=2),
-    ("VORTA_ROUTED_DISPATCH", "switch"): dict(sta_pipe=1, flash_manual=3, pool_qkv=2,
-                                              unpool=2),
+    None: dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=2, pool_qkv=1, unpool=1),
+    ("VORTA_LOWRES_DISPATCH", "batched"): dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=2,
+                                               pool_qkv_headmap=1, unpool_headmap=1),
+    ("VORTA_LOWRES_DISPATCH", "hybrid"): dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=2,
+                                              pool_qkv=2, unpool=2),
+    ("VORTA_ROUTED_DISPATCH", "switch"): dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=3,
+                                              pool_qkv=2, unpool=2),
 }
 
 
@@ -877,7 +883,8 @@ def test_hunyuan_forward_on_card_matches_cpu(card, mode):
                 "fused_norm": 6}
     if mode == "hard":
         assert (res.expert_ids == np.array([[0, 1, 2]] * 2)).all()
-        expected.update(flash_manual=6, sta_pipe=2, pool_qkv_headmap=2, unpool_headmap=2)
+        expected.update(flash_manual=6, sta_pipe=2, sta_pipe_wgmma=2, pool_qkv_headmap=2,
+                        unpool_headmap=2)
     assert launches == expected
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
@@ -1677,3 +1684,143 @@ def test_flash_backward_on_hopper_forward_lse(card, kind, bq, bkv, sq, skv, vali
     want = flash_backward_ref(q, k, v, out, lse, dout, ki, kc, kv_valid_len=valid or skv, **kw)
     for a, w in zip(got, want):
         _close(a, w)
+
+
+# --- sta_pipe's Hopper path (csrc/attn_sm90.cuh over the window) --------------------
+
+STA_SERVED = [  # (latent, tile, text_len): Wan 480p x 77f, Wan 720p x 77f, Hunyuan 45f
+    ((20, 30, 52), (4, 6, 4), 0),
+    ((20, 45, 80), (5, 9, 8), 0),
+    ((12, 45, 80), (6, 9, 8), 256),
+]
+
+
+@pytest.mark.parametrize("latent,tile,lt", STA_SERVED)
+def test_sta_hopper_path_at_the_served_geometries(card, latent, tile, lt):
+    """Two heads, one inactive (zeros): the Hopper path against the plain
+    version, the text tail with 83 of 256 keys valid, and without the tail
+    the plain version fails the gate; the mma.sync kernel agrees too."""
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(40)
+    q, k, v = (_randn(g, (1, 2, s, 128), torch.bfloat16) for _ in range(3))
+    active = torch.tensor([1, 0], device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=128**-0.5)
+    if lt:
+        kw.update(text_k=_randn(g, (1, 2, lt, 128), torch.bfloat16),
+                  text_v=_randn(g, (1, 2, lt, 128), torch.bfloat16),
+                  text_bias=torch.where(torch.arange(lt, device=card) < 83, 0.0, -1e30)[None])
+    assert sta_wgmma_path(128, latent, tile)
+    _build.reset_launches()
+    got = sta_pipe_attention(q, k, v, active, **kw)
+    assert (_build.launches["sta_pipe"], _build.launches["sta_pipe_wgmma"]) == (1, 1)
+    want = sta_pipe_attention_ref(q, k, v, active, **kw)
+    _close(got, want)
+    assert not got[:, 1].any()
+    _close(sta_pipe_attention_mma_sync(q, k, v, active, **kw), want)
+    assert _build.launches["sta_pipe_wgmma"] == 1
+    if lt:
+        torch.cuda.synchronize()
+        no_tail = sta_pipe_attention_ref(q, k, v, active, latent_shape=latent, tile=tile,
+                                         scale=128**-0.5)
+        err = (no_tail[:, 0] - want[:, 0]).float().abs()
+        floor = torch.maximum(want[:, 0].float().abs(), want[:, 0].float().pow(2).mean().sqrt())
+        assert (err / floor).max().item() > 2.0**-5
+
+
+@pytest.mark.parametrize("latent,tile", [((8, 18, 40), (2, 6, 8)), ((12, 18, 20), (4, 6, 4))])
+def test_sta_hopper_path_at_the_corner_tiles(card, latent, tile):
+    """Windows clamped at every corner of the grid: the rows of the first and
+    last q tiles and of the two other (h, w) corners of the first t row,
+    batch 2, against the plain version."""
+    from vorta_tpu_torch.ops.layout import tile_sequence
+
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(41)
+    q, k, v = (_randn(g, (2, 2, s, 128), torch.bfloat16) for _ in range(3))
+    active = torch.ones(2, device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=1.1 * 128**-0.5)
+    _build.reset_launches()
+    got = sta_pipe_attention(q, k, v, active, **kw)
+    assert _build.launches["sta_pipe_wgmma"] == 1
+    want = sta_pipe_attention_ref(q, k, v, active, **kw)
+    _close(got, want)
+    nh, nw = latent[1] // tile[1], latent[2] // tile[2]
+    tpt = int(np.prod(tile))
+    n = s // tpt
+    gt, wt = (tile_sequence(x, latent, tile).reshape(2, 2, n, tpt, 128) for x in (got, want))
+    for corner in (0, nw - 1, (nh - 1) * nw, n - 1):
+        _close(gt[:, :, corner], wt[:, :, corner])
+
+
+def test_sta_hopper_path_text_tail_of_24_keys(card):
+    """A text tail shorter than one ring slot (24 keys, 17 valid, the last
+    slot cut at 24): inactive heads zero."""
+    latent, tile = (4, 6, 16), (4, 6, 8)
+    g = torch.Generator(device=card).manual_seed(42)
+    q, k, v = (_randn(g, (2, 3, 384, 128), torch.bfloat16) for _ in range(3))
+    tk, tv = (_randn(g, (2, 3, 24, 128), torch.bfloat16) for _ in range(2))
+    bias = torch.where(torch.arange(24, device=card) < 17, 0.0, -1e30)[None]
+    active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, scale=128**-0.5, text_k=tk, text_v=tv,
+              text_bias=bias)
+    _build.reset_launches()
+    got = sta_pipe_attention(q, k, v, active, **kw)
+    assert _build.launches["sta_pipe_wgmma"] == 1
+    _close(got, sta_pipe_attention_ref(q, k, v, active, **kw))
+    assert not got[:, 1].any()
+
+
+def test_sta_rule_leaves_the_rest_on_mma_sync(card):
+    """Runs of 18 tokens over 6 rows cannot land on 8-row multiples, D = 64
+    is not the path's, nor are the stable softmax, a variant or int8 QK:
+    each runs on mma.sync, counted in sta_pipe only, and agrees."""
+    g = torch.Generator(device=card).manual_seed(43)
+    cases = [(((8, 6, 30), (2, 3, 6)), 128, {}), (((8, 6, 32), (2, 3, 8)), 64, {}),
+             (((8, 6, 32), (2, 3, 8)), 128, dict(softmax="stable")),
+             (((8, 6, 32), (2, 3, 8)), 128, dict(variant="sT"))]
+    for (latent, tile), d, extra in cases:
+        q, k, v = (_randn(g, (1, 2, int(np.prod(latent)), d), torch.bfloat16) for _ in range(3))
+        act = torch.ones(2, device=card, dtype=torch.int32)
+        kw = dict(latent_shape=latent, tile=tile, **extra)
+        _build.reset_launches()
+        got = sta_pipe_attention(q, k, v, act, **kw)
+        assert (_build.launches["sta_pipe"], _build.launches["sta_pipe_wgmma"]) == (1, 0)
+        _close(got, sta_pipe_attention_ref(q, k, v, act, **kw))
+    q8 = q.to(torch.int8)
+    _build.reset_launches()
+    sta_pipe_attention(q8, q8, v, act, latent_shape=(8, 6, 32), tile=(2, 3, 8),
+                       qk_scale=torch.ones(2, device=card) / 127.0**2)
+    assert (_build.launches["sta_pipe_int8"], _build.launches["sta_pipe_wgmma"]) == (1, 0)
+
+
+# --- the warp-per-row norm --------------------------------------------------------------
+
+@pytest.mark.parametrize("dim", [1536, 3072, 5120, 1000])
+@pytest.mark.parametrize("mod,affine,rms,out_f32", [
+    ("f32", False, False, False),    # AdaLN, as the models call it
+    ("bf16", True, False, True),
+    (None, True, True, False),
+    ("f32", True, True, True),
+    (None, False, False, False),
+])
+def test_norm_rows_kernel_matches_plain(card, dim, mod, affine, rms, out_f32):
+    """Dims 1,536 / 3,072 (one warp a row) and 5,120 (two warps) on the
+    warp-per-row kernel, 1,000 on the block-per-row one; the modulation as
+    AdaLN passes it, column slices of a (B, 6, dim) tensor read in place."""
+    assert (norm_layout(dim) is None) == (dim == 1000)
+    b, s = 2, 331  # rows that leave the last block part-filled
+    g = torch.Generator(device=card).manual_seed(44)
+    x = (_randn(g, (b, s, dim), torch.float32, 3.0) + 0.5).to(torch.bfloat16)
+    sc = sh = gamma = beta = None
+    if mod:
+        m = (0.3 * torch.randn((b, 6, dim), generator=g, device=card)).to(
+            torch.float32 if mod == "f32" else torch.bfloat16)
+        sc, sh = m[:, 1], m[:, 0]
+    if affine:
+        gamma = 1 + 0.1 * torch.randn(dim, generator=g, device=card)
+        beta = 0.1 * torch.randn(dim, generator=g, device=card)
+    _build.reset_launches()
+    got = fused_norm(x, sc, sh, gamma, beta, rms, 1e-6, out_f32)
+    assert _build.launches["fused_norm"] == 1
+    assert got.dtype == (torch.float32 if out_f32 else torch.bfloat16)
+    _close(got, _norm_ref(x, sc, sh, gamma, beta, rms=rms, eps=1e-6, out_f32=out_f32))

@@ -222,12 +222,12 @@ def test_sta_pipe_stable_text_tail_matches_pallas(variant):
 
 def test_options_left_to_later_slices_raise():
     """f32 P (cast_p_to_v_dtype=False), per-head kv_valid and flash_manual's
-    pair bits stay refused, naming their slice; unknown modes and the int8
+    pair bits stay refused, naming their ROADMAP item; unknown modes and the int8
     mode with a stable softmax or a variant raise ValueError, as in JAX."""
     x = torch.zeros((1, 2, 4 * 6 * 16, 16))
     act = torch.ones(2)
     skw = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
-    with pytest.raises(NotImplementedError, match="PR 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         sta_pipe_attention(x, x, x, act, cast_p_to_v_dtype=False, **skw)
     for bad in (dict(softmax="exact"), dict(variant="dots_only")):
         with pytest.raises(ValueError):
@@ -241,9 +241,9 @@ def test_options_left_to_later_slices_raise():
     fkw = dict(block_q=32, block_kv=32)
     for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=torch.zeros((1, 1, 1))),
                 dict(cast_p_to_v_dtype=False)):
-        with pytest.raises(NotImplementedError, match="PR 9"):
+        with pytest.raises(NotImplementedError, match="item 11"):
             sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count, softmax="stable",
                                           **fkw, **bad)
-    with pytest.raises(NotImplementedError, match="PR 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         sta_flash_headbatched(q, q, q, tab.kv_index, tab.kv_count, act, softmax="stable",
                               cast_p_to_v_dtype=False, **fkw)

@@ -1,13 +1,15 @@
 // The Hopper mainloop of the forward attention kernels (sm_90a), shared by
-// csrc/flash.cu (online softmax, optional lse) and csrc/flash_manual.cu
-// (the fast exp2(s + bias) softmax): one kernel template, two policies.
+// csrc/flash.cu (online softmax, optional lse), csrc/flash_manual.cu (the
+// fast exp2(s + bias) softmax) and csrc/sta_pipe.cu (the same fast softmax
+// over each q tile's sliding window): one kernel template, two softmax
+// policies and two key walks ("sources").
 //
 // What bounds these kernels on the H100: at the served shapes (head dim
-// 128, kv blocks of 512-1024 keys) each q row does 4 * 128 FLOP per key
-// against a K/V tile that 128 q rows share, so the tensor cores bound them
-// (989 TFLOP/s bf16), provided that the products run on wgmma (mma.sync
-// cannot reach that rate) and that no K/V copy stalls a product.  Design,
-// after FlashAttention-3:
+// 128, kv blocks of 512-1024 keys, STA windows of 2,592-9,720 keys) each q
+// row does 4 * 128 FLOP per key against a K/V tile that 128 q rows share,
+// so the tensor cores bound them (989 TFLOP/s bf16), provided that the
+// products run on wgmma (mma.sync cannot reach that rate) and that no K/V
+// copy stalls a product.  Design, after FlashAttention-3:
 //
 // - CTA layout.  A CTA owns 128 q rows of one (batch, head): two consumer
 //   warpgroups of 64 rows each, and one producer warpgroup whose first
@@ -16,20 +18,24 @@
 //   128 * 40 + 256 * 232 <= 65,536).  The grid runs q tiles fastest, then
 //   heads, then batch rows, so the CTAs resident together share one head's
 //   K/V in the 50 MB L2.
-// - Q.  One TMA load into shared memory, 128-byte swizzle, as two boxes of
-//   64 columns (a 128-byte swizzle row holds 64 bf16); 32 KB.  In the int8
-//   QK mode a row of 128 int8 is one box, and S = Q K^T runs on wgmma s8
-//   m64n128k32 (exact int32 sums, then one multiply by qk_factor[h]).
+// - Q.  128-byte swizzle, as two boxes of 64 columns (a 128-byte swizzle row
+//   holds 64 bf16); 32 KB.  BlockSource loads it by TMA; WindowSource
+//   (sta_pipe.cu), whose rows are runs scattered over the raster, by plain
+//   16-byte loads of every thread into the same swizzled layout.  In the
+//   int8 QK mode a row of 128 int8 is one box, and S = Q K^T runs on wgmma
+//   s8 m64n128k32 (exact int32 sums, then one multiply by qk_factor[h]).
 // - The K/V ring.  STAGES slots of BN = 128 keys (K 32 KB + V 32 KB each)
 //   in dynamic shared memory.  K and V have barriers of their own: a
 //   "full" mbarrier (the producer's arrive.expect_tx, then TMA's
 //   complete_tx) and an "empty" one (one arrival per consumer warp once its
 //   last reader is done: the softmax for K, whose slot also holds the
-//   tile's 512 B of kv_bias, the PV product for V).  The producer walks the
-//   consumers' sequence (TileWalk): for j < count, block kv_index[j], each
-//   128-key sub-tile of it, skipping the sub-tiles that the tail rule masks
-//   completely.  The tiles are whole (block_kv % 128 == 0, and kv blocks
-//   never cross a head), so each barrier's byte count is fixed.
+//   slot's 512 B of bias, the PV product for V).  The producer walks the
+//   consumers' sequence of slots (the source's next()): BlockSource walks
+//   kv_index's blocks in 128-key sub-tiles (TileWalk), skipping the
+//   sub-tiles that the tail rule masks completely; the tiles are whole
+//   (block_kv % 128 == 0, and kv blocks never cross a head), so each
+//   barrier's byte count is fixed.  WindowSource fills each slot with the
+//   boxes of a host table, each box landing on a multiple of 8 rows.
 // - S = Q K^T: wgmma.m64n128k16, Q and K both K-major from shared memory
 //   (descriptors with the 128-byte swizzle, stride 1,024 B per 8 rows; a
 //   k step of 16 advances the start address by 32 B inside the swizzle
@@ -47,14 +53,17 @@
 //   as the mma.sync kernels compute them, with two changes of instruction
 //   and none of function: 2^x is ex2.approx.ftz (one instruction; results
 //   below 2^-126 flush to 0, which no row sum can see), and the column mask
-//   runs only on the sub-tile the tail rule cuts.  The fast softmax loads
-//   its bias outside any condition: a guarded load per score compiles to a
-//   branch per score and halves the kernel's speed.  A CTA whose count is
-//   0 writes zeros (and the lse sentinel) and exits before any barrier.
+//   runs only on a slot that is cut (per column for the tail rule, per
+//   8-column block where a source's cuts are multiples of 8).  The fast
+//   softmax loads its bias outside any condition: a guarded load per score
+//   compiles to a branch per score and halves the kernel's speed.  A CTA
+//   with nothing to do (count 0, an inactive head) writes zeros (and the
+//   lse sentinel) and exits before any barrier.
 //
 // Where the tables give other shapes (D = 64, blocks that 128 does not
 // divide), the mma.sync kernels of the same .cu files run; the wrappers
-// choose by one pure-Python rule (ops/flash.py:wgmma_path).
+// choose by one pure-Python rule (ops/flash.py:wgmma_path,
+// ops/sta_pipe.py:sta_wgmma_path).
 #pragma once
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -80,6 +89,9 @@ constexpr int BAR_OFF = BIAS_OFF + STAGES * BIAS_BYTES;
 // q_full, then k_full, k_empty, v_full, v_empty [STAGES] each; 1,024 B of
 // slack to align the base
 constexpr int SMEM_BYTES = BAR_OFF + (1 + 4 * STAGES) * 8 + 1024;
+// a source's own region past the barriers (WindowSource: its walk table); a
+// kernel that has one asks for SRC_OFF + its bytes + 1,024 B
+constexpr int SRC_OFF = BAR_OFF + 128;
 constexpr int EMPTY_ARRIVALS = CONSUMERS * 4;  // one per consumer warp
 static_assert(SMEM_BYTES <= 232448, "shared memory of one H100 block");
 
@@ -147,6 +159,23 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of a 4D tensor map (c0 innermost) into shared memory, completing
+// on an mbarrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before the
+// async proxy's accesses (wgmma operand reads, TMA writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // A contiguous copy (bytes % 16 == 0, 16-byte aligned) completing on an mbarrier.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
                                           uint32_t bar) {
@@ -155,6 +184,11 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       " [%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// The named barrier id (1..15) of `threads` threads (a multiple of 32).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int N>
@@ -290,6 +324,13 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&s)[64])
   for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
 
+// One ring slot as the producer and the consumers both see it.
+struct Slot {
+  int key0;    // the source's handle: the first key (BlockSource), a walk-table row (WindowSource)
+  int nvalid;  // keys of the slot that count; the columns past them are masked
+  bool bias;   // the slot carries BN f32 of bias, added to its scores (Fast only)
+};
+
 // The walk over a CTA's kv sub-tiles that the producer and the consumers
 // share: for j < count, block kv_index[j], its 128-key sub-tiles up to the
 // tail rule's limit (a sub-tile the rule masks completely is skipped, as
@@ -378,20 +419,23 @@ __device__ __forceinline__ void scale_scores(float (&s)[64], int nvalid, int t,
   }
 }
 
-// Fast: p = exp2(s + bias) (bs: the tile's kv_bias in shared memory, or
-// null), 0 past nvalid (MASK), added to the row sums.
-template <bool MASK, bool BIAS>
+// Fast: p = exp2(s + bias) (bs: the tile's bias in shared memory, or
+// null), 0 past nvalid (MASK; BY8: nvalid is a multiple of 8, so the test
+// is one per 8-column block), added to the row sums.
+template <bool MASK, bool BIAS, bool BY8>
 __device__ __forceinline__ void fast_p(float (&s)[64], int nvalid, int t, const float* bs,
                                        float (&l_part)[2]) {
 #pragma unroll
   for (int n = 0; n < 16; ++n) {  // columns 8n + 2t and 8n + 2t + 1
     const float2 b = BIAS ? *reinterpret_cast<const float2*>(bs + 8 * n + 2 * t)
                           : make_float2(0.f, 0.f);
+    const bool off8 = BY8 && 8 * n >= nvalid;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = 4 * n + e;
       const float x = ex2(BIAS ? s[i] + ((e & 1) ? b.y : b.x) : s[i]);
-      s[i] = (MASK && 8 * n + 2 * t + (e & 1) >= nvalid) ? 0.f : x;
+      const bool off = BY8 ? off8 : 8 * n + 2 * t + (e & 1) >= nvalid;
+      s[i] = (MASK && off) ? 0.f : x;
       l_part[e >> 1] += s[i];
     }
   }
@@ -401,8 +445,9 @@ __device__ __forceinline__ void fast_p(float (&s)[64], int nvalid, int t, const 
 // mma.sync kernels compute it.  Online: scores scaled, masked columns -1e30,
 // the running max m_run with m_safe, alpha = exp2(m_old - m_safe) for the
 // caller to rescale O by, l_part rescaled and summed.  Fast: p = exp2(s +
-// bias), 0 on masked columns, no max and no rescale.
-template <Softmax SM>
+// bias), 0 on masked columns, no max and no rescale.  BY8: the source cuts
+// its slots only at multiples of 8 keys.
+template <Softmax SM, bool BY8>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], int nvalid, int t, float scale_log2,
                                              const float* bs, float (&m_run)[2],
                                              float (&l_part)[2], float (&alpha)[2]) {
@@ -435,32 +480,107 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int nvalid, int t, 
     l_part[1] = l_part[1] * alpha[1] + psum[1];
   } else if (bs != nullptr) {
     if (mask)
-      fast_p<true, true>(s, nvalid, t, bs, l_part);
+      fast_p<true, true, BY8>(s, nvalid, t, bs, l_part);
     else
-      fast_p<false, true>(s, nvalid, t, bs, l_part);
+      fast_p<false, true, BY8>(s, nvalid, t, bs, l_part);
   } else {
     if (mask)
-      fast_p<true, false>(s, nvalid, t, bs, l_part);
+      fast_p<true, false, BY8>(s, nvalid, t, bs, l_part);
     else
-      fast_p<false, false>(s, nvalid, t, bs, l_part);
+      fast_p<false, false, BY8>(s, nvalid, t, bs, l_part);
   }
 }
 
+// flash / flash_manual's source: a CTA's 128 q rows are rows row0.. of one
+// (batch, head) of (B, H, Sq, D), loaded by TMA; its keys the 128-key
+// sub-tiles of the kv blocks kv_index lists (TileWalk), loaded by TMA with
+// their kv_bias; the output (and the lse) rows are contiguous.  I8: q and k
+// are int8 rows of 128 bytes, one box each.
+template <bool I8>
+struct BlockSource {
+  static constexpr bool Q_BY_TMA = true;
+  static constexpr bool BY8 = false;  // the tail rule cuts anywhere
+  static constexpr uint32_t QK_BYTES = I8 ? KV_BYTES / 2 : KV_BYTES;  // a Q or K tile
+  const CUtensorMap *tq, *tk, *tv;
+  const Params& p;
+  size_t bh;  // b * H + h
+  int h, row0, count;
+  TileWalk walk;
+
+  __device__ __forceinline__ BlockSource(const CUtensorMap& tq_, const CUtensorMap& tk_,
+                                         const CUtensorMap& tv_, const Params& p_)
+      : tq(&tq_), tk(&tk_), tv(&tv_), p(p_) {
+    h = blockIdx.y;
+    bh = static_cast<size_t>(blockIdx.z) * p.H + h;
+    row0 = blockIdx.x * BM;  // inside one table q block (block_q % BM == 0)
+    const int qi = row0 / p.block_q;
+    count = p.kv_count[(p.cnt_shared ? 0 : h) * p.nq + qi];
+    const int* idx =
+        p.kv_index + static_cast<size_t>((p.idx_shared ? 0 : h) * p.nq + qi) * p.width;
+    walk = TileWalk{idx, count, p.block_kv, p.last_block, p.valid_in_block};
+  }
+  // routed away or past valid_len: zeros (and the lse sentinel), no barrier touched
+  __device__ __forceinline__ bool idle() const { return count == 0; }
+  __device__ __forceinline__ void write_zeros(int tid) const {
+    uint4* o4 = reinterpret_cast<uint4*>(p.out + (bh * p.Sq + row0) * D);
+    for (int e = tid; e < BM * D / 8; e += THREADS) o4[e] = make_uint4(0, 0, 0, 0);
+    if (p.lse != nullptr)
+      for (int r = tid; r < BM; r += THREADS) p.lse[bh * p.Sq + row0 + r] = 1e30f;
+  }
+  __device__ __forceinline__ void issue_q(uint32_t q_smem, uint32_t bar) const {
+    mbar_expect_tx(bar, QK_BYTES);
+    const int qrow = static_cast<int>(bh * p.Sq) + row0;
+    tma_load(q_smem, tq, bar, 0, qrow);
+    if (!I8) tma_load(q_smem + BM * ROW_BYTES, tq, bar, 64, qrow);
+  }
+  __device__ __forceinline__ bool next(Slot& s) {
+    if (!walk.next(s.key0, s.nvalid)) return false;
+    s.bias = p.kv_bias != nullptr;
+    return true;
+  }
+  __device__ __forceinline__ void issue_k(const Slot& s, uint32_t dst, uint32_t bias_dst,
+                                          uint32_t bar) const {
+    const int row = static_cast<int>(bh * p.Skv) + s.key0;
+    mbar_expect_tx(bar, QK_BYTES + (s.bias ? BIAS_BYTES : 0));
+    tma_load(dst, tk, bar, 0, row);
+    if (!I8) tma_load(dst + BN * ROW_BYTES, tk, bar, 64, row);
+    if (s.bias) bulk_load(bias_dst, p.kv_bias + s.key0, BIAS_BYTES, bar);
+  }
+  __device__ __forceinline__ void issue_v(const Slot& s, uint32_t dst, uint32_t bar) const {
+    const int row = static_cast<int>(bh * p.Skv) + s.key0;
+    mbar_expect_tx(bar, KV_BYTES);
+    tma_load(dst, tv, bar, 0, row);
+    tma_load(dst + BN * ROW_BYTES, tv, bar, 64, row);
+  }
+  __device__ __forceinline__ float scale_log2() const { return p.scale_log2; }
+  __device__ __forceinline__ float qk_factor() const { return I8 ? p.qk_factor[h] : 1.f; }
+  // the output and lse rows of CTA row r (0..BM-1)
+  __device__ __forceinline__ __nv_bfloat16* out_row(int r) const {
+    return p.out + (bh * p.Sq + row0 + r) * D;
+  }
+  __device__ __forceinline__ float* lse_row(int r) const {
+    return p.lse == nullptr ? nullptr : p.lse + bh * p.Sq + row0 + r;
+  }
+};
+
 // The whole kernel, for a __global__ of its own in each .cu file (so that
-// profiles and ptxas reports name flash_sm90_kernel and
-// flash_manual_sm90_kernel); the maps are the kernel's __grid_constant__
-// parameters, whose addresses TMA reads.
+// profiles and ptxas reports name flash_sm90_kernel, flash_manual_sm90_kernel
+// and sta_pipe_sm90_kernel); the maps are the kernel's __grid_constant__
+// parameters, whose addresses TMA reads, held by the source.
 // I8: the int8 QK mode (Fast only): q and k are int8 rows of 128 bytes, one
 // box each, S the exact int32 sums of wgmma s8 times qk_factor[h].
-template <Softmax SM, bool I8 = false>
-__device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq, const CUtensorMap& tk,
-                                              const CUtensorMap& tv, const Params& p) {
+// Src: the key walk, BlockSource<I8> or sta_pipe.cu's WindowSource; it
+// tells the CTA's q rows (Q by TMA, or by stage_q's plain loads: each
+// consumer warpgroup its own 64 rows while the first K/V copies fly), its
+// ring slots (next(), issue_k(), issue_v(); stage_shared() fills its own
+// shared region before the producer starts) and where each output row goes.
+template <Softmax SM, bool I8, class Src>
+__device__ __forceinline__ void attn_mainloop(Src& src) {
   static_assert(!I8 || SM == Softmax::Fast, "the int8 QK mode is fast-only");
-  constexpr uint32_t QK_BYTES = I8 ? KV_BYTES / 2 : KV_BYTES;  // a Q or K tile's bytes
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint8_t* gbase = smem_raw + (base - raw);  // generic pointer to the aligned base
+  uint8_t* gbase = smem_raw + (base - raw);  // generic pointer to the aligned base
   const uint32_t q_smem = base;
   const uint32_t bar_q = base + BAR_OFF;
   auto k_full = [&](int s) { return bar_q + 8 * (1 + s); };
@@ -471,19 +591,8 @@ __device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq, const CUten
   auto v_smem = [&](int s) { return base + Q_BYTES + s * STAGE_BYTES + KV_BYTES; };
 
   const int tid = threadIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row0 = blockIdx.x * BM;  // inside one table q block (block_q % BM == 0)
-  const int qi = row0 / p.block_q;
-  const size_t bh = static_cast<size_t>(b) * p.H + h;
-  const int count = p.kv_count[(p.cnt_shared ? 0 : h) * p.nq + qi];
-  const int* idx = p.kv_index + static_cast<size_t>((p.idx_shared ? 0 : h) * p.nq + qi) * p.width;
-  const bool bias = SM == Softmax::Fast && p.kv_bias != nullptr;
-
-  if (count == 0) {  // routed away or past valid_len: zeros, no barrier touched
-    uint4* o4 = reinterpret_cast<uint4*>(p.out + (bh * p.Sq + row0) * D);
-    for (int e = tid; e < BM * D / 8; e += THREADS) o4[e] = make_uint4(0, 0, 0, 0);
-    if (SM == Softmax::Online && p.lse != nullptr)
-      for (int r = tid; r < BM; r += THREADS) p.lse[bh * p.Sq + row0 + r] = 1e30f;
+  if (src.idle()) {  // nothing to attend: zeros, no barrier touched
+    src.write_zeros(tid);
     return;
   }
 
@@ -497,34 +606,23 @@ __device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq, const CUten
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (!Src::Q_BY_TMA) src.stage_shared(gbase, tid);
   __syncthreads();
 
-  TileWalk walk{idx, count, p.block_kv, p.last_block, p.valid_in_block};
-  int key0, nvalid;
+  Slot slot;
   const int wg = tid / 128;
   if (wg == CONSUMERS) {
     // ---- producer: one thread issues every copy --------------------------------
     setmaxnreg_dec<40>();
     if (tid == CONSUMERS * 128) {
-      mbar_expect_tx(bar_q, QK_BYTES);
-      const int qrow = static_cast<int>(bh * p.Sq) + row0;
-      tma_load(q_smem, &tq, bar_q, 0, qrow);
-      if (!I8) tma_load(q_smem + BM * ROW_BYTES, &tq, bar_q, 64, qrow);
-      const int kv_row0 = static_cast<int>(bh * p.Skv);
+      if constexpr (Src::Q_BY_TMA) src.issue_q(q_smem, bar_q);
       int stage = 0;
       uint32_t phase = 0;
-      while (walk.next(key0, nvalid)) {
+      while (src.next(slot)) {
         mbar_wait(k_empty(stage), phase ^ 1);
-        mbar_expect_tx(k_full(stage), QK_BYTES + (bias ? BIAS_BYTES : 0));
-        tma_load(k_smem(stage), &tk, k_full(stage), 0, kv_row0 + key0);
-        if (!I8) tma_load(k_smem(stage) + BN * ROW_BYTES, &tk, k_full(stage), 64, kv_row0 + key0);
-        if (bias)
-          bulk_load(base + BIAS_OFF + stage * BIAS_BYTES, p.kv_bias + key0, BIAS_BYTES,
-                    k_full(stage));
+        src.issue_k(slot, k_smem(stage), base + BIAS_OFF + stage * BIAS_BYTES, k_full(stage));
         mbar_wait(v_empty(stage), phase ^ 1);
-        mbar_expect_tx(v_full(stage), KV_BYTES);
-        tma_load(v_smem(stage), &tv, v_full(stage), 0, kv_row0 + key0);
-        tma_load(v_smem(stage) + BN * ROW_BYTES, &tv, v_full(stage), 64, kv_row0 + key0);
+        src.issue_v(slot, v_smem(stage), v_full(stage));
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -548,7 +646,8 @@ __device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq, const CUten
   float s[64];
   uint32_t si[64];  // I8: the int32 scores
   uint32_t pa[32];
-  const float qf = I8 ? p.qk_factor[h] : 1.f;
+  const float qf = src.qk_factor();
+  const float scale_log2 = src.scale_log2();
   // S = Q K^T issued on a K slot, and turned into f32 scores once landed
   auto qk = [&](int st) {
     if constexpr (I8)
@@ -566,7 +665,9 @@ __device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq, const CUten
     }
   };
   auto bias_of = [&](int st) {
-    return bias ? reinterpret_cast<const float*>(gbase + BIAS_OFF + st * BIAS_BYTES) : nullptr;
+    return (SM == Softmax::Fast && slot.bias)
+               ? reinterpret_cast<const float*>(gbase + BIAS_OFF + st * BIAS_BYTES)
+               : nullptr;
   };
   // every warp releases a slot once its last reader (the softmax's bias reads
   // for K, the PV product for V) is done
@@ -584,25 +685,32 @@ __device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq, const CUten
   // Intra-warpgroup overlap: tile j's QK product is issued before tile j-1's
   // PV product, and tile j's softmax runs while that PV product is in
   // flight; O is rescaled by tile j's alpha once the product has landed.
-  mbar_wait(bar_q, 0);
-  walk.next(key0, nvalid);  // count > 0: there is a first tile
+  if constexpr (Src::Q_BY_TMA) {
+    mbar_wait(bar_q, 0);
+  } else {  // this warpgroup's rows by plain loads, visible to wgmma
+    src.stage_q(gbase, wg, ltid);
+    fence_proxy_async();
+    bar_sync(1 + wg, 128);
+  }
+  src.next(slot);  // not idle: there is a first slot
   mbar_wait(k_full(0), 0);
   qk(0);
   wgmma_wait<0>();
   scores();
-  softmax_tile<SM>(s, nvalid, t, p.scale_log2, bias_of(0), m_run, l_part, alpha);
+  softmax_tile<SM, Src::BY8>(s, slot.nvalid, t, scale_log2, bias_of(0), m_run, l_part, alpha);
   release(k_empty(0));
   pack_p(pa, s);
   int pv_stage = 0, stage = 1 % STAGES;
   uint32_t pv_phase = 0, phase = STAGES == 1;
-  while (walk.next(key0, nvalid)) {
+  while (src.next(slot)) {
     mbar_wait(k_full(stage), phase);
     qk(stage);
     mbar_wait(v_full(pv_stage), pv_phase);
     issue_pv(o, pa, v_smem(pv_stage));
     wgmma_wait<1>();  // the QK product: the older group
     scores();
-    softmax_tile<SM>(s, nvalid, t, p.scale_log2, bias_of(stage), m_run, l_part, alpha);
+    softmax_tile<SM, Src::BY8>(s, slot.nvalid, t, scale_log2, bias_of(stage), m_run, l_part,
+                               alpha);
     release(k_empty(stage));
     wgmma_wait<0>();
     fence_regs(o);
@@ -622,20 +730,32 @@ __device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq, const CUten
   wgmma_wait<0>();
   fence_regs(o);
 
-  // ---- epilogue: normalise, write rows wg*64 + 16*warp + g (+ 8) ------------------
+  // ---- epilogue: normalise, write CTA rows wg*64 + 16*warp + g (+ 8) -------------
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const float x = quad_sum(l_part[hr]);
     const float l = (x == 0.f) ? 1.f : x;
-    const int row = row0 + wg * 64 + warp * 16 + g + 8 * hr;
-    if (SM == Softmax::Online && p.lse != nullptr && t == 0)
-      p.lse[bh * p.Sq + row] = (x == 0.f) ? 1e30f : m_run[hr] + log2f(x);
-    __nv_bfloat16* op = p.out + (bh * p.Sq + row) * D + 2 * t;
+    const int r = wg * 64 + warp * 16 + g + 8 * hr;
+    if constexpr (SM == Softmax::Online) {
+      float* lp = src.lse_row(r);
+      if (lp != nullptr && t == 0) *lp = (x == 0.f) ? 1e30f : m_run[hr] + log2f(x);
+    }
+    __nv_bfloat16* op = src.out_row(r);  // null: a row past the source's q rows
+    if (op == nullptr) continue;
+    op += 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(op + 8 * n) =
           pack_bf16(o[4 * n + 2 * hr] / l, o[4 * n + 2 * hr + 1] / l);
   }
+}
+
+// flash / flash_manual's kernel body over BlockSource.
+template <Softmax SM, bool I8 = false>
+__device__ __forceinline__ void attn_mainloop(const CUtensorMap& tq, const CUtensorMap& tk,
+                                              const CUtensorMap& tv, const Params& p) {
+  BlockSource<I8> src(tq, tk, tv, p);
+  attn_mainloop<SM, I8>(src);
 }
 
 // ---- host side -----------------------------------------------------------------

@@ -247,7 +247,8 @@ cudaError_t launch(int warps, dim3 grid, cudaStream_t stream, const __nv_bfloat1
 // The Hopper path (csrc/attn_sm90.cuh) with the online softmax and the lse.
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv, const sm90::Params p) {
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ sm90::Params p) {
   sm90::attn_mainloop<sm90::Softmax::Online>(tq, tk, tv, p);
 }
 

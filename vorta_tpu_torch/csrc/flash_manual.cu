@@ -214,7 +214,8 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __n
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 flash_manual_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv, const sm90::Params p) {
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ sm90::Params p) {
   sm90::attn_mainloop<sm90::Softmax::Fast>(tq, tk, tv, p);
 }
 
@@ -222,7 +223,8 @@ flash_manual_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 flash_manual_sm90_kernel_i8(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv, const sm90::Params p) {
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ sm90::Params p) {
   sm90::attn_mainloop<sm90::Softmax::Fast, true>(tq, tk, tv, p);
 }
 

@@ -9,10 +9,28 @@
 //
 // Bound on this card: one read and one write of the (B, S, dim) stream, so
 // memory bandwidth bounds it (57.5 MB at Wan-1.3B 480p x 21f in bf16,
-// ~17 us at 3.35 TB/s).  Design: one block per row; the row is read from
-// device memory once into shared memory as f32, the two-pass statistics
-// (mean, then centred variance) come from shared memory with warp-shuffle
-// reductions, and the normalised, modulated row is written once.
+// ~17 us at 3.35 TB/s).  Two kernels, chosen per call by the wrapper's rule
+// on dim (ops/fused_norm.py:norm_layout, mirrored by the C entry):
+//
+// - fused_norm_rows_kernel, where dim = 256 * WPR * CH with CH <= 12 (every
+//   served width: 1,536, 3,072, 5,120): WPR warps per row (one up to dim
+//   3,072, two for 5,120), several rows per 256-thread block.  Each lane
+//   reads CH chunks of 8 bf16 with 16-byte loads (neighbouring lanes on
+//   neighbouring chunks) and holds them in registers (as bf16: half the
+//   registers of f32, so more rows stay in flight); the mean, then the
+//   centred variance (the two-pass statistics, in f32), come from warp
+//   shuffles over those registers, with no shared memory and no block barrier where
+//   a warp holds the row (two warps add their two partial sums through
+//   shared memory behind a named barrier of their own).  gamma / beta and
+//   the modulation are read as float4 (or 8 bf16), the output written with
+//   16-byte stores.
+// - fused_norm_kernel, for other dims (the tiny test models): one block per
+//   row; the row is read into shared memory as f32, the statistics come
+//   from shared memory with block reductions, and the normalised,
+//   modulated row is written once.
+//
+// Both read scale / shift in place: rows b * mod_stride of f32 or bf16
+// (AdaLN's column slices of the (B, 6, dim) modulation), no copy.
 //
 // vorta_fused_residual_norm replaces vorta_tpu/ops/fused_norm.py:_res_kernel
 // (reached through fused_residual_norm): x_new = bf16(f32(x) + f32(delta) *
@@ -38,6 +56,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Sum over the block; every thread gets the result.
 __device__ float block_sum(float x, float* red) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -51,11 +74,44 @@ __device__ float block_sum(float x, float* red) {
   return total;
 }
 
+// scale / shift element i of row b: f32 or bf16 rows mod_stride apart
+struct Mod {
+  const void* scale;
+  const void* shift;
+  long long stride;
+  int bf16;
+
+  __device__ __forceinline__ float at(const void* m, int b, int i) const {
+    const long long off = b * stride + i;
+    return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(m)[off])
+                : static_cast<const float*>(m)[off];
+  }
+  // elements i..i+7 (i % 8 == 0; rows 16-byte aligned)
+  __device__ __forceinline__ void at8(const void* m, int b, int i, float (&out)[8]) const {
+    const long long off = b * stride + i;
+    if (bf16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(m) + off);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+        out[2 * k] = f.x;
+        out[2 * k + 1] = f.y;
+      }
+    } else {
+      const float4* f = reinterpret_cast<const float4*>(static_cast<const float*>(m) + off);
+      const float4 lo = f[0], hi = f[1];
+      out[0] = lo.x, out[1] = lo.y, out[2] = lo.z, out[3] = lo.w;
+      out[4] = hi.x, out[5] = hi.y, out[6] = hi.z, out[7] = hi.w;
+    }
+  }
+};
+
 template <typename TO>
 __global__ void __launch_bounds__(THREADS)
-fused_norm_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, const float* __restrict__ scale,
-                  const float* __restrict__ shift, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, int S, int dim, int rms, float eps) {
+fused_norm_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, const Mod mod,
+                  const float* __restrict__ gamma, const float* __restrict__ beta, int S, int dim,
+                  int rms, float eps) {
   extern __shared__ float row[];
   __shared__ float red[THREADS / 32];
   const size_t r = blockIdx.x;
@@ -77,16 +133,149 @@ fused_norm_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, con
   const float inv = rsqrtf(block_sum(sq, red) / dim + eps);
 
   TO* orow = out + r * dim;
-  const float* sc = scale ? scale + static_cast<size_t>(b) * dim : nullptr;
-  const float* sh = shift ? shift + static_cast<size_t>(b) * dim : nullptr;
   for (int i = threadIdx.x; i < dim; i += THREADS) {
     float y = (row[i] - mean) * inv;
     if (gamma) {
       y = y * gamma[i];
       if (beta) y = y + beta[i];
     }
-    if (sc) y = y * (1.f + sc[i]) + sh[i];
+    if (mod.scale) y = y * (1.f + mod.at(mod.scale, b, i)) + mod.at(mod.shift, b, i);
     orow[i] = from_f32<TO>(y);
+  }
+}
+
+// Sum over the WPR warps of one row group (WPR > 1): warp totals through
+// shared memory (red: this group's WPR slots), behind a named barrier of
+// the group's 32 * WPR threads.
+template <int WPR>
+__device__ __forceinline__ float group_sum(float x, float* red, int grp, int wir) {
+  if ((threadIdx.x & 31) == 0) red[wir] = x;
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(32 * WPR) : "memory");
+  float total = 0.f;
+#pragma unroll
+  for (int w = 0; w < WPR; ++w) total += red[w];
+  return total;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// A 16-byte chunk of the row, read once: not kept in L1 (which then holds
+// the modulation and gamma / beta every row of a batch reads).
+__device__ __forceinline__ uint4 load_stream(const uint4* p) {
+  uint4 u;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+               : "l"(p));
+  return u;
+}
+
+// The 8 bf16 of a 16-byte chunk as f32.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+    f[2 * k] = t.x;
+    f[2 * k + 1] = t.y;
+  }
+}
+
+// Rows of dim = 256 * WPR * CH bf16: WPR warps a row, THREADS / 32 / WPR
+// rows a block; lane l of warp w (of the row's WPR) holds the 8-element
+// chunks c * 32 * WPR + w * 32 + l, c < CH, as bf16 (half the registers of
+// f32, so more warps stay in flight), each pass taking them as f32.
+template <int CH, int WPR, typename TO>
+__global__ void __launch_bounds__(THREADS)
+fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, const Mod mod,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       long long rows, int S, int rms, float eps) {
+  constexpr int DIM = 256 * WPR * CH;
+  constexpr int ROWS = THREADS / 32 / WPR;  // rows per block
+  __shared__ float red[2][WPR > 1 ? THREADS / 32 : 1];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / WPR, wir = warp % WPR;
+  const long long r = static_cast<long long>(blockIdx.x) * ROWS + grp;
+  if (r >= rows) return;  // the whole row group together
+  const int b = static_cast<int>(r / S);
+  const int c0 = wir * 32 + lane;  // this lane's first chunk
+
+  uint4 xv[CH];
+  const uint4* xr = reinterpret_cast<const uint4*>(x + r * DIM);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) xv[c] = load_stream(xr + c * 32 * WPR + c0);
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    float f[8];
+    unpack8(xv[c], f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum += f[e];
+  }
+  float mean = 0.f;
+  if (!rms) {
+    sum = warp_sum(sum);
+    if constexpr (WPR > 1) sum = group_sum<WPR>(sum, &red[0][grp * WPR], grp, wir);
+    mean = sum / DIM;
+  }
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    float f[8];
+    unpack8(xv[c], f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float d = f[e] - mean;
+      sq += d * d;
+    }
+  }
+  sq = warp_sum(sq);
+  if constexpr (WPR > 1) sq = group_sum<WPR>(sq, &red[1][grp * WPR], grp, wir);
+  const float inv = rsqrtf(sq / DIM + eps);
+
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int col = 8 * (c * 32 * WPR + c0);
+    float y[8];
+    unpack8(xv[c], y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = (y[e] - mean) * inv;
+    if (gamma) {
+      const float4 g0 = *reinterpret_cast<const float4*>(gamma + col);
+      const float4 g1 = *reinterpret_cast<const float4*>(gamma + col + 4);
+      const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] *= gg[e];
+      if (beta) {
+        const float4 b0 = *reinterpret_cast<const float4*>(beta + col);
+        const float4 b1 = *reinterpret_cast<const float4*>(beta + col + 4);
+        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) y[e] += bb[e];
+      }
+    }
+    if (mod.scale) {
+      float sc[8], sh[8];
+      mod.at8(mod.scale, b, col, sc);
+      mod.at8(mod.shift, b, col, sh);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = y[e] * (1.f + sc[e]) + sh[e];
+    }
+    if constexpr (sizeof(TO) == 4) {
+      float4* o = reinterpret_cast<float4*>(out + r * DIM + col);
+      o[0] = make_float4(y[0], y[1], y[2], y[3]);
+      o[1] = make_float4(y[4], y[5], y[6], y[7]);
+    } else {
+      uint4 u;
+      u.x = pack2(y[0], y[1]);
+      u.y = pack2(y[2], y[3]);
+      u.z = pack2(y[4], y[5]);
+      u.w = pack2(y[6], y[7]);
+      *reinterpret_cast<uint4*>(out + r * DIM + col) = u;
+    }
   }
 }
 
@@ -161,27 +350,89 @@ extern "C" int vorta_fused_residual_norm(const void* x, const void* delta, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: contiguous (B, S, dim); scale/shift: (B, dim) f32 or null;
-// gamma/beta: (dim,) f32 or null.  x bf16; out bf16, or f32 when out_f32.
+namespace {
+
+// The warp-per-row kernel's layout for dim: (warps per row, chunks of 8 a
+// lane), the fewest warps with at most 12 chunks a lane; {0, 0} where dim
+// is not 256 * WPR * CH (ops/fused_norm.py:norm_layout, the same rule).
+struct Layout {
+  int wpr, ch;
+};
+Layout norm_layout(int dim) {
+  for (int wpr = 1; wpr <= 4; wpr *= 2)
+    if (dim % (256 * wpr) == 0 && dim / (256 * wpr) <= 12) return {wpr, dim / (256 * wpr)};
+  return {0, 0};
+}
+
+template <int CH, int WPR, typename TO>
+cudaError_t launch_rows(const __nv_bfloat16* x, TO* out, const Mod& mod, const float* gamma,
+                        const float* beta, long long rows, int S, int rms, float eps,
+                        cudaStream_t st) {
+  constexpr long long per_block = THREADS / 32 / WPR;
+  const long long blocks = (rows + per_block - 1) / per_block;
+  fused_norm_rows_kernel<CH, WPR, TO><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+      x, out, mod, gamma, beta, rows, S, rms, eps);
+  return cudaGetLastError();
+}
+
+// CH runs over 1..12 for one warp a row, 7..12 for two or four (fewer
+// chunks would have taken fewer warps).
+template <int CH, typename TO>
+cudaError_t launch_ch(int wpr, int ch, const __nv_bfloat16* x, TO* out, const Mod& mod,
+                      const float* gamma, const float* beta, long long rows, int S, int rms,
+                      float eps, cudaStream_t st) {
+  if (ch != CH) {
+    if constexpr (CH < 12)
+      return launch_ch<CH + 1, TO>(wpr, ch, x, out, mod, gamma, beta, rows, S, rms, eps, st);
+    else
+      return cudaErrorInvalidValue;
+  }
+  if (wpr == 1) return launch_rows<CH, 1>(x, out, mod, gamma, beta, rows, S, rms, eps, st);
+  if constexpr (CH >= 7) {
+    if (wpr == 2) return launch_rows<CH, 2>(x, out, mod, gamma, beta, rows, S, rms, eps, st);
+    if (wpr == 4) return launch_rows<CH, 4>(x, out, mod, gamma, beta, rows, S, rms, eps, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x, out: contiguous (B, S, dim); x bf16, out bf16 or (out_f32) f32.
+// scale / shift: (B, dim) f32 (mod_bf16: bf16) with rows mod_stride
+// elements apart and unit column stride, or null (together); gamma / beta:
+// contiguous (dim,) f32 or null.  wpr: the wrapper's layout rule
+// (ops/fused_norm.py:norm_layout), 0 for the block-per-row kernel; it must
+// agree with the C side's.  The warp-per-row kernel needs x, gamma, beta
+// and the modulation rows 16-byte aligned.  Returns the CUDA error code.
 extern "C" int vorta_fused_norm(const void* x, void* out, const void* scale, const void* shift,
                                 const void* gamma, const void* beta, int B, int S, int dim,
-                                int out_f32, int rms, float eps, void* stream) {
+                                int out_f32, int rms, float eps, long long mod_stride,
+                                int mod_bf16, int wpr, void* stream) {
   if (dim <= 0 || dim * sizeof(float) > 48 * 1024 || (scale == nullptr) != (shift == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t rows = static_cast<size_t>(B) * S;
+  const Layout lay = norm_layout(dim);
+  if (wpr != lay.wpr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * S;
   if (rows == 0) return static_cast<int>(cudaSuccess);
   auto st = static_cast<cudaStream_t>(stream);
-  auto* sc = static_cast<const float*>(scale);
-  auto* sh = static_cast<const float*>(shift);
+  const Mod mod{scale, shift, mod_stride, mod_bf16};
   auto* ga = static_cast<const float*>(gamma);
   auto* be = static_cast<const float*>(beta);
   auto* xx = static_cast<const __nv_bfloat16*>(x);
+  if (wpr) {
+    return static_cast<int>(
+        out_f32 ? launch_ch<1, float>(lay.wpr, lay.ch, xx, static_cast<float*>(out), mod, ga, be,
+                                      rows, S, rms, eps, st)
+                : launch_ch<1, __nv_bfloat16>(lay.wpr, lay.ch, xx,
+                                              static_cast<__nv_bfloat16*>(out), mod, ga, be,
+                                              rows, S, rms, eps, st));
+  }
   const size_t smem = static_cast<size_t>(dim) * sizeof(float);
   if (out_f32)
-    fused_norm_kernel<float><<<rows, THREADS, smem, st>>>(xx, static_cast<float*>(out), sc, sh, ga,
+    fused_norm_kernel<float><<<rows, THREADS, smem, st>>>(xx, static_cast<float*>(out), mod, ga,
                                                           be, S, dim, rms, eps);
   else
     fused_norm_kernel<__nv_bfloat16><<<rows, THREADS, smem, st>>>(
-        xx, static_cast<__nv_bfloat16*>(out), sc, sh, ga, be, S, dim, rms, eps);
+        xx, static_cast<__nv_bfloat16*>(out), mod, ga, be, S, dim, rms, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,10 +22,11 @@ kernel of ``tools/sta_diag.py``.  The softmax modes count apart too, as
 subsets of their kernel: ``flash_manual_stable``, ``sta_batched_stable``,
 ``sta_pipe_stable`` (the stable softmax) and ``sta_pipe_dots``,
 ``sta_pipe_qk``, ``sta_pipe_sT`` (sta_pipe's diagnostic variants).
-``flash_wgmma`` and ``flash_manual_wgmma`` count the launches that took the
-Hopper path (``csrc/attn_sm90.cuh``: wgmma, TMA, warp specialisation), as
-subsets of ``flash`` and ``flash_manual``; the wrappers choose it by a shape
-rule (``ops/flash.py:wgmma_path``).  Headers (``*.cuh``) are part of the
+``flash_wgmma``, ``flash_manual_wgmma`` and ``sta_pipe_wgmma`` count the
+launches that took the Hopper path (``csrc/attn_sm90.cuh``: wgmma, TMA,
+warp specialisation), as subsets of ``flash``, ``flash_manual`` and
+``sta_pipe``; the wrappers choose it by a rule (``ops/flash.py:wgmma_path``,
+``ops/sta_pipe.py:sta_wgmma_path``).  Headers (``*.cuh``) are part of the
 hash.
 """
 
@@ -49,7 +50,7 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "sta_batched", "sta_window", "sta_row", "pool_qkv_headmap", "unpool_headmap",
            "copy_probe", "fused_residual_norm", "sta_diag", "flash_manual_stable",
            "sta_batched_stable", "sta_pipe_stable", "sta_pipe_dots", "sta_pipe_qk",
-           "sta_pipe_sT", "flash_wgmma", "flash_manual_wgmma")
+           "sta_pipe_sT", "flash_wgmma", "flash_manual_wgmma", "sta_pipe_wgmma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -127,7 +128,12 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as an int: the raw handle, as
+    PyTorch's own kernel launchers read it, without building a Stream object
+    (whose host time per call is of the order of a short kernel's run, and
+    every wrapper pays it)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def ptr(t) -> int | None:

@@ -242,8 +242,8 @@ def sparse_flash_attention_raw(
         raise ValueError(f"tables {tuple(kv_index.shape)} for {h} heads, {sq // block_q} q blocks")
     if kv_valid is not None or pair_bits is not None:
         raise NotImplementedError(
-            "per-head kv_valid and pair_bits of the flash kernel belong to a later slice "
-            "(PR 9): no JAX call site passes them (the STA pair bits run in ops/sta_batched.py)")
+            "per-head kv_valid and pair_bits of the flash kernel are ROADMAP section 1 item "
+            "11: no JAX call site passes them (the STA pair bits run in ops/sta_batched.py)")
     if kv_valid_len is None:
         kv_valid_len = skv
     if scale is None:
@@ -257,7 +257,7 @@ def sparse_flash_attention_raw(
                         q, k, v)
     dev = _build.require_cuda(q, k, v)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(f"the CUDA flash kernel takes bf16 (f32: a later slice, PR 10), "
+        raise NotImplementedError(f"the CUDA flash kernel takes bf16 (f32: ROADMAP section 1 item 12), "
                                   f"got {q.dtype}")
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
         raise NotImplementedError(f"the CUDA flash kernel takes D 64/128 and blocks that are "

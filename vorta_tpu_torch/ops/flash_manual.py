@@ -43,7 +43,7 @@ k, the shapes of ``ops/flash.py:wgmma_path``: every served geometry), else
 its mma.sync kernel (D = 64, other blocks, the stable softmax); on CPU
 tensors it runs the plain version,
 ``sparse_flash_attention_manual_ref``.  The TPU wrapper's other options
-belong to later slices (PR 9) and raise NotImplementedError.
+(ROADMAP section 1 item 11) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -216,13 +216,13 @@ def sparse_flash_attention_manual(
     if softmax not in SOFTMAXES:
         raise ValueError(f"softmax {softmax!r} not in {SOFTMAXES}")
     unported = (
-        (kv_valid is not None, "per-head kv_valid belongs to a later slice (PR 9): no JAX "
+        (kv_valid is not None, "per-head kv_valid is ROADMAP section 1 item 11: no JAX "
                                "call site passes it"),
         (pair_bits is not None or tokens_per_tile is not None,
-         "pair_bits of this kernel belong to a later slice (PR 9): no JAX call site passes "
+         "pair_bits of this kernel are ROADMAP section 1 item 11: no JAX call site passes "
          "them (the STA pair bits run in ops/sta_batched.py)"),
-        (not cast_p_to_v_dtype, "cast_p_to_v_dtype=False (P kept in f32) belongs to a later "
-                                "slice (PR 9): P is always cast to v's dtype here"),
+        (not cast_p_to_v_dtype, "cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
+                                "item 11: P is always cast to v's dtype here"),
     )
     for bad, why in unported:
         if bad:
@@ -242,7 +242,7 @@ def sparse_flash_attention_manual(
     qk_dtype = torch.bfloat16 if qk_scale is None else torch.int8
     if v.dtype != torch.bfloat16 or q.dtype != qk_dtype or k.dtype != qk_dtype:
         raise NotImplementedError(f"the CUDA flash_manual kernel takes bf16 (q / k int8 with "
-                                  f"qk_scale; f32: a later slice, PR 10), got {q.dtype}, "
+                                  f"qk_scale; f32: ROADMAP section 1 item 12), got {q.dtype}, "
                                   f"{k.dtype}, {v.dtype}")
     if d not in (64, 128) or block_q % 16:
         raise NotImplementedError(f"the CUDA flash_manual kernel takes D 64/128 and "

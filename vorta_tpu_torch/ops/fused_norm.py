@@ -5,7 +5,10 @@ f32 statistics regardless of the activation dtype (diffusers FP32LayerNorm
 semantics), optional affine gamma/beta, optional AdaLN
 ``norm(x) * (1 + scale) + shift``, output in x's dtype or f32.  On CUDA
 tensors ``fused_norm`` launches ``csrc/fused_norm.cu`` (bf16 x, as the
-model runs on the card; other dtypes raise); on CPU tensors it runs the
+model runs on the card; other dtypes raise): the warp-per-row kernel where
+``norm_layout`` gives dim a layout (every served width), else the
+block-per-row kernel; both read AdaLN's scale / shift in place (strided
+column slices of the modulation, f32 or bf16).  On CPU tensors it runs the
 plain version ``_norm_ref``.  Router training differentiates through the
 norms, so ``fused_norm`` is a ``torch.autograd.Function`` on both devices:
 its backward, ``_norm_bwd``, recomputes the f32 statistics in plain
@@ -26,7 +29,7 @@ package (its blocks keep the residual adds apart).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,9 +58,46 @@ def _norm_fn():
     fn = _build.load("fused_norm").vorta_fused_norm
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, ctypes.c_longlong, i, i,
+                       p]
         fn.restype = ctypes.c_int
     return fn
+
+
+NORM_CHUNKS = 12  # 16-byte chunks of 8 bf16 a lane holds at most (96 f32 registers)
+
+
+def norm_layout(dim: int) -> Optional[Tuple[int, int]]:
+    """(warps per row, chunks per lane) of the warp-per-row norm kernel: dim
+    = 256 * warps * chunks with the fewest warps (1, 2 or 4) that keep the
+    chunks at most ``NORM_CHUNKS``; None (the block-per-row kernel) for any
+    other dim.  The same rule on both sides: the C entry refuses a layout
+    that differs from its own."""
+    for wpr in (1, 2, 4):
+        if dim % (256 * wpr) == 0 and dim // (256 * wpr) <= NORM_CHUNKS:
+            return wpr, dim // (256 * wpr)
+    return None
+
+
+def _modulation(scale, shift, b: int, dim: int):
+    """(scale, shift, row stride, is bf16) as the kernels read them: in place
+    where both are (B, dim) f32 or bf16 views with unit column stride, one
+    row stride and 16-byte aligned rows (AdaLN's ``mod[:, i]``), else
+    contiguous f32 copies; (None, None, 0, 0) without modulation."""
+    if scale is None:
+        return None, None, 0, 0
+    for t in (scale, shift):
+        if tuple(t.shape) != (b, dim):
+            raise ValueError(f"expected {(b, dim)}, got {tuple(t.shape)}")
+    row = scale.stride(0) if b > 1 else dim
+    in_place = (scale.dtype == shift.dtype and scale.dtype in (torch.float32, torch.bfloat16)
+                and scale.stride(1) == shift.stride(1) == 1
+                and (b == 1 or shift.stride(0) == row)
+                and (row * scale.element_size()) % 16 == 0
+                and scale.data_ptr() % 16 == 0 and shift.data_ptr() % 16 == 0)
+    if not in_place:
+        scale, shift, row = scale.float().contiguous(), shift.float().contiguous(), dim
+    return scale, shift, row, int(scale.dtype == torch.bfloat16)
 
 
 def _f32_vec(t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
@@ -73,8 +113,8 @@ def _check_kernel_rule(what: str, x: torch.Tensor) -> None:
     """The shapes the norm kernels take: bf16, a row of f32 in 48 KiB of
     shared memory."""
     if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{what} kernel: dtype {x.dtype} (bf16 only; f32 belongs to a "
-                                  "later slice, PR 10)")
+        raise NotImplementedError(f"{what} kernel: dtype {x.dtype} (bf16 only; f32 is ROADMAP "
+                                  "section 1 item 12)")
     if x.shape[-1] * 4 > 48 * 1024:
         raise NotImplementedError(f"{what} kernel: dim {x.shape[-1]} > 12288")
 
@@ -86,14 +126,16 @@ def _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32):
     b, s, dim = x.shape
     dev = _build.require_cuda(x, scale, shift, gamma, beta)
     _check_kernel_rule("fused_norm", x)
-    scale, shift = _f32_vec(scale, (b, dim)), _f32_vec(shift, (b, dim))
-    gamma, beta = _f32_vec(gamma, (dim,)), _f32_vec(beta, (dim,))
-    x = x.contiguous()
+    scale, shift, mod_stride, mod_bf16 = _modulation(scale, shift, b, dim)
+    gamma, beta = (_build.aligned16(_f32_vec(t, (dim,))) for t in (gamma, beta))
+    x = _build.aligned16(x.contiguous())
+    layout = norm_layout(dim)
     out = torch.empty(x.shape, dtype=torch.float32 if out_f32 else x.dtype, device=dev)
     err = _norm_fn()(
         x.data_ptr(), out.data_ptr(), _build.ptr(scale), _build.ptr(shift),
         _build.ptr(gamma), _build.ptr(beta), b, s, dim,
-        int(out_f32), int(rms), float(eps), _build.stream_ptr(dev))
+        int(out_f32), int(rms), float(eps), mod_stride, mod_bf16,
+        0 if layout is None else layout[0], _build.stream_ptr(dev))
     _build.check(err, "fused_norm")
     _build.launches["fused_norm"] += 1
     return out
@@ -157,7 +199,11 @@ def fused_norm(x: torch.Tensor, scale: Optional[torch.Tensor], shift: Optional[t
         raise ValueError(f"fused_norm takes (B, S, dim), got {tuple(x.shape)}")
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift come together")
-    return _FusedNorm.apply(x, scale, shift, gamma, beta, rms, eps, out_f32)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, scale, shift, gamma, beta)):
+        return _FusedNorm.apply(x, scale, shift, gamma, beta, rms, eps, out_f32)
+    # no graph to record: the forward alone, without the Function's host cost
+    return _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32)
 
 
 # ---- residual + norm fusion ---------------------------------------------------

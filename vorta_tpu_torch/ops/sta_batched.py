@@ -132,8 +132,8 @@ def _check_options(softmax: str, cast_p_to_v_dtype: bool) -> None:
     if softmax not in ("fast", "stable"):
         raise ValueError(f"softmax {softmax!r} not in ('fast', 'stable')")
     if not cast_p_to_v_dtype:
-        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) belongs to a later "
-                                  "slice (PR 9): P is always cast to v's dtype here")
+        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
+                                  "item 11: P is always cast to v's dtype here")
 
 
 def sta_flash_headbatched_ref(q, k, v, kv_index, kv_count, active, *, pair_bits=None,
@@ -240,8 +240,8 @@ def sta_flash_headbatched(
     skv = k.shape[2]
     sub = _subtile(pair_bits, tokens_per_tile, block_q, block_kv)
     if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise NotImplementedError(f"the CUDA sta_batched kernel takes bf16 (f32: a later slice, "
-                                  f"PR 10), got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise NotImplementedError(f"the CUDA sta_batched kernel takes bf16 (f32: ROADMAP "
+                                  f"section 1 item 12), got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
         raise NotImplementedError(f"the CUDA sta_batched kernel takes D 64/128 and blocks that "
                                   f"are multiples of 8, got D={d}, blocks {block_q}/{block_kv}")

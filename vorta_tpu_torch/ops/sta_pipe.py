@@ -42,8 +42,15 @@ every tile width: it needs only tiles that divide the grid.
 budget), kept for the routed dispatch, which chooses by it as the JAX
 package does.
 
-On CUDA tensors ``sta_pipe_attention`` launches ``csrc/sta_pipe.cu``; on
-CPU tensors it runs the plain version ``sta_pipe_attention_ref``.
+On CUDA tensors ``sta_pipe_attention`` launches ``csrc/sta_pipe.cu``: the
+Hopper path (``csrc/attn_sm90.cuh``'s mainloop over the window: wgmma, the
+window's runs loaded by TMA into a ring of 128-key slots; counted as
+``sta_pipe_wgmma`` too) where ``sta_wgmma_path`` says so (D = 128, bf16,
+the fast softmax, the full variant, a window whose runs can land on 8-row
+multiples of a slot: every served geometry, with or without the text
+tail), with the slot table of ``window_walk``; else its mma.sync kernel
+(the int8 QK mode, the stable softmax, the variants, D = 64).  On CPU
+tensors it runs the plain version ``sta_pipe_attention_ref``.
 """
 
 from __future__ import annotations
@@ -129,17 +136,105 @@ def supports_pipe(latent_shape: Shape3, tile: Shape3, d: int, itemsize: int = 2,
     return est < 40 * 2**20
 
 
+def _extent(latent_shape: Shape3, tile: Shape3, window: Shape3) -> Shape3:
+    """(bt, bh, bw): the window box's tokens per axis."""
+    return tuple(min(window[a], latent_shape[a] // tile[a]) * tile[a] for a in range(3))
+
+
 @functools.lru_cache(maxsize=16)
 def _window_keys(latent_shape: Shape3, tile: Shape3, window: Shape3) -> np.ndarray:
     """(n_tiles, n_keys) raster indices of each q tile's window box, in the
     order the kernel visits them (t, then h, then w)."""
     t, hh, w = latent_shape
-    ext = [min(window[a], latent_shape[a] // tile[a]) * tile[a] for a in range(3)]
+    ext = _extent(latent_shape, tile, window)
     box = (np.arange(ext[0])[:, None, None] * hh * w + np.arange(ext[1])[None, :, None] * w
            + np.arange(ext[2])[None, None, :]).reshape(-1)
     st = window_starts(latent_shape, tile, window).astype(np.int64)
     base = (st[:, 0] * hh + st[:, 1]) * w + st[:, 2]
     return base[:, None] + box[None, :]
+
+
+WALK_BN = 128  # keys per ring slot of the Hopper path (csrc/attn_sm90.cuh: BN)
+WALK_BOXES = 16  # boxes a slot can hold (8 tokens at least each)
+WALK_COLS = 4 + 2 * WALK_BOXES  # a slot's row of the walk table (csrc/sta_pipe.cu)
+# slots whose table fits the shared memory left past the mainloop's ring:
+# (232,448 - SRC_OFF 164,992 - 1,024 alignment slack) // (WALK_COLS * 4)
+WALK_MAX_SLOTS = 461
+
+
+@functools.lru_cache(maxsize=64)
+def walk_box(latent_shape: Shape3, tile: Shape3, window: Shape3) -> Optional[Tuple[int, int]]:
+    """(box_w, box_h) of the Hopper path's TMA box: box_h of the window's
+    runs of box_w = bw contiguous tokens, or None where no box fits.  A box
+    fits where box_h divides the window's bh runs per plane, and box_w *
+    box_h is a multiple of 8 (each box lands on a multiple of 8 slot rows,
+    the 1,024 B atom of the 128-byte swizzle that the wgmma descriptors
+    assume) and at most ``WALK_BN``.  Of those, the box whose copies fill
+    most of a slot, then the taller (fewer copies)."""
+    _, bh, bw = _extent(latent_shape, tile, window)
+    best = None
+    for hb in range(1, bh + 1):
+        tokens = hb * bw
+        if bh % hb or tokens % 8 or tokens > WALK_BN:
+            continue
+        key = ((WALK_BN // tokens) * tokens, hb)
+        if best is None or key > best:
+            best = key
+    return None if best is None else (bw, best[1])
+
+
+def sta_wgmma_path(d: int, latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3), *,
+                   dtype: torch.dtype = torch.bfloat16, softmax: str = "fast",
+                   variant: str = "full", qk_int8: bool = False, text_len: int = 0) -> bool:
+    """The rule of sta_pipe's Hopper path (``csrc/attn_sm90.cuh`` over the
+    window): head dim 128, bf16, the fast softmax, the full variant, no
+    int8 QK, a window whose runs ``walk_box`` can land, and a slot table
+    (text_len's slots too; text_len a multiple of 8, ``_text_tail``'s rule)
+    of at most ``WALK_MAX_SLOTS`` rows, which the kernel keeps in shared
+    memory.  The same rule on both sides: the C entry refuses the Hopper
+    path for anything else."""
+    shape3, tile3, window3 = tuple(latent_shape), tuple(tile), tuple(window)
+    return (d == 128 and dtype == torch.bfloat16 and softmax == "fast" and variant == "full"
+            and not qk_int8 and walk_box(shape3, tile3, window3) is not None
+            and window_walk(shape3, tile3, window3, text_len).shape[0] <= WALK_MAX_SLOTS)
+
+
+@functools.lru_cache(maxsize=64)
+def window_walk(latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3),
+                text_len: int = 0) -> np.ndarray:
+    """The Hopper path's slot table, the same for every CTA of a call:
+    (n_slots, ``WALK_COLS``) int32, one row per 128-key ring slot in the
+    order the kernel visits them, [nvalid, first text key (-1: a window
+    slot), boxes, 0, (dt, dh) of each box from the window origin, zeros].
+    Window slots first: the window's bt x bh runs of bw tokens, box_h runs a
+    box (``walk_box``) in (t, h) order, ``WALK_BN // (bw * box_h)`` boxes a
+    slot, box i of a slot on rows i * bw * box_h.., so the slots hold the
+    window's keys in ``_window_keys``' order; then the text tail's keys, 128
+    a slot (the last cut at text_len % 128).  Read-only: it is cached."""
+    box = walk_box(latent_shape, tile, window)
+    if box is None:
+        raise ValueError(f"no window box of tile {tile}, window {window} on {latent_shape} "
+                         "lands on 8-row multiples of a slot")
+    bw, hb = box
+    bt, bh, _ = _extent(latent_shape, tile, window)
+    boxes = [(dt, dh) for dt in range(bt) for dh in range(0, bh, hb)]
+    per = WALK_BN // (bw * hb)
+    rows = []
+    for i in range(0, len(boxes), per):
+        part = boxes[i:i + per]
+        rows.append([len(part) * bw * hb, -1, len(part), 0] + [c for b in part for c in b])
+    rows += [[min(WALK_BN, text_len - k0), k0, 0, 0] for k0 in range(0, text_len, WALK_BN)]
+    out = np.zeros((len(rows), WALK_COLS), np.int32)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def _walk_on(latent_shape: Shape3, tile: Shape3, window: Shape3, text_len: int,
+             device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(window_walk(latent_shape, tile, window, text_len).copy()).to(device)
 
 
 def _text_tail(text_k, text_v, text_bias, q: torch.Tensor):
@@ -240,7 +335,7 @@ def _sta_fn():
     fn = _build.load("sta_pipe").vorta_sta_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 15 + [p]
+        fn.argtypes = [p] * 9 + [i] * 15 + [p] + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -266,6 +361,24 @@ def sta_pipe_attention(
     """Sliding-tile attention, with the joint text tail where ``text_k`` and
     ``text_v`` are given; on CUDA bf16 q/k/v (and text) with D 64 or 128,
     q / k / text_k int8 with ``qk_scale`` (fast full only)."""
+    return _sta_pipe(q, k, v, active, latent_shape=latent_shape, tile=tile, window=window,
+                     scale=scale, text_k=text_k, text_v=text_v, text_bias=text_bias,
+                     cast_p_to_v_dtype=cast_p_to_v_dtype, softmax=softmax, variant=variant,
+                     qk_scale=qk_scale, hopper_ok=True)
+
+
+def sta_pipe_attention_mma_sync(q, k, v, active, **kw) -> torch.Tensor:
+    """``sta_pipe_attention`` on the mma.sync kernel whatever the rule says:
+    the card's yardstick beside the Hopper path at the same call
+    (``chip_smoke.py`` times both), counted in ``sta_pipe`` only."""
+    return _sta_pipe(q, k, v, active, hopper_ok=False, **kw)
+
+
+def _sta_pipe(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
+              window: Shape3 = (3, 3, 3), scale: Optional[float] = None, text_k=None,
+              text_v=None, text_bias=None, cast_p_to_v_dtype: bool = True,
+              softmax: str = "fast", variant: str = "full", qk_scale=None,
+              hopper_ok: bool = True) -> torch.Tensor:
     if qk_scale is not None:
         if variant != "full":
             raise ValueError("qk_scale requires softmax='fast', variant='full'")
@@ -274,8 +387,8 @@ def sta_pipe_attention(
             raise ValueError(f"qk_scale requires int8 text_k, got {text_k.dtype}")
     mode = _modes(softmax, variant, tile)
     if not cast_p_to_v_dtype:
-        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) belongs to a later "
-                                  "slice (PR 9): P is always cast to v's dtype here")
+        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
+                                  "item 11: P is always cast to v's dtype here")
     b, h, s, d = q.shape
     t, hh, w = latent_shape
     if s != t * hh * w:
@@ -298,8 +411,8 @@ def sta_pipe_attention(
     if (any(x is not None and x.dtype != qk_dtype for x in (q, k, text_k))
             or any(x is not None and x.dtype != torch.bfloat16 for x in (v, text_v))):
         raise NotImplementedError(f"the CUDA sta_pipe kernel takes bf16 (q / k / text_k int8 "
-                                  f"with qk_scale; f32: a later slice, PR 10), got {q.dtype}, "
-                                  f"{k.dtype}, {v.dtype}")
+                                  f"with qk_scale; f32: ROADMAP section 1 item 12), got "
+                                  f"{q.dtype}, {k.dtype}, {v.dtype}")
     if d not in (64, 128):
         raise NotImplementedError(f"the CUDA sta_pipe kernel takes D 64/128, got {d}")
     active = torch.as_tensor(active, device=dev).to(torch.int32).contiguous()
@@ -307,17 +420,27 @@ def sta_pipe_attention(
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
     qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
     _build.require_cuda(q, qkc)
+    shape3, tile3, window3 = tuple(latent_shape), tuple(tile), tuple(window)
+    lt = 0 if text_k is None else text_k.shape[2]
+    hopper = hopper_ok and sta_wgmma_path(d, shape3, tile3, window3, dtype=q.dtype,
+                                          softmax=softmax, variant=variant,
+                                          qk_int8=qkc is not None, text_len=lt)
+    walk = _walk_on(shape3, tile3, window3, lt, dev) if hopper else None
+    box_w, box_h = walk_box(shape3, tile3, window3) if hopper else (0, 0)
     qs = (_prescale(q, scale) if qkc is None else q).contiguous()
-    k, v = k.contiguous(), v.contiguous()
-    text = [None if x is None else x.contiguous() for x in (text_k, text_v, text_bias)]
+    k, v = (_build.aligned16(x.contiguous()) for x in (k, v))
+    text = [None if x is None else _build.aligned16(x.contiguous())
+            for x in (text_k, text_v, text_bias)]
     out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     err = _sta_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
-        *(_build.ptr(x) for x in text), _build.ptr(qkc),
-        0 if text_k is None else text_k.shape[2], b, h, t, hh, w, d, *tile, *window,
-        MODES.index(mode), int(softmax == "stable"), _build.stream_ptr(dev))
+        *(_build.ptr(x) for x in text), _build.ptr(qkc), lt, b, h, t, hh, w, d, *tile, *window,
+        MODES.index(mode), int(softmax == "stable"), _build.ptr(walk),
+        0 if walk is None else walk.shape[0], box_w, box_h, int(hopper), _build.stream_ptr(dev))
     _build.check(err, "sta_pipe")
     _build.launches["sta_pipe"] += 1
+    if hopper:
+        _build.launches["sta_pipe_wgmma"] += 1
     if qkc is not None:
         _build.launches["sta_pipe_int8"] += 1
     if softmax == "stable":

@@ -72,8 +72,8 @@ def sta_row_attention(
     """Row-dense STA: the contract of sta_window_attention, for the
     geometries ``supports_row_dense`` admits."""
     if not cast_p_to_v_dtype:
-        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) belongs to a later "
-                                  "slice (PR 9): P is always cast to v's dtype here")
+        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
+                                  "item 11: P is always cast to v's dtype here")
     check_window_dense(q, k, v, latent_shape)
     lt = 0 if text_k is None else text_k.shape[2]
     if not supports_row_dense(latent_shape, tile, q.shape[-1], q.element_size(), lt,

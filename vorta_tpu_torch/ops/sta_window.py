@@ -112,8 +112,8 @@ def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, t
     _build.forward_only(f"{kernel}_attention", q, k, v, text_k, text_v)
     dev = _build.require_cuda(q, k, v, text_k, text_v, text_bias)
     if any(x is not None and x.dtype != torch.bfloat16 for x in (q, k, v, text_k, text_v)):
-        raise NotImplementedError(f"the CUDA {kernel} kernel takes bf16 (f32: a later slice, "
-                                  f"PR 10), got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise NotImplementedError(f"the CUDA {kernel} kernel takes bf16 (f32: ROADMAP section 1 "
+                                  f"item 12), got {q.dtype}, {k.dtype}, {v.dtype}")
     b, h, _, d = q.shape
     if d not in (64, 128):
         raise NotImplementedError(f"the CUDA {kernel} kernel takes D 64/128, got {d}")
@@ -156,8 +156,8 @@ def sta_window_attention(
     """Window-dense STA with the stable softmax, with the joint text tail
     where ``text_k`` and ``text_v`` are given."""
     if not cast_p_to_v_dtype:
-        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) belongs to a later "
-                                  "slice (PR 9): P is always cast to v's dtype here")
+        raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
+                                  "item 11: P is always cast to v's dtype here")
     check_window_dense(q, k, v, latent_shape)
     if not supports_window_dense(latent_shape, tile):
         raise ValueError(f"geometry (latent {latent_shape}, tile {tile}) unsupported: tiles "
