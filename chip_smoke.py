@@ -6,13 +6,16 @@
 Phases, each raising on failure:
   1. device: torch / CUDA versions, the card's name and power limit; build
      the CUDA kernels from csrc/ (one nvcc per source, in parallel); ptxas's
-     registers and spills of every kernel, and of the Hopper path's four
+     registers and spills of every kernel, and of the Hopper path's seven
      instantiations (csrc/attn_sm90.cuh: flash's, flash_manual's bf16 and
-     int8, sta_pipe's window walk; none may spill) with its dynamic shared
-     memory, and of the norm's warp-per-row kernels (no spills either).
-     Every flash, flash_manual and sta_pipe row reports its achieved
-     TFLOP/s, its share of the bound and its ratio to the library call;
-     every sta_pipe row also the mma.sync kernel's time in the same call,
+     int8, sta_pipe's window walk, sta_window's two (runs padded to 32
+     tokens or not), sta_batched's pair-bit walk; none may
+     spill) with its dynamic shared memory, and of the norm's warp-per-row
+     kernels (no spills either).  Every flash, flash_manual, sta_pipe,
+     sta_window and sta_batched row reports its achieved TFLOP/s, its share
+     of the bound and its ratio to the library call; every sta_pipe,
+     sta_window and sta_batched row also the mma.sync kernel's time in the
+     same call,
      every fused_norm row its GB/s and share of the bytes bound beside
      F.layer_norm(x, (dim,), 1 + scale, shift) at B = 1, the same function.
   2. kernels: each kernel on the card against its plain PyTorch version on
@@ -49,6 +52,12 @@ Phases, each raising on failure:
      720p tile (5, 9, 8) and HunyuanVideo 45f tile (6, 9, 8) with the text
      tail; each against its plain version with its bracket, times against
      SDPA with the boolean / float mask and the bound of the visible pairs.
+     sta_window and sta_batched run their Hopper paths (each call counted
+     once on it), held and timed beside their mma.sync kernels in the same
+     call (within 2 TOL of each other); sta_batched also reports its slot
+     lists' size (ops/sta_batched.py:pair_bit_walk) and the mma.sync
+     kernel's fast / stable probe: both softmaxes with the served pair bits
+     and bias, each alone and neither, and the SASS of both instantiations.
   2o. the kernels and modes of PR 8, each against its plain version and
      timed beside the call it would replace: fused_residual_norm at Wan
      (1,31200,1536) gate + AdaLN and HunyuanVideo (1,43456,3072) gate +
@@ -136,11 +145,14 @@ HunyuanVideo-13B (its phases free the Wan models first):
      model: its GiB, one 480p x 77f forward routed hard with its time and
      peak memory, and a 2-block check, card vs CPU on the same stack.
 Every main path's launch counts are exact, the Hopper path's subset
-counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma) included: on the
-served paths every flash, flash_manual and sta_pipe launch takes that path
-(flash_manual's int8 QK mode too), in training all but the STA expert's
-(96- and 360-token tiles); sta_pipe's int8 QK mode, stable softmax and
-variants (phases 2q, 2o) stay on its mma.sync kernel, counted there.  Phase 6 counts its forwards' launches too.
+counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
+sta_window_wgmma, sta_batched_wgmma) included: on the served paths every
+flash, flash_manual, sta_pipe, sta_window and sta_batched launch takes that
+path (flash_manual's int8 QK mode too; phases 6f and cf for the two
+fallbacks), in training all but the STA expert's (96- and 360-token
+tiles); sta_pipe's int8 QK mode, stable softmax and variants and
+sta_batched's stable softmax (phases 2q, 2o) stay on their mma.sync
+kernels, counted there.  Phase 6 counts its forwards' launches too.
 Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
@@ -228,17 +240,19 @@ def with_rate(t: dict, flops: float) -> dict:
     return t
 
 
+HOPPER_KERNELS = ("flash", "flash_manual", "sta_pipe", "sta_window", "sta_batched")
+
+
 def served_on_wgmma(launches: dict, what: str) -> None:
-    """On a served path every flash, flash_manual (the int8 QK mode too) and
-    sta_pipe launch takes the Hopper path (its counters are subsets)."""
-    want = (launches["flash"], launches["flash_manual"], launches["sta_pipe"])
-    got = (launches["flash_wgmma"], launches["flash_manual_wgmma"], launches["sta_pipe_wgmma"])
+    """On a served path every flash, flash_manual (the int8 QK mode too),
+    sta_pipe, sta_window and sta_batched launch takes the Hopper path (its
+    counters are subsets)."""
+    want = tuple(launches[k] for k in HOPPER_KERNELS)
+    got = tuple(launches[f"{k}_wgmma"] for k in HOPPER_KERNELS)
     if got != want:
-        raise RuntimeError(f"{what}: Hopper-path launches (flash, flash_manual, sta_pipe) {got} "
-                           f"!= {want}")
-    log(f"{what}: flash {got[0]} of {launches['flash']}, flash_manual {got[1]} of "
-        f"{launches['flash_manual']}, sta_pipe {got[2]} of {launches['sta_pipe']} launches on "
-        "the Hopper path")
+        raise RuntimeError(f"{what}: Hopper-path launches {HOPPER_KERNELS} {got} != {want}")
+    log(f"{what}: " + ", ".join(f"{k} {g} of {w}" for k, g, w in zip(HOPPER_KERNELS, got, want))
+        + " launches on the Hopper path")
 
 
 def sta_rates(t: dict, flops: float) -> dict:
@@ -251,17 +265,17 @@ def sta_rates(t: dict, flops: float) -> dict:
     return t
 
 
-def sta_path_once(torch, what: str, fn, hopper: bool) -> None:
-    """One sta_pipe call, counted: launched once, on the Hopper path
-    (sta_pipe_wgmma) exactly where ``hopper``."""
+def sta_path_once(torch, what: str, fn, hopper: bool, kernel: str = "sta_pipe") -> None:
+    """One call of an STA kernel, counted: launched once, on the Hopper path
+    (<kernel>_wgmma) exactly where ``hopper``."""
     from vorta_tpu_torch.ops import _build
 
     _build.reset_launches()
     fn()
     torch.cuda.synchronize()
-    got = (_build.launches["sta_pipe"], _build.launches["sta_pipe_wgmma"])
+    got = (_build.launches[kernel], _build.launches[f"{kernel}_wgmma"])
     if got != (1, int(hopper)):
-        raise RuntimeError(f"{what}: launches (sta_pipe, sta_pipe_wgmma) {got}, want "
+        raise RuntimeError(f"{what}: launches ({kernel}, {kernel}_wgmma) {got}, want "
                            f"(1, {int(hopper)})")
     log(f"{what}: {'on the Hopper path' if hopper else 'on the mma.sync kernel'}")
 
@@ -296,24 +310,37 @@ def build_kernels() -> None:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     from vorta_tpu_torch.ops.sta_pipe import window_walk
+    from vorta_tpu_torch.ops.sta_window import window_box
 
     hopper = ptxas_entries(_build.ptxas_logs, "sm90_kernel")
     smem = _build.load("flash").vorta_attn_sm90_smem_bytes()
-    # sta_pipe's CTA also holds its walk table: per served geometry
+    # the window kernels' CTAs also hold their walk table: per served geometry
     sta_smem = {name: _build.load("sta_pipe").vorta_sta_sm90_smem_bytes(
-        window_walk(grid, tile, (3, 3, 3), lt).shape[0])
-        for name, grid, tile, lt in (("wan_480p_77f", GRID_480P_77F, (4, 6, 4), 0),
-                                     ("wan_720p_77f", GRID_720P, (5, 9, 8), 0),
-                                     ("hunyuan_45f", GRID_HY_45F, (6, 9, 8), HY_TEXT))}
+        window_walk(grid, tile, (3, 3, 3), lt, box).shape[0])
+        for name, grid, tile, lt, box in (
+            ("sta_pipe wan_480p_77f", GRID_480P_77F, (4, 6, 4), 0, None),
+            ("sta_pipe wan_720p_77f", GRID_720P, (5, 9, 8), 0, None),
+            ("sta_pipe hunyuan_45f", GRID_HY_45F, (6, 9, 8), HY_TEXT, None),
+            ("sta_window wan_720p_4910", GRID_720P, WAN_TILE_4910, 0,
+             window_box(GRID_720P, WAN_TILE_4910)),
+            ("sta_window hunyuan_45f_4910", GRID_HY_45F, WAN_TILE_4910, HY_TEXT,
+             window_box(GRID_HY_45F, WAN_TILE_4910)))}
+    # sta_batched's CTA holds its slot list: 8 bytes for each of width x 8 slots
+    # at HunyuanVideo (2, 9, 8) (46 kv blocks of 1,008 keys)
+    batched_smem = _build.load("sta_batched").vorta_sta_batched_sm90_smem_bytes(46 * 8)
     for src, entry, regs, spill in hopper:
+        extra = {"sta_pipe": sta_smem, "sta_window": sta_smem,
+                 "sta_batched": batched_smem}.get(src, smem)
         log(f"ptxas Hopper path {src} {entry}: {regs}; {spill}; dynamic shared memory "
-            f"{sta_smem if src == 'sta_pipe' else smem} bytes")
-    if sorted(src for src, *_ in hopper) != ["flash", "flash_manual", "flash_manual",
-                                            "sta_pipe"] or any(
+            f"{extra} bytes")
+    want = ["flash", "flash_manual", "flash_manual", "sta_batched", "sta_pipe", "sta_window",
+            "sta_window"]
+    if sorted(src for src, *_ in hopper) != want or any(
             spill is None or "0 bytes spill stores, 0 bytes spill loads" not in spill
             for *_, spill in hopper):
         raise RuntimeError(f"the Hopper path's instantiations: {hopper} (flash's, "
-                           "flash_manual's bf16 and int8, sta_pipe's; no spills)")
+                           "flash_manual's bf16 and int8, sta_pipe's, sta_window's two, "
+                           "sta_batched's; no spills)")
     rows = ptxas_entries(_build.ptxas_logs, "fused_norm_rows_kernel")
     log(f"ptxas fused_norm warp-per-row kernels: {len(rows)} instantiations, registers "
         f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
@@ -839,7 +866,7 @@ def check_routed_kernels(torch, card: str) -> list:
         ki, kc = call.tables.on(dev)
         cnt = torch.where(act[:, None] > 0, kc, 0).to(torch.int32)
         kw = dict(scale=scale, block_q=call.block_q, block_kv=call.block_kv,
-                  kv_valid_len=call.valid_len)
+                  kv_valid_len=call.valid_len, softmax="fast")
         kern = lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **kw)  # noqa: E731
         plain = lambda: sparse_flash_attention_manual_ref(q, k, v, ki, cnt, **kw)  # noqa: E731
         n = call.valid_len
@@ -1482,7 +1509,7 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
         ki, kc = dense_tables(sq // lay.block_q, lay.total // lay.block_kv).on(dev)
         cnt = torch.where(act[:, None] > 0, kc, 0).to(torch.int32)
         kw = dict(scale=scale, block_q=lay.block_q, block_kv=lay.block_kv, kv_valid_len=valid,
-                  kv_bias=bias)
+                  kv_bias=bias, softmax="fast")
         kern = lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **kw)  # noqa: E731
         plain = lambda: sparse_flash_attention_manual_ref(q, k, v, ki, cnt, **kw)  # noqa: E731
         got, want = kern(), plain()
@@ -1668,20 +1695,23 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
     STA, pool_qkv and unpool in head-map mode with LOWRES (as the JAX
     package's joint_lowres_attention pools whenever it is given its heads);
     ``int8``: FULL's and LOWRES's flash_manual in the int8 QK mode (the STA
-    text rows stay bf16).  Every flash_manual and sta_pipe launch takes the
-    Hopper path."""
+    text rows stay bf16).  Every flash_manual launch takes the Hopper path,
+    and so does every launch of the STA kernel on a served geometry
+    (sta_pipe; sta_batched at (2, 9, 8); sta_window)."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
     n_fwd = tables.shape[0]
     text_rows = 0 if sta_kernel == "sta_batched" else int(has[2].sum())
     experts = int(has[0].sum() + has[1].sum())
-    return {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
-            "fused_norm": 121 * n_fwd, "flash_manual": experts + text_rows,
-            sta_kernel: int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
-            "unpool_headmap": int(has[1].sum()), "flash_manual_int8": experts if int8 else 0,
-            "flash_manual_wgmma": experts + text_rows,
-            "sta_pipe_wgmma": int(has[2].sum()) if sta_kernel == "sta_pipe" else 0}
+    out = {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
+           "fused_norm": 121 * n_fwd, "flash_manual": experts + text_rows,
+           sta_kernel: int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
+           "unpool_headmap": int(has[1].sum()), "flash_manual_int8": experts if int8 else 0,
+           "flash_manual_wgmma": experts + text_rows}
+    if f"{sta_kernel}_wgmma" in out:  # sta_row has no Hopper path
+        out[f"{sta_kernel}_wgmma"] = int(has[2].sum())
+    return out
 
 
 HY_MODEL_MODES = (("off", False), ("hard", False), ("off", True), ("hard", True))
@@ -1898,10 +1928,27 @@ def masked_sdpa_ms(torch, name: str, qa, ka, va, mask):
         return None, err
 
 
-def window_case(torch, name, kernel, plain, grid, tile, act, text=False, seed=50):
+def vs_mma_sync(torch, name: str, r: dict, got, mma_sync, flops: float) -> None:
+    """A Hopper-path kernel's row beside its mma.sync kernel at the same
+    call: that kernel's output against the Hopper path's (each within TOL
+    of the plain version, so within 2 TOL of each other) and its time,
+    TFLOP/s, share of the bound and time over the Hopper path's."""
+    ratio = worst_ratio(torch, got, mma_sync())
+    if not ratio <= 2 * TOL:
+        raise RuntimeError(f"{name}: the Hopper path and the mma.sync kernel differ, worst "
+                           f"ratio {ratio:.4f}")
+    r.update(mma_sync_worst_ratio=ratio, mma_sync_ms=time_ms(torch, mma_sync, 5))
+    sta_rates(r, flops)
+
+
+def window_case(torch, name, kernel, plain, grid, tile, act, text=False, seed=50,
+                mma_sync=None):
     """One window-dense STA kernel (sta_window or sta_row) against its plain
     version at a full-width shape: 720p Wan (12 heads) or HunyuanVideo 45f
-    (24 heads, 256 text keys with 83 valid); times, bound and SDPA."""
+    (24 heads, 256 text keys with 83 valid); times, bound and SDPA.
+    ``mma_sync``: the kernel's mma.sync version, where ``kernel`` takes the
+    Hopper path: each call counted once, on its path, and the two held and
+    timed side by side (``vs_mma_sync``)."""
     import numpy as np
 
     from vorta_tpu_torch.ops import joint_experts as joint
@@ -1921,6 +1968,10 @@ def window_case(torch, name, kernel, plain, grid, tile, act, text=False, seed=50
     n_act = int(act.sum().item())
     kern = lambda: kernel(q, k, v, act, **kw)  # noqa: E731
     plain_fn = lambda: plain(q, k, v, act, **kw)  # noqa: E731
+    mma = None if mma_sync is None else (lambda: mma_sync(q, k, v, act, **kw))  # noqa: E731
+    if mma is not None:
+        sta_path_once(torch, f"{name} {grid} tile {tile}", kern, True, name)
+        sta_path_once(torch, f"{name} {grid} tile {tile} (the yardstick)", mma, False, name)
     got, want = kern(), plain_fn()
     err = compare(torch, f"{name} (1,{h},{n},128){' + 256 text' if text else ''}, tile {tile}, "
                   f"{n_act} of {h} heads active", got, want)
@@ -1934,7 +1985,7 @@ def window_case(torch, name, kernel, plain, grid, tile, act, text=False, seed=50
         if not r["missing_tail_worst_ratio"] > TOL:
             raise RuntimeError(f"{name} check cannot tell a missing text tail")
         del no_tail
-    del got, want
+    del want
     window_keys = int(np.prod([min(3, grid[a] // tile[a]) * tile[a] for a in range(3)]))
     keys = window_keys + (HY_VALID if text else 0)
     flops = 4.0 * n * keys * d * n_act
@@ -1953,6 +2004,9 @@ def window_case(torch, name, kernel, plain, grid, tile, act, text=False, seed=50
     torch.cuda.empty_cache()
     r.update(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain_fn, 2, 1), library_ms=lib,
              bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    if mma is not None:
+        vs_mma_sync(torch, name, r, got, mma, flops)
+    del got
     if lib_err:
         r["library_error"] = lib_err
     log(f"{name}: {window_keys} window keys per query; {r} (achieved "
@@ -1968,13 +2022,22 @@ def check_fallback_kernels(torch, card: str) -> dict:
     from vorta_tpu_torch.cli.sample import attention_config
     from vorta_tpu_torch.ops import joint_experts as joint
     from vorta_tpu_torch.ops.routed_fused import routed_sta_kernel
-    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
+    from vorta_tpu_torch.ops.sta_batched import (
+        pair_bit_walk,
+        sta_flash_headbatched,
+        sta_flash_headbatched_mma_sync,
+        sta_flash_headbatched_ref,
+    )
     from vorta_tpu_torch.ops.sta_row import (
         sta_row_attention,
         sta_row_attention_ref,
         supports_row_dense,
     )
-    from vorta_tpu_torch.ops.sta_window import sta_window_attention, sta_window_attention_ref
+    from vorta_tpu_torch.ops.sta_window import (
+        sta_window_attention,
+        sta_window_attention_mma_sync,
+        sta_window_attention_ref,
+    )
 
     dev = torch.device("cuda")
     wan_act = torch.tensor(ACTIVE_HEADS, device=dev)
@@ -1988,10 +2051,10 @@ def check_fallback_kernels(torch, card: str) -> dict:
         raise RuntimeError("Wan 720p (4, 9, 10): the gates do not pick sta_window")
     out["sta_window"]["wan_720p_4910"] = window_case(
         torch, "sta_window", sta_window_attention, sta_window_attention_ref, GRID_720P,
-        WAN_TILE_4910, wan_act)
+        WAN_TILE_4910, wan_act, mma_sync=sta_window_attention_mma_sync)
     out["sta_window"]["hunyuan_45f_4910_text"] = window_case(
         torch, "sta_window", sta_window_attention, sta_window_attention_ref, GRID_HY_45F,
-        WAN_TILE_4910, hy_act, text=True)
+        WAN_TILE_4910, hy_act, text=True, mma_sync=sta_window_attention_mma_sync)
 
     # ---- sta_batched: the HunyuanVideo 45f (2, 9, 8) joint layout (1,24,48384,128),
     # pair bits (3 x 7 sub-tiles), the bias of 83 valid text tokens, 16 heads active
@@ -2008,9 +2071,13 @@ def check_fallback_kernels(torch, card: str) -> dict:
     q, k, v = (torch.randn((1, h, lay.total, d), generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
     kw = dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias, scale=d**-0.5,
-              block_q=lay.block_q, block_kv=lay.block_kv)
+              block_q=lay.block_q, block_kv=lay.block_kv, softmax="fast")
     kern = lambda: sta_flash_headbatched(q, k, v, ki, kc, hy_act, **kw)  # noqa: E731
     plain = lambda: sta_flash_headbatched_ref(q, k, v, ki, kc, hy_act, **kw)  # noqa: E731
+    mma = lambda: sta_flash_headbatched_mma_sync(q, k, v, ki, kc, hy_act, **kw)  # noqa: E731
+    sta_path_once(torch, "sta_batched (2, 9, 8) joint", kern, True, "sta_batched")
+    sta_path_once(torch, "sta_batched (2, 9, 8) joint (the yardstick)", mma, False,
+                  "sta_batched")
     got, want = kern(), plain()
     n_act = int(hy_act.sum().item())
     err = compare(torch, f"sta_batched (1,24,{lay.total},128), blocks {lay.block_q}/"
@@ -2026,7 +2093,7 @@ def check_fallback_kernels(torch, card: str) -> dict:
         del miss
         if not r[f"{bracket}_worst_ratio"] > TOL:
             raise RuntimeError(f"sta_batched check cannot tell a {bracket.replace('_', ' ')}")
-    del got, want
+    del want
     # the pairs this run's data needs: visible (q, kv) sub-tile pairs times the
     # q rows of a sub-tile and the live (bias > -1e30) keys of the kv sub-tile
     vis = torch.from_numpy(joint._joint_sta_subtile_mask(jcfg)[0]).to(dev)
@@ -2041,14 +2108,24 @@ def check_fallback_kernels(torch, card: str) -> dict:
                                   fmask[None, None])
     del fmask
     torch.cuda.empty_cache()
+    # the Hopper path's work: the 128 x 128 products of the slots its CTAs list
+    lists = pair_bit_walk(*(x.cpu().numpy() for x in (ki, kc, bits, bias)), block_q=lay.block_q,
+                          block_kv=lay.block_kv, tokens_per_tile=tpt)
+    slots = sum(len(x) for x in lists)
     r.update(ms=time_ms(torch, kern, 10), plain_ms=time_ms(torch, plain, 2, 1), library_ms=lib,
-             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, pairs_per_head=pairs)
+             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, pairs_per_head=pairs,
+             hopper_slots_per_head=slots, hopper_useful_share=pairs / (slots * 128 * 128))
+    vs_mma_sync(torch, "sta_batched", r, got, mma, flops)
+    del got
     if lib_err:
         r["library_error"] = lib_err
     out["sta_batched"]["hunyuan_45f_298_joint"] = r
     log(f"sta_batched: {pairs:,} visible pairs per head; {r} (achieved "
         f"{flops / r['ms'] / 1e9:.1f} TFLOP/s on {n_act} heads)")
     del q, k, v
+    torch.cuda.empty_cache()
+    r["mma_sync_softmax_probe"] = probe_sta_batched_softmax(torch,
+                                                            sta_flash_headbatched_mma_sync)
 
     # ---- sta_row, a direct call (no geometry of this slice's paths reaches it):
     # Wan 720p (5, 9, 8) and HunyuanVideo 45f (6, 9, 8) with the text tail, both
@@ -2061,6 +2138,77 @@ def check_fallback_kernels(torch, card: str) -> dict:
         out["sta_row"][name] = window_case(torch, "sta_row", sta_row_attention,
                                            sta_row_attention_ref, grid, tile, act, text=text,
                                            seed=52)
+    return out
+
+
+def sass_counts(lib: str, entry: str) -> dict:
+    """{kernel: counts} of every kernel of ``lib`` (a built csrc library)
+    whose mangled name holds ``entry``, from ``cuobjdump -sass``: its
+    instructions, branches (BRA), exp2s (MUFU.EX2) and integer divisions by
+    a runtime value (I2F.RP, the first instruction of nvcc's division
+    sequence), the last also between its first and last mma.sync (HMMA):
+    inside the product loop."""
+    import shutil
+
+    from vorta_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(_build.build_dir() / f"lib{lib}.so")],
+                          capture_output=True, text=True, check=True).stdout
+    bodies, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if entry in name else None
+            if name:
+                bodies[name] = []
+        elif name and "/*" in line and ";" in line:
+            bodies[name].append(line)
+    out = {}
+    for name, lines in bodies.items():
+        hmma = [i for i, line in enumerate(lines) if " HMMA" in line]
+        loop = lines[hmma[0]:hmma[-1]] if hmma else []
+        out[name] = {"instructions": len(lines),
+                     **{op: sum(f" {op}" in line for line in lines)
+                        for op in ("BRA", "MUFU.EX2", "I2F.RP")},
+                     "I2F.RP_in_product_loop": sum(" I2F.RP" in line for line in loop)}
+    return out
+
+
+def probe_sta_batched_softmax(torch, kernel) -> dict:
+    """Why sta_batched's mma.sync kernel runs its stable softmax faster than
+    its fast one: ``kernel`` (that kernel's wrapper) timed in both modes on
+    the HunyuanVideo (2, 9, 8) joint layout, 16 of 24 heads, with the served
+    pair bits and kv_bias, with each of them alone and with neither (every
+    visited block whole: the same loads and products in both modes, no
+    per-score mask); and the SASS of both instantiations (branches, ex2)."""
+    import dataclasses
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops import joint_experts as joint
+
+    dev = torch.device("cuda")
+    hy = dataclasses.replace(attention_config("hunyuan-13B", GRID_HY_45F), sta_tile=HY_TILE_298)
+    jcfg = joint.JointConfig(hy, HY_TEXT)
+    lay = joint.joint_layouts(jcfg)["sta"]
+    ki, kc, bits = joint._joint_sta_tables(jcfg).on(dev)
+    bias = joint._bias(hy_text_mask(torch, dev), lay, hy.seq_len)
+    g = torch.Generator(device=dev).manual_seed(53)
+    q, k, v = (torch.randn((1, 24, lay.total, 128), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    act = torch.tensor(HY_ACTIVE, device=dev)
+    base = dict(tokens_per_tile=hy.tokens_per_tile, scale=128**-0.5, block_q=lay.block_q,
+                block_kv=lay.block_kv)
+    out = {}
+    for case, extra in (("bits_and_bias", dict(pair_bits=bits, kv_bias=bias)),
+                        ("bits", dict(pair_bits=bits)), ("bias", dict(kv_bias=bias)),
+                        ("neither", {})):
+        out[case] = {sm: time_ms(torch, lambda: kernel(q, k, v, ki, kc, act, softmax=sm,
+                                                       **base, **extra), 5)
+                     for sm in ("fast", "stable")}
+    out["sass"] = {("stable" if "Lb1" in n else "fast"): c
+                   for n, c in sass_counts("sta_batched", "sta_batched_kernelILi128E").items()}
+    log(f"sta_batched mma.sync, fast vs stable (ms, 16 heads): {out}")
     return out
 
 
@@ -2090,7 +2238,9 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
     LOWRES head) or "switch" (each head its own expert: a flash_manual per
     FULL / LOWRES head, an STA launch per STA head).  Every flash,
     flash_manual and sta_pipe launch takes the Hopper path; ``int8``:
-    flash_manual in the int8 QK mode."""
+    flash_manual in the int8 QK mode.  The STA kernel is sta_pipe, or
+    sta_window at a tile whose window sta_pipe's gate refuses (every one of
+    its served launches on the Hopper path too)."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
@@ -2108,9 +2258,8 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
     if dispatch == "switch":
         out.update({"flash_manual": int(heads[0].sum() + heads[1].sum()),
                     sta_kernel: int(heads[2].sum())})
-    out["flash_wgmma"] = out["flash"]
-    out["flash_manual_wgmma"] = out["flash_manual"]
-    out["sta_pipe_wgmma"] = out["sta_pipe"]
+    for k in HOPPER_KERNELS:
+        out[f"{k}_wgmma"] = out[k]
     out["flash_manual_int8"] = out["flash_manual"] if int8 else 0
     return out
 
@@ -2178,6 +2327,7 @@ def run_wan_fallback_path(torch, card: str):
     expected = routed_wan_launches(tables, "sta_window", 4)
     if launches != expected or launches["sta_pipe"]:
         raise RuntimeError(f"Wan (4, 9, 10) path launches {launches} != expected {expected}")
+    served_on_wgmma(launches, "Wan (4, 9, 10) path")
     if not (heads > 0).all():
         raise RuntimeError(f"Wan (4, 9, 10) path: an expert got no head: {heads}")
     per_step = res.denoise_s / res.steps
@@ -2227,6 +2377,7 @@ def run_hunyuan_fallback_path(torch, card: str):
     expected = hy_hard_launches(tables, sta_kernel="sta_batched")
     if launches != expected or launches["sta_pipe"]:
         raise RuntimeError(f"Hunyuan (2, 9, 8) path launches {launches} != expected {expected}")
+    served_on_wgmma(launches, "Hunyuan (2, 9, 8) path")
     if not (heads > 0).all():
         raise RuntimeError(f"Hunyuan (2, 9, 8) path: an expert got no head: {heads}")
     per_step = res.denoise_s / res.steps
@@ -2352,7 +2503,8 @@ def check_int8_kernels(torch, card: str) -> dict:
         q, k, v = (randn(1, h, n, d) for _ in range(3))
         q8, k8, qk_scale = quantize_qk(q, k)
         cnt = torch.where(act[:, None] > 0, kc, 0).to(torch.int32)
-        kw = dict(scale=scale, block_q=block, block_kv=block, kv_valid_len=valid, kv_bias=bias)
+        kw = dict(scale=scale, block_q=block, block_kv=block, kv_valid_len=valid, kv_bias=bias,
+                  softmax="fast")
         kw8 = dict(kw, qk_scale=qk_scale)
         qa, ka, va = (x[:, act > 0, :keys] for x in (q, k, v))
         fmask = None if bias is None else bias[:, :keys].to(bf16)[None, None]
@@ -3242,7 +3394,7 @@ def check_options_kernels(torch, card: str) -> dict:
         torch, f"flash_manual stable (1,12,{call.q_pad},128), valid {nv}, {w_act} routed",
         lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, softmax="stable", **fkw),
         lambda: sparse_flash_attention_manual_ref(q, k, v, ki, cnt, softmax="stable", **fkw),
-        lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **fkw),
+        lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, softmax="fast", **fkw),
         4.0 * nv * nv * d * w_act, 4.0 * nv * d * 2 * w_act,
         "vorta_tpu/ops/flash_manual.py:181", lib)
     del q, k, v
@@ -3264,7 +3416,7 @@ def check_options_kernels(torch, card: str) -> dict:
         torch, f"flash_manual stable (1,24,{lay.total},128) with kv_bias, {n_act} routed",
         lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, softmax="stable", **fkw),
         lambda: sparse_flash_attention_manual_ref(q, k, v, ki, cnt, softmax="stable", **fkw),
-        lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, **fkw),
+        lambda: sparse_flash_attention_manual(q, k, v, ki, cnt, softmax="fast", **fkw),
         4.0 * rows * vis * d * n_act, (2 * rows + 2 * vis) * d * 2 * n_act + lay.total * 4,
         "vorta_tpu/ops/flash_manual.py:181", lib)
     del q, k, v
@@ -3286,7 +3438,7 @@ def check_options_kernels(torch, card: str) -> dict:
         torch, f"sta_batched stable (1,24,{lay.total},128), pair bits, kv_bias, {n_act} heads",
         lambda: sta_flash_headbatched(q, k, v, ki, kc, act, softmax="stable", **bkw),
         lambda: sta_flash_headbatched_ref(q, k, v, ki, kc, act, softmax="stable", **bkw),
-        lambda: sta_flash_headbatched(q, k, v, ki, kc, act, **bkw),
+        lambda: sta_flash_headbatched(q, k, v, ki, kc, act, softmax="fast", **bkw),
         4.0 * pairs * d * n_act, 4 * lay.total * d * 2 * n_act + lay.total * 4,
         "vorta_tpu/ops/sta_batched.py:155",
         # the joint STA expert reads back the video rows and the text rows; the

@@ -222,10 +222,11 @@ def test_flash_manual_kernel_rejects_what_it_does_not_take(card):
     # the int8 mode is served: int8 q / k, bf16 v
     qk_scale = torch.ones(2, device=card)
     with pytest.raises(ValueError, match="int8"):
-        sparse_flash_attention_manual(q, q, q, ki, kc, qk_scale=qk_scale, **kw)
+        sparse_flash_attention_manual(q, q, q, ki, kc, qk_scale=qk_scale, softmax="fast", **kw)
     q8 = q.to(torch.int8)
     with pytest.raises(NotImplementedError, match="bf16"):
-        sparse_flash_attention_manual(q8, q8, q.float(), ki, kc, qk_scale=qk_scale, **kw)
+        sparse_flash_attention_manual(q8, q8, q.float(), ki, kc, qk_scale=qk_scale,
+                                      softmax="fast", **kw)
     with pytest.raises(ValueError, match="kv_bias"):
         sparse_flash_attention_manual(q, q, q, ki, kc, kv_bias=torch.zeros((1, 32), device=card),
                                       **kw)
@@ -407,14 +408,14 @@ def test_sta_diag_tool_times_every_variant(card):
 
 # --- the STA fallbacks: sta_batched, sta_window, sta_row -------------------------------
 
-def _joint_sta_case(latent, tile, text_len, card, valid=17):
+def _joint_sta_case(latent, tile, text_len, card, valid=17, lowres_window=(2, 2, 2)):
     """The joint layout's sta_batched inputs: tables, pair bits, the bias of
     ``valid`` text tokens."""
     from vorta_tpu_torch.config import AttentionConfig
     from vorta_tpu_torch.ops import joint_experts as joint
 
     jcfg = joint.JointConfig(AttentionConfig(latent_shape=latent, sta_tile=tile,
-                                             lowres_window=(2, 2, 2)), text_len)
+                                             lowres_window=lowres_window), text_len)
     lay = joint.joint_layouts(jcfg)["sta"]
     mask = (torch.arange(text_len) < valid)[None]
     bias = joint._bias(mask, lay, jcfg.video.seq_len).to(card)
@@ -597,10 +598,13 @@ def test_hunyuan_forward_sta_fallbacks_on_card_matches_cpu(card, kernel, latent,
         want = cpu(*args, **kw).sample
     assert (res.expert_ids == np.array([[0, 1, 2]] * 2)).all()
     text_rows = 2 if kernel == "sta_window" else 0  # flash_manual over the STA text rows
+    # sta_window's Hopper path takes (4, 9, 10) (its runs of 30 padded to 32);
+    # sta_batched's does not take 8-token tiles
+    hopper = {"sta_window_wgmma": 2} if kernel == "sta_window" else {}
     # the LOWRES head pools and unpools in head-map mode, as the JAX package's does
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "prologue": 2, "fused_norm": 6,
                         "flash_manual": 4 + text_rows, kernel: 2, "pool_qkv_headmap": 2,
-                        "unpool_headmap": 2}
+                        "unpool_headmap": 2, **hopper}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -639,7 +643,7 @@ def test_routed_forward_sta_window_on_card_matches_cpu(card):
     assert (res.expert_ids == np.array([0, 1, 2])).all()
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
                         "fused_norm": 2 * n + 1, "prologue": n, "flash_manual": 2 * n,
-                        "sta_window": n, "pool_qkv": n, "unpool": n}
+                        "sta_window": n, "sta_window_wgmma": n, "pool_qkv": n, "unpool": n}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -782,7 +786,7 @@ def test_flash_manual_kv_bias_kernel_matches_plain(card, d, block_q, block_kv, s
     ki, kc = dense_tables(sq // block_q, skv // block_kv).on(card)
     kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
     kw = dict(block_q=block_q, block_kv=block_kv, kv_valid_len=valid, scale=d**-0.5,
-              kv_bias=bias)
+              kv_bias=bias, softmax="fast")
     _build.reset_launches()
     got = sparse_flash_attention_manual(q, k, v, ki, kc, **kw)
     assert _build.launches["flash_manual"] == 1
@@ -1357,7 +1361,7 @@ def test_flash_manual_int8_kernel_matches_plain(card, d, block_q, block_kv, sq, 
     ki, kc = dense_tables(sq // block_q, skv // block_kv).on(card)
     kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
     kw = dict(block_q=block_q, block_kv=block_kv, kv_valid_len=valid, scale=d**-0.5,
-              qk_scale=qk_scale)
+              qk_scale=qk_scale, softmax="fast")
     if with_bias:
         bias = torch.where(torch.rand((1, skv), generator=g, device=card) < 0.3, -1e30, 0.0)
         bias[:, :block_kv] = -1e30
@@ -1601,7 +1605,8 @@ def test_flash_manual_hopper_path_matches_plain(card, kind, bq, bkv, sq, skv, va
         bias = torch.randn((1, skv), generator=g, device=card)
         bias = torch.where(torch.rand((1, skv), generator=g, device=card) < 0.3, -1e30, bias)
         bias[:, :min(bkv, skv // 2)] = -1e30
-    kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, scale=128**-0.5, kv_bias=bias)
+    kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, scale=128**-0.5, kv_bias=bias,
+              softmax="fast")
     _build.reset_launches()
     got = sparse_flash_attention_manual(q, k, v, ki, kc, **kw)
     assert (_build.launches["flash_manual"], _build.launches["flash_manual_wgmma"]) == (1, 1)
@@ -1625,7 +1630,7 @@ def test_flash_manual_int8_hopper_path_matches_plain(card, kind, bq, bkv, sq, sk
         kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
     bias = torch.where(torch.arange(skv, device=card) % 7 == 0, -1e30, 0.25)[None]
     kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, scale=128**-0.5, kv_bias=bias,
-              qk_scale=qk_scale)
+              qk_scale=qk_scale, softmax="fast")
     _build.reset_launches()
     got = sparse_flash_attention_manual(q, k, v, ki, kc, **kw)
     assert (_build.launches["flash_manual_int8"], _build.launches["flash_manual_wgmma"]) == (1, 1)
@@ -1643,7 +1648,8 @@ def test_hopper_path_rule_on_the_card(card):
         ki, kc = dense_tables(384 // block, 384 // block).on(card)
         _build.reset_launches()
         sparse_flash_attention_raw(q, k, v, ki, kc, block_q=block, block_kv=block)
-        sparse_flash_attention_manual(q, k, v, ki, kc, block_q=block, block_kv=block)
+        sparse_flash_attention_manual(q, k, v, ki, kc, block_q=block, block_kv=block,
+                                      softmax="fast")
         assert (_build.launches["flash_wgmma"], _build.launches["flash_manual_wgmma"]) == (
             int(hopper), int(hopper)), (d, block)
     ki, kc = dense_tables(3, 3).on(card)
@@ -1651,7 +1657,7 @@ def test_hopper_path_rule_on_the_card(card):
     sparse_flash_attention_manual(q, k, v, ki, kc, block_q=128, block_kv=128, softmax="stable")
     q8 = q.to(torch.int8)
     sparse_flash_attention_manual(q8, q8, v, ki, kc, block_q=128, block_kv=128,
-                                  qk_scale=torch.ones(2, device=card))
+                                  qk_scale=torch.ones(2, device=card), softmax="fast")
     assert (_build.launches["flash_manual"], _build.launches["flash_manual_wgmma"]) == (2, 1)
     assert _build.launches["flash_manual_int8"] == 1
 
@@ -1791,6 +1797,163 @@ def test_sta_rule_leaves_the_rest_on_mma_sync(card):
     sta_pipe_attention(q8, q8, v, act, latent_shape=(8, 6, 32), tile=(2, 3, 8),
                        qk_scale=torch.ones(2, device=card) / 127.0**2)
     assert (_build.launches["sta_pipe_int8"], _build.launches["sta_pipe_wgmma"]) == (1, 0)
+
+
+# --- sta_window's and sta_batched's Hopper paths ----------------------------------------
+
+@pytest.mark.parametrize("latent,lt", [((20, 45, 80), 0), ((12, 45, 80), 256)])
+def test_sta_window_hopper_path_at_the_served_geometries(card, latent, lt):
+    """Wan 720p x 77f and HunyuanVideo 45f (83 of 256 text keys valid) at
+    tile (4, 9, 10), runs of 30 read as boxes of 32: two heads, one inactive
+    (zeros), against the plain version; the mma.sync kernel agrees."""
+    from vorta_tpu_torch.ops.sta_window import (
+        sta_window_attention,
+        sta_window_attention_mma_sync,
+        sta_window_attention_ref,
+        window_box,
+    )
+
+    tile = (4, 9, 10)
+    assert window_box(latent, tile) == (32, 1)
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(44)
+    q, k, v = (_randn(g, (1, 2, s, 128), torch.bfloat16) for _ in range(3))
+    active = torch.tensor([1, 0], device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=128**-0.5)
+    if lt:
+        kw.update(text_k=_randn(g, (1, 2, lt, 128), torch.bfloat16),
+                  text_v=_randn(g, (1, 2, lt, 128), torch.bfloat16),
+                  text_bias=torch.where(torch.arange(lt, device=card) < 83, 0.0, -1e30)[None])
+    _build.reset_launches()
+    got = sta_window_attention(q, k, v, active, **kw)
+    assert (_build.launches["sta_window"], _build.launches["sta_window_wgmma"]) == (1, 1)
+    want = sta_window_attention_ref(q, k, v, active, **kw)
+    _close(got, want)
+    assert not got[:, 1].any()
+    _close(sta_window_attention_mma_sync(q, k, v, active, **kw), want)
+    assert (_build.launches["sta_window"], _build.launches["sta_window_wgmma"]) == (2, 1)
+
+
+@pytest.mark.parametrize("latent,tile", [((4, 9, 80), (4, 9, 10)), ((8, 18, 40), (4, 9, 10)),
+                                         ((4, 8, 45), (2, 4, 9))])
+def test_sta_window_hopper_path_masks_the_padded_columns(card, latent, tile):
+    """Inside the grid the padded columns of each run (2 of 30, or 5 of an
+    odd 27, 4 runs a box) are the next tile's first tokens: the first 2 of
+    each tile have 8x larger keys, so that a score that leaked into a row's
+    max or sum would show; at the grid's edge TMA reads zeros there; every q
+    tile (corners clamped, interior) against the plain version, the stable
+    softmax's scale 1.3 / sqrt(128)."""
+    from vorta_tpu_torch.ops.layout import tile_sequence
+    from vorta_tpu_torch.ops.sta_window import sta_window_attention, sta_window_attention_ref
+
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(45)
+    q, k, v = (_randn(g, (2, 2, s, 128), torch.bfloat16) for _ in range(3))
+    w = torch.arange(s, device=card) % latent[2]
+    k = torch.where((w % tile[2] < 2)[None, None, :, None], 8 * k, k)  # each tile's first 2
+    active = torch.ones(2, device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=1.3 * 128**-0.5)
+    _build.reset_launches()
+    got = sta_window_attention(q, k, v, active, **kw)
+    assert _build.launches["sta_window_wgmma"] == 1
+    want = sta_window_attention_ref(q, k, v, active, **kw)
+    tpt = int(np.prod(tile))
+    n = s // tpt
+    gt, wt = (tile_sequence(x, latent, tile).reshape(2, 2, n, tpt, 128) for x in (got, want))
+    for t in range(n):
+        _close(gt[:, :, t], wt[:, :, t])
+
+
+def test_sta_window_hopper_rule_leaves_the_rest_on_mma_sync(card):
+    """Runs of 6 over 2 planes (padded to 8: a box not built), D = 64: the
+    mma.sync kernel, counted in sta_window only, and it agrees."""
+    from vorta_tpu_torch.ops.sta_window import sta_window_attention, sta_window_attention_ref
+
+    g = torch.Generator(device=card).manual_seed(46)
+    for latent, tile, d in (((4, 8, 8), (2, 2, 2), 128), ((4, 9, 80), (4, 9, 10), 64)):
+        q, k, v = (_randn(g, (1, 2, int(np.prod(latent)), d), torch.bfloat16) for _ in range(3))
+        act = torch.ones(2, device=card, dtype=torch.int32)
+        kw = dict(latent_shape=latent, tile=tile)
+        _build.reset_launches()
+        got = sta_window_attention(q, k, v, act, **kw)
+        assert (_build.launches["sta_window"], _build.launches["sta_window_wgmma"]) == (1, 0)
+        _close(got, sta_window_attention_ref(q, k, v, act, **kw))
+
+
+def _hy_298_case(card, latent, text_len, valid, heads, seed):
+    lay, (ki, kc, bits), bias, tpt = _joint_sta_case(latent, (2, 9, 8), text_len, card, valid,
+                                                     lowres_window=(2, 3, 2))
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (_randn(g, (1, heads, lay.total, 128), torch.bfloat16) for _ in range(3))
+    kw = dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias, scale=128**-0.5,
+              block_q=lay.block_q, block_kv=lay.block_kv, softmax="fast")
+    return (q, k, v, ki, kc), kw
+
+
+def test_sta_batched_hopper_path_at_the_served_geometry(card):
+    """HunyuanVideo 720p x 45f at tile (2, 9, 8): the joint layout
+    (1, 2, 48384, 128), blocks 432 / 1008, pair bits, 83 of 256 text tokens
+    valid, one head routed away; against the plain version, and the
+    mma.sync kernel agrees."""
+    from vorta_tpu_torch.ops.sta_batched import (
+        sta_flash_headbatched,
+        sta_flash_headbatched_mma_sync,
+        sta_flash_headbatched_ref,
+    )
+
+    args, kw = _hy_298_case(card, (12, 45, 80), 256, 83, 2, 47)
+    active = torch.tensor([1, 0], device=card, dtype=torch.int32)
+    _build.reset_launches()
+    got = sta_flash_headbatched(*args, active, **kw)
+    assert (_build.launches["sta_batched"], _build.launches["sta_batched_wgmma"]) == (1, 1)
+    want = sta_flash_headbatched_ref(*args, active, **kw)
+    _close(got, want)
+    assert not got[:, 1].any()
+    _close(sta_flash_headbatched_mma_sync(*args, active, **kw), want)
+    assert _build.launches["sta_batched_wgmma"] == 1
+
+
+def test_sta_batched_hopper_path_bias_and_counts(card):
+    """A q block with count 0 (zeros), a bias that masks every key of some
+    128-key slots (those slots skipped), and tables without pair bits or
+    bias: each against the plain version."""
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
+
+    (q, k, v, ki, kc), kw = _hy_298_case(card, (4, 18, 16), 24, 17, 3, 48)
+    active = torch.tensor([1, 1, 0], device=card, dtype=torch.int32)
+    kc = kc.clone()
+    kc[0, 1] = 0
+    bias = kw["kv_bias"].clone()
+    bias[:, 200:600] = -1e30  # the third and fourth slots of kv block 0, whole
+    bias[:, 1008 + 130:1008 + 140] = -1e30
+    for extra in (dict(kv_bias=bias), dict(pair_bits=None, kv_bias=None)):
+        kwe = {**kw, **extra}
+        _build.reset_launches()
+        got = sta_flash_headbatched(q, k, v, ki, kc, active, **kwe)
+        assert _build.launches["sta_batched_wgmma"] == 1
+        _close(got, sta_flash_headbatched_ref(q, k, v, ki, kc, active, **kwe))
+        assert not got[:, 2].any()
+        assert not got[:, :, kw["block_q"]:2 * kw["block_q"]].any()  # q block 1: count 0
+
+
+def test_sta_batched_hopper_rule_leaves_the_rest_on_mma_sync(card):
+    """hunyuan-tiny's 8-token tiles, the stable softmax and D = 64 take the
+    mma.sync kernel, counted in sta_batched only, and agree."""
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
+
+    g = torch.Generator(device=card).manual_seed(49)
+    for latent, tile, d, softmax in (((4, 6, 16), (2, 2, 2), 128, "fast"),
+                                     ((4, 18, 16), (2, 9, 8), 128, "stable"),
+                                     ((4, 18, 16), (2, 9, 8), 64, "fast")):
+        lay, (ki, kc, bits), bias, tpt = _joint_sta_case(latent, tile, 24, card)
+        q, k, v = (_randn(g, (1, 2, lay.total, d), torch.bfloat16) for _ in range(3))
+        act = torch.ones(2, device=card, dtype=torch.int32)
+        kw = dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias, block_q=lay.block_q,
+                  block_kv=lay.block_kv, softmax=softmax)
+        _build.reset_launches()
+        got = sta_flash_headbatched(q, k, v, ki, kc, act, **kw)
+        assert (_build.launches["sta_batched"], _build.launches["sta_batched_wgmma"]) == (1, 0)
+        _close(got, sta_flash_headbatched_ref(q, k, v, ki, kc, act, **kw))
 
 
 # --- the warp-per-row norm --------------------------------------------------------------

@@ -150,11 +150,14 @@ def test_int8_modes_check_their_inputs():
     tab = tables_from_block_mask(np.ones((1, 1, 1), bool))
     kw = dict(block_q=32, block_kv=32, qk_scale=torch.ones(2))
     with pytest.raises(ValueError, match="int8"):
-        sparse_flash_attention_manual(x, x, x, tab.kv_index, tab.kv_count, **kw)
+        sparse_flash_attention_manual(x, x, x, tab.kv_index, tab.kv_count, softmax="fast", **kw)
     with pytest.raises(ValueError, match="fast"):
         sparse_flash_attention_manual(x8, x8, x, tab.kv_index, tab.kv_count, softmax="stable",
                                       **kw)
-    out = sparse_flash_attention_manual(x8, x8, x.bfloat16(), tab.kv_index, tab.kv_count, **kw)
+    with pytest.raises(ValueError, match="fast"):  # the default is the stable softmax
+        sparse_flash_attention_manual(x8, x8, x, tab.kv_index, tab.kv_count, **kw)
+    out = sparse_flash_attention_manual(x8, x8, x.bfloat16(), tab.kv_index, tab.kv_count,
+                                        softmax="fast", **kw)
     assert out.dtype == torch.bfloat16
     skw = dict(latent_shape=(2, 4, 4), tile=(2, 4, 4), qk_scale=torch.ones(2))
     with pytest.raises(ValueError, match="variant"):

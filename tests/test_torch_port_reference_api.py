@@ -1,0 +1,251 @@
+"""The port's public API against its JAX namesakes, on the CPU.
+
+Three faults of the port are held closed here: the softmax defaults of
+flash_manual and sta_batched (JAX's wrappers default to "stable": a call
+with JAX's defaults must give JAX's numbers, the Pallas kernels run in
+interpret mode, once per kernel), the keywords of sparse_flash_attention_raw
+that JAX's wrapper takes (``tokens_per_tile`` and ``cast_p_to_v_dtype``
+refused as NotImplementedError, the other wrappers' refusal, not a
+TypeError), and the public names the JAX modules have (each against its
+JAX namesake on the same numpy inputs).  Tolerances: f32 on both sides,
+rtol 1e-4 and atol 1e-4 x the output's max abs value (the two sides sum in
+different orders); exact where both sides only copy or count.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+from vorta_tpu import geometry as jgeometry
+from vorta_tpu.ops import attention_ref as jattention_ref
+from vorta_tpu.ops import fused_norm as jnorm
+from vorta_tpu.ops import prologue as jprologue
+from vorta_tpu.ops import qmm as jqmm
+from vorta_tpu.ops import quant as jquant
+from vorta_tpu.ops import sta_window as jsta_window
+from vorta_tpu.ops.flash_manual import sparse_flash_attention_manual as jax_manual
+from vorta_tpu.ops.sta_batched import sta_flash_headbatched as jax_batched
+from vorta_tpu_torch import geometry
+from vorta_tpu_torch.ops import attention_ref, fused_norm, prologue, qmm, quant, sta_window
+from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, tables_from_block_mask
+from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual
+from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the suite runs
+    several pytest workers side by side, and PyTorch's default of a thread
+    per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _close(got, want, rtol=1e-4, atol_rel=1e-4):
+    want = np.asarray(want, np.float32)
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol_rel * max(np.abs(want).max(), 1e-6))
+
+
+def _randn(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(scale * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+
+
+# --- fault 1: the softmax defaults ------------------------------------------------------
+
+def test_flash_manual_default_is_jax_default():
+    """No softmax given on either side: the stable softmax.  q and k at 8x
+    unit scale, where the fast softmax (no running max) gives other numbers:
+    the bracket must fail."""
+    b, h, s, d, blk = 1, 2, 64, 32, 32
+    q, k, v = _randn(61, *[(b, h, s, d)] * 3, scale=8.0)
+    tab = tables_from_block_mask(np.ones((1, s // blk, s // blk), bool))
+    kw = dict(block_q=blk, block_kv=blk, kv_valid_len=50)
+    want = jax_manual(*(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(tab.kv_index),
+                      jnp.asarray(tab.kv_count), interpret=True, **kw)
+    args = (*(torch.from_numpy(x) for x in (q, k, v)), tab.kv_index, tab.kv_count)
+    _close(sparse_flash_attention_manual(*args, **kw), want)
+    fast = sparse_flash_attention_manual(*args, softmax="fast", **kw)
+    assert not np.allclose(fast.numpy(), np.asarray(want), rtol=1e-3, atol=1e-3)
+
+
+def test_sta_batched_default_is_jax_default():
+    """The joint layout of a (2, 2, 2) tile with pair bits and the text
+    bias, no softmax given on either side; head 1 routed away.  q and k at
+    12x unit scale, where the fast softmax overflows: the bracket must
+    fail."""
+    from vorta_tpu_torch.config import AttentionConfig
+    from vorta_tpu_torch.ops import joint_experts as joint
+
+    cfg = joint.JointConfig(AttentionConfig(latent_shape=(4, 4, 8), sta_tile=(2, 2, 2),
+                                            lowres_window=(2, 2, 2)), 24)
+    lay = joint.joint_layouts(cfg)["sta"]
+    tables = joint._joint_sta_tables(cfg)
+    q, k, v = _randn(62, *[(1, 3, lay.total, 16)] * 3, scale=12.0)
+    bias = joint._bias(torch.from_numpy(np.arange(24) < 17)[None], lay, cfg.video.seq_len)
+    active = np.asarray([1, 0, 1], np.int32)
+    kw = dict(tokens_per_tile=8, block_q=lay.block_q, block_kv=lay.block_kv)
+    want = jax_batched(*(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(tables.kv_index),
+                       jnp.asarray(tables.kv_count), jnp.asarray(active),
+                       pair_bits=jnp.asarray(tables.pair_bits), kv_bias=jnp.asarray(bias.numpy()),
+                       interpret=True, **kw)
+    args = (*(torch.from_numpy(x) for x in (q, k, v)), tables.kv_index, tables.kv_count,
+            torch.from_numpy(active))
+    got = sta_flash_headbatched(*args, pair_bits=tables.pair_bits, kv_bias=bias, **kw)
+    _close(got, want)
+    assert not got[:, 1].any()
+    fast = sta_flash_headbatched(*args, pair_bits=tables.pair_bits, kv_bias=bias,
+                                 softmax="fast", **kw)
+    assert not np.allclose(fast.numpy(), np.asarray(want), rtol=1e-3, atol=1e-3)
+
+
+# --- fault 2: the flash wrapper's keywords ----------------------------------------------
+
+@pytest.mark.parametrize("extra", [dict(tokens_per_tile=8), dict(cast_p_to_v_dtype=False),
+                                   dict(tokens_per_tile=8, cast_p_to_v_dtype=False)])
+def test_flash_refuses_jax_keywords_it_does_not_port(extra):
+    q = torch.zeros((1, 1, 32, 64))
+    tab = tables_from_block_mask(np.ones((1, 1, 1), bool))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        sparse_flash_attention_raw(q, q, q, tab.kv_index, tab.kv_count, block_q=32, block_kv=32,
+                                   **extra)
+    # the JAX wrapper's own defaults are taken
+    out = sparse_flash_attention_raw(q, q, q, tab.kv_index, tab.kv_count, block_q=32,
+                                     block_kv=32, tokens_per_tile=None, cast_p_to_v_dtype=True)
+    assert out.shape == q.shape
+
+
+# --- fault 3: the public names of the JAX modules ---------------------------------------
+
+def _norm_inputs():
+    x, scale, shift, gamma, beta = _randn(63, (2, 12, 64), (2, 64), (2, 64), (64,), (64,))
+    return x, 0.1 * scale, shift, 1 + 0.1 * gamma, beta
+
+
+def _case_layernorm_fp32():
+    x, _, _, gamma, beta = _norm_inputs()
+    t = torch.from_numpy
+    _close(fused_norm.layernorm_fp32(t(x), 1e-5, t(gamma), t(beta)),
+           jnorm.layernorm_fp32(jnp.asarray(x), 1e-5, jnp.asarray(gamma), jnp.asarray(beta)))
+    _close(fused_norm.layernorm_fp32(t(x)), jnorm.layernorm_fp32(jnp.asarray(x)))
+
+
+def _case_adaln_layernorm():
+    x, scale, shift, gamma, _ = _norm_inputs()
+    t = torch.from_numpy
+    _close(fused_norm.adaln_layernorm(t(x), t(scale), t(shift), gamma=t(gamma)),
+           jnorm.adaln_layernorm(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(shift),
+                                 gamma=jnp.asarray(gamma)))
+
+
+def _case_rmsnorm():
+    x, _, _, gamma, _ = _norm_inputs()
+    _close(fused_norm.rmsnorm(torch.from_numpy(x), torch.from_numpy(gamma), 1e-5),
+           jnorm.rmsnorm(jnp.asarray(x), jnp.asarray(gamma), 1e-5))
+
+
+def _case_set_prologue_mode():
+    before = (prologue._PROLOGUE_MODE, jprologue._PROLOGUE_MODE)
+    try:
+        for mode in ("off", "fused"):
+            prologue.set_prologue_mode(mode)
+            jprologue.set_prologue_mode(mode)
+            assert prologue._PROLOGUE_MODE == jprologue._PROLOGUE_MODE == mode
+            assert prologue.use_fused_prologue("hard", 64, 128, 2) is (mode == "fused")
+    finally:
+        prologue._PROLOGUE_MODE, jprologue._PROLOGUE_MODE = before
+
+
+def _case_window_starts():
+    for grid, tile, window in (((20, 45, 80), (4, 9, 10), (3, 3, 3)),
+                               ((4, 8, 8), (2, 2, 2), (3, 3, 1))):
+        got = sta_window.window_starts(grid, tile, window)
+        want = jsta_window.window_starts(grid, tile, window)
+        assert got.dtype == want.dtype and (got == want).all()
+
+
+def _case_full_block_tables():
+    for got, want in zip(geometry.full_block_tables(3, 5), jgeometry.full_block_tables(3, 5)):
+        assert got.dtype == want.dtype and (got == want).all()
+
+
+def _case_expand_block_mask():
+    mask = np.random.default_rng(64).random((2, 3, 4)) < 0.5
+    got = attention_ref.expand_block_mask(torch.from_numpy(mask), 8, 16)
+    want = np.asarray(jattention_ref.expand_block_mask(jnp.asarray(mask), 8, 16))
+    assert tuple(got.shape) == want.shape == (1, 2, 24, 64)
+    assert (got.numpy() == want).all()
+
+
+def _case_dequantize_tree():
+    """A stack with a quantized leaf (int4 and int8) and a plain one, nested."""
+    rng = np.random.default_rng(65)
+    state = {"w": rng.standard_normal((2, 64, 96)).astype(np.float32),
+             "b": rng.standard_normal((2, 96)).astype(np.float32)}
+    for bits in (4, 8):
+        ref = jquant.quantize_stacked_tree(state, bits=bits, min_bytes=4096)
+        got = quant.quantize_stacked_tree({k: torch.from_numpy(v) for k, v in state.items()},
+                                          bits=bits, min_bytes=4096)
+        assert isinstance(got["w"], quant.QTensor) and not isinstance(got["b"], quant.QTensor)
+        want = jquant.dequantize_tree({"blk": ref, "extra": [ref["b"]]})
+        deq = quant.dequantize_tree({"blk": got, "extra": [got["b"]]})
+        assert isinstance(deq["extra"], list)
+        for key in ("w", "b"):
+            _close(deq["blk"][key], want["blk"][key], rtol=1e-6, atol_rel=1e-6)
+        _close(deq["extra"][0], want["extra"][0], rtol=0, atol_rel=0)
+
+
+def _case_fused_linear():
+    """Two QLinears and a plain bias-less Linear on one input, bf16
+    precision: one product, split per layer."""
+    rng = np.random.default_rng(66)
+    x = rng.standard_normal((1, 9, 32)).astype(np.float32)
+    sizes = (16, 24, 8)
+    ws = [(rng.standard_normal((32, n)) / 6).astype(np.float32) for n in sizes]
+    bs = [rng.standard_normal(n).astype(np.float32) for n in sizes[:2]]
+    jlins, tlins = [], []
+    for i, w in enumerate(ws):
+        site = ("a", "b", None)[i]
+        jl = jqmm.QLinear(32, w.shape[1], site=site, use_bias=i < 2, rngs=nnx.Rngs(i))
+        jl.kernel.value = jnp.asarray(w)
+        tl = qmm.QLinear(32, w.shape[1], site=site, bias=i < 2)
+        with torch.no_grad():
+            tl.weight.copy_(torch.from_numpy(w.T.copy()))
+            if i < 2:
+                jl.bias.value = jnp.asarray(bs[i])
+                tl.bias.copy_(torch.from_numpy(bs[i]))
+        jlins.append(jl)
+        tlins.append(tl)
+    want = jqmm.fused_linear(jnp.asarray(x), jlins)
+    with torch.no_grad():
+        got = qmm.fused_linear(torch.from_numpy(x), tlins)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        _close(g, w, rtol=1e-6, atol_rel=1e-6)
+
+
+PUBLIC_NAMES = {  # the port's module: (name, case)
+    "ops.fused_norm.layernorm_fp32": (fused_norm, _case_layernorm_fp32),
+    "ops.fused_norm.adaln_layernorm": (fused_norm, _case_adaln_layernorm),
+    "ops.fused_norm.rmsnorm": (fused_norm, _case_rmsnorm),
+    "ops.prologue.set_prologue_mode": (prologue, _case_set_prologue_mode),
+    "ops.sta_window.window_starts": (sta_window, _case_window_starts),
+    "geometry.full_block_tables": (geometry, _case_full_block_tables),
+    "ops.attention_ref.expand_block_mask": (attention_ref, _case_expand_block_mask),
+    "ops.quant.dequantize_tree": (quant, _case_dequantize_tree),
+    "ops.qmm.fused_linear": (qmm, _case_fused_linear),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PUBLIC_NAMES))
+def test_public_name_matches_its_jax_namesake(path):
+    module, case = PUBLIC_NAMES[path]
+    assert callable(getattr(module, path.rsplit(".", 1)[1]))
+    case()

@@ -214,11 +214,11 @@ def test_flash_manual_unported_options_raise():
                                         softmax="stable", **kw)
     _close(got, want)
     out = sparse_flash_attention_manual(q, q, q, tab.kv_index, tab.kv_count,
-                                        kv_bias=torch.zeros((1, 32)), **kw)
+                                        kv_bias=torch.zeros((1, 32)), softmax="fast", **kw)
     assert out.shape == q.shape
     q8 = q.to(torch.int8)
     out = sparse_flash_attention_manual(q8, q8, q, tab.kv_index, tab.kv_count,
-                                        qk_scale=torch.ones(2), **kw)
+                                        qk_scale=torch.ones(2), softmax="fast", **kw)
     assert out.shape == q.shape and out.dtype == q.dtype
     for bad in (dict(kv_valid=torch.ones(2)), dict(pair_bits=torch.zeros((1, 1, 1)))):
         with pytest.raises(NotImplementedError):

@@ -1,8 +1,11 @@
 // The Hopper mainloop of the forward attention kernels (sm_90a), shared by
 // csrc/flash.cu (online softmax, optional lse), csrc/flash_manual.cu (the
-// fast exp2(s + bias) softmax) and csrc/sta_pipe.cu (the same fast softmax
-// over each q tile's sliding window): one kernel template, two softmax
-// policies and two key walks ("sources").
+// fast exp2(s + bias) softmax), csrc/sta_pipe.cu (the same fast softmax
+// over each q tile's sliding window), csrc/sta_window.cu (the online
+// softmax over the window, padded runs masked) and csrc/sta_batched.cu (the
+// fast softmax over pair-bit tables): one kernel template, two softmax
+// policies and three key walks ("sources": BlockSource here, WindowSource
+// in csrc/sta_window_src.cuh, PairBitSource in csrc/sta_batched.cu).
 //
 // What bounds these kernels on the H100: at the served shapes (head dim
 // 128, kv blocks of 512-1024 keys, STA windows of 2,592-9,720 keys) each q
@@ -21,7 +24,8 @@
 // - Q.  128-byte swizzle, as two boxes of 64 columns (a 128-byte swizzle row
 //   holds 64 bf16); 32 KB.  BlockSource loads it by TMA; WindowSource
 //   (sta_pipe.cu), whose rows are runs scattered over the raster, by plain
-//   16-byte loads of every thread into the same swizzled layout.  In the
+//   16-byte loads of every thread into the same swizzled layout;
+//   PairBitSource by TMA, as BlockSource.  In the
 //   int8 QK mode a row of 128 int8 is one box, and S = Q K^T runs on wgmma
 //   s8 m64n128k32 (exact int32 sums, then one multiply by qk_factor[h]).
 // - The K/V ring.  STAGES slots of BN = 128 keys (K 32 KB + V 32 KB each)
@@ -35,7 +39,9 @@
 //   sub-tiles that the tail rule masks completely; the tiles are whole
 //   (block_kv % 128 == 0, and kv blocks never cross a head), so each
 //   barrier's byte count is fixed.  WindowSource fills each slot with the
-//   boxes of a host table, each box landing on a multiple of 8 rows.
+//   boxes of a host table, each box landing on a multiple of 8 rows;
+//   PairBitSource walks the slot list its CTA built in shared memory before
+//   the ring started (prepare()).
 // - S = Q K^T: wgmma.m64n128k16, Q and K both K-major from shared memory
 //   (descriptors with the 128-byte swizzle, stride 1,024 B per 8 rows; a
 //   k step of 16 advances the start address by 32 B inside the swizzle
@@ -54,7 +60,9 @@
 //   and none of function: 2^x is ex2.approx.ftz (one instruction; results
 //   below 2^-126 flush to 0, which no row sum can see), and the column mask
 //   runs only on a slot that is cut (per column for the tail rule, per
-//   8-column block where a source's cuts are multiples of 8).  The fast
+//   8-column block where a source's cuts are multiples of 8; a source with
+//   masks of its own, OWN_SOFTMAX, applies them as selects whose pattern
+//   is known at compile time or held in one word a row).  The fast
 //   softmax loads its bias outside any condition: a guarded load per score
 //   compiles to a branch per score and halves the kernel's speed.  A CTA
 //   with nothing to do (count 0, an inactive head) writes zeros (and the
@@ -63,7 +71,8 @@
 // Where the tables give other shapes (D = 64, blocks that 128 does not
 // divide), the mma.sync kernels of the same .cu files run; the wrappers
 // choose by one pure-Python rule (ops/flash.py:wgmma_path,
-// ops/sta_pipe.py:sta_wgmma_path).
+// ops/sta_pipe.py:sta_wgmma_path, ops/sta_window.py:window_wgmma_path,
+// ops/sta_batched.py:batched_wgmma_path).
 #pragma once
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -328,7 +337,8 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[32], const float (&s)[64])
 struct Slot {
   int key0;    // the source's handle: the first key (BlockSource), a walk-table row (WindowSource)
   int nvalid;  // keys of the slot that count; the columns past them are masked
-  bool bias;   // the slot carries BN f32 of bias, added to its scores (Fast only)
+  bool bias;   // the slot carries BN f32 of bias, added to its scores
+  uint32_t info = 0;  // a source's own mask word (PairBitSource)
 };
 
 // The walk over a CTA's kv sub-tiles that the producer and the consumers
@@ -441,22 +451,13 @@ __device__ __forceinline__ void fast_p(float (&s)[64], int nvalid, int t, const 
   }
 }
 
-// The softmax step on one tile's scores, in place (s becomes p), as the
-// mma.sync kernels compute it.  Online: scores scaled, masked columns -1e30,
-// the running max m_run with m_safe, alpha = exp2(m_old - m_safe) for the
-// caller to rescale O by, l_part rescaled and summed.  Fast: p = exp2(s +
-// bias), 0 on masked columns, no max and no rescale.  BY8: the source cuts
-// its slots only at multiples of 8 keys.
-template <Softmax SM, bool BY8>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], int nvalid, int t, float scale_log2,
-                                             const float* bs, float (&m_run)[2],
-                                             float (&l_part)[2], float (&alpha)[2]) {
-  const bool mask = nvalid < BN;
-  if constexpr (SM == Softmax::Online) {
-    if (mask)
-      scale_scores<true>(s, nvalid, t, scale_log2);
-    else
-      scale_scores<false>(s, nvalid, t, scale_log2);
+// The online step on scores already in the log2 domain (masked columns
+// -1e30), in place (s becomes p): the running max m_run with m_safe, alpha =
+// exp2(m_old - m_safe) for the caller to rescale O by, l_part rescaled and
+// summed.
+__device__ __forceinline__ void online_update(float (&s)[64], float (&m_run)[2],
+                                              float (&l_part)[2], float (&alpha)[2]) {
+  {
     float m_cur[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int i = 0; i < 64; ++i) m_cur[(i >> 1) & 1] = fmaxf(m_cur[(i >> 1) & 1], s[i]);
@@ -478,6 +479,25 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int nvalid, int t, 
     }
     l_part[0] = l_part[0] * alpha[0] + psum[0];
     l_part[1] = l_part[1] * alpha[1] + psum[1];
+  }
+}
+
+// The softmax step on one tile's scores, in place (s becomes p), as the
+// mma.sync kernels compute it.  Online: scores scaled, masked columns -1e30,
+// then online_update.  Fast: p = exp2(s + bias), 0 on masked columns, no
+// max and no rescale.  BY8: the source cuts its slots only at multiples of
+// 8 keys.
+template <Softmax SM, bool BY8>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], int nvalid, int t, float scale_log2,
+                                             const float* bs, float (&m_run)[2],
+                                             float (&l_part)[2], float (&alpha)[2]) {
+  const bool mask = nvalid < BN;
+  if constexpr (SM == Softmax::Online) {
+    if (mask)
+      scale_scores<true>(s, nvalid, t, scale_log2);
+    else
+      scale_scores<false>(s, nvalid, t, scale_log2);
+    online_update(s, m_run, l_part, alpha);
   } else if (bs != nullptr) {
     if (mask)
       fast_p<true, true, BY8>(s, nvalid, t, bs, l_part);
@@ -491,6 +511,55 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], int nvalid, int t, 
   }
 }
 
+// The window sources' online scores (sta_window): s * scale_log2, plus the
+// slot's bias where BIAS (a text slot), -1e30 past nvalid where CUT (a cut
+// slot: the sources cut at multiples of 8 keys, so one test per 8-column
+// block) and, where RB > 0, on the padded columns of the slot's runs: runs
+// of RB 8-column blocks whose last block holds padding, this thread's
+// columns 2t + e of it where bit e of pad is set.  Which blocks end a run
+// is known at compile time, so the padding costs one select on 8 of the 64
+// scores at RB = 4.
+template <bool CUT, bool BIAS, int RB>
+__device__ __forceinline__ void window_scores(float (&s)[64], int nvalid, int t, float scale_log2,
+                                              const float* bs, uint32_t pad) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {  // columns 8n + 2t and 8n + 2t + 1
+    const float2 b = BIAS ? *reinterpret_cast<const float2*>(bs + 8 * n + 2 * t)
+                          : make_float2(0.f, 0.f);
+    const bool cut = CUT && 8 * n >= nvalid;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e;
+      const float x = BIAS ? fmaf(s[i], scale_log2, (e & 1) ? b.y : b.x) : s[i] * scale_log2;
+      bool off = cut;
+      if constexpr (RB > 0)
+        if (n % RB == RB - 1) off = off || ((pad >> (e & 1)) & 1u);
+      s[i] = off ? NEG_INF : x;
+    }
+  }
+}
+
+// Fast with a visibility word per row (PairBitSource): p = exp2(s + bias),
+// 0 where bit n of vis[hr] is clear (columns 8n..8n+7 of this thread's row
+// hr hidden: the source's cuts fall on multiples of 8 keys), added to the
+// row sums.  exp2 runs on every score and a select masks it: no branch.
+template <bool BIAS>
+__device__ __forceinline__ void fast_p_vis(float (&s)[64], int t, const float* bs,
+                                           const uint32_t (&vis)[2], float (&l_part)[2]) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const float2 b = BIAS ? *reinterpret_cast<const float2*>(bs + 8 * n + 2 * t)
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * n + e;
+      const float x = ex2(BIAS ? s[i] + ((e & 1) ? b.y : b.x) : s[i]);
+      s[i] = ((vis[e >> 1] >> n) & 1u) ? x : 0.f;
+      l_part[e >> 1] += s[i];
+    }
+  }
+}
+
 // flash / flash_manual's source: a CTA's 128 q rows are rows row0.. of one
 // (batch, head) of (B, H, Sq, D), loaded by TMA; its keys the 128-key
 // sub-tiles of the kv blocks kv_index lists (TileWalk), loaded by TMA with
@@ -500,6 +569,7 @@ template <bool I8>
 struct BlockSource {
   static constexpr bool Q_BY_TMA = true;
   static constexpr bool BY8 = false;  // the tail rule cuts anywhere
+  static constexpr bool OWN_SOFTMAX = false;  // softmax_tile on nvalid
   static constexpr uint32_t QK_BYTES = I8 ? KV_BYTES / 2 : KV_BYTES;  // a Q or K tile
   const CUtensorMap *tq, *tk, *tv;
   const Params& p;
@@ -519,6 +589,7 @@ struct BlockSource {
         p.kv_index + static_cast<size_t>((p.idx_shared ? 0 : h) * p.nq + qi) * p.width;
     walk = TileWalk{idx, count, p.block_kv, p.last_block, p.valid_in_block};
   }
+  __device__ __forceinline__ void prepare(uint8_t*, int) {}
   // routed away or past valid_len: zeros (and the lse sentinel), no barrier touched
   __device__ __forceinline__ bool idle() const { return count == 0; }
   __device__ __forceinline__ void write_zeros(int tid) const {
@@ -564,16 +635,19 @@ struct BlockSource {
 };
 
 // The whole kernel, for a __global__ of its own in each .cu file (so that
-// profiles and ptxas reports name flash_sm90_kernel, flash_manual_sm90_kernel
-// and sta_pipe_sm90_kernel); the maps are the kernel's __grid_constant__
-// parameters, whose addresses TMA reads, held by the source.
+// profiles and ptxas reports name flash_sm90_kernel, flash_manual_sm90_kernel,
+// sta_pipe_sm90_kernel, sta_window_sm90_kernel and sta_batched_sm90_kernel);
+// the maps are the kernel's __grid_constant__ parameters, whose addresses
+// TMA reads, held by the source.
 // I8: the int8 QK mode (Fast only): q and k are int8 rows of 128 bytes, one
 // box each, S the exact int32 sums of wgmma s8 times qk_factor[h].
-// Src: the key walk, BlockSource<I8> or sta_pipe.cu's WindowSource; it
+// Src: the key walk, BlockSource<I8>, WindowSource<RB> or PairBitSource; it
 // tells the CTA's q rows (Q by TMA, or by stage_q's plain loads: each
 // consumer warpgroup its own 64 rows while the first K/V copies fly), its
-// ring slots (next(), issue_k(), issue_v(); stage_shared() fills its own
-// shared region before the producer starts) and where each output row goes.
+// ring slots (next(), issue_k(), issue_v(); prepare() sets up what idle()
+// reads, with every thread of the CTA; stage_shared() fills its own shared
+// region before the producer starts), its softmax where OWN_SOFTMAX and
+// where each output row goes.
 template <Softmax SM, bool I8, class Src>
 __device__ __forceinline__ void attn_mainloop(Src& src) {
   static_assert(!I8 || SM == Softmax::Fast, "the int8 QK mode is fast-only");
@@ -591,6 +665,7 @@ __device__ __forceinline__ void attn_mainloop(Src& src) {
   auto v_smem = [&](int s) { return base + Q_BYTES + s * STAGE_BYTES + KV_BYTES; };
 
   const int tid = threadIdx.x;
+  src.prepare(gbase, tid);  // a source's own set-up that idle() may read (all threads)
   if (src.idle()) {  // nothing to attend: zeros, no barrier touched
     src.write_zeros(tid);
     return;
@@ -665,9 +740,18 @@ __device__ __forceinline__ void attn_mainloop(Src& src) {
     }
   };
   auto bias_of = [&](int st) {
-    return (SM == Softmax::Fast && slot.bias)
-               ? reinterpret_cast<const float*>(gbase + BIAS_OFF + st * BIAS_BYTES)
-               : nullptr;
+    return slot.bias ? reinterpret_cast<const float*>(gbase + BIAS_OFF + st * BIAS_BYTES)
+                     : nullptr;
+  };
+  // the softmax step on the current slot's scores: softmax_tile on its
+  // nvalid, or the source's own (column masks of its own)
+  const int row = wg * 64 + warp * 16 + g;  // this thread's CTA rows: row, row + 8
+  auto softmax = [&](int st) {
+    if constexpr (Src::OWN_SOFTMAX)
+      src.template softmax<SM>(s, slot, row, t, scale_log2, bias_of(st), m_run, l_part, alpha);
+    else
+      softmax_tile<SM, Src::BY8>(s, slot.nvalid, t, scale_log2, bias_of(st), m_run, l_part,
+                                 alpha);
   };
   // every warp releases a slot once its last reader (the softmax's bias reads
   // for K, the PV product for V) is done
@@ -697,7 +781,7 @@ __device__ __forceinline__ void attn_mainloop(Src& src) {
   qk(0);
   wgmma_wait<0>();
   scores();
-  softmax_tile<SM, Src::BY8>(s, slot.nvalid, t, scale_log2, bias_of(0), m_run, l_part, alpha);
+  softmax(0);
   release(k_empty(0));
   pack_p(pa, s);
   int pv_stage = 0, stage = 1 % STAGES;
@@ -709,8 +793,7 @@ __device__ __forceinline__ void attn_mainloop(Src& src) {
     issue_pv(o, pa, v_smem(pv_stage));
     wgmma_wait<1>();  // the QK product: the older group
     scores();
-    softmax_tile<SM, Src::BY8>(s, slot.nvalid, t, scale_log2, bias_of(stage), m_run, l_part,
-                               alpha);
+    softmax(stage);
     release(k_empty(stage));
     wgmma_wait<0>();
     fence_regs(o);
@@ -735,7 +818,7 @@ __device__ __forceinline__ void attn_mainloop(Src& src) {
   for (int hr = 0; hr < 2; ++hr) {
     const float x = quad_sum(l_part[hr]);
     const float l = (x == 0.f) ? 1.f : x;
-    const int r = wg * 64 + warp * 16 + g + 8 * hr;
+    const int r = row + 8 * hr;
     if constexpr (SM == Softmax::Online) {
       float* lp = src.lse_row(r);
       if (lp != nullptr && t == 0) *lp = (x == 0.f) ? 1e30f : m_run[hr] + log2f(x);

@@ -21,13 +21,33 @@
 // Bound on this card: at Wan-1.3B 720p x 77f with tile (4, 9, 10) (72,000
 // tokens, 9,720 keys per query) the work is 4 * 72,000 * 9,720 * 128 =
 // 3.6e11 FLOP per head against 74 MB of operands, so the tensor cores bound
-// it (0.36 ms per head at 989 TFLOP/s bf16).  Design: one CUDA block of 4
-// warps per (64-row chunk of a q tile, head, batch); the window box is
-// walked in 64-key sub-tiles gathered from its contiguous w runs into
-// shared memory; one online-softmax step per sub-tile on mma.sync m16n8k16
-// (sta_common.cuh).  The q tiles of one window re-read its keys from L2.
-// Simple first: no wgmma, TMA or cp.async pipelining yet.
+// it (0.36 ms per head at 989 TFLOP/s bf16).  Two designs, chosen per call
+// by the wrapper's rule (ops/sta_window.py:window_wgmma_path, mirrored by
+// the C entry):
+//
+// - The Hopper path (D = 128, a window box that lands, a slot table that
+//   fits shared memory, a text tail of a multiple of 8 keys: every served
+//   geometry): csrc/attn_sm90.cuh's mainloop with the online softmax over
+//   the window source of csrc/sta_window_src.cuh (sta_window_sm90_kernel),
+//   sta_pipe's Hopper path with sta_window's softmax.  At (4, 9, 10) the
+//   window's 324 runs of 30 tokens land on no 8-row multiple (27 runs per
+//   plane, 30 * box_h never a multiple of 8), so each run is read as a box
+//   of 32 tokens, 4 a slot (93.75% of the products useful), the 2 extra
+//   columns masked: in the interior they are the neighbouring tile's
+//   tokens.  Which of a slot's 8-column blocks end a run is a compile-time
+//   pattern (RB, the run's 8-column blocks), so the mask costs one select
+//   on 8 of a thread's 64 scores, with no branch.  The online softmax is
+//   the mainloop's (flash's), the text slots' bias added after the scale.
+// - The mma.sync path (D = 64, windows with no box, tables past the shared
+//   memory), below: one CUDA block of 4 warps per (64-row chunk of a q
+//   tile, head, batch); the window box is walked in 64-key sub-tiles
+//   gathered from its contiguous w runs into shared memory; one
+//   online-softmax step per sub-tile on mma.sync m16n8k16 (sta_common.cuh).
+//   The q tiles of one window re-read its keys from L2.
+#include <algorithm>
+
 #include "sta_common.cuh"
+#include "sta_window_src.cuh"
 
 namespace {
 
@@ -142,6 +162,18 @@ sta_window_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
+// the Hopper path: RB, the 8-column blocks of a padded run (0: runs not padded)
+template <int RB>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+sta_window_sm90_kernel(const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tkt,
+                       const __grid_constant__ CUtensorMap tvt,
+                       const __grid_constant__ StaParams p) {
+  WindowSource<RB> src{&tk, &tv, &tkt, &tvt, p};
+  sm90::attn_mainloop<sm90::Softmax::Online, false>(src);
+}
+
 template <int D>
 cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, const int* active,
@@ -161,16 +193,43 @@ cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
 // q, k, v, out: contiguous raster (B, H, T*HH*W, D) bf16 (q not pre-scaled);
 // active: (H,) int32 on the device; text_k / text_v: contiguous (B, H, Lt, D)
 // bf16 and text_bias (Lt,) f32, or null with Lt = 0; sl = scale * log2(e).
-// Returns the CUDA error code.
+// hopper: the wrapper's rule (ops/sta_window.py:window_wgmma_path) chose the
+// Hopper path, with walk (n_slots, WALK_COLS) int32 on the device and boxes
+// of box_w tokens x box_h rows: box_w the window's run (run_w), or a run of
+// 25 to 31 tokens padded to 32 (RB = 4);
+// box_h dividing the window's rows, box_w * box_h a multiple of 8 up to
+// 128; k, v, text_k, text_v and text_bias 16-byte aligned; anything else
+// there is an error, never a fallback.  Returns the CUDA error code.
 extern "C" int vorta_sta_window_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                          const void* active, const void* text_k,
                                          const void* text_v, const void* text_bias, float sl,
                                          int Lt, int B, int H, int T, int HH, int W, int D,
                                          int tt, int th, int tw, int win_t, int win_h,
-                                         int win_w, void* stream) {
+                                         int win_w, const void* walk, int n_slots, int box_w,
+                                         int box_h, int run_w, int hopper, void* stream) {
   if (T % tt || HH % th || W % tw || (D != 64 && D != 128) || win_t < 1 || win_h < 1 ||
       win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hopper) {  // the wrapper's rule picked the Hopper path: its shapes or an error
+    const int bh = std::min(win_h, HH / th) * th, bw = std::min(win_w, W / tw) * tw;
+    const bool padded = box_w != bw;
+    if (D != sm90::D || !walk || n_slots < 1 || sta_smem_bytes(n_slots) > 232448 ||
+        run_w != bw || box_h < 1 || bh % box_h || (box_w * box_h) % 8 ||
+        box_w * box_h > sm90::BN || Lt % 8 ||
+        (padded && (box_w != 32 || bw >= box_w || bw <= box_w - 8)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int tpt = tt * th * tw;
+    const StaParams p{static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(q),
+                      static_cast<const int*>(active), static_cast<const int*>(walk),
+                      static_cast<const float*>(text_bias), n_slots, H, T, HH, W, tt, th, tw,
+                      win_t, win_h, win_w, (tpt + sm90::BM - 1) / sm90::BM, box_w, box_h, Lt,
+                      run_w, sl};
+    auto st = static_cast<cudaStream_t>(stream);
+    auto run = [&](auto kern) {
+      return static_cast<int>(launch_window(kern, B, p, k, v, text_k, text_v, st));
+    };
+    return padded ? run(sta_window_sm90_kernel<4>) : run(sta_window_sm90_kernel<0>);
+  }
   using bf = __nv_bfloat16;
   auto run = [&](auto launcher) {
     return launcher(B, H, static_cast<const bf*>(q), static_cast<const bf*>(k),

@@ -204,6 +204,14 @@ def expand_tile_mask(tile_mask: np.ndarray, tokens_per_tile: int, block_q: int,
     return np.kron(tile_mask, np.ones((rq, rkv), dtype=bool))
 
 
+def full_block_tables(n_q_blocks: int, n_kv_blocks: int):
+    """Block tables for dense (full) attention: every kv block active.
+    Returns (kv_index (nq, nkv), counts (nq,)), int32."""
+    kv_index = np.broadcast_to(np.arange(n_kv_blocks, dtype=np.int32)[None, :],
+                               (n_q_blocks, n_kv_blocks)).copy()
+    return kv_index, np.full((n_q_blocks,), n_kv_blocks, dtype=np.int32)
+
+
 def window_starts(latent_shape: Shape3, tile: Shape3, window: Shape3) -> np.ndarray:
     """(n_tiles, 3) int32 element offsets of each q tile's clamped window box.
 

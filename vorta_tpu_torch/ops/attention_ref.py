@@ -31,6 +31,12 @@ def attention_dense(
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def expand_block_mask(block_mask: torch.Tensor, block_q: int, block_kv: int) -> torch.Tensor:
+    """(H, nq, nkv) bool -> (1, H, Sq, Skv) element mask (for the oracle)."""
+    m = block_mask.repeat_interleave(block_q, dim=-2).repeat_interleave(block_kv, dim=-1)
+    return m[None]
+
+
 def attention_chunked(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -181,6 +181,23 @@ def wgmma_path(d: int, block_q: int, block_kv: int) -> bool:
     return d == 128 and block_q % WGMMA_TILE == 0 and block_kv % WGMMA_TILE == 0
 
 
+def refuse_unported(kv_valid, pair_bits, tokens_per_tile, cast_p_to_v_dtype: bool) -> None:
+    """The TPU wrappers' options that flash and flash_manual do not port
+    (ROADMAP section 1 item 11) raise NotImplementedError."""
+    unported = (
+        (kv_valid is not None, "per-head kv_valid is ROADMAP section 1 item 11: no JAX "
+                               "call site passes it"),
+        (pair_bits is not None or tokens_per_tile is not None,
+         "pair_bits of this kernel are ROADMAP section 1 item 11: no JAX call site passes "
+         "them (the STA pair bits run in ops/sta_batched.py)"),
+        (not cast_p_to_v_dtype, "cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
+                                "item 11: P is always cast to v's dtype here"),
+    )
+    for bad, why in unported:
+        if bad:
+            raise NotImplementedError(why)
+
+
 def _flash_fn():
     fn = _build.load("flash").vorta_flash_fwd_bf16
     if fn.argtypes is None:
@@ -221,6 +238,8 @@ def sparse_flash_attention_raw(
     kv_valid_len: Optional[int] = None,
     kv_valid: Optional[torch.Tensor] = None,
     pair_bits: Optional[torch.Tensor] = None,
+    tokens_per_tile: Optional[int] = None,
+    cast_p_to_v_dtype: bool = True,
     return_lse: bool = False,
 ):
     """Block-sparse flash attention forward; ``(out, lse)`` with ``return_lse``.
@@ -229,8 +248,10 @@ def sparse_flash_attention_raw(
     and kv_count: (H_tab, Sq//block_q), int32 tensors (or numpy) with H_tab
     1 or H.  On CUDA: bf16 q/k/v, D 64 or 128, block_q and block_kv
     multiples of 8 (the TPU kernel's rule).
-    ``kv_valid`` (per-head valid lengths) and ``pair_bits`` raise
-    NotImplementedError: no JAX call site passes them to this kernel.
+    ``kv_valid`` (per-head valid lengths), ``pair_bits`` with
+    ``tokens_per_tile`` and ``cast_p_to_v_dtype=False`` raise
+    NotImplementedError (ROADMAP section 1 item 11): no JAX call site passes
+    them to this kernel.
     """
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -240,10 +261,7 @@ def sparse_flash_attention_raw(
         raise ValueError(f"seq lens ({sq},{skv}) not divisible by blocks ({block_q},{block_kv})")
     if kv_index.shape[0] not in (1, h) or kv_index.shape[1] != sq // block_q:
         raise ValueError(f"tables {tuple(kv_index.shape)} for {h} heads, {sq // block_q} q blocks")
-    if kv_valid is not None or pair_bits is not None:
-        raise NotImplementedError(
-            "per-head kv_valid and pair_bits of the flash kernel are ROADMAP section 1 item "
-            "11: no JAX call site passes them (the STA pair bits run in ops/sta_batched.py)")
+    refuse_unported(kv_valid, pair_bits, tokens_per_tile, cast_p_to_v_dtype)
     if kv_valid_len is None:
         kv_valid_len = skv
     if scale is None:

@@ -6,11 +6,12 @@ For q block ``i`` of head ``h`` the kernel visits
 ``kv_index[th, i, :kv_count[tc, i]]`` (``th``/``tc`` are 0 when the index
 table / the counts are shared by all heads), so a row whose count is 0
 costs nothing and writes zeros: the routed experts give each head its own
-counts and share one index table.  Softmax is the "fast" form of the TPU
-kernel: q is pre-scaled by ``scale * log2(e)`` in q's dtype (as the JAX
-wrapper does, so the rounding matches), ``p = exp2(q.k)`` with no running
-max (safe for qk-normed DiT tensors, see ops/sta_pipe.py), P is cast to
-v's dtype before the PV product, and rows with ``l == 0`` give 0.
+counts and share one index table.  Softmax "fast" is the TPU kernel's fast
+form, the one every routed and joint caller passes: q is pre-scaled by
+``scale * log2(e)`` in q's dtype (as the JAX wrapper does, so the rounding
+matches), ``p = exp2(q.k)`` with no running max (safe for qk-normed DiT
+tensors, see ops/sta_pipe.py), P is cast to v's dtype before the PV
+product, and rows with ``l == 0`` give 0.
 ``kv_valid_len`` masks the tail as the TPU kernel does: only block
 ``kv_valid_len // block_kv`` is cut.  ``kv_bias``, a (1, Skv) f32 additive
 logits bias shared by every batch row and head (the joint experts'
@@ -28,8 +29,8 @@ bf16 PV product follow unchanged, and the output has v's dtype.  The plain
 version's f32 einsum of the int8 values is exact (|q.k| <= 127^2 * 128 <
 2^24), so it gives the kernel's int32 sums.
 
-``softmax="stable"`` (the JAX wrapper's default; the port's default stays
-"fast", what every routed and joint caller passes): q is not pre-scaled, the
+``softmax="stable"`` (the default, the JAX wrapper's; every routed and
+joint caller passes "fast"): q is not pre-scaled, the
 f32 scores ``q.k`` are scaled by ``scale * log2(e)``, then ``kv_bias`` is
 added and the masked columns set to -1e30, with a running max per row (0
 while it is still -1e30, the TPU kernel's ``m_safe``); it combines with
@@ -54,7 +55,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash import LOG2E, _kv_column_limit, wgmma_path
+from .flash import LOG2E, _kv_column_limit, refuse_unported, wgmma_path
 
 NEG = -1e30
 SOFTMAXES = ("fast", "stable")
@@ -125,7 +126,7 @@ def sparse_flash_attention_manual_ref(
     kv_valid_len: Optional[int] = None,
     kv_bias: Optional[torch.Tensor] = None,
     qk_scale: Optional[torch.Tensor] = None,
-    softmax: str = "fast",
+    softmax: str = "stable",
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, one q block at a time."""
     if softmax not in SOFTMAXES:
@@ -202,31 +203,20 @@ def sparse_flash_attention_manual(
     tokens_per_tile: Optional[int] = None,
     kv_bias: Optional[torch.Tensor] = None,
     cast_p_to_v_dtype: bool = True,
-    softmax: str = "fast",
+    softmax: str = "stable",
     qk_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q: (B, H, Sq, D); k/v: (B, H, Skv, D).  kv_index: (1 or H, Sq//block_q,
     W) and kv_count: (1 or H, Sq//block_q) int32 tensors (or numpy);
     kv_bias: (1, Skv) f32 or None; qk_scale: (H,) f32 with int8 q / k, or
     None.  On CUDA: bf16 v (and q / k unless int8), D 64 or 128, block_q a
-    multiple of 16.  softmax "fast" (the port's default, what every routed
-    caller passes) or "stable" (the JAX wrapper's default)."""
+    multiple of 16.  softmax "stable" (the default, the JAX wrapper's) or
+    "fast" (what every routed and joint caller passes; int8 QK needs it)."""
     if qk_scale is not None:
         check_int8_qk(q, k, softmax)
     if softmax not in SOFTMAXES:
         raise ValueError(f"softmax {softmax!r} not in {SOFTMAXES}")
-    unported = (
-        (kv_valid is not None, "per-head kv_valid is ROADMAP section 1 item 11: no JAX "
-                               "call site passes it"),
-        (pair_bits is not None or tokens_per_tile is not None,
-         "pair_bits of this kernel are ROADMAP section 1 item 11: no JAX call site passes "
-         "them (the STA pair bits run in ops/sta_batched.py)"),
-        (not cast_p_to_v_dtype, "cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
-                                "item 11: P is always cast to v's dtype here"),
-    )
-    for bad, why in unported:
-        if bad:
-            raise NotImplementedError(why)
+    refuse_unported(kv_valid, pair_bits, tokens_per_tile, cast_p_to_v_dtype)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     kv_valid_len = skv if kv_valid_len is None else int(kv_valid_len)

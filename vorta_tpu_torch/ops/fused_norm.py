@@ -206,6 +206,20 @@ def fused_norm(x: torch.Tensor, scale: Optional[torch.Tensor], shift: Optional[t
     return _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32)
 
 
+def layernorm_fp32(x, eps=1e-6, gamma=None, beta=None, out_f32=False):
+    """LayerNorm with f32 statistics, optional affine."""
+    return fused_norm(x, None, None, gamma, beta, False, eps, out_f32)
+
+
+def adaln_layernorm(x, scale, shift, eps=1e-6, gamma=None, beta=None):
+    """norm(x) * (1 + scale) + shift, output in x.dtype.  scale/shift (B, dim)."""
+    return fused_norm(x, scale, shift, gamma, beta, False, eps, False)
+
+
+def rmsnorm(x, weight, eps=1e-6):
+    return fused_norm(x, None, None, weight, None, True, eps, False)
+
+
 # ---- residual + norm fusion ---------------------------------------------------
 
 def _res_norm_ref(x, delta, gate, scale, shift, gamma, beta, eps):

@@ -277,7 +277,7 @@ def _joint_sta_batched(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig, ac
         q, k, v, kv_index, kv_count, act.to(torch.int32), pair_bits=pair_bits,
         tokens_per_tile=cfg.tokens_per_tile,
         kv_bias=_bias(text_mask, layout, cfg.seq_len).to(q.device),
-        scale=scale, block_q=layout.block_q, block_kv=layout.block_kv)
+        scale=scale, block_q=layout.block_q, block_kv=layout.block_kv, softmax="fast")
     tiled_out, text_out = _split(out, layout, cfg.seq_len, jcfg.text_len)
     return untile_sequence(tiled_out, shape, tile), text_out
 

@@ -27,6 +27,13 @@ from . import _build
 _PROLOGUE_MODE = os.environ.get("VORTA_PROLOGUE", "fused")
 
 
+def set_prologue_mode(mode: str) -> None:
+    """Override the fused-prologue gate ('fused' | 'off') for the calls that
+    follow."""
+    global _PROLOGUE_MODE
+    _PROLOGUE_MODE = mode
+
+
 def supports_prologue(s: int, dim: int, num_heads: int) -> bool:
     """Shapes the CUDA kernel takes (any S; its row stats in 48 KB of shared
     memory, at most 64 heads, an even head dim)."""

@@ -198,6 +198,23 @@ class QLinear(nn.Linear):
         return _project(x, self.weight, self.bias, (self.site,))
 
 
+def fused_linear(x: torch.Tensor, linears) -> list:
+    """Several Linears / QLinears that share the input ``x``, as ONE product
+    of their concatenated weights (the JAX package's ``fused_linear``):
+    each output column's sum is unchanged; in int8 the input is quantized
+    once, by the max of the named sites' static scales.  Returns one output
+    per layer."""
+    sizes = [lin.out_features for lin in linears]
+    weight = torch.cat([lin.weight for lin in linears], dim=0)
+    bias = None
+    if any(lin.bias is not None for lin in linears):
+        bias = torch.cat([lin.bias if lin.bias is not None
+                          else torch.zeros(n, dtype=x.dtype, device=x.device)
+                          for lin, n in zip(linears, sizes)])
+    y = _project(x, weight, bias, tuple(getattr(lin, "site", None) for lin in linears))
+    return list(torch.split(y, sizes, dim=-1))
+
+
 class FusedLinear(nn.Linear):
     """Several Linears that share one input, as ONE product.
 

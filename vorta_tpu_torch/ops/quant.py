@@ -103,6 +103,18 @@ def dequantize(qt: QTensor, layer: Optional[int] = None) -> torch.Tensor:
     return w.reshape(shape).to(qt.dtype)
 
 
+def dequantize_tree(qtree):
+    """Every QTensor in a (nested) dict / list / tuple replaced by its
+    dequantized tensor; other leaves as they are."""
+    if isinstance(qtree, QTensor):
+        return dequantize(qtree)
+    if isinstance(qtree, dict):
+        return {k: dequantize_tree(v) for k, v in qtree.items()}
+    if isinstance(qtree, (list, tuple)):
+        return type(qtree)(dequantize_tree(v) for v in qtree)
+    return qtree
+
+
 def quantizes(w: torch.Tensor, min_bytes: int = MIN_BYTES) -> bool:
     """The JAX package's leaf decision, on its (L, ..., in, out) layout."""
     return (w.is_floating_point() and _nbytes(w) >= min_bytes and w.ndim >= 3

@@ -177,7 +177,7 @@ def _sta_batched(call: ExpertCall, q, k, v, active, cfg: AttentionConfig, scale)
           for x, pad in ((q, call.q_pad), (k, call.kv_pad), (v, call.kv_pad))),
         kv_index, kv_count, active, pair_bits=pair_bits,
         tokens_per_tile=cfg.tokens_per_tile, scale=scale, block_q=call.block_q,
-        block_kv=call.block_kv)
+        block_kv=call.block_kv, softmax="fast")
     return untile_sequence(out[:, :, :cfg.seq_len], shape, tile)
 
 

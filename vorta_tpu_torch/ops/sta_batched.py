@@ -15,21 +15,26 @@ neither of its window-dense kernels, and the joint STA expert's small tiles
 or text lengths not a multiple of 8, run here (ops/routed_fused.py,
 ops/joint_experts.py).
 
-Softmax ``"fast"`` is the TPU kernel's fast form, the one its callers pass
-(and the port's default): q pre-scaled by ``scale * log2(e)`` in q's dtype,
-``p = exp2(q.k + bias)`` with no running max and no ``log2(e)`` on the
-bias, a masked entry exactly 0, P cast to v's dtype before the PV product,
-``l == 0`` rows (a q block with count 0, a row that sees nothing) giving 0.
-``"stable"`` (the JAX wrapper's default): q not pre-scaled, the f32 scores
-scaled by ``scale * log2(e)``, the bias added, hidden pairs -1e30, and a
-running max per row with the TPU kernel's ``m_safe``.  Heads whose ``active``
+Softmax ``"fast"`` is the TPU kernel's fast form, the one its callers pass:
+q pre-scaled by ``scale * log2(e)`` in q's dtype, ``p = exp2(q.k + bias)``
+with no running max and no ``log2(e)`` on the bias, a masked entry exactly
+0, P cast to v's dtype before the PV product, ``l == 0`` rows (a q block
+with count 0, a row that sees nothing) giving 0.  ``"stable"`` (the
+default, the JAX wrapper's): q not pre-scaled, the f32 scores scaled by
+``scale * log2(e)``, the bias added, hidden pairs -1e30, and a running max
+per row with the TPU kernel's ``m_safe``.  Heads whose ``active``
 entry is 0 write zeros: the TPU wrapper's callers pack the routed heads
 first so that whole head groups skip; the port launches over all heads with
 the mask, and each head's output is the same.
 
 On CUDA tensors ``sta_flash_headbatched`` launches ``csrc/sta_batched.cu``
-(bf16, D 64 or 128, blocks any multiple of 8); on CPU tensors it runs the
-plain version ``sta_flash_headbatched_ref``.
+(bf16, D 64 or 128, blocks any multiple of 8): the Hopper path
+(``csrc/attn_sm90.cuh``'s mainloop with the fast softmax and the kv_bias
+slot over the pair-bit tables: wgmma, TMA; counted as ``sta_batched_wgmma``
+too) where ``batched_wgmma_path`` says so (the fast softmax, D = 128, tiles
+of at least 128 tokens: every served geometry), else its mma.sync kernel
+(the stable softmax, D = 64, smaller tiles such as hunyuan-tiny's).  On
+CPU tensors it runs the plain version ``sta_flash_headbatched_ref``.
 """
 
 from __future__ import annotations
@@ -46,6 +51,11 @@ from .flash import LOG2E, BlockTables
 from .flash_manual import _bias_row, _prescale
 
 NEG = -1e30
+WGMMA_TILE = 128  # q rows per CTA and keys per ring slot of the Hopper path
+# the slot list a CTA of the Hopper path keeps in shared memory, 8 bytes a
+# slot (csrc/sta_batched.cu: LIST_MAX = (232,448 - LIST_OFF 165,008 - 1,024
+# alignment slack) // 8)
+LIST_MAX_SLOTS = 8302
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -140,7 +150,7 @@ def sta_flash_headbatched_ref(q, k, v, kv_index, kv_count, active, *, pair_bits=
                               tokens_per_tile: Optional[int] = None, kv_bias=None,
                               scale: Optional[float] = None, block_q: int = 384,
                               block_kv: int = 384, cast_p_to_v_dtype: bool = True,
-                              softmax: str = "fast") -> torch.Tensor:
+                              softmax: str = "stable") -> torch.Tensor:
     """Plain PyTorch version of the kernel, one q block at a time over the
     kv blocks it visits."""
     _check_options(softmax, cast_p_to_v_dtype)
@@ -194,11 +204,85 @@ def sta_flash_headbatched_ref(q, k, v, kv_index, kv_count, active, *, pair_bits=
     return torch.where(a, out, torch.zeros((), dtype=out.dtype, device=dev))
 
 
+def batched_wgmma_path(d: int, block_q: int, block_kv: int, tokens_per_tile: Optional[int],
+                       width: int, *, pair_bits: bool = True,
+                       dtype: torch.dtype = torch.bfloat16, softmax: str = "fast") -> bool:
+    """The rule of sta_batched's Hopper path (``csrc/attn_sm90.cuh`` over the
+    pair-bit tables): the fast softmax, bf16, head dim 128, pair bits over
+    tiles of at least 128 tokens and a multiple of 8 (so that a 128-row CTA
+    and a 128-key slot each cross at most one tile boundary, the key split
+    on a multiple of 8) or no pair bits, at most 32 slots of 128 keys per kv
+    block, and a slot list of ``width`` kv blocks within ``LIST_MAX_SLOTS``.
+    The same rule on both sides: the C entry refuses the Hopper path for
+    anything else."""
+    spb = -(-block_kv // WGMMA_TILE)
+    return (softmax == "fast" and dtype == torch.bfloat16 and d == 128
+            and (not pair_bits or (tokens_per_tile >= WGMMA_TILE and tokens_per_tile % 8 == 0))
+            and spb <= 32 and width * spb <= LIST_MAX_SLOTS)
+
+
+LIVE_BIAS = -1e20  # a bias at or below it masks its key exactly (csrc/sta_batched.cu)
+
+
+def pair_bit_walk(kv_index, kv_count, pair_bits, kv_bias, *, block_q: int, block_kv: int,
+                  tokens_per_tile: Optional[int]) -> list:
+    """The Hopper path's slot lists, as its CTAs build them before their
+    rings start (``PairBitSource::prepare``): one list per CTA of a head
+    (q block ``i``'s CTAs ``i * cpb ..``, ``cpb = ceil(block_q / 128)``),
+    each a list of (first key, nvalid, key split, vis4, full): the 128-key
+    slots of the visited kv blocks in order, those with no pair bit linking
+    the CTA's rows to their keys, or whose keys the bias leaves none of
+    (bias <= ``LIVE_BIAS``), left out.  nvalid counts the slot's keys inside
+    its block; columns below the split are in the slot's first key tile;
+    bit 2 * b + c of vis4 says whether the CTA's row tile b (0: its first,
+    1: its last) sees key tile c; full: every pair of the slot visible.
+    Tables as numpy (1, nq, W) / (1, nq); kv_bias (Skv,) or None."""
+    kv_index = np.asarray(kv_index).reshape(np.asarray(kv_index).shape[-2:])
+    kv_count = np.asarray(kv_count).reshape(-1)
+    words = None if pair_bits is None else (
+        np.asarray(pair_bits).reshape(kv_index.shape).astype(np.int64) & 0xFFFFFFFF)
+    tpt = tokens_per_tile if words is not None else 1 << 30
+    k_sub = block_kv // tpt if words is not None else 1
+    cpb, spb = -(-block_q // WGMMA_TILE), -(-block_kv // WGMMA_TILE)
+    bias = None if kv_bias is None else np.asarray(kv_bias, np.float32).reshape(-1)
+
+    def bit(word, rt, kt):
+        idx = rt * k_sub + kt
+        return bool(idx < 32 and (int(word) >> idx) & 1)
+
+    lists = []
+    for qi in range(kv_count.shape[0]):
+        for chunk in range(cpb):
+            r0 = chunk * WGMMA_TILE
+            rows = min(WGMMA_TILE, block_q - r0)
+            ra, rb = r0 // tpt, (r0 + rows - 1) // tpt
+            slots = []
+            for j in range(int(kv_count[qi])):
+                kvb = int(kv_index[qi, j])
+                for si in range(spb):
+                    n0 = si * WGMMA_TILE
+                    nvalid = min(WGMMA_TILE, block_kv - n0)
+                    kt0 = n0 // tpt
+                    split = min((kt0 + 1) * tpt - n0, nvalid)
+                    vis4, full = 0xF, nvalid == WGMMA_TILE
+                    if words is not None:
+                        w, two = words[qi, j], split < nvalid
+                        a0, b0 = bit(w, ra, kt0), bit(w, rb, kt0)
+                        a1, b1 = two and bit(w, ra, kt0 + 1), two and bit(w, rb, kt0 + 1)
+                        vis4 = a0 | a1 << 1 | b0 << 2 | b1 << 3
+                        full = full and a0 and b0 and (not two or (a1 and b1))
+                    key0 = kvb * block_kv + n0
+                    if vis4 and (bias is None or (bias[key0:key0 + nvalid] > LIVE_BIAS).any()):
+                        slots.append((key0, nvalid, split, vis4, full))
+            lists.append(slots)
+    return lists
+
+
 def _sta_batched_fn():
     fn = _build.load("sta_batched").vorta_sta_batched_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 12 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 9 + [i] * 12 + [ctypes.c_float, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -218,10 +302,28 @@ def sta_flash_headbatched(
     block_q: int = 384,
     block_kv: int = 384,
     cast_p_to_v_dtype: bool = True,
-    softmax: str = "fast",
+    softmax: str = "stable",
 ) -> torch.Tensor:
     """Block-sparse STA over head-shared tables with sub-tile pair bits; on
     CUDA bf16 q/k/v, D 64 or 128, blocks multiples of 8."""
+    return _sta_batched(q, k, v, kv_index, kv_count, active, pair_bits=pair_bits,
+                        tokens_per_tile=tokens_per_tile, kv_bias=kv_bias, scale=scale,
+                        block_q=block_q, block_kv=block_kv,
+                        cast_p_to_v_dtype=cast_p_to_v_dtype, softmax=softmax, hopper_ok=True)
+
+
+def sta_flash_headbatched_mma_sync(q, k, v, kv_index, kv_count, active, **kw) -> torch.Tensor:
+    """``sta_flash_headbatched`` on the mma.sync kernel whatever the rule
+    says: the card's yardstick beside the Hopper path at the same call
+    (``chip_smoke.py`` times both), counted in ``sta_batched`` only."""
+    return _sta_batched(q, k, v, kv_index, kv_count, active, hopper_ok=False, **kw)
+
+
+def _sta_batched(q, k, v, kv_index, kv_count, active, *, pair_bits=None,
+                 tokens_per_tile: Optional[int] = None, kv_bias=None,
+                 scale: Optional[float] = None, block_q: int = 384, block_kv: int = 384,
+                 cast_p_to_v_dtype: bool = True, softmax: str = "stable",
+                 hopper_ok: bool = True) -> torch.Tensor:
     _check_options(softmax, cast_p_to_v_dtype)
     if q.device.type == "cpu":
         return sta_flash_headbatched_ref(
@@ -249,17 +351,25 @@ def sta_flash_headbatched(
     bias = None if kv_bias is None else _bias_row(kv_bias, skv).contiguous()
     _build.require_cuda(q, bias)
     stable = softmax == "stable"
-    qs = (q if stable else _prescale(q, scale)).contiguous()
-    k, v = k.contiguous(), v.contiguous()
-    out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     tpt, _, k_sub = sub if sub is not None else (0, 0, 0)
+    width = kv_index.shape[2]
+    hopper = hopper_ok and batched_wgmma_path(d, block_q, block_kv, tpt, width,
+                                              pair_bits=sub is not None, dtype=q.dtype,
+                                              softmax=softmax)
+    qs = (q if stable else _prescale(q, scale)).contiguous()
+    qs, k, v, bias = (_build.aligned16(x) for x in (qs, k.contiguous(), v.contiguous(), bias))
+    out = torch.empty(q.shape, dtype=v.dtype, device=dev)
+    live = (torch.empty((skv // block_kv,), dtype=torch.int32, device=dev)
+            if hopper and bias is not None else None)
     err = _sta_batched_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_index.data_ptr(),
         kv_count.data_ptr(), _build.ptr(pair_bits), _build.ptr(bias), active.data_ptr(),
-        b, h, sq, skv, d, sq // block_q, kv_index.shape[2], block_q, block_kv, tpt, k_sub,
-        int(stable), float(scale * LOG2E), _build.stream_ptr(dev))
+        b, h, sq, skv, d, sq // block_q, width, block_q, block_kv, tpt, k_sub,
+        int(stable), float(scale * LOG2E), int(hopper), _build.ptr(live), _build.stream_ptr(dev))
     _build.check(err, "sta_batched")
     _build.launches["sta_batched"] += 1
+    if hopper:
+        _build.launches["sta_batched_wgmma"] += 1
     if stable:
         _build.launches["sta_batched_stable"] += 1
     return out

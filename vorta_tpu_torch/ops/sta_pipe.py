@@ -201,17 +201,19 @@ def sta_wgmma_path(d: int, latent_shape: Shape3, tile: Shape3, window: Shape3 = 
 
 @functools.lru_cache(maxsize=64)
 def window_walk(latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3),
-                text_len: int = 0) -> np.ndarray:
+                text_len: int = 0, box: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """The Hopper path's slot table, the same for every CTA of a call:
     (n_slots, ``WALK_COLS``) int32, one row per 128-key ring slot in the
     order the kernel visits them, [nvalid, first text key (-1: a window
     slot), boxes, 0, (dt, dh) of each box from the window origin, zeros].
-    Window slots first: the window's bt x bh runs of bw tokens, box_h runs a
-    box (``walk_box``) in (t, h) order, ``WALK_BN // (bw * box_h)`` boxes a
-    slot, box i of a slot on rows i * bw * box_h.., so the slots hold the
-    window's keys in ``_window_keys``' order; then the text tail's keys, 128
-    a slot (the last cut at text_len % 128).  Read-only: it is cached."""
-    box = walk_box(latent_shape, tile, window)
+    Window slots first: the window's bt x bh runs, box_h runs a box of
+    box_w x box_h tokens (``box``, by default ``walk_box``: box_w = bw, the
+    run; sta_window's padded boxes read box_w > bw tokens a run) in (t, h)
+    order, ``WALK_BN // (box_w * box_h)`` boxes a slot, box i of a slot on
+    rows i * box_w * box_h.. (nvalid counts the padding), so the slots hold
+    the window's keys in ``_window_keys``' order; then the text tail's keys,
+    128 a slot (the last cut at text_len % 128).  Read-only: it is cached."""
+    box = walk_box(latent_shape, tile, window) if box is None else box
     if box is None:
         raise ValueError(f"no window box of tile {tile}, window {window} on {latent_shape} "
                          "lands on 8-row multiples of a slot")
@@ -233,8 +235,9 @@ def window_walk(latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3),
 
 @functools.lru_cache(maxsize=32)
 def _walk_on(latent_shape: Shape3, tile: Shape3, window: Shape3, text_len: int,
-             device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(window_walk(latent_shape, tile, window, text_len).copy()).to(device)
+             device: torch.device, box: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    walk = window_walk(latent_shape, tile, window, text_len, box)
+    return torch.from_numpy(walk.copy()).to(device)
 
 
 def _text_tail(text_k, text_v, text_bias, q: torch.Tensor):

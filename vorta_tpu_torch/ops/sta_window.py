@@ -22,21 +22,39 @@ gates, which the routed and joint dispatches use to choose as the JAX
 package does.
 
 On CUDA tensors ``sta_window_attention`` launches ``csrc/sta_window.cu``
-(bf16, D 64 or 128); on CPU tensors it runs the plain version
+(bf16, D 64 or 128): the Hopper path (``csrc/attn_sm90.cuh``'s mainloop
+with its online softmax over sta_pipe's window source: wgmma, the window's
+runs loaded by TMA into 128-key slots; counted as ``sta_window_wgmma``
+too) where ``window_wgmma_path`` says so (D = 128, bf16, a window box that
+lands, padded where the runs cannot: every served geometry, with or
+without the text tail), with the slot table of ``ops/sta_pipe.py:
+window_walk`` over ``window_box``; else its mma.sync kernel (D = 64, the
+other windows).  On CPU tensors it runs the plain version
 ``sta_window_attention_ref``, which ops/sta_row.py shares.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
+from ..geometry import window_starts  # noqa: F401  (public here, as in the JAX package)
 from . import _build
 from .flash import LOG2E
 from .layout import tile_sequence, untile_sequence
-from .sta_pipe import _text_tail, _window_keys
+from .sta_pipe import (
+    WALK_BN,
+    WALK_MAX_SLOTS,
+    _extent,
+    _text_tail,
+    _walk_on,
+    _window_keys,
+    walk_box,
+    window_walk,
+)
 
 Shape3 = Tuple[int, int, int]
 
@@ -56,6 +74,47 @@ def prefer_window_dense(latent_shape: Shape3, tile: Shape3) -> bool:
     tokens."""
     tt, th, tw = tile
     return supports_window_dense(latent_shape, tile) and tt * th * tw >= 192
+
+
+# 8-column blocks of a padded run that the Hopper kernel is built for
+# (csrc/sta_window.cu: sta_window_sm90_kernel<RB>): runs of 25 to 31 tokens,
+# the served (4, 9, 10) tile's 30
+PAD_RUN_BLOCKS = (4,)
+
+
+@functools.lru_cache(maxsize=64)
+def window_box(latent_shape: Shape3, tile: Shape3,
+               window: Shape3 = (3, 3, 3)) -> Optional[Tuple[int, int]]:
+    """(box_w, box_h) of the Hopper path's TMA box: sta_pipe's ``walk_box``
+    where one lands; else the window's runs of bw tokens padded to box_w =
+    bw rounded up to a multiple of 8 (the padded columns masked), box_h of
+    them a box (dividing the window's rows, box_w * box_h at most
+    ``WALK_BN``): of those, the box whose slots hold the most window keys,
+    then the taller.  None where neither fits (box_w / 8 not in
+    ``PAD_RUN_BLOCKS``: the kernel is built for the served padding only)."""
+    box = walk_box(latent_shape, tile, window)
+    if box is not None:
+        return box
+    _, bh, bw = _extent(latent_shape, tile, window)
+    pw = -(-bw // 8) * 8
+    if pw // 8 not in PAD_RUN_BLOCKS:
+        return None
+    best = max(((WALK_BN // (pw * hb)) * hb * bw, hb) for hb in range(1, bh + 1)
+               if bh % hb == 0 and pw * hb <= WALK_BN)
+    return pw, best[1]
+
+
+def window_wgmma_path(d: int, latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3), *,
+                      dtype: torch.dtype = torch.bfloat16, text_len: int = 0) -> bool:
+    """The rule of sta_window's Hopper path: head dim 128, bf16, a window
+    box (``window_box``), a text tail of a multiple of 8 keys, and a slot
+    table of at most ``WALK_MAX_SLOTS`` rows, which the kernel keeps in
+    shared memory.  The same rule on both sides: the C entry refuses the
+    Hopper path for anything else."""
+    shape3, tile3, window3 = tuple(latent_shape), tuple(tile), tuple(window)
+    box = window_box(shape3, tile3, window3)
+    return (d == 128 and dtype == torch.bfloat16 and box is not None and text_len % 8 == 0
+            and window_walk(shape3, tile3, window3, text_len, box).shape[0] <= WALK_MAX_SLOTS)
 
 
 def check_window_dense(q, k, v, latent_shape: Shape3) -> None:
@@ -106,9 +165,11 @@ def sta_window_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Sha
 
 
 def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
-                        window: Shape3, scale: float, text_k, text_v, text_bias) -> torch.Tensor:
+                        window: Shape3, scale: float, text_k, text_v, text_bias,
+                        hopper_ok: bool = True) -> torch.Tensor:
     """Checks and launches ``csrc/<kernel>.cu`` (sta_window or sta_row, one C
-    interface) on CUDA tensors."""
+    interface; sta_window's ends with its Hopper path's walk, box and choice)
+    on CUDA tensors."""
     _build.forward_only(f"{kernel}_attention", q, k, v, text_k, text_v)
     dev = _build.require_cuda(q, k, v, text_k, text_v, text_bias)
     if any(x is not None and x.dtype != torch.bfloat16 for x in (q, k, v, text_k, text_v)):
@@ -122,19 +183,34 @@ def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, t
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
     lib = _build.load(kernel)
     fn = getattr(lib, f"vorta_{kernel}_fwd_bf16")
+    walked = kernel == "sta_window"
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [ctypes.c_float] + [i] * 13 + [p]
+        walk_types = [p] + [i] * 5 if walked else []
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [i] * 13 + walk_types + [p]
         fn.restype = ctypes.c_int
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    text = [None if x is None else x.contiguous() for x in (text_k, text_v, text_bias)]
+    lt = 0 if text_k is None else text_k.shape[2]
+    shape3, tile3, window3 = tuple(latent_shape), tuple(tile), tuple(window)
+    hopper = walked and hopper_ok and window_wgmma_path(d, shape3, tile3, window3, dtype=q.dtype,
+                                                        text_len=lt)
+    walk_args = []
+    if walked:
+        box = window_box(shape3, tile3, window3) if hopper else (0, 0)
+        walk = _walk_on(shape3, tile3, window3, lt, dev, box) if hopper else None
+        run_w = _extent(shape3, tile3, window3)[2]
+        walk_args = [_build.ptr(walk), 0 if walk is None else walk.shape[0], *box, run_w,
+                     int(hopper)]
+    q, k, v = (_build.aligned16(x.contiguous()) for x in (q, k, v))
+    text = [None if x is None else _build.aligned16(x.contiguous())
+            for x in (text_k, text_v, text_bias)]
     out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
-             *(_build.ptr(x) for x in text), scale * LOG2E,
-             0 if text_k is None else text_k.shape[2], b, h, *latent_shape, d, *tile, *window,
-             _build.stream_ptr(dev))
+             *(_build.ptr(x) for x in text), scale * LOG2E, lt, b, h, *latent_shape, d, *tile,
+             *window, *walk_args, _build.stream_ptr(dev))
     _build.check(err, kernel)
     _build.launches[kernel] += 1
+    if hopper:
+        _build.launches[f"{kernel}_wgmma"] += 1
     return out
 
 
@@ -155,6 +231,22 @@ def sta_window_attention(
 ) -> torch.Tensor:
     """Window-dense STA with the stable softmax, with the joint text tail
     where ``text_k`` and ``text_v`` are given."""
+    return _sta_window(q, k, v, active, latent_shape=latent_shape, tile=tile, window=window,
+                       scale=scale, text_k=text_k, text_v=text_v, text_bias=text_bias,
+                       cast_p_to_v_dtype=cast_p_to_v_dtype, hopper_ok=True)
+
+
+def sta_window_attention_mma_sync(q, k, v, active, **kw) -> torch.Tensor:
+    """``sta_window_attention`` on the mma.sync kernel whatever the rule
+    says: the card's yardstick beside the Hopper path at the same call
+    (``chip_smoke.py`` times both), counted in ``sta_window`` only."""
+    return _sta_window(q, k, v, active, hopper_ok=False, **kw)
+
+
+def _sta_window(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
+                window: Shape3 = (3, 3, 3), scale: Optional[float] = None, text_k=None,
+                text_v=None, text_bias=None, cast_p_to_v_dtype: bool = True,
+                hopper_ok: bool = True) -> torch.Tensor:
     if not cast_p_to_v_dtype:
         raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
                                   "item 11: P is always cast to v's dtype here")
@@ -168,4 +260,4 @@ def sta_window_attention(
               text_v=text_v, text_bias=text_bias)
     if q.device.type == "cpu":
         return sta_window_attention_ref(q, k, v, active, **kw)
-    return launch_window_dense("sta_window", q, k, v, active, **kw)
+    return launch_window_dense("sta_window", q, k, v, active, hopper_ok=hopper_ok, **kw)
