@@ -6,10 +6,11 @@
 Phases, each raising on failure:
   1. device: torch / CUDA versions, the card's name and power limit; build
      the CUDA kernels from csrc/ (one nvcc per source, in parallel); ptxas's
-     registers and spills of every kernel, and of the Hopper path's seven
+     registers and spills of every kernel, and of the Hopper path's nine
      instantiations (csrc/attn_sm90.cuh: flash's, flash_manual's bf16 and
      int8, sta_pipe's window walk, sta_window's two (runs padded to 32
-     tokens or not), sta_batched's pair-bit walk; none may
+     tokens or not), sta_batched's pair-bit walk; and the backward's dq and
+     dk/dv kernels of csrc/flash_bwd.cu on its pieces; none may
      spill) with its dynamic shared memory, and of the norm's warp-per-row
      kernels (no spills either).  Every flash, flash_manual, sta_pipe,
      sta_window and sta_batched row reports its achieved TFLOP/s, its share
@@ -146,11 +147,12 @@ HunyuanVideo-13B (its phases free the Wan models first):
      peak memory, and a 2-block check, card vs CPU on the same stack.
 Every main path's launch counts are exact, the Hopper path's subset
 counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
-sta_window_wgmma, sta_batched_wgmma) included: on the served paths every
-flash, flash_manual, sta_pipe, sta_window and sta_batched launch takes that
-path (flash_manual's int8 QK mode too; phases 6f and cf for the two
-fallbacks), in training all but the STA expert's (96- and 360-token
-tiles); sta_pipe's int8 QK mode, stable softmax and variants and
+sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma)
+included: on the served paths every flash, flash_manual, sta_pipe,
+sta_window and sta_batched launch takes that path (flash_manual's int8 QK
+mode too; phases 6f and cf for the two fallbacks), in training every
+flash, dq and dk/dv launch but the STA expert's (96- and 360-token tiles);
+sta_pipe's int8 QK mode, stable softmax and variants and
 sta_batched's stable softmax (phases 2q, 2o) stay on their mma.sync
 kernels, counted there.  Phase 6 counts its forwards' launches too.
 Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
@@ -161,7 +163,11 @@ Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
      expert's shape at the bench router's geometry ((1,12,36000,128),
      blocks 360 = 8 x 45) and at 24-token blocks (8 x 3, tile (2, 3, 4) on
      (8, 30, 52)), with SDPA's backward (forward + backward, minus forward)
-     as the library yardstick.
+     as the library yardstick.  FULL, LOWRES and the cross-attention take
+     the backward's Hopper kernels (counted as flash_dq_wgmma /
+     flash_dkv_wgmma); there the mma.sync kernels are held against the
+     plain version too and timed beside them in turns (Hopper, mma.sync,
+     Hopper), each with TFLOP/s and share of the bound.
   8. gradient check: one router train step of a 2-block Wan-1.3B-width
      model on the card (bf16, kernels) against the CPU (f32, plain
      versions), same weights and draws: loss and router gradients; again at
@@ -298,7 +304,7 @@ def ptxas_entries(logs: dict, entry: str) -> list:
 
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and report
-    ptxas's registers and spills; the Hopper path's four instantiations and
+    ptxas's registers and spills; the Hopper path's nine instantiations and
     the norm's warp-per-row kernels must not spill."""
     from vorta_tpu_torch.ops import _build
 
@@ -328,19 +334,22 @@ def build_kernels() -> None:
     # sta_batched's CTA holds its slot list: 8 bytes for each of width x 8 slots
     # at HunyuanVideo (2, 9, 8) (46 kv blocks of 1,008 keys)
     batched_smem = _build.load("sta_batched").vorta_sta_batched_sm90_smem_bytes(46 * 8)
+    bwd_smem = _build.load("flash_bwd").vorta_flash_bwd_sm90_smem_bytes
     for src, entry, regs, spill in hopper:
         extra = {"sta_pipe": sta_smem, "sta_window": sta_smem,
                  "sta_batched": batched_smem}.get(src, smem)
+        if src == "flash_bwd":
+            extra = bwd_smem(int("flash_dkv_sm90_kernel" in entry))
         log(f"ptxas Hopper path {src} {entry}: {regs}; {spill}; dynamic shared memory "
             f"{extra} bytes")
-    want = ["flash", "flash_manual", "flash_manual", "sta_batched", "sta_pipe", "sta_window",
-            "sta_window"]
+    want = ["flash", "flash_bwd", "flash_bwd", "flash_manual", "flash_manual", "sta_batched",
+            "sta_pipe", "sta_window", "sta_window"]
     if sorted(src for src, *_ in hopper) != want or any(
             spill is None or "0 bytes spill stores, 0 bytes spill loads" not in spill
             for *_, spill in hopper):
-        raise RuntimeError(f"the Hopper path's instantiations: {hopper} (flash's, "
-                           "flash_manual's bf16 and int8, sta_pipe's, sta_window's two, "
-                           "sta_batched's; no spills)")
+        raise RuntimeError(f"the Hopper path's instantiations: {hopper} (flash's, the "
+                           "backward's dq and dk/dv, flash_manual's bf16 and int8, "
+                           "sta_pipe's, sta_window's two, sta_batched's; no spills)")
     rows = ptxas_entries(_build.ptxas_logs, "fused_norm_rows_kernel")
     log(f"ptxas fused_norm warp-per-row kernels: {len(rows)} instantiations, registers "
         f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
@@ -2791,13 +2800,20 @@ def visible_pairs(c: dict) -> int:
 
 
 def check_training_kernels(torch, card: str) -> list:
-    """The forward's lse and the dq / dk/dv kernels at the trainer's four
-    shapes (12 heads x 128, bf16), against their plain versions."""
+    """The forward's lse and the dq / dk/dv kernels at the trainer's shapes
+    (12 heads x 128, bf16), against their plain versions.  Where the
+    backward's rule holds (FULL, LOWRES, cross) the Hopper kernels run,
+    counted, and the mma.sync kernels are held and timed beside them in
+    turns (Hopper, mma.sync, Hopper); SDPA's backward is the library
+    yardstick."""
     import torch.nn.functional as F
 
+    from vorta_tpu_torch.ops import _build
     from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, sparse_flash_attention_ref
     from vorta_tpu_torch.ops.flash_bwd import (
+        bwd_wgmma_path,
         flash_backward,
+        flash_backward_mma_sync,
         flash_backward_ref,
         transpose_tables,
     )
@@ -2835,13 +2851,31 @@ def check_training_kernels(torch, card: str) -> list:
             raise RuntimeError(f"flash lse {name}: kernel disagrees with its plain version")
         del want_out, want_lse
         bkw = dict(kv_valid_len=kvv, **kw)
-        bwd = lambda **o: flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, **bkw, **o)  # noqa: E731
+        args = (q, k, v, out, lse, dout, ki, kc, qi, qc)
+        bwd = lambda **o: flash_backward(*args, **bkw, **o)  # noqa: E731
+        bwd_mma = lambda **o: flash_backward_mma_sync(*args, **bkw, **o)  # noqa: E731
         bwd_plain = lambda: flash_backward_ref(q, k, v, out, lse, dout, ki, kc, **bkw)  # noqa: E731
-        got, want = bwd(), bwd_plain()
-        errs = [compare(torch, f"flash backward d{n} {name}", a, w)
+        hopper = bwd_wgmma_path(d, c["bq"], c["bkv"])
+        _build.reset_launches()
+        got = bwd()
+        torch.cuda.synchronize()
+        took = (_build.launches["flash_dq_wgmma"], _build.launches["flash_dkv_wgmma"])
+        if took != (int(hopper), int(hopper)):
+            raise RuntimeError(f"flash backward {name}: Hopper-path launches {took}, "
+                               f"want {(int(hopper),) * 2}")
+        want = bwd_plain()
+        errs = [compare(torch, f"flash backward d{n} {name}"
+                        f" ({'Hopper' if hopper else 'mma.sync'} kernels)", a, w)
                 for n, a, w in zip(("q", "k", "v"), got, want)]
         if got[1][:, :, kvv:].any() or got[2][:, :, kvv:].any():
             raise RuntimeError(f"flash backward {name}: padded kv rows got non-zero dk / dv")
+        if hopper:  # the mma.sync kernels, the yardstick, on the same inputs
+            old = bwd_mma()
+            for n, a, w, o in zip(("q", "k", "v"), got, want, old):
+                compare(torch, f"flash backward d{n} {name} (mma.sync kernels)", o, w)
+                log(f"flash backward d{n} {name}: Hopper vs mma.sync kernels, worst ratio "
+                    f"{worst_ratio(torch, a, o):.4f}")
+            del old
         del got, want
         torch.cuda.empty_cache()
 
@@ -2877,14 +2911,26 @@ def check_training_kernels(torch, card: str) -> list:
         res["lse"][name] = dict(ms=time_ms(torch, fwd, 10), plain_ms=time_ms(torch, fwd_plain, 2, 1),
                                 library_ms=lib_fwd, bound_ms=fl_ms, bound_by=fl_by,
                                 max_abs_err=max(err, lse_err.max().item()))
-        res["dq"][name] = dict(ms=time_ms(torch, lambda: bwd(need_dkv=False), 10),
-                               plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=dq_ms,
-                               bound_by=dq_by, max_abs_err=errs[0])
-        res["dkv"][name] = dict(ms=time_ms(torch, lambda: bwd(need_dq=False), 10),
-                                plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=dkv_ms,
-                                bound_by=dkv_by, max_abs_err=max(errs[1:]))
+        for kind, alone, b_ms, b_by, err in (("dq", "need_dkv", dq_ms, dq_by, errs[0]),
+                                              ("dkv", "need_dq", dkv_ms, dkv_by, max(errs[1:]))):
+            # in turns, in one call: the kernel, the mma.sync yardstick, the kernel
+            first = time_ms(torch, lambda: bwd(**{alone: False}), 10)
+            mma_ms = time_ms(torch, lambda: bwd_mma(**{alone: False}), 10) if hopper else None
+            again = time_ms(torch, lambda: bwd(**{alone: False}), 10) if hopper else first
+            res[kind][name] = dict(ms=(first + again) / 2, path="hopper" if hopper else "mma_sync",
+                                   plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=b_ms,
+                                   bound_by=b_by, max_abs_err=err)
+            if hopper:
+                res[kind][name].update(mma_sync_ms=mma_ms,
+                                       mma_sync_bound_share=b_ms / mma_ms,
+                                       mma_sync_over_hopper=mma_ms / res[kind][name]["ms"])
         for kind, per_pair in (("lse", 4.0), ("dq", 6.0), ("dkv", 8.0)):
             log(f"{kind} {name}: {with_rate(res[kind][name], per_pair * pairs * d)}")
+        if hopper:
+            both = res["dq"][name]["ms"] + res["dkv"][name]["ms"]
+            log(f"backward {name}: dq + dk/dv {both:.3f} ms on the Hopper kernels (mma.sync "
+                f"{res['dq'][name]['mma_sync_ms'] + res['dkv'][name]['mma_sync_ms']:.3f}), "
+                f"SDPA's backward {lib_bwd if lib_bwd is None else f'{lib_bwd:.3f}'} ms")
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
 
@@ -2967,12 +3013,17 @@ def train_launches(kernels, num_layers: int) -> dict:
         dk/dv x 3 (the experts); the student's head: 1 norm.
       The Hopper path takes every flash launch but the STA expert's (its
       96- and 360-token tiles stay on mma.sync): the teacher's 2, and FULL,
-      LOWRES and cross of each student forward."""
+      LOWRES and cross of each student forward; the backward's rule is the
+      forward's, so every dq and dk/dv launch but the STA expert's too:
+      block 0's cross dq, then per block FULL, LOWRES and cross dq and FULL
+      and LOWRES dk/dv."""
     n = num_layers
     return {**dict.fromkeys(kernels, 0), "flash": 2 * n + 2 * 4 * n,
             "flash_wgmma": 2 * n + 2 * 3 * n,
             "flash_lse": 2 * (1 + 4 * (n - 1)), "flash_dq": 1 + 4 * (n - 1),
-            "flash_dkv": 3 * (n - 1), "fused_norm": 2 * n + 1 + 2 * 2 * n + 1, "prologue": n}
+            "flash_dkv": 3 * (n - 1), "flash_dq_wgmma": 1 + 3 * (n - 1),
+            "flash_dkv_wgmma": 2 * (n - 1), "fused_norm": 2 * n + 1 + 2 * 2 * n + 1,
+            "prologue": n}
 
 
 def run_train_main_path(torch, card: str):

@@ -45,7 +45,12 @@ its probe (one tile's two products against torch.matmul), count-0 rows
 beside full ones, per-head and shared tables, kv_valid_len tails inside a
 128-key sub-tile and on its edge, kv_bias with -1e30 columns, batch 2, the
 lse sentinel, blocks 2048 x 512 and 256 x 1024, the backward kernels fed
-the new forward's lse, and which launches take the path.  Tolerances: 1e-5 x max
+the new forward's lse, and which launches take the path; the backward's
+Hopper kernels against the plain version and the mma.sync kernels at
+blocks 128 / 1024 / 2048 x 512, kv tails inside a 128-key slot, kv tiles
+wholly past the tail, a kv block no q block visits and an empty q block
+(exact zeros), need_dq / need_dkv alone (bit for bit), and the rule's
+split on the card.  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -1160,19 +1165,23 @@ def test_flash_backward_kernels_match_plain(card, d, kind, bq, bkv, sq, skv, val
     assert (_build.launches["flash_dq"], _build.launches["flash_dkv"]) == (1, 0)
 
 
+@pytest.mark.parametrize("block", [64, 128])
 @pytest.mark.parametrize("kv_grad", [True, False])
-def test_sparse_attention_grads_on_card_match_cpu(card, kv_grad):
+def test_sparse_attention_grads_on_card_match_cpu(card, kv_grad, block):
     """make_sparse_attention's autograd on the card (bf16, kernels) against
     the CPU (f32, plain versions): rel L2 below 0.02 (bf16 inputs and
     outputs, ds and p rounded to bf16).  Without grad on k and v (the
-    cross-attention's frozen text) the dk/dv kernel is not launched."""
+    cross-attention's frozen text) the dk/dv kernel is not launched.
+    Blocks of 128 take the Hopper kernels, forward and backward; blocks of
+    64 the mma.sync ones."""
     from vorta_tpu_torch.ops.flash import make_sparse_attention
 
     tab = tables_from_block_mask(np.array([[1, 1, 0, 0], [0, 1, 1, 0], [1, 0, 1, 1],
                                            [0, 0, 0, 0]], bool))
-    attn = make_sparse_attention(tab, n_kv_blocks=4, block_q=64, block_kv=64, kv_valid_len=230)
+    attn = make_sparse_attention(tab, n_kv_blocks=4, block_q=block, block_kv=block,
+                                 kv_valid_len=230 * block // 64)
     gen = torch.Generator().manual_seed(8)
-    q, k, v, gout = (torch.randn((1, 2, 256, 128), generator=gen) for _ in range(4))
+    q, k, v, gout = (torch.randn((1, 2, 4 * block, 128), generator=gen) for _ in range(4))
 
     def grads(dev, dtype):
         qq, kk, vv = (t.to(dev, dtype).requires_grad_(n)
@@ -1185,6 +1194,9 @@ def test_sparse_attention_grads_on_card_match_cpu(card, kv_grad):
     got = grads(card, torch.bfloat16)
     assert _build.launches["flash_lse"] == 1 and _build.launches["flash_dq"] == 1
     assert _build.launches["flash_dkv"] == (1 if kv_grad else 0)
+    hopper = int(block == 128)
+    assert (_build.launches["flash_wgmma"], _build.launches["flash_dq_wgmma"],
+            _build.launches["flash_dkv_wgmma"]) == (hopper, hopper, hopper * kv_grad)
     want = grads("cpu", torch.float32)
     assert len(got) == len(want) == (3 if kv_grad else 1)
     for a, w in zip(got, want):
@@ -1686,10 +1698,126 @@ def test_flash_backward_on_hopper_forward_lse(card, kind, bq, bkv, sq, skv, vali
     _, want_lse = sparse_flash_attention_ref(q, k, v, ki, kc, kv_valid_len=valid,
                                              return_lse=True, **kw)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    _build.reset_launches()
     got = flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, kv_valid_len=valid or skv, **kw)
+    assert (_build.launches["flash_dq_wgmma"], _build.launches["flash_dkv_wgmma"]) == (1, 1)
     want = flash_backward_ref(q, k, v, out, lse, dout, ki, kc, kv_valid_len=valid or skv, **kw)
     for a, w in zip(got, want):
         _close(a, w)
+
+
+def _bwd_case(card, kind, bq, bkv, sq, skv, valid, seed):
+    """Inputs, tables (forward and transposed) and the Hopper forward's out
+    and lse for a backward test; "unvisited": q block 0 visits nothing and
+    no q block visits the last kv block but one."""
+    from vorta_tpu_torch.ops.flash_bwd import transpose_tables
+
+    q, k, v, dout = _bwd_inputs(card, 2, 3, sq, skv, 128, seed)
+    nq, nkv = sq // bq, skv // bkv
+    if kind == "unvisited":
+        mask = np.random.default_rng(seed).random((1, nq, nkv)) < 0.7
+        mask[0, 0, :] = False
+        mask[0, 1:, 0] = True
+        mask[0, :, nkv - 2] = False
+        tab = tables_from_block_mask(mask)
+    else:
+        tab = _hopper_tables(kind, 1, nq, nkv)
+    ki, kc = tab.on(card)
+    qi, qc = (torch.from_numpy(a).to(card)
+              for a in transpose_tables(tab.kv_index, tab.kv_count, nkv))
+    kw = dict(scale=1.1 * 128**-0.5, block_q=bq, block_kv=bkv)
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, kv_valid_len=valid, return_lse=True,
+                                          **kw)
+    return (q, k, v, out, lse, dout, ki, kc, qi, qc), dict(kv_valid_len=valid or skv, **kw)
+
+
+BWD_HOPPER_CASES = [  # kind, block_q, block_kv, sq, skv, kv_valid_len
+    ("dense", 128, 128, 512, 512, 450),        # tail inside the last 128-key slot
+    ("dense", 1024, 1024, 2048, 2048, 1100),   # FULL's blocks: 7 kv tiles wholly past the tail
+    ("dense", 2048, 512, 4096, 512, 300),      # cross-attention's blocks, a text tail
+    ("unvisited", 1024, 1024, 4096, 4096, None),  # an empty q block, an unvisited kv block
+    ("unvisited", 128, 256, 1024, 2048, 1900),
+    ("shared", 256, 256, 1024, 1024, 1000),
+]
+
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", BWD_HOPPER_CASES)
+def test_flash_backward_hopper_matches_plain_and_mma_sync(card, kind, bq, bkv, sq, skv, valid):
+    """The Hopper dq and dk/dv kernels (batch 2, 3 heads) against
+    flash_backward_ref and against the mma.sync kernels on the same inputs,
+    each within the bf16 tolerance; padded kv rows, kv tiles wholly past the
+    tail and a kv block no q block visits get exactly zero dk and dv, a q
+    block that sees nothing exactly zero dq.  Counted once each on the
+    Hopper path; the mma.sync run in the totals only."""
+    from vorta_tpu_torch.ops.flash_bwd import (
+        flash_backward,
+        flash_backward_mma_sync,
+        flash_backward_ref,
+    )
+
+    args, kw = _bwd_case(card, kind, bq, bkv, sq, skv, valid, 41)
+    _build.reset_launches()
+    got = flash_backward(*args, **kw)
+    assert (_build.launches["flash_dq"], _build.launches["flash_dq_wgmma"],
+            _build.launches["flash_dkv"], _build.launches["flash_dkv_wgmma"]) == (1, 1, 1, 1)
+    want = flash_backward_ref(*args[:8], **kw)
+    _build.reset_launches()
+    old = flash_backward_mma_sync(*args, **kw)
+    assert (_build.launches["flash_dq"], _build.launches["flash_dq_wgmma"],
+            _build.launches["flash_dkv"], _build.launches["flash_dkv_wgmma"]) == (1, 0, 1, 0)
+    for a, w, o in zip(got, want, old):
+        _close(a, w)
+        _close(a, o)
+    if valid:
+        assert not got[1][:, :, valid:].any() and not got[2][:, :, valid:].any()
+    if kind != "dense":
+        assert not got[0][:, :, :bq].any()
+    if kind == "unvisited":
+        rows = slice((skv // bkv - 2) * bkv, (skv // bkv - 1) * bkv)
+        assert not got[1][:, :, rows].any() and not got[2][:, :, rows].any()
+
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [BWD_HOPPER_CASES[1], BWD_HOPPER_CASES[4]])
+def test_flash_backward_hopper_need_dq_or_dkv_alone(card, kind, bq, bkv, sq, skv, valid):
+    """need_dkv=False launches the Hopper dq kernel alone, need_dq=False the
+    dk/dv kernel alone; each gives bit for bit what the call of both gives
+    (one writer per output row, no atomics)."""
+    from vorta_tpu_torch.ops.flash_bwd import flash_backward
+
+    args, kw = _bwd_case(card, kind, bq, bkv, sq, skv, valid, 42)
+    both = flash_backward(*args, **kw)
+    _build.reset_launches()
+    dq, dk, dv = flash_backward(*args, need_dkv=False, **kw)
+    assert dk is None and dv is None and torch.equal(dq, both[0])
+    assert (_build.launches["flash_dq_wgmma"], _build.launches["flash_dkv"]) == (1, 0)
+    _build.reset_launches()
+    dq, dk, dv = flash_backward(*args, need_dq=False, **kw)
+    assert dq is None and torch.equal(dk, both[1]) and torch.equal(dv, both[2])
+    assert (_build.launches["flash_dq"], _build.launches["flash_dkv_wgmma"]) == (0, 1)
+
+
+def test_flash_backward_rule_leaves_the_rest_on_mma_sync(card):
+    """D = 64 and blocks 128 does not divide (96, 360, 24: the STA tiles; 64)
+    run the mma.sync kernels, counted in the totals only; D = 128 with
+    blocks of 128 the Hopper kernels."""
+    from vorta_tpu_torch.ops.flash_bwd import flash_backward, transpose_tables
+
+    tab = dense_tables(4, 4)
+    qi, qc = (torch.from_numpy(a).to(card)
+              for a in transpose_tables(tab.kv_index, tab.kv_count, 4))
+    ki, kc = tab.on(card)
+    for d, block, hopper in [(128, 128, 1), (64, 128, 0), (128, 96, 0), (128, 64, 0),
+                             (128, 360, 0), (128, 24, 0)]:
+        n = 4 * block
+        q, k, v, dout = _bwd_inputs(card, 1, 2, n, n, d, 43)
+        kw = dict(scale=d**-0.5, block_q=block, block_kv=block)
+        out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, return_lse=True, **kw)
+        _build.reset_launches()
+        flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, kv_valid_len=n, **kw)
+        torch.cuda.synchronize()
+        assert (_build.launches["flash_dq"], _build.launches["flash_dkv"],
+                _build.launches["flash_dq_wgmma"], _build.launches["flash_dkv_wgmma"]) == (
+            1, 1, hopper, hopper), (d, block)
 
 
 # --- sta_pipe's Hopper path (csrc/attn_sm90.cuh over the window) --------------------

@@ -68,8 +68,8 @@ TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
 
 GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("flash", ("flash_fwd_kernel", "flash_sm90_kernel")),
-    ("flash_dq", ("flash_dq_kernel",)),
-    ("flash_dkv", ("flash_dkv_kernel",)),
+    ("flash_dq", ("flash_dq_kernel", "flash_dq_sm90_kernel")),
+    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_sm90_kernel")),
     ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel")),
     ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel")),
     ("sta_window", ("sta_window_kernel", "sta_window_sm90_kernel")),

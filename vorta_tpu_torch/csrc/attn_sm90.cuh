@@ -6,6 +6,9 @@
 // fast softmax over pair-bit tables): one kernel template, two softmax
 // policies and three key walks ("sources": BlockSource here, WindowSource
 // in csrc/sta_window_src.cuh, PairBitSource in csrc/sta_batched.cu).
+// csrc/flash_bwd.cu builds the backward's two Hopper kernels (dq, dk/dv)
+// from the same pieces: TMA maps, mbarriers, the wgmma wrappers and their
+// descriptors, TileWalk.
 //
 // What bounds these kernels on the H100: at the served shapes (head dim
 // 128, kv blocks of 512-1024 keys, STA windows of 2,592-9,720 keys) each q
@@ -288,6 +291,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// D (+)= A B^T, m64n64k16, A and B from shared memory (K-major both): the
+// backward's S^T = K Q^T and dP^T = V dO^T over 64-row q tiles
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D (+)= A B^T in s32, m64n128k32, int8 A and B from shared memory (K-major both)
 __device__ __forceinline__ void wgmma_ss_s8_n128(uint32_t (&d)[64], uint64_t da, uint64_t db,
                                                 int accumulate) {
@@ -324,6 +346,12 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int rows, int row
 // the 16 keys of step kk, n over all D columns.
 __device__ __forceinline__ uint64_t vmajor_desc(uint32_t base, int kk) {
   return desc_sw128(base + kk * 16 * ROW_BYTES, BN * ROW_BYTES, 8 * ROW_BYTES);
+}
+
+// The same for a tile of `rows` rows (the backward's K of 128 keys, its Q
+// and dO tiles of 64 rows): the second 64-column box starts rows lines on.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int rows, int kk) {
+  return desc_sw128(base + kk * 16 * ROW_BYTES, rows * ROW_BYTES, 8 * ROW_BYTES);
 }
 
 // S accumulator (64 keys' worth per 8 registers) -> A fragments of the PV

@@ -23,12 +23,14 @@ subsets of their kernel: ``flash_manual_stable``, ``sta_batched_stable``,
 ``sta_pipe_stable`` (the stable softmax) and ``sta_pipe_dots``,
 ``sta_pipe_qk``, ``sta_pipe_sT`` (sta_pipe's diagnostic variants).
 ``flash_wgmma``, ``flash_manual_wgmma``, ``sta_pipe_wgmma``,
-``sta_window_wgmma`` and ``sta_batched_wgmma`` count the launches that took
-the Hopper path (``csrc/attn_sm90.cuh``: wgmma, TMA, warp specialisation),
-as subsets of ``flash``, ``flash_manual``, ``sta_pipe``, ``sta_window`` and
-``sta_batched``; the wrappers choose it by a rule (``ops/flash.py:
-wgmma_path``, ``ops/sta_pipe.py:sta_wgmma_path``, ``ops/sta_window.py:
-window_wgmma_path``, ``ops/sta_batched.py:batched_wgmma_path``).  Headers
+``sta_window_wgmma``, ``sta_batched_wgmma``, ``flash_dq_wgmma`` and
+``flash_dkv_wgmma`` count the launches that took the Hopper path
+(``csrc/attn_sm90.cuh`` and its pieces: wgmma, TMA, warp specialisation),
+as subsets of ``flash``, ``flash_manual``, ``sta_pipe``, ``sta_window``,
+``sta_batched``, ``flash_dq`` and ``flash_dkv``; the wrappers choose it by
+a rule (``ops/flash.py:wgmma_path``, ``ops/sta_pipe.py:sta_wgmma_path``,
+``ops/sta_window.py:window_wgmma_path``, ``ops/sta_batched.py:
+batched_wgmma_path``, ``ops/flash_bwd.py:bwd_wgmma_path``).  Headers
 (``*.cuh``) are part of the hash.
 """
 
@@ -53,7 +55,7 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "copy_probe", "fused_residual_norm", "sta_diag", "flash_manual_stable",
            "sta_batched_stable", "sta_pipe_stable", "sta_pipe_dots", "sta_pipe_qk",
            "sta_pipe_sT", "flash_wgmma", "flash_manual_wgmma", "sta_pipe_wgmma",
-           "sta_window_wgmma", "sta_batched_wgmma")
+           "sta_window_wgmma", "sta_batched_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -20,6 +20,13 @@ get zero dk and dv; an empty row's lse sentinel 1e30 gives p = 0.
 On CUDA tensors ``flash_backward`` launches the two kernels of
 ``csrc/flash_bwd.cu`` (bf16, D 64 or 128, blocks multiples of 8); on CPU
 tensors it runs ``flash_backward_ref``, which repeats their arithmetic.
+Which design runs on CUDA is a pure-Python shape rule, ``bwd_wgmma_path``
+(the forward's): head dim 128 with blocks that 128 divides (the trainer's
+FULL, LOWRES and cross-attention) take the Hopper kernels (wgmma, TMA,
+warp specialisation; counted as ``flash_dq_wgmma`` / ``flash_dkv_wgmma``
+too), D = 64 and the 96-, 360- and 24-token STA tiles the mma.sync
+kernels.  Neither falls back to the other; ``flash_backward_mma_sync``
+runs the mma.sync kernels at any shape, the card's yardstick.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .flash import WGMMA_TILE, wgmma_path
 
 NEG_INF = float(-1e30)
 LOG2E = 1.4426950408889634
@@ -56,6 +64,15 @@ def transpose_tables(kv_index: np.ndarray, kv_count: np.ndarray,
     return q_index, q_count
 
 
+def visible_blocks(kv_index, kv_count, n_kv_blocks: int) -> torch.Tensor:
+    """(nq, nkv) bool: the kv blocks each q block's head-shared list visits."""
+    kv_index = torch.as_tensor(kv_index).long().cpu()
+    kv_count = torch.as_tensor(kv_count).long().cpu()
+    active = torch.arange(kv_index.shape[2]) < kv_count[..., None]
+    return (torch.nn.functional.one_hot(kv_index, n_kv_blocks).bool()
+            & active[..., None]).any(dim=2)[0]
+
+
 def flash_backward_ref(q, k, v, out, lse2, dout, kv_index, kv_count, *, scale: float,
                        block_q: int, block_kv: int, kv_valid_len: int,
                        need_dq: bool = True, need_dkv: bool = True):
@@ -67,11 +84,7 @@ def flash_backward_ref(q, k, v, out, lse2, dout, kv_index, kv_count, *, scale: f
     skv = k.shape[2]
     nkv = skv // block_kv
     delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
-    kv_index = torch.as_tensor(kv_index, device=q.device).long()
-    kv_count = torch.as_tensor(kv_count, device=q.device).long()
-    active = torch.arange(kv_index.shape[2], device=q.device) < kv_count[..., None]
-    block_mask = (torch.nn.functional.one_hot(kv_index, nkv).bool()
-                  & active[..., None]).any(dim=2)[0]  # (nq, nkv)
+    block_mask = visible_blocks(kv_index, kv_count, nkv).to(q.device)  # (nq, nkv)
     col_ok = _kv_column_limit(skv, block_kv, kv_valid_len, q.device)
     kf, vf = k.float(), v.float()
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -98,11 +111,76 @@ def flash_backward_ref(q, k, v, out, lse2, dout, kv_index, kv_count, *, scale: f
             dv.to(v.dtype) if need_dkv else None)
 
 
+def bwd_wgmma_path(d: int, block_q: int, block_kv: int) -> bool:
+    """The shape rule of the backward's Hopper kernels: head dim 128, q
+    blocks that the dq kernel's 128-row CTAs tile and kv blocks that its
+    128-key ring slots (and the dk/dv kernel's 128-row CTAs) tile.  The
+    dk/dv kernel walks q tiles of 64 rows and would take blocks of 64 q
+    rows, but one rule for both kernels, the forward's (``ops/flash.py:
+    wgmma_path``), keeps a call's forward and backward on one design.  The
+    C entry refuses the Hopper path for anything else."""
+    return wgmma_path(d, block_q, block_kv)
+
+
+DKV_Q_TILE = 64  # q rows per ring slot of the dk/dv kernel
+
+
+def _tail(block_kv: int, kv_valid_len: int) -> Tuple[int, int]:
+    """(last_block, valid_in_block) of the tail rule: only block
+    kv_valid_len // block_kv is cut, and only when block_kv does not divide
+    kv_valid_len (last_block -1: nothing is cut)."""
+    cut = kv_valid_len % block_kv
+    return (kv_valid_len // block_kv if cut else -1), cut
+
+
+def dq_walk(kv_index: np.ndarray, kv_count: np.ndarray, *, sq: int, block_q: int,
+            block_kv: int, kv_valid_len: int) -> list:
+    """Python mirror of ``flash_dq_sm90_kernel``'s walk: for each 128-row
+    CTA, its ring slots as (first key, valid keys), the 128-key sub-tiles of
+    its q block's kv blocks up to the tail rule's limit (``TileWalk``: a
+    sub-tile the rule masks completely is skipped, a cut one masks its
+    columns past the valid keys).  An empty list: the CTA writes zero dq."""
+    last, in_last = _tail(block_kv, kv_valid_len)
+    walks = []
+    for row0 in range(0, sq, WGMMA_TILE):
+        qi = row0 // block_q
+        slots = []
+        for kvb in kv_index[0, qi, :kv_count[0, qi]]:
+            limit = in_last if kvb == last else block_kv
+            slots += [(int(kvb) * block_kv + n0, min(WGMMA_TILE, limit - n0))
+                      for n0 in range(0, limit, WGMMA_TILE)]
+        walks.append(slots)
+    return walks
+
+
+def dkv_walk(q_index: np.ndarray, q_count: np.ndarray, *, skv: int, block_q: int,
+             block_kv: int, kv_valid_len: int) -> list:
+    """Python mirror of ``flash_dkv_sm90_kernel``'s walk: for each 128-row kv
+    CTA, (its rows the tail rule leaves visible, the first q row of each
+    64-row q tile of its ring, in the order the transposed tables list the q
+    blocks), or None where the CTA writes zero dk and dv before touching a
+    barrier (no q block visits its kv block, or every row lies past the
+    tail)."""
+    last, in_last = _tail(block_kv, kv_valid_len)
+    walks = []
+    for row0 in range(0, skv, WGMMA_TILE):
+        kvb, local0 = divmod(row0, block_kv)
+        limit = in_last if kvb == last else block_kv
+        count = int(q_count[0, kvb])
+        if count == 0 or local0 >= limit:
+            walks.append(None)
+            continue
+        tiles = [int(qb) * block_q + m0 for qb in q_index[0, kvb, :count]
+                 for m0 in range(0, block_q, DKV_Q_TILE)]
+        walks.append((min(WGMMA_TILE, limit - local0), tiles))
+    return walks
+
+
 def _fn(name: str, n_ptr: int, n_int: int):
     fn = getattr(_build.load("flash_bwd"), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -118,6 +196,25 @@ def flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_coun
     only by the dk/dv kernel).  ``need_dq`` / ``need_dkv`` skip a kernel
     whose gradients no input needs.
     """
+    return _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count,
+                           scale=scale, block_q=block_q, block_kv=block_kv,
+                           kv_valid_len=kv_valid_len, need_dq=need_dq, need_dkv=need_dkv,
+                           hopper_ok=True)
+
+
+def flash_backward_mma_sync(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count,
+                            **kw):
+    """``flash_backward`` on the mma.sync kernels whatever the rule says: the
+    card's yardstick beside the Hopper kernels at the same call
+    (``chip_smoke.py`` times both), counted in ``flash_dq`` / ``flash_dkv``
+    only."""
+    return _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count,
+                           hopper_ok=False, **kw)
+
+
+def _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count, *,
+                    scale: float, block_q: int, block_kv: int, kv_valid_len: int,
+                    need_dq: bool = True, need_dkv: bool = True, hopper_ok: bool = True):
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if k.shape != (b, h, skv, d) or v.shape != k.shape or out.shape != q.shape \
@@ -144,8 +241,10 @@ def flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_coun
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
         raise NotImplementedError(f"the CUDA flash backward takes D 64/128 and blocks that are "
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
-    lse2 = lse2.float().contiguous()
+    hopper = hopper_ok and bwd_wgmma_path(d, block_q, block_kv)
+    # TMA and the bulk copies of the Hopper path read from 16-byte boundaries
+    q, k, v, dout = (_build.aligned16(t.contiguous()) for t in (q, k, v, dout))
+    lse2 = _build.aligned16(lse2.float().contiguous())
     delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
     common = (b, h, sq, skv, d)
     dq = dk = dv = None
@@ -157,9 +256,11 @@ def flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_coun
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), kv_index.data_ptr(), kv_count.data_ptr(),
             *common, kv_index.shape[2], block_q, block_kv, int(kv_valid_len), float(scale),
-            _build.stream_ptr(dev))
+            int(hopper), _build.stream_ptr(dev))
         _build.check(err, "flash_dq")
         _build.launches["flash_dq"] += 1
+        if hopper:
+            _build.launches["flash_dq_wgmma"] += 1
     if need_dkv:
         q_index = torch.as_tensor(q_index, dtype=torch.int32, device=dev).contiguous()
         q_count = torch.as_tensor(q_count, dtype=torch.int32, device=dev).contiguous()
@@ -168,7 +269,9 @@ def flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_coun
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_index.data_ptr(),
             q_count.data_ptr(), *common, q_index.shape[2], block_q, block_kv,
-            int(kv_valid_len), float(scale), _build.stream_ptr(dev))
+            int(kv_valid_len), float(scale), int(hopper), _build.stream_ptr(dev))
         _build.check(err, "flash_dkv")
         _build.launches["flash_dkv"] += 1
+        if hopper:
+            _build.launches["flash_dkv_wgmma"] += 1
     return dq, dk, dv
