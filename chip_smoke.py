@@ -6,23 +6,30 @@
 Phases, each raising on failure:
   1. device: torch / CUDA versions, the card's name and power limit; build
      the CUDA kernels from csrc/ (one nvcc per source, in parallel); ptxas's
-     registers and spills of every kernel, and of the Hopper path's nine
+     registers and spills of every kernel, and of the Hopper path's ten
      instantiations (csrc/attn_sm90.cuh: flash's, flash_manual's bf16 and
      int8, sta_pipe's window walk, sta_window's two (runs padded to 32
-     tokens or not), sta_batched's pair-bit walk; and the backward's dq and
-     dk/dv kernels of csrc/flash_bwd.cu on its pieces; none may
-     spill) with its dynamic shared memory, and of the norm's warp-per-row
-     kernels (no spills either).  Every flash, flash_manual, sta_pipe,
+     tokens or not), sta_row's (sta_window's unpadded kernel, built in
+     csrc/sta_row.cu), sta_batched's pair-bit walk; and the backward's dq
+     and dk/dv kernels of csrc/flash_bwd.cu on its pieces; none may
+     spill) with its dynamic shared memory, and of the norm's and the qk
+     prologue's warp-per-row kernels (48 and 12; no spills either).  Every flash, flash_manual, sta_pipe,
      sta_window and sta_batched row reports its achieved TFLOP/s, its share
      of the bound and its ratio to the library call; every sta_pipe,
      sta_window and sta_batched row also the mma.sync kernel's time in the
      same call,
      every fused_norm row its GB/s and share of the bytes bound beside
-     F.layer_norm(x, (dim,), 1 + scale, shift) at B = 1, the same function.
+     F.layer_norm(x, (dim,), 1 + scale, shift) at B = 1, the same function;
+     every qk prologue row its GB/s, share of the bytes bound and host us
+     per call beside its block-per-row kernel's time in the same call.
   2. kernels: each kernel on the card against its plain PyTorch version on
      the same inputs, with kernel / plain / library / bound times: flash,
      AdaLN norm and qk prologue at the routing-off path's shapes (Wan-1.3B
-     at 480p x 21 frames = 9,360 tokens, bf16), flash also at 720p x 77f
+     at 480p x 21 frames = 9,360 tokens, bf16); the prologue also at 720p x
+     77f (1,72000,1536) and at Wan-14B's width (1,72000,5120), each on its
+     warp-per-row kernel (launch counted) against the plain version and the
+     block-per-row kernel (its normalised values within one bf16 ulp, v
+     bitwise), the two timed in one call; flash also at 720p x 77f
      self-attention (1,12,72000,128), held against the plain version on one
      head, beside SDPA on all twelve; flash_manual, sta_pipe,
      pool_qkv and unpool at the routed path's (480p x 77 frames = 31,200
@@ -53,9 +60,9 @@ Phases, each raising on failure:
      720p tile (5, 9, 8) and HunyuanVideo 45f tile (6, 9, 8) with the text
      tail; each against its plain version with its bracket, times against
      SDPA with the boolean / float mask and the bound of the visible pairs.
-     sta_window and sta_batched run their Hopper paths (each call counted
-     once on it), held and timed beside their mma.sync kernels in the same
-     call (within 2 TOL of each other); sta_batched also reports its slot
+     sta_window, sta_batched and sta_row run their Hopper paths (each call
+     counted once on it), held and timed beside their mma.sync kernels in
+     the same call (within 2 TOL of each other); sta_batched also reports its slot
      lists' size (ops/sta_batched.py:pair_bit_walk) and the mma.sync
      kernel's fast / stable probe: both softmaxes with the served pair bits
      and bias, each alone and neither, and the SASS of both instantiations.
@@ -119,7 +126,8 @@ HunyuanVideo-13B (its phases free the Wan models first):
      block_kv 1024, kv_valid_len + bias), and with a bias that masks the
      kv block every row visits first; sta_pipe with the text tail (432-token
      tiles); pool_qkv with K's own matching, and unpool; the qk prologue
-     (head scope) and the AdaLN norm on the single block's joint stream.
+     (head scope, text rows unrotated: warp-per-row beside block-per-row)
+     and the AdaLN norm on the single block's joint stream.
   b. model check: a 1 dual + 1 single-block model at 13B widths on the card
      (bf16, kernels) against the same weights on the CPU (f32, plain
      versions), routing off and routed hard with the heads on all three
@@ -148,7 +156,9 @@ HunyuanVideo-13B (its phases free the Wan models first):
 Every main path's launch counts are exact, the Hopper path's subset
 counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
 sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma)
-included: on the served paths every flash, flash_manual, sta_pipe,
+and the prologue's warp-per-row counter (prologue_rows) included: on the
+served paths every qk prologue launch takes its warp-per-row kernel, and
+every flash, flash_manual, sta_pipe,
 sta_window and sta_batched launch takes that path (flash_manual's int8 QK
 mode too; phases 6f and cf for the two fallbacks), in training every
 flash, dq and dk/dv launch but the STA expert's (96- and 360-token tiles);
@@ -181,7 +191,8 @@ Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
      (36,000 tokens, 360-token tiles) at full width and depth, 2 optimizer
      steps of 1 micro-step; s per micro-step, peak memory, exact launches.
 Then a line of the W8A8, static-scale and Wan-14B numbers, a {"kernels":
-[...]} line (flash_manual's int8 mode a row of its own; sta_pipe's, which
+[...]} line (the prologue's row with its warp-per-row launches by path;
+sta_row's with sta_row_wgmma's; flash_manual's int8 mode a row of its own; sta_pipe's, which
 no main path runs, under its row's "modes"; pool_qkv's and unpool's
 head-map mode under theirs, with the HunyuanVideo routed path's launches;
 copy_probe a row whose launches are the pool benchmark tool's; sta_row, which no geometry of
@@ -251,14 +262,19 @@ HOPPER_KERNELS = ("flash", "flash_manual", "sta_pipe", "sta_window", "sta_batche
 
 def served_on_wgmma(launches: dict, what: str) -> None:
     """On a served path every flash, flash_manual (the int8 QK mode too),
-    sta_pipe, sta_window and sta_batched launch takes the Hopper path (its
-    counters are subsets)."""
+    sta_pipe, sta_window and sta_batched launch takes the Hopper path, and
+    every qk prologue launch the warp-per-row kernel (their counters are
+    subsets)."""
     want = tuple(launches[k] for k in HOPPER_KERNELS)
     got = tuple(launches[f"{k}_wgmma"] for k in HOPPER_KERNELS)
     if got != want:
         raise RuntimeError(f"{what}: Hopper-path launches {HOPPER_KERNELS} {got} != {want}")
+    if launches["prologue_rows"] != launches["prologue"]:
+        raise RuntimeError(f"{what}: prologue launches {launches['prologue']}, "
+                           f"{launches['prologue_rows']} of them warp-per-row")
     log(f"{what}: " + ", ".join(f"{k} {g} of {w}" for k, g, w in zip(HOPPER_KERNELS, got, want))
-        + " launches on the Hopper path")
+        + f" launches on the Hopper path; prologue {launches['prologue_rows']} of "
+        f"{launches['prologue']} warp-per-row")
 
 
 def sta_rates(t: dict, flops: float) -> dict:
@@ -330,32 +346,37 @@ def build_kernels() -> None:
             ("sta_window wan_720p_4910", GRID_720P, WAN_TILE_4910, 0,
              window_box(GRID_720P, WAN_TILE_4910)),
             ("sta_window hunyuan_45f_4910", GRID_HY_45F, WAN_TILE_4910, HY_TEXT,
-             window_box(GRID_HY_45F, WAN_TILE_4910)))}
+             window_box(GRID_HY_45F, WAN_TILE_4910)),
+            ("sta_row wan_720p_598", GRID_720P, (5, 9, 8), 0, None),
+            ("sta_row hunyuan_45f_698", GRID_HY_45F, (6, 9, 8), HY_TEXT, None))}
     # sta_batched's CTA holds its slot list: 8 bytes for each of width x 8 slots
     # at HunyuanVideo (2, 9, 8) (46 kv blocks of 1,008 keys)
     batched_smem = _build.load("sta_batched").vorta_sta_batched_sm90_smem_bytes(46 * 8)
     bwd_smem = _build.load("flash_bwd").vorta_flash_bwd_sm90_smem_bytes
     for src, entry, regs, spill in hopper:
-        extra = {"sta_pipe": sta_smem, "sta_window": sta_smem,
+        extra = {"sta_pipe": sta_smem, "sta_window": sta_smem, "sta_row": sta_smem,
                  "sta_batched": batched_smem}.get(src, smem)
         if src == "flash_bwd":
             extra = bwd_smem(int("flash_dkv_sm90_kernel" in entry))
         log(f"ptxas Hopper path {src} {entry}: {regs}; {spill}; dynamic shared memory "
             f"{extra} bytes")
     want = ["flash", "flash_bwd", "flash_bwd", "flash_manual", "flash_manual", "sta_batched",
-            "sta_pipe", "sta_window", "sta_window"]
+            "sta_pipe", "sta_row", "sta_window", "sta_window"]
     if sorted(src for src, *_ in hopper) != want or any(
             spill is None or "0 bytes spill stores, 0 bytes spill loads" not in spill
             for *_, spill in hopper):
         raise RuntimeError(f"the Hopper path's instantiations: {hopper} (flash's, the "
                            "backward's dq and dk/dv, flash_manual's bf16 and int8, "
-                           "sta_pipe's, sta_window's two, sta_batched's; no spills)")
-    rows = ptxas_entries(_build.ptxas_logs, "fused_norm_rows_kernel")
-    log(f"ptxas fused_norm warp-per-row kernels: {len(rows)} instantiations, registers "
-        f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
-    if len(rows) != 48 or any(spill is None or "0 bytes spill stores, 0 bytes spill loads"
-                              not in spill for *_, spill in rows):
-        raise RuntimeError(f"the norm's warp-per-row kernels: {rows} (48; no spills)")
+                           "sta_pipe's, sta_window's two, sta_row's, sta_batched's; no spills)")
+    # the warp-per-row kernels: the norm's 48, the prologue's 12 (one warp a
+    # row at 1-6 chunks a lane, two or four at 4-6)
+    for entry, count in (("fused_norm_rows_kernel", 48), ("prologue_rows_kernel", 12)):
+        rows = ptxas_entries(_build.ptxas_logs, entry)
+        log(f"ptxas {entry}: {len(rows)} instantiations, registers "
+            f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
+        if len(rows) != count or any(spill is None or "0 bytes spill stores, 0 bytes spill "
+                                     "loads" not in spill for *_, spill in rows):
+            raise RuntimeError(f"{entry}: {rows} ({count}; no spills)")
 
 
 def main() -> int:
@@ -462,10 +483,13 @@ def main() -> int:
     for k in kernels:
         name = k.pop("_counter")
         paths = by_path(name)
-        if f"{name}_wgmma" in _build.launches:  # the Hopper path's share of the launches
-            k["wgmma_launches_by_path"] = {**by_path(f"{name}_wgmma"), "720p_77f_off": fwd_720p[
-                "launches_off"][f"{name}_wgmma"], "720p_77f_routed": fwd_720p[
-                "launches_routed"][f"{name}_wgmma"]}
+        # the Hopper path's share of the launches (the prologue's: its
+        # warp-per-row kernel's)
+        sub = "prologue_rows" if name == "prologue" else f"{name}_wgmma"
+        if sub in _build.launches:
+            k["wgmma_launches_by_path" if sub.endswith("_wgmma") else "rows_launches_by_path"] = {
+                **by_path(sub), "720p_77f_off": fwd_720p["launches_off"][sub],
+                "720p_77f_routed": fwd_720p["launches_routed"][sub]}
         # the count of the path the kernel's slice brought: serving's routed
         # path (in int8 for the int8 mode), training for the kernels only
         # training launches, the STA fallbacks' two paths for theirs, the
@@ -659,6 +683,81 @@ def norm_case(torch, name: str, x, sc, sh, iters: int) -> dict:
     return r
 
 
+def bf16_ulps(torch, a, b) -> float:
+    """max |a - b| in bf16 ulps of the larger of the two, element by element."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return ((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max().item()
+
+
+def prologue_case(torch, name: str, q, k, v, gq, gk, cos, sin, heads: int, scope: str,
+                  iters: int) -> dict:
+    """The qk prologue on the fused qkv product's column slices q / k / v:
+    the warp-per-row kernel (its launch counted once on prologue_rows),
+    against its plain version and the block-per-row kernel (v bitwise), its
+    normalised values (an identity rotation: cos = 1, sin = 0) within one
+    bf16 ulp of the block-per-row kernel's (only the order of the sums of
+    squares differs; the rotated outputs' largest difference in ulps is
+    reported: where the rotation's two products cancel, a one-ulp input
+    moves more ulps of the result); the three timed in one call; GB/s and
+    share of the bytes bound (q / k / v and the row's cos / sin read once,
+    the three outputs written once, the gains read once), and the wrapper's
+    host time per call launched back to back."""
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.prologue import (
+        _prologue_ref,
+        fused_qk_prologue,
+        fused_qk_prologue_block,
+        prologue_layout,
+    )
+
+    s, dim = q.shape[1], q.shape[2]
+    kw = dict(num_heads=heads, eps=1e-6, qk_norm=True, norm_scope=scope)
+    kern = lambda: fused_qk_prologue(q, k, v, gq, gk, cos, sin, **kw)  # noqa: E731
+    block = lambda: fused_qk_prologue_block(q, k, v, gq, gk, cos, sin, **kw)  # noqa: E731
+    plain = lambda: _prologue_ref(q, k, v, gq, gk, cos, sin, **kw)  # noqa: E731
+    if prologue_layout(dim, heads) is None:
+        raise RuntimeError(f"prologue {name}: no warp-per-row layout for dim {dim}")
+    for fn, rows in ((kern, 1), (block, 0)):
+        _build.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        got = (_build.launches["prologue"], _build.launches["prologue_rows"])
+        if got != (1, rows):
+            raise RuntimeError(f"prologue {name}: launches (prologue, prologue_rows) {got}, "
+                               f"want (1, {rows})")
+    got, old, want = kern(), block(), plain()
+    err = max(compare(torch, f"prologue {n} {name}", a, b) for n, a, b in zip("qkv", got, want))
+    compare(torch, f"prologue {name}, the block-per-row kernel", old[0], want[0])
+    ulps = max(bf16_ulps(torch, a, b) for a, b in zip(got[:2], old[:2]))
+    ratio = max(worst_ratio(torch, a, b) for a, b in zip(got, want))
+    if not torch.equal(got[2], old[2]) or not torch.equal(got[2], want[2]):
+        raise RuntimeError(f"prologue {name}: v is not moved bit for bit")
+    del got, old, want
+    one, zero = torch.ones_like(cos), torch.zeros_like(sin)
+    normed = fused_qk_prologue(q, k, v, gq, gk, one, zero, **kw)
+    normed_old = fused_qk_prologue_block(q, k, v, gq, gk, one, zero, **kw)
+    ulps_norm = max(bf16_ulps(torch, a, b) for a, b in zip(normed[:2], normed_old[:2]))
+    del normed, normed_old
+    log(f"prologue {name}: warp-per-row against block-per-row: normalised values "
+        f"{ulps_norm:g} bf16 ulps, rotated {ulps:g} (q, k); v bitwise")
+    if ulps_norm > 1:
+        raise RuntimeError(f"prologue {name}: the two kernels' norms differ by more than one "
+                           "bf16 ulp")
+    nbytes = 6 * s * dim * 2 + 2 * cos.numel() * 4 + 2 * dim * 4
+    b_ms, b_by = bound_ms(20.0 * s * dim, nbytes, PEAK_F32)
+    r = dict(ms=device_ms(torch, kern, iters), block_ms=device_ms(torch, block, iters),
+             plain_ms=time_ms(torch, plain, 3, 1), library_ms=None, bound_ms=b_ms,
+             bound_by=b_by, max_abs_err=err, worst_ratio=ratio, ulps_vs_block=ulps,
+             norm_ulps_vs_block=ulps_norm,
+             back_to_back_ms=time_ms(torch, kern, iters), host_us=host_us(torch, kern),
+             block_host_us=host_us(torch, block))
+    r.update(gbps=nbytes / r["ms"] / 1e6, bound_share=b_ms / r["ms"],
+             block_bound_share=b_ms / r["block_ms"], block_over_rows=r["block_ms"] / r["ms"])
+    log(f"prologue {name}: {r}")
+    return r
+
+
 def check_kernels(torch, card: str) -> list:
     import torch.nn.functional as F
 
@@ -668,7 +767,6 @@ def check_kernels(torch, card: str) -> list:
         sparse_flash_attention_ref,
         tables_from_block_mask,
     )
-    from vorta_tpu_torch.ops.prologue import _prologue_ref, fused_qk_prologue
     from vorta_tpu_torch.ops.rope import rope_cos_sin
 
     dev = torch.device("cuda")
@@ -771,23 +869,21 @@ def check_kernels(torch, card: str) -> list:
                          sparse_flash_attention_raw(qs, ks, vs, pi, pc, **kw_s),
                          sparse_flash_attention_ref(qs, ks, vs, pi, pc, **kw_s))
 
-    # ---- prologue on the fused qkv product's column slices (1, 9360, 1536)
-    qkv = randn(1, s, 3 * dim, scale=3.0)
-    pq, pk, pv = qkv.split(dim, dim=-1)
-    gq = 1.0 + 0.1 * torch.randn(dim, generator=g, device=dev)
-    gk = 1.0 + 0.1 * torch.randn(dim, generator=g, device=dev)
-    cos, sin = (torch.from_numpy(a).to(dev) for a in rope_cos_sin(GRID_480P, d))
-    pro = lambda: fused_qk_prologue(pq, pk, pv, gq, gk, cos, sin, num_heads=h)  # noqa: E731
-    pro_plain = lambda: _prologue_ref(pq, pk, pv, gq, gk, cos, sin, num_heads=h,  # noqa: E731
-                                      eps=1e-6, qk_norm=True, norm_scope="row")
-    got, want = pro(), pro_plain()
-    err_pro = max(compare(torch, f"prologue {n} (1,9360,1536)", a, b)
-                  for n, a, b in zip("qkv", got, want))
-    pro_bytes = 6 * s * dim * 2 + 2 * cos.numel() * 4 + 2 * dim * 4
-    bp_ms, bp_by = bound_ms(20.0 * s * dim, pro_bytes, PEAK_F32)
-    pro_t = dict(ms=time_ms(torch, pro, 50), plain_ms=time_ms(torch, pro_plain, 5),
-                 library_ms=None, bound_ms=bp_ms, bound_by=bp_by)
-    log(f"prologue: {pro_t}")
+    # ---- prologue on the fused qkv product's column slices: Wan-1.3B at 9,360
+    # tokens and at 720p x 77f (72,000), Wan-14B's width (5,120, 40 heads) at 720p
+    pros = {}
+    for key, grid, width, heads in (("wan_480p_21f_9360", GRID_480P, dim, h),
+                                    ("wan_720p_77f_72000", GRID_720P, dim, h),
+                                    ("wan14b_720p_77f_72000", GRID_720P, 5120, 40)):
+        rows = grid[0] * grid[1] * grid[2]
+        qkv = randn(1, rows, 3 * width, scale=3.0)
+        gq, gk = (1.0 + 0.1 * torch.randn(width, generator=g, device=dev) for _ in range(2))
+        cos, sin = (torch.from_numpy(a).to(dev) for a in rope_cos_sin(grid, d))
+        pros[key] = prologue_case(torch, f"(1,{rows},{width})", *qkv.split(width, dim=-1), gq,
+                                  gk, cos, sin, heads, "row", 50 if rows < 20000 else 10)
+        del qkv
+        torch.cuda.empty_cache()
+    pro_t = pros["wan_480p_21f_9360"]
 
     # ---- AdaLN norm with (1, 1536) scale / shift, as AdaLN passes them (column
     # slices of the (1, 6, 1536) modulation): (1, 9360, 1536), and the routed
@@ -811,7 +907,8 @@ def check_kernels(torch, card: str) -> list:
              shapes=norms),
         dict(name="qk_prologue", route="cuda", source="vorta_tpu_torch/csrc/prologue.cu",
              replaces="vorta_tpu/ops/prologue.py:67", _counter="prologue",
-             max_abs_err=err_pro, **pro_t),
+             **{**pro_t, "max_abs_err": max(x["max_abs_err"] for x in pros.values())},
+             shapes=pros),
     ]
 
 # Heads routed to the expert under test in the kernel checks: 8 of 12, the
@@ -1300,7 +1397,7 @@ def run_main_path(torch, card: str):
         raise RuntimeError(f"main path: output {tuple(lat.shape)}, finite "
                            f"{bool(torch.isfinite(lat).all())}")
     expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 60 * 4, "flash_wgmma": 60 * 4,
-                "fused_norm": 61 * 4, "prologue": 30 * 4}
+                "fused_norm": 61 * 4, "prologue": 30 * 4, "prologue_rows": 30 * 4}
     if launches != expected:
         raise RuntimeError(f"main path launches {launches} != expected {expected}")
     served_on_wgmma(launches, "main path off")
@@ -1388,7 +1485,7 @@ def run_720p_forward(torch, card: str) -> dict:
     if not torch.isfinite(out).all():
         raise RuntimeError("720p forward: non-finite output")
     expected = {**dict.fromkeys(_build.KERNELS, 0), "flash": 60, "flash_wgmma": 60,
-                "fused_norm": 61, "prologue": 30}
+                "fused_norm": 61, "prologue": 30, "prologue_rows": 30}
     if launches_off != expected:
         raise RuntimeError(f"720p forward: launches {launches_off} != expected {expected}")
     served_on_wgmma(launches_off, "720p forward off")
@@ -1464,7 +1561,6 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
         sparse_flash_attention_manual,
         sparse_flash_attention_manual_ref,
     )
-    from vorta_tpu_torch.ops.prologue import _prologue_ref, fused_qk_prologue
     from vorta_tpu_torch.ops.sta_pipe import (
         sta_pipe_attention,
         sta_pipe_attention_mma_sync,
@@ -1662,22 +1758,9 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
     cos, sin = hunyuan_rope_tables(GRID_HY_45F, HUNYUAN_13B)
     cos = torch.from_numpy(np.concatenate([cos, np.ones((HY_TEXT, d // 2), np.float32)])).to(dev)
     sin = torch.from_numpy(np.concatenate([sin, np.zeros((HY_TEXT, d // 2), np.float32)])).to(dev)
-    pkw = dict(num_heads=h, eps=1e-6, norm_scope="head")
-    pro = lambda: fused_qk_prologue(pq, pk, pv, gq.repeat(h), gk.repeat(h), cos, sin,  # noqa: E731
-                                    **pkw)
-    pro_plain = lambda: _prologue_ref(pq, pk, pv, gq.repeat(h), gk.repeat(h), cos,  # noqa: E731
-                                      sin, qk_norm=True, **pkw)
-    got, want = pro(), pro_plain()
-    err = max(compare(torch, f"prologue {n} (1,{sj},3072), head scope", a, b)
-              for n, a, b in zip("qkv", got, want))
-    ratio = max(worst_ratio(torch, a, b) for a, b in zip(got, want))
-    del got, want
-    pro_bytes = 6 * sj * dim * 2 + 2 * cos.numel() * 4 + 2 * dim * 4
-    bp_ms, bp_by = bound_ms(20.0 * sj * dim, pro_bytes, PEAK_F32)
-    out["prologue"]["hunyuan_joint_43456"] = dict(
-        ms=time_ms(torch, pro, 20), plain_ms=time_ms(torch, pro_plain, 3, 1), library_ms=None,
-        bound_ms=bp_ms, bound_by=bp_by, max_abs_err=err, worst_ratio=ratio)
-    log(f"prologue (Hunyuan joint stream): {out['prologue']['hunyuan_joint_43456']}")
+    out["prologue"]["hunyuan_joint_43456"] = prologue_case(
+        torch, f"(1,{sj},3072), head scope, text rows unrotated", pq, pk, pv, gq.repeat(h),
+        gk.repeat(h), cos, sin, h, "head", 20)
     del fused, pq, pk, pv
     mod = torch.randn((1, 6, dim), generator=g, device=dev) * 0.3
     out["fused_norm"]["hunyuan_joint_43456"] = norm_case(
@@ -1706,21 +1789,20 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
     ``int8``: FULL's and LOWRES's flash_manual in the int8 QK mode (the STA
     text rows stay bf16).  Every flash_manual launch takes the Hopper path,
     and so does every launch of the STA kernel on a served geometry
-    (sta_pipe; sta_batched at (2, 9, 8); sta_window)."""
+    (sta_pipe; sta_batched at (2, 9, 8); sta_window); every prologue launch
+    the warp-per-row kernel."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
     n_fwd = tables.shape[0]
     text_rows = 0 if sta_kernel == "sta_batched" else int(has[2].sum())
     experts = int(has[0].sum() + has[1].sum())
-    out = {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
-           "fused_norm": 121 * n_fwd, "flash_manual": experts + text_rows,
-           sta_kernel: int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
-           "unpool_headmap": int(has[1].sum()), "flash_manual_int8": experts if int8 else 0,
-           "flash_manual_wgmma": experts + text_rows}
-    if f"{sta_kernel}_wgmma" in out:  # sta_row has no Hopper path
-        out[f"{sta_kernel}_wgmma"] = int(has[2].sum())
-    return out
+    return {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
+            "prologue_rows": 60 * n_fwd, "fused_norm": 121 * n_fwd,
+            "flash_manual": experts + text_rows, sta_kernel: int(has[2].sum()),
+            f"{sta_kernel}_wgmma": int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
+            "unpool_headmap": int(has[1].sum()), "flash_manual_int8": experts if int8 else 0,
+            "flash_manual_wgmma": experts + text_rows}
 
 
 HY_MODEL_MODES = (("off", False), ("hard", False), ("off", True), ("hard", True))
@@ -1764,13 +1846,13 @@ def check_hunyuan_model(torch, grid=(6, 9, 16), tile=(6, 9, 8), modes=HY_MODEL_M
         got = res.sample.float().cpu()
         launches = dict(_build.launches)
         expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 2, "prologue": 2,
-                    "fused_norm": 6, "flash_manual_int8": 2 if int8 else 0,
+                    "prologue_rows": 2, "fused_norm": 6, "flash_manual_int8": 2 if int8 else 0,
                     "flash_manual_wgmma": 2}
         if mode == "hard":
             if not (res.expert_ids == experts.numpy()).all():
                 raise RuntimeError(f"Hunyuan model check: routing {res.expert_ids}")
             expected = hy_hard_launches(np.asarray(res.expert_ids)[None], int8, sta_kernel)
-            expected.update(prologue=2, fused_norm=6)
+            expected.update(prologue=2, prologue_rows=2, fused_norm=6)
         if launches != expected:
             raise RuntimeError(f"Hunyuan model check {mode}: launches {launches} != {expected}")
         if not torch.isfinite(got).all():
@@ -1833,7 +1915,7 @@ def run_hunyuan_main_path(torch, card: str):
         int8 = name.endswith("int8")
         if name.startswith("hunyuan_off"):
             expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60 * 2,
-                        "prologue": 60 * 2, "fused_norm": 121 * 2,
+                        "prologue": 60 * 2, "prologue_rows": 60 * 2, "fused_norm": 121 * 2,
                         "flash_manual_int8": 60 * 2 if int8 else 0,
                         "flash_manual_wgmma": 60 * 2}
             heads = None
@@ -1899,7 +1981,8 @@ def run_hunyuan_reference_shape(torch, card: str) -> dict:
             expected = hy_hard_launches(np.asarray(out.expert_ids)[None], sta_kernel=sta_kernel)
         else:
             expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60,
-                        "prologue": 60, "fused_norm": 121, "flash_manual_wgmma": 60}
+                        "prologue": 60, "prologue_rows": 60, "fused_norm": 121,
+                        "flash_manual_wgmma": 60}
         if launches != expected:
             raise RuntimeError(f"Hunyuan 117f forward {mode}: launches {launches} != "
                                f"{expected}")
@@ -2038,7 +2121,9 @@ def check_fallback_kernels(torch, card: str) -> dict:
         sta_flash_headbatched_ref,
     )
     from vorta_tpu_torch.ops.sta_row import (
+        row_wgmma_path,
         sta_row_attention,
+        sta_row_attention_mma_sync,
         sta_row_attention_ref,
         supports_row_dense,
     )
@@ -2136,17 +2221,21 @@ def check_fallback_kernels(torch, card: str) -> dict:
     r["mma_sync_softmax_probe"] = probe_sta_batched_softmax(torch,
                                                             sta_flash_headbatched_mma_sync)
 
-    # ---- sta_row, a direct call (no geometry of this slice's paths reaches it):
+    # ---- sta_row, a direct call (no geometry of the port's paths reaches it):
     # Wan 720p (5, 9, 8) and HunyuanVideo 45f (6, 9, 8) with the text tail, both
-    # admitted by the JAX package's row-dense gate
+    # admitted by the JAX package's row-dense gate, on the Hopper path beside
+    # its mma.sync kernel
     for name, grid, tile, act, text in (("wan_720p_598", GRID_720P, (5, 9, 8), wan_act, False),
                                         ("hunyuan_45f_698_text", GRID_HY_45F, (6, 9, 8), hy_act,
                                          True)):
-        if not supports_row_dense(grid, tile, 128, 2, HY_TEXT if text else 0):
+        lt = HY_TEXT if text else 0
+        if not supports_row_dense(grid, tile, 128, 2, lt):
             raise RuntimeError(f"sta_row {name}: the row-dense gate refuses it")
+        if not row_wgmma_path(128, grid, tile, text_len=lt):
+            raise RuntimeError(f"sta_row {name}: the Hopper path's rule refuses it")
         out["sta_row"][name] = window_case(torch, "sta_row", sta_row_attention,
                                            sta_row_attention_ref, grid, tile, act, text=text,
-                                           seed=52)
+                                           seed=52, mma_sync=sta_row_attention_mma_sync)
     return out
 
 
@@ -2246,10 +2335,11 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
     pool and unpool in head-map mode), "hybrid" (a pool and an unpool per
     LOWRES head) or "switch" (each head its own expert: a flash_manual per
     FULL / LOWRES head, an STA launch per STA head).  Every flash,
-    flash_manual and sta_pipe launch takes the Hopper path; ``int8``:
-    flash_manual in the int8 QK mode.  The STA kernel is sta_pipe, or
-    sta_window at a tile whose window sta_pipe's gate refuses (every one of
-    its served launches on the Hopper path too)."""
+    flash_manual and sta_pipe launch takes the Hopper path, every prologue
+    launch the warp-per-row kernel; ``int8``: flash_manual in the int8 QK
+    mode.  The STA kernel is sta_pipe, or sta_window at a tile whose window
+    sta_pipe's gate refuses (every one of its served launches on the Hopper
+    path too)."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
@@ -2257,6 +2347,7 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
     blocks = tables.shape[1]
     out = {**dict.fromkeys(_build.KERNELS, 0), "flash": blocks * n_fwd,
            "fused_norm": (2 * blocks + 1) * n_fwd, "prologue": blocks * n_fwd,
+           "prologue_rows": blocks * n_fwd,
            "flash_manual": int(has[0].sum() + has[1].sum()), sta_kernel: int(has[2].sum()),
            "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
     if dispatch == "batched":
@@ -3023,7 +3114,7 @@ def train_launches(kernels, num_layers: int) -> dict:
             "flash_lse": 2 * (1 + 4 * (n - 1)), "flash_dq": 1 + 4 * (n - 1),
             "flash_dkv": 3 * (n - 1), "flash_dq_wgmma": 1 + 3 * (n - 1),
             "flash_dkv_wgmma": 2 * (n - 1), "fused_norm": 2 * n + 1 + 2 * 2 * n + 1,
-            "prologue": n}
+            "prologue": n, "prologue_rows": n}
 
 
 def run_train_main_path(torch, card: str):

@@ -50,7 +50,13 @@ Hopper kernels against the plain version and the mma.sync kernels at
 blocks 128 / 1024 / 2048 x 512, kv tails inside a 128-key slot, kv tiles
 wholly past the tail, a kv block no q block visits and an empty q block
 (exact zeros), need_dq / need_dkv alone (bit for bit), and the rule's
-split on the card.  Tolerances: 1e-5 x max
+split on the card; the prologue's warp-per-row kernel against its plain
+version and the block-per-row kernel (strided slices, head scope, qk_norm
+off, rows no CTA divides, many rows a warp, the 14B width, its normalised
+values within one bf16 ulp, a layout the C entry refuses) and sta_row's
+Hopper path against its plain version and its mma.sync kernel (with and
+without the text tail, inactive heads, full width, a shape the C entry
+refuses).  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -1017,7 +1023,8 @@ def test_wan_forward_on_card_matches_cpu(card):
         want = cpu(lat, t, ctx, attn_cfg=attn).sample
     layers = cfg.num_layers
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": 2 * layers,
-                        "fused_norm": 2 * layers + 1, "prologue": layers}
+                        "fused_norm": 2 * layers + 1, "prologue": layers,
+                        "prologue_rows": layers}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -1066,8 +1073,8 @@ def test_routed_forward_on_card_matches_cpu(card):
     n = cfg.num_layers
     assert (res.expert_ids == np.array([0, 1, 2, 2])).all()
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
-                        "fused_norm": 2 * n + 1, "prologue": n, "flash_manual": 2 * n,
-                        "sta_pipe": n, "pool_qkv": n, "unpool": n}
+                        "fused_norm": 2 * n + 1, "prologue": n, "prologue_rows": n,
+                        "flash_manual": 2 * n, "sta_pipe": n, "pool_qkv": n, "unpool": n}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -1324,7 +1331,7 @@ def test_train_step_on_card_matches_cpu(card):
     n = cfg.num_layers
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": 10 * n,
                         "flash_lse": 8 * n - 6, "flash_dq": 4 * n - 3, "flash_dkv": 3 * n - 3,
-                        "fused_norm": 6 * n + 2, "prologue": n}
+                        "fused_norm": 6 * n + 2, "prologue": n, "prologue_rows": n}
     assert abs(loss_g - loss_c) <= 0.02 * abs(loss_c)
     assert torch.isfinite(grads_g).all()
     assert ((grads_g - grads_c).norm() / grads_c.norm()).item() < 0.1
@@ -1479,8 +1486,9 @@ def test_quantized_wan_forward_on_card_matches_cpu(card):
         want_q = cpu(lat, t, ctx, quantized_blocks=stacks["cpu"], **kw).sample
     assert (res.expert_ids == np.array([0, 1, 2, 2])).all()
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
-                        "fused_norm": 2 * n + 1, "prologue": n, "flash_manual": 2 * n,
-                        "flash_manual_int8": 2 * n, "sta_pipe": n, "pool_qkv": n, "unpool": n}
+                        "fused_norm": 2 * n + 1, "prologue": n, "prologue_rows": n,
+                        "flash_manual": 2 * n, "flash_manual_int8": 2 * n, "sta_pipe": n,
+                        "pool_qkv": n, "unpool": n}
     for got, ref in ((res.sample, want), (got_q.sample, want_q)):
         got = got.float().cpu()
         assert torch.isfinite(got).all()
@@ -2115,3 +2123,145 @@ def test_norm_rows_kernel_matches_plain(card, dim, mod, affine, rms, out_f32):
     assert _build.launches["fused_norm"] == 1
     assert got.dtype == (torch.float32 if out_f32 else torch.bfloat16)
     _close(got, _norm_ref(x, sc, sh, gamma, beta, rms=rms, eps=1e-6, out_f32=out_f32))
+
+
+# --- the prologue's warp-per-row kernel ----------------------------------------------
+
+def _bf16_ulps(a, b):
+    """max |a - b| in bf16 ulps of the larger of the two, element by element."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return ((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max().item()
+
+
+def _check_prologue_rows(card, b, s, h, strided, qk_norm, norm_scope, seed):
+    """The warp-per-row kernel on (b, s, h * 128) against the plain version
+    and the block-per-row kernel (v bitwise), and its normalised values
+    (read through an identity rotation) within one bf16 ulp of the
+    block-per-row kernel's: only the order of the sums of squares differs;
+    the last 24 rows are text-like rows, cos = 1 and sin = 0."""
+    from vorta_tpu_torch.ops.prologue import fused_qk_prologue_block, prologue_layout
+
+    d, dt = 128, torch.bfloat16
+    dim = h * d
+    assert prologue_layout(dim, h) is not None
+    g = torch.Generator(device=card).manual_seed(seed)
+    if strided:  # column slices of one fused product, read in place
+        q, k, v = _randn(g, (b, s, 3 * dim + 256), dt, 3.0)[..., :3 * dim].split(dim, dim=-1)
+    else:
+        q, k, v = (_randn(g, (b, s, dim), dt, 3.0) for _ in range(3))
+    gq, gk = (1 + 0.1 * torch.randn(dim, generator=g, device=card) for _ in range(2))
+    ang = torch.rand((s, d // 2), generator=g, device=card) * 6.28
+    cos, sin = ang.cos(), ang.sin()
+    cos[-24:], sin[-24:] = 1.0, 0.0
+    kw = dict(num_heads=h, eps=1e-6, qk_norm=qk_norm, norm_scope=norm_scope)
+    _build.reset_launches()
+    got = fused_qk_prologue(q, k, v, gq, gk, cos, sin, **kw)
+    assert (_build.launches["prologue"], _build.launches["prologue_rows"]) == (1, 1)
+    old = fused_qk_prologue_block(q, k, v, gq, gk, cos, sin, **kw)
+    assert (_build.launches["prologue"], _build.launches["prologue_rows"]) == (2, 1)
+    want = _prologue_ref(q, k, v, gq, gk, cos, sin, **kw)
+    for a, w, o in zip(got[:2], want[:2], old[:2]):
+        assert a.shape == (b, h, s, d) and a.dtype == dt
+        _close(a, w)
+        _close(a, o)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[2], old[2])
+    one, zero = torch.ones_like(cos), torch.zeros_like(sin)
+    normed = fused_qk_prologue(q, k, v, gq, gk, one, zero, **kw)
+    normed_old = fused_qk_prologue_block(q, k, v, gq, gk, one, zero, **kw)
+    assert max(_bf16_ulps(a, o) for a, o in zip(normed[:2], normed_old[:2])) <= 1
+
+
+@pytest.mark.parametrize("norm_scope", ["row", "head"])
+@pytest.mark.parametrize("qk_norm", [True, False])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("h", [2, 12, 24, 40])
+def test_prologue_rows_kernel_matches_plain_and_block(card, h, strided, qk_norm, norm_scope):
+    """12 / 24 / 40 heads of 128 (Wan-1.3B, HunyuanVideo, Wan-14B: layouts
+    (1, 6), (2, 6), (4, 5)) and 2 ((1, 1)); B = 2 and S = 333, rows that no
+    CTA's row groups divide."""
+    _check_prologue_rows(card, 2, 333, h, strided, qk_norm, norm_scope, 60)
+
+
+@pytest.mark.parametrize("h,norm_scope", [(12, "row"), (24, "head"), (40, "row")])
+def test_prologue_rows_kernel_walks_many_rows(card, h, norm_scope):
+    """More rows than the grid's row groups: each warp walks many rows, the
+    next row's loads in flight while the current one is written."""
+    _check_prologue_rows(card, 1, 20_011, h, True, True, norm_scope, 61)
+
+
+def test_prologue_rows_layout_mismatch_raises(card, monkeypatch):
+    """The C entry holds the wrapper's layout against its own: a layout the
+    C rule does not give is refused (an error, never a fallback)."""
+    from vorta_tpu_torch.ops import prologue
+
+    x = torch.zeros((1, 16, 1536), device=card, dtype=torch.bfloat16)
+    cs = torch.ones((16, 64), device=card)
+    monkeypatch.setattr(prologue, "prologue_layout", lambda dim, heads: (2, 3))
+    with pytest.raises(RuntimeError, match="prologue: CUDA error"):
+        prologue.fused_qk_prologue(x, x, x, None, None, cs, cs, num_heads=12)
+
+
+# --- sta_row's Hopper path ----------------------------------------------------------
+
+def _check_row_hopper(card, latent, tile, lt, valid, seed):
+    from vorta_tpu_torch.ops.sta_row import (
+        row_wgmma_path,
+        sta_row_attention,
+        sta_row_attention_mma_sync,
+        sta_row_attention_ref,
+    )
+
+    assert row_wgmma_path(128, latent, tile, text_len=lt)
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v = (_randn(g, (1, 3, s, 128), torch.bfloat16) for _ in range(3))
+    active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=1.2 * 128**-0.5)
+    if lt:
+        kw.update(text_k=_randn(g, (1, 3, lt, 128), torch.bfloat16),
+                  text_v=_randn(g, (1, 3, lt, 128), torch.bfloat16),
+                  text_bias=torch.where(torch.arange(lt, device=card) < valid, 0.0, -1e30)[None])
+    _build.reset_launches()
+    got = sta_row_attention(q, k, v, active, **kw)
+    assert (_build.launches["sta_row"], _build.launches["sta_row_wgmma"]) == (1, 1)
+    want = sta_row_attention_ref(q, k, v, active, **kw)
+    _close(got, want)
+    assert not got[:, 1].any()
+    mma = sta_row_attention_mma_sync(q, k, v, active, **kw)
+    assert (_build.launches["sta_row"], _build.launches["sta_row_wgmma"]) == (2, 1)
+    _close(mma, want)
+    _close(got, mma)
+
+
+@pytest.mark.parametrize("lt", [0, 24])
+@pytest.mark.parametrize("latent,tile", [
+    ((4, 6, 32), (2, 3, 8)),      # 4 w tiles a row
+    ((8, 6, 48), (2, 3, 16)),     # tile_w 16: runs of 48, two a box
+    ((2, 6, 40), (2, 3, 8)),      # one t tile: the window clamps to it
+    ((10, 18, 32), (5, 9, 8)),    # Wan 720p's tile, windows clamped on every axis
+])
+def test_sta_row_hopper_path_matches_plain_and_mma_sync(card, latent, tile, lt):
+    """Batch 1, three heads, head 1 inactive (zeros); with and without a text
+    tail of 24 keys (17 valid); the mma.sync kernel agrees."""
+    _check_row_hopper(card, latent, tile, lt, 17, 62)
+
+
+@pytest.mark.parametrize("latent,tile,lt", [
+    ((20, 45, 80), (5, 9, 8), 0),      # Wan 720p x 77f
+    ((12, 45, 80), (6, 9, 8), 256),    # HunyuanVideo 720p x 45f, 83 of 256 text keys valid
+])
+def test_sta_row_hopper_path_at_full_width(card, latent, tile, lt):
+    _check_row_hopper(card, latent, tile, lt, 83, 63)
+
+
+def test_sta_row_rule_mismatch_raises(card, monkeypatch):
+    """The C entry holds the Hopper path to its shapes: D = 64 that the rule
+    is made to give it is refused (an error, never a fallback)."""
+    from vorta_tpu_torch.ops import sta_row
+
+    q = torch.zeros((1, 2, 4 * 6 * 32, 64), device=card, dtype=torch.bfloat16)
+    monkeypatch.setattr(sta_row, "row_wgmma_path", lambda *a, **k: True)
+    with pytest.raises(RuntimeError, match="sta_row: CUDA error"):
+        sta_row.sta_row_attention(q, q, q, torch.ones(2, device=card, dtype=torch.int32),
+                                  latent_shape=(4, 6, 32), tile=(2, 3, 8))

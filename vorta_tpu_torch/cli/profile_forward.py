@@ -72,13 +72,15 @@ GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_sm90_kernel")),
     ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel")),
     ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel")),
+    # sta_row's Hopper path is sta_window_sm90_kernel too (one kernel, two
+    # wrappers): no served geometry reaches sta_row
     ("sta_window", ("sta_window_kernel", "sta_window_sm90_kernel")),
     ("sta_row", ("sta_row_kernel",)),
     ("sta_batched", ("sta_batched_kernel", "sta_batched_sm90_kernel", "sta_batched_live_kernel")),
     ("unpool", ("unpool_kernel",)),
     ("pool_qkv", ("pool_kernel",)),
     ("fused_norm", ("fused_norm_kernel", "fused_norm_rows_kernel")),
-    ("qk_prologue", ("prologue_kernel",)),
+    ("qk_prologue", ("prologue_kernel", "prologue_rows_kernel")),
     ("matmul", ("gemm", "sm90_xmma", "cutlass", "nvjet", "cublas", "conv")),
 )
 

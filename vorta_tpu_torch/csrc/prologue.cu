@@ -8,16 +8,42 @@
 // the unfused path), then the rotation of the contiguous halves of each head
 // with cos/sin (S, d/2) f32, written head-major (B, H, S, d); v is only
 // transposed.  bf16 inputs only: the port's model runs in bf16 on the card.
+// Input rows may be strided, so the three column slices of the fused qkv
+// product are read in place, without a copy.  The TPU gates (S % 16, d %
+// 128) were VMEM layout limits and do not apply.
 //
-// Bound on this card: one read of q/k/v and one write of the three head-major
-// outputs, so memory bandwidth bounds it (172.5 MB at Wan-1.3B 480p x 21f in
-// bf16, ~51 us at 3.35 TB/s).  Design: one block per token row; q and k rows
-// are read once into shared memory as f32, per-head sums of squares come from
-// one warp per head (deterministic order), and each thread writes contiguous
-// runs of a head's output row.  Input rows may be strided, so the three
-// column slices of the fused qkv product are read in place, without a copy.
-// The TPU gates (S % 16, d % 128) were VMEM layout limits and do not apply:
-// any S and any even d run here.
+// Bound on this card: one read of q/k/v and of the row's cos/sin and one
+// write of the three head-major outputs, so memory bandwidth bounds it
+// (1,364 MB at Wan-1.3B 720p x 77f: 0.407 ms at 3.35 TB/s).  Two kernels,
+// chosen per call by the wrapper's rule on (dim, heads)
+// (ops/prologue.py:prologue_layout, mirrored by the C entry):
+//
+// - prologue_rows_kernel<CH, WPR>, where d = 128 and dim = 256 * WPR * CH
+//   with CH <= 6 (every served width: 1,536, 3,072, 5,120): WPR warps a
+//   row.  Lane l of warp w holds, for each of its CH chunks c, the 8
+//   columns from 8 * ((c * WPR + w) * 32 + l), one 16-byte load each of q,
+//   k and v; one head is then 16 lanes of one chunk, its sum of squares a
+//   4-step shuffle (head scope), the row's a 5-step shuffle over the summed
+//   chunks (and, for WPR > 1, the warps' sums through shared memory behind
+//   a named barrier of the row's warps).  The rotation partner of column j
+//   < 64 of a head is column j + 64, in lane l ^ 8 of the same chunk: one
+//   shuffle per packed bf16 pair.  The lane's cos / sin (columns (l & 7) *
+//   8 .. + 7) are two 16-byte loads each per row, shared by every head and
+//   by q and k; the gains are staged once per CTA in shared memory as f32.
+//   A head's output row is 256 contiguous bytes, one 16-byte store per
+//   lane; v goes from its load registers to its store.  Each warp walks
+//   rows gridDim.x * (8 / WPR) apart and issues the next row's q / k / v
+//   loads before it computes and stores the current one, so a row's bytes
+//   are in flight while the previous row is written.
+// - prologue_kernel, for every other even d (the tiny test models, odd head
+//   counts): one block per token row; q and k rows are read once into
+//   shared memory as f32, per-head sums of squares come from one warp per
+//   head, and each thread writes contiguous runs of a head's output row.
+//
+// Both round alike: (x * r) * g with __fmul_rn, rounded to bf16 and back;
+// the rotation with separate __fmul_rn and __fsub_rn / __fadd_rn (no FMA
+// contraction); rsqrt(sum / dim + eps).  Only the order of the sum of
+// squares differs, so the two agree to one bf16 ulp.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -123,23 +149,300 @@ prologue_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
+// ---- the warp-per-row kernel ------------------------------------------------
+
+constexpr int HD = 128;        // its head dim
+constexpr int ROW_CHUNKS = 6;  // 16-byte chunks a lane holds at most (ops/prologue.py)
+
+// Its arguments: the C entry's, rows = B * S.
+struct Rows {
+  const T *q, *k, *v;
+  long long q_row, k_row, v_row;
+  const float *gq, *gk, *cosv, *sinv;
+  T *qo, *ko, *vo;
+  long long rows;
+  int S, qk_norm, head_scope;
+  float eps;
+};
+
+// A 16-byte chunk of a row, read once: not kept in L1.
+__device__ __forceinline__ uint4 load_stream(const T* p) {
+  uint4 u;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+               : "l"(p));
+  return u;
+}
+
+__device__ __forceinline__ void unpack8(const uint32_t (&w)[4], float (&f)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float sum_of_squares(const uint4& u) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float x[8];
+  unpack8(w, x);
+  float a = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) a += x[e] * x[e];
+  return a;
+}
+
+// One chunk of q or k, its 8 columns (l & 15) * 8.. of a head: normalised by
+// f (head_scope: by its head's, from the 16 lanes of the head), times the
+// gains g (8 f32 in shared memory) and rounded through bf16, then rotated
+// against the partner columns in lane l ^ 8 (lo: the head's first half,
+// x1 * cos - x2 * sin; else x1 * sin + x2 * cos); packed bf16.
+__device__ __forceinline__ uint4 rotate_chunk(const uint4& u, float f, const Rows& a,
+                                              const float* g, const float (&cs)[8],
+                                              const float (&sn)[8], bool lo) {
+  uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float x[8];
+  unpack8(w, x);
+  if (a.qk_norm) {
+    if (a.head_scope) {
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += x[e] * x[e];
+#pragma unroll
+      for (int o = 1; o < 16; o *= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+      f = rsqrtf(s / HD + a.eps);
+    }
+    const float4 g0 = *reinterpret_cast<const float4*>(g);
+    const float4 g1 = *reinterpret_cast<const float4*>(g + 4);
+    const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = to_f32(to_bf16(__fmul_rn(__fmul_rn(x[e], f), gg[e])));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = pack2(x[2 * i], x[2 * i + 1]);
+  }
+  // the values are bf16 whether normalised or not: the partner's move packed
+  uint32_t pw[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pw[i] = __shfl_xor_sync(0xffffffffu, w[i], 8);
+  float xp[8];
+  unpack8(pw, xp);
+  float o[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float own = __fmul_rn(x[e], cs[e]), other = __fmul_rn(xp[e], sn[e]);
+    o[e] = lo ? __fsub_rn(own, other) : __fadd_rn(other, own);
+  }
+  return make_uint4(pack2(o[0], o[1]), pack2(o[2], o[3]), pack2(o[4], o[5]), pack2(o[6], o[7]));
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+// Rows of dim = 256 * WPR * CH, d = 128: WPR warps a row, 8 / WPR rows a
+// block at a time; lane l of warp w holds the chunks (c * WPR + w) * 32 + l
+// of 8 columns, c < CH.  Each row group walks rows gridDim.x * (8 / WPR)
+// apart, the next row's q / k / v and cos / sin loaded before the current
+// row is computed and stored.
+template <int CH, int WPR>
+__global__ void __launch_bounds__(THREADS, 1) prologue_rows_kernel(const Rows a) {
+  constexpr int DIM = 256 * WPR * CH;
+  constexpr int H = DIM / HD;
+  constexpr int GROUPS = THREADS / 32 / WPR;
+  extern __shared__ float4 gains[];  // [2][DIM / 4]: q's gains, then k's (qk_norm)
+  __shared__ float red[2][2][THREADS / 32];  // [row parity][q, k][warp] (WPR > 1)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / WPR, wir = warp % WPR;
+  if (a.qk_norm) {
+    for (int i = threadIdx.x; i < DIM / 4; i += THREADS) {
+      gains[i] = reinterpret_cast<const float4*>(a.gq)[i];
+      gains[DIM / 4 + i] = reinterpret_cast<const float4*>(a.gk)[i];
+    }
+    __syncthreads();
+  }
+  const float* sg = reinterpret_cast<const float*>(gains);
+  const long long step = static_cast<long long>(gridDim.x) * GROUPS;
+  long long r = static_cast<long long>(blockIdx.x) * GROUPS + grp;
+  if (r >= a.rows) return;  // the whole row group together
+
+  auto col = [&](int c) { return 8 * ((c * WPR + wir) * 32 + lane); };
+  const int cs0 = (lane & 7) * 8;  // this lane's columns of cos / sin
+  uint4 nq[CH], nk[CH], nv[CH];
+  float ncs[8], nsn[8];
+  auto load_row = [&](long long rr) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      nq[c] = load_stream(a.q + rr * a.q_row + col(c));
+      nk[c] = load_stream(a.k + rr * a.k_row + col(c));
+      nv[c] = load_stream(a.v + rr * a.v_row + col(c));
+    }
+    const size_t t = static_cast<size_t>(rr % a.S) * (HD / 2) + cs0;
+    load8(a.cosv + t, ncs);
+    load8(a.sinv + t, nsn);
+  };
+  load_row(r);
+  const bool lo = (lane & 8) == 0;
+  for (int parity = 0;; parity ^= 1) {
+    const int b = static_cast<int>(r / a.S), s = static_cast<int>(r % a.S);
+    auto out = [&](int c) {  // this lane's 8 columns of its head's output row
+      const int h = (c * WPR + wir) * 2 + lane / 16;
+      return ((static_cast<size_t>(b) * H + h) * a.S + s) * HD + (lane & 15) * 8;
+    };
+    uint4 xq[CH], xk[CH];
+    float cs[8], sn[8];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      xq[c] = nq[c];
+      xk[c] = nk[c];
+      *reinterpret_cast<uint4*>(a.vo + out(c)) = nv[c];  // v only moves
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) cs[e] = ncs[e], sn[e] = nsn[e];
+    const long long rn = r + step;
+    if (rn < a.rows) load_row(rn);
+
+    float fq = 1.f, fk = 1.f;
+    if (a.qk_norm && !a.head_scope) {  // the row's RMS: chunks, then lanes, then warps
+      float sq = 0.f, sk = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        sq += sum_of_squares(xq[c]);
+        sk += sum_of_squares(xk[c]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) {
+        sq += __shfl_xor_sync(0xffffffffu, sq, o);
+        sk += __shfl_xor_sync(0xffffffffu, sk, o);
+      }
+      if constexpr (WPR > 1) {
+        float* rq = &red[parity][0][grp * WPR];
+        float* rk = &red[parity][1][grp * WPR];
+        if (lane == 0) rq[wir] = sq, rk[wir] = sk;
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(32 * WPR) : "memory");
+        sq = sk = 0.f;
+#pragma unroll
+        for (int w = 0; w < WPR; ++w) sq += rq[w], sk += rk[w];
+      }
+      fq = rsqrtf(sq / DIM + a.eps);
+      fk = rsqrtf(sk / DIM + a.eps);
+    }
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const size_t o = out(c);
+      *reinterpret_cast<uint4*>(a.qo + o) = rotate_chunk(xq[c], fq, a, sg + col(c), cs, sn, lo);
+      *reinterpret_cast<uint4*>(a.ko + o) =
+          rotate_chunk(xk[c], fk, a, sg + DIM + col(c), cs, sn, lo);
+    }
+    r = rn;
+    if (r >= a.rows) break;
+  }
+}
+
+// The warp-per-row kernel's layout for dim = heads * d: (warps a row, chunks
+// a lane), the fewest warps (1, 2 or 4) with at most ROW_CHUNKS chunks a
+// lane; {0, 0} where d != 128 or dim is not 256 * WPR * CH
+// (ops/prologue.py:prologue_layout, the same rule).
+struct Layout {
+  int wpr, ch;
+};
+Layout prologue_layout(int H, int d) {
+  const int dim = H * d;
+  if (d != HD || dim % 256) return {0, 0};
+  for (int wpr = 1; wpr <= 4; wpr *= 2)
+    if ((dim / 256) % wpr == 0 && dim / 256 / wpr <= ROW_CHUNKS) return {wpr, dim / 256 / wpr};
+  return {0, 0};
+}
+
+template <int CH, int WPR>
+cudaError_t launch_rows(const Rows& a, cudaStream_t st) {
+  constexpr int GROUPS = THREADS / 32 / WPR;
+  constexpr int SMEM = 2 * 256 * WPR * CH * static_cast<int>(sizeof(float));
+  auto kern = prologue_rows_kernel<CH, WPR>;
+  // resident blocks a multiprocessor, at the largest shared memory: the
+  // grid fills the card once, each row group walking its rows
+  static int per_sm = 0, sms = 0;
+  if (per_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, SMEM);
+    if (err != cudaSuccess || per_sm < 1) {
+      per_sm = 0;
+      return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
+    }
+  }
+  const long long groups = (a.rows + GROUPS - 1) / GROUPS;
+  const long long grid = groups < static_cast<long long>(sms) * per_sm
+                             ? groups : static_cast<long long>(sms) * per_sm;
+  kern<<<static_cast<unsigned>(grid), THREADS, a.qk_norm ? SMEM : 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// CH runs over 1..ROW_CHUNKS for one warp a row, 4..ROW_CHUNKS for two or
+// four (fewer chunks would have taken fewer warps).
+template <int WPR, int CH>
+cudaError_t launch_ch(int ch, const Rows& a, cudaStream_t st) {
+  if (ch == CH) return launch_rows<CH, WPR>(a, st);
+  if constexpr (CH < ROW_CHUNKS)
+    return launch_ch<WPR, CH + 1>(ch, a, st);
+  else
+    return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q/k/v: (B, S, H*d) with unit column stride and row strides q_row/k_row/v_row
 // (elements); gq/gk: (H*d,) f32 (read only when qk_norm); cos/sin: (S, d/2)
 // f32; qo/ko/vo: contiguous (B, H, S, d).  q/k/v and the outputs bf16.
+// wpr: the wrapper's layout rule (ops/prologue.py:prologue_layout), 0 for
+// the block-per-row kernel (any shape it takes); else it must agree with the
+// C side's, and every pointer must be 16-byte aligned and every row stride a
+// multiple of 8 elements: anything else is an error, never a fallback.
+// Returns the CUDA error code.
 extern "C" int vorta_qk_prologue(const void* q, const void* k, const void* v, long long q_row,
                                  long long k_row, long long v_row, const void* gq, const void* gk,
                                  const void* cosv, const void* sinv, void* qo, void* ko, void* vo,
                                  int B, int S, int H, int d, int qk_norm,
-                                 int head_scope, float eps, void* stream) {
+                                 int head_scope, float eps, int wpr, void* stream) {
   if (H <= 0 || H > MAX_HEADS || d <= 0 || d % 2 ||
       2 * static_cast<size_t>(H) * d * sizeof(float) > 48 * 1024 ||
       (qk_norm && (gq == nullptr || gk == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t rows = static_cast<size_t>(B) * S;
-  if (rows == 0) return static_cast<int>(cudaSuccess);
   auto st = static_cast<cudaStream_t>(stream);
+  if (wpr) {
+    const Layout lay = prologue_layout(H, d);
+    auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+    if (wpr != lay.wpr || q_row % 8 || k_row % 8 || v_row % 8 || misaligned(q) ||
+        misaligned(k) || misaligned(v) || misaligned(cosv) || misaligned(sinv) ||
+        misaligned(qo) || misaligned(ko) || misaligned(vo) ||
+        (qk_norm && (misaligned(gq) || misaligned(gk))))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (rows == 0) return static_cast<int>(cudaSuccess);
+    const Rows a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                 q_row, k_row, v_row, static_cast<const float*>(gq),
+                 static_cast<const float*>(gk), static_cast<const float*>(cosv),
+                 static_cast<const float*>(sinv), static_cast<T*>(qo), static_cast<T*>(ko),
+                 static_cast<T*>(vo), static_cast<long long>(rows), S, qk_norm, head_scope,
+                 eps};
+    const cudaError_t err = lay.wpr == 1   ? launch_ch<1, 1>(lay.ch, a, st)
+                            : lay.wpr == 2 ? launch_ch<2, 4>(lay.ch, a, st)
+                                           : launch_ch<4, 4>(lay.ch, a, st);
+    return static_cast<int>(err);
+  }
+  if (rows == 0) return static_cast<int>(cudaSuccess);
   const size_t smem = 2 * static_cast<size_t>(H) * d * sizeof(float);
   prologue_kernel<<<rows, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), q_row, k_row,

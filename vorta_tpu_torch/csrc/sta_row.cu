@@ -17,15 +17,28 @@
 // Bound on this card: at Wan-1.3B 720p x 77f with tile (5, 9, 8) (72,000
 // tokens, 9,720 keys per query) 4 * 72,000 * 9,720 * 128 = 3.6e11 FLOP per
 // head against 74 MB of operands: the tensor cores bound it (0.36 ms per
-// head at 989 TFLOP/s bf16).  Design: one CUDA block per (row of q tiles,
-// group of at most 8 of its w tiles, 16-row stripe of each tile, head,
-// batch), one warp per w tile of the group; the block stages the union of
-// its tiles' w windows, line by line, in 64-key sub-tiles of shared memory,
-// and each warp runs an online-softmax step on mma.sync m16n8k16 over the
-// n-blocks inside its own window only (sta_common.cuh), so a staged key
-// serves every warp whose window holds it.  Simple first: no wgmma, TMA or
-// cp.async pipelining yet.
+// head at 989 TFLOP/s bf16).  Two designs, chosen per call by the wrapper's
+// rule (ops/sta_row.py:row_wgmma_path, mirrored by the C entry):
+//
+// - The Hopper path (D = 128, a window box, a slot table that fits shared
+//   memory, a text tail of a multiple of 8 keys): sta_window's
+//   sta_window_sm90_kernel<0> (csrc/sta_window_src.cuh), the same kernel
+//   instantiated here, since the function is the same.  tile_w % 8 == 0
+//   makes every window run a multiple of 8 tokens, so its boxes are never
+//   padded.  The TPU kernel's row-dense idea (the q tiles of one (t, h) row
+//   share one slab of K / V lines) is that kernel's launch order on this
+//   card: the CTAs of one row of q tiles sit at adjacent blockIdx.x, so
+//   the row's shared lines come from the 50 MB L2 after their first read.
+// - The mma.sync path (D = 64, windows with no box), below: one CUDA block
+//   per (row of q tiles, group of at most 8 of its w tiles, 16-row stripe
+//   of each tile, head, batch), one warp per w tile of the group; the block
+//   stages the union of its tiles' w windows, line by line, in 64-key
+//   sub-tiles of shared memory, and each warp runs an online-softmax step
+//   on mma.sync m16n8k16 over the n-blocks inside its own window only
+//   (sta_common.cuh), so a staged key serves every warp whose window holds
+//   it.
 #include "sta_common.cuh"
+#include "sta_window_src.cuh"
 
 namespace {
 
@@ -178,16 +191,27 @@ cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
 // q, k, v, out: contiguous raster (B, H, T*HH*W, D) bf16 (q not pre-scaled);
 // active: (H,) int32 on the device; text_k / text_v: contiguous (B, H, Lt, D)
 // bf16 and text_bias (Lt,) f32, or null with Lt = 0; sl = scale * log2(e);
-// tile_w a multiple of 8.  Returns the CUDA error code.
+// tile_w a multiple of 8.  hopper: the wrapper's rule
+// (ops/sta_row.py:row_wgmma_path) chose the Hopper path, with walk
+// (n_slots, WALK_COLS) int32 on the device and boxes of box_w = run_w
+// tokens x box_h rows (csrc/sta_window_src.cuh: launch_window_online);
+// anything else there is an error, never a fallback.  Returns the CUDA
+// error code.
 extern "C" int vorta_sta_row_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                       const void* active, const void* text_k,
                                       const void* text_v, const void* text_bias, float sl,
                                       int Lt, int B, int H, int T, int HH, int W, int D, int tt,
                                       int th, int tw, int win_t, int win_h, int win_w,
-                                      void* stream) {
+                                      const void* walk, int n_slots, int box_w, int box_h,
+                                      int run_w, int hopper, void* stream) {
   if (T % tt || HH % th || W % tw || tw % 8 || (D != 64 && D != 128) || win_t < 1 ||
       win_h < 1 || win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hopper)  // the wrapper's rule picked the Hopper path: its shapes or an error
+    return launch_window_online<false>(q, k, v, out, active, text_k, text_v, text_bias, sl, Lt,
+                                       B, H, T, HH, W, D, tt, th, tw, win_t, win_h, win_w, walk,
+                                       n_slots, box_w, box_h, run_w,
+                                       static_cast<cudaStream_t>(stream));
   using bf = __nv_bfloat16;
   auto run = [&](auto launcher) {
     return launcher(B, H, static_cast<const bf*>(q), static_cast<const bf*>(k),

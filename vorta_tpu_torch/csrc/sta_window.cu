@@ -28,7 +28,8 @@
 // - The Hopper path (D = 128, a window box that lands, a slot table that
 //   fits shared memory, a text tail of a multiple of 8 keys: every served
 //   geometry): csrc/attn_sm90.cuh's mainloop with the online softmax over
-//   the window source of csrc/sta_window_src.cuh (sta_window_sm90_kernel),
+//   the window source of csrc/sta_window_src.cuh (sta_window_sm90_kernel,
+//   which sta_row.cu instantiates too),
 //   sta_pipe's Hopper path with sta_window's softmax.  At (4, 9, 10) the
 //   window's 324 runs of 30 tokens land on no 8-row multiple (27 runs per
 //   plane, 30 * box_h never a multiple of 8), so each run is read as a box
@@ -44,8 +45,6 @@
 //   gathered from its contiguous w runs into shared memory; one
 //   online-softmax step per sub-tile on mma.sync m16n8k16 (sta_common.cuh).
 //   The q tiles of one window re-read its keys from L2.
-#include <algorithm>
-
 #include "sta_common.cuh"
 #include "sta_window_src.cuh"
 
@@ -162,18 +161,6 @@ sta_window_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
-// the Hopper path: RB, the 8-column blocks of a padded run (0: runs not padded)
-template <int RB>
-__global__ void __launch_bounds__(sm90::THREADS, 1)
-sta_window_sm90_kernel(const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap tkt,
-                       const __grid_constant__ CUtensorMap tvt,
-                       const __grid_constant__ StaParams p) {
-  WindowSource<RB> src{&tk, &tv, &tkt, &tvt, p};
-  sm90::attn_mainloop<sm90::Softmax::Online, false>(src);
-}
-
 template <int D>
 cudaError_t launch(int B, int H, const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const __nv_bfloat16* v, __nv_bfloat16* out, const int* active,
@@ -210,26 +197,11 @@ extern "C" int vorta_sta_window_fwd_bf16(const void* q, const void* k, const voi
   if (T % tt || HH % th || W % tw || (D != 64 && D != 128) || win_t < 1 || win_h < 1 ||
       win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (hopper) {  // the wrapper's rule picked the Hopper path: its shapes or an error
-    const int bh = std::min(win_h, HH / th) * th, bw = std::min(win_w, W / tw) * tw;
-    const bool padded = box_w != bw;
-    if (D != sm90::D || !walk || n_slots < 1 || sta_smem_bytes(n_slots) > 232448 ||
-        run_w != bw || box_h < 1 || bh % box_h || (box_w * box_h) % 8 ||
-        box_w * box_h > sm90::BN || Lt % 8 ||
-        (padded && (box_w != 32 || bw >= box_w || bw <= box_w - 8)))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int tpt = tt * th * tw;
-    const StaParams p{static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(q),
-                      static_cast<const int*>(active), static_cast<const int*>(walk),
-                      static_cast<const float*>(text_bias), n_slots, H, T, HH, W, tt, th, tw,
-                      win_t, win_h, win_w, (tpt + sm90::BM - 1) / sm90::BM, box_w, box_h, Lt,
-                      run_w, sl};
-    auto st = static_cast<cudaStream_t>(stream);
-    auto run = [&](auto kern) {
-      return static_cast<int>(launch_window(kern, B, p, k, v, text_k, text_v, st));
-    };
-    return padded ? run(sta_window_sm90_kernel<4>) : run(sta_window_sm90_kernel<0>);
-  }
+  if (hopper)  // the wrapper's rule picked the Hopper path: its shapes or an error
+    return launch_window_online<true>(q, k, v, out, active, text_k, text_v, text_bias, sl, Lt, B,
+                                      H, T, HH, W, D, tt, th, tw, win_t, win_h, win_w, walk,
+                                      n_slots, box_w, box_h, run_w,
+                                      static_cast<cudaStream_t>(stream));
   using bf = __nv_bfloat16;
   auto run = [&](auto launcher) {
     return launcher(B, H, static_cast<const bf*>(q), static_cast<const bf*>(k),

@@ -16,6 +16,8 @@
 // columns are real tokens of the neighbouring tile; past the grid's edge
 // TMA fills them with zeros.
 #pragma once
+#include <algorithm>
+
 #include "attn_sm90.cuh"
 #include "sta_common.cuh"
 
@@ -216,6 +218,22 @@ inline bool make_window_map(CUtensorMap* map, const void* ptr, uint64_t planes, 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The stable window-dense kernel on the Hopper path (sta_window.cu's and
+// sta_row.cu's): RB, the 8-column blocks of a padded run (0: runs not
+// padded).  Its grid (launch_window) puts the q tiles of one (t, h) row of
+// tiles, and the 128-row chunks of each, at adjacent blockIdx.x, so the K /
+// V lines those tiles share come from L2 after their first read.
+template <int RB>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+sta_window_sm90_kernel(const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tkt,
+                       const __grid_constant__ CUtensorMap tvt,
+                       const __grid_constant__ StaParams p) {
+  WindowSource<RB> src{&tk, &tv, &tkt, &tvt, p};
+  sm90::attn_mainloop<sm90::Softmax::Online, false>(src);
+}
+
 // A window kernel's dynamic shared memory: the mainloop's, and the walk
 // table past its barriers (with the base's alignment slack).
 inline int sta_smem_bytes(int n_slots) { return sm90::SRC_OFF + n_slots * WALK_COLS * 4 + 1024; }
@@ -240,6 +258,43 @@ cudaError_t launch_window(Kernel kern, int B, const StaParams& p, const void* k,
   const dim3 grid((p.T / p.tt) * (p.HH / p.th) * (p.W / p.tw) * p.chunks, p.H, B);
   kern<<<grid, sm90::THREADS, smem, st>>>(tk, tv, tkt, tvt, p);
   return cudaGetLastError();
+}
+
+// The checks and launch of sta_window_sm90_kernel for the C entries of
+// sta_window.cu (PADDED_OK: runs of 25 to 31 tokens read as boxes of 32,
+// RB = 4) and sta_row.cu (its runs are multiples of 8: never padded), once
+// the wrapper's rule chose the Hopper path: walk (n_slots, WALK_COLS) int32
+// on the device, boxes of box_w tokens x box_h rows, box_w the window's run
+// (run_w) or its padding; box_h dividing the window's rows, box_w * box_h a
+// multiple of 8 up to 128; k, v, text_k, text_v and text_bias 16-byte
+// aligned.  Anything else is an error, never a fallback.
+template <bool PADDED_OK>
+int launch_window_online(const void* q, const void* k, const void* v, void* out,
+                         const void* active, const void* text_k, const void* text_v,
+                         const void* text_bias, float sl, int Lt, int B, int H, int T, int HH,
+                         int W, int D, int tt, int th, int tw, int win_t, int win_h, int win_w,
+                         const void* walk, int n_slots, int box_w, int box_h, int run_w,
+                         cudaStream_t st) {
+  const int bh = std::min(win_h, HH / th) * th, bw = std::min(win_w, W / tw) * tw;
+  const bool padded = box_w != bw;
+  if (D != sm90::D || !walk || n_slots < 1 || sta_smem_bytes(n_slots) > 232448 ||
+      run_w != bw || box_h < 1 || bh % box_h || (box_w * box_h) % 8 ||
+      box_w * box_h > sm90::BN || Lt % 8 ||
+      (padded && (!PADDED_OK || box_w != 32 || bw >= box_w || bw <= box_w - 8)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tpt = tt * th * tw;
+  const StaParams p{static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(q),
+                    static_cast<const int*>(active), static_cast<const int*>(walk),
+                    static_cast<const float*>(text_bias), n_slots, H, T, HH, W, tt, th, tw,
+                    win_t, win_h, win_w, (tpt + sm90::BM - 1) / sm90::BM, box_w, box_h, Lt,
+                    run_w, sl};
+  if constexpr (PADDED_OK) {
+    if (padded)
+      return static_cast<int>(
+          launch_window(sta_window_sm90_kernel<4>, B, p, k, v, text_k, text_v, st));
+  }
+  return static_cast<int>(
+      launch_window(sta_window_sm90_kernel<0>, B, p, k, v, text_k, text_v, st));
 }
 
 }  // namespace vorta

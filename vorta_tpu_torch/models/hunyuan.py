@@ -182,13 +182,35 @@ class AdaLNModulation(nn.Module):
         return self.linear(F.silu(temb)).float().chunk(self.n, dim=-1)
 
 
+def _row_gains(attn, h: int):
+    """The fused prologue's (dim,) f32 gains: each head's ``norm_q`` /
+    ``norm_k`` gain repeated over the h heads.  Made once per module and
+    kept while the weights stay (their version counters count in-place
+    updates: optimizer steps, ``load_state_dict``), so a served forward
+    copies no gain; made anew each call where the weights would take a
+    gradient or are inference tensors (made under inference mode, they
+    keep no version counter), and outside inference mode from a copy made
+    inside it."""
+    wq, wk = attn.norm_q.weight, attn.norm_k.weight
+    if ((torch.is_grad_enabled() and (wq.requires_grad or wk.requires_grad))
+            or wq.is_inference() or wk.is_inference()):
+        return wq.repeat(h), wk.repeat(h)
+    key = (wq._version, wk._version, wq.data_ptr(), wk.data_ptr(), h,
+           torch.is_inference_mode_enabled())
+    kept = getattr(attn, "_row_gains", None)
+    if kept is None or kept[0] != key:
+        with torch.no_grad():
+            kept = (key, wq.float().repeat(h), wk.float().repeat(h))
+        attn._row_gains = kept
+    return kept[1], kept[2]
+
+
 def _qk_prologue(attn, qp, kp, vp, cos, sin, routing_mode: str):
     """Per-head qk RMSNorm + half-RoPE + head split of (B, S, dim) q / k / v:
     the fused kernel where the gate takes it, else the same ops unfused."""
     h = attn.num_heads
     if use_fused_prologue(routing_mode, qp.shape[1], qp.shape[2], h):
-        return fused_qk_prologue(qp, kp, vp, attn.norm_q.weight.repeat(h),
-                                 attn.norm_k.weight.repeat(h), cos, sin, num_heads=h,
+        return fused_qk_prologue(qp, kp, vp, *_row_gains(attn, h), cos, sin, num_heads=h,
                                  eps=attn.norm_q.eps, norm_scope="head")
     q = apply_rope_half(attn.norm_q(_split_heads(qp, h)), cos, sin)
     k = apply_rope_half(attn.norm_k(_split_heads(kp, h)), cos, sin)

@@ -23,15 +23,19 @@ subsets of their kernel: ``flash_manual_stable``, ``sta_batched_stable``,
 ``sta_pipe_stable`` (the stable softmax) and ``sta_pipe_dots``,
 ``sta_pipe_qk``, ``sta_pipe_sT`` (sta_pipe's diagnostic variants).
 ``flash_wgmma``, ``flash_manual_wgmma``, ``sta_pipe_wgmma``,
-``sta_window_wgmma``, ``sta_batched_wgmma``, ``flash_dq_wgmma`` and
-``flash_dkv_wgmma`` count the launches that took the Hopper path
-(``csrc/attn_sm90.cuh`` and its pieces: wgmma, TMA, warp specialisation),
-as subsets of ``flash``, ``flash_manual``, ``sta_pipe``, ``sta_window``,
-``sta_batched``, ``flash_dq`` and ``flash_dkv``; the wrappers choose it by
-a rule (``ops/flash.py:wgmma_path``, ``ops/sta_pipe.py:sta_wgmma_path``,
-``ops/sta_window.py:window_wgmma_path``, ``ops/sta_batched.py:
-batched_wgmma_path``, ``ops/flash_bwd.py:bwd_wgmma_path``).  Headers
-(``*.cuh``) are part of the hash.
+``sta_window_wgmma``, ``sta_row_wgmma``, ``sta_batched_wgmma``,
+``flash_dq_wgmma`` and ``flash_dkv_wgmma`` count the launches that took
+the Hopper path (``csrc/attn_sm90.cuh`` and its pieces: wgmma, TMA, warp
+specialisation), as subsets of ``flash``, ``flash_manual``, ``sta_pipe``,
+``sta_window``, ``sta_row``, ``sta_batched``, ``flash_dq`` and
+``flash_dkv``; the wrappers choose it by a rule (``ops/flash.py:
+wgmma_path``, ``ops/sta_pipe.py:sta_wgmma_path``, ``ops/sta_window.py:
+window_wgmma_path``, ``ops/sta_row.py:row_wgmma_path``,
+``ops/sta_batched.py:batched_wgmma_path``, ``ops/flash_bwd.py:
+bwd_wgmma_path``).  ``prologue_rows`` counts the prologue's launches of
+its warp-per-row kernel (a subset of ``prologue``, by
+``ops/prologue.py:prologue_layout``).  Headers (``*.cuh``) are part of
+the hash.
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "copy_probe", "fused_residual_norm", "sta_diag", "flash_manual_stable",
            "sta_batched_stable", "sta_pipe_stable", "sta_pipe_dots", "sta_pipe_qk",
            "sta_pipe_sT", "flash_wgmma", "flash_manual_wgmma", "sta_pipe_wgmma",
-           "sta_window_wgmma", "sta_batched_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
+           "sta_window_wgmma", "sta_batched_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma",
+           "sta_row_wgmma", "prologue_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

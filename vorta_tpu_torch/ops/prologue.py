@@ -6,10 +6,14 @@ RMS over the row (``norm_scope="row"``, Wan) or per head (``"head"``), in
 f32, times the gain, rounded through the input dtype (so the result equals
 the unfused RMSNorm -> split -> ``apply_rope_half`` path), then the rotation
 of contiguous halves.  On CUDA tensors ``fused_qk_prologue`` launches
-``csrc/prologue.cu`` (bf16, any S, any even d; other dtypes raise); on CPU
-tensors it runs the plain version ``_prologue_ref``.  Inference only, as
-in the JAX package: on CUDA it raises where grad mode is on and an input
-requires grad (the plain version on the CPU stays differentiable).
+``csrc/prologue.cu`` (bf16, any S, any even d; other dtypes raise): the
+warp-per-row kernel where ``prologue_layout`` gives (dim, heads) a layout
+(d = 128 and every served width; counted as ``prologue_rows`` too), else
+the block-per-row kernel, which ``fused_qk_prologue_block`` runs at any
+shape (the card's yardstick beside the new kernel).  On CPU tensors it runs
+the plain version ``_prologue_ref``.  Inference only, as in the JAX
+package: on CUDA it raises where grad mode is on and an input requires grad
+(the plain version on the CPU stays differentiable).
 """
 
 from __future__ import annotations
@@ -39,6 +43,25 @@ def supports_prologue(s: int, dim: int, num_heads: int) -> bool:
     memory, at most 64 heads, an even head dim)."""
     d = dim // num_heads
     return dim == num_heads * d and d % 2 == 0 and num_heads <= 64 and 2 * dim * 4 <= 48 * 1024
+
+
+ROW_CHUNKS = 6  # 16-byte chunks of q, k and v a lane holds at most (csrc/prologue.cu)
+
+
+def prologue_layout(dim: int, num_heads: int) -> Optional[Tuple[int, int]]:
+    """(warps a row, chunks of 8 columns a lane) of the warp-per-row kernel:
+    head dim 128 and dim = 256 * warps * chunks, with the fewest warps (1, 2
+    or 4) that keep the chunks at most ``ROW_CHUNKS``; None (the
+    block-per-row kernel) for any other shape.  Wan-1.3B's 1,536 gives (1,
+    6), HunyuanVideo's 3,072 (2, 6), Wan-14B's 5,120 (4, 5).  The same rule
+    on both sides: the C entry refuses a layout that differs from its own."""
+    if num_heads < 1 or dim != num_heads * 128 or dim % 256:
+        return None
+    chunks = dim // 256
+    for wpr in (1, 2, 4):
+        if chunks % wpr == 0 and chunks // wpr <= ROW_CHUNKS:
+            return wpr, chunks // wpr
+    return None
 
 
 def use_fused_prologue(routing_mode: str, s: int, dim: int, num_heads: int) -> bool:
@@ -82,18 +105,22 @@ def _prologue_fn():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, ll, ll, ll, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, ctypes.c_float, p]
+                       i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _rows(x: torch.Tensor):
+def _rows(x: torch.Tensor, aligned: bool):
     """(x, row stride): a (B, S, D) view with unit column stride and evenly
     spaced rows, such as a column slice of the fused qkv product, is read in
-    place; anything else is copied first."""
+    place (for the warp-per-row kernel, ``aligned``, also 16-byte aligned
+    rows); anything else is copied first."""
     b, s, _ = x.shape
-    if x.stride(2) != 1 or (b > 1 and x.stride(0) != s * x.stride(1)):
+    if (x.stride(2) != 1 or (b > 1 and x.stride(0) != s * x.stride(1))
+            or (aligned and x.stride(1) % 8)):
         x = x.contiguous()
+    if aligned:
+        x = _build.aligned16(x)
     return x, x.stride(1)
 
 
@@ -111,6 +138,20 @@ def fused_qk_prologue(
     qk_norm: bool = True,
     norm_scope: str = "row",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _prologue(q, k, v, gain_q, gain_k, cos, sin, num_heads=num_heads, eps=eps,
+                     qk_norm=qk_norm, norm_scope=norm_scope, rows_ok=True)
+
+
+def fused_qk_prologue_block(q, k, v, gain_q, gain_k, cos, sin, **kw):
+    """``fused_qk_prologue`` on the block-per-row kernel whatever
+    ``prologue_layout`` says: the card's yardstick beside the warp-per-row
+    kernel at the same call (``chip_smoke.py`` times both), counted in
+    ``prologue`` only."""
+    return _prologue(q, k, v, gain_q, gain_k, cos, sin, rows_ok=False, **kw)
+
+
+def _prologue(q, k, v, gain_q, gain_k, cos, sin, *, num_heads: int, eps: float = 1e-6,
+              qk_norm: bool = True, norm_scope: str = "row", rows_ok: bool = True):
     b, s, dim = q.shape
     d = dim // num_heads
     if k.shape != q.shape or v.shape != q.shape or dim != num_heads * d or d % 2:
@@ -133,10 +174,13 @@ def fused_qk_prologue(
         raise NotImplementedError(f"prologue kernel: dtype {q.dtype}")
     if not supports_prologue(s, dim, num_heads):
         raise NotImplementedError(f"prologue kernel: {num_heads} heads, dim {dim}")
-    (q, q_row), (k, k_row), (v, v_row) = _rows(q), _rows(k), _rows(v)
-    gq = gain_q.float().contiguous() if qk_norm else None
-    gk = gain_k.float().contiguous() if qk_norm else None
-    cos, sin = cos.float().contiguous(), sin.float().contiguous()
+    layout = prologue_layout(dim, num_heads) if rows_ok else None
+    (q, q_row), (k, k_row), (v, v_row) = (_rows(x, layout is not None) for x in (q, k, v))
+    # f32 and contiguous already at every call site (no copy), aligned by
+    # their allocations
+    gq = _build.aligned16(gain_q.float().contiguous()) if qk_norm else None
+    gk = _build.aligned16(gain_k.float().contiguous()) if qk_norm else None
+    cos, sin = (_build.aligned16(x.float().contiguous()) for x in (cos, sin))
     qo = torch.empty((b, num_heads, s, d), dtype=q.dtype, device=dev)
     ko, vo = torch.empty_like(qo), torch.empty_like(qo)
     err = _prologue_fn()(
@@ -144,7 +188,9 @@ def fused_qk_prologue(
         _build.ptr(gq), _build.ptr(gk), cos.data_ptr(), sin.data_ptr(),
         qo.data_ptr(), ko.data_ptr(), vo.data_ptr(), b, s, num_heads, d,
         int(qk_norm), int(norm_scope == "head"), float(eps),
-        _build.stream_ptr(dev))
+        0 if layout is None else layout[0], _build.stream_ptr(dev))
     _build.check(err, "prologue")
     _build.launches["prologue"] += 1
+    if layout is not None:
+        _build.launches["prologue_rows"] += 1
     return qo, ko, vo

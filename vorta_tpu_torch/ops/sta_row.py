@@ -12,7 +12,16 @@ kernel's eligibility test (that condition and its VMEM budget), which the
 routed and joint dispatches use to choose as the JAX package does.
 
 On CUDA tensors ``sta_row_attention`` launches ``csrc/sta_row.cu`` (bf16,
-D 64 or 128); on CPU tensors it runs the plain version
+D 64 or 128): the Hopper path where ``row_wgmma_path`` says so (D = 128,
+bf16, a window box, a text tail of a multiple of 8 keys, a slot table that
+fits; counted as ``sta_row_wgmma`` too), which is sta_window's Hopper
+kernel (``csrc/sta_window_src.cuh``: ``sta_window_sm90_kernel``) over the
+same walk (``ops/sta_pipe.py:window_walk``) and by the same rule, since
+the function is the same: the row-dense sharing of K / V lines becomes
+that kernel's launch order, the q tiles of one (t, h) row at adjacent CTAs
+reading the row's lines from L2.  Else its mma.sync kernel (D = 64,
+windows with no box), which ``sta_row_attention_mma_sync`` runs at any
+shape (the card's yardstick).  On CPU tensors it runs the plain version
 ``sta_row_attention_ref``, sta_window's.
 """
 
@@ -23,7 +32,13 @@ from typing import Optional, Tuple
 import torch
 
 from .sta_pipe import _text_tail
-from .sta_window import check_window_dense, launch_window_dense, sta_window_attention_ref
+from .sta_window import (
+    check_window_dense,
+    launch_window_dense,
+    sta_window_attention_ref,
+    window_box,
+    window_wgmma_path,
+)
 
 Shape3 = Tuple[int, int, int]
 
@@ -43,6 +58,16 @@ def supports_row_dense(latent_shape: Shape3, tile: Shape3, d: int, itemsize: int
     est = (2 * 2 * slab + 2 * 2 * slab + nw * tpt * (d + 2) * 4
            + 3 * tpt * tt * th * bw * 4 + 2 * text_len * d * itemsize)
     return est < 40 * 2**20
+
+
+def row_wgmma_path(d: int, latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3), *,
+                   dtype: torch.dtype = torch.bfloat16, text_len: int = 0) -> bool:
+    """The rule of sta_row's Hopper path, for the geometries
+    ``supports_row_dense`` admits: sta_window's (``window_wgmma_path``),
+    whose kernel it runs.  Their tile_w % 8 == 0 makes every window run a
+    multiple of 8 tokens, so the box is sta_pipe's ``walk_box``, never
+    padded (the C entry refuses a padded one)."""
+    return window_wgmma_path(d, latent_shape, tile, window, dtype=dtype, text_len=text_len)
 
 
 def sta_row_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
@@ -71,6 +96,22 @@ def sta_row_attention(
 ) -> torch.Tensor:
     """Row-dense STA: the contract of sta_window_attention, for the
     geometries ``supports_row_dense`` admits."""
+    return _sta_row(q, k, v, active, latent_shape=latent_shape, tile=tile, window=window,
+                    scale=scale, text_k=text_k, text_v=text_v, text_bias=text_bias,
+                    cast_p_to_v_dtype=cast_p_to_v_dtype, hopper_ok=True)
+
+
+def sta_row_attention_mma_sync(q, k, v, active, **kw) -> torch.Tensor:
+    """``sta_row_attention`` on the mma.sync kernel whatever the rule says:
+    the card's yardstick beside the Hopper path at the same call
+    (``chip_smoke.py`` times both), counted in ``sta_row`` only."""
+    return _sta_row(q, k, v, active, hopper_ok=False, **kw)
+
+
+def _sta_row(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
+             window: Shape3 = (3, 3, 3), scale: Optional[float] = None, text_k=None,
+             text_v=None, text_bias=None, cast_p_to_v_dtype: bool = True,
+             hopper_ok: bool = True) -> torch.Tensor:
     if not cast_p_to_v_dtype:
         raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
                                   "item 11: P is always cast to v's dtype here")
@@ -86,4 +127,7 @@ def sta_row_attention(
               text_v=text_v, text_bias=text_bias)
     if q.device.type == "cpu":
         return sta_row_attention_ref(q, k, v, active, **kw)
-    return launch_window_dense("sta_row", q, k, v, active, **kw)
+    hopper = hopper_ok and row_wgmma_path(q.shape[-1], latent_shape, tile, window,
+                                          dtype=q.dtype, text_len=lt)
+    box = window_box(tuple(latent_shape), tuple(tile), tuple(window)) if hopper else None
+    return launch_window_dense("sta_row", q, k, v, active, box=box, **kw)

@@ -166,10 +166,10 @@ def sta_window_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Sha
 
 def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
                         window: Shape3, scale: float, text_k, text_v, text_bias,
-                        hopper_ok: bool = True) -> torch.Tensor:
+                        box: Optional[Tuple[int, int]]) -> torch.Tensor:
     """Checks and launches ``csrc/<kernel>.cu`` (sta_window or sta_row, one C
-    interface; sta_window's ends with its Hopper path's walk, box and choice)
-    on CUDA tensors."""
+    interface) on CUDA tensors: its Hopper path over the walk of ``box``
+    where the caller's rule gave one, else its mma.sync kernel."""
     _build.forward_only(f"{kernel}_attention", q, k, v, text_k, text_v)
     dev = _build.require_cuda(q, k, v, text_k, text_v, text_bias)
     if any(x is not None and x.dtype != torch.bfloat16 for x in (q, k, v, text_k, text_v)):
@@ -181,35 +181,26 @@ def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, t
     active = torch.as_tensor(active, device=dev).to(torch.int32).contiguous()
     if active.shape != (h,):
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
-    lib = _build.load(kernel)
-    fn = getattr(lib, f"vorta_{kernel}_fwd_bf16")
-    walked = kernel == "sta_window"
+    fn = getattr(_build.load(kernel), f"vorta_{kernel}_fwd_bf16")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        walk_types = [p] + [i] * 5 if walked else []
-        fn.argtypes = [p] * 8 + [ctypes.c_float] + [i] * 13 + walk_types + [p]
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [i] * 13 + [p] + [i] * 5 + [p]
         fn.restype = ctypes.c_int
     lt = 0 if text_k is None else text_k.shape[2]
     shape3, tile3, window3 = tuple(latent_shape), tuple(tile), tuple(window)
-    hopper = walked and hopper_ok and window_wgmma_path(d, shape3, tile3, window3, dtype=q.dtype,
-                                                        text_len=lt)
-    walk_args = []
-    if walked:
-        box = window_box(shape3, tile3, window3) if hopper else (0, 0)
-        walk = _walk_on(shape3, tile3, window3, lt, dev, box) if hopper else None
-        run_w = _extent(shape3, tile3, window3)[2]
-        walk_args = [_build.ptr(walk), 0 if walk is None else walk.shape[0], *box, run_w,
-                     int(hopper)]
+    walk = None if box is None else _walk_on(shape3, tile3, window3, lt, dev, box)
     q, k, v = (_build.aligned16(x.contiguous()) for x in (q, k, v))
     text = [None if x is None else _build.aligned16(x.contiguous())
             for x in (text_k, text_v, text_bias)]
     out = torch.empty(q.shape, dtype=v.dtype, device=dev)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
              *(_build.ptr(x) for x in text), scale * LOG2E, lt, b, h, *latent_shape, d, *tile,
-             *window, *walk_args, _build.stream_ptr(dev))
+             *window, _build.ptr(walk), 0 if walk is None else walk.shape[0],
+             *(box or (0, 0)), _extent(shape3, tile3, window3)[2], int(box is not None),
+             _build.stream_ptr(dev))
     _build.check(err, kernel)
     _build.launches[kernel] += 1
-    if hopper:
+    if box is not None:
         _build.launches[f"{kernel}_wgmma"] += 1
     return out
 
@@ -260,4 +251,8 @@ def _sta_window(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
               text_v=text_v, text_bias=text_bias)
     if q.device.type == "cpu":
         return sta_window_attention_ref(q, k, v, active, **kw)
-    return launch_window_dense("sta_window", q, k, v, active, hopper_ok=hopper_ok, **kw)
+    lt = 0 if text_k is None else text_k.shape[2]
+    hopper = hopper_ok and window_wgmma_path(q.shape[-1], latent_shape, tile, window,
+                                             dtype=q.dtype, text_len=lt)
+    box = window_box(tuple(latent_shape), tuple(tile), tuple(window)) if hopper else None
+    return launch_window_dense("sta_window", q, k, v, active, box=box, **kw)
