@@ -6,14 +6,16 @@
 Phases, each raising on failure:
   1. device: torch / CUDA versions, the card's name and power limit; build
      the CUDA kernels from csrc/ (one nvcc per source, in parallel); ptxas's
-     registers and spills of every kernel, and of the Hopper path's ten
+     registers and spills of every kernel, and of the Hopper path's fifteen
      instantiations (csrc/attn_sm90.cuh: flash's, flash_manual's bf16 and
      int8, sta_pipe's window walk, sta_window's two (runs padded to 32
      tokens or not), sta_row's (sta_window's unpadded kernel, built in
-     csrc/sta_row.cu), sta_batched's pair-bit walk; and the backward's dq
-     and dk/dv kernels of csrc/flash_bwd.cu on its pieces; none may
-     spill) with its dynamic shared memory, and of the norm's and the qk
-     prologue's warp-per-row kernels (48 and 12; no spills either).  Every flash, flash_manual, sta_pipe,
+     csrc/sta_row.cu), sta_batched's pair-bit walk, sta_diag's five
+     bisection variants over its chunk walk; and the backward's dq and
+     dk/dv kernels of csrc/flash_bwd.cu on its pieces; none may spill)
+     with its dynamic shared memory, and of the norm's and the qk
+     prologue's warp-per-row kernels and unpool's batched 16-byte copy (48,
+     12 and 10; no spills either).  Every flash, flash_manual, sta_pipe,
      sta_window and sta_batched row reports its achieved TFLOP/s, its share
      of the bound and its ratio to the library call; every sta_pipe,
      sta_window and sta_batched row also the mma.sync kernel's time in the
@@ -33,13 +35,18 @@ Phases, each raising on failure:
      self-attention (1,12,72000,128), held against the plain version on one
      head, beside SDPA on all twelve; flash_manual, sta_pipe,
      pool_qkv and unpool at the routed path's (480p x 77 frames = 31,200
-     tokens; sta_pipe also at 720p's tile), some heads routed away; the
-     AdaLN norm also at 480p x 77f (1,31200,1536).
+     tokens; sta_pipe also at 720p's tile), some heads routed away; unpool
+     on its batched 16-byte copy (counted), bit for bit against the plain
+     version and the first design's kernel (unpool_per_group), the two, the
+     plain version and torch.gather over a precomputed index timed in one
+     call with the host's enqueue hidden; the AdaLN norm also at 480p x
+     77f (1,31200,1536).
   2h. the pool's head-map mode (pool_qkv / unpool over the routed heads
      alone) at HunyuanVideo 720p x 45f (1,24,43200,128) with K's own
      matching, 16 of 24 heads routed, and at Wan 720p x 77f
      (1,12,72000,128), 5 and 12 of 12 routed, against their plain versions
-     and the active mode on the routed heads, timed beside the active mode;
+     and the active mode on the routed heads, timed beside the active mode
+     (unpool as in phase 2: rows kernel, first design, plain, gather);
      the copy probe of tools/bench_pool.py at Wan 720p, bitwise against its
      plain version, beside pool_qkv, index_select and its bytes bound.
   2q. int8 kernels (quantized serving): flash_manual's and sta_pipe's int8
@@ -73,8 +80,13 @@ Phases, each raising on failure:
      residual line then the fused_norm kernel) and its backward at
      (1,256,1536) (all seven gradients, relative L2 <= 1e-2); the five
      sta_diag variants at the tool's default (1,12,72000,128), tile
-     (5,9,8) (dma_only all zeros, no_dma timed only), beside sta_pipe's
-     fast call and SDPA with the STA mask; sta_pipe's stable softmax and
+     (5,9,8), each launched once on its Hopper path (counted as
+     sta_diag_wgmma), against the plain version and timed beside its
+     mma.sync kernel (sta_diag_attention_mma_sync), sta_pipe's fast call
+     and SDPA with the STA mask, with its share of the bound and, for
+     dma_only, the boxes' bytes through L2 and their rate (dma_only all
+     zeros on both kernels; no_dma run twice, timed only, then full held
+     again); sta_pipe's stable softmax and
      dots / qk / sT variants at the same call (and stable with
      HunyuanVideo's 256-key text tail at (1,24,43200,128)); flash_manual's
      stable softmax at Wan FULL (1,12,31744,128) and the HunyuanVideo FULL
@@ -105,7 +117,8 @@ Phases, each raising on failure:
      headmap12) at Wan 720p, the plain and the kernel arms, ms per stage.
   5t. python -m vorta_tpu_torch.tools.sta_diag with its five variants at
      Wan 720p, in this process: ms per call, launches exact (warm-up and
-     timed calls, 8 per variant).
+     timed calls, 8 per variant), every one on the Hopper path
+     (sta_diag_wgmma).
   5s. static scales: calibrate_mm on the card over one 480p x 77f routed
      W8A8 forward, then the forward with those static scales (amax / 127),
      its distance from the dynamic one and both times.
@@ -125,7 +138,7 @@ HunyuanVideo-13B (its phases free the Wan models first):
      FULL and LOWRES joint layouts and the STA text rows (block_q 256,
      block_kv 1024, kv_valid_len + bias), and with a bias that masks the
      kv block every row visits first; sta_pipe with the text tail (432-token
-     tiles); pool_qkv with K's own matching, and unpool; the qk prologue
+     tiles); pool_qkv with K's own matching, and unpool (as in phase 2); the qk prologue
      (head scope, text rows unrotated: warp-per-row beside block-per-row)
      and the AdaLN norm on the single block's joint stream.
   b. model check: a 1 dual + 1 single-block model at 13B widths on the card
@@ -155,9 +168,11 @@ HunyuanVideo-13B (its phases free the Wan models first):
      peak memory, and a 2-block check, card vs CPU on the same stack.
 Every main path's launch counts are exact, the Hopper path's subset
 counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
-sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma)
-and the prologue's warp-per-row counter (prologue_rows) included: on the
-served paths every qk prologue launch takes its warp-per-row kernel, and
+sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma),
+the prologue's warp-per-row counter (prologue_rows) and unpool's batched
+copy's (unpool_rows) included: on the served paths every qk prologue
+launch takes its warp-per-row kernel, every unpool launch (active and
+head-map modes; phases 5, 5d, 6, 6f, c, cf, d) the batched copy, and
 every flash, flash_manual, sta_pipe,
 sta_window and sta_batched launch takes that path (flash_manual's int8 QK
 mode too; phases 6f and cf for the two fallbacks), in training every
@@ -192,7 +207,9 @@ Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
      steps of 1 micro-step; s per micro-step, peak memory, exact launches.
 Then a line of the W8A8, static-scale and Wan-14B numbers, a {"kernels":
 [...]} line (the prologue's row with its warp-per-row launches by path;
-sta_row's with sta_row_wgmma's; flash_manual's int8 mode a row of its own; sta_pipe's, which
+unpool's with unpool_rows' and the first design's time; sta_diag's with
+sta_diag_wgmma's and its mma.sync kernel's times; sta_row's with
+sta_row_wgmma's; flash_manual's int8 mode a row of its own; sta_pipe's, which
 no main path runs, under its row's "modes"; pool_qkv's and unpool's
 head-map mode under theirs, with the HunyuanVideo routed path's launches;
 copy_probe a row whose launches are the pool benchmark tool's; sta_row, which no geometry of
@@ -262,8 +279,9 @@ HOPPER_KERNELS = ("flash", "flash_manual", "sta_pipe", "sta_window", "sta_batche
 
 def served_on_wgmma(launches: dict, what: str) -> None:
     """On a served path every flash, flash_manual (the int8 QK mode too),
-    sta_pipe, sta_window and sta_batched launch takes the Hopper path, and
-    every qk prologue launch the warp-per-row kernel (their counters are
+    sta_pipe, sta_window and sta_batched launch takes the Hopper path,
+    every qk prologue launch the warp-per-row kernel and every unpool
+    launch (either mode) the batched 16-byte copy (their counters are
     subsets)."""
     want = tuple(launches[k] for k in HOPPER_KERNELS)
     got = tuple(launches[f"{k}_wgmma"] for k in HOPPER_KERNELS)
@@ -272,9 +290,14 @@ def served_on_wgmma(launches: dict, what: str) -> None:
     if launches["prologue_rows"] != launches["prologue"]:
         raise RuntimeError(f"{what}: prologue launches {launches['prologue']}, "
                            f"{launches['prologue_rows']} of them warp-per-row")
+    unpools = launches["unpool"] + launches["unpool_headmap"]
+    if launches["unpool_rows"] != unpools:
+        raise RuntimeError(f"{what}: unpool launches {unpools}, {launches['unpool_rows']} of "
+                           "them on the batched 16-byte copy")
     log(f"{what}: " + ", ".join(f"{k} {g} of {w}" for k, g, w in zip(HOPPER_KERNELS, got, want))
         + f" launches on the Hopper path; prologue {launches['prologue_rows']} of "
-        f"{launches['prologue']} warp-per-row")
+        f"{launches['prologue']} warp-per-row; unpool {launches['unpool_rows']} of {unpools} "
+        "on the batched 16-byte copy")
 
 
 def sta_rates(t: dict, flops: float) -> dict:
@@ -320,8 +343,9 @@ def ptxas_entries(logs: dict, entry: str) -> list:
 
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and report
-    ptxas's registers and spills; the Hopper path's nine instantiations and
-    the norm's warp-per-row kernels must not spill."""
+    ptxas's registers and spills; the Hopper path's fifteen instantiations,
+    the norm's and the prologue's warp-per-row kernels and unpool's batched
+    copy must not spill."""
     from vorta_tpu_torch.ops import _build
 
     t0 = time.time()
@@ -333,6 +357,7 @@ def build_kernels() -> None:
                 log(f"ptxas {name}: {line.strip()}")
     from vorta_tpu_torch.ops.sta_pipe import window_walk
     from vorta_tpu_torch.ops.sta_window import window_box
+    from vorta_tpu_torch.tools.sta_diag import diag_walk
 
     hopper = ptxas_entries(_build.ptxas_logs, "sm90_kernel")
     smem = _build.load("flash").vorta_attn_sm90_smem_bytes()
@@ -349,28 +374,36 @@ def build_kernels() -> None:
              window_box(GRID_HY_45F, WAN_TILE_4910)),
             ("sta_row wan_720p_598", GRID_720P, (5, 9, 8), 0, None),
             ("sta_row hunyuan_45f_698", GRID_HY_45F, (6, 9, 8), HY_TEXT, None))}
+    # sta_diag's CTA holds its chunk walk and chain 0's stash: the tool's default
+    diag_smem = _build.load("sta_diag").vorta_sta_diag_sm90_smem_bytes(
+        diag_walk(GRID_720P, (5, 9, 8)).shape[0])
     # sta_batched's CTA holds its slot list: 8 bytes for each of width x 8 slots
     # at HunyuanVideo (2, 9, 8) (46 kv blocks of 1,008 keys)
     batched_smem = _build.load("sta_batched").vorta_sta_batched_sm90_smem_bytes(46 * 8)
     bwd_smem = _build.load("flash_bwd").vorta_flash_bwd_sm90_smem_bytes
     for src, entry, regs, spill in hopper:
         extra = {"sta_pipe": sta_smem, "sta_window": sta_smem, "sta_row": sta_smem,
-                 "sta_batched": batched_smem}.get(src, smem)
+                 "sta_batched": batched_smem, "sta_diag": diag_smem}.get(src, smem)
         if src == "flash_bwd":
             extra = bwd_smem(int("flash_dkv_sm90_kernel" in entry))
         log(f"ptxas Hopper path {src} {entry}: {regs}; {spill}; dynamic shared memory "
             f"{extra} bytes")
     want = ["flash", "flash_bwd", "flash_bwd", "flash_manual", "flash_manual", "sta_batched",
-            "sta_pipe", "sta_row", "sta_window", "sta_window"]
+            "sta_diag", "sta_diag", "sta_diag", "sta_diag", "sta_diag", "sta_pipe", "sta_row",
+            "sta_window", "sta_window"]
     if sorted(src for src, *_ in hopper) != want or any(
             spill is None or "0 bytes spill stores, 0 bytes spill loads" not in spill
             for *_, spill in hopper):
         raise RuntimeError(f"the Hopper path's instantiations: {hopper} (flash's, the "
                            "backward's dq and dk/dv, flash_manual's bf16 and int8, "
-                           "sta_pipe's, sta_window's two, sta_row's, sta_batched's; no spills)")
+                           "sta_diag's five variants, sta_pipe's, sta_window's two, sta_row's, "
+                           "sta_batched's; no spills)")
     # the warp-per-row kernels: the norm's 48, the prologue's 12 (one warp a
-    # row at 1-6 chunks a lane, two or four at 4-6)
-    for entry, count in (("fused_norm_rows_kernel", 48), ("prologue_rows_kernel", 12)):
+    # row at 1-6 chunks a lane, two or four at 4-6); unpool's batched copy, 10
+    # (4, 8 or 16 stores a lane at D 128, 4 or 8 at D 64, each with half as
+    # many kept-row loads or as many)
+    for entry, count in (("fused_norm_rows_kernel", 48), ("prologue_rows_kernel", 12),
+                         ("unpool_rows_kernel", 10)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
             f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
@@ -484,8 +517,8 @@ def main() -> int:
         name = k.pop("_counter")
         paths = by_path(name)
         # the Hopper path's share of the launches (the prologue's: its
-        # warp-per-row kernel's)
-        sub = "prologue_rows" if name == "prologue" else f"{name}_wgmma"
+        # warp-per-row kernel's; unpool's: its batched copy's, both modes)
+        sub = {"prologue": "prologue_rows", "unpool": "unpool_rows"}.get(name, f"{name}_wgmma")
         if sub in _build.launches:
             k["wgmma_launches_by_path" if sub.endswith("_wgmma") else "rows_launches_by_path"] = {
                 **by_path(sub), "720p_77f_off": fwd_720p["launches_off"][sub],
@@ -927,13 +960,7 @@ def check_routed_kernels(torch, card: str) -> list:
     import torch.nn.functional as F
 
     from vorta_tpu_torch.cli.sample import attention_config
-    from vorta_tpu_torch.ops.coreset_pallas import (
-        pick_gaps,
-        pool_qkv,
-        pool_qkv_ref,
-        unpool,
-        unpool_ref,
-    )
+    from vorta_tpu_torch.ops.coreset_pallas import pick_gaps, pool_qkv, pool_qkv_ref
     from vorta_tpu_torch.ops.experts import lowres_groups_for
     from vorta_tpu_torch.ops.flash_manual import (
         sparse_flash_attention_manual,
@@ -1088,17 +1115,11 @@ def check_routed_kernels(torch, card: str) -> list:
     log(f"pool_qkv: {pool_t}")
     picks = got[3]
     out_p = randn(1, h, groups.pooled_length, d)
-    unp = lambda: unpool(out_p, q, groups, active=act, picks=picks)  # noqa: E731
-    unp_plain = lambda: unpool_ref(out_p, q, groups, active=act, picks=picks)  # noqa: E731
-    if not torch.equal(unp(), unp_plain()):
-        raise RuntimeError("unpool: kernel and plain version differ (pure selection)")
-    log("unpool (1,12,15600,128) -> (1,12,31200,128): bitwise equal to the plain version")
     # reads the pooled rows and picks of the active heads, writes every head
     u_bytes = n_act * (groups.pooled_length * d * 2 + sh[2] * sh[3] * 4) + h * s * d * 2
-    bu_ms, bu_by = bound_ms(0.0, u_bytes, PEAK_BF16)
-    unpool_t = dict(ms=time_ms(torch, unp, 20), plain_ms=time_ms(torch, unp_plain, 3, 1),
-                    library_ms=None, bound_ms=bu_ms, bound_by=bu_by, max_abs_err=0.0)
-    log(f"unpool: {unpool_t}")
+    unpool_t = unpool_case(torch, "(1,12,15600,128) -> (1,12,31200,128), active mode", out_p,
+                           q, groups, picks, [i for i in range(h) if ACTIVE_HEADS[i]], u_bytes,
+                           active=act)
     out.append(dict(name="pool_qkv", route="cuda", source="vorta_tpu_torch/csrc/coreset_pool.cu",
                     replaces="vorta_tpu/ops/coreset_pallas.py:102", _counter="pool_qkv",
                     **pool_t))
@@ -1106,6 +1127,59 @@ def check_routed_kernels(torch, card: str) -> list:
                     replaces="vorta_tpu/ops/coreset_pallas.py:181", _counter="unpool",
                     **unpool_t))
     return out
+
+
+def unpool_case(torch, name: str, out_p, q, groups, picks, heads, u_bytes: float,
+                **kw) -> dict:
+    """unpool's batched 16-byte copy against its plain version and the first
+    design's kernel (``unpool_per_group``), bit for bit on the written heads
+    ``heads`` (active mode: the active ones, whose rows the yardstick
+    computes too; the inactive heads' zeros against the plain version;
+    head-map mode: the mapped ones), counted once on ``unpool_rows``; then
+    the two kernels, the plain version and the library yardstick timed in
+    one call with the host's enqueue hidden (a call's host time is of the
+    order of the kernel's).  The yardstick is one ``torch.gather(pooled, 2,
+    idx)`` over the written heads, idx each token's source row (its kept
+    row, else its group's centre) as a (B, n, S, D) int64 view expanded over
+    D, built outside the timed window: the same values on those heads."""
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.coreset_pallas import unpool, unpool_per_group, unpool_ref
+
+    unp = lambda: unpool(out_p, q, groups, picks=picks, **kw)  # noqa: E731
+    old = lambda: unpool_per_group(out_p, q, groups, picks=picks, **kw)  # noqa: E731
+    plain = lambda: unpool_ref(out_p, q, groups, picks=picks, **kw)  # noqa: E731
+    _build.reset_launches()
+    got = unp()
+    torch.cuda.synchronize()
+    if _build.launches["unpool_rows"] != 1:
+        raise RuntimeError(f"unpool {name}: not on the batched 16-byte copy ({_build.launches})")
+    want = plain()
+    hs = torch.tensor(heads, device=out_p.device)
+    if not (torch.equal(got[:, hs], want[:, hs]) and torch.equal(got[:, hs], old()[:, hs])):
+        raise RuntimeError(f"unpool {name}: the rows kernel differs from the plain version or "
+                           "the first design's kernel on the written heads (pure selection)")
+    if "active" in kw and not torch.equal(got, want):
+        raise RuntimeError(f"unpool {name}: the inactive heads' zeros differ")
+    b, _, p, d = out_p.shape
+    rows = torch.arange(p, device=out_p.device, dtype=torch.float32).reshape(1, 1, p, 1)
+    idx = unpool_ref(rows.expand(b, len(heads), p, 1).contiguous(), q[:, hs], groups,
+                     picks=picks[:, hs]).long().expand(-1, -1, -1, d)
+    src = out_p[:, hs].contiguous()
+    lib = lambda: torch.gather(src, 2, idx)  # noqa: E731
+    if not torch.equal(lib(), got[:, hs]):
+        raise RuntimeError(f"unpool {name}: the torch.gather yardstick computes another function")
+    del got, want
+    b_ms, b_by = bound_ms(0.0, u_bytes, PEAK_BF16)
+    r = dict(ms=device_ms(torch, unp, 20), per_group_ms=device_ms(torch, old, 20),
+             ms_again=device_ms(torch, unp, 20), plain_ms=time_ms(torch, plain, 2, 1),
+             library_ms=device_ms(torch, lib, 20), bound_ms=b_ms, bound_by=b_by,
+             max_abs_err=0.0, heads=len(heads),
+             library_covers="torch.gather(pooled, 2, idx) over the written heads")
+    r["bound_share"] = b_ms / r["ms"]
+    r["per_group_bound_share"] = b_ms / r["per_group_ms"]
+    log(f"unpool {name}: bitwise (plain version, first design); {r} "
+        f"({u_bytes / r['ms'] / 1e6:.1f} GB/s)")
+    return r
 
 
 def headmap_case(torch, name: str, q, k, v, groups, routed, kv_from_k: bool) -> dict:
@@ -1122,7 +1196,6 @@ def headmap_case(torch, name: str, q, k, v, groups, routed, kv_from_k: bool) -> 
         pool_qkv,
         pool_qkv_ref,
         unpool,
-        unpool_ref,
     )
 
     dev = q.device
@@ -1178,20 +1251,13 @@ def headmap_case(torch, name: str, q, k, v, groups, routed, kv_from_k: bool) -> 
     log(f"pool_qkv head-map {name}: {pool_r}")
     picks = got[3]
     out_p = torch.randn((b, h, p, d), device=dev).to(q.dtype)
-    unp = lambda: unpool(out_p, q, groups, picks=picks, **kw)  # noqa: E731
     unp_act = lambda: unpool(out_p, q, groups, picks=picks, active=act)  # noqa: E731
-    unp_plain = lambda: unpool_ref(out_p, q, groups, picks=picks, **kw)  # noqa: E731
-    up = unp()
-    if not (torch.equal(up[:, on], unp_plain()[:, on]) and torch.equal(up[:, on],
-                                                                        unp_act()[:, on])):
-        raise RuntimeError(f"unpool head-map {name}: routed heads differ from the plain "
-                           "version or the active mode")
+    if not torch.equal(unpool(out_p, q, groups, picks=picks, **kw)[:, on], unp_act()[:, on]):
+        raise RuntimeError(f"unpool head-map {name}: routed heads differ from the active mode")
     u_bytes = n * (p * d * 2 + s * d * 2) + picks_b
-    bu_ms, bu_by = bound_ms(0.0, u_bytes, PEAK_BF16)
-    unpool_r = dict(ms=time_ms(torch, unp, 20), active_ms=time_ms(torch, unp_act, 20),
-                    plain_ms=time_ms(torch, unp_plain, 2, 1), library_ms=None, bound_ms=bu_ms,
-                    bound_by=bu_by, max_abs_err=0.0, heads=n)
-    log(f"unpool head-map {name}: bitwise on the routed heads; {unpool_r}")
+    unpool_r = unpool_case(torch, f"head-map {name}", out_p, q, groups, picks,
+                           torch.nonzero(on).flatten().tolist(), u_bytes, **kw)
+    unpool_r["active_ms"] = device_ms(torch, unp_act, 20)
     return {"pool_qkv": pool_r, "unpool": unpool_r}
 
 
@@ -1548,13 +1614,7 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
     from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, hunyuan_rope_tables
     from vorta_tpu_torch.ops import joint_experts as joint
     from vorta_tpu_torch.ops.coreset import group_view, slot_similarity
-    from vorta_tpu_torch.ops.coreset_pallas import (
-        pick_gaps,
-        pool_qkv,
-        pool_qkv_ref,
-        unpool,
-        unpool_ref,
-    )
+    from vorta_tpu_torch.ops.coreset_pallas import pick_gaps, pool_qkv, pool_qkv_ref
     from vorta_tpu_torch.ops.experts import lowres_groups_for
     from vorta_tpu_torch.ops.flash import dense_tables
     from vorta_tpu_torch.ops.flash_manual import (
@@ -1735,16 +1795,10 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
     log(f"pool_qkv (K matching): {out['pool_qkv']['hunyuan_45f_k_matching']}")
     picks = got[3]
     out_p = randn(1, h, p, d)
-    unp = lambda: unpool(out_p, q, groups, active=act, picks=picks)  # noqa: E731
-    unp_plain = lambda: unpool_ref(out_p, q, groups, active=act, picks=picks)  # noqa: E731
-    if not torch.equal(unp(), unp_plain()):
-        raise RuntimeError("unpool: kernel and plain version differ (pure selection)")
     u_bytes = n_act * (p * d * 2 + sh[2] * sh[3] * 4) + h * sv * d * 2
-    bu_ms, bu_by = bound_ms(0.0, u_bytes, PEAK_BF16)
-    out["unpool"]["hunyuan_45f"] = dict(
-        ms=time_ms(torch, unp, 20), plain_ms=time_ms(torch, unp_plain, 2, 1), library_ms=None,
-        bound_ms=bu_ms, bound_by=bu_by, max_abs_err=0.0)
-    log(f"unpool (1,24,21600,128) -> (1,24,43200,128), bitwise: {out['unpool']['hunyuan_45f']}")
+    out["unpool"]["hunyuan_45f"] = unpool_case(
+        torch, "(1,24,21600,128) -> (1,24,43200,128), active mode", out_p, q, groups, picks,
+        [i for i in range(h) if HY_ACTIVE[i]], u_bytes, active=act)
     del q, k, v, got, want, out_p
 
     # ---- the qk prologue (head scope) and the AdaLN norm on the single block's
@@ -1790,7 +1844,7 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
     text rows stay bf16).  Every flash_manual launch takes the Hopper path,
     and so does every launch of the STA kernel on a served geometry
     (sta_pipe; sta_batched at (2, 9, 8); sta_window); every prologue launch
-    the warp-per-row kernel."""
+    the warp-per-row kernel, every unpool launch the batched 16-byte copy."""
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
@@ -1801,8 +1855,8 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
             "prologue_rows": 60 * n_fwd, "fused_norm": 121 * n_fwd,
             "flash_manual": experts + text_rows, sta_kernel: int(has[2].sum()),
             f"{sta_kernel}_wgmma": int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
-            "unpool_headmap": int(has[1].sum()), "flash_manual_int8": experts if int8 else 0,
-            "flash_manual_wgmma": experts + text_rows}
+            "unpool_headmap": int(has[1].sum()), "unpool_rows": int(has[1].sum()),
+            "flash_manual_int8": experts if int8 else 0, "flash_manual_wgmma": experts + text_rows}
 
 
 HY_MODEL_MODES = (("off", False), ("hard", False), ("off", True), ("hard", True))
@@ -2336,7 +2390,8 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
     LOWRES head) or "switch" (each head its own expert: a flash_manual per
     FULL / LOWRES head, an STA launch per STA head).  Every flash,
     flash_manual and sta_pipe launch takes the Hopper path, every prologue
-    launch the warp-per-row kernel; ``int8``: flash_manual in the int8 QK
+    launch the warp-per-row kernel, every unpool launch the batched 16-byte
+    copy; ``int8``: flash_manual in the int8 QK
     mode.  The STA kernel is sta_pipe, or sta_window at a tile whose window
     sta_pipe's gate refuses (every one of its served launches on the Hopper
     path too)."""
@@ -2360,6 +2415,7 @@ def routed_wan_launches(tables, sta_kernel: str, n_fwd: int, dispatch: str = "ma
                     sta_kernel: int(heads[2].sum())})
     for k in HOPPER_KERNELS:
         out[f"{k}_wgmma"] = out[k]
+    out["unpool_rows"] = out["unpool"] + out["unpool_headmap"]
     out["flash_manual_int8"] = out["flash_manual"] if int8 else 0
     return out
 
@@ -3357,7 +3413,12 @@ def check_options_kernels(torch, card: str) -> dict:
         sta_pipe_attention_mma_sync,
         sta_pipe_attention_ref,
     )
-    from vorta_tpu_torch.tools.sta_diag import VARIANTS, sta_diag_attention, sta_diag_ref
+    from vorta_tpu_torch.tools.sta_diag import (
+        VARIANTS,
+        sta_diag_attention,
+        sta_diag_attention_mma_sync,
+        sta_diag_ref,
+    )
 
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3446,32 +3507,50 @@ def check_options_kernels(torch, card: str) -> dict:
     out["sta_pipe_fast"] = dict(ms=pipe_fast_ms, mma_sync_ms=time_ms(
         torch, lambda: sta_pipe_attention_mma_sync(q, k, v, all12, **skw), 5),
         plain_ms=fast_plain_ms, bound_ms=fast_b_ms, bound_by=fast_b_by, max_abs_err=fast_err)
-    box_bytes = h * (n // int(np.prod(tile))) * keys * d * 2 * 2  # each tile's K / V box
+    # each q tile's K / V box once; the Hopper path's 128-row CTAs (3 a 360-row
+    # tile) each read it through L2
+    box_bytes = h * (n // int(np.prod(tile))) * keys * d * 2 * 2
+    l2_bytes = box_bytes * -(-int(np.prod(tile)) // 128)
     for var in VARIANTS:
         kern = lambda: sta_diag_attention(q, k, v, variant=var, **skw)  # noqa: E731
+        mma = lambda: sta_diag_attention_mma_sync(q, k, v, variant=var, **skw)  # noqa: E731
+        sta_path_once(torch, f"sta_diag {var}", kern, True, kernel="sta_diag")
+        mma_err = None
         if var == "dma_only":
-            got = kern()
-            torch.cuda.synchronize()
-            if got.any():
+            if kern().any() or mma().any():
                 raise RuntimeError("sta_diag dma_only: a non-zero output")
             err, plain_ms = 0.0, None
-            del got
-        elif var == "no_dma":  # undefined output: timed, not compared
+            mma_err = 0.0
+        elif var == "no_dma":  # undefined output: run twice and timed, not compared
+            kern(), kern()
+            torch.cuda.synchronize()
             err, plain_ms = None, None
         else:
             want, plain_ms = timed_once(torch, lambda: sta_diag_ref(q, k, v, variant=var, **skw))
-            err = compare(torch, f"sta_diag {var} (1,12,72000,128) tile {tile}", kern(), want)
+            err = compare(torch, f"sta_diag {var} (1,12,72000,128) tile {tile}, Hopper path",
+                          kern(), want)
+            mma_err = compare(torch, f"sta_diag {var}, mma.sync kernel", mma(), want)
             del want
         if var == "dma_only":
             b_ms, b_by = bound_ms(0.0, 4.0 * n * d * 2 * h, PEAK_BF16)
         else:
             b_ms, b_by = bound_ms(flops, 4.0 * n * d * 2 * h, PEAK_BF16)
-        out["sta_diag"][var] = r = dict(ms=time_ms(torch, kern, 5), plain_ms=plain_ms,
+        out["sta_diag"][var] = r = dict(ms=time_ms(torch, kern, 5),
+                                        mma_sync_ms=time_ms(torch, mma, 5),
+                                        ms_again=time_ms(torch, kern, 5), plain_ms=plain_ms,
                                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                                        mma_sync_max_abs_err=mma_err,
                                         sta_pipe_fast_ms=pipe_fast_ms)
-        log(f"sta_diag {var}: {r}; box reads {box_bytes / 1e9:.2f} GB through L2 "
-            f"({box_bytes / r['ms'] / 1e6:.1f} GB/s at one read per 360-row tile; the kernel's "
-            f"128-row blocks read each box 3 times)")
+        r["bound_share"] = b_ms / r["ms"]
+        r["mma_sync_bound_share"] = b_ms / r["mma_sync_ms"]
+        r["l2_gb_per_s"] = l2_bytes / r["ms"] / 1e6
+        log(f"sta_diag {var}: {r}; the boxes read {l2_bytes / 1e9:.2f} GB through L2 "
+            f"({r['l2_gb_per_s']:.1f} GB/s: {box_bytes / 1e9:.2f} GB of boxes, each read by "
+            f"the 3 128-row CTAs of its 360-row tile)")
+    # no_dma left no copy in flight: full again, right
+    compare(torch, "sta_diag full after no_dma", sta_diag_attention(q, k, v, **skw),
+            sta_diag_ref(q, k, v, **skw))
+    out["sta_diag"]["l2_bytes"] = l2_bytes
     out["sta_diag"]["box_bytes"] = box_bytes
     mask = sta_raster_mask(torch, grid, tile, dev)
     out["sta_diag"]["library_ms"], lib_err = masked_sdpa_ms(torch, "sta_diag", q, k, v, mask)
@@ -3614,22 +3693,24 @@ def options_kernel_rows(opt: dict, diag_ms: dict) -> list:
                 "library_ms": diag["library_ms"],
                 "max_abs_err": max(x["max_abs_err"] for x in variants.values()
                                    if x["max_abs_err"] is not None)},
-             variants=variants, box_bytes=diag["box_bytes"],
-             tool_ms_per_call=diag_ms,
+             variants=variants, box_bytes=diag["box_bytes"], l2_bytes=diag["l2_bytes"],
+             mma_sync_ms=full["mma_sync_ms"], tool_ms_per_call=diag_ms,
              library_covers="scaled_dot_product_attention with the boolean STA mask, 12 heads"),
     ]
 
 
 def run_sta_diag_path(torch, card: str):
     """python -m vorta_tpu_torch.tools.sta_diag with all five variants, in
-    this process (the launch counters see it): ms per call by variant."""
+    this process (the launch counters see it): ms per call by variant, every
+    launch on the Hopper path."""
     from vorta_tpu_torch.ops import _build
     from vorta_tpu_torch.tools import sta_diag
 
     _build.reset_launches()
     times = sta_diag.main(list(sta_diag.VARIANTS))
     launches = dict(_build.launches)
-    want = {**dict.fromkeys(_build.KERNELS, 0), "sta_diag": 2 * 4 * len(sta_diag.VARIANTS)}
+    n = 2 * 4 * len(sta_diag.VARIANTS)  # a warm-up and the timed calls, 4 each
+    want = {**dict.fromkeys(_build.KERNELS, 0), "sta_diag": n, "sta_diag_wgmma": n}
     if set(times) != set(sta_diag.VARIANTS) or launches != want:
         raise RuntimeError(f"sta_diag tool: times {times}, launches {launches} (want {want})")
     log(f"sta_diag tool on {card}: ms per call {times}; launches {launches['sta_diag']}")

@@ -56,7 +56,13 @@ off, rows no CTA divides, many rows a warp, the 14B width, its normalised
 values within one bf16 ulp, a layout the C entry refuses) and sta_row's
 Hopper path against its plain version and its mma.sync kernel (with and
 without the text tail, inactive heads, full width, a shape the C entry
-refuses).  Tolerances: 1e-5 x max
+refuses); the sta_diag bisection kernel's Hopper path (full, full_unroll,
+dots_only against the plain version and the mma.sync kernel, dma_only all
+zeros, no_dma twice and then full still right, a shape the C entry
+refuses, the tool's launches on sta_diag_wgmma) and unpool's batched
+16-byte copy (bit for bit against the plain version and the first
+design's kernel in both modes, D 64 and 128, groups of 1, 12 and 32 slots,
+U = 0 and group size - 1, counted as unpool_rows).  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -402,6 +408,7 @@ def test_sta_diag_kernel_matches_plain(card, latent, tile, d, variant):
     got = sta_diag_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert _build.launches["sta_diag"] == 1
+    assert _build.launches["sta_diag_wgmma"] == int(d == 128)  # the rule's split
     if variant == "dma_only":
         assert not got.any()
     elif variant != "no_dma":  # no_dma's output is undefined
@@ -415,6 +422,65 @@ def test_sta_diag_tool_times_every_variant(card):
     times = sta_diag.main(["--latent", "10", "18", "40", "--iters", "2", *sta_diag.VARIANTS])
     assert set(times) == set(sta_diag.VARIANTS) and all(t > 0 for t in times.values())
     assert _build.launches["sta_diag"] == 4 * len(sta_diag.VARIANTS)  # warm-up + timed
+    assert _build.launches["sta_diag_wgmma"] == 4 * len(sta_diag.VARIANTS)  # all on Hopper
+
+
+@pytest.mark.parametrize("latent,tile", [
+    ((6, 6, 40), (2, 3, 8)),      # chunks of two slots, the second holding one run
+    ((10, 18, 40), (5, 9, 8)),    # the tool's tile, clamped windows, 9 slots a chunk
+    ((8, 18, 48), (2, 9, 16)),    # runs of 48, two a slot: 9 slots of 96 keys a chunk
+    ((4, 6, 16), (2, 3, 8)),      # one slot a chunk, whole-axis windows
+])
+def test_sta_diag_hopper_path_matches_plain_and_mma_sync(card, latent, tile):
+    """The Hopper path (tools/sta_diag.py:diag_wgmma_path) of full,
+    full_unroll and dots_only against the plain version and the mma.sync
+    kernel on the same inputs (every head attends: the tool has no routing);
+    dma_only all zeros; no_dma run twice, then full still right (the
+    producer drains every copy: no launch inherits one in flight)."""
+    from vorta_tpu_torch.tools.sta_diag import (
+        diag_wgmma_path,
+        sta_diag_attention,
+        sta_diag_attention_mma_sync,
+        sta_diag_ref,
+    )
+
+    assert diag_wgmma_path(128, latent, tile)
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(18)
+    q, k, v = (_randn(g, (2, 3, s, 128), torch.bfloat16) for _ in range(3))
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3))
+    for variant in ("full", "full_unroll", "dots_only"):
+        _build.reset_launches()
+        got = sta_diag_attention(q, k, v, variant=variant, **kw)
+        torch.cuda.synchronize()
+        assert (_build.launches["sta_diag"], _build.launches["sta_diag_wgmma"]) == (1, 1)
+        _close(got, sta_diag_ref(q, k, v, variant=variant, **kw))
+        _close(got, sta_diag_attention_mma_sync(q, k, v, variant=variant, **kw))
+        assert _build.launches["sta_diag_wgmma"] == 1  # the yardstick: mma.sync
+    assert not sta_diag_attention(q, k, v, variant="dma_only", **kw).any()
+    for _ in range(2):
+        sta_diag_attention(q, k, v, variant="no_dma", **kw)
+    torch.cuda.synchronize()
+    _close(sta_diag_attention(q, k, v, variant="full", **kw),
+           sta_diag_ref(q, k, v, variant="full", **kw))
+
+
+def test_sta_diag_hopper_entry_refuses_what_its_rule_refuses(card):
+    """The C entry mirrors diag_wgmma_path: D = 64 on the Hopper path, or a
+    box that leaves its chunk, is an error, never a fallback."""
+    from vorta_tpu_torch.tools import sta_diag
+
+    latent, tile, window = (4, 6, 16), (2, 3, 8), (3, 3, 3)
+    walk = sta_diag._walk_on(latent, tile, window, card)
+    q = torch.zeros((1, 1, int(np.prod(latent)), 64), device=card, dtype=torch.bfloat16)
+    fn = sta_diag._diag_fn()
+    stream = _build.stream_ptr(card)
+    for d, box in ((64, (16, 1)), (128, (16, 2))):  # D 64; box_h 2 does not divide th = 3
+        x = q if d == 64 else torch.zeros((1, 1, q.shape[2], 128), device=card,
+                                          dtype=torch.bfloat16)
+        err = fn(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 0.1, 0, 1, 1, *latent,
+                 d, *tile, *window, walk.data_ptr(), walk.shape[0], *box, 1, stream)
+        assert err != 0
 
 
 # --- the STA fallbacks: sta_batched, sta_window, sta_row -------------------------------
@@ -615,7 +681,7 @@ def test_hunyuan_forward_sta_fallbacks_on_card_matches_cpu(card, kernel, latent,
     # the LOWRES head pools and unpools in head-map mode, as the JAX package's does
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "prologue": 2, "fused_norm": 6,
                         "flash_manual": 4 + text_rows, kernel: 2, "pool_qkv_headmap": 2,
-                        "unpool_headmap": 2, **hopper}
+                        "unpool_headmap": 2, "unpool_rows": 2, **hopper}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -654,7 +720,8 @@ def test_routed_forward_sta_window_on_card_matches_cpu(card):
     assert (res.expert_ids == np.array([0, 1, 2])).all()
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
                         "fused_norm": 2 * n + 1, "prologue": n, "flash_manual": 2 * n,
-                        "sta_window": n, "sta_window_wgmma": n, "pool_qkv": n, "unpool": n}
+                        "sta_window": n, "sta_window_wgmma": n, "pool_qkv": n, "unpool": n,
+                        "unpool_rows": n}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -683,8 +750,67 @@ def test_pool_unpool_kernels_match_plain(card, d, latent, window):
     out_p = _randn(g, (b, h, groups.pooled_length, d), torch.bfloat16)
     up = unpool(out_p, q, groups, active=active, picks=got[3])
     assert _build.launches["pool_qkv"] == 1 and _build.launches["unpool"] == 1
+    assert _build.launches["unpool_rows"] == 1
     assert torch.equal(up, unpool_ref(out_p, q, groups, active=active, picks=got[3]))
     assert not up[:, 2].any() and not got[0][:, 2].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("latent,window,rate", [
+    ((4, 6, 16), (2, 3, 2), 0.5),   # the served window, U = 5
+    ((4, 6, 16), (2, 3, 2), 0.0),   # U = 11: group size - 1
+    ((4, 6, 16), (2, 3, 2), 0.9),   # U = 0: every slot the centre's row
+    ((4, 8, 8), (2, 4, 4), 0.5),    # 32 slots: the 16-store (D 128) / 8-store (D 64) kernel
+    ((4, 8, 8), (2, 4, 4), 0.0),    # 32 slots, U = 31: as many kept-row loads as stores
+    ((4, 4, 8), (2, 2, 2), 0.0),    # 8 slots, U = 7: the 4-store kernel, 4 loads at D 128
+    ((2, 3, 4), (1, 1, 1), 0.0),    # 1 slot, U = 0
+])
+@pytest.mark.parametrize("mode", ["active", "headmap"])
+def test_unpool_rows_kernel_matches_plain_and_per_group(card, d, latent, window, rate, mode):
+    """unpool's batched 16-byte copy (ops/coreset_pallas.py:unpool_layout)
+    bit for bit against the plain version and the first design's kernel
+    (unpool_per_group), on the written heads: active mode (inactive heads
+    zero) and head-map mode (the mapped heads only), every instantiation
+    (stores and kept-row loads a lane) among the cases; random distinct picks,
+    never the centre, as the pool gives them; a pooled tensor that starts
+    16 bytes into its storage (the wrapper copies it to an aligned one)."""
+    from vorta_tpu_torch.ops.coreset import geometry_of
+    from vorta_tpu_torch.ops.coreset_pallas import (
+        _picks_shape,
+        head_map_for,
+        unpool_layout,
+        unpool_per_group,
+    )
+
+    groups = build_lowres_groups(latent, window, rate)
+    b, h, u, gs = 2, 3, groups.num_kept_margins, groups.group_size
+    assert unpool_layout(d, gs, u) is not None
+    cs = geometry_of(groups).center_slot
+    rng = np.random.default_rng(19)
+    margins = np.array([x for x in range(gs) if x != cs], dtype=np.int32)
+    picks = torch.from_numpy(np.stack([rng.permutation(margins)[:u] for _ in
+                                       range(b * h * groups.num_groups)]).astype(np.int32))
+    picks = picks.reshape(_picks_shape(groups, b, h)).to(card)
+    g = torch.Generator(device=card).manual_seed(19)
+    flat = _randn(g, (b * h * groups.pooled_length * d + 8,), torch.bfloat16)
+    out_p = flat[8:].view(b, h, groups.pooled_length, d)  # 16 bytes into its storage
+    q = torch.zeros((b, h, groups.full_length, d), device=card, dtype=torch.bfloat16)
+    if mode == "active":
+        kw, heads = dict(active=torch.tensor([1, 0, 1], device=card, dtype=torch.int32)), [0, 1, 2]
+    else:
+        hm, n = head_map_for(torch.tensor([1, 0, 1]))
+        kw, heads = dict(head_map=hm.to(card), num_active=n), [0, 2]
+    _build.reset_launches()
+    got = unpool(out_p, q, groups, picks=picks, **kw)
+    torch.cuda.synchronize()
+    counter = "unpool" if mode == "active" else "unpool_headmap"
+    assert _build.launches == {**dict.fromkeys(_build.KERNELS, 0), counter: 1, "unpool_rows": 1}
+    assert torch.equal(got[:, heads], unpool_ref(out_p, q, groups, picks=picks, **kw)[:, heads])
+    assert torch.equal(got[:, heads], unpool_per_group(out_p, q, groups, picks=picks,
+                                                       **kw)[:, heads])
+    assert _build.launches["unpool_rows"] == 1  # the yardstick took the first design
+    if mode == "active":
+        assert not got[:, 1].any()
 
 
 def test_pool_unpool_kernels_reject_what_they_do_not_take(card):
@@ -712,7 +838,7 @@ def test_pool_unpool_kernels_reject_what_they_do_not_take(card):
         assert torch.equal(up[:, routed],
                            unpool_ref(out_p, q, groups, picks=got[3], **kw)[:, routed])
         assert _build.launches == {**dict.fromkeys(_build.KERNELS, 0), "pool_qkv_headmap": 1,
-                                   "unpool_headmap": 1}
+                                   "unpool_headmap": 1, "unpool_rows": 1}
     q = q[:, :2]
     with pytest.raises(ValueError, match="distinct"):
         pool_qkv(q, q, q, groups, head_map=torch.zeros(2), num_active=2)
@@ -723,13 +849,15 @@ def test_pool_unpool_kernels_reject_what_they_do_not_take(card):
 
 
 DISPATCH_LAUNCHES = {  # heads (LOWRES, STA, LOWRES, FULL): launches per dispatch
-    None: dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=2, pool_qkv=1, unpool=1),
+    None: dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=2, pool_qkv=1, unpool=1,
+               unpool_rows=1),
     ("VORTA_LOWRES_DISPATCH", "batched"): dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=2,
-                                               pool_qkv_headmap=1, unpool_headmap=1),
+                                               pool_qkv_headmap=1, unpool_headmap=1,
+                                               unpool_rows=1),
     ("VORTA_LOWRES_DISPATCH", "hybrid"): dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=2,
-                                              pool_qkv=2, unpool=2),
+                                              pool_qkv=2, unpool=2, unpool_rows=2),
     ("VORTA_ROUTED_DISPATCH", "switch"): dict(sta_pipe=1, sta_pipe_wgmma=1, flash_manual=3,
-                                              pool_qkv=2, unpool=2),
+                                              pool_qkv=2, unpool=2, unpool_rows=2),
 }
 
 
@@ -899,7 +1027,7 @@ def test_hunyuan_forward_on_card_matches_cpu(card, mode):
     if mode == "hard":
         assert (res.expert_ids == np.array([[0, 1, 2]] * 2)).all()
         expected.update(flash_manual=6, sta_pipe=2, sta_pipe_wgmma=2, pool_qkv_headmap=2,
-                        unpool_headmap=2)
+                        unpool_headmap=2, unpool_rows=2)
     assert launches == expected
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
@@ -1074,7 +1202,8 @@ def test_routed_forward_on_card_matches_cpu(card):
     assert (res.expert_ids == np.array([0, 1, 2, 2])).all()
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
                         "fused_norm": 2 * n + 1, "prologue": n, "prologue_rows": n,
-                        "flash_manual": 2 * n, "sta_pipe": n, "pool_qkv": n, "unpool": n}
+                        "flash_manual": 2 * n, "sta_pipe": n, "pool_qkv": n, "unpool": n,
+                        "unpool_rows": n}
     assert torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() < 0.05
 
@@ -1488,7 +1617,7 @@ def test_quantized_wan_forward_on_card_matches_cpu(card):
     assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": n,
                         "fused_norm": 2 * n + 1, "prologue": n, "prologue_rows": n,
                         "flash_manual": 2 * n, "flash_manual_int8": 2 * n, "sta_pipe": n,
-                        "pool_qkv": n, "unpool": n}
+                        "pool_qkv": n, "unpool": n, "unpool_rows": n}
     for got, ref in ((res.sample, want), (got_q.sample, want_q)):
         got = got.float().cpu()
         assert torch.isfinite(got).all()

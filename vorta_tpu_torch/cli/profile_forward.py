@@ -77,7 +77,7 @@ GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("sta_window", ("sta_window_kernel", "sta_window_sm90_kernel")),
     ("sta_row", ("sta_row_kernel",)),
     ("sta_batched", ("sta_batched_kernel", "sta_batched_sm90_kernel", "sta_batched_live_kernel")),
-    ("unpool", ("unpool_kernel",)),
+    ("unpool", ("unpool_kernel", "unpool_rows_kernel")),
     ("pool_qkv", ("pool_kernel",)),
     ("fused_norm", ("fused_norm_kernel", "fused_norm_rows_kernel")),
     ("qk_prologue", ("prologue_kernel", "prologue_rows_kernel")),

@@ -2,8 +2,10 @@
 // csrc/flash.cu (online softmax, optional lse), csrc/flash_manual.cu (the
 // fast exp2(s + bias) softmax), csrc/sta_pipe.cu (the same fast softmax
 // over each q tile's sliding window), csrc/sta_window.cu (the online
-// softmax over the window, padded runs masked) and csrc/sta_batched.cu (the
-// fast softmax over pair-bit tables): one kernel template, two softmax
+// softmax over the window, padded runs masked; csrc/sta_row.cu the same),
+// csrc/sta_batched.cu (the fast softmax over pair-bit tables) and
+// csrc/sta_diag.cu (the bisection variants over a chunk walk of the window,
+// with loops of their own, Loop below): one kernel template, two softmax
 // policies and three key walks ("sources": BlockSource here, WindowSource
 // in csrc/sta_window_src.cuh, PairBitSource in csrc/sta_batched.cu).
 // csrc/flash_bwd.cu builds the backward's two Hopper kernels (dq, dk/dv)
@@ -80,6 +82,8 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"
 
 namespace vorta {
@@ -108,6 +112,33 @@ constexpr int EMPTY_ARRIVALS = CONSUMERS * 4;  // one per consumer warp
 static_assert(SMEM_BYTES <= 232448, "shared memory of one H100 block");
 
 enum class Softmax { Online, Fast };
+
+// The consumers' loop.  Served: the kernels' own.  A source that defines
+// LOOP picks another (csrc/sta_diag.cu's bisection variants):
+// - Chains: two online-softmax chains, chain-major (every slot of chain 0,
+//   then every slot of chain 1; a slot's chain is Slot::info), each with
+//   its own max and sum, summed without a common max at the end: chain 0's
+//   finished O goes to the source's stash in shared memory as bf16 pairs,
+//   its sums stay in registers;
+// - ChainsUnrolled: the same, the loop unrolled by the ring's stages, so
+//   that every stage index and barrier address is a compile-time constant;
+// - DmaOnly: the copies alone: each consumer warp waits for every slot and
+//   releases it, no product (O stays 0);
+// - NoDma: the compute of Chains with no wait for a copy in the consumers'
+//   loop (the products read whatever the ring holds).  The producer then
+//   waits for a slot's previous copy to land before it arms the slot's
+//   barrier again, and for every copy it issued before it exits, so that no
+//   phase is armed twice and no bulk copy outlives the CTA.
+enum class Loop { Served, Chains, ChainsUnrolled, DmaOnly, NoDma };
+
+template <class Src, class = void>
+struct loop_of {
+  static constexpr Loop value = Loop::Served;
+};
+template <class Src>
+struct loop_of<Src, std::void_t<decltype(Src::LOOP)>> {
+  static constexpr Loop value = Src::LOOP;
+};
 
 struct Params {
   __nv_bfloat16* out;     // (B, H, Sq, D)
@@ -679,6 +710,10 @@ struct BlockSource {
 template <Softmax SM, bool I8, class Src>
 __device__ __forceinline__ void attn_mainloop(Src& src) {
   static_assert(!I8 || SM == Softmax::Fast, "the int8 QK mode is fast-only");
+  constexpr Loop L = loop_of<Src>::value;
+  constexpr bool CHAINS = L == Loop::Chains || L == Loop::ChainsUnrolled || L == Loop::NoDma;
+  constexpr bool WAITS = L != Loop::NoDma;  // the consumers wait for each copy
+  static_assert(!CHAINS || SM == Softmax::Online, "the chains are online softmaxes");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -722,13 +757,21 @@ __device__ __forceinline__ void attn_mainloop(Src& src) {
       int stage = 0;
       uint32_t phase = 0;
       while (src.next(slot)) {
-        mbar_wait(k_empty(stage), phase ^ 1);
+        // NoDma: the slot's previous copy has landed (its parity phase ^ 1;
+        // a fresh barrier passes it), so arming the barrier again is safe
+        mbar_wait(L == Loop::NoDma ? k_full(stage) : k_empty(stage), phase ^ 1);
         src.issue_k(slot, k_smem(stage), base + BIAS_OFF + stage * BIAS_BYTES, k_full(stage));
-        mbar_wait(v_empty(stage), phase ^ 1);
+        mbar_wait(L == Loop::NoDma ? v_full(stage) : v_empty(stage), phase ^ 1);
         src.issue_v(slot, v_smem(stage), v_full(stage));
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
+        }
+      }
+      if constexpr (L == Loop::NoDma) {  // every copy issued has landed before the CTA ends
+        for (int s = 0; s < STAGES; ++s) {
+          mbar_wait(k_full(s), s < stage ? phase : phase ^ 1);
+          mbar_wait(v_full(s), s < stage ? phase : phase ^ 1);
         }
       }
     }
@@ -794,9 +837,51 @@ __device__ __forceinline__ void attn_mainloop(Src& src) {
     }
   };
 
+  // the chains (CHAINS): the running chain, chain 0's sums once it ended
+  uint32_t chain = 0;
+  float l_stash[2] = {0.f, 0.f};
+  bool stashed = false;
+
   // Intra-warpgroup overlap: tile j's QK product is issued before tile j-1's
-  // PV product, and tile j's softmax runs while that PV product is in
-  // flight; O is rescaled by tile j's alpha once the product has landed.
+  // PV product, and tile j's softmax runs while that product is in flight;
+  // O is rescaled by tile j's alpha once the product has landed.  One step
+  // of the loop: the current slot's QK on stage st (phase ph), the previous
+  // slot's PV on stage pst (phase pph).
+  auto step = [&](int st, uint32_t ph, int pst, uint32_t pph) {
+    bool sw = false;  // CHAINS: the first slot of chain 1
+    if constexpr (CHAINS) {
+      sw = slot.info != chain;
+      chain = slot.info;
+      if (sw) {  // chain 0's sums stay; chain 1 starts from no max (alpha = 0)
+        l_stash[0] = l_part[0];
+        l_stash[1] = l_part[1];
+        m_run[0] = m_run[1] = NEG_INF;
+      }
+    }
+    if constexpr (WAITS) mbar_wait(k_full(st), ph);
+    qk(st);
+    if constexpr (WAITS) mbar_wait(v_full(pst), pph);
+    issue_pv(o, pa, v_smem(pst));
+    wgmma_wait<1>();  // the QK product: the older group
+    scores();
+    softmax(st);
+    if constexpr (WAITS) release(k_empty(st));
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    if constexpr (WAITS) release(v_empty(pst));
+    if constexpr (CHAINS) {
+      if (sw) {  // chain 0's last PV product has landed: its O to the stash
+        uint32_t* w = src.stash(gbase) + wg * 128 + ltid;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) w[i * CONSUMERS * 128] = pack_bf16(o[2 * i], o[2 * i + 1]);
+        stashed = true;
+      }
+    }
+    rescale();
+    pack_p(pa, s);
+  };
+
   if constexpr (Src::Q_BY_TMA) {
     mbar_wait(bar_q, 0);
   } else {  // this warpgroup's rows by plain loads, visible to wgmma
@@ -804,42 +889,79 @@ __device__ __forceinline__ void attn_mainloop(Src& src) {
     fence_proxy_async();
     bar_sync(1 + wg, 128);
   }
-  src.next(slot);  // not idle: there is a first slot
-  mbar_wait(k_full(0), 0);
-  qk(0);
-  wgmma_wait<0>();
-  scores();
-  softmax(0);
-  release(k_empty(0));
-  pack_p(pa, s);
-  int pv_stage = 0, stage = 1 % STAGES;
-  uint32_t pv_phase = 0, phase = STAGES == 1;
-  while (src.next(slot)) {
-    mbar_wait(k_full(stage), phase);
-    qk(stage);
-    mbar_wait(v_full(pv_stage), pv_phase);
-    issue_pv(o, pa, v_smem(pv_stage));
-    wgmma_wait<1>();  // the QK product: the older group
+  if constexpr (L == Loop::DmaOnly) {
+    // the copies alone: wait for each slot and release it; O stays 0
+    int st = 0;
+    uint32_t ph = 0;
+    while (src.next(slot)) {
+      mbar_wait(k_full(st), ph);
+      release(k_empty(st));
+      mbar_wait(v_full(st), ph);
+      release(v_empty(st));
+      if (++st == STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+  } else {
+    src.next(slot);  // not idle: there is a first slot (chain 0's)
+    if constexpr (WAITS) mbar_wait(k_full(0), 0);
+    qk(0);
+    wgmma_wait<0>();
     scores();
-    softmax(stage);
-    release(k_empty(stage));
+    softmax(0);
+    if constexpr (WAITS) release(k_empty(0));
+    pack_p(pa, s);
+    int pv_stage = 0;
+    uint32_t pv_phase = 0;
+    if constexpr (L == Loop::ChainsUnrolled) {
+      // slot 2m + 1 on stage 1, slot 2m + 2 on stage 0; ph: the phase of slot 2m + 1
+      static_assert(STAGES == 2, "the loop is unrolled by the ring's two stages");
+      for (uint32_t ph = 0;; ph ^= 1) {
+        if (!src.next(slot)) {
+          pv_stage = 0;
+          pv_phase = ph;
+          break;
+        }
+        step(1, ph, 0, ph);
+        if (!src.next(slot)) {
+          pv_stage = 1;
+          pv_phase = ph;
+          break;
+        }
+        step(0, ph ^ 1, 1, ph);
+      }
+    } else {
+      int stage = 1 % STAGES;
+      uint32_t phase = STAGES == 1;
+      while (src.next(slot)) {
+        step(stage, phase, pv_stage, pv_phase);
+        pv_stage = stage;
+        pv_phase = phase;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    if constexpr (WAITS) mbar_wait(v_full(pv_stage), pv_phase);
+    issue_pv(o, pa, v_smem(pv_stage));
     wgmma_wait<0>();
     fence_regs(o);
-    fence_regs(pa);
-    release(v_empty(pv_stage));
-    rescale();
-    pack_p(pa, s);
-    pv_stage = stage;
-    pv_phase = phase;
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
+    if constexpr (CHAINS) {
+      if (stashed) {  // chain 0's O and sums join chain 1's
+        const uint32_t* w = src.stash(gbase) + wg * 128 + ltid;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const uint32_t x = w[i * CONSUMERS * 128];
+          o[2 * i] += __uint_as_float(x << 16);
+          o[2 * i + 1] += __uint_as_float(x & 0xFFFF0000u);
+        }
+        l_part[0] += l_stash[0];
+        l_part[1] += l_stash[1];
+      }
     }
   }
-  mbar_wait(v_full(pv_stage), pv_phase);
-  issue_pv(o, pa, v_smem(pv_stage));
-  wgmma_wait<0>();
-  fence_regs(o);
 
   // ---- epilogue: normalise, write CTA rows wg*64 + 16*warp + g (+ 8) -------------
 #pragma unroll

@@ -23,6 +23,27 @@
 // heads.  Values are moved, never computed: pooled and unpooled rows equal
 // their sources bit for bit.
 //
+// unpool's two kernels.  unpool_rows_kernel (the path ops/coreset_pallas.py:
+// unpool_layout gives every shape this file takes: D 64 or 128, groups of
+// 1 to 32 slots; both modes) is a batched 16-byte copy: a (head, token) row
+// is D / 8 lanes of 16 bytes, so a warp instruction moves RPI = 256 / D rows
+// (2 at D = 128, 4 at D = 64).  Per group a warp first reads every row the
+// group needs, then writes: the centre row once (the warp's RPI row parts
+// read the same bytes: one transaction), the U kept rows RPI an
+// instruction, before any store.  The picks are resolved once per group, off
+// the loads' path: lane s < group size finds which kept row, if any, names
+// its slot in one pass over the U picks (shuffles of the lane-held picks),
+// and the group's gs stores are listed as entries, the U kept rows first,
+// then the unpicked slots (the centre's value) in slot order; a warp's
+// 32-int table in shared memory turns an entry into its slot.  Each warp
+// walks groups gridDim.x * WARPS apart: it issues the next group's loads
+// and pick, stores the current group, then resolves the next group's pick,
+// which has landed meanwhile (resolved before the stores, it would leave a
+// load latency a group exposed).  unpool_kernel, the first design (a warp
+// per group, each slot a U-shuffle search then one dependent 8-byte-a-lane
+// load and store: one 256-byte row in flight per warp), stays as the
+// yardstick that ops/coreset_pallas.py:unpool_per_group runs.
+//
 // The copy probe (tools/bench_pool.py's copy_probe, the pool's data-movement
 // floor): the same cells (one warp per group) with no matching: it writes
 // slot 0 of each group as the "center" and slots 0..U-1 as the "margins", for
@@ -34,8 +55,8 @@
 // Q (8 MB) and only the 15,600 center and kept rows of K and V (2 x 4 MB),
 // and writes 3 x 4 MB per head: 28 MB, 8.4 us at 3.35 TB/s (with K's own
 // matching it reads all of K too: 32 MB); unpool reads
-// 4 MB and writes 8 MB per head (3.6 us).  Design: one warp per group, each lane
-// holding d / 32 elements of a row, so a row is one coalesced 256-byte
+// 4 MB and writes 8 MB per head (3.6 us).  The pool's design (and the copy
+// probe's): one warp per group, each lane holding d / 32 elements of a row, so a row is one coalesced 256-byte
 // access; the similarity sums reduce by warp shuffles, lane s keeps slot
 // s's similarity (a group has at most 32 slots) and the arg-min passes are
 // warp reductions.  No shared memory.
@@ -205,6 +226,100 @@ unpool_kernel(const __nv_bfloat16* __restrict__ pooled, const int* __restrict__ 
   }
 }
 
+// NL: store instructions a lane has per group (ceil(gs / RPI), rounded up to
+// 4, 8 or 16); KL: kept-row loads a lane has per group (ceil(U / RPI), as
+// NL / 2 where it fits, else NL): ops/coreset_pallas.py:unpool_layout.
+template <int D, int NL, int KL>
+__global__ void __launch_bounds__(WARPS * 32, NL <= 8 ? 2 : 1)
+unpool_rows_kernel(const __nv_bfloat16* __restrict__ pooled, const int* __restrict__ picks,
+                   const int* __restrict__ active, const int* __restrict__ head_map,
+                   __nv_bfloat16* __restrict__ out, int H, int T, int HH, int W, int wt, int wh,
+                   int ww, int U) {
+  constexpr int LPR = D / 8;     // lanes of a row, 16 bytes each
+  constexpr int RPI = 32 / LPR;  // rows a warp instruction moves
+  static_assert(KL <= NL, "a kept row is one of the group's stores");
+  __shared__ int entry_slot[WARPS][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = lane / LPR, piece = lane % LPR;
+  const int gs = wt * wh * ww, G = (T / wt) * (HH / wh) * (W / ww);
+  const int h = head_map != nullptr ? head_map[blockIdx.y] : blockIdx.y, b = blockIdx.z;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  const size_t out0 = bh * T * HH * W, in0 = bh * G * (1 + U);
+  const bool on = active == nullptr || active[h] != 0;
+  const int u = on ? U : 0;  // kept rows read: none for an inactive head (zeros)
+  int* es = entry_slot[warp];
+  const uint4* src = reinterpret_cast<const uint4*>(pooled) + piece;  // rows of D / 8 pieces
+
+  // group g's loads, issued and not waited for: the centre row, the kept
+  // rows (entry r * RPI + sub < u), this lane's pick
+  auto issue = [&](int g, uint4 (&kept)[KL], uint4& centre, int& pick) {
+    if (on) {
+      centre = __ldg(src + (in0 + g) * LPR);
+#pragma unroll
+      for (int r = 0; r < KL; ++r) {
+        const int e = r * RPI + sub;
+        if (e < U) kept[r] = __ldg(src + (in0 + G + static_cast<size_t>(g) * U + e) * LPR);
+      }
+    }
+    pick = lane < u ? __ldg(picks + (bh * G + g) * U + lane) : -1;
+  };
+  // the warp's table of each entry's slot.  Lane s < gs finds its slot's
+  // entry: kept row i where pick i names it, else u + its rank among the
+  // unpicked slots (an inactive head: every slot unpicked, u = 0).  The
+  // entries are a permutation of the group's slots whatever the picks hold:
+  // a repeated pick, or one outside the group, gives unspecified values (as
+  // the plain version's scatter does for a repeated one), never a slot
+  // unwritten or a write outside it.
+  auto resolve = [&](int my_pick) {
+    int ki = -1;
+    for (int i = 0; i < u; ++i)
+      if (__shfl_sync(0xffffffffu, my_pick, i) == lane && lane < gs) ki = i;
+    const unsigned won = __reduce_or_sync(0xffffffffu, ki >= 0 ? 1u << ki : 0u);
+    const unsigned unpicked = __ballot_sync(0xffffffffu, lane < gs && ki < 0);
+    const int entry = ki >= 0 ? __popc(won & ((1u << ki) - 1u))
+                              : __popc(won) + __popc(unpicked & ((1u << lane) - 1u));
+    __syncwarp();  // the previous group's reads of es are done
+    if (lane < gs) es[entry] = lane;
+    __syncwarp();
+  };
+  // group g's rows to the tokens of their entries' slots
+  auto store = [&](int g, const uint4 (&kept)[KL], const uint4& centre) {
+    const Group grp(g, HH, W, wh, ww);
+#pragma unroll
+    for (int r = 0; r < NL; ++r) {
+      const int e = r * RPI + sub;
+      if (e >= gs) continue;
+      const uint4 x = !on ? make_uint4(0, 0, 0, 0)
+                          : (r < KL && e < U ? kept[r < KL ? r : 0] : centre);
+      const int tok = grp.token(es[e], wt, wh, ww, HH, W);
+      reinterpret_cast<uint4*>(out + (out0 + tok) * D)[piece] = x;
+    }
+  };
+
+  // each warp: groups g, g + stride, ...; the next group's loads and pick are
+  // in flight while the current group stores, and its pick is resolved after
+  const int stride = gridDim.x * WARPS;
+  int g = blockIdx.x * WARPS + warp;
+  if (g >= G) return;
+  uint4 kept[KL], centre;
+  int pick;
+  issue(g, kept, centre, pick);
+  resolve(pick);
+  for (;;) {
+    const int gn = g + stride;
+    uint4 kept_n[KL], centre_n;
+    int pick_n = -1;
+    if (gn < G) issue(gn, kept_n, centre_n, pick_n);
+    store(g, kept, centre);
+    if (gn >= G) break;
+    resolve(pick_n);
+#pragma unroll
+    for (int r = 0; r < KL; ++r) kept[r] = kept_n[r];
+    centre = centre_n;
+    g = gn;
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 copy_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -229,6 +344,20 @@ copy_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
                   src[x] + (in0 + grp.token(i, wt, wh, ww, HH, W)) * D, lane);
   }
 }
+
+// ops/coreset_pallas.py:unpool_layout: the rows kernel's store instructions
+// a lane (ceil(gs / RPI) rounded up to 4, 8 or 16) and kept-row loads a lane
+// (NL / 2 where ceil(U / RPI) fits it, else NL); false where it takes no shape
+bool unpool_layout(int D, int gs, int U, int& NL, int& KL) {
+  if ((D != 64 && D != 128) || gs < 1 || gs > 32 || U < 0 || U >= gs) return false;
+  const int rpi = 256 / D, need = (gs + rpi - 1) / rpi;
+  NL = need <= 4 ? 4 : need <= 8 ? 8 : 16;
+  KL = (U + rpi - 1) / rpi <= NL / 2 ? NL / 2 : NL;
+  return true;
+}
+
+// groups per warp of the rows kernel (each warp walks them gridDim.x * WARPS apart)
+constexpr int GROUPS_PER_WARP = 4;
 
 bool bad_shape(int T, int HH, int W, int D, int wt, int wh, int ww, int U) {
   return T % wt || HH % wh || W % ww || (D != 64 && D != 128) || wt * wh * ww > 32 || U < 0 ||
@@ -277,17 +406,25 @@ extern "C" int vorta_coreset_pool_bf16(const void* q, const void* k, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// pooled: contiguous (B, H, G*(1+U), D) bf16; picks: (B, H, G, U) int32;
-// out: raster (B, H, T*HH*W, D) bf16; active / head_map + num_active as for
-// the pool.
+// pooled: contiguous (B, H, G*(1+U), D) bf16, 16-byte aligned; picks: (B, H,
+// G, U) int32; out: raster (B, H, T*HH*W, D) bf16; active / head_map +
+// num_active as for the pool.  stores, loads: the rows kernel's store and
+// kept-row load instructions a lane, as ops/coreset_pallas.py:unpool_layout
+// gives them (any other pair is an error), or 0, 0 for the first design's
+// kernel (unpool_per_group).
 extern "C" int vorta_coreset_unpool_bf16(const void* pooled, const void* picks,
                                          const void* active, const void* head_map, void* out,
                                          int num_active, int B, int H, int T, int HH, int W,
-                                         int D, int wt, int wh, int ww, int U, void* stream) {
+                                         int D, int wt, int wh, int ww, int U, int stores,
+                                         int loads, void* stream) {
+  int NL = 0, KL = 0;
+  const bool rows = stores != 0 || loads != 0;
   if (bad_shape(T, HH, W, D, wt, wh, ww, U) || (active == nullptr) == (head_map == nullptr) ||
-      (head_map != nullptr && (num_active < 1 || num_active > H)))
+      (head_map != nullptr && (num_active < 1 || num_active > H)) ||
+      (rows && (!unpool_layout(D, wt * wh * ww, U, NL, KL) || NL != stores || KL != loads ||
+                reinterpret_cast<uintptr_t>(pooled) % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = grid_of(B, head_map != nullptr ? num_active : H, T, HH, W, wt, wh, ww);
+  const int heads = head_map != nullptr ? num_active : H;
   auto st = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   auto* pp = static_cast<const bf*>(pooled);
@@ -295,6 +432,25 @@ extern "C" int vorta_coreset_unpool_bf16(const void* pooled, const void* picks,
   auto* act = static_cast<const int*>(active);
   auto* hm = static_cast<const int*>(head_map);
   auto* oo = static_cast<bf*>(out);
+  if (rows) {
+    const int G = (T / wt) * (HH / wh) * (W / ww);
+    const dim3 grid((G + WARPS * GROUPS_PER_WARP - 1) / (WARPS * GROUPS_PER_WARP), heads, B);
+    auto run = [&](auto kern) {
+      kern<<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt, wh, ww, U);
+    };
+    const bool half = KL < NL;
+    if (D == 128) {
+      if (NL == 4) half ? run(unpool_rows_kernel<128, 4, 2>) : run(unpool_rows_kernel<128, 4, 4>);
+      if (NL == 8) half ? run(unpool_rows_kernel<128, 8, 4>) : run(unpool_rows_kernel<128, 8, 8>);
+      if (NL == 16)
+        half ? run(unpool_rows_kernel<128, 16, 8>) : run(unpool_rows_kernel<128, 16, 16>);
+    } else {
+      if (NL == 4) half ? run(unpool_rows_kernel<64, 4, 2>) : run(unpool_rows_kernel<64, 4, 4>);
+      if (NL == 8) half ? run(unpool_rows_kernel<64, 8, 4>) : run(unpool_rows_kernel<64, 8, 8>);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid = grid_of(B, heads, T, HH, W, wt, wh, ww);
   if (D == 128)
     unpool_kernel<128><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt, wh,
                                                     ww, U);

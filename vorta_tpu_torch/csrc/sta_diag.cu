@@ -30,11 +30,43 @@
 // Bound on this card: 4 * 9,720 * 128 FLOP per query at the default geometry
 // (Wan 720p, 72,000 tokens, 12 heads): 4.30e12 FLOP, 4.35 ms at 989 TFLOP/s
 // bf16; the copies move each q tile's 9,720-key box of K and V, 11.9 GB read
-// through L2 from 0.66 GB of operands in device memory.  Design: one CUDA
-// block of 8 warps per (128-row chunk of a q tile, head, batch), the Q
-// fragments in registers, products on mma.sync m16n8k16 (mma_bf16.cuh),
-// the cp.async ring 3 sub-tiles ahead.  Simple first: no wgmma or TMA.
+// through L2 from 0.66 GB of operands in device memory.  Two designs, chosen
+// per call by the wrapper's rule (tools/sta_diag.py:diag_wgmma_path,
+// mirrored by the C entry):
+//
+// - The Hopper path (D = 128, a chunk box, a table that fits beside the
+//   stash): the served window kernels' mainloop, csrc/attn_sm90.cuh over
+//   csrc/sta_window_src.cuh's WindowSource (the window's runs as TMA boxes
+//   into a two-slot ring of 128-key K and V slots, wgmma for both products,
+//   a producer warp and two consumer warpgroups of 64 q rows, 128-row
+//   CTAs), so that each variant bisects the kernels users run:
+//   dma_only times their producer and ring, dots_only their products.  The
+//   walk (tools/sta_diag.py:diag_walk) is chunk-aligned: each slot holds
+//   runs of one chunk only, chain-major (chain 0's chunks, then chain
+//   1's), each slot's chain in the table's fourth column.  The two chains
+//   are consecutive online softmaxes in one set of registers (the
+//   mainloop's Loop::Chains): where chain 1 starts, chain 0's finished O
+//   goes to shared memory as bf16 (STASH_BYTES past the walk table: one
+//   rounding, 2^-9 of the stashed value) and its sums stay in registers,
+//   chain 1 restarts from no max, and at the end the two are summed without
+//   a common max, as the TPU kernel sums them.  Holding chain 0's O in
+//   registers instead would need 64 more a consumer thread, past the 232
+//   that setmaxnreg gives them.  The variants: FULL (Loop::Chains, the
+//   served online softmax), FULL_UNROLL (Loop::ChainsUnrolled: the slot
+//   loop unrolled by the ring's two stages, every stage index and barrier
+//   address compile-time; at most MAX_CHUNKS chunks, as the TPU tool),
+//   DOTS_ONLY (the fast mainloop, p = s * scale_log2 * 1e-3, no max, no
+//   sum), DMA_ONLY (Loop::DmaOnly) and NO_DMA (Loop::NoDma: the compute of
+//   FULL without a wait for any copy; the producer drains every copy before
+//   the CTA ends).
+// - The mma.sync path (any shape; D = 64; sta_diag_attention_mma_sync, the
+//   yardstick beside the Hopper path), the first design, below: one CUDA
+//   block of 8 warps per (128-row chunk of a q tile, head, batch), the Q
+//   fragments in registers, products on mma.sync m16n8k16 (mma_bf16.cuh),
+//   64-key sub-tiles of each chunk through a 4-slot cp.async ring 3
+//   sub-tiles ahead.
 #include "sta_common.cuh"
+#include "sta_window_src.cuh"
 
 namespace {
 
@@ -237,19 +269,128 @@ cudaError_t launch_variant(int variant, int B, int H, const __nv_bfloat16* q,
   }
 }
 
+// ---- the Hopper path ----------------------------------------------------------
+
+// both consumer warpgroups' chain-0 O as bf16 pairs: 256 threads x 32 words
+constexpr int STASH_BYTES = sm90::CONSUMERS * 128 * 32 * 4;
+
+// The source: sta_window's (no active mask, no text: every head attends),
+// over the chunk-aligned walk; a slot's chain (Slot::info) from the
+// table's fourth column; the variant's loop and softmax.
+template <int VARIANT>
+struct DiagSource : WindowSource<0> {
+  static constexpr sm90::Loop LOOP =
+      VARIANT == FULL ? sm90::Loop::Chains
+      : VARIANT == FULL_UNROLL ? sm90::Loop::ChainsUnrolled
+      : VARIANT == DMA_ONLY ? sm90::Loop::DmaOnly
+      : VARIANT == NO_DMA ? sm90::Loop::NoDma
+                          : sm90::Loop::Served;  // DOTS_ONLY: one sum, no chains
+
+  __device__ __forceinline__ bool idle() const { return false; }
+  __device__ __forceinline__ bool next(sm90::Slot& s) {
+    if (!WindowSource<0>::next(s)) return false;
+    s.info = static_cast<uint32_t>(walk[s.key0 * WALK_COLS + 3]);
+    return true;
+  }
+  // chain 0's O, past the walk table in shared memory (16-byte aligned:
+  // WALK_COLS * 4 = 144 bytes a row)
+  __device__ __forceinline__ uint32_t* stash(uint8_t* smem) const {
+    return reinterpret_cast<uint32_t*>(smem + sm90::SRC_OFF + p.n_slots * WALK_COLS * 4);
+  }
+  // the online step on the window's scores (Online: FULL, FULL_UNROLL,
+  // NO_DMA), or DOTS_ONLY's p = s * sl * 1e-3 with no max and no sum; the
+  // columns past nvalid masked (the slots are cut at multiples of 8 keys)
+  template <sm90::Softmax SM>
+  __device__ __forceinline__ void softmax(float (&s)[64], const sm90::Slot& slot, int, int t,
+                                          float sl, const float*, float (&m_run)[2],
+                                          float (&l_part)[2], float (&alpha)[2]) const {
+    using namespace sm90;
+    const bool cut = slot.nvalid < BN;
+    if constexpr (SM == Softmax::Online) {
+      if (cut)
+        window_scores<true, false, 0>(s, slot.nvalid, t, sl, nullptr, 0u);
+      else
+        window_scores<false, false, 0>(s, slot.nvalid, t, sl, nullptr, 0u);
+      online_update(s, m_run, l_part, alpha);
+    } else {
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const bool off = cut && 8 * n >= slot.nvalid;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * n + e] = off ? 0.f : (s[4 * n + e] * sl) * 1e-3f;
+      }
+    }
+  }
+};
+
+template <int VARIANT>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+sta_diag_sm90_kernel(const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tkt,
+                     const __grid_constant__ CUtensorMap tvt,
+                     const __grid_constant__ StaParams p) {
+  DiagSource<VARIANT> src{{&tk, &tv, &tkt, &tvt, p}};
+  constexpr bool FAST = VARIANT == DOTS_ONLY || VARIANT == DMA_ONLY;
+  sm90::attn_mainloop<FAST ? sm90::Softmax::Fast : sm90::Softmax::Online, false>(src);
+}
+
+// The Hopper path's checks (tools/sta_diag.py:diag_wgmma_path: D = 128, a
+// box of box_h of a chunk's runs of box_w = bw tokens, box_h dividing the
+// tile's th, box_w * box_h a multiple of 8 up to 128, the table and stash
+// in shared memory) and its launch; anything else is an error, never a
+// fallback.
+int launch_hopper(int variant, const void* q, const void* k, const void* v, void* out, float sl,
+                  int B, int H, int T, int HH, int W, int D, int tt, int th, int tw, int win_t,
+                  int win_h, int win_w, const void* walk, int n_slots, int box_w, int box_h,
+                  cudaStream_t st) {
+  const int bw = min(win_w, W / tw) * tw;
+  if (D != sm90::D || !walk || n_slots < 1 || sta_smem_bytes(n_slots, STASH_BYTES) > 232448 ||
+      box_w != bw || box_h < 1 || th % box_h || (box_w * box_h) % 8 ||
+      box_w * box_h > sm90::BN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tpt = tt * th * tw;
+  const StaParams p{static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(q),
+                    nullptr, static_cast<const int*>(walk), nullptr, n_slots, H, T, HH, W, tt,
+                    th, tw, win_t, win_h, win_w, (tpt + sm90::BM - 1) / sm90::BM, box_w, box_h,
+                    0, bw, sl};
+  auto run = [&](auto kern) {
+    return static_cast<int>(launch_window(kern, B, p, k, v, k, v, st, STASH_BYTES));
+  };
+  switch (variant) {
+    case FULL: return run(sta_diag_sm90_kernel<FULL>);
+    case FULL_UNROLL: return run(sta_diag_sm90_kernel<FULL_UNROLL>);
+    case DOTS_ONLY: return run(sta_diag_sm90_kernel<DOTS_ONLY>);
+    case DMA_ONLY: return run(sta_diag_sm90_kernel<DMA_ONLY>);
+    default: return run(sta_diag_sm90_kernel<NO_DMA>);
+  }
+}
+
 }  // namespace
+
+// The Hopper path's dynamic shared memory for a walk of n_slots rows.
+extern "C" int vorta_sta_diag_sm90_smem_bytes(int n_slots) {
+  return sta_smem_bytes(n_slots, STASH_BYTES);
+}
 
 // q, k, v, out: contiguous raster (B, H, T*HH*W, D) bf16, q not pre-scaled;
 // sl = scale * log2(e); variant: 0 full, 1 full_unroll, 2 dots_only,
-// 3 dma_only, 4 no_dma.  Returns the CUDA error code.
+// 3 dma_only, 4 no_dma.  hopper: the wrapper's rule picked the Hopper path,
+// over walk (n_slots, WALK_COLS) int32 on the device in boxes of box_w x
+// box_h (16-byte aligned k and v); else the mma.sync kernel.  Returns the
+// CUDA error code.
 extern "C" int vorta_sta_diag_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                                        float sl, int variant, int B, int H, int T, int HH, int W,
                                        int D, int tt, int th, int tw, int win_t, int win_h,
-                                       int win_w, void* stream) {
+                                       int win_w, const void* walk, int n_slots, int box_w,
+                                       int box_h, int hopper, void* stream) {
   if (T % tt || HH % th || W % tw || (D != 64 && D != 128) || win_t < 1 || win_h < 1 ||
       win_w < 1 || variant < 0 || variant > 4 ||
       (variant == FULL_UNROLL && min(win_t, T / tt) * min(win_h, HH / th) > MAX_CHUNKS))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (hopper)
+    return launch_hopper(variant, q, k, v, out, sl, B, H, T, HH, W, D, tt, th, tw, win_t, win_h,
+                         win_w, walk, n_slots, box_w, box_h, static_cast<cudaStream_t>(stream));
   using bf = __nv_bfloat16;
   auto* qq = static_cast<const bf*>(q);
   auto* kk = static_cast<const bf*>(k);

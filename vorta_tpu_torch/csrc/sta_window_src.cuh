@@ -235,14 +235,18 @@ sta_window_sm90_kernel(const __grid_constant__ CUtensorMap tk,
 }
 
 // A window kernel's dynamic shared memory: the mainloop's, and the walk
-// table past its barriers (with the base's alignment slack).
-inline int sta_smem_bytes(int n_slots) { return sm90::SRC_OFF + n_slots * WALK_COLS * 4 + 1024; }
+// table past its barriers (with the base's alignment slack), and `extra`
+// bytes of a source's own past the table (sta_diag's stash).
+inline int sta_smem_bytes(int n_slots, int extra = 0) {
+  return sm90::SRC_OFF + n_slots * WALK_COLS * 4 + extra + 1024;
+}
 
 // The four maps of a window kernel (the text maps over k / v when Lt = 0:
 // never read, any valid map will do) and its launch.
 template <class Kernel>
 cudaError_t launch_window(Kernel kern, int B, const StaParams& p, const void* k, const void* v,
-                          const void* text_k, const void* text_v, cudaStream_t st) {
+                          const void* text_k, const void* text_v, cudaStream_t st,
+                          int extra_smem = 0) {
   CUtensorMap tk, tv, tkt, tvt;
   const uint64_t planes = static_cast<uint64_t>(B) * p.H * p.T;
   const bool text = p.Lt > 0;
@@ -252,7 +256,7 @@ cudaError_t launch_window(Kernel kern, int B, const StaParams& p, const void* k,
       !sm90::make_map(&tkt, text ? text_k : k, text_rows, sm90::BN) ||
       !sm90::make_map(&tvt, text ? text_v : v, text_rows, sm90::BN))
     return cudaErrorInvalidValue;
-  const int smem = sta_smem_bytes(p.n_slots);
+  const int smem = sta_smem_bytes(p.n_slots, extra_smem);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.T / p.tt) * (p.HH / p.th) * (p.W / p.tw) * p.chunks, p.H, B);

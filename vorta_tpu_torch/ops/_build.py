@@ -34,7 +34,11 @@ window_wgmma_path``, ``ops/sta_row.py:row_wgmma_path``,
 ``ops/sta_batched.py:batched_wgmma_path``, ``ops/flash_bwd.py:
 bwd_wgmma_path``).  ``prologue_rows`` counts the prologue's launches of
 its warp-per-row kernel (a subset of ``prologue``, by
-``ops/prologue.py:prologue_layout``).  Headers (``*.cuh``) are part of
+``ops/prologue.py:prologue_layout``), ``unpool_rows`` unpool's launches of
+its batched 16-byte copy in either mode (a subset of ``unpool`` +
+``unpool_headmap``, by ``ops/coreset_pallas.py:unpool_layout``) and
+``sta_diag_wgmma`` the bisection kernel's launches on the Hopper path (a
+subset of ``sta_diag``, by ``tools/sta_diag.py:diag_wgmma_path``).  Headers (``*.cuh``) are part of
 the hash.
 """
 
@@ -60,7 +64,7 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "sta_batched_stable", "sta_pipe_stable", "sta_pipe_dots", "sta_pipe_qk",
            "sta_pipe_sT", "flash_wgmma", "flash_manual_wgmma", "sta_pipe_wgmma",
            "sta_window_wgmma", "sta_batched_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma",
-           "sta_row_wgmma", "prologue_rows")
+           "sta_row_wgmma", "prologue_rows", "sta_diag_wgmma", "unpool_rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -26,9 +26,13 @@ sizes the grid); the plain versions fill the other heads' rows with NaN
 
 On CUDA tensors both launch ``csrc/coreset_pool.cu`` (bf16, D 64 or 128,
 at most 32 slots per group; ``unpool`` there needs ``picks``); on CPU
-tensors they run the plain versions built from ops/coreset.py.  Forward
-only, as in the JAX package: on CUDA both raise where grad mode is on and
-an input requires grad.
+tensors they run the plain versions built from ops/coreset.py.  ``unpool``
+launches the batched 16-byte copy (``unpool_rows_kernel``, counted as
+``unpool_rows`` too) wherever ``unpool_layout`` gives a layout: every shape
+the file takes, in both modes; ``unpool_per_group`` runs the first
+design's kernel (a warp per group, one row in flight) at the same call, the
+card's yardstick.  Forward only, as in the JAX package: on CUDA both raise
+where grad mode is on and an input requires grad.
 """
 
 from __future__ import annotations
@@ -239,11 +243,47 @@ def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGr
     return tuple(pooled) + ((picks,) if return_picks else ())
 
 
+UNPOOL_STORES = (4, 8, 16)  # the rows kernel's instantiations: store instructions a lane
+
+
+def unpool_layout(d: int, group_size: int, kept: int) -> Optional[Tuple[int, int, int]]:
+    """(rows a warp instruction moves, store instructions a lane, kept-row
+    loads a lane) of unpool's batched 16-byte copy (``csrc/coreset_pool.cu:
+    unpool_rows_kernel``) for groups of ``group_size`` slots with ``kept``
+    kept margins, or None where it takes no shape: a row of d bf16 is d / 8
+    lanes of 16 bytes, so a warp moves 256 / d rows an instruction; a group
+    of up to 32 slots takes ceil(group_size / rows) stores a lane, rounded
+    up to an instantiated count (``UNPOOL_STORES``), and ceil(kept / rows)
+    loads, held in half as many registers as stores where they fit (the
+    served rate keeps fewer than half the slots), else as many.  The C
+    entry mirrors the rule and refuses any other pair."""
+    if d not in (64, 128) or not 1 <= group_size <= 32 or not 0 <= kept < group_size:
+        return None
+    rows = 256 // d
+    stores = next(n for n in UNPOOL_STORES if n * rows >= group_size)
+    loads = stores // 2 if -(-kept // rows) <= stores // 2 else stores
+    return rows, stores, loads
+
+
 def unpool(pooled_out: torch.Tensor, q: torch.Tensor, groups: LowresGroups, *, active=None,
            head_map=None, num_active=None, picks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scatter a pooled (B, H, P, D) attention output back to (B, H, S, D);
     ``head_map`` / ``num_active`` as for ``pool_qkv`` (picks from a head-map
     pool feed a head-map unpool)."""
+    return _unpool(pooled_out, q, groups, active=active, head_map=head_map,
+                   num_active=num_active, picks=picks, rows_ok=True)
+
+
+def unpool_per_group(pooled_out, q, groups, **kw) -> torch.Tensor:
+    """``unpool`` on the first design's kernel (a warp per group) whatever
+    ``unpool_layout`` says: the card's yardstick beside the rows kernel at
+    the same call (``chip_smoke.py`` times both), counted in ``unpool`` /
+    ``unpool_headmap`` only."""
+    return _unpool(pooled_out, q, groups, rows_ok=False, **kw)
+
+
+def _unpool(pooled_out, q, groups: LowresGroups, *, active=None, head_map=None,
+            num_active=None, picks=None, rows_ok: bool = True) -> torch.Tensor:
     b, h, p, d = pooled_out.shape
     if p != groups.pooled_length or q.shape[:2] != (b, h) or q.shape[2] != groups.full_length:
         raise ValueError(f"pooled {tuple(pooled_out.shape)}, q {tuple(q.shape)} for "
@@ -259,11 +299,14 @@ def unpool(pooled_out: torch.Tensor, q: torch.Tensor, groups: LowresGroups, *, a
     if tuple(picks.shape) != _picks_shape(groups, b, h) or picks.dtype != torch.int32:
         raise ValueError(f"picks {tuple(picks.shape)} {picks.dtype}")
     _build.require_cuda(pooled_out, picks)
-    pooled_out, picks = pooled_out.contiguous(), picks.contiguous()
+    layout = unpool_layout(d, groups.group_size, groups.num_kept_margins) if rows_ok else None
+    pooled_out, picks = _build.aligned16(pooled_out.contiguous()), picks.contiguous()
     out = torch.empty((b, h, groups.full_length, d), dtype=pooled_out.dtype, device=dev)
-    err = _fn("vorta_coreset_unpool_bf16", 1 + len(ints), 5)(
+    err = _fn("vorta_coreset_unpool_bf16", 3 + len(ints), 5)(
         pooled_out.data_ptr(), picks.data_ptr(), _build.ptr(active), _build.ptr(hm),
-        out.data_ptr(), n, *ints, _build.stream_ptr(dev))
+        out.data_ptr(), n, *ints, *(layout[1:] if layout else (0, 0)), _build.stream_ptr(dev))
     _build.check(err, "unpool")
     _build.launches["unpool" if hm is None else "unpool_headmap"] += 1
+    if layout is not None:
+        _build.launches["unpool_rows"] += 1
     return out

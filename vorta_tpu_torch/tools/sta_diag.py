@@ -13,10 +13,24 @@ Variants (the JAX tool's names), each a launch of ``csrc/sta_diag.cu``:
 
 Comparing these splits the kernel's time into its matrix products, its
 softmax and its data movement.  A chunk is one (dt, dh) tile row of a q
-tile's window box (tt x th x bw keys), as in the JAX tool; on the card it is
-walked in 64-key sub-tiles through a ring of four shared-memory slots (see
-the kernel's header).  The output is the JAX kernel's: ``(acc_0 + acc_1) /
-(l_0 + l_1)``, its two chains summed without a common max.
+tile's window box (tt x th x bw keys), as in the JAX tool.  The output is
+the JAX kernel's: ``(acc_0 + acc_1) / (l_0 + l_1)``, its two chains summed
+without a common max.
+
+On the card the variants run on the served window kernels' Hopper mainloop
+(``csrc/attn_sm90.cuh`` over ``csrc/sta_window_src.cuh``'s window source:
+TMA boxes into a ring of 128-key slots, wgmma, a producer warp and two
+consumer warpgroups), so that they bisect the kernels users run:
+``dma_only`` times their producer and ring, ``dots_only`` their products.
+``diag_wgmma_path`` is the rule (head dim 128, bf16, a box of a chunk's runs
+that lands on 8-row multiples of a slot, a table that fits shared memory
+beside the stash: the tool's default geometry and every Wan / HunyuanVideo
+tile), counted as ``sta_diag_wgmma`` too; the walk is ``diag_walk``,
+chunk-aligned and chain-major, and chain 0's finished output waits in
+shared memory as bf16 while chain 1 runs (the kernel's header).  Elsewhere
+(D = 64, no box) the first design runs: mma.sync over 64-key sub-tiles
+through a cp.async ring, which ``sta_diag_attention_mma_sync`` runs at any
+shape, the yardstick beside the Hopper path.
 
 ``run`` takes the JAX tool's arguments and defaults (latent (20, 45, 80),
 tile (5, 9, 8), window (3, 3, 3), 12 heads x 128) and returns seconds per
@@ -34,22 +48,31 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import sys
 import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ops import _build
 from ..ops.flash import LOG2E
 from ..ops.layout import tile_sequence, untile_sequence
-from ..ops.sta_pipe import _window_keys
+from ..ops.sta_pipe import WALK_BN, WALK_COLS, _extent, _window_keys
 
 Shape3 = Tuple[int, int, int]
 VARIANTS = ("full", "full_unroll", "dots_only", "dma_only", "no_dma")
 DEFAULT_VARIANTS = ("full", "full_unroll", "dots_only", "dma_only")  # the JAX tool's default
 MAX_UNROLLED_CHUNKS = 9  # the kernel's compile-time bound of full_unroll
+# the Hopper path's stash of chain 0's output: 2 consumer warpgroups x 128
+# threads x 64 values as bf16 (csrc/sta_diag.cu: STASH_BYTES)
+DIAG_STASH_BYTES = 32768
+# walk rows that fit the shared memory left past the mainloop's ring and the
+# stash: (232,448 - SRC_OFF 164,992 - 1,024 alignment slack - the stash) //
+# (WALK_COLS * 4)
+DIAG_MAX_SLOTS = 233
 
 
 def _geometry(latent_shape: Shape3, tile: Shape3, window: Shape3):
@@ -108,11 +131,83 @@ def sta_diag_ref(q, k, v, *, latent_shape: Shape3, tile: Shape3, window: Shape3 
     return untile_sequence(out.reshape(b, h, s, d), latent_shape, tile)
 
 
+@functools.lru_cache(maxsize=64)
+def diag_box(latent_shape: Shape3, tile: Shape3, window: Shape3) -> Optional[Tuple[int, int]]:
+    """(box_w, box_h) of the Hopper path's TMA box: box_h of a chunk's runs
+    of box_w = bw tokens (the window's w extent), or None where none fits.
+    A box fits where box_h divides the tile's th (so that no box leaves its
+    chunk), and box_w * box_h is a multiple of 8 (each box lands on a
+    multiple of 8 slot rows) and at most ``WALK_BN``.  Of those, the box
+    whose copies fill most of a slot, then the taller."""
+    _, _, bw = _extent(latent_shape, tile, window)
+    th = tile[1]
+    best = None
+    for hb in range(1, th + 1):
+        tokens = hb * bw
+        if th % hb or tokens % 8 or tokens > WALK_BN:
+            continue
+        key = ((WALK_BN // tokens) * tokens, hb)
+        if best is None or key > best:
+            best = key
+    return None if best is None else (bw, best[1])
+
+
+@functools.lru_cache(maxsize=64)
+def diag_walk(latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3)) -> np.ndarray:
+    """The Hopper path's slot table, the same for every CTA of a call:
+    (n_slots, ``WALK_COLS``) int32 in ``ops/sta_pipe.py:window_walk``'s
+    layout, [nvalid, -1, boxes, chain, (dt, dh) of each box from the window
+    origin, zeros].  Every slot holds runs of one chunk only (chunk j = dt *
+    win_h + dh: tt x th runs of bw tokens, in (t, h) order, box_h runs a
+    ``diag_box``), ``WALK_BN // (box_w * box_h)`` boxes a slot, the chunk's
+    last slot partly filled where the count does not divide; chain-major:
+    the even chunks (chain 0) in order, then the odd ones (chain 1), the
+    chain in the fourth column.  Read-only: it is cached."""
+    box = diag_box(latent_shape, tile, window)
+    if box is None:
+        raise ValueError(f"no box of a chunk's runs of tile {tile}, window {window} on "
+                         f"{latent_shape} lands on 8-row multiples of a slot")
+    bw, hb = box
+    win, n_chunks, _ = _geometry(latent_shape, tile, window)
+    tt, th, _ = tile
+    per = WALK_BN // (bw * hb)
+    rows = []
+    for j in [*range(0, n_chunks, 2), *range(1, n_chunks, 2)]:
+        ct, ch = divmod(j, win[1])
+        boxes = [(ct * tt + i, ch * th + r) for i in range(tt) for r in range(0, th, hb)]
+        for b0 in range(0, len(boxes), per):
+            part = boxes[b0:b0 + per]
+            rows.append([len(part) * bw * hb, -1, len(part), j % 2]
+                        + [c for bx in part for c in bx])
+    out = np.zeros((len(rows), WALK_COLS), np.int32)
+    for i, r in enumerate(rows):
+        out[i, :len(r)] = r
+    out.flags.writeable = False
+    return out
+
+
+def diag_wgmma_path(d: int, latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3), *,
+                    dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The rule of the Hopper path: head dim 128, bf16, a ``diag_box``, and
+    a ``diag_walk`` of at most ``DIAG_MAX_SLOTS`` rows, which the kernel
+    keeps in shared memory beside the stash.  The same rule on both sides:
+    the C entry refuses the Hopper path for anything else."""
+    shape3, tile3, window3 = tuple(latent_shape), tuple(tile), tuple(window)
+    return (d == 128 and dtype == torch.bfloat16 and diag_box(shape3, tile3, window3) is not None
+            and diag_walk(shape3, tile3, window3).shape[0] <= DIAG_MAX_SLOTS)
+
+
+@functools.lru_cache(maxsize=16)
+def _walk_on(latent_shape: Shape3, tile: Shape3, window: Shape3,
+             device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(diag_walk(latent_shape, tile, window).copy()).to(device)
+
+
 def _diag_fn():
     fn = _build.load("sta_diag").vorta_sta_diag_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 4 + [ctypes.c_float] + [i] * 13 + [p]
+        fn.argtypes = [p] * 4 + [ctypes.c_float] + [i] * 13 + [p] + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -121,7 +216,22 @@ def sta_diag_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3),
                        variant: str = "full", scale: Optional[float] = None) -> torch.Tensor:
     """One bisection variant on raster (B, H, S, D) q / k / v (q not
-    pre-scaled); on CUDA bf16, D 64 or 128."""
+    pre-scaled); on CUDA bf16, D 64 or 128: the Hopper path where
+    ``diag_wgmma_path`` holds, else the mma.sync kernel."""
+    return _sta_diag(q, k, v, latent_shape=latent_shape, tile=tile, window=window,
+                     variant=variant, scale=scale, hopper_ok=True)
+
+
+def sta_diag_attention_mma_sync(q, k, v, **kw) -> torch.Tensor:
+    """``sta_diag_attention`` on the mma.sync kernel whatever the rule says:
+    the card's yardstick beside the Hopper path at the same call
+    (``chip_smoke.py`` times both), counted in ``sta_diag`` only."""
+    return _sta_diag(q, k, v, hopper_ok=False, **kw)
+
+
+def _sta_diag(q, k, v, *, latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3),
+              variant: str = "full", scale: Optional[float] = None,
+              hopper_ok: bool = True) -> torch.Tensor:
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     b, h, s, d = q.shape
@@ -144,13 +254,20 @@ def sta_diag_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if variant == "full_unroll" and n_chunks > MAX_UNROLLED_CHUNKS:
         raise NotImplementedError(f"full_unroll unrolls at most {MAX_UNROLLED_CHUNKS} chunks, "
                                   f"the window has {n_chunks}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    shape3, tile3, window3 = tuple(latent_shape), tuple(tile), tuple(window)
+    hopper = hopper_ok and diag_wgmma_path(d, shape3, tile3, window3, dtype=q.dtype)
+    walk = _walk_on(shape3, tile3, window3, dev) if hopper else None
+    box_w, box_h = diag_box(shape3, tile3, window3) if hopper else (0, 0)
+    q, k, v = (_build.aligned16(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
     err = _diag_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      float(scale * LOG2E), VARIANTS.index(variant), b, h, t, hh, w, d, *tile,
-                     *window, _build.stream_ptr(dev))
+                     *window, _build.ptr(walk), 0 if walk is None else walk.shape[0], box_w,
+                     box_h, int(hopper), _build.stream_ptr(dev))
     _build.check(err, "sta_diag")
     _build.launches["sta_diag"] += 1
+    if hopper:
+        _build.launches["sta_diag_wgmma"] += 1
     return out
 
 
