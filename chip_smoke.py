@@ -166,6 +166,34 @@ HunyuanVideo-13B (its phases free the Wan models first):
   e. Wan-14B (40 blocks, dim 5120) from an int4 stack through a depth-1
      model: its GiB, one 480p x 77f forward routed hard with its time and
      peak memory, and a 2-block check, card vs CPU on the same stack.
+Serving the way users run it (no new kernel):
+  f. torch_import: a synthetic diffusers Wan 2.1 T2V-1.3B checkpoint (full
+     width, 30 blocks, random bf16 drawn from a seed, diffusers' key names,
+     two safetensors shards) and a reference router.pt through cli.sample
+     --torch_checkpoint --router_checkpoint, 480p x 77f routed, 2 UniPC
+     steps with CFG; every parameter of the served model equals the host's
+     own mapping of its source tensor (renames, fused projections, half-RoPE
+     rows), bit for bit; again with --quantize_blocks int8 (the depth-1
+     model's modules and the merged routers held); HunyuanVideo-13B's key
+     set validated (20 + 40 blocks) and, at 2 + 2 blocks, loaded, held bit
+     for bit and run 2 routed Euler steps at 720p x 45f; launches exact.
+  g. step_cache: Wan-1.3B 720p x 77f routed by the trained router (and its
+     time embedder), 10 UniPC steps with CFG, the fitted polynomial
+     (assets/cache_poly_wan1_3b_720p.npz), at a threshold picked from a
+     fixed ladder by the host's replay (some steps skipped, every sum 0.01
+     from it): uncached, cached and at threshold 0; the card's skip flags
+     against the host's f64 replay of cache_decision on the card's
+     indicators (flags may differ only within 1e-4 of the threshold),
+     launches exact (a skipped forward runs only its head's norm),
+     threshold 0 bit for bit the uncached trajectory; s per denoise step.
+  h. i2v: the image cross-attention (1,12,31200,128) x 257 keys on flash's
+     Hopper path against its plain version (the padded keys random, so a
+     row seeing them fails), timed beside SDPA with its bound; a 2-block
+     Wan-1.3B-width forward with image_dim 1280, card vs CPU; cli.sample
+     --image_embeds (257 x 1280) at 480p x 77f routed, every flash launch on
+     the Hopper path; HunyuanVideo-13B with token replace at 720p x 45f,
+     routed, one Euler step, the norm's row ranges counted
+     (fused_norm_range), launches exact.
 Every main path's launch counts are exact, the Hopper path's subset
 counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
 sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma),
@@ -180,7 +208,7 @@ flash, dq and dk/dv launch but the STA expert's (96- and 360-token tiles);
 sta_pipe's int8 QK mode, stable softmax and variants and
 sta_batched's stable softmax (phases 2q, 2o) stay on their mma.sync
 kernels, counted there.  Phase 6 counts its forwards' launches too.
-Phases 1-6 and a-d run under torch.inference_mode(); the training phases do not:
+Phases 1-6 and a-h run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
      shapes the trainer gives them (480p x 77f: FULL, LOWRES, STA's
@@ -484,10 +512,19 @@ def main() -> int:
                                            card)
         hy_ref = phase("hunyuan_117f", run_hunyuan_reference_shape, torch, card)
         q14 = phase("wan14b_int4", run_quantized_blocks, torch, card)
+        imported = phase("torch_import", run_torch_import_path, torch, card)
+        cache = phase("step_cache", run_step_cache_path, torch, card)
+        img_attn = phase("i2v_kernel", check_image_attention, torch, card)
+        phase("i2v_model_check", check_i2v_model, torch)
+        i2v = phase("i2v", run_i2v_path, torch, card)
+        token_rep = phase("token_replace", run_token_replace_path, torch, card)
     kernels += (int8_kernel_rows(int8) + fallback_kernel_rows(fallback)
                 + options_kernel_rows(opt, diag_ms))
     for k in kernels:
-        if k["name"] == "sta_pipe":
+        if k["name"] == "flash":  # the I2V image cross-attention: 257 keys, a kv tail
+            k["shapes"]["image_cross_attention_31200x257"] = img_attn
+            k["max_abs_err"] = max(k["max_abs_err"], img_attn["max_abs_err"])
+        elif k["name"] == "sta_pipe":
             k["shapes"]["720p_77f_12_heads"] = opt["sta_pipe_fast"]
             k["max_abs_err"] = max(k["max_abs_err"], opt["sta_pipe_fast"]["max_abs_err"])
             k["modes"] = {"int8_qk": {"replaces": "vorta_tpu/ops/sta_pipe.py:197",
@@ -511,7 +548,13 @@ def main() -> int:
                 **{p: hy_launches[p][name] for p in hy_launches},
                 "hard_720p_77f_4910": launches_4910[name],
                 "hunyuan_45f_298": launches_298[name],
-                "bench_pool": launches_bench[name], "sta_diag": launches_diag[name]}
+                "bench_pool": launches_bench[name], "sta_diag": launches_diag[name],
+                "import_wan_480p_77f": imported["wan"]["launches"][name],
+                "import_wan_int8_blocks": imported["wan_int8_blocks"]["launches"][name],
+                "import_hunyuan_2_2": imported["hunyuan"]["launches"][name],
+                "step_cache_720p_77f": cache["launches"]["cached"][name],
+                "i2v_480p_77f": i2v["launches"][name],
+                "token_replace_hunyuan_45f": token_rep["launches"][name]}
 
     for k in kernels:
         name = k.pop("_counter")
@@ -561,6 +604,12 @@ def main() -> int:
         elif not any(paths.values()):
             raise RuntimeError(f"{name}: launched on no main path")
     print(json.dumps({"w8a8": int8["w8a8"], "static_scales": static, "wan14b_int4": q14}))
+    print(json.dumps({"serving": {
+        "torch_import": {k: {m: v for m, v in imported[k].items() if m != "launches"}
+                         for k in imported},
+        "step_cache": {k: v for k, v in cache.items() if k != "launches"},
+        "i2v_s_per_step": i2v["s_per_step"], "token_replace_s_per_step": token_rep["s_per_step"],
+        "fused_norm_range_launches": token_rep["launches"]["fused_norm_range"]}}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
@@ -582,7 +631,16 @@ def main() -> int:
           f"the bench router's geometry (10, 45, 80) tile (5, 9, 8) {train_720h['micro_s']:.3f} "
           f"s per micro-step, peak {train_720h['max_memory_gib']:.2f} GiB; Wan 480p x 77f "
           f"routed forward ms by dispatch {disp_ms}; bench_pool ms by stage {bench_ms}; "
-          f"sta_diag ms per call by variant {diag_ms}; "
+          f"sta_diag ms per call by variant {diag_ms}; step cache (Wan-1.3B 720p x 77f routed, "
+          f"10 UniPC steps, threshold {cache['threshold']}, {cache['cached_computed_forwards']} "
+          f"of 20 forwards computed) {cache['cached_s_per_step']:.3f} s per denoise step, "
+          f"uncached {cache['uncached_s_per_step']:.3f}; imported Wan-1.3B routed 480p x 77f "
+          f"{imported['wan']['s_per_step']:.3f} s per denoise step, int8 blocks "
+          f"{imported['wan_int8_blocks']['s_per_step']:.3f}; I2V Wan-1.3B 480p x 77f "
+          f"{i2v['s_per_step']:.3f} s per denoise step; image cross-attention (1,12,31200,128) x "
+          f"257 {img_attn['ms']:.4f} ms (bound {img_attn['bound_ms']:.4f}, SDPA "
+          f"{img_attn['library_ms']:.4f}); token-replace HunyuanVideo-13B 720p x 45f "
+          f"{token_rep['s_per_step']:.3f} s per Euler step; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
           f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
@@ -1820,7 +1878,55 @@ def check_hunyuan_kernels(torch, card: str) -> dict:
     out["fused_norm"]["hunyuan_joint_43456"] = norm_case(
         torch, f"AdaLN norm (Hunyuan joint stream) (1,{sj},3072)",
         randn(1, sj, dim).mul_(3.0), mod[:, 1], mod[:, 0], 20)
+    # ---- the token-replace norm: the first frame's rows under tr_emb's
+    # modulation, the rest under the block's, as the I2V path runs it on a
+    # dual block's video stream, on the single block's joint stream and, at
+    # B = 2, on a batched CFG stream (batch strides of the row-offset views)
+    n_first = GRID_HY_45F[1] * GRID_HY_45F[2]
+    for key, b, rows in (("token_replace_video_43200", 1, sv),
+                         ("token_replace_joint_43456", 1, sj),
+                         ("token_replace_video_b2_43200", 2, sv)):
+        mods = torch.randn((b, 4, dim), generator=g, device=dev) * 0.3
+        out["fused_norm"][key] = token_replace_norm_case(
+            torch, f"token-replace AdaLN norm ({b},{rows},3072), rows [0,{n_first}) apart",
+            randn(b, rows, dim).mul_(3.0), mods.unbind(1), n_first, 20)
     return out
+
+
+def token_replace_norm_case(torch, name: str, x, mods, n: int, iters: int) -> dict:
+    """models.hunyuan._modulated with token replace: the norm kernel over
+    rows [0, n) with tr_emb's scale / shift and over [n, S) with the
+    block's, each writing its row-offset view of one output, against the
+    plain norm of every row under both modulations and a per-row select;
+    timed beside that plain version, with its share of the bytes bound (x
+    read, the output written, the four (B, dim) vectors read once).  No one
+    PyTorch call computes a norm with two modulations: library_ms is null."""
+    from vorta_tpu_torch.models.common import FP32LayerNorm
+    from vorta_tpu_torch.models.hunyuan import _modulated
+    from vorta_tpu_torch.ops.fused_norm import _norm_ref
+
+    sc, sh, tr_sc, tr_sh = mods
+    norm = FP32LayerNorm(x.shape[-1], 1e-6, affine=False, device=x.device)
+    first = (torch.arange(x.shape[1], device=x.device) < n)[None, :, None]
+
+    def plain():
+        ref = lambda a, b: _norm_ref(x, a, b, None, None, rms=False, eps=1e-6,  # noqa: E731
+                                     out_f32=False)
+        return torch.where(first, ref(tr_sc, tr_sh), ref(sc, sh))
+
+    kern = lambda: _modulated(norm, x, sc, sh, tr_sc, tr_sh, n)  # noqa: E731
+    got, want = kern(), plain()
+    err = compare(torch, name, got, want)
+    ratio = worst_ratio(torch, got, want)
+    del got, want
+    nbytes = 2 * x.numel() * x.element_size() + 4 * sc.numel() * 4
+    b_ms, b_by = bound_ms(10.0 * x.numel(), nbytes, PEAK_F32)
+    r = dict(ms=device_ms(torch, kern, iters), plain_ms=time_ms(torch, plain, 3, 1),
+             library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+             worst_ratio=ratio, first_rows=n)
+    r.update(gbps=nbytes / r["ms"] / 1e6, bound_share=b_ms / r["ms"])
+    log(f"{name}: {r}")
+    return r
 
 
 def hy_inputs(torch, grid, dev, seed: int):
@@ -1941,7 +2047,8 @@ def hy_warm_up(torch, grid, modes, attn=None) -> None:
 
 def run_hunyuan_main_path(torch, card: str):
     """cli.sample --model hunyuan-13B at 720p x 45f, 60 blocks, 2 Euler steps:
-    routing off, then routed hard (the CLI's default)."""
+    routing off, then routed hard (the CLI's default); each again with
+    --qk_int8 --mm int8 for 1 Euler step."""
     import gc
 
     import numpy as np
@@ -1956,26 +2063,27 @@ def run_hunyuan_main_path(torch, card: str):
                         ("hunyuan_off_int8", ["--native_attention", *quant]),
                         ("hunyuan_int8", quant)):
         out = HERE / "results" / "port_smoke" / f"{name}_latents.npy"
+        int8 = name.endswith("int8")
+        n = 1 if int8 else 2  # Euler steps, one forward each
         _build.reset_launches()
         res = sample_main(["--model", "hunyuan-13B", *extra, "--random_embeds",
                            "--num_frames", "45", "--height", "720", "--width", "1280",
-                           "--num_inference_steps", "2", "--seed", "0", "--device", "cuda",
+                           "--num_inference_steps", str(n), "--seed", "0", "--device", "cuda",
                            "--output", str(out)])
         launches[name] = dict(_build.launches)
         lat = res.latents
         if tuple(lat.shape) != (1, 12, 90, 160, 16) or not torch.isfinite(lat).all():
             raise RuntimeError(f"Hunyuan main path {name}: output {tuple(lat.shape)}, finite "
                                f"{bool(torch.isfinite(lat).all())}")
-        int8 = name.endswith("int8")
         if name.startswith("hunyuan_off"):
-            expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60 * 2,
-                        "prologue": 60 * 2, "prologue_rows": 60 * 2, "fused_norm": 121 * 2,
-                        "flash_manual_int8": 60 * 2 if int8 else 0,
-                        "flash_manual_wgmma": 60 * 2}
+            expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60 * n,
+                        "prologue": 60 * n, "prologue_rows": 60 * n, "fused_norm": 121 * n,
+                        "flash_manual_int8": 60 * n if int8 else 0,
+                        "flash_manual_wgmma": 60 * n}
             heads = None
         else:
             tables = np.stack(res.routing)  # (forwards, blocks, heads)
-            if tables.shape != (2, 60, 24):
+            if tables.shape != (n, 60, 24):
                 raise RuntimeError(f"Hunyuan main path: routing tables {tables.shape}")
             expected = hy_hard_launches(tables, int8)
             heads = np.bincount(tables.reshape(-1), minlength=3)
@@ -1988,7 +2096,7 @@ def run_hunyuan_main_path(torch, card: str):
         per_step[name] = res.denoise_s / res.steps
         log(f"Hunyuan main path {name}{' (--qk_int8 --mm int8)' if int8 else ''}: "
             f"HunyuanVideo-13B 20 + 40 blocks, 43,200 + 256 tokens, "
-            f"2 Euler steps (1 forward each): {res.denoise_s:.3f} s ({per_step[name]:.3f} "
+            f"{n} Euler step(s) (1 forward each): {res.denoise_s:.3f} s ({per_step[name]:.3f} "
             f"s/step; model build {res.build_s:.1f} s) on {card}; "
             + (f"heads per expert over the run: full {heads[0]}, lowres {heads[1]}, sta "
                f"{heads[2]}; " if heads is not None else "")
@@ -2874,6 +2982,637 @@ def run_quantized_blocks(torch, card: str) -> dict:
     del model, stack, two, cpu
     gc.collect()
     return out
+
+
+# ---- serving the way users run it: checkpoints, the step cache, I2V ----------
+
+def synthetic_checkpoint(torch, shapes: dict, seed: int) -> dict:
+    """{diffusers key: bf16 CPU tensor} drawn on the card from ``seed``:
+    matrices at Flax's lecun scale (std 1/sqrt(fan in)), AdaLN tables at
+    1/sqrt(dim), norm gains 1 + 0.02 N, biases 0.02 N."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for key, shape in shapes.items():
+        w = torch.randn(shape, generator=g, device="cuda")
+        if "scale_shift_table" in key:
+            w = w / shape[-1] ** 0.5
+        elif len(shape) >= 2:
+            w = w / float(np.prod(shape[1:])) ** 0.5
+        elif "norm" in key and key.endswith(".weight"):
+            w = 1.0 + 0.02 * w
+        else:
+            w = 0.02 * w
+        out[key] = w.to(torch.bfloat16).cpu()
+    return out
+
+
+def save_shards(torch, sd: dict, path: Path, n: int = 2) -> None:
+    """``sd`` as ``n`` diffusers-style safetensors shards under ``path``."""
+    from safetensors.torch import save_file
+
+    path.mkdir(parents=True)
+    keys = sorted(sd)
+    for i in range(n):
+        save_file({k: sd[k] for k in keys[i::n]},
+                  str(path / f"diffusion_pytorch_model-{i + 1:05d}-of-{n:05d}.safetensors"))
+
+
+# diffusers key pattern -> the port's parameter name, applied in order (the
+# first match wins); the fused projections and the half-RoPE rows are below
+WAN_RENAMES = ((r"\.to_out\.0\.", ".to_out."), (r"\.ffn\.net\.0\.proj\.", ".ffn.proj_in."),
+               (r"\.ffn\.net\.2\.", ".ffn.proj_out."), (r"\.ff\.net\.0\.proj\.", ".proj_in."),
+               (r"\.ff\.net\.2\.", ".proj_out."), (r"\.(norm[12])\.weight$", r".\1.scale"))
+HY_RENAMES = (
+    (r"^x_embedder\.proj\.", "x_embedder."),
+    (r"^context_embedder\.time_text_embed\.timestep_embedder\.", "context_embedder.time_embedder."),
+    (r"^context_embedder\.time_text_embed\.text_embedder\.linear_1\.",
+     "context_embedder.text_pool_embedder."),
+    (r"^context_embedder\.time_text_embed\.text_embedder\.linear_2\.",
+     "context_embedder.text_pool_out."),
+    (r"^context_embedder\.token_refiner\.refiner_blocks\.(\d+)\.attn\.to_out\.0\.",
+     r"context_embedder.blocks.\1.to_out."),
+    (r"^context_embedder\.token_refiner\.refiner_blocks\.(\d+)\.attn\.",
+     r"context_embedder.blocks.\1."),
+    (r"^context_embedder\.token_refiner\.refiner_blocks\.(\d+)\.norm_out\.",
+     r"context_embedder.blocks.\1.gates."),
+    (r"^context_embedder\.token_refiner\.refiner_blocks\.(\d+)\.(norm[12])\.weight$",
+     r"context_embedder.blocks.\1.\2.scale"),
+    (r"^context_embedder\.token_refiner\.refiner_blocks\.", "context_embedder.blocks."),
+    (r"^time_text_embed\.text_embedder\.linear_([12])\.", r"time_text_embed.text_embedder_\1."),
+    (r"^transformer_blocks\.(\d+)\.norm1\.", r"dual_blocks.\1.norm1_mod."),
+    (r"^transformer_blocks\.(\d+)\.norm1_context\.", r"dual_blocks.\1.norm1_context_mod."),
+    (r"^transformer_blocks\.", "dual_blocks."),
+    (r"^single_transformer_blocks\.(\d+)\.norm\.", r"single_blocks.\1.norm_mod."),
+    (r"^single_transformer_blocks\.", "single_blocks."),
+    (r"^norm_out\.", "norm_out_mod."))
+HY_AFTER = ((r"\.to_out\.0\.", ".to_out."), (r"\.net\.0\.proj\.", ".proj_in."),
+            (r"\.net\.2\.", ".proj_out."))
+# (prefix of the parts, the parts in order, the fused name, the parts whose
+# rows take the half-RoPE permutation)
+WAN_FUSED = (("attn1.", ("to_q", "to_k", "to_v"), "qkv", ("to_q", "to_k")),)
+HY_FUSED = {"dual_blocks": (("attn.", ("to_q", "to_k", "to_v"), "qkv", ("to_q", "to_k")),
+                            ("attn.", ("add_q_proj", "add_k_proj", "add_v_proj"), "add_qkv",
+                             ("add_q_proj", "add_k_proj"))),
+            "single_blocks": (("", ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp"), "qkv_mlp",
+                               ("attn.to_q", "attn.to_k")),)}
+
+
+def half_rows(n: int, head_dim: int):
+    """Row order of the contiguous-half RoPE layout: each head's even rows,
+    then its odd ones."""
+    import numpy as np
+
+    per = np.concatenate([np.arange(0, head_dim, 2), np.arange(1, head_dim, 2)])
+    return (np.arange(n // head_dim)[:, None] * head_dim + per[None]).reshape(-1)
+
+
+def expected_port_state(torch, sd: dict, kind: str, head_dim: int) -> dict:
+    """The port's parameters from a diffusers state dict, mapped here on the
+    host on its own (renames, the fused projections concatenated, the q / k
+    rows and gains of the self- / joint attention permuted): what the
+    importer must have loaded, bit for bit."""
+    import re
+
+    first, after = ((), WAN_RENAMES) if kind == "wan" else (HY_RENAMES, HY_AFTER)
+    out = {}
+    for key, t in sd.items():
+        name = key
+        for pat, rep in first:  # the first match wins
+            new = re.sub(pat, rep, name)
+            if new != name:
+                name = new
+                break
+        for pat, rep in after:
+            name = re.sub(pat, rep, name)
+        if re.search(r"(attn1|\.attn)\.norm_(q|k|added_q|added_k)\.weight$", name):
+            t = t[torch.from_numpy(half_rows(t.shape[0], head_dim))]
+        out[name] = t
+    stacks = ({"blocks": WAN_FUSED} if kind == "wan" else HY_FUSED)
+    for stack, groups in stacks.items():
+        layers = sorted({int(k.split(".")[1]) for k in out if k.startswith(stack + ".")})
+        for i in layers:
+            for prefix, parts, fused, permuted in groups:
+                base = f"{stack}.{i}.{prefix}"
+                for p in ("weight", "bias"):
+                    pieces = []
+                    for part in parts:
+                        t = out.pop(f"{base}{part}.{p}")
+                        if part in permuted:
+                            t = t[torch.from_numpy(half_rows(t.shape[0], head_dim))]
+                        pieces.append(t)
+                    out[f"{base}{fused}.{p}"] = torch.cat(pieces)
+    return out
+
+
+def check_loaded(torch, model, expected: dict, what: str, skip=()) -> int:
+    """Every parameter of ``model`` equals its mapped source tensor bit for
+    bit (cast to the parameter's dtype on the host); returns the count."""
+    params = model.state_dict()
+    names = sorted(k for k in params if not k.startswith(skip))
+    missing = sorted(set(names) - set(expected))
+    if missing:
+        raise RuntimeError(f"{what}: no source tensor for {missing[:6]}")
+    bad = [k for k in names if not torch.equal(params[k].cpu(), expected[k].to(params[k].dtype))]
+    if bad:
+        raise RuntimeError(f"{what}: {len(bad)} parameters differ from the mapped source, e.g. "
+                           f"{bad[:6]}")
+    return len(names)
+
+
+def spied_sample(torch, argv: list, pipeline: str):
+    """cli.sample's main(argv) and the model its pipeline served."""
+    from unittest import mock
+
+    from vorta_tpu_torch.cli import sample
+
+    seen = {}
+    cls = getattr(sample, pipeline)
+    real = cls.__call__
+
+    def spy(pipe, *args, **kw):
+        seen["model"], seen["blocks"] = pipe.model, pipe.quantized_blocks
+        return real(pipe, *args, **kw)
+
+    with mock.patch.object(cls, "__call__", spy):
+        res = sample.main(argv)
+    return res, seen
+
+
+def run_torch_import_path(torch, card: str) -> dict:
+    """A synthetic diffusers Wan 2.1 T2V-1.3B checkpoint (full width, 30
+    blocks, random bf16 from a seed, diffusers' key names, two safetensors
+    shards) and a reference router.pt through cli.sample --torch_checkpoint
+    --router_checkpoint (480p x 77f, routed hard, 2 UniPC steps with CFG),
+    then the same with --quantize_blocks int8; HunyuanVideo-13B's key set at
+    2 + 2 blocks (validated, loaded, 2 routed Euler steps at 720p x 45f).
+    Every parameter equals the host's own mapping of its source tensor;
+    launch counts exact."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.io import torch_import as ti
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.quant import QTensor
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.time()
+        sd = synthetic_checkpoint(torch, ti.wan_expected_shapes(WAN_1_3B), 15)
+        routers = synthetic_checkpoint(torch, {
+            f"blocks.{i}.router.linear.{p}": sh for i in range(30)
+            for p, sh in (("weight", (36, 1536)), ("bias", (36,)))}, 16)
+        save_shards(torch, sd, tmp / "wan")
+        torch.save(routers, tmp / "router.pt")
+        n_params = sum(t.numel() for t in sd.values())
+        log(f"torch_import: synthetic Wan 2.1 T2V-1.3B checkpoint, {len(sd)} tensors, "
+            f"{n_params / 1e9:.3f} B parameters in bf16, 2 shards + router.pt, written in "
+            f"{time.time() - t0:.1f} s")
+        expected = expected_port_state(torch, {**sd, **routers}, "wan", 128)
+        argv = ["--model", "wan-1_3B", "--torch_checkpoint", str(tmp / "wan"),
+                "--router_checkpoint", str(tmp / "router.pt"), "--random_embeds",
+                "--num_inference_steps", "2", "--seed", "0", "--device", "cuda"]
+        for name, extra in (("wan", []), ("wan_int8_blocks", ["--quantize_blocks", "int8"])):
+            _build.reset_launches()
+            res, seen = spied_sample(torch, argv + extra + [
+                "--output", str(HERE / "results" / "port_smoke" / f"import_{name}.npy")],
+                "WanT2VPipeline")
+            launches = dict(_build.launches)
+            lat = res.latents
+            if tuple(lat.shape) != (1, 20, 60, 104, 16) or not torch.isfinite(lat).all():
+                raise RuntimeError(f"torch_import {name}: output {tuple(lat.shape)}")
+            tables = np.stack(res.routing)
+            want = routed_wan_launches(tables, "sta_pipe", tables.shape[0])
+            if tables.shape != (4, 30, 12) or launches != want:
+                raise RuntimeError(f"torch_import {name}: launches {launches} != {want}")
+            served_on_wgmma(launches, f"torch_import {name}")
+            if seen["blocks"] is None:
+                n = check_loaded(torch, seen["model"], expected, f"torch_import {name}")
+            else:  # the depth-1 model's non-block modules; the stack's routers
+                n = check_loaded(torch, seen["model"], expected, f"torch_import {name}",
+                                 skip=("blocks.",))
+                w = seen["blocks"].leaves["['router']['linear']['kernel'].value"]
+                want_w = torch.stack([routers[f"blocks.{i}.router.linear.weight"].t()
+                                      for i in range(30)])
+                if not torch.equal(w.cpu(), want_w):
+                    raise RuntimeError("torch_import: the merged routers differ")
+                n_q = sum(isinstance(v, QTensor) for v in seen["blocks"].leaves.values())
+                log(f"torch_import {name}: {n_q} of {len(seen['blocks'].leaves)} stacked leaves "
+                    f"quantized, {seen['blocks'].nbytes / 2**30:.2f} GiB")
+            heads = np.bincount(tables.reshape(-1), minlength=3)
+            out[name] = dict(s_per_step=res.denoise_s / res.steps, build_s=res.build_s,
+                             launches=launches)
+            log(f"torch_import {name}: {n} parameters equal their mapped source tensors bit for "
+                f"bit; 2 UniPC steps x CFG routed at 480p x 77f {res.denoise_s:.3f} s "
+                f"({res.denoise_s / res.steps:.3f} s/step, load + build {res.build_s:.1f} s) on "
+                f"{card}; heads full {heads[0]}, lowres {heads[1]}, sta {heads[2]}; launches "
+                f"exact")
+            del res, seen, lat
+            gc.collect()
+            torch.cuda.empty_cache()
+        del sd, routers, expected
+        out["hunyuan"] = run_hunyuan_import(torch, card, tmp)
+    return out
+
+
+def run_hunyuan_import(torch, card: str, tmp: Path) -> dict:
+    """HunyuanVideo-13B's diffusers key set at 2 dual + 2 single blocks,
+    routers included: validated against the importer's expected keys (and
+    the full 20 + 40 set's count), loaded into the port's model, every
+    parameter held to the host's mapping, 2 routed Euler steps at 720p x 45f
+    with exact launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    from safetensors.torch import save_file
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.io import torch_import as ti
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
+
+    cfg = dataclasses.replace(HUNYUAN_13B, dual_layers=2, single_layers=2)
+    shapes = ti.hunyuan_expected_shapes(cfg, routers=True)
+    full = ti.hunyuan_expected_keys(20, 40, 2, routers=True)
+    checks = (ti.validate_hunyuan_checkpoint_keys(shapes, 2, 2, 2),
+              ti.validate_hunyuan_checkpoint_keys(full, 20, 40, 2))
+    if checks != (([], []), ([], [])):
+        raise RuntimeError(f"Hunyuan key validation: {checks}")
+    sd = synthetic_checkpoint(torch, shapes, 17)
+    save_file(sd, str(tmp / "hunyuan.safetensors"))
+    model = HunyuanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    applied, missing = ti.load_hunyuan_torch_weights(model, tmp / "hunyuan.safetensors")
+    if missing:
+        raise RuntimeError(f"Hunyuan import: the model lacks {missing[:6]}")
+    n = check_loaded(torch, model, expected_port_state(torch, sd, "hunyuan", 128),
+                     "Hunyuan import")
+    del sd
+    gc.collect()
+    lat, text, mask, pooled = hy_inputs(torch, GRID_HY_45F, torch.device("cuda"), 11)
+    pipe = HunyuanT2VPipeline(model, attn_cfg=attention_config("hunyuan-13B", GRID_HY_45F))
+    routing = []
+    _build.reset_launches()
+    t0 = time.time()
+    final = pipe(lat, text, mask, pooled, sampling=HunyuanSamplingConfig(
+        num_inference_steps=2, routing_mode="hard"), routing=routing)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(_build.launches)
+    tables = np.stack(routing)
+    want = hy_hard_launches(tables)
+    want.update(prologue=4 * 2, prologue_rows=4 * 2, fused_norm=(4 * 2 + 2 + 1) * 2)
+    if launches != want or not torch.isfinite(final).all():
+        raise RuntimeError(f"Hunyuan import: launches {launches} != {want}, or non-finite")
+    served_on_wgmma(launches, "Hunyuan import 2 + 2 blocks")
+    log(f"Hunyuan import: 13B key set ({len(full)} keys at 20 + 40 blocks) validated; 2 + 2 "
+        f"blocks loaded, {n} parameters equal their mapped source tensors bit for bit; 2 Euler "
+        f"steps routed at 720p x 45f {dt:.3f} s on {card}; launches exact")
+    del model, pipe, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(parameters=n, launches=launches)
+
+
+def replay_cache(inds, threshold: float, coeffs, warmup: int, follow=None) -> list:
+    """cache_decision replayed on the host in f64 over the indicators of a
+    trajectory: [(host's skip, |acc - threshold|)] a step, each step after
+    the card's decision where ``follow`` gives it, else the host's own."""
+    import numpy as np
+
+    out, prev, acc, valid, n = [], None, 0.0, False, len(inds)
+    for i, ind in enumerate(inds):
+        d = 0.0
+        if prev is not None:
+            d = np.abs(ind - prev).mean() / (np.abs(prev).mean() + 1e-8)
+            if coeffs:
+                d = float(np.polyval(np.asarray(coeffs, np.float64), d))
+            d = max(d, 0.0)
+        a = acc + d
+        skip = valid and a < threshold and not (i < warmup or i == n - 1)
+        out.append((skip, abs(a - threshold)))
+        taken = skip if follow is None else follow[i]
+        acc, valid, prev = (a if taken else 0.0), (valid or not taken), ind
+    return out
+
+
+def run_step_cache_path(torch, card: str) -> dict:
+    """Wan-1.3B at 720p x 77f routed by the trained router (and the time
+    embedder it was trained against), 10 UniPC steps with CFG, the fitted
+    polynomial: uncached and cached at a threshold that skips some steps,
+    through the pipeline's stepper; the skip flags against the host's f64
+    replay, launches exact (the computed forwards' kernels; a skipped one
+    only its head's norm), the host syncs of each step counted (PyTorch's
+    sync debug mode), a computed step's as many as uncached; threshold 0 over the first SHORT steps of
+    the same schedule bit for bit the uncached trajectory's state there."""
+    import gc
+    import warnings
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import load_cache_poly
+    from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
+    from vorta_tpu_torch.io.from_jax import load_jax_params, load_router_npz
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.pipelines.wan_t2v import SamplingConfig, WanT2VPipeline, make_schedule
+
+    steps, poly_path = 10, "assets/cache_poly_wan1_3b_720p.npz"
+    coeffs = load_cache_poly(SimpleNamespace(cache_poly=str(HERE / poly_path)))
+    model = WanModel(WAN_1_3B, dtype=torch.bfloat16, device="cuda", seed=0)
+    load_router_npz(model, HERE / ROUTER_720P)
+    load_jax_params(model, HERE / TEMB_720P)
+    attn = AttentionConfig(latent_shape=GRID_720P, sta_tile=(5, 9, 8), sta_window=(3, 3, 3),
+                           lowres_window=(2, 3, 2), tau_sparse=0.3)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    lat = torch.randn((1, 20, 90, 160, 16), generator=g, device="cuda")
+    pe = torch.randn((1, TEXT_LEN, 4096), generator=g, device="cuda")
+    ne = torch.zeros_like(pe)
+    pipe = WanT2VPipeline(model, attn_cfg=attn)
+    base = SamplingConfig(num_inference_steps=steps, routing_mode="hard")
+    sched = make_schedule(base)
+    # the indicator each forward reads: temb6 at the step's timestep, f32
+    inds = [model.condition_embedder(torch.full((1,), float(t), device="cuda"),
+                                     pe.to(model.dtype))[1]
+            .reshape(1, -1).float().cpu().double().numpy() for t in sched.timesteps]
+    # the threshold: of a fixed ladder, the one whose host replay skips
+    # closest to 4 of the 8 free steps, every sum at least 0.01 from it
+    best = None
+    for thr in (0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.5, 0.75, 1.0, 1.5, 2.0):
+        host = replay_cache(inds, thr, coeffs, 1)
+        n_skip = sum(skip for skip, _ in host)
+        if 0 < n_skip < steps - 2 and min(gap for _, gap in host[1:-1]) > 1e-2 and (
+                best is None or abs(n_skip - 4) < abs(best[1] - 4)):
+            best = (thr, n_skip)
+    if best is None:
+        raise RuntimeError("step cache: no threshold of the ladder skips some but not all "
+                           "steps")
+    thr = best[0]
+    model(lat, torch.tensor([500.0], device="cuda"), pe, attn_cfg=attn,
+          routing_mode="hard")  # warm-up
+    torch.cuda.synchronize()
+    short = 2  # steps of the threshold-0 run
+
+    def trajectory(sampling, n_run, routing, cache_log):
+        """The pipeline's loop (WanT2VPipeline.__call__) over the first
+        ``n_run`` steps: (final latents, the latents after ``short`` steps,
+        host syncs per step)."""
+        init, step_fn, _ = pipe.make_stepper(sampling)
+        carry, kept, syncs = init(lat), None, []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for i in range(n_run):
+                    carry = step_fn(carry, i, pe, ne, routing=routing, cache_log=cache_log)
+                    syncs.append(sum("synchronizing CUDA operation" in str(w.message)
+                                     for w in caught) - sum(syncs))
+                    if i == short - 1:
+                        kept = carry[0].clone()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return carry[0], kept, syncs
+
+    runs = {}
+    for name, threshold, n_run in (("uncached", 0.0, steps), ("cached", thr, steps),
+                                   ("threshold_0", 0.0, short)):
+        sampling = SamplingConfig(num_inference_steps=steps, routing_mode="hard",
+                                  cache_threshold=threshold, cache_warmup=1,
+                                  cache_coefficients=coeffs if name != "uncached" else None)
+        routing, cache_log = [], []
+        _build.reset_launches()
+        t0 = time.time()
+        final, kept, syncs = trajectory(sampling, n_run, routing, cache_log)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = dict(_build.launches)
+        if not torch.isfinite(final).all():
+            raise RuntimeError(f"step cache {name}: non-finite latents")
+        skipped = sum(s for *_, s in cache_log)
+        computed = 2 * n_run - skipped
+        tables = np.stack(routing)
+        want = routed_wan_launches(tables, "sta_pipe", computed)
+        want["fused_norm"] += skipped  # a skipped forward runs only its head's norm
+        if tables.shape[0] != computed or launches != want:
+            raise RuntimeError(f"step cache {name}: launches {launches} != {want} "
+                               f"({computed} forwards computed)")
+        served_on_wgmma(launches, f"step cache {name}")
+        runs[name] = dict(final=final, kept=kept, log=cache_log, s_per_step=dt / n_run,
+                          computed_forwards=computed, launches=launches, syncs=syncs)
+        log(f"step cache {name}: Wan-1.3B 720p x 77f routed, {n_run} of {steps} UniPC steps x "
+            f"CFG, threshold {threshold}: {dt:.3f} s ({dt / n_run:.3f} s per denoise step) on "
+            f"{card}; {computed} of {2 * n_run} forwards computed; launches exact; "
+            f"host syncs per step {syncs}")
+    flags = [s for _, arm, s in runs["cached"]["log"] if arm == 0]
+    if [s for _, arm, s in runs["cached"]["log"] if arm == 1] != flags:
+        raise RuntimeError("step cache: the CFG arms decided apart on one indicator")
+    replay = replay_cache(inds, thr, coeffs, 1, follow=flags)
+    off = [(i, gap) for i, ((host, gap), card_skip) in enumerate(zip(replay, flags))
+           if host != card_skip]
+    if any(gap >= 1e-4 for _, gap in off):
+        raise RuntimeError(f"step cache: the card's skips {flags} differ from the host's "
+                           f"replay {[h for h, _ in replay]} away from the threshold: {off}")
+    if runs["threshold_0"]["log"] or not torch.equal(runs["threshold_0"]["final"],
+                                                     runs["uncached"]["kept"]):
+        raise RuntimeError("step cache: threshold 0 is not the uncached trajectory bit for bit")
+    # the cache adds no sync: a step whose forwards all ran syncs as often as uncached
+    ran = [i for i, s in enumerate(flags) if not s]
+    if any(runs["cached"]["syncs"][i] != runs["uncached"]["syncs"][i] for i in ran):
+        raise RuntimeError(f"step cache: host syncs per step {runs['cached']['syncs']} cached, "
+                           f"{runs['uncached']['syncs']} uncached")
+    rel = ((runs["cached"]["final"] - runs["uncached"]["final"]).norm()
+           / runs["uncached"]["final"].norm()).item()
+    log(f"step cache: threshold {thr} ({poly_path}) skipped steps "
+        f"{[i for i, s in enumerate(flags) if s]} of {steps}; the card's flags equal the host's "
+        f"f64 replay ({len(off)} near-threshold flips); threshold 0 bit for bit the uncached "
+        f"trajectory over its first {short} steps; host syncs per step "
+        f"{runs['cached']['syncs']} cached, {runs['uncached']['syncs']} uncached; cached vs uncached latents rel L2 {rel:.4f}; s per "
+        f"denoise step cached {runs['cached']['s_per_step']:.3f}, uncached "
+        f"{runs['uncached']['s_per_step']:.3f}")
+    out = dict(threshold=thr, skipped_steps=[i for i, s in enumerate(flags) if s],
+               rel_l2_vs_uncached=rel,
+               **{f"{k}_{m}": runs[k][m] for k in ("uncached", "cached")
+                  for m in ("s_per_step", "computed_forwards", "syncs")},
+               launches={k: runs[k]["launches"] for k in runs})
+    del model, pipe, runs, lat, pe, ne
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_image_attention(torch, card: str) -> dict:
+    """The I2V image cross-attention, (1,12,31200,128) x 257 image keys
+    (block_q 2048, block_kv 512, kv_valid_len 257: one valid key in the
+    third 128-key slot, a fourth all padding), on the Hopper path against
+    its plain version (the padded keys hold random values, which a row
+    seeing them would weigh), timed beside SDPA."""
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.experts import padded_dense_attention
+    from vorta_tpu_torch.ops.flash import (dense_tables, sparse_flash_attention_raw,
+                                           sparse_flash_attention_ref, wgmma_path)
+
+    dev, h, d, s, nk = torch.device("cuda"), 12, 128, 31200, 257
+    g = torch.Generator(device=dev).manual_seed(31)
+    sp = -(-s // 2048) * 2048
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               for shape in ((1, h, sp, d), (1, h, 512, d), (1, h, 512, d)))
+    ti, tc = dense_tables(sp // 2048, 1).on(dev)
+    kw = dict(scale=d**-0.5, block_q=2048, block_kv=512, kv_valid_len=nk)
+    if not wgmma_path(d, 2048, 512):
+        raise RuntimeError("image cross-attention: not on the Hopper path")
+    _build.reset_launches()
+    got = padded_dense_attention(q[:, :, :s], k[:, :, :nk], v[:, :, :nk])
+    torch.cuda.synchronize()
+    if (_build.launches["flash"], _build.launches["flash_wgmma"]) != (1, 1):
+        raise RuntimeError(f"image cross-attention: launches {dict(_build.launches)}")
+    flash = lambda: sparse_flash_attention_raw(q, k, v, ti, tc, **kw)  # noqa: E731
+    plain = lambda: sparse_flash_attention_ref(q, k, v, ti, tc, **kw)  # noqa: E731
+    want = plain()[:, :, :s]
+    err = compare(torch, "flash image cross-attention (1,12,31200,128) x 257 (the model's "
+                  "padded_dense_attention call)", got, want)
+    err = max(err, compare(torch, "flash image cross-attention, the raw call", flash()[:, :, :s],
+                           want))
+    seen = sparse_flash_attention_ref(q, k, v, ti, tc, **{**kw, "kv_valid_len": None})
+    miss = worst_ratio(torch, seen[:, :, :s], want)
+    if not miss > TOL:
+        raise RuntimeError("image cross-attention check cannot tell padded keys seen")
+    del seen, want
+    flops = 4.0 * s * nk * d * h
+    b_ms, b_by = bound_ms(flops, (2 * h * s * d + 2 * h * nk * d) * 2, PEAK_BF16)
+    t = with_rate(dict(ms=time_ms(torch, flash, 20), plain_ms=time_ms(torch, plain, 3, 1),
+                       library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                           q[:, :, :s], k[:, :, :nk], v[:, :, :nk]), 20),
+                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                       padded_keys_seen_ratio=miss), flops)
+    log(f"flash image cross-attention on {card}: {t}")
+    return t
+
+
+def check_i2v_model(torch) -> None:
+    """2 blocks at Wan-1.3B widths with image_dim 1280, 257 image tokens:
+    card (bf16, kernels) vs CPU (f32, plain versions), rel L2 < 0.05."""
+    import dataclasses
+
+    from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
+    from vorta_tpu_torch.models.wan import WanModel
+
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2, image_dim=1280)
+    grid = (2, 8, 10)
+    attn = AttentionConfig(latent_shape=grid)
+    ref_model = WanModel(cfg, dtype=torch.float32, device="cpu", seed=7)
+    gpu_model = WanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=7)
+    gpu_model.load_state_dict(ref_model.state_dict())
+    g = torch.Generator().manual_seed(8)
+    lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=g)
+    ctx = torch.randn((1, TEXT_LEN, cfg.text_dim), generator=g)
+    img = torch.randn((1, 257, 1280), generator=g)
+    t = torch.tensor([700.0])
+    want = ref_model(lat, t, ctx, attn_cfg=attn, image_context=img).sample
+    got = gpu_model(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=attn,
+                    image_context=img.cuda()).sample.float().cpu()
+    text_only = ref_model(lat, t, ctx, attn_cfg=attn).sample
+    rel = ((got - want).norm() / want.norm()).item()
+    moved = ((want - text_only).norm() / want.norm()).item()
+    log(f"I2V model check (2 blocks, 1.3B widths, image_dim 1280, 257 image tokens, 160 "
+        f"tokens): rel L2 err card bf16 vs CPU f32 = {rel:.4f} (tolerance 0.05); the image "
+        f"tokens move the CPU's output by {moved:.4f}")
+    if not torch.isfinite(got).all() or not rel < 0.05 or not moved > 10 * rel:
+        raise RuntimeError("I2V model check: the card disagrees with the CPU, or the image "
+                           "branch changes nothing")
+
+
+def run_i2v_path(torch, card: str) -> dict:
+    """cli.sample --image_embeds (257 x 1280 CLIP tokens in a .npy): Wan-1.3B
+    with image_dim 1280, 480p x 77f routed hard, 2 UniPC steps with CFG;
+    every flash launch (self, text and image cross-attention) on the Hopper
+    path, launches exact."""
+    import gc
+
+    import numpy as np
+
+    from vorta_tpu_torch.ops import _build
+
+    path = HERE / "results" / "port_smoke" / "image_embeds.npy"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.save(path, np.random.default_rng(3).standard_normal((257, 1280)).astype(np.float32))
+    _build.reset_launches()
+    res, seen = spied_sample(torch, [
+        "--model", "wan-1_3B", "--image_embeds", str(path), "--random_embeds",
+        "--num_inference_steps", "2", "--seed", "0", "--device", "cuda", "--output",
+        str(HERE / "results" / "port_smoke" / "latents_i2v.npy")], "WanT2VPipeline")
+    launches = dict(_build.launches)
+    if seen["model"].cfg.image_dim != 1280:
+        raise RuntimeError("I2V path: the model took no image_dim from the file")
+    lat = res.latents
+    tables = np.stack(res.routing)
+    want = routed_wan_launches(tables, "sta_pipe", tables.shape[0])
+    n = tables.shape[0] * tables.shape[1]  # one image cross-attention a block
+    want.update(flash=want["flash"] + n, flash_wgmma=want["flash_wgmma"] + n)
+    if (tuple(lat.shape) != (1, 20, 60, 104, 16) or not torch.isfinite(lat).all()
+            or launches != want):
+        raise RuntimeError(f"I2V path: output {tuple(lat.shape)}, launches {launches} != {want}")
+    served_on_wgmma(launches, "I2V path")
+    log(f"I2V path: Wan-1.3B + image branch (image_dim 1280, 257 tokens), 480p x 77f routed, "
+        f"2 UniPC steps x CFG: {res.denoise_s:.3f} s ({res.denoise_s / res.steps:.3f} s/step) "
+        f"on {card}; launches exact, every flash launch on the Hopper path")
+    out = dict(s_per_step=res.denoise_s / res.steps, launches=launches)
+    del res, seen, lat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_token_replace_path(torch, card: str) -> dict:
+    """HunyuanVideo-13B (20 + 40 blocks) with image_condition_type=
+    "token_replace" at 720p x 45f, routed hard, one Euler step through the
+    pipeline: the first frame's 3,600 rows take tr_emb's modulation, every
+    video norm run as two row ranges (fused_norm_range), launches exact."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
+
+    cfg = dataclasses.replace(HUNYUAN_13B, image_condition_type="token_replace")
+    model = HunyuanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    lat, text, mask, pooled = hy_inputs(torch, GRID_HY_45F, torch.device("cuda"), 12)
+    pipe = HunyuanT2VPipeline(model, attn_cfg=attention_config("hunyuan-13B", GRID_HY_45F))
+    sampling = HunyuanSamplingConfig(num_inference_steps=1, routing_mode="hard")
+    routing = []
+    pipe(lat, text, mask, pooled, sampling=sampling)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    final = pipe(lat, text, mask, pooled, sampling=sampling, routing=routing)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(_build.launches)
+    want = hy_hard_launches(np.stack(routing))
+    # the video norms (2 a dual block, 1 a single block) run as two ranges each
+    want.update(fused_norm=want["fused_norm"] + 20 * 2 + 40, fused_norm_range=2 * (20 * 2 + 40))
+    if launches != want or not torch.isfinite(final).all():
+        raise RuntimeError(f"token replace: launches {launches} != {want}, or non-finite")
+    served_on_wgmma(launches, "token replace")
+    log(f"token replace: HunyuanVideo-13B 720p x 45f routed, 1 Euler step {dt:.3f} s on {card}; "
+        f"{launches['fused_norm_range']} norm launches over row ranges (the first frame's "
+        f"{GRID_HY_45F[1] * GRID_HY_45F[2]:,} rows apart); launches exact")
+    del model, pipe, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(s_per_step=dt, launches=launches)
 
 
 # ---- training ------------------------------------------------------------------

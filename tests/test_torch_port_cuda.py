@@ -2394,3 +2394,163 @@ def test_sta_row_rule_mismatch_raises(card, monkeypatch):
     with pytest.raises(RuntimeError, match="sta_row: CUDA error"):
         sta_row.sta_row_attention(q, q, q, torch.ones(2, device=card, dtype=torch.int32),
                                   latent_shape=(4, 6, 32), tile=(2, 3, 8))
+
+
+# --- the step cache, the checkpoint importer and I2V ---------------------------------
+
+@pytest.mark.parametrize("nk,hopper", [(257, True), (1, False), (129, True), (512, True)])
+def test_padded_dense_attention_kv_tails(card, nk, hopper):
+    """Cross-attention to 257 image tokens (block_kv 512, kv_valid_len 257:
+    one valid key in the third 128-key slot, a fourth all padding), 1, 129
+    and 512 keys: the plain version on the same inputs, the Hopper path
+    where its rule holds (blocks of 128), no row seeing a padded key (the
+    padded keys' values are huge, so any weight on them would show)."""
+    from vorta_tpu_torch.ops.experts import padded_dense_attention
+
+    g = torch.Generator(device=card).manual_seed(nk)
+    q, k, v = (_randn(g, (1, 4, 2100, 128), torch.bfloat16),
+               _randn(g, (1, 4, nk, 128), torch.bfloat16),
+               _randn(g, (1, 4, nk, 128), torch.bfloat16))
+    _build.reset_launches()
+    got = padded_dense_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (_build.launches["flash"], _build.launches["flash_wgmma"]) == (1, int(hopper))
+    want = padded_dense_attention(q.cpu(), k.cpu(), v.cpu()).to(card)
+    _close(got, want)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(q.float(), k.float(), v.float())
+    assert (got.float() - sdpa).abs().max().item() <= 2.0**-5 * sdpa.abs().max().item()
+
+
+@pytest.mark.parametrize("b,s,dim,n", [(1, 4000, 3072, 1440), (2, 700, 3072, 100),
+                                       (2, 300, 1536, 17), (2, 90, 128, 16)])
+def test_token_replace_norm_two_row_ranges(card, b, s, dim, n):
+    """HunyuanVideo's token-replace norm: the kernel over the first n rows
+    with one modulation and the rest with another, into one output (views
+    whose batches lie s rows apart: no copy), against the plain norm with a
+    per-row select between the two modulations; counted as ranges."""
+    from vorta_tpu_torch.models.common import FP32LayerNorm
+
+    g = torch.Generator(device=card).manual_seed(s)
+    x = (_randn(g, (b, s, dim), torch.float32, 2.0) + 0.3).to(torch.bfloat16)
+    mod = (0.3 * torch.randn((b, 6 * dim), generator=g, device=card)).chunk(6, dim=-1)
+    norm = FP32LayerNorm(dim, 1e-6, device=card)
+    out = torch.empty_like(x)
+    _build.reset_launches()
+    norm.modulated(x[:, :n], mod[1], mod[0], out=out[:, :n])
+    norm.modulated(x[:, n:], mod[4], mod[3], out=out[:, n:])
+    assert (_build.launches["fused_norm"], _build.launches["fused_norm_range"]) == (2, 2)
+    first = (torch.arange(s, device=card) < n)[None, :, None]
+    want = torch.where(first, _norm_ref(x, mod[1], mod[0], None, None, rms=False, eps=1e-6,
+                                        out_f32=False),
+                       _norm_ref(x, mod[4], mod[3], None, None, rms=False, eps=1e-6,
+                                 out_f32=False))
+    _close(out, want)
+    with pytest.raises(ValueError, match="out strides"):
+        fused_norm(x[:, :n], mod[1], mod[0], None, None, False, 1e-6, False,
+                   out=torch.empty((b, n, dim + 8), dtype=x.dtype, device=card)[..., :dim])
+
+
+def test_token_replace_hunyuan_on_card_matches_cpu(card):
+    """A 1 + 1-block token-replace model at head dim 128, routing off: card
+    vs CPU, rel L2 below 0.05; the norm's two row ranges counted (three
+    video norms a forward run as two ranges each)."""
+    from vorta_tpu_torch.config import AttentionConfig
+    from vorta_tpu_torch.models.hunyuan import HunyuanModel
+
+    cfg = dataclasses.replace(_hunyuan_card_cfg(), image_condition_type="token_replace")
+    attn = AttentionConfig(latent_shape=(4, 6, 16), block_q=32, block_kv=32)
+    cpu = HunyuanModel(cfg, dtype=torch.float32, device="cpu", seed=6)
+    gpu = HunyuanModel(cfg, dtype=torch.bfloat16, device=card, seed=6)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(8)
+    args = (torch.randn((1, 4, 12, 32, 16), generator=gen), torch.tensor([600.0]),
+            torch.randn((1, 24, 64), generator=gen), (torch.arange(24) < 17)[None],
+            torch.randn((1, 32), generator=gen))
+    kw = dict(guidance=torch.tensor([6000.0]), attn_cfg=attn)
+    _build.reset_launches()
+    with torch.inference_mode():
+        got = gpu(*(x.to(card) for x in args), guidance=kw["guidance"].to(card),
+                  attn_cfg=attn).sample.float().cpu()
+        launches = dict(_build.launches)
+        want = cpu(*args, **kw).sample
+    assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 2, "prologue": 2,
+                        "fused_norm": 9, "fused_norm_range": 6}
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() < 0.05
+
+
+def test_cached_trajectory_launches_on_card(card):
+    """4 Euler steps with CFG (8 forwards) at a threshold that skips the two
+    middle steps: exactly the computed forwards' kernels (flash, the
+    prologue, the norms), the skipped ones only the head's norm; the
+    trajectory against the CPU's, the same skips."""
+    from vorta_tpu_torch.config import WAN_TINY, AttentionConfig
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.pipelines.wan_t2v import SamplingConfig, WanT2VPipeline
+
+    cfg = dataclasses.replace(WAN_TINY, dim=256, ffn_dim=512, num_heads=2, head_dim=128,
+                              text_dim=64, text_len=16, freq_dim=64)
+    attn = AttentionConfig(latent_shape=(4, 8, 8), block_q=64, block_kv=64)
+    cpu = WanModel(cfg, dtype=torch.float32, device="cpu", seed=2)
+    gpu = WanModel(cfg, dtype=torch.bfloat16, device=card, seed=2)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(3)
+    lat = torch.randn((1, 4, 16, 16, 16), generator=gen)
+    pe, ne = torch.randn((1, 16, 64), generator=gen), torch.randn((1, 16, 64), generator=gen)
+    sampling = SamplingConfig(num_inference_steps=4, scheduler="euler", cache_threshold=1e9)
+    logs = ([], [])
+    _build.reset_launches()
+    with torch.inference_mode():
+        got = WanT2VPipeline(gpu, attn_cfg=attn)(lat.to(card), pe.to(card), ne.to(card),
+                                                 sampling=sampling, cache_log=logs[0]).cpu()
+        launches = dict(_build.launches)
+        want = WanT2VPipeline(cpu, attn_cfg=attn)(lat, pe, ne, sampling=sampling,
+                                                  cache_log=logs[1])
+    assert logs[0] == logs[1]
+    assert [s for *_, s in logs[0]] == [False] * 2 + [True] * 4 + [False] * 2
+    n, computed, skipped = cfg.num_layers, 4, 4
+    assert launches == {**dict.fromkeys(_build.KERNELS, 0), "flash": 2 * n * computed,
+                        "prologue": n * computed, "prologue_rows": n * computed,
+                        "fused_norm": (2 * n + 1) * computed + skipped}
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() < 0.05
+
+
+def test_importer_loads_onto_the_card(card, tmp_path):
+    """A diffusers-format checkpoint (two safetensors shards, bf16) straight
+    into a model on the card: every parameter the mapped source tensor, bit
+    for bit; the I2V forward runs its image branch on the kernels."""
+    from safetensors.torch import save_file
+
+    from vorta_tpu_torch.config import WAN_TINY, AttentionConfig
+    from vorta_tpu_torch.io import torch_import as ti
+    from vorta_tpu_torch.models.wan import WanModel
+
+    cfg = dataclasses.replace(WAN_TINY, dim=256, ffn_dim=512, num_heads=2, head_dim=128,
+                              text_dim=64, text_len=16, freq_dim=64, image_dim=96)
+    gen = torch.Generator().manual_seed(4)
+    sd = {k: (0.05 * torch.randn(sh, generator=gen)).to(torch.bfloat16)
+          for k, sh in ti.wan_expected_shapes(cfg, routers=True).items()}
+    keys = sorted(sd)
+    (tmp_path / "ckpt").mkdir()
+    for i, part in enumerate((keys[::2], keys[1::2])):
+        save_file({k: sd[k] for k in part}, str(tmp_path / "ckpt" / f"part-{i}.safetensors"))
+    model = WanModel(cfg, dtype=torch.bfloat16, device=card, seed=0)
+    applied, missing = ti.load_wan_torch_weights(model, tmp_path / "ckpt")
+    assert missing == []
+    want = ti.wan_state_dict_to_tree(sd, cfg.num_layers, cfg.head_dim)
+    params = model.state_dict()
+    assert sorted(applied) == sorted(params)
+    for k, v in want.items():
+        assert torch.equal(params[k].cpu(), v.to(params[k].dtype)), k
+    _build.reset_launches()
+    with torch.inference_mode():
+        out = model(torch.randn((1, 4, 16, 16, 16), device=card), torch.tensor([500.0], device=card),
+                    torch.randn((1, 16, 64), device=card),
+                    attn_cfg=AttentionConfig(latent_shape=(4, 8, 8), block_q=64, block_kv=64),
+                    image_context=torch.randn((1, 257, 96), device=card)).sample
+    assert torch.isfinite(out).all()
+    # the image call (block_kv 512) on the Hopper path; the 64-token blocks
+    # and the 16 text keys stay on mma.sync
+    assert (_build.launches["flash"], _build.launches["flash_wgmma"]) == (
+        3 * cfg.num_layers, cfg.num_layers)

@@ -189,14 +189,16 @@ def test_forward_unfused_prologue_matches_fused(models, inputs, monkeypatch):
 
 
 def test_unported_options_raise(models, inputs):
-    """The options the port does not serve raise; the tiny model's own STA
-    tile (2, 2, 2), where the JAX package runs sta_batched, is served now and
-    routes hard as the JAX model does."""
+    """The options the port does not serve raise (the step cache and token
+    replace are served now: tests/test_torch_port_stepcache.py and
+    test_torch_port_i2v.py; the cache still refuses training); the tiny
+    model's own STA tile (2, 2, 2), where the JAX package runs sta_batched,
+    is served now and routes hard as the JAX model does."""
     jmodel, tmodel, _ = models
     args = _args(inputs, 500.0, False)
     kw = dict(attn_cfg=AttentionConfig(**ATTN))
     for bad in (dict(return_losses=True), dict(remat_blocks=True), dict(sp_axis="sp"),
-                dict(step_cache=object())):
+                dict(return_losses=True, step_cache=object())):
         with pytest.raises(NotImplementedError):
             tmodel(*args, **kw, **bad)
     # W8A8 is served (tests/test_torch_port_quant_hunyuan.py holds it to JAX)
@@ -204,8 +206,8 @@ def test_unported_options_raise(models, inputs):
         assert torch.isfinite(tmodel(*args, **kw, mm_precision="int8").sample).all()
     with pytest.raises(ValueError, match="routing mode"):
         tmodel(*args, **kw, routing_mode="hard_ref")
-    with pytest.raises(NotImplementedError, match="token"):
-        HunyuanModel(dataclasses.replace(HUNYUAN_TINY, image_condition_type="token_replace"),
+    with pytest.raises(ValueError, match="image_condition_type"):
+        HunyuanModel(dataclasses.replace(HUNYUAN_TINY, image_condition_type="concat"),
                      device="meta")
     # the tiny model's own STA tile: sta_batched in both packages
     small = {**ATTN, "sta_tile": (2, 2, 2)}

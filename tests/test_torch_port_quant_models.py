@@ -192,8 +192,11 @@ def test_cli_quantization_flags(tmp_path):
     plain = main(base + ["--output", str(tmp_path / "b.npy")])
     assert not np.allclose(np.load(tmp_path / "b.npy"), out)
     assert plain.latents.shape == res.latents.shape
-    with pytest.raises(NotImplementedError, match="torch_import"):
-        build_quantized_wan(WanModelConfig(**CFG), checkpoint="dit.safetensors", device="cpu")
+    # the checkpoint path reads the file (tests/test_torch_port_torch_import.py
+    # holds it to JAX's); a missing one raises
+    with pytest.raises(FileNotFoundError):
+        build_quantized_wan(WanModelConfig(**CFG), checkpoint=str(tmp_path / "dit.safetensors"),
+                            device="cpu")
 
 
 # the scanned stacks, whose layer index the JAX model's module paths lack

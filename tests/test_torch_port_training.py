@@ -346,7 +346,7 @@ def test_cli_trains_and_resumes(trained):
 
 @pytest.mark.parametrize("extra", [["--model", "hunyuan-tiny"], ["--sp_size", "2"],
                                    ["--dp_size", "2"], ["--shard_frozen"],
-                                   ["--torch_checkpoint", "w.safetensors"]])
+                                   ["--model", "hunyuan-13B"]])
 def test_cli_refuses_later_slices(extra, tmp_path):
     from vorta_tpu_torch.cli.train import main
 
@@ -356,7 +356,8 @@ def test_cli_refuses_later_slices(extra, tmp_path):
 
 def test_sample_cli_uses_trained_router(trained, tmp_path, monkeypatch):
     """Train -> serve: the sampler reads the trainer's step dir and its
-    config.json geometry; a reference .pt checkpoint raises."""
+    config.json geometry, and the same routers from a reference-style
+    router.pt (blocks.{i}.router.linear.*)."""
     from vorta_tpu_torch.cli import sample
 
     out, first, second = trained
@@ -377,7 +378,12 @@ def test_sample_cli_uses_trained_router(trained, tmp_path, monkeypatch):
     params = dict(seen["model"].named_parameters())
     for name, p in second.router_final.items():
         torch.testing.assert_close(params[name].detach(), p, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="io/torch_import"):
-        sample.main(args + ["--router_checkpoint", str(tmp_path / "router.pt")])
+    torch.save({k: v for k, v in second.router_final.items()}, tmp_path / "router.pt")
+    seen.clear()
+    res_pt = sample.main(args + ["--router_checkpoint", str(tmp_path / "router.pt")])
+    torch.testing.assert_close(res_pt.latents, res.latents, rtol=0, atol=0)
+    params = dict(seen["model"].named_parameters())
+    for name, p in second.router_final.items():
+        torch.testing.assert_close(params[name].detach(), p, rtol=0, atol=0)
     with pytest.raises(ValueError, match="config.json geometry"):
         sample.main(args[:7] + ["--num_frames", "17"] + args[9:])

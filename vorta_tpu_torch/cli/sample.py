@@ -6,9 +6,12 @@ head falls back to full attention) unless ``--native_attention`` asks for
 full attention everywhere, the baseline of routing's speed-up.
 Conditioning comes from ``--prompt_embeds x.npy`` (UMT5 states,
 (L, text_dim) or (1, L, text_dim)) or ``--random_embeds``.  Weights are
-random, drawn from ``--seed``; ``--router_checkpoint`` loads the routers
+random, drawn from ``--seed``, unless ``--torch_checkpoint`` names a
+diffusers checkpoint (one .safetensors / .pt / .bin file or a directory of
+shards; io/torch_import.py); ``--router_checkpoint`` loads the routers
 from a step dir that the port's trainer wrote (``<output_dir>/ckpt/
-step-XXXXXX``), and ``--resume_dir`` reads that run's attention geometry
+step-XXXXXX``, Wan only) or from a reference router file (``router.pt`` /
+``.bin`` / ``.safetensors``), and ``--resume_dir`` reads that run's attention geometry
 from its ``config.json`` (``cli.train --sta_tile T H W`` writes the tile
 there): for Wan its grid must be the requested video's and
 ``--tau_sparse`` overrides its threshold; for HunyuanVideo it is taken as
@@ -21,7 +24,17 @@ stays bf16), ``--mm int8`` the block projections in W8A8 (ops/qmm.py),
 ``--act_scales x.npz`` gives them static activation scales (the JAX
 tool's ``{site: (L,)}`` table, tools/calibrate_int8.py), and
 ``--quantize_blocks int4|int8`` serves the blocks from a quantized stack
-through a depth-1 model (io/quant_serving.py; random weights from the seed).
+through a depth-1 model (io/quant_serving.py; the checkpoint's blocks, or
+random ones from the seed).
+
+Step cache (ops/stepcache.py, Wan and HunyuanVideo): ``--cache_threshold``
+(0 = off) skips a forward's block stack while the accumulated distance of
+the timestep modulation since the last computed step stays under it,
+``--cache_warmup`` steps at the start always compute (and the last step),
+``--cache_poly x.npz`` rescales the distance by its fitted ``coefficients``
+(e.g. ``assets/cache_poly_wan1_3b_720p.npz``).  Image to video (Wan):
+``--image_embeds x.npy|x.pt``, (257, image_dim) CLIP image tokens; the
+model takes ``image_dim`` from the file.
 
 Example:
   python -m vorta_tpu_torch.cli.sample --model wan-1_3B --random_embeds \\
@@ -44,6 +57,8 @@ from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
 from ..io.checkpoint import apply_router_state, load_router_checkpoint
 from ..io.from_jax import load_act_scales
 from ..io.quant_serving import build_quantized_hunyuan, build_quantized_wan
+from ..io.torch_import import (hunyuan_router_state, load_hunyuan_torch_weights,
+                               load_wan_torch_weights, wan_router_state)
 from ..models.hunyuan import HUNYUAN_13B, HUNYUAN_TINY, HunyuanModel
 from ..models.wan import WanModel
 from ..pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
@@ -61,8 +76,11 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--resume_dir", default=None,
                    help="training output dir: reads config.json's attention geometry")
+    p.add_argument("--torch_checkpoint", default=None,
+                   help="DiT weights: diffusers .safetensors / .pt / .bin, or a dir of shards")
     p.add_argument("--router_checkpoint", default=None,
-                   help="router checkpoint step dir written by vorta_tpu_torch.cli.train")
+                   help="a step dir written by vorta_tpu_torch.cli.train (Wan), or a "
+                        "reference router.pt / .bin / .safetensors")
     p.add_argument("--native_attention", action="store_true",
                    help="full 3D attention baseline (routing off)")
     p.add_argument("--tau_sparse", type=float, default=0.3)
@@ -75,7 +93,17 @@ def parse_args(argv=None):
     p.add_argument("--quantize_blocks", default=None, choices=["int4", "int8"],
                    help="serve the blocks from an int4 / int8 stack, one block dequantized "
                         "at a time (io/quant_serving.py)")
+    p.add_argument("--cache_threshold", type=float, default=0.0,
+                   help="step cache (ops/stepcache.py): skip the block stack while the "
+                        "accumulated modulation distance stays under this (0 = off)")
+    p.add_argument("--cache_warmup", type=int, default=1,
+                   help="denoise steps at the start that always compute")
+    p.add_argument("--cache_poly", default=None,
+                   help="npz whose 'coefficients' (highest degree first) rescale the "
+                        "cache distance")
     p.add_argument("--prompt_embeds", default=None, help=".npy UMT5 states (L, text_dim)")
+    p.add_argument("--image_embeds", default=None,
+                   help="I2V (Wan): .npy / .pt CLIP image tokens (257, image_dim)")
     p.add_argument("--random_embeds", action="store_true")
     p.add_argument("--num_frames", type=int, default=77)
     p.add_argument("--height", type=int, default=480)
@@ -100,6 +128,30 @@ def load_embeds(path, cfg) -> np.ndarray:
     if arr.shape[1] < cfg.text_len:
         arr = np.pad(arr, ((0, 0), (0, cfg.text_len - arr.shape[1]), (0, 0)))
     return arr[:, : cfg.text_len]
+
+
+def load_cache_poly(args):
+    """The fitted rescale polynomial of ``--cache_poly`` (the npz's
+    ``coefficients``, highest degree first), or None."""
+    if not args.cache_poly:
+        return None
+    return tuple(float(c) for c in np.load(args.cache_poly)["coefficients"])
+
+
+def load_image_embeds(path) -> np.ndarray:
+    """(1, N, image_dim) f32 from a .npy or a .pt of (N, image_dim) or
+    (1, N, image_dim)."""
+    if str(path).endswith(".npy"):
+        arr = np.load(path)
+    else:
+        arr = torch.load(path, map_location="cpu", weights_only=True).float().numpy()
+    arr = np.asarray(arr, np.float32)
+    return arr[None] if arr.ndim == 2 else arr
+
+
+def is_router_file(path) -> bool:
+    """A reference router file, not a step dir of the port's trainer."""
+    return Path(path).suffix in (".pt", ".bin", ".safetensors")
 
 
 def attention_config(model: str, grid, tau_sparse: float = 0.3) -> AttentionConfig:
@@ -146,6 +198,8 @@ class SampleResult:
     steps: int
     # one (num_layers, H) table of expert ids per hard-routed forward
     routing: list = dataclasses.field(default_factory=list)
+    # (step, arm, skipped) per forward with the step cache on
+    cache_log: list = dataclasses.field(default_factory=list)
 
 
 def main(argv=None) -> SampleResult:
@@ -168,24 +222,31 @@ def main(argv=None) -> SampleResult:
     if hunyuan:
         return _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode,
                              act_scales, bits)
+    image_embeds = None
+    if args.image_embeds:
+        image_embeds = load_image_embeds(args.image_embeds)
+        if model_cfg.image_dim is None:
+            model_cfg = dataclasses.replace(model_cfg, image_dim=int(image_embeds.shape[-1]))
     router_state = None
     if args.router_checkpoint:
         rp = Path(args.router_checkpoint)
-        if rp.suffix in (".pt", ".bin", ".safetensors"):
-            raise NotImplementedError(
-                f"{rp.name}: reference torch router checkpoints need the weight importer "
-                "(io/torch_import), a later port slice; pass a step dir of the port's trainer")
-        router_state, _ = load_router_checkpoint(rp)
+        router_state = (wan_router_state(rp, model_cfg.num_layers) if is_router_file(rp)
+                        else load_router_checkpoint(rp)[0])
     print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}"
           f"{_quant_note(args)}", flush=True)
 
     t0 = time.time()
     qblocks = None
     if bits:
-        model, qblocks = build_quantized_wan(model_cfg, bits, router_state=router_state,
-                                             seed=args.seed, dtype=dtype, device=device)
+        model, qblocks = build_quantized_wan(model_cfg, bits, checkpoint=args.torch_checkpoint,
+                                             router_state=router_state, seed=args.seed,
+                                             dtype=dtype, device=device)
     else:
         model = WanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+        if args.torch_checkpoint:
+            applied, missing = load_wan_torch_weights(model, args.torch_checkpoint)
+            print(f"[sample] imported {len(applied)} tensors ({len(missing)} missing) from "
+                  f"{args.torch_checkpoint}", flush=True)
         if router_state is not None:
             apply_router_state(model, router_state)
     if router_state is not None:
@@ -204,6 +265,9 @@ def main(argv=None) -> SampleResult:
                           quantized_blocks=qblocks)
     latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
                                    args.height, args.width)
+    img = None
+    if image_embeds is not None:
+        img = torch.from_numpy(image_embeds).to(device=device, dtype=dtype)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.time() - t0
@@ -212,11 +276,17 @@ def main(argv=None) -> SampleResult:
     sampling = SamplingConfig(
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
         flow_shift=args.flow_shift, scheduler=args.scheduler or "unipc",
-        routing_mode=routing_mode, mm_precision=args.mm)
-    routing = []
+        routing_mode=routing_mode, mm_precision=args.mm, **_cache_kw(args))
+    routing, cache_log = [], []
     t0 = time.time()
-    final = pipe(latents, pe, ne, sampling=sampling, routing=routing)
-    return _finish(args, device, final, build_s, t0, routing)
+    final = pipe(latents, pe, ne, sampling=sampling, routing=routing, image_embeds=img,
+                 cache_log=cache_log)
+    return _finish(args, device, final, build_s, t0, routing, cache_log)
+
+
+def _cache_kw(args) -> dict:
+    return dict(cache_threshold=args.cache_threshold, cache_warmup=args.cache_warmup,
+                cache_coefficients=load_cache_poly(args))
 
 
 def _quant_note(args) -> str:
@@ -224,17 +294,23 @@ def _quant_note(args) -> str:
     on += ["qk_int8"] if args.qk_int8 else []
     on += [f"act_scales={args.act_scales}"] if args.act_scales else []
     on += [f"quantize_blocks={args.quantize_blocks}"] if args.quantize_blocks else []
+    on += [f"cache_threshold={args.cache_threshold}"] if args.cache_threshold > 0 else []
     return (" " + " ".join(on)) if on else ""
 
 
 def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
-            routing: list) -> SampleResult:
-    """Synchronise, report the denoise time and the routing, write the latents."""
+            routing: list, cache_log: list) -> SampleResult:
+    """Synchronise, report the denoise time, the routing and the step
+    cache's skips, write the latents."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     print(f"[sample] denoised in {dt:.2f}s ({dt / args.num_inference_steps:.3f}s/step)",
           flush=True)
+    if cache_log:
+        skipped = sum(s for _, _, s in cache_log)
+        print(f"[sample] step cache: {len(cache_log) - skipped} of {len(cache_log)} forwards "
+              f"computed, {skipped} skipped", flush=True)
     if routing:
         heads = np.bincount(np.concatenate([r.reshape(-1) for r in routing]), minlength=3)
         print(f"[sample] heads routed over {len(routing)} forwards: full {heads[0]}, "
@@ -243,24 +319,42 @@ def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
     out.parent.mkdir(parents=True, exist_ok=True)
     np.save(out, final.cpu().numpy())
     print(f"[sample] wrote {out}", flush=True)
-    return SampleResult(final, build_s, dt, args.num_inference_steps, routing)
+    return SampleResult(final, build_s, dt, args.num_inference_steps, routing, cache_log)
 
 
 def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: str,
                   act_scales, bits) -> SampleResult:
     """HunyuanVideo sampling (the JAX CLI's _main_hunyuan, latents out)."""
+    if args.image_embeds:
+        raise ValueError("--image_embeds is Wan's image branch; HunyuanVideo's I2V is "
+                         "token replace (HunyuanModelConfig.image_condition_type)")
+    router_state = None
     if args.router_checkpoint:
-        raise NotImplementedError("Hunyuan router checkpoints come from Hunyuan router "
-                                  "training, a later slice of the port")
+        if not is_router_file(args.router_checkpoint):
+            raise NotImplementedError("Hunyuan router step dirs come from Hunyuan router "
+                                      "training, a later slice of the port (ROADMAP section "
+                                      "1 item 5); a reference router file loads")
+        router_state = hunyuan_router_state(args.router_checkpoint, model_cfg.dual_layers,
+                                            model_cfg.single_layers)
     print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}"
           f"{_quant_note(args)}", flush=True)
     t0 = time.time()
     qblocks = None
     if bits:
-        model, qblocks = build_quantized_hunyuan(model_cfg, bits, seed=args.seed, dtype=dtype,
-                                                 device=device)
+        model, qblocks = build_quantized_hunyuan(model_cfg, bits,
+                                                 checkpoint=args.torch_checkpoint,
+                                                 router_state=router_state, seed=args.seed,
+                                                 dtype=dtype, device=device)
     else:
         model = HunyuanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+        if args.torch_checkpoint:
+            applied, missing = load_hunyuan_torch_weights(model, args.torch_checkpoint)
+            print(f"[sample] imported {len(applied)} tensors ({len(missing)} missing) from "
+                  f"{args.torch_checkpoint}", flush=True)
+        if router_state is not None:
+            apply_router_state(model, router_state)
+    if router_state is not None:
+        print(f"[sample] router loaded from {args.router_checkpoint}", flush=True)
     gen = torch.Generator(device=device)
     lt = model_cfg.text_len
     if args.prompt_embeds:
@@ -286,11 +380,12 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
     sampling = HunyuanSamplingConfig(
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
         flow_shift=args.flow_shift, scheduler=args.scheduler or "euler",
-        routing_mode=routing_mode, mm_precision=args.mm)
-    routing = []
+        routing_mode=routing_mode, mm_precision=args.mm, **_cache_kw(args))
+    routing, cache_log = [], []
     t0 = time.time()
-    final = pipe(latents, text, mask, pooled, sampling=sampling, routing=routing)
-    return _finish(args, device, final, build_s, t0, routing)
+    final = pipe(latents, text, mask, pooled, sampling=sampling, routing=routing,
+                 cache_log=cache_log)
+    return _finish(args, device, final, build_s, t0, routing, cache_log)
 
 
 if __name__ == "__main__":

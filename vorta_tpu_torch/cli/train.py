@@ -7,7 +7,9 @@ the interval curriculum, AdamW with global-norm clipping and gradient
 accumulation, router-only checkpoints under ``<output_dir>/ckpt`` and the
 attention geometry persisted to ``<output_dir>/config.json``.  SIGTERM or
 SIGINT saves a checkpoint at the next optimizer step and exits.  Weights
-are random, drawn from ``--seed``; ``--synthetic_data`` (or no
+are random, drawn from ``--seed``, unless ``--torch_checkpoint`` names a
+diffusers checkpoint (io/torch_import.py), which then sets the student's
+and the frozen teacher's weights alike; ``--synthetic_data`` (or no
 ``--data_json_path``) draws latents and text embeddings from it too.  Runs
 on CUDA unless ``--device cpu``.
 
@@ -39,6 +41,7 @@ from ..io.checkpoint import (
     save_router_checkpoint,
 )
 from ..io.metrics import MetricsLogger
+from ..io.torch_import import load_wan_torch_weights
 from ..models.wan import WanModel
 from ..schedulers.flow_match import train_sigmas
 from ..training.data import LatentDataset, epoch_iterator
@@ -114,9 +117,6 @@ def parse_args(argv=None):
         (args.sp_size > 1 or (args.dp_size or 1) > 1 or args.shard_frozen,
          "--sp_size / --dp_size / --shard_frozen: multi-card training belongs to the "
          "sequence-parallelism port slice"),
-        (args.torch_checkpoint is not None,
-         "--torch_checkpoint: the diffusers weight importer (io/torch_import) belongs to a "
-         "later port slice"),
     )
     for bad, why in unported:
         if bad:
@@ -189,6 +189,12 @@ def main(argv=None) -> TrainResult:
           flush=True)
 
     model = WanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+    if args.torch_checkpoint:
+        # the student and the frozen teacher are one model (the teacher runs
+        # its blocks with routing off), so both take the checkpoint's weights
+        applied, missing = load_wan_torch_weights(model, args.torch_checkpoint)
+        print(f"[train] imported {len(applied)} tensors ({len(missing)} missing) from "
+              f"{args.torch_checkpoint}", flush=True)
     routers = router_partition(model)  # f32, the only trainable parameters
     optimizer = MultiSteps(
         make_optimizer(routers, lr=args.learning_rate, weight_decay=args.weight_decay,

@@ -110,6 +110,7 @@ class WanModelConfig:
     cross_attn_norm: bool = True
     qk_norm: bool = True
     rope_theta: float = 10000.0
+    image_dim: Optional[int] = None  # I2V variants: the CLIP image tokens' width (1280)
 
     def __post_init__(self):
         object.__setattr__(self, "patch_size", _tuple3(self.patch_size))

@@ -30,7 +30,12 @@
 //   modulated row is written once.
 //
 // Both read scale / shift in place: rows b * mod_stride of f32 or bf16
-// (AdaLN's column slices of the (B, 6, dim) modulation), no copy.
+// (AdaLN's column slices of the (B, 6, dim) modulation), no copy.  Both
+// take x and out as (B, S, dim) views whose S rows are dense and whose
+// batches lie x_bstride / out_bstride elements apart: a range of rows of a
+// longer sequence (HunyuanVideo's token-replace norm runs the first
+// frame's rows and the rest as two such ranges, each with its own
+// modulation), no copy.
 //
 // vorta_fused_residual_norm replaces vorta_tpu/ops/fused_norm.py:_res_kernel
 // (reached through fused_residual_norm): x_new = bf16(f32(x) + f32(delta) *
@@ -60,6 +65,20 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// Where row r (of batch b, S rows a batch) of x and of out starts: batches
+// x_bstride / out_bstride elements apart, rows dim apart within a batch.
+struct Strides {
+  long long x_bstride;
+  long long out_bstride;
+
+  __device__ __forceinline__ long long x_row(long long r, int b, int S, int dim) const {
+    return b * x_bstride + (r - static_cast<long long>(b) * S) * dim;
+  }
+  __device__ __forceinline__ long long out_row(long long r, int b, int S, int dim) const {
+    return b * out_bstride + (r - static_cast<long long>(b) * S) * dim;
+  }
+};
 
 // Sum over the block; every thread gets the result.
 __device__ float block_sum(float x, float* red) {
@@ -111,12 +130,12 @@ template <typename TO>
 __global__ void __launch_bounds__(THREADS)
 fused_norm_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, const Mod mod,
                   const float* __restrict__ gamma, const float* __restrict__ beta, int S, int dim,
-                  int rms, float eps) {
+                  int rms, float eps, const Strides st) {
   extern __shared__ float row[];
   __shared__ float red[THREADS / 32];
   const size_t r = blockIdx.x;
   const int b = static_cast<int>(r / S);
-  const __nv_bfloat16* xr = x + r * dim;
+  const __nv_bfloat16* xr = x + st.x_row(r, b, S, dim);
 
   float sum = 0.f;
   for (int i = threadIdx.x; i < dim; i += THREADS) {
@@ -132,7 +151,7 @@ fused_norm_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, con
   }
   const float inv = rsqrtf(block_sum(sq, red) / dim + eps);
 
-  TO* orow = out + r * dim;
+  TO* orow = out + st.out_row(r, b, S, dim);
   for (int i = threadIdx.x; i < dim; i += THREADS) {
     float y = (row[i] - mean) * inv;
     if (gamma) {
@@ -192,7 +211,7 @@ template <int CH, int WPR, typename TO>
 __global__ void __launch_bounds__(THREADS)
 fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, const Mod mod,
                        const float* __restrict__ gamma, const float* __restrict__ beta,
-                       long long rows, int S, int rms, float eps) {
+                       long long rows, int S, int rms, float eps, const Strides st) {
   constexpr int DIM = 256 * WPR * CH;
   constexpr int ROWS = THREADS / 32 / WPR;  // rows per block
   __shared__ float red[2][WPR > 1 ? THREADS / 32 : 1];
@@ -204,7 +223,8 @@ fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out
   const int c0 = wir * 32 + lane;  // this lane's first chunk
 
   uint4 xv[CH];
-  const uint4* xr = reinterpret_cast<const uint4*>(x + r * DIM);
+  const uint4* xr = reinterpret_cast<const uint4*>(x + st.x_row(r, b, S, DIM));
+  TO* orow = out + st.out_row(r, b, S, DIM);
 #pragma unroll
   for (int c = 0; c < CH; ++c) xv[c] = load_stream(xr + c * 32 * WPR + c0);
   float sum = 0.f;
@@ -265,7 +285,7 @@ fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out
       for (int e = 0; e < 8; ++e) y[e] = y[e] * (1.f + sc[e]) + sh[e];
     }
     if constexpr (sizeof(TO) == 4) {
-      float4* o = reinterpret_cast<float4*>(out + r * DIM + col);
+      float4* o = reinterpret_cast<float4*>(orow + col);
       o[0] = make_float4(y[0], y[1], y[2], y[3]);
       o[1] = make_float4(y[4], y[5], y[6], y[7]);
     } else {
@@ -274,7 +294,7 @@ fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out
       u.y = pack2(y[2], y[3]);
       u.z = pack2(y[4], y[5]);
       u.w = pack2(y[6], y[7]);
-      *reinterpret_cast<uint4*>(out + r * DIM + col) = u;
+      *reinterpret_cast<uint4*>(orow + col) = u;
     }
   }
 }
@@ -367,11 +387,11 @@ Layout norm_layout(int dim) {
 template <int CH, int WPR, typename TO>
 cudaError_t launch_rows(const __nv_bfloat16* x, TO* out, const Mod& mod, const float* gamma,
                         const float* beta, long long rows, int S, int rms, float eps,
-                        cudaStream_t st) {
+                        const Strides& strides, cudaStream_t st) {
   constexpr long long per_block = THREADS / 32 / WPR;
   const long long blocks = (rows + per_block - 1) / per_block;
   fused_norm_rows_kernel<CH, WPR, TO><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
-      x, out, mod, gamma, beta, rows, S, rms, eps);
+      x, out, mod, gamma, beta, rows, S, rms, eps, strides);
   return cudaGetLastError();
 }
 
@@ -380,24 +400,28 @@ cudaError_t launch_rows(const __nv_bfloat16* x, TO* out, const Mod& mod, const f
 template <int CH, typename TO>
 cudaError_t launch_ch(int wpr, int ch, const __nv_bfloat16* x, TO* out, const Mod& mod,
                       const float* gamma, const float* beta, long long rows, int S, int rms,
-                      float eps, cudaStream_t st) {
+                      float eps, const Strides& sd, cudaStream_t st) {
   if (ch != CH) {
     if constexpr (CH < 12)
-      return launch_ch<CH + 1, TO>(wpr, ch, x, out, mod, gamma, beta, rows, S, rms, eps, st);
+      return launch_ch<CH + 1, TO>(wpr, ch, x, out, mod, gamma, beta, rows, S, rms, eps, sd, st);
     else
       return cudaErrorInvalidValue;
   }
-  if (wpr == 1) return launch_rows<CH, 1>(x, out, mod, gamma, beta, rows, S, rms, eps, st);
+  if (wpr == 1) return launch_rows<CH, 1>(x, out, mod, gamma, beta, rows, S, rms, eps, sd, st);
   if constexpr (CH >= 7) {
-    if (wpr == 2) return launch_rows<CH, 2>(x, out, mod, gamma, beta, rows, S, rms, eps, st);
-    if (wpr == 4) return launch_rows<CH, 4>(x, out, mod, gamma, beta, rows, S, rms, eps, st);
+    if (wpr == 2)
+      return launch_rows<CH, 2>(x, out, mod, gamma, beta, rows, S, rms, eps, sd, st);
+    if (wpr == 4)
+      return launch_rows<CH, 4>(x, out, mod, gamma, beta, rows, S, rms, eps, sd, st);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x, out: contiguous (B, S, dim); x bf16, out bf16 or (out_f32) f32.
+// x, out: (B, S, dim) with dense rows, batches x_bstride / out_bstride
+// elements apart (S * dim where contiguous); x bf16, out bf16 or (out_f32)
+// f32.
 // scale / shift: (B, dim) f32 (mod_bf16: bf16) with rows mod_stride
 // elements apart and unit column stride, or null (together); gamma / beta:
 // contiguous (dim,) f32 or null.  wpr: the wrapper's layout rule
@@ -407,9 +431,13 @@ cudaError_t launch_ch(int wpr, int ch, const __nv_bfloat16* x, TO* out, const Mo
 extern "C" int vorta_fused_norm(const void* x, void* out, const void* scale, const void* shift,
                                 const void* gamma, const void* beta, int B, int S, int dim,
                                 int out_f32, int rms, float eps, long long mod_stride,
-                                int mod_bf16, int wpr, void* stream) {
-  if (dim <= 0 || dim * sizeof(float) > 48 * 1024 || (scale == nullptr) != (shift == nullptr))
+                                int mod_bf16, int wpr, long long x_bstride,
+                                long long out_bstride, void* stream) {
+  if (dim <= 0 || dim * sizeof(float) > 48 * 1024 || (scale == nullptr) != (shift == nullptr) ||
+      (B > 1 && (x_bstride < static_cast<long long>(S) * dim ||
+                 out_bstride < static_cast<long long>(S) * dim)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Strides strides{x_bstride, out_bstride};
   const Layout lay = norm_layout(dim);
   if (wpr != lay.wpr) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(B) * S;
@@ -422,17 +450,17 @@ extern "C" int vorta_fused_norm(const void* x, void* out, const void* scale, con
   if (wpr) {
     return static_cast<int>(
         out_f32 ? launch_ch<1, float>(lay.wpr, lay.ch, xx, static_cast<float*>(out), mod, ga, be,
-                                      rows, S, rms, eps, st)
+                                      rows, S, rms, eps, strides, st)
                 : launch_ch<1, __nv_bfloat16>(lay.wpr, lay.ch, xx,
                                               static_cast<__nv_bfloat16*>(out), mod, ga, be,
-                                              rows, S, rms, eps, st));
+                                              rows, S, rms, eps, strides, st));
   }
   const size_t smem = static_cast<size_t>(dim) * sizeof(float);
   if (out_f32)
     fused_norm_kernel<float><<<rows, THREADS, smem, st>>>(xx, static_cast<float*>(out), mod, ga,
-                                                          be, S, dim, rms, eps);
+                                                          be, S, dim, rms, eps, strides);
   else
     fused_norm_kernel<__nv_bfloat16><<<rows, THREADS, smem, st>>>(
-        xx, static_cast<__nv_bfloat16*>(out), mod, ga, be, S, dim, rms, eps);
+        xx, static_cast<__nv_bfloat16*>(out), mod, ga, be, S, dim, rms, eps, strides);
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,14 +62,16 @@ class FP32LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fp32(x).to(x.dtype)
 
-    def modulated(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    def modulated(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``norm(x) * (1 + scale) + shift`` -> x.dtype (AdaLN), one pass
-        through the fused-norm kernel.  scale/shift: (B, dim) f32."""
+        through the fused-norm kernel.  scale/shift: (B, dim) f32; ``out``: a
+        view to write the result into (forward only)."""
         from ..ops.fused_norm import fused_norm
 
         gamma = self.scale if self.affine else None
         beta = self.bias if self.affine else None
-        return fused_norm(x, scale, shift, gamma, beta, False, self.eps, False)
+        return fused_norm(x, scale, shift, gamma, beta, False, self.eps, False, out)
 
 
 class RMSNorm(nn.Module):

@@ -36,9 +36,20 @@ the embedders stay in the model's dtype), ``act_scales`` the static scales
 ``calibrate_mm`` the per-layer max |x|, and ``quantized_blocks`` a pair of
 ``BlockStack`` (dual, single) served through a depth-(1, 1) model.
 
+Step cache (ops/stepcache.py), as in models/wan.py: the indicator is
+temb, only the video stream's block delta is cached (the text stream is
+dropped after the stacks, as in JAX), and a skipped forward runs no block.
+
+Token-replace image to video (``image_condition_type="token_replace"``):
+the first latent frame's video rows, ``(h / ph) * (w / pw)`` of them,
+take their AdaLN shift, scale and gates from ``tr_emb`` (the timestep
+embedder at t = 0 plus the pooled text, no guidance), the other rows and
+the text from temb.  The norm kernel runs over the two row ranges, each
+with its own modulation, into one output (the norm is per row, so this
+equals JAX's select between two full passes).
+
 Not in this slice (they raise): the training losses (``return_losses``),
-per-block recompute, sequence parallelism, the step cache and the
-token-replace image-to-video variant.
+per-block recompute and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -56,7 +67,7 @@ from ..device import resolve_device
 from ..ops.attention_ref import attention_dense
 from ..ops.joint_experts import MODES, JointConfig, routed_joint_attention
 from ..ops.prologue import fused_qk_prologue, use_fused_prologue
-from ..ops import qmm
+from ..ops import qmm, stepcache
 from ..ops.qmm import FusedLinear, QLinear
 from ..ops.rope import apply_rope_half
 from ..ops.routed_fused import route_expert_ids
@@ -92,7 +103,9 @@ class HunyuanModelConfig:
     refiner_layers: int = 2
     freq_dim: int = 256
     eps: float = 1e-6
-    image_condition_type: Optional[str] = None  # None | "token_replace" (not ported)
+    # I2V token-replace variant: the first frame's tokens carry the clean
+    # image and take t = 0 AdaLN conditioning
+    image_condition_type: Optional[str] = None  # None | "token_replace"
 
     def __post_init__(self):
         if self.dim != self.num_heads * self.head_dim:
@@ -123,6 +136,9 @@ class HunyuanOutput:
     expert_ids: Optional[np.ndarray] = None
     # {site: (layers of its stack,) f32 max |x|} with calibrate_mm
     mm_calibration: Optional[dict] = None
+    step_cache: Optional[object] = None  # ops.stepcache.StepCache (serving)
+    # with step_cache: whether this forward skipped the block stacks (host bool)
+    cache_skipped: Optional[bool] = None
 
 
 def hunyuan_rope_tables(grid: Shape3, cfg: HunyuanModelConfig):
@@ -151,9 +167,28 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _gated(x: torch.Tensor, y: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """x + y * gate[:, None], added in f32 and cast back to x's dtype."""
-    return (x.float() + y.float() * gate[:, None]).to(x.dtype)
+def _gated(x: torch.Tensor, y: torch.Tensor, gate: torch.Tensor,
+           tr_gate: Optional[torch.Tensor] = None, n: int = 0) -> torch.Tensor:
+    """x + y * gate[:, None], added in f32 and cast back to x's dtype; with
+    ``tr_gate`` the first ``n`` rows take it instead (token replace)."""
+    out = (x.float() + y.float() * gate[:, None]).to(x.dtype)
+    if tr_gate is not None:
+        out[:, :n] = (x[:, :n].float() + y[:, :n].float() * tr_gate[:, None]).to(x.dtype)
+    return out
+
+
+def _modulated(norm, x: torch.Tensor, scale, shift, tr_scale=None, tr_shift=None,
+               n: int = 0) -> torch.Tensor:
+    """AdaLN ``norm`` of x (B, S, dim); with ``tr_scale`` / ``tr_shift`` the
+    first ``n`` rows take that modulation: the norm kernel runs over the two
+    row ranges, each with its own, into one output."""
+    if tr_scale is None:
+        return norm.modulated(x, scale, shift)
+    out = torch.empty_like(x)
+    norm.modulated(x[:, :n], tr_scale, tr_shift, out=out[:, :n])
+    if n < x.shape[1]:
+        norm.modulated(x[:, n:], scale, shift, out=out[:, n:])
+    return out
 
 
 class PerHeadRMSNorm(nn.Module):
@@ -286,14 +321,22 @@ class HunyuanDualBlock(nn.Module):
         self.router = Router(dim, cfg.num_heads, device=device)
 
     def forward(self, x, ctx, temb, rope, rope_joint, text_mask, jcfg, scores=None,
-                routing_mode="off", expert_ids=None):
+                routing_mode="off", expert_ids=None, tr=None):
+        """``tr``: (tr_emb, n) of token replace, the first n video rows
+        conditioned by tr_emb (the same modulation projection), or None."""
         sh, sc, gate, sh_mlp, sc_mlp, gate_mlp = self.norm1_mod(temb)
         csh, csc, cgate, csh_mlp, csc_mlp, cgate_mlp = self.norm1_context_mod(temb)
-        attn_x, attn_c = self.attn(self.norm1.modulated(x, sc, sh),
+        t_sh = t_sc = t_gate = t_sh_mlp = t_sc_mlp = t_gate_mlp = None
+        n = 0
+        if tr is not None:
+            t_sh, t_sc, t_gate, t_sh_mlp, t_sc_mlp, t_gate_mlp = self.norm1_mod(tr[0])
+            n = tr[1]
+        attn_x, attn_c = self.attn(_modulated(self.norm1, x, sc, sh, t_sc, t_sh, n),
                                    self.norm1_context.modulated(ctx, csc, csh), rope, text_mask,
                                    jcfg, scores, routing_mode, expert_ids)
-        x, ctx = _gated(x, attn_x, gate), _gated(ctx, attn_c, cgate)
-        x = _gated(x, self.ff(self.norm2.modulated(x, sc_mlp, sh_mlp)), gate_mlp)
+        x, ctx = _gated(x, attn_x, gate, t_gate, n), _gated(ctx, attn_c, cgate)
+        x = _gated(x, self.ff(_modulated(self.norm2, x, sc_mlp, sh_mlp, t_sc_mlp, t_sh_mlp, n)),
+                   gate_mlp, t_gate_mlp, n)
         ctx = _gated(ctx, self.ff_context(self.norm2_context.modulated(ctx, csc_mlp, csh_mlp)),
                      cgate_mlp)
         return x, ctx
@@ -316,17 +359,22 @@ class HunyuanSingleBlock(nn.Module):
         self.router = Router(dim, cfg.num_heads, device=device)
 
     def forward(self, x, ctx, temb, rope, rope_joint, text_mask, jcfg, scores=None,
-                routing_mode="off", expert_ids=None):
+                routing_mode="off", expert_ids=None, tr=None):
+        """``tr``: as the dual block's; text rows never take tr_emb."""
         video_len = x.shape[1]
         joint = torch.cat([x, ctx], dim=1)
         sh, sc, gate = self.norm_mod(temb)
-        qp, kp, vp, mlp_in = self.qkv_mlp(self.norm.modulated(joint, sc, sh))
+        t_sh = t_sc = t_gate = None
+        n = 0
+        if tr is not None:
+            (t_sh, t_sc, t_gate), n = self.norm_mod(tr[0]), tr[1]
+        qp, kp, vp, mlp_in = self.qkv_mlp(_modulated(self.norm, joint, sc, sh, t_sc, t_sh, n))
         mlp = F.gelu(mlp_in, approximate="tanh")
         del mlp_in
         attn = self.attn((qp, kp, vp), video_len, rope_joint, text_mask, jcfg, scores,
                          routing_mode, expert_ids)
         del qp, kp, vp
-        joint = _gated(joint, self.proj_out(torch.cat([attn, mlp], dim=2)), gate)
+        joint = _gated(joint, self.proj_out(torch.cat([attn, mlp], dim=2)), gate, t_gate, n)
         return joint[:, :video_len], joint[:, video_len:]
 
 
@@ -400,17 +448,24 @@ class HunyuanCombinedEmbed(nn.Module):
         self.text_embedder_1 = nn.Linear(cfg.pooled_dim, cfg.dim, **kw)
         self.text_embedder_2 = nn.Linear(cfg.dim, cfg.dim, **kw)
 
-    def forward(self, timestep, pooled_text, guidance=None):
+    def forward(self, timestep, pooled_text, guidance=None, token_replace: bool = False):
+        """(temb, the bare timestep embedding, tr_emb or None): with
+        ``token_replace``, tr_emb is the timestep embedding at t = 0 plus
+        the pooled text, with no guidance."""
         dtype = self.text_embedder_1.weight.dtype
 
         def sinusoid(t):
             return sinusoidal_timestep_embedding(t, self.freq_dim).to(dtype)
 
         t_emb = self.timestep_embedder(sinusoid(timestep))
-        temb = t_emb + self.text_embedder_2(F.silu(self.text_embedder_1(pooled_text)))
+        pooled = self.text_embedder_2(F.silu(self.text_embedder_1(pooled_text)))
+        temb = t_emb + pooled
+        tr_emb = None
+        if token_replace:
+            tr_emb = self.timestep_embedder(sinusoid(torch.zeros_like(timestep))) + pooled
         if self.guidance_embedder is not None and guidance is not None:
             temb = temb + self.guidance_embedder(sinusoid(guidance))
-        return temb, t_emb
+        return temb, t_emb, tr_emb
 
 
 class HunyuanModel(nn.Module):
@@ -425,10 +480,8 @@ class HunyuanModel(nn.Module):
     def __init__(self, cfg: HunyuanModelConfig, *, dtype=torch.float32, device=None,
                  seed: int = 0):
         super().__init__()
-        if cfg.image_condition_type is not None:
-            raise NotImplementedError(
-                f"image_condition_type={cfg.image_condition_type!r} (token-replace image to "
-                "video) belongs to a later slice")
+        if cfg.image_condition_type not in (None, "token_replace"):
+            raise ValueError(f"unknown image_condition_type {cfg.image_condition_type!r}")
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
@@ -485,21 +538,26 @@ class HunyuanModel(nn.Module):
                  return_scores: bool = False, return_losses: bool = False,
                  remat_blocks: bool = False, act_scales: Optional[dict] = None,
                  calibrate_mm: bool = False, quantized_blocks=None,
-                 sp_axis=None, step_cache=None) -> HunyuanOutput:
+                 sp_axis=None, step_cache=None, cache_threshold: float = 0.0,
+                 cache_force_compute=None, cache_coefficients=None) -> HunyuanOutput:
         """latents (B, T, H, W, C_in), timestep (B,), text_states (B, L,
         text_dim), text_mask (B, L) bool, pooled_text (B, pooled_dim),
         guidance (B,) = guidance scale x 1000.  ``act_scales``: {site:
         (layers,)} static int8 activation scales; ``quantized_blocks``: a
-        (dual, single) pair of ``BlockStack`` the blocks run from."""
+        (dual, single) pair of ``BlockStack`` the blocks run from.
+        ``step_cache`` and the ``cache_*`` arguments: as models/wan.py's,
+        with temb the indicator."""
         unported = (
             (return_losses, "return_losses (Hunyuan router training) belongs to a later slice"),
             (remat_blocks, "remat_blocks (Hunyuan router training) belongs to a later slice"),
             (sp_axis is not None, "sequence parallelism belongs to a later slice"),
-            (step_cache is not None, "the step cache belongs to a later slice"),
         )
         for bad, why in unported:
             if bad:
                 raise NotImplementedError(why)
+        if step_cache is not None and calibrate_mm:
+            raise ValueError("step caching is a serving mode: incompatible with "
+                             "return_losses / calibrate_mm")
         if routing_mode not in MODES:
             raise ValueError(f"unknown routing mode {routing_mode!r}")
         cfg = self.cfg
@@ -519,9 +577,12 @@ class HunyuanModel(nn.Module):
         # NDHWC VALID conv with stride = patch, as a Conv3d on NCDHW
         x = self.x_embedder(latents.to(self.dtype).permute(0, 4, 1, 2, 3))
         x = x.flatten(2).transpose(1, 2).contiguous()  # (B, S, dim), raster order
-        temb, clean_temb = self.time_text_embed(
+        temb, clean_temb, tr_emb = self.time_text_embed(
             timestep, pooled_text.to(self.dtype),
-            None if guidance is None else guidance.to(timestep.device))
+            None if guidance is None else guidance.to(timestep.device),
+            token_replace=cfg.image_condition_type == "token_replace")
+        # token replace: the first latent frame's rows take tr_emb's modulation
+        tr = None if tr_emb is None else (tr_emb, (h_px // ph) * (w_px // pw))
         ctx = self.context_embedder(text_states.to(self.dtype), timestep, text_mask)
         rope, rope_joint = self._rope(grid)
 
@@ -545,17 +606,38 @@ class HunyuanModel(nn.Module):
             scores = torch.stack([block.router(clean_temb)
                                   for block, _ in blocks_in_order("router.")])
         n_layers = sum(n for _, _, n, _ in stacks)
-        ids, ids_host = [None] * n_layers, None
+        ids, ids_dev, ids_host = [None] * n_layers, None, None
         if routing_mode == "hard":
             ids_dev = torch.stack([route_expert_ids(sc, attn_cfg.tau_sparse) for sc in scores])
-            ids_host = ids_dev.cpu().numpy()  # the forward's one sync
+        skip, ind, acc_skip = False, None, None
+        if step_cache is not None:
+            ind = temb.float()
+            skip, acc_skip = stepcache.cache_decision(step_cache, ind, cache_threshold,
+                                                      cache_force_compute, cache_coefficients)
+            # the skip flag rides the routing ids' copy to the host: the cache adds no sync
+            skip, ids_host = stepcache.read_decision(skip, cache_force_compute, ids_dev)
+        elif ids_dev is not None:
+            ids_host = ids_dev.cpu().numpy()
+        if ids_dev is not None and not skip:
             ids = list(zip(ids_dev, ids_host))
         calib = {"dual.": [], "single.": []}
-        for i, (block, scales) in enumerate(blocks_in_order()):
+        x_in = x
+        for i, (block, scales) in enumerate(() if skip else blocks_in_order()):
             with qmm.layer_act_scales(scales), qmm.calibration(calibrate_mm) as sink:
                 x, ctx = block(x, ctx, temb, rope, rope_joint, text_mask, jcfg,
-                               scores[i] if scores is not None else None, routing_mode, ids[i])
+                               scores[i] if scores is not None else None, routing_mode, ids[i],
+                               tr=tr)
             calib["dual." if isinstance(block, HunyuanDualBlock) else "single."].append(sink)
+        new_cache = None
+        if step_cache is not None:  # only the video stream's delta: the head reads x alone
+            if skip:
+                x = x_in + step_cache.residual.to(x_in.dtype)
+                new_cache = stepcache.skipped(step_cache, ind, acc_skip)
+                # no router ran a block: zero scores, as in the JAX package
+                scores = None if scores is None else torch.zeros_like(scores)
+                ids_host = None
+            else:
+                new_cache = stepcache.computed(ind, x_in, x)
 
         sc, sh = self.norm_out_mod(temb)  # AdaLayerNormContinuous: scale first
         out = self.proj_out(self.norm_out.modulated(x, sc, sh))
@@ -570,4 +652,6 @@ class HunyuanModel(nn.Module):
             mm_calibration = {k: v for layers in calib.values() if layers
                               for k, v in qmm.stack_calibration(layers).items()}
         return HunyuanOutput(sample=sample, routing_scores=scores if return_scores else None,
-                             expert_ids=ids_host, mm_calibration=mm_calibration)
+                             expert_ids=ids_host, mm_calibration=mm_calibration,
+                             step_cache=new_cache,
+                             cache_skipped=skip if step_cache is not None else None)

@@ -30,7 +30,20 @@ scales, and ``calibrate_mm`` returning each site's per-layer max |x|
 (``mm_calibration``).  ``quantized_blocks`` (ops/quant.py ``BlockStack``)
 serves the blocks from a quantized stack: each layer is dequantized into the
 model's one block (a depth-1 model) just before it runs.
-No sequence parallelism, step cache or I2V image branch in the port yet.
+
+Step cache (ops/stepcache.py): with ``step_cache`` the forward decides from
+temb6 whether to run the block stack or add the cached block residual;
+the decision is read to the host in one device-to-host copy (with the
+routing ids where routing is hard), and a skipped forward runs
+no block, so launches no block kernel.  It returns the new cache in
+``WanOutput.step_cache``.
+
+Image to video (``WanModelConfig.image_dim``): ``image_context`` (B, 257,
+image_dim) CLIP image tokens go through ``WanImageEmbedding`` and every
+block's cross-attention attends to them with its own key / value
+projections (``add_k_proj`` / ``add_v_proj``, RMS-normed keys), a second
+``padded_dense_attention`` summed into the text one.
+No sequence parallelism in the port yet.
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ from ..config import AttentionConfig, WanModelConfig
 from ..device import resolve_device
 from ..ops.experts import full_attention, padded_dense_attention, routed_attention
 from ..ops.prologue import fused_qk_prologue, use_fused_prologue
-from ..ops import qmm
+from ..ops import qmm, stepcache
 from ..ops.qmm import FusedLinear, QLinear
 from ..ops.routed_fused import route_expert_ids
 from ..ops.rope import apply_rope_half, rope_cos_sin
@@ -80,6 +93,11 @@ class WanOutput:
     hidden_layer_distill_loss: Optional[torch.Tensor] = None
     # {site: (num_layers,) f32 max |x|} with calibrate_mm
     mm_calibration: Optional[dict] = None
+    step_cache: Optional[object] = None  # ops.stepcache.StepCache (serving)
+    hidden_delta: Optional[torch.Tensor] = None  # block-stack out - in (B, S, D)
+    temb_indicator: Optional[torch.Tensor] = None  # (B, 6 * dim) f32 cache indicator
+    # with step_cache: whether this forward skipped the block stack (host bool)
+    cache_skipped: Optional[bool] = None
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -136,7 +154,9 @@ class WanSelfAttention(nn.Module):
 
 
 class WanCrossAttention(nn.Module):
-    """Cross-attention to the projected text sequence (no I2V image branch)."""
+    """Cross-attention to the projected text sequence; with ``image_dim``
+    set, also to the embedded image tokens through their own key / value
+    projections, the two outputs summed (diffusers' I2V attn2)."""
 
     def __init__(self, cfg: WanModelConfig, *, dtype, device):
         super().__init__()
@@ -150,8 +170,15 @@ class WanCrossAttention(nn.Module):
         self.to_out = QLinear(dim, dim, site="attn2.to_out", **kw)
         self.norm_q = RMSNorm(dim, cfg.eps, device=device) if cfg.qk_norm else None
         self.norm_k = RMSNorm(dim, cfg.eps, device=device) if cfg.qk_norm else None
+        self.add_k_proj = self.add_v_proj = self.norm_added_k = None
+        if cfg.image_dim is not None:
+            self.add_k_proj = nn.Linear(dim, dim, **kw)
+            self.add_v_proj = nn.Linear(dim, dim, **kw)
+            self.norm_added_k = RMSNorm(dim, cfg.eps, device=device)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                image_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.num_heads
         q = self.to_q(x)
         if self.norm_q is not None:
             q = self.norm_q(q)
@@ -159,11 +186,12 @@ class WanCrossAttention(nn.Module):
         if self.norm_k is not None:
             k = self.norm_k(k)
         v = self.to_v(context)
-        out = padded_dense_attention(
-            _split_heads(q, self.num_heads),
-            _split_heads(k, self.num_heads),
-            _split_heads(v, self.num_heads),
-        )
+        qh = _split_heads(q, h)
+        out = padded_dense_attention(qh, _split_heads(k, h), _split_heads(v, h))
+        if image_context is not None and self.add_k_proj is not None:
+            ki = self.norm_added_k(self.add_k_proj(image_context))
+            vi = self.add_v_proj(image_context)
+            out = out + padded_dense_attention(qh, _split_heads(ki, h), _split_heads(vi, h))
         return self.to_out(_merge_heads(out))
 
 
@@ -187,9 +215,10 @@ class WanBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor, temb6: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor], attn_cfg: AttentionConfig,
                 scores: Optional[torch.Tensor] = None, routing_mode: str = "off",
-                expert_ids=None) -> torch.Tensor:
+                expert_ids=None, image_context: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``scores``: this block's (B, H, E) router scores; ``expert_ids``:
-        its hard routing as (ids on the device, the same ids on the host)."""
+        its hard routing as (ids on the device, the same ids on the host);
+        ``image_context``: the embedded image tokens (I2V)."""
         mod = self.scale_shift_table + temb6.float()  # (B, 6, dim) f32
         gate_msa, c_gate = mod[:, 2][:, None, :], mod[:, 5][:, None, :]
         norm_x = self.norm1.modulated(x, mod[:, 1], mod[:, 0])
@@ -197,14 +226,31 @@ class WanBlock(nn.Module):
         # self-attention and FFN residuals add in f32, then cast
         x = (x.float() + attn_out.float() * gate_msa).to(x.dtype)
         # the cross-attention residual adds in x's dtype
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, image_context)
         norm_x = self.norm3.modulated(x, mod[:, 4], mod[:, 3])
         ff_out = self.ffn(norm_x)
         return (x.float() + ff_out.float() * c_gate).to(x.dtype)
 
 
+class WanImageEmbedding(nn.Module):
+    """CLIP image-token projection for I2V (diffusers WanImageEmbedding):
+    FP32LayerNorm(in) -> Linear(in, in) -> exact GELU -> Linear(in, dim) ->
+    FP32LayerNorm(dim), both norms affine at torch's default eps 1e-5."""
+
+    def __init__(self, in_dim: int, dim: int, *, dtype, device):
+        super().__init__()
+        self.norm1 = FP32LayerNorm(in_dim, 1e-5, affine=True, device=device)
+        self.proj_in = nn.Linear(in_dim, in_dim, dtype=dtype, device=device)
+        self.proj_out = nn.Linear(in_dim, dim, dtype=dtype, device=device)
+        self.norm2 = FP32LayerNorm(dim, 1e-5, affine=True, device=device)
+
+    def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
+        h = self.norm1(image_embeds)
+        return self.norm2(self.proj_out(F.gelu(self.proj_in(h))))
+
+
 class WanConditionEmbedder(nn.Module):
-    """Timestep + text conditioning (diffusers WanTimeTextImageEmbedding)."""
+    """Timestep + text (+ image) conditioning (diffusers WanTimeTextImageEmbedding)."""
 
     def __init__(self, cfg: WanModelConfig, *, dtype, device):
         super().__init__()
@@ -213,13 +259,19 @@ class WanConditionEmbedder(nn.Module):
         self.time_embedder = TimestepEmbedding(cfg.freq_dim, cfg.dim, **kw)
         self.time_proj = nn.Linear(cfg.dim, cfg.dim * 6, **kw)
         self.text_embedder = TextProjection(cfg.text_dim, cfg.dim, **kw)
+        self.image_embedder = (WanImageEmbedding(cfg.image_dim, cfg.dim, **kw)
+                               if cfg.image_dim is not None else None)
 
-    def forward(self, timestep: torch.Tensor, context: torch.Tensor):
+    def forward(self, timestep: torch.Tensor, context: torch.Tensor,
+                image_embeds: Optional[torch.Tensor] = None):
         dtype = self.time_proj.weight.dtype
         sin_emb = sinusoidal_timestep_embedding(timestep, self.freq_dim)
         temb = self.time_embedder(sin_emb.to(dtype))  # (B, dim)
         temb6 = self.time_proj(F.silu(temb)).reshape(temb.shape[0], 6, -1)
-        return temb, temb6, self.text_embedder(context)
+        img = None
+        if image_embeds is not None and self.image_embedder is not None:
+            img = self.image_embedder(image_embeds.to(dtype))
+        return temb, temb6, self.text_embedder(context), img
 
 
 class WanModel(nn.Module):
@@ -277,16 +329,29 @@ class WanModel(nn.Module):
 
     def _forward(self, latents: torch.Tensor, timestep: torch.Tensor, context: torch.Tensor,
                  attn_cfg: Optional[AttentionConfig] = None, routing_mode: str = "off",
+                 image_context: Optional[torch.Tensor] = None,
                  return_scores: bool = False, return_losses: bool = False,
                  remat_blocks: bool = False, act_scales: Optional[dict] = None,
-                 calibrate_mm: bool = False, quantized_blocks=None) -> WanOutput:
-        """latents (B, T, H, W, C_in), timestep (B,), context (B, L, text_dim).
+                 calibrate_mm: bool = False, quantized_blocks=None, step_cache=None,
+                 cache_threshold: float = 0.0, cache_force_compute=None,
+                 cache_coefficients=None, return_hidden_delta: bool = False) -> WanOutput:
+        """latents (B, T, H, W, C_in), timestep (B,), context (B, L, text_dim);
+        ``image_context`` (B, 257, image_dim) CLIP image tokens (I2V).
         ``act_scales``: {site: (num_layers,)} static int8 activation scales;
-        ``quantized_blocks``: a ``BlockStack`` the blocks run from."""
+        ``quantized_blocks``: a ``BlockStack`` the blocks run from.
+        ``step_cache``: the previous step's ``StepCache`` (ops/stepcache.py);
+        the block stack runs unless the accumulated temb6 distance stays
+        under ``cache_threshold`` and ``cache_force_compute`` (a bool, or a
+        () bool tensor) is not set.  ``return_hidden_delta``: the block
+        stack's out - in and the cache's indicator (the probe the JAX
+        package's tools/fit_cache_poly.py reads)."""
         if routing_mode not in ROUTING_MODES:
             raise ValueError(f"unknown routing mode {routing_mode!r}")
         if return_losses and routing_mode == "off":
             raise ValueError("return_losses requires routed attention")
+        if step_cache is not None and (return_losses or calibrate_mm):
+            raise ValueError("step caching is a serving mode: incompatible with "
+                             "return_losses / calibrate_mm")
         serving_only = (quantized_blocks is not None or act_scales or calibrate_mm
                         or qmm.current_mm_precision() != "bf16")
         if serving_only and (return_losses or remat_blocks):
@@ -306,7 +371,8 @@ class WanModel(nn.Module):
         x = self.patch_embedding(latents.to(self.dtype).permute(0, 4, 1, 2, 3))
         x = x.flatten(2).transpose(1, 2).contiguous()  # (B, S, dim), raster order
 
-        temb, temb6, ctx = self.condition_embedder(timestep, context.to(self.dtype))
+        temb, temb6, ctx, img = self.condition_embedder(timestep, context.to(self.dtype),
+                                                        image_context)
         rope = self._rope(grid)
         n_layers = len(self.blocks) if quantized_blocks is None else quantized_blocks.num_layers
 
@@ -318,21 +384,30 @@ class WanModel(nn.Module):
         scores = None  # (num_layers, B, H, E): every router reads only temb
         if routing_mode != "off":
             scores = torch.stack([block_at(i, "router.").router(temb) for i in range(n_layers)])
-        ids, ids_host = [None] * n_layers, None
+        ids, ids_dev, ids_host = [None] * n_layers, None, None
         if routing_mode == "hard":
             ids_dev = torch.stack([route_expert_ids(sc, attn_cfg.tau_sparse) for sc in scores])
-            ids_host = ids_dev.cpu().numpy()  # the forward's one sync
+        skip, ind, acc_skip = False, None, None
+        if step_cache is not None:
+            ind = temb6.reshape(b, -1).float()
+            skip, acc_skip = stepcache.cache_decision(step_cache, ind, cache_threshold,
+                                                      cache_force_compute, cache_coefficients)
+            # the skip flag rides the routing ids' copy to the host: the cache adds no sync
+            skip, ids_host = stepcache.read_decision(skip, cache_force_compute, ids_dev)
+        elif ids_dev is not None:
+            ids_host = ids_dev.cpu().numpy()
+        if ids_dev is not None and not skip:
             ids = list(zip(ids_dev, ids_host))
         remat = remat_blocks and torch.is_grad_enabled()
-        x_t, reg, hid = x, None, None
+        x_in, x_t, reg, hid = x, x, None, None
         if return_losses:
             reg = hid = torch.zeros((), dtype=torch.float32, device=x.device)
         scales = qmm.layer_scale_table(act_scales, x.device)
         calib = []
-        for i in range(n_layers):
+        for i in range(0 if skip else n_layers):
             block = block_at(i)
             args = (x, ctx, temb6, rope, attn_cfg, scores[i] if scores is not None else None,
-                    routing_mode, ids[i])
+                    routing_mode, ids[i], img)
             if remat:
                 with torch.utils.checkpoint.set_checkpoint_early_stop(False):
                     x = torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False,
@@ -343,11 +418,21 @@ class WanModel(nn.Module):
                 calib.append(sink)
             if return_losses:
                 with torch.no_grad():  # the frozen teacher: routing off
-                    x_t = block(x_t, ctx, temb6, rope, attn_cfg)
+                    x_t = block(x_t, ctx, temb6, rope, attn_cfg, image_context=img)
                 # L2 on the full-attention routing weight, and the per-block
                 # distance between the streams
                 reg = reg + scores[i][:, :, 0].square().mean()
                 hid = hid + (x_t.float() - x.float()).square().mean()
+        new_cache = None
+        if step_cache is not None:
+            if skip:  # the cached block delta; no block ran, so no routing
+                x = x_in + step_cache.residual.to(x_in.dtype)
+                new_cache = stepcache.skipped(step_cache, ind, acc_skip)
+                # no router ran a block: zero scores, as in the JAX package
+                scores = None if scores is None else torch.zeros_like(scores)
+                ids_host = None
+            else:
+                new_cache = stepcache.computed(ind, x_in, x)
 
         out = self._head(x, temb)
         last = None
@@ -362,7 +447,12 @@ class WanModel(nn.Module):
                          routing_scores=scores if return_scores else None, expert_ids=ids_host,
                          reg_loss=reg, last_layer_distill_loss=last,
                          hidden_layer_distill_loss=hid,
-                         mm_calibration=qmm.stack_calibration(calib) if calibrate_mm else None)
+                         mm_calibration=qmm.stack_calibration(calib) if calibrate_mm else None,
+                         step_cache=new_cache,
+                         hidden_delta=(x - x_in) if return_hidden_delta else None,
+                         temb_indicator=(temb6.reshape(b, -1).float()
+                                         if return_hidden_delta else None),
+                         cache_skipped=skip if step_cache is not None else None)
 
     def _head(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         mod = self.scale_shift_table + temb.float()[:, None, :]

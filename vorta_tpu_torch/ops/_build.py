@@ -38,8 +38,10 @@ its warp-per-row kernel (a subset of ``prologue``, by
 its batched 16-byte copy in either mode (a subset of ``unpool`` +
 ``unpool_headmap``, by ``ops/coreset_pallas.py:unpool_layout``) and
 ``sta_diag_wgmma`` the bisection kernel's launches on the Hopper path (a
-subset of ``sta_diag``, by ``tools/sta_diag.py:diag_wgmma_path``).  Headers (``*.cuh``) are part of
-the hash.
+subset of ``sta_diag``, by ``tools/sta_diag.py:diag_wgmma_path``);
+``fused_norm_range`` the norm's launches into a caller's ``out`` view (a
+subset of ``fused_norm``: HunyuanVideo's token-replace row ranges).
+Headers (``*.cuh``) are part of the hash.
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "sta_batched_stable", "sta_pipe_stable", "sta_pipe_dots", "sta_pipe_qk",
            "sta_pipe_sT", "flash_wgmma", "flash_manual_wgmma", "sta_pipe_wgmma",
            "sta_window_wgmma", "sta_batched_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma",
-           "sta_row_wgmma", "prologue_rows", "sta_diag_wgmma", "unpool_rows")
+           "sta_row_wgmma", "prologue_rows", "sta_diag_wgmma", "unpool_rows",
+           "fused_norm_range")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -8,8 +8,13 @@ tensors ``fused_norm`` launches ``csrc/fused_norm.cu`` (bf16 x, as the
 model runs on the card; other dtypes raise): the warp-per-row kernel where
 ``norm_layout`` gives dim a layout (every served width), else the
 block-per-row kernel; both read AdaLN's scale / shift in place (strided
-column slices of the modulation, f32 or bf16).  On CPU tensors it runs the
-plain version ``_norm_ref``.  Router training differentiates through the
+column slices of the modulation, f32 or bf16).  Both take x and an
+optional ``out`` as (B, S, dim) views whose rows are dense and whose
+batches may lie further apart, e.g. a range of rows of a longer sequence
+(HunyuanVideo's token-replace norm runs two such ranges, each with its own
+modulation, into one output); such a launch also counts as
+``fused_norm_range``.  On CPU tensors it runs the plain version
+``_norm_ref``.  Router training differentiates through the
 norms, so ``fused_norm`` is a ``torch.autograd.Function`` on both devices:
 its backward, ``_norm_bwd``, recomputes the f32 statistics in plain
 PyTorch, the port of the JAX package's ``_fused_norm_bwd`` (XLA there, not
@@ -57,9 +62,8 @@ def _norm_ref(x, scale, shift, gamma, beta, *, rms, eps, out_f32):
 def _norm_fn():
     fn = _build.load("fused_norm").vorta_fused_norm
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, ctypes.c_longlong, i, i,
-                       p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, ll, i, i, ll, ll, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -119,25 +123,49 @@ def _check_kernel_rule(what: str, x: torch.Tensor) -> None:
         raise NotImplementedError(f"{what} kernel: dim {x.shape[-1]} > 12288")
 
 
-def _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32):
+def _rows_view(t: torch.Tensor) -> bool:
+    """(B, S, dim) with dense rows, 16-byte aligned rows and batches: what
+    the kernels read and write in place."""
+    b, s, dim = t.shape
+    return (t.stride(2) == 1 and (s == 1 or t.stride(1) == dim)
+            and (b == 1 or (t.stride(0) >= s * dim
+                            and (t.stride(0) * t.element_size()) % 16 == 0))
+            and (dim * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32, out=None):
+    odtype = torch.float32 if out_f32 else x.dtype
+    if out is not None and (tuple(out.shape) != tuple(x.shape) or out.dtype != odtype):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype}: expected {tuple(x.shape)} {odtype}")
     if x.device.type == "cpu":
-        return _norm_ref(x, scale, shift, gamma, beta, rms=rms, eps=eps, out_f32=out_f32)
+        y = _norm_ref(x, scale, shift, gamma, beta, rms=rms, eps=eps, out_f32=out_f32)
+        return y if out is None else out.copy_(y)
 
     b, s, dim = x.shape
-    dev = _build.require_cuda(x, scale, shift, gamma, beta)
+    dev = _build.require_cuda(x, scale, shift, gamma, beta, out)
     _check_kernel_rule("fused_norm", x)
     scale, shift, mod_stride, mod_bf16 = _modulation(scale, shift, b, dim)
     gamma, beta = (_build.aligned16(_f32_vec(t, (dim,))) for t in (gamma, beta))
-    x = _build.aligned16(x.contiguous())
+    ranged = out is not None
+    if out is None:
+        out = torch.empty(x.shape, dtype=odtype, device=dev)
+    elif not _rows_view(out):
+        raise ValueError(f"fused_norm kernel: out strides {out.stride()} (dense 16-byte "
+                         "aligned rows)")
+    if not _rows_view(x):
+        if ranged:
+            raise ValueError(f"fused_norm kernel: x strides {x.stride()} (dense 16-byte "
+                             "aligned rows)")
+        x = _build.aligned16(x.contiguous())
     layout = norm_layout(dim)
-    out = torch.empty(x.shape, dtype=torch.float32 if out_f32 else x.dtype, device=dev)
     err = _norm_fn()(
         x.data_ptr(), out.data_ptr(), _build.ptr(scale), _build.ptr(shift),
         _build.ptr(gamma), _build.ptr(beta), b, s, dim,
         int(out_f32), int(rms), float(eps), mod_stride, mod_bf16,
-        0 if layout is None else layout[0], _build.stream_ptr(dev))
+        0 if layout is None else layout[0], x.stride(0), out.stride(0), _build.stream_ptr(dev))
     _build.check(err, "fused_norm")
     _build.launches["fused_norm"] += 1
+    _build.launches["fused_norm_range"] += ranged
     return out
 
 
@@ -192,13 +220,20 @@ class _FusedNorm(torch.autograd.Function):
 
 def fused_norm(x: torch.Tensor, scale: Optional[torch.Tensor], shift: Optional[torch.Tensor],
                gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor], rms: bool,
-               eps: float, out_f32: bool) -> torch.Tensor:
+               eps: float, out_f32: bool, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, S, dim); scale/shift: (B, dim) or None; gamma/beta: (dim,) or None.
-    Differentiable in every tensor input."""
+    Differentiable in every tensor input.  ``out``: a (B, S, dim) view the
+    result is written into (forward only; on CUDA, rows dense and 16-byte
+    aligned, as x's must then be too, else it raises)."""
     if x.ndim != 3:
         raise ValueError(f"fused_norm takes (B, S, dim), got {tuple(x.shape)}")
     if (scale is None) != (shift is None):
         raise ValueError("scale and shift come together")
+    if out is not None:
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in (x, scale, shift, gamma, beta)):
+            raise ValueError("fused_norm: out= is forward-only")
+        return _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32, out)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, scale, shift, gamma, beta)):
         return _FusedNorm.apply(x, scale, shift, gamma, beta, rms, eps, out_f32)

@@ -8,12 +8,15 @@ pair against a negative embedding (zeros by default), as two sequential
 forwards or, with ``cfg_batch``, one batch-2B forward; the guided velocity
 is ``vu + s * (vc - vu)``.  The text mask goes to every forward.  Latents
 are carried in f32 and cast to the model's dtype for each forward.  A
-Python loop drives the steps (the JAX version scans under one jit).  A
-caller that passes a ``routing`` list gets each hard-routed forward's
-(layers, H) expert ids appended to it.  The quantized serving options
+Python loop drives the steps (the JAX version scans under one jit);
+``make_stepper`` gives the host one call per ``chunk`` steps.  A caller
+that passes a ``routing`` list gets each hard-routed forward's (layers, H)
+expert ids appended to it.  The quantized serving options
 (``mm_precision``, ``act_scales``, ``quantized_blocks``) go to every
-forward, as in pipelines/wan_t2v.py.  Returns latents: the VAE decode,
-the step cache and the mesh belong to later slices.
+forward, as in pipelines/wan_t2v.py, and so does the step cache
+(``cache_threshold``, ``cache_warmup``, ``cache_coefficients``: one cache
+per DiT evaluation stream, indicator temb; ``cache_log`` as there).
+Returns latents: the VAE decode and the mesh belong to later slices.
 """
 
 from __future__ import annotations
@@ -25,8 +28,8 @@ import torch
 
 from ..config import AttentionConfig
 from ..models.hunyuan import HunyuanModel
-from ..schedulers.flow_match import FlowMatchEulerSchedule
-from ..schedulers.unipc import UniPCSchedule, unipc_sample_step
+from ..ops.stepcache import init_step_cache
+from .wan_t2v import integrate, make_schedule, stepper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +43,10 @@ class HunyuanSamplingConfig:
     # run the true-CFG cond + uncond passes as ONE batch-2B forward
     cfg_batch: bool = False
     mm_precision: str = "bf16"  # bf16 | int8 (W8A8 block projections, ops/qmm.py)
+    # step-residual caching (see pipelines/wan_t2v.py); 0 = off
+    cache_threshold: float = 0.0
+    cache_warmup: int = 1
+    cache_coefficients: Optional[tuple] = None
 
 
 class HunyuanT2VPipeline:
@@ -63,17 +70,42 @@ class HunyuanT2VPipeline:
         return torch.randn(shape, generator=generator, dtype=torch.float32,
                            device=self.model.device)
 
+    def init_carry(self, latents: torch.Tensor,
+                   sampling: HunyuanSamplingConfig = HunyuanSamplingConfig()):
+        """(x, m_prev, m_prev2, x_prev, caches), as in pipelines/wan_t2v.py."""
+        x = latents.float()
+        caches = ()
+        if sampling.cache_threshold > 0.0:
+            cfg = self.model.cfg
+            b, t_px, h_px, w_px, _ = x.shape
+            pt, ph, pw = cfg.patch_size
+            seq = (t_px // pt) * (h_px // ph) * (w_px // pw)
+            do_cfg = sampling.true_cfg_scale > 1.0
+            arms = [2 * b] if (do_cfg and sampling.cfg_batch) else [b] * (2 if do_cfg else 1)
+            caches = tuple(init_step_cache(n, seq, cfg.dim, cfg.dim, self.model.dtype,
+                                           x.device) for n in arms)
+        return x, torch.zeros_like(x), torch.zeros_like(x), x, caches
+
     def _velocity(self, x, t, text, mask, pooled, neg_text, neg_pooled, guidance,
-                  sampling: HunyuanSamplingConfig, routing) -> torch.Tensor:
+                  sampling: HunyuanSamplingConfig, caches, force, i, routing, cache_log):
         model, dtype = self.model, self.model.dtype
         kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode,
                   mm_precision=sampling.mm_precision, act_scales=self.act_scales,
                   quantized_blocks=self.quantized_blocks)
+        if caches:
+            kw.update(cache_threshold=sampling.cache_threshold, cache_force_compute=force,
+                      cache_coefficients=sampling.cache_coefficients)
+        new_caches = []
 
         def forward(*args, g):
-            out = model(*args, guidance=g, **kw)
+            arm = len(new_caches)
+            out = model(*args, guidance=g, step_cache=caches[arm] if caches else None, **kw)
             if routing is not None and out.expert_ids is not None:
                 routing.append(out.expert_ids)
+            if caches:
+                new_caches.append(out.step_cache)
+                if cache_log is not None:
+                    cache_log.append((i, arm, out.cache_skipped))
             return out.sample.float()
 
         s = float(sampling.true_cfg_scale)
@@ -83,12 +115,45 @@ class HunyuanT2VPipeline:
                           torch.cat([text, neg_text]), torch.cat([mask, mask]),
                           torch.cat([pooled, neg_pooled]), g=torch.cat([guidance, guidance]))
             vc, vu = out[: x.shape[0]], out[x.shape[0]:]
-            return vu + s * (vc - vu)
+            return vu + s * (vc - vu), tuple(new_caches)
         v = forward(x.to(dtype), t, text, mask, pooled, g=guidance)
         if do_cfg:
             vu = forward(x.to(dtype), t, neg_text, mask, neg_pooled, g=guidance)
             v = vu + s * (v - vu)
-        return v
+        return v, tuple(new_caches)
+
+    @torch.no_grad()
+    def step(self, carry: tuple, i: int, text_states: torch.Tensor, text_mask: torch.Tensor,
+             pooled_text: torch.Tensor, negative_text_states: Optional[torch.Tensor] = None,
+             negative_pooled_text: Optional[torch.Tensor] = None,
+             sampling: HunyuanSamplingConfig = HunyuanSamplingConfig(),
+             routing: Optional[list] = None, cache_log: Optional[list] = None) -> tuple:
+        """Denoise step ``i`` of the carry."""
+        schedule = make_schedule(sampling)
+        n = schedule.num_steps
+        if negative_text_states is None:
+            negative_text_states = torch.zeros_like(text_states)
+        if negative_pooled_text is None:
+            negative_pooled_text = torch.zeros_like(pooled_text)
+        x, caches = carry[0], carry[4]
+        b = x.shape[0]
+        t = torch.full((b,), float(schedule.timesteps[i]), device=x.device)
+        guidance = torch.full((b,), float(sampling.guidance_scale) * 1000.0, device=x.device)
+        force = i < sampling.cache_warmup or i == n - 1
+        v, caches = self._velocity(x, t, text_states, text_mask, pooled_text,
+                                   negative_text_states, negative_pooled_text, guidance,
+                                   sampling, caches, force, i, routing, cache_log)
+        return integrate(schedule, sampling, carry[:4] + (caches,), v, i)
+
+    def make_stepper(self, sampling: HunyuanSamplingConfig, chunk: int = 1):
+        """Host-driven serving loop: ``(init_carry, step_fn, n_steps)``;
+        ``step_fn(carry, i, text, mask, pooled, neg_text=None,
+        neg_pooled=None)`` runs ``chunk`` steps from step ``i``."""
+        def step_once(carry, j, *conditioning, **kw):
+            return self.step(carry, j, *conditioning, sampling=sampling, **kw)
+
+        init, step_fn, n_steps = stepper(self, sampling, chunk, step_once)
+        return (lambda latents: init(latents, sampling)), step_fn, n_steps
 
     @torch.no_grad()
     def __call__(self, latents: torch.Tensor, text_states: torch.Tensor,
@@ -96,34 +161,14 @@ class HunyuanT2VPipeline:
                  negative_text_states: Optional[torch.Tensor] = None,
                  negative_pooled_text: Optional[torch.Tensor] = None,
                  sampling: HunyuanSamplingConfig = HunyuanSamplingConfig(),
-                 routing: Optional[list] = None) -> torch.Tensor:
+                 routing: Optional[list] = None,
+                 cache_log: Optional[list] = None) -> torch.Tensor:
         """latents (B, T, H, W, C) initial noise; text states (B, L, text_dim),
         text mask (B, L) bool, pooled (B, pooled_dim).  Returns the final
         latents, f32."""
-        if sampling.scheduler == "unipc":
-            schedule = UniPCSchedule.create(sampling.num_inference_steps, sampling.flow_shift)
-        elif sampling.scheduler == "euler":
-            schedule = FlowMatchEulerSchedule.create(sampling.num_inference_steps,
-                                                     sampling.flow_shift)
-        else:
-            raise ValueError(f"unknown scheduler {sampling.scheduler!r}")
-        if negative_text_states is None:
-            negative_text_states = torch.zeros_like(text_states)
-        if negative_pooled_text is None:
-            negative_pooled_text = torch.zeros_like(pooled_text)
-        n = schedule.num_steps
-        x = latents.float()
-        b = x.shape[0]
-        guidance = torch.full((b,), float(sampling.guidance_scale) * 1000.0, device=x.device)
-        m_prev, m_prev2, x_prev = torch.zeros_like(x), torch.zeros_like(x), x
+        init, step_fn, n = self.make_stepper(sampling)
+        carry = init(latents)
         for i in range(n):
-            t = torch.full((b,), float(schedule.timesteps[i]), device=x.device)
-            v = self._velocity(x, t, text_states, text_mask, pooled_text, negative_text_states,
-                               negative_pooled_text, guidance, sampling, routing)
-            if sampling.scheduler == "unipc":
-                x_next, m_i, x_hist = unipc_sample_step(
-                    x, v, i, schedule.sigmas, m_prev, x_prev, n, m_prev2=m_prev2)
-                x, m_prev, m_prev2, x_prev = x_next, m_i, m_prev, x_hist
-            else:
-                x = schedule.step(x, v, i)
-        return x
+            carry = step_fn(carry, i, text_states, text_mask, pooled_text, negative_text_states,
+                            negative_pooled_text, routing=routing, cache_log=cache_log)
+        return carry[0]
