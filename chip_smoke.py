@@ -194,6 +194,24 @@ Serving the way users run it (no new kernel):
      the Hopper path; HunyuanVideo-13B with token replace at 720p x 45f,
      routed, one Euler step, the norm's row ranges counted
      (fused_norm_range), launches exact.
+Prompt to video (no new kernel; the slice's path runs the DiT's kernels):
+  i. text_encoders: UMT5-XXL, Llama-8B and CLIP-L at full width and depth
+     (random bf16 from a seed): ms per encode (512; 256 + 95 template; 77
+     tokens), parameter GiB, the bound; each at 2 layers card bf16 vs CPU
+     f32, rel L2 < 0.05, UMT5's padded rows zero.
+  j. vae_decode: one cuDNN conv3d over (1, 192, 77, 480, 832) bf16 (5.9e9
+     elements: raises, or its end frames against pieces); both VAEs at full
+     width card bf16 vs CPU f32 (rel L2 < 0.05), chunked vs one call on the
+     card (f32: rel L2 <= 1e-3; bf16 reported), a single tile exact; then
+     Wan 480p x 77f whole-clip, Wan 720p x 77f tiled, HunyuanVideo 720p x
+     45f tiled and 720p x 21f whole-clip (its top stage 2.48e9 elements):
+     s, peak GiB, FLOP bound.
+  k. prompt_to_video: cli.sample --prompt --tokenizer_dir --decode through
+     main(argv): Wan-1.3B 480p x 77f routed, 2 UniPC steps, whole-clip
+     decode (frames against a decode apart); HunyuanVideo-13B 720p x 45f
+     routed, 1 Euler step, --vae_tiling; encode s, s per step, decode s,
+     launches exact (a toy BPE tokenizer, or a stand-in without the
+     tokenizers package).
 Every main path's launch counts are exact, the Hopper path's subset
 counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
 sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma),
@@ -518,6 +536,9 @@ def main() -> int:
         phase("i2v_model_check", check_i2v_model, torch)
         i2v = phase("i2v", run_i2v_path, torch, card)
         token_rep = phase("token_replace", run_token_replace_path, torch, card)
+        encoders = phase("text_encoders", run_text_encoders, torch, card)
+        vae = phase("vae_decode", run_vae_decode, torch, card)
+        p2v = phase("prompt_to_video", run_prompt_to_video, torch, card)
     kernels += (int8_kernel_rows(int8) + fallback_kernel_rows(fallback)
                 + options_kernel_rows(opt, diag_ms))
     for k in kernels:
@@ -554,7 +575,9 @@ def main() -> int:
                 "import_hunyuan_2_2": imported["hunyuan"]["launches"][name],
                 "step_cache_720p_77f": cache["launches"]["cached"][name],
                 "i2v_480p_77f": i2v["launches"][name],
-                "token_replace_hunyuan_45f": token_rep["launches"][name]}
+                "token_replace_hunyuan_45f": token_rep["launches"][name],
+                "prompt_to_video_wan_480p_77f": p2v["wan"]["launches"][name],
+                "prompt_to_video_hunyuan_45f": p2v["hunyuan"]["launches"][name]}
 
     for k in kernels:
         name = k.pop("_counter")
@@ -609,7 +632,11 @@ def main() -> int:
                          for k in imported},
         "step_cache": {k: v for k, v in cache.items() if k != "launches"},
         "i2v_s_per_step": i2v["s_per_step"], "token_replace_s_per_step": token_rep["s_per_step"],
-        "fused_norm_range_launches": token_rep["launches"]["fused_norm_range"]}}))
+        "fused_norm_range_launches": token_rep["launches"]["fused_norm_range"],
+        "text_encoders": encoders, "vae_decode": vae,
+        "prompt_to_video": {"tokenizer": p2v["tokenizer"],
+                            **{k: {m: v for m, v in p2v[k].items() if m != "launches"}
+                               for k in ("wan", "hunyuan")}}}}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
@@ -640,7 +667,15 @@ def main() -> int:
           f"{i2v['s_per_step']:.3f} s per denoise step; image cross-attention (1,12,31200,128) x "
           f"257 {img_attn['ms']:.4f} ms (bound {img_attn['bound_ms']:.4f}, SDPA "
           f"{img_attn['library_ms']:.4f}); token-replace HunyuanVideo-13B 720p x 45f "
-          f"{token_rep['s_per_step']:.3f} s per Euler step; "
+          f"{token_rep['s_per_step']:.3f} s per Euler step; text encoders ms per encode "
+          f"{ {k: round(v['ms'], 3) for k, v in encoders.items()} }; VAE decode s "
+          f"{ {k: round(v['s'], 3) for k, v in vae.items() if 's' in v} }, peak GiB "
+          f"{ {k: round(v['peak_gib'], 2) for k, v in vae.items() if 'peak_gib' in v} }; "
+          f"prompt to video: Wan-1.3B 480p x 77f encode {p2v['wan']['encode_s']:.3f} s, "
+          f"{p2v['wan']['s_per_step']:.3f} s per step, decode {p2v['wan']['decode_s']:.3f} s; "
+          f"HunyuanVideo-13B 720p x 45f encode {p2v['hunyuan']['encode_s']:.3f} s, "
+          f"{p2v['hunyuan']['s_per_step']:.3f} s per step, tiled decode "
+          f"{p2v['hunyuan']['decode_s']:.3f} s; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
           f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
@@ -3613,6 +3648,385 @@ def run_token_replace_path(torch, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(s_per_step=dt, launches=launches)
+
+
+# ---- prompt to video: text encoders, VAEs, cli.sample --prompt / --decode ---------
+
+PROMPT = "a cat walking on grass at sunset, cinematic shot"
+# HunyuanVideo wraps the prompt in its instruction template: 95 template
+# tokens cropped in front of the 256 the DiT reads (diffusers' crop_start)
+HY_CROP = 95
+
+
+def rel_l2(torch, got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def param_gib(model) -> float:
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+
+
+def encoder_specs():
+    """name: (port class, full-size config, tokens, valid tokens, call)."""
+    from vorta_tpu_torch.models.text_encoders import (CLIP_L, LLAMA_8B, CLIPTextEncoder,
+                                                      LlamaTextEncoder)
+    from vorta_tpu_torch.models.umt5 import UMT5_XXL, UMT5Encoder
+
+    return {
+        "umt5_xxl": (UMT5Encoder, UMT5_XXL, TEXT_LEN, 100, lambda m, ids, mask: m(ids, mask)),
+        "llama_8b": (LlamaTextEncoder, LLAMA_8B, HY_TEXT + HY_CROP, HY_CROP + HY_VALID,
+                     lambda m, ids, mask: m(ids, mask, crop_start=HY_CROP)),
+        "clip_l": (CLIPTextEncoder, CLIP_L, 77, 77, lambda m, ids, mask: m(ids)),
+    }
+
+
+def encoder_inputs(torch, vocab: int, n: int, valid: int, seed: int):
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, vocab, (1, n), generator=gen)
+    return ids, torch.arange(n)[None] < valid
+
+
+def run_text_encoders(torch, card: str) -> dict:
+    """UMT5-XXL (24 layers, 4,096 wide), Llama-8B (32 layers) and CLIP-L (12)
+    on the card, random bf16 weights from a seed: ms per encode of one
+    prompt (UMT5: 512 tokens, 100 valid; Llama: 256 + 95 template tokens,
+    cropped to 256; CLIP: 77) after warm-up, with the parameter GiB and the
+    bound (2 x non-embedding parameters x tokens at the bf16 peak, or the
+    weights' bytes).  Gates, each encoder at 2 layers at full width (its
+    token table cut to 4,096 rows: a table size, not arithmetic): the card
+    in bf16 against the CPU in f32 with the same weights, rel L2 < 0.05;
+    UMT5's padded rows exactly zero on the card, as encode_prompt_wan gives
+    them."""
+    import dataclasses
+    import gc
+
+    out = {}
+    for i, (name, (cls, cfg, n, valid, call)) in enumerate(encoder_specs().items()):
+        small = dataclasses.replace(cfg, num_layers=2, vocab_size=4096)
+        cpu = cls(small, dtype=torch.float32, device="cpu", seed=i)
+        gpu = cls(small, dtype=torch.bfloat16, device="cuda", seed=i)
+        gpu.load_state_dict(cpu.state_dict())
+        ids, mask = encoder_inputs(torch, small.vocab_size, n, valid, 20 + i)
+        got = call(gpu, ids.cuda(), mask.cuda())
+        want = call(cpu, ids, mask)
+        err = rel_l2(torch, got, want)
+        if not (err < 0.05 and torch.isfinite(got.float()).all()):
+            raise RuntimeError(f"{name}: 2 layers on the card vs the CPU, rel L2 {err:.4f}")
+        if name == "umt5_xxl" and not (got[~mask.cuda()] == 0).all():
+            raise RuntimeError("umt5: padded rows are not zero on the card")
+        del cpu, gpu, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = cls(cfg, dtype=torch.bfloat16, device="cuda", seed=i)
+        ids, mask = encoder_inputs(torch, cfg.vocab_size, n, valid, 30 + i)
+        ids, mask = ids.cuda(), mask.cuda()
+        ms = time_ms(torch, lambda: call(model, ids, mask), iters=5)
+        body = sum(p.numel() for k, p in model.named_parameters()
+                   if "embed" not in k and "position" not in k)
+        flops = 2.0 * body * n
+        bound, by = bound_ms(flops, body * 2.0, PEAK_BF16)
+        out[name] = dict(ms=ms, param_gib=param_gib(model), tokens=n, layers=cfg.num_layers,
+                         bound_ms=bound, bound_by=by, tflops=flops / ms / 1e9,
+                         check_rel_l2_2_layers=err)
+        log(f"text encoder {name}: {cfg.num_layers} layers, {out[name]['param_gib']:.2f} GiB of "
+            f"bf16 weights, {n} tokens: {ms:.3f} ms per encode on {card} (bound {bound:.3f} ms "
+            f"by {by}, {out[name]['tflops']:.0f} TFLOP/s); 2 layers card vs CPU rel L2 {err:.4f}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_flops(torch, cls, cfg, z_shape, tiled: bool) -> float:
+    """The decode's operations, counted on the meta device: 2 x outputs x
+    (inputs x taps) of every convolution and 2 x outputs x width of the
+    mid-block attention's products (the tiles' own work where tiled)."""
+    from vorta_tpu_torch.models import wan_vae
+    from vorta_tpu_torch.models.vae_tiling import tiled_decode
+
+    vae = cls(cfg, dtype=torch.bfloat16, device="meta")
+    count = [0.0]
+    conv, bmm = wan_vae.F.conv3d, torch.bmm
+
+    def conv_n(x, w, *args):
+        y = conv(x, w, *args)
+        count[0] += 2.0 * y.numel() * w[0].numel()
+        return y
+
+    def bmm_n(a, b):
+        y = bmm(a, b)
+        count[0] += 2.0 * y.numel() * a.shape[-1]
+        return y
+
+    z = torch.zeros(z_shape, device="meta")
+    wan_vae.F.conv3d, torch.bmm = conv_n, bmm_n
+    try:
+        if tiled:
+            tiled_decode(lambda zz: vae.decode(zz, denormalize=False), z)
+        else:
+            vae.decode(z, denormalize=False)
+    finally:
+        wan_vae.F.conv3d, torch.bmm = conv, bmm
+    return count[0]
+
+
+def conv3d_probe(torch) -> dict:
+    """What one cuDNN conv3d does over the Wan decoder's widest input at
+    480p x 77f: x (1, 192, 77, 480, 832) bf16, 5.9e9 elements (over 2^31),
+    3 x 3 x 3 to 96 channels, padding 1.  Either it raises (recorded) or
+    its frames 0 and 76 are held against the same frames computed from
+    their three input frames alone."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    x = torch.randn((1, 192, 77, 480, 832), generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = (torch.randn((96, 192, 3, 3, 3), generator=gen, device="cuda") / 72.0).bfloat16()
+    out = dict(input=list(x.shape), input_elements=x.numel())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        y = F.conv3d(x, w, padding=1)
+        torch.cuda.synchronize()
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        out.update(ok=False, error=f"{type(e).__name__}: {str(e).splitlines()[0][:300]}")
+        log(f"conv3d probe over {x.numel():,} elements raised: {out['error']}")
+        del x, w
+        torch.cuda.empty_cache()
+        return out
+    out.update(ok=True, s=time.time() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    errs = []
+    for t in (0, 76):  # the frame from input frames t - 1, t, t + 1 (zeros past the ends)
+        piece = F.pad(x[:, :, max(t - 1, 0):t + 2], (0, 0, 0, 0, int(t == 0), int(t == 76)))
+        errs.append(rel_l2(torch, y[:, :, t], F.conv3d(piece, w, padding=(0, 1, 1))[:, :, 0]))
+    out["rel_l2_frames_0_76"] = errs
+    log(f"conv3d probe over {x.numel():,} elements ran in {out['s']:.3f} s, peak "
+        f"{out['peak_gib']:.2f} GiB; frames 0 and 76 against their pieces: rel L2 {errs}")
+    del x, w, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def vae_gates(torch) -> dict:
+    """Both VAEs at full width: (a) a (1, 3, 8, 8) latent decoded on the
+    card in bf16 against the CPU in f32, same weights, rel L2 < 0.05; (b)
+    on the card in f32 (TF32 off), the decode in chunks of at most 2^24
+    elements against one call over the whole clip, at (1, 6, 30, 52) (21
+    frames of 240 x 416), rel L2 <= 1e-3; the same in bf16 reported (other
+    call shapes let cuDNN pick other algorithms, whose bf16 roundings then
+    differ) and held < 0.05; (c) tiled_decode at a single-tile shape
+    (1, 4, 16, 16) is the whole-clip decode, bit for bit."""
+    import gc
+
+    from vorta_tpu_torch.models import hunyuan_vae as hv
+    from vorta_tpu_torch.models import wan_vae as wv
+    from vorta_tpu_torch.models.vae_tiling import tiled_decode
+
+    def chunked_vs_whole(vae, z):
+        with wv.chunk_budget(1 << 24):
+            chunked = vae.decode(z)
+        with wv.chunk_budget(1 << 62):
+            whole = vae.decode(z)
+        return rel_l2(torch, chunked, whole)
+
+    out = {}
+    gen = torch.Generator().manual_seed(41)
+    for name, cls, cfg in (("wan", wv.WanVAE, wv.WAN_VAE), ("hunyuan", hv.HunyuanVAE,
+                                                           hv.HUNYUAN_VAE)):
+        cpu = cls(cfg, dtype=torch.float32, device="cpu", seed=1)
+        gpu = cls(cfg, dtype=torch.bfloat16, device="cuda", seed=1)
+        gpu.load_state_dict(cpu.state_dict())
+        z = torch.randn((1, 3, 8, 8, 16), generator=gen)
+        cpu_err = rel_l2(torch, gpu.decode(z.cuda()), cpu.decode(z))
+        gpu32 = cls(cfg, dtype=torch.float32, device="cuda", seed=1)
+        gpu32.load_state_dict(cpu.state_dict())
+        del cpu
+        z = torch.randn((1, 6, 30, 52, 16), generator=gen).cuda()
+        chunk_err = chunked_vs_whole(gpu32, z)
+        del gpu32
+        chunk_err_bf16 = chunked_vs_whole(gpu, z)
+        z = torch.randn((1, 4, 16, 16, 16), generator=gen).cuda()
+        tiled = tiled_decode(lambda zz: gpu.decode(zz, denormalize=False), z)
+        single = torch.equal(tiled, gpu.decode(z, denormalize=False))
+        out[name] = dict(card_vs_cpu_rel_l2=cpu_err, chunked_vs_whole_rel_l2_f32=chunk_err,
+                         chunked_vs_whole_rel_l2_bf16=chunk_err_bf16, single_tile_exact=single)
+        log(f"VAE {name}: card bf16 vs CPU f32 rel L2 {cpu_err:.4f} (< 0.05); chunked (2^24) vs "
+            f"one call rel L2 {chunk_err:.2e} in f32 (<= 1e-3), {chunk_err_bf16:.2e} in bf16 "
+            f"(< 0.05); single tile exact {single}")
+        if not (cpu_err < 0.05 and chunk_err <= 1e-3 and chunk_err_bf16 < 0.05 and single):
+            raise RuntimeError(f"VAE {name}: gate failed {out[name]}")
+        del gpu, tiled
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# (name, VAE, latent shape, tiled): Wan 480p x 77f whole-clip (the JAX CLI's
+# default), Wan 720p x 77f tiled, HunyuanVideo 720p x 45f tiled, and
+# HunyuanVideo 720p x 21f whole-clip (its top stage 2.48e9 elements)
+VAE_DECODES = (("wan_480p_77f_whole", "wan", (1, 20, 60, 104, 16), False),
+               ("wan_720p_77f_tiled", "wan", (1, 20, 90, 160, 16), True),
+               ("hunyuan_720p_45f_tiled", "hunyuan", (1, 12, 90, 160, 16), True),
+               ("hunyuan_720p_21f_whole", "hunyuan", (1, 6, 90, 160, 16), False))
+
+
+def run_vae_decode(torch, card: str) -> dict:
+    """The VAEs at full width on the card (random bf16 weights from a seed):
+    the conv3d probe, the gates, then each of VAE_DECODES timed (host clock,
+    synchronised; the whole-clip decodes after a warm-up decode, the tiled
+    ones once: their tiles share one shape) with its peak memory above the
+    weights and the latents (max_memory_allocated) and its FLOP bound."""
+    import gc
+
+    from vorta_tpu_torch.models import hunyuan_vae as hv
+    from vorta_tpu_torch.models import wan_vae as wv
+    from vorta_tpu_torch.models.vae_tiling import tiled_decode
+
+    out = {"conv3d_probe": conv3d_probe(torch), "gates": vae_gates(torch)}
+    vaes = {"wan": (wv.WanVAE, wv.WAN_VAE), "hunyuan": (hv.HunyuanVAE, hv.HUNYUAN_VAE)}
+    for name, family, shape, tiled in VAE_DECODES:
+        cls, cfg = vaes[family]
+        vae = cls(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+        z = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(42),
+                        device="cuda")
+
+        def decode():
+            if tiled:
+                return tiled_decode(lambda zz: vae.decode(zz, denormalize=False), z)
+            return vae.decode(z, denormalize=False)
+
+        if not tiled:
+            decode()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        px = decode()
+        torch.cuda.synchronize()
+        s = time.time() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        frames = 4 * (shape[1] - 1) + 1
+        if tuple(px.shape) != (1, frames, 8 * shape[2], 8 * shape[3], 3) or not torch.isfinite(
+                px).all():
+            raise RuntimeError(f"VAE {name}: output {tuple(px.shape)} or non-finite")
+        flops = decode_flops(torch, cls, cfg, shape, tiled)
+        # the widest activation: the last stage's input, at full resolution
+        # (of a tile where tiled: (16, 32, 32) latent at most)
+        lt, lh, lw = (min(a, b) for a, b in zip(shape[1:4], (16, 32, 32) if tiled else shape[1:4]))
+        top = (4 * (lt - 1) + 1) * 64 * lh * lw * (cfg.base_dim * 2 if family == "wan"
+                                                   else cfg.base_dims[1])
+        out[name] = dict(s=s, peak_gib=peak, tflop=flops / 1e12, bound_s=flops / PEAK_BF16,
+                         bound_share=flops / PEAK_BF16 / s, latent=list(shape[1:4]),
+                         top_stage_elements=top)
+        log(f"VAE {name}: latent {shape[1:4]} -> {frames} x {8 * shape[2]} x {8 * shape[3]} in "
+            f"{s:.3f} s on {card}, peak {peak:.2f} GiB above the weights and latents; "
+            f"{flops / 1e12:.1f} TFLOP, bound {flops / PEAK_BF16:.3f} s "
+            f"({100 * flops / PEAK_BF16 / s:.1f}% of it); widest stage input "
+            f"{top:.3g} elements")
+        del vae, z, px
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+class StandInTokenizer:
+    """A deterministic stand-in with ``.encode(s).ids`` (a hash of each
+    word), for a card machine without the ``tokenizers`` package."""
+
+    def encode(self, s: str):
+        import types
+        import zlib
+
+        return types.SimpleNamespace(ids=[3 + zlib.crc32(w.encode()) % 30000 for w in s.split()])
+
+
+def prompt_tokenizer(tok_dir: Path):
+    """(the patch to run cli.sample under, what tokenizes): a BPE of 100
+    tokens trained here into ``tok_dir/tokenizer.json`` where the
+    ``tokenizers`` package is installed (the real loader reads it), else
+    the stand-in over ``io.text.load_tokenizer``."""
+    import contextlib
+    import importlib.util
+    from unittest import mock
+
+    from vorta_tpu_torch.io import text as text_io
+
+    if importlib.util.find_spec("tokenizers") is None:
+        return (mock.patch.object(text_io, "load_tokenizer", lambda path: StandInTokenizer()),
+                "a stand-in (no tokenizers package): ids from a hash of each word")
+    from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+
+    tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.train_from_iterator([PROMPT, "a dog running through a sunny field of flowers",
+                             "a city at night"],
+                            trainers.BpeTrainer(vocab_size=100,
+                                                special_tokens=["<pad>", "<unk>", "</s>"]))
+    tok_dir.mkdir(parents=True, exist_ok=True)
+    tok.save(str(tok_dir / "tokenizer.json"))
+    return contextlib.nullcontext(), "a BPE of 100 tokens trained here (tokenizers)"
+
+
+def run_prompt_to_video(torch, card: str) -> dict:
+    """cli.sample from a prompt to a video on the card, through main(argv):
+    Wan-1.3B 480p x 77f routed hard (the CLI's defaults), UMT5-XXL, 2 UniPC
+    steps x CFG, --decode whole-clip; HunyuanVideo-13B 720p x 45f routed,
+    Llama-8B + CLIP-L, 1 Euler step, --decode --vae_tiling.  Random weights
+    from the seed (the CLI warns), frames written as .npy through
+    save_video.  Launches exact against the routing tables; Wan's frames
+    against a whole-clip decode of the CLI's latents by a VAE built apart
+    (rel L2 <= 1e-3)."""
+    import gc
+
+    import numpy as np
+
+    from vorta_tpu_torch.models.wan_vae import WAN_VAE, WanVAE
+    from vorta_tpu_torch.ops import _build
+
+    out_dir = HERE / "results" / "port_smoke"
+    patch, tokenizer = prompt_tokenizer(out_dir / "tokenizer")
+    out = {"tokenizer": tokenizer}
+    runs = (("wan", "WanT2VPipeline", (77, 480, 832),
+             ["--model", "wan-1_3B", "--num_inference_steps", "2"]),
+            ("hunyuan", "HunyuanT2VPipeline", (45, 720, 1280),
+             ["--model", "hunyuan-13B", "--num_frames", "45", "--height", "720", "--width",
+              "1280", "--num_inference_steps", "1", "--vae_tiling"]))
+    for name, pipeline, (t, h, w), argv in runs:
+        _build.reset_launches()
+        with patch:
+            res, _ = spied_sample(torch, argv + [
+                "--prompt", PROMPT, "--tokenizer_dir", str(out_dir / "tokenizer"), "--decode",
+                "--seed", "0", "--device", "cuda", "--output",
+                str(out_dir / f"video_{name}.npy")], pipeline)
+        launches = dict(_build.launches)
+        tables = np.stack(res.routing)
+        want = (routed_wan_launches(tables, "sta_pipe", tables.shape[0]) if name == "wan"
+                else hy_hard_launches(tables))
+        frames = np.load(res.video)
+        if launches != want or frames.shape != (t, h, w, 3) or not np.isfinite(frames).all():
+            raise RuntimeError(f"prompt to video {name}: frames {frames.shape}, launches "
+                               f"{launches} != {want}")
+        served_on_wgmma(launches, f"prompt to video {name}")
+        row = dict(encode_s=res.encode_s, build_s=res.build_s,
+                   s_per_step=res.denoise_s / res.steps, decode_s=res.decode_s,
+                   frames=list(frames.shape), launches=launches)
+        if name == "wan":
+            vae = WanVAE(WAN_VAE, dtype=torch.bfloat16, device="cuda", seed=0)
+            again = vae.decode(res.latents)[0]
+            row["frames_vs_apart_rel_l2"] = rel_l2(torch, torch.from_numpy(frames), again)
+            if not row["frames_vs_apart_rel_l2"] <= 1e-3:
+                raise RuntimeError(f"prompt to video wan: frames vs a decode apart {row}")
+            del vae, again
+        out[name] = row
+        log(f"prompt to video {name} ({t} x {h} x {w}): encode {res.encode_s:.3f} s, build "
+            f"{res.build_s:.1f} s, {row['s_per_step']:.3f} s per step, decode "
+            f"{res.decode_s:.3f} s on {card}; launches exact; tokenizer: {tokenizer}")
+        del res, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---- training ------------------------------------------------------------------

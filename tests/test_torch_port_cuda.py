@@ -62,7 +62,12 @@ zeros, no_dma twice and then full still right, a shape the C entry
 refuses, the tool's launches on sta_diag_wgmma) and unpool's batched
 16-byte copy (bit for bit against the plain version and the first
 design's kernel in both modes, D 64 and 128, groups of 1, 12 and 32 slots,
-U = 0 and group size - 1, counted as unpool_rows).  Tolerances: 1e-5 x max
+U = 0 and group size - 1, counted as unpool_rows); and (no kernel: cuBLAS
+/ cuDNN products) the VAEs' chunked causal conv and GroupNorm
+statistics over tensors of more than 2^31 elements against references
+computed in pieces, the text encoders at 2 layers and the tiny VAEs
+(whole, chunked, tiled) against the CPU, and cli.sample --prompt --decode
+on the card.  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -2554,3 +2559,161 @@ def test_importer_loads_onto_the_card(card, tmp_path):
     # and the 16 text keys stay on mma.sync
     assert (_build.launches["flash"], _build.launches["flash_wgmma"]) == (
         3 * cfg.num_layers, cfg.num_layers)
+
+
+# --- prompt to video: the text encoders and VAEs (cuBLAS / cuDNN products, no kernel) -----
+
+def test_chunked_causal_conv_over_2e31_elements(card, monkeypatch):
+    """A causal 3 x 3 x 3 conv over (1, 192, 21, 720, 1280) bf16, 3.7e9
+    elements (over 2^31), through CausalConv3d's frame chunks: no cuDNN call
+    sees more than CHUNK_ELEMENTS, and each output frame equals the conv of
+    its own three input frames (zeros before the first), computed apart."""
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.models import wan_vae as wv
+
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    conv = wv.CausalConv3d(192, 8, dtype=torch.bfloat16, device=card)
+    x = torch.randn((1, 192, 21, 720, 1280), generator=gen, device=card, dtype=torch.bfloat16)
+    assert x.numel() > 2**31
+    seen, real = [], F.conv3d
+
+    def spy(xi, *args):
+        seen.append(xi.numel())
+        return real(xi, *args)
+
+    monkeypatch.setattr(wv.F, "conv3d", spy)
+    with torch.inference_mode():
+        got = conv(x)
+        assert len(seen) > 1 and max(seen) <= wv.CHUNK_ELEMENTS
+        for t in range(x.shape[2]):
+            piece = F.pad(x[:, :, max(0, t - 2):t + 1], (1, 1, 1, 1, max(0, 2 - t), 0))
+            _close(got[:, :, t:t + 1], real(piece, conv.conv.weight, conv.conv.bias))
+
+
+def test_groupnorm_statistics_over_2e31_elements(card):
+    """HunyuanVAE's GroupNorm over (1, 128, 21, 720, 1280) bf16, 2.48e9
+    elements: the statistics its chunks sum (whole-clip, over (C / G, T, H,
+    W)) against each group's own in f64, a group at a time; frames of the
+    normalised clip against the plain formula in f64."""
+    from vorta_tpu_torch.models.hunyuan_vae import GroupNorm
+
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    gn = GroupNorm(128, 32, device=card)
+    with torch.no_grad():
+        gn.scale.copy_(1 + 0.1 * torch.randn(128, generator=gen, device=card))
+        gn.bias.copy_(0.1 * torch.randn(128, generator=gen, device=card))
+    x = (2 + torch.randn((1, 128, 21, 720, 1280), generator=gen, device=card)).bfloat16()
+    assert x.numel() > 2**31
+    with torch.inference_mode():
+        mean, mul = gn.stats(x)
+        m, v = [], []
+        for g in range(32):
+            xs = x[:, 4 * g:4 * g + 4].double()
+            m.append(xs.mean())
+            v.append(xs.var(unbiased=False))
+        m = torch.stack(m).repeat_interleave(4)
+        v = torch.stack(v).repeat_interleave(4)
+        want_mul = torch.rsqrt(v + 1e-6) * gn.scale.double()
+        torch.testing.assert_close(mean.flatten().double(), m, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(mul.flatten().double(), want_mul, rtol=1e-4, atol=0)
+        got = gn.normalize(x[:, :, 5:7], (mean, mul))
+        want = ((x[:, :, 5:7].double() - m[:, None, None, None]) * want_mul[:, None, None, None]
+                + gn.bias.double()[:, None, None, None])
+        err = (got.double() - want).abs().max().item()
+        assert got.dtype == torch.float32 and err <= 1e-4 * want.abs().max().item()
+
+
+def _encoder(name):
+    from vorta_tpu_torch.models import text_encoders as te
+    from vorta_tpu_torch.models import umt5
+
+    return {"umt5": (umt5.UMT5Encoder, umt5.UMT5_XXL, lambda m, i, k: m(i, k)),
+            "llama": (te.LlamaTextEncoder, te.LLAMA_8B, lambda m, i, k: m(i, k, crop_start=8)),
+            "clip": (te.CLIPTextEncoder, te.CLIP_L, lambda m, i, k: m(i))}[name]
+
+
+@pytest.mark.parametrize("name", ["umt5", "llama", "clip"])
+def test_text_encoder_on_card_matches_cpu(card, name):
+    """Each encoder at 2 layers and full width (token table cut to 1,024
+    rows), 64 tokens with a padded tail: the card in bf16 against the CPU in
+    f32 with the same weights, rel L2 < 0.05; UMT5's padded rows zero."""
+    cls, cfg, call = _encoder(name)
+    small = dataclasses.replace(cfg, num_layers=2, vocab_size=1024)
+    cpu = cls(small, dtype=torch.float32, device="cpu", seed=3)
+    gpu = cls(small, dtype=torch.bfloat16, device=card, seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(52)
+    ids = torch.randint(3, 1024, (2, 64), generator=gen)
+    mask = torch.arange(64)[None] < torch.tensor([[64], [40]])
+    with torch.inference_mode():
+        got = call(gpu, ids.to(card), mask.to(card)).float().cpu()
+        want = call(cpu, ids, mask)
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() < 0.05
+    if name == "umt5":
+        assert (got[1, 40:] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["wan", "hunyuan"])
+def test_vae_on_card_matches_cpu_whole_chunked_and_tiled(card, name):
+    """The tiny VAEs: decode on the card (bf16) against the CPU (f32), rel
+    L2 < 0.05; chunks of at most 2,000 elements against one call, rel L2 <=
+    1e-3; tiled decode (tiles (2, 4, 4), overlaps (1, 2, 2)) against the
+    CPU's tiled decode, rel L2 < 0.05, and encode against the CPU."""
+    from vorta_tpu_torch.models import hunyuan_vae as hv
+    from vorta_tpu_torch.models import wan_vae as wv
+    from vorta_tpu_torch.models.vae_tiling import tiled_decode
+
+    cls, cfg = {"wan": (wv.WanVAE, wv.WAN_VAE_TINY),
+                "hunyuan": (hv.HunyuanVAE, hv.HUNYUAN_VAE_TINY)}[name]
+    cpu = cls(cfg, dtype=torch.float32, device="cpu", seed=4)
+    gpu = cls(cfg, dtype=torch.bfloat16, device=card, seed=4)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(53)
+    z = torch.randn((1, 3, 6, 7, 16), generator=gen)
+    video = torch.randn((1, 9, 16, 24, 3), generator=gen)
+
+    def rel(a, b):
+        return ((a.float().cpu() - b).norm() / b.norm()).item()
+
+    with torch.inference_mode():
+        whole = gpu.decode(z.to(card))
+        assert rel(whole, cpu.decode(z)) < 0.05
+        with wv.chunk_budget(2000):
+            assert rel(gpu.decode(z.to(card)), whole.float().cpu()) <= 1e-3
+        kw = dict(tile_latent=(2, 4, 4), overlap_latent=(1, 2, 2))
+        tiled = tiled_decode(lambda zz: gpu.decode(zz, denormalize=False), z.to(card), **kw)
+        assert tiled.dtype == torch.float32 and tiled.device.type == "cuda"
+        assert rel(tiled, tiled_decode(lambda zz: cpu.decode(zz, denormalize=False), z,
+                                       **kw)) < 0.05
+        assert rel(gpu.encode(video.to(card))[0], cpu.encode(video)[0]) < 0.05
+
+
+@pytest.mark.parametrize("model,extra", [("wan-tiny", []), ("hunyuan-tiny", ["--vae_tiling"])])
+def test_prompt_to_video_cli_on_card(card, tmp_path, monkeypatch, model, extra):
+    """cli.sample --prompt --tokenizer_dir --decode on the card (a stand-in
+    tokenizer: the machine may lack the tokenizers package): the frames of
+    the JAX CLI's shape as .npy, finite; routed, the DiT's kernels launched."""
+    import types
+
+    from vorta_tpu_torch.cli.sample import main
+    from vorta_tpu_torch.io import text as text_io
+
+    class StandIn:
+        def encode(self, s):
+            return types.SimpleNamespace(ids=[3 + len(w) * 7 for w in s.split()])
+
+    monkeypatch.setattr(text_io, "load_tokenizer", lambda path: StandIn())
+    size = ["--num_frames", "5", "--height", "32", "--width", "32"] if model == "wan-tiny" \
+        else ["--num_frames", "13", "--height", "96", "--width", "320", "--native_attention"]
+    _build.reset_launches()
+    res = main(["--model", model, "--prompt", "a cat walking", "--tokenizer_dir", "unused",
+                "--num_inference_steps", "1", "--decode", "--output",
+                str(tmp_path / "v.npy")] + size + extra)
+    frames = np.load(res.video)
+    want = (5, 32, 32, 3) if model == "wan-tiny" else (13, 96, 320, 3)
+    assert frames.shape == want and np.isfinite(frames).all()
+    assert res.encode_s > 0 and res.decode_s > 0
+    kernel = "flash" if model == "wan-tiny" else "flash_manual"
+    assert _build.launches[kernel] > 0

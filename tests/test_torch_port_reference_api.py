@@ -24,11 +24,13 @@ from vorta_tpu.ops import fused_norm as jnorm
 from vorta_tpu.ops import prologue as jprologue
 from vorta_tpu.ops import qmm as jqmm
 from vorta_tpu.ops import quant as jquant
+from vorta_tpu.ops import rope as jrope
 from vorta_tpu.ops import sta_window as jsta_window
 from vorta_tpu.ops.flash_manual import sparse_flash_attention_manual as jax_manual
 from vorta_tpu.ops.sta_batched import sta_flash_headbatched as jax_batched
 from vorta_tpu_torch import geometry
-from vorta_tpu_torch.ops import attention_ref, fused_norm, prologue, qmm, quant, sta_window
+from vorta_tpu_torch.ops import (attention_ref, fused_norm, prologue, qmm, quant, rope,
+                                 sta_window)
 from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, tables_from_block_mask
 from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual
 from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched
@@ -231,7 +233,21 @@ def _case_fused_linear():
         _close(g, w, rtol=1e-6, atol_rel=1e-6)
 
 
+def _case_apply_rope():
+    """diffusers' interleaved pairs, bf16 in, f32 rotation, bf16 out."""
+    x, ang = _randn(67, (2, 3, 10, 16), (10, 8))
+    cos, sin = np.cos(ang), np.sin(ang)
+    _close(rope.apply_rope(*(torch.from_numpy(a) for a in (x, cos, sin))),
+           jrope.apply_rope(*(jnp.asarray(a) for a in (x, cos, sin))), rtol=1e-6, atol_rel=1e-6)
+    got = rope.apply_rope(torch.from_numpy(x).bfloat16(),
+                          *(torch.from_numpy(a) for a in (cos, sin)))
+    want = jrope.apply_rope(jnp.asarray(x, jnp.bfloat16), jnp.asarray(cos), jnp.asarray(sin))
+    assert got.dtype == torch.bfloat16
+    _close(got.float(), np.asarray(want, np.float32), rtol=1e-2, atol_rel=1e-2)
+
+
 PUBLIC_NAMES = {  # the port's module: (name, case)
+    "ops.rope.apply_rope": (rope, _case_apply_rope),
     "ops.fused_norm.layernorm_fp32": (fused_norm, _case_layernorm_fp32),
     "ops.fused_norm.adaln_layernorm": (fused_norm, _case_adaln_layernorm),
     "ops.fused_norm.rmsnorm": (fused_norm, _case_rmsnorm),
@@ -249,3 +265,102 @@ def test_public_name_matches_its_jax_namesake(path):
     module, case = PUBLIC_NAMES[path]
     assert callable(getattr(module, path.rsplit(".", 1)[1]))
     case()
+
+
+# --- ROADMAP section 3 F1: keywords and module constants of the JAX namesakes -----------
+
+def test_tables_from_block_mask_pad_to_matches_jax():
+    """``pad_to`` widens every head's table to one width (JAX's padding rule);
+    without it the width is the most kv blocks a q block sees."""
+    from vorta_tpu.ops.flash import tables_from_block_mask as jtables
+
+    mask = np.random.default_rng(68).random((2, 4, 6)) < 0.4
+    mask[:, :, 0] = True
+    for pad_to in (None, 6, 9):
+        got, want = tables_from_block_mask(mask, pad_to=pad_to), jtables(mask, pad_to=pad_to)
+        for a, b in ((got.kv_index, want.kv_index), (got.kv_count, want.kv_count)):
+            assert a.dtype == b.dtype and a.shape == b.shape and (a == b).all()
+    assert tables_from_block_mask(mask, pad_to=9).kv_index.shape == (2, 4, 9)
+
+
+@pytest.mark.parametrize("dim,flip,shift", [(64, True, 0.0), (64, False, 1.0), (33, True, 1.0),
+                                            (32, False, 0.0)])
+def test_sinusoidal_timestep_embedding_options_match_jax(dim, flip, shift):
+    """Timesteps up to 50 (arguments up to 50 rad: one f32 ulp of a
+    frequency, which exp may differ by between XLA and PyTorch, moves the
+    sinusoid by ~1e-5 at most); the defaults are the models' [cos, sin]
+    with no shift, bit for bit, at every timestep."""
+    import math
+
+    from vorta_tpu.models.common import sinusoidal_timestep_embedding as jemb
+    from vorta_tpu_torch.models.common import sinusoidal_timestep_embedding as emb
+
+    t = np.array([0.0, 1.0, 7.5, 50.0], np.float32)
+    got = emb(torch.from_numpy(t), dim, flip_sin_to_cos=flip, downscale_freq_shift=shift)
+    _close(got, jemb(jnp.asarray(t), dim, flip_sin_to_cos=flip, downscale_freq_shift=shift),
+           rtol=1e-5, atol_rel=1e-5)
+    tt = torch.tensor([0.0, 1.0, 500.0, 999.0])
+    half = 32
+    args = tt[:, None] * torch.exp(-math.log(10000.0) * torch.arange(half).float() / half)
+    assert torch.equal(emb(tt, 64), torch.cat([torch.cos(args), torch.sin(args)], dim=-1))
+
+
+def test_quantized_builders_take_a_router_checkpoint(tmp_path):
+    """``router_checkpoint`` (a path, JAX's keyword, in JAX's position)
+    merges the routers ``router_state`` carries; passing both raises."""
+    import inspect
+
+    from vorta_tpu.io import quant_serving as jqs
+    from vorta_tpu_torch.config import WAN_TINY
+    from vorta_tpu_torch.io import quant_serving as qs
+    from vorta_tpu_torch.io import torch_import as ti
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_TINY
+
+    for name in ("build_quantized_wan", "build_quantized_hunyuan"):
+        want = list(inspect.signature(getattr(jqs, name)).parameters)[:5]
+        assert list(inspect.signature(getattr(qs, name)).parameters)[:5] == want
+    g = torch.Generator().manual_seed(69)
+    out = WAN_TINY.num_heads * 3
+    wan = {f"blocks.{i}.router.linear.{p}": torch.randn(*sh, generator=g)
+           for i in range(WAN_TINY.num_layers)
+           for p, sh in (("weight", (out, WAN_TINY.dim)), ("bias", (out,)))}
+    torch.save(wan, tmp_path / "router.pt")
+    key = "['router']['linear']['kernel'].value"
+    _, by_path = qs.build_quantized_wan(WAN_TINY, 8, router_checkpoint=str(tmp_path / "router.pt"),
+                                        seed=1, device="cpu")
+    _, by_state = qs.build_quantized_wan(
+        WAN_TINY, 8, router_state=ti.wan_router_state(tmp_path / "router.pt",
+                                                      WAN_TINY.num_layers), seed=1, device="cpu")
+    assert torch.equal(by_path.leaves[key], by_state.leaves[key])
+    assert torch.equal(by_path.leaves[key][0].float(),
+                       wan["blocks.0.router.linear.weight"].T.bfloat16().float())
+    with pytest.raises(ValueError, match="not both"):
+        qs.build_quantized_wan(WAN_TINY, 8, router_checkpoint=str(tmp_path / "router.pt"),
+                               router_state={}, device="cpu")
+    hy = {f"{stack}.{i}.router.linear.{p}": torch.randn(*sh, generator=g)
+          for stack, n in (("transformer_blocks", HUNYUAN_TINY.dual_layers),
+                           ("single_transformer_blocks", HUNYUAN_TINY.single_layers))
+          for i in range(n)
+          for p, sh in (("weight", (HUNYUAN_TINY.num_heads * 3, HUNYUAN_TINY.dim)),
+                        ("bias", (HUNYUAN_TINY.num_heads * 3,)))}
+    torch.save(hy, tmp_path / "hy_router.pt")
+    _, (dual, single) = qs.build_quantized_hunyuan(
+        HUNYUAN_TINY, 8, router_checkpoint=str(tmp_path / "hy_router.pt"), seed=1, device="cpu")
+    assert torch.equal(single.leaves[key][1].float(),
+                       hy["single_transformer_blocks.1.router.linear.weight"].T.bfloat16().float())
+
+
+def test_module_constants_match_jax():
+    import importlib
+
+    for module, names in (("ops.flash_manual", ("NEG_INF",)),
+                          ("ops.sta_pipe", ("NEG_INF", "LOG2E")),
+                          ("ops.sta_window", ("NEG_INF",)),
+                          ("ops.sta_row", ("NEG_INF", "LOG2E")),
+                          ("ops.sta_batched", ("NEG_INF",)),
+                          ("ops.flash_bwd", ("POS_BIG", "NEG_INF", "LOG2E"))):
+        port = importlib.import_module(f"vorta_tpu_torch.{module}")
+        ref = importlib.import_module(f"vorta_tpu.{module}")
+        for name in names:
+            assert getattr(port, name) == getattr(ref, name), (module, name)
+            assert type(getattr(port, name)) is float

@@ -19,7 +19,9 @@ routers, random text states with 83 of 256 tokens valid, embedded guidance
 6.0) at the CLI's attention geometry, routing off or hard.  The sample
 CLI's quantized serving flags apply as there: ``--qk_int8``, ``--mm int8``,
 ``--act_scales x.npz`` and ``--quantize_blocks int4|int8`` (with ``--model
-wan-14B`` too).
+wan-14B`` too).  ``--vae wan|hunyuan`` profiles one decode of that VAE
+(full width, random bf16 weights) at the video's latent shape instead,
+whole-clip or, with ``--vae_tiling``, in tiles (models/vae_tiling.py).
 
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 21 --height 480 --width 832
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --routing hard
@@ -37,6 +39,9 @@ wan-14B`` too).
       --routing hard --sta_tile 4 9 10 --t 500   # the STA heads through sta_window
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
       --height 720 --width 1280 --routing hard --sta_tile 2 9 8 --t 500   # sta_batched
+  python -m vorta_tpu_torch.cli.profile_forward --vae wan --num_frames 77
+  python -m vorta_tpu_torch.cli.profile_forward --vae hunyuan --num_frames 45 \
+      --height 720 --width 1280 --vae_tiling
 """
 
 from __future__ import annotations
@@ -110,6 +115,9 @@ def main(argv=None) -> dict:
     p.add_argument("--qk_int8", action="store_true")
     p.add_argument("--act_scales", default=None, help="npz {site: (L,)} static int8 scales")
     p.add_argument("--quantize_blocks", default=None, choices=["int4", "int8"])
+    p.add_argument("--vae", default=None, choices=["wan", "hunyuan"],
+                   help="profile one decode of this VAE instead of a forward")
+    p.add_argument("--vae_tiling", action="store_true", help="with --vae: a tiled decode")
     args = p.parse_args(argv)
     if args.model != "wan-1_3B" and (args.train or args.router):
         p.error("--train and --router profile Wan-1.3B only")
@@ -123,6 +131,10 @@ def main(argv=None) -> dict:
     serve = dict(mm_precision=args.mm,
                  act_scales=load_act_scales(args.act_scales) if args.act_scales else None)
     bits = int(args.quantize_blocks[3:]) if args.quantize_blocks else None
+    if args.vae:
+        latent, run = _vae_decode(args, device)
+        args.model = f"{args.vae} VAE{' tiled' if args.vae_tiling else ''}"
+        return _profile(args, 0, latent, None, run, device, profile, ProfilerActivity)
     if args.model == "hunyuan-13B":
         grid, attn, run = _hunyuan_forward(args, device, serve, bits)
         return _profile(args, HUNYUAN_13B.dual_layers + HUNYUAN_13B.single_layers, grid, attn,
@@ -186,6 +198,27 @@ def _hunyuan_forward(args, device, serve: dict, bits):
             return model(lat, t, text, mask, pooled, guidance=guidance, attn_cfg=attn,
                          routing_mode=args.routing, **serve)
     return grid, attn, run
+
+
+def _vae_decode(args, device):
+    """(latent grid, closure of one decode): the VAE at full width, random
+    bf16 weights from a seed, latents of the requested video."""
+    from ..models.hunyuan_vae import HUNYUAN_VAE, HunyuanVAE
+    from ..models.vae_tiling import tiled_decode
+    from ..models.wan_vae import WAN_VAE, WanVAE
+
+    vae = (WanVAE(WAN_VAE, dtype=torch.bfloat16, device=device) if args.vae == "wan"
+           else HunyuanVAE(HUNYUAN_VAE, dtype=torch.bfloat16, device=device))
+    latent = ((args.num_frames - 1) // 4 + 1, args.height // 8, args.width // 8)
+    z = torch.randn((1, *latent, 16), generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)
+
+    def run():
+        with torch.inference_mode():
+            if args.vae_tiling:
+                return tiled_decode(lambda zz: vae.decode(zz, denormalize=False), z)
+            return vae.decode(z, denormalize=False)
+    return latent, run
 
 
 def _profile(args, layers: int, grid, attn, run, device, profile, ProfilerActivity) -> dict:

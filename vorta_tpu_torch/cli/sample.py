@@ -4,8 +4,16 @@ Each head of each block is routed per step to its expert (full, lowres or
 sliding-tile attention; ``--tau_sparse`` is the confidence below which a
 head falls back to full attention) unless ``--native_attention`` asks for
 full attention everywhere, the baseline of routing's speed-up.
-Conditioning comes from ``--prompt_embeds x.npy`` (UMT5 states,
-(L, text_dim) or (1, L, text_dim)) or ``--random_embeds``.  Weights are
+Conditioning comes from ``--prompt "..." --tokenizer_dir D`` (a
+directory with a HuggingFace ``tokenizer.json``): the prompt is encoded on
+the card by UMT5-XXL for Wan, by Llama-8B + CLIP-L for HunyuanVideo
+(``--clip_tokenizer_dir``, default the same directory), tiny encoders for
+the tiny models, sized as the JAX CLI sizes them; the encoders are freed
+before the DiT is built.  Their weights come from
+``--text_encoder_checkpoint`` (UMT5 / Llama) and ``--clip_checkpoint``
+(transformers state dicts, io/torch_import.py), else they are random from
+the seed (a warning says so).  Or from ``--prompt_embeds x.npy`` (UMT5
+states, (L, text_dim) or (1, L, text_dim)) or ``--random_embeds``.  Weights are
 random, drawn from ``--seed``, unless ``--torch_checkpoint`` names a
 diffusers checkpoint (one .safetensors / .pt / .bin file or a directory of
 shards; io/torch_import.py); ``--router_checkpoint`` loads the routers
@@ -16,7 +24,12 @@ from its ``config.json`` (``cli.train --sta_tile T H W`` writes the tile
 there): for Wan its grid must be the requested video's and
 ``--tau_sparse`` overrides its threshold; for HunyuanVideo it is taken as
 it is, as the JAX CLI does.  Writes the final latents as .npy and prints
-the heads routed to each expert.
+the heads routed to each expert.  ``--decode`` runs the model's VAE (Wan
+2.1's for every Wan model, as the JAX CLI does; HunyuanVideo's, tiny for
+``hunyuan-tiny``; ``--vae_checkpoint`` a diffusers state dict, else random
+from the seed) whole-clip, or in blended tiles with ``--vae_tiling``, and
+writes the video: ``--output`` ending in .mp4 (imageio with ffmpeg, else a
+.gif beside it), .gif, or .npy (the (T, H, W, 3) frames in [-1, 1]).
 
 Quantized serving, the JAX CLI's four flags: ``--qk_int8`` runs the full
 and low-res experts' QK^T in int8 (flash_manual's int8 mode; sliding-tile
@@ -36,9 +49,11 @@ the timestep modulation since the last computed step stays under it,
 ``--image_embeds x.npy|x.pt``, (257, image_dim) CLIP image tokens; the
 model takes ``image_dim`` from the file.
 
-Example:
+Examples:
   python -m vorta_tpu_torch.cli.sample --model wan-1_3B --random_embeds \\
       --num_frames 77 --num_inference_steps 2 --output out.npy
+  python -m vorta_tpu_torch.cli.sample --prompt "a cat walking on grass" \\
+      --tokenizer_dir umt5_tokenizer --decode --output video.mp4
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ import argparse
 import dataclasses
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,16 +70,28 @@ import torch
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
 from ..device import resolve_device
 from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
+from ..io import text as text_io
 from ..io.checkpoint import apply_router_state, load_router_checkpoint
 from ..io.from_jax import load_act_scales
 from ..io.quant_serving import build_quantized_hunyuan, build_quantized_wan
-from ..io.torch_import import (hunyuan_router_state, load_hunyuan_torch_weights,
-                               load_wan_torch_weights, wan_router_state)
+from ..io.torch_import import (hunyuan_router_state, load_clip_text_torch_weights,
+                               load_hunyuan_torch_weights, load_hunyuan_vae_torch_weights,
+                               load_llama_torch_weights, load_umt5_torch_weights,
+                               load_wan_torch_weights, load_wan_vae_torch_weights,
+                               wan_router_state)
+from ..io.video import save_video
 from ..models.hunyuan import HUNYUAN_13B, HUNYUAN_TINY, HunyuanModel
+from ..models.hunyuan_vae import HUNYUAN_VAE, HUNYUAN_VAE_TINY, HunyuanVAE
+from ..models.text_encoders import (CLIPTextConfig, CLIPTextEncoder, LlamaConfig,
+                                    LlamaTextEncoder)
+from ..models.umt5 import UMT5Config, UMT5Encoder
+from ..models.vae_tiling import tiled_decode
 from ..models.wan import WanModel
+from ..models.wan_vae import WAN_VAE, WanVAE
 from ..pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
 from ..pipelines.wan_t2v import SamplingConfig, WanT2VPipeline
 
+NEED_CONDITIONING = "need --prompt with --tokenizer_dir, --prompt_embeds or --random_embeds"
 MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY,
           "hunyuan-13B": HUNYUAN_13B, "hunyuan-tiny": HUNYUAN_TINY}
 
@@ -101,6 +129,15 @@ def parse_args(argv=None):
     p.add_argument("--cache_poly", default=None,
                    help="npz whose 'coefficients' (highest degree first) rescale the "
                         "cache distance")
+    p.add_argument("--prompt", default=None,
+                   help="text prompt; with --tokenizer_dir it is encoded on the card")
+    p.add_argument("--tokenizer_dir", default=None,
+                   help="dir with a HuggingFace fast tokenizer.json for the text encoder")
+    p.add_argument("--text_encoder_checkpoint", default=None,
+                   help="UMT5 (wan) / Llama (hunyuan) transformers weights")
+    p.add_argument("--clip_tokenizer_dir", default=None,
+                   help="CLIP's tokenizer.json dir (hunyuan; default --tokenizer_dir)")
+    p.add_argument("--clip_checkpoint", default=None, help="CLIP-L transformers weights")
     p.add_argument("--prompt_embeds", default=None, help=".npy UMT5 states (L, text_dim)")
     p.add_argument("--image_embeds", default=None,
                    help="I2V (Wan): .npy / .pt CLIP image tokens (257, image_dim)")
@@ -114,7 +151,13 @@ def parse_args(argv=None):
     p.add_argument("--scheduler", default=None, choices=["unipc", "euler"],
                    help="default: unipc for wan, euler for hunyuan")
     p.add_argument("--seed", type=int, default=1234)
-    p.add_argument("--output", default="results/sample.npy")
+    p.add_argument("--output", default="results/sample.npy",
+                   help=".npy latents, or with --decode the video: .mp4 / .gif / .npy frames")
+    p.add_argument("--decode", action="store_true", help="decode through the model's VAE")
+    p.add_argument("--vae_tiling", action="store_true",
+                   help="decode in blended tiles (models/vae_tiling.py)")
+    p.add_argument("--vae_checkpoint", default=None,
+                   help="diffusers AutoencoderKLWan / AutoencoderKLHunyuanVideo weights")
     args = p.parse_args(argv)
     if args.dtype == "fp32" and args.device != "cpu":
         p.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
@@ -200,6 +243,103 @@ class SampleResult:
     routing: list = dataclasses.field(default_factory=list)
     # (step, arm, skipped) per forward with the step cache on
     cache_log: list = dataclasses.field(default_factory=list)
+    encode_s: float = 0.0  # the prompt's encode (--prompt), synchronised
+    decode_s: float = 0.0  # the VAE decode (--decode), synchronised
+    video: Optional[Path] = None  # the file --decode wrote
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _free(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _timed_encode(device, fn):
+    """(fn()'s result, its seconds), synchronised, under inference mode."""
+    _sync(device)
+    t0 = time.time()
+    with torch.inference_mode():
+        out = fn()
+    _sync(device)
+    dt = time.time() - t0
+    print(f"[sample] prompt encoded in {dt:.3f}s", flush=True)
+    return out, dt
+
+
+def encode_wan_prompt(args, model_cfg, dtype, device):
+    """(UMT5 states (1, text_len, text_dim), encode seconds): UMT5-XXL where
+    the DiT takes 4096-wide text, else the JAX CLI's tiny encoder; the
+    encoder is freed before returning."""
+    if model_cfg.text_dim == 4096:
+        cfg = UMT5Config()
+    else:
+        cfg = UMT5Config(vocab_size=512, d_model=model_cfg.text_dim, d_kv=16,
+                         num_heads=max(1, model_cfg.text_dim // 16),
+                         d_ff=2 * model_cfg.text_dim, num_layers=2)
+    tok = text_io.load_tokenizer(args.tokenizer_dir)
+    enc = UMT5Encoder(cfg, dtype=dtype, device=device, seed=args.seed)
+    if args.text_encoder_checkpoint:
+        load_umt5_torch_weights(enc, args.text_encoder_checkpoint)
+    else:
+        print("[sample] WARNING: encoding with random UMT5 weights "
+              "(--text_encoder_checkpoint not given)", flush=True)
+    pe, dt = _timed_encode(device, lambda: text_io.encode_prompt_wan(
+        args.prompt, tok, enc, max_len=model_cfg.text_len))
+    del enc
+    _free(device)
+    return pe, dt
+
+
+def encode_hunyuan_prompt(args, model_cfg, dtype, device):
+    """((Llama states, mask, CLIP pooled), encode seconds): Llama-8B + CLIP-L
+    where the DiT takes 4096-wide text, else the JAX CLI's tiny encoders;
+    both freed before returning."""
+    if model_cfg.text_dim == 4096:
+        lcfg, ccfg = LlamaConfig(), CLIPTextConfig()
+    else:
+        lcfg = LlamaConfig(vocab_size=512, dim=model_cfg.text_dim, num_layers=2, num_heads=2,
+                           num_kv_heads=2, ffn_dim=2 * model_cfg.text_dim)
+        ccfg = CLIPTextConfig(vocab_size=512, dim=model_cfg.pooled_dim, num_layers=2,
+                              num_heads=2, ffn_dim=2 * model_cfg.pooled_dim, max_len=77)
+    ltok = text_io.load_tokenizer(args.tokenizer_dir)
+    ctok = text_io.load_tokenizer(args.clip_tokenizer_dir or args.tokenizer_dir)
+    llama = LlamaTextEncoder(lcfg, dtype=dtype, device=device, seed=args.seed)
+    clip = CLIPTextEncoder(ccfg, dtype=dtype, device=device, seed=args.seed + 1)
+    if args.text_encoder_checkpoint:
+        load_llama_torch_weights(llama, args.text_encoder_checkpoint)
+    if args.clip_checkpoint:
+        load_clip_text_torch_weights(clip, args.clip_checkpoint)
+    if not (args.text_encoder_checkpoint and args.clip_checkpoint):
+        print("[sample] WARNING: encoding with random text-encoder weights", flush=True)
+    out, dt = _timed_encode(device, lambda: text_io.encode_prompt_hunyuan(
+        args.prompt, ltok, llama, ctok, clip, max_len=model_cfg.text_len))
+    del llama, clip
+    _free(device)
+    return out, dt
+
+
+def _vae_note(applied) -> None:
+    print(f"[sample] VAE imported ({len(applied)} tensors)", flush=True)
+
+
+def wan_decoder(args, dtype, device):
+    """latents -> pixels through Wan 2.1's VAE (every Wan model's, as the
+    JAX CLI has it), whole-clip or tiled."""
+    vae = WanVAE(WAN_VAE, dtype=dtype, device=device, seed=args.seed)
+    if args.vae_checkpoint:
+        _vae_note(load_wan_vae_torch_weights(vae, args.vae_checkpoint)[0])
+
+    def decode(latents):
+        z = vae.denormalize_latents(latents)
+        if args.vae_tiling:
+            return tiled_decode(lambda zz: vae.decode(zz, denormalize=False), z)
+        return vae.decode(z, denormalize=False)
+
+    return decode
 
 
 def main(argv=None) -> SampleResult:
@@ -234,6 +374,9 @@ def main(argv=None) -> SampleResult:
                         else load_router_checkpoint(rp)[0])
     print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}"
           f"{_quant_note(args)}", flush=True)
+    pe, encode_s = None, 0.0
+    if args.prompt and args.tokenizer_dir:
+        pe, encode_s = encode_wan_prompt(args, model_cfg, dtype, device)
 
     t0 = time.time()
     qblocks = None
@@ -252,14 +395,16 @@ def main(argv=None) -> SampleResult:
     if router_state is not None:
         print(f"[sample] router loaded from {args.router_checkpoint}", flush=True)
     gen = torch.Generator(device=device)
-    if args.prompt_embeds:
+    if pe is not None:  # encoded from --prompt above
+        pass
+    elif args.prompt_embeds:
         pe = torch.from_numpy(load_embeds(args.prompt_embeds, model_cfg)).to(device)
     elif args.random_embeds:
         gen.manual_seed(args.seed + 1)
         pe = torch.randn((1, model_cfg.text_len, model_cfg.text_dim), generator=gen,
                          device=device)
     else:
-        raise SystemExit("need --prompt_embeds or --random_embeds")
+        raise SystemExit(NEED_CONDITIONING)
     ne = torch.zeros_like(pe)  # the unconditional (empty) prompt
     pipe = WanT2VPipeline(model, attn_cfg=attn_cfg, act_scales=act_scales,
                           quantized_blocks=qblocks)
@@ -268,8 +413,7 @@ def main(argv=None) -> SampleResult:
     img = None
     if image_embeds is not None:
         img = torch.from_numpy(image_embeds).to(device=device, dtype=dtype)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     build_s = time.time() - t0
     print(f"[sample] model built in {build_s:.1f}s", flush=True)
 
@@ -281,7 +425,8 @@ def main(argv=None) -> SampleResult:
     t0 = time.time()
     final = pipe(latents, pe, ne, sampling=sampling, routing=routing, image_embeds=img,
                  cache_log=cache_log)
-    return _finish(args, device, final, build_s, t0, routing, cache_log)
+    return _finish(args, device, final, build_s, t0, routing, cache_log, encode_s,
+                   wan_decoder(args, dtype, device) if args.decode else None)
 
 
 def _cache_kw(args) -> dict:
@@ -299,11 +444,11 @@ def _quant_note(args) -> str:
 
 
 def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
-            routing: list, cache_log: list) -> SampleResult:
+            routing: list, cache_log: list, encode_s: float, decode=None) -> SampleResult:
     """Synchronise, report the denoise time, the routing and the step
-    cache's skips, write the latents."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    cache's skips; write the latents, or with ``decode`` (latents ->
+    pixels) the video."""
+    _sync(device)
     dt = time.time() - t0
     print(f"[sample] denoised in {dt:.2f}s ({dt / args.num_inference_steps:.3f}s/step)",
           flush=True)
@@ -315,11 +460,24 @@ def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
         heads = np.bincount(np.concatenate([r.reshape(-1) for r in routing]), minlength=3)
         print(f"[sample] heads routed over {len(routing)} forwards: full {heads[0]}, "
               f"lowres {heads[1]}, sta {heads[2]}", flush=True)
+    res = SampleResult(final, build_s, dt, args.num_inference_steps, routing, cache_log,
+                       encode_s)
+    if decode is not None:
+        t1 = time.time()
+        with torch.inference_mode():
+            video = decode(final)
+        _sync(device)
+        res.decode_s = time.time() - t1
+        print(f"[sample] decoded {tuple(video.shape)} in {res.decode_s:.2f}s"
+              f"{' (tiled)' if args.vae_tiling else ''}", flush=True)
+        res.video = save_video(video[0].float().cpu().numpy(), args.output)
+        print(f"[sample] wrote {res.video}", flush=True)
+        return res
     out = Path(args.output).with_suffix(".npy")
     out.parent.mkdir(parents=True, exist_ok=True)
     np.save(out, final.cpu().numpy())
     print(f"[sample] wrote {out}", flush=True)
-    return SampleResult(final, build_s, dt, args.num_inference_steps, routing, cache_log)
+    return res
 
 
 def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: str,
@@ -338,6 +496,9 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
                                             model_cfg.single_layers)
     print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}"
           f"{_quant_note(args)}", flush=True)
+    text, encode_s = None, 0.0
+    if args.prompt and args.tokenizer_dir:
+        (text, mask, pooled), encode_s = encode_hunyuan_prompt(args, model_cfg, dtype, device)
     t0 = time.time()
     qblocks = None
     if bits:
@@ -357,7 +518,9 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
         print(f"[sample] router loaded from {args.router_checkpoint}", flush=True)
     gen = torch.Generator(device=device)
     lt = model_cfg.text_len
-    if args.prompt_embeds:
+    if text is not None:  # encoded from --prompt above
+        pass
+    elif args.prompt_embeds:
         text = torch.from_numpy(load_embeds(args.prompt_embeds, model_cfg)).to(device)
         pooled = text[:, 0, :model_cfg.pooled_dim]
         mask = (text != 0).any(dim=-1)
@@ -367,13 +530,18 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
         pooled = torch.randn((1, model_cfg.pooled_dim), generator=gen, device=device)
         mask = torch.ones((1, lt), dtype=torch.bool, device=device)  # all valid, as in JAX
     else:
-        raise SystemExit("need --prompt_embeds or --random_embeds")
-    pipe = HunyuanT2VPipeline(model, attn_cfg=attn_cfg, act_scales=act_scales,
+        raise SystemExit(NEED_CONDITIONING)
+    vae = None
+    if args.decode:
+        vae = HunyuanVAE(HUNYUAN_VAE if args.model == "hunyuan-13B" else HUNYUAN_VAE_TINY,
+                         dtype=dtype, device=device, seed=args.seed)
+        if args.vae_checkpoint:
+            _vae_note(load_hunyuan_vae_torch_weights(vae, args.vae_checkpoint)[0])
+    pipe = HunyuanT2VPipeline(model, attn_cfg=attn_cfg, vae=vae, act_scales=act_scales,
                               quantized_blocks=qblocks)
     latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
                                    args.height, args.width)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _sync(device)
     build_s = time.time() - t0
     print(f"[sample] model built in {build_s:.1f}s; {int(mask.sum())} of {lt} text tokens "
           "valid", flush=True)
@@ -385,7 +553,8 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
     t0 = time.time()
     final = pipe(latents, text, mask, pooled, sampling=sampling, routing=routing,
                  cache_log=cache_log)
-    return _finish(args, device, final, build_s, t0, routing, cache_log)
+    return _finish(args, device, final, build_s, t0, routing, cache_log, encode_s,
+                   (lambda x: pipe.decode(x, tiled=args.vae_tiling)) if vae else None)
 
 
 if __name__ == "__main__":

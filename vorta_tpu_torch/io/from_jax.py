@@ -1,4 +1,5 @@
-"""Carry a JAX WanModel's or HunyuanModel's weights into the port's model.
+"""Carry a JAX WanModel's or HunyuanModel's weights into the port's model
+(and, through ``module_state_from_jax``, a JAX text encoder's or VAE's).
 
 Input: the JAX model state flattened to ``jax.tree_util.keystr`` paths, e.g.
 ``"['blocks']['attn1']['to_q']['kernel'].value"`` -> numpy array (the key
@@ -168,6 +169,30 @@ def hunyuan_state_from_jax(flat: dict, cfg, meta: bool = False) -> dict:
     state = _flat_to_state(flat, stacks, _meta if meta else _to_tensor)
     _fuse_hunyuan(state, stacks)
     return _check_against(state, HunyuanModel(cfg, device="meta").state_dict())
+
+
+def _convert_leaf(parts: list, arr: np.ndarray) -> tuple:
+    """One leaf of a JAX text encoder or VAE -> (port name, array): Flax
+    ``kernel`` (in, out) -> Linear ``weight`` (out, in), the NDHWC Conv
+    kernel (kt, kh, kw, in, out) -> Conv3d ``weight`` (out, in, kt, kh, kw),
+    ``embedding`` -> nn.Embedding's ``weight``; every other leaf as it is."""
+    if parts[-1] == "kernel":
+        arr = np.transpose(arr, (4, 3, 0, 1, 2)) if arr.ndim == 5 else np.swapaxes(arr, -1, -2)
+        parts = parts[:-1] + ["weight"]
+    elif parts[-1] == "embedding":
+        parts = parts[:-1] + ["weight"]
+    return ".".join(parts), arr
+
+
+def module_state_from_jax(flat: dict, module: torch.nn.Module) -> dict:
+    """{keystr path: array} of a JAX UMT5Encoder, LlamaTextEncoder,
+    CLIPTextEncoder, WanVAE or HunyuanVAE -> the state_dict of its port
+    namesake ``module`` (built, any device), names and shapes checked."""
+    state = {}
+    for key, arr in flat.items():
+        name, a = _convert_leaf(_parts(key), np.asarray(arr))
+        state[name] = _to_tensor(a)
+    return _check_against(state, module.state_dict())
 
 
 ROUTER_KEYS = {

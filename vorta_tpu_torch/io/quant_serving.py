@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -149,14 +150,34 @@ def _report(name: str, stacks, bits: int) -> None:
           f"quantized to int{bits}: {nbytes / 2**30:.2f} GiB", flush=True)
 
 
+def _router_state(router_checkpoint, router_state, read):
+    """The routers to merge: ``router_state`` (port-named tensors) or those
+    ``read`` takes from the ``router_checkpoint`` path; not both."""
+    if router_checkpoint is None:
+        return router_state
+    if router_state is not None:
+        raise ValueError("pass router_checkpoint or router_state, not both")
+    return read(router_checkpoint)
+
+
 def build_quantized_wan(cfg, bits: int = 4, checkpoint: Optional[str] = None,
-                        router_state: Optional[dict] = None, seed: int = 0,
-                        dtype=torch.bfloat16, device=None):
+                        router_checkpoint: Optional[str] = None, seed: int = 0,
+                        dtype=torch.bfloat16, device=None, router_state: Optional[dict] = None):
     """(depth-1 WanModel, quantized ``cfg.num_layers``-block BlockStack):
     the blocks of the diffusers ``checkpoint``, else drawn from ``seed``;
-    ``router_state``: a router checkpoint's port-named routers."""
+    the routers of ``router_checkpoint`` (a reference router file or a step
+    dir of the port's trainer), or ``router_state``, a router checkpoint's
+    port-named routers."""
     from ..models.wan import WanModel
+    from .checkpoint import load_router_checkpoint
+    from .torch_import import wan_router_state
 
+    def read(path):
+        if Path(path).suffix in (".pt", ".bin", ".safetensors"):
+            return wan_router_state(path, cfg.num_layers)
+        return load_router_checkpoint(path)[0]
+
+    router_state = _router_state(router_checkpoint, router_state, read)
     device = resolve_device(device)
     model = WanModel(dataclasses.replace(cfg, num_layers=1), dtype=dtype, device=device,
                      seed=seed)
@@ -173,12 +194,18 @@ def build_quantized_wan(cfg, bits: int = 4, checkpoint: Optional[str] = None,
 
 
 def build_quantized_hunyuan(cfg, bits: int = 4, checkpoint: Optional[str] = None,
-                            router_state: Optional[dict] = None, seed: int = 0,
-                            dtype=torch.bfloat16, device=None):
+                            router_checkpoint: Optional[str] = None, seed: int = 0,
+                            dtype=torch.bfloat16, device=None,
+                            router_state: Optional[dict] = None):
     """(depth-(1, 1) HunyuanModel, (dual, single) quantized BlockStacks), as
-    ``build_quantized_wan`` (the single stack drawn from ``seed + 1``)."""
+    ``build_quantized_wan`` (the single stack drawn from ``seed + 1``;
+    ``router_checkpoint`` a reference router file)."""
     from ..models.hunyuan import HunyuanModel
+    from .torch_import import hunyuan_router_state
 
+    router_state = _router_state(
+        router_checkpoint, router_state,
+        lambda path: hunyuan_router_state(path, cfg.dual_layers, cfg.single_layers))
     device = resolve_device(device)
     model = HunyuanModel(dataclasses.replace(cfg, dual_layers=1, single_layers=1), dtype=dtype,
                          device=device, seed=seed)

@@ -1,5 +1,6 @@
 """Import diffusers / reference PyTorch checkpoints into the port's models
-(counterpart of vorta_tpu/io/torch_import.py, its DiT and router maps).
+(counterpart of vorta_tpu/io/torch_import.py: its DiT, router, text-encoder
+and VAE maps).
 
 The maps produce the port's own state dict from a diffusers
 ``WanTransformer3DModel`` or ``HunyuanVideoTransformer3DModel`` state dict:
@@ -26,6 +27,11 @@ HunyuanVideo, a ``module.`` prefix stripped) load the same way.  Each
 loader returns ``(applied, missing)``: the port parameters set, and the
 mapped names the model does not have (an I2V checkpoint's image branch in a
 T2V model, say), as the JAX loaders do; a shape that does not match raises.
+
+The text encoders' maps (transformers UMT5 / Llama / CLIP state dicts) and
+the VAEs' (diffusers AutoencoderKLWan / AutoencoderKLHunyuanVideo) rename
+keys onto the port's modules, keeping nn.Linear's (out, in) layout; the
+VAE loaders raise where a mapped key has no parameter, as JAX's do.
 
 ``load_state_dict`` reads one ``.safetensors`` or ``.pt`` / ``.bin`` file, or
 a directory of diffusers shards, to torch tensors in their stored dtype.
@@ -496,3 +502,227 @@ def load_hunyuan_router_torch_checkpoint(model, path):
     patched model: 20 dual and 40 single blocks)."""
     return apply_state(model, hunyuan_router_state(path, len(model.dual_blocks),
                                                    len(model.single_blocks)))
+
+
+# --- text encoders (transformers UMT5EncoderModel, LlamaModel, CLIPTextModel) -----------
+
+
+def _prefixed(sd, prefix: str) -> str:
+    """``prefix`` where some key starts with it, else ''."""
+    return prefix if any(k.startswith(prefix) for k in sd) else ""
+
+
+def umt5_state_dict_to_tree(sd: Dict[str, torch.Tensor], num_layers: int) -> dict:
+    """transformers UMT5EncoderModel state dict -> the port's UMT5Encoder's
+    (T5 linears have no bias; the token table is ``shared.weight`` or the
+    encoder's ``embed_tokens.weight``)."""
+    pref = _prefixed(sd, "encoder.")
+    emb = sd["shared.weight"] if "shared.weight" in sd else sd[f"{pref}embed_tokens.weight"]
+    tree = {"embed.weight": emb, "final_norm.weight": sd[f"{pref}final_layer_norm.weight"]}
+    for i in range(num_layers):
+        p, q = f"{pref}block.{i}", f"blocks.{i}"
+        att, ff = f"{p}.layer.0.SelfAttention", f"{p}.layer.1.DenseReluDense"
+        tree.update({
+            f"{q}.norm1.weight": sd[f"{p}.layer.0.layer_norm.weight"],
+            **{f"{q}.attn.{n}.weight": sd[f"{att}.{n}.weight"] for n in "qkvo"},
+            f"{q}.attn.rel_bias.weight": sd[f"{att}.relative_attention_bias.weight"],
+            f"{q}.norm2.weight": sd[f"{p}.layer.1.layer_norm.weight"],
+            **{f"{q}.ffn.{n}.weight": sd[f"{ff}.{n}.weight"] for n in ("wi_0", "wi_1", "wo")},
+        })
+    return tree
+
+
+def load_umt5_torch_weights(model, path):
+    return apply_state(model, umt5_state_dict_to_tree(load_state_dict(path),
+                                                      model.cfg.num_layers))
+
+
+def llama_state_dict_to_tree(sd: Dict[str, torch.Tensor], num_layers: int) -> dict:
+    """transformers LlamaModel state dict -> the port's LlamaTextEncoder's."""
+    pref = _prefixed(sd, "model.")
+    tree = {"embed_tokens.weight": sd[f"{pref}embed_tokens.weight"],
+            "norm.weight": sd[f"{pref}norm.weight"]}
+    for i in range(num_layers):
+        p, q = f"{pref}layers.{i}", f"layers.{i}"
+        tree.update({
+            f"{q}.input_layernorm.weight": sd[f"{p}.input_layernorm.weight"],
+            **{f"{q}.{n}.weight": sd[f"{p}.self_attn.{n}.weight"]
+               for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            f"{q}.post_attention_layernorm.weight": sd[f"{p}.post_attention_layernorm.weight"],
+            **{f"{q}.{n}.weight": sd[f"{p}.mlp.{n}.weight"]
+               for n in ("gate_proj", "up_proj", "down_proj")},
+        })
+    return tree
+
+
+def load_llama_torch_weights(model, path):
+    return apply_state(model, llama_state_dict_to_tree(load_state_dict(path),
+                                                       model.cfg.num_layers))
+
+
+def clip_text_state_dict_to_tree(sd: Dict[str, torch.Tensor], num_layers: int) -> dict:
+    """transformers CLIPTextModel state dict -> the port's CLIPTextEncoder's."""
+    pref = _prefixed(sd, "text_model.")
+    tree = {"token_embedding.weight": sd[f"{pref}embeddings.token_embedding.weight"],
+            "position_embedding": sd[f"{pref}embeddings.position_embedding.weight"],
+            **_layernorm(sd, f"{pref}final_layer_norm", "final_layer_norm")}
+    for i in range(num_layers):
+        p, q = f"{pref}encoder.layers.{i}", f"blocks.{i}"
+        tree.update({**_layernorm(sd, f"{p}.layer_norm1", f"{q}.layer_norm1"),
+                     **_layernorm(sd, f"{p}.layer_norm2", f"{q}.layer_norm2"),
+                     **_linear(sd, f"{p}.mlp.fc1", f"{q}.fc1"),
+                     **_linear(sd, f"{p}.mlp.fc2", f"{q}.fc2")})
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            tree.update(_linear(sd, f"{p}.self_attn.{n}", f"{q}.{n}"))
+    return tree
+
+
+def load_clip_text_torch_weights(model, path):
+    return apply_state(model, clip_text_state_dict_to_tree(load_state_dict(path),
+                                                           model.cfg.num_layers))
+
+
+# --- VAEs (diffusers AutoencoderKLWan, AutoencoderKLHunyuanVideo) ------------------------
+#
+# The key schema is the diffusers module layout as the JAX package documents it
+# (its io/torch_import.py): flat up_blocks / down_blocks lists of residual blocks
+# interleaved with resample modules for Wan, per-stage resnets / upsamplers for
+# HunyuanVideo.  Conv3d weights keep their layout; the diffusers 2-D resample convs
+# become 3-D with kt = 1, the 1x1 attention convs Linear weights.
+
+
+def _conv3d(sd, prefix: str, name: str) -> dict:
+    return {f"{name}.weight": sd[f"{prefix}.weight"], f"{name}.bias": sd[f"{prefix}.bias"]}
+
+
+def _conv2d_as3d(sd, prefix: str, name: str) -> dict:
+    """Conv2d (out, in, kh, kw) -> Conv3d (out, in, 1, kh, kw)."""
+    return {f"{name}.weight": sd[f"{prefix}.weight"].unsqueeze(2),
+            f"{name}.bias": sd[f"{prefix}.bias"]}
+
+
+def _conv1x1_as_linear(sd, prefix: str, name: str) -> dict:
+    """Conv2d 1x1 (out, in, 1, 1) -> Linear (out, in)."""
+    return {f"{name}.weight": sd[f"{prefix}.weight"][:, :, 0, 0],
+            f"{name}.bias": sd[f"{prefix}.bias"]}
+
+
+def _wan_vae_resblock(sd, p: str, q: str) -> dict:
+    blk = {f"{q}.norm1.gamma": sd[f"{p}.norm1.gamma"].reshape(-1),
+           **_conv3d(sd, f"{p}.conv1", f"{q}.conv1.conv"),
+           f"{q}.norm2.gamma": sd[f"{p}.norm2.gamma"].reshape(-1),
+           **_conv3d(sd, f"{p}.conv2", f"{q}.conv2.conv")}
+    if f"{p}.conv_shortcut.weight" in sd:
+        blk.update(_conv3d(sd, f"{p}.conv_shortcut", f"{q}.shortcut.conv"))
+    return blk
+
+
+def _wan_vae_mid(sd, p: str, q: str) -> dict:
+    att = f"{p}.mid_block.attentions.0"
+    return {**_wan_vae_resblock(sd, f"{p}.mid_block.resnets.0", f"{q}.mid_block1"),
+            f"{q}.mid_attn.norm.gamma": sd[f"{att}.norm.gamma"].reshape(-1),
+            **_conv1x1_as_linear(sd, f"{att}.to_qkv", f"{q}.mid_attn.to_qkv"),
+            **_conv1x1_as_linear(sd, f"{att}.proj", f"{q}.mid_attn.proj"),
+            **_wan_vae_resblock(sd, f"{p}.mid_block.resnets.1", f"{q}.mid_block2"),
+            **_conv3d(sd, f"{p}.conv_in", f"{q}.conv_in.conv"),
+            **_conv3d(sd, f"{p}.conv_out", f"{q}.conv_out.conv"),
+            f"{q}.norm_out.gamma": sd[f"{p}.norm_out.gamma"].reshape(-1)}
+
+
+def wan_vae_state_dict_to_tree(sd: Dict[str, torch.Tensor], cfg) -> dict:
+    """diffusers AutoencoderKLWan state dict -> the port's WanVAE's."""
+    n_res, n_stages = cfg.num_res_blocks, len(cfg.dim_mult)
+    tree = {**_wan_vae_mid(sd, "decoder", "decoder"), **_wan_vae_mid(sd, "encoder", "encoder")}
+    # decoder: a flat up_blocks list, per stage [res x (n_res + 1)] then an upsampler
+    k = 0
+    rev_tdown = list(reversed(cfg.temporal_downsample))
+    for i in range(n_stages):
+        q = f"decoder.stages.{i}"
+        for j in range(n_res + 1):
+            tree.update(_wan_vae_resblock(sd, f"decoder.up_blocks.{k}", f"{q}.blocks.{j}"))
+            k += 1
+        t_up = rev_tdown[i] if i < len(rev_tdown) else False
+        if t_up:
+            tree.update(_conv3d(sd, f"decoder.up_blocks.{k}.time_conv", f"{q}.t_up.conv.conv"))
+        if i != n_stages - 1:
+            tree.update(_conv2d_as3d(sd, f"decoder.up_blocks.{k}.resample.1", f"{q}.s_up.conv"))
+            k += 1
+        elif t_up:
+            k += 1
+    # encoder: a flat down_blocks list, per stage [res x n_res] then a resample
+    k = 0
+    for i in range(n_stages):
+        q = f"encoder.stages.{i}"
+        for j in range(n_res):
+            tree.update(_wan_vae_resblock(sd, f"encoder.down_blocks.{k}", f"{q}.blocks.{j}"))
+            k += 1
+        if i != n_stages - 1:
+            tree.update(_conv2d_as3d(sd, f"encoder.down_blocks.{k}.resample.1",
+                                     f"{q}.s_down.conv"))
+            if cfg.temporal_downsample[i] and f"encoder.down_blocks.{k}.time_conv.weight" in sd:
+                tree.update(_conv3d(sd, f"encoder.down_blocks.{k}.time_conv",
+                                    f"{q}.t_down.conv.conv"))
+            k += 1
+    return tree
+
+
+def _check_vae(name: str, applied_missing):
+    applied, missing = applied_missing
+    if missing:
+        raise ValueError(f"{name} import: {len(missing)} keys did not match the model (first "
+                         f"few: {missing[:8]}): the checkpoint layout differs from the "
+                         "documented diffusers schema")
+    return applied, missing
+
+
+def load_wan_vae_torch_weights(model, path):
+    """Import diffusers AutoencoderKLWan weights into models.wan_vae.WanVAE;
+    a mapped key the model lacks raises."""
+    tree = wan_vae_state_dict_to_tree(load_state_dict(path), model.cfg)
+    return _check_vae("WanVAE", apply_state(model, tree))
+
+
+def _hy_vae_resblock(sd, p: str, q: str) -> dict:
+    blk = {**_layernorm(sd, f"{p}.norm1", f"{q}.norm1"),
+           **_conv3d(sd, f"{p}.conv1", f"{q}.conv1.conv"),
+           **_layernorm(sd, f"{p}.norm2", f"{q}.norm2"),
+           **_conv3d(sd, f"{p}.conv2", f"{q}.conv2.conv")}
+    if f"{p}.conv_shortcut.weight" in sd:
+        blk.update(_conv3d(sd, f"{p}.conv_shortcut", f"{q}.shortcut.conv"))
+    return blk
+
+
+def _hy_vae_mid(sd, p: str, q: str) -> dict:
+    att = f"{p}.mid_block.attentions.0"
+    return {**_hy_vae_resblock(sd, f"{p}.mid_block.resnets.0", f"{q}.mid_block1"),
+            **_layernorm(sd, f"{att}.group_norm", f"{q}.mid_attn.norm"),
+            f"{q}.mid_attn.to_qkv.weight": torch.cat(
+                [sd[f"{att}.to_{n}.weight"] for n in "qkv"]),
+            f"{q}.mid_attn.to_qkv.bias": torch.cat([sd[f"{att}.to_{n}.bias"] for n in "qkv"]),
+            **_linear(sd, f"{att}.to_out.0", f"{q}.mid_attn.proj"),
+            **_hy_vae_resblock(sd, f"{p}.mid_block.resnets.1", f"{q}.mid_block2"),
+            **_conv3d(sd, f"{p}.conv_in", f"{q}.conv_in.conv"),
+            **_conv3d(sd, f"{p}.conv_out", f"{q}.conv_out.conv"),
+            **_layernorm(sd, f"{p}.conv_norm_out", f"{q}.norm_out")}
+
+
+def hunyuan_vae_state_dict_to_tree(sd: Dict[str, torch.Tensor], cfg) -> dict:
+    """diffusers AutoencoderKLHunyuanVideo state dict -> the port's HunyuanVAE's."""
+    tree = {**_hy_vae_mid(sd, "decoder", "decoder"), **_hy_vae_mid(sd, "encoder", "encoder")}
+    sides = (("decoder", "up_blocks", cfg.layers_per_block + 1, "upsamplers", "up"),
+             ("encoder", "down_blocks", cfg.layers_per_block, "downsamplers", "down"))
+    for side, blocks, n_res, resample, name in sides:
+        for i in range(len(cfg.base_dims)):
+            p, q = f"{side}.{blocks}.{i}", f"{side}.stages.{i}"
+            for j in range(n_res):
+                tree.update(_hy_vae_resblock(sd, f"{p}.resnets.{j}", f"{q}.blocks.{j}"))
+            if f"{p}.{resample}.0.conv.weight" in sd:
+                tree.update(_conv3d(sd, f"{p}.{resample}.0.conv", f"{q}.{name}.conv.conv"))
+    return tree
+
+
+def load_hunyuan_vae_torch_weights(model, path):
+    """Import diffusers AutoencoderKLHunyuanVideo weights into
+    models.hunyuan_vae.HunyuanVAE; a mapped key the model lacks raises."""
+    tree = hunyuan_vae_state_dict_to_tree(load_state_dict(path), model.cfg)
+    return _check_vae("HunyuanVAE", apply_state(model, tree))

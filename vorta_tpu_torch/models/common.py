@@ -88,15 +88,19 @@ class RMSNorm(nn.Module):
         return (xf * rms * self.weight[None]).to(x.dtype)
 
 
-def sinusoidal_timestep_embedding(t: torch.Tensor, dim: int,
-                                  max_period: float = 10000.0) -> torch.Tensor:
-    """diffusers get_timestep_embedding with flip_sin_to_cos, shift 0:
-    t (B,) -> [cos, sin] (B, dim) f32; dim is even for every Wan config."""
+def sinusoidal_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
+                                  flip_sin_to_cos: bool = True,
+                                  downscale_freq_shift: float = 0.0) -> torch.Tensor:
+    """diffusers get_timestep_embedding: t (B,) -> (B, dim) f32, [cos, sin]
+    with ``flip_sin_to_cos`` (the models' default) else [sin, cos], an odd
+    ``dim`` padded with a zero column."""
     half = dim // 2
     exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device)
-    freqs = torch.exp(exponent / half)
+    freqs = torch.exp(exponent / (half - downscale_freq_shift))
     args = t.float()[:, None] * freqs[None, :]
-    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    return F.pad(emb, (0, 1)) if dim % 2 else emb
 
 
 class TimestepEmbedding(nn.Module):

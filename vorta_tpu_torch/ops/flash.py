@@ -94,13 +94,14 @@ def dense_tables(n_q_blocks: int, n_kv_blocks: int) -> BlockTables:
     return BlockTables(kv_index=kv_index, kv_count=kv_count)
 
 
-def tables_from_block_mask(block_mask: np.ndarray) -> BlockTables:
-    """block_mask: (nq, nkv) or (H, nq, nkv) bool."""
+def tables_from_block_mask(block_mask: np.ndarray, pad_to: Optional[int] = None) -> BlockTables:
+    """block_mask: (nq, nkv) or (H, nq, nkv) bool; ``pad_to``: the tables'
+    width (default: the most kv blocks a q block sees)."""
     from ..geometry import block_mask_to_tables
 
     if block_mask.ndim == 2:
         block_mask = block_mask[None]
-    width = max(1, int(block_mask.sum(axis=-1).max()))
+    width = pad_to if pad_to is not None else max(1, int(block_mask.sum(axis=-1).max()))
     idx_list, cnt_list = [], []
     for hm in block_mask:
         idx, cnt = block_mask_to_tables(hm, pad_to=width)

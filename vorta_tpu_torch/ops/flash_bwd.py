@@ -41,6 +41,7 @@ from . import _build
 from .flash import WGMMA_TILE, wgmma_path
 
 NEG_INF = float(-1e30)
+POS_BIG = float(1e30)  # the lse of a row that sees no key (ops/flash.py)
 LOG2E = 1.4426950408889634
 
 

@@ -55,7 +55,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash import LOG2E, _kv_column_limit, refuse_unported, wgmma_path
+from .flash import LOG2E, NEG_INF, _kv_column_limit, refuse_unported, wgmma_path
 
 NEG = -1e30
 SOFTMAXES = ("fast", "stable")

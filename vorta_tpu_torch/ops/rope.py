@@ -74,6 +74,16 @@ def permute_qk_to_half(arr: np.ndarray, head_dim: int, axis: int = -1) -> np.nda
     return np.take(arr, idx, axis=axis)
 
 
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs (x[2k], x[2k+1]) of the last dim of (..., S, D)
+    in f32, diffusers' layout: out[2k] = x[2k] cos_k - x[2k+1] sin_k;
+    out[2k+1] = x[2k] sin_k + x[2k+1] cos_k.  cos / sin: (S, D // 2)."""
+    xf = x.float()
+    even, odd = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([even * cos - odd * sin, even * sin + odd * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
 def apply_rope_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate contiguous halves of the last dim of (..., S, D) in f32:
     out[k] = x[k] cos_k - x[k+D/2] sin_k;  out[k+D/2] = x[k] sin_k + x[k+D/2] cos_k."""

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .flash import LOG2E, BlockTables
+from .flash import LOG2E, NEG_INF, BlockTables  # noqa: F401  (NEG_INF public, as in JAX)
 from .flash_manual import _bias_row, _prescale
 
 NEG = -1e30

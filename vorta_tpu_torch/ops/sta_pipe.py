@@ -64,6 +64,7 @@ import torch
 
 from ..geometry import row_starts, w_window_starts, window_starts
 from . import _build
+from .flash import LOG2E, NEG_INF  # noqa: F401  (public here, as in the JAX package)
 from .flash_manual import _prescale, check_int8_qk, qk_factor, scores_log2
 from .layout import tile_sequence, untile_sequence
 

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .flash import LOG2E, NEG_INF  # noqa: F401  (public here, as in the JAX package)
 from .sta_pipe import _text_tail
 from .sta_window import (
     check_window_dense,

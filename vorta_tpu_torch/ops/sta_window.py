@@ -43,7 +43,7 @@ import torch
 
 from ..geometry import window_starts  # noqa: F401  (public here, as in the JAX package)
 from . import _build
-from .flash import LOG2E
+from .flash import LOG2E, NEG_INF  # noqa: F401  (NEG_INF public here, as in JAX)
 from .layout import tile_sequence, untile_sequence
 from .sta_pipe import (
     WALK_BN,

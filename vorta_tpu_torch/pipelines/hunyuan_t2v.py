@@ -16,7 +16,9 @@ expert ids appended to it.  The quantized serving options
 forward, as in pipelines/wan_t2v.py, and so does the step cache
 (``cache_threshold``, ``cache_warmup``, ``cache_coefficients``: one cache
 per DiT evaluation stream, indicator temb; ``cache_log`` as there).
-Returns latents: the VAE decode and the mesh belong to later slices.
+Returns latents; ``decode`` turns them into pixels through the attached
+VAE (models/hunyuan_vae.py), whole-clip or tiled (models/vae_tiling.py).
+The mesh belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -53,12 +55,14 @@ class HunyuanT2VPipeline:
     """Latent-space T2V sampler on the model's device."""
 
     def __init__(self, model: HunyuanModel, attn_cfg: Optional[AttentionConfig] = None,
-                 act_scales: Optional[dict] = None, quantized_blocks=None):
-        """``act_scales``: {site: (L,)} static int8 activation scales;
-        ``quantized_blocks``: the quantized stack the blocks run from
-        (io/quant_serving.py), with ``model`` its depth-1 model."""
+                 vae=None, act_scales: Optional[dict] = None, quantized_blocks=None):
+        """``vae``: the HunyuanVAE ``decode`` runs; ``act_scales``: {site:
+        (L,)} static int8 activation scales; ``quantized_blocks``: the
+        quantized stack the blocks run from (io/quant_serving.py), with
+        ``model`` its depth-1 model."""
         self.model = model
         self.attn_cfg = attn_cfg
+        self.vae = vae
         self.act_scales = act_scales
         self.quantized_blocks = quantized_blocks
 
@@ -69,6 +73,20 @@ class HunyuanT2VPipeline:
         shape = (batch, t, height // 8, width // 8, self.model.cfg.in_channels)
         return torch.randn(shape, generator=generator, dtype=torch.float32,
                            device=self.model.device)
+
+    def decode(self, latents: torch.Tensor, tiled: bool = False,
+               tile_latent=(16, 32, 32), overlap_latent=(4, 8, 8)) -> torch.Tensor:
+        """Latents (B, T, H/8, W/8, C) -> pixels (B, 4(T-1)+1, H, W, 3) through
+        the attached VAE, whole-clip or in blended tiles."""
+        if self.vae is None:
+            raise ValueError("pipeline constructed without a VAE")
+        z = self.vae.denormalize_latents(latents)
+        if tiled:
+            from ..models.vae_tiling import tiled_decode
+
+            return tiled_decode(lambda zz: self.vae.decode(zz, denormalize=False), z,
+                                tile_latent=tile_latent, overlap_latent=overlap_latent)
+        return self.vae.decode(z, denormalize=False)
 
     def init_carry(self, latents: torch.Tensor,
                    sampling: HunyuanSamplingConfig = HunyuanSamplingConfig()):
