@@ -251,7 +251,31 @@ Phases 1-6 and a-h run under torch.inference_mode(); the training phases do not:
      --num_latent_t 10 --video_height 720 --video_width 1280 --sta_tile 5 9 8
      (36,000 tokens, 360-token tiles) at full width and depth, 2 optimizer
      steps of 1 micro-step; s per micro-step, peak memory, exact launches.
-Then a line of the W8A8, static-scale and Wan-14B numbers, a {"kernels":
+HunyuanVideo router training and sequence parallelism (no new kernel):
+  10. Hunyuan gradient check: one router train step of a 2 + 2-block
+     HunyuanVideo-13B-width model (grid (6, 9, 8), one STA tile, 432 + 256
+     tokens) on the card (bf16, kernels) against the CPU (f32, plain
+     versions), same weights and draws: loss within 2%, router gradients rel
+     L2 <= 0.1; launches exact (the AdaLN norm and, in the teacher's
+     off_ref pass, the qk prologue: the soft experts and off_ref run the
+     plain chunked attention, as JAX runs its XLA reference).
+  11. main path, Hunyuan training: cli.train --model hunyuan-13B
+     --synthetic_data at full width and depth (20 + 40 blocks, 24 x 128
+     heads) at 432 x 768 x 21 frames = (6, 27, 48) = 7,776 + 256 tokens (the
+     (6, 9, 8) tile must divide the grid: 480 x 832 it does not), 2
+     optimizer steps of 1 micro-step, a checkpoint, resumed for a third; s
+     per micro-step, peak GiB, launches exact (hy_train_launches); then
+     cli.sample --resume_dir --router_checkpoint <step dir> serves those
+     routers for one routed Euler step, launches exact.
+  12. SP at world size 1 through an NCCL group on a file:// store, each run
+     bit for bit against the same run without a group, launches unchanged:
+     cli.sample --sp_size 1 --dp_size 1 (Wan-1.3B routed 480p x 77f, 2
+     UniPC steps with CFG), one HunyuanVideo-13B routed 720p x 45f Euler
+     step through the pipeline's sp_group, and a 2-block Wan train step
+     with sp_group and --shard_frozen's layer-sharded blocks (loss and
+     router gradients); the time of one all_to_all at Wan's q shape.
+Then a line of the W8A8, static-scale and Wan-14B numbers, a line of the
+Hunyuan training and world-size-1 SP numbers, a {"kernels":
 [...]} line (the prologue's row with its warp-per-row launches by path;
 unpool's with unpool_rows' and the first design's time; sta_diag's with
 sta_diag_wgmma's and its mma.sync kernel's times; sta_row's with
@@ -558,6 +582,10 @@ def main() -> int:
                                   check_train_grads(torch, grid=(10, 18, 16), tile=TILE_360)))
     launches_train, train = phase("train_main", run_train_main_path, torch, card)
     launches_720h, train_720h = phase("train_720p_half", run_train_720p_half, torch, card)
+    hy_grads = phase("hunyuan_train_grads", check_hunyuan_train_grads, torch)
+    launches_hy_train, hy_train = phase("hunyuan_train_main", run_hunyuan_train_main_path, torch,
+                                        card)
+    launches_sp, sp1 = phase("sp_world_1", run_sp_world_one, torch, card)
     kernels.append(headmap["copy_probe"])
 
     def by_path(name):
@@ -577,7 +605,11 @@ def main() -> int:
                 "i2v_480p_77f": i2v["launches"][name],
                 "token_replace_hunyuan_45f": token_rep["launches"][name],
                 "prompt_to_video_wan_480p_77f": p2v["wan"]["launches"][name],
-                "prompt_to_video_hunyuan_45f": p2v["hunyuan"]["launches"][name]}
+                "prompt_to_video_hunyuan_45f": p2v["hunyuan"]["launches"][name],
+                "train_hunyuan_13b": launches_hy_train["train"][name],
+                "train_hunyuan_13b_resumed": launches_hy_train["train_resumed"][name],
+                "sample_hunyuan_trained": launches_hy_train["sample"][name],
+                **{p: launches_sp[p][name] for p in launches_sp}}
 
     for k in kernels:
         name = k.pop("_counter")
@@ -637,6 +669,8 @@ def main() -> int:
         "prompt_to_video": {"tokenizer": p2v["tokenizer"],
                             **{k: {m: v for m, v in p2v[k].items() if m != "launches"}
                                for k in ("wan", "hunyuan")}}}}))
+    print(json.dumps({"hunyuan_training": {"gradient_check": hy_grads, **hy_train},
+                      "sp_world_1": sp1}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
@@ -675,7 +709,12 @@ def main() -> int:
           f"{p2v['wan']['s_per_step']:.3f} s per step, decode {p2v['wan']['decode_s']:.3f} s; "
           f"HunyuanVideo-13B 720p x 45f encode {p2v['hunyuan']['encode_s']:.3f} s, "
           f"{p2v['hunyuan']['s_per_step']:.3f} s per step, tiled decode "
-          f"{p2v['hunyuan']['decode_s']:.3f} s; "
+          f"{p2v['hunyuan']['decode_s']:.3f} s; HunyuanVideo-13B training (6, 27, 48) "
+          f"{hy_train['micro_s']:.3f} s per micro-step, peak {hy_train['max_memory_gib']:.2f} "
+          f"GiB; SP at world size 1: Wan routed 480p x 77f {sp1['wan_sp_s_per_step']:.3f} s per "
+          f"step (no group {sp1['wan_s_per_step']:.3f}), HunyuanVideo 720p x 45f "
+          f"{sp1['hy_sp_s_per_step']:.3f} s per Euler step (no group "
+          f"{sp1['hy_s_per_step']:.3f}), all_to_all share {sp1['wan_all_to_all_share']:.4f}; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
           f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
@@ -4868,6 +4907,324 @@ def run_sta_diag_path(torch, card: str):
         raise RuntimeError(f"sta_diag tool: times {times}, launches {launches} (want {want})")
     log(f"sta_diag tool on {card}: ms per call {times}; launches {launches['sta_diag']}")
     return launches, times
+
+
+# ---- HunyuanVideo router training and sequence parallelism -----------------------------
+
+# the trainer's HunyuanVideo-13B geometry here: 432 x 768 x 21 frames = (6, 27, 48) =
+# 7,776 video tokens, which the (6, 9, 8) tile and the (2, 3, 2) low-res window divide
+# (they do not divide the 480 x 832 grids (5 or 20, 30, 52))
+HY_TRAIN_GRID = (6, 27, 48)
+HY_TRAIN_ARGS = ["--model", "hunyuan-13B", "--synthetic_data", "--num_latent_t", "6",
+                 "--video_height", "432", "--video_width", "768"]
+
+
+def hy_train_launches(dual: int, single: int) -> dict:
+    """Kernel launches of one HunyuanVideo router-training micro-step (soft
+    student, the teacher in "off_ref", remat), derived from the graph: the
+    AdaLN norm 4 per dual and 1 per single block in the student's forward,
+    again in its recompute and in the teacher's forward, and once in each
+    stream's head (the token refiner's norms are plain LayerNorms); the qk
+    prologue once per block in the teacher (soft keeps it unfused, as JAX's
+    gate), on the warp-per-row kernel; no attention kernel: the soft
+    experts and off_ref run the plain chunked attention, as JAX runs its
+    XLA reference there."""
+    from vorta_tpu_torch.ops import _build
+
+    n = 4 * dual + single
+    return {**dict.fromkeys(_build.KERNELS, 0), "fused_norm": 3 * n + 2,
+            "prologue": dual + single, "prologue_rows": dual + single}
+
+
+def check_hunyuan_train_grads(torch, grid=(6, 9, 8)) -> dict:
+    """One router train step of a 2 + 2-block HunyuanVideo-13B-width model:
+    the card (bf16, kernels) against the CPU (f32, plain versions), the
+    same weights and draws; grid (6, 9, 8), one (6, 9, 8) tile: 432 video +
+    256 text tokens (83 valid).  Loss within 2%, router gradients rel L2 <=
+    0.1 (phase 8's gates); launches exact."""
+    import dataclasses
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.schedulers.flow_match import train_sigmas
+    from vorta_tpu_torch.training.step import (LossWeights, make_hunyuan_router_train_step,
+                                               router_partition)
+
+    cfg = dataclasses.replace(HUNYUAN_13B, dual_layers=2, single_layers=2)
+    attn = attention_config("hunyuan-13B", grid)
+    sig = train_sigmas(5.0)
+    step = make_hunyuan_router_train_step(attn, LossWeights(hidden_layer_distill=1.0),
+                                          timestep_table=sig * 1000.0, sigma_table=sig)
+    lat, text, mask, pooled = (x.cpu() for x in hy_inputs(torch, grid, torch.device("cuda"), 14))
+    eps = torch.randn(lat.shape, generator=torch.Generator().manual_seed(15))
+    t, s = torch.tensor([float(sig[300] * 1000.0)]), torch.tensor([float(sig[300])])
+    gpu = HunyuanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=13)
+    cpu = HunyuanModel(cfg, dtype=torch.float32, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(gpu.state_dict())  # the same (bf16-rounded) weights in f32
+
+    def run(model, dev):
+        routers = router_partition(model)
+        share, m = step.loss(model, *(x.to(dev) for x in (lat, text, mask, pooled, t, s, eps)))
+        grads = torch.autograd.grad(share, list(routers.values()))
+        return m["loss"].item(), torch.cat([x.flatten().float().cpu() for x in grads]), m
+
+    _build.reset_launches()
+    loss_g, grads_g, m = run(gpu, "cuda")
+    launches = dict(_build.launches)
+    del gpu
+    loss_c, grads_c, _ = run(cpu, "cpu")
+    expected = hy_train_launches(2, 2)
+    if launches != expected:
+        raise RuntimeError(f"Hunyuan gradient check: launches {launches} != {expected}")
+    rel_loss = abs(loss_g - loss_c) / abs(loss_c)
+    rel = ((grads_g - grads_c).norm() / grads_c.norm()).item()
+    log(f"Hunyuan gradient check (2 + 2 blocks, 13B widths, {grid} = {attn.seq_len} + 256 "
+        f"tokens, tile {attn.sta_tile}, t = {t.item():.1f}): loss card {loss_g:.6f} vs CPU "
+        f"{loss_c:.6f} (rel {rel_loss:.2e}, tolerance 0.02); router gradients rel L2 {rel:.4f} "
+        f"(tolerance 0.1; |grad| {grads_c.norm().item():.3e}); card metrics "
+        f"{ {k: round(float(v), 6) for k, v in m.items()} }; launches {launches} (exact)")
+    if not torch.isfinite(grads_g).all() or not (rel_loss <= 0.02 and rel <= 0.1):
+        raise RuntimeError("Hunyuan gradient check: the card's train step disagrees with the CPU's")
+    del cpu
+    return dict(rel_loss=rel_loss, grad_rel_l2=rel)
+
+
+def run_hunyuan_train_main_path(torch, card: str):
+    """cli.train --model hunyuan-13B at full width and depth (20 + 40 blocks,
+    24 x 128 heads), (6, 27, 48) = 7,776 video + 256 text tokens: 2
+    optimizer steps of 1 micro-step and a checkpoint, then resumed for a
+    third; launches exact; then cli.sample --resume_dir --router_checkpoint
+    reads that step dir and takes one routed Euler step at the same grid."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli import sample
+    from vorta_tpu_torch.cli.train import main as train_main
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.joint_experts import JointConfig, joint_sta_kernel
+    from vorta_tpu_torch.training.step import router_partition
+
+    out_dir = HERE / "results" / "port_smoke" / "train_hunyuan"  # listed in .gitignore
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = HY_TRAIN_ARGS + ["--gradient_accumulation_steps", "1", "--output_dir", str(out_dir)]
+    per_micro = hy_train_launches(20, 40)
+    runs = []
+    for extra, micro in ((["--max_train_steps", "2"], 2),
+                         (["--max_train_steps", "3", "--resume_from_checkpoint", "latest"], 1)):
+        _build.reset_launches()
+        res = train_main(base + extra)
+        launches = dict(_build.launches)
+        expected = {k: v * micro for k, v in per_micro.items()}
+        if launches != expected:
+            raise RuntimeError(f"Hunyuan training launches {launches} != expected {expected}")
+        if len(res.micro_s) != micro:
+            raise RuntimeError(f"Hunyuan training: {len(res.micro_s)} micro-steps, not {micro}")
+        runs.append((res, launches))
+        torch.cuda.empty_cache()
+    (first, launches), (second, launches_resumed) = runs
+    metrics = first.metrics + second.metrics
+    if not all(math.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")):
+        raise RuntimeError(f"Hunyuan training: non-finite metrics {metrics}")
+    moved = max((first.router_final[k] - first.router_init[k]).abs().max().item()
+                for k in first.router_init)
+    if not moved > 0 or (first.final_step, second.init_step, second.final_step) != (2, 2, 3):
+        raise RuntimeError(f"Hunyuan training: routers moved {moved}, steps {first.final_step}, "
+                           f"resumed at {second.init_step}, ended {second.final_step}")
+    if any(not torch.equal(second.router_init[k], first.router_final[k])
+           for k in first.router_final):
+        raise RuntimeError("Hunyuan training: the resumed run did not start from the checkpoint")
+    stats = dict(micro_s=first.micro_s[1], resumed_micro_s=second.micro_s[0],
+                 first_micro_s=first.micro_s[0],
+                 max_memory_gib=max(first.max_memory_bytes, second.max_memory_bytes) / 2**30)
+    log(f"Hunyuan training main path: HunyuanVideo-13B 20 + 40 blocks, {HY_TRAIN_GRID} = 7,776 "
+        f"+ 256 tokens, tile (6, 9, 8), soft routing + the off_ref teacher, remat: micro-steps "
+        f"{[round(x, 3) for x in first.micro_s + second.micro_s]} s (steady "
+        f"{stats['micro_s']:.3f} s per micro-step, the first warms up); peak memory "
+        f"{stats['max_memory_gib']:.2f} GiB; routers moved by up to {moved:.3e}; resumed at "
+        f"step {second.init_step} on {card}")
+    for m in metrics:
+        log(f"Hunyuan training step {m['step']}: " + ", ".join(
+            f"{k} {m[k]:.6g}" for k in ("loss", "l_fm", "l_reg", "l_last", "l_hidden",
+                                         "grad_norm", "timestep")))
+    log(f"Hunyuan training launches per micro-step {per_micro} (exact over 2 + 1 micro-steps)")
+    del first, second, runs
+    torch.cuda.empty_cache()
+
+    # serve the trained routers: the step dir and the run's config.json
+    ckpt = out_dir / "ckpt" / "step-000003"
+    seen = {}
+    real = sample.apply_router_state
+
+    def spy(model, state):
+        real(model, state)
+        seen["routers"] = {k: v.detach().cpu() for k, v in router_partition(model).items()}
+
+    sample.apply_router_state = spy
+    try:
+        _build.reset_launches()
+        with torch.inference_mode():
+            res = sample.main(["--model", "hunyuan-13B", "--random_embeds", "--num_frames", "21",
+                               "--height", "432", "--width", "768", "--num_inference_steps",
+                               "1", "--seed", "0", "--resume_dir", str(out_dir),
+                               "--router_checkpoint", str(ckpt), "--output",
+                               str(out_dir / "sample.npy")])
+    finally:
+        sample.apply_router_state = real
+    sample_launches = dict(_build.launches)
+    state = torch.load(ckpt / "router", weights_only=True)
+    if set(seen.get("routers", {})) != set(state) or any(
+            not torch.equal(seen["routers"][k], state[k]) for k in state):
+        raise RuntimeError("Hunyuan trained sample: the served routers are not the step dir's")
+    tables = np.stack(res.routing)
+    attn = sample.resolve_attention_config(sample.parse_args(
+        ["--model", "hunyuan-13B", "--resume_dir", str(out_dir)]), HY_TRAIN_GRID)
+    expected = hy_hard_launches(tables, sta_kernel=joint_sta_kernel(JointConfig(attn, HY_TEXT),
+                                                                    128, 2))
+    if sample_launches != expected or not torch.isfinite(res.latents).all():
+        raise RuntimeError(f"Hunyuan trained sample: launches {sample_launches} != {expected}, "
+                           f"finite {bool(torch.isfinite(res.latents).all())}")
+    served_on_wgmma(sample_launches, "Hunyuan trained sample")
+    heads = np.bincount(tables.reshape(-1), minlength=3)
+    stats["sample_s_per_step"] = res.denoise_s
+    log(f"Hunyuan trained sample: cli.sample --resume_dir --router_checkpoint {ckpt.name}, "
+        f"{HY_TRAIN_GRID} grid, 1 routed Euler step {res.denoise_s:.3f} s; heads full "
+        f"{heads[0]}, lowres {heads[1]}, sta {heads[2]}; launches {sample_launches} (exact)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"train": launches, "train_resumed": launches_resumed,
+            "sample": sample_launches}, stats
+
+
+def run_sp_world_one(torch, card: str):
+    """Sequence parallelism at world size 1 on the card, through a real NCCL
+    process group (a file:// store), each run against the same run without
+    a group, bit for bit, launches unchanged: cli.sample --sp_size 1
+    --dp_size 1, Wan-1.3B routed 480p x 77f, 2 UniPC steps with CFG; one
+    HunyuanVideo-13B routed 720p x 45f Euler step through the pipeline
+    (sp_group); a 2-block Wan-1.3B-width train step with sp_group and the
+    frozen blocks layer-sharded over the group (--shard_frozen), loss and
+    router gradients.  Also the all_to_all's time at Wan's shape."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from vorta_tpu_torch.cli.sample import attention_config, main as sample_main
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.parallel import all_to_all_heads_to_seq, make_mesh
+    from vorta_tpu_torch.parallel.fsdp import shard_frozen_blocks
+    from vorta_tpu_torch.pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
+    from vorta_tpu_torch.schedulers.flow_match import train_sigmas
+    from vorta_tpu_torch.training.step import LossWeights, make_router_train_step, router_partition
+
+    tmp = HERE / "results" / "port_smoke" / "sp1"  # listed in .gitignore
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    launches, stats = {}, {}
+
+    def wan_sample(extra, name):
+        _build.reset_launches()
+        with torch.inference_mode():
+            res = sample_main(["--model", "wan-1_3B", "--random_embeds", "--num_inference_steps",
+                               "2", "--seed", "0", "--output", str(tmp / f"{name}.npy")] + extra)
+        return res, dict(_build.launches)
+
+    # the Hunyuan model and inputs, built once for both runs
+    grid = GRID_HY_45F
+    hy = HunyuanModel(HUNYUAN_13B, dtype=torch.bfloat16, device="cuda", seed=0)
+    lat, text, mask, pooled = hy_inputs(torch, grid, torch.device("cuda"), 17)
+    hy_attn = attention_config("hunyuan-13B", grid)
+    hs = HunyuanSamplingConfig(num_inference_steps=1, routing_mode="hard")
+
+    def hy_step(group):
+        pipe = HunyuanT2VPipeline(hy, attn_cfg=hy_attn, sp_group=group)
+        routing = []
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            out = pipe(lat, text, mask, pooled, sampling=hs, routing=routing)
+        torch.cuda.synchronize()
+        return out, dict(_build.launches), time.time() - t0
+
+    # the 2-block Wan train step, no group first
+    cfg2 = dataclasses.replace(WAN_1_3B, num_layers=2)
+    wgrid = (4, 12, 8)
+    wattn = attention_config("wan-1_3B", wgrid)
+    sig = train_sigmas(5.0)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    wlat = torch.randn((1, wgrid[0], 2 * wgrid[1], 2 * wgrid[2], 16), generator=gen,
+                       device="cuda")
+    wctx = torch.randn((1, TEXT_LEN, cfg2.text_dim), generator=gen, device="cuda")
+    weps = torch.randn(wlat.shape, generator=gen, device="cuda")
+    wt = torch.tensor([float(sig[300] * 1000.0)], device="cuda")
+    ws = torch.tensor([float(sig[300])], device="cuda")
+
+    def train_step(model, group, sharded):
+        step = make_router_train_step(wattn, LossWeights(hidden_layer_distill=1.0),
+                                      timestep_table=sig * 1000.0, sigma_table=sig,
+                                      sp_group=group, frozen_sharded=sharded)
+        routers = router_partition(model)
+        _build.reset_launches()
+        share, m = step.loss(model, wlat, wctx, wt, ws, weps)
+        grads, m = step.reduce(list(torch.autograd.grad(share, list(routers.values()))), m)
+        torch.cuda.synchronize()
+        return m, torch.cat([g.flatten() for g in grads]), dict(_build.launches)
+
+    wan = WanModel(cfg2, dtype=torch.bfloat16, device="cuda", seed=19)
+    m_plain, g_plain, l_plain = train_step(wan, None, None)
+    ref_no_group, l_wan_plain = wan_sample([], "plain")
+    hy_step(None)  # warms the freshly built model up
+    hy_plain, l_hy_plain, hy_plain_s = hy_step(None)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(sp_size=1, dp_size=1)
+        # the communicator starts at its first collective: start it before the timed runs
+        dist.all_reduce(torch.ones(1, device="cuda"))
+        # cli.sample joins the group the process holds (--dp_size asks for the mesh)
+        with_group, l_wan_sp = wan_sample(["--sp_size", "1", "--dp_size", "1"], "sp1")
+        if not torch.equal(with_group.latents, ref_no_group.latents) or l_wan_sp != l_wan_plain:
+            raise RuntimeError(f"SP world 1: Wan cli.sample differs from the run without a group "
+                               f"(launches {l_wan_sp} vs {l_wan_plain})")
+        hy_sp, l_hy_sp, hy_sp_s = hy_step(mesh.sp_group)
+        if not torch.equal(hy_sp, hy_plain) or l_hy_sp != l_hy_plain:
+            raise RuntimeError(f"SP world 1: HunyuanVideo step differs (launches {l_hy_sp} vs "
+                               f"{l_hy_plain})")
+        served_on_wgmma(l_hy_sp, "SP world 1 HunyuanVideo 45f")
+        shard_frozen_blocks(wan.blocks, mesh.dp_group)
+        m_sp, g_sp, l_sp = train_step(wan, mesh.sp_group, mesh.dp_group)
+        same = all(torch.equal(m_sp[k], m_plain[k]) for k in m_plain) and torch.equal(g_sp, g_plain)
+        if not same or l_sp != l_plain:
+            raise RuntimeError(f"SP world 1: the sharded train step differs: {m_sp} vs {m_plain}, "
+                               f"launches {l_sp} vs {l_plain}")
+        # one all_to_all at Wan 480p x 77f's q shape: 4 a block (q, k, v, out), 30 blocks
+        x = torch.randn((1, 12, 31200, 128), device="cuda", dtype=torch.bfloat16)
+        a2a_ms = device_ms(torch, lambda: all_to_all_heads_to_seq(x, mesh.sp_group), 10)
+    finally:
+        dist.destroy_process_group()
+    wan_s, wan_sp_s = ref_no_group.denoise_s, with_group.denoise_s
+    stats = dict(wan_s_per_step=wan_s / 2, wan_sp_s_per_step=wan_sp_s / 2,
+                 hy_s_per_step=hy_plain_s, hy_sp_s_per_step=hy_sp_s, all_to_all_ms=a2a_ms,
+                 wan_all_to_all_share=4 * 30 * 4 * a2a_ms / 1e3 / wan_sp_s)
+    launches = {"sp1_wan_480p_77f": l_wan_sp, "sp1_hunyuan_45f": l_hy_sp,
+                "sp1_train_wan_2blk": l_sp}
+    log(f"SP at world size 1 (NCCL, file:// store) on {card}: Wan-1.3B cli.sample --sp_size 1 "
+        f"--dp_size 1 480p x 77f routed, 2 UniPC steps with CFG, {wan_sp_s / 2:.3f} s per step "
+        f"(no group {wan_s / 2:.3f}); HunyuanVideo-13B 720p x 45f routed, 1 Euler step "
+        f"{hy_sp_s:.3f} s (no group {hy_plain_s:.3f}); latents bit for bit, launches unchanged; "
+        f"the 2-block Wan train step with sp_group and the frozen blocks sharded over the "
+        f"group: loss {float(m_sp['loss']):.6f} and router gradients bit for bit; one "
+        f"all_to_all_heads_to_seq at (1, 12, 31200, 128) bf16 {a2a_ms:.4f} ms, 480 a Wan "
+        f"sample's 4 forwards: {stats['wan_all_to_all_share']:.4f} of its denoise time")
+    del hy, wan
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, stats
 
 
 if __name__ == "__main__":

@@ -2717,3 +2717,68 @@ def test_prompt_to_video_cli_on_card(card, tmp_path, monkeypatch, model, extra):
     assert res.encode_s > 0 and res.decode_s > 0
     kernel = "flash" if model == "wan-tiny" else "flash_manual"
     assert _build.launches[kernel] > 0
+
+
+# --- HunyuanVideo router training and sequence parallelism -----------------------------
+
+@pytest.mark.parametrize("case", ["dense", "masks_and_bias"])
+def test_chunked_recompute_backward_on_card(card, case):
+    """attention_chunked_recompute on CUDA tensors: the forward bit for bit
+    the loop's, the q / k / v gradients within 1e-5 x max of autograd
+    through the loop (f32, TF32 off), at the joint layouts' block sizes."""
+    from vorta_tpu_torch.ops.attention_ref import attention_chunked, attention_chunked_recompute
+
+    g = torch.Generator(device="cuda").manual_seed(81)
+    b, h, s, d, blk = 1, 4, 512, 128, 128
+    q, k, v = (_randn(g, (b, h, s, d), torch.float32).requires_grad_() for _ in range(3))
+    kw = dict(block_q=blk, block_kv=blk)
+    if case == "masks_and_bias":
+        bm = torch.rand((h, 4, 4), generator=g, device="cuda") < 0.6
+        bm[:, :, 0] = True
+        bm[2, 3] = False  # a q block that sees no key
+        bias = torch.zeros((1, s), device="cuda")
+        bias[:, 300:340] = -1e30
+        kw.update(block_mask=bm, kv_bias=bias, kv_valid_len=500)
+    want = attention_chunked(q, k, v, **kw)
+    got = attention_chunked_recompute(q, k, v, **kw)
+    assert torch.equal(got, want)
+    cot = _randn(g, want.shape, torch.float32)
+    for a, w in zip(torch.autograd.grad(got, (q, k, v), cot),
+                    torch.autograd.grad(want, (q, k, v), cot)):
+        _close(a, w)
+
+
+def test_collectives_at_world_size_one_on_card(card, tmp_path):
+    """A world-size-1 NCCL group (a file:// store): every Ulysses collective
+    is the identity, forward and backward, bit for bit; make_mesh takes the
+    group, and a second mesh reuses it."""
+    import torch.distributed as dist
+
+    from vorta_tpu_torch.parallel import (
+        all_to_all_heads_to_seq,
+        all_to_all_seq_to_heads,
+        gather_sequence,
+        make_mesh,
+        slice_local,
+    )
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(sp_size=1, dp_size=1)
+        assert mesh.shape == {"dp": 1, "sp": 1} and mesh.device.type == "cuda"
+        g = torch.Generator(device="cuda").manual_seed(82)
+        x = _randn(g, (2, 4, 96, 128), torch.bfloat16).requires_grad_()
+        cot = _randn(g, x.shape, torch.bfloat16)
+        for fn in (lambda a: all_to_all_heads_to_seq(a, mesh.sp_group),
+                   lambda a: all_to_all_seq_to_heads(a, mesh.sp_group),
+                   lambda a: gather_sequence(a, 2, mesh.sp_group),
+                   lambda a: slice_local(a, 1, mesh.sp_group)):
+            y = fn(x)
+            assert torch.equal(y, x)
+            (gx,) = torch.autograd.grad(y, x, cot)
+            assert torch.equal(gx, cot)
+        with pytest.raises(ValueError, match="not divisible by sp_size 2"):
+            make_mesh(sp_size=2)
+    finally:
+        dist.destroy_process_group()

@@ -189,17 +189,24 @@ def test_forward_unfused_prologue_matches_fused(models, inputs, monkeypatch):
 
 
 def test_unported_options_raise(models, inputs):
-    """The options the port does not serve raise (the step cache and token
-    replace are served now: tests/test_torch_port_stepcache.py and
-    test_torch_port_i2v.py; the cache still refuses training); the tiny
-    model's own STA tile (2, 2, 2), where the JAX package runs sta_batched,
-    is served now and routes hard as the JAX model does."""
+    """What the model refuses: training (served now, tests/
+    test_torch_port_hunyuan_training.py) with routing off or with the step
+    cache, and in the serving-only int8 mode, as JAX's; JAX's ``sp_axis``
+    keyword, a ``sp_group`` here (tests/test_torch_port_parallel.py).  The
+    step cache and token replace are served (test_torch_port_stepcache.py,
+    test_torch_port_i2v.py); the tiny model's own STA tile (2, 2, 2), where
+    the JAX package runs sta_batched, routes hard as the JAX model does."""
     jmodel, tmodel, _ = models
     args = _args(inputs, 500.0, False)
     kw = dict(attn_cfg=AttentionConfig(**ATTN))
-    for bad in (dict(return_losses=True), dict(remat_blocks=True), dict(sp_axis="sp"),
-                dict(return_losses=True, step_cache=object())):
-        with pytest.raises(NotImplementedError):
+    for bad, err in ((dict(return_losses=True), ValueError),
+                     (dict(return_losses=True, routing_mode="off_ref"), ValueError),
+                     (dict(return_losses=True, routing_mode="soft", step_cache=object()),
+                      ValueError),
+                     (dict(remat_blocks=True, routing_mode="soft", mm_precision="int8"),
+                      NotImplementedError),
+                     (dict(sp_axis="sp"), TypeError)):
+        with pytest.raises(err):
             tmodel(*args, **kw, **bad)
     # W8A8 is served (tests/test_torch_port_quant_hunyuan.py holds it to JAX)
     with torch.no_grad():

@@ -252,8 +252,8 @@ def test_cli_wan_flags(tmp_path, monkeypatch):
 def test_cli_hunyuan_flags(tmp_path, monkeypatch):
     """HunyuanVideo-tiny: --torch_checkpoint (and --quantize_blocks), a
     reference router file, the cache flags; a step dir of the port's
-    trainer still raises (Hunyuan router training is a later slice), and so
-    does --image_embeds (Wan's branch)."""
+    trainer loads (an empty dir is no step dir and raises), and
+    --image_embeds (Wan's branch) raises."""
     from safetensors.torch import save_file
 
     from vorta_tpu_torch.cli import sample
@@ -288,7 +288,7 @@ def test_cli_hunyuan_flags(tmp_path, monkeypatch):
     q = sample.main(base + ["--quantize_blocks", "int4", "--output", str(tmp_path / "q.npy")])
     assert np.isfinite(q.latents.numpy()).all()
     (tmp_path / "step").mkdir()
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(FileNotFoundError, match="not a router checkpoint step dir"):
         sample.main(base + ["--router_checkpoint", str(tmp_path / "step"),
                             "--output", str(tmp_path / "c.npy")])
     with pytest.raises(ValueError, match="token replace"):

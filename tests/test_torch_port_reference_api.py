@@ -7,11 +7,14 @@ interpret mode, once per kernel), the keywords of sparse_flash_attention_raw
 that JAX's wrapper takes (``tokens_per_tile`` and ``cast_p_to_v_dtype``
 refused as NotImplementedError, the other wrappers' refusal, not a
 TypeError), and the public names the JAX modules have (each against its
-JAX namesake on the same numpy inputs).  Tolerances: f32 on both sides,
+JAX namesake on the same numpy inputs; the parallel package's at one rank,
+a gloo group of this process against JAX's one-device axis; and the
+chunked attention's recompute backward against JAX's autodiff).  Tolerances: f32 on both sides,
 rtol 1e-4 and atol 1e-4 x the output's max abs value (the two sides sum in
 different orders); exact where both sides only copy or count.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +37,7 @@ from vorta_tpu_torch.ops import (attention_ref, fused_norm, prologue, qmm, quant
 from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, tables_from_block_mask
 from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual
 from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched
+from vorta_tpu_torch.parallel import mesh, ulysses
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -246,6 +250,59 @@ def _case_apply_rope():
     _close(got.float(), np.asarray(want, np.float32), rtol=1e-2, atol_rel=1e-2)
 
 
+def _one_rank_group():
+    """A gloo group of this one process on a file:// store (destroyed by the
+    caller), for the collectives' world-size-1 cases."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    return dist.new_group([0])
+
+
+def _case_ulysses():
+    """At one rank each collective is the identity, as JAX's over a
+    one-device sp axis (inside shard_map)."""
+    import torch.distributed as dist
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from vorta_tpu.parallel import ulysses as julysses
+    from vorta_tpu_torch.parallel import ulysses
+
+    (x,) = _randn(70, (2, 4, 12, 8))
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("sp",))
+    group = _one_rank_group()
+    try:
+        for name, kw in (("all_to_all_heads_to_seq", {}), ("all_to_all_seq_to_heads", {}),
+                         ("gather_sequence", dict(seq_axis=2)), ("slice_local", dict(dim=1))):
+            fn = jax.shard_map(lambda a, f=getattr(julysses, name), kw=kw: f(a, axis="sp", **kw),
+                               mesh=mesh, in_specs=P(), out_specs=P(), check_vma=False)
+            got = getattr(ulysses, name)(torch.from_numpy(x), group=group, **kw)
+            _close(got, fn(jnp.asarray(x)), rtol=0, atol_rel=0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _case_make_mesh():
+    """One device: a (1, 1) mesh; a size that does not divide it and dp x sp
+    past it raise JAX's errors, word for word."""
+    from vorta_tpu.parallel import mesh as jmesh
+    from vorta_tpu_torch.parallel import mesh
+
+    one = jax.devices()[:1]
+    assert dict(jmesh.make_mesh(devices=one).shape) == mesh.make_mesh(device="cpu").shape
+    for kw in (dict(sp_size=2), dict(sp_size=1, dp_size=2)):
+        with pytest.raises(ValueError) as want:
+            jmesh.make_mesh(devices=one, **kw)
+        with pytest.raises(ValueError) as got:
+            mesh.make_mesh(device="cpu", **kw)
+        assert str(got.value) == str(want.value)
+    assert (mesh.DP_AXIS, mesh.SP_AXIS) == (jmesh.DP_AXIS, jmesh.SP_AXIS)
+
+
 PUBLIC_NAMES = {  # the port's module: (name, case)
     "ops.rope.apply_rope": (rope, _case_apply_rope),
     "ops.fused_norm.layernorm_fp32": (fused_norm, _case_layernorm_fp32),
@@ -257,6 +314,8 @@ PUBLIC_NAMES = {  # the port's module: (name, case)
     "ops.attention_ref.expand_block_mask": (attention_ref, _case_expand_block_mask),
     "ops.quant.dequantize_tree": (quant, _case_dequantize_tree),
     "ops.qmm.fused_linear": (qmm, _case_fused_linear),
+    "parallel.ulysses.all_to_all_heads_to_seq": (ulysses, _case_ulysses),
+    "parallel.mesh.make_mesh": (mesh, _case_make_mesh),
 }
 
 
@@ -364,3 +423,62 @@ def test_module_constants_match_jax():
         for name in names:
             assert getattr(port, name) == getattr(ref, name), (module, name)
             assert type(getattr(port, name)) is float
+
+
+def test_parallel_and_training_names_match_jax():
+    """The slice's other public names against their JAX namesakes: the
+    parallel package's exports, the train-step factories' leading keywords
+    (the groups stand for JAX's axis names, the optimizer is the caller's)."""
+    import inspect
+
+    import vorta_tpu.parallel as jparallel
+    import vorta_tpu_torch.parallel as parallel
+    from vorta_tpu.parallel import fsdp as jfsdp
+    from vorta_tpu.training import step as jstep
+    from vorta_tpu_torch.parallel import fsdp
+    from vorta_tpu_torch.training import step
+
+    public = {n for n in dir(jparallel) if not n.startswith("_")} - {
+        "mesh", "ulysses", "fsdp"}
+    assert public <= set(dir(parallel))
+    assert callable(fsdp.sharded_block_fetcher) and callable(jfsdp.sharded_block_fetcher)
+    for name in ("make_router_train_step", "make_hunyuan_router_train_step"):
+        want = [p for p in inspect.signature(getattr(jstep, name)).parameters
+                if p not in ("graphdef", "optimizer", "interpret")]
+        got = list(inspect.signature(getattr(step, name)).parameters)
+        assert [p for p in want if p.endswith("_axis")] == [
+            "sp_axis", "dp_axis", "frozen_sharded_axis"]
+        assert [p for p in got if p in ("sp_group", "dp_group", "frozen_sharded")] == [
+            "sp_group", "dp_group", "frozen_sharded"]
+        assert [p for p in want if not p.endswith("_axis")] == [
+            p for p in got if p not in ("sp_group", "dp_group", "frozen_sharded",
+                                        "remat_blocks")]
+    assert callable(step.frozen_sharding_specs)
+
+
+def test_chunked_recompute_matches_jax_autodiff():
+    """attention_chunked_recompute against JAX's attention_chunked and its
+    XLA autodiff (the chunk scan under jax.checkpoint): outputs and the q, k,
+    v gradients, with a block mask, a kv bias and a q block that sees no
+    key."""
+    q, k, v, cot = _randn(71, *[(1, 2, 64, 16)] * 4)
+    bm = np.random.default_rng(72).random((2, 4, 4)) < 0.6
+    bm[:, :, 0] = True
+    bm[1, 3] = False
+    bias = np.zeros((1, 64), np.float32)
+    bias[:, 40:48] = -1e30
+    kw = dict(block_q=16, block_kv=16)
+
+    def jloss(q, k, v):
+        out = jattention_ref.attention_chunked(q, k, v, block_mask=jnp.asarray(bm),
+                                               kv_bias=jnp.asarray(bias), **kw)
+        return jnp.sum(out * jnp.asarray(cot)), out
+
+    (_, want), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    got = attention_ref.attention_chunked_recompute(
+        tq, tk, tv, block_mask=torch.from_numpy(bm), kv_bias=torch.from_numpy(bias), **kw)
+    _close(got, want)
+    for g, w in zip(torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(cot)), jgrads):
+        _close(g, w)

@@ -13,7 +13,11 @@ timestep embedding, so ``--router`` also loads that model's time embedder
 router-training micro-step instead (training/step.py: soft routing with the
 teacher interleaved, per-block recompute, the backward to the routers),
 at the trainer's geometry (``--sta_tile`` overrides its tile), after one
-warm-up micro-step.  ``--model
+warm-up micro-step; with ``--model hunyuan-13B`` HunyuanVideo's
+(make_hunyuan_router_train_step, the teacher in "off_ref", guidance 1000)
+at its trainer's geometry (tile (6, 9, 8)), and the device time inside the
+joint experts' plain attention (the soft student's and the teacher's,
+forward and recompute backward) is reported apart (``ranges``).  ``--model
 hunyuan-13B`` profiles HunyuanVideo-13B (60 blocks, random weights and
 routers, random text states with 83 of 256 tokens valid, embedded guidance
 6.0) at the CLI's attention geometry, routing off or hard.  The sample
@@ -35,6 +39,8 @@ whole-clip or, with ``--vae_tiling``, in tiles (models/vae_tiling.py).
       --height 720 --width 1280 --routing hard
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
       --height 720 --width 1280 --t 500 --qk_int8 --mm int8
+  python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 21 \
+      --height 432 --width 768 --train   # HunyuanVideo router training, (6, 27, 48)
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --height 720 --width 1280 \
       --routing hard --sta_tile 4 9 10 --t 500   # the STA heads through sta_window
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
@@ -70,6 +76,9 @@ TEXT_VALID = 83
 # the time embedder of the model the JAX package's routers were trained against
 TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
                  / "wan1_3b_time_embedder_rngs0.npz")
+
+# named ranges (torch.profiler.record_function) whose device time is reported
+RANGES = ("joint_reference_attention", "joint_reference_attention_backward")
 
 GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("flash", ("flash_fwd_kernel", "flash_sm90_kernel")),
@@ -119,8 +128,10 @@ def main(argv=None) -> dict:
                    help="profile one decode of this VAE instead of a forward")
     p.add_argument("--vae_tiling", action="store_true", help="with --vae: a tiled decode")
     args = p.parse_args(argv)
-    if args.model != "wan-1_3B" and (args.train or args.router):
-        p.error("--train and --router profile Wan-1.3B only")
+    if args.router and args.model != "wan-1_3B":
+        p.error("--router profiles Wan-1.3B only")
+    if args.train and args.model == "wan-14B":
+        p.error("--train profiles Wan-1.3B or HunyuanVideo-13B")
     quant = args.mm != "bf16" or args.qk_int8 or args.act_scales or args.quantize_blocks
     if args.train and quant:
         p.error("the quantized serving flags profile forwards, not training")
@@ -179,6 +190,8 @@ def _hunyuan_forward(args, device, serve: dict, bits):
     attn = dataclasses.replace(attention_config("hunyuan-13B", grid), qk_int8=args.qk_int8)
     if args.sta_tile:
         attn = dataclasses.replace(attn, sta_tile=tuple(args.sta_tile))
+    if args.train:
+        return grid, attn, _hunyuan_train_micro_step(args, attn, grid, device)
     if bits:
         model, serve["quantized_blocks"] = build_quantized_hunyuan(cfg, bits, seed=0,
                                                                    device=device)
@@ -198,6 +211,35 @@ def _hunyuan_forward(args, device, serve: dict, bits):
             return model(lat, t, text, mask, pooled, guidance=guidance, attn_cfg=attn,
                          routing_mode=args.routing, **serve)
     return grid, attn, run
+
+
+def _hunyuan_train_micro_step(args, attn, grid, device):
+    """One HunyuanVideo-13B router-training micro-step at timestep ``t``:
+    loss, then the router gradients (as ``_train_micro_step``)."""
+    from ..schedulers.flow_match import train_sigmas
+    from ..training.step import LossWeights, make_hunyuan_router_train_step, router_partition
+
+    cfg = HUNYUAN_13B
+    model = HunyuanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    routers = list(router_partition(model).values())
+    g = torch.Generator(device=device).manual_seed(1)
+    lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], cfg.in_channels), generator=g,
+                      device=device)
+    text = torch.randn((1, cfg.text_len, cfg.text_dim), generator=g, device=device)
+    pooled = torch.randn((1, cfg.pooled_dim), generator=g, device=device)
+    mask = (torch.arange(cfg.text_len, device=device) < TEXT_VALID)[None]
+    eps = torch.randn(lat.shape, generator=g, device=device)
+    sig = train_sigmas(5.0)
+    t = torch.tensor([args.t], device=device)
+    sigma = torch.tensor([float(sig[int((1000.0 - args.t))])], device=device)
+    step = make_hunyuan_router_train_step(attn, LossWeights(), timestep_table=sig * 1000.0,
+                                          sigma_table=sig)
+
+    def run():
+        loss, _ = step.loss(model, lat, text, mask, pooled, t, sigma, eps)
+        return torch.autograd.grad(loss, routers)
+
+    return run
 
 
 def _vae_decode(args, device):
@@ -231,8 +273,14 @@ def _profile(args, layers: int, grid, attn, run, device, profile, ProfilerActivi
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    kernels = {}
+    kernels, ranges = {}, {}
     for ev in prof.events():
+        if ev.name in RANGES:
+            # the host-side range sums the device time of the kernels it
+            # launched; its device-side twin is the range's span, no kernel
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                ranges[ev.name] = ranges.get(ev.name, 0.0) + ev.device_time_total / 1e3
+            continue
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             k = kernels.setdefault(ev.name, [0.0, 0])
             k[0] += ev.device_time_total / 1e3  # us -> ms
@@ -260,6 +308,7 @@ def _profile(args, layers: int, grid, attn, run, device, profile, ProfilerActivi
         "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "groups": {k: {"ms": v[0], "launches": v[1], "share": v[0] / device_ms}
                    for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])},
+        "ranges": {k: {"ms": v, "share": v / device_ms} for k, v in ranges.items()},
         "top": [{"kernel": name[:90], "ms": ms, "launches": n}
                 for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])
                 [:12]],

@@ -18,7 +18,7 @@ random, drawn from ``--seed``, unless ``--torch_checkpoint`` names a
 diffusers checkpoint (one .safetensors / .pt / .bin file or a directory of
 shards; io/torch_import.py); ``--router_checkpoint`` loads the routers
 from a step dir that the port's trainer wrote (``<output_dir>/ckpt/
-step-XXXXXX``, Wan only) or from a reference router file (``router.pt`` /
+step-XXXXXX``, Wan or HunyuanVideo) or from a reference router file (``router.pt`` /
 ``.bin`` / ``.safetensors``), and ``--resume_dir`` reads that run's attention geometry
 from its ``config.json`` (``cli.train --sta_tile T H W`` writes the tile
 there): for Wan its grid must be the requested video's and
@@ -49,9 +49,19 @@ the timestep modulation since the last computed step stays under it,
 ``--image_embeds x.npy|x.pt``, (257, image_dim) CLIP image tokens; the
 model takes ``image_dim`` from the file.
 
+Sequence-parallel sampling (the JAX CLI's ``--sp_size`` / ``--dp_size``):
+under torchrun, each group of ``--sp_size`` ranks shares one clip, its
+latent frames sharded over the group (Ulysses; pipelines/ and models/);
+the other factor of the world size (``--dp_size``) is replicas, replica r
+sampling from seed + r into ``<output>`` with ``_dp<r>`` added for r > 0.
+Rank 0 of each group writes.  ``--dp_size`` given (1 too) samples through
+the process group even on one rank.
+
 Examples:
   python -m vorta_tpu_torch.cli.sample --model wan-1_3B --random_embeds \\
       --num_frames 77 --num_inference_steps 2 --output out.npy
+  torchrun --nproc_per_node 4 -m vorta_tpu_torch.cli.sample --model hunyuan-13B \\
+      --random_embeds --num_frames 45 --height 720 --width 1280 --sp_size 4
   python -m vorta_tpu_torch.cli.sample --prompt "a cat walking on grass" \\
       --tokenizer_dir umt5_tokenizer --decode --output video.mp4
 """
@@ -66,6 +76,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
 from ..device import resolve_device
@@ -88,6 +99,7 @@ from ..models.umt5 import UMT5Config, UMT5Encoder
 from ..models.vae_tiling import tiled_decode
 from ..models.wan import WanModel
 from ..models.wan_vae import WAN_VAE, WanVAE
+from ..parallel.mesh import make_mesh_for
 from ..pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
 from ..pipelines.wan_t2v import SamplingConfig, WanT2VPipeline
 
@@ -107,7 +119,7 @@ def parse_args(argv=None):
     p.add_argument("--torch_checkpoint", default=None,
                    help="DiT weights: diffusers .safetensors / .pt / .bin, or a dir of shards")
     p.add_argument("--router_checkpoint", default=None,
-                   help="a step dir written by vorta_tpu_torch.cli.train (Wan), or a "
+                   help="a step dir written by vorta_tpu_torch.cli.train, or a "
                         "reference router.pt / .bin / .safetensors")
     p.add_argument("--native_attention", action="store_true",
                    help="full 3D attention baseline (routing off)")
@@ -158,6 +170,11 @@ def parse_args(argv=None):
                    help="decode in blended tiles (models/vae_tiling.py)")
     p.add_argument("--vae_checkpoint", default=None,
                    help="diffusers AutoencoderKLWan / AutoencoderKLHunyuanVideo weights")
+    # sequence-parallel sampling (reference: torchrun --nproc_per_node N + sp)
+    p.add_argument("--sp_size", type=int, default=1,
+                   help="shard the latent frames over groups of this many ranks (Ulysses)")
+    p.add_argument("--dp_size", type=int, default=None,
+                   help="replicas (default: the world size over --sp_size)")
     args = p.parse_args(argv)
     if args.dtype == "fp32" and args.device != "cpu":
         p.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
@@ -343,9 +360,29 @@ def wan_decoder(args, dtype, device):
 
 
 def main(argv=None) -> SampleResult:
-    """Runs the sampler and writes the final latents as .npy."""
+    """Runs the sampler and writes the final latents as .npy (under sequence
+    parallelism, from rank 0 of each group; the others return the same
+    result without writing)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    joined = dist.is_initialized()
+    mesh = make_mesh_for(args.sp_size, args.dp_size, device)
+    try:
+        if mesh is not None:
+            if not mesh.in_mesh:
+                return None  # a rank past dp * sp
+            device = mesh.device
+            args.seed += mesh.dp_rank
+            if mesh.dp_rank:
+                out = Path(args.output)
+                args.output = str(out.with_name(f"{out.stem}_dp{mesh.dp_rank}{out.suffix}"))
+        return _main(args, device, mesh)
+    finally:
+        if dist.is_initialized() and not joined:  # the group this call joined
+            dist.destroy_process_group()
+
+
+def _main(args, device, mesh) -> SampleResult:
     model_cfg = MODELS[args.model]
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     hunyuan = args.model.startswith("hunyuan")
@@ -359,9 +396,12 @@ def main(argv=None) -> SampleResult:
         print(f"[sample] static int8 scales: {len(act_scales)} sites from {args.act_scales}",
               flush=True)
     bits = int(args.quantize_blocks[3:]) if args.quantize_blocks else None
+    sp_group = None if mesh is None else mesh.sp_group
+    if sp_group is not None and grid[0] % mesh.sp_size:
+        raise ValueError(f"{grid[0]} latent frames not divisible by sp_size {mesh.sp_size}")
     if hunyuan:
         return _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode,
-                             act_scales, bits)
+                             act_scales, bits, sp_group)
     image_embeds = None
     if args.image_embeds:
         image_embeds = load_image_embeds(args.image_embeds)
@@ -407,7 +447,7 @@ def main(argv=None) -> SampleResult:
         raise SystemExit(NEED_CONDITIONING)
     ne = torch.zeros_like(pe)  # the unconditional (empty) prompt
     pipe = WanT2VPipeline(model, attn_cfg=attn_cfg, act_scales=act_scales,
-                          quantized_blocks=qblocks)
+                          quantized_blocks=qblocks, sp_group=sp_group)
     latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
                                    args.height, args.width)
     img = None
@@ -426,7 +466,7 @@ def main(argv=None) -> SampleResult:
     final = pipe(latents, pe, ne, sampling=sampling, routing=routing, image_embeds=img,
                  cache_log=cache_log)
     return _finish(args, device, final, build_s, t0, routing, cache_log, encode_s,
-                   wan_decoder(args, dtype, device) if args.decode else None)
+                   wan_decoder(args, dtype, device) if args.decode else None, sp_group)
 
 
 def _cache_kw(args) -> dict:
@@ -444,11 +484,16 @@ def _quant_note(args) -> str:
 
 
 def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
-            routing: list, cache_log: list, encode_s: float, decode=None) -> SampleResult:
+            routing: list, cache_log: list, encode_s: float, decode=None,
+            sp_group=None) -> SampleResult:
     """Synchronise, report the denoise time, the routing and the step
     cache's skips; write the latents, or with ``decode`` (latents ->
-    pixels) the video."""
+    pixels) the video; under sequence parallelism only the group's rank 0
+    reports and writes."""
     _sync(device)
+    if sp_group is not None and dist.get_rank(sp_group) != 0:
+        return SampleResult(final, build_s, time.time() - t0, args.num_inference_steps,
+                            routing, cache_log, encode_s)
     dt = time.time() - t0
     print(f"[sample] denoised in {dt:.2f}s ({dt / args.num_inference_steps:.3f}s/step)",
           flush=True)
@@ -481,19 +526,16 @@ def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
 
 
 def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: str,
-                  act_scales, bits) -> SampleResult:
+                  act_scales, bits, sp_group=None) -> SampleResult:
     """HunyuanVideo sampling (the JAX CLI's _main_hunyuan, latents out)."""
     if args.image_embeds:
         raise ValueError("--image_embeds is Wan's image branch; HunyuanVideo's I2V is "
                          "token replace (HunyuanModelConfig.image_condition_type)")
     router_state = None
     if args.router_checkpoint:
-        if not is_router_file(args.router_checkpoint):
-            raise NotImplementedError("Hunyuan router step dirs come from Hunyuan router "
-                                      "training, a later slice of the port (ROADMAP section "
-                                      "1 item 5); a reference router file loads")
-        router_state = hunyuan_router_state(args.router_checkpoint, model_cfg.dual_layers,
-                                            model_cfg.single_layers)
+        rp = Path(args.router_checkpoint)
+        router_state = (hunyuan_router_state(rp, model_cfg.dual_layers, model_cfg.single_layers)
+                        if is_router_file(rp) else load_router_checkpoint(rp)[0])
     print(f"[sample] model={args.model} grid={grid} routing={routing_mode} device={device}"
           f"{_quant_note(args)}", flush=True)
     text, encode_s = None, 0.0
@@ -538,7 +580,7 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
         if args.vae_checkpoint:
             _vae_note(load_hunyuan_vae_torch_weights(vae, args.vae_checkpoint)[0])
     pipe = HunyuanT2VPipeline(model, attn_cfg=attn_cfg, vae=vae, act_scales=act_scales,
-                              quantized_blocks=qblocks)
+                              quantized_blocks=qblocks, sp_group=sp_group)
     latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
                                    args.height, args.width)
     _sync(device)
@@ -554,7 +596,7 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
     final = pipe(latents, text, mask, pooled, sampling=sampling, routing=routing,
                  cache_log=cache_log)
     return _finish(args, device, final, build_s, t0, routing, cache_log, encode_s,
-                   (lambda x: pipe.decode(x, tiled=args.vae_tiling)) if vae else None)
+                   (lambda x: pipe.decode(x, tiled=args.vae_tiling)) if vae else None, sp_group)
 
 
 if __name__ == "__main__":

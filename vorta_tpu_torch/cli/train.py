@@ -1,4 +1,4 @@
-"""Router-distillation trainer on one GPU (counterpart of cli/train.py).
+"""Router-distillation trainer (counterpart of cli/train.py).
 
 The JAX trainer's recipe and arguments: a frozen DiT with trainable f32
 routers, flow-match distillation against the frozen full-attention teacher
@@ -10,13 +10,30 @@ SIGINT saves a checkpoint at the next optimizer step and exits.  Weights
 are random, drawn from ``--seed``, unless ``--torch_checkpoint`` names a
 diffusers checkpoint (io/torch_import.py), which then sets the student's
 and the frozen teacher's weights alike; ``--synthetic_data`` (or no
-``--data_json_path``) draws latents and text embeddings from it too.  Runs
-on CUDA unless ``--device cpu``.
+``--data_json_path``) draws latents and text embeddings from it too (for
+HunyuanVideo also the CLIP pooled embedding, and a text mask with the
+second half padded, as the JAX trainer draws them).  Runs on CUDA unless
+``--device cpu``.
+
+``--model hunyuan-13B | hunyuan-tiny`` trains HunyuanVideo's routers
+(training/step.py ``make_hunyuan_router_train_step``; the 13B at the
+reference's STA tile (6, 9, 8), which must divide the latent grid).
+
+Under torchrun, ``--sp_size`` shards each clip's latent frames over
+sequence-parallel groups of that many ranks (Ulysses, parallel/), the
+other factor of the world size (``--dp_size``) data-parallel replicas, each
+with its own slice of the global batch of ``--train_batch_size`` x dp;
+``--shard_frozen`` layer-shards the frozen blocks over dp
+(parallel/fsdp.py).  NCCL on CUDA, gloo with ``--device cpu``.  Rank 0
+writes the checkpoints, the metrics and the geometry.
 
   python -m vorta_tpu_torch.cli.train --model wan-1_3B --synthetic_data \\
       --max_train_steps 2 --gradient_accumulation_steps 2 --output_dir out/exp
   python -m vorta_tpu_torch.cli.train --model wan-tiny --device cpu --dtype fp32 \\
       --synthetic_data --max_train_steps 2 --output_dir /tmp/exp
+  torchrun --nproc_per_node 4 -m vorta_tpu_torch.cli.train --model hunyuan-13B \\
+      --synthetic_data --num_latent_t 12 --video_height 720 --video_width 1280 \\
+      --sp_size 4 --output_dir out/hy
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
 from ..device import resolve_device
@@ -41,27 +59,32 @@ from ..io.checkpoint import (
     save_router_checkpoint,
 )
 from ..io.metrics import MetricsLogger
-from ..io.torch_import import load_wan_torch_weights
+from ..io.torch_import import load_hunyuan_torch_weights, load_wan_torch_weights
+from ..models.hunyuan import HUNYUAN_13B, HUNYUAN_TINY, HunyuanModel
 from ..models.wan import WanModel
+from ..parallel.fsdp import shard_frozen_blocks
+from ..parallel.mesh import make_mesh_for
 from ..schedulers.flow_match import train_sigmas
 from ..training.data import LatentDataset, epoch_iterator
 from ..training.step import (
     LossWeights,
     MultiSteps,
+    STACKED,
+    make_hunyuan_router_train_step,
     make_optimizer,
     make_router_train_step,
     router_partition,
 )
 
-MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY}
+MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY,
+          "hunyuan-13B": HUNYUAN_13B, "hunyuan-tiny": HUNYUAN_TINY}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     # model
-    p.add_argument("--model", default="wan-1_3B",
-                   choices=["wan-1_3B", "wan-14B", "wan-tiny", "hunyuan-13B", "hunyuan-tiny"])
+    p.add_argument("--model", default="wan-1_3B", choices=sorted(MODELS))
     p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--torch_checkpoint", default=None,
@@ -81,10 +104,12 @@ def parse_args(argv=None):
     p.add_argument("--lowres_reduction_rate", type=float, default=0.5)
     p.add_argument("--tau_sparse", type=float, default=0.3)
     # parallelism
-    p.add_argument("--sp_size", type=int, default=1)
+    p.add_argument("--sp_size", type=int, default=1,
+                   help="ranks per sequence-parallel group (under torchrun)")
     p.add_argument("--shard_frozen", action="store_true",
-                   help="layer-shard the frozen DiT over the dp axis")
-    p.add_argument("--dp_size", type=int, default=None)
+                   help="layer-shard the frozen DiT over the dp groups")
+    p.add_argument("--dp_size", type=int, default=None,
+                   help="data-parallel replicas (default: the world size over --sp_size)")
     # optimization (reference defaults: train.sh)
     p.add_argument("--train_batch_size", type=int, default=1,
                    help="per-step global batch (before grad accumulation)")
@@ -110,31 +135,36 @@ def parse_args(argv=None):
     p.add_argument("--resume_from_checkpoint", default=None,
                    help="'latest' or a step dir path")
     args = p.parse_args(argv)
-    unported = (
-        (args.model.startswith("hunyuan"), f"--model {args.model}: Hunyuan router training "
-                                           "(make_hunyuan_router_train_step) belongs to a "
-                                           "later port slice"),
-        (args.sp_size > 1 or (args.dp_size or 1) > 1 or args.shard_frozen,
-         "--sp_size / --dp_size / --shard_frozen: multi-card training belongs to the "
-         "sequence-parallelism port slice"),
-    )
-    for bad, why in unported:
-        if bad:
-            raise NotImplementedError(why)
     if args.dtype == "fp32" and args.device != "cpu":
         p.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
     return args
 
 
 def attention_config(args) -> AttentionConfig:
-    """The JAX trainer's geometry for ``args.model``."""
+    """The JAX trainer's geometry for ``args.model``; a tile or low-res window
+    that does not divide the latent grid raises here, before any model is
+    built."""
+    cfg = _attention_config(args)
+    for what, part in (("sta_tile", cfg.sta_tile), ("lowres_window", cfg.lowres_window)):
+        if any(n % k for n, k in zip(cfg.latent_shape, part)):
+            raise ValueError(f"{what} {part} must divide the latent grid {cfg.latent_shape}")
+    return cfg
+
+
+def _attention_config(args) -> AttentionConfig:
+    if args.model == "hunyuan-tiny":
+        return AttentionConfig(latent_shape=(4, 4, 8), sta_window=(3, 3, 3), sta_tile=(2, 2, 2),
+                               lowres_window=(2, 2, 2), block_q=32, block_kv=32,
+                               sta_block_q=8, sta_block_kv=8, tau_sparse=args.tau_sparse)
     if args.model == "wan-tiny":
         return AttentionConfig(latent_shape=(4, 4, 4), sta_window=(3, 3, 1), sta_tile=(2, 2, 2),
                                lowres_window=(2, 2, 2), block_q=16, block_kv=16,
                                sta_block_q=8, sta_block_kv=8, tau_sparse=args.tau_sparse)
     _, lh, lw = WAN_GEOMETRY.tokens((1, args.video_height, args.video_width))
+    # HunyuanVideo-13B: the reference's train.sh tile, whatever --sta_tile says
+    tile = (6, 9, 8) if args.model == "hunyuan-13B" else tuple(args.sta_tile)
     return AttentionConfig(latent_shape=(args.num_latent_t, lh, lw),
-                           sta_window=tuple(args.sta_window), sta_tile=tuple(args.sta_tile),
+                           sta_window=tuple(args.sta_window), sta_tile=tile,
                            lowres_window=tuple(args.lowres_window),
                            lowres_reduction=args.lowres_reduction_rate,
                            tau_sparse=args.tau_sparse)
@@ -153,7 +183,9 @@ class TrainResult:
     router_final: dict
 
 
-def _batches(args, model_cfg, latent_shape, batch: int):
+def _batches(args, model_cfg, latent_shape, batch: int, hunyuan: bool):
+    """Global batches: (latents, text) for Wan, (latents, text, mask, pooled)
+    for HunyuanVideo, numpy f32 (the mask bool)."""
     if args.synthetic_data or args.data_json_path is None:
         t, lh, lw = latent_shape
         pt, ph, pw = model_cfg.patch_size
@@ -163,10 +195,38 @@ def _batches(args, model_cfg, latent_shape, batch: int):
                 (batch, t * pt, lh * ph, lw * pw, model_cfg.in_channels), np.float32)
             text = rng.standard_normal((batch, model_cfg.text_len, model_cfg.text_dim),
                                        np.float32)
-            yield latents, text
+            if not hunyuan:
+                yield latents, text
+                continue
+            mask = np.ones((batch, model_cfg.text_len), bool)
+            mask[:, model_cfg.text_len // 2:] = False
+            yield latents, text, mask, rng.standard_normal((batch, model_cfg.pooled_dim),
+                                                           np.float32)
     ds = LatentDataset(args.data_json_path, args.num_latent_t, args.cfg_rate, args.seed)
-    for latents, embeds, _ in epoch_iterator(ds, batch, seed=args.seed):
-        yield latents, embeds
+    for latents, embeds, mask in epoch_iterator(ds, batch, seed=args.seed):
+        if not hunyuan:
+            yield latents, embeds
+            continue
+        # the reference's pooled projection is the first row of the prompt
+        # embed (scripts/hunyuan/train_one_step.py:90-92)
+        m = mask if mask is not None else np.ones(embeds.shape[:2], bool)
+        yield (latents, embeds[:, :model_cfg.text_len], m[:, :model_cfg.text_len].astype(bool),
+               embeds[:, 0, :model_cfg.pooled_dim])
+
+
+def _local(batch: tuple, mesh, device) -> list:
+    """This rank's part of a global batch on ``device``: its dp slice of the
+    batch, and of the latents its sp slice of the frames."""
+    out = []
+    for i, arr in enumerate(batch):
+        if mesh is not None:
+            n = arr.shape[0] // mesh.dp_size
+            arr = arr[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
+            if i == 0:
+                t = arr.shape[1] // mesh.sp_size
+                arr = arr[:, mesh.sp_rank * t:(mesh.sp_rank + 1) * t]
+        out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -177,24 +237,53 @@ def _sync(device: torch.device) -> None:
 def main(argv=None) -> TrainResult:
     args = parse_args(argv)
     device = resolve_device(args.device)
-    out_dir = Path(args.output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
     model_cfg = MODELS[args.model]
+    hunyuan = args.model.startswith("hunyuan")
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     attn_cfg = attention_config(args)
-    # the geometry contract: persisted at train time, re-read at inference
-    attn_cfg.save(out_dir / "config.json")
-    (out_dir / "args.json").write_text(json.dumps(vars(args), indent=2, default=str))
-    print(f"[train] model={args.model} latent={attn_cfg.latent_shape} device={device}",
-          flush=True)
+    joined = dist.is_initialized()
+    mesh = make_mesh_for(args.sp_size, args.dp_size, device, force=args.shard_frozen)
+    if mesh is not None:
+        device = mesh.device
+        if attn_cfg.latent_shape[0] % mesh.sp_size:
+            raise ValueError(f"{attn_cfg.latent_shape[0]} latent frames not divisible by "
+                             f"sp_size {mesh.sp_size}")
+    lead = mesh is None or dist.get_rank() == 0
+    out_dir = Path(args.output_dir)
+    if lead:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # the geometry contract: persisted at train time, re-read at inference
+        attn_cfg.save(out_dir / "config.json")
+        (out_dir / "args.json").write_text(json.dumps(vars(args), indent=2, default=str))
+        print(f"[train] model={args.model} latent={attn_cfg.latent_shape} device={device}"
+              + (f" mesh=(dp={mesh.dp_size}, sp={mesh.sp_size})" if mesh else ""), flush=True)
+    try:
+        return _train(args, device, model_cfg, hunyuan, dtype, attn_cfg, mesh, lead, out_dir)
+    finally:
+        if dist.is_initialized() and not joined:  # the group this call joined
+            dist.destroy_process_group()
 
-    model = WanModel(model_cfg, dtype=dtype, device=device, seed=args.seed)
+
+def _train(args, device, model_cfg, hunyuan: bool, dtype, attn_cfg, mesh, lead: bool,
+           out_dir: Path) -> TrainResult:
+    if mesh is not None and not mesh.in_mesh:
+        return TrainResult(0, 0, [], [], [], 0, [], {}, {})  # a rank past dp * sp
+    model = (HunyuanModel if hunyuan else WanModel)(model_cfg, dtype=dtype, device=device,
+                                                    seed=args.seed)
     if args.torch_checkpoint:
         # the student and the frozen teacher are one model (the teacher runs
         # its blocks with routing off), so both take the checkpoint's weights
-        applied, missing = load_wan_torch_weights(model, args.torch_checkpoint)
-        print(f"[train] imported {len(applied)} tensors ({len(missing)} missing) from "
-              f"{args.torch_checkpoint}", flush=True)
+        load = load_hunyuan_torch_weights if hunyuan else load_wan_torch_weights
+        applied, missing = load(model, args.torch_checkpoint)
+        if lead:
+            print(f"[train] imported {len(applied)} tensors ({len(missing)} missing) from "
+                  f"{args.torch_checkpoint}", flush=True)
+    frozen_sharded = None
+    if mesh is not None and args.shard_frozen:
+        frozen_sharded = mesh.dp_group
+        for name in STACKED:
+            if hasattr(model, name):
+                shard_frozen_blocks(getattr(model, name), frozen_sharded)
     routers = router_partition(model)  # f32, the only trainable parameters
     optimizer = MultiSteps(
         make_optimizer(routers, lr=args.learning_rate, weight_decay=args.weight_decay,
@@ -212,7 +301,8 @@ def main(argv=None) -> TrainResult:
             if opt_state is not None:
                 optimizer.load_state_dict(opt_state)
             init_step = int(path.name.split("-")[1])
-            print(f"[train] resumed from {path} at step {init_step}", flush=True)
+            if lead:
+                print(f"[train] resumed from {path} at step {init_step}", flush=True)
 
     sigmas = train_sigmas(shift=args.flow_shift)
     weights = LossWeights(
@@ -220,11 +310,16 @@ def main(argv=None) -> TrainResult:
         last_layer_distill=args.last_layer_distill_loss_weight,
         hidden_layer_distill=args.hidden_layer_distill_loss_weight,
         precondition_outputs=args.precondition_outputs)
-    step_fn = make_router_train_step(attn_cfg, weights, timestep_table=sigmas * 1000.0,
-                                     sigma_table=sigmas)
-    data = _batches(args, model_cfg, attn_cfg.latent_shape, args.train_batch_size)
+    make_step = make_hunyuan_router_train_step if hunyuan else make_router_train_step
+    step_fn = make_step(attn_cfg, weights, timestep_table=sigmas * 1000.0, sigma_table=sigmas,
+                        sp_group=mesh.sp_group if mesh and mesh.sp_size > 1 else None,
+                        dp_group=mesh.dp_group if mesh and mesh.dp_size > 1 else None,
+                        frozen_sharded=frozen_sharded)
+    data = _batches(args, model_cfg, attn_cfg.latent_shape,
+                    args.train_batch_size * (mesh.dp_size if mesh else 1), hunyuan)
+    # the same draws on every rank, as the JAX trainer's replicated key
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    logger = MetricsLogger(out_dir)
+    logger = MetricsLogger(out_dir) if lead else None
 
     # SIGTERM / SIGINT ask for a checkpoint at the next optimizer step
     # boundary instead of dying mid-step, so --resume_from_checkpoint latest
@@ -233,7 +328,8 @@ def main(argv=None) -> TrainResult:
 
     def _request_stop(signum, frame):
         stop["flag"] = True
-        print(f"[train] signal {signum}: checkpoint + exit at step boundary", flush=True)
+        if lead:
+            print(f"[train] signal {signum}: checkpoint + exit at step boundary", flush=True)
 
     prev = {s: signal.signal(s, _request_stop) for s in (signal.SIGTERM, signal.SIGINT)}
     res = TrainResult(init_step, init_step, [], [], [], 0, [],
@@ -245,9 +341,8 @@ def main(argv=None) -> TrainResult:
             t_step = time.time()
             for _ in range(args.gradient_accumulation_steps):
                 t_micro = time.time()
-                latents, text = next(data)
-                metrics = step_fn(model, optimizer, torch.from_numpy(latents).to(device),
-                                  torch.from_numpy(text).to(device), generator)
+                metrics = step_fn(model, optimizer, *_local(next(data), mesh, device),
+                                  generator)
                 _sync(device)
                 res.micro_s.append(time.time() - t_micro)
             res.step_s.append(time.time() - t_step)
@@ -255,27 +350,31 @@ def main(argv=None) -> TrainResult:
             if (step + 1) % args.report_interval == 0:
                 values = {k: float(v) for k, v in metrics.items()}
                 res.metrics.append({"step": step + 1, **values})
+            if (step + 1) % args.report_interval == 0 and lead:
                 line = logger.log(step + 1, values)
                 print(f"[train] {line} ({res.step_s[-1]:.2f}s/step, "
                       f"{res.step_s[-1] / args.gradient_accumulation_steps:.2f}s/micro-step)",
                       flush=True)
             if ((step + 1) % args.checkpointing_steps == 0 or step + 1 == args.max_train_steps
                     or stop["flag"]):
-                path = save_router_checkpoint(out_dir / "ckpt", step + 1, routers,
-                                              optimizer.state_dict())
-                res.checkpoints.append(path)
-                print(f"[train] {'preempted: ' if stop['flag'] else ''}checkpoint -> {path}",
-                      flush=True)
+                if lead:  # the routers and the optimizer are replicated
+                    path = save_router_checkpoint(out_dir / "ckpt", step + 1, routers,
+                                                  optimizer.state_dict())
+                    res.checkpoints.append(path)
+                    print(f"[train] {'preempted: ' if stop['flag'] else ''}checkpoint -> "
+                          f"{path}", flush=True)
             if stop["flag"]:
                 break
     finally:
         for s, h in prev.items():
             signal.signal(s, h)
-        logger.close()
+        if logger is not None:
+            logger.close()
     if device.type == "cuda":
         res.max_memory_bytes = torch.cuda.max_memory_allocated(device)
     res.router_final = {k: v.detach().cpu().clone() for k, v in routers.items()}
-    print(f"[train] done: steps {init_step}..{res.final_step}, peak memory "
+    if lead:
+        print(f"[train] done: steps {init_step}..{res.final_step}, peak memory "
           f"{res.max_memory_bytes / 2**30:.2f} GiB", flush=True)
     return res
 

@@ -224,6 +224,31 @@ def load_router_npz(model, source) -> None:
             lin.bias.copy_(torch.from_numpy(arrays["bias"][i]))
 
 
+def router_state_to_jax(router_state: dict) -> dict:
+    """The port's router parameters ({name: tensor}, e.g. a step dir's
+    ``router``) as the JAX package's stacked arrays: for each block stack
+    (Wan's ``blocks``, HunyuanVideo's ``dual_blocks`` and ``single_blocks``)
+    ``['<stack>']['router']['linear']['kernel'].value`` (L, dim, H*E) and
+    ``...['bias'].value`` (L, H*E), f32 numpy.  ``load_jax_params`` maps
+    them back."""
+    rows = {}
+    for name, t in router_state.items():
+        parts = name.split(".")
+        if len(parts) != 5 or parts[2:4] != ["router", "linear"] or not parts[1].isdigit():
+            raise KeyError(f"not a block's router parameter: {name!r}")
+        rows.setdefault((parts[0], parts[4]), {})[int(parts[1])] = \
+            t.detach().float().cpu().numpy()
+    out = {}
+    for (stack, kind), by_layer in rows.items():
+        if sorted(by_layer) != list(range(len(by_layer))):
+            raise KeyError(f"{stack}: router layers {sorted(by_layer)} are not 0..L-1")
+        layers = [by_layer[i] for i in range(len(by_layer))]
+        leaf = "kernel" if kind == "weight" else "bias"
+        out[f"['{stack}']['router']['linear']['{leaf}'].value"] = np.stack(
+            [a.T if kind == "weight" else a for a in layers])
+    return out
+
+
 def load_jax_params(model, source) -> None:
     """Set the parameters that ``source`` (an npz path or a {keystr: array}
     mapping of JAX WanModel or HunyuanModel paths) names, and no others, in

@@ -1,5 +1,5 @@
 """HunyuanVideo MMDiT in PyTorch (counterpart of vorta_tpu/models/hunyuan.py),
-serving.
+serving and router-distillation training.
 
 20 dual-stream blocks (separate video and text streams, joint attention)
 then 40 single-stream blocks (the concatenated sequence, attention and MLP
@@ -48,8 +48,28 @@ the text from temb.  The norm kernel runs over the two row ranges, each
 with its own modulation, into one output (the norm is per row, so this
 equals JAX's select between two full passes).
 
-Not in this slice (they raise): the training losses (``return_losses``),
-per-block recompute and sequence parallelism.
+Training (``return_losses``, soft routing): the frozen teacher stream,
+its own video and text streams, runs each block in ``"off_ref"`` (full
+attention through the plain version) under ``torch.no_grad``, interleaved
+with the student block by block as the JAX scan body does; ``reg_loss`` =
+sum over blocks of mean(score_full^2), ``hidden_layer_distill_loss`` = sum
+over blocks of the MSE between the two video streams,
+``last_layer_distill_loss`` = the MSE of the two through the output head.
+``remat_blocks`` recomputes each student block in the backward
+(``torch.utils.checkpoint``, non-reentrant, early stop off).
+
+Sequence parallelism (``sp_group``, a ``torch.distributed`` group):
+``latents`` hold this rank's contiguous latent-frame chunk and
+``attn_cfg.latent_shape`` is the global grid; the text conditioning is
+replicated.  In each attention the video q / k / v go head-sharded over the
+whole sequence (parallel/ulysses.py), the replicated text q / k / v, the
+router scores and the hard routing slice to the rank's heads, and after it
+the video comes back to the rank's rows and the text output is gathered
+over the heads (JAX's ``_sp_joint_in`` / ``_sp_joint_out``); RoPE and token
+replace's first-frame rows are the rank's rows of the global ones.  The
+output is the rank's frame chunk.  ``frozen_sharded`` (a group) runs the
+blocks from layer-sharded frozen parameters (parallel/fsdp.py: each block
+broadcast from its owner for its turn, the routers replicated).
 """
 
 from __future__ import annotations
@@ -59,7 +79,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..config import AttentionConfig
@@ -71,6 +93,14 @@ from ..ops import qmm, stepcache
 from ..ops.qmm import FusedLinear, QLinear
 from ..ops.rope import apply_rope_half
 from ..ops.routed_fused import route_expert_ids
+from ..parallel.fsdp import sharded_block_fetcher
+from ..parallel.ulysses import (
+    all_to_all_heads_to_seq,
+    all_to_all_seq_to_heads,
+    gather_sequence,
+    local_expert_ids,
+    slice_local,
+)
 from .common import (
     FP32LayerNorm,
     GELUFeedForward,
@@ -129,6 +159,10 @@ HUNYUAN_TINY = HunyuanModelConfig(
 @dataclasses.dataclass
 class HunyuanOutput:
     sample: torch.Tensor  # (B, T, H, W, C) latent-space prediction
+    # training losses (return_losses), f32 scalars
+    reg_loss: Optional[torch.Tensor] = None
+    last_layer_distill_loss: Optional[torch.Tensor] = None
+    hidden_layer_distill_loss: Optional[torch.Tensor] = None
     # (dual + single layers, B, H, E) router scores with return_scores
     # (zeros when routing is off, as in the JAX model)
     routing_scores: Optional[torch.Tensor] = None
@@ -240,6 +274,39 @@ def _row_gains(attn, h: int):
     return kept[1], kept[2]
 
 
+def _sp_joint_in(qv, kv_, vv, qt, kt, vt, scores, group):
+    """Ulysses reshard for joint attention: the video q / k / v go from
+    sequence-sharded to head-sharded (the full sequence on every rank), the
+    replicated text q / k / v and routing scores slice to the rank's heads
+    (reference choreography: vorta/attention/hunyuan.py:153-187)."""
+    qv, kv_, vv = (all_to_all_heads_to_seq(a, group) for a in (qv, kv_, vv))
+    qt, kt, vt = (slice_local(a, 1, group) for a in (qt, kt, vt))
+    if scores is not None:
+        scores = slice_local(scores, 1, group)
+    return qv, kv_, vv, qt, kt, vt, scores
+
+
+def _sp_joint_out(video, text, group):
+    """The inverse reshard: the video back to all heads of the rank's rows,
+    the text output gathered over the head axis so every rank holds the
+    whole text stream (reference: vorta/attention/hunyuan.py:186-187)."""
+    return all_to_all_seq_to_heads(video, group), gather_sequence(text, 1, group)
+
+
+def _joint(qv, kv_, vv, qt, kt, vt, scores, text_mask, jcfg, routing_mode, expert_ids,
+           sp_group):
+    """routed_joint_attention over (B, H, S, D) q / k / v, through the
+    Ulysses reshard under sequence parallelism."""
+    if sp_group is not None:
+        qv, kv_, vv, qt, kt, vt, scores = _sp_joint_in(qv, kv_, vv, qt, kt, vt, scores, sp_group)
+        expert_ids = local_expert_ids(expert_ids, sp_group)
+    video, text = routed_joint_attention(qv, kv_, vv, qt, kt, vt, scores, text_mask, jcfg,
+                                         mode=routing_mode, expert_ids=expert_ids)
+    if sp_group is not None:
+        video, text = _sp_joint_out(video, text, sp_group)
+    return video, text
+
+
 def _qk_prologue(attn, qp, kp, vp, cos, sin, routing_mode: str):
     """Per-head qk RMSNorm + half-RoPE + head split of (B, S, dim) q / k / v:
     the fused kernel where the gate takes it, else the same ops unfused."""
@@ -271,15 +338,15 @@ class HunyuanJointAttention(nn.Module):
         self.to_out = QLinear(dim, dim, site="dual.attn.to_out", **kw)
         self.to_add_out = nn.Linear(dim, dim, **kw)
 
-    def forward(self, x, ctx, rope, text_mask, jcfg, scores, routing_mode, expert_ids):
+    def forward(self, x, ctx, rope, text_mask, jcfg, scores, routing_mode, expert_ids,
+                sp_group=None):
         h = self.num_heads
         qv, kv_, vv = _qk_prologue(self, *self.qkv(x), *rope, routing_mode)
         qt, kt, vt = self.add_qkv(ctx)
         qt = self.norm_added_q(_split_heads(qt, h))
         kt = self.norm_added_k(_split_heads(kt, h))
-        video, text = routed_joint_attention(qv, kv_, vv, qt, kt, _split_heads(vt, h), scores,
-                                             text_mask, jcfg, mode=routing_mode,
-                                             expert_ids=expert_ids)
+        video, text = _joint(qv, kv_, vv, qt, kt, _split_heads(vt, h), scores, text_mask, jcfg,
+                             routing_mode, expert_ids, sp_group)
         return self.to_out(_merge_heads(video)), self.to_add_out(_merge_heads(text))
 
 
@@ -294,13 +361,13 @@ class HunyuanSingleAttention(nn.Module):
         self.norm_k = PerHeadRMSNorm(cfg.head_dim, cfg.eps, device=device)
 
     def forward(self, qkv, video_len, rope_joint, text_mask, jcfg, scores, routing_mode,
-                expert_ids):
+                expert_ids, sp_group=None):
         # the RoPE tables cover the joint rows, the identity on the text
         q, k, v = _qk_prologue(self, *qkv, *rope_joint, routing_mode)
-        video, text = routed_joint_attention(
+        video, text = _joint(
             q[:, :, :video_len], k[:, :, :video_len], v[:, :, :video_len],
             q[:, :, video_len:], k[:, :, video_len:], v[:, :, video_len:], scores, text_mask,
-            jcfg, mode=routing_mode, expert_ids=expert_ids)
+            jcfg, routing_mode, expert_ids, sp_group)
         return _merge_heads(torch.cat([video, text], dim=2))
 
 
@@ -321,9 +388,10 @@ class HunyuanDualBlock(nn.Module):
         self.router = Router(dim, cfg.num_heads, device=device)
 
     def forward(self, x, ctx, temb, rope, rope_joint, text_mask, jcfg, scores=None,
-                routing_mode="off", expert_ids=None, tr=None):
+                routing_mode="off", expert_ids=None, tr=None, sp_group=None):
         """``tr``: (tr_emb, n) of token replace, the first n video rows
-        conditioned by tr_emb (the same modulation projection), or None."""
+        conditioned by tr_emb (the same modulation projection), or None;
+        ``sp_group``: the sequence-parallel group (x holds the rank's rows)."""
         sh, sc, gate, sh_mlp, sc_mlp, gate_mlp = self.norm1_mod(temb)
         csh, csc, cgate, csh_mlp, csc_mlp, cgate_mlp = self.norm1_context_mod(temb)
         t_sh = t_sc = t_gate = t_sh_mlp = t_sc_mlp = t_gate_mlp = None
@@ -333,7 +401,7 @@ class HunyuanDualBlock(nn.Module):
             n = tr[1]
         attn_x, attn_c = self.attn(_modulated(self.norm1, x, sc, sh, t_sc, t_sh, n),
                                    self.norm1_context.modulated(ctx, csc, csh), rope, text_mask,
-                                   jcfg, scores, routing_mode, expert_ids)
+                                   jcfg, scores, routing_mode, expert_ids, sp_group)
         x, ctx = _gated(x, attn_x, gate, t_gate, n), _gated(ctx, attn_c, cgate)
         x = _gated(x, self.ff(_modulated(self.norm2, x, sc_mlp, sh_mlp, t_sc_mlp, t_sh_mlp, n)),
                    gate_mlp, t_gate_mlp, n)
@@ -359,8 +427,9 @@ class HunyuanSingleBlock(nn.Module):
         self.router = Router(dim, cfg.num_heads, device=device)
 
     def forward(self, x, ctx, temb, rope, rope_joint, text_mask, jcfg, scores=None,
-                routing_mode="off", expert_ids=None, tr=None):
-        """``tr``: as the dual block's; text rows never take tr_emb."""
+                routing_mode="off", expert_ids=None, tr=None, sp_group=None):
+        """``tr`` and ``sp_group``: as the dual block's; text rows never take
+        tr_emb."""
         video_len = x.shape[1]
         joint = torch.cat([x, ctx], dim=1)
         sh, sc, gate = self.norm_mod(temb)
@@ -372,7 +441,7 @@ class HunyuanSingleBlock(nn.Module):
         mlp = F.gelu(mlp_in, approximate="tanh")
         del mlp_in
         attn = self.attn((qp, kp, vp), video_len, rope_joint, text_mask, jcfg, scores,
-                         routing_mode, expert_ids)
+                         routing_mode, expert_ids, sp_group)
         del qp, kp, vp
         joint = _gated(joint, self.proj_out(torch.cat([attn, mlp], dim=2)), gate, t_gate, n)
         return joint[:, :video_len], joint[:, video_len:]
@@ -512,18 +581,21 @@ class HunyuanModel(nn.Module):
         """The dual blocks then the single blocks, in the order they run."""
         return list(self.dual_blocks) + list(self.single_blocks)
 
-    def _rope(self, grid: Shape3):
-        """(cos, sin) of the video rows, and of the joint rows with the
-        identity rotation on the text rows, on the model's device."""
-        if grid not in self._rope_cache:
-            cos, sin = hunyuan_rope_tables(grid, self.cfg)
+    def _rope(self, grid: Shape3, rows: Tuple[int, int]):
+        """(cos, sin) of the video rows ``rows`` = (start, count) of the global
+        grid (the rank's under sequence parallelism), and of those rows then
+        the text rows with the identity rotation, on the model's device."""
+        key = (grid, rows)
+        if key not in self._rope_cache:
+            cos, sin = (a[rows[0]:rows[0] + rows[1]] for a in hunyuan_rope_tables(grid, self.cfg))
             lt = self.cfg.text_len
             cos_j = np.concatenate([cos, np.ones((lt, cos.shape[1]), np.float32)])
             sin_j = np.concatenate([sin, np.zeros((lt, sin.shape[1]), np.float32)])
-            self._rope_cache[grid] = tuple(
-                (torch.from_numpy(c).to(self.device), torch.from_numpy(s).to(self.device))
+            self._rope_cache[key] = tuple(
+                (torch.from_numpy(np.ascontiguousarray(c)).to(self.device),
+                 torch.from_numpy(np.ascontiguousarray(s)).to(self.device))
                 for c, s in ((cos, sin), (cos_j, sin_j)))
-        return self._rope_cache[grid]
+        return self._rope_cache[key]
 
     def forward(self, *args, mm_precision: str = "bf16", **kwargs) -> HunyuanOutput:
         """See ``_forward``; ``mm_precision="int8"`` runs the projections the
@@ -538,32 +610,41 @@ class HunyuanModel(nn.Module):
                  return_scores: bool = False, return_losses: bool = False,
                  remat_blocks: bool = False, act_scales: Optional[dict] = None,
                  calibrate_mm: bool = False, quantized_blocks=None,
-                 sp_axis=None, step_cache=None, cache_threshold: float = 0.0,
-                 cache_force_compute=None, cache_coefficients=None) -> HunyuanOutput:
+                 sp_group=None, frozen_sharded=None, step_cache=None,
+                 cache_threshold: float = 0.0, cache_force_compute=None,
+                 cache_coefficients=None) -> HunyuanOutput:
         """latents (B, T, H, W, C_in), timestep (B,), text_states (B, L,
         text_dim), text_mask (B, L) bool, pooled_text (B, pooled_dim),
         guidance (B,) = guidance scale x 1000.  ``act_scales``: {site:
         (layers,)} static int8 activation scales; ``quantized_blocks``: a
         (dual, single) pair of ``BlockStack`` the blocks run from.
         ``step_cache`` and the ``cache_*`` arguments: as models/wan.py's,
-        with temb the indicator."""
-        unported = (
-            (return_losses, "return_losses (Hunyuan router training) belongs to a later slice"),
-            (remat_blocks, "remat_blocks (Hunyuan router training) belongs to a later slice"),
-            (sp_axis is not None, "sequence parallelism belongs to a later slice"),
-        )
-        for bad, why in unported:
-            if bad:
-                raise NotImplementedError(why)
-        if step_cache is not None and calibrate_mm:
-            raise ValueError("step caching is a serving mode: incompatible with "
-                             "return_losses / calibrate_mm")
+        with temb the indicator.  ``return_losses`` / ``remat_blocks``: the
+        training forward (soft routing, the teacher in ``"off_ref"``);
+        ``sp_group``: the sequence-parallel group, latents the rank's frames
+        and ``attn_cfg`` the global grid; ``frozen_sharded``: the group the
+        blocks' frozen parameters are layer-sharded over."""
         if routing_mode not in MODES:
             raise ValueError(f"unknown routing mode {routing_mode!r}")
+        if return_losses and routing_mode in ("off", "off_ref"):
+            raise ValueError("return_losses requires routed attention")
+        if step_cache is not None and (return_losses or calibrate_mm):
+            raise ValueError("step caching is a serving mode: incompatible with "
+                             "return_losses / calibrate_mm")
+        serving_only = (quantized_blocks is not None or act_scales or calibrate_mm
+                        or qmm.current_mm_precision() != "bf16")
+        if serving_only and (return_losses or remat_blocks):
+            raise NotImplementedError("the int8, calibration and quantized-block modes serve; "
+                                      "router training (return_losses, remat) runs bf16")
+        if frozen_sharded is not None and quantized_blocks is not None:
+            raise ValueError("frozen_sharded shards the model's own blocks; quantized_blocks "
+                             "serve a stack")
         cfg = self.cfg
         b, t_px, h_px, w_px, _ = latents.shape
         pt, ph, pw = cfg.patch_size
-        grid = (t_px // pt, h_px // ph, w_px // pw)
+        sp, sp_rank = ((1, 0) if sp_group is None
+                       else (dist.get_world_size(sp_group), dist.get_rank(sp_group)))
+        grid = (sp * (t_px // pt), h_px // ph, w_px // pw)
         if attn_cfg is None:
             attn_cfg = AttentionConfig(latent_shape=grid, sta_tile=grid)
         elif attn_cfg.latent_shape != grid:
@@ -577,35 +658,43 @@ class HunyuanModel(nn.Module):
         # NDHWC VALID conv with stride = patch, as a Conv3d on NCDHW
         x = self.x_embedder(latents.to(self.dtype).permute(0, 4, 1, 2, 3))
         x = x.flatten(2).transpose(1, 2).contiguous()  # (B, S, dim), raster order
+        s_local = x.shape[1]
         temb, clean_temb, tr_emb = self.time_text_embed(
             timestep, pooled_text.to(self.dtype),
             None if guidance is None else guidance.to(timestep.device),
             token_replace=cfg.image_condition_type == "token_replace")
         # token replace: the first latent frame's rows take tr_emb's modulation
-        tr = None if tr_emb is None else (tr_emb, (h_px // ph) * (w_px // pw))
+        # (this rank's share of them: ranks hold contiguous rows)
+        n_first = min(max((h_px // ph) * (w_px // pw) - sp_rank * s_local, 0), s_local)
+        tr = None if tr_emb is None or n_first == 0 else (tr_emb, n_first)
         ctx = self.context_embedder(text_states.to(self.dtype), timestep, text_mask)
-        rope, rope_joint = self._rope(grid)
+        rope, rope_joint = self._rope(grid, (sp_rank * s_local, s_local))
 
-        # (block list, its stack or None, its layers, its static scales)
+        # (block list, its stack or None, its layers, its static scales, its fetch or None)
         stacks = []
         for name, stack, prefix in zip(("dual_blocks", "single_blocks"),
                                        quantized_blocks or (None, None), ("dual.", "single.")):
             blocks = getattr(self, name)
             n = len(blocks) if stack is None else stack.num_layers
             table = {k: v for k, v in (act_scales or {}).items() if k.startswith(prefix)}
-            stacks.append((blocks, stack, n, qmm.layer_scale_table(table, x.device)))
+            fetch = (None if frozen_sharded is None
+                     else sharded_block_fetcher(blocks, n, frozen_sharded))
+            stacks.append((blocks, stack, n, qmm.layer_scale_table(table, x.device), fetch))
 
         def blocks_in_order(prefix: str = ""):
-            for blocks, stack, n, scales in stacks:
+            """(block, its static scales, its fetch: block i's frozen
+            parameters broadcast from their owner, or None)."""
+            for blocks, stack, n, scales, fetch in stacks:
                 for i in range(n):
                     block = blocks[i] if stack is None else stack.load(i, blocks[0], prefix)
-                    yield block, scales(i)
+                    yield block, scales(i), (None if fetch is None
+                                             else (lambda fetch=fetch, i=i: fetch(i)))
 
         scores = None  # (layers, B, H, E): every router reads only the timestep embedding
-        if routing_mode != "off":
+        if routing_mode not in ("off", "off_ref"):
             scores = torch.stack([block.router(clean_temb)
-                                  for block, _ in blocks_in_order("router.")])
-        n_layers = sum(n for _, _, n, _ in stacks)
+                                  for block, _, _ in blocks_in_order("router.")])
+        n_layers = sum(n for _, _, n, _, _ in stacks)
         ids, ids_dev, ids_host = [None] * n_layers, None, None
         if routing_mode == "hard":
             ids_dev = torch.stack([route_expert_ids(sc, attn_cfg.tau_sparse) for sc in scores])
@@ -621,13 +710,37 @@ class HunyuanModel(nn.Module):
         if ids_dev is not None and not skip:
             ids = list(zip(ids_dev, ids_host))
         calib = {"dual.": [], "single.": []}
-        x_in = x
-        for i, (block, scales) in enumerate(() if skip else blocks_in_order()):
-            with qmm.layer_act_scales(scales), qmm.calibration(calibrate_mm) as sink:
-                x, ctx = block(x, ctx, temb, rope, rope_joint, text_mask, jcfg,
-                               scores[i] if scores is not None else None, routing_mode, ids[i],
-                               tr=tr)
-            calib["dual." if isinstance(block, HunyuanDualBlock) else "single."].append(sink)
+        remat = remat_blocks and torch.is_grad_enabled()
+        x_in, x_t, c_t, reg, hid = x, x, ctx, None, None
+        if return_losses:
+            reg = hid = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, (block, scales, fetch) in enumerate(() if skip else blocks_in_order()):
+            run = block if fetch is None else fetch()
+            args = (x, ctx, temb, rope, rope_joint, text_mask, jcfg,
+                    scores[i] if scores is not None else None, routing_mode, ids[i], tr, sp_group)
+            if remat:
+                # the recompute in the backward fetches the sharded block again
+                once = [run]
+
+                def student(*a, once=once, block=block, fetch=fetch):
+                    return (once.pop() if once else block if fetch is None else fetch())(*a)
+
+                with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+                    x, ctx = torch.utils.checkpoint.checkpoint(
+                        student, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                with qmm.layer_act_scales(scales), qmm.calibration(calibrate_mm) as sink:
+                    x, ctx = run(*args)
+                calib["dual." if isinstance(block, HunyuanDualBlock) else "single."].append(sink)
+            if return_losses:
+                with torch.no_grad():  # the frozen teacher: full attention, plain version
+                    x_t, c_t = run(x_t, c_t, temb, rope, rope_joint, text_mask, jcfg, None,
+                                   "off_ref", None, tr, sp_group)
+                # L2 on the full-attention routing weight, and the per-block
+                # distance between the video streams
+                reg = reg + scores[i][:, :, 0].square().mean()
+                hid = hid + (x_t.float() - x.float()).square().mean()
+            del run
         new_cache = None
         if step_cache is not None:  # only the video stream's delta: the head reads x alone
             if skip:
@@ -639,19 +752,29 @@ class HunyuanModel(nn.Module):
             else:
                 new_cache = stepcache.computed(ind, x_in, x)
 
-        sc, sh = self.norm_out_mod(temb)  # AdaLayerNormContinuous: scale first
-        out = self.proj_out(self.norm_out.modulated(x, sc, sh))
+        out = self._head(x, temb)
+        last = None
+        if return_losses:
+            with torch.no_grad():
+                out_t = self._head(x_t, temb)
+            last = (out_t.float() - out.float()).square().mean()
         if return_scores and scores is None:
             scores = torch.zeros((n_layers, b, cfg.num_heads, attn_cfg.num_experts),
                                  device=x.device)
-        t, h, w = grid
+        t, h, w = grid[0] // sp, grid[1], grid[2]  # the rank's frames
         sample = out.reshape(b, t, h, w, pt, ph, pw, cfg.out_channels).permute(
             0, 1, 4, 2, 5, 3, 6, 7).reshape(b, t * pt, h * ph, w * pw, cfg.out_channels)
         mm_calibration = None
         if calibrate_mm:
             mm_calibration = {k: v for layers in calib.values() if layers
                               for k, v in qmm.stack_calibration(layers).items()}
-        return HunyuanOutput(sample=sample, routing_scores=scores if return_scores else None,
+        return HunyuanOutput(sample=sample, reg_loss=reg, last_layer_distill_loss=last,
+                             hidden_layer_distill_loss=hid,
+                             routing_scores=scores if return_scores else None,
                              expert_ids=ids_host, mm_calibration=mm_calibration,
                              step_cache=new_cache,
                              cache_skipped=skip if step_cache is not None else None)
+
+    def _head(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        sc, sh = self.norm_out_mod(temb)  # AdaLayerNormContinuous: scale first
+        return self.proj_out(self.norm_out.modulated(x, sc, sh))

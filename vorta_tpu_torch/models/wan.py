@@ -43,7 +43,16 @@ image_dim) CLIP image tokens go through ``WanImageEmbedding`` and every
 block's cross-attention attends to them with its own key / value
 projections (``add_k_proj`` / ``add_v_proj``, RMS-normed keys), a second
 ``padded_dense_attention`` summed into the text one.
-No sequence parallelism in the port yet.
+
+Sequence parallelism (``sp_group``, a ``torch.distributed`` group):
+``latents`` hold this rank's contiguous latent-frame chunk and
+``attn_cfg.latent_shape`` is the global grid; the conditioning is
+replicated.  Self-attention reshards q / k / v to the full sequence of the
+rank's heads (parallel/ulysses.py), the router scores and the hard routing
+sliced to those heads, and its output back; RoPE takes the rank's rows of
+the global tables; cross-attention needs no collective.  The output is the
+rank's frame chunk.  ``frozen_sharded`` (a group) runs the blocks from
+layer-sharded frozen parameters (parallel/fsdp.py), as models/hunyuan.py.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
@@ -65,6 +75,13 @@ from ..ops import qmm, stepcache
 from ..ops.qmm import FusedLinear, QLinear
 from ..ops.routed_fused import route_expert_ids
 from ..ops.rope import apply_rope_half, rope_cos_sin
+from ..parallel.fsdp import sharded_block_fetcher
+from ..parallel.ulysses import (
+    all_to_all_heads_to_seq,
+    all_to_all_seq_to_heads,
+    local_expert_ids,
+    slice_local,
+)
 from .common import (
     FP32LayerNorm,
     GELUFeedForward,
@@ -125,7 +142,7 @@ class WanSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor],
                 attn_cfg: AttentionConfig, scores: Optional[torch.Tensor] = None,
-                routing_mode: str = "off", expert_ids=None) -> torch.Tensor:
+                routing_mode: str = "off", expert_ids=None, sp_group=None) -> torch.Tensor:
         # one qkv product; q/k columns and gains are stored in the
         # half-permuted RoPE layout (ops/rope.py permute_qk_to_half)
         q, k, v = self.qkv(x)
@@ -145,11 +162,19 @@ class WanSelfAttention(nn.Module):
             q = apply_rope_half(_split_heads(q, self.num_heads), cos, sin)
             k = apply_rope_half(_split_heads(k, self.num_heads), cos, sin)
             v = _split_heads(v, self.num_heads)
+        if sp_group is not None:
+            # Ulysses reshard: the full sequence, 1/P of the heads per rank
+            q, k, v = (all_to_all_heads_to_seq(a, sp_group) for a in (q, k, v))
+            if scores is not None:
+                scores = slice_local(scores, 1, sp_group)
+            expert_ids = local_expert_ids(expert_ids, sp_group)
         if routing_mode == "off":
             out = full_attention(q, k, v, attn_cfg)
         else:
             out = routed_attention(q, k, v, scores, attn_cfg, mode=routing_mode,
                                    expert_ids=expert_ids)
+        if sp_group is not None:
+            out = all_to_all_seq_to_heads(out, sp_group)
         return self.to_out(_merge_heads(out))
 
 
@@ -215,14 +240,16 @@ class WanBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: torch.Tensor, temb6: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor], attn_cfg: AttentionConfig,
                 scores: Optional[torch.Tensor] = None, routing_mode: str = "off",
-                expert_ids=None, image_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                expert_ids=None, image_context: Optional[torch.Tensor] = None,
+                sp_group=None) -> torch.Tensor:
         """``scores``: this block's (B, H, E) router scores; ``expert_ids``:
         its hard routing as (ids on the device, the same ids on the host);
-        ``image_context``: the embedded image tokens (I2V)."""
+        ``image_context``: the embedded image tokens (I2V); ``sp_group``: the
+        sequence-parallel group (x holds the rank's rows)."""
         mod = self.scale_shift_table + temb6.float()  # (B, 6, dim) f32
         gate_msa, c_gate = mod[:, 2][:, None, :], mod[:, 5][:, None, :]
         norm_x = self.norm1.modulated(x, mod[:, 1], mod[:, 0])
-        attn_out = self.attn1(norm_x, rope, attn_cfg, scores, routing_mode, expert_ids)
+        attn_out = self.attn1(norm_x, rope, attn_cfg, scores, routing_mode, expert_ids, sp_group)
         # self-attention and FFN residuals add in f32, then cast
         x = (x.float() + attn_out.float() * gate_msa).to(x.dtype)
         # the cross-attention residual adds in x's dtype
@@ -314,12 +341,17 @@ class WanModel(nn.Module):
     def device(self) -> torch.device:
         return self.scale_shift_table.device
 
-    def _rope(self, grid: Tuple[int, int, int]):
-        if grid not in self._rope_cache:
-            cos, sin = rope_cos_sin(grid, self.cfg.head_dim, self.cfg.rope_theta)
-            self._rope_cache[grid] = (torch.from_numpy(cos).to(self.device),
-                                      torch.from_numpy(sin).to(self.device))
-        return self._rope_cache[grid]
+    def _rope(self, grid: Tuple[int, int, int], rows: Optional[Tuple[int, int]] = None):
+        """(cos, sin) of the rows ``rows`` = (start, count) of the global grid
+        (all of them by default), on the model's device."""
+        rows = rows or (0, int(np.prod(grid)))
+        key = (grid, rows)
+        if key not in self._rope_cache:
+            cos, sin = (np.ascontiguousarray(a[rows[0]:rows[0] + rows[1]]) for a in
+                        rope_cos_sin(grid, self.cfg.head_dim, self.cfg.rope_theta))
+            self._rope_cache[key] = (torch.from_numpy(cos).to(self.device),
+                                     torch.from_numpy(sin).to(self.device))
+        return self._rope_cache[key]
 
     def forward(self, *args, mm_precision: str = "bf16", **kwargs) -> WanOutput:
         """See ``_forward``; ``mm_precision="int8"`` runs the block
@@ -334,7 +366,8 @@ class WanModel(nn.Module):
                  remat_blocks: bool = False, act_scales: Optional[dict] = None,
                  calibrate_mm: bool = False, quantized_blocks=None, step_cache=None,
                  cache_threshold: float = 0.0, cache_force_compute=None,
-                 cache_coefficients=None, return_hidden_delta: bool = False) -> WanOutput:
+                 cache_coefficients=None, return_hidden_delta: bool = False,
+                 sp_group=None, frozen_sharded=None) -> WanOutput:
         """latents (B, T, H, W, C_in), timestep (B,), context (B, L, text_dim);
         ``image_context`` (B, 257, image_dim) CLIP image tokens (I2V).
         ``act_scales``: {site: (num_layers,)} static int8 activation scales;
@@ -344,7 +377,10 @@ class WanModel(nn.Module):
         under ``cache_threshold`` and ``cache_force_compute`` (a bool, or a
         () bool tensor) is not set.  ``return_hidden_delta``: the block
         stack's out - in and the cache's indicator (the probe the JAX
-        package's tools/fit_cache_poly.py reads)."""
+        package's tools/fit_cache_poly.py reads).  ``sp_group``: the
+        sequence-parallel group, latents the rank's frames and ``attn_cfg``
+        the global grid; ``frozen_sharded``: the group the blocks' frozen
+        parameters are layer-sharded over."""
         if routing_mode not in ROUTING_MODES:
             raise ValueError(f"unknown routing mode {routing_mode!r}")
         if return_losses and routing_mode == "off":
@@ -357,10 +393,15 @@ class WanModel(nn.Module):
         if serving_only and (return_losses or remat_blocks):
             raise NotImplementedError("the int8, calibration and quantized-block modes serve; "
                                       "router training (return_losses, remat) runs bf16")
+        if frozen_sharded is not None and quantized_blocks is not None:
+            raise ValueError("frozen_sharded shards the model's own blocks; quantized_blocks "
+                             "serve a stack")
         cfg = self.cfg
         b, t_px, h_px, w_px, _ = latents.shape
         pt, ph, pw = cfg.patch_size
-        grid = (t_px // pt, h_px // ph, w_px // pw)
+        sp, sp_rank = ((1, 0) if sp_group is None
+                       else (dist.get_world_size(sp_group), dist.get_rank(sp_group)))
+        grid = (sp * (t_px // pt), h_px // ph, w_px // pw)
         if attn_cfg is None:
             attn_cfg = AttentionConfig(latent_shape=grid, sta_tile=grid)
         elif attn_cfg.latent_shape != grid:
@@ -373,8 +414,11 @@ class WanModel(nn.Module):
 
         temb, temb6, ctx, img = self.condition_embedder(timestep, context.to(self.dtype),
                                                         image_context)
-        rope = self._rope(grid)
+        s_local = x.shape[1]
+        rope = self._rope(grid, (sp_rank * s_local, s_local))
         n_layers = len(self.blocks) if quantized_blocks is None else quantized_blocks.num_layers
+        fetch = (None if frozen_sharded is None
+                 else sharded_block_fetcher(self.blocks, n_layers, frozen_sharded))
 
         def block_at(i: int, prefix: str = "") -> WanBlock:
             if quantized_blocks is None:
@@ -406,19 +450,29 @@ class WanModel(nn.Module):
         calib = []
         for i in range(0 if skip else n_layers):
             block = block_at(i)
+            # block i's frozen parameters broadcast from their owner, or the block
+            run = block if fetch is None else fetch(i)
             args = (x, ctx, temb6, rope, attn_cfg, scores[i] if scores is not None else None,
-                    routing_mode, ids[i], img)
+                    routing_mode, ids[i], img, sp_group)
             if remat:
+                # the recompute in the backward fetches the sharded block again
+                once = [run]
+
+                def student(*a, once=once, i=i):
+                    return (once.pop() if once else self.blocks[i] if fetch is None
+                            else fetch(i))(*a)
+
                 with torch.utils.checkpoint.set_checkpoint_early_stop(False):
-                    x = torch.utils.checkpoint.checkpoint(block, *args, use_reentrant=False,
+                    x = torch.utils.checkpoint.checkpoint(student, *args, use_reentrant=False,
                                                           preserve_rng_state=False)
             else:
                 with qmm.layer_act_scales(scales(i)), qmm.calibration(calibrate_mm) as sink:
-                    x = block(*args)
+                    x = run(*args)
                 calib.append(sink)
             if return_losses:
                 with torch.no_grad():  # the frozen teacher: routing off
-                    x_t = block(x_t, ctx, temb6, rope, attn_cfg, image_context=img)
+                    x_t = run(x_t, ctx, temb6, rope, attn_cfg, image_context=img,
+                              sp_group=sp_group)
                 # L2 on the full-attention routing weight, and the per-block
                 # distance between the streams
                 reg = reg + scores[i][:, :, 0].square().mean()
@@ -443,7 +497,7 @@ class WanModel(nn.Module):
         if return_scores and scores is None:
             scores = torch.zeros((n_layers, b, cfg.num_heads, attn_cfg.num_experts),
                                  device=x.device)
-        return WanOutput(sample=self._unpatchify(out, b, grid),
+        return WanOutput(sample=self._unpatchify(out, b, (grid[0] // sp,) + grid[1:]),
                          routing_scores=scores if return_scores else None, expert_ids=ids_host,
                          reg_loss=reg, last_layer_distill_loss=last,
                          hidden_layer_distill_loss=hid,

@@ -40,7 +40,9 @@ expert runs once over all heads with an (H,) active mask, and each head's
 output equals its expert's (the JAX package runs a per-head switch at these
 geometries; the heads are independent, so the outputs are the same).  The
 ``*_ref`` functions are the plain versions (online-softmax attention with
-the same masks), the soft-routing formulation.
+the same masks), the soft-routing formulation; they run the chunked
+attention in its recompute-backward form (``attention_chunked_recompute``).  ``"off_ref"`` is full attention through
+its plain version, the frozen teacher's mode in Hunyuan router training.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ import torch
 
 from ..config import AttentionConfig
 from ..geometry import cdiv, sta_tile_mask
-from .attention_ref import attention_chunked
+from .attention_ref import attention_chunked_recompute
 from .coreset import pool_by_similarity, unpool_by_similarity
 from .coreset_pallas import head_map_for, pool_qkv, unpool
 from .experts import FULL, LOWRES, STA, _dense_tables_cached, lowres_groups_for
@@ -71,7 +73,7 @@ from .sta_batched import PairBitTables, pair_bit_tables, sta_flash_headbatched
 from .sta_window import prefer_window_dense
 
 NEG = -1e30
-MODES = ("off", "hard", "soft")
+MODES = ("off", "off_ref", "hard", "soft")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,8 +288,11 @@ def _joint_sta_batched(qv, kv_, vv, qt, kt, vt, text_mask, jcfg: JointConfig, ac
 
 
 def _chunked(q, k, v, block_mask, bias, block, scale, dtype):
-    out = attention_chunked(q, k, v, block_mask=block_mask, scale=scale, block_q=block,
-                            block_kv=block, kv_bias=bias)
+    """The chunked plain attention in its recompute-backward form (the same
+    forward, O(S * block) memory under autograd)."""
+    with torch.profiler.record_function("joint_reference_attention"):
+        out = attention_chunked_recompute(q, k, v, block_mask=block_mask, scale=scale,
+                                          block_q=block, block_kv=block, kv_bias=bias)
     return out.to(dtype)
 
 
@@ -358,13 +363,18 @@ def routed_joint_attention(qv, kv_, vv, qt, kt, vt, scores: Optional[torch.Tenso
                            text_mask: torch.Tensor, jcfg: JointConfig, mode: str = "soft",
                            scale: Optional[float] = None, expert_ids=None):
     """Returns (video (B, H, Sv, D), text (B, H, L, D)), the padded text rows
-    zeroed.  Modes: "off" (full attention), "hard" (each head through its expert, the masked dispatch;
+    zeroed.  Modes: "off" (full attention), "off_ref" (full attention
+    through the plain version: the frozen teacher's pass in training, as in
+    JAX, where it runs under grad tracing), "hard" (each head through its expert, the masked dispatch;
     ``expert_ids``: the routing already made, as (ids on the device, the
     same ids on the host), else made here from ``scores``), "soft" (the
     plain versions weighted by the scores)."""
     if mode == "off":
         video, text = joint_full_attention(qv, kv_, vv, qt, kt, vt, text_mask, jcfg,
                                            scale=scale)
+    elif mode == "off_ref":
+        video, text = joint_full_attention_ref(qv, kv_, vv, qt, kt, vt, text_mask, jcfg,
+                                               scale=scale)
     elif mode == "hard":
         if expert_ids is None:
             ids = route_expert_ids(scores, jcfg.video.tau_sparse)

@@ -18,7 +18,9 @@ forward, as in pipelines/wan_t2v.py, and so does the step cache
 per DiT evaluation stream, indicator temb; ``cache_log`` as there).
 Returns latents; ``decode`` turns them into pixels through the attached
 VAE (models/hunyuan_vae.py), whole-clip or tiled (models/vae_tiling.py).
-The mesh belongs to a later slice.
+Sequence parallelism (``sp_group``) as in pipelines/wan_t2v.py: the
+scheduler state replicated, the model on this rank's frames (the joint
+attention's Ulysses reshard inside it), its velocity gathered.
 """
 
 from __future__ import annotations
@@ -30,8 +32,7 @@ import torch
 
 from ..config import AttentionConfig
 from ..models.hunyuan import HunyuanModel
-from ..ops.stepcache import init_step_cache
-from .wan_t2v import integrate, make_schedule, stepper
+from .wan_t2v import init_caches, integrate, make_schedule, sp_frames, sp_gather, stepper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,16 +56,19 @@ class HunyuanT2VPipeline:
     """Latent-space T2V sampler on the model's device."""
 
     def __init__(self, model: HunyuanModel, attn_cfg: Optional[AttentionConfig] = None,
-                 vae=None, act_scales: Optional[dict] = None, quantized_blocks=None):
+                 vae=None, act_scales: Optional[dict] = None, quantized_blocks=None,
+                 sp_group=None):
         """``vae``: the HunyuanVAE ``decode`` runs; ``act_scales``: {site:
         (L,)} static int8 activation scales; ``quantized_blocks``: the
         quantized stack the blocks run from (io/quant_serving.py), with
-        ``model`` its depth-1 model."""
+        ``model`` its depth-1 model; ``sp_group``: the sequence-parallel
+        group (``attn_cfg`` then gives the global grid)."""
         self.model = model
         self.attn_cfg = attn_cfg
         self.vae = vae
         self.act_scales = act_scales
         self.quantized_blocks = quantized_blocks
+        self.sp_group = sp_group
 
     def prepare_latents(self, generator: torch.Generator, batch: int, frames: int,
                         height: int, width: int) -> torch.Tensor:
@@ -92,16 +96,8 @@ class HunyuanT2VPipeline:
                    sampling: HunyuanSamplingConfig = HunyuanSamplingConfig()):
         """(x, m_prev, m_prev2, x_prev, caches), as in pipelines/wan_t2v.py."""
         x = latents.float()
-        caches = ()
-        if sampling.cache_threshold > 0.0:
-            cfg = self.model.cfg
-            b, t_px, h_px, w_px, _ = x.shape
-            pt, ph, pw = cfg.patch_size
-            seq = (t_px // pt) * (h_px // ph) * (w_px // pw)
-            do_cfg = sampling.true_cfg_scale > 1.0
-            arms = [2 * b] if (do_cfg and sampling.cfg_batch) else [b] * (2 if do_cfg else 1)
-            caches = tuple(init_step_cache(n, seq, cfg.dim, cfg.dim, self.model.dtype,
-                                           x.device) for n in arms)
+        caches = init_caches(self.model, x, sampling, sampling.true_cfg_scale > 1.0,
+                             self.model.cfg.dim, self.sp_group)
         return x, torch.zeros_like(x), torch.zeros_like(x), x, caches
 
     def _velocity(self, x, t, text, mask, pooled, neg_text, neg_pooled, guidance,
@@ -109,11 +105,12 @@ class HunyuanT2VPipeline:
         model, dtype = self.model, self.model.dtype
         kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode,
                   mm_precision=sampling.mm_precision, act_scales=self.act_scales,
-                  quantized_blocks=self.quantized_blocks)
+                  quantized_blocks=self.quantized_blocks, sp_group=self.sp_group)
         if caches:
             kw.update(cache_threshold=sampling.cache_threshold, cache_force_compute=force,
                       cache_coefficients=sampling.cache_coefficients)
         new_caches = []
+        x = sp_frames(x, self.sp_group)
 
         def forward(*args, g):
             arm = len(new_caches)
@@ -124,7 +121,7 @@ class HunyuanT2VPipeline:
                 new_caches.append(out.step_cache)
                 if cache_log is not None:
                     cache_log.append((i, arm, out.cache_skipped))
-            return out.sample.float()
+            return sp_gather(out.sample.float(), self.sp_group)
 
         s = float(sampling.true_cfg_scale)
         do_cfg = s > 1.0

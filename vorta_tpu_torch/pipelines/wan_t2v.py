@@ -19,8 +19,15 @@ evaluation stream keeps its own cache (one at batch 2B under
 ``cfg_batch``, else one per CFG arm); the first ``cache_warmup`` steps and
 the last always compute.  A ``cache_log`` list gets ``(step, arm,
 skipped)`` for each cached forward.  I2V: ``image_embeds`` (B, 257,
-image_dim) go to every forward, the unconditional one too.  No mesh in
-this slice.
+image_dim) go to every forward, the unconditional one too.
+
+Sequence parallelism (``sp_group``, a ``torch.distributed`` group; JAX's
+``mesh``): the scheduler state stays replicated; each step the model runs
+on this rank's contiguous latent frames (the Ulysses reshard inside it,
+models/wan.py) and its velocity is gathered over the group before the
+scheduler step, so every rank carries the same latents.  CFG batching and
+the step cache work as without it (each rank's cache holds its own rows;
+the skip decision reads the replicated modulation, so the ranks agree).
 """
 
 from __future__ import annotations
@@ -29,10 +36,12 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import AttentionConfig
 from ..models.wan import WanModel
 from ..ops.stepcache import init_step_cache
+from ..parallel.ulysses import gather_sequence
 from ..schedulers.flow_match import FlowMatchEulerSchedule
 from ..schedulers.unipc import UniPCSchedule, unipc_sample_step
 
@@ -73,6 +82,35 @@ def integrate(schedule, sampling, carry: tuple, v: torch.Tensor, i: int) -> tupl
     return schedule.step(x, v, i), m_prev, m_prev2, x_prev, caches
 
 
+def sp_frames(x: torch.Tensor, sp_group) -> torch.Tensor:
+    """This rank's contiguous latent frames of (B, T, H, W, C) ``x``."""
+    if sp_group is None:
+        return x
+    p, r = dist.get_world_size(sp_group), dist.get_rank(sp_group)
+    if x.shape[1] % p:
+        raise ValueError(f"{x.shape[1]} latent frames not divisible by the sp group's {p} ranks")
+    t = x.shape[1] // p
+    return x[:, r * t:(r + 1) * t]
+
+
+def sp_gather(v: torch.Tensor, sp_group) -> torch.Tensor:
+    """The whole clip's frames of a rank-local (B, T/P, H, W, C) ``v``."""
+    return v if sp_group is None else gather_sequence(v, 1, sp_group)
+
+
+def init_caches(model, x: torch.Tensor, sampling, do_cfg: bool, width: int, sp_group):
+    """One step cache per DiT evaluation stream (one at batch 2B under
+    ``cfg_batch``), each over this rank's rows."""
+    if sampling.cache_threshold <= 0.0:
+        return ()
+    cfg = model.cfg
+    b, t_px, h_px, w_px, _ = sp_frames(x, sp_group).shape
+    pt, ph, pw = cfg.patch_size
+    seq = (t_px // pt) * (h_px // ph) * (w_px // pw)
+    arms = [2 * b] if (do_cfg and sampling.cfg_batch) else [b] * (2 if do_cfg else 1)
+    return tuple(init_step_cache(n, seq, cfg.dim, width, model.dtype, x.device) for n in arms)
+
+
 def stepper(pipe, sampling, chunk: int, step_once):
     """``(init_carry, step_fn, n_steps)`` around ``step_once(carry, i,
     *conditioning)``: ``step_fn`` runs ``chunk`` steps from step ``i``."""
@@ -92,14 +130,17 @@ class WanT2VPipeline:
     """Latent-space T2V sampler on the model's device."""
 
     def __init__(self, model: WanModel, attn_cfg: Optional[AttentionConfig] = None,
-                 act_scales: Optional[dict] = None, quantized_blocks=None):
+                 act_scales: Optional[dict] = None, quantized_blocks=None, sp_group=None):
         """``act_scales``: {site: (L,)} static int8 activation scales;
         ``quantized_blocks``: the quantized stack the blocks run from
-        (io/quant_serving.py), with ``model`` its depth-1 model."""
+        (io/quant_serving.py), with ``model`` its depth-1 model;
+        ``sp_group``: the sequence-parallel group (``attn_cfg`` is then
+        needed: the global grid)."""
         self.model = model
         self.attn_cfg = attn_cfg
         self.act_scales = act_scales
         self.quantized_blocks = quantized_blocks
+        self.sp_group = sp_group
 
     def prepare_latents(self, generator: torch.Generator, batch: int, frames: int,
                         height: int, width: int) -> torch.Tensor:
@@ -114,16 +155,8 @@ class WanT2VPipeline:
         """(x, m_prev, m_prev2, x_prev, caches): f32 latents and the step
         caches, one per DiT evaluation stream (none without the cache)."""
         x = latents.float()
-        caches = ()
-        if sampling.cache_threshold > 0.0:
-            cfg = self.model.cfg
-            b, t_px, h_px, w_px, _ = x.shape
-            pt, ph, pw = cfg.patch_size
-            seq = (t_px // pt) * (h_px // ph) * (w_px // pw)
-            do_cfg = sampling.guidance_scale > 1.0
-            arms = [2 * b] if (do_cfg and sampling.cfg_batch) else [b] * (2 if do_cfg else 1)
-            caches = tuple(init_step_cache(n, seq, cfg.dim, 6 * cfg.dim, self.model.dtype,
-                                           x.device) for n in arms)
+        caches = init_caches(self.model, x, sampling, sampling.guidance_scale > 1.0,
+                             6 * self.model.cfg.dim, self.sp_group)
         return x, torch.zeros_like(x), torch.zeros_like(x), x, caches
 
     def _velocity(self, x, t, pe, ne, image_embeds, sampling: SamplingConfig, caches, force,
@@ -131,11 +164,12 @@ class WanT2VPipeline:
         model, dtype = self.model, self.model.dtype
         kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode,
                   mm_precision=sampling.mm_precision, act_scales=self.act_scales,
-                  quantized_blocks=self.quantized_blocks)
+                  quantized_blocks=self.quantized_blocks, sp_group=self.sp_group)
         if caches:
             kw.update(cache_threshold=sampling.cache_threshold, cache_force_compute=force,
                       cache_coefficients=sampling.cache_coefficients)
         new_caches = []
+        x = sp_frames(x, self.sp_group)
 
         def forward(*args, img):
             arm = len(new_caches)
@@ -147,7 +181,7 @@ class WanT2VPipeline:
                 new_caches.append(out.step_cache)
                 if cache_log is not None:
                     cache_log.append((i, arm, out.cache_skipped))
-            return out.sample.float()
+            return sp_gather(out.sample.float(), self.sp_group)
 
         g = float(sampling.guidance_scale)
         do_cfg = sampling.guidance_scale > 1.0

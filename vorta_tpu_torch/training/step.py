@@ -18,6 +18,24 @@ adamw(schedule))``, here ``ClippedAdamW`` over ``torch.optim.AdamW``
 gradient accumulation in ``MultiSteps`` with ``optax.MultiSteps``'
 semantics: the micro-step gradients are averaged (not summed), and the
 inner optimizer, whose schedule counts its own steps, steps on every k-th.
+
+``make_hunyuan_router_train_step`` is HunyuanVideo's: a batch of (latents,
+text states, text mask, pooled text) and the constant guidance 1000 of the
+reference (scripts/hunyuan/train_one_step.py).
+
+Parallelism (``sp_group`` / ``dp_group`` / ``frozen_sharded``,
+``torch.distributed`` groups): under sequence parallelism each rank holds
+its contiguous latent-frame shard; the timesteps are the same on every
+rank, and the noise is this rank's frames of one draw of the whole clip
+(each shard its own noise, the noise a single card would draw, where JAX
+folds the rank into the key).  The JAX step differentiates losses
+averaged over sp (``pmean`` of the flow-matching, last-layer and hidden
+losses; ``reg`` comes from the replicated router scores).  Here each rank
+differentiates its share, (dw fm_r + w_last last_r + w_hidden hidden_r +
+w_reg reg) / P, whose sum over the group is that loss; the collectives'
+backwards are exact adjoints (parallel/ulysses.py), so the router
+gradients summed over sp are the loss's, and are then averaged over dp.
+The metrics are the averaged losses (and averaged over dp).
 """
 
 from __future__ import annotations
@@ -27,6 +45,7 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import AttentionConfig
 from .sampling import rebalance_loss_weights, sample_timesteps
@@ -57,6 +76,25 @@ def router_partition(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
     if not params:
         raise ValueError("the model has no router parameters")
     return params
+
+
+STACKED = ("blocks", "dual_blocks", "single_blocks")
+
+
+def frozen_sharding_specs(model: torch.nn.Module) -> Dict[str, bool]:
+    """{name: layer-sharded} over the frozen (non-router) parameters: the
+    stacked block containers' (Wan's ``blocks``, Hunyuan's ``dual_blocks`` /
+    ``single_blocks``) shard by layer under ``--shard_frozen``
+    (parallel/fsdp.py ``shard_frozen_blocks``); the embedders, the head and
+    the token refiner stay replicated, as in the JAX package's
+    ``frozen_sharding_specs``."""
+    out = {}
+    for name, _ in model.named_parameters():
+        segs = name.split(".")
+        if "router" in segs:
+            continue
+        out[name] = "context_embedder" not in segs and segs[0] in STACKED
+    return out
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -184,38 +222,61 @@ def make_optimizer(params: Dict[str, torch.nn.Parameter], lr: float = 1e-2,
                         max_grad_norm=max_grad_norm)
 
 
+def _sp(group):
+    return (1, 0) if group is None else (dist.get_world_size(group), dist.get_rank(group))
+
+
 class RouterTrainStep:
     """The train step: ``step(model, optimizer, latents, prompt_embeds,
     generator) -> metrics``.  ``loss`` takes explicit (timesteps, sigmas,
     eps), so a caller can feed draws made elsewhere; ``draw`` makes them
-    from ``generator``."""
+    from ``generator``.  Under sequence parallelism ``latents`` and ``eps``
+    are the rank's frames (see the module's docstring)."""
+
+    guidance_value = None  # HunyuanVideo's constant training guidance
 
     def __init__(self, attn_cfg: AttentionConfig, weights: LossWeights,
-                 timestep_table, sigma_table, remat_blocks: bool = True):
+                 timestep_table, sigma_table, remat_blocks: bool = True, sp_group=None,
+                 dp_group=None, frozen_sharded=None):
         self.attn_cfg = attn_cfg
         self.weights = weights
         self.timestep_table = torch.as_tensor(timestep_table, dtype=torch.float32)
         self.sigma_table = torch.as_tensor(sigma_table, dtype=torch.float32)
         self.remat_blocks = remat_blocks
+        self.sp_group = sp_group
+        self.dp_group = dp_group
+        self.frozen_sharded = frozen_sharded
 
     def draw(self, generator: torch.Generator, latents: torch.Tensor):
-        """(timesteps (B,), sigmas (B,), eps like latents in f32)."""
+        """(timesteps (B,), sigmas (B,), eps like latents in f32): under
+        sequence parallelism eps is this rank's frames of one draw over the
+        whole clip, so every shard has its own noise."""
         dev = latents.device
         timesteps, sigmas = sample_timesteps(
             generator, latents.shape[0], self.timestep_table.to(dev), self.sigma_table.to(dev),
             n_intervals=self.weights.n_intervals)
-        eps = torch.randn(latents.shape, generator=generator, dtype=torch.float32,
-                          device=generator.device).to(dev)
+        p, r = _sp(self.sp_group)
+        t = latents.shape[1]
+        shape = (latents.shape[0], p * t) + tuple(latents.shape[2:])
+        eps = torch.randn(shape, generator=generator, dtype=torch.float32,
+                          device=generator.device)[:, r * t:(r + 1) * t].to(dev)
         return timesteps, sigmas, eps
 
-    def loss(self, model, latents, prompt_embeds, timesteps, sigmas, eps):
-        """(loss, metrics) of one micro-step at the given draws."""
+    def _forward(self, model, noisy, timesteps, cond):
+        (prompt_embeds,) = cond
+        return model(noisy.to(model.dtype), timesteps, prompt_embeds, **self._model_kw())
+
+    def _model_kw(self) -> dict:
+        return dict(attn_cfg=self.attn_cfg, routing_mode="soft", return_losses=True,
+                    remat_blocks=self.remat_blocks, sp_group=self.sp_group,
+                    frozen_sharded=self.frozen_sharded)
+
+    def _loss(self, model, latents, cond, timesteps, sigmas, eps):
         w = self.weights
         x0 = latents.float()
         sig = sigmas.float()[:, None, None, None, None]
         noisy = (1.0 - sig) * x0 + sig * eps
-        out = model(noisy.to(model.dtype), timesteps, prompt_embeds, attn_cfg=self.attn_cfg,
-                    routing_mode="soft", return_losses=True, remat_blocks=self.remat_blocks)
+        out = self._forward(model, noisy, timesteps, cond)
         pred = out.sample.float()
         if w.precondition_outputs:
             fm = ((noisy - pred * sig) - x0).square().mean()
@@ -226,10 +287,25 @@ class RouterTrainStep:
             n_intervals=w.n_intervals)
         reg, last, hidden = (out.reg_loss, out.last_layer_distill_loss,
                              out.hidden_layer_distill_loss)
-        loss = dw * fm + w_reg * reg + w_last * last + w_hidden * hidden
-        metrics = {"loss": loss, "l_fm": fm, "l_reg": reg, "l_last": last, "l_hidden": hidden,
-                   "timestep": timesteps[0]}
-        return loss, {k: v.detach() for k, v in metrics.items()}
+        p, _ = _sp(self.sp_group)
+        # this rank's share: its sum over the sp group is the loss
+        share = (dw * fm + w_reg * reg + w_last * last + w_hidden * hidden) / p
+        avg = {"l_fm": fm.detach(), "l_last": last.detach(), "l_hidden": hidden.detach()}
+        if self.sp_group is not None:  # JAX's pmean over sp
+            stacked = torch.stack(list(avg.values()))
+            dist.all_reduce(stacked, group=self.sp_group)
+            avg = dict(zip(avg, stacked / p))
+        loss = dw * avg["l_fm"] + w_reg * reg.detach() + w_last * avg["l_last"] \
+            + w_hidden * avg["l_hidden"]
+        metrics = {"loss": loss, "l_fm": avg["l_fm"], "l_reg": reg.detach(),
+                   "l_last": avg["l_last"], "l_hidden": avg["l_hidden"],
+                   "timestep": timesteps[0].detach()}
+        return share, metrics
+
+    def loss(self, model, latents, prompt_embeds, timesteps, sigmas, eps):
+        """(this rank's share of the loss, metrics) of one micro-step at the
+        given draws; without sequence parallelism the share is the loss."""
+        return self._loss(model, latents, (prompt_embeds,), timesteps, sigmas, eps)
 
     def __call__(self, model, optimizer: MultiSteps, latents, prompt_embeds,
                  generator: torch.Generator) -> dict:
@@ -240,19 +316,91 @@ class RouterTrainStep:
                   timesteps, sigmas, eps) -> dict:
         """One micro-step at the given draws: loss, router gradients, the
         accumulating optimizer.  ``grad_norm`` is this micro-step's own."""
+        return self._step(model, optimizer, self.loss(model, latents, prompt_embeds, timesteps,
+                                                      sigmas, eps))
+
+    def _step(self, model, optimizer: MultiSteps, loss_metrics) -> dict:
+        share, metrics = loss_metrics
         names = list(optimizer.params)
-        loss, metrics = self.loss(model, latents, prompt_embeds, timesteps, sigmas, eps)
-        grads = torch.autograd.grad(loss, [optimizer.params[n] for n in names])
+        grads = list(torch.autograd.grad(share, [optimizer.params[n] for n in names]))
+        grads, metrics = self.reduce(grads, metrics)
         metrics["grad_norm"] = global_norm(grads)
         optimizer.step(dict(zip(names, grads)))
         return metrics
 
+    def reduce(self, grads: list, metrics: dict):
+        """The router gradients summed over sp and averaged over dp, the
+        metrics averaged over dp (JAX's pmean over its dp axis)."""
+        if self.sp_group is not None:
+            flat = torch.cat([g.flatten() for g in grads])
+            dist.all_reduce(flat, group=self.sp_group)
+            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        if self.dp_group is not None:
+            n = dist.get_world_size(self.dp_group)
+            flat = torch.cat([g.flatten() for g in grads]
+                             + [torch.stack([m.float() for m in metrics.values()])])
+            dist.all_reduce(flat, group=self.dp_group)
+            flat = flat / n
+            sizes = [g.numel() for g in grads] + [len(metrics)]
+            parts = flat.split(sizes)
+            grads = [f.view_as(g) for f, g in zip(parts, grads)]
+            metrics = dict(zip(metrics, parts[-1]))
+        return grads, metrics
+
+
+class HunyuanRouterTrainStep(RouterTrainStep):
+    """HunyuanVideo's train step: ``step(model, optimizer, latents, text,
+    mask, pooled, generator) -> metrics``, the guidance embedder fed the
+    constant ``guidance_value`` (the reference trains at 1000)."""
+
+    def __init__(self, *args, guidance_value: float = 1000.0, **kw):
+        super().__init__(*args, **kw)
+        self.guidance_value = guidance_value
+
+    def _forward(self, model, noisy, timesteps, cond):
+        text, mask, pooled = cond
+        guidance = torch.full((noisy.shape[0],), self.guidance_value, device=noisy.device)
+        return model(noisy.to(model.dtype), timesteps, text, mask, pooled, guidance=guidance,
+                     **self._model_kw())
+
+    def loss(self, model, latents, text, mask, pooled, timesteps, sigmas, eps):
+        return self._loss(model, latents, (text, mask, pooled), timesteps, sigmas, eps)
+
+    def __call__(self, model, optimizer: MultiSteps, latents, text, mask, pooled,
+                 generator: torch.Generator) -> dict:
+        return self.step_with(model, optimizer, latents, text, mask, pooled,
+                              *self.draw(generator, latents))
+
+    def step_with(self, model, optimizer: MultiSteps, latents, text, mask, pooled,
+                  timesteps, sigmas, eps) -> dict:
+        return self._step(model, optimizer, self.loss(model, latents, text, mask, pooled,
+                                                      timesteps, sigmas, eps))
+
 
 def make_router_train_step(attn_cfg: AttentionConfig, weights: LossWeights = LossWeights(),
                            timestep_table=None, sigma_table=None,
-                           remat_blocks: bool = True) -> RouterTrainStep:
+                           remat_blocks: bool = True, sp_group=None, dp_group=None,
+                           frozen_sharded=None) -> RouterTrainStep:
     """The train step over (model, optimizer, latents, prompt_embeds,
-    generator), the JAX trainer's ``make_router_train_step`` on one card."""
+    generator), the JAX trainer's ``make_router_train_step``; the groups
+    stand for its ``sp_axis`` / ``dp_axis`` / ``frozen_sharded_axis``."""
     if timestep_table is None or sigma_table is None:
         raise ValueError("the train step needs the scheduler's timestep and sigma tables")
-    return RouterTrainStep(attn_cfg, weights, timestep_table, sigma_table, remat_blocks)
+    return RouterTrainStep(attn_cfg, weights, timestep_table, sigma_table, remat_blocks,
+                           sp_group, dp_group, frozen_sharded)
+
+
+def make_hunyuan_router_train_step(attn_cfg: AttentionConfig,
+                                   weights: LossWeights = LossWeights(),
+                                   timestep_table=None, sigma_table=None,
+                                   guidance_value: float = 1000.0, remat_blocks: bool = True,
+                                   sp_group=None, dp_group=None,
+                                   frozen_sharded=None) -> HunyuanRouterTrainStep:
+    """HunyuanVideo's train step over (model, optimizer, latents, text, mask,
+    pooled, generator), the JAX trainer's ``make_hunyuan_router_train_step``
+    (text, mask and pooled replicated under sequence parallelism)."""
+    if timestep_table is None or sigma_table is None:
+        raise ValueError("the train step needs the scheduler's timestep and sigma tables")
+    return HunyuanRouterTrainStep(attn_cfg, weights, timestep_table, sigma_table, remat_blocks,
+                                  sp_group, dp_group, frozen_sharded,
+                                  guidance_value=guidance_value)
