@@ -212,6 +212,32 @@ Prompt to video (no new kernel; the slice's path runs the DiT's kernels):
      routed, 1 Euler step, --vae_tiling; encode s, s per step, decode s,
      launches exact (a toy BPE tokenizer, or a stand-in without the
      tokenizers package).
+Evaluation and the last entry points (no new kernel; the serving kernels
+through new entry points):
+  l. bench_compare: python -m vorta_tpu_torch.cli.bench_compare through
+     main(argv): Wan-1.3B 480p x 77f, 2 UniPC steps with CFG, the JAX
+     package's 480p router (assets/bench_router_wan1_3b.npz, with its time
+     embedder), the cached arm and --tau_sweep 0.2,0.5; again with --mm
+     int8_static (1 step; 3 calibration forwards); HunyuanVideo-13B 720p x
+     45f, 1 Euler step, baseline and vorta.  Each arm's launches exact (the
+     baseline's: no flash_manual, sta_pipe, pool_qkv or unpool), the routing
+     mix equal to the mix counted from the routing ids, every number of
+     summary.json finite, the vorta arm's --seed latents bit for bit
+     cli.sample's for the same seed, router and flags; s per step and the
+     speed-ups recorded, not gated.
+  m. calibrate_int8: the tool with --geom 480p --timesteps 400,700, its
+     scales bit for bit the direct max over the same model's calibrate_mm
+     forwards / 127, launches exact; then cli.sample --mm int8 --act_scales
+     <that file>, one routed UniPC step with CFG, launches exact.
+  n. fit_cache_poly: the tool at Wan-1.3B 480p x 77f, 8 Euler steps, CFG 5,
+     the 480p router: 7 points, finite coefficients and r2, 16 routed
+     forwards' launches exact; then cli.sample --cache_threshold 0.75
+     --cache_poly <that file>, 4 UniPC steps with CFG, launches exact.
+  o. profiling: io/profiling.profile_call on one routed Wan-1.3B 480p x 77f
+     forward with the 480p router: every port kernel's device events,
+     counted by its symbols, equal its launch counter; the top 25 device
+     ops by name (sta_batched's counter stands for two CUDA launches, its
+     live-slot pass and its kernel: off this path).
 Every main path's launch counts are exact, the Hopper path's subset
 counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
 sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma),
@@ -275,7 +301,8 @@ HunyuanVideo router training and sequence parallelism (no new kernel):
      with sp_group and --shard_frozen's layer-sharded blocks (loss and
      router gradients); the time of one all_to_all at Wan's q shape.
 Then a line of the W8A8, static-scale and Wan-14B numbers, a line of the
-Hunyuan training and world-size-1 SP numbers, a {"kernels":
+Hunyuan training and world-size-1 SP numbers, a line of the evaluation
+phases' numbers, a {"kernels":
 [...]} line (the prologue's row with its warp-per-row launches by path;
 unpool's with unpool_rows' and the first design's time; sta_diag's with
 sta_diag_wgmma's and its mma.sync kernel's times; sta_row's with
@@ -563,6 +590,11 @@ def main() -> int:
         encoders = phase("text_encoders", run_text_encoders, torch, card)
         vae = phase("vae_decode", run_vae_decode, torch, card)
         p2v = phase("prompt_to_video", run_prompt_to_video, torch, card)
+        launches_bc, compare = phase("bench_compare", run_bench_compare_path, torch, card)
+        launches_cal, calib = phase("calibrate_int8", run_calibrate_path, torch, card)
+        launches_fit, fit = phase("fit_cache_poly", run_fit_cache_poly_path, torch, card)
+        launches_prof, prof = phase("profiling", run_profiling_path, torch, card)
+    evaluation = {**launches_bc, **launches_cal, **launches_fit, **launches_prof}
     kernels += (int8_kernel_rows(int8) + fallback_kernel_rows(fallback)
                 + options_kernel_rows(opt, diag_ms))
     for k in kernels:
@@ -609,7 +641,8 @@ def main() -> int:
                 "train_hunyuan_13b": launches_hy_train["train"][name],
                 "train_hunyuan_13b_resumed": launches_hy_train["train_resumed"][name],
                 "sample_hunyuan_trained": launches_hy_train["sample"][name],
-                **{p: launches_sp[p][name] for p in launches_sp}}
+                **{p: launches_sp[p][name] for p in launches_sp},
+                **{p: evaluation[p][name] for p in evaluation}}
 
     for k in kernels:
         name = k.pop("_counter")
@@ -671,6 +704,8 @@ def main() -> int:
                                for k in ("wan", "hunyuan")}}}}))
     print(json.dumps({"hunyuan_training": {"gradient_check": hy_grads, **hy_train},
                       "sp_world_1": sp1}))
+    print(json.dumps({"evaluation": {"bench_compare": compare, "calibrate_int8": calib,
+                                     "fit_cache_poly": fit, "profiling": prof}}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
@@ -715,6 +750,12 @@ def main() -> int:
           f"step (no group {sp1['wan_s_per_step']:.3f}), HunyuanVideo 720p x 45f "
           f"{sp1['hy_sp_s_per_step']:.3f} s per Euler step (no group "
           f"{sp1['hy_s_per_step']:.3f}), all_to_all share {sp1['wan_all_to_all_share']:.4f}; "
+          f"bench_compare s per step (baseline, vorta, speedup) Wan 480p x 77f "
+          f"{[compare['wan_480p_77f'][a]['s_per_step'] for a in ('baseline', 'vorta')]} "
+          f"{compare['wan_480p_77f']['speedup']}, HunyuanVideo 720p x 45f "
+          f"{[compare['hunyuan_45f'][a]['s_per_step'] for a in ('baseline', 'vorta')]} "
+          f"{compare['hunyuan_45f']['speedup']}; profiled routed 480p x 77f forward "
+          f"{prof['device_ms']:.1f} device ms; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
           f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
@@ -5225,6 +5266,354 @@ def run_sp_world_one(torch, card: str):
     del hy, wan
     shutil.rmtree(tmp, ignore_errors=True)
     return launches, stats
+
+
+# ---- evaluation and the last entry points (no new kernel) -----------------------------
+
+ROUTER_480P = "assets/bench_router_wan1_3b.npz"  # the JAX package's router at 480p
+CACHE_POLY_720P = "assets/cache_poly_wan1_3b_720p.npz"
+EXPERTS = ("full", "lowres", "sta")
+
+
+def off_wan_launches(n_fwd: int) -> dict:
+    """Kernel launches of ``n_fwd`` Wan-1.3B forwards with routing off."""
+    from vorta_tpu_torch.ops import _build
+
+    return {**dict.fromkeys(_build.KERNELS, 0), "flash": 60 * n_fwd, "flash_wgmma": 60 * n_fwd,
+            "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd, "prologue_rows": 30 * n_fwd}
+
+
+def routed_run_launches(routing: list, cache_log: list) -> dict:
+    """Kernel launches of a routed Wan run from its routing tables (one per
+    computed forward) and step-cache log: a skipped forward runs only its
+    head's norm."""
+    import numpy as np
+
+    want = routed_wan_launches(np.stack(routing), "sta_pipe", len(routing))
+    want["fused_norm"] += sum(s for *_, s in cache_log)
+    return want
+
+
+def mix_of_ids(tables) -> dict:
+    """The expert mix counted from routing ids, rounded as io/quality's."""
+    import numpy as np
+
+    ids = np.stack(tables)
+    return {k: round(float((ids == e).sum()) / ids.size, 4) for e, k in enumerate(EXPERTS)}
+
+
+def finite_numbers(tree, where: str = "summary") -> int:
+    """Raise unless every number in ``tree`` is finite; their count."""
+    import math
+
+    if isinstance(tree, dict):
+        return sum(finite_numbers(v, f"{where}.{k}") for k, v in tree.items())
+    if isinstance(tree, list):
+        return sum(finite_numbers(v, f"{where}[{i}]") for i, v in enumerate(tree))
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        if not math.isfinite(tree):
+            raise RuntimeError(f"{where} = {tree}: not finite")
+        return 1
+    return 0
+
+
+def hooked(cls, tables: list, built: list):
+    """A builder of ``cls`` whose models append each forward's routing ids
+    to ``tables`` (a forward hook) and themselves to ``built``."""
+    def build(*a, **kw):
+        model = cls(*a, **kw)
+        model.register_forward_hook(lambda m, inp, out: tables.append(out.expert_ids))
+        built.append(model)
+        return model
+    return build
+
+
+def run_bench_compare_path(torch, card: str):
+    """python -m vorta_tpu_torch.cli.bench_compare through main(argv): Wan-1.3B
+    480p x 77f, 2 UniPC steps with CFG, the JAX package's 480p router, the
+    cached arm and a two-value tau sweep; Wan with --mm int8_static (1 step);
+    HunyuanVideo-13B 720p x 45f, 1 Euler step.  Gates: every arm's launches
+    exact (the baseline's: routing off, no routed kernel), the routing mix
+    equal to the mix counted from the routing ids, every number in
+    summary.json finite, and the vorta arm's --seed latents bit for bit
+    cli.sample's for the same seed, router and flags."""
+    import gc
+    from unittest import mock
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli import bench_compare, sample
+    from vorta_tpu_torch.io.from_jax import load_trained_router
+    from vorta_tpu_torch.ops import _build
+
+    out = HERE / "results" / "port_smoke" / "compare"  # listed in .gitignore
+    launches, stats = {}, {}
+    wan = ["--model", "wan-1_3B", "--num_frames", "77", "--height", "480", "--width", "832",
+           "--seed", "0", "--router_npz", str(HERE / ROUTER_480P)]
+
+    def arms_exact(res, what, n_fwd, hunyuan=False):
+        for arm, got in res.launches.items():
+            if arm == "baseline":
+                want = (off_wan_launches(n_fwd) if not hunyuan else {
+                    **dict.fromkeys(_build.KERNELS, 0), "flash_manual": 60 * n_fwd,
+                    "flash_manual_wgmma": 60 * n_fwd, "prologue": 60 * n_fwd,
+                    "prologue_rows": 60 * n_fwd, "fused_norm": 121 * n_fwd})
+            elif hunyuan:
+                want = hy_hard_launches(np.stack(res.routing[arm]))
+            else:
+                want = routed_run_launches(res.routing[arm], res.cache_log[arm])
+            if got != want:
+                raise RuntimeError(f"bench_compare {what} arm {arm}: launches {got} != {want}")
+            served_on_wgmma(got, f"bench_compare {what} {arm}")
+
+    for name, extra, steps in (
+            ("wan_480p_77f", ["--cache_threshold", "0.75", "--cache_poly",
+                              str(HERE / CACHE_POLY_720P), "--tau_sweep", "0.2,0.5"], 2),
+            ("wan_int8_static", ["--mm", "int8_static"], 1)):
+        _build.reset_launches()
+        res = bench_compare.main(wan + ["--num_inference_steps", str(steps),
+                                        "--output_dir", str(out / name), *extra])
+        launches[f"bench_compare_{name}"] = total = dict(_build.launches)
+        summ = res.summary
+        n_fwd = 2 * steps * 2  # the --seed run and the timed run, CFG's two forwards a step
+        arms_exact(res, name, n_fwd)
+        if len(res.routing["vorta"]) != n_fwd:
+            raise RuntimeError(f"bench_compare {name}: {len(res.routing['vorta'])} routed "
+                               f"forwards, not {n_fwd}")
+        # the mix of return_scores (the --seed run) against the one counted from its ids
+        mix = mix_of_ids(res.routing["vorta"][:n_fwd // 2])
+        if summ["routing_mix"] != mix:
+            raise RuntimeError(f"bench_compare {name}: routing_mix {summ['routing_mix']} != "
+                               f"the routing ids' {mix}")
+        for row in summ.get("tau_sweep", []):
+            ids_mix = mix_of_ids(res.routing[f"tau_{row['tau']}"][:n_fwd // 2])
+            if row["mix"] != ids_mix:
+                raise RuntimeError(f"bench_compare tau {row['tau']}: mix {row['mix']} != "
+                                   f"{ids_mix}")
+        numbers = finite_numbers(summ)
+        arm_sum = {k: sum(a[k] for a in res.launches.values()) for k in total}
+        if name == "wan_int8_static":  # the 3 calibration forwards (t = 200, 500, 800)
+            calib = {k: total[k] - arm_sum[k] for k in ("flash", "fused_norm", "prologue")}
+            if calib != {"flash": 90, "fused_norm": 183, "prologue": 90}:
+                raise RuntimeError(f"bench_compare int8_static: calibration launches {calib}")
+        elif total != arm_sum:
+            raise RuntimeError(f"bench_compare {name}: launches outside the arms")
+        if name == "wan_480p_77f":
+            # cli.sample with the same seed, router (and its time embedder) and flags
+            port_wan = sample.WanModel
+
+            def with_router(*a, **kw):
+                model = port_wan(*a, **kw)
+                load_trained_router(model, HERE / ROUTER_480P)
+                return model
+
+            with mock.patch.object(sample, "WanModel", with_router):
+                ref = sample.main(["--model", "wan-1_3B", "--random_embeds", "--seed", "0",
+                                   "--num_inference_steps", str(steps),
+                                   "--output", str(out / "sample_vorta.npy")])
+            if not torch.equal(ref.latents, res.latents["vorta"]):
+                raise RuntimeError("bench_compare: the vorta arm's latents are not cli.sample's "
+                                   "for the same seed, router and flags")
+        stats[name] = {k: v for k, v in summ.items() if k not in ("vbench",)}
+        log(f"bench_compare {name} on {card}: " + ", ".join(
+            f"{arm} {summ[arm]['s_per_step']:.3f} s/step" for arm in res.launches
+            if arm in summ) + f"; speedup {summ['speedup']}, routing mix {summ['routing_mix']}, "
+            f"PSNR {summ['psnr_vorta_vs_baseline_db']} dB, SSIM {summ['ssim_vorta_vs_baseline']} "
+            f"(random DiT weights); {numbers} numbers finite; launches exact per arm"
+            + ("; the vorta arm bit for bit cli.sample's" if name == "wan_480p_77f" else ""))
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _build.reset_launches()
+    res = bench_compare.main(["--model", "hunyuan-13B", "--num_frames", "45", "--height", "720",
+                              "--width", "1280", "--num_inference_steps", "1", "--seed", "0",
+                              "--output_dir", str(out / "hunyuan_45f")])
+    launches["bench_compare_hunyuan_45f"] = dict(_build.launches)
+    arms_exact(res, "hunyuan_45f", 2, hunyuan=True)
+    summ = res.summary
+    finite_numbers(summ)
+    stats["hunyuan_45f"] = {k: v for k, v in summ.items() if k != "vbench"}
+    log(f"bench_compare hunyuan_45f on {card}: baseline {summ['baseline']['s_per_step']:.3f}, "
+        f"vorta {summ['vorta']['s_per_step']:.3f} s per Euler step; speedup {summ['speedup']}, "
+        f"PSNR {summ['psnr_vorta_vs_baseline_db']} dB, SSIM {summ['ssim_vorta_vs_baseline']} "
+        "(random DiT weights); launches exact per arm")
+    return launches, stats
+
+
+def run_calibrate_path(torch, card: str):
+    """python -m vorta_tpu_torch.tools.calibrate_int8 --geom 480p --timesteps
+    400,700 through main(argv): its scales bit for bit a direct max over the
+    same model's calibrate_mm forwards at those points, / 127; launches
+    exact; then cli.sample --mm int8 --act_scales <that file>, one routed
+    UniPC step with CFG, launches exact."""
+    from unittest import mock
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import main as sample_main
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.tools import calibrate_int8
+
+    path = HERE / "results" / "port_smoke" / "act_scales_480p.npz"
+    tables, built, launches = [], [], {}
+    _build.reset_launches()
+    t0 = time.time()
+    with mock.patch.object(calibrate_int8, "WanModel",
+                           hooked(calibrate_int8.WanModel, tables, built)):
+        scales = calibrate_int8.main(["--geom", "480p", "--timesteps", "400,700", "--router",
+                                      str(HERE / ROUTER_480P), "--out", str(path)])
+    tool_s = time.time() - t0
+    launches["calibrate_int8_480p"] = got = dict(_build.launches)
+    want = routed_wan_launches(np.stack(tables), "sta_pipe", 2)
+    if got != want:
+        raise RuntimeError(f"calibrate_int8: launches {got} != {want}")
+    model = built.pop()
+    attn = calibrate_int8.bench_attn_cfg("480p")
+    points = calibrate_int8.calibration_points((400.0, 700.0), "480p", WAN_1_3B.text_len,
+                                               WAN_1_3B.text_dim, WAN_1_3B.in_channels,
+                                               torch.device("cuda"))
+    with torch.inference_mode():
+        cal = [model(lat, t, ctx, attn_cfg=attn, routing_mode="hard",
+                     calibrate_mm=True).mm_calibration for lat, t, ctx in points]
+    direct = {k: (torch.maximum(cal[0][k], cal[1][k]).cpu().numpy() / 127.0).astype(np.float32)
+              for k in cal[0]}
+    saved = np.load(path)
+    if set(direct) != set(scales) or set(saved.files) != set(scales) or not all(
+            np.array_equal(scales[k], direct[k]) and np.array_equal(saved[k], direct[k])
+            for k in direct):
+        raise RuntimeError("calibrate_int8: the scales are not the direct max over the "
+                           "calibration forwards / 127")
+    del model, cal
+    _build.reset_launches()
+    res = sample_main(["--model", "wan-1_3B", "--random_embeds", "--num_inference_steps", "1",
+                       "--seed", "0", "--mm", "int8", "--act_scales", str(path),
+                       "--output", str(HERE / "results" / "port_smoke" / "static_scales.npy")])
+    launches["sample_act_scales_480p"] = got = dict(_build.launches)
+    want = routed_wan_launches(np.stack(res.routing), "sta_pipe", 2)
+    if got != want or not torch.isfinite(res.latents).all():
+        raise RuntimeError(f"cli.sample --act_scales: launches {got} != {want}, or non-finite")
+    stats = {"tool_s": tool_s, "sites": len(scales),
+             "scale_range": [float(min(v.min() for v in scales.values())),
+                             float(max(v.max() for v in scales.values()))],
+             "sample_s_per_step": res.denoise_s / res.steps}
+    log(f"calibrate_int8 --geom 480p --timesteps 400,700 on {card}: {len(scales)} sites x 30 "
+        f"layers in {tool_s:.1f} s, bit for bit the direct max / 127; cli.sample --mm int8 "
+        f"--act_scales: {stats['sample_s_per_step']:.3f} s per step; launches exact")
+    return launches, stats
+
+
+def run_fit_cache_poly_path(torch, card: str):
+    """python -m vorta_tpu_torch.tools.fit_cache_poly --model wan-1_3B at 480p
+    x 77f, 8 Euler steps, CFG 5, the JAX package's 480p router: 7 points,
+    finite coefficients and r2, launches exact (16 routed forwards); then
+    cli.sample --cache_threshold 0.75 --cache_poly <that file>, 4 UniPC
+    steps with CFG, launches exact."""
+    from unittest import mock
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import main as sample_main
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.tools import fit_cache_poly
+
+    path = HERE / "results" / "port_smoke" / "cache_poly_480p.npz"
+    tables, built, launches = [], [], {}
+    _build.reset_launches()
+    t0 = time.time()
+    with mock.patch.object(fit_cache_poly, "WanModel",
+                           hooked(fit_cache_poly.WanModel, tables, built)):
+        rec = fit_cache_poly.main(["--model", "wan-1_3B", "--num_frames", "77", "--height",
+                                   "480", "--width", "832", "--steps", "8", "--guidance_scale",
+                                   "5", "--router", str(HERE / ROUTER_480P), "--out", str(path)])
+    tool_s = time.time() - t0
+    del built[:]
+    launches["fit_cache_poly_480p"] = got = dict(_build.launches)
+    want = routed_wan_launches(np.stack(tables), "sta_pipe", 16)
+    if len(tables) != 16 or got != want:
+        raise RuntimeError(f"fit_cache_poly: launches {got} != {want} ({len(tables)} forwards)")
+    coeffs = np.load(path)["coefficients"]
+    if rec["points"] != 7 or coeffs.shape != (5,) or not np.isfinite(coeffs).all() or not (
+            np.isfinite(rec["r2_exact"])):
+        raise RuntimeError(f"fit_cache_poly: {rec}")
+    _build.reset_launches()
+    res = sample_main(["--model", "wan-1_3B", "--random_embeds", "--num_inference_steps", "4",
+                       "--seed", "0", "--cache_threshold", "0.75", "--cache_poly", str(path),
+                       "--output", str(HERE / "results" / "port_smoke" / "cache_poly.npy")])
+    launches["sample_cache_poly_480p"] = got = dict(_build.launches)
+    want = routed_run_launches(res.routing, res.cache_log)
+    if got != want or not torch.isfinite(res.latents).all():
+        raise RuntimeError(f"cli.sample --cache_poly: launches {got} != {want}, or non-finite")
+    skipped = sum(s for *_, s in res.cache_log)
+    stats = {"tool_s": tool_s, "points": rec["points"], "r2": rec["r2_exact"],
+             "coefficients": rec["coefficients"], "sample_skipped_forwards": skipped,
+             "sample_s_per_step": res.denoise_s / res.steps}
+    log(f"fit_cache_poly Wan-1.3B 480p x 77f, 8 Euler steps, CFG 5 on {card}: {rec['points']} "
+        f"points in {tool_s:.1f} s, r2 {rec['r2_exact']:.4f}, coefficients {rec['coefficients']}; "
+        f"cli.sample --cache_threshold 0.75 --cache_poly: {skipped} of {len(res.cache_log)} "
+        f"forwards skipped, {stats['sample_s_per_step']:.3f} s per step; launches exact")
+    return launches, stats
+
+
+def run_profiling_path(torch, card: str):
+    """io/profiling.profile_call on one routed Wan-1.3B 480p x 77f forward
+    (the JAX package's 480p router, t = 500): each port kernel's device
+    events, counted by its symbols (io/profiling.SYMBOL_COUNTERS), equal its
+    launch counter for that forward; the top 25 device ops by name."""
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.io import profiling
+    from vorta_tpu_torch.io.from_jax import load_trained_router
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+
+    model = WanModel(WAN_1_3B, dtype=torch.bfloat16, device="cuda", seed=0)
+    load_trained_router(model, HERE / ROUTER_480P)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    t_grid, h_grid, w_grid = GRID_480P_77F
+    lat = torch.randn((1, t_grid, 2 * h_grid, 2 * w_grid, 16), generator=g, device="cuda")
+    ctx = torch.randn((1, TEXT_LEN, 4096), generator=g, device="cuda")
+    t = torch.tensor([500.0], device="cuda")
+    attn = attention_config("wan-1_3B", GRID_480P_77F)
+    seen = []
+
+    def forward():
+        with torch.inference_mode():
+            seen.append(model(lat, t, ctx, attn_cfg=attn, routing_mode="hard").expert_ids)
+
+    forward()  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    rows = profiling.profile_call(forward, top=None, warmup=False)
+    traced_s = time.time() - t0
+    launches = dict(_build.launches)
+    want = routed_wan_launches(seen[-1][None], "sta_pipe", 1)
+    if launches != want:
+        raise RuntimeError(f"profiling: launches {launches} != {want}")
+    events = profiling.kernel_counts(rows)
+    counters = sorted(set(profiling.SYMBOL_COUNTERS.values()))
+    off = {c: (events.get(c, 0), launches[c]) for c in counters
+           if events.get(c, 0) != launches[c]}
+    if off or not rows:
+        raise RuntimeError(f"profiling: device events by counter differ from the launch "
+                           f"counters (events, launches): {off}")
+    # one counter standing for more than one CUDA launch: sta_batched's Hopper path
+    # launches its live-slot pass (sta_batched_live_kernel) before each kernel; this
+    # path runs no sta_batched
+    device_ms = sum(ms for _, ms, _ in rows)
+    top = [{"op": name[:160], "ms": ms, "count": n} for name, ms, n in rows[:25]]
+    launched = {c: events[c] for c in counters if events.get(c)}
+    log(f"profiling: one routed Wan-1.3B 480p x 77f forward on {card}: {len(rows)} device op "
+        f"names, {sum(n for *_, n in rows)} device events, {device_ms:.1f} ms of device time; "
+        f"the port's kernels' events equal their launch counters ({launched}); "
+        f"sta_batched's counter would stand for two launches (its live-slot pass), off this path")
+    for row in top:
+        log(f"  top op {row['ms']:9.3f} ms {row['count']:5d}x {row['op']}")
+    del model
+    return {"profiling_480p_77f": launches}, {"device_ms": device_ms, "traced_s": traced_s,
+                                              "top": top}
 
 
 if __name__ == "__main__":

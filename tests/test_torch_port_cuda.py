@@ -2782,3 +2782,183 @@ def test_collectives_at_world_size_one_on_card(card, tmp_path):
             make_mesh(sp_size=2)
     finally:
         dist.destroy_process_group()
+
+
+# --- evaluation and the last entry points (no new kernel) -----------------------------
+
+# Wan-1.3B at full width and depth on a small grid the CLI geometry's tile
+# (4, 6, 4) and low-res window (2, 3, 2) divide: 13 frames at 96 x 128 ->
+# (4, 6, 8), 192 tokens
+SMALL_WAN = ["--model", "wan-1_3B", "--num_frames", "13", "--height", "96", "--width", "128"]
+
+
+def _wan_off_launches(n):
+    return {**dict.fromkeys(_build.KERNELS, 0), "flash": 60 * n, "fused_norm": 61 * n,
+            "prologue": 30 * n}
+
+
+def _wan_routed_launches(tables, skipped=0):
+    """Routed Wan launches from the computed forwards' (blocks, heads) ids."""
+    t = np.stack(tables)
+    has = [(t == e).any(-1) for e in range(3)]
+    n = t.shape[0]
+    return {**dict.fromkeys(_build.KERNELS, 0), "flash": 30 * n,
+            "fused_norm": 61 * n + skipped, "prologue": 30 * n,
+            "flash_manual": int(has[0].sum() + has[1].sum()), "sta_pipe": int(has[2].sum()),
+            "pool_qkv": int(has[1].sum()), "unpool": int(has[1].sum())}
+
+
+_TOTALS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_qkv", "unpool")
+
+
+def _totals(launches):
+    return {k: launches[k] for k in _TOTALS}
+
+
+@pytest.mark.parametrize("mm", ["bf16", "int8_static"])
+def test_bench_compare_on_card(card, tmp_path, mm):
+    """cli.bench_compare at Wan-1.3B on a small grid, 2 UniPC steps with CFG:
+    each arm's launches exact (two runs each; the baseline no routed
+    kernel), the mix counted from the routing ids, finite metrics; with
+    --mm int8_static the 3 calibration forwards outside the arms."""
+    from vorta_tpu_torch.cli import bench_compare
+
+    extra = (["--cache_threshold", "0.5", "--cache_warmup", "1", "--tau_sweep", "0.2"]
+             if mm == "bf16" else ["--mm", "int8_static"])
+    _build.reset_launches()
+    res = bench_compare.main(SMALL_WAN + ["--num_inference_steps", "2", "--seed", "3",
+                                          "--output_dir", str(tmp_path), *extra])
+    total = dict(_build.launches)
+    n = 2 * 2 * 2  # two runs x 2 steps x CFG's two forwards
+    for arm, got in res.launches.items():
+        if arm == "baseline":
+            assert _totals(got) == _totals(_wan_off_launches(n))
+        else:
+            skipped = sum(s for *_, s in res.cache_log[arm])
+            assert _totals(got) == _totals(_wan_routed_launches(res.routing[arm], skipped)), arm
+    ids = np.stack(res.routing["vorta"][:n // 2])
+    assert res.summary["routing_mix"] == {
+        k: round(float((ids == e).sum()) / ids.size, 4)
+        for e, k in enumerate(("full", "lowres", "sta"))}
+    calib = {k: total[k] - sum(a[k] for a in res.launches.values()) for k in _TOTALS}
+    want = dict.fromkeys(_TOTALS, 0) if mm == "bf16" else None
+    if want is not None:
+        assert calib == want
+    else:
+        assert (calib["flash"], calib["fused_norm"], calib["prologue"]) == (90, 183, 90)
+    assert np.isfinite(res.summary["psnr_vorta_vs_baseline_db"])
+    assert (tmp_path / "summary.json").exists() and res.latents["vorta"].device.type == "cuda"
+
+
+def test_fit_cache_poly_and_calibration_on_card(card, tmp_path):
+    """fit_cache_poly at Wan-1.3B on a small grid, 6 Euler steps, CFG 5: 5
+    points, finite coefficients, 12 routed forwards' launches exact;
+    calibrate_wan over two of the model's calibrate_mm forwards is their
+    max."""
+    from unittest import mock
+
+    from vorta_tpu_torch.tools import calibrate_int8, fit_cache_poly
+
+    tables, built = [], []
+    real = fit_cache_poly.WanModel
+
+    def hooked(*a, **kw):
+        m = real(*a, **kw)
+        m.register_forward_hook(lambda mod, inp, out: tables.append(out.expert_ids))
+        built.append(m)
+        return m
+
+    _build.reset_launches()
+    with mock.patch.object(fit_cache_poly, "WanModel", hooked):
+        rec = fit_cache_poly.main(SMALL_WAN + ["--steps", "6", "--guidance_scale", "5",
+                                               "--out", str(tmp_path / "p.npz")])
+    assert rec["points"] == 5 and np.isfinite(rec["coefficients"]).all()
+    assert len(tables) == 12
+    assert _totals(dict(_build.launches)) == _totals(_wan_routed_launches(tables))
+    model = built[0]
+    attn = fit_cache_poly.probe_attention_config("wan-1_3B", (4, 6, 8))
+    g = torch.Generator(device=card).manual_seed(9)
+    pts = [(torch.randn((1, 4, 12, 16, 16), generator=g, device=card),
+            torch.tensor([ts], device=card),
+            torch.randn((1, 512, 4096), generator=g, device=card)) for ts in (300.0, 800.0)]
+
+    def call(lat, t, ctx):
+        with torch.inference_mode():
+            return model(lat, t, ctx, attn_cfg=attn, routing_mode="hard",
+                         calibrate_mm=True).mm_calibration
+
+    amax = calibrate_int8.calibrate_wan(call, pts)
+    each = [call(*p) for p in pts]
+    for k, v in amax.items():
+        want = torch.maximum(each[0][k], each[1][k]).cpu().numpy()
+        assert v.dtype == np.float32 and np.array_equal(v, want)
+
+
+@pytest.mark.parametrize("entry", ["bench_compare_wan", "bench_compare_hunyuan",
+                                   "fit_cache_poly"])
+def test_tiny_models_refuse_the_card(card, entry, capsys):
+    """The tiny models run in f32, as the JAX tools build them; the CUDA
+    kernels take bf16 (ROADMAP section 2 A3): the entry points refuse."""
+    from vorta_tpu_torch.cli import bench_compare
+    from vorta_tpu_torch.tools import fit_cache_poly
+
+    with pytest.raises(SystemExit):
+        if entry == "fit_cache_poly":
+            fit_cache_poly.main(["--steps", "6"])
+        else:
+            bench_compare.main(["--model", "wan-tiny" if entry.endswith("wan")
+                                else "hunyuan-tiny", "--num_inference_steps", "1"])
+    assert "A3" in capsys.readouterr().err
+
+
+def test_profiling_counts_match_launches_on_card(card):
+    """io/profiling on a routed Wan forward (full width and depth, the small
+    grid): every port kernel's device events, by its symbols, equal its
+    launch counter."""
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.io import profiling
+    from vorta_tpu_torch.models.wan import WanModel
+
+    model = WanModel(WAN_1_3B, dtype=torch.bfloat16, device=card, seed=4)
+    g = torch.Generator(device=card).manual_seed(10)
+    lat = torch.randn((1, 4, 12, 16, 16), generator=g, device=card)
+    ctx = torch.randn((1, 512, 4096), generator=g, device=card)
+    t = torch.tensor([500.0], device=card)
+    attn = attention_config("wan-1_3B", (4, 6, 8))
+
+    def fwd():
+        with torch.inference_mode():
+            model(lat, t, ctx, attn_cfg=attn, routing_mode="hard")
+
+    fwd()
+    _build.reset_launches()
+    rows = profiling.profile_call(fwd, top=None, warmup=False)
+    counts = profiling.kernel_counts(rows)
+    launches = dict(_build.launches)
+    for counter in set(profiling.SYMBOL_COUNTERS.values()):
+        assert counts.get(counter, 0) == launches[counter], counter
+    assert launches["flash"] == 30 and sum(n for *_, n in rows) > sum(counts.values())
+
+
+def test_sample_batch_flags_on_card(card, tmp_path):
+    """cli.sample --prompt_embeds_dir (a .npy and a .pt) with --cfg_batch and
+    --negative_prompt_embeds on the card; --skip_existing skips the second
+    run's files."""
+    from vorta_tpu_torch.cli.sample import main
+
+    src = tmp_path / "embeds"
+    src.mkdir()
+    rng = np.random.default_rng(5)
+    np.save(src / "a.npy", rng.standard_normal((8, 32)).astype(np.float32))
+    torch.save(torch.from_numpy(rng.standard_normal((16, 32)).astype(np.float32)), src / "b.pt")
+    np.save(tmp_path / "neg.npy", rng.standard_normal((16, 32)).astype(np.float32))
+    argv = ["--model", "wan-tiny", "--num_frames", "13", "--height", "64", "--width", "64",
+            "--num_inference_steps", "2", "--prompt_embeds_dir", str(src), "--cfg_batch",
+            "--negative_prompt_embeds", str(tmp_path / "neg.npy"), "--skip_existing",
+            "--output", str(tmp_path / "out")]
+    res = main(argv)
+    assert len(res) == 2 and all(len(r.routing) == 2 for r in res)  # one forward a step
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == ["a.npy", "b.npy"]
+    assert all(np.isfinite(np.load(tmp_path / "out" / n)).all() for n in ("a.npy", "b.npy"))
+    assert main(argv) == []

@@ -482,3 +482,75 @@ def test_chunked_recompute_matches_jax_autodiff():
     _close(got, want)
     for g, w in zip(torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(cot)), jgrads):
         _close(g, w)
+
+
+def _parser_defaults(main, argv=()) -> dict:
+    """{dest: default} of the argparse parser ``main`` builds (it is stopped
+    at its parse)."""
+    import argparse
+    from unittest import mock
+
+    seen = []
+
+    def grab(self, *a, **kw):
+        seen.append({act.dest: act.default for act in self._actions if act.dest != "help"})
+        raise SystemExit(0)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", grab), \
+            pytest.raises(SystemExit):
+        main(*argv)
+    return seen[0]
+
+
+def test_evaluation_names_and_flags_match_jax():
+    """The evaluation slice's public names against JAX's: io/quality's and
+    io/profiling's functions (profiling's leading parameters too), the Wan
+    pipeline's SamplingConfig fields and defaults (return_scores among
+    them), and the flags and defaults of cli.sample, cli.bench_compare and
+    the two tools, each with --device added."""
+    import dataclasses
+    import importlib.util
+    import inspect
+    from pathlib import Path
+
+    import vorta_tpu.io.profiling as jprof
+    import vorta_tpu.io.quality as jqual
+    from vorta_tpu.pipelines.wan_t2v import SamplingConfig as JaxSampling
+    from vorta_tpu_torch.cli import bench_compare, sample
+    from vorta_tpu_torch.io import profiling as prof
+    from vorta_tpu_torch.io import quality as qual
+    from vorta_tpu_torch.pipelines.wan_t2v import SamplingConfig
+    from vorta_tpu_torch.tools import calibrate_int8, fit_cache_poly
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and inspect.isfunction(getattr(mod, n))
+                and getattr(mod, n).__module__ == mod.__name__}
+
+    assert public(jqual) == public(qual)
+    assert {"device_trace", "op_durations", "profile_call"} == public(jprof)
+    assert public(jprof) <= public(prof)
+    for name in public(jprof):
+        want = list(inspect.signature(getattr(jprof, name)).parameters)
+        assert list(inspect.signature(getattr(prof, name)).parameters)[:len(want)] == want
+    assert {f.name: f.default for f in dataclasses.fields(SamplingConfig)} == {
+        f.name: f.default for f in dataclasses.fields(JaxSampling)}
+
+    repo = Path(__file__).resolve().parents[1]
+
+    def jax_main(rel):
+        spec = importlib.util.spec_from_file_location("_jax_" + rel.replace("/", "_")[:-3],
+                                                      repo / rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod.main
+
+    for rel, port_main in (("cli/sample.py", sample.parse_args),
+                           ("cli/bench_compare.py", bench_compare.parse_args),
+                           ("tools/calibrate_int8.py", calibrate_int8.main),
+                           ("tools/fit_cache_poly.py", fit_cache_poly.parse_args)):
+        jmain = jax_main(rel)
+        want = _parser_defaults(jmain, () if rel.startswith("tools") else ([],))
+        got = _parser_defaults(port_main, ([],))
+        assert set(got) - set(want) == {"device"}, rel
+        assert {k: v for k, v in got.items() if k != "device"} == want, rel

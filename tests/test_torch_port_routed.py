@@ -272,13 +272,22 @@ def _routed_inputs(seed, b=2, h=4, d=8):
     return (q, k, v), tuple(torch.from_numpy(x) for x in (q, k, v))
 
 
+@pytest.fixture(scope="module")
+def jax_fused_routed():
+    """The JAX package's masked dispatch at ROUTED under one jit: the expert
+    ids are traced (as in the JAX model), so the cases share one compile of
+    its interpret-mode kernels; its outputs are the eager call's, bit for bit."""
+    cfg = JaxAttentionConfig(**ROUTED)
+    return jax.jit(lambda q, k, v, ids: jrouted.fused_routed_attention(q, k, v, ids, cfg,
+                                                                      interpret=True))
+
+
 @pytest.mark.parametrize("ids", [[FULL] * 4, [LOWRES] * 4, [STA] * 4,
                                  [FULL, LOWRES, STA, FULL], [STA, STA, LOWRES, STA]])
-def test_fused_routed_matches_jax(ids):
+def test_fused_routed_matches_jax(ids, jax_fused_routed):
     (qn, kn, vn), (q, k, v) = _routed_inputs(sum(ids))
-    ref = jrouted.fused_routed_attention(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
-                                         jnp.asarray(ids, jnp.int32),
-                                         JaxAttentionConfig(**ROUTED), interpret=True)
+    ref = jax_fused_routed(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
+                           jnp.asarray(ids, jnp.int32))
     got = fused_routed_attention(q, k, v, torch.tensor(ids), AttentionConfig(**ROUTED))
     _close(got, ref)
 

@@ -3,7 +3,8 @@
 Runs the model (random weights from a seed) once to warm up, then once
 under ``torch.profiler``, and prints the device time per kernel group (the
 port's kernels, matmuls, the rest), the top kernels by device time, and the
-device's idle share over the profiled forward.  ``--routing hard`` routes
+device's idle share over the profiled forward (traced and aggregated by
+io/profiling.py), and the ops that fill the "other" group by name.  ``--routing hard`` routes
 each head with the CLI's attention geometry (``--sta_tile`` overrides the
 tile) and random routers, or the routers of ``--router`` (an npz of the JAX
 package's router training, io/from_jax.load_router_npz).  Those routers
@@ -55,8 +56,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import tempfile
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,7 +65,8 @@ import torch
 from ..config import WAN_1_3B, WAN_14B, AttentionConfig
 from ..device import resolve_device
 from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
-from ..io.from_jax import load_act_scales, load_jax_params, load_router_npz
+from ..io import profiling
+from ..io.from_jax import load_act_scales, load_trained_router
 from ..io.quant_serving import build_quantized_hunyuan, build_quantized_wan
 from ..models.hunyuan import HUNYUAN_13B, HunyuanModel
 from ..models.wan import WanModel
@@ -73,9 +75,6 @@ from .sample import attention_config
 # text tokens the HunyuanVideo profile marks valid: not a multiple of 8 or 16,
 # so the kernels' text-padding bias really masks (PERF.md's profiles)
 TEXT_VALID = 83
-# the time embedder of the model the JAX package's routers were trained against
-TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
-                 / "wan1_3b_time_embedder_rngs0.npz")
 
 # named ranges (torch.profiler.record_function) whose device time is reported
 RANGES = ("joint_reference_attention", "joint_reference_attention_backward")
@@ -136,8 +135,6 @@ def main(argv=None) -> dict:
     if args.train and quant:
         p.error("the quantized serving flags profile forwards, not training")
 
-    from torch.profiler import ProfilerActivity, profile
-
     device = resolve_device("cuda")
     serve = dict(mm_precision=args.mm,
                  act_scales=load_act_scales(args.act_scales) if args.act_scales else None)
@@ -145,11 +142,11 @@ def main(argv=None) -> dict:
     if args.vae:
         latent, run = _vae_decode(args, device)
         args.model = f"{args.vae} VAE{' tiled' if args.vae_tiling else ''}"
-        return _profile(args, 0, latent, None, run, device, profile, ProfilerActivity)
+        return _profile(args, 0, latent, None, run, device)
     if args.model == "hunyuan-13B":
         grid, attn, run = _hunyuan_forward(args, device, serve, bits)
         return _profile(args, HUNYUAN_13B.dual_layers + HUNYUAN_13B.single_layers, grid, attn,
-                        run, device, profile, ProfilerActivity)
+                        run, device)
     cfg = WAN_14B if args.model == "wan-14B" else WAN_1_3B
     grid = WAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
     if bits:
@@ -168,8 +165,7 @@ def main(argv=None) -> dict:
         if args.sta_tile:
             attn = dataclasses.replace(attn, sta_tile=tuple(args.sta_tile))
         if args.router:
-            load_router_npz(model, args.router)
-            load_jax_params(model, TIME_EMBEDDER)
+            load_trained_router(model, args.router)
     if args.train:
         attn = attention_config("wan-1_3B", grid)
         if args.sta_tile:
@@ -179,7 +175,7 @@ def main(argv=None) -> dict:
         def run():
             with torch.inference_mode():
                 return model(lat, t, ctx, attn_cfg=attn, routing_mode=args.routing, **serve)
-    return _profile(args, cfg.num_layers, grid, attn, run, device, profile, ProfilerActivity)
+    return _profile(args, cfg.num_layers, grid, attn, run, device)
 
 
 def _hunyuan_forward(args, device, serve: dict, bits):
@@ -263,28 +259,20 @@ def _vae_decode(args, device):
     return latent, run
 
 
-def _profile(args, layers: int, grid, attn, run, device, profile, ProfilerActivity) -> dict:
+def _profile(args, layers: int, grid, attn, run, device) -> dict:
     run()  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    kernels, ranges = {}, {}
-    for ev in prof.events():
-        if ev.name in RANGES:
-            # the host-side range sums the device time of the kernels it
-            # launched; its device-side twin is the range's span, no kernel
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                ranges[ev.name] = ranges.get(ev.name, 0.0) + ev.device_time_total / 1e3
-            continue
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(ev.name, [0.0, 0])
-            k[0] += ev.device_time_total / 1e3  # us -> ms
-            k[1] += 1
+    with tempfile.TemporaryDirectory(prefix="vorta_trace_") as tmp:
+        with profiling.device_trace(tmp) as trace_dir:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # the device's kernels, copies and sets by name; the device time of
+        # the kernels launched inside each named range
+        kernels = {name: [ms, n] for name, ms, n in profiling.op_durations(trace_dir, top=None)}
+        ranges = profiling.range_device_ms(trace_dir, RANGES)
     device_ms = sum(v[0] for v in kernels.values())
     groups: dict = {}
     for name, (ms, n) in kernels.items():
@@ -312,6 +300,10 @@ def _profile(args, layers: int, grid, attn, run, device, profile, ProfilerActivi
         "top": [{"kernel": name[:90], "ms": ms, "launches": n}
                 for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])
                 [:12]],
+        # what fills the "other" group, by op name (long enough to show the functor)
+        "other_top": [{"kernel": name[:240], "ms": ms, "launches": n}
+                      for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])
+                      if _group(name) == "other"][:15],
         "device": torch.cuda.get_device_name(device),
     }
     print(json.dumps(result, indent=1))

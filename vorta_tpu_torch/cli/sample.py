@@ -12,8 +12,15 @@ the tiny models, sized as the JAX CLI sizes them; the encoders are freed
 before the DiT is built.  Their weights come from
 ``--text_encoder_checkpoint`` (UMT5 / Llama) and ``--clip_checkpoint``
 (transformers state dicts, io/torch_import.py), else they are random from
-the seed (a warning says so).  Or from ``--prompt_embeds x.npy`` (UMT5
-states, (L, text_dim) or (1, L, text_dim)) or ``--random_embeds``.  Weights are
+the seed (a warning says so).  Or from ``--prompt_embeds x.npy|x.pt`` (UMT5
+or Llama states, (L, text_dim) or (1, L, text_dim)) or ``--random_embeds``;
+``--negative_prompt_embeds`` (the same forms) replaces Wan's zero
+unconditional embedding.  ``--prompt_embeds_dir D`` samples one video per
+``.npy`` / ``.pt`` file of D, in sorted order, each from the same seed, into
+``--output``'s directory (``--output`` itself where it has no suffix) under
+the file's stem, the model and pipeline built once; ``--skip_existing``
+skips a file whose output is there.  ``--cfg_batch`` runs the CFG pair as one
+batch-2 forward.  Weights are
 random, drawn from ``--seed``, unless ``--torch_checkpoint`` names a
 diffusers checkpoint (one .safetensors / .pt / .bin file or a directory of
 shards; io/torch_import.py); ``--router_checkpoint`` loads the routers
@@ -103,7 +110,8 @@ from ..parallel.mesh import make_mesh_for
 from ..pipelines.hunyuan_t2v import HunyuanSamplingConfig, HunyuanT2VPipeline
 from ..pipelines.wan_t2v import SamplingConfig, WanT2VPipeline
 
-NEED_CONDITIONING = "need --prompt with --tokenizer_dir, --prompt_embeds or --random_embeds"
+NEED_CONDITIONING = ("need --prompt with --tokenizer_dir, --prompt_embeds, --prompt_embeds_dir "
+                     "or --random_embeds")
 MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY,
           "hunyuan-13B": HUNYUAN_13B, "hunyuan-tiny": HUNYUAN_TINY}
 
@@ -150,7 +158,12 @@ def parse_args(argv=None):
     p.add_argument("--clip_tokenizer_dir", default=None,
                    help="CLIP's tokenizer.json dir (hunyuan; default --tokenizer_dir)")
     p.add_argument("--clip_checkpoint", default=None, help="CLIP-L transformers weights")
-    p.add_argument("--prompt_embeds", default=None, help=".npy UMT5 states (L, text_dim)")
+    p.add_argument("--prompt_embeds", default=None,
+                   help=".npy / .pt text states (L, text_dim) or (1, L, text_dim)")
+    p.add_argument("--negative_prompt_embeds", default=None,
+                   help="Wan: the unconditional states (.npy / .pt; default zeros)")
+    p.add_argument("--cfg_batch", action="store_true",
+                   help="run CFG's conditional and unconditional passes as one batch-2 forward")
     p.add_argument("--image_embeds", default=None,
                    help="I2V (Wan): .npy / .pt CLIP image tokens (257, image_dim)")
     p.add_argument("--random_embeds", action="store_true")
@@ -175,14 +188,30 @@ def parse_args(argv=None):
                    help="shard the latent frames over groups of this many ranks (Ulysses)")
     p.add_argument("--dp_size", type=int, default=None,
                    help="replicas (default: the world size over --sp_size)")
+    # batch inference over a directory of prompt embeddings (reference:
+    # scripts/wan/inference.py:165-193, per-prompt seed and skip-existing)
+    p.add_argument("--prompt_embeds_dir", default=None,
+                   help="directory of .npy / .pt embeds: one video per file")
+    p.add_argument("--skip_existing", action="store_true",
+                   help="with --prompt_embeds_dir: skip a file whose output exists")
     args = p.parse_args(argv)
     if args.dtype == "fp32" and args.device != "cpu":
         p.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
     return args
 
 
+def load_array(path) -> np.ndarray:
+    """A .npy array, or a tensor saved with torch.save (read with
+    ``weights_only``), as f32 numpy."""
+    if str(path).endswith(".npy"):
+        return np.asarray(np.load(path), np.float32)
+    return torch.load(path, map_location="cpu", weights_only=True).float().numpy()
+
+
 def load_embeds(path, cfg) -> np.ndarray:
-    arr = np.load(path).astype(np.float32)
+    """(1, text_len, text_dim) f32 text states from a .npy / .pt of (L,
+    text_dim) or (1, L, text_dim), zero-padded or cut to ``text_len``."""
+    arr = load_array(path)
     if arr.ndim == 2:
         arr = arr[None]
     if arr.shape[1] < cfg.text_len:
@@ -201,12 +230,41 @@ def load_cache_poly(args):
 def load_image_embeds(path) -> np.ndarray:
     """(1, N, image_dim) f32 from a .npy or a .pt of (N, image_dim) or
     (1, N, image_dim)."""
-    if str(path).endswith(".npy"):
-        arr = np.load(path)
-    else:
-        arr = torch.load(path, map_location="cpu", weights_only=True).float().numpy()
-    arr = np.asarray(arr, np.float32)
+    arr = load_array(path)
     return arr[None] if arr.ndim == 2 else arr
+
+
+def random_embeds(gen: torch.Generator, seed: int, shape, device) -> torch.Tensor:
+    """Standard normal f32 of ``shape`` from ``gen`` seeded with ``seed``
+    (``--random_embeds``: seed + 1)."""
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def embeds_files(directory) -> list:
+    """The sorted .npy / .pt files of ``--prompt_embeds_dir``."""
+    files = sorted(p for p in Path(directory).iterdir() if p.suffix in (".npy", ".pt"))
+    if not files:
+        raise SystemExit(f"no .npy/.pt embeds in {directory}")
+    return files
+
+
+def run_batch(args, generate, load_fn) -> list:
+    """One video per embeddings file, each from the same seed, named after
+    the file's stem in ``--output``'s directory (``--output`` itself where
+    it has no suffix), skipping existing outputs with ``--skip_existing``;
+    ``generate(embeds, output)``'s results, in file order."""
+    out_base = Path(args.output)
+    suffix = out_base.suffix or ".npy"
+    out_dir = out_base.parent if out_base.suffix else out_base
+    results = []
+    for f in embeds_files(args.prompt_embeds_dir):
+        out = out_dir / (f.stem + suffix)
+        if args.skip_existing and (out.exists() or out.with_suffix(".npy").exists()):
+            print(f"[sample] skip existing {out}", flush=True)
+            continue
+        results.append(generate(load_fn(f), out))
+    return results
 
 
 def is_router_file(path) -> bool:
@@ -359,10 +417,11 @@ def wan_decoder(args, dtype, device):
     return decode
 
 
-def main(argv=None) -> SampleResult:
+def main(argv=None):
     """Runs the sampler and writes the final latents as .npy (under sequence
     parallelism, from rank 0 of each group; the others return the same
-    result without writing)."""
+    result without writing); a ``SampleResult``, or with
+    ``--prompt_embeds_dir`` a list of them, one per video sampled."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     joined = dist.is_initialized()
@@ -435,21 +494,22 @@ def _main(args, device, mesh) -> SampleResult:
     if router_state is not None:
         print(f"[sample] router loaded from {args.router_checkpoint}", flush=True)
     gen = torch.Generator(device=device)
+
+    def embeds(path):
+        return torch.from_numpy(load_embeds(path, model_cfg)).to(device)
+
     if pe is not None:  # encoded from --prompt above
         pass
     elif args.prompt_embeds:
-        pe = torch.from_numpy(load_embeds(args.prompt_embeds, model_cfg)).to(device)
+        pe = embeds(args.prompt_embeds)
     elif args.random_embeds:
-        gen.manual_seed(args.seed + 1)
-        pe = torch.randn((1, model_cfg.text_len, model_cfg.text_dim), generator=gen,
-                         device=device)
-    else:
+        pe = random_embeds(gen, args.seed + 1, (1, model_cfg.text_len, model_cfg.text_dim),
+                           device)
+    elif not args.prompt_embeds_dir:
         raise SystemExit(NEED_CONDITIONING)
-    ne = torch.zeros_like(pe)  # the unconditional (empty) prompt
+    neg = embeds(args.negative_prompt_embeds) if args.negative_prompt_embeds else None
     pipe = WanT2VPipeline(model, attn_cfg=attn_cfg, act_scales=act_scales,
                           quantized_blocks=qblocks, sp_group=sp_group)
-    latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
-                                   args.height, args.width)
     img = None
     if image_embeds is not None:
         img = torch.from_numpy(image_embeds).to(device=device, dtype=dtype)
@@ -460,13 +520,25 @@ def _main(args, device, mesh) -> SampleResult:
     sampling = SamplingConfig(
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
         flow_shift=args.flow_shift, scheduler=args.scheduler or "unipc",
-        routing_mode=routing_mode, mm_precision=args.mm, **_cache_kw(args))
-    routing, cache_log = [], []
-    t0 = time.time()
-    final = pipe(latents, pe, ne, sampling=sampling, routing=routing, image_embeds=img,
-                 cache_log=cache_log)
-    return _finish(args, device, final, build_s, t0, routing, cache_log, encode_s,
-                   wan_decoder(args, dtype, device) if args.decode else None, sp_group)
+        routing_mode=routing_mode, mm_precision=args.mm, cfg_batch=args.cfg_batch,
+        **_cache_kw(args))
+    decode = wan_decoder(args, dtype, device) if args.decode else None
+
+    def generate(pe, output):
+        # the unconditional prompt: --negative_prompt_embeds, else empty (zeros)
+        ne = neg if neg is not None else torch.zeros_like(pe)
+        latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
+                                       args.height, args.width)
+        routing, cache_log = [], []
+        t0 = time.time()
+        final = pipe(latents, pe, ne, sampling=sampling, routing=routing, image_embeds=img,
+                     cache_log=cache_log)
+        return _finish(args, device, final, build_s, t0, routing, cache_log, encode_s, decode,
+                       sp_group, output)
+
+    if args.prompt_embeds_dir:
+        return run_batch(args, generate, embeds)
+    return generate(pe, args.output)
 
 
 def _cache_kw(args) -> dict:
@@ -485,11 +557,12 @@ def _quant_note(args) -> str:
 
 def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
             routing: list, cache_log: list, encode_s: float, decode=None,
-            sp_group=None) -> SampleResult:
+            sp_group=None, output=None) -> SampleResult:
     """Synchronise, report the denoise time, the routing and the step
-    cache's skips; write the latents, or with ``decode`` (latents ->
-    pixels) the video; under sequence parallelism only the group's rank 0
-    reports and writes."""
+    cache's skips; write the latents to ``output`` (default ``--output``),
+    or with ``decode`` (latents -> pixels) the video; under sequence
+    parallelism only the group's rank 0 reports and writes."""
+    output = args.output if output is None else output
     _sync(device)
     if sp_group is not None and dist.get_rank(sp_group) != 0:
         return SampleResult(final, build_s, time.time() - t0, args.num_inference_steps,
@@ -515,10 +588,10 @@ def _finish(args, device, final: torch.Tensor, build_s: float, t0: float,
         res.decode_s = time.time() - t1
         print(f"[sample] decoded {tuple(video.shape)} in {res.decode_s:.2f}s"
               f"{' (tiled)' if args.vae_tiling else ''}", flush=True)
-        res.video = save_video(video[0].float().cpu().numpy(), args.output)
+        res.video = save_video(video[0].float().cpu().numpy(), output)
         print(f"[sample] wrote {res.video}", flush=True)
         return res
-    out = Path(args.output).with_suffix(".npy")
+    out = Path(output).with_suffix(".npy")
     out.parent.mkdir(parents=True, exist_ok=True)
     np.save(out, final.cpu().numpy())
     print(f"[sample] wrote {out}", flush=True)
@@ -560,18 +633,22 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
         print(f"[sample] router loaded from {args.router_checkpoint}", flush=True)
     gen = torch.Generator(device=device)
     lt = model_cfg.text_len
+
+    def from_file(path):
+        """(states, mask, pooled) of an embeddings file, as the JAX CLI makes
+        them: pooled from the first token, the mask from the nonzero rows."""
+        states = torch.from_numpy(load_embeds(path, model_cfg)).to(device)
+        return states, (states != 0).any(dim=-1), states[:, 0, :model_cfg.pooled_dim]
+
     if text is not None:  # encoded from --prompt above
         pass
     elif args.prompt_embeds:
-        text = torch.from_numpy(load_embeds(args.prompt_embeds, model_cfg)).to(device)
-        pooled = text[:, 0, :model_cfg.pooled_dim]
-        mask = (text != 0).any(dim=-1)
+        text, mask, pooled = from_file(args.prompt_embeds)
     elif args.random_embeds:
-        gen.manual_seed(args.seed + 1)
-        text = torch.randn((1, lt, model_cfg.text_dim), generator=gen, device=device)
+        text = random_embeds(gen, args.seed + 1, (1, lt, model_cfg.text_dim), device)
         pooled = torch.randn((1, model_cfg.pooled_dim), generator=gen, device=device)
         mask = torch.ones((1, lt), dtype=torch.bool, device=device)  # all valid, as in JAX
-    else:
+    elif not args.prompt_embeds_dir:
         raise SystemExit(NEED_CONDITIONING)
     vae = None
     if args.decode:
@@ -581,22 +658,31 @@ def _main_hunyuan(args, device, model_cfg, dtype, grid, attn_cfg, routing_mode: 
             _vae_note(load_hunyuan_vae_torch_weights(vae, args.vae_checkpoint)[0])
     pipe = HunyuanT2VPipeline(model, attn_cfg=attn_cfg, vae=vae, act_scales=act_scales,
                               quantized_blocks=qblocks, sp_group=sp_group)
-    latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
-                                   args.height, args.width)
     _sync(device)
     build_s = time.time() - t0
-    print(f"[sample] model built in {build_s:.1f}s; {int(mask.sum())} of {lt} text tokens "
-          "valid", flush=True)
+    valid = "" if text is None else f"; {int(mask.sum())} of {lt} text tokens valid"
+    print(f"[sample] model built in {build_s:.1f}s{valid}", flush=True)
     sampling = HunyuanSamplingConfig(
         num_inference_steps=args.num_inference_steps, guidance_scale=args.guidance_scale,
         flow_shift=args.flow_shift, scheduler=args.scheduler or "euler",
-        routing_mode=routing_mode, mm_precision=args.mm, **_cache_kw(args))
-    routing, cache_log = [], []
-    t0 = time.time()
-    final = pipe(latents, text, mask, pooled, sampling=sampling, routing=routing,
-                 cache_log=cache_log)
-    return _finish(args, device, final, build_s, t0, routing, cache_log, encode_s,
-                   (lambda x: pipe.decode(x, tiled=args.vae_tiling)) if vae else None, sp_group)
+        routing_mode=routing_mode, mm_precision=args.mm, cfg_batch=args.cfg_batch,
+        **_cache_kw(args))
+    decode = (lambda x: pipe.decode(x, tiled=args.vae_tiling)) if vae else None
+
+    def generate(conditioning, output):
+        text, mask, pooled = conditioning
+        latents = pipe.prepare_latents(gen.manual_seed(args.seed), 1, args.num_frames,
+                                       args.height, args.width)
+        routing, cache_log = [], []
+        t0 = time.time()
+        final = pipe(latents, text, mask, pooled, sampling=sampling, routing=routing,
+                     cache_log=cache_log)
+        return _finish(args, device, final, build_s, t0, routing, cache_log, encode_s, decode,
+                       sp_group, output)
+
+    if args.prompt_embeds_dir:
+        return run_batch(args, generate, from_file)
+    return generate((text, mask, pooled), args.output)
 
 
 if __name__ == "__main__":

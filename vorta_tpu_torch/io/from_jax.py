@@ -201,6 +201,39 @@ ROUTER_KEYS = {
 }
 
 
+# the time embedder of the model the JAX package's trained routers were
+# trained against (WanModel(WAN_1_3B, bf16, nnx.Rngs(0)); its routers read
+# only the timestep embedding): port_assets/export_time_embedder.py
+TIME_EMBEDDER = (Path(__file__).resolve().parents[2] / "port_assets"
+                 / "wan1_3b_time_embedder_rngs0.npz")
+
+
+def load_trained_router(model, source, time_embedder: bool = True) -> None:
+    """``load_router_npz``, then, with ``time_embedder`` and where the model
+    has Wan-1.3B's width, the time embedder the router was trained against
+    (``TIME_EMBEDDER``), so it routes as in the JAX package's model."""
+    load_router_npz(model, source)
+    if time_embedder and model.cfg.dim == 1536:
+        load_jax_params(model, TIME_EMBEDDER)
+
+
+def router_state_from_jax(flat: dict) -> dict:
+    """The JAX package's stacked router parameters ({keystr path: array},
+    each a block stack's ``['router']['linear']`` kernel or bias, e.g. a
+    JAX trainer's router checkpoint flattened) -> the port's {name: f32
+    tensor}, the inverse of ``router_state_to_jax``: what a step dir of
+    io/checkpoint.py holds."""
+    stacks = {}
+    for key, arr in flat.items():
+        parts = _parts(key)
+        if len(parts) != 4 or parts[1:3] != ["router", "linear"] or parts[3] not in (
+                "kernel", "bias"):
+            raise KeyError(f"not a block stack's router parameter: {key!r}")
+        stacks[parts[0]] = np.shape(arr)[0]
+    state = _flat_to_state({k: np.asarray(v, np.float32) for k, v in flat.items()}, stacks)
+    return {k: v.contiguous() for k, v in state.items()}
+
+
 def load_router_npz(model, source) -> None:
     """Set every block's router of the port's ``WanModel`` from the stacked
     JAX router arrays: ``source`` is an npz path or a {keystr: array}

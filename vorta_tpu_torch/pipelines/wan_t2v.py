@@ -10,7 +10,11 @@ gives the host one call per ``chunk`` steps.  ``routing_mode`` ("off", or
 "hard" to route each head per block and step) goes to every forward; with
 CFG both passes route alike, since routing reads only the timestep.  A
 caller that passes a ``routing`` list gets each hard-routed forward's
-(num_layers, H) expert ids appended to it.  The quantized serving options
+(num_layers, H) expert ids appended to it.  ``SamplingConfig.return_scores``
+makes the pipeline return ``(latents, scores)`` as the JAX one does: each
+step's router scores of its first forward (the conditional one, or the
+batch-2B one under ``cfg_batch``), (steps, num_layers, B or 2B, H, 3); a
+step the cache skips gives zeros.  The quantized serving options
 (``SamplingConfig.mm_precision``, the pipeline's ``act_scales`` and
 ``quantized_blocks``) go to every forward too.
 
@@ -56,6 +60,8 @@ class SamplingConfig:
     # run the CFG cond+uncond passes as ONE batch-2B forward
     cfg_batch: bool = False
     mm_precision: str = "bf16"  # bf16 | int8 (W8A8 block projections, ops/qmm.py)
+    # return (latents, per-step router scores (steps, L, B, H, E)) from __call__
+    return_scores: bool = False
     # step-residual caching: skip the block stack while the accumulated
     # temb6 distance since the last computed step stays under this; 0 = off
     cache_threshold: float = 0.0
@@ -160,7 +166,7 @@ class WanT2VPipeline:
         return x, torch.zeros_like(x), torch.zeros_like(x), x, caches
 
     def _velocity(self, x, t, pe, ne, image_embeds, sampling: SamplingConfig, caches, force,
-                  i, routing, cache_log):
+                  i, routing, cache_log, scores):
         model, dtype = self.model, self.model.dtype
         kw = dict(attn_cfg=self.attn_cfg, routing_mode=sampling.routing_mode,
                   mm_precision=sampling.mm_precision, act_scales=self.act_scales,
@@ -171,12 +177,14 @@ class WanT2VPipeline:
         new_caches = []
         x = sp_frames(x, self.sp_group)
 
-        def forward(*args, img):
+        def forward(*args, img, first=False):
             arm = len(new_caches)
-            out = model(*args, image_context=img,
+            out = model(*args, image_context=img, return_scores=first and scores is not None,
                         step_cache=caches[arm] if caches else None, **kw)
             if routing is not None and out.expert_ids is not None:
                 routing.append(out.expert_ids)
+            if first and scores is not None:
+                scores.append(out.routing_scores)
             if caches:
                 new_caches.append(out.step_cache)
                 if cache_log is not None:
@@ -188,10 +196,10 @@ class WanT2VPipeline:
         if do_cfg and sampling.cfg_batch:
             img2 = None if image_embeds is None else torch.cat([image_embeds, image_embeds])
             out = forward(torch.cat([x, x]).to(dtype), torch.cat([t, t]), torch.cat([pe, ne]),
-                          img=img2)
+                          img=img2, first=True)
             vc, vu = out[: x.shape[0]], out[x.shape[0]:]
             return vu + g * (vc - vu), tuple(new_caches)
-        v = forward(x.to(dtype), t, pe, img=image_embeds)
+        v = forward(x.to(dtype), t, pe, img=image_embeds, first=True)
         if do_cfg:  # the image tokens stay on for the unconditional pass
             vu = forward(x.to(dtype), t, ne, img=image_embeds)
             v = vu + g * (v - vu)
@@ -201,15 +209,16 @@ class WanT2VPipeline:
     def step(self, carry: tuple, i: int, prompt_embeds: torch.Tensor,
              negative_prompt_embeds: torch.Tensor, image_embeds: Optional[torch.Tensor] = None,
              sampling: SamplingConfig = SamplingConfig(), routing: Optional[list] = None,
-             cache_log: Optional[list] = None) -> tuple:
-        """Denoise step ``i`` of the carry."""
+             cache_log: Optional[list] = None, scores: Optional[list] = None) -> tuple:
+        """Denoise step ``i`` of the carry; a ``scores`` list gets the step's
+        router scores (num_layers, B, H, E) of its first forward appended."""
         schedule = make_schedule(sampling)
         n = schedule.num_steps
         x, caches = carry[0], carry[4]
         t = torch.full((x.shape[0],), float(schedule.timesteps[i]), device=x.device)
         force = i < sampling.cache_warmup or i == n - 1
         v, caches = self._velocity(x, t, prompt_embeds, negative_prompt_embeds, image_embeds,
-                                   sampling, caches, force, i, routing, cache_log)
+                                   sampling, caches, force, i, routing, cache_log, scores)
         return integrate(schedule, sampling, carry[:4] + (caches,), v, i)
 
     def make_stepper(self, sampling: SamplingConfig, chunk: int = 1):
@@ -228,15 +237,20 @@ class WanT2VPipeline:
                  sampling: SamplingConfig = SamplingConfig(),
                  routing: Optional[list] = None,
                  image_embeds: Optional[torch.Tensor] = None,
-                 cache_log: Optional[list] = None) -> torch.Tensor:
+                 cache_log: Optional[list] = None):
         """latents (B, T, H, W, C) initial noise; prompt embeds (B, L, text_dim);
         ``image_embeds`` (B, 257, image_dim) CLIP image tokens for I2V (the
-        model needs ``image_dim``).  Returns the final latents, f32."""
+        model needs ``image_dim``).  Returns the final latents, f32, or with
+        ``sampling.return_scores`` (latents, scores (steps, num_layers, B,
+        H, E))."""
         if negative_prompt_embeds is None:
             negative_prompt_embeds = torch.zeros_like(prompt_embeds)
         init, step_fn, n = self.make_stepper(sampling)
         carry = init(latents)
+        scores = [] if sampling.return_scores else None
         for i in range(n):
             carry = step_fn(carry, i, prompt_embeds, negative_prompt_embeds, image_embeds,
-                            routing=routing, cache_log=cache_log)
+                            routing=routing, cache_log=cache_log, scores=scores)
+        if scores is not None:
+            return carry[0], torch.stack(scores)
         return carry[0]
