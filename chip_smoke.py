@@ -14,8 +14,10 @@ Phases, each raising on failure:
      bisection variants over its chunk walk; and the backward's dq and
      dk/dv kernels of csrc/flash_bwd.cu on its pieces; none may spill)
      with its dynamic shared memory, and of the norm's and the qk
-     prologue's warp-per-row kernels and unpool's batched 16-byte copy (48,
-     12 and 10; no spills either).  Every flash, flash_manual, sta_pipe,
+     prologue's warp-per-row kernels and unpool's batched 16-byte copy (72,
+     27 and 24 in bf16 and f32; no spills either), and the f32 attention
+     core's 10 users (held to 128 registers; their spills reported).
+     Every flash, flash_manual, sta_pipe,
      sta_window and sta_batched row reports its achieved TFLOP/s, its share
      of the bound and its ratio to the library call; every sta_pipe,
      sta_window and sta_batched row also the mma.sync kernel's time in the
@@ -238,6 +240,38 @@ through new entry points):
      counted by its symbols, equal its launch counter; the top 25 device
      ops by name (sta_batched's counter stands for two CUDA launches, its
      live-slot pass and its kernel: off this path).
+The f32 serving path (TF32 off for cuBLAS and cuDNN, checked first):
+  p. f32_kernels: the eight kernels of the f32 serving path in their f32
+     modes (csrc/attn_f32.cuh's FFMA core for flash, flash_manual, sta_pipe
+     and sta_batched; the norm, the prologue, pool and unpool instantiated
+     on f32), each against its f32 plain version: attention worst |err| /
+     max(|plain|, RMS) <= 1e-4, norm and prologue <= 1e-5, pool and unpool
+     bit for bit where the picks agree; each call counted once on its
+     <kernel>_f32 counter; brackets (the plain version without the tail
+     mask, kv_bias, pair bits or text bias must fail the gate).  Shapes:
+     flash at 480p x 21f self- and cross-attention (SDPA in f32 beside it)
+     and per-head tables at blocks of 16, D 64; flash_manual's routed FULL
+     and LOWRES calls at 480p x 77f with count-0 heads, kv_bias +
+     kv_valid_len in both softmaxes, D 64 blocks of 16; sta_pipe at 480p x
+     77f (masked SDPA beside it), the text tail in both softmaxes, wan-tiny's
+     tile; sta_batched on hunyuan-tiny's joint layout (8-token tiles, both
+     softmaxes) and HunyuanVideo (2, 9, 8)'s; the norm at (1,31200,1536),
+     Wan-14B's width and dim 128 (F.layer_norm beside it); the prologue at
+     Wan-1.3B's, HunyuanVideo's (head scope), Wan-14B's (eight warps a row)
+     and the tiny models' widths; pool / unpool at 480p x 77f active mode
+     and in head-map mode with K's matching (torch.gather beside unpool).
+  q. f32 model checks: Wan 2 blocks at 1.3B widths off and routed, and
+     HunyuanVideo 1 + 1 blocks at 13B widths routed, card f32 against CPU
+     f32 from the same weights: rel L2 <= 1e-4, launches exact.
+  r. f32 serving: cli.sample --dtype fp32 for Wan-1.3B at full width and
+     depth, off at 480p x 21f and routed at 480p x 77f (one UniPC step x
+     CFG each, s per step); wan-tiny and hunyuan-tiny through cli.sample (2
+     steps, card against --device cpu from host-drawn weights, noise and
+     embeddings: final latents rel L2 <= 1e-3, routing equal), through
+     cli.bench_compare (every arm) and wan-tiny through
+     tools.fit_cache_poly; every path's launches exact (f32_launches: no
+     Hopper path, every launch of the eight kernels on its *_f32 counter)
+     and each *_f32 counter non-zero on some path.
 Every main path's launch counts are exact, the Hopper path's subset
 counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
 sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma),
@@ -252,7 +286,7 @@ flash, dq and dk/dv launch but the STA expert's (96- and 360-token tiles);
 sta_pipe's int8 QK mode, stable softmax and variants and
 sta_batched's stable softmax (phases 2q, 2o) stay on their mma.sync
 kernels, counted there.  Phase 6 counts its forwards' launches too.
-Phases 1-6 and a-h run under torch.inference_mode(); the training phases do not:
+Phases 1-6, a-o and p-r run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
      shapes the trainer gives them (480p x 77f: FULL, LOWRES, STA's
@@ -302,7 +336,7 @@ HunyuanVideo router training and sequence parallelism (no new kernel):
      router gradients); the time of one all_to_all at Wan's q shape.
 Then a line of the W8A8, static-scale and Wan-14B numbers, a line of the
 Hunyuan training and world-size-1 SP numbers, a line of the evaluation
-phases' numbers, a {"kernels":
+phases' numbers, a line of the f32 phases' numbers, a {"kernels":
 [...]} line (the prologue's row with its warp-per-row launches by path;
 unpool's with unpool_rows' and the first design's time; sta_diag's with
 sta_diag_wgmma's and its mma.sync kernel's times; sta_row's with
@@ -312,7 +346,9 @@ head-map mode under theirs, with the HunyuanVideo routed path's launches;
 copy_probe a row whose launches are the pool benchmark tool's; sta_row, which no geometry of
 the port's paths reaches, fused_residual_norm, which no model calls, and sta_diag, whose
 launches are the sta_diag tool's, with "on_main_path": false; the stable softmax and
-sta_pipe's variants under their kernels' "modes"), the card line, and
+sta_pipe's variants under their kernels' "modes"; the eight f32 modes
+under theirs as "f32", with their launches on the f32 paths), the card
+line, and
 the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
 CUDA or without the package beside this file.
@@ -442,7 +478,7 @@ def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and report
     ptxas's registers and spills; the Hopper path's fifteen instantiations,
     the norm's and the prologue's warp-per-row kernels and unpool's batched
-    copy must not spill."""
+    copy must not spill (the f32 attention core's spills are reported)."""
     from vorta_tpu_torch.ops import _build
 
     t0 = time.time()
@@ -495,18 +531,28 @@ def build_kernels() -> None:
                            "backward's dq and dk/dv, flash_manual's bf16 and int8, "
                            "sta_diag's five variants, sta_pipe's, sta_window's two, sta_row's, "
                            "sta_batched's; no spills)")
-    # the warp-per-row kernels: the norm's 48, the prologue's 12 (one warp a
-    # row at 1-6 chunks a lane, two or four at 4-6); unpool's batched copy, 10
-    # (4, 8 or 16 stores a lane at D 128, 4 or 8 at D 64, each with half as
-    # many kept-row loads or as many)
-    for entry, count in (("fused_norm_rows_kernel", 48), ("prologue_rows_kernel", 12),
-                         ("unpool_rows_kernel", 10)):
+    # the warp-per-row kernels: the norm's 72 (bf16 in, bf16 or f32 out; f32
+    # in and out: 24 each), the prologue's 27 (bf16: one warp a row at 1-6
+    # chunks a lane, two or four at 4-6; f32 the same and eight at 4-6);
+    # unpool's batched copy, 24 (4, 8 or 16 stores a lane at D 128 and 64,
+    # each with half as many kept-row loads or as many, in bf16 and f32): no
+    # spills.  The f32 attention core's 10 (flash, flash_manual, sta_pipe at
+    # D 64 / 128; sta_batched with and without pair bits), held to 128
+    # registers so that two 101 KB CTAs share an SM: their spills reported
+    for entry, count, spill_free in (("fused_norm_rows_kernel", 72, True),
+                                     ("prologue_rows_kernel", 27, True),
+                                     ("unpool_rows_kernel", 24, True),
+                                     ("_f32_kernel", 10, False)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
             f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
-        if len(rows) != count or any(spill is None or "0 bytes spill stores, 0 bytes spill "
-                                     "loads" not in spill for *_, spill in rows):
-            raise RuntimeError(f"{entry}: {rows} ({count}; no spills)")
+        if not spill_free:
+            for src, name, _, spill in rows:
+                log(f"ptxas {entry} {src} {name[-60:]}: {spill}")
+        if len(rows) != count or (spill_free and any(
+                spill is None or "0 bytes spill stores, 0 bytes spill loads" not in spill
+                for *_, spill in rows)):
+            raise RuntimeError(f"{entry}: {rows} ({count}{'; no spills' * spill_free})")
 
 
 def main() -> int:
@@ -594,7 +640,11 @@ def main() -> int:
         launches_cal, calib = phase("calibrate_int8", run_calibrate_path, torch, card)
         launches_fit, fit = phase("fit_cache_poly", run_fit_cache_poly_path, torch, card)
         launches_prof, prof = phase("profiling", run_profiling_path, torch, card)
-    evaluation = {**launches_bc, **launches_cal, **launches_fit, **launches_prof}
+        f32k = phase("f32_kernels", check_f32_kernels, torch, card)
+        f32_models = phase("f32_model_checks", check_f32_models, torch)
+        launches_f32, f32_serving = phase("f32_serving", run_f32_serving_path, torch, card)
+    evaluation = {**launches_bc, **launches_cal, **launches_fit, **launches_prof,
+                  **launches_f32}
     kernels += (int8_kernel_rows(int8) + fallback_kernel_rows(fallback)
                 + options_kernel_rows(opt, diag_ms))
     for k in kernels:
@@ -609,6 +659,13 @@ def main() -> int:
                           **{m: mode_row(opt["sta_pipe"][m]) for m in opt["sta_pipe"]}}
         elif k["name"] in ("flash_manual", "sta_batched"):
             k["modes"] = {"stable": mode_row(opt[k["name"]])}
+    for k in kernels:  # the f32 modes of the f32 serving path
+        counter = {"qk_prologue": "prologue"}.get(k["name"], k["name"])
+        if counter in F32_REPLACES:
+            shapes = f32k[counter]
+            k.setdefault("modes", {})["f32"] = {
+                "replaces": F32_REPLACES[counter], "on_main_path": True,
+                **mode_row(shapes), "worst_ratio": max(x["worst_ratio"] for x in shapes.values())}
     kernels += phase("training_kernels", check_training_kernels, torch, card)
     phase("train_grads", lambda: (check_train_grads(torch),
                                   check_train_grads(torch, grid=(10, 18, 16), tile=TILE_360)))
@@ -673,7 +730,7 @@ def main() -> int:
             if not hm_paths["hunyuan"]:
                 raise RuntimeError(f"{name}: the head-map mode was not launched on the "
                                    "HunyuanVideo routed path")
-            k["modes"] = {"head_map": dict(
+            k["modes"] = {**k.get("modes", {}), "head_map": dict(
                 replaces="vorta_tpu/ops/coreset_pallas.py:" + ("418" if name == "pool_qkv"
                                                                else "545"),
                 on_main_path=True, launches=hm_paths["hunyuan"], launches_by_path=hm_paths,
@@ -706,6 +763,7 @@ def main() -> int:
                       "sp_world_1": sp1}))
     print(json.dumps({"evaluation": {"bench_compare": compare, "calibrate_int8": calib,
                                      "fit_cache_poly": fit, "profiling": prof}}))
+    print(json.dumps({"f32": {"model_checks_rel_l2": f32_models, "serving": f32_serving}}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
@@ -755,7 +813,9 @@ def main() -> int:
           f"{compare['wan_480p_77f']['speedup']}, HunyuanVideo 720p x 45f "
           f"{[compare['hunyuan_45f'][a]['s_per_step'] for a in ('baseline', 'vorta')]} "
           f"{compare['hunyuan_45f']['speedup']}; profiled routed 480p x 77f forward "
-          f"{prof['device_ms']:.1f} device ms; "
+          f"{prof['device_ms']:.1f} device ms; f32 (--dtype fp32) Wan-1.3B off 480p x 21f "
+          f"{f32_serving['f32_off_480p_21f']['s_per_step']:.3f}, routed 480p x 77f "
+          f"{f32_serving['f32_hard_480p_77f']['s_per_step']:.3f} s per UniPC step x CFG; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
           f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
@@ -2053,10 +2113,12 @@ def hy_inputs(torch, grid, dev, seed: int):
     return lat, text, hy_text_mask(torch, dev), pooled
 
 
-def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -> dict:
+def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe",
+                     dual: int = 20) -> dict:
     """Kernel launches of hard-routed Hunyuan forwards from their routing
-    tables (forwards, 60 blocks, heads): per forward the prologue 60 and the
-    AdaLN norm 121 (4 per dual block, 1 per single block, 1 in the head);
+    tables (forwards, blocks, heads; ``dual`` of the blocks dual-stream): per
+    forward the prologue a block and the AdaLN norm 4 per dual block, 1 per
+    single block, 1 in the head (60 and 121 at the 13B's 20 + 40);
     per block one flash_manual per routed expert (STA's for its text rows,
     except with sta_batched, which takes them itself), the STA kernel with
     STA, pool_qkv and unpool in head-map mode with LOWRES (as the JAX
@@ -2069,11 +2131,12 @@ def hy_hard_launches(tables, int8: bool = False, sta_kernel: str = "sta_pipe") -
     from vorta_tpu_torch.ops import _build
 
     has = [(tables == e).any(-1) for e in range(3)]  # per (forward, block)
-    n_fwd = tables.shape[0]
+    n_fwd, blocks = tables.shape[:2]
     text_rows = 0 if sta_kernel == "sta_batched" else int(has[2].sum())
     experts = int(has[0].sum() + has[1].sum())
-    return {**dict.fromkeys(_build.KERNELS, 0), "prologue": 60 * n_fwd,
-            "prologue_rows": 60 * n_fwd, "fused_norm": 121 * n_fwd,
+    norms = 4 * dual + (blocks - dual) + 1
+    return {**dict.fromkeys(_build.KERNELS, 0), "prologue": blocks * n_fwd,
+            "prologue_rows": blocks * n_fwd, "fused_norm": norms * n_fwd,
             "flash_manual": experts + text_rows, sta_kernel: int(has[2].sum()),
             f"{sta_kernel}_wgmma": int(has[2].sum()), "pool_qkv_headmap": int(has[1].sum()),
             "unpool_headmap": int(has[1].sum()), "unpool_rows": int(has[1].sum()),
@@ -5275,12 +5338,14 @@ CACHE_POLY_720P = "assets/cache_poly_wan1_3b_720p.npz"
 EXPERTS = ("full", "lowres", "sta")
 
 
-def off_wan_launches(n_fwd: int) -> dict:
-    """Kernel launches of ``n_fwd`` Wan-1.3B forwards with routing off."""
+def off_wan_launches(n_fwd: int, blocks: int = 30) -> dict:
+    """Kernel launches of ``n_fwd`` Wan forwards with routing off (Wan-1.3B's
+    30 blocks by default)."""
     from vorta_tpu_torch.ops import _build
 
-    return {**dict.fromkeys(_build.KERNELS, 0), "flash": 60 * n_fwd, "flash_wgmma": 60 * n_fwd,
-            "fused_norm": 61 * n_fwd, "prologue": 30 * n_fwd, "prologue_rows": 30 * n_fwd}
+    return {**dict.fromkeys(_build.KERNELS, 0), "flash": 2 * blocks * n_fwd,
+            "flash_wgmma": 2 * blocks * n_fwd, "fused_norm": (2 * blocks + 1) * n_fwd,
+            "prologue": blocks * n_fwd, "prologue_rows": blocks * n_fwd}
 
 
 def routed_run_launches(routing: list, cache_log: list) -> dict:
@@ -5614,6 +5679,779 @@ def run_profiling_path(torch, card: str):
     del model
     return {"profiling_480p_77f": launches}, {"device_ms": device_ms, "traced_s": traced_s,
                                               "top": top}
+
+
+
+# ---- the f32 serving path: the eight kernels' f32 modes ---------------------------
+
+# f32 gates, each kernel against its plain version on the same f32 inputs,
+# TF32 off on both sides: worst |err| / max(|plain|, RMS(plain)) at most
+# TOL_F32_ATTN for the attention kernels (FFMA sums against cuBLAS's, in
+# another order) and TOL_F32_ROW for the norm and the prologue (row sums in
+# another order); pool and unpool bit for bit where the picks agree.
+TOL_F32_ATTN = 1e-4
+TOL_F32_ROW = 1e-5
+F32_REPLACES = {"flash": "vorta_tpu/ops/flash.py:348", "flash_manual":
+                "vorta_tpu/ops/flash_manual.py:346", "sta_pipe": "vorta_tpu/ops/sta_pipe.py:597",
+                "sta_batched": "vorta_tpu/ops/sta_batched.py:284",
+                "fused_norm": "vorta_tpu/ops/fused_norm.py:108",
+                "prologue": "vorta_tpu/ops/prologue.py:163",
+                "pool_qkv": "vorta_tpu/ops/coreset_pallas.py:418",
+                "unpool": "vorta_tpu/ops/coreset_pallas.py:545"}
+
+
+def check_full_f32(torch) -> None:
+    """The f32 phases run with TF32 off: f32 products are f32."""
+    if not (torch.backends.cuda.matmul.allow_tf32 is False
+            and torch.get_float32_matmul_precision() == "highest"
+            and torch.backends.cudnn.allow_tf32 is False):
+        raise RuntimeError("f32 phases need TF32 off (cuBLAS and cuDNN) and the 'highest' f32 "
+                           "matmul precision")
+
+
+def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: float,
+             nbytes: float, *, lib=None, iters: int = 5, rows=None, bracket=None) -> dict:
+    """One f32 call of a kernel: launched once, on its ``<counter>_f32``
+    mode; held against its plain version (on ``rows`` of the sequence axis
+    where given: the rows its caller reads); ``bracket`` (a plain call the
+    gate must reject: a missing mask); timed beside the plain version and
+    ``lib`` (a callable: one PyTorch call of the same function, or None)."""
+    from vorta_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    got = kern()
+    torch.cuda.synchronize()
+    if (_build.launches[counter], _build.launches[f"{counter}_f32"]) != (1, 1):
+        raise RuntimeError(f"{name}: launches ({counter}, {counter}_f32) "
+                           f"{(_build.launches[counter], _build.launches[f'{counter}_f32'])}")
+    want, plain_ms = timed_once(torch, plain)
+    if rows is not None:
+        got, want = got[:, :, rows], want[:, :, rows]
+    if got.dtype != torch.float32 or not torch.isfinite(got).all():
+        raise RuntimeError(f"{name}: output {got.dtype}, finite {bool(torch.isfinite(got).all())}")
+    err = (got - want).abs().max().item()
+    ratio = worst_ratio(torch, got, want)
+    log(f"{name}: max_abs_err {err:.3e}, worst |err| / max(|plain|, RMS) {ratio:.3e} "
+        f"(tolerance {tol:g})")
+    if not ratio <= tol:
+        raise RuntimeError(f"{name}: the f32 kernel disagrees with its plain version")
+    r = dict(max_abs_err=err, worst_ratio=ratio)
+    if bracket is not None:
+        miss = bracket()
+        r["bracket_worst_ratio"] = worst_ratio(torch, miss if rows is None else miss[:, :, rows],
+                                               want)
+        if not r["bracket_worst_ratio"] > tol:
+            raise RuntimeError(f"{name}: the gate cannot tell the bracket")
+        del miss
+    del got, want
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32)
+    r.update(ms=time_ms(torch, kern, iters), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib() if lib is not None else None)
+    if flops:
+        with_rate(r, flops)
+    else:
+        r.update(gbps=nbytes / r["ms"] / 1e6, bound_share=b_ms / r["ms"])
+        if r["library_ms"]:
+            r["vs_library"] = r["ms"] / r["library_ms"]
+    log(f"{name}: {r}")
+    return r
+
+
+def check_f32_kernels(torch, card: str) -> dict:
+    """The eight kernels of the f32 serving path in their f32 modes on the
+    card, each against its f32 plain version (gates above), with ms,
+    TFLOP/s or GB/s, the share of the bound (67 TFLOP/s f32, 3.35 TB/s) and
+    the library call (SDPA in f32 with TF32 off beside the attention rows):
+    {kernel: {shape: numbers}}.  Covers the flash kv tail, kv_bias with
+    kv_valid_len, pair bits, count-0 rows, inactive heads, the head-map
+    mode with K matching, the stable and the fast softmax, the text tail,
+    D 64 and 128, blocks of 8 and 16 rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops import joint_experts as joint
+    from vorta_tpu_torch.ops.coreset_pallas import head_map_for, pick_gaps, pool_qkv, pool_qkv_ref
+    from vorta_tpu_torch.ops.experts import lowres_groups_for
+    from vorta_tpu_torch.ops.flash import (
+        dense_tables,
+        sparse_flash_attention_raw,
+        sparse_flash_attention_ref,
+        tables_from_block_mask,
+    )
+    from vorta_tpu_torch.ops.flash_manual import (
+        sparse_flash_attention_manual,
+        sparse_flash_attention_manual_ref,
+    )
+    from vorta_tpu_torch.ops.fused_norm import _norm_ref, fused_norm
+    from vorta_tpu_torch.ops.prologue import _prologue_ref, fused_qk_prologue, prologue_layout
+    from vorta_tpu_torch.ops.rope import rope_cos_sin
+    from vorta_tpu_torch.ops.routed_fused import routed_geometry
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
+    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+
+    check_full_f32(torch)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    out = {k: {} for k in F32_REPLACES}
+
+    def randn(*shape, scale=1.0):  # unit RMS: the scale of qk-normed q / k
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def sdpa(q, k, v, iters=3, mask=None):
+        return lambda: time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters, 1)
+
+    h, d = 12, 128
+    act = torch.tensor(ACTIVE_HEADS, device=dev)
+    n_act = int(act.sum().item())
+
+    # ---- flash: self-attention at 480p x 21f (the f32 off path's), padded to
+    # 10 x 1024 with the 9,360 tail (its bracket: the plain version without the
+    # tail mask); cross-attention to 512 text keys; per-head tables with count-0
+    # q blocks and a tail at D 64, blocks of 16 (wan-tiny's)
+    s = GRID_480P[0] * GRID_480P[1] * GRID_480P[2]
+    sp = 10240
+    q, k, v = (randn(1, h, sp, d) for _ in range(3))
+    ki, kc = dense_tables(sp // 1024, sp // 1024).on(dev)
+    kw = dict(scale=d**-0.5, block_q=1024, block_kv=1024, kv_valid_len=s)
+    flops = 4.0 * s * s * d * h
+    out["flash"]["self_attention_9360"] = f32_case(
+        torch, "flash f32 self-attention (1,12,10240,128), valid 9360", "flash",
+        lambda: sparse_flash_attention_raw(q, k, v, ki, kc, **kw),
+        lambda: sparse_flash_attention_ref(q, k, v, ki, kc, **kw), TOL_F32_ATTN, flops,
+        4 * h * s * d * 4, rows=slice(0, s), iters=3,
+        lib=sdpa(*(x[:, :, :s] for x in (q, k, v))),
+        bracket=lambda: sparse_flash_attention_ref(q, k, v, ki, kc,
+                                                   **{**kw, "kv_valid_len": None}))
+    kt, vt = randn(1, h, TEXT_LEN, d), randn(1, h, TEXT_LEN, d)
+    ti, tc = dense_tables(sp // 2048, 1).on(dev)
+    kwc = dict(scale=d**-0.5, block_q=2048, block_kv=512)
+    out["flash"]["cross_attention_9360x512"] = f32_case(
+        torch, "flash f32 cross-attention (1,12,10240,128) x 512", "flash",
+        lambda: sparse_flash_attention_raw(q, kt, vt, ti, tc, **kwc),
+        lambda: sparse_flash_attention_ref(q, kt, vt, ti, tc, **kwc), TOL_F32_ATTN,
+        4.0 * s * TEXT_LEN * d * h, (2 * h * s * d + 2 * h * TEXT_LEN * d) * 4,
+        rows=slice(0, s), lib=sdpa(q[:, :, :s], kt, vt, 10), iters=10)
+    del q, k, v, kt, vt
+    rng = np.random.default_rng(19)
+    mask = rng.random((2, 6, 6)) < 0.5
+    mask[:, 0, :] = False  # count-0 q blocks: zero rows
+    mask[:, 1, 5] = True  # the tail block
+    pi, pc = tables_from_block_mask(mask).on(dev)
+    q, k, v = (randn(2, 2, 96, 64) for _ in range(3))
+    kws = dict(scale=64**-0.5, block_q=16, block_kv=16, kv_valid_len=90)
+    out["flash"]["per_head_tables_d64_blocks16"] = f32_case(
+        torch, "flash f32 per-head tables (2,2,96,64), blocks 16, valid 90", "flash",
+        lambda: sparse_flash_attention_raw(q, k, v, pi, pc, **kws),
+        lambda: sparse_flash_attention_ref(q, k, v, pi, pc, **kws), TOL_F32_ATTN,
+        4.0 * 96 * 96 * 64 * 4, 4 * 4 * 96 * 64 * 4, iters=10,
+        bracket=lambda: sparse_flash_attention_ref(q, k, v, pi, pc,
+                                                   **{**kws, "kv_valid_len": None}))
+
+    # ---- flash_manual: the routed FULL call at 480p x 77f (fast, per-head counts:
+    # heads routed away are count-0 rows), LOWRES; kv_bias with kv_valid_len
+    # (the joint experts' text padding) in the stable and the fast softmax;
+    # D 64 with 16-row blocks
+    cfg = attention_config("wan-1_3B", GRID_480P_77F)
+    geo = routed_geometry(cfg)
+    for name, call in (("full_31200", geo.full), ("lowres_15600", geo.lowres)):
+        q, k, v = (randn(1, h, call.q_pad, d) for _ in range(3))
+        fi, fc = call.tables.on(dev)
+        cnt = torch.where(act[:, None] > 0, fc, 0).to(torch.int32)
+        kw = dict(scale=d**-0.5, block_q=call.block_q, block_kv=call.block_kv,
+                  kv_valid_len=call.valid_len, softmax="fast")
+        n = call.valid_len
+        out["flash_manual"][name] = r = f32_case(
+            torch, f"flash_manual f32 {name} (1,12,{call.q_pad},128), {n_act} of 12 heads",
+            "flash_manual", lambda: sparse_flash_attention_manual(q, k, v, fi, cnt, **kw),
+            lambda: sparse_flash_attention_manual_ref(q, k, v, fi, cnt, **kw), TOL_F32_ATTN,
+            4.0 * n * n * d * n_act, 4 * n * d * 4 * n_act, rows=slice(0, n), iters=2,
+            lib=sdpa(*(x[:, act > 0, :n] for x in (q, k, v)), 2),
+            bracket=lambda: sparse_flash_attention_manual_ref(q, k, v, fi, cnt,
+                                                              **{**kw, "kv_valid_len": None}))
+        got = sparse_flash_attention_manual(q, k, v, fi, cnt, **kw)
+        if got[:, act == 0].any():
+            raise RuntimeError(f"flash_manual f32 {name}: a count-0 head wrote non-zeros")
+        del q, k, v, got
+    q, k, v = (randn(1, 4, 2048, d) for _ in range(3))
+    bias = torch.zeros((1, 2048), device=dev)
+    bias[:, 1800:] = -1e30  # padded text keys
+    bi, bc = dense_tables(8, 8).on(dev)
+    for softmax in ("stable", "fast"):
+        kw = dict(scale=d**-0.5, block_q=256, block_kv=256, kv_valid_len=1900, kv_bias=bias,
+                  softmax=softmax)
+        out["flash_manual"][f"kv_bias_tail_{softmax}"] = f32_case(
+            torch, f"flash_manual f32 kv_bias + kv_valid_len 1900 (1,4,2048,128) {softmax}",
+            "flash_manual", lambda: sparse_flash_attention_manual(q, k, v, bi, bc, **kw),
+            lambda: sparse_flash_attention_manual_ref(q, k, v, bi, bc, **kw), TOL_F32_ATTN,
+            4.0 * 2048 * 1800 * d * 4, 4 * 4 * 2048 * d * 4, iters=5,
+            bracket=lambda: sparse_flash_attention_manual_ref(q, k, v, bi, bc,
+                                                              **{**kw, "kv_bias": None}))
+    q, k, v = (randn(1, 2, 64, 64) for _ in range(3))
+    di, dc = dense_tables(4, 4).on(dev)
+    kw = dict(scale=64**-0.5, block_q=16, block_kv=16, kv_valid_len=60, softmax="fast")
+    out["flash_manual"]["d64_blocks16"] = f32_case(
+        torch, "flash_manual f32 (1,2,64,64), blocks 16, valid 60", "flash_manual",
+        lambda: sparse_flash_attention_manual(q, k, v, di, dc, **kw),
+        lambda: sparse_flash_attention_manual_ref(q, k, v, di, dc, **kw), TOL_F32_ATTN,
+        4.0 * 64 * 60 * 64 * 2, 4 * 2 * 64 * 64 * 4, iters=10)
+    del q, k, v
+
+    # ---- sta_pipe: the routed STA call at 480p x 77f (tile (4, 6, 4), fast, 8 of
+    # 12 heads active); the text tail (256 keys, 83 valid) in the stable and the
+    # fast softmax at the (6, 9, 8) tile; D 64 at wan-tiny's tile (2, 2, 2)
+    n = GRID_480P_77F[0] * GRID_480P_77F[1] * GRID_480P_77F[2]
+    q, k, v = (randn(1, h, n, d) for _ in range(3))
+    kw = dict(latent_shape=GRID_480P_77F, tile=(4, 6, 4), window=(3, 3, 3), scale=d**-0.5)
+    keys = 12 * 18 * 12
+    smask = sta_raster_mask(torch, GRID_480P_77F, (4, 6, 4), dev)
+    out["sta_pipe"]["480p_77f"] = f32_case(
+        torch, f"sta_pipe f32 (1,12,{n},128), tile (4,6,4), {n_act} of 12 heads", "sta_pipe",
+        lambda: sta_pipe_attention(q, k, v, act, **kw),
+        lambda: sta_pipe_attention_ref(q, k, v, act, **kw), TOL_F32_ATTN,
+        4.0 * n * keys * d * n_act, 4 * n * d * 4 * n_act, iters=5,
+        lib=lambda: masked_sdpa_ms(torch, "sta_pipe f32", *(x[:, act > 0] for x in (q, k, v)),
+                                   smask)[0])
+    del q, k, v, smask
+    torch.cuda.empty_cache()
+    grid, tile = (6, 9, 16), (6, 9, 8)
+    n = grid[0] * grid[1] * grid[2]
+    q, k, v = (randn(1, 4, n, d) for _ in range(3))
+    tk, tv = randn(1, 4, HY_TEXT, d), randn(1, 4, HY_TEXT, d)
+    tb = torch.where(hy_text_mask(torch, dev)[0], 0.0, -1e30).reshape(1, HY_TEXT)
+    a4 = torch.tensor([1, 0, 1, 1], device=dev)
+    for softmax in ("stable", "fast"):
+        kw = dict(latent_shape=grid, tile=tile, window=(3, 3, 3), scale=d**-0.5, text_k=tk,
+                  text_v=tv, text_bias=tb, softmax=softmax)
+        out["sta_pipe"][f"text_tail_{softmax}"] = f32_case(
+            torch, f"sta_pipe f32 (1,4,{n},128) + 256 text keys (83 valid), tile {tile}, "
+            f"{softmax}", "sta_pipe", lambda: sta_pipe_attention(q, k, v, a4, **kw),
+            lambda: sta_pipe_attention_ref(q, k, v, a4, **kw), TOL_F32_ATTN,
+            4.0 * n * (n + HY_VALID) * d * 3, 4 * n * d * 4 * 3, iters=5,
+            bracket=lambda: sta_pipe_attention_ref(q, k, v, a4, **{**kw, "text_bias": None}))
+    q, k, v = (randn(1, 2, 4 * 4 * 4, 64) for _ in range(3))
+    kw = dict(latent_shape=(4, 4, 4), tile=(2, 2, 2), window=(3, 3, 1), scale=64**-0.5)
+    out["sta_pipe"]["d64_tile222"] = f32_case(
+        torch, "sta_pipe f32 (1,2,64,64), tile (2,2,2), window (3,3,1)", "sta_pipe",
+        lambda: sta_pipe_attention(q, k, v, torch.ones(2, device=dev), **kw),
+        lambda: sta_pipe_attention_ref(q, k, v, torch.ones(2, device=dev), **kw),
+        TOL_F32_ATTN, 4.0 * 64 * 32 * 64 * 2, 4 * 2 * 64 * 64 * 4, iters=10)
+    del q, k, v, tk, tv
+
+    # ---- sta_batched: hunyuan-tiny's joint layout (tile (2, 2, 2): 8-row
+    # blocks, pair bits, the text bias) in the fast and the stable softmax, and
+    # HunyuanVideo 45f (2, 9, 8)'s joint layout (1,24,48384,128) fast, timed
+    for name, hcfg, heads, dh, lt, valid in (
+            ("hunyuan_tiny_joint", attention_config("hunyuan-tiny", (4, 6, 16)), 2, 64, 24,
+             17),
+            ("hunyuan_45f_298_joint", dataclasses.replace(
+                attention_config("hunyuan-13B", GRID_HY_45F), sta_tile=HY_TILE_298), 24, 128,
+             HY_TEXT, HY_VALID)):
+        jcfg = joint.JointConfig(hcfg, lt)
+        lay = joint.joint_layouts(jcfg)["sta"]
+        ji, jc, bits = joint._joint_sta_tables(jcfg).on(dev)
+        tmask = torch.zeros((1, lt), dtype=torch.bool, device=dev)
+        tmask[:, :valid] = True
+        bias = joint._bias(tmask, lay, hcfg.seq_len)
+        tpt = hcfg.tokens_per_tile
+        ja = torch.tensor([int(i % 3 != 0) for i in range(heads)], device=dev)
+        q, k, v = (randn(1, heads, lay.total, dh) for _ in range(3))
+        vis = torch.from_numpy(joint._joint_sta_subtile_mask(jcfg)[0]).to(dev)
+        live = (bias.reshape(-1, tpt) > -1e29).sum(dim=1)
+        pairs = int((vis.long() * live[None]).sum().item()) * tpt
+        n_on = int(ja.sum().item())
+        rows = torch.cat([torch.arange(hcfg.seq_len, device=dev),
+                          lay.text_off + torch.arange(valid, device=dev)])  # what callers read
+        for softmax in (("fast", "stable") if name == "hunyuan_tiny_joint" else ("fast",)):
+            kw = dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias, scale=dh**-0.5,
+                      block_q=lay.block_q, block_kv=lay.block_kv, softmax=softmax)
+            out["sta_batched"][f"{name}_{softmax}"] = f32_case(
+                torch, f"sta_batched f32 {name} (1,{heads},{lay.total},{dh}), blocks "
+                f"{lay.block_q}/{lay.block_kv}, pair bits, kv_bias, {softmax}", "sta_batched",
+                lambda: sta_flash_headbatched(q, k, v, ji, jc, ja, **kw),
+                lambda: sta_flash_headbatched_ref(q, k, v, ji, jc, ja, **kw), TOL_F32_ATTN,
+                4.0 * pairs * dh * n_on, 4 * lay.total * dh * 4 * n_on, rows=rows, iters=3,
+                bracket=lambda: sta_flash_headbatched_ref(q, k, v, ji, jc, ja,
+                                                          **{**kw, "pair_bits": None}))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # ---- the AdaLN norm: 480p x 77f (1,31200,1536) and Wan-14B's (1,8192,5120)
+    # on the warp-per-row kernel, the tiny models' dim 128 on the block kernel;
+    # the library: F.layer_norm(x, (dim,), 1 + scale, shift) at B = 1
+    for name, rows_, dim in (("wan_480p_77f_31200", 31200, 1536), ("wan14b_8192", 8192, 5120),
+                             ("tiny_dim128", 416, 128)):
+        x = randn(1, rows_, dim, scale=3.0)
+        mod = randn(1, 6, dim, scale=0.3)
+        sc, sh = mod[:, 1], mod[:, 0]
+        out["fused_norm"][name] = f32_case(
+            torch, f"AdaLN norm f32 (1,{rows_},{dim})", "fused_norm",
+            lambda: fused_norm(x, sc, sh, None, None, False, 1e-6, False),
+            lambda: _norm_ref(x, sc, sh, None, None, rms=False, eps=1e-6, out_f32=False),
+            TOL_F32_ROW, 0.0, 2 * x.numel() * 4 + 2 * dim * 4, iters=20,
+            lib=lambda: time_ms(torch, lambda: F.layer_norm(x, (dim,), 1.0 + sc[0], sh[0],
+                                                            eps=1e-6), 20))
+        del x, mod
+
+    # ---- the qk prologue from the fused qkv product's column slices: 480p x 77f
+    # (1,31200,1536) row scope and HunyuanVideo's width (3,072, 24 heads) head
+    # scope on the warp-per-row kernel, Wan-14B's (5,120, 40 heads: 8 warps a
+    # row in f32), the tiny models' (128, 2 heads of 64) on the block kernel
+    for name, grid, width, heads, scope in (
+            ("wan_480p_77f_31200", GRID_480P_77F, 1536, 12, "row"),
+            ("hunyuan_width_head_scope", (2, 12, 16), 3072, 24, "head"),
+            ("wan14b_width", (2, 12, 16), 5120, 40, "row"),
+            ("tiny_128", (4, 6, 16), 128, 2, "head")):
+        rows_ = grid[0] * grid[1] * grid[2]
+        hd = width // heads
+        qkv = randn(1, rows_, 3 * width, scale=3.0)
+        qq, kk, vv = qkv.split(width, dim=-1)
+        gq, gk = (1.0 + 0.1 * torch.randn(width, generator=g, device=dev) for _ in range(2))
+        cos, sin = (torch.from_numpy(a).to(dev) for a in rope_cos_sin(grid, hd))
+        pkw = dict(num_heads=heads, eps=1e-6, qk_norm=True, norm_scope=scope)
+        layout = prologue_layout(width, heads, 4)
+        out["prologue"][name] = f32_case(
+            torch, f"qk prologue f32 (1,{rows_},{width}), {heads} heads, {scope} scope, "
+            f"layout {layout}", "prologue",
+            lambda: torch.cat(fused_qk_prologue(qq, kk, vv, gq, gk, cos, sin, **pkw)),
+            lambda: torch.cat(_prologue_ref(qq, kk, vv, gq, gk, cos, sin, **pkw)),
+            TOL_F32_ROW, 0.0, 6 * rows_ * width * 4 + 2 * rows_ * hd // 2 * 4, iters=10)
+        out["prologue"][name]["layout"] = layout
+        del qkv
+
+    # ---- pool_qkv / unpool: 480p x 77f active mode (8 of 12 heads), then the
+    # head-map mode with K's own matching (HunyuanVideo's LOWRES) at (1,8,6912,128)
+    groups = lowres_groups_for(cfg)
+    q, k, v = (randn(1, h, cfg.seq_len, d) for _ in range(3))
+
+    def pool_case(name, groups_, q, k, v, heads, kv_from_k, **kwp):
+        pool = lambda: pool_qkv(q, k, v, groups_, kv_matching_from_k=kv_from_k,  # noqa: E731
+                                return_picks=True, **kwp)
+        plain = lambda: pool_qkv_ref(q, k, v, groups_, kv_matching_from_k=kv_from_k,  # noqa: E731
+                                     **kwp)
+        from vorta_tpu_torch.ops import _build
+
+        _build.reset_launches()
+        got = pool()
+        torch.cuda.synchronize()
+        if _build.launches["pool_qkv_f32"] != 1:
+            raise RuntimeError(f"pool_qkv f32 {name}: launches {_build.launches}")
+        want, plain_ms = timed_once(torch, plain)
+        hs = torch.tensor(heads, device=dev)
+        n_h = len(heads)
+        sh = (1, n_h, groups_.num_groups, groups_.num_kept_margins)
+        gaps = pick_gaps(got[3][:, hs], want[3][:, hs], q[:, hs], groups_)
+        if gaps.numel() and not gaps.max().item() < PICK_EPS:
+            raise RuntimeError(f"pool_qkv f32 {name}: a pick disagrees away from a near-tie")
+        q_agree = (got[3][:, hs].reshape(sh) == want[3][:, hs].reshape(sh)).all(-1)
+        gsz = groups_.num_groups
+        for x, a, w in zip("qkv", got[:3], want[:3]):
+            a, w = a[:, hs], w[:, hs]
+            agree = q_agree
+            if kv_from_k and x != "q":  # K's own matching: where its picks agree
+                ka = pool_qkv(k, k, k, groups_, return_picks=True)[3][:, hs]
+                kw_ = pool_qkv_ref(k, k, k, groups_)[3][:, hs]
+                agree = (ka.reshape(sh) == kw_.reshape(sh)).all(-1)
+            if not (torch.equal(a[:, :, :gsz], w[:, :, :gsz]) and torch.equal(
+                    a[:, :, gsz:].reshape(*sh, d)[agree], w[:, :, gsz:].reshape(*sh, d)[agree])):
+                raise RuntimeError(f"pool_qkv f32 {name} {x}: pooled rows differ where the "
+                                   "picks agree (they are copies)")
+        p = groups_.pooled_length
+        s_ = q.shape[2]
+        nbytes = n_h * ((1 + kv_from_k) * s_ + (2 - kv_from_k) * p + 3 * p) * d * 4 \
+            + int(np.prod(sh)) * 4
+        b_ms, b_by = bound_ms(0.0, nbytes, PEAK_F32)
+        r = dict(ms=device_ms(torch, pool, 10), plain_ms=plain_ms, library_ms=None,
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0, worst_ratio=0.0,
+                 pick_disagreements=gaps.numel(), picks=int(np.prod(sh)), heads=n_h)
+        r.update(gbps=nbytes / r["ms"] / 1e6, bound_share=b_ms / r["ms"])
+        log(f"pool_qkv f32 {name}: {gaps.numel()} of {int(np.prod(sh))} picks disagree "
+            f"(near-ties); rows bit for bit where the picks agree; {r}")
+        picks = got[3]
+        del got, want
+        return r, picks
+
+    active_heads = [i for i in range(h) if ACTIVE_HEADS[i]]
+    out["pool_qkv"]["active_480p_77f"], picks = pool_case(
+        "active_480p_77f", groups, q, k, v, active_heads, False, active=act)
+    out_p = randn(1, h, groups.pooled_length, d)
+    u_bytes = n_act * (groups.pooled_length * d * 4 + groups.num_groups
+                       * groups.num_kept_margins * 4) + h * cfg.seq_len * d * 4
+    out["unpool"]["active_480p_77f"] = unpool_f32_case(
+        torch, "active_480p_77f", out_p, q, groups, picks, active_heads, u_bytes, active=act)
+    del q, k, v, out_p
+    hyg = lowres_groups_for(attention_config("hunyuan-13B", (6, 18, 64)))
+    q, k, v = (randn(1, 8, hyg.full_length, d) for _ in range(3))
+    routed = torch.tensor([1, 0, 1, 1, 0, 1, 1, 0], device=dev)
+    hm, n_hm = head_map_for(routed)
+    on = torch.nonzero(routed).flatten().tolist()
+    out["pool_qkv"]["headmap_k_matching"], picks = pool_case(
+        "head-map, K's matching (1,8,6912,128)", hyg, q, k, v, on, True, head_map=hm,
+        num_active=n_hm)
+    out_p = randn(1, 8, hyg.pooled_length, d)
+    u_bytes = n_hm * (hyg.pooled_length * d * 4 + hyg.full_length * d * 4)
+    out["unpool"]["headmap"] = unpool_f32_case(
+        torch, "head-map (1,8,6912,128)", out_p, q, hyg, picks, on, u_bytes, head_map=hm,
+        num_active=n_hm)
+    del q, k, v, out_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def unpool_f32_case(torch, name: str, out_p, q, groups, picks, heads, u_bytes, **kw) -> dict:
+    """unpool's f32 mode bit for bit against its plain version and the first
+    design's kernel on the written heads (the active mode's zeros too),
+    counted once on ``unpool_f32``, timed beside torch.gather of the same
+    rows."""
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.coreset_pallas import unpool, unpool_per_group, unpool_ref
+
+    unp = lambda: unpool(out_p, q, groups, picks=picks, **kw)  # noqa: E731
+    plain = lambda: unpool_ref(out_p, q, groups, picks=picks, **kw)  # noqa: E731
+    _build.reset_launches()
+    got = unp()
+    torch.cuda.synchronize()
+    if _build.launches["unpool_f32"] != 1:
+        raise RuntimeError(f"unpool f32 {name}: launches {_build.launches}")
+    rows_kernel = _build.launches["unpool_rows"] == 1
+    want, plain_ms = timed_once(torch, plain)
+    hs = torch.tensor(heads, device=out_p.device)
+    old = unpool_per_group(out_p, q, groups, picks=picks, **kw)
+    if not (torch.equal(got[:, hs], want[:, hs]) and torch.equal(got[:, hs], old[:, hs])):
+        raise RuntimeError(f"unpool f32 {name}: differs from the plain version or the first "
+                           "design's kernel on the written heads (pure selection)")
+    if "active" in kw and not torch.equal(got, want):
+        raise RuntimeError(f"unpool f32 {name}: the inactive heads' zeros differ")
+    b, _, p, d = out_p.shape
+    rows = torch.arange(p, device=out_p.device, dtype=torch.float32).reshape(1, 1, p, 1)
+    idx = unpool_ref(rows.expand(b, len(heads), p, 1).contiguous(), q[:, hs], groups,
+                     picks=picks[:, hs]).long().expand(-1, -1, -1, d)
+    src = out_p[:, hs].contiguous()
+    lib = lambda: torch.gather(src, 2, idx)  # noqa: E731
+    if not torch.equal(lib(), got[:, hs]):
+        raise RuntimeError(f"unpool f32 {name}: the torch.gather yardstick computes another "
+                           "function")
+    del got, want, old
+    b_ms, b_by = bound_ms(0.0, u_bytes, PEAK_F32)
+    r = dict(ms=device_ms(torch, unp, 20), plain_ms=plain_ms, library_ms=device_ms(torch, lib, 20),
+             bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0, worst_ratio=0.0, heads=len(heads),
+             rows_kernel=rows_kernel,
+             library_covers="torch.gather(pooled, 2, idx) over the written heads")
+    r.update(gbps=u_bytes / r["ms"] / 1e6, bound_share=b_ms / r["ms"],
+             vs_library=r["ms"] / r["library_ms"])
+    log(f"unpool f32 {name}: bit for bit (plain version, first design); {r}")
+    return r
+
+
+
+F32_KERNELS = ("flash", "flash_manual", "sta_pipe", "sta_batched", "fused_norm", "prologue",
+               "pool_qkv", "unpool")
+
+
+def f32_launches(want: dict, prologue_rows: bool) -> dict:
+    """A path's launches in f32 from its bf16 count ``want``: no Hopper
+    path (the f32 modes are their own kernels), the prologue's
+    warp-per-row kernel only where its f32 layout holds (Wan-1.3B's widths;
+    the tiny models' head dim 64 takes the block kernel), and every launch
+    of the eight kernels on its f32 mode."""
+    out = dict(want)
+    for k in HOPPER_KERNELS:
+        out[f"{k}_wgmma"] = 0
+    out["prologue_rows"] = out["prologue"] if prologue_rows else 0
+    for k in F32_KERNELS[:6]:
+        out[f"{k}_f32"] = out[k]
+    out["pool_qkv_f32"] = out["pool_qkv"] + out["pool_qkv_headmap"]
+    out["unpool_f32"] = out["unpool"] + out["unpool_headmap"]
+    return out
+
+
+def check_f32_models(torch) -> dict:
+    """Reduced-depth forwards in f32, card (the kernels' f32 modes) against
+    the CPU (plain versions) from the same weights: Wan 2 blocks at 1.3B
+    widths off (160 tokens) and routed hard (grid (8, 24, 20), tile (4, 6,
+    4), 4 heads per expert by one-hot routers), HunyuanVideo 1 + 1 blocks
+    at 13B widths routed hard ((6, 9, 16), tile (6, 9, 8), 8 heads per
+    expert, 83 of 256 text tokens valid): rel L2 <= 1e-4, launches exact."""
+    import dataclasses
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+
+    check_full_f32(torch)
+    out = {}
+
+    def gate(name, got, want, launches, expected):
+        if launches != expected:
+            raise RuntimeError(f"f32 model check {name}: launches {launches} != {expected}")
+        if got.dtype != torch.float32 or not torch.isfinite(got).all():
+            raise RuntimeError(f"f32 model check {name}: output {got.dtype}, non-finite")
+        rel = ((got - want).norm() / want.norm()).item()
+        log(f"f32 model check {name}: rel L2 card f32 vs CPU f32 = {rel:.3e} (tolerance 1e-4); "
+            f"launches exact")
+        if not rel <= 1e-4:
+            raise RuntimeError(f"f32 model check {name}: the card's forward disagrees")
+        out[name] = rel
+
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
+    experts = torch.tensor([0, 1, 2] * 4)
+    cpu = WanModel(cfg, dtype=torch.float32, device="cpu", seed=5)
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(4.0 * torch.eye(3)[experts].reshape(-1))
+    gpu = WanModel(cfg, dtype=torch.float32, device="cuda", seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    for name, grid, mode in (("wan_off_2x8x10", (2, 8, 10), "off"),
+                             ("wan_routed_8x24x20", (8, 24, 20), "hard")):
+        attn = (AttentionConfig(latent_shape=grid) if mode == "off" else AttentionConfig(
+            latent_shape=grid, sta_tile=(4, 6, 4), sta_window=(3, 3, 3),
+            lowres_window=(2, 3, 2)))
+        g = torch.Generator().manual_seed(6)
+        lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=g)
+        ctx = torch.randn((1, TEXT_LEN, cfg.text_dim), generator=g)
+        t = torch.tensor([700.0])
+        want = cpu(lat, t, ctx, attn_cfg=attn, routing_mode=mode).sample
+        _build.reset_launches()
+        res = gpu(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=attn, routing_mode=mode)
+        got = res.sample.cpu()
+        if mode == "off":
+            expected = off_wan_launches(1, blocks=2)
+        else:
+            if not (res.expert_ids == experts.numpy()).all():
+                raise RuntimeError(f"f32 model check {name}: routing {res.expert_ids}")
+            expected = routed_wan_launches(np.asarray(res.expert_ids)[None], "sta_pipe", 1)
+        gate(name, got, want, dict(_build.launches), f32_launches(expected, True))
+    del cpu, gpu
+
+    hcfg = dataclasses.replace(HUNYUAN_13B, dual_layers=1, single_layers=1)
+    grid = (6, 9, 16)
+    attn = attention_config("hunyuan-13B", grid)
+    hexperts = torch.tensor([0, 1, 2] * 8)
+    gpu = HunyuanModel(hcfg, dtype=torch.float32, device="cuda", seed=3)
+    for block in gpu.blocks:
+        block.router.linear.weight.zero_()
+        block.router.linear.bias.copy_(4.0 * torch.eye(3, device="cuda")[hexperts].reshape(-1))
+    cpu = HunyuanModel(hcfg, dtype=torch.float32, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    lat, text, mask, pooled = hy_inputs(torch, grid, torch.device("cuda"), 9)
+    args = (lat, torch.tensor([700.0], device="cuda"), text, mask, pooled)
+    gd = torch.tensor([6000.0], device="cuda")
+    want = cpu(*(x.cpu() for x in args), guidance=gd.cpu(), attn_cfg=attn,
+               routing_mode="hard").sample
+    _build.reset_launches()
+    res = gpu(*args, guidance=gd, attn_cfg=attn, routing_mode="hard")
+    if not (res.expert_ids == hexperts.numpy()).all():
+        raise RuntimeError(f"f32 model check hunyuan: routing {res.expert_ids}")
+    expected = hy_hard_launches(np.asarray(res.expert_ids)[None], dual=1)
+    gate("hunyuan_routed_6x9x16", res.sample.cpu(), want, dict(_build.launches),
+         f32_launches(expected, True))
+    del cpu, gpu
+    return out
+
+
+def tiny_embeds(cfg, path: Path, seed: int) -> str:
+    """A (1, text_len, text_dim) f32 embeddings file drawn on the host, so
+    that the card's and the CPU's runs read the same conditioning."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    np.save(path, rng.standard_normal((1, cfg.text_len, cfg.text_dim)).astype(np.float32))
+    return str(path)
+
+
+def host_drawn(torch, module):
+    """A with-block in which ``module``'s model constructors draw their weights
+    on the host (then move them to the device) and the pipelines draw their
+    noise on the host: the card's run and the CPU's start from the same
+    numbers, as the RNGs of the two devices differ."""
+    import contextlib
+    from unittest import mock
+
+    from vorta_tpu_torch.pipelines.hunyuan_t2v import HunyuanT2VPipeline
+    from vorta_tpu_torch.pipelines.wan_t2v import WanT2VPipeline
+
+    def on_host(cls):
+        def build(cfg, dtype=torch.float32, device=None, seed: int = 0):
+            return cls(cfg, dtype=dtype, device="cpu", seed=seed).to(device)
+        return build
+
+    def noise(self, generator, batch, frames, height, width):
+        shape = (batch, (frames - 1) // 4 + 1, height // 8, width // 8,
+                 self.model.cfg.in_channels)
+        seed = generator.initial_seed()
+        return torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(
+            self.model.device)
+
+    stack = contextlib.ExitStack()
+    for name in ("WanModel", "HunyuanModel"):
+        if hasattr(module, name):
+            stack.enter_context(mock.patch.object(module, name, on_host(getattr(module, name))))
+    for pipe in (WanT2VPipeline, HunyuanT2VPipeline):
+        stack.enter_context(mock.patch.object(pipe, "prepare_latents", noise))
+    return stack
+
+
+def run_f32_serving_path(torch, card: str):
+    """The f32 serving path through the normal entry points, on the card:
+    cli.sample --dtype fp32 for Wan-1.3B at full width and depth, routing
+    off at 480p x 21f and routed at 480p x 77f, one UniPC step x CFG each;
+    wan-tiny and hunyuan-tiny (the f32 models the JAX tools build) routed
+    through cli.sample, 2 steps, card against --device cpu from the same
+    host-drawn weights, noise and embeddings (final latents rel L2 <=
+    1e-3); cli.bench_compare --model wan-tiny and --model hunyuan-tiny (1
+    step, every arm's launches exact); tools.fit_cache_poly (wan-tiny, 4
+    steps).  Every path's launches exact, every *_f32 counter among them."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli import bench_compare, sample
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B, WAN_TINY
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_TINY
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.tools import fit_cache_poly
+
+    check_full_f32(torch)
+    res_dir = HERE / "results" / "port_smoke" / "f32"  # listed in .gitignore
+    res_dir.mkdir(parents=True, exist_ok=True)
+    launches, stats = {}, {}
+
+    # Wan-1.3B f32: warm cuBLAS and the allocator with a 2-block f32 model first
+    for name, grid, frames, extra, want_of in (
+            ("f32_off_480p_21f", GRID_480P, "21", ["--native_attention"],
+             lambda res: off_wan_launches(2)),
+            ("f32_hard_480p_77f", GRID_480P_77F, "77", [],
+             lambda res: routed_wan_launches(np.stack(res.routing), "sta_pipe", 2))):
+        warm = WanModel(dataclasses.replace(WAN_1_3B, num_layers=2), dtype=torch.float32,
+                        device="cuda", seed=1)
+        warm(torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), device="cuda"),
+             torch.tensor([900.0], device="cuda"), torch.randn((1, TEXT_LEN, 4096), device="cuda"),
+             attn_cfg=attention_config("wan-1_3B", grid),
+             routing_mode="off" if extra else "hard")
+        del warm
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        res = sample.main(["--model", "wan-1_3B", "--dtype", "fp32", "--random_embeds",
+                           "--num_frames", frames, "--height", "480", "--width", "832",
+                           "--num_inference_steps", "1", "--seed", "0",
+                           "--output", str(res_dir / f"{name}.npy"), *extra])
+        launches[name] = got = dict(_build.launches)
+        want = f32_launches(want_of(res), True)
+        lat = res.latents
+        if got != want or lat.dtype != torch.float32 or not torch.isfinite(lat).all():
+            raise RuntimeError(f"{name}: launches {got} != {want}, or output {lat.dtype} "
+                               "non-finite")
+        stats[name] = {"s_per_step": res.denoise_s / res.steps, "forwards": 2,
+                       "build_s": res.build_s}
+        log(f"cli.sample --dtype fp32 Wan-1.3B {name}: {stats[name]['s_per_step']:.3f} s per "
+            f"UniPC step x CFG (2 forwards) on {card}; launches exact {got}")
+        del res
+        torch.cuda.empty_cache()
+
+    # the tiny models through cli.sample, card against the CPU, same host draws
+    for model, cfg, size in (("wan-tiny", WAN_TINY, ["--num_frames", "13", "--height", "64",
+                                                     "--width", "64"]),
+                             ("hunyuan-tiny", HUNYUAN_TINY, ["--num_frames", "13", "--height",
+                                                             "96", "--width", "256"])):
+        emb = tiny_embeds(cfg, res_dir / f"{model}_embeds.npy", 7)
+        base = ["--model", model, "--dtype", "fp32", "--prompt_embeds", emb,
+                "--num_inference_steps", "2", "--seed", "0", *size]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            _build.reset_launches()
+            with host_drawn(torch, sample):
+                runs[dev] = sample.main(base + ["--device", dev, "--output",
+                                                str(res_dir / f"{model}_{dev}.npy")])
+            if dev == "cuda":
+                got = dict(_build.launches)
+        res = runs["cuda"]
+        tables = np.stack(res.routing)
+        want = f32_launches(
+            hy_hard_launches(tables, sta_kernel="sta_batched", dual=cfg.dual_layers)
+            if model.startswith("hunyuan") else routed_wan_launches(tables, "sta_pipe",
+                                                                   tables.shape[0]), False)
+        if got != want:
+            raise RuntimeError(f"cli.sample {model} fp32: launches {got} != {want}")
+        if not all(np.array_equal(a, b) for a, b in zip(runs["cuda"].routing,
+                                                         runs["cpu"].routing)):
+            raise RuntimeError(f"cli.sample {model} fp32: the card routes otherwise than the CPU")
+        a, b = runs["cuda"].latents.cpu(), runs["cpu"].latents
+        rel = ((a - b).norm() / b.norm()).item()
+        log(f"cli.sample {model} --dtype fp32, 2 steps: card vs --device cpu final latents "
+            f"rel L2 {rel:.3e} (tolerance 1e-3); routing equal; launches exact {got}")
+        if not (torch.isfinite(a).all() and rel <= 1e-3):
+            raise RuntimeError(f"cli.sample {model} fp32: card and CPU disagree")
+        launches[f"f32_sample_{model}"] = got
+        stats[f"sample_{model}"] = {"rel_l2_vs_cpu": rel, "s_per_step": res.denoise_s / res.steps}
+
+    # cli.bench_compare on the tiny models: every arm's launches exact
+    for model, blocks, dual in (("wan-tiny", WAN_TINY.num_layers, None),
+                                ("hunyuan-tiny", HUNYUAN_TINY.dual_layers
+                                 + HUNYUAN_TINY.single_layers, HUNYUAN_TINY.dual_layers)):
+        size = (["--num_frames", "13", "--height", "64", "--width", "64"] if dual is None
+                else ["--num_frames", "13", "--height", "96", "--width", "256"])
+        _build.reset_launches()
+        res = bench_compare.main(["--model", model, "--num_inference_steps", "1", "--seed", "0",
+                                  "--output_dir", str(res_dir / f"compare_{model}"), *size])
+        n_fwd = 2 * (2 if dual is None else 1)  # the --seed and the timed run; Wan's CFG
+        for arm, got in res.launches.items():
+            if arm == "baseline":
+                want = (off_wan_launches(n_fwd, blocks) if dual is None else {
+                    **dict.fromkeys(_build.KERNELS, 0), "flash_manual": blocks * n_fwd,
+                    "flash_manual_wgmma": blocks * n_fwd, "prologue": blocks * n_fwd,
+                    "prologue_rows": blocks * n_fwd,
+                    "fused_norm": (4 * dual + blocks - dual + 1) * n_fwd})
+            elif dual is None:
+                want = routed_run_launches(res.routing[arm], res.cache_log[arm])
+            else:
+                want = hy_hard_launches(np.stack(res.routing[arm]), sta_kernel="sta_batched",
+                                        dual=dual)
+            want = f32_launches(want, False)
+            if got != want:
+                raise RuntimeError(f"bench_compare {model} arm {arm}: launches {got} != {want}")
+        finite_numbers(res.summary)
+        launches[f"f32_bench_compare_{model}"] = dict(_build.launches)
+        stats[f"bench_compare_{model}"] = {
+            "speedup": res.summary["speedup"],
+            "s_per_step": {a: res.summary[a]["s_per_step"] for a in res.launches
+                           if a in res.summary}}
+        log(f"cli.bench_compare --model {model} (f32) on {card}: {stats[f'bench_compare_{model}']}"
+            "; every arm's launches exact")
+        del res
+
+    # tools.fit_cache_poly, wan-tiny (its default model), 4 steps
+    tables, built = [], []
+    _build.reset_launches()
+    with mock.patch.object(fit_cache_poly, "WanModel",
+                           hooked(fit_cache_poly.WanModel, tables, built)):
+        rec = fit_cache_poly.main(["--steps", "4", "--degree", "2",
+                                   "--out", str(res_dir / "cache_poly_tiny.npz")])
+    del built[:]
+    got = dict(_build.launches)
+    want = f32_launches(routed_wan_launches(np.stack(tables), "sta_pipe", len(tables)), False)
+    if len(tables) != 4 or got != want or not np.isfinite(rec["coefficients"]).all():
+        raise RuntimeError(f"fit_cache_poly wan-tiny (f32): launches {got} != {want}, "
+                           f"{len(tables)} forwards, {rec}")
+    launches["f32_fit_cache_poly_wan_tiny"] = got
+    stats["fit_cache_poly_wan_tiny"] = {"points": rec["points"], "r2": rec["r2_exact"]}
+    log(f"tools.fit_cache_poly wan-tiny (f32) on {card}: {rec['points']} points, r2 "
+        f"{rec['r2_exact']:.4f}; launches exact")
+    lit = {k: sum(p.get(f"{k}_f32", 0) for p in launches.values()) for k in F32_KERNELS}
+    if not all(lit.values()):
+        raise RuntimeError(f"f32 serving: a kernel's f32 mode never launched: {lit}")
+    log(f"f32 serving: *_f32 launches over the paths {lit}")
+    return launches, stats
 
 
 if __name__ == "__main__":

@@ -272,10 +272,15 @@ def test_hunyuan_comparison_matches_the_pipeline(tmp_path):
 
 
 @pytest.mark.parametrize("model", ["wan-tiny", "hunyuan-tiny"])
-def test_tiny_models_refuse_cuda_naming_f32(model, capsys):
-    with pytest.raises(SystemExit):
-        bench_compare.parse_args(["--model", model])
-    assert "A3" in capsys.readouterr().err
+def test_tiny_models_refuse_cuda_naming_f32(model, capsys, monkeypatch):
+    """The tiny models run in f32 on the card too (the kernels' f32 modes):
+    the flags parse, and without a card the run stops at the device
+    check, not at an f32 refusal."""
+    assert bench_compare.parse_args(["--model", model]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_compare.main(["--model", model, "--num_inference_steps", "1"])
+    assert "A3" not in capsys.readouterr().err
 
 
 def test_flags_and_arm_chunks_match_the_jax_cli():

@@ -184,10 +184,13 @@ def test_flash_kernel_cross_attention_blocks(card):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(card):
-    q = torch.zeros((1, 1, 64, 128), device=card)
+    q = torch.zeros((1, 1, 64, 128), device=card, dtype=torch.float16)
     ki, kc = dense_tables(1, 1).on(card)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):
         sparse_flash_attention_raw(q, q, q, ki, kc, block_q=64, block_kv=64)
+    with pytest.raises(NotImplementedError, match="A4"):  # the f32 lse: training in f32
+        sparse_flash_attention_raw(q.float(), q.float(), q.float(), ki, kc, block_q=64,
+                                   block_kv=64, return_lse=True)
     qb = torch.zeros((1, 1, 64, 96), device=card, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="D 64/128"):
         sparse_flash_attention_raw(qb, qb, qb, ki, kc, block_q=64, block_kv=64)
@@ -246,14 +249,14 @@ def test_flash_manual_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="int8"):
         sparse_flash_attention_manual(q, q, q, ki, kc, qk_scale=qk_scale, softmax="fast", **kw)
     q8 = q.to(torch.int8)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(NotImplementedError, match="A8"):  # int8 QK with an f32 v
         sparse_flash_attention_manual(q8, q8, q.float(), ki, kc, qk_scale=qk_scale,
                                       softmax="fast", **kw)
     with pytest.raises(ValueError, match="kv_bias"):
         sparse_flash_attention_manual(q, q, q, ki, kc, kv_bias=torch.zeros((1, 32), device=card),
                                       **kw)
     with pytest.raises(NotImplementedError, match="bf16"):
-        sparse_flash_attention_manual(q.float(), q.float(), q.float(), ki, kc, **kw)
+        sparse_flash_attention_manual(q.half(), q.half(), q.half(), ki, kc, **kw)
 
 
 # --- sta_pipe (routed STA expert) ---------------------------------------------------
@@ -298,12 +301,12 @@ def test_sta_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="int8"):
         sta_pipe_attention(q, q, q, act, qk_scale=qk_scale, **kw)
     q8 = q.to(torch.int8)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(NotImplementedError, match="A8"):  # int8 QK with an f32 v
         sta_pipe_attention(q8, q8, q.float(), act, qk_scale=qk_scale, **kw)
     with pytest.raises(ValueError, match="multiple of 8"):
         sta_pipe_attention(q, q, q, act, text_k=q[:, :, :12], text_v=q[:, :, :12], **kw)
     with pytest.raises(NotImplementedError, match="bf16"):
-        sta_pipe_attention(q.float(), q.float(), q.float(), act, **kw)
+        sta_pipe_attention(q.half(), q.half(), q.half(), act, **kw)
 
 
 @pytest.mark.parametrize("softmax,variant", [
@@ -549,7 +552,7 @@ def test_sta_batched_kernel_rejects_what_it_does_not_take(card):
            sta_flash_headbatched_ref(qs, ks, vs, ki, kc, act, softmax="stable", kv_bias=bias,
                                      **kw))
     with pytest.raises(NotImplementedError, match="bf16"):
-        sta_flash_headbatched(q.float(), q.float(), q.float(), ki, kc, act, **kw)
+        sta_flash_headbatched(q.half(), q.half(), q.half(), ki, kc, act, **kw)
     with pytest.raises(NotImplementedError, match="D 64/128"):
         sta_flash_headbatched(q[..., :32], q[..., :32], q[..., :32], ki, kc, act, **kw)
     with pytest.raises(ValueError, match="tokens_per_tile"):
@@ -850,7 +853,7 @@ def test_pool_unpool_kernels_reject_what_they_do_not_take(card):
     with pytest.raises(NotImplementedError, match="picks"):
         unpool(q[:, :, :groups.pooled_length], q, groups)
     with pytest.raises(NotImplementedError, match="bf16"):
-        pool_qkv(q.float(), q.float(), q.float(), groups)
+        pool_qkv(q.half(), q.half(), q.half(), groups)
 
 
 DISPATCH_LAUNCHES = {  # heads (LOWRES, STA, LOWRES, FULL): launches per dispatch
@@ -1121,7 +1124,8 @@ def test_prologue_kernel_matches_plain(card, h, d, strided, qk_norm, norm_scope)
 
 
 def test_norm_and_prologue_kernels_take_bf16_only(card):
-    x = torch.zeros((1, 4, 256), device=card)
+    """bf16 or f32 (the f32 serving path): f16 raises."""
+    x = torch.zeros((1, 4, 256), device=card, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="dtype"):
         fused_norm(x, None, None, None, None, False, 1e-6, False)
     cs = torch.zeros((4, 64), device=card)
@@ -2331,7 +2335,7 @@ def test_prologue_rows_layout_mismatch_raises(card, monkeypatch):
 
     x = torch.zeros((1, 16, 1536), device=card, dtype=torch.bfloat16)
     cs = torch.ones((16, 64), device=card)
-    monkeypatch.setattr(prologue, "prologue_layout", lambda dim, heads: (2, 3))
+    monkeypatch.setattr(prologue, "prologue_layout", lambda dim, heads, itemsize=2: (2, 3))
     with pytest.raises(RuntimeError, match="prologue: CUDA error"):
         prologue.fused_qk_prologue(x, x, x, None, None, cs, cs, num_heads=12)
 
@@ -2896,19 +2900,32 @@ def test_fit_cache_poly_and_calibration_on_card(card, tmp_path):
 
 @pytest.mark.parametrize("entry", ["bench_compare_wan", "bench_compare_hunyuan",
                                    "fit_cache_poly"])
-def test_tiny_models_refuse_the_card(card, entry, capsys):
-    """The tiny models run in f32, as the JAX tools build them; the CUDA
-    kernels take bf16 (ROADMAP section 2 A3): the entry points refuse."""
+def test_tiny_models_refuse_the_card(card, entry, tmp_path):
+    """The tiny models run in f32, as the JAX tools build them, and on the
+    card through the kernels' f32 modes (the name is the test's from before
+    those modes): every launch of the path is an f32 one, none on a Hopper
+    path, the outputs finite."""
     from vorta_tpu_torch.cli import bench_compare
     from vorta_tpu_torch.tools import fit_cache_poly
 
-    with pytest.raises(SystemExit):
-        if entry == "fit_cache_poly":
-            fit_cache_poly.main(["--steps", "6"])
-        else:
-            bench_compare.main(["--model", "wan-tiny" if entry.endswith("wan")
-                                else "hunyuan-tiny", "--num_inference_steps", "1"])
-    assert "A3" in capsys.readouterr().err
+    _build.reset_launches()
+    if entry == "fit_cache_poly":
+        rec = fit_cache_poly.main(["--steps", "4", "--degree", "2",
+                                   "--out", str(tmp_path / "poly.npz")])
+        assert np.isfinite(rec["coefficients"]).all()
+    else:
+        model = "wan-tiny" if entry.endswith("wan") else "hunyuan-tiny"
+        size = (["--height", "64", "--width", "64"] if model == "wan-tiny"
+                else ["--height", "96", "--width", "256"])
+        res = bench_compare.main(["--model", model, "--num_inference_steps", "1",
+                                  "--num_frames", "13", "--output_dir", str(tmp_path), *size])
+        assert all(np.isfinite(a.cpu().numpy()).all() for a in res.latents.values())
+    n = _build.launches
+    assert n["fused_norm_f32"] == n["fused_norm"] > 0 and n["prologue_f32"] == n["prologue"] > 0
+    for k in ("flash", "flash_manual", "sta_pipe", "sta_batched"):
+        assert n[f"{k}_f32"] == n[k] and n[f"{k}_wgmma"] == 0, k
+    assert n["pool_qkv_f32"] == n["pool_qkv"] + n["pool_qkv_headmap"]
+    assert n["unpool_f32"] == n["unpool"] + n["unpool_headmap"]
 
 
 def test_profiling_counts_match_launches_on_card(card):
@@ -2962,3 +2979,276 @@ def test_sample_batch_flags_on_card(card, tmp_path):
     assert sorted(p.name for p in (tmp_path / "out").iterdir()) == ["a.npy", "b.npy"]
     assert all(np.isfinite(np.load(tmp_path / "out" / n)).all() for n in ("a.npy", "b.npy"))
     assert main(argv) == []
+
+
+
+# --- the f32 modes of the f32 serving path ------------------------------------------
+# Each f32 mode against its plain version on the same f32 inputs, TF32 off
+# (the card fixture): attention and the norm / prologue within _close's f32
+# rule (1e-5 x max |plain|, tighter than the smoke's 1e-4 and 1e-5 x
+# max(|plain|, RMS)), pool and unpool bit for bit.
+
+
+def _f32(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,block,seq,valid", [
+    ("dense", 8, 64, 60),        # 8-row blocks: a CTA of 8 rows
+    ("per_head", 16, 96, 90),    # wan-tiny's blocks, count-0 q blocks, a tail
+    ("shared", 96, 384, 380),    # two 64-row parts, the second of 32
+    ("dense", 1024, 2048, 1500),
+])
+def test_flash_f32_matches_plain(card, d, kind, block, seq, valid):
+    g = torch.Generator(device=card).manual_seed(40)
+    q, k, v = (_f32(g, 2, 3, seq, d) for _ in range(3))
+    ki, kc = _tables(kind, 3, seq // block, seq // block).on(card)
+    kw = dict(block_q=block, block_kv=block, kv_valid_len=valid, scale=1.1 * d**-0.5)
+    _build.reset_launches()
+    got = sparse_flash_attention_raw(q, k, v, ki, kc, **kw)
+    assert (_build.launches["flash"], _build.launches["flash_f32"],
+            _build.launches["flash_wgmma"]) == (1, 1, 0)
+    _close(got, sparse_flash_attention_ref(q, k, v, ki, kc, **kw))
+    if kind != "dense":
+        assert not got[:, :, :block].any()
+
+
+@pytest.mark.parametrize("softmax", ["fast", "stable"])
+@pytest.mark.parametrize("d,block,bias", [(64, 8, True), (128, 16, False), (128, 32, True),
+                                         (64, 256, True)])
+def test_flash_manual_f32_matches_plain(card, softmax, d, block, bias):
+    """kv_bias (-1e30 on some keys) with kv_valid_len, per-head counts with a
+    head routed away (count 0 rows write 0)."""
+    g = torch.Generator(device=card).manual_seed(41)
+    s, h = 512, 3
+    q, k, v = (_f32(g, 1, h, s, d) for _ in range(3))
+    ki, kc = _tables("shared", h, s // block, s // block).on(card)
+    counts = kc.expand(h, -1).clone()
+    counts[1] = 0
+    kb = None
+    if bias:
+        kb = torch.where(torch.rand((1, s), generator=g, device=card) < 0.2, -1e30,
+                         _f32(g, 1, s))
+    kw = dict(block_q=block, block_kv=block, kv_valid_len=s - 5, kv_bias=kb, softmax=softmax,
+              scale=0.9 * d**-0.5)
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q, k, v, ki, counts, **kw)
+    assert (_build.launches["flash_manual_f32"], _build.launches["flash_manual_stable"]) == \
+        (1, int(softmax == "stable"))
+    _close(got, sparse_flash_attention_manual_ref(q, k, v, ki, counts, **kw))
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("softmax", ["fast", "stable"])
+@pytest.mark.parametrize("latent,tile,window,d,text", [
+    ((4, 4, 4), (2, 2, 2), (3, 3, 1), 64, 0),      # wan-tiny's window
+    ((4, 6, 16), (2, 3, 8), (3, 3, 3), 128, 24),   # a 48-token tile, the text tail
+    ((6, 9, 16), (6, 9, 8), (3, 3, 3), 128, 256),  # 432-token tiles: 7 parts of 64 rows
+    ((8, 6, 20), (2, 3, 4), (3, 3, 3), 64, 8),     # tile_w 4
+])
+def test_sta_pipe_f32_matches_plain(card, softmax, latent, tile, window, d, text):
+    g = torch.Generator(device=card).manual_seed(42)
+    n = latent[0] * latent[1] * latent[2]
+    q, k, v = (_f32(g, 1, 3, n, d) for _ in range(3))
+    act = torch.tensor([1, 0, 1], device=card)
+    kw = dict(latent_shape=latent, tile=tile, window=window, softmax=softmax, scale=d**-0.5)
+    if text:
+        kw.update(text_k=_f32(g, 1, 3, text, d), text_v=_f32(g, 1, 3, text, d),
+                  text_bias=torch.where(torch.arange(text, device=card) < text - 3, 0.0,
+                                        -1e30)[None])
+    _build.reset_launches()
+    got = sta_pipe_attention(q, k, v, act, **kw)
+    assert (_build.launches["sta_pipe_f32"], _build.launches["sta_pipe_wgmma"]) == (1, 0)
+    _close(got, sta_pipe_attention_ref(q, k, v, act, **kw))
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("softmax", ["fast", "stable"])
+@pytest.mark.parametrize("latent,text_len,d", [((4, 6, 16), 24, 64), ((4, 4, 8), 24, 128)])
+def test_sta_batched_f32_matches_plain(card, softmax, latent, text_len, d):
+    """hunyuan-tiny's joint layout: 8-token tiles (blocks 40 / 48), pair bits,
+    all-ones text blocks and the text bias; gated on the rows callers read."""
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops import joint_experts as joint
+    from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
+
+    cfg = attention_config("hunyuan-tiny", latent)
+    jcfg = joint.JointConfig(cfg, text_len)
+    lay = joint.joint_layouts(jcfg)["sta"]
+    ki, kc, bits = joint._joint_sta_tables(jcfg).on(card)
+    mask = (torch.arange(text_len, device=card) < 17)[None]
+    bias = joint._bias(mask, lay, cfg.seq_len)
+    g = torch.Generator(device=card).manual_seed(43)
+    q, k, v = (_f32(g, 1, 3, lay.total, d) for _ in range(3))
+    act = torch.tensor([1, 0, 1], device=card)
+    kw = dict(pair_bits=bits, tokens_per_tile=8, kv_bias=bias, block_q=lay.block_q,
+              block_kv=lay.block_kv, softmax=softmax, scale=d**-0.5)
+    _build.reset_launches()
+    got = sta_flash_headbatched(q, k, v, ki, kc, act, **kw)
+    assert (_build.launches["sta_batched_f32"], _build.launches["sta_batched_wgmma"]) == (1, 0)
+    rows = torch.cat([torch.arange(cfg.seq_len, device=card),
+                      lay.text_off + torch.arange(17, device=card)])
+    want = sta_flash_headbatched_ref(q, k, v, ki, kc, act, **kw)
+    _close(got[:, :, rows], want[:, :, rows])
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("dim", [128, 1000, 1536, 5120])
+@pytest.mark.parametrize("rms,affine,mod", [(False, False, True), (True, True, False),
+                                            (False, True, True)])
+def test_norm_f32_matches_plain(card, dim, rms, affine, mod):
+    """f32 x on both kernels (block-per-row at 128 / 1000, warp-per-row at
+    1536 / 5120), written in f32."""
+    g = torch.Generator(device=card).manual_seed(44)
+    x = _f32(g, 2, 37, dim, scale=3.0) + 0.5
+    gamma = 1.0 + 0.1 * _f32(g, dim) if affine else None
+    beta = 0.1 * _f32(g, dim) if affine else None
+    sc, sh = (0.3 * _f32(g, 2, dim), 0.3 * _f32(g, 2, dim)) if mod else (None, None)
+    _build.reset_launches()
+    got = fused_norm(x, sc, sh, gamma, beta, rms, 1e-6, False)
+    assert got.dtype == torch.float32 and _build.launches["fused_norm_f32"] == 1
+    _close(got, _norm_ref(x, sc, sh, gamma, beta, rms=rms, eps=1e-6, out_f32=False))
+
+
+@pytest.mark.parametrize("dim,heads,scope", [(1536, 12, "row"), (3072, 24, "head"),
+                                             (5120, 40, "row"), (128, 2, "head"),
+                                             (96, 3, "row")])
+def test_prologue_f32_matches_plain(card, dim, heads, scope):
+    """The warp-per-row kernel in f32 (two, four and eight warps a row) on
+    the fused qkv product's column slices, and the block kernel (the tiny
+    models' head dim 64, an odd head count)."""
+    from vorta_tpu_torch.ops.prologue import prologue_layout
+    from vorta_tpu_torch.ops.rope import rope_cos_sin
+
+    grid = (2, 4, 5)
+    s = grid[0] * grid[1] * grid[2]
+    hd = dim // heads
+    g = torch.Generator(device=card).manual_seed(45)
+    qkv = _f32(g, 2, s, 3 * dim, scale=3.0)
+    q, k, v = qkv.split(dim, dim=-1)
+    gq, gk = (1.0 + 0.1 * _f32(g, dim) for _ in range(2))
+    cos, sin = (torch.from_numpy(a).to(card) for a in rope_cos_sin(grid, hd))
+    kw = dict(num_heads=heads, eps=1e-6, qk_norm=True, norm_scope=scope)
+    _build.reset_launches()
+    got = fused_qk_prologue(q, k, v, gq, gk, cos, sin, **kw)
+    rows = prologue_layout(dim, heads, 4) is not None
+    assert (_build.launches["prologue_f32"], _build.launches["prologue_rows"]) == (1, int(rows))
+    want = _prologue_ref(q, k, v, gq, gk, cos, sin, **kw)
+    for a, w in zip(got, want):
+        _close(a, w)
+    assert torch.equal(got[2], want[2])  # v is only moved
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("latent,window,kv_from_k", [((4, 6, 8), (2, 3, 2), False),
+                                                      ((4, 4, 8), (2, 2, 2), True),
+                                                      ((4, 6, 8), (2, 3, 4), False)])
+def test_pool_unpool_f32_match_plain(card, d, latent, window, kv_from_k):
+    """f32 pool (both modes, K's matching) and unpool bit for bit against the
+    plain versions where the picks agree; a 24-slot group at D 128 takes the
+    first design's unpool kernel by the f32 rule (no rows layout)."""
+    from vorta_tpu_torch.ops.coreset_pallas import head_map_for, unpool_layout
+
+    groups = build_lowres_groups(latent, window)
+    g = torch.Generator(device=card).manual_seed(46)
+    s = latent[0] * latent[1] * latent[2]
+    q, k, v = (_f32(g, 2, 4, s, d) for _ in range(3))
+    on = torch.tensor([1, 0, 1, 1], device=card)
+    hm, n = head_map_for(on)
+    for kw in (dict(active=on), dict(head_map=hm, num_active=n)):
+        _build.reset_launches()
+        got = pool_qkv(q, k, v, groups, kv_matching_from_k=kv_from_k, return_picks=True, **kw)
+        torch.cuda.synchronize()
+        assert _build.launches["pool_qkv_f32"] == 1
+        want = pool_qkv_ref(q, k, v, groups, kv_matching_from_k=kv_from_k, **kw)
+        hs = on > 0
+        gaps = pick_gaps(got[3][:, hs], want[3][:, hs], q[:, hs], groups)
+        assert gaps.numel() == 0 or gaps.max().item() < 1e-5
+        if gaps.numel() == 0:
+            for a, w in zip(got, want):
+                assert torch.equal(a[:, hs], w[:, hs])
+        out_p = _f32(g, 2, 4, groups.pooled_length, d)
+        _build.reset_launches()
+        up = unpool(out_p, q, groups, picks=got[3], **kw)
+        torch.cuda.synchronize()
+        rows = unpool_layout(d, groups.group_size, groups.num_kept_margins, 4) is not None
+        assert (_build.launches["unpool_f32"], _build.launches["unpool_rows"]) == (1, int(rows))
+        ref = unpool_ref(out_p, q, groups, picks=got[3], **kw)
+        assert torch.equal(up[:, hs], ref[:, hs])
+
+
+def test_f32_c_entries_refuse_what_their_rules_refuse(card):
+    """The f32 C entries mirror the wrappers' rules: the f32 lse (training,
+    ROADMAP section 2 A4), a head dim outside 64 / 128, blocks not multiples
+    of 8 or not dividing the sequence: an error code, never a launch."""
+    from vorta_tpu_torch.ops.flash import _flash_f32_fn
+    from vorta_tpu_torch.ops.sta_pipe import _sta_f32_fn
+
+    q = torch.zeros((1, 1, 64, 128), device=card)
+    ki, kc = dense_tables(1, 1).on(card)
+    lse = torch.zeros((1, 1, 64, 1), device=card)
+    stream = _build.stream_ptr(q.device)
+    p = [q.data_ptr()] * 4
+
+    def flash(lse_ptr, d, block):
+        return _flash_f32_fn()(*p, lse_ptr, ki.data_ptr(), kc.data_ptr(), 1, 1, 64, 64, d, 1,
+                               64 // block, 1, block, block, 64, 0.1, stream)
+
+    assert flash(None, 128, 64) == 0
+    torch.cuda.synchronize()
+    assert flash(lse.data_ptr(), 128, 64) != 0
+    assert flash(None, 96, 64) != 0
+    assert flash(None, 128, 12) != 0
+    act = torch.ones(1, dtype=torch.int32, device=card)
+    sta = _sta_f32_fn()
+    args = [*p, act.data_ptr(), None, None, None, 0, 1, 1, 4, 4, 4]
+    assert sta(*args, 96, 2, 2, 2, 3, 3, 3, 0, stream) != 0
+    assert sta(*args, 128, 2, 2, 2, 3, 3, 3, 0, stream) == 0
+    assert sta(*args, 128, 3, 2, 2, 3, 3, 3, 0, stream) != 0
+    torch.cuda.synchronize()
+
+
+def test_cli_sample_fp32_on_card_matches_cpu(card, tmp_path):
+    """cli.sample --dtype fp32, wan-tiny routed, 2 steps: the card against
+    --device cpu from the same weights, noise and embeddings (drawn on the
+    host: the two devices' generators differ): final latents rel L2 <= 1e-3,
+    the routing equal, every launch an f32 one; TF32 off after the call."""
+    from unittest import mock
+
+    from vorta_tpu_torch.cli import sample
+    from vorta_tpu_torch.config import WAN_TINY
+    from vorta_tpu_torch.pipelines.wan_t2v import WanT2VPipeline
+
+    emb = tmp_path / "emb.npy"
+    np.save(emb, np.random.default_rng(7).standard_normal(
+        (1, WAN_TINY.text_len, WAN_TINY.text_dim)).astype(np.float32))
+    real = sample.WanModel
+
+    def on_host(cfg, dtype=torch.float32, device=None, seed=0):
+        return real(cfg, dtype=dtype, device="cpu", seed=seed).to(device)
+
+    def noise(self, generator, batch, frames, height, width):
+        shape = (batch, (frames - 1) // 4 + 1, height // 8, width // 8, 16)
+        return torch.randn(shape, generator=torch.Generator().manual_seed(
+            generator.initial_seed())).to(self.model.device)
+
+    base = ["--model", "wan-tiny", "--dtype", "fp32", "--prompt_embeds", str(emb),
+            "--num_frames", "13", "--height", "64", "--width", "64",
+            "--num_inference_steps", "2"]
+    runs = {}
+    with mock.patch.object(sample, "WanModel", on_host), \
+            mock.patch.object(WanT2VPipeline, "prepare_latents", noise):
+        for dev in ("cuda", "cpu"):
+            _build.reset_launches()
+            runs[dev] = sample.main(base + ["--device", dev, "--output",
+                                            str(tmp_path / f"{dev}.npy")])
+            if dev == "cuda":
+                n = dict(_build.launches)
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert all(np.array_equal(a, b) for a, b in zip(runs["cuda"].routing, runs["cpu"].routing))
+    a, b = runs["cuda"].latents.cpu(), runs["cpu"].latents
+    assert ((a - b).norm() / b.norm()).item() <= 1e-3
+    for kname in ("flash", "flash_manual", "sta_pipe", "fused_norm", "prologue", "pool_qkv",
+                  "unpool"):
+        assert n[f"{kname}_f32"] == n[kname] > 0, kname

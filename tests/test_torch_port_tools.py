@@ -165,8 +165,13 @@ def test_fit_cache_poly_matches_the_jax_tool(tmp_path, monkeypatch, capsys):
     assert np.isfinite(tline["r2"])
 
 
-def test_fit_cache_poly_refuses_f32_on_cuda(capsys):
-    with pytest.raises(SystemExit):
-        fit_cache_poly.parse_args([])  # wan-tiny, the card by default
-    assert "A3" in capsys.readouterr().err
+def test_fit_cache_poly_refuses_f32_on_cuda(capsys, monkeypatch):
+    """wan-tiny runs in f32 on the card too (the kernels' f32 modes): the
+    flags parse, and without a card the run stops at the device check, not
+    at an f32 refusal."""
+    assert fit_cache_poly.parse_args([]).device == "cuda"  # wan-tiny, the card by default
     assert fit_cache_poly.parse_args(["--model", "wan-1_3B"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit_cache_poly.main(["--steps", "2"])
+    assert "A3" not in capsys.readouterr().err

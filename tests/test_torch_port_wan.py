@@ -301,13 +301,19 @@ def test_cli_requires_native_attention(tmp_path, capsys):
     assert "routing=hard" in printed and "heads routed over 4 forwards" in printed
 
 
-def test_cli_takes_fp32_only_on_the_cpu():
-    """The CUDA kernels take bf16, so --dtype fp32 is refused unless --device cpu."""
-    from vorta_tpu_torch.cli.sample import parse_args
+def test_cli_takes_fp32_only_on_the_cpu(monkeypatch):
+    """--dtype fp32 is taken on both devices since the kernels' f32 modes
+    (the name is the test's from before them): the flags parse with the
+    card's default device, and without a card the run stops at the device
+    check, not at an f32 refusal."""
+    from vorta_tpu_torch.cli.sample import main, parse_args
 
-    with pytest.raises(SystemExit):
-        parse_args(["--native_attention", "--random_embeds", "--dtype", "fp32"])
+    args = ["--native_attention", "--random_embeds", "--dtype", "fp32"]
+    assert parse_args(args).device == "cuda"
     assert parse_args(["--dtype", "fp32", "--device", "cpu"]).dtype == "fp32"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(args)
 
 
 def test_router_loader_matches_jax_loader(tmp_path):

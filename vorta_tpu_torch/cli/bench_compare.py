@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
 from ..io.checkpoint import apply_router_state, load_router_checkpoint
 from ..io.from_jax import load_trained_router
@@ -73,9 +73,6 @@ from .sample import is_router_file, load_cache_poly, random_embeds
 
 MODELS = {"wan-1_3B": WAN_1_3B, "wan-14B": WAN_14B, "wan-tiny": WAN_TINY,
           "hunyuan-13B": HUNYUAN_13B, "hunyuan-tiny": HUNYUAN_TINY}
-# the tiny models run in f32, as the JAX CLIs and tools build them
-TINY_ON_CUDA = ("{model} runs in f32, as the JAX package builds it; the CUDA kernels take "
-                "bf16 only (ROADMAP section 2 A3): pass --device cpu, or --model {big}")
 CALIBRATION_T = (200.0, 500.0, 800.0)
 
 
@@ -133,11 +130,7 @@ def parse_args(argv=None):
                         "or 'baseline,vorta,cached'")
     p.add_argument("--lpips_weights", default=None,
                    help="LPIPS net weights (lpips is null without them)")
-    args = p.parse_args(argv)
-    if args.model.endswith("tiny") and args.device != "cpu":
-        big = "hunyuan-13B" if args.model.startswith("hunyuan") else "wan-1_3B"
-        p.error(TINY_ON_CUDA.format(model=args.model, big=big))
-    return args
+    return p.parse_args(argv)
 
 
 def _arm_chunk(args, name: str) -> int:
@@ -296,6 +289,8 @@ def main(argv=None) -> Comparison:
     them with each arm's routing, cache log and launches."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.model.endswith("tiny"):  # the tiny models run in f32, as the JAX CLIs build them
+        full_f32(device)
     with torch.inference_mode():
         if args.model.startswith("hunyuan"):
             return _main_hunyuan(args, device)

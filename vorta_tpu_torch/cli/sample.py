@@ -86,7 +86,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
 from ..io import text as text_io
 from ..io.checkpoint import apply_router_state, load_router_checkpoint
@@ -120,7 +120,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", default="wan-1_3B", choices=sorted(MODELS))
-    p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
+                   help="fp32: weights, activations and every kernel in f32 (on the card the "
+                        "kernels' f32 modes, P kept in f32, and TF32 off for cuBLAS and "
+                        "cuDNN, so the products and the VAE decode's convs stay f32)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--resume_dir", default=None,
                    help="training output dir: reads config.json's attention geometry")
@@ -194,10 +197,7 @@ def parse_args(argv=None):
                    help="directory of .npy / .pt embeds: one video per file")
     p.add_argument("--skip_existing", action="store_true",
                    help="with --prompt_embeds_dir: skip a file whose output exists")
-    args = p.parse_args(argv)
-    if args.dtype == "fp32" and args.device != "cpu":
-        p.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
-    return args
+    return p.parse_args(argv)
 
 
 def load_array(path) -> np.ndarray:
@@ -444,6 +444,8 @@ def main(argv=None):
 def _main(args, device, mesh) -> SampleResult:
     model_cfg = MODELS[args.model]
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    if dtype == torch.float32:
+        full_f32(device)
     hunyuan = args.model.startswith("hunyuan")
     geometry = HUNYUAN_GEOMETRY if hunyuan else WAN_GEOMETRY
     grid = geometry.tokens((args.num_frames, args.height, args.width))

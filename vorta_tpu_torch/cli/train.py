@@ -136,7 +136,8 @@ def parse_args(argv=None):
                    help="'latest' or a step dir path")
     args = p.parse_args(argv)
     if args.dtype == "fp32" and args.device != "cpu":
-        p.error("--dtype fp32 runs only with --device cpu: the CUDA kernels take bf16")
+        p.error("--dtype fp32 trains only with --device cpu: the f32 lse and flash backward "
+                "on the card are ROADMAP section 2 A4 (training in f32)")
     return args
 
 

@@ -21,7 +21,11 @@
 // every other head are not written (the caller allocates with torch.empty
 // and masks downstream), so data movement and matching scale with the routed
 // heads.  Values are moved, never computed: pooled and unpooled rows equal
-// their sources bit for bit.
+// their sources bit for bit.  Pool and unpool take bf16 (the model in
+// bf16) or f32 (the f32 serving path: the tiny models, `--dtype fp32`),
+// each kernel instantiated on the element type: the similarity sums are f32
+// either way and the rows are moved as bytes, so an f32 pool or unpool is
+// its plain version bit for bit wherever the picks agree.
 //
 // unpool's two kernels.  unpool_rows_kernel (the path ops/coreset_pallas.py:
 // unpool_layout gives every shape this file takes: D 64 or 128, groups of
@@ -71,9 +75,14 @@ namespace {
 
 constexpr int WARPS = 8;  // groups per block
 
-// d / 32 bf16 elements per lane as one load
-template <int D>
-using LaneVec = typename std::conditional<D == 128, uint2, uint32_t>::type;
+// d / 32 elements of type T per lane as one load (4, 8 or 16 bytes)
+template <int D, typename T>
+using LaneVec = typename std::conditional<
+    D * sizeof(T) == 512, uint4,
+    typename std::conditional<D * sizeof(T) == 256, uint2, uint32_t>::type>::type;
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
 
 struct Group {
   int g2t, g2h, g2w;
@@ -85,22 +94,22 @@ struct Group {
   }
 };
 
-template <int D>
-__device__ __forceinline__ void copy_row(__nv_bfloat16* dst, const __nv_bfloat16* src, int lane) {
-  static_assert(sizeof(LaneVec<D>) == D / 32 * 2, "lane vector width");
-  reinterpret_cast<LaneVec<D>*>(dst)[lane] = reinterpret_cast<const LaneVec<D>*>(src)[lane];
+template <int D, typename T>
+__device__ __forceinline__ void copy_row(T* dst, const T* src, int lane) {
+  static_assert(sizeof(LaneVec<D, T>) == D / 32 * sizeof(T), "lane vector width");
+  reinterpret_cast<LaneVec<D, T>*>(dst)[lane] = reinterpret_cast<const LaneVec<D, T>*>(src)[lane];
 }
 
-template <int D>
-__device__ __forceinline__ void zero_row(__nv_bfloat16* dst, int lane) {
-  reinterpret_cast<LaneVec<D>*>(dst)[lane] = LaneVec<D>{};
+template <int D, typename T>
+__device__ __forceinline__ void zero_row(T* dst, int lane) {
+  reinterpret_cast<LaneVec<D, T>*>(dst)[lane] = LaneVec<D, T>{};
 }
 
-template <int D>
-__device__ __forceinline__ void load_f32(float* x, const __nv_bfloat16* src, int lane) {
+template <int D, typename T>
+__device__ __forceinline__ void load_f32(float* x, const T* src, int lane) {
   constexpr int EPL = D / 32;
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) x[e] = __bfloat162float(src[lane * EPL + e]);
+  for (int e = 0; e < EPL; ++e) x[e] = to_f32(src[lane * EPL + e]);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -121,11 +130,10 @@ __device__ __forceinline__ int warp_min(int x) {
   return x;
 }
 
-template <int D>
+template <int D, typename Elem>
 __global__ void __launch_bounds__(WARPS * 32)
-pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ pq,
-            __nv_bfloat16* __restrict__ pk, __nv_bfloat16* __restrict__ pv,
+pool_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k, const Elem* __restrict__ v,
+            Elem* __restrict__ pq, Elem* __restrict__ pk, Elem* __restrict__ pv,
             int* __restrict__ picks, const int* __restrict__ active,
             const int* __restrict__ head_map, int kv_from_k, int H, int T, int HH, int W, int wt,
             int wh, int ww, int U) {
@@ -139,16 +147,16 @@ pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   const size_t in0 = bh * T * HH * W, out0 = bh * G * (1 + U);
   const int cs = (wt / 2) * wh * ww + (wh / 2) * ww + ww / 2;
   const Group grp(g, HH, W, wh, ww);
-  auto src = [&](const __nv_bfloat16* x, int s) {
+  auto src = [&](const Elem* x, int s) {
     return x + (in0 + grp.token(s, wt, wh, ww, HH, W)) * D;
   };
   auto dst_row = [&](int i) { return (out0 + (i < 0 ? g : G + g * U + i)) * D; };
 
   if (active != nullptr && active[h] == 0) {
     for (int i = -1; i < U; ++i) {
-      zero_row<D>(pq + dst_row(i), lane);
-      zero_row<D>(pk + dst_row(i), lane);
-      zero_row<D>(pv + dst_row(i), lane);
+      zero_row<D, Elem>(pq + dst_row(i), lane);
+      zero_row<D, Elem>(pk + dst_row(i), lane);
+      zero_row<D, Elem>(pv + dst_row(i), lane);
     }
     if (lane < U) picks[(bh * G + g) * U + lane] = 0;
     return;
@@ -156,12 +164,12 @@ pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
 
   // similarity of every slot to the center, in f32; lane s holds slot s's,
   // the center and lanes >= gs stay +inf
-  auto similarity = [&](const __nv_bfloat16* x) {
+  auto similarity = [&](const Elem* x) {
     float c[EPL], y[EPL];
-    load_f32<D>(c, src(x, cs), lane);
+    load_f32<D, Elem>(c, src(x, cs), lane);
     float my_sim = CUDART_INF_F;
     for (int s = 0; s < gs; ++s) {
-      load_f32<D>(y, src(x, s), lane);
+      load_f32<D, Elem>(y, src(x, s), lane);
       float dot = 0.f, sq = 0.f;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
@@ -184,24 +192,24 @@ pool_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   float sim_q = similarity(q);
   float sim_k = kv_from_k ? similarity(k) : 0.f;
 
-  copy_row<D>(pq + dst_row(-1), src(q, cs), lane);
-  copy_row<D>(pk + dst_row(-1), src(k, cs), lane);
-  copy_row<D>(pv + dst_row(-1), src(v, cs), lane);
+  copy_row<D, Elem>(pq + dst_row(-1), src(q, cs), lane);
+  copy_row<D, Elem>(pk + dst_row(-1), src(k, cs), lane);
+  copy_row<D, Elem>(pv + dst_row(-1), src(v, cs), lane);
   for (int i = 0; i < U; ++i) {
     const int pick = next_pick(sim_q);
     const int kv_pick = kv_from_k ? next_pick(sim_k) : pick;
     if (lane == 0) picks[(bh * G + g) * U + i] = pick;
-    copy_row<D>(pq + dst_row(i), src(q, pick), lane);
-    copy_row<D>(pk + dst_row(i), src(k, kv_pick), lane);
-    copy_row<D>(pv + dst_row(i), src(v, kv_pick), lane);
+    copy_row<D, Elem>(pq + dst_row(i), src(q, pick), lane);
+    copy_row<D, Elem>(pk + dst_row(i), src(k, kv_pick), lane);
+    copy_row<D, Elem>(pv + dst_row(i), src(v, kv_pick), lane);
   }
 }
 
-template <int D>
+template <int D, typename Elem>
 __global__ void __launch_bounds__(WARPS * 32)
-unpool_kernel(const __nv_bfloat16* __restrict__ pooled, const int* __restrict__ picks,
+unpool_kernel(const Elem* __restrict__ pooled, const int* __restrict__ picks,
               const int* __restrict__ active, const int* __restrict__ head_map,
-              __nv_bfloat16* __restrict__ out, int H, int T, int HH, int W, int wt, int wh,
+              Elem* __restrict__ out, int H, int T, int HH, int W, int wt, int wh,
               int ww, int U) {
   const int lane = threadIdx.x % 32;
   const int gs = wt * wh * ww, G = (T / wt) * (HH / wh) * (W / ww);
@@ -214,28 +222,30 @@ unpool_kernel(const __nv_bfloat16* __restrict__ pooled, const int* __restrict__ 
   const bool on = active == nullptr || active[h] != 0;
   const int my_pick = (on && lane < U) ? picks[(bh * G + g) * U + lane] : -1;
   for (int s = 0; s < gs; ++s) {
-    __nv_bfloat16* dst = out + (out0 + grp.token(s, wt, wh, ww, HH, W)) * D;
+    Elem* dst = out + (out0 + grp.token(s, wt, wh, ww, HH, W)) * D;
     if (!on) {
-      zero_row<D>(dst, lane);
+      zero_row<D, Elem>(dst, lane);
       continue;
     }
     size_t row = g;  // dropped slots and the center take the center
     for (int i = 0; i < U; ++i)
       if (__shfl_sync(0xffffffffu, my_pick, i) == s) row = G + static_cast<size_t>(g) * U + i;
-    copy_row<D>(dst, pooled + (in0 + row) * D, lane);
+    copy_row<D, Elem>(dst, pooled + (in0 + row) * D, lane);
   }
 }
 
 // NL: store instructions a lane has per group (ceil(gs / RPI), rounded up to
 // 4, 8 or 16); KL: kept-row loads a lane has per group (ceil(U / RPI), as
-// NL / 2 where it fits, else NL): ops/coreset_pallas.py:unpool_layout.
-template <int D, int NL, int KL>
+// NL / 2 where it fits, else NL): ops/coreset_pallas.py:unpool_layout.  E:
+// the element type (RPI = 256 / D rows an instruction in bf16, 128 / D in
+// f32).
+template <int D, int NL, int KL, typename E>
 __global__ void __launch_bounds__(WARPS * 32, NL <= 8 ? 2 : 1)
-unpool_rows_kernel(const __nv_bfloat16* __restrict__ pooled, const int* __restrict__ picks,
+unpool_rows_kernel(const E* __restrict__ pooled, const int* __restrict__ picks,
                    const int* __restrict__ active, const int* __restrict__ head_map,
-                   __nv_bfloat16* __restrict__ out, int H, int T, int HH, int W, int wt, int wh,
+                   E* __restrict__ out, int H, int T, int HH, int W, int wt, int wh,
                    int ww, int U) {
-  constexpr int LPR = D / 8;     // lanes of a row, 16 bytes each
+  constexpr int LPR = D * static_cast<int>(sizeof(E)) / 16;  // lanes of a row, 16 bytes each
   constexpr int RPI = 32 / LPR;  // rows a warp instruction moves
   static_assert(KL <= NL, "a kept row is one of the group's stores");
   __shared__ int entry_slot[WARPS][32];
@@ -346,11 +356,14 @@ copy_probe_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 }
 
 // ops/coreset_pallas.py:unpool_layout: the rows kernel's store instructions
-// a lane (ceil(gs / RPI) rounded up to 4, 8 or 16) and kept-row loads a lane
-// (NL / 2 where ceil(U / RPI) fits it, else NL); false where it takes no shape
-bool unpool_layout(int D, int gs, int U, int& NL, int& KL) {
+// a lane (ceil(gs / RPI) rounded up to 4, 8 or 16, RPI = 512 / (D * esize)
+// rows an instruction) and kept-row loads a lane (NL / 2 where ceil(U / RPI)
+// fits it, else NL); false where it takes no shape (f32 at D = 128 with more
+// than 16 slots a group)
+bool unpool_layout(int D, int gs, int U, int esize, int& NL, int& KL) {
   if ((D != 64 && D != 128) || gs < 1 || gs > 32 || U < 0 || U >= gs) return false;
-  const int rpi = 256 / D, need = (gs + rpi - 1) / rpi;
+  const int rpi = 512 / (D * esize), need = (gs + rpi - 1) / rpi;
+  if (need > 16) return false;
   NL = need <= 4 ? 4 : need <= 8 ? 8 : 16;
   KL = (U + rpi - 1) / rpi <= NL / 2 ? NL / 2 : NL;
   return true;
@@ -370,6 +383,87 @@ dim3 grid_of(int B, int heads, int T, int HH, int W, int wt, int wh, int ww) {
   return dim3((G + WARPS - 1) / WARPS, heads, B);
 }
 
+template <typename Elem>
+int pool(const void* q, const void* k, const void* v, void* pq, void* pk, void* pv, void* picks,
+         const void* active, const void* head_map, int num_active, int kv_from_k, int B, int H,
+         int T, int HH, int W, int D, int wt, int wh, int ww, int U, void* stream) {
+  if (bad_shape(T, HH, W, D, wt, wh, ww, U) || (active == nullptr) == (head_map == nullptr) ||
+      (head_map != nullptr && (num_active < 1 || num_active > H)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = grid_of(B, head_map != nullptr ? num_active : H, T, HH, W, wt, wh, ww);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* qq = static_cast<const Elem*>(q);
+  auto* kk = static_cast<const Elem*>(k);
+  auto* vv = static_cast<const Elem*>(v);
+  auto* oq = static_cast<Elem*>(pq);
+  auto* ok = static_cast<Elem*>(pk);
+  auto* ov = static_cast<Elem*>(pv);
+  auto* pi = static_cast<int*>(picks);
+  auto* act = static_cast<const int*>(active);
+  auto* hm = static_cast<const int*>(head_map);
+  if (D == 128)
+    pool_kernel<128, Elem><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, hm,
+                                                        kv_from_k, H, T, HH, W, wt, wh, ww, U);
+  else
+    pool_kernel<64, Elem><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, hm,
+                                                       kv_from_k, H, T, HH, W, wt, wh, ww, U);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Elem>
+int unpool(const void* pooled, const void* picks, const void* active, const void* head_map,
+           void* out, int num_active, int B, int H, int T, int HH, int W, int D, int wt, int wh,
+           int ww, int U, int stores, int loads, void* stream) {
+  int NL = 0, KL = 0;
+  const bool rows = stores != 0 || loads != 0;
+  if (bad_shape(T, HH, W, D, wt, wh, ww, U) || (active == nullptr) == (head_map == nullptr) ||
+      (head_map != nullptr && (num_active < 1 || num_active > H)) ||
+      (rows && (!unpool_layout(D, wt * wh * ww, U, sizeof(Elem), NL, KL) || NL != stores ||
+                KL != loads || reinterpret_cast<uintptr_t>(pooled) % 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int heads = head_map != nullptr ? num_active : H;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* pp = static_cast<const Elem*>(pooled);
+  auto* pi = static_cast<const int*>(picks);
+  auto* act = static_cast<const int*>(active);
+  auto* hm = static_cast<const int*>(head_map);
+  auto* oo = static_cast<Elem*>(out);
+  if (rows) {
+    const int G = (T / wt) * (HH / wh) * (W / ww);
+    const dim3 grid((G + WARPS * GROUPS_PER_WARP - 1) / (WARPS * GROUPS_PER_WARP), heads, B);
+    auto run = [&](auto kern) {
+      kern<<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt, wh, ww, U);
+    };
+    const bool half = KL < NL;
+    if (D == 128) {
+      if (NL == 4)
+        half ? run(unpool_rows_kernel<128, 4, 2, Elem>) : run(unpool_rows_kernel<128, 4, 4, Elem>);
+      if (NL == 8)
+        half ? run(unpool_rows_kernel<128, 8, 4, Elem>) : run(unpool_rows_kernel<128, 8, 8, Elem>);
+      if (NL == 16)
+        half ? run(unpool_rows_kernel<128, 16, 8, Elem>)
+             : run(unpool_rows_kernel<128, 16, 16, Elem>);
+    } else {
+      if (NL == 4)
+        half ? run(unpool_rows_kernel<64, 4, 2, Elem>) : run(unpool_rows_kernel<64, 4, 4, Elem>);
+      if (NL == 8)
+        half ? run(unpool_rows_kernel<64, 8, 4, Elem>) : run(unpool_rows_kernel<64, 8, 8, Elem>);
+      if (NL == 16)
+        half ? run(unpool_rows_kernel<64, 16, 8, Elem>)
+             : run(unpool_rows_kernel<64, 16, 16, Elem>);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid = grid_of(B, heads, T, HH, W, wt, wh, ww);
+  if (D == 128)
+    unpool_kernel<128, Elem><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt,
+                                                          wh, ww, U);
+  else
+    unpool_kernel<64, Elem><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt,
+                                                         wh, ww, U);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v: contiguous raster (B, H, T*HH*W, D) bf16; pq, pk, pv: (B, H,
@@ -382,28 +476,19 @@ extern "C" int vorta_coreset_pool_bf16(const void* q, const void* k, const void*
                                        const void* head_map, int num_active, int kv_from_k,
                                        int B, int H, int T, int HH, int W, int D, int wt, int wh,
                                        int ww, int U, void* stream) {
-  if (bad_shape(T, HH, W, D, wt, wh, ww, U) || (active == nullptr) == (head_map == nullptr) ||
-      (head_map != nullptr && (num_active < 1 || num_active > H)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid = grid_of(B, head_map != nullptr ? num_active : H, T, HH, W, wt, wh, ww);
-  auto st = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  auto* qq = static_cast<const bf*>(q);
-  auto* kk = static_cast<const bf*>(k);
-  auto* vv = static_cast<const bf*>(v);
-  auto* oq = static_cast<bf*>(pq);
-  auto* ok = static_cast<bf*>(pk);
-  auto* ov = static_cast<bf*>(pv);
-  auto* pi = static_cast<int*>(picks);
-  auto* act = static_cast<const int*>(active);
-  auto* hm = static_cast<const int*>(head_map);
-  if (D == 128)
-    pool_kernel<128><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, hm,
-                                                  kv_from_k, H, T, HH, W, wt, wh, ww, U);
-  else
-    pool_kernel<64><<<grid, WARPS * 32, 0, st>>>(qq, kk, vv, oq, ok, ov, pi, act, hm, kv_from_k,
-                                                 H, T, HH, W, wt, wh, ww, U);
-  return static_cast<int>(cudaGetLastError());
+  return pool<__nv_bfloat16>(q, k, v, pq, pk, pv, picks, active, head_map, num_active, kv_from_k,
+                             B, H, T, HH, W, D, wt, wh, ww, U, stream);
+}
+
+// The same pool in f32: q, k, v, pq, pk, pv f32 (the similarity sums as in
+// bf16, the rows moved bit for bit).
+extern "C" int vorta_coreset_pool_f32(const void* q, const void* k, const void* v, void* pq,
+                                      void* pk, void* pv, void* picks, const void* active,
+                                      const void* head_map, int num_active, int kv_from_k, int B,
+                                      int H, int T, int HH, int W, int D, int wt, int wh, int ww,
+                                      int U, void* stream) {
+  return pool<float>(q, k, v, pq, pk, pv, picks, active, head_map, num_active, kv_from_k, B, H,
+                     T, HH, W, D, wt, wh, ww, U, stream);
 }
 
 // pooled: contiguous (B, H, G*(1+U), D) bf16, 16-byte aligned; picks: (B, H,
@@ -417,47 +502,19 @@ extern "C" int vorta_coreset_unpool_bf16(const void* pooled, const void* picks,
                                          int num_active, int B, int H, int T, int HH, int W,
                                          int D, int wt, int wh, int ww, int U, int stores,
                                          int loads, void* stream) {
-  int NL = 0, KL = 0;
-  const bool rows = stores != 0 || loads != 0;
-  if (bad_shape(T, HH, W, D, wt, wh, ww, U) || (active == nullptr) == (head_map == nullptr) ||
-      (head_map != nullptr && (num_active < 1 || num_active > H)) ||
-      (rows && (!unpool_layout(D, wt * wh * ww, U, NL, KL) || NL != stores || KL != loads ||
-                reinterpret_cast<uintptr_t>(pooled) % 16)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int heads = head_map != nullptr ? num_active : H;
-  auto st = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  auto* pp = static_cast<const bf*>(pooled);
-  auto* pi = static_cast<const int*>(picks);
-  auto* act = static_cast<const int*>(active);
-  auto* hm = static_cast<const int*>(head_map);
-  auto* oo = static_cast<bf*>(out);
-  if (rows) {
-    const int G = (T / wt) * (HH / wh) * (W / ww);
-    const dim3 grid((G + WARPS * GROUPS_PER_WARP - 1) / (WARPS * GROUPS_PER_WARP), heads, B);
-    auto run = [&](auto kern) {
-      kern<<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt, wh, ww, U);
-    };
-    const bool half = KL < NL;
-    if (D == 128) {
-      if (NL == 4) half ? run(unpool_rows_kernel<128, 4, 2>) : run(unpool_rows_kernel<128, 4, 4>);
-      if (NL == 8) half ? run(unpool_rows_kernel<128, 8, 4>) : run(unpool_rows_kernel<128, 8, 8>);
-      if (NL == 16)
-        half ? run(unpool_rows_kernel<128, 16, 8>) : run(unpool_rows_kernel<128, 16, 16>);
-    } else {
-      if (NL == 4) half ? run(unpool_rows_kernel<64, 4, 2>) : run(unpool_rows_kernel<64, 4, 4>);
-      if (NL == 8) half ? run(unpool_rows_kernel<64, 8, 4>) : run(unpool_rows_kernel<64, 8, 8>);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  const dim3 grid = grid_of(B, heads, T, HH, W, wt, wh, ww);
-  if (D == 128)
-    unpool_kernel<128><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt, wh,
-                                                    ww, U);
-  else
-    unpool_kernel<64><<<grid, WARPS * 32, 0, st>>>(pp, pi, act, hm, oo, H, T, HH, W, wt, wh, ww,
-                                                   U);
-  return static_cast<int>(cudaGetLastError());
+  return unpool<__nv_bfloat16>(pooled, picks, active, head_map, out, num_active, B, H, T, HH, W,
+                               D, wt, wh, ww, U, stores, loads, stream);
+}
+
+// The same unpool in f32 (pooled, out f32; the layout rule at 4-byte
+// elements).
+extern "C" int vorta_coreset_unpool_f32(const void* pooled, const void* picks,
+                                        const void* active, const void* head_map, void* out,
+                                        int num_active, int B, int H, int T, int HH, int W,
+                                        int D, int wt, int wh, int ww, int U, int stores,
+                                        int loads, void* stream) {
+  return unpool<float>(pooled, picks, active, head_map, out, num_active, B, H, T, HH, W, D, wt,
+                       wh, ww, U, stores, loads, stream);
 }
 
 // The copy probe: q, k, v raster (B, H, T*HH*W, D) bf16 -> pq, pk, pv (B, H,

@@ -63,6 +63,7 @@
 // sub-tile (stable_update, mma_bf16.cuh).  Counts 0 and rows that see
 // nothing still give 0.  bf16 q / k only (the int8 mode is fast-only).
 #include "attn_sm90.cuh"
+#include "attn_f32.cuh"
 #include "mma_s8.cuh"
 
 namespace {
@@ -300,4 +301,55 @@ extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const v
     err = warps == 4 ? run(launch<64, 4, false, false>) : run(launch<64, 1, false, false>);
   }
   return static_cast<int>(err);
+}
+
+// ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the block tables ------
+
+namespace {
+
+template <int D>
+__global__ void __launch_bounds__(vorta::f32::THREADS, 2)
+flash_manual_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
+                        const __grid_constant__ vorta::f32::TableParams p, float mul,
+                        int stable) {
+  const vorta::f32::TableWalk<false> walk(p);
+  vorta::f32::attend<D>(walk, q, out, mul, stable != 0);
+}
+
+}  // namespace
+
+// The f32 mode (flash_manual.py's kernel at f32 inputs): q, k, v, out
+// contiguous (B, H, S, D) f32; the tables, kv_bias and the tail rule as for
+// vorta_flash_manual_fwd_bf16; block_q and block_kv multiples of 8, D 64 or
+// 128.  stable: the stable softmax, q not pre-scaled, the scores times sl =
+// scale * log2(e); else the fast one, q pre-scaled in f32 by the wrapper.
+// P kept in f32.  No int8 QK here (an f32 v with int8 q / k is a ROADMAP
+// item).  Returns the CUDA error code.
+extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const void* v,
+                                          void* out, const void* kv_index, const void* kv_count,
+                                          const void* kv_bias, int B, int H, int Sq, int Skv,
+                                          int D, int idx_heads, int cnt_heads, int nq, int width,
+                                          int block_q, int block_kv, int kv_valid_len,
+                                          int stable, float sl, void* stream) {
+  if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128) ||
+      (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
+      nq != Sq / block_q)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int has_tail = kv_valid_len % block_kv != 0;
+  const vorta::f32::TableParams p{
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(kv_index), static_cast<const int*>(kv_count), nullptr, nullptr,
+      static_cast<const float*>(kv_bias), H, Sq, Skv, D, nq, width, idx_heads == 1,
+      cnt_heads == 1, block_q, block_kv, has_tail ? kv_valid_len / block_kv : -1,
+      kv_valid_len % block_kv, 1, 1};
+  const dim3 grid = vorta::f32::table_grid(B, p);
+  const float mul = stable ? sl : 1.f;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* qq = static_cast<const float*>(q);
+  auto* oo = static_cast<float*>(out);
+  return static_cast<int>(
+      D == 128 ? vorta::f32::launch<128>(flash_manual_f32_kernel<128>, grid, st, qq, oo, p, mul,
+                                         stable)
+               : vorta::f32::launch<64>(flash_manual_f32_kernel<64>, grid, st, qq, oo, p, mul,
+                                        stable));
 }

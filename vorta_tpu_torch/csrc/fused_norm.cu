@@ -4,8 +4,10 @@
 // Replaces vorta_tpu/ops/fused_norm.py:_kernel (reached through
 // _norm_fwd_pallas and fused_norm): f32 statistics over the row, then
 // optional gamma/beta, then optional norm(x) * (1 + scale[b]) + shift[b],
-// written in bf16 (x's dtype) or in f32.  bf16 inputs only: the port's
-// model runs in bf16 on the card.
+// written in x's dtype or in f32.  x is bf16 (the model in bf16) or f32 (the
+// f32 serving path: the tiny models, `--dtype fp32`): the same kernels
+// instantiated on the element type, the statistics and the arithmetic in
+// f32 either way, as the TPU kernel computes them (fused_norm.py:53-69).
 //
 // Bound on this card: one read and one write of the (B, S, dim) stream, so
 // memory bandwidth bounds it (57.5 MB at Wan-1.3B 480p x 21f in bf16,
@@ -23,7 +25,8 @@
 //   a warp holds the row (two warps add their two partial sums through
 //   shared memory behind a named barrier of their own).  gamma / beta and
 //   the modulation are read as float4 (or 8 bf16), the output written with
-//   16-byte stores.
+//   16-byte stores.  In f32 a chunk of 8 is two 16-byte loads of 4 floats,
+//   held as f32 (the same layout rule, twice the registers).
 // - fused_norm_kernel, for other dims (the tiny test models): one block per
 //   row; the row is read into shared memory as f32, the statistics come
 //   from shared memory with block reductions, and the normalised,
@@ -126,20 +129,23 @@ struct Mod {
   }
 };
 
-template <typename TO>
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(THREADS)
-fused_norm_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, const Mod mod,
+fused_norm_kernel(const TI* __restrict__ x, TO* __restrict__ out, const Mod mod,
                   const float* __restrict__ gamma, const float* __restrict__ beta, int S, int dim,
                   int rms, float eps, const Strides st) {
   extern __shared__ float row[];
   __shared__ float red[THREADS / 32];
   const size_t r = blockIdx.x;
   const int b = static_cast<int>(r / S);
-  const __nv_bfloat16* xr = x + st.x_row(r, b, S, dim);
+  const TI* xr = x + st.x_row(r, b, S, dim);
 
   float sum = 0.f;
   for (int i = threadIdx.x; i < dim; i += THREADS) {
-    const float v = __bfloat162float(xr[i]);
+    const float v = to_f32(xr[i]);
     row[i] = v;
     sum += v;
   }
@@ -203,13 +209,38 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
   }
 }
 
-// Rows of dim = 256 * WPR * CH bf16: WPR warps a row, THREADS / 32 / WPR
-// rows a block; lane l of warp w (of the row's WPR) holds the 8-element
-// chunks c * 32 * WPR + w * 32 + l, c < CH, as bf16 (half the registers of
-// f32, so more warps stay in flight), each pass taking them as f32.
-template <int CH, int WPR, typename TO>
+// An 8-element chunk of a row as it is held: 8 bf16 in one 16-byte load,
+// or 8 f32 in two.
+template <typename TI> struct Chunk8;
+template <> struct Chunk8<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = load_stream(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void unpack(float (&f)[8]) const { unpack8(u, f); }
+};
+template <> struct Chunk8<float> {
+  uint4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = load_stream(reinterpret_cast<const uint4*>(p));
+    b = load_stream(reinterpret_cast<const uint4*>(p) + 1);
+  }
+  __device__ __forceinline__ void unpack(float (&f)[8]) const {
+    f[0] = __uint_as_float(a.x), f[1] = __uint_as_float(a.y);
+    f[2] = __uint_as_float(a.z), f[3] = __uint_as_float(a.w);
+    f[4] = __uint_as_float(b.x), f[5] = __uint_as_float(b.y);
+    f[6] = __uint_as_float(b.z), f[7] = __uint_as_float(b.w);
+  }
+};
+
+// Rows of dim = 256 * WPR * CH elements: WPR warps a row, THREADS / 32 /
+// WPR rows a block; lane l of warp w (of the row's WPR) holds the 8-element
+// chunks c * 32 * WPR + w * 32 + l, c < CH, in the input type (bf16: half
+// the registers of f32, so more warps stay in flight), each pass taking
+// them as f32.
+template <int CH, int WPR, typename TI, typename TO>
 __global__ void __launch_bounds__(THREADS)
-fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out, const Mod mod,
+fused_norm_rows_kernel(const TI* __restrict__ x, TO* __restrict__ out, const Mod mod,
                        const float* __restrict__ gamma, const float* __restrict__ beta,
                        long long rows, int S, int rms, float eps, const Strides st) {
   constexpr int DIM = 256 * WPR * CH;
@@ -222,16 +253,16 @@ fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out
   const int b = static_cast<int>(r / S);
   const int c0 = wir * 32 + lane;  // this lane's first chunk
 
-  uint4 xv[CH];
-  const uint4* xr = reinterpret_cast<const uint4*>(x + st.x_row(r, b, S, DIM));
+  Chunk8<TI> xv[CH];
+  const TI* xr = x + st.x_row(r, b, S, DIM);
   TO* orow = out + st.out_row(r, b, S, DIM);
 #pragma unroll
-  for (int c = 0; c < CH; ++c) xv[c] = load_stream(xr + c * 32 * WPR + c0);
+  for (int c = 0; c < CH; ++c) xv[c].load(xr + 8 * (c * 32 * WPR + c0));
   float sum = 0.f;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
     float f[8];
-    unpack8(xv[c], f);
+    xv[c].unpack(f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) sum += f[e];
   }
@@ -245,7 +276,7 @@ fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
     float f[8];
-    unpack8(xv[c], f);
+    xv[c].unpack(f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const float d = f[e] - mean;
@@ -260,7 +291,7 @@ fused_norm_rows_kernel(const __nv_bfloat16* __restrict__ x, TO* __restrict__ out
   for (int c = 0; c < CH; ++c) {
     const int col = 8 * (c * 32 * WPR + c0);
     float y[8];
-    unpack8(xv[c], y);
+    xv[c].unpack(y);
 #pragma unroll
     for (int e = 0; e < 8; ++e) y[e] = (y[e] - mean) * inv;
     if (gamma) {
@@ -384,26 +415,27 @@ Layout norm_layout(int dim) {
   return {0, 0};
 }
 
-template <int CH, int WPR, typename TO>
-cudaError_t launch_rows(const __nv_bfloat16* x, TO* out, const Mod& mod, const float* gamma,
+template <int CH, int WPR, typename TI, typename TO>
+cudaError_t launch_rows(const TI* x, TO* out, const Mod& mod, const float* gamma,
                         const float* beta, long long rows, int S, int rms, float eps,
                         const Strides& strides, cudaStream_t st) {
   constexpr long long per_block = THREADS / 32 / WPR;
   const long long blocks = (rows + per_block - 1) / per_block;
-  fused_norm_rows_kernel<CH, WPR, TO><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+  fused_norm_rows_kernel<CH, WPR, TI, TO><<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       x, out, mod, gamma, beta, rows, S, rms, eps, strides);
   return cudaGetLastError();
 }
 
 // CH runs over 1..12 for one warp a row, 7..12 for two or four (fewer
 // chunks would have taken fewer warps).
-template <int CH, typename TO>
-cudaError_t launch_ch(int wpr, int ch, const __nv_bfloat16* x, TO* out, const Mod& mod,
+template <int CH, typename TI, typename TO>
+cudaError_t launch_ch(int wpr, int ch, const TI* x, TO* out, const Mod& mod,
                       const float* gamma, const float* beta, long long rows, int S, int rms,
                       float eps, const Strides& sd, cudaStream_t st) {
   if (ch != CH) {
     if constexpr (CH < 12)
-      return launch_ch<CH + 1, TO>(wpr, ch, x, out, mod, gamma, beta, rows, S, rms, eps, sd, st);
+      return launch_ch<CH + 1, TI, TO>(wpr, ch, x, out, mod, gamma, beta, rows, S, rms, eps, sd,
+                                       st);
     else
       return cudaErrorInvalidValue;
   }
@@ -420,8 +452,8 @@ cudaError_t launch_ch(int wpr, int ch, const __nv_bfloat16* x, TO* out, const Mo
 }  // namespace
 
 // x, out: (B, S, dim) with dense rows, batches x_bstride / out_bstride
-// elements apart (S * dim where contiguous); x bf16, out bf16 or (out_f32)
-// f32.
+// elements apart (S * dim where contiguous); x bf16 (x_f32: f32), out in x's
+// dtype or (out_f32) f32.
 // scale / shift: (B, dim) f32 (mod_bf16: bf16) with rows mod_stride
 // elements apart and unit column stride, or null (together); gamma / beta:
 // contiguous (dim,) f32 or null.  wpr: the wrapper's layout rule
@@ -432,7 +464,7 @@ extern "C" int vorta_fused_norm(const void* x, void* out, const void* scale, con
                                 const void* gamma, const void* beta, int B, int S, int dim,
                                 int out_f32, int rms, float eps, long long mod_stride,
                                 int mod_bf16, int wpr, long long x_bstride,
-                                long long out_bstride, void* stream) {
+                                long long out_bstride, int x_f32, void* stream) {
   if (dim <= 0 || dim * sizeof(float) > 48 * 1024 || (scale == nullptr) != (shift == nullptr) ||
       (B > 1 && (x_bstride < static_cast<long long>(S) * dim ||
                  out_bstride < static_cast<long long>(S) * dim)))
@@ -446,21 +478,32 @@ extern "C" int vorta_fused_norm(const void* x, void* out, const void* scale, con
   const Mod mod{scale, shift, mod_stride, mod_bf16};
   auto* ga = static_cast<const float*>(gamma);
   auto* be = static_cast<const float*>(beta);
+  const size_t smem = static_cast<size_t>(dim) * sizeof(float);
+  if (x_f32) {  // the output is f32 whether or not out_f32 asks for it
+    auto* xx = static_cast<const float*>(x);
+    auto* oo = static_cast<float*>(out);
+    if (wpr)
+      return static_cast<int>(launch_ch<1, float, float>(lay.wpr, lay.ch, xx, oo, mod, ga, be,
+                                                         rows, S, rms, eps, strides, st));
+    fused_norm_kernel<float, float><<<rows, THREADS, smem, st>>>(xx, oo, mod, ga, be, S, dim,
+                                                                 rms, eps, strides);
+    return static_cast<int>(cudaGetLastError());
+  }
   auto* xx = static_cast<const __nv_bfloat16*>(x);
   if (wpr) {
     return static_cast<int>(
-        out_f32 ? launch_ch<1, float>(lay.wpr, lay.ch, xx, static_cast<float*>(out), mod, ga, be,
-                                      rows, S, rms, eps, strides, st)
-                : launch_ch<1, __nv_bfloat16>(lay.wpr, lay.ch, xx,
-                                              static_cast<__nv_bfloat16*>(out), mod, ga, be,
-                                              rows, S, rms, eps, strides, st));
+        out_f32 ? launch_ch<1, __nv_bfloat16, float>(lay.wpr, lay.ch, xx,
+                                                     static_cast<float*>(out), mod, ga, be,
+                                                     rows, S, rms, eps, strides, st)
+                : launch_ch<1, __nv_bfloat16, __nv_bfloat16>(
+                      lay.wpr, lay.ch, xx, static_cast<__nv_bfloat16*>(out), mod, ga, be, rows,
+                      S, rms, eps, strides, st));
   }
-  const size_t smem = static_cast<size_t>(dim) * sizeof(float);
   if (out_f32)
-    fused_norm_kernel<float><<<rows, THREADS, smem, st>>>(xx, static_cast<float*>(out), mod, ga,
-                                                          be, S, dim, rms, eps, strides);
+    fused_norm_kernel<__nv_bfloat16, float><<<rows, THREADS, smem, st>>>(
+        xx, static_cast<float*>(out), mod, ga, be, S, dim, rms, eps, strides);
   else
-    fused_norm_kernel<__nv_bfloat16><<<rows, THREADS, smem, st>>>(
+    fused_norm_kernel<__nv_bfloat16, __nv_bfloat16><<<rows, THREADS, smem, st>>>(
         xx, static_cast<__nv_bfloat16*>(out), mod, ga, be, S, dim, rms, eps, strides);
   return static_cast<int>(cudaGetLastError());
 }

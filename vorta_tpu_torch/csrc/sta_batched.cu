@@ -66,7 +66,10 @@
 // here either: they could only offer -1e30 to the max.
 #include <math.h>
 
+#include <type_traits>
+
 #include "attn_sm90.cuh"
+#include "attn_f32.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -508,3 +511,62 @@ extern "C" int vorta_sta_batched_fwd_bf16(const void* q, const void* k, const vo
 // The Hopper path's dynamic shared memory per CTA for a slot list of n
 // entries (width x slots per kv block), in bytes (for reports).
 extern "C" int vorta_sta_batched_sm90_smem_bytes(int n) { return batched_smem_bytes(n); }
+
+// ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the pair-bit tables ---
+
+namespace {
+
+// PAIRS: the pair bits mask (row, key) pairs inside each visited block
+template <int D, bool PAIRS>
+__global__ void __launch_bounds__(vorta::f32::THREADS, 2)
+sta_batched_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
+                       const __grid_constant__ vorta::f32::TableParams p, float mul,
+                       int stable) {
+  const vorta::f32::TableWalk<PAIRS> walk(p);
+  vorta::f32::attend<D>(walk, q, out, mul, stable != 0);
+}
+
+}  // namespace
+
+// The f32 mode (sta_batched.py's kernel at f32 inputs): q, k, v, out
+// contiguous tile-major (B, H, S, D) f32; the head-shared tables, pair_bits
+// (tpt, k_sub), kv_bias and active as for vorta_sta_batched_fwd_bf16;
+// blocks multiples of 8 (8-row blocks included), D 64 or 128.  stable: q
+// not pre-scaled, the scores times sl; else the fast softmax on q
+// pre-scaled in f32.  P kept in f32.  Returns the CUDA error code.
+extern "C" int vorta_sta_batched_fwd_f32(const void* q, const void* k, const void* v, void* out,
+                                         const void* kv_index, const void* kv_count,
+                                         const void* pair_bits, const void* kv_bias,
+                                         const void* active, int B, int H, int Sq, int Skv,
+                                         int D, int nq, int width, int block_q, int block_kv,
+                                         int tpt, int k_sub, int stable, float sl,
+                                         void* stream) {
+  if (block_q < 8 || block_kv < 8 || block_q % 8 || block_kv % 8 || Sq % block_q ||
+      Skv % block_kv || nq != Sq / block_q || width < 1 || (D != 64 && D != 128) || !active ||
+      (pair_bits && (tpt < 1 || k_sub < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const vorta::f32::TableParams p{
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(kv_index), static_cast<const int*>(kv_count),
+      static_cast<const int*>(pair_bits), static_cast<const int*>(active),
+      static_cast<const float*>(kv_bias), H, Sq, Skv, D, nq, width, 1, 1, block_q, block_kv,
+      -1, 0, pair_bits ? tpt : 1, pair_bits ? k_sub : 1};
+  const dim3 grid = vorta::f32::table_grid(B, p);
+  const float mul = stable ? sl : 1.f;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* qq = static_cast<const float*>(q);
+  auto* oo = static_cast<float*>(out);
+  auto run = [&](auto kern, auto d) {
+    return vorta::f32::launch<decltype(d)::value>(kern, grid, st, qq, oo, p, mul, stable);
+  };
+  using D128 = std::integral_constant<int, 128>;
+  using D64 = std::integral_constant<int, 64>;
+  cudaError_t err;
+  if (pair_bits)
+    err = D == 128 ? run(sta_batched_f32_kernel<128, true>, D128{})
+                   : run(sta_batched_f32_kernel<64, true>, D64{});
+  else
+    err = D == 128 ? run(sta_batched_f32_kernel<128, false>, D128{})
+                   : run(sta_batched_f32_kernel<64, false>, D64{});
+  return static_cast<int>(err);
+}

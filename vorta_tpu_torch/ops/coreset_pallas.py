@@ -24,12 +24,14 @@ last one repeated.  In head-map mode the CUDA launch covers only the
 sizes the grid); the plain versions fill the other heads' rows with NaN
 (picks with -1), so that a caller that forgets the mask shows it.
 
-On CUDA tensors both launch ``csrc/coreset_pool.cu`` (bf16, D 64 or 128,
-at most 32 slots per group; ``unpool`` there needs ``picks``); on CPU
+On CUDA tensors both launch ``csrc/coreset_pool.cu`` (bf16, or f32 on the
+f32 serving path, counted as ``pool_qkv_f32`` / ``unpool_f32`` too; D 64
+or 128, at most 32 slots per group; ``unpool`` there needs ``picks``); on CPU
 tensors they run the plain versions built from ops/coreset.py.  ``unpool``
 launches the batched 16-byte copy (``unpool_rows_kernel``, counted as
 ``unpool_rows`` too) wherever ``unpool_layout`` gives a layout: every shape
-the file takes, in both modes; ``unpool_per_group`` runs the first
+the file takes in bf16, in both modes, and in f32 all but D = 128 with
+more than 16 slots a group; ``unpool_per_group`` runs the first
 design's kernel (a warp per group, one row in flight) at the same call, the
 card's yardstick.  Forward only, as in the JAX package: on CUDA both raise
 where grad mode is on and an input requires grad.
@@ -187,8 +189,8 @@ def _cuda_args(x: torch.Tensor, groups: LowresGroups, active, head_map, num_acti
     dev = _build.require_cuda(x)
     b, h, s, d = x.shape
     geom = geometry_of(groups)
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"the CUDA pool/unpool kernels take bf16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"the CUDA pool/unpool kernels take bf16 or f32, got {x.dtype}")
     if d not in (64, 128) or groups.group_size > 32:
         raise NotImplementedError(f"the CUDA pool/unpool kernels take D 64/128 and at most "
                                   f"32 slots per group, got D={d}, {groups.group_size}")
@@ -229,37 +231,44 @@ def pool_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: LowresGr
     dev, active, hm, n, ints = _cuda_args(q, groups, active, head_map, num_active)
     if k.dtype != q.dtype or v.dtype != q.dtype or _build.require_cuda(q, k, v) != dev:
         raise ValueError("q, k and v must share one dtype and device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_build.aligned16(x.contiguous()) for x in (q, k, v))
     b, h, _, d = q.shape
     pooled = [torch.empty((b, h, groups.pooled_length, d), dtype=q.dtype, device=dev)
               for _ in range(3)]
     picks = torch.empty(_picks_shape(groups, b, h), dtype=torch.int32, device=dev)
-    err = _fn("vorta_coreset_pool_bf16", 2 + len(ints), 9)(
+    f32 = q.dtype == torch.float32
+    err = _fn("vorta_coreset_pool_f32" if f32 else "vorta_coreset_pool_bf16", 2 + len(ints), 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *(p.data_ptr() for p in pooled),
         picks.data_ptr(), _build.ptr(active), _build.ptr(hm), n, int(kv_matching_from_k),
         *ints, _build.stream_ptr(dev))
     _build.check(err, "pool_qkv")
     _build.launches["pool_qkv" if hm is None else "pool_qkv_headmap"] += 1
+    _build.launches["pool_qkv_f32"] += f32
     return tuple(pooled) + ((picks,) if return_picks else ())
 
 
 UNPOOL_STORES = (4, 8, 16)  # the rows kernel's instantiations: store instructions a lane
 
 
-def unpool_layout(d: int, group_size: int, kept: int) -> Optional[Tuple[int, int, int]]:
+def unpool_layout(d: int, group_size: int, kept: int,
+                  itemsize: int = 2) -> Optional[Tuple[int, int, int]]:
     """(rows a warp instruction moves, store instructions a lane, kept-row
     loads a lane) of unpool's batched 16-byte copy (``csrc/coreset_pool.cu:
     unpool_rows_kernel``) for groups of ``group_size`` slots with ``kept``
-    kept margins, or None where it takes no shape: a row of d bf16 is d / 8
-    lanes of 16 bytes, so a warp moves 256 / d rows an instruction; a group
-    of up to 32 slots takes ceil(group_size / rows) stores a lane, rounded
-    up to an instantiated count (``UNPOOL_STORES``), and ceil(kept / rows)
-    loads, held in half as many registers as stores where they fit (the
-    served rate keeps fewer than half the slots), else as many.  The C
-    entry mirrors the rule and refuses any other pair."""
+    kept margins, or None where it takes no shape: a row of d elements of
+    ``itemsize`` bytes is d * itemsize / 16 lanes of 16 bytes, so a warp
+    moves 512 / (d * itemsize) rows an instruction (256 / d in bf16, 128 /
+    d in f32); a group of up to 32 slots takes ceil(group_size / rows)
+    stores a lane, rounded up to an instantiated count (``UNPOOL_STORES``;
+    none fits f32 at d = 128 past 16 slots), and ceil(kept / rows) loads,
+    held in half as many registers as stores where they fit (the served
+    rate keeps fewer than half the slots), else as many.  The C entry
+    mirrors the rule and refuses any other pair."""
     if d not in (64, 128) or not 1 <= group_size <= 32 or not 0 <= kept < group_size:
         return None
-    rows = 256 // d
+    rows = 512 // (d * itemsize)
+    if -(-group_size // rows) > UNPOOL_STORES[-1]:
+        return None
     stores = next(n for n in UNPOOL_STORES if n * rows >= group_size)
     loads = stores // 2 if -(-kept // rows) <= stores // 2 else stores
     return rows, stores, loads
@@ -299,14 +308,18 @@ def _unpool(pooled_out, q, groups: LowresGroups, *, active=None, head_map=None,
     if tuple(picks.shape) != _picks_shape(groups, b, h) or picks.dtype != torch.int32:
         raise ValueError(f"picks {tuple(picks.shape)} {picks.dtype}")
     _build.require_cuda(pooled_out, picks)
-    layout = unpool_layout(d, groups.group_size, groups.num_kept_margins) if rows_ok else None
+    f32 = pooled_out.dtype == torch.float32
+    layout = (unpool_layout(d, groups.group_size, groups.num_kept_margins,
+                            pooled_out.element_size()) if rows_ok else None)
     pooled_out, picks = _build.aligned16(pooled_out.contiguous()), picks.contiguous()
     out = torch.empty((b, h, groups.full_length, d), dtype=pooled_out.dtype, device=dev)
-    err = _fn("vorta_coreset_unpool_bf16", 3 + len(ints), 5)(
+    err = _fn("vorta_coreset_unpool_f32" if f32 else "vorta_coreset_unpool_bf16",
+              3 + len(ints), 5)(
         pooled_out.data_ptr(), picks.data_ptr(), _build.ptr(active), _build.ptr(hm),
         out.data_ptr(), n, *ints, *(layout[1:] if layout else (0, 0)), _build.stream_ptr(dev))
     _build.check(err, "unpool")
     _build.launches["unpool" if hm is None else "unpool_headmap"] += 1
+    _build.launches["unpool_f32"] += f32
     if layout is not None:
         _build.launches["unpool_rows"] += 1
     return out

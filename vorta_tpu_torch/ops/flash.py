@@ -19,7 +19,12 @@ path of ``csrc/flash.cu`` (``csrc/attn_sm90.cuh``: wgmma, a TMA-fed K/V ring,
 warp specialisation; counted as ``flash_wgmma`` too); D = 64 and blocks 128
 does not divide (the 96- and 360-token STA tiles of training, 24-token
 tiles) take its mma.sync kernel.  The rule alone decides: neither path
-falls back to the other.
+falls back to the other.  f32 q / k / v (the f32 serving path: the tiny
+models, ``cli.sample --dtype fp32``) take the f32 mode, its own branch:
+``csrc/attn_f32.cuh``'s FFMA core over the same tables (counted as
+``flash_f32`` too), P kept in f32 as the plain version keeps it; the f32
+lse (``return_lse``) is the training slice's, ROADMAP section 2 A4, and
+raises.
 
 ``sparse_flash_attention_raw`` is forward only, as in the JAX package: on
 CUDA it raises where grad mode is on and an input requires grad.
@@ -199,6 +204,20 @@ def refuse_unported(kv_valid, pair_bits, tokens_per_tile, cast_p_to_v_dtype: boo
             raise NotImplementedError(why)
 
 
+# The ROADMAP rows that the f32 modes still lack, named by every refusal.
+F32_TRAINING = "ROADMAP section 2 A4 (training in f32)"
+F32_INT8 = "ROADMAP section 2 A8 (int8 QK with an f32 v)"
+
+
+def _flash_f32_fn():
+    fn = _build.load("flash").vorta_flash_fwd_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 7 + [i] * 11 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _flash_fn():
     fn = _build.load("flash").vorta_flash_fwd_bf16
     if fn.argtypes is None:
@@ -247,8 +266,9 @@ def sparse_flash_attention_raw(
 
     q: (B, H, Sq, D); k/v: (B, H, Skv, D).  kv_index: (H_tab, Sq//block_q, W)
     and kv_count: (H_tab, Sq//block_q), int32 tensors (or numpy) with H_tab
-    1 or H.  On CUDA: bf16 q/k/v, D 64 or 128, block_q and block_kv
-    multiples of 8 (the TPU kernel's rule).
+    1 or H.  On CUDA: bf16 or f32 q/k/v (one dtype; f32 without
+    ``return_lse``), D 64 or 128, block_q and block_kv multiples of 8 (the
+    TPU kernel's rule).
     ``kv_valid`` (per-head valid lengths), ``pair_bits`` with
     ``tokens_per_tile`` and ``cast_p_to_v_dtype=False`` raise
     NotImplementedError (ROADMAP section 1 item 11): no JAX call site passes
@@ -275,14 +295,28 @@ def sparse_flash_attention_raw(
     _build.forward_only("sparse_flash_attention_raw (differentiable: make_sparse_attention)",
                         q, k, v)
     dev = _build.require_cuda(q, k, v)
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(f"the CUDA flash kernel takes bf16 (f32: ROADMAP section 1 item 12), "
-                                  f"got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"the CUDA flash kernel takes bf16 or f32 q / k / v of one "
+                                  f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
         raise NotImplementedError(f"the CUDA flash kernel takes D 64/128 and blocks that are "
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
     kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
+    if q.dtype == torch.float32:  # the f32 mode: its own kernel, no Hopper rule
+        if return_lse:
+            raise NotImplementedError(f"the f32 flash lse (return_lse) is {F32_TRAINING}")
+        q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
+        out = torch.empty_like(q)
+        err = _flash_f32_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            kv_index.data_ptr(), kv_count.data_ptr(), b, h, sq, skv, d,
+            kv_index.shape[0], kv_index.shape[1], kv_index.shape[2],
+            block_q, block_kv, int(kv_valid_len), float(scale * LOG2E), _build.stream_ptr(dev))
+        _build.check(err, "flash (f32)")
+        _build.launches["flash"] += 1
+        _build.launches["flash_f32"] += 1
+        return out
     hopper = wgmma_path(d, block_q, block_kv)
     q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)

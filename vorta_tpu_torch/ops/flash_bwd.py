@@ -238,7 +238,8 @@ def _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_cou
 
     dev = _build.require_cuda(q, k, v, out, lse2, dout)
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, out, dout)):
-        raise NotImplementedError(f"the CUDA flash backward takes bf16, got {q.dtype}")
+        raise NotImplementedError(f"the CUDA flash backward takes bf16 (f32: ROADMAP section 2 "
+                                  f"A4, training in f32), got {q.dtype}")
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
         raise NotImplementedError(f"the CUDA flash backward takes D 64/128 and blocks that are "
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")

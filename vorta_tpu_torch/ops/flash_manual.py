@@ -41,7 +41,11 @@ On CUDA tensors ``sparse_flash_attention_manual`` launches
 TMA-fed K/V ring, warp specialisation; counted as ``flash_manual_wgmma``
 too) where ``manual_wgmma_path`` says so (the fast softmax, bf16 or int8 q /
 k, the shapes of ``ops/flash.py:wgmma_path``: every served geometry), else
-its mma.sync kernel (D = 64, other blocks, the stable softmax); on CPU
+its mma.sync kernel (D = 64, other blocks, the stable softmax); f32 q / k
+/ v take the f32 mode, its own branch (``csrc/attn_f32.cuh``'s FFMA core,
+either softmax, kv_bias, the tail rule, the count-0 rows; q pre-scaled in
+f32 for the fast softmax; P kept in f32; counted as ``flash_manual_f32``
+too), and int8 q / k with an f32 v raise (ROADMAP section 2 A8); on CPU
 tensors it runs the plain version,
 ``sparse_flash_attention_manual_ref``.  The TPU wrapper's other options
 (ROADMAP section 1 item 11) raise NotImplementedError.
@@ -55,7 +59,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash import LOG2E, NEG_INF, _kv_column_limit, refuse_unported, wgmma_path
+from .flash import F32_INT8, LOG2E, NEG_INF, _kv_column_limit, refuse_unported, wgmma_path
 
 NEG = -1e30
 SOFTMAXES = ("fast", "stable")
@@ -187,6 +191,15 @@ def _flash_manual_fn():
     return fn
 
 
+def _flash_manual_f32_fn():
+    fn = _build.load("flash_manual").vorta_flash_manual_fwd_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 7 + [i] * 13 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def sparse_flash_attention_manual(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -210,8 +223,9 @@ def sparse_flash_attention_manual(
     W) and kv_count: (1 or H, Sq//block_q) int32 tensors (or numpy);
     kv_bias: (1, Skv) f32 or None; qk_scale: (H,) f32 with int8 q / k, or
     None.  On CUDA: bf16 v (and q / k unless int8), D 64 or 128, block_q a
-    multiple of 16.  softmax "stable" (the default, the JAX wrapper's) or
-    "fast" (what every routed and joint caller passes; int8 QK needs it)."""
+    multiple of 16; or f32 q / k / v, blocks multiples of 8.  softmax
+    "stable" (the default, the JAX wrapper's) or "fast" (what every routed
+    and joint caller passes; int8 QK needs it)."""
     if qk_scale is not None:
         check_int8_qk(q, k, softmax)
     if softmax not in SOFTMAXES:
@@ -229,11 +243,15 @@ def sparse_flash_attention_manual(
     _build.forward_only("sparse_flash_attention_manual", q, k, v)
     dev = _build.require_cuda(q, k, v)
     _check(q, k, v, kv_index, kv_count, block_q, block_kv)
+    if v.dtype == torch.float32:
+        return _manual_f32(q, k, v, kv_index, kv_count, dev, scale=scale, block_q=block_q,
+                           block_kv=block_kv, kv_valid_len=kv_valid_len, kv_bias=kv_bias,
+                           qk_scale=qk_scale, softmax=softmax)
     qk_dtype = torch.bfloat16 if qk_scale is None else torch.int8
     if v.dtype != torch.bfloat16 or q.dtype != qk_dtype or k.dtype != qk_dtype:
         raise NotImplementedError(f"the CUDA flash_manual kernel takes bf16 (q / k int8 with "
-                                  f"qk_scale; f32: ROADMAP section 1 item 12), got {q.dtype}, "
-                                  f"{k.dtype}, {v.dtype}")
+                                  f"qk_scale) or f32 q / k / v, got {q.dtype}, {k.dtype}, "
+                                  f"{v.dtype}")
     if d not in (64, 128) or block_q % 16:
         raise NotImplementedError(f"the CUDA flash_manual kernel takes D 64/128 and "
                                   f"block_q % 16 == 0, got D={d}, block_q={block_q}")
@@ -259,6 +277,42 @@ def sparse_flash_attention_manual(
         _build.launches["flash_manual_wgmma"] += 1
     if qkc is not None:
         _build.launches["flash_manual_int8"] += 1
+    if stable:
+        _build.launches["flash_manual_stable"] += 1
+    return out
+
+
+def _manual_f32(q, k, v, kv_index, kv_count, dev, *, scale: float, block_q: int, block_kv: int,
+                kv_valid_len: int, kv_bias, qk_scale, softmax: str) -> torch.Tensor:
+    """The f32 mode on CUDA: f32 q / k / v, either softmax, through
+    ``csrc/attn_f32.cuh``."""
+    if qk_scale is not None:
+        raise NotImplementedError(f"int8 q / k with an f32 v in flash_manual is {F32_INT8}")
+    if q.dtype != torch.float32 or k.dtype != torch.float32:
+        raise NotImplementedError(f"the CUDA flash_manual f32 mode takes f32 q / k / v, got "
+                                  f"{q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if d not in (64, 128) or block_q % 8 or block_kv % 8:
+        raise NotImplementedError(f"the CUDA flash_manual f32 mode takes D 64/128 and blocks "
+                                  f"that are multiples of 8, got D={d}, blocks "
+                                  f"{block_q}/{block_kv}")
+    kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
+    kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
+    bias = None if kv_bias is None else _bias_row(kv_bias, skv).contiguous()
+    _build.require_cuda(q, bias)
+    stable = softmax == "stable"
+    qs = q if stable else _prescale(q, scale)
+    qs, k, v = (_build.aligned16(t.contiguous()) for t in (qs, k, v))
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    err = _flash_manual_f32_fn()(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_index.data_ptr(),
+        kv_count.data_ptr(), _build.ptr(bias), b, h, sq, skv, d, kv_index.shape[0],
+        kv_count.shape[0], kv_index.shape[1], kv_index.shape[2], block_q, block_kv,
+        kv_valid_len, int(stable), float(scale * LOG2E), _build.stream_ptr(dev))
+    _build.check(err, "flash_manual (f32)")
+    _build.launches["flash_manual"] += 1
+    _build.launches["flash_manual_f32"] += 1
     if stable:
         _build.launches["flash_manual_stable"] += 1
     return out

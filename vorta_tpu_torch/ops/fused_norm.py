@@ -4,8 +4,9 @@ fused with the LayerNorm after it, counterpart of vorta_tpu/ops/fused_norm.py.
 f32 statistics regardless of the activation dtype (diffusers FP32LayerNorm
 semantics), optional affine gamma/beta, optional AdaLN
 ``norm(x) * (1 + scale) + shift``, output in x's dtype or f32.  On CUDA
-tensors ``fused_norm`` launches ``csrc/fused_norm.cu`` (bf16 x, as the
-model runs on the card; other dtypes raise): the warp-per-row kernel where
+tensors ``fused_norm`` launches ``csrc/fused_norm.cu`` (bf16 x, or f32 x
+on the f32 serving path, counted as ``fused_norm_f32`` too and written in
+f32; other dtypes raise): the warp-per-row kernel where
 ``norm_layout`` gives dim a layout (every served width), else the
 block-per-row kernel; both read AdaLN's scale / shift in place (strided
 column slices of the modulation, f32 or bf16).  Both take x and an
@@ -25,7 +26,8 @@ rounded to x's dtype, and ``y`` the LayerNorm of that rounded ``x_new``
 (the statistics on the rounded values, as the unfused code computes them)
 with the same optional affine and AdaLN terms, in x's dtype.  On CUDA it
 launches the second entry of ``csrc/fused_norm.cu`` under ``fused_norm``'s
-rule (bf16, dim up to 12,288; the rest raises), on the CPU it runs
+rule (bf16, dim up to 12,288; the rest raises, f32 naming ROADMAP section 2
+A6), on the CPU it runs
 ``_res_norm_ref``; its backward, ``_res_norm_bwd``, is plain PyTorch, as the
 JAX package's ``_frn_bwd`` is plain XLA.  No model calls it, as in the JAX
 package (its blocks keep the residual adds apart).
@@ -63,7 +65,7 @@ def _norm_fn():
     fn = _build.load("fused_norm").vorta_fused_norm
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, ll, i, i, ll, ll, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, ll, i, i, ll, ll, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -113,12 +115,13 @@ def _f32_vec(t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
     return t
 
 
-def _check_kernel_rule(what: str, x: torch.Tensor) -> None:
-    """The shapes the norm kernels take: bf16, a row of f32 in 48 KiB of
-    shared memory."""
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{what} kernel: dtype {x.dtype} (bf16 only; f32 is ROADMAP "
-                                  "section 1 item 12)")
+def _check_kernel_rule(what: str, x: torch.Tensor, dtypes=(torch.bfloat16,),
+                       refusal: str = "") -> None:
+    """The shapes the norm kernels take: ``dtypes``, a row of f32 in 48 KiB
+    of shared memory."""
+    if x.dtype not in dtypes:
+        raise NotImplementedError(f"{what} kernel: dtype {x.dtype} (takes "
+                                  f"{', '.join(map(str, dtypes))}){refusal}")
     if x.shape[-1] * 4 > 48 * 1024:
         raise NotImplementedError(f"{what} kernel: dim {x.shape[-1]} > 12288")
 
@@ -143,7 +146,8 @@ def _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32, out=None):
 
     b, s, dim = x.shape
     dev = _build.require_cuda(x, scale, shift, gamma, beta, out)
-    _check_kernel_rule("fused_norm", x)
+    _check_kernel_rule("fused_norm", x, (torch.bfloat16, torch.float32))
+    x_f32 = x.dtype == torch.float32
     scale, shift, mod_stride, mod_bf16 = _modulation(scale, shift, b, dim)
     gamma, beta = (_build.aligned16(_f32_vec(t, (dim,))) for t in (gamma, beta))
     ranged = out is not None
@@ -162,9 +166,11 @@ def _norm_fwd(x, scale, shift, gamma, beta, rms, eps, out_f32, out=None):
         x.data_ptr(), out.data_ptr(), _build.ptr(scale), _build.ptr(shift),
         _build.ptr(gamma), _build.ptr(beta), b, s, dim,
         int(out_f32), int(rms), float(eps), mod_stride, mod_bf16,
-        0 if layout is None else layout[0], x.stride(0), out.stride(0), _build.stream_ptr(dev))
+        0 if layout is None else layout[0], x.stride(0), out.stride(0), int(x_f32),
+        _build.stream_ptr(dev))
     _build.check(err, "fused_norm")
     _build.launches["fused_norm"] += 1
+    _build.launches["fused_norm_f32"] += x_f32
     _build.launches["fused_norm_range"] += ranged
     return out
 
@@ -281,7 +287,8 @@ def _res_norm_fwd(x, delta, gate, scale, shift, gamma, beta, eps):
 
     b, s, dim = x.shape
     dev = _build.require_cuda(x, delta, gate, scale, shift, gamma, beta)
-    _check_kernel_rule("fused_residual_norm", x)
+    _check_kernel_rule("fused_residual_norm", x,
+                       refusal="; f32 is ROADMAP section 2 A6 (fused_residual_norm in f32)")
     if delta.dtype != x.dtype:
         raise NotImplementedError(f"fused_residual_norm kernel: delta {delta.dtype}, x {x.dtype}")
     gate, scale, shift = (_f32_vec(t, (b, dim)) for t in (gate, scale, shift))

@@ -6,9 +6,11 @@ RMS over the row (``norm_scope="row"``, Wan) or per head (``"head"``), in
 f32, times the gain, rounded through the input dtype (so the result equals
 the unfused RMSNorm -> split -> ``apply_rope_half`` path), then the rotation
 of contiguous halves.  On CUDA tensors ``fused_qk_prologue`` launches
-``csrc/prologue.cu`` (bf16, any S, any even d; other dtypes raise): the
-warp-per-row kernel where ``prologue_layout`` gives (dim, heads) a layout
-(d = 128 and every served width; counted as ``prologue_rows`` too), else
+``csrc/prologue.cu`` (bf16, or f32 on the f32 serving path, counted as
+``prologue_f32`` too; any S, any even d; other dtypes raise): the
+warp-per-row kernel where ``prologue_layout`` gives (dim, heads, itemsize)
+a layout (d = 128 and every served width; counted as ``prologue_rows``
+too), else
 the block-per-row kernel, which ``fused_qk_prologue_block`` runs at any
 shape (the card's yardstick beside the new kernel).  On CPU tensors it runs
 the plain version ``_prologue_ref``.  Inference only, as in the JAX
@@ -48,17 +50,20 @@ def supports_prologue(s: int, dim: int, num_heads: int) -> bool:
 ROW_CHUNKS = 6  # 16-byte chunks of q, k and v a lane holds at most (csrc/prologue.cu)
 
 
-def prologue_layout(dim: int, num_heads: int) -> Optional[Tuple[int, int]]:
-    """(warps a row, chunks of 8 columns a lane) of the warp-per-row kernel:
-    head dim 128 and dim = 256 * warps * chunks, with the fewest warps (1, 2
-    or 4) that keep the chunks at most ``ROW_CHUNKS``; None (the
-    block-per-row kernel) for any other shape.  Wan-1.3B's 1,536 gives (1,
-    6), HunyuanVideo's 3,072 (2, 6), Wan-14B's 5,120 (4, 5).  The same rule
-    on both sides: the C entry refuses a layout that differs from its own."""
-    if num_heads < 1 or dim != num_heads * 128 or dim % 256:
+def prologue_layout(dim: int, num_heads: int, itemsize: int = 2) -> Optional[Tuple[int, int]]:
+    """(warps a row, 16-byte chunks a lane) of the warp-per-row kernel:
+    head dim 128 and dim = 32 * (16 / itemsize) * warps * chunks, with the
+    fewest warps (1, 2 or 4; in f32 also 8) that keep the chunks at most
+    ``ROW_CHUNKS``; None (the block-per-row kernel) for any other shape.  In
+    bf16 Wan-1.3B's 1,536 gives (1, 6), HunyuanVideo's 3,072 (2, 6),
+    Wan-14B's 5,120 (4, 5); in f32 (chunks of 4 columns, a lane holding as
+    many bytes) (2, 6), (4, 6) and (8, 5).  The same rule on both sides: the
+    C entry refuses a layout that differs from its own."""
+    lane_cols = 32 * 16 // itemsize
+    if num_heads < 1 or dim != num_heads * 128 or dim % lane_cols:
         return None
-    chunks = dim // 256
-    for wpr in (1, 2, 4):
+    chunks = dim // lane_cols
+    for wpr in ((1, 2, 4, 8) if itemsize == 4 else (1, 2, 4)):
         if chunks % wpr == 0 and chunks // wpr <= ROW_CHUNKS:
             return wpr, chunks // wpr
     return None
@@ -105,7 +110,7 @@ def _prologue_fn():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, ll, ll, ll, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, ctypes.c_float, i, p]
+                       i, i, i, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -117,7 +122,7 @@ def _rows(x: torch.Tensor, aligned: bool):
     rows); anything else is copied first."""
     b, s, _ = x.shape
     if (x.stride(2) != 1 or (b > 1 and x.stride(0) != s * x.stride(1))
-            or (aligned and x.stride(1) % 8)):
+            or (aligned and (x.stride(1) * x.element_size()) % 16)):
         x = x.contiguous()
     if aligned:
         x = _build.aligned16(x)
@@ -170,11 +175,13 @@ def _prologue(q, k, v, gain_q, gain_k, cos, sin, *, num_heads: int, eps: float =
 
     _build.forward_only("fused_qk_prologue", q, k, v, gain_q, gain_k)
     dev = _build.require_cuda(q, k, v, cos, sin)
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(f"prologue kernel: dtype {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"prologue kernel: bf16 or f32 q / k / v of one dtype, got "
+                                  f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not supports_prologue(s, dim, num_heads):
         raise NotImplementedError(f"prologue kernel: {num_heads} heads, dim {dim}")
-    layout = prologue_layout(dim, num_heads) if rows_ok else None
+    x_f32 = q.dtype == torch.float32
+    layout = prologue_layout(dim, num_heads, q.element_size()) if rows_ok else None
     (q, q_row), (k, k_row), (v, v_row) = (_rows(x, layout is not None) for x in (q, k, v))
     # f32 and contiguous already at every call site (no copy), aligned by
     # their allocations
@@ -188,9 +195,10 @@ def _prologue(q, k, v, gain_q, gain_k, cos, sin, *, num_heads: int, eps: float =
         _build.ptr(gq), _build.ptr(gk), cos.data_ptr(), sin.data_ptr(),
         qo.data_ptr(), ko.data_ptr(), vo.data_ptr(), b, s, num_heads, d,
         int(qk_norm), int(norm_scope == "head"), float(eps),
-        0 if layout is None else layout[0], _build.stream_ptr(dev))
+        0 if layout is None else layout[0], int(x_f32), _build.stream_ptr(dev))
     _build.check(err, "prologue")
     _build.launches["prologue"] += 1
+    _build.launches["prologue_f32"] += x_f32
     if layout is not None:
         _build.launches["prologue_rows"] += 1
     return qo, ko, vo

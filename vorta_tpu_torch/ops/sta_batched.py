@@ -33,8 +33,12 @@ On CUDA tensors ``sta_flash_headbatched`` launches ``csrc/sta_batched.cu``
 slot over the pair-bit tables: wgmma, TMA; counted as ``sta_batched_wgmma``
 too) where ``batched_wgmma_path`` says so (the fast softmax, D = 128, tiles
 of at least 128 tokens: every served geometry), else its mma.sync kernel
-(the stable softmax, D = 64, smaller tiles such as hunyuan-tiny's).  On
-CPU tensors it runs the plain version ``sta_flash_headbatched_ref``.
+(the stable softmax, D = 64, smaller tiles such as hunyuan-tiny's).  f32
+q / k / v take the f32 mode, its own branch: ``csrc/attn_f32.cuh``'s FFMA
+core over the same tables with the pair bits, either softmax, kv_bias and
+blocks down to 8 rows, P kept in f32 (counted as ``sta_batched_f32``
+too).  On CPU tensors it runs the plain version
+``sta_flash_headbatched_ref``.
 """
 
 from __future__ import annotations
@@ -287,6 +291,15 @@ def _sta_batched_fn():
     return fn
 
 
+def _sta_batched_f32_fn():
+    fn = _build.load("sta_batched").vorta_sta_batched_fwd_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i] * 12 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def sta_flash_headbatched(
     q: torch.Tensor,  # (B, H, Sq, D) tile-major
     k: torch.Tensor,
@@ -305,7 +318,7 @@ def sta_flash_headbatched(
     softmax: str = "stable",
 ) -> torch.Tensor:
     """Block-sparse STA over head-shared tables with sub-tile pair bits; on
-    CUDA bf16 q/k/v, D 64 or 128, blocks multiples of 8."""
+    CUDA bf16 or f32 q/k/v (one dtype), D 64 or 128, blocks multiples of 8."""
     return _sta_batched(q, k, v, kv_index, kv_count, active, pair_bits=pair_bits,
                         tokens_per_tile=tokens_per_tile, kv_bias=kv_bias, scale=scale,
                         block_q=block_q, block_kv=block_kv,
@@ -341,9 +354,9 @@ def _sta_batched(q, k, v, kv_index, kv_count, active, *, pair_bits=None,
     b, h, sq, d = q.shape
     skv = k.shape[2]
     sub = _subtile(pair_bits, tokens_per_tile, block_q, block_kv)
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise NotImplementedError(f"the CUDA sta_batched kernel takes bf16 (f32: ROADMAP "
-                                  f"section 1 item 12), got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise NotImplementedError(f"the CUDA sta_batched kernel takes bf16 or f32 q / k / v of "
+                                  f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
         raise NotImplementedError(f"the CUDA sta_batched kernel takes D 64/128 and blocks that "
                                   f"are multiples of 8, got D={d}, blocks {block_q}/{block_kv}")
@@ -353,6 +366,21 @@ def _sta_batched(q, k, v, kv_index, kv_count, active, *, pair_bits=None,
     stable = softmax == "stable"
     tpt, _, k_sub = sub if sub is not None else (0, 0, 0)
     width = kv_index.shape[2]
+    if q.dtype == torch.float32:  # the f32 mode: its own kernel, no Hopper rule
+        qs = q if stable else _prescale(q, scale)
+        qs, k, v = (_build.aligned16(x.contiguous()) for x in (qs, k, v))
+        out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+        err = _sta_batched_f32_fn()(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_index.data_ptr(),
+            kv_count.data_ptr(), _build.ptr(pair_bits), _build.ptr(bias), active.data_ptr(),
+            b, h, sq, skv, d, sq // block_q, width, block_q, block_kv, tpt, k_sub,
+            int(stable), float(scale * LOG2E), _build.stream_ptr(dev))
+        _build.check(err, "sta_batched (f32)")
+        _build.launches["sta_batched"] += 1
+        _build.launches["sta_batched_f32"] += 1
+        if stable:
+            _build.launches["sta_batched_stable"] += 1
+        return out
     hopper = hopper_ok and batched_wgmma_path(d, block_q, block_kv, tpt, width,
                                               pair_bits=sub is not None, dtype=q.dtype,
                                               softmax=softmax)

@@ -173,8 +173,9 @@ def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, t
     _build.forward_only(f"{kernel}_attention", q, k, v, text_k, text_v)
     dev = _build.require_cuda(q, k, v, text_k, text_v, text_bias)
     if any(x is not None and x.dtype != torch.bfloat16 for x in (q, k, v, text_k, text_v)):
-        raise NotImplementedError(f"the CUDA {kernel} kernel takes bf16 (f32: ROADMAP section 1 "
-                                  f"item 12), got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise NotImplementedError(f"the CUDA {kernel} kernel takes bf16 (f32: ROADMAP section 2 "
+                                  f"A5, sta_window / sta_row in f32), got {q.dtype}, {k.dtype}, "
+                                  f"{v.dtype}")
     b, h, _, d = q.shape
     if d not in (64, 128):
         raise NotImplementedError(f"the CUDA {kernel} kernel takes D 64/128, got {d}")

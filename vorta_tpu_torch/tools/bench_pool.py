@@ -74,8 +74,9 @@ def copy_probe(q, k, v, groups: LowresGroups):
     b, h, _, d = q.shape
     if any(x.dtype != torch.bfloat16 for x in (q, k, v)) or d not in (64, 128) \
             or groups.group_size > 32:
-        raise NotImplementedError(f"the CUDA copy probe takes bf16, D 64/128 and at most 32 "
-                                  f"slots per group, got {q.dtype}, D={d}, {groups.group_size}")
+        raise NotImplementedError(f"the CUDA copy probe takes bf16 (f32: ROADMAP section 2 A7, "
+                                  f"the tools' kernels in f32), D 64/128 and at most 32 slots "
+                                  f"per group, got {q.dtype}, D={d}, {groups.group_size}")
     geom = geometry_of(groups)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = [torch.empty((b, h, groups.pooled_length, d), dtype=q.dtype, device=dev)

@@ -21,8 +21,7 @@ Weights are random from ``--seed`` unless ``--torch_checkpoint`` names a
 diffusers checkpoint; ``--router`` loads the JAX package's trained routers
 (with the time embedder they were trained against, at Wan-1.3B's width and
 without a checkpoint).  ``wan-tiny`` runs in f32, as the JAX tool builds
-it, so only with ``--device cpu`` (the CUDA kernels take bf16, ROADMAP
-section 2 A3).
+it (on the card through the kernels' f32 modes, TF32 off).
 
   python -m vorta_tpu_torch.tools.fit_cache_poly --model wan-1_3B --num_frames 77 \\
       --height 480 --width 832 --steps 8 --guidance_scale 5 \\
@@ -39,10 +38,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..cli.bench_compare import TINY_ON_CUDA
 from ..cli.sample import random_embeds
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..geometry import WAN_GEOMETRY
 from ..io.from_jax import load_trained_router
 from ..io.torch_import import load_wan_torch_weights
@@ -86,10 +84,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="results/cache_poly.npz")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
-    if args.model == "wan-tiny" and args.device != "cpu":
-        p.error(TINY_ON_CUDA.format(model=args.model, big="wan-1_3B"))
-    return args
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
@@ -100,6 +95,8 @@ def main(argv=None) -> dict:
     grid = WAN_GEOMETRY.tokens((args.num_frames, args.height, args.width))
     attn = probe_attention_config(args.model, grid)
     dtype = torch.float32 if args.model == "wan-tiny" else torch.bfloat16
+    if dtype == torch.float32:
+        full_f32(device)
     model = WanModel(cfg, dtype=dtype, device=device, seed=args.seed)
     if args.torch_checkpoint:
         load_wan_torch_weights(model, args.torch_checkpoint)

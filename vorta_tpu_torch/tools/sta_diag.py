@@ -249,7 +249,8 @@ def _sta_diag(q, k, v, *, latent_shape: Shape3, tile: Shape3, window: Shape3 = (
     _build.forward_only("sta_diag_attention", q, k, v)
     dev = _build.require_cuda(q, k, v)
     if any(x.dtype != torch.bfloat16 for x in (q, k, v)) or d not in (64, 128):
-        raise NotImplementedError(f"the CUDA sta_diag kernel takes bf16 and D 64/128, got "
+        raise NotImplementedError(f"the CUDA sta_diag kernel takes bf16 (f32: ROADMAP section 2 "
+                                  f"A7, the tools' kernels in f32) and D 64/128, got "
                                   f"{q.dtype}, D={d}")
     if variant == "full_unroll" and n_chunks > MAX_UNROLLED_CHUNKS:
         raise NotImplementedError(f"full_unroll unrolls at most {MAX_UNROLLED_CHUNKS} chunks, "
