@@ -478,7 +478,7 @@ def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and report
     ptxas's registers and spills; the Hopper path's fifteen instantiations,
     the norm's and the prologue's warp-per-row kernels and unpool's batched
-    copy must not spill (the f32 attention core's spills are reported)."""
+    copy must not spill (the f32 attention kernels' spills are reported)."""
     from vorta_tpu_torch.ops import _build
 
     t0 = time.time()
@@ -538,11 +538,12 @@ def build_kernels() -> None:
     # each with half as many kept-row loads or as many, in bf16 and f32): no
     # spills.  The f32 attention core's 10 (flash, flash_manual, sta_pipe at
     # D 64 / 128; sta_batched with and without pair bits), held to 128
-    # registers so that two 101 KB CTAs share an SM: their spills reported
+    # registers so that two 101 KB CTAs share an SM, and the f32 backward's
+    # 4 (dq, dk/dv at D 64 / 128; one CTA an SM at D 128): spills reported
     for entry, count, spill_free in (("fused_norm_rows_kernel", 72, True),
                                      ("prologue_rows_kernel", 27, True),
                                      ("unpool_rows_kernel", 24, True),
-                                     ("_f32_kernel", 10, False)):
+                                     ("_f32_kernel", 14, False)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
             f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
@@ -675,6 +676,9 @@ def main() -> int:
     launches_hy_train, hy_train = phase("hunyuan_train_main", run_hunyuan_train_main_path, torch,
                                         card)
     launches_sp, sp1 = phase("sp_world_1", run_sp_world_one, torch, card)
+    f32_train_k = phase("f32_training_kernels", check_f32_training_kernels, torch, card)
+    f32_grads = phase("f32_train_grads", check_f32_train_grads, torch)
+    launches_f32_train, f32_train = phase("f32_train_main", run_f32_train_main_path, torch, card)
     kernels.append(headmap["copy_probe"])
 
     def by_path(name):
@@ -699,7 +703,8 @@ def main() -> int:
                 "train_hunyuan_13b_resumed": launches_hy_train["train_resumed"][name],
                 "sample_hunyuan_trained": launches_hy_train["sample"][name],
                 **{p: launches_sp[p][name] for p in launches_sp},
-                **{p: evaluation[p][name] for p in evaluation}}
+                **{p: evaluation[p][name] for p in evaluation},
+                **{p: launches_f32_train[p][name] for p in launches_f32_train}}
 
     for k in kernels:
         name = k.pop("_counter")
@@ -725,6 +730,15 @@ def main() -> int:
             if counter in _build.launches:
                 row["launches_by_path"] = by_path(counter)
                 row["launches"] = sum(row["launches_by_path"].values())
+        if name in F32_TRAIN_REPLACES:  # the f32 training path's modes (phase s)
+            shapes = f32_train_k[name[6:] if name != "flash_lse" else "lse"]
+            f32_paths = {p: launches_f32_train[p][name] for p in launches_f32_train}
+            if not any(f32_paths.values()):
+                raise RuntimeError(f"{name}: its f32 mode was launched on no f32 training path")
+            k.setdefault("modes", {})["f32"] = {
+                "replaces": F32_TRAIN_REPLACES[name], "on_main_path": True,
+                **mode_row(shapes), "worst_ratio": max(x["worst_ratio"] for x in shapes.values()),
+                "launches": f32_paths["train_f32_480p_29f"], "launches_by_path": f32_paths}
         if name in ("pool_qkv", "unpool"):  # the head-map mode: HunyuanVideo's routed path
             hm_paths = by_path(f"{name}_headmap")
             if not hm_paths["hunyuan"]:
@@ -763,7 +777,8 @@ def main() -> int:
                       "sp_world_1": sp1}))
     print(json.dumps({"evaluation": {"bench_compare": compare, "calibrate_int8": calib,
                                      "fit_cache_poly": fit, "profiling": prof}}))
-    print(json.dumps({"f32": {"model_checks_rel_l2": f32_models, "serving": f32_serving}}))
+    print(json.dumps({"f32": {"model_checks_rel_l2": f32_models, "serving": f32_serving,
+                              "training": {"gradient_checks": f32_grads, **f32_train}}}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
@@ -815,7 +830,9 @@ def main() -> int:
           f"{compare['hunyuan_45f']['speedup']}; profiled routed 480p x 77f forward "
           f"{prof['device_ms']:.1f} device ms; f32 (--dtype fp32) Wan-1.3B off 480p x 21f "
           f"{f32_serving['f32_off_480p_21f']['s_per_step']:.3f}, routed 480p x 77f "
-          f"{f32_serving['f32_hard_480p_77f']['s_per_step']:.3f} s per UniPC step x CFG; "
+          f"{f32_serving['f32_hard_480p_77f']['s_per_step']:.3f} s per UniPC step x CFG; f32 "
+          f"training (480p x 29f) {f32_train['micro_s']:.3f} s per micro-step, peak "
+          f"{f32_train['max_memory_gib']:.2f} GiB; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
           f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
@@ -6154,14 +6171,15 @@ F32_KERNELS = ("flash", "flash_manual", "sta_pipe", "sta_batched", "fused_norm",
 def f32_launches(want: dict, prologue_rows: bool) -> dict:
     """A path's launches in f32 from its bf16 count ``want``: no Hopper
     path (the f32 modes are their own kernels), the prologue's
-    warp-per-row kernel only where its f32 layout holds (Wan-1.3B's widths;
-    the tiny models' head dim 64 takes the block kernel), and every launch
-    of the eight kernels on its f32 mode."""
+    warp-per-row kernel only where its f32 layout holds (the 1.3B / 13B
+    widths; the tiny models' head dim 64 takes the block kernel), and every
+    launch of the eight serving kernels and of the backward's dq and dk/dv
+    on its f32 mode."""
     out = dict(want)
-    for k in HOPPER_KERNELS:
+    for k in HOPPER_KERNELS + ("flash_dq", "flash_dkv"):
         out[f"{k}_wgmma"] = 0
     out["prologue_rows"] = out["prologue"] if prologue_rows else 0
-    for k in F32_KERNELS[:6]:
+    for k in F32_KERNELS[:6] + ("flash_dq", "flash_dkv"):
         out[f"{k}_f32"] = out[k]
     out["pool_qkv_f32"] = out["pool_qkv"] + out["pool_qkv_headmap"]
     out["unpool_f32"] = out["unpool"] + out["unpool_headmap"]
@@ -6451,6 +6469,419 @@ def run_f32_serving_path(torch, card: str):
     if not all(lit.values()):
         raise RuntimeError(f"f32 serving: a kernel's f32 mode never launched: {lit}")
     log(f"f32 serving: *_f32 launches over the paths {lit}")
+    return launches, stats
+
+
+
+# ---- training in f32: the f32 lse, the f32 dq and dk/dv kernels, cli.train --dtype fp32 ------
+
+# f32 training gates (set before the first run): the kernels against their
+# plain versions on the same f32 inputs, TF32 off on both sides, worst |err| /
+# max(|plain|, RMS(plain)) <= TOL_F32_ATTN for out, dq, dk, dv (FFMA sums
+# against cuBLAS's in another order), the lse within LSE_ATOL + LSE_RTOL x
+# |plain|; each bracket (the plain version without the tail mask, with p and
+# ds rounded to bf16) at least F32_BRACKET times that tolerance on that
+# scale: rejected with a margin.  (A rounding bracket cannot reach a worst
+# ratio of 2 itself: bf16 keeps 2^-8 of a value.)  Reduced-depth train
+# steps card f32 vs CPU f32: loss rel <= 1e-4, router gradients rel L2 <=
+# 1e-3; the tiny trainers' routers after 2 steps rel L2 <= 1e-3.
+F32_BRACKET = 2.0
+F32_TRAIN_REPLACES = {"flash_lse": "vorta_tpu/ops/flash.py:237",
+                      "flash_dq": "vorta_tpu/ops/flash_bwd.py:75",
+                      "flash_dkv": "vorta_tpu/ops/flash_bwd.py:116"}
+# the smoke's f32 training grid: 480 x 832 x 29 frames (--num_latent_t 8)
+GRID_F32_TRAIN = (8, 30, 52)
+
+
+def f32_training_calls(torch) -> dict:
+    """training_calls()'s six shapes (12 x 128 heads) and the tiny models'
+    (2 x 64 heads): blocks of 16 and 8 rows over dense tables with q block
+    0 visiting nothing (count 0: the lse sentinel, zero dq) and a kv tail."""
+    import numpy as np
+
+    from vorta_tpu_torch.ops.flash import tables_from_block_mask
+
+    calls = {name: dict(c, h=12, d=128) for name, c in training_calls(torch).items()}
+    for name, block, n, valid in (("tiny_blocks16_d64", 16, 6, 90), ("tiny_blocks8_d64", 8, 8, 61)):
+        mask = np.ones((1, n, n), bool)
+        mask[:, 0] = False
+        calls[name] = dict(tables=tables_from_block_mask(mask), sq=n * block, skv=n * block,
+                           q_valid=n * block, kv_valid=valid, bq=block, bkv=block, h=2, d=64)
+    return calls
+
+
+def bwd_rounded_p(torch, q, k, v, out, lse2, dout, kv_index, kv_count, *, scale, block_q,
+                  block_kv, kv_valid_len):
+    """The bracket of the f32 backward: flash_backward_ref's arithmetic with
+    p and ds rounded to bf16, as the bf16 kernels round them."""
+    from vorta_tpu_torch.ops.flash import _kv_column_limit
+    from vorta_tpu_torch.ops.flash_bwd import LOG2E, NEG_INF, visible_blocks
+
+    skv = k.shape[2]
+    delta = (dout * out).sum(dim=-1, keepdim=True)
+    blocks = visible_blocks(kv_index, kv_count, skv // block_kv).to(q.device)
+    col_ok = _kv_column_limit(skv, block_kv, kv_valid_len, q.device)
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    for i in range(q.shape[2] // block_q):
+        rows = slice(i * block_q, (i + 1) * block_q)
+        vis = blocks[i].repeat_interleave(block_kv) & col_ok
+        s2 = torch.where(vis, torch.einsum("bhqd,bhkd->bhqk", q[:, :, rows], k) * (scale * LOG2E),
+                         NEG_INF)
+        p = torch.exp2(s2 - lse2[:, :, rows])
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", dout[:, :, rows], v) - delta[:, :, rows])
+        p, ds = (x.bfloat16().float() for x in (p, ds))
+        dq[:, :, rows] = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, dout[:, :, rows])
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, q[:, :, rows]) * scale
+    return dq, dk, dv
+
+
+def check_f32_training_kernels(torch, card: str) -> dict:
+    """Phase s: the f32 forward with its lse and the f32 dq and dk/dv
+    kernels (csrc/attn_f32_bwd.cuh) at the trainer's six shapes and the tiny
+    models' D = 64 shapes, each against its f32 plain version (gates above),
+    launched once on its f32 mode and timed beside its bound (67 TFLOP/s
+    f32) and f32 SDPA forward / backward with TF32 off; brackets at LOWRES
+    (a kv tail): {"lse" | "dq" | "dkv": {shape: numbers}}."""
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, sparse_flash_attention_ref
+    from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
+
+    check_full_f32(torch)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    res = {"lse": {}, "dq": {}, "dkv": {}}
+    for name, c in f32_training_calls(torch).items():
+        h, d, sq, skv, qv, kvv = c["h"], c["d"], c["sq"], c["skv"], c["q_valid"], c["kv_valid"]
+        big = sq * skv * h > 1e9
+        q = torch.randn((1, h, sq, d), generator=g, device=dev)
+        k, v = (torch.randn((1, h, skv, d), generator=g, device=dev) for _ in range(2))
+        dout = torch.randn((1, h, sq, d), generator=g, device=dev)
+        dout[:, :, qv:] = 0  # the trainer slices the padded rows off the output
+        ki, kc = c["tables"].on(dev)
+        qi, qc = (torch.from_numpy(a).to(dev) for a in transpose_tables(
+            c["tables"].kv_index, c["tables"].kv_count, skv // c["bkv"]))
+        kw = dict(scale=d**-0.5, block_q=c["bq"], block_kv=c["bkv"])
+        valid = kvv if kvv != skv else None
+        fwd = lambda: sparse_flash_attention_raw(q, k, v, ki, kc, kv_valid_len=valid,  # noqa: E731
+                                                 return_lse=True, **kw)
+        _build.reset_launches()
+        out, lse = fwd()
+        torch.cuda.synchronize()
+        got_n = tuple(_build.launches[x] for x in ("flash", "flash_f32", "flash_lse", "flash_wgmma"))
+        if got_n != (1, 1, 1, 0):
+            raise RuntimeError(f"f32 lse {name}: launches (flash, _f32, _lse, _wgmma) {got_n}")
+        (want_out, want_lse), fwd_plain_ms = timed_once(torch, lambda: sparse_flash_attention_ref(
+            q, k, v, ki, kc, kv_valid_len=valid, return_lse=True, **kw))
+        out_ratio = worst_ratio(torch, out[:, :, :qv], want_out[:, :, :qv])
+        out_err = (out[:, :, :qv] - want_out[:, :, :qv]).abs().max().item()
+        lse_err = (lse - want_lse).abs()
+        lse_bad = int((lse_err > LSE_ATOL + LSE_RTOL * want_lse.abs()).sum())
+        sentinel = int((want_lse == 1e30).sum())
+        log(f"f32 flash + lse {name} (1,{h},{sq},{d}) x {skv}: out worst ratio {out_ratio:.3e} "
+            f"(tolerance {TOL_F32_ATTN:g}); lse max |err| {lse_err.max().item():.3e} (tolerance "
+            f"{LSE_ATOL:g} + {LSE_RTOL:g} x |plain|, {lse_bad} outside), sentinel rows {sentinel}")
+        if not (out_ratio <= TOL_F32_ATTN and lse_bad == 0 and torch.isfinite(out).all()):
+            raise RuntimeError(f"f32 flash + lse {name}: the kernel disagrees with its plain version")
+        if sentinel and not (lse[want_lse == 1e30] == 1e30).all():
+            raise RuntimeError(f"f32 flash lse {name}: the sentinel rows differ")
+        del want_out, want_lse
+        bkw = dict(kv_valid_len=kvv, **kw)
+        args = (q, k, v, out, lse, dout, ki, kc, qi, qc)
+        bwd = lambda **o: flash_backward(*args, **bkw, **o)  # noqa: E731
+        plain = lambda: flash_backward_ref(q, k, v, out, lse, dout, ki, kc, **bkw)  # noqa: E731
+        _build.reset_launches()
+        got = bwd()
+        torch.cuda.synchronize()
+        got_n = tuple(_build.launches[x] for x in ("flash_dq", "flash_dq_f32", "flash_dkv",
+                                                   "flash_dkv_f32", "flash_dq_wgmma",
+                                                   "flash_dkv_wgmma"))
+        if got_n != (1, 1, 1, 1, 0, 0):
+            raise RuntimeError(f"f32 backward {name}: launches {got_n}")
+        want, bwd_plain_ms = timed_once(torch, plain)
+        ratios = [worst_ratio(torch, a, w) for a, w in zip(got, want)]
+        errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+        log(f"f32 backward {name}: dq / dk / dv worst ratio {ratios[0]:.3e} / {ratios[1]:.3e} / "
+            f"{ratios[2]:.3e} (tolerance {TOL_F32_ATTN:g}); max |err| {max(errs):.3e}")
+        if not (max(ratios) <= TOL_F32_ATTN and all(torch.isfinite(a).all() for a in got)):
+            raise RuntimeError(f"f32 backward {name}: the kernels disagree with their plain version")
+        if got[1][:, :, kvv:].any() or got[2][:, :, kvv:].any():
+            raise RuntimeError(f"f32 backward {name}: kv rows past the tail got non-zero dk / dv")
+        if not c["tables"].kv_count[0, 0] and got[0][:, :, :c["bq"]].any():
+            raise RuntimeError(f"f32 backward {name}: the count-0 q block got non-zero dq")
+        brackets = {}
+        if name == "lowres_15600":  # a kv tail at training's size: the gate must see both
+            for what, miss in (
+                    ("no_tail_mask", lambda: flash_backward_ref(
+                        q, k, v, out, lse, dout, ki, kc, **{**bkw, "kv_valid_len": skv})),
+                    ("p_ds_bf16", lambda: bwd_rounded_p(torch, q, k, v, out, lse, dout, ki, kc,
+                                                        **bkw))):
+                brackets[what] = max(worst_ratio(torch, a, w) for a, w in zip(miss(), want))
+            log(f"f32 backward {name}: brackets (worst ratio of the plain version without the "
+                f"tail mask / with p and ds in bf16) {brackets}")
+            if not min(brackets.values()) >= F32_BRACKET * TOL_F32_ATTN:
+                raise RuntimeError(f"f32 backward {name}: the gate cannot tell a bracket {brackets}")
+        del got, want
+        torch.cuda.empty_cache()
+
+        pairs = visible_pairs(c) * h
+        rows_q, rows_kv = qv * h * d * 4, kvv * h * d * 4
+        fl = bound_ms(4.0 * pairs * d, 2 * rows_q + 2 * rows_kv + qv * h * 4, PEAK_F32)
+        dq_b = bound_ms(6.0 * pairs * d, 3 * rows_q + 2 * rows_kv + 2 * qv * h * 4, PEAK_F32)
+        dkv_b = bound_ms(8.0 * pairs * d, 2 * rows_q + 4 * rows_kv + 2 * qv * h * 4, PEAK_F32)
+        lib_fwd = lib_bwd = None
+        if d == 128:  # f32 SDPA (TF32 off) on the valid rows, STA with the window's mask
+            qs, ks, vs = (x[:, :, :n].detach().requires_grad_() for x, n in
+                          ((q, qv), (k, kvv), (v, kvv)))
+            mask = sta_raster_mask(torch, c["grid"], c["tile"], dev) if "tile" in c else None
+            try:
+                with torch.no_grad():
+                    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=mask), 2 if big else 5, 1)
+                lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), (qs, ks, vs),
+                    dout[:, :, :qv]), 2 if big else 5, 1) - lib_fwd
+            except (torch.OutOfMemoryError, RuntimeError) as e:
+                log(f"f32 {name}: SDPA yardstick failed: {type(e).__name__}: "
+                    f"{str(e).splitlines()[0]}")
+            del qs, ks, vs, mask
+            torch.cuda.empty_cache()
+        iters = 2 if big else 10
+        res["lse"][name] = dict(ms=time_ms(torch, fwd, iters, 1), plain_ms=fwd_plain_ms,
+                                library_ms=lib_fwd, bound_ms=fl[0], bound_by=fl[1],
+                                max_abs_err=max(out_err, lse_err.max().item()),
+                                worst_ratio=out_ratio, shape=[1, h, sq, d], keys=skv)
+        for kind, alone, (b_ms, b_by), i in (("dq", "need_dkv", dq_b, 0), ("dkv", "need_dq", dkv_b, 1)):
+            res[kind][name] = dict(ms=time_ms(torch, lambda: bwd(**{alone: False}), iters, 1),
+                                   plain_ms=bwd_plain_ms, library_ms=lib_bwd, bound_ms=b_ms,
+                                   bound_by=b_by, max_abs_err=errs[0] if i == 0 else max(errs[1:]),
+                                   worst_ratio=ratios[0] if i == 0 else max(ratios[1:]),
+                                   shape=[1, h, sq, d], keys=skv,
+                                   **({"brackets": brackets} if brackets else {}))
+        for kind, per_pair in (("lse", 4.0), ("dq", 6.0), ("dkv", 8.0)):
+            log(f"f32 {kind} {name}: {with_rate(res[kind][name], per_pair * pairs * d)}")
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_f32_train_grads(torch) -> dict:
+    """Phase t: one f32 router train step of a 2-block Wan at 1.3B widths
+    (grid (4, 12, 8), tile (4, 6, 4): every expert and its backward) and of
+    a 1 + 1-block HunyuanVideo at 13B widths ((6, 9, 8) + 256 text tokens,
+    83 valid), the card (f32 kernels) against the CPU (f32 plain versions)
+    from the same weights and draws: loss rel <= 1e-4, router gradients rel
+    L2 <= 1e-3 (set before any run), launches exact."""
+    import dataclasses
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.schedulers.flow_match import train_sigmas
+    from vorta_tpu_torch.training.step import (LossWeights, make_hunyuan_router_train_step,
+                                               make_router_train_step, router_partition)
+
+    check_full_f32(torch)
+    sig = train_sigmas(5.0)
+    t, s = torch.tensor([float(sig[300] * 1000.0)]), torch.tensor([float(sig[300])])
+    out = {}
+
+    def gate(name, step, cpu, gpu, inputs, expected):
+        def run(model, dev):
+            routers = router_partition(model)
+            share, m = step.loss(model, *(x.to(dev) for x in inputs))
+            grads = torch.autograd.grad(share, list(routers.values()))
+            return m["loss"].item(), torch.cat([x.flatten().cpu() for x in grads])
+
+        _build.reset_launches()
+        loss_g, grads_g = run(gpu, "cuda")
+        launches = dict(_build.launches)
+        loss_c, grads_c = run(cpu, "cpu")
+        rel_loss = abs(loss_g - loss_c) / abs(loss_c)
+        rel = ((grads_g - grads_c).norm() / grads_c.norm()).item()
+        log(f"f32 gradient check {name}: loss card {loss_g:.8f} vs CPU {loss_c:.8f} (rel "
+            f"{rel_loss:.2e}, tolerance 1e-4); router gradients rel L2 {rel:.3e} (tolerance 1e-3; "
+            f"|grad| {grads_c.norm().item():.3e}); launches {launches}")
+        if launches != expected:
+            raise RuntimeError(f"f32 gradient check {name}: launches {launches} != {expected}")
+        if not (torch.isfinite(grads_g).all() and rel_loss <= 1e-4 and rel <= 1e-3):
+            raise RuntimeError(f"f32 gradient check {name}: the card's step disagrees with the CPU's")
+        out[name] = dict(rel_loss=rel_loss, grad_rel_l2=rel)
+
+    grid = (4, 12, 8)
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
+    step = make_router_train_step(attention_config("wan-1_3B", grid), LossWeights(),
+                                  timestep_table=sig * 1000.0, sigma_table=sig)
+    gen = torch.Generator().manual_seed(22)
+    lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=gen)
+    ctx = torch.randn((1, TEXT_LEN, cfg.text_dim), generator=gen)
+    eps = torch.randn(lat.shape, generator=gen)
+    cpu = WanModel(cfg, dtype=torch.float32, device="cpu", seed=23)
+    gpu = WanModel(cfg, dtype=torch.float32, device="cuda", seed=23)
+    gpu.load_state_dict(cpu.state_dict())
+    gate("wan_2_blocks_4x12x8", step, cpu, gpu, (lat, ctx, t, s, eps),
+         f32_launches(train_launches(_build.KERNELS, 2), True))
+    del cpu, gpu
+
+    hgrid = (6, 9, 8)
+    hcfg = dataclasses.replace(HUNYUAN_13B, dual_layers=1, single_layers=1)
+    hstep = make_hunyuan_router_train_step(attention_config("hunyuan-13B", hgrid),
+                                           LossWeights(hidden_layer_distill=1.0),
+                                           timestep_table=sig * 1000.0, sigma_table=sig)
+    hlat, text, mask, pooled = (x.cpu() for x in hy_inputs(torch, hgrid, torch.device("cuda"), 24))
+    heps = torch.randn(hlat.shape, generator=torch.Generator().manual_seed(25))
+    gpu = HunyuanModel(hcfg, dtype=torch.float32, device="cuda", seed=26)
+    cpu = HunyuanModel(hcfg, dtype=torch.float32, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    gate("hunyuan_1_1_blocks_6x9x8", hstep, cpu, gpu, (hlat, text, mask, pooled, t, s, heps),
+         f32_launches(hy_train_launches(1, 1), True))
+    del cpu, gpu
+    return out
+
+
+def host_draws(torch):
+    """A with-block in which the train step draws its timesteps and noise
+    from a CPU generator seeded as the trainer's own, so that a run on the
+    card and one with --device cpu draw the same numbers (the two devices'
+    generators differ); with --device cpu the stream is the trainer's own."""
+    from unittest import mock
+
+    from vorta_tpu_torch.training.step import RouterTrainStep
+
+    draw, hosts = RouterTrainStep.draw, {}
+
+    def host_draw(self, generator, latents):
+        gen = hosts.setdefault(id(generator),
+                               torch.Generator().manual_seed(generator.initial_seed()))
+        return draw(self, gen, latents)
+
+    return mock.patch.object(RouterTrainStep, "draw", host_draw)
+
+
+def run_f32_train_main_path(torch, card: str):
+    """Phase u: cli.train --model wan-1_3B --dtype fp32 at its default device
+    on (8, 30, 52) = 12,480 tokens (--num_latent_t 8): 2 optimizer steps of 1
+    micro-step and a checkpoint, resumed to step 3, launches exact (every
+    flash, dq and dk/dv on the f32 mode, no bf16 kernel), metrics finite,
+    the routers moved; cli.sample --dtype fp32 --resume_dir serves that step
+    dir for 1 UniPC step x CFG at the grid it trained (480 x 832 x 29
+    frames); then wan-tiny and hunyuan-tiny through cli.train --dtype fp32
+    on the card against --device cpu from the same host-drawn weights and
+    draws (routers after 2 steps rel L2 <= 1e-3)."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli import sample, train
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.routed_fused import routed_sta_kernel
+
+    check_full_f32(torch)
+    out_dir = HERE / "results" / "port_smoke" / "train_f32"  # listed in .gitignore
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = ["--model", "wan-1_3B", "--dtype", "fp32", "--synthetic_data", "--num_latent_t",
+            str(GRID_F32_TRAIN[0]), "--gradient_accumulation_steps", "1",
+            "--output_dir", str(out_dir)]
+    per_micro = f32_launches(train_launches(_build.KERNELS, 30), True)
+    launches, runs = {}, []
+    for path, extra, micro in (
+            ("train_f32_480p_29f", ["--max_train_steps", "2"], 2),
+            ("train_f32_480p_29f_resumed", ["--max_train_steps", "3", "--resume_from_checkpoint",
+                                            "latest"], 1)):
+        _build.reset_launches()
+        res = train.main(base + extra)
+        launches[path] = dict(_build.launches)
+        expected = {k: v * micro for k, v in per_micro.items()}
+        if launches[path] != expected or len(res.micro_s) != micro:
+            raise RuntimeError(f"f32 training {path}: launches {launches[path]} != {expected}, "
+                               f"or {len(res.micro_s)} micro-steps")
+        runs.append(res)
+        torch.cuda.empty_cache()
+    first, second = runs
+    metrics = first.metrics + second.metrics
+    moved = max((first.router_final[k] - first.router_init[k]).abs().max().item()
+                for k in first.router_init)
+    if not all(math.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")) \
+            or not moved > 0 or (first.final_step, second.init_step, second.final_step) != (2, 2, 3):
+        raise RuntimeError(f"f32 training: metrics {metrics}, routers moved {moved}, steps "
+                           f"{first.final_step} / {second.init_step} / {second.final_step}")
+    if any(not torch.equal(second.router_init[k], first.router_final[k]) for k in first.router_final):
+        raise RuntimeError("f32 training: the resumed run did not start from the checkpoint")
+    stats = dict(micro_s=first.micro_s[1], first_micro_s=first.micro_s[0],
+                 resumed_micro_s=second.micro_s[0],
+                 max_memory_gib=max(first.max_memory_bytes, second.max_memory_bytes) / 2**30)
+    log(f"f32 training main path: cli.train --dtype fp32 Wan-1.3B 30 blocks, {GRID_F32_TRAIN} = "
+        f"12,480 tokens, soft routing + teacher, remat: micro-steps "
+        f"{[round(x, 3) for x in first.micro_s + second.micro_s]} s (steady {stats['micro_s']:.3f} "
+        f"s, the first warms up); peak {stats['max_memory_gib']:.2f} GiB; routers moved by up to "
+        f"{moved:.3e}; resumed at step {second.init_step} on {card}; launches per micro-step "
+        f"{per_micro} (exact)")
+    for m in metrics:
+        log(f"f32 training step {m['step']}: " + ", ".join(
+            f"{k} {m[k]:.6g}" for k in ("loss", "l_fm", "l_reg", "l_last", "grad_norm",
+                                         "timestep")))
+    del first, second, runs
+
+    # serve the trained step dir in f32 at its grid
+    ckpt = out_dir / "ckpt" / "step-000003"
+    _build.reset_launches()
+    with torch.inference_mode():
+        res = sample.main(["--model", "wan-1_3B", "--dtype", "fp32", "--random_embeds",
+                           "--num_frames", "29", "--height", "480", "--width", "832",
+                           "--num_inference_steps", "1", "--seed", "0", "--resume_dir",
+                           str(out_dir), "--router_checkpoint", str(ckpt),
+                           "--output", str(out_dir / "sample.npy")])
+    launches["sample_f32_trained"] = got = dict(_build.launches)
+    attn = sample.resolve_attention_config(sample.parse_args(
+        ["--model", "wan-1_3B", "--resume_dir", str(out_dir)]), GRID_F32_TRAIN)
+    want = f32_launches(routed_wan_launches(np.stack(res.routing),
+                                            routed_sta_kernel(attn, 128, 4), 2), True)
+    if got != want or res.latents.dtype != torch.float32 or not torch.isfinite(res.latents).all():
+        raise RuntimeError(f"f32 trained sample: launches {got} != {want}, or output "
+                           f"{res.latents.dtype} non-finite")
+    heads = np.bincount(np.stack(res.routing).reshape(-1), minlength=3)
+    stats["sample_s_per_step"] = res.denoise_s / res.steps
+    log(f"f32 trained sample: cli.sample --dtype fp32 --resume_dir --router_checkpoint "
+        f"{ckpt.name} at {GRID_F32_TRAIN}: {stats['sample_s_per_step']:.3f} s per UniPC step x CFG; "
+        f"heads full {heads[0]}, lowres {heads[1]}, sta {heads[2]}; launches exact")
+    del res
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the tiny trainers on the card against --device cpu, same host draws
+    for model, hunyuan in (("wan-tiny", False), ("hunyuan-tiny", True)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            _build.reset_launches()
+            with host_drawn(torch, train), host_draws(torch):
+                runs[dev] = train.main(["--model", model, "--dtype", "fp32", "--device", dev,
+                                        "--synthetic_data", "--max_train_steps", "2",
+                                        "--gradient_accumulation_steps", "1", "--output_dir",
+                                        str(out_dir / f"{model}_{dev}")])
+            if dev == "cuda":
+                got = dict(_build.launches)
+        cfg = train.MODELS[model]
+        per = (hy_train_launches(cfg.dual_layers, cfg.single_layers) if hunyuan
+               else train_launches(_build.KERNELS, cfg.num_layers))
+        want = {k: 2 * v for k, v in f32_launches(per, False).items()}
+        a, b = (torch.cat([r.router_final[k].flatten() for k in sorted(r.router_final)])
+                for r in (runs["cuda"], runs["cpu"]))
+        rel = ((a - b).norm() / b.norm()).item()
+        log(f"cli.train {model} --dtype fp32, 2 steps: card vs --device cpu routers rel L2 "
+            f"{rel:.3e} (tolerance 1e-3); losses card {[round(m['loss'], 8) for m in runs['cuda'].metrics]} "
+            f"cpu {[round(m['loss'], 8) for m in runs['cpu'].metrics]}; launches {got}")
+        if got != want:
+            raise RuntimeError(f"cli.train {model} fp32: launches {got} != {want}")
+        if not (torch.isfinite(a).all() and rel <= 1e-3):
+            raise RuntimeError(f"cli.train {model} fp32: card and CPU disagree")
+        launches[f"train_f32_{model.replace('-', '_')}"] = got
+        stats[f"train_{model}_rel_l2_vs_cpu"] = rel
+    shutil.rmtree(out_dir, ignore_errors=True)
     return launches, stats
 
 

@@ -188,9 +188,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
     ki, kc = dense_tables(1, 1).on(card)
     with pytest.raises(NotImplementedError, match="bf16 or f32"):
         sparse_flash_attention_raw(q, q, q, ki, kc, block_q=64, block_kv=64)
-    with pytest.raises(NotImplementedError, match="A4"):  # the f32 lse: training in f32
-        sparse_flash_attention_raw(q.float(), q.float(), q.float(), ki, kc, block_q=64,
-                                   block_kv=64, return_lse=True)
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):  # f16 with the lse too
+        sparse_flash_attention_raw(q, q, q, ki, kc, block_q=64, block_kv=64, return_lse=True)
     qb = torch.zeros((1, 1, 64, 96), device=card, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="D 64/128"):
         sparse_flash_attention_raw(qb, qb, qb, ki, kc, block_q=64, block_kv=64)
@@ -3179,9 +3178,9 @@ def test_pool_unpool_f32_match_plain(card, d, latent, window, kv_from_k):
 
 
 def test_f32_c_entries_refuse_what_their_rules_refuse(card):
-    """The f32 C entries mirror the wrappers' rules: the f32 lse (training,
-    ROADMAP section 2 A4), a head dim outside 64 / 128, blocks not multiples
-    of 8 or not dividing the sequence: an error code, never a launch."""
+    """The f32 C entries mirror the wrappers' rules: a head dim outside 64 /
+    128, blocks not multiples of 8 or not dividing the sequence: an error
+    code, never a launch; the f32 lse (the f32 training path) is taken."""
     from vorta_tpu_torch.ops.flash import _flash_f32_fn
     from vorta_tpu_torch.ops.sta_pipe import _sta_f32_fn
 
@@ -3197,7 +3196,7 @@ def test_f32_c_entries_refuse_what_their_rules_refuse(card):
 
     assert flash(None, 128, 64) == 0
     torch.cuda.synchronize()
-    assert flash(lse.data_ptr(), 128, 64) != 0
+    assert flash(lse.data_ptr(), 128, 64) == 0
     assert flash(None, 96, 64) != 0
     assert flash(None, 128, 12) != 0
     act = torch.ones(1, dtype=torch.int32, device=card)
@@ -3252,3 +3251,157 @@ def test_cli_sample_fp32_on_card_matches_cpu(card, tmp_path):
     for kname in ("flash", "flash_manual", "sta_pipe", "fused_norm", "prologue", "pool_qkv",
                   "unpool"):
         assert n[f"{kname}_f32"] == n[kname] > 0, kname
+
+
+# --- the f32 training path: the f32 lse, the f32 dq and dk/dv kernels -------------------
+# Each against its plain version on the same f32 inputs, TF32 off (the card
+# fixture), within _close's f32 rule (1e-5 x max |plain|); the lse within
+# rtol 1e-5 and atol 1e-4, its sentinel exactly.
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [
+    ("dense", 8, 8, 64, 64, 60),              # 8-row blocks: a CTA of 8 rows
+    ("shared", 16, 16, 96, 96, 90),           # wan-tiny's blocks, q block 0 empty, a tail
+    ("dense", 24, 24, 96, 96, 90),            # 8 x 3: one CTA of 24 rows a block
+    ("shared", 360, 360, 1080, 1080, 1000),   # 360 = 5 x 64 + 40: a ragged last CTA
+    ("dense", 24, 360, 96, 720, 700),         # q blocks 24, kv blocks 360
+    ("dense", 256, 64, 512, 128, 100),        # cross-attention's shape class, a kv tail
+    ("dense", 1024, 1024, 2048, 2048, 1500),  # FULL's blocks
+])
+def test_flash_f32_lse_and_backward_match_plain(card, d, kind, bq, bkv, sq, skv, valid):
+    """The f32 forward with its lse, then the f32 dq and dk/dv kernels fed
+    that out and lse, against the plain versions: exact zeros for an empty
+    q block (dq; lse 1e30) and for kv rows past the tail (dk, dv); need_dq
+    alone bit for bit; every launch on the f32 mode, none on a Hopper path."""
+    from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
+
+    g = torch.Generator(device=card).manual_seed(47)
+    q, dout = (_f32(g, 2, 3, sq, d) for _ in range(2))
+    k, v = (_f32(g, 2, 3, skv, d) for _ in range(2))
+    tab = _tables(kind, 1, sq // bq, skv // bkv)
+    ki, kc = tab.on(card)
+    qi, qc = (torch.from_numpy(a).to(card)
+              for a in transpose_tables(tab.kv_index, tab.kv_count, skv // bkv))
+    kw = dict(scale=1.1 * d**-0.5, block_q=bq, block_kv=bkv)
+    _build.reset_launches()
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, kv_valid_len=valid, return_lse=True,
+                                          **kw)
+    want_out, want_lse = sparse_flash_attention_ref(q, k, v, ki, kc, kv_valid_len=valid,
+                                                    return_lse=True, **kw)
+    _close(out, want_out)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    if kind == "shared":
+        assert (lse[:, :, :bq] == 1e30).all()
+    got = flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, kv_valid_len=valid or skv, **kw)
+    n = _build.launches
+    assert (n["flash"], n["flash_f32"], n["flash_lse"], n["flash_dq_f32"], n["flash_dkv_f32"],
+            n["flash_wgmma"], n["flash_dq_wgmma"], n["flash_dkv_wgmma"]) == (1, 1, 1, 1, 1, 0, 0, 0)
+    want = flash_backward_ref(q, k, v, out, lse, dout, ki, kc, kv_valid_len=valid or skv, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32
+        _close(a, w)
+    if valid:
+        assert not got[1][:, :, valid:].any() and not got[2][:, :, valid:].any()
+    if kind == "shared":
+        assert not got[0][:, :, :bq].any()
+    dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc,
+                                kv_valid_len=valid or skv, need_dkv=False, **kw)
+    assert dk is None and dv is None and torch.equal(dq, got[0])
+
+
+def test_flash_f32_backward_c_entries_refuse_what_their_rules_refuse(card):
+    """The f32 backward entries refuse a head dim outside 64 / 128 and blocks
+    not multiples of 8: an error code, never a launch."""
+    from vorta_tpu_torch.ops.flash_bwd import _fn
+
+    q = torch.zeros((1, 1, 64, 128), device=card)
+    lse = torch.zeros((1, 1, 64), device=card)
+    ki, kc = dense_tables(1, 1).on(card)
+    stream = _build.stream_ptr(q.device)
+    dq_fn, dkv_fn = _fn("vorta_flash_bwd_dq_f32", 9, 9), _fn("vorta_flash_bwd_dkv_f32", 10, 9)
+
+    def both(d, block):
+        p = [q.data_ptr()] * 4 + [lse.data_ptr()] * 2
+        tail = [ki.data_ptr(), kc.data_ptr(), 1, 1, 64, 64, d, 1, block, block, 64, 0.1, stream]
+        return (dq_fn(*p, q.data_ptr(), *tail), dkv_fn(*p, q.data_ptr(), q.data_ptr(), *tail))
+
+    assert both(128, 64) == (0, 0)
+    torch.cuda.synchronize()
+    assert all(err != 0 for err in both(96, 64) + both(128, 12))
+
+
+@pytest.mark.parametrize("block", [16, 128])
+def test_sparse_attention_f32_grads_on_card_match_cpu(card, block):
+    """make_sparse_attention's autograd in f32 on the card (the f32 kernels)
+    against the CPU (the plain versions) from the same inputs: rel L2 below
+    1e-5 per gradient; k and v without grad launch no dk/dv kernel."""
+    from vorta_tpu_torch.ops.flash import make_sparse_attention
+
+    rng = np.random.default_rng(48)
+    s, d = 4 * block, 64
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 2, s, d)).astype(np.float32))
+                  for _ in range(4))
+    mask = rng.random((1, 4, 4)) < 0.6
+    mask[:, 0] = False
+    mask[:, 1:, 0] = True
+    attn = make_sparse_attention(tables_from_block_mask(mask), n_kv_blocks=4, block_q=block,
+                                 block_kv=block, kv_valid_len=s - 3)
+
+    def grads(dev, kv_grad=True):
+        xs = [x.to(dev, copy=True).requires_grad_(i == 0 or kv_grad)
+              for i, x in enumerate((q, k, v))]
+        (attn(*xs) * g.to(dev)).sum().backward()
+        return [x.grad.cpu() for x in xs if x.grad is not None]
+
+    _build.reset_launches()
+    on_card = grads(card)
+    assert (_build.launches["flash_dq_f32"], _build.launches["flash_dkv_f32"]) == (1, 1)
+    for a, b in zip(on_card, grads("cpu")):
+        assert ((a - b).norm() / b.norm()).item() < 1e-5
+    _build.reset_launches()
+    grads(card, kv_grad=False)
+    assert (_build.launches["flash_dq_f32"], _build.launches["flash_dkv"]) == (1, 0)
+
+
+def test_train_cli_fp32_on_card_matches_cpu(card, tmp_path):
+    """cli.train --dtype fp32, wan-tiny, 2 optimizer steps of 1 micro-step:
+    the card against --device cpu from the same weights and draws (both made
+    on the host: the two devices' generators differ): the routers after the
+    run within rel L2 1e-3, every flash / dq / dk/dv launch an f32 one, none
+    on a Hopper path; TF32 off after the call."""
+    from unittest import mock
+
+    from vorta_tpu_torch.cli import train
+    from vorta_tpu_torch.training.step import RouterTrainStep
+
+    real, draw = train.WanModel, RouterTrainStep.draw
+    host_gens = {}
+
+    def on_host(cfg, dtype=torch.float32, device=None, seed=0):
+        return real(cfg, dtype=dtype, device="cpu", seed=seed).to(device)
+
+    def host_draw(self, generator, latents):
+        gen = host_gens.setdefault(id(generator), torch.Generator().manual_seed(
+            generator.initial_seed()))
+        return draw(self, gen, latents)
+
+    runs = {}
+    with mock.patch.object(train, "WanModel", on_host), \
+            mock.patch.object(RouterTrainStep, "draw", host_draw):
+        for dev in ("cuda", "cpu"):
+            host_gens.clear()
+            _build.reset_launches()
+            runs[dev] = train.main(["--model", "wan-tiny", "--dtype", "fp32", "--device", dev,
+                                    "--synthetic_data", "--max_train_steps", "2",
+                                    "--gradient_accumulation_steps", "1",
+                                    "--output_dir", str(tmp_path / dev)])
+            if dev == "cuda":
+                n = dict(_build.launches)
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert n["flash"] == n["flash_f32"] > 0 and n["flash_lse"] > 0
+    assert n["flash_dq"] == n["flash_dq_f32"] > 0 and n["flash_dkv"] == n["flash_dkv_f32"] > 0
+    assert n["flash_wgmma"] == n["flash_dq_wgmma"] == n["flash_dkv_wgmma"] == 0
+    a, b = (torch.cat([r.router_final[k].flatten() for k in sorted(r.router_final)])
+            for r in (runs["cuda"], runs["cpu"]))
+    assert ((a - b).norm() / b.norm()).item() <= 1e-3
+    assert all(np.isfinite(m["loss"]) for m in runs["cuda"].metrics)

@@ -32,7 +32,6 @@ from vorta_tpu_torch.ops import joint_experts as joint
 from vorta_tpu_torch.ops import routed_fused as routed
 from vorta_tpu_torch.ops.coreset_pallas import pool_qkv, unpool, unpool_layout
 from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, tables_from_block_mask
-from vorta_tpu_torch.ops.flash_bwd import flash_backward
 from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual
 from vorta_tpu_torch.ops.fused_norm import fused_norm, fused_residual_norm
 from vorta_tpu_torch.ops.prologue import fused_qk_prologue, prologue_layout
@@ -147,7 +146,6 @@ def _unported():
     q = _t(1, 2, 64, 64)
     q8 = _t(1, 2, 64, 64, dtype=torch.int8)
     act = torch.ones(2, dtype=torch.int32)
-    lse = _t(1, 2, 64, 1)
     grid = dict(latent_shape=(4, 4, 4), tile=(2, 2, 2))
     qw = _t(1, 2, 4 * 6 * 16, 128)  # a geometry both window-dense kernels take
     wgrid = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
@@ -155,11 +153,6 @@ def _unported():
     from vorta_tpu_torch.tools.sta_diag import sta_diag_attention
 
     return {
-        "flash_lse": ("A4", lambda: sparse_flash_attention_raw(
-            q, q, q, ki, kc, block_q=32, block_kv=32, return_lse=True)),
-        "flash_backward": ("A4", lambda: flash_backward(
-            q, q, q, q, lse, q, ki, kc, ki, kc, scale=0.125, block_q=32, block_kv=32,
-            kv_valid_len=64)),
         "flash_manual_int8_f32_v": ("A8", lambda: sparse_flash_attention_manual(
             q8, q8, q, ki, kc, block_q=32, block_kv=32, qk_scale=torch.ones(2),
             softmax="fast")),
@@ -306,12 +299,17 @@ def test_entry_points_take_f32_on_cuda(entry, monkeypatch, capsys):
     assert "A3" not in capsys.readouterr().err
 
 
-def test_the_trainer_still_refuses_f32_on_cuda_naming_training_in_f32(capsys):
+def test_the_trainer_still_refuses_f32_on_cuda_naming_training_in_f32(monkeypatch, tmp_path):
+    """Training in f32 on the card is ported (the name is the test's from
+    before that): --dtype fp32 parses at the default device, and a run
+    without a card stops at the device check, not at an f32 refusal."""
     from vorta_tpu_torch.cli import train
 
-    with pytest.raises(SystemExit):
-        train.parse_args(["--dtype", "fp32", "--output_dir", "unused"])
-    assert "A4" in capsys.readouterr().err
+    args = train.parse_args(["--dtype", "fp32", "--output_dir", str(tmp_path)])
+    assert (args.dtype, args.device) == ("fp32", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--dtype", "fp32", "--output_dir", str(tmp_path)])
 
 
 # --- f32 plain versions against Pallas where no other port test holds them --------

@@ -27,6 +27,9 @@ CLI's quantized serving flags apply as there: ``--qk_int8``, ``--mm int8``,
 wan-14B`` too).  ``--vae wan|hunyuan`` profiles one decode of that VAE
 (full width, random bf16 weights) at the video's latent shape instead,
 whole-clip or, with ``--vae_tiling``, in tiles (models/vae_tiling.py).
+``--dtype fp32`` builds the DiT in f32 (every kernel in its f32 mode, TF32
+off, as ``cli.train --dtype fp32`` / ``cli.sample --dtype fp32`` run it),
+e.g. to split an f32 training micro-step's device time by op.
 
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 21 --height 480 --width 832
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --routing hard
@@ -34,6 +37,7 @@ whole-clip or, with ``--vae_tiling``, in tiles (models/vae_tiling.py).
       --routing hard --sta_tile 5 9 8 --t 500 \
       --router assets/bench_router_wan1_3b_720p_half.npz
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --train
+  python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --train --dtype fp32
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 37 --height 720 --width 1280 \
       --train --sta_tile 5 9 8   # the bench router's training geometry
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
@@ -63,7 +67,7 @@ import numpy as np
 import torch
 
 from ..config import WAN_1_3B, WAN_14B, AttentionConfig
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..geometry import HUNYUAN_GEOMETRY, WAN_GEOMETRY
 from ..io import profiling
 from ..io.from_jax import load_act_scales, load_trained_router
@@ -80,16 +84,18 @@ TEXT_VALID = 83
 RANGES = ("joint_reference_attention", "joint_reference_attention_backward")
 
 GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
-    ("flash", ("flash_fwd_kernel", "flash_sm90_kernel")),
-    ("flash_dq", ("flash_dq_kernel", "flash_dq_sm90_kernel")),
-    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_sm90_kernel")),
-    ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel")),
-    ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel")),
+    ("flash", ("flash_fwd_kernel", "flash_sm90_kernel", "flash_f32_kernel")),
+    ("flash_dq", ("flash_dq_kernel", "flash_dq_sm90_kernel", "flash_dq_f32_kernel")),
+    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_sm90_kernel", "flash_dkv_f32_kernel")),
+    ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel",
+                      "flash_manual_f32_kernel")),
+    ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel", "sta_pipe_f32_kernel")),
     # sta_row's Hopper path is sta_window_sm90_kernel too (one kernel, two
     # wrappers): no served geometry reaches sta_row
     ("sta_window", ("sta_window_kernel", "sta_window_sm90_kernel")),
     ("sta_row", ("sta_row_kernel",)),
-    ("sta_batched", ("sta_batched_kernel", "sta_batched_sm90_kernel", "sta_batched_live_kernel")),
+    ("sta_batched", ("sta_batched_kernel", "sta_batched_sm90_kernel", "sta_batched_live_kernel",
+                     "sta_batched_f32_kernel")),
     ("unpool", ("unpool_kernel", "unpool_rows_kernel")),
     ("pool_qkv", ("pool_kernel",)),
     ("fused_norm", ("fused_norm_kernel", "fused_norm_rows_kernel")),
@@ -119,6 +125,8 @@ def main(argv=None) -> dict:
     p.add_argument("--t", type=float, default=900.0, help="timestep")
     p.add_argument("--train", action="store_true",
                    help="profile one router-training micro-step instead of a forward")
+    p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
+                   help="the DiT's dtype; fp32: every kernel in its f32 mode, TF32 off")
     p.add_argument("--mm", default="bf16", choices=["bf16", "int8"])
     p.add_argument("--qk_int8", action="store_true")
     p.add_argument("--act_scales", default=None, help="npz {site: (L,)} static int8 scales")
@@ -134,8 +142,13 @@ def main(argv=None) -> dict:
     quant = args.mm != "bf16" or args.qk_int8 or args.act_scales or args.quantize_blocks
     if args.train and quant:
         p.error("the quantized serving flags profile forwards, not training")
+    if args.dtype == "fp32" and (quant or args.vae):
+        p.error("--dtype fp32 profiles the DiT unquantized")
 
     device = resolve_device("cuda")
+    dtype = torch.float32 if args.dtype == "fp32" else torch.bfloat16
+    if dtype == torch.float32:
+        full_f32(device)
     serve = dict(mm_precision=args.mm,
                  act_scales=load_act_scales(args.act_scales) if args.act_scales else None)
     bits = int(args.quantize_blocks[3:]) if args.quantize_blocks else None
@@ -144,7 +157,7 @@ def main(argv=None) -> dict:
         args.model = f"{args.vae} VAE{' tiled' if args.vae_tiling else ''}"
         return _profile(args, 0, latent, None, run, device)
     if args.model == "hunyuan-13B":
-        grid, attn, run = _hunyuan_forward(args, device, serve, bits)
+        grid, attn, run = _hunyuan_forward(args, device, serve, bits, dtype)
         return _profile(args, HUNYUAN_13B.dual_layers + HUNYUAN_13B.single_layers, grid, attn,
                         run, device)
     cfg = WAN_14B if args.model == "wan-14B" else WAN_1_3B
@@ -153,7 +166,7 @@ def main(argv=None) -> dict:
         model, serve["quantized_blocks"] = build_quantized_wan(cfg, bits, seed=0,
                                                                device=device)
     else:
-        model = WanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
+        model = WanModel(cfg, dtype=dtype, device=device, seed=0)
     g = torch.Generator(device=device).manual_seed(1)
     lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], cfg.in_channels), generator=g,
                       device=device)
@@ -178,7 +191,7 @@ def main(argv=None) -> dict:
     return _profile(args, cfg.num_layers, grid, attn, run, device)
 
 
-def _hunyuan_forward(args, device, serve: dict, bits):
+def _hunyuan_forward(args, device, serve: dict, bits, dtype):
     """(grid, attention config, closure of one HunyuanVideo-13B forward) at
     the CLI's geometry."""
     cfg = HUNYUAN_13B
@@ -187,12 +200,12 @@ def _hunyuan_forward(args, device, serve: dict, bits):
     if args.sta_tile:
         attn = dataclasses.replace(attn, sta_tile=tuple(args.sta_tile))
     if args.train:
-        return grid, attn, _hunyuan_train_micro_step(args, attn, grid, device)
+        return grid, attn, _hunyuan_train_micro_step(args, attn, grid, device, dtype)
     if bits:
         model, serve["quantized_blocks"] = build_quantized_hunyuan(cfg, bits, seed=0,
                                                                    device=device)
     else:
-        model = HunyuanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
+        model = HunyuanModel(cfg, dtype=dtype, device=device, seed=0)
     g = torch.Generator(device=device).manual_seed(1)
     lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], cfg.in_channels), generator=g,
                       device=device)
@@ -209,14 +222,14 @@ def _hunyuan_forward(args, device, serve: dict, bits):
     return grid, attn, run
 
 
-def _hunyuan_train_micro_step(args, attn, grid, device):
+def _hunyuan_train_micro_step(args, attn, grid, device, dtype):
     """One HunyuanVideo-13B router-training micro-step at timestep ``t``:
     loss, then the router gradients (as ``_train_micro_step``)."""
     from ..schedulers.flow_match import train_sigmas
     from ..training.step import LossWeights, make_hunyuan_router_train_step, router_partition
 
     cfg = HUNYUAN_13B
-    model = HunyuanModel(cfg, dtype=torch.bfloat16, device=device, seed=0)
+    model = HunyuanModel(cfg, dtype=dtype, device=device, seed=0)
     routers = list(router_partition(model).values())
     g = torch.Generator(device=device).manual_seed(1)
     lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], cfg.in_channels), generator=g,
@@ -285,7 +298,8 @@ def _profile(args, layers: int, grid, attn, run, device) -> dict:
         heads = dict(zip(("full", "lowres", "sta"),
                          np.bincount(out.expert_ids.reshape(-1), minlength=3).tolist()))
     result = {
-        "model": args.model, "tokens": grid[0] * grid[1] * grid[2], "layers": layers,
+        "model": args.model, "dtype": args.dtype, "tokens": grid[0] * grid[1] * grid[2],
+        "layers": layers,
         "quantization": {"mm": args.mm, "qk_int8": args.qk_int8,
                          "act_scales": args.act_scales, "quantize_blocks": args.quantize_blocks},
         "routing": "soft (train micro-step)" if args.train else args.routing, "t": args.t,

@@ -13,7 +13,11 @@ and the frozen teacher's weights alike; ``--synthetic_data`` (or no
 ``--data_json_path``) draws latents and text embeddings from it too (for
 HunyuanVideo also the CLIP pooled embedding, and a text mask with the
 second half padded, as the JAX trainer draws them).  Runs on CUDA unless
-``--device cpu``.
+``--device cpu``.  ``--dtype fp32`` trains in f32 on either device: on
+the card every attention kernel runs its f32 mode (FFMA on the CUDA cores:
+the flash forward with its lse and the flash backward's dq and dk/dv) and
+PyTorch's own products and convolutions run with TF32 off
+(device.full_f32).
 
 ``--model hunyuan-13B | hunyuan-tiny`` trains HunyuanVideo's routers
 (training/step.py ``make_hunyuan_router_train_step``; the 13B at the
@@ -31,6 +35,8 @@ writes the checkpoints, the metrics and the geometry.
       --max_train_steps 2 --gradient_accumulation_steps 2 --output_dir out/exp
   python -m vorta_tpu_torch.cli.train --model wan-tiny --device cpu --dtype fp32 \\
       --synthetic_data --max_train_steps 2 --output_dir /tmp/exp
+  python -m vorta_tpu_torch.cli.train --dtype fp32 --synthetic_data --num_latent_t 8 \\
+      --max_train_steps 2 --gradient_accumulation_steps 1 --output_dir out/f32
   torchrun --nproc_per_node 4 -m vorta_tpu_torch.cli.train --model hunyuan-13B \\
       --synthetic_data --num_latent_t 12 --video_height 720 --video_width 1280 \\
       --sp_size 4 --output_dir out/hy
@@ -50,7 +56,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import WAN_1_3B, WAN_14B, WAN_TINY, AttentionConfig
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..geometry import WAN_GEOMETRY
 from ..io.checkpoint import (
     apply_router_state,
@@ -85,7 +91,9 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     # model
     p.add_argument("--model", default="wan-1_3B", choices=sorted(MODELS))
-    p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"])
+    p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
+                   help="the frozen DiT's dtype (the routers are f32 either way); fp32 on "
+                        "the card: every kernel in its f32 mode (FFMA attention), TF32 off")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--torch_checkpoint", default=None,
                    help="path to torch/safetensors DiT weights to import")
@@ -134,11 +142,7 @@ def parse_args(argv=None):
     p.add_argument("--report_interval", type=int, default=1)
     p.add_argument("--resume_from_checkpoint", default=None,
                    help="'latest' or a step dir path")
-    args = p.parse_args(argv)
-    if args.dtype == "fp32" and args.device != "cpu":
-        p.error("--dtype fp32 trains only with --device cpu: the f32 lse and flash backward "
-                "on the card are ROADMAP section 2 A4 (training in f32)")
-    return args
+    return p.parse_args(argv)
 
 
 def attention_config(args) -> AttentionConfig:
@@ -241,6 +245,8 @@ def main(argv=None) -> TrainResult:
     model_cfg = MODELS[args.model]
     hunyuan = args.model.startswith("hunyuan")
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    if dtype == torch.float32:
+        full_f32(device)
     attn_cfg = attention_config(args)
     joined = dist.is_initialized()
     mesh = make_mesh_for(args.sp_size, args.dp_size, device, force=args.shard_frozen)

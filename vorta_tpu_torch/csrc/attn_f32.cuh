@@ -21,7 +21,11 @@
 // rescaled by exp2(m_old - m_new).  P stays f32 for the PV product (the JAX
 // kernels cast P to v's dtype, which is f32 here: flash.py:222).  A row
 // whose l is 0 (no visible key, a count-0 q block, an inactive head) writes
-// 0 and reads no v.
+// 0 and reads no v.  With an lse pointer (flash's training forward, stable
+// softmax only) the core also writes each row's base-2 log-sum-exp in the
+// scaled domain, m + log2(l) from the running max and sum it keeps, or the
+// sentinel 1e30 where l is 0, so that the backward's exp2(s - lse) is 0
+// there (vorta_tpu/ops/flash.py:237-241, the bf16 kernels' definition).
 //
 // Bound on this card: operations.  A 64-row q tile against a 64-key chunk
 // is 2 * 64 * 64 * D FLOP for S and as many for PV over 2 * 64 * D * 4
@@ -79,9 +83,11 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 //                                   (null: masked) and bias
 //   static constexpr bool PAIRS; bool visible(int c, int r, int j) (only where PAIRS)
 //                                   per (row, key) visibility (pair bits)
+// lse: null, or (rows of q) f32 written at q_off(r) / D (stable softmax only).
 template <int D, class Walk>
 __device__ __forceinline__ void attend(const Walk& walk, const float* __restrict__ q,
-                                       float* __restrict__ out, float mul, bool stable) {
+                                       float* __restrict__ out, float mul, bool stable,
+                                       float* __restrict__ lse = nullptr) {
   using L = Layout<D>;
   constexpr int NG = D / 64;                 // float4 column groups a thread owns
   constexpr int KV_LOADS = BK * D / 4 / THREADS;
@@ -246,6 +252,9 @@ __device__ __forceinline__ void attend(const Walk& walk, const float* __restrict
     const int r = ty + 16 * i;
     if (r >= nrows) continue;
     const float inv = li == 0.f ? 0.f : 1.f / li;
+    // m[i] is the row's max (every lane of the half-warp holds it); l > 0
+    // implies it is above -1e30, so it equals the TPU kernels' m_safe
+    if (lse != nullptr && tx == 0) lse[walk.q_off(r) / D] = li == 0.f ? 1e30f : m[i] + log2f(li);
     float* orow = out + walk.q_off(r);
 #pragma unroll
     for (int g = 0; g < NG; ++g)

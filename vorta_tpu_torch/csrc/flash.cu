@@ -388,10 +388,10 @@ namespace {
 
 template <int D>
 __global__ void __launch_bounds__(vorta::f32::THREADS, 2)
-flash_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
+flash_f32_kernel(const float* __restrict__ q, float* __restrict__ out, float* __restrict__ lse,
                  const __grid_constant__ vorta::f32::TableParams p, float scale_log2) {
   const vorta::f32::TableWalk<false> walk(p);
-  vorta::f32::attend<D>(walk, q, out, scale_log2, true);
+  vorta::f32::attend<D>(walk, q, out, scale_log2, true, lse);
 }
 
 }  // namespace
@@ -399,14 +399,15 @@ flash_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
 // The f32 mode (flash.py's kernel at f32 inputs): q, k, v, out contiguous
 // (B, H, S, D) f32, q not pre-scaled; the tables and the tail rule as for
 // vorta_flash_fwd_bf16; block_q and block_kv multiples of 8, D 64 or 128.
-// lse must be null: the f32 lse is the training slice's (ROADMAP).  The
-// stable online softmax, P kept in f32.  Returns the CUDA error code.
+// lse: (B, H, Sq) f32 or null, as for vorta_flash_fwd_bf16 (the f32
+// training path's forward).  The stable online softmax, P kept in f32.
+// Returns the CUDA error code.
 extern "C" int vorta_flash_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                    void* lse, const void* kv_index, const void* kv_count, int B,
                                    int H, int Sq, int Skv, int D, int h_tab, int nq, int width,
                                    int block_q, int block_kv, int kv_valid_len, float scale_log2,
                                    void* stream) {
-  if (lse != nullptr || Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 ||
+  if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 ||
       (D != 64 && D != 128) || (h_tab != 1 && h_tab != H) || nq != Sq / block_q)
     return static_cast<int>(cudaErrorInvalidValue);
   const int has_tail = kv_valid_len % block_kv != 0;
@@ -419,7 +420,9 @@ extern "C" int vorta_flash_fwd_f32(const void* q, const void* k, const void* v, 
   auto st = static_cast<cudaStream_t>(stream);
   auto* qq = static_cast<const float*>(q);
   auto* oo = static_cast<float*>(out);
+  auto* ls = static_cast<float*>(lse);
   return static_cast<int>(
-      D == 128 ? vorta::f32::launch<128>(flash_f32_kernel<128>, grid, st, qq, oo, p, scale_log2)
-               : vorta::f32::launch<64>(flash_f32_kernel<64>, grid, st, qq, oo, p, scale_log2));
+      D == 128
+          ? vorta::f32::launch<128>(flash_f32_kernel<128>, grid, st, qq, oo, ls, p, scale_log2)
+          : vorta::f32::launch<64>(flash_f32_kernel<64>, grid, st, qq, oo, ls, p, scale_log2));
 }

@@ -73,6 +73,12 @@
 //   every product, and never stored.  The walked side is staged through
 //   registers, synchronously: the C entry's hopper flag 0 keeps this path
 //   reachable at the Hopper path's shapes, as the card's yardstick.
+//
+// The f32 mode (f32 q, k, v, dO: the f32 training path) is its own pair of
+// kernels, csrc/attn_f32_bwd.cuh's FFMA dq and dk/dv over the same tables,
+// entered as vorta_flash_bwd_dq_f32 / vorta_flash_bwd_dkv_f32 at any shape
+// the bf16 entries take; the Hopper rule does not apply to it.
+#include "attn_f32_bwd.cuh"
 #include "attn_sm90.cuh"
 
 namespace {
@@ -895,4 +901,71 @@ extern "C" int vorta_flash_bwd_dkv_bf16(const void* q, const void* k, const void
 // dq's (dkv 0) or dk/dv's (dkv 1).
 extern "C" int vorta_flash_bwd_sm90_smem_bytes(int dkv) {
   return dkv ? hop::DKV_SMEM_BYTES : hop::DQ_SMEM_BYTES;
+}
+
+// ---- the f32 mode: csrc/attn_f32_bwd.cuh's FFMA kernels ---------------------------
+
+namespace {
+
+// BwdParams of an f32 call, or false where the shapes are not the kernels'.
+bool f32_params(vorta::f32::BwdParams& p, const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta, const void* index,
+                const void* count, int H, int Sq, int Skv, int D, int width, int block_q,
+                int block_kv, int kv_valid_len, float scale) {
+  if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128))
+    return false;
+  p = vorta::f32::BwdParams{
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), nullptr, nullptr, nullptr,
+      static_cast<const int*>(index), static_cast<const int*>(count), H, Sq, Skv, width,
+      block_q, block_kv, kv_valid_len % block_kv ? kv_valid_len / block_kv : -1,
+      kv_valid_len % block_kv, scale * 1.4426950408889634f, scale};
+  return true;
+}
+
+}  // namespace
+
+// The f32 mode of vorta_flash_bwd_dq_bf16: q, k, v, dout, dq contiguous
+// (B, H, S, D) f32 on 16-byte boundaries; lse, delta, the tables and the
+// shapes as there.  Returns the CUDA error code.
+extern "C" int vorta_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dq, const void* kv_index, const void* kv_count, int B,
+                                      int H, int Sq, int Skv, int D, int width, int block_q,
+                                      int block_kv, int kv_valid_len, float scale,
+                                      void* stream) {
+  using namespace vorta::f32;
+  BwdParams p;
+  if (!f32_params(p, q, k, v, dout, lse, delta, kv_index, kv_count, H, Sq, Skv, D, width,
+                  block_q, block_kv, kv_valid_len, scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.dq = static_cast<float*>(dq);
+  const dim3 grid(Sq / block_q * ((block_q + BQ - 1) / BQ), H, B);
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D == 128 ? launch_bwd(flash_dq_f32_kernel<128>, grid, BwdLayout<128>::DQ_BYTES, st, p)
+               : launch_bwd(flash_dq_f32_kernel<64>, grid, BwdLayout<64>::DQ_BYTES, st, p));
+}
+
+// The f32 mode of vorta_flash_bwd_dkv_bf16: dk, dv (B, H, Skv, D) f32; the
+// transposed tables as there.  Returns the CUDA error code.
+extern "C" int vorta_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       void* dk, void* dv, const void* q_index,
+                                       const void* q_count, int B, int H, int Sq, int Skv, int D,
+                                       int width_t, int block_q, int block_kv, int kv_valid_len,
+                                       float scale, void* stream) {
+  using namespace vorta::f32;
+  BwdParams p;
+  if (!f32_params(p, q, k, v, dout, lse, delta, q_index, q_count, H, Sq, Skv, D, width_t,
+                  block_q, block_kv, kv_valid_len, scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  const dim3 grid(Skv / block_kv * ((block_kv + BK - 1) / BK), H, B);
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D == 128 ? launch_bwd(flash_dkv_f32_kernel<128>, grid, BwdLayout<128>::DKV_BYTES, st, p)
+               : launch_bwd(flash_dkv_f32_kernel<64>, grid, BwdLayout<64>::DKV_BYTES, st, p));
 }

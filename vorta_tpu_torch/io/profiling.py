@@ -51,6 +51,10 @@ SYMBOL_COUNTERS = {
     "flash_dkv_kernel": "flash_dkv", "flash_dkv_sm90_kernel": "flash_dkv",
     "copy_probe_kernel": "copy_probe", "fused_residual_norm_kernel": "fused_residual_norm",
     "sta_diag_kernel": "sta_diag", "sta_diag_sm90_kernel": "sta_diag",
+    # the f32 modes (csrc/attn_f32.cuh, csrc/attn_f32_bwd.cuh)
+    "flash_f32_kernel": "flash", "flash_manual_f32_kernel": "flash_manual",
+    "sta_pipe_f32_kernel": "sta_pipe", "sta_batched_f32_kernel": "sta_batched",
+    "flash_dq_f32_kernel": "flash_dq", "flash_dkv_f32_kernel": "flash_dkv",
 }
 _SYMBOL = re.compile(r"\b([A-Za-z0-9_]+_kernel)\b")
 

@@ -20,11 +20,11 @@ warp specialisation; counted as ``flash_wgmma`` too); D = 64 and blocks 128
 does not divide (the 96- and 360-token STA tiles of training, 24-token
 tiles) take its mma.sync kernel.  The rule alone decides: neither path
 falls back to the other.  f32 q / k / v (the f32 serving path: the tiny
-models, ``cli.sample --dtype fp32``) take the f32 mode, its own branch:
+models, ``cli.sample --dtype fp32``, and the forward of f32 training,
+``cli.train --dtype fp32``) take the f32 mode, its own branch:
 ``csrc/attn_f32.cuh``'s FFMA core over the same tables (counted as
-``flash_f32`` too), P kept in f32 as the plain version keeps it; the f32
-lse (``return_lse``) is the training slice's, ROADMAP section 2 A4, and
-raises.
+``flash_f32`` too), P kept in f32 as the plain version keeps it, the lse
+written by the same core where ``return_lse`` asks for it.
 
 ``sparse_flash_attention_raw`` is forward only, as in the JAX package: on
 CUDA it raises where grad mode is on and an input requires grad.
@@ -204,8 +204,7 @@ def refuse_unported(kv_valid, pair_bits, tokens_per_tile, cast_p_to_v_dtype: boo
             raise NotImplementedError(why)
 
 
-# The ROADMAP rows that the f32 modes still lack, named by every refusal.
-F32_TRAINING = "ROADMAP section 2 A4 (training in f32)"
+# The ROADMAP row that the f32 modes still lack here, named by its refusal.
 F32_INT8 = "ROADMAP section 2 A8 (int8 QK with an f32 v)"
 
 
@@ -266,9 +265,8 @@ def sparse_flash_attention_raw(
 
     q: (B, H, Sq, D); k/v: (B, H, Skv, D).  kv_index: (H_tab, Sq//block_q, W)
     and kv_count: (H_tab, Sq//block_q), int32 tensors (or numpy) with H_tab
-    1 or H.  On CUDA: bf16 or f32 q/k/v (one dtype; f32 without
-    ``return_lse``), D 64 or 128, block_q and block_kv multiples of 8 (the
-    TPU kernel's rule).
+    1 or H.  On CUDA: bf16 or f32 q/k/v (one dtype), D 64 or 128, block_q
+    and block_kv multiples of 8 (the TPU kernel's rule).
     ``kv_valid`` (per-head valid lengths), ``pair_bits`` with
     ``tokens_per_tile`` and ``cast_p_to_v_dtype=False`` raise
     NotImplementedError (ROADMAP section 1 item 11): no JAX call site passes
@@ -303,34 +301,23 @@ def sparse_flash_attention_raw(
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
     kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
-    if q.dtype == torch.float32:  # the f32 mode: its own kernel, no Hopper rule
-        if return_lse:
-            raise NotImplementedError(f"the f32 flash lse (return_lse) is {F32_TRAINING}")
-        q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
-        out = torch.empty_like(q)
-        err = _flash_f32_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-            kv_index.data_ptr(), kv_count.data_ptr(), b, h, sq, skv, d,
-            kv_index.shape[0], kv_index.shape[1], kv_index.shape[2],
-            block_q, block_kv, int(kv_valid_len), float(scale * LOG2E), _build.stream_ptr(dev))
-        _build.check(err, "flash (f32)")
-        _build.launches["flash"] += 1
-        _build.launches["flash_f32"] += 1
-        return out
-    hopper = wgmma_path(d, block_q, block_kv)
+    f32 = q.dtype == torch.float32  # the f32 mode: its own kernel, no Hopper rule
+    hopper = not f32 and wgmma_path(d, block_q, block_kv)
     q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=dev) if return_lse else None
-    err = _flash_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
-        kv_index.data_ptr(), kv_count.data_ptr(), b, h, sq, skv, d,
-        kv_index.shape[0], kv_index.shape[1], kv_index.shape[2],
-        block_q, block_kv, int(kv_valid_len), float(scale * LOG2E), int(hopper),
-        _build.stream_ptr(dev))
-    _build.check(err, "flash")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse),
+            kv_index.data_ptr(), kv_count.data_ptr(), b, h, sq, skv, d,
+            kv_index.shape[0], kv_index.shape[1], kv_index.shape[2],
+            block_q, block_kv, int(kv_valid_len), float(scale * LOG2E))
+    if f32:
+        err = _flash_f32_fn()(*args, _build.stream_ptr(dev))
+    else:
+        err = _flash_fn()(*args, int(hopper), _build.stream_ptr(dev))
+    _build.check(err, "flash (f32)" if f32 else "flash")
     _build.launches["flash"] += 1
-    if hopper:
-        _build.launches["flash_wgmma"] += 1
+    _build.launches["flash_f32"] += f32
+    _build.launches["flash_wgmma"] += hopper
     if return_lse:
         _build.launches["flash_lse"] += 1
         return out, lse

@@ -18,8 +18,13 @@ Masked logits are -1e30 under the forward's tail rule, so padded kv rows
 get zero dk and dv; an empty row's lse sentinel 1e30 gives p = 0.
 
 On CUDA tensors ``flash_backward`` launches the two kernels of
-``csrc/flash_bwd.cu`` (bf16, D 64 or 128, blocks multiples of 8); on CPU
-tensors it runs ``flash_backward_ref``, which repeats their arithmetic.
+``csrc/flash_bwd.cu`` (bf16 or f32, D 64 or 128, blocks multiples of 8); on
+CPU tensors it runs ``flash_backward_ref``, which repeats their arithmetic.
+f32 inputs (the f32 training path, ``cli.train --dtype fp32``) take the f32
+mode, its own branch: ``csrc/attn_f32_bwd.cuh``'s FFMA dq and dk/dv kernels
+over the same tables, ds and p kept in f32 as the plain version keeps them
+there, counted as ``flash_dq_f32`` / ``flash_dkv_f32`` too; the Hopper rule
+below is bf16's only.
 Which design runs on CUDA is a pure-Python shape rule, ``bwd_wgmma_path``
 (the forward's): head dim 128 with blocks that 128 divides (the trainer's
 FULL, LOWRES and cross-attention) take the Hopper kernels (wgmma, TMA,
@@ -178,10 +183,13 @@ def dkv_walk(q_index: np.ndarray, q_count: np.ndarray, *, skv: int, block_q: int
 
 
 def _fn(name: str, n_ptr: int, n_int: int):
+    """A C entry of ``csrc/flash_bwd.cu``: n_ptr pointers, n_int ints, the
+    scale, then (bf16 entries) the hopper flag, then the stream."""
     fn = getattr(_build.load("flash_bwd"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        tail = [ctypes.c_float] + ([] if name.endswith("_f32") else [ctypes.c_int])
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + tail
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -237,43 +245,48 @@ def _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_cou
                                   need_dkv=need_dkv)
 
     dev = _build.require_cuda(q, k, v, out, lse2, dout)
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, out, dout)):
-        raise NotImplementedError(f"the CUDA flash backward takes bf16 (f32: ROADMAP section 2 "
-                                  f"A4, training in f32), got {q.dtype}")
+    dtypes = {t.dtype for t in (q, k, v, out, dout)}
+    if dtypes not in ({torch.bfloat16}, {torch.float32}):
+        raise NotImplementedError(f"the CUDA flash backward takes bf16 or f32 q / k / v / out / "
+                                  f"dout of one dtype, got {sorted(map(str, dtypes))}")
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
         raise NotImplementedError(f"the CUDA flash backward takes D 64/128 and blocks that are "
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
-    hopper = hopper_ok and bwd_wgmma_path(d, block_q, block_kv)
-    # TMA and the bulk copies of the Hopper path read from 16-byte boundaries
+    f32 = q.dtype == torch.float32  # the f32 mode: its own kernels, no Hopper rule
+    hopper = hopper_ok and not f32 and bwd_wgmma_path(d, block_q, block_kv)
+    mode = "f32" if f32 else "bf16"
+    # TMA and the bulk copies of the Hopper path, and the f32 kernels' 16-byte
+    # loads, read from 16-byte boundaries
     q, k, v, dout = (_build.aligned16(t.contiguous()) for t in (q, k, v, dout))
     lse2 = _build.aligned16(lse2.float().contiguous())
     delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
     common = (b, h, sq, skv, d)
+    flags = () if f32 else (int(hopper),)
     dq = dk = dv = None
     if need_dq:
         kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
         kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
         dq = torch.empty_like(q)
-        err = _fn("vorta_flash_bwd_dq_bf16", 9, 9)(
+        err = _fn(f"vorta_flash_bwd_dq_{mode}", 9, 9)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), kv_index.data_ptr(), kv_count.data_ptr(),
             *common, kv_index.shape[2], block_q, block_kv, int(kv_valid_len), float(scale),
-            int(hopper), _build.stream_ptr(dev))
-        _build.check(err, "flash_dq")
+            *flags, _build.stream_ptr(dev))
+        _build.check(err, f"flash_dq ({mode})")
         _build.launches["flash_dq"] += 1
-        if hopper:
-            _build.launches["flash_dq_wgmma"] += 1
+        _build.launches["flash_dq_f32"] += f32
+        _build.launches["flash_dq_wgmma"] += hopper
     if need_dkv:
         q_index = torch.as_tensor(q_index, dtype=torch.int32, device=dev).contiguous()
         q_count = torch.as_tensor(q_count, dtype=torch.int32, device=dev).contiguous()
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        err = _fn("vorta_flash_bwd_dkv_bf16", 10, 9)(
+        err = _fn(f"vorta_flash_bwd_dkv_{mode}", 10, 9)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_index.data_ptr(),
             q_count.data_ptr(), *common, q_index.shape[2], block_q, block_kv,
-            int(kv_valid_len), float(scale), int(hopper), _build.stream_ptr(dev))
-        _build.check(err, "flash_dkv")
+            int(kv_valid_len), float(scale), *flags, _build.stream_ptr(dev))
+        _build.check(err, f"flash_dkv ({mode})")
         _build.launches["flash_dkv"] += 1
-        if hopper:
-            _build.launches["flash_dkv_wgmma"] += 1
+        _build.launches["flash_dkv_f32"] += f32
+        _build.launches["flash_dkv_wgmma"] += hopper
     return dq, dk, dv
