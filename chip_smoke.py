@@ -272,6 +272,30 @@ The f32 serving path (TF32 off for cuBLAS and cuDNN, checked first):
      tools.fit_cache_poly; every path's launches exact (f32_launches: no
      Hopper path, every launch of the eight kernels on its *_f32 counter)
      and each *_f32 counter non-zero on some path.
+  v. f32_window_int8_kernels: sta_window and sta_row in f32 (the f32 core
+     over csrc/window_walk_f32.cuh's window walk, stable softmax) and the
+     int8 QK modes of flash_manual and sta_pipe with an f32 v (dp4a
+     scores), each against its plain version on the same inputs (worst
+     ratio <= 1e-4; a text-tail case's bracket, the text bias dropped, >= 2x
+     that): sta_window at Wan 720p x 29f and 77f, tile (4, 9, 10), and
+     HunyuanVideo 45f + 256 text keys (83 valid); sta_row at Wan 720p (5,
+     9, 8); flash_manual at Wan's routed FULL / LOWRES and HunyuanVideo's
+     joint FULL layout with kv_bias; sta_pipe at (1,12,31200,128) tile (4,
+     6, 4) and with 256 int8 text keys; D 64 with text tails of 24 and 88
+     keys, inactive heads zero; timed beside the plain version, f32 SDPA
+     with TF32 off (a float mask) and the int8 modes beside the f32 mode.
+  w. f32_window_int8_models: Wan 2 blocks at 1.3B widths routed at (4, 9,
+     10) (sta_window f32) card f32 vs CPU f32 rel L2 <= 1e-4; Wan 2 blocks
+     and HunyuanVideo 1 + 1 blocks (routed and off) with qk_int8 in f32,
+     rel L2 <= 1e-3, the int8 values the two sides round differently
+     counted; launches exact.
+  x. f32_window_int8_serving: cli.sample --dtype fp32 --resume_dir at
+     Wan-1.3B full width and depth, tile (4, 9, 10), 720p x 29f (sta_window
+     f32 once a block with STA heads, sta_pipe never) and cli.sample
+     --dtype fp32 --qk_int8 at 480p x 77f (flash_manual only in its int8
+     mode with an f32 v), one UniPC step x CFG each, s per step and peak
+     GiB; wan-tiny, hunyuan-tiny routed and off through cli.sample --dtype
+     fp32 --qk_int8, 2 steps, card vs --device cpu rel L2 <= 1e-3.
 Every main path's launch counts are exact, the Hopper path's subset
 counters (flash_wgmma, flash_manual_wgmma, sta_pipe_wgmma,
 sta_window_wgmma, sta_batched_wgmma, flash_dq_wgmma, flash_dkv_wgmma),
@@ -286,7 +310,7 @@ flash, dq and dk/dv launch but the STA expert's (96- and 360-token tiles);
 sta_pipe's int8 QK mode, stable softmax and variants and
 sta_batched's stable softmax (phases 2q, 2o) stay on their mma.sync
 kernels, counted there.  Phase 6 counts its forwards' launches too.
-Phases 1-6, a-o and p-r run under torch.inference_mode(); the training phases do not:
+Phases 1-6, a-o, p-r and v-x run under torch.inference_mode(); the training phases do not:
   7. training kernels: the flash forward with its log-sum-exp, and the dq
      and dk/dv backward kernels, each against its plain version at the four
      shapes the trainer gives them (480p x 77f: FULL, LOWRES, STA's
@@ -322,9 +346,10 @@ HunyuanVideo router training and sequence parallelism (no new kernel):
   11. main path, Hunyuan training: cli.train --model hunyuan-13B
      --synthetic_data at full width and depth (20 + 40 blocks, 24 x 128
      heads) at 432 x 768 x 21 frames = (6, 27, 48) = 7,776 + 256 tokens (the
-     (6, 9, 8) tile must divide the grid: 480 x 832 it does not), 2
-     optimizer steps of 1 micro-step, a checkpoint, resumed for a third; s
-     per micro-step, peak GiB, launches exact (hy_train_launches); then
+     (6, 9, 8) tile must divide the grid: 480 x 832 it does not), 1
+     optimizer step of 1 micro-step, a checkpoint, resumed for a second (the
+     resumed micro-step the steady one); s per micro-step, peak GiB,
+     launches exact (hy_train_launches); then
      cli.sample --resume_dir --router_checkpoint <step dir> serves those
      routers for one routed Euler step, launches exact.
   12. SP at world size 1 through an NCCL group on a file:// store, each run
@@ -347,7 +372,9 @@ copy_probe a row whose launches are the pool benchmark tool's; sta_row, which no
 the port's paths reaches, fused_residual_norm, which no model calls, and sta_diag, whose
 launches are the sta_diag tool's, with "on_main_path": false; the stable softmax and
 sta_pipe's variants under their kernels' "modes"; the eight f32 modes
-under theirs as "f32", with their launches on the f32 paths), the card
+under theirs as "f32", with their launches on the f32 paths, and sta_window's
+and sta_row's as "f32", flash_manual's int8 QK mode with an f32 v under the
+int8 row as "f32_v", sta_pipe's under its row as "int8_f32_v"), the card
 line, and
 the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
@@ -536,14 +563,15 @@ def build_kernels() -> None:
     # chunks a lane, two or four at 4-6; f32 the same and eight at 4-6);
     # unpool's batched copy, 24 (4, 8 or 16 stores a lane at D 128 and 64,
     # each with half as many kept-row loads or as many, in bf16 and f32): no
-    # spills.  The f32 attention core's 10 (flash, flash_manual, sta_pipe at
-    # D 64 / 128; sta_batched with and without pair bits), held to 128
-    # registers so that two 101 KB CTAs share an SM, and the f32 backward's
-    # 4 (dq, dk/dv at D 64 / 128; one CTA an SM at D 128): spills reported
+    # spills.  The f32 attention core's 18 (flash, sta_window, sta_row at D
+    # 64 / 128; flash_manual and sta_pipe at D 64 / 128, f32 or int8 q / k;
+    # sta_batched with and without pair bits), held to 128 registers so that
+    # two 101 KB CTAs share an SM, and the f32 backward's 4 (dq, dk/dv at D
+    # 64 / 128; one CTA an SM at D 128): spills reported
     for entry, count, spill_free in (("fused_norm_rows_kernel", 72, True),
                                      ("prologue_rows_kernel", 27, True),
                                      ("unpool_rows_kernel", 24, True),
-                                     ("_f32_kernel", 14, False)):
+                                     ("_f32_kernel", 22, False)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
             f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
@@ -644,8 +672,12 @@ def main() -> int:
         f32k = phase("f32_kernels", check_f32_kernels, torch, card)
         f32_models = phase("f32_model_checks", check_f32_models, torch)
         launches_f32, f32_serving = phase("f32_serving", run_f32_serving_path, torch, card)
+        fwi_k = phase("f32_window_int8_kernels", check_f32_window_int8_kernels, torch, card)
+        fwi_models = phase("f32_window_int8_models", check_f32_window_int8_models, torch)
+        launches_fwi, fwi_serving = phase("f32_window_int8_serving",
+                                          run_f32_window_int8_serving, torch, card)
     evaluation = {**launches_bc, **launches_cal, **launches_fit, **launches_prof,
-                  **launches_f32}
+                  **launches_f32, **launches_fwi}
     kernels += (int8_kernel_rows(int8) + fallback_kernel_rows(fallback)
                 + options_kernel_rows(opt, diag_ms))
     for k in kernels:
@@ -667,6 +699,26 @@ def main() -> int:
             k.setdefault("modes", {})["f32"] = {
                 "replaces": F32_REPLACES[counter], "on_main_path": True,
                 **mode_row(shapes), "worst_ratio": max(x["worst_ratio"] for x in shapes.values())}
+    # the window-dense kernels in f32 and the int8 QK modes with an f32 v: sta_window's
+    # on the (4, 9, 10) f32 path, flash_manual's on the --qk_int8 f32 path (under the int8
+    # row), sta_row's and sta_pipe's on no served path (as their bf16 rows)
+    rows_by_counter = {k["_counter"]: k for k in kernels}
+    for kernel, (mode, replaces) in WINDOW_INT8_MODES.items():
+        shapes = fwi_k[kernel]
+        row, mode = ((rows_by_counter["flash_manual_int8"], "f32_v") if kernel == "flash_manual"
+                     else (rows_by_counter[kernel], "int8_f32_v" if kernel == "sta_pipe"
+                           else mode))
+        counter = {"sta_window": "sta_window_f32", "sta_row": "sta_row_f32",
+                   "flash_manual": "flash_manual_int8", "sta_pipe": "sta_pipe_int8"}[kernel]
+        paths = {p: launches_fwi[p][counter] for p in launches_fwi}
+        served = {"sta_window": "f32_hard_720p_29f_4910",
+                  "flash_manual": "f32_hard_480p_77f_qk_int8"}.get(kernel)
+        if served and not paths[served]:
+            raise RuntimeError(f"{kernel}: its {mode} mode was launched on no served path")
+        row.setdefault("modes", {})[mode] = {
+            "replaces": replaces, "on_main_path": served is not None, **mode_row(shapes),
+            "worst_ratio": max(x["worst_ratio"] for x in shapes.values()),
+            "launches": paths[served] if served else 0, "launches_by_path": paths}
     kernels += phase("training_kernels", check_training_kernels, torch, card)
     phase("train_grads", lambda: (check_train_grads(torch),
                                   check_train_grads(torch, grid=(10, 18, 16), tile=TILE_360)))
@@ -727,7 +779,7 @@ def main() -> int:
         k["launches_by_path"] = paths
         for mode, row in k.get("modes", {}).items():  # the softmax modes: no path runs them
             counter = f"{name}_{mode}"
-            if counter in _build.launches:
+            if counter in _build.launches and "launches_by_path" not in row:
                 row["launches_by_path"] = by_path(counter)
                 row["launches"] = sum(row["launches_by_path"].values())
         if name in F32_TRAIN_REPLACES:  # the f32 training path's modes (phase s)
@@ -778,7 +830,9 @@ def main() -> int:
     print(json.dumps({"evaluation": {"bench_compare": compare, "calibrate_int8": calib,
                                      "fit_cache_poly": fit, "profiling": prof}}))
     print(json.dumps({"f32": {"model_checks_rel_l2": f32_models, "serving": f32_serving,
-                              "training": {"gradient_checks": f32_grads, **f32_train}}}))
+                              "training": {"gradient_checks": f32_grads, **f32_train},
+                              "window_int8": {"model_checks": fwi_models,
+                                              "serving": fwi_serving}}}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}; main path off (480p x 21f) {per_step:.3f} s per denoise step, "
           f"routed (480p x 77f) {per_step_hard:.3f} s per denoise step (4 forwards, "
@@ -832,7 +886,10 @@ def main() -> int:
           f"{f32_serving['f32_off_480p_21f']['s_per_step']:.3f}, routed 480p x 77f "
           f"{f32_serving['f32_hard_480p_77f']['s_per_step']:.3f} s per UniPC step x CFG; f32 "
           f"training (480p x 29f) {f32_train['micro_s']:.3f} s per micro-step, peak "
-          f"{f32_train['max_memory_gib']:.2f} GiB; "
+          f"{f32_train['max_memory_gib']:.2f} GiB; f32 Wan-1.3B routed 720p x 29f at (4, 9, "
+          f"10) (sta_window) {fwi_serving['f32_hard_720p_29f_4910']['s_per_step']:.3f}, "
+          f"--qk_int8 480p x 77f {fwi_serving['f32_hard_480p_77f_qk_int8']['s_per_step']:.3f} "
+          f"s per UniPC step x CFG; "
           f"launches off {launches_off}, routed {launches_hard}, "
           f"routed int8 {launches_int8}, training {launches_train}, hunyuan {hy_launches}, "
           f"wan (4, 9, 10) {launches_4910}, hunyuan (2, 9, 8) {launches_298}, training "
@@ -5113,10 +5170,11 @@ def check_hunyuan_train_grads(torch, grid=(6, 9, 8)) -> dict:
 
 def run_hunyuan_train_main_path(torch, card: str):
     """cli.train --model hunyuan-13B at full width and depth (20 + 40 blocks,
-    24 x 128 heads), (6, 27, 48) = 7,776 video + 256 text tokens: 2
-    optimizer steps of 1 micro-step and a checkpoint, then resumed for a
-    third; launches exact; then cli.sample --resume_dir --router_checkpoint
-    reads that step dir and takes one routed Euler step at the same grid."""
+    24 x 128 heads), (6, 27, 48) = 7,776 video + 256 text tokens: 1
+    optimizer step of 1 micro-step and a checkpoint, then resumed for a
+    second (its micro-step, the process warm, is the steady one); launches
+    exact; then cli.sample --resume_dir --router_checkpoint reads that step
+    dir and takes one routed Euler step at the same grid."""
     import math
     import shutil
 
@@ -5133,8 +5191,8 @@ def run_hunyuan_train_main_path(torch, card: str):
     base = HY_TRAIN_ARGS + ["--gradient_accumulation_steps", "1", "--output_dir", str(out_dir)]
     per_micro = hy_train_launches(20, 40)
     runs = []
-    for extra, micro in ((["--max_train_steps", "2"], 2),
-                         (["--max_train_steps", "3", "--resume_from_checkpoint", "latest"], 1)):
+    for extra, micro in ((["--max_train_steps", "1"], 1),
+                         (["--max_train_steps", "2", "--resume_from_checkpoint", "latest"], 1)):
         _build.reset_launches()
         res = train_main(base + extra)
         launches = dict(_build.launches)
@@ -5151,31 +5209,31 @@ def run_hunyuan_train_main_path(torch, card: str):
         raise RuntimeError(f"Hunyuan training: non-finite metrics {metrics}")
     moved = max((first.router_final[k] - first.router_init[k]).abs().max().item()
                 for k in first.router_init)
-    if not moved > 0 or (first.final_step, second.init_step, second.final_step) != (2, 2, 3):
+    if not moved > 0 or (first.final_step, second.init_step, second.final_step) != (1, 1, 2):
         raise RuntimeError(f"Hunyuan training: routers moved {moved}, steps {first.final_step}, "
                            f"resumed at {second.init_step}, ended {second.final_step}")
     if any(not torch.equal(second.router_init[k], first.router_final[k])
            for k in first.router_final):
         raise RuntimeError("Hunyuan training: the resumed run did not start from the checkpoint")
-    stats = dict(micro_s=first.micro_s[1], resumed_micro_s=second.micro_s[0],
-                 first_micro_s=first.micro_s[0],
+    stats = dict(micro_s=second.micro_s[0], first_micro_s=first.micro_s[0],
                  max_memory_gib=max(first.max_memory_bytes, second.max_memory_bytes) / 2**30)
     log(f"Hunyuan training main path: HunyuanVideo-13B 20 + 40 blocks, {HY_TRAIN_GRID} = 7,776 "
         f"+ 256 tokens, tile (6, 9, 8), soft routing + the off_ref teacher, remat: micro-steps "
         f"{[round(x, 3) for x in first.micro_s + second.micro_s]} s (steady "
-        f"{stats['micro_s']:.3f} s per micro-step, the first warms up); peak memory "
+        f"{stats['micro_s']:.3f} s per micro-step, the resumed one; the first warms up); peak "
+        f"memory "
         f"{stats['max_memory_gib']:.2f} GiB; routers moved by up to {moved:.3e}; resumed at "
         f"step {second.init_step} on {card}")
     for m in metrics:
         log(f"Hunyuan training step {m['step']}: " + ", ".join(
             f"{k} {m[k]:.6g}" for k in ("loss", "l_fm", "l_reg", "l_last", "l_hidden",
                                          "grad_norm", "timestep")))
-    log(f"Hunyuan training launches per micro-step {per_micro} (exact over 2 + 1 micro-steps)")
+    log(f"Hunyuan training launches per micro-step {per_micro} (exact over 1 + 1 micro-steps)")
     del first, second, runs
     torch.cuda.empty_cache()
 
     # serve the trained routers: the step dir and the run's config.json
-    ckpt = out_dir / "ckpt" / "step-000003"
+    ckpt = out_dir / "ckpt" / "step-000002"
     seen = {}
     real = sample.apply_router_state
 
@@ -5727,20 +5785,28 @@ def check_full_f32(torch) -> None:
 
 
 def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: float,
-             nbytes: float, *, lib=None, iters: int = 5, rows=None, bracket=None) -> dict:
+             nbytes: float, *, lib=None, iters: int = 5, rows=None, bracket=None,
+             bracket_min=None, also=(), zero_heads=None, bound=None) -> dict:
     """One f32 call of a kernel: launched once, on its ``<counter>_f32``
-    mode; held against its plain version (on ``rows`` of the sequence axis
-    where given: the rows its caller reads); ``bracket`` (a plain call the
-    gate must reject: a missing mask); timed beside the plain version and
-    ``lib`` (a callable: one PyTorch call of the same function, or None)."""
+    mode (and once on each counter of ``also``), never on its Hopper path;
+    held against its plain version (on ``rows`` of the sequence axis where
+    given: the rows its caller reads); the heads of ``zero_heads`` (a bool
+    (H,) mask) all zeros; ``bracket`` (a plain call the gate must reject: a
+    missing mask), its worst ratio above ``tol`` or at least
+    ``bracket_min``; timed beside the plain version and ``lib`` (a callable:
+    one PyTorch call of the same function, or None).  ``bound``: (ms, by)
+    where the work is not all f32 (the int8 modes' QK)."""
     from vorta_tpu_torch.ops import _build
 
     _build.reset_launches()
     got = kern()
     torch.cuda.synchronize()
-    if (_build.launches[counter], _build.launches[f"{counter}_f32"]) != (1, 1):
-        raise RuntimeError(f"{name}: launches ({counter}, {counter}_f32) "
-                           f"{(_build.launches[counter], _build.launches[f'{counter}_f32'])}")
+    counts = tuple(_build.launches[c] for c in (counter, f"{counter}_f32", *also))
+    if counts != (1,) * len(counts) or _build.launches.get(f"{counter}_wgmma", 0):
+        raise RuntimeError(f"{name}: launches ({counter}, {counter}_f32, {also}) {counts}, "
+                           f"on the Hopper path {_build.launches.get(f'{counter}_wgmma', 0)}")
+    if zero_heads is not None and got[:, zero_heads].any():
+        raise RuntimeError(f"{name}: a head routed away wrote non-zeros")
     want, plain_ms = timed_once(torch, plain)
     if rows is not None:
         got, want = got[:, :, rows], want[:, :, rows]
@@ -5757,11 +5823,14 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
         miss = bracket()
         r["bracket_worst_ratio"] = worst_ratio(torch, miss if rows is None else miss[:, :, rows],
                                                want)
-        if not r["bracket_worst_ratio"] > tol:
+        log(f"{name}: bracket worst ratio {r['bracket_worst_ratio']:.3e} (must be "
+            f"{'above ' + format(tol, 'g') if bracket_min is None else f'>= {bracket_min:g}'})")
+        if not (r["bracket_worst_ratio"] > tol if bracket_min is None
+                else r["bracket_worst_ratio"] >= bracket_min):
             raise RuntimeError(f"{name}: the gate cannot tell the bracket")
         del miss
     del got, want
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32)
+    b_ms, b_by = bound if bound is not None else bound_ms(flops, nbytes, PEAK_F32)
     r.update(ms=time_ms(torch, kern, iters), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              library_ms=lib() if lib is not None else None)
     if flops:
@@ -5982,6 +6051,18 @@ def check_f32_kernels(torch, card: str) -> dict:
         n_on = int(ja.sum().item())
         rows = torch.cat([torch.arange(hcfg.seq_len, device=dev),
                           lay.text_off + torch.arange(valid, device=dev)])  # what callers read
+
+        def lib_298():
+            """f32 SDPA with TF32 off on the active heads, the visible pairs
+            and the text bias as one (S, S) float mask (9.4 GB at 48,384)."""
+            full = vis.repeat_interleave(tpt, 0).repeat_interleave(tpt, 1)
+            fmask = torch.where(full, bias.reshape(1, -1), float("-inf"))
+            del full
+            ms = sdpa(*(x[:, ja > 0] for x in (q, k, v)), mask=fmask[None, None], iters=2)()
+            del fmask
+            torch.cuda.empty_cache()
+            return ms
+
         for softmax in (("fast", "stable") if name == "hunyuan_tiny_joint" else ("fast",)):
             kw = dict(pair_bits=bits, tokens_per_tile=tpt, kv_bias=bias, scale=dh**-0.5,
                       block_q=lay.block_q, block_kv=lay.block_kv, softmax=softmax)
@@ -5991,6 +6072,7 @@ def check_f32_kernels(torch, card: str) -> dict:
                 lambda: sta_flash_headbatched(q, k, v, ji, jc, ja, **kw),
                 lambda: sta_flash_headbatched_ref(q, k, v, ji, jc, ja, **kw), TOL_F32_ATTN,
                 4.0 * pairs * dh * n_on, 4 * lay.total * dh * 4 * n_on, rows=rows, iters=3,
+                lib=lib_298 if name == "hunyuan_45f_298_joint" else None,
                 bracket=lambda: sta_flash_headbatched_ref(q, k, v, ji, jc, ja,
                                                           **{**kw, "pair_bits": None}))
         del q, k, v
@@ -6179,7 +6261,7 @@ def f32_launches(want: dict, prologue_rows: bool) -> dict:
     for k in HOPPER_KERNELS + ("flash_dq", "flash_dkv"):
         out[f"{k}_wgmma"] = 0
     out["prologue_rows"] = out["prologue"] if prologue_rows else 0
-    for k in F32_KERNELS[:6] + ("flash_dq", "flash_dkv"):
+    for k in F32_KERNELS[:6] + ("flash_dq", "flash_dkv", "sta_window", "sta_row"):
         out[f"{k}_f32"] = out[k]
     out["pool_qkv_f32"] = out["pool_qkv"] + out["pool_qkv_headmap"]
     out["unpool_f32"] = out["unpool"] + out["unpool_headmap"]
@@ -6828,7 +6910,7 @@ def run_f32_train_main_path(torch, card: str):
     del first, second, runs
 
     # serve the trained step dir in f32 at its grid
-    ckpt = out_dir / "ckpt" / "step-000003"
+    ckpt = out_dir / "ckpt" / "step-000002"
     _build.reset_launches()
     with torch.inference_mode():
         res = sample.main(["--model", "wan-1_3B", "--dtype", "fp32", "--random_embeds",
@@ -6882,6 +6964,518 @@ def run_f32_train_main_path(torch, card: str):
         launches[f"train_f32_{model.replace('-', '_')}"] = got
         stats[f"train_{model}_rel_l2_vs_cpu"] = rel
     shutil.rmtree(out_dir, ignore_errors=True)
+    return launches, stats
+
+
+# ---- the window-dense kernels in f32 and int8 QK with an f32 v ---------------------------
+
+# Gates, set before the first run: each kernel against its plain version on
+# the same inputs (for the int8 modes the same int8 q / k), TF32 off, worst
+# |err| / max(|plain|, RMS(plain)) <= TOL_F32_ATTN; each text-tail case's
+# bracket (the plain version with the text bias dropped) at least
+# F32_BRACKET times that.  Reduced-depth models card f32 vs CPU f32: Wan 2
+# blocks routed at (4, 9, 10) rel L2 <= 1e-4; Wan 2 blocks and HunyuanVideo 1
+# + 1 blocks with qk_int8 rel L2 <= TOL_INT8_F32_MODEL, looser because a
+# 1e-7 difference upstream flips an int8 rounding at a half-way point (the
+# flips are counted and printed); the tiny CLIs with --qk_int8 card vs
+# --device cpu rel L2 <= 1e-3; every launch count exact.
+TOL_INT8_F32_MODEL = 1e-3
+# kernel -> (mode, the TPU kernel it replaces in that mode)
+WINDOW_INT8_MODES = {"sta_window": ("f32", "vorta_tpu/ops/sta_window.py:596"),
+                     "sta_row": ("f32", "vorta_tpu/ops/sta_row.py:352"),
+                     "flash_manual": ("int8_f32", "vorta_tpu/ops/flash_manual.py:346"),
+                     "sta_pipe": ("int8_f32", "vorta_tpu/ops/sta_pipe.py:597")}
+# the f32 (4, 9, 10) serving grid: 720 x 1280 x 29 frames (--num_latent_t 8)
+GRID_720P_29F = (8, 45, 80)
+
+
+def int8_f32_bound(qk_ops: float, pv_flops: float, nbytes: float) -> tuple:
+    """The int8 QK mode with an f32 v: the QK products at the int8 tensor
+    cores' 1,979 TOPS plus the PV products at 67 TFLOP/s f32 (FFMA), or the
+    bytes, whichever is longer."""
+    t_ops = (qk_ops / PEAK_INT8 + pv_flops / PEAK_F32) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def float_mask(torch, mask):
+    """A boolean visibility mask as SDPA's float mask (0 or -inf), f32."""
+    return torch.where(mask, 0.0, float("-inf"))
+
+
+def check_f32_window_int8_kernels(torch, card: str) -> dict:
+    """sta_window and sta_row in f32 (csrc/attn_f32.cuh over
+    csrc/window_walk_f32.cuh) and the int8 QK modes of flash_manual and
+    sta_pipe with an f32 v (dp4a scores) on the card, each against its plain
+    version (gates above) at the shapes of their paths, D = 64, inactive
+    heads and text tails of 24, 88 and 256 keys; times beside the plain
+    version, f32 SDPA with TF32 off (the window or the text padding as a
+    float mask) and, for the int8 modes, the f32 mode at the same call:
+    {kernel: {shape: numbers}}."""
+    import math
+
+    import torch.nn.functional as F
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.ops import joint_experts as joint
+    from vorta_tpu_torch.ops.flash import dense_tables
+    from vorta_tpu_torch.ops.flash_manual import (
+        sparse_flash_attention_manual,
+        sparse_flash_attention_manual_ref,
+    )
+    from vorta_tpu_torch.ops.routed_fused import quantize_per_head, quantize_qk, routed_geometry
+    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+    from vorta_tpu_torch.ops.sta_row import sta_row_attention, sta_row_attention_ref
+    from vorta_tpu_torch.ops.sta_window import sta_window_attention, sta_window_attention_ref
+
+    check_full_f32(torch)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = {k: {} for k in WINDOW_INT8_MODES}
+
+    def randn(*shape):  # unit RMS: the scale of qk-normed q / k
+        return torch.randn(shape, generator=g, device=dev)
+
+    def sdpa(q, k, v, mask=None, iters=2):
+        return lambda: time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters, 1)
+
+    def text_bias(lt, valid):
+        return torch.where(torch.arange(lt, device=dev) < valid, 0.0, -1e30)[None]
+
+    def window_keys(grid, tile):
+        return math.prod(min(3, grid[a] // tile[a]) * tile[a] for a in range(3))
+
+    def window_lib(grid, tile, q, k, v, act, tk=None, tv=None, tb=None):
+        """f32 SDPA over the active heads, the window (and the text keys'
+        bias) as a float mask."""
+        def run():
+            n = q.shape[2]
+            mask = float_mask(torch, sta_raster_mask(torch, grid, tile, dev))
+            ka, va = k[:, act > 0], v[:, act > 0]
+            if tk is not None:
+                mask = torch.cat([mask, tb.reshape(1, -1).expand(n, -1)], dim=1)
+                ka, va = torch.cat([ka, tk[:, act > 0]], dim=2), torch.cat([va, tv[:, act > 0]],
+                                                                           dim=2)
+            ms = sdpa(q[:, act > 0], ka, va, mask)()
+            del mask, ka, va
+            torch.cuda.empty_cache()
+            return ms
+        return run
+
+    # ---- sta_window and sta_row in f32: the served (4, 9, 10) call at 720p x
+    # 29f, 720p x 77f (the reference shape) and HunyuanVideo 45f + 256 text
+    # keys (83 valid), sta_row at Wan 720p (5, 9, 8); D = 64 with 24 / 88 text
+    # keys
+    act12 = torch.tensor(ACTIVE_HEADS, device=dev)
+    hy_act = torch.tensor(HY_ACTIVE, device=dev)
+    a3 = torch.tensor([1, 0, 1], device=dev)
+    cases = (
+        ("sta_window", "wan_720p_29f_4910", GRID_720P_29F, WAN_TILE_4910, act12, 128, 0, 0, 3),
+        ("sta_window", "wan_720p_77f_4910", GRID_720P, WAN_TILE_4910, act12, 128, 0, 0, 2),
+        ("sta_window", "hunyuan_45f_4910_text", GRID_HY_45F, WAN_TILE_4910, hy_act, 128, HY_TEXT,
+         HY_VALID, 2),
+        ("sta_window", "d64_4910_text24", (4, 9, 80), WAN_TILE_4910, a3, 64, 24, 19, 10),
+        ("sta_row", "wan_720p_77f_598", GRID_720P, (5, 9, 8), act12, 128, 0, 0, 2),
+        ("sta_row", "d64_238_text88", (4, 6, 32), (2, 3, 8), a3, 64, 88, 80, 10),
+    )
+    fns = {"sta_window": (sta_window_attention, sta_window_attention_ref),
+           "sta_row": (sta_row_attention, sta_row_attention_ref)}
+    for kernel, name, grid, tile, act, d, lt, valid, iters in cases:
+        fn, plain = fns[kernel]
+        h, n, n_act = act.numel(), math.prod(grid), int(act.sum().item())
+        q, k, v = (randn(1, h, n, d) for _ in range(3))
+        kw = dict(latent_shape=grid, tile=tile, window=(3, 3, 3), scale=d**-0.5)
+        text = {}
+        if lt:
+            text = dict(text_k=randn(1, h, lt, d), text_v=randn(1, h, lt, d),
+                        text_bias=text_bias(lt, valid))
+        keys = window_keys(grid, tile) + valid
+        r = out[kernel][name] = f32_case(
+            torch, f"{kernel} f32 {name} (1,{h},{n},{d})"
+            f"{f' + {lt} text ({valid} valid)' * bool(lt)}, tile {tile}, {n_act} of {h} heads",
+            kernel,
+            lambda: fn(q, k, v, act, **kw, **text), lambda: plain(q, k, v, act, **kw, **text),
+            TOL_F32_ATTN, 4.0 * n * keys * d * n_act, (4 * n + 2 * lt) * d * 4 * n_act,
+            iters=iters, zero_heads=act == 0,
+            lib=window_lib(grid, tile, q, k, v, act, text.get("text_k"), text.get("text_v"),
+                           text.get("text_bias")) if d == 128 else None,
+            bracket=(lambda: plain(q, k, v, act, **kw, **{**text, "text_bias": None})) if lt
+            else None, bracket_min=F32_BRACKET * TOL_F32_ATTN)
+        r["window_keys"] = window_keys(grid, tile)
+        del q, k, v, text
+        torch.cuda.empty_cache()
+
+    # ---- flash_manual, int8 q / k with an f32 v: the routed FULL and LOWRES
+    # calls at 480p x 77f (8 of 12 heads), HunyuanVideo's joint FULL layout with
+    # kv_bias (8 of 24 heads: the routing-off arm's call), D 64 with 16-row
+    # blocks, a tail and a count-0 head; timed beside the f32 mode (f32 q / k)
+    cfg = attention_config("wan-1_3B", GRID_480P_77F)
+    geo = routed_geometry(cfg)
+    hcfg = attention_config("hunyuan-13B", GRID_HY_45F)
+    lay = joint.joint_layouts(joint.JointConfig(hcfg, HY_TEXT))["full"]
+    hy_bias = joint._bias(hy_text_mask(torch, dev), lay, hcfg.seq_len)
+    hy8 = torch.tensor([int(i % 3 == 0) for i in range(24)], device=dev)
+    manual_cases = (
+        ("full_31200", 12, geo.full.q_pad, 128, geo.full.block_q, geo.full.block_kv,
+         geo.full.valid_len, geo.full.tables, act12, None, 2),
+        ("lowres_15600", 12, geo.lowres.q_pad, 128, geo.lowres.block_q, geo.lowres.block_kv,
+         geo.lowres.valid_len, geo.lowres.tables, act12, None, 2),
+        ("hunyuan_joint_full_kv_bias", 24, lay.total, 128, lay.block_q, lay.block_kv, None,
+         dense_tables(lay.total // lay.block_q, lay.total // lay.block_kv), hy8, hy_bias, 2),
+        ("d64_blocks16_tail_bias", 2, 64, 64, 16, 16, 60, dense_tables(4, 4),
+         torch.tensor([1, 0], device=dev), text_bias(64, 55), 10),
+    )
+    for name, h, s, d, bq, bkv, valid, tables, act, bias, iters in manual_cases:
+        qf, kf = randn(1, h, s, d), randn(1, h, s, d)
+        q8, k8, qk_scale = quantize_qk(qf, kf)
+        v = randn(1, h, s, d)
+        ki, kc = tables.on(dev)
+        cnt = torch.where(act[:, None] > 0, kc, 0).to(torch.int32)
+        kw = dict(scale=d**-0.5, block_q=bq, block_kv=bkv, kv_valid_len=valid, kv_bias=bias,
+                  softmax="fast")
+        n_act = int(act.sum().item())
+        n = valid or s
+        vis = n if bias is None else int((bias > -1e29).sum().item())
+        ops = 2.0 * n * vis * d * n_act
+        r = out["flash_manual"][name] = f32_case(
+            torch, f"flash_manual int8 q / k, f32 v {name} (1,{h},{s},{d}), {n_act} of {h} heads",
+            "flash_manual", lambda: sparse_flash_attention_manual(
+                q8, k8, v, ki, cnt, qk_scale=qk_scale, **kw),
+            lambda: sparse_flash_attention_manual_ref(q8, k8, v, ki, cnt, qk_scale=qk_scale, **kw),
+            TOL_F32_ATTN, 2 * ops, s * d * (2 + 8) * n_act, also=("flash_manual_int8",),
+            rows=slice(0, n), iters=iters, zero_heads=act == 0,
+            bound=int8_f32_bound(ops, ops, s * d * (2 + 8) * n_act),
+            lib=sdpa(*(x[:, act > 0, :n] for x in (qf, kf, v)),
+                     None if bias is None else bias[:, :n].reshape(1, 1, 1, n), 2),
+            bracket=(lambda: sparse_flash_attention_manual_ref(
+                q8, k8, v, ki, cnt, qk_scale=qk_scale, **{**kw, "kv_bias": None}))
+            if bias is not None else None, bracket_min=F32_BRACKET * TOL_F32_ATTN)
+        r["f32_mode_ms"] = time_ms(torch, lambda: sparse_flash_attention_manual(
+            qf, kf, v, ki, cnt, **kw), iters)
+        r["int8_over_f32_mode"] = r["ms"] / r["f32_mode_ms"]
+        log(f"flash_manual int8 f32 {name}: {r['ms']:.3f} ms against the f32 mode's "
+            f"{r['f32_mode_ms']:.3f} ms at the same call ({r['int8_over_f32_mode']:.3f}x)")
+        del qf, kf, q8, k8, v
+        torch.cuda.empty_cache()
+
+    # ---- sta_pipe, int8 q / k / text keys with an f32 v: the routed STA call at
+    # 480p x 77f (tile (4, 6, 4), 8 of 12 heads), a text tail (256 int8 text keys,
+    # 83 valid) at the (6, 9, 8) tile, D 64 at wan-tiny's tile with 24 text keys
+    pipe_cases = (
+        ("480p_77f", GRID_480P_77F, (4, 6, 4), (3, 3, 3), act12, 128, 0, 0, 3),
+        ("text_tail_698", (6, 9, 16), (6, 9, 8), (3, 3, 3), torch.tensor([1, 0, 1, 1],
+                                                                           device=dev),
+         128, HY_TEXT, HY_VALID, 5),
+        ("d64_tile222_text24", (4, 4, 4), (2, 2, 2), (3, 3, 1), torch.tensor([1, 1],
+                                                                              device=dev),
+         64, 24, 21, 10),
+    )
+    for name, grid, tile, window, act, d, lt, valid, iters in pipe_cases:
+        h, n, n_act = act.numel(), math.prod(grid), int(act.sum().item())
+        qf, kf = randn(1, h, n, d), randn(1, h, n, d)
+        q8, k8, qk_scale = quantize_qk(qf, kf)
+        v = randn(1, h, n, d)
+        kw = dict(latent_shape=grid, tile=tile, window=window, scale=d**-0.5)
+        text, text_f32 = {}, {}
+        if lt:
+            tk = randn(1, h, lt, d)
+            text = dict(text_k=quantize_per_head(tk)[0], text_v=randn(1, h, lt, d),
+                        text_bias=text_bias(lt, valid))
+            text_f32 = {**text, "text_k": tk}
+        keys = math.prod(min(window[a], grid[a] // tile[a]) * tile[a] for a in range(3)) + valid
+        ops = 2.0 * n * keys * d * n_act
+        nbytes = (n * d * (2 + 8) + lt * d * 5) * n_act
+        mask = float_mask(torch, sta_raster_mask(torch, grid, tile, dev, window)) if d == 128 \
+            and not lt else None
+        r = out["sta_pipe"][name] = f32_case(
+            torch, f"sta_pipe int8 q / k, f32 v {name} (1,{h},{n},{d})"
+            f"{f' + {lt} int8 text' * bool(lt)}, tile {tile}", "sta_pipe",
+            lambda: sta_pipe_attention(q8, k8, v, act, qk_scale=qk_scale, **kw, **text),
+            lambda: sta_pipe_attention_ref(q8, k8, v, act, qk_scale=qk_scale, **kw, **text),
+            TOL_F32_ATTN, 2 * ops, nbytes, also=("sta_pipe_int8",), iters=iters,
+            zero_heads=act == 0, bound=int8_f32_bound(ops, ops, nbytes),
+            lib=sdpa(qf[:, act > 0], kf[:, act > 0], v[:, act > 0], mask) if mask is not None
+            else None,
+            bracket=(lambda: sta_pipe_attention_ref(q8, k8, v, act, qk_scale=qk_scale, **kw,
+                                                    **{**text, "text_bias": None}))
+            if lt else None, bracket_min=F32_BRACKET * TOL_F32_ATTN)
+        r["f32_mode_ms"] = time_ms(torch, lambda: sta_pipe_attention(qf, kf, v, act, **kw,
+                                                                      **text_f32), iters)
+        r["int8_over_f32_mode"] = r["ms"] / r["f32_mode_ms"]
+        del qf, kf, q8, k8, v, mask, text, text_f32
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_flips(a: list, b: list) -> dict:
+    """The int8 values two runs' per-head quantizations (lists of int8
+    tensors, call by call) give differently: their count, of how many, and
+    the largest difference (a flip at a half-way point moves a value by 1)."""
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        raise RuntimeError(f"int8 quantizations differ in number or shape: {len(a)} / {len(b)}")
+    diff = [(x.int() - y.int()).abs() for x, y in zip(a, b)]
+    return {"flipped": int(sum((d > 0).sum().item() for d in diff)),
+            "of": int(sum(d.numel() for d in diff)),
+            "max_step": int(max((d.max().item() for d in diff), default=0))}
+
+
+def recorded_quantize(record: list):
+    """A with-block in which every per-head int8 quantization (the routed
+    dispatch's and the joint experts', through ops/routed_fused.py) appends
+    its int8 output, on the host, to ``record``."""
+    from unittest import mock
+
+    from vorta_tpu_torch.ops import routed_fused
+
+    real = routed_fused.quantize_per_head
+
+    def quantize(x):
+        x8, s = real(x)
+        record.append(x8.cpu())
+        return x8, s
+
+    return mock.patch.object(routed_fused, "quantize_per_head", quantize)
+
+
+def check_f32_window_int8_models(torch) -> dict:
+    """Reduced-depth forwards in f32, card against the CPU from the same
+    weights: Wan 2 blocks at 1.3B widths routed hard at tile (4, 9, 10) on a
+    (4, 18, 80) grid (the STA heads on sta_window's f32 mode) and with
+    qk_int8 at (8, 24, 20) (FULL and LOWRES on flash_manual's int8 mode with
+    an f32 v), HunyuanVideo 1 + 1 blocks at 13B widths with qk_int8 routed
+    hard and routing off; 4 / 8 heads per expert by one-hot routers; gates
+    above, the int8 flips counted; launches exact."""
+    import dataclasses
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.config import WAN_1_3B, AttentionConfig
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_13B, HunyuanModel
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.routed_fused import routed_sta_kernel
+
+    check_full_f32(torch)
+    out = {}
+
+    def gate(name, got, want, launches, expected, tol, flips=None):
+        if launches != expected:
+            raise RuntimeError(f"f32 model check {name}: launches {launches} != {expected}")
+        if got.dtype != torch.float32 or not torch.isfinite(got).all():
+            raise RuntimeError(f"f32 model check {name}: output {got.dtype}, non-finite")
+        rel = ((got - want).norm() / want.norm()).item()
+        log(f"f32 model check {name}: rel L2 card f32 vs CPU f32 = {rel:.3e} (tolerance "
+            f"{tol:g}); launches exact"
+            + ("" if flips is None else f"; int8 values flipped card vs CPU: {flips}"))
+        if not rel <= tol:
+            raise RuntimeError(f"f32 model check {name}: the card's forward disagrees")
+        out[name] = {"rel_l2": rel, **({} if flips is None else {"int8_flips": flips})}
+
+    cfg = dataclasses.replace(WAN_1_3B, num_layers=2)
+    experts = torch.tensor([0, 1, 2] * 4)
+    cpu = WanModel(cfg, dtype=torch.float32, device="cpu", seed=5)
+    with torch.no_grad():
+        for block in cpu.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(4.0 * torch.eye(3)[experts].reshape(-1))
+    gpu = WanModel(cfg, dtype=torch.float32, device="cuda", seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    for name, grid, tile, int8 in (("wan_routed_4x18x80_4910", (4, 18, 80), WAN_TILE_4910, False),
+                                   ("wan_routed_8x24x20_qk_int8", (8, 24, 20), (4, 6, 4), True)):
+        attn = AttentionConfig(latent_shape=grid, sta_tile=tile, sta_window=(3, 3, 3),
+                               lowres_window=(2, 3, 2), qk_int8=int8)
+        sta_kernel = routed_sta_kernel(attn, 128, 4)
+        if sta_kernel != ("sta_pipe" if int8 else "sta_window"):
+            raise RuntimeError(f"f32 model check {name}: the STA heads take {sta_kernel}")
+        g = torch.Generator().manual_seed(6)
+        lat = torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), generator=g)
+        ctx = torch.randn((1, TEXT_LEN, cfg.text_dim), generator=g)
+        t = torch.tensor([700.0])
+        rec = {"cpu": [], "cuda": []}
+        with recorded_quantize(rec["cpu"]):
+            want = cpu(lat, t, ctx, attn_cfg=attn, routing_mode="hard").sample
+        _build.reset_launches()
+        with recorded_quantize(rec["cuda"]):
+            res = gpu(lat.cuda(), t.cuda(), ctx.cuda(), attn_cfg=attn, routing_mode="hard")
+        got = res.sample.cpu()
+        if not (res.expert_ids == experts.numpy()).all():
+            raise RuntimeError(f"f32 model check {name}: routing {res.expert_ids}")
+        expected = routed_wan_launches(np.asarray(res.expert_ids)[None], sta_kernel, 1,
+                                       int8=int8)
+        gate(name, got, want, dict(_build.launches), f32_launches(expected, True),
+             TOL_INT8_F32_MODEL if int8 else 1e-4,
+             int8_flips(rec["cuda"], rec["cpu"]) if int8 else None)
+    del cpu, gpu
+
+    hcfg = dataclasses.replace(HUNYUAN_13B, dual_layers=1, single_layers=1)
+    grid = (6, 9, 16)
+    attn = dataclasses.replace(attention_config("hunyuan-13B", grid), qk_int8=True)
+    hexperts = torch.tensor([0, 1, 2] * 8)
+    gpu = HunyuanModel(hcfg, dtype=torch.float32, device="cuda", seed=3)
+    for block in gpu.blocks:
+        block.router.linear.weight.zero_()
+        block.router.linear.bias.copy_(4.0 * torch.eye(3, device="cuda")[hexperts].reshape(-1))
+    cpu = HunyuanModel(hcfg, dtype=torch.float32, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    lat, text, mask, pooled = hy_inputs(torch, grid, torch.device("cuda"), 9)
+    args = (lat, torch.tensor([700.0], device="cuda"), text, mask, pooled)
+    gd = torch.tensor([6000.0], device="cuda")
+    for mode in ("hard", "off"):
+        rec = {"cpu": [], "cuda": []}
+        with recorded_quantize(rec["cpu"]):
+            want = cpu(*(x.cpu() for x in args), guidance=gd.cpu(), attn_cfg=attn,
+                       routing_mode=mode).sample
+        _build.reset_launches()
+        with recorded_quantize(rec["cuda"]):
+            res = gpu(*args, guidance=gd, attn_cfg=attn, routing_mode=mode)
+        if mode == "hard":
+            if not (res.expert_ids == hexperts.numpy()).all():
+                raise RuntimeError(f"f32 model check hunyuan: routing {res.expert_ids}")
+            expected = hy_hard_launches(np.asarray(res.expert_ids)[None], int8=True, dual=1)
+        else:
+            expected = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 2,
+                        "flash_manual_wgmma": 2, "flash_manual_int8": 2, "prologue": 2,
+                        "prologue_rows": 2, "fused_norm": 4 + 1 + 1}
+        gate(f"hunyuan_{mode}_6x9x16_qk_int8", res.sample.cpu(), want, dict(_build.launches),
+             f32_launches(expected, True), TOL_INT8_F32_MODEL,
+             int8_flips(rec["cuda"], rec["cpu"]))
+    del cpu, gpu
+    return out
+
+
+def run_f32_window_int8_serving(torch, card: str):
+    """The two f32 configurations the JAX CLI runs and the port refused on the
+    card until now, through cli.sample at Wan-1.3B full width and depth (30
+    blocks, routed hard by random routers), one UniPC step x CFG each, after
+    a warm-up forward of a 2-block f32 model: --dtype fp32 --resume_dir at
+    tile (4, 9, 10) from the config.json ``cli.train --sta_tile 4 9 10``
+    writes, at 720p x 29f (8, 45, 80) (cut from 77 frames for the smoke's
+    time; the STA heads on sta_window's f32 mode, sta_pipe never), and
+    --dtype fp32 --qk_int8 at 480p x 77f (flash_manual only in its int8 mode
+    with an f32 v); s per step and peak GiB.  Then wan-tiny, hunyuan-tiny
+    and hunyuan-tiny --native_attention (the routing-off arm) through
+    cli.sample --dtype fp32 --qk_int8, 2 steps, card against --device cpu
+    from the same host-drawn weights, noise and embeddings: final latents
+    rel L2 <= 1e-3, routing equal.  Every launch count exact."""
+    import dataclasses
+
+    import numpy as np
+
+    from vorta_tpu_torch.cli import sample
+    from vorta_tpu_torch.cli.sample import attention_config
+    from vorta_tpu_torch.cli.train import attention_config as train_attention_config
+    from vorta_tpu_torch.cli.train import parse_args as train_args
+    from vorta_tpu_torch.config import WAN_1_3B, WAN_TINY
+    from vorta_tpu_torch.models.hunyuan import HUNYUAN_TINY
+    from vorta_tpu_torch.models.wan import WanModel
+    from vorta_tpu_torch.ops import _build
+
+    check_full_f32(torch)
+    res_dir = HERE / "results" / "port_smoke" / "f32_window_int8"  # listed in .gitignore
+    res_dir.mkdir(parents=True, exist_ok=True)
+    run_dir = res_dir / "wan_720p_29f_4910"
+    attn_4910 = train_attention_config(train_args([
+        "--synthetic_data", "--output_dir", str(run_dir), "--num_latent_t",
+        str(GRID_720P_29F[0]), "--video_height", "720", "--video_width", "1280", "--sta_tile",
+        *map(str, WAN_TILE_4910)]))
+    if attn_4910.latent_shape != GRID_720P_29F:
+        raise RuntimeError(f"trainer geometry {attn_4910.latent_shape}")
+    run_dir.mkdir(parents=True, exist_ok=True)
+    attn_4910.save(run_dir / "config.json")  # the file the trainer writes
+    launches, stats = {}, {}
+    for name, grid, attn, argv, sta_kernel, int8 in (
+            ("f32_hard_720p_29f_4910", GRID_720P_29F, attn_4910,
+             ["--num_frames", "29", "--height", "720", "--width", "1280", "--resume_dir",
+              str(run_dir)], "sta_window", False),
+            ("f32_hard_480p_77f_qk_int8", GRID_480P_77F, dataclasses.replace(
+                attention_config("wan-1_3B", GRID_480P_77F), qk_int8=True),
+             ["--num_frames", "77", "--height", "480", "--width", "832", "--qk_int8"],
+             "sta_pipe", True)):
+        warm = WanModel(dataclasses.replace(WAN_1_3B, num_layers=2), dtype=torch.float32,
+                        device="cuda", seed=1)
+        warm(torch.randn((1, grid[0], 2 * grid[1], 2 * grid[2], 16), device="cuda"),
+             torch.tensor([900.0], device="cuda"), torch.randn((1, TEXT_LEN, 4096), device="cuda"),
+             attn_cfg=attn, routing_mode="hard")
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        res = sample.main(["--model", "wan-1_3B", "--dtype", "fp32", "--random_embeds",
+                           "--num_inference_steps", "1", "--seed", "0",
+                           "--output", str(res_dir / f"{name}.npy"), *argv])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches[name] = got = dict(_build.launches)
+        tables = np.stack(res.routing)
+        want = f32_launches(routed_wan_launches(tables, sta_kernel, 2, int8=int8), True)
+        lat = res.latents
+        shape = (1, grid[0], 2 * grid[1], 2 * grid[2], 16)
+        if (got != want or tuple(lat.shape) != shape or lat.dtype != torch.float32
+                or not torch.isfinite(lat).all()):
+            raise RuntimeError(f"{name}: launches {got} != {want}, or output "
+                               f"{tuple(lat.shape)} {lat.dtype} non-finite")
+        if int8 and not got["flash_manual"] == got["flash_manual_f32"] == got["flash_manual_int8"]:
+            raise RuntimeError(f"{name}: a flash_manual launch outside the int8 f32 mode")
+        sta_blocks = int((tables == 2).any(-1).sum())  # blocks with STA heads, over the forwards
+        if not int8 and (got["sta_pipe"] or got["sta_window_f32"] != sta_blocks):
+            raise RuntimeError(f"{name}: sta_window_f32 {got['sta_window_f32']} is not one "
+                               "launch per block with STA heads, or sta_pipe ran")
+        heads = np.bincount(tables.reshape(-1), minlength=3)
+        stats[name] = {"s_per_step": res.denoise_s / res.steps, "forwards": 2,
+                       "build_s": res.build_s, "peak_gib": peak,
+                       "heads_per_expert": heads.tolist()}
+        log(f"cli.sample --dtype fp32 Wan-1.3B {name}: {stats[name]['s_per_step']:.3f} s per "
+            f"UniPC step x CFG (2 forwards), peak {peak:.2f} GiB, on {card}; heads per expert "
+            f"{heads.tolist()}; launches exact {got}")
+        del res, lat
+        torch.cuda.empty_cache()
+
+    for model, cfg, size, extra in (
+            ("wan-tiny", WAN_TINY, ["--num_frames", "13", "--height", "64", "--width", "64"], []),
+            ("hunyuan-tiny", HUNYUAN_TINY, ["--num_frames", "13", "--height", "96", "--width",
+                                            "256"], []),
+            ("hunyuan-tiny", HUNYUAN_TINY, ["--num_frames", "13", "--height", "96", "--width",
+                                            "256"], ["--native_attention"])):
+        emb = tiny_embeds(cfg, res_dir / f"{model}_embeds.npy", 7)
+        tag = f"{model}{'_off' if extra else ''}"
+        base = ["--model", model, "--dtype", "fp32", "--qk_int8", "--prompt_embeds", emb,
+                "--num_inference_steps", "2", "--seed", "0", *size, *extra]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            _build.reset_launches()
+            with host_drawn(torch, sample):
+                runs[dev] = sample.main(base + ["--device", dev, "--output",
+                                                str(res_dir / f"{tag}_{dev}.npy")])
+            if dev == "cuda":
+                got = dict(_build.launches)
+        res = runs["cuda"]
+        if extra:  # routing off: one flash_manual a block, all in the int8 mode
+            blocks, dual = cfg.dual_layers + cfg.single_layers, cfg.dual_layers
+            want = {**dict.fromkeys(_build.KERNELS, 0), "flash_manual": 2 * blocks,
+                    "flash_manual_int8": 2 * blocks, "prologue": 2 * blocks,
+                    "fused_norm": 2 * (4 * dual + blocks - dual + 1)}
+        else:
+            tables = np.stack(res.routing)
+            want = (hy_hard_launches(tables, int8=True, sta_kernel="sta_batched",
+                                     dual=cfg.dual_layers) if model.startswith("hunyuan") else
+                    routed_wan_launches(tables, "sta_pipe", tables.shape[0], int8=True))
+        want = f32_launches(want, False)
+        if got != want or not got["flash_manual_int8"]:
+            raise RuntimeError(f"cli.sample {tag} fp32 --qk_int8: launches {got} != {want}")
+        if not all(np.array_equal(a, b) for a, b in zip(runs["cuda"].routing,
+                                                         runs["cpu"].routing)):
+            raise RuntimeError(f"cli.sample {tag} fp32 --qk_int8: the card routes otherwise")
+        a, b = runs["cuda"].latents.cpu(), runs["cpu"].latents
+        rel = ((a - b).norm() / b.norm()).item()
+        log(f"cli.sample {tag} --dtype fp32 --qk_int8, 2 steps: card vs --device cpu final "
+            f"latents rel L2 {rel:.3e} (tolerance 1e-3); routing equal; launches exact {got}")
+        if not (torch.isfinite(a).all() and rel <= 1e-3):
+            raise RuntimeError(f"cli.sample {tag} fp32 --qk_int8: card and CPU disagree")
+        launches[f"f32_qk_int8_sample_{tag.replace('-', '_')}"] = got
+        stats[f"sample_{tag}_qk_int8"] = {"rel_l2_vs_cpu": rel,
+                                          "s_per_step": res.denoise_s / res.steps}
     return launches, stats
 
 

@@ -272,7 +272,7 @@ def test_hunyuan_comparison_matches_the_pipeline(tmp_path):
 
 
 @pytest.mark.parametrize("model", ["wan-tiny", "hunyuan-tiny"])
-def test_tiny_models_refuse_cuda_naming_f32(model, capsys, monkeypatch):
+def test_tiny_models_take_cuda_in_f32(model, capsys, monkeypatch):
     """The tiny models run in f32 on the card too (the kernels' f32 modes):
     the flags parse, and without a card the run stops at the device
     check, not at an f32 refusal."""

@@ -67,13 +67,18 @@ U = 0 and group size - 1, counted as unpool_rows); and (no kernel: cuBLAS
 statistics over tensors of more than 2^31 elements against references
 computed in pieces, the text encoders at 2 layers and the tiny VAEs
 (whole, chunked, tiled) against the CPU, and cli.sample --prompt --decode
-on the card.  Tolerances: 1e-5 x max
+on the card; and the f32 modes of sta_window and sta_row (tile_w 8 and 10,
+360-token tiles, text tails of 24 and 88 keys, D 64 / 128) and the int8 QK
+modes of flash_manual and sta_pipe with an f32 v (int8 text keys, kv_bias,
+tails, 64-row parts of 32 rows), each on the same inputs as its plain
+version, with the mixes they refuse.  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
 bf16 inside flash, can differ between the two sides).
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -247,9 +252,18 @@ def test_flash_manual_kernel_rejects_what_it_does_not_take(card):
     qk_scale = torch.ones(2, device=card)
     with pytest.raises(ValueError, match="int8"):
         sparse_flash_attention_manual(q, q, q, ki, kc, qk_scale=qk_scale, softmax="fast", **kw)
-    q8 = q.to(torch.int8)
-    with pytest.raises(NotImplementedError, match="A8"):  # int8 QK with an f32 v
-        sparse_flash_attention_manual(q8, q8, q.float(), ki, kc, qk_scale=qk_scale,
+    # int8 QK with an f32 v is served: the f32 core's int8 mode, against its plain version
+    q8, k8, qk2 = _int8_qk(card, g, (1, 2, 64, 128))
+    vf = torch.randn((1, 2, 64, 128), generator=g, device=card)
+    ikw = dict(qk_scale=qk2, softmax="fast", kv_valid_len=50, **kw)
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q8, k8, vf, ki, kc, **ikw)
+    assert (_build.launches["flash_manual_f32"], _build.launches["flash_manual_int8"]) == (1, 1)
+    _close(got, sparse_flash_attention_manual_ref(q8, k8, vf, ki, kc, **ikw))
+    with pytest.raises(ValueError, match="int8"):  # int8 q with a non-int8 k
+        sparse_flash_attention_manual(q8, q, vf, ki, kc, qk_scale=qk_scale, softmax="fast", **kw)
+    with pytest.raises(NotImplementedError, match="f32"):  # int8 q / k, a v of neither mode
+        sparse_flash_attention_manual(q8, k8, vf.half(), ki, kc, qk_scale=qk_scale,
                                       softmax="fast", **kw)
     with pytest.raises(ValueError, match="kv_bias"):
         sparse_flash_attention_manual(q, q, q, ki, kc, kv_bias=torch.zeros((1, 32), device=card),
@@ -299,9 +313,24 @@ def test_sta_kernel_rejects_what_it_does_not_take(card):
     qk_scale = torch.ones(2, device=card)
     with pytest.raises(ValueError, match="int8"):
         sta_pipe_attention(q, q, q, act, qk_scale=qk_scale, **kw)
-    q8 = q.to(torch.int8)
-    with pytest.raises(NotImplementedError, match="A8"):  # int8 QK with an f32 v
-        sta_pipe_attention(q8, q8, q.float(), act, qk_scale=qk_scale, **kw)
+    # int8 QK with an f32 v is served: int8 text keys, an f32 text_v
+    q8, k8, qk2 = _int8_qk(card, g, q.shape)
+    vf = torch.randn(q.shape, generator=g, device=card)
+    t8 = k8[:, :, :24].contiguous()
+    tv = torch.randn((1, 2, 24, 128), generator=g, device=card)
+    ikw = dict(qk_scale=qk2, text_k=t8, text_v=tv, **kw)
+    _build.reset_launches()
+    got = sta_pipe_attention(q8, k8, vf, act, **ikw)
+    assert (_build.launches["sta_pipe_f32"], _build.launches["sta_pipe_int8"]) == (1, 1)
+    _close(got, sta_pipe_attention_ref(q8, k8, vf, act, **ikw))
+    with pytest.raises(ValueError, match="int8"):  # int8 q with a non-int8 k
+        sta_pipe_attention(q8, q, vf, act, qk_scale=qk2, **kw)
+    with pytest.raises(ValueError, match="text_v"):  # int8 text_k, text_v missing
+        sta_pipe_attention(q8, k8, vf, act, qk_scale=qk2, text_k=t8, **kw)
+    with pytest.raises(NotImplementedError, match="f32"):  # a bf16 text_v beside an f32 v
+        sta_pipe_attention(q8, k8, vf, act, **{**ikw, "text_v": tv.bfloat16()})
+    with pytest.raises(NotImplementedError, match="bf16"):  # an f32 text_v beside a bf16 v
+        sta_pipe_attention(q8, k8, q, act, **ikw)
     with pytest.raises(ValueError, match="multiple of 8"):
         sta_pipe_attention(q, q, q, act, text_k=q[:, :, :12], text_v=q[:, :, :12], **kw)
     with pytest.raises(NotImplementedError, match="bf16"):
@@ -628,8 +657,10 @@ def test_sta_window_and_row_kernels_reject_what_they_do_not_take(card):
     kw = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
     act = torch.ones(2, device=card, dtype=torch.int32)
     for fn in (sta_window_attention, sta_row_attention):
-        with pytest.raises(NotImplementedError, match="bf16"):
-            fn(q.float(), q.float(), q.float(), act, **kw)
+        with pytest.raises(NotImplementedError, match="bf16 or f32"):
+            fn(q.half(), q.half(), q.half(), act, **kw)
+        with pytest.raises(NotImplementedError, match="one dtype"):
+            fn(q.float(), q.float(), q, act, **kw)
         with pytest.raises(NotImplementedError, match="D 64/128"):
             fn(q[..., :32], q[..., :32], q[..., :32], act, **kw)
         with pytest.raises(NotImplementedError):
@@ -2899,10 +2930,9 @@ def test_fit_cache_poly_and_calibration_on_card(card, tmp_path):
 
 @pytest.mark.parametrize("entry", ["bench_compare_wan", "bench_compare_hunyuan",
                                    "fit_cache_poly"])
-def test_tiny_models_refuse_the_card(card, entry, tmp_path):
+def test_tiny_models_run_on_the_card_in_f32(card, entry, tmp_path):
     """The tiny models run in f32, as the JAX tools build them, and on the
-    card through the kernels' f32 modes (the name is the test's from before
-    those modes): every launch of the path is an f32 one, none on a Hopper
+    card through the kernels' f32 modes: every launch of the path is an f32 one, none on a Hopper
     path, the outputs finite."""
     from vorta_tpu_torch.cli import bench_compare
     from vorta_tpu_torch.tools import fit_cache_poly
@@ -3093,6 +3123,109 @@ def test_sta_batched_f32_matches_plain(card, softmax, latent, text_len, d):
     assert not got[:, 1].any()
 
 
+# --- the window-dense kernels in f32 and the int8 QK modes with an f32 v ----------------
+
+WINDOW_F32_CASES = [  # (latent, tile, text keys): tile_w 8-aligned, 10 (360-token tiles:
+    ((4, 6, 32), (2, 3, 8), 0),      # 5 parts of 64 rows and one of 40), clamping; text
+    ((4, 9, 80), (4, 9, 10), 24),    # tails of 24 and 88 keys (not multiples of 64)
+    ((6, 4, 30), (2, 2, 10), 88),
+    ((4, 4, 8), (2, 2, 8), 0),       # the window spans every axis
+]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kernel,latent,tile,lt", [
+    (kernel, *case) for kernel in ("sta_window", "sta_row") for case in WINDOW_F32_CASES
+    if kernel == "sta_window" or case[1][2] % 8 == 0])  # sta_row: tile_w multiples of 8
+def test_window_dense_f32_matches_plain(card, d, kernel, latent, tile, lt):
+    """sta_window's and sta_row's f32 modes (the f32 core over the window
+    walk, the stable softmax) against their plain version, with and without
+    the text tail (a few keys masked by the bias), head 1 inactive (zeros);
+    counted as <kernel> and <kernel>_f32, never on the Hopper path."""
+    from vorta_tpu_torch.ops import sta_row, sta_window
+
+    mod = sta_window if kernel == "sta_window" else sta_row
+    fn, plain = getattr(mod, f"{kernel}_attention"), getattr(mod, f"{kernel}_attention_ref")
+    g = torch.Generator(device=card).manual_seed(43)
+    n = int(np.prod(latent))
+    q, k, v = (_f32(g, 2, 3, n, d) for _ in range(3))
+    act = torch.tensor([1, 0, 1], device=card)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=1.1 * d**-0.5)
+    if lt:
+        kw.update(text_k=_f32(g, 2, 3, lt, d), text_v=_f32(g, 2, 3, lt, d),
+                  text_bias=torch.where(torch.arange(lt, device=card) < lt - 5, 0.0,
+                                        -1e30)[None])
+    _build.reset_launches()
+    got = fn(q, k, v, act, **kw)
+    assert (_build.launches[kernel], _build.launches[f"{kernel}_f32"],
+            _build.launches[f"{kernel}_wgmma"]) == (1, 1, 0)
+    _close(got, plain(q, k, v, act, **kw))
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block_q,block_kv,sq,skv,valid,with_bias", [
+    (32, 32, 128, 128, 100, False),         # small blocks, the tail rule
+    (1024, 1024, 2048, 2048, 1500, False),  # the routed experts' blocks
+    (1024, 1024, 2048, 2048, None, True),   # the joint layouts: kv_bias
+    (96, 96, 384, 384, 380, True),          # 64-row parts: the second of 32
+])
+def test_flash_manual_int8_f32_v_matches_plain(card, d, block_q, block_kv, sq, skv, valid,
+                                               with_bias):
+    """The int8 QK mode with an f32 v on the same int8 q / k as the plain
+    version (exact int32 scores on both sides), a head routed away; counted
+    as flash_manual, flash_manual_f32 and flash_manual_int8."""
+    b, h = 2, 3
+    g = torch.Generator(device=card).manual_seed(44)
+    q8, k8, qk_scale = _int8_qk(card, g, (b, h, sq, d), (b, h, skv, d))
+    v = _f32(g, b, h, skv, d)
+    ki, kc = dense_tables(sq // block_q, skv // block_kv).on(card)
+    kc = torch.where(torch.tensor([True, False, True], device=card)[:, None], kc, 0)
+    kw = dict(block_q=block_q, block_kv=block_kv, kv_valid_len=valid, scale=d**-0.5,
+              qk_scale=qk_scale, softmax="fast")
+    if with_bias:
+        bias = torch.where(torch.rand((1, skv), generator=g, device=card) < 0.3, -1e30, 0.0)
+        bias[:, :block_kv] = -1e30
+        kw["kv_bias"] = bias
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q8, k8, v, ki, kc, **kw)
+    assert (_build.launches["flash_manual"], _build.launches["flash_manual_f32"],
+            _build.launches["flash_manual_int8"], _build.launches["flash_manual_wgmma"]) == \
+        (1, 1, 1, 0)
+    _close(got, sparse_flash_attention_manual_ref(q8, k8, v, ki, kc, **kw))
+    assert not got[:, 1].any()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("latent,tile,lt", [
+    ((12, 18, 20), (4, 6, 4), 0),         # the 480p tile
+    ((8, 6, 32), (2, 3, 8), 0),           # clamping on t and w
+    ((12, 18, 16), (6, 9, 8), 256),       # HunyuanVideo's 432-token tile, int8 text keys
+    ((4, 9, 80), (4, 9, 10), 24),         # 360-token tiles, 24 text keys
+])
+def test_sta_pipe_int8_f32_v_matches_plain(card, d, latent, tile, lt):
+    from vorta_tpu_torch.ops.routed_fused import quantize_per_head
+
+    b, h = 2, 3
+    s = int(np.prod(latent))
+    g = torch.Generator(device=card).manual_seed(45)
+    q8, k8, qk_scale = _int8_qk(card, g, (b, h, s, d))
+    v = _f32(g, b, h, s, d)
+    active = torch.tensor([1, 0, 1], device=card, dtype=torch.int32)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=d**-0.5,
+              qk_scale=qk_scale)
+    if lt:
+        kw.update(text_k=quantize_per_head(_f32(g, b, h, lt, d))[0], text_v=_f32(g, b, h, lt, d),
+                  text_bias=torch.where(torch.arange(lt, device=card) < min(83, lt - 3), 0.0,
+                                        -1e30)[None])
+    _build.reset_launches()
+    got = sta_pipe_attention(q8, k8, v, active, **kw)
+    assert (_build.launches["sta_pipe"], _build.launches["sta_pipe_f32"],
+            _build.launches["sta_pipe_int8"], _build.launches["sta_pipe_wgmma"]) == (1, 1, 1, 0)
+    _close(got, sta_pipe_attention_ref(q8, k8, v, active, **kw))
+    assert not got[:, 1].any()
+
+
 @pytest.mark.parametrize("dim", [128, 1000, 1536, 5120])
 @pytest.mark.parametrize("rms,affine,mod", [(False, False, True), (True, True, False),
                                             (False, True, True)])
@@ -3201,10 +3334,28 @@ def test_f32_c_entries_refuse_what_their_rules_refuse(card):
     assert flash(None, 128, 12) != 0
     act = torch.ones(1, dtype=torch.int32, device=card)
     sta = _sta_f32_fn()
-    args = [*p, act.data_ptr(), None, None, None, 0, 1, 1, 4, 4, 4]
+    args = [*p, act.data_ptr(), None, None, None, None, 0, 1, 1, 4, 4, 4]
     assert sta(*args, 96, 2, 2, 2, 3, 3, 3, 0, stream) != 0
     assert sta(*args, 128, 2, 2, 2, 3, 3, 3, 0, stream) == 0
     assert sta(*args, 128, 3, 2, 2, 3, 3, 3, 0, stream) != 0
+    # the int8 mode (a qk factor) takes the fast softmax only
+    qkc = torch.ones(1, device=card)
+    args8 = [*p, act.data_ptr(), None, None, None, qkc.data_ptr(), 0, 1, 1, 4, 4, 4]
+    assert sta(*args8, 128, 2, 2, 2, 3, 3, 3, 1, stream) != 0
+    for name, tw in (("sta_window", 2), ("sta_row", 8)):
+        fn = getattr(_build.load(name), f"vorta_{name}_fwd_f32")
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_int] * 13 + [
+            ctypes.c_void_p]
+        wq = torch.zeros((1, 1, 4 * 4 * 2 * tw, 128), device=card)
+        wp = [wq.data_ptr()] * 4 + [act.data_ptr(), None, None, None, 0.1, 0, 1, 1, 4, 4,
+                                    2 * tw]
+        assert fn(*wp, 128, 2, 2, tw, 3, 3, 3, stream) == 0
+        assert fn(*wp, 96, 2, 2, tw, 3, 3, 3, stream) != 0
+        assert fn(*wp, 128, 3, 2, tw, 3, 3, 3, stream) != 0
+        assert fn(*[*wp[:4], None, *wp[5:]], 128, 2, 2, tw, 3, 3, 3, stream) != 0  # no active
+    wr = getattr(_build.load("sta_row"), "vorta_sta_row_fwd_f32")
+    assert wr(*[wq.data_ptr()] * 4, act.data_ptr(), None, None, None, 0.1, 0, 1, 1, 4, 4, 16,
+              128, 2, 2, 4, 3, 3, 3, stream) != 0  # tile_w not a multiple of 8
     torch.cuda.synchronize()
 
 

@@ -84,10 +84,16 @@ GROUPS = build_lowres_groups((4, 4, 4), (2, 2, 2))
 
 
 def _calls(dtype):
-    """One call of each of the eight kernels' wrappers on meta tensors."""
+    """One call of each of the eight kernels' wrappers on meta tensors, and
+    of the window-dense kernels and the int8 QK modes: int8 q / k with a v
+    of ``dtype`` in flash_manual and sta_pipe (int8 text keys), sta_window
+    and sta_row."""
     ki = torch.zeros((1, 2, 2), dtype=torch.int32)
     kc = torch.full((1, 2), 2, dtype=torch.int32)
     q = _t(1, 2, 64, 64, dtype=dtype)
+    q8 = _t(1, 2, 64, 64, dtype=torch.int8)
+    qw = _t(1, 2, 4 * 6 * 16, 128, dtype=dtype)  # a geometry both window-dense kernels take
+    wgrid = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
     x = _t(1, 64, 256, dtype=dtype)
     cos = _t(64, 32)
     bits = torch.full((1, 2, 2), -1, dtype=torch.int32)
@@ -112,6 +118,14 @@ def _calls(dtype):
         "pool_qkv": lambda: pool_qkv(q, q, q, GROUPS, active=act, return_picks=True),
         "unpool": lambda: unpool(q[:, :, :GROUPS.pooled_length], q, GROUPS, picks=picks,
                                  active=act),
+        "flash_manual_int8_f32_v": lambda: sparse_flash_attention_manual(
+            q8, q8, q, ki, kc, block_q=32, block_kv=32, qk_scale=torch.ones(2),
+            softmax="fast"),
+        "sta_pipe_int8_f32_v": lambda: sta_pipe_attention(
+            q8, q8, q, act, qk_scale=torch.ones(2), latent_shape=(4, 4, 4), tile=(2, 2, 2),
+            text_k=_t(1, 2, 8, 64, dtype=torch.int8), text_v=_t(1, 2, 8, 64, dtype=dtype)),
+        "sta_window": lambda: sta_window_attention(qw, qw, qw, act, **wgrid),
+        "sta_row": lambda: sta_row_attention(qw, qw, qw, act, **wgrid),
     }
 
 
@@ -125,6 +139,11 @@ ENTRIES = {  # (library, f32 entry, bf16 entry)
     "prologue": ("prologue", "vorta_qk_prologue", "vorta_qk_prologue"),
     "pool_qkv": ("coreset_pool", "vorta_coreset_pool_f32", "vorta_coreset_pool_bf16"),
     "unpool": ("coreset_pool", "vorta_coreset_unpool_f32", "vorta_coreset_unpool_bf16"),
+    "flash_manual_int8_f32_v": ("flash_manual", "vorta_flash_manual_fwd_f32",
+                                "vorta_flash_manual_fwd_bf16"),
+    "sta_pipe_int8_f32_v": ("sta_pipe", "vorta_sta_fwd_f32", "vorta_sta_fwd_bf16"),
+    "sta_window": ("sta_window", "vorta_sta_window_fwd_f32", "vorta_sta_window_fwd_bf16"),
+    "sta_row": ("sta_row", "vorta_sta_row_fwd_f32", "vorta_sta_row_fwd_bf16"),
 }
 
 
@@ -144,25 +163,15 @@ def _unported():
     ki = torch.zeros((1, 2, 2), dtype=torch.int32)
     kc = torch.full((1, 2), 2, dtype=torch.int32)
     q = _t(1, 2, 64, 64)
-    q8 = _t(1, 2, 64, 64, dtype=torch.int8)
     act = torch.ones(2, dtype=torch.int32)
     grid = dict(latent_shape=(4, 4, 4), tile=(2, 2, 2))
-    qw = _t(1, 2, 4 * 6 * 16, 128)  # a geometry both window-dense kernels take
-    wgrid = dict(latent_shape=(4, 6, 16), tile=(2, 3, 8))
     from vorta_tpu_torch.tools.bench_pool import copy_probe
     from vorta_tpu_torch.tools.sta_diag import sta_diag_attention
 
     return {
-        "flash_manual_int8_f32_v": ("A8", lambda: sparse_flash_attention_manual(
-            q8, q8, q, ki, kc, block_q=32, block_kv=32, qk_scale=torch.ones(2),
-            softmax="fast")),
-        "sta_pipe_int8_f32_v": ("A8", lambda: sta_pipe_attention(
-            q8, q8, q, act, qk_scale=torch.ones(2), **grid)),
         "sta_pipe_variant": ("A7", lambda: sta_pipe_attention(
             _t(1, 2, 4 * 4 * 16, 64), _t(1, 2, 4 * 4 * 16, 64), _t(1, 2, 4 * 4 * 16, 64), act,
             latent_shape=(4, 4, 16), tile=(2, 2, 8), variant="dots")),
-        "sta_window": ("A5", lambda: sta_window_attention(qw, qw, qw, act, **wgrid)),
-        "sta_row": ("A5", lambda: sta_row_attention(qw, qw, qw, act, **wgrid)),
         "fused_residual_norm": ("A6", lambda: fused_residual_norm(
             _t(1, 4, 256), _t(1, 4, 256), None, None, None, None, None, 1e-6)),
         "sta_diag": ("A7", lambda: sta_diag_attention(q, q, q, **grid)),
@@ -182,6 +191,44 @@ def test_what_stays_unported_raises_naming_its_roadmap_item(meta_card, case):
     is asked for."""
     item, call = _unported()[case]
     with pytest.raises(NotImplementedError, match=item):
+        call()
+    assert meta_card == []
+
+
+def _int8_mixes():
+    ki = torch.zeros((1, 2, 2), dtype=torch.int32)
+    kc = torch.full((1, 2), 2, dtype=torch.int32)
+    q8, q, qb = _t(1, 2, 64, 64, dtype=torch.int8), _t(1, 2, 64, 64), _t(1, 2, 64, 64,
+                                                                          dtype=torch.bfloat16)
+    t8, tv = _t(1, 2, 8, 64, dtype=torch.int8), _t(1, 2, 8, 64)
+    act = torch.ones(2, dtype=torch.int32)
+    qs = torch.ones(2)
+    grid = dict(latent_shape=(4, 4, 4), tile=(2, 2, 2), qk_scale=qs)
+    manual = dict(block_q=32, block_kv=32, qk_scale=qs, softmax="fast")
+    return {
+        "flash_manual_int8_q_f32_k": (ValueError, lambda: sparse_flash_attention_manual(
+            q8, q, q, ki, kc, **manual)),
+        "flash_manual_int8_qk_f16_v": (NotImplementedError, lambda: sparse_flash_attention_manual(
+            q8, q8, q.half(), ki, kc, **manual)),
+        "sta_pipe_int8_q_bf16_k": (ValueError, lambda: sta_pipe_attention(q8, qb, q, act, **grid)),
+        "sta_pipe_int8_text_k_no_text_v": (ValueError, lambda: sta_pipe_attention(
+            q8, q8, q, act, text_k=t8, **grid)),
+        "sta_pipe_bf16_text_v_beside_f32_v": (NotImplementedError, lambda: sta_pipe_attention(
+            q8, q8, q, act, text_k=t8, text_v=tv.bfloat16(), **grid)),
+        "sta_pipe_f32_text_v_beside_bf16_v": (NotImplementedError, lambda: sta_pipe_attention(
+            q8, q8, qb, act, text_k=t8, text_v=tv, **grid)),
+        "sta_pipe_f32_text_k_with_qk_scale": (ValueError, lambda: sta_pipe_attention(
+            q8, q8, q, act, text_k=tv, text_v=tv, **grid)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_int8_mixes()))
+def test_int8_qk_modes_refuse_mixed_dtypes(meta_card, case):
+    """The int8 QK modes take int8 q / k (and text keys) with a bf16 or an
+    f32 v of one dtype with text_v: any other mix raises before a library
+    is asked for."""
+    error, call = _int8_mixes()[case]
+    with pytest.raises(error):
         call()
     assert meta_card == []
 
@@ -224,6 +271,7 @@ GEOMETRIES = [  # (latent, tile, window, head dim, joint text length or None)
     ((12, 45, 80), (6, 9, 8), (3, 3, 3), 128, 256),    # HunyuanVideo-13B 45f
     ((12, 45, 80), (2, 9, 8), (3, 3, 3), 128, 256),
     ((12, 45, 80), (4, 9, 10), (3, 3, 3), 128, 256),
+    ((8, 45, 80), (4, 9, 10), (3, 3, 3), 128, None),   # Wan 720p x 29f, the f32 smoke's
     ((30, 45, 80), (6, 9, 8), (3, 3, 3), 128, 256),    # 117f
     ((4, 6, 16), (2, 2, 2), (3, 3, 3), 64, 24),        # hunyuan-tiny
     ((4, 6, 16), (4, 6, 8), (3, 3, 3), 64, 24),
@@ -299,10 +347,10 @@ def test_entry_points_take_f32_on_cuda(entry, monkeypatch, capsys):
     assert "A3" not in capsys.readouterr().err
 
 
-def test_the_trainer_still_refuses_f32_on_cuda_naming_training_in_f32(monkeypatch, tmp_path):
-    """Training in f32 on the card is ported (the name is the test's from
-    before that): --dtype fp32 parses at the default device, and a run
-    without a card stops at the device check, not at an f32 refusal."""
+def test_the_trainer_takes_f32_on_cuda(monkeypatch, tmp_path):
+    """Training in f32 on the card is ported: --dtype fp32 parses at the
+    default device, and a run without a card stops at the device check,
+    not at an f32 refusal."""
     from vorta_tpu_torch.cli import train
 
     args = train.parse_args(["--dtype", "fp32", "--output_dir", str(tmp_path)])

@@ -6,7 +6,8 @@ with JAX's defaults must give JAX's numbers, the Pallas kernels run in
 interpret mode, once per kernel), the keywords of sparse_flash_attention_raw
 that JAX's wrapper takes (``tokens_per_tile`` and ``cast_p_to_v_dtype``
 refused as NotImplementedError, the other wrappers' refusal, not a
-TypeError), and the public names the JAX modules have (each against its
+TypeError), the subpackages' re-exports (each JAX subpackage's names, the
+port's own objects), and the public names the JAX modules have (each against its
 JAX namesake on the same numpy inputs; the parallel package's at one rank,
 a gloo group of this process against JAX's one-device axis; and the
 chunked attention's recompute backward against JAX's autodiff).  Tolerances: f32 on both sides,
@@ -454,6 +455,36 @@ def test_parallel_and_training_names_match_jax():
             p for p in got if p not in ("sp_group", "dp_group", "frozen_sharded",
                                         "remat_blocks")]
     assert callable(step.frozen_sharding_specs)
+
+
+PACKAGES = ("ops", "training", "schedulers", "pipelines", "models", "io", "parallel")
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+def test_package_reexports_match_jax(package):
+    """Each JAX subpackage's public names, less its submodules, import from
+    the port's namesake, and each is the port's own object: the one its
+    namesake submodule defines, never the JAX package's."""
+    import importlib
+    import types
+
+    jpkg = importlib.import_module(f"vorta_tpu.{package}")
+    pkg = importlib.import_module(f"vorta_tpu_torch.{package}")
+    public = {n for n, x in vars(jpkg).items()
+              if not n.startswith("_") and not isinstance(x, types.ModuleType)}
+    assert public, package
+    assert public <= set(dir(pkg)), sorted(public - set(dir(pkg)))
+    for name in sorted(public):
+        where = getattr(jpkg, name).__module__.replace("vorta_tpu.", "vorta_tpu_torch.", 1)
+        assert getattr(pkg, name) is getattr(importlib.import_module(where), name), name
+        assert getattr(pkg, name).__module__.startswith("vorta_tpu_torch."), name
+
+
+def test_training_package_exports_the_train_step():
+    from vorta_tpu_torch.training import make_router_train_step
+    from vorta_tpu_torch.training.step import make_router_train_step as from_step
+
+    assert make_router_train_step is from_step
 
 
 def test_chunked_recompute_matches_jax_autodiff():

@@ -165,7 +165,7 @@ def test_fit_cache_poly_matches_the_jax_tool(tmp_path, monkeypatch, capsys):
     assert np.isfinite(tline["r2"])
 
 
-def test_fit_cache_poly_refuses_f32_on_cuda(capsys, monkeypatch):
+def test_fit_cache_poly_takes_f32_on_cuda(capsys, monkeypatch):
     """wan-tiny runs in f32 on the card too (the kernels' f32 modes): the
     flags parse, and without a card the run stops at the device check, not
     at an f32 refusal."""

@@ -301,10 +301,9 @@ def test_cli_requires_native_attention(tmp_path, capsys):
     assert "routing=hard" in printed and "heads routed over 4 forwards" in printed
 
 
-def test_cli_takes_fp32_only_on_the_cpu(monkeypatch):
-    """--dtype fp32 is taken on both devices since the kernels' f32 modes
-    (the name is the test's from before them): the flags parse with the
-    card's default device, and without a card the run stops at the device
+def test_cli_takes_fp32_on_both_devices(monkeypatch):
+    """--dtype fp32 is taken on both devices since the kernels' f32 modes:
+    the flags parse with the card's default device, and without a card the run stops at the device
     check, not at an f32 refusal."""
     from vorta_tpu_torch.cli.sample import main, parse_args
 

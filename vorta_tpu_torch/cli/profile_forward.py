@@ -92,8 +92,8 @@ GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel", "sta_pipe_f32_kernel")),
     # sta_row's Hopper path is sta_window_sm90_kernel too (one kernel, two
     # wrappers): no served geometry reaches sta_row
-    ("sta_window", ("sta_window_kernel", "sta_window_sm90_kernel")),
-    ("sta_row", ("sta_row_kernel",)),
+    ("sta_window", ("sta_window_kernel", "sta_window_sm90_kernel", "sta_window_f32_kernel")),
+    ("sta_row", ("sta_row_kernel", "sta_row_f32_kernel")),
     ("sta_batched", ("sta_batched_kernel", "sta_batched_sm90_kernel", "sta_batched_live_kernel",
                      "sta_batched_f32_kernel")),
     ("unpool", ("unpool_kernel", "unpool_rows_kernel")),

@@ -4,12 +4,25 @@
 //
 // Its users and their walks: csrc/flash.cu and csrc/flash_manual.cu
 // (TableWalk below: the block tables, the kv tail rule, kv_bias, per-head
-// counts), csrc/sta_batched.cu (TableWalk plus the pair bits) and
-// csrc/sta_pipe.cu (the window box and the text tail).  They replace the f32
-// modes of vorta_tpu/ops/flash.py:_flash_kernel, flash_manual.py:_kernel,
-// sta_batched.py:_kernel and sta_pipe.py:_kernel: the TPU kernels take their
+// counts), csrc/sta_batched.cu (TableWalk plus the pair bits), and
+// csrc/sta_pipe.cu, csrc/sta_window.cu and csrc/sta_row.cu (WindowWalk of
+// csrc/window_walk_f32.cuh: the window box and the text tail).  They replace
+// the f32 modes of vorta_tpu/ops/flash.py:_flash_kernel,
+// flash_manual.py:_kernel, sta_batched.py:_kernel, sta_pipe.py:_kernel,
+// sta_window.py:_kernel and sta_row.py:_kernel: the TPU kernels take their
 // input dtype, and the JAX package runs the tiny models and `--dtype fp32`
 // in f32 throughout.
+//
+// The int8 QK mode (I8; flash_manual.py:125-133 and sta_pipe.py:197 with an
+// f32 v, the JAX CLI's `--qk_int8 --dtype fp32`): q and k arrive as int8
+// (per-head symmetric quantization), q not pre-scaled.  Q and K are staged
+// as int8 in shared memory, each row padded by 16 bytes (so the 16 key rows
+// a thread group reads fall on distinct banks), and each score is D / 4
+// __dp4a over 32-bit words: the int32 sum is exact, |sum| <= D * 127^2 <
+// 2^24, so its conversion to f32 is exact too, and the caller's mul (the
+// head's qk_scale * scale * log2(e)) multiplies it with no FMA, as the plain
+// version's f32 product of the exact sums.  Bias, masks and the softmax
+// follow unchanged; P, V and the PV product stay f32.
 //
 // Semantics, per query row and key: s = q.k * mul + bias, mul = scale *
 // log2(e) where q arrives unscaled (flash, the stable softmax of
@@ -60,6 +73,7 @@ template <int D>
 struct Layout {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
   static constexpr int LDQ = D + 4;   // Q and K tile rows (floats)
+  static constexpr int LDQ8 = D + 16; // Q and K tile rows in the int8 mode (bytes)
   static constexpr int LDP = BK + 4;  // P tile rows, over K's
   static constexpr int Q = 0;
   static constexpr int K = Q + BQ * LDQ;
@@ -67,6 +81,8 @@ struct Layout {
   static constexpr int META = V + BK * D;  // then BK K pointers, BK V pointers, BK biases
   static constexpr int BYTES = META * 4 + BK * (2 * 8 + 4);
   static_assert(BQ * LDP <= BK * LDQ, "P fits over K");
+  static_assert(BQ * LDQ8 <= BQ * LDQ * 4, "int8 Q and K fit their f32 tiles");
+  static_assert(BK * D % (16 * THREADS) == 0, "whole 16-byte loads of an int8 K tile");
   static_assert((META * 4) % 16 == 0, "pointer table aligned");
 };
 
@@ -74,38 +90,62 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
+__device__ __forceinline__ int4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const int4*>(p));
+}
+
+// Row `row` of a (rows, D) tensor of kb-byte elements at base.
+__device__ __forceinline__ const void* row_ptr(const void* base, long long row, int D, int kb) {
+  return static_cast<const char*>(base) + row * D * kb;
+}
+
 // The core: Walk gives the CTA's rows and its chunks.
 //   int rows()                      query rows of this CTA (0..BQ)
 //   long long q_off(int r)          element offset of row r in q and out
 //   int chunks()                    kv chunks (0 for an inactive head)
-//   void key(int c, int j, const float*& kp, const float*& vp, float& bias)
-//                                   key j < BK of chunk c: its K and V rows
-//                                   (null: masked) and bias
+//   void key(int c, int j, const void*& kp, const float*& vp, float& bias)
+//                                   key j < BK of chunk c: its K row (f32, or
+//                                   int8 where I8) and V row (null: masked)
+//                                   and bias
 //   static constexpr bool PAIRS; bool visible(int c, int r, int j) (only where PAIRS)
 //                                   per (row, key) visibility (pair bits)
-// lse: null, or (rows of q) f32 written at q_off(r) / D (stable softmax only).
-template <int D, class Walk>
-__device__ __forceinline__ void attend(const Walk& walk, const float* __restrict__ q,
+// q: f32, or int8 where I8.  lse: null, or (rows of q) f32 written at
+// q_off(r) / D (stable softmax only).
+template <int D, class Walk, bool I8 = false>
+__device__ __forceinline__ void attend(const Walk& walk, const void* __restrict__ q,
                                        float* __restrict__ out, float mul, bool stable,
                                        float* __restrict__ lse = nullptr) {
   using L = Layout<D>;
   constexpr int NG = D / 64;                 // float4 column groups a thread owns
   constexpr int KV_LOADS = BK * D / 4 / THREADS;
+  constexpr int K8_LOADS = BK * D / 16 / THREADS;  // int8 K: 16-byte loads
   extern __shared__ __align__(16) float sm[];
   float* Qs = sm + L::Q;
   float* Ks = sm + L::K;
   float* Vs = sm + L::V;
   float* Ps = Ks;
-  const float** kptr = reinterpret_cast<const float**>(sm + L::META);
-  const float** vptr = kptr + BK;
+  char* Q8 = reinterpret_cast<char*>(Qs);
+  char* K8 = reinterpret_cast<char*>(Ks);
+  const void** kptr = reinterpret_cast<const void**>(sm + L::META);
+  const float** vptr = reinterpret_cast<const float**>(kptr + BK);
   float* bias = reinterpret_cast<float*>(vptr + BK);
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int nrows = walk.rows();
-  for (int e = tid; e < BQ * D / 4; e += THREADS) {
-    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
-    const float4 x = r < nrows ? ld4(q + walk.q_off(r) + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(Qs + r * L::LDQ + c) = x;
+  if constexpr (I8) {
+    for (int e = tid; e < BQ * D / 16; e += THREADS) {
+      const int r = e / (D / 16), c = (e % (D / 16)) * 16;
+      const int4 x = r < nrows ? ld16(static_cast<const char*>(q) + walk.q_off(r) + c)
+                               : make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(Q8 + r * L::LDQ8 + c) = x;
+    }
+  } else {
+    for (int e = tid; e < BQ * D / 4; e += THREADS) {
+      const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+      const float4 x = r < nrows ? ld4(static_cast<const float*>(q) + walk.q_off(r) + c)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(Qs + r * L::LDQ + c) = x;
+    }
   }
 
   float o[4][4 * NG];
@@ -122,7 +162,8 @@ __device__ __forceinline__ void attend(const Walk& walk, const float* __restrict
   for (int ch = 0; ch < nchunks; ++ch) {
     __syncthreads();  // the previous chunk's P and V are consumed (and Q staged)
     if (tid < BK) {
-      const float *kp, *vp;
+      const void* kp;
+      const float* vp;
       float b;
       walk.key(ch, tid, kp, vp, b);
       kptr[tid] = kp;
@@ -132,47 +173,97 @@ __device__ __forceinline__ void attend(const Walk& walk, const float* __restrict
     __syncthreads();
     {
       float4 kx[KV_LOADS], vx[KV_LOADS];
+      int4 k8[K8_LOADS];
 #pragma unroll
       for (int u = 0; u < KV_LOADS; ++u) {
         const int e = tid + u * THREADS, j = e / (D / 4), c = (e % (D / 4)) * 4;
-        const float *kp = kptr[j], *vp = vptr[j];
-        kx[u] = kp ? ld4(kp + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float* vp = vptr[j];
         vx[u] = vp ? ld4(vp + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (!I8) {
+          const float* kp = static_cast<const float*>(kptr[j]);
+          kx[u] = kp ? ld4(kp + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      if constexpr (I8) {
+#pragma unroll
+        for (int u = 0; u < K8_LOADS; ++u) {
+          const int e = tid + u * THREADS, j = e / (D / 16), c = (e % (D / 16)) * 16;
+          const void* kp = kptr[j];
+          k8[u] = kp ? ld16(static_cast<const char*>(kp) + c) : make_int4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < K8_LOADS; ++u) {
+          const int e = tid + u * THREADS, j = e / (D / 16), c = (e % (D / 16)) * 16;
+          *reinterpret_cast<int4*>(K8 + j * L::LDQ8 + c) = k8[u];
+        }
       }
 #pragma unroll
       for (int u = 0; u < KV_LOADS; ++u) {
         const int e = tid + u * THREADS, j = e / (D / 4), c = (e % (D / 4)) * 4;
-        *reinterpret_cast<float4*>(Ks + j * L::LDQ + c) = kx[u];
+        if constexpr (!I8) *reinterpret_cast<float4*>(Ks + j * L::LDQ + c) = kx[u];
         *reinterpret_cast<float4*>(Vs + j * D + c) = vx[u];
       }
     }
     __syncthreads();
 
     float s[4][4];
+    if constexpr (I8) {
+      int acc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+#pragma unroll 2
+      for (int d = 0; d < D; d += 16) {
+        int4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const int4*>(Q8 + (ty + 16 * i) * L::LDQ8 + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const int4*>(K8 + (tx + 16 * j) * L::LDQ8 + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            int a = acc[i][j];
+            a = __dp4a(qv[i].x, kv[j].x, a);
+            a = __dp4a(qv[i].y, kv[j].y, a);
+            a = __dp4a(qv[i].z, kv[j].z, a);
+            a = __dp4a(qv[i].w, kv[j].w, a);
+            acc[i][j] = a;
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = static_cast<float>(acc[i][j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+      for (int d = 0; d < D; d += 4) {
+        float4 qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * L::LDQ + d);
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * L::LDQ + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * L::LDQ + d);
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * L::LDQ + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
-        }
+          for (int j = 0; j < 4; ++j) {
+            float a = s[i][j];
+            a = fmaf(qv[i].x, kv[j].x, a);
+            a = fmaf(qv[i].y, kv[j].y, a);
+            a = fmaf(qv[i].z, kv[j].z, a);
+            a = fmaf(qv[i].w, kv[j].w, a);
+            s[i][j] = a;
+          }
+      }
     }
 
     // scores, the running max and the rescale of this thread's rows
@@ -186,7 +277,8 @@ __device__ __forceinline__ void attend(const Walk& walk, const float* __restrict
         const int key = tx + 16 * j;
         bool ok = kptr[key] != nullptr;
         if constexpr (Walk::PAIRS) ok = ok && walk.visible(ch, r, key);
-        const float x = ok ? s[i][j] * mul + bias[key] : NEG;
+        // the int8 mode's product unfused: the plain version's f32 product of the exact sum
+        const float x = ok ? (I8 ? __fmul_rn(s[i][j], mul) : s[i][j] * mul) + bias[key] : NEG;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -270,12 +362,15 @@ __device__ __forceinline__ void attend(const Walk& walk, const float* __restrict
 // valid_in_block.. of block last_block (-1: none, flash.py:202-207); kv_bias
 // (Skv,) or null.  PAIRS: sta_batched's pair bits, bit (row // tpt) * k_sub
 // + col // tpt of the entry's word (rows and columns within their blocks).
+// kb: bytes of a K element (4, or 1 for int8 K).
 struct TableParams {
-  const float *k, *v;
+  const void* k;
+  const float* v;
   const int *kv_index, *kv_count, *pair_bits, *active;
   const float* kv_bias;
   int H, Sq, Skv, D, nq, width, idx_shared, cnt_shared, block_q, block_kv, last_block,
       valid_in_block, tpt, k_sub;
+  int kb = 4;
 };
 
 template <bool PAIRS_>
@@ -305,14 +400,15 @@ struct TableWalk {
   __device__ int entry(int c) const {
     return ((p.idx_shared ? 0 : h) * p.nq + qi) * p.width + c / spb;
   }
-  __device__ void key(int c, int j, const float*& kp, const float*& vp, float& bias) const {
+  __device__ void key(int c, int j, const void*& kp, const float*& vp, float& bias) const {
     const int col = (c % spb) * BK + j;
     const int kvb = p.kv_index[entry(c)];
-    kp = vp = nullptr;
+    kp = nullptr;
+    vp = nullptr;
     bias = 0.f;
     if (col >= p.block_kv || (kvb == p.last_block && col >= p.valid_in_block)) return;
     const long long row = static_cast<long long>(kvb) * p.block_kv + col;
-    kp = p.k + (bh * p.Skv + row) * p.D;
+    kp = row_ptr(p.k, bh * p.Skv + row, p.D, p.kb);
     vp = p.v + (bh * p.Skv + row) * p.D;
     if (p.kv_bias) bias = p.kv_bias[row];
   }

@@ -52,7 +52,10 @@
 // qk_scale[h] * scale * log2(e), before the bias and the tail rule.  Q's and
 // K's tiles halve; V, P and the PV product stay bf16.  The card runs int8
 // at twice the bf16 rate (1,979 vs 989 T/s dense), so the QK half of the
-// work is bounded at half the time.
+// work is bounded at half the time.  With an f32 v (the JAX CLI's
+// --qk_int8 --dtype fp32) the f32 mode's kernel takes int8 q / k instead
+// (flash_manual_f32_kernel<D, true>: csrc/attn_f32.cuh's int8 QK, exact
+// int32 sums by dp4a times qk_scale[h] * scale * log2(e), P and PV in f32).
 //
 // The stable softmax (STABLE; flash_manual.py:140-169, the JAX wrapper's
 // default): q is NOT pre-scaled; the f32 scores are scaled by
@@ -62,6 +65,8 @@
 // sums and the accumulator rescaled by exp2(m_old - m_safe) at every
 // sub-tile (stable_update, mma_bf16.cuh).  Counts 0 and rows that see
 // nothing still give 0.  bf16 q / k only (the int8 mode is fast-only).
+#include <type_traits>
+
 #include "attn_sm90.cuh"
 #include "attn_f32.cuh"
 #include "mma_s8.cuh"
@@ -307,13 +312,16 @@ extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const v
 
 namespace {
 
-template <int D>
+// I8: int8 q / k with an f32 v (the int8 QK mode of the f32 path): the
+// scores are the exact int32 sums (dp4a) times qkc[h].
+template <int D, bool I8>
 __global__ void __launch_bounds__(vorta::f32::THREADS, 2)
-flash_manual_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
+flash_manual_f32_kernel(const void* __restrict__ q, float* __restrict__ out,
                         const __grid_constant__ vorta::f32::TableParams p, float mul,
-                        int stable) {
+                        const float* __restrict__ qkc, int stable) {
   const vorta::f32::TableWalk<false> walk(p);
-  vorta::f32::attend<D>(walk, q, out, mul, stable != 0);
+  vorta::f32::attend<D, vorta::f32::TableWalk<false>, I8>(walk, q, out, I8 ? qkc[walk.h] : mul,
+                                                          stable != 0);
 }
 
 }  // namespace
@@ -323,33 +331,43 @@ flash_manual_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
 // vorta_flash_manual_fwd_bf16; block_q and block_kv multiples of 8, D 64 or
 // 128.  stable: the stable softmax, q not pre-scaled, the scores times sl =
 // scale * log2(e); else the fast one, q pre-scaled in f32 by the wrapper.
-// P kept in f32.  No int8 QK here (an f32 v with int8 q / k is a ROADMAP
-// item).  Returns the CUDA error code.
+// P kept in f32.  qk_factor: null, or (H,) f32 qk_scale * scale * log2(e)
+// on the device with q and k int8 (q not pre-scaled; the fast softmax): the
+// int8 QK mode with an f32 v.  Returns the CUDA error code.
 extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const void* v,
                                           void* out, const void* kv_index, const void* kv_count,
-                                          const void* kv_bias, int B, int H, int Sq, int Skv,
-                                          int D, int idx_heads, int cnt_heads, int nq, int width,
-                                          int block_q, int block_kv, int kv_valid_len,
-                                          int stable, float sl, void* stream) {
+                                          const void* kv_bias, const void* qk_factor, int B,
+                                          int H, int Sq, int Skv, int D, int idx_heads,
+                                          int cnt_heads, int nq, int width, int block_q,
+                                          int block_kv, int kv_valid_len, int stable, float sl,
+                                          void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128) ||
       (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
-      nq != Sq / block_q)
+      nq != Sq / block_q || (qk_factor && stable))
     return static_cast<int>(cudaErrorInvalidValue);
   const int has_tail = kv_valid_len % block_kv != 0;
+  const bool i8 = qk_factor != nullptr;
   const vorta::f32::TableParams p{
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(kv_index), static_cast<const int*>(kv_count), nullptr, nullptr,
-      static_cast<const float*>(kv_bias), H, Sq, Skv, D, nq, width, idx_heads == 1,
-      cnt_heads == 1, block_q, block_kv, has_tail ? kv_valid_len / block_kv : -1,
-      kv_valid_len % block_kv, 1, 1};
+      k, static_cast<const float*>(v), static_cast<const int*>(kv_index),
+      static_cast<const int*>(kv_count), nullptr, nullptr, static_cast<const float*>(kv_bias),
+      H, Sq, Skv, D, nq, width, idx_heads == 1, cnt_heads == 1, block_q, block_kv,
+      has_tail ? kv_valid_len / block_kv : -1, kv_valid_len % block_kv, 1, 1, i8 ? 1 : 4};
   const dim3 grid = vorta::f32::table_grid(B, p);
   const float mul = stable ? sl : 1.f;
   auto st = static_cast<cudaStream_t>(stream);
-  auto* qq = static_cast<const float*>(q);
   auto* oo = static_cast<float*>(out);
-  return static_cast<int>(
-      D == 128 ? vorta::f32::launch<128>(flash_manual_f32_kernel<128>, grid, st, qq, oo, p, mul,
-                                         stable)
-               : vorta::f32::launch<64>(flash_manual_f32_kernel<64>, grid, st, qq, oo, p, mul,
-                                        stable));
+  auto* qf = static_cast<const float*>(qk_factor);
+  auto run = [&](auto kern, auto d) {
+    return vorta::f32::launch<decltype(d)::value>(kern, grid, st, q, oo, p, mul, qf, stable);
+  };
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  cudaError_t err;
+  if (D == 128)
+    err = i8 ? run(flash_manual_f32_kernel<128, true>, D128{})
+             : run(flash_manual_f32_kernel<128, false>, D128{});
+  else
+    err = i8 ? run(flash_manual_f32_kernel<64, true>, D64{})
+             : run(flash_manual_f32_kernel<64, false>, D64{});
+  return static_cast<int>(err);
 }

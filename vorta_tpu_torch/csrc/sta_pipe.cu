@@ -57,7 +57,10 @@
 // as int8 with an (H,) f32 qk_scale = q_scale * k_scale, q not pre-scaled;
 // the window's and the text tail's scores are exact int32 sums of mma.sync
 // m16n8k32 s8 (mma_s8.cuh) times qk_scale[h] * scale * log2(e), then as
-// above.  K's shared-memory tile halves; V, P and PV stay bf16.
+// above.  K's shared-memory tile halves; V, P and PV stay bf16.  With an
+// f32 v and text_v the f32 mode's kernel takes the int8 q / k / text_k
+// instead (sta_pipe_f32_kernel<D, true>: csrc/attn_f32.cuh's int8 QK, exact
+// dp4a sums times the same factor, P and PV in f32).
 //
 // MODE selects the window's softmax and the TPU kernel's diagnostic
 // variants (sta_pipe.py:270-302): FAST (above); STABLE, a running max per
@@ -75,11 +78,11 @@
 
 #include <algorithm>
 
-#include "attn_f32.cuh"
 #include "attn_sm90.cuh"
 #include "mma_s8.cuh"
 #include "sta_common.cuh"
 #include "sta_window_src.cuh"
+#include "window_walk_f32.cuh"
 
 namespace {
 
@@ -441,77 +444,16 @@ extern "C" int vorta_sta_sm90_smem_bytes(int n_slots) { return sta_smem_bytes(n_
 
 namespace {
 
-struct WindowParams {
-  const float *k, *v, *text_k, *text_v, *text_bias;
-  const int* active;
-  int H, T, HH, W, D, tt, th, tw, win_t, win_h, win_w, Lt, parts;
-};
-
-// The window walk: 64-row part `part` of q tile `tile` (the tile's rows in
-// their in-tile raster order, as the plain version's tile_sequence); its
-// window box of bt x bh x bw tokens from the clamped origin in 64-key
-// chunks in (t, h, w) order, then the Lt text keys with their bias.
-struct WindowWalk {
-  static constexpr bool PAIRS = false;
-  const WindowParams& p;  // a __grid_constant__ kernel parameter
-  int h, part, it, ih, iw, tpt, t0, h0, w0, bh, bw, nk, nwc;
-  long long base, text0;
-
-  __device__ WindowWalk(const WindowParams& prm) : p(prm) {
-    const int nt = p.T / p.tt, nh = p.HH / p.th, nw = p.W / p.tw;
-    const int tile = blockIdx.x / p.parts;
-    part = blockIdx.x % p.parts;
-    h = blockIdx.y;
-    it = tile / (nh * nw);
-    ih = (tile / nw) % nh;
-    iw = tile % nw;
-    tpt = p.tt * p.th * p.tw;
-    t0 = vorta::window_start(it, nt, p.win_t, p.tt);
-    h0 = vorta::window_start(ih, nh, p.win_h, p.th);
-    w0 = vorta::window_start(iw, nw, p.win_w, p.tw);
-    bh = min(p.win_h, nh) * p.th;
-    bw = min(p.win_w, nw) * p.tw;
-    nk = min(p.win_t, nt) * p.tt * bh * bw;
-    nwc = (nk + vorta::f32::BK - 1) / vorta::f32::BK;
-    const long long bhh = static_cast<long long>(blockIdx.z) * p.H + h;
-    base = bhh * p.T * p.HH * p.W;
-    text0 = bhh * p.Lt;
-  }
-  __device__ int rows() const { return min(vorta::f32::BQ, tpt - part * vorta::f32::BQ); }
-  __device__ long long q_off(int r) const {
-    const int rr = part * vorta::f32::BQ + r;
-    const int tok = ((it * p.tt + rr / (p.th * p.tw)) * p.HH + ih * p.th + (rr / p.tw) % p.th) *
-                        p.W + iw * p.tw + rr % p.tw;
-    return (base + tok) * p.D;
-  }
-  __device__ int chunks() const {
-    return p.active[h] == 0 ? 0 : nwc + (p.Lt + vorta::f32::BK - 1) / vorta::f32::BK;
-  }
-  __device__ void key(int c, int j, const float*& kp, const float*& vp, float& bias) const {
-    kp = vp = nullptr;
-    bias = 0.f;
-    if (c < nwc) {
-      const int n = c * vorta::f32::BK + j;
-      if (n >= nk) return;
-      const long long tok = ((t0 + n / (bh * bw)) * p.HH + h0 + (n / bw) % bh) * p.W + w0 + n % bw;
-      kp = p.k + (base + tok) * p.D;
-      vp = p.v + (base + tok) * p.D;
-      return;
-    }
-    const int n = (c - nwc) * vorta::f32::BK + j;
-    if (n >= p.Lt) return;
-    kp = p.text_k + (text0 + n) * p.D;
-    vp = p.text_v + (text0 + n) * p.D;
-    bias = p.text_bias[n];
-  }
-};
-
-template <int D>
+// I8: int8 q / k / text_k with an f32 v and text_v (the int8 QK mode of the
+// f32 path): the scores are the exact int32 sums (dp4a) times qkc[h].
+template <int D, bool I8>
 __global__ void __launch_bounds__(vorta::f32::THREADS, 2)
-sta_pipe_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
-                    const __grid_constant__ WindowParams p, int stable) {
-  const WindowWalk walk(p);
-  vorta::f32::attend<D>(walk, q, out, 1.f, stable != 0);
+sta_pipe_f32_kernel(const void* __restrict__ q, float* __restrict__ out,
+                    const __grid_constant__ vorta::f32::WindowParams p,
+                    const float* __restrict__ qkc, int stable) {
+  const vorta::f32::WindowWalk walk(p);
+  vorta::f32::attend<D, vorta::f32::WindowWalk, I8>(walk, q, out, I8 ? qkc[walk.h] : 1.f,
+                                                    stable != 0);
 }
 
 }  // namespace
@@ -521,25 +463,37 @@ sta_pipe_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
 // active (H,) int32; text_k / text_v (B, H, Lt, D) f32 and text_bias (Lt,)
 // f32, or null with Lt = 0.  stable: the stable softmax over the window and
 // the text tail (a running max, as the TPU kernel's stable mode), else the
-// fast one.  D 64 or 128.  P kept in f32.  Returns the CUDA error code.
+// fast one.  qk_factor: null, or (H,) f32 qk_scale * scale * log2(e) with q,
+// k and text_k int8 (q not pre-scaled; the fast softmax): the int8 QK mode
+// with an f32 v.  D 64 or 128.  P kept in f32.  Returns the CUDA error code.
 extern "C" int vorta_sta_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                  const void* active, const void* text_k, const void* text_v,
-                                 const void* text_bias, int Lt, int B, int H, int T, int HH,
-                                 int W, int D, int tt, int th, int tw, int win_t, int win_h,
-                                 int win_w, int stable, void* stream) {
-  if (T % tt || HH % th || W % tw || (D != 64 && D != 128) || win_t < 1 || win_h < 1 ||
-      win_w < 1 || Lt < 0 || (Lt > 0 && (!text_k || !text_v || !text_bias)) || !active)
+                                 const void* text_bias, const void* qk_factor, int Lt, int B,
+                                 int H, int T, int HH, int W, int D, int tt, int th, int tw,
+                                 int win_t, int win_h, int win_w, int stable, void* stream) {
+  if (!vorta::f32::window_shape_ok(T, HH, W, D, tt, th, tw, win_t, win_h, win_w, Lt, text_k,
+                                   text_v, text_bias, active) ||
+      (qk_factor && stable))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tpt = tt * th * tw, parts = (tpt + vorta::f32::BQ - 1) / vorta::f32::BQ;
-  const WindowParams p{static_cast<const float*>(k),      static_cast<const float*>(v),
-                       static_cast<const float*>(text_k), static_cast<const float*>(text_v),
-                       static_cast<const float*>(text_bias), static_cast<const int*>(active),
-                       H, T, HH, W, D, tt, th, tw, win_t, win_h, win_w, Lt, parts};
-  const dim3 grid((T / tt) * (HH / th) * (W / tw) * parts, H, B);
+  const bool i8 = qk_factor != nullptr;
+  const vorta::f32::WindowParams p = vorta::f32::window_params(
+      k, v, text_k, text_v, text_bias, active, Lt, H, T, HH, W, D, tt, th, tw, win_t, win_h,
+      win_w, i8 ? 1 : 4);
+  const dim3 grid = vorta::f32::window_grid(B, p);
   auto st = static_cast<cudaStream_t>(stream);
-  auto* qq = static_cast<const float*>(q);
   auto* oo = static_cast<float*>(out);
-  return static_cast<int>(
-      D == 128 ? vorta::f32::launch<128>(sta_pipe_f32_kernel<128>, grid, st, qq, oo, p, stable)
-               : vorta::f32::launch<64>(sta_pipe_f32_kernel<64>, grid, st, qq, oo, p, stable));
+  auto* qf = static_cast<const float*>(qk_factor);
+  auto run = [&](auto kern, auto d) {
+    return vorta::f32::launch<decltype(d)::value>(kern, grid, st, q, oo, p, qf, stable);
+  };
+  using D64 = std::integral_constant<int, 64>;
+  using D128 = std::integral_constant<int, 128>;
+  cudaError_t err;
+  if (D == 128)
+    err = i8 ? run(sta_pipe_f32_kernel<128, true>, D128{})
+             : run(sta_pipe_f32_kernel<128, false>, D128{});
+  else
+    err = i8 ? run(sta_pipe_f32_kernel<64, true>, D64{})
+             : run(sta_pipe_f32_kernel<64, false>, D64{});
+  return static_cast<int>(err);
 }

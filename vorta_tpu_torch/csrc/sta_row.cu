@@ -37,8 +37,20 @@
 //   on mma.sync m16n8k16 over the n-blocks inside its own window only
 //   (sta_common.cuh), so a staged key serves every warp whose window holds
 //   it.
+//
+// The f32 mode (f32 q / k / v and text, the JAX package's --dtype fp32 at
+// a --resume_dir tile that sends the STA heads here): sta_row_f32_kernel<D>, the same function as
+// sta_window's f32 kernel (the row-dense sharing is a VMEM layout detail), the FFMA
+// core of csrc/attn_f32.cuh over the window walk of
+// csrc/window_walk_f32.cuh (per 64-row part of a q tile, every key of the
+// window then the text tail in 64-key chunks, each staged through its own
+// row pointer, so the (4, 9, 10) tile's runs of 30 need no padding and no
+// masked column), the stable softmax with q unscaled and the scores times
+// sl, P kept in f32.  At 720p x 77f, 8 heads, the work is 2.87e12 FLOP:
+// 42.8 ms at 67 TFLOP/s f32, which bounds it.
 #include "sta_common.cuh"
 #include "sta_window_src.cuh"
+#include "window_walk_f32.cuh"
 
 namespace {
 
@@ -221,4 +233,34 @@ extern "C" int vorta_sta_row_fwd_bf16(const void* q, const void* k, const void* 
                     T, HH, W, tt, th, tw, win_t, win_h, win_w, static_cast<cudaStream_t>(stream));
   };
   return static_cast<int>(D == 128 ? run(launch<128>) : run(launch<64>));
+}
+
+// ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the window ----------
+
+namespace {
+
+// sta_row.py:_kernel at f32 inputs: the stable softmax over the window and the text
+// tail, q unscaled and the scores times sl = scale * log2(e), P kept in f32.
+template <int D>
+__global__ void __launch_bounds__(vorta::f32::THREADS, 2)
+sta_row_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
+                   const __grid_constant__ vorta::f32::WindowParams p, float sl) {
+  const vorta::f32::WindowWalk walk(p);
+  vorta::f32::attend<D>(walk, q, out, sl, /*stable=*/true);
+}
+
+}  // namespace
+
+// The f32 mode (csrc/window_walk_f32.cuh: launch_window_stable's
+// arguments; an inactive head writes zeros); D 64 or 128; tile_w a multiple of 8.
+// Returns the CUDA error code.
+extern "C" int vorta_sta_row_fwd_f32(const void* q, const void* k, const void* v, void* out,
+                                     const void* active, const void* text_k, const void* text_v,
+                                     const void* text_bias, float sl, int Lt, int B, int H, int T,
+                                     int HH, int W, int D, int tt, int th, int tw, int win_t,
+                                     int win_h, int win_w, void* stream) {
+  if (tw % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(vorta::f32::launch_window_stable(
+      sta_row_f32_kernel<64>, sta_row_f32_kernel<128>, q, k, v, out, active, text_k, text_v,
+      text_bias, sl, Lt, B, H, T, HH, W, D, tt, th, tw, win_t, win_h, win_w, stream));
 }

@@ -43,11 +43,14 @@ subset of ``sta_diag``, by ``tools/sta_diag.py:diag_wgmma_path``);
 subset of ``fused_norm``: HunyuanVideo's token-replace row ranges).
 The f32 modes of the f32 serving path count apart too, as subsets of
 their kernel: ``flash_f32``, ``flash_manual_f32``, ``sta_pipe_f32`` and
-``sta_batched_f32`` (``csrc/attn_f32.cuh``'s FFMA core), ``fused_norm_f32``,
-``prologue_f32``, ``pool_qkv_f32`` (of ``pool_qkv`` + ``pool_qkv_headmap``)
-and ``unpool_f32`` (of ``unpool`` + ``unpool_headmap``); those of the f32
-training path's backward, ``flash_dq_f32`` and ``flash_dkv_f32``
-(``csrc/attn_f32_bwd.cuh``), of ``flash_dq`` and ``flash_dkv``.
+``sta_batched_f32``, ``sta_window_f32`` and ``sta_row_f32``
+(``csrc/attn_f32.cuh``'s FFMA core), ``fused_norm_f32``, ``prologue_f32``,
+``pool_qkv_f32`` (of ``pool_qkv`` + ``pool_qkv_headmap``) and ``unpool_f32``
+(of ``unpool`` + ``unpool_headmap``); those of the f32 training path's
+backward, ``flash_dq_f32`` and ``flash_dkv_f32`` (``csrc/attn_f32_bwd.cuh``),
+of ``flash_dq`` and ``flash_dkv``.  The int8 QK mode with an f32 v counts in
+both its modes' counters: ``flash_manual_f32`` and ``flash_manual_int8``,
+``sta_pipe_f32`` and ``sta_pipe_int8``.
 Headers (``*.cuh``) are part of the hash.
 """
 
@@ -76,7 +79,7 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "sta_row_wgmma", "prologue_rows", "sta_diag_wgmma", "unpool_rows",
            "fused_norm_range", "flash_f32", "flash_manual_f32", "sta_pipe_f32",
            "sta_batched_f32", "fused_norm_f32", "prologue_f32", "pool_qkv_f32", "unpool_f32",
-           "flash_dq_f32", "flash_dkv_f32")
+           "flash_dq_f32", "flash_dkv_f32", "sta_window_f32", "sta_row_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -204,10 +204,6 @@ def refuse_unported(kv_valid, pair_bits, tokens_per_tile, cast_p_to_v_dtype: boo
             raise NotImplementedError(why)
 
 
-# The ROADMAP row that the f32 modes still lack here, named by its refusal.
-F32_INT8 = "ROADMAP section 2 A8 (int8 QK with an f32 v)"
-
-
 def _flash_f32_fn():
     fn = _build.load("flash").vorta_flash_fwd_f32
     if fn.argtypes is None:

@@ -45,8 +45,10 @@ its mma.sync kernel (D = 64, other blocks, the stable softmax); f32 q / k
 / v take the f32 mode, its own branch (``csrc/attn_f32.cuh``'s FFMA core,
 either softmax, kv_bias, the tail rule, the count-0 rows; q pre-scaled in
 f32 for the fast softmax; P kept in f32; counted as ``flash_manual_f32``
-too), and int8 q / k with an f32 v raise (ROADMAP section 2 A8); on CPU
-tensors it runs the plain version,
+too), int8 q / k with ``qk_scale`` and an f32 v its int8 mode (the scores
+exact int32 sums by dp4a times the head's factor; counted as
+``flash_manual_f32`` and ``flash_manual_int8``); on CPU tensors it runs the
+plain version,
 ``sparse_flash_attention_manual_ref``.  The TPU wrapper's other options
 (ROADMAP section 1 item 11) raise NotImplementedError.
 """
@@ -59,7 +61,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash import F32_INT8, LOG2E, NEG_INF, _kv_column_limit, refuse_unported, wgmma_path
+from .flash import LOG2E, NEG_INF, _kv_column_limit, refuse_unported, wgmma_path
 
 NEG = -1e30
 SOFTMAXES = ("fast", "stable")
@@ -195,7 +197,7 @@ def _flash_manual_f32_fn():
     fn = _build.load("flash_manual").vorta_flash_manual_fwd_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 13 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 8 + [i] * 13 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -223,7 +225,8 @@ def sparse_flash_attention_manual(
     W) and kv_count: (1 or H, Sq//block_q) int32 tensors (or numpy);
     kv_bias: (1, Skv) f32 or None; qk_scale: (H,) f32 with int8 q / k, or
     None.  On CUDA: bf16 v (and q / k unless int8), D 64 or 128, block_q a
-    multiple of 16; or f32 q / k / v, blocks multiples of 8.  softmax
+    multiple of 16; or f32 v (and q / k unless int8), blocks multiples of
+    8.  softmax
     "stable" (the default, the JAX wrapper's) or "fast" (what every routed
     and joint caller passes; int8 QK needs it)."""
     if qk_scale is not None:
@@ -284,13 +287,14 @@ def sparse_flash_attention_manual(
 
 def _manual_f32(q, k, v, kv_index, kv_count, dev, *, scale: float, block_q: int, block_kv: int,
                 kv_valid_len: int, kv_bias, qk_scale, softmax: str) -> torch.Tensor:
-    """The f32 mode on CUDA: f32 q / k / v, either softmax, through
+    """The f32 mode on CUDA: f32 q / k / v, either softmax, or int8 q / k
+    with ``qk_scale`` (the fast softmax, q not pre-scaled), through
     ``csrc/attn_f32.cuh``."""
-    if qk_scale is not None:
-        raise NotImplementedError(f"int8 q / k with an f32 v in flash_manual is {F32_INT8}")
-    if q.dtype != torch.float32 or k.dtype != torch.float32:
-        raise NotImplementedError(f"the CUDA flash_manual f32 mode takes f32 q / k / v, got "
-                                  f"{q.dtype}, {k.dtype}, {v.dtype}")
+    qk_dtype = torch.float32 if qk_scale is None else torch.int8
+    if q.dtype != qk_dtype or k.dtype != qk_dtype:
+        raise NotImplementedError(f"the CUDA flash_manual f32 mode takes f32 q / k / v, or int8 "
+                                  f"q / k with qk_scale and an f32 v, got {q.dtype}, {k.dtype}, "
+                                  f"{v.dtype}")
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d not in (64, 128) or block_q % 8 or block_kv % 8:
@@ -300,19 +304,22 @@ def _manual_f32(q, k, v, kv_index, kv_count, dev, *, scale: float, block_q: int,
     kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
     bias = None if kv_bias is None else _bias_row(kv_bias, skv).contiguous()
-    _build.require_cuda(q, bias)
+    qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
+    _build.require_cuda(q, bias, qkc)
     stable = softmax == "stable"
-    qs = q if stable else _prescale(q, scale)
+    qs = q if stable or qkc is not None else _prescale(q, scale)
     qs, k, v = (_build.aligned16(t.contiguous()) for t in (qs, k, v))
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
     err = _flash_manual_f32_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_index.data_ptr(),
-        kv_count.data_ptr(), _build.ptr(bias), b, h, sq, skv, d, kv_index.shape[0],
-        kv_count.shape[0], kv_index.shape[1], kv_index.shape[2], block_q, block_kv,
-        kv_valid_len, int(stable), float(scale * LOG2E), _build.stream_ptr(dev))
+        kv_count.data_ptr(), _build.ptr(bias), _build.ptr(qkc), b, h, sq, skv, d,
+        kv_index.shape[0], kv_count.shape[0], kv_index.shape[1], kv_index.shape[2], block_q,
+        block_kv, kv_valid_len, int(stable), float(scale * LOG2E), _build.stream_ptr(dev))
     _build.check(err, "flash_manual (f32)")
     _build.launches["flash_manual"] += 1
     _build.launches["flash_manual_f32"] += 1
+    if qkc is not None:
+        _build.launches["flash_manual_int8"] += 1
     if stable:
         _build.launches["flash_manual_stable"] += 1
     return out

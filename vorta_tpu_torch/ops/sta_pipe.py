@@ -51,11 +51,14 @@ multiples of a slot: every served geometry, with or without the text
 tail), with the slot table of ``window_walk``; else its mma.sync kernel
 (the int8 QK mode, the stable softmax, the variants, D = 64).  f32 q / k /
 v (and text) take the f32 mode, its own branch: ``csrc/attn_f32.cuh``'s FFMA
-core over the window box and the text tail, the fast or stable softmax of
-the full variant, q pre-scaled in f32, P kept in f32 (counted as
-``sta_pipe_f32`` too); the diagnostic variants in f32 raise (ROADMAP
-section 2 A7), as does int8 QK with an f32 v (A8).  On CPU tensors it runs
-the plain version ``sta_pipe_attention_ref``.
+core over the window box and the text tail (``csrc/window_walk_f32.cuh``),
+the fast or stable softmax of the full variant, q pre-scaled in f32, P kept
+in f32 (counted as ``sta_pipe_f32`` too); int8 q / k / text_k with
+``qk_scale`` and an f32 v / text_v take the same kernel's int8 mode (the
+scores exact int32 sums by dp4a times the head's factor, q not pre-scaled;
+counted as ``sta_pipe_f32`` and ``sta_pipe_int8``); the diagnostic variants
+in f32 raise (ROADMAP section 2 A7).  On CPU tensors it runs the plain
+version ``sta_pipe_attention_ref``.
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ import torch
 
 from ..geometry import row_starts, w_window_starts, window_starts
 from . import _build
-from .flash import F32_INT8, LOG2E, NEG_INF  # noqa: F401  (NEG_INF public, as in JAX)
+from .flash import LOG2E, NEG_INF  # noqa: F401  (NEG_INF public, as in JAX)
 from .flash_manual import _prescale, check_int8_qk, qk_factor, scores_log2
 from .layout import tile_sequence, untile_sequence
 
@@ -356,7 +359,7 @@ def _sta_f32_fn():
     fn = _build.load("sta_pipe").vorta_sta_fwd_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 14 + [p]
+        fn.argtypes = [p] * 9 + [i] * 14 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -381,8 +384,8 @@ def sta_pipe_attention(
 ) -> torch.Tensor:
     """Sliding-tile attention, with the joint text tail where ``text_k`` and
     ``text_v`` are given; on CUDA bf16 q/k/v (and text) with D 64 or 128,
-    q / k / text_k int8 with ``qk_scale`` (fast full only), or f32 q/k/v
-    (and text; the full variant)."""
+    q / k / text_k int8 with ``qk_scale`` (fast full only) and a bf16 or
+    f32 v / text_v, or f32 q/k/v (and text; the full variant)."""
     return _sta_pipe(q, k, v, active, latent_shape=latent_shape, tile=tile, window=window,
                      scale=scale, text_k=text_k, text_v=text_v, text_bias=text_bias,
                      cast_p_to_v_dtype=cast_p_to_v_dtype, softmax=softmax, variant=variant,
@@ -482,13 +485,14 @@ def _sta_pipe_f32(q, k, v, active, dev, *, mode: str, latent_shape: Shape3, tile
     """The f32 mode on CUDA: f32 q / k / v and text, the full variant's fast
     or stable softmax, through ``csrc/attn_f32.cuh``."""
     text_k, text_v, text_bias = text
-    if qk_scale is not None:
-        raise NotImplementedError(f"int8 q / k with an f32 v in sta_pipe is {F32_INT8}")
     if mode not in SOFTMAXES:
         raise NotImplementedError(f"sta_pipe's diagnostic variant {mode!r} in f32 is {F32_TOOLS}")
-    if any(x is not None and x.dtype != torch.float32 for x in (q, k, text_k, text_v)):
-        raise NotImplementedError(f"the CUDA sta_pipe f32 mode takes f32 q / k / v and text, "
-                                  f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    qk_dtype = torch.float32 if qk_scale is None else torch.int8
+    if (any(x is not None and x.dtype != qk_dtype for x in (q, k, text_k))
+            or (text_v is not None and text_v.dtype != torch.float32)):
+        raise NotImplementedError(f"the CUDA sta_pipe f32 mode takes f32 q / k / v and text, or "
+                                  f"int8 q / k / text_k with qk_scale and an f32 v / text_v, got "
+                                  f"{q.dtype}, {k.dtype}, {v.dtype}")
     b, h, _, d = q.shape
     if d not in (64, 128):
         raise NotImplementedError(f"the CUDA sta_pipe f32 mode takes D 64/128, got {d}")
@@ -497,17 +501,22 @@ def _sta_pipe_f32(q, k, v, active, dev, *, mode: str, latent_shape: Shape3, tile
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
     t, hh, w = latent_shape
     lt = 0 if text_k is None else text_k.shape[2]
-    qs, k, v = (_build.aligned16(x.contiguous()) for x in (_prescale(q, scale), k, v))
+    qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
+    _build.require_cuda(q, qkc)
+    qs = q if qkc is not None else _prescale(q, scale)
+    qs, k, v = (_build.aligned16(x.contiguous()) for x in (qs, k, v))
     text = [None if x is None else _build.aligned16(x.contiguous())
             for x in (text_k, text_v, text_bias)]
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
     err = _sta_f32_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
-        *(_build.ptr(x) for x in text), lt, b, h, t, hh, w, d, *tile, *window,
+        *(_build.ptr(x) for x in text), _build.ptr(qkc), lt, b, h, t, hh, w, d, *tile, *window,
         int(mode == "stable"), _build.stream_ptr(dev))
     _build.check(err, "sta_pipe (f32)")
     _build.launches["sta_pipe"] += 1
     _build.launches["sta_pipe_f32"] += 1
+    if qkc is not None:
+        _build.launches["sta_pipe_int8"] += 1
     if mode == "stable":
         _build.launches["sta_pipe_stable"] += 1
     return out

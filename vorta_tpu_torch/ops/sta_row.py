@@ -11,17 +11,20 @@ needs tile_w to be a multiple of 8; ``supports_row_dense`` is the TPU
 kernel's eligibility test (that condition and its VMEM budget), which the
 routed and joint dispatches use to choose as the JAX package does.
 
-On CUDA tensors ``sta_row_attention`` launches ``csrc/sta_row.cu`` (bf16,
-D 64 or 128): the Hopper path where ``row_wgmma_path`` says so (D = 128,
-bf16, a window box, a text tail of a multiple of 8 keys, a slot table that
-fits; counted as ``sta_row_wgmma`` too), which is sta_window's Hopper
-kernel (``csrc/sta_window_src.cuh``: ``sta_window_sm90_kernel``) over the
-same walk (``ops/sta_pipe.py:window_walk``) and by the same rule, since
-the function is the same: the row-dense sharing of K / V lines becomes
-that kernel's launch order, the q tiles of one (t, h) row at adjacent CTAs
-reading the row's lines from L2.  Else its mma.sync kernel (D = 64,
-windows with no box), which ``sta_row_attention_mma_sync`` runs at any
-shape (the card's yardstick).  On CPU tensors it runs the plain version
+On CUDA tensors ``sta_row_attention`` launches ``csrc/sta_row.cu`` (bf16
+or f32, D 64 or 128): in bf16 the Hopper path where ``row_wgmma_path``
+says so (D = 128, bf16, a window box, a text tail of a multiple of 8 keys,
+a slot table that fits; counted as ``sta_row_wgmma`` too), which is
+sta_window's Hopper kernel (``csrc/sta_window_src.cuh``:
+``sta_window_sm90_kernel``) over the same walk
+(``ops/sta_pipe.py:window_walk``) and by the same rule, since the function
+is the same: the row-dense sharing of K / V lines becomes that kernel's
+launch order, the q tiles of one (t, h) row at adjacent CTAs reading the
+row's lines from L2.  Else its mma.sync kernel (D = 64, windows with no
+box), which ``sta_row_attention_mma_sync`` runs at any shape (the card's
+yardstick).  f32 q / k / v (and text) take its f32 mode, sta_window's f32
+kernel instantiated in ``csrc/sta_row.cu`` over the same window walk
+(counted as ``sta_row_f32`` too).  On CPU tensors it runs the plain version
 ``sta_row_attention_ref``, sta_window's.
 """
 

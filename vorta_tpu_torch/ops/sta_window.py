@@ -22,14 +22,19 @@ gates, which the routed and joint dispatches use to choose as the JAX
 package does.
 
 On CUDA tensors ``sta_window_attention`` launches ``csrc/sta_window.cu``
-(bf16, D 64 or 128): the Hopper path (``csrc/attn_sm90.cuh``'s mainloop
-with its online softmax over sta_pipe's window source: wgmma, the window's
-runs loaded by TMA into 128-key slots; counted as ``sta_window_wgmma``
-too) where ``window_wgmma_path`` says so (D = 128, bf16, a window box that
-lands, padded where the runs cannot: every served geometry, with or
-without the text tail), with the slot table of ``ops/sta_pipe.py:
-window_walk`` over ``window_box``; else its mma.sync kernel (D = 64, the
-other windows).  On CPU tensors it runs the plain version
+(bf16 or f32, D 64 or 128): in bf16 the Hopper path
+(``csrc/attn_sm90.cuh``'s mainloop with its online softmax over sta_pipe's
+window source: wgmma, the window's runs loaded by TMA into 128-key slots;
+counted as ``sta_window_wgmma`` too) where ``window_wgmma_path`` says so
+(D = 128, bf16, a window box that lands, padded where the runs cannot:
+every served geometry, with or without the text tail), with the slot table
+of ``ops/sta_pipe.py:window_walk`` over ``window_box``; else its mma.sync
+kernel (D = 64, the other windows).  f32 q / k / v (and text) take the f32
+mode, its own kernel (``csrc/attn_f32.cuh``'s FFMA core over
+``csrc/window_walk_f32.cuh``'s window walk: every key staged through its
+own row pointer, so a run of any width needs no padding; the stable
+softmax, q unscaled, P kept in f32; counted as ``sta_window_f32`` too,
+never as the Hopper path).  On CPU tensors it runs the plain version
 ``sta_window_attention_ref``, which ops/sta_row.py shares.
 """
 
@@ -168,20 +173,24 @@ def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, t
                         window: Shape3, scale: float, text_k, text_v, text_bias,
                         box: Optional[Tuple[int, int]]) -> torch.Tensor:
     """Checks and launches ``csrc/<kernel>.cu`` (sta_window or sta_row, one C
-    interface) on CUDA tensors: its Hopper path over the walk of ``box``
-    where the caller's rule gave one, else its mma.sync kernel."""
+    interface) on CUDA tensors: f32 inputs its f32 mode; bf16 ones its
+    Hopper path over the walk of ``box`` where the caller's rule gave one,
+    else its mma.sync kernel."""
     _build.forward_only(f"{kernel}_attention", q, k, v, text_k, text_v)
     dev = _build.require_cuda(q, k, v, text_k, text_v, text_bias)
-    if any(x is not None and x.dtype != torch.bfloat16 for x in (q, k, v, text_k, text_v)):
-        raise NotImplementedError(f"the CUDA {kernel} kernel takes bf16 (f32: ROADMAP section 2 "
-                                  f"A5, sta_window / sta_row in f32), got {q.dtype}, {k.dtype}, "
-                                  f"{v.dtype}")
+    dtype = q.dtype if q.dtype in (torch.bfloat16, torch.float32) else None
+    if dtype is None or any(x is not None and x.dtype != dtype for x in (k, v, text_k, text_v)):
+        raise NotImplementedError(f"the CUDA {kernel} kernel takes bf16 or f32 q / k / v and "
+                                  f"text of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     b, h, _, d = q.shape
     if d not in (64, 128):
         raise NotImplementedError(f"the CUDA {kernel} kernel takes D 64/128, got {d}")
     active = torch.as_tensor(active, device=dev).to(torch.int32).contiguous()
     if active.shape != (h,):
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
+    if dtype == torch.float32:
+        return _launch_f32(kernel, q, k, v, active, dev, latent_shape=latent_shape, tile=tile,
+                           window=window, scale=scale, text=(text_k, text_v, text_bias))
     fn = getattr(_build.load(kernel), f"vorta_{kernel}_fwd_bf16")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -203,6 +212,32 @@ def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, t
     _build.launches[kernel] += 1
     if box is not None:
         _build.launches[f"{kernel}_wgmma"] += 1
+    return out
+
+
+def _launch_f32(kernel: str, q, k, v, active, dev, *, latent_shape: Shape3, tile: Shape3,
+                window: Shape3, scale: float, text) -> torch.Tensor:
+    """The f32 mode of ``csrc/<kernel>.cu`` (``csrc/attn_f32.cuh``'s FFMA core
+    over ``csrc/window_walk_f32.cuh``'s window walk, the stable softmax, q
+    not pre-scaled, P kept in f32), counted as ``<kernel>`` and
+    ``<kernel>_f32``, never as its Hopper path."""
+    fn = getattr(_build.load(kernel), f"vorta_{kernel}_fwd_f32")
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [i] * 13 + [p]
+        fn.restype = ctypes.c_int
+    b, h, _, d = q.shape
+    text_k, text_v, text_bias = (None if x is None else _build.aligned16(x.contiguous())
+                                 for x in text)
+    lt = 0 if text_k is None else text_k.shape[2]
+    q, k, v = (_build.aligned16(x.contiguous()) for x in (q, k, v))
+    out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
+             *(_build.ptr(x) for x in (text_k, text_v, text_bias)), scale * LOG2E, lt, b, h,
+             *latent_shape, d, *tile, *window, _build.stream_ptr(dev))
+    _build.check(err, f"{kernel} (f32)")
+    _build.launches[kernel] += 1
+    _build.launches[f"{kernel}_f32"] += 1
     return out
 
 

@@ -1,1 +1,3 @@
 """schedulers of vorta_tpu_torch."""
+
+from .flow_match import FlowMatchEulerSchedule  # noqa: F401
