@@ -242,8 +242,14 @@ through new entry points):
      live-slot pass and its kernel: off this path).
 The f32 serving path (TF32 off for cuBLAS and cuDNN, checked first):
   p. f32_kernels: the eight kernels of the f32 serving path in their f32
-     modes (csrc/attn_f32.cuh's FFMA core for flash, flash_manual, sta_pipe
-     and sta_batched; the norm, the prologue, pool and unpool instantiated
+     modes (csrc/attn_f32.cuh's FFMA core for sta_pipe and sta_batched and
+     for flash and flash_manual at D 64 / small blocks, csrc/attn_f32_tc.cuh's
+     tensor-core core (3xTF32 on wgmma) for flash and flash_manual at D 128
+     with blocks multiples of 128, counted as <kernel>_f32_tc and timed in
+     turns with the FFMA core at the same call, bound 3 x FLOP at 495
+     TFLOP/s TF32 with the 67 TFLOP/s FFMA bound beside it, and a bracket
+     of q, k, v rounded once to TF32 that must read >= 2e-4 at FULL and
+     LOWRES; the norm, the prologue, pool and unpool instantiated
      on f32), each against its f32 plain version: attention worst |err| /
      max(|plain|, RMS) <= 1e-4, norm and prologue <= 1e-5, pool and unpool
      bit for bit where the picks agree; each call counted once on its
@@ -270,8 +276,11 @@ The f32 serving path (TF32 off for cuBLAS and cuDNN, checked first):
      embeddings: final latents rel L2 <= 1e-3, routing equal), through
      cli.bench_compare (every arm) and wan-tiny through
      tools.fit_cache_poly; every path's launches exact (f32_launches: no
-     Hopper path, every launch of the eight kernels on its *_f32 counter)
-     and each *_f32 counter non-zero on some path.
+     Hopper path, every launch of the eight kernels on its *_f32 counter,
+     the 1.3B / 13B widths' flash / flash_manual launches on *_f32_tc)
+     and each *_f32 counter non-zero on some path; then (f32_profile) one
+     routed 480p x 77f forward in f32 split by op (cli.profile_forward
+     --dtype fp32 --routing hard, in-process).
   v. f32_window_int8_kernels: sta_window and sta_row in f32 (the f32 core
      over csrc/window_walk_f32.cuh's window walk, stable softmax) and the
      int8 QK modes of flash_manual and sta_pipe with an f32 v (dp4a
@@ -394,6 +403,7 @@ HERE = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 outside them, HBM
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12  # TF32 on the tensor cores: 3xTF32 gives f32-exact products at a third
 PEAK_BYTES = 3.35e12
 
 GRID_480P = (6, 30, 52)  # Wan latent grid of 480 x 832 x 21 frames: 9,360 tokens
@@ -567,11 +577,13 @@ def build_kernels() -> None:
     # 64 / 128; flash_manual and sta_pipe at D 64 / 128, f32 or int8 q / k;
     # sta_batched with and without pair bits), held to 128 registers so that
     # two 101 KB CTAs share an SM, and the f32 backward's 4 (dq, dk/dv at D
-    # 64 / 128; one CTA an SM at D 128): spills reported
+    # 64 / 128; one CTA an SM at D 128): spills reported.  The tensor-core
+    # f32 core's 2 (flash's, flash_manual's; one 193 KB CTA an SM): no spills
     for entry, count, spill_free in (("fused_norm_rows_kernel", 72, True),
                                      ("prologue_rows_kernel", 27, True),
                                      ("unpool_rows_kernel", 24, True),
-                                     ("_f32_kernel", 22, False)):
+                                     ("_f32_kernel", 22, False),
+                                     ("_f32_tc_kernel", 2, True)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
             f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
@@ -672,6 +684,7 @@ def main() -> int:
         f32k = phase("f32_kernels", check_f32_kernels, torch, card)
         f32_models = phase("f32_model_checks", check_f32_models, torch)
         launches_f32, f32_serving = phase("f32_serving", run_f32_serving_path, torch, card)
+        f32_profile = phase("f32_profile", run_f32_profile, torch, card)
         fwi_k = phase("f32_window_int8_kernels", check_f32_window_int8_kernels, torch, card)
         fwi_models = phase("f32_window_int8_models", check_f32_window_int8_models, torch)
         launches_fwi, fwi_serving = phase("f32_window_int8_serving",
@@ -782,6 +795,9 @@ def main() -> int:
             if counter in _build.launches and "launches_by_path" not in row:
                 row["launches_by_path"] = by_path(counter)
                 row["launches"] = sum(row["launches_by_path"].values())
+            if f"{counter}_tc" in _build.launches:  # the f32 mode's tensor-core core
+                row["tensor_core_launches_by_path"] = by_path(f"{counter}_tc")
+                row["tensor_core_launches"] = sum(row["tensor_core_launches_by_path"].values())
         if name in F32_TRAIN_REPLACES:  # the f32 training path's modes (phase s)
             shapes = f32_train_k[name[6:] if name != "flash_lse" else "lse"]
             f32_paths = {p: launches_f32_train[p][name] for p in launches_f32_train}
@@ -791,6 +807,9 @@ def main() -> int:
                 "replaces": F32_TRAIN_REPLACES[name], "on_main_path": True,
                 **mode_row(shapes), "worst_ratio": max(x["worst_ratio"] for x in shapes.values()),
                 "launches": f32_paths["train_f32_480p_29f"], "launches_by_path": f32_paths}
+            if name == "flash_lse":  # every f32 flash launch on the tensor cores, lse or not
+                k["modes"]["f32"]["tensor_core_launches_by_path"] = {
+                    p: launches_f32_train[p]["flash_f32_tc"] for p in launches_f32_train}
         if name in ("pool_qkv", "unpool"):  # the head-map mode: HunyuanVideo's routed path
             hm_paths = by_path(f"{name}_headmap")
             if not hm_paths["hunyuan"]:
@@ -830,6 +849,7 @@ def main() -> int:
     print(json.dumps({"evaluation": {"bench_compare": compare, "calibrate_int8": calib,
                                      "fit_cache_poly": fit, "profiling": prof}}))
     print(json.dumps({"f32": {"model_checks_rel_l2": f32_models, "serving": f32_serving,
+                              "routed_480p_77f_forward_by_op": f32_profile,
                               "training": {"gradient_checks": f32_grads, **f32_train},
                               "window_int8": {"model_checks": fwi_models,
                                               "serving": fwi_serving}}}))
@@ -5784,9 +5804,17 @@ def check_full_f32(torch) -> None:
                            "matmul precision")
 
 
+def tf32_rne(torch, x):
+    """x rounded once to TF32 (10 mantissa bits, to nearest even) in integer
+    ops: what a single TF32 product reads of an f32 operand."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
 def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: float,
              nbytes: float, *, lib=None, iters: int = 5, rows=None, bracket=None,
-             bracket_min=None, also=(), zero_heads=None, bound=None) -> dict:
+             bracket_min=None, also=(), zero_heads=None, bound=None, ffma=None,
+             tf32_bracket=None, tf32_gate: bool = False) -> dict:
     """One f32 call of a kernel: launched once, on its ``<counter>_f32``
     mode (and once on each counter of ``also``), never on its Hopper path;
     held against its plain version (on ``rows`` of the sequence axis where
@@ -5795,16 +5823,28 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
     missing mask), its worst ratio above ``tol`` or at least
     ``bracket_min``; timed beside the plain version and ``lib`` (a callable:
     one PyTorch call of the same function, or None).  ``bound``: (ms, by)
-    where the work is not all f32 (the int8 modes' QK)."""
+    where the work is not all f32 (the int8 modes' QK).  ``ffma``: the same
+    call on the FFMA core where the rule sends ``kern`` to the tensor-core
+    core (flash / flash_manual, ops/flash.py:f32_tc_path): ``kern`` is then
+    launched on ``<counter>_f32_tc`` (else never), the FFMA call is held to
+    the same gate and timed in turns with ``kern``, and the row's bound is
+    the 3xTF32 one (3 x FLOP at 495 TFLOP/s TF32), the FFMA's 67 TFLOP/s
+    beside it, neither read above 100%.  ``tf32_bracket``: the plain
+    version on q, k, v rounded once to TF32 (a single TF32 product's
+    reading), recorded, and at least F32_BRACKET x ``tol`` where
+    ``tf32_gate``."""
     from vorta_tpu_torch.ops import _build
 
     _build.reset_launches()
     got = kern()
     torch.cuda.synchronize()
     counts = tuple(_build.launches[c] for c in (counter, f"{counter}_f32", *also))
-    if counts != (1,) * len(counts) or _build.launches.get(f"{counter}_wgmma", 0):
+    tc = _build.launches.get(f"{counter}_f32_tc", 0)
+    if counts != (1,) * len(counts) or _build.launches.get(f"{counter}_wgmma", 0) \
+            or tc != int(ffma is not None):
         raise RuntimeError(f"{name}: launches ({counter}, {counter}_f32, {also}) {counts}, "
-                           f"on the Hopper path {_build.launches.get(f'{counter}_wgmma', 0)}")
+                           f"on the Hopper path {_build.launches.get(f'{counter}_wgmma', 0)}, "
+                           f"on the tensor-core core {tc} (want {int(ffma is not None)})")
     if zero_heads is not None and got[:, zero_heads].any():
         raise RuntimeError(f"{name}: a head routed away wrote non-zeros")
     want, plain_ms = timed_once(torch, plain)
@@ -5819,6 +5859,25 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
     if not ratio <= tol:
         raise RuntimeError(f"{name}: the f32 kernel disagrees with its plain version")
     r = dict(max_abs_err=err, worst_ratio=ratio)
+    if ffma is not None:
+        _build.reset_launches()
+        alt = ffma()
+        n = (_build.launches[f"{counter}_f32"], _build.launches[f"{counter}_f32_tc"])
+        r["ffma_worst_ratio"] = worst_ratio(torch, alt if rows is None else alt[:, :, rows], want)
+        log(f"{name}: the FFMA core at the same call, worst ratio {r['ffma_worst_ratio']:.3e}")
+        if n != (1, 0) or not r["ffma_worst_ratio"] <= tol:
+            raise RuntimeError(f"{name}: the FFMA core (launches {n}) disagrees")
+        del alt
+    if tf32_bracket is not None:
+        miss = tf32_bracket()
+        r["tf32_bracket_worst_ratio"] = worst_ratio(
+            torch, miss if rows is None else miss[:, :, rows], want)
+        log(f"{name}: q, k, v rounded to TF32, worst ratio {r['tf32_bracket_worst_ratio']:.3e} "
+            f"({'must be' if tf32_gate else 'recorded; the bar is'} >= "
+            f"{F32_BRACKET * tol:g})")
+        if tf32_gate and not r["tf32_bracket_worst_ratio"] >= F32_BRACKET * tol:
+            raise RuntimeError(f"{name}: the gate cannot tell a single TF32 product")
+        del miss
     if bracket is not None:
         miss = bracket()
         r["bracket_worst_ratio"] = worst_ratio(torch, miss if rows is None else miss[:, :, rows],
@@ -5831,8 +5890,23 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
         del miss
     del got, want
     b_ms, b_by = bound if bound is not None else bound_ms(flops, nbytes, PEAK_F32)
-    r.update(ms=time_ms(torch, kern, iters), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+    if ffma is not None:  # the tensor-core core timed in turns with the FFMA core
+        ms, f_ms = [], []
+        for _ in range(2):
+            ms.append(time_ms(torch, kern, iters))
+            f_ms.append(time_ms(torch, ffma, iters))
+        r.update(core="tensor_cores", ffma_ms=sum(f_ms) / 2, ffma_bound_ms=b_ms,
+                 ffma_bound_share=b_ms / (sum(f_ms) / 2), tc_over_ffma=sum(ms) / sum(f_ms))
+        b_ms, b_by = bound_ms(3 * flops, nbytes, PEAK_TF32)
+        r["ms"] = sum(ms) / 2
+    else:
+        r["ms"] = time_ms(torch, kern, iters)
+        if counter in ("flash", "flash_manual"):
+            r["core"] = "ffma"
+    r.update(plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              library_ms=lib() if lib is not None else None)
+    if ffma is not None and not (r["bound_ms"] <= r["ms"] and r["ffma_bound_ms"] <= r["ffma_ms"]):
+        raise RuntimeError(f"{name}: a time below its bound: {r}")
     if flops:
         with_rate(r, flops)
     else:
@@ -5863,12 +5937,14 @@ def check_f32_kernels(torch, card: str) -> dict:
     from vorta_tpu_torch.ops.experts import lowres_groups_for
     from vorta_tpu_torch.ops.flash import (
         dense_tables,
+        sparse_flash_attention_ffma,
         sparse_flash_attention_raw,
         sparse_flash_attention_ref,
         tables_from_block_mask,
     )
     from vorta_tpu_torch.ops.flash_manual import (
         sparse_flash_attention_manual,
+        sparse_flash_attention_manual_ffma,
         sparse_flash_attention_manual_ref,
     )
     from vorta_tpu_torch.ops.fused_norm import _norm_ref, fused_norm
@@ -5894,10 +5970,14 @@ def check_f32_kernels(torch, card: str) -> dict:
     act = torch.tensor(ACTIVE_HEADS, device=dev)
     n_act = int(act.sum().item())
 
+    def tf32(*xs):
+        return [tf32_rne(torch, x) for x in xs]
+
     # ---- flash: self-attention at 480p x 21f (the f32 off path's), padded to
     # 10 x 1024 with the 9,360 tail (its bracket: the plain version without the
     # tail mask); cross-attention to 512 text keys; per-head tables with count-0
-    # q blocks and a tail at D 64, blocks of 16 (wan-tiny's)
+    # q blocks and a tail at D 64, blocks of 16 (wan-tiny's).  The D = 128 calls
+    # run on the tensor-core core, timed in turns with the FFMA core
     s = GRID_480P[0] * GRID_480P[1] * GRID_480P[2]
     sp = 10240
     q, k, v = (randn(1, h, sp, d) for _ in range(3))
@@ -5911,7 +5991,9 @@ def check_f32_kernels(torch, card: str) -> dict:
         4 * h * s * d * 4, rows=slice(0, s), iters=3,
         lib=sdpa(*(x[:, :, :s] for x in (q, k, v))),
         bracket=lambda: sparse_flash_attention_ref(q, k, v, ki, kc,
-                                                   **{**kw, "kv_valid_len": None}))
+                                                   **{**kw, "kv_valid_len": None}),
+        ffma=lambda: sparse_flash_attention_ffma(q, k, v, ki, kc, **kw),
+        tf32_bracket=lambda: sparse_flash_attention_ref(*tf32(q, k, v), ki, kc, **kw))
     kt, vt = randn(1, h, TEXT_LEN, d), randn(1, h, TEXT_LEN, d)
     ti, tc = dense_tables(sp // 2048, 1).on(dev)
     kwc = dict(scale=d**-0.5, block_q=2048, block_kv=512)
@@ -5920,7 +6002,9 @@ def check_f32_kernels(torch, card: str) -> dict:
         lambda: sparse_flash_attention_raw(q, kt, vt, ti, tc, **kwc),
         lambda: sparse_flash_attention_ref(q, kt, vt, ti, tc, **kwc), TOL_F32_ATTN,
         4.0 * s * TEXT_LEN * d * h, (2 * h * s * d + 2 * h * TEXT_LEN * d) * 4,
-        rows=slice(0, s), lib=sdpa(q[:, :, :s], kt, vt, 10), iters=10)
+        rows=slice(0, s), lib=sdpa(q[:, :, :s], kt, vt, 10), iters=10,
+        ffma=lambda: sparse_flash_attention_ffma(q, kt, vt, ti, tc, **kwc),
+        tf32_bracket=lambda: sparse_flash_attention_ref(*tf32(q, kt, vt), ti, tc, **kwc))
     del q, k, v, kt, vt
     rng = np.random.default_rng(19)
     mask = rng.random((2, 6, 6)) < 0.5
@@ -5929,11 +6013,15 @@ def check_f32_kernels(torch, card: str) -> dict:
     pi, pc = tables_from_block_mask(mask).on(dev)
     q, k, v = (randn(2, 2, 96, 64) for _ in range(3))
     kws = dict(scale=64**-0.5, block_q=16, block_kv=16, kv_valid_len=90)
+    # the library call: f32 SDPA with the per-head block mask and the tail as a float mask
+    vis = torch.from_numpy(mask).to(dev).repeat_interleave(16, 1).repeat_interleave(16, 2)
+    vis[..., 90:] = False
     out["flash"]["per_head_tables_d64_blocks16"] = f32_case(
         torch, "flash f32 per-head tables (2,2,96,64), blocks 16, valid 90", "flash",
         lambda: sparse_flash_attention_raw(q, k, v, pi, pc, **kws),
         lambda: sparse_flash_attention_ref(q, k, v, pi, pc, **kws), TOL_F32_ATTN,
         4.0 * 96 * 96 * 64 * 4, 4 * 4 * 96 * 64 * 4, iters=10,
+        lib=sdpa(q, k, v, 10, float_mask(torch, vis)[None]),
         bracket=lambda: sparse_flash_attention_ref(q, k, v, pi, pc,
                                                    **{**kws, "kv_valid_len": None}))
 
@@ -5957,7 +6045,10 @@ def check_f32_kernels(torch, card: str) -> dict:
             4.0 * n * n * d * n_act, 4 * n * d * 4 * n_act, rows=slice(0, n), iters=2,
             lib=sdpa(*(x[:, act > 0, :n] for x in (q, k, v)), 2),
             bracket=lambda: sparse_flash_attention_manual_ref(q, k, v, fi, cnt,
-                                                              **{**kw, "kv_valid_len": None}))
+                                                              **{**kw, "kv_valid_len": None}),
+            ffma=lambda: sparse_flash_attention_manual_ffma(q, k, v, fi, cnt, **kw),
+            tf32_bracket=lambda: sparse_flash_attention_manual_ref(*tf32(q, k, v), fi, cnt,
+                                                                   **kw), tf32_gate=True)
         got = sparse_flash_attention_manual(q, k, v, fi, cnt, **kw)
         if got[:, act == 0].any():
             raise RuntimeError(f"flash_manual f32 {name}: a count-0 head wrote non-zeros")
@@ -5975,7 +6066,11 @@ def check_f32_kernels(torch, card: str) -> dict:
             lambda: sparse_flash_attention_manual_ref(q, k, v, bi, bc, **kw), TOL_F32_ATTN,
             4.0 * 2048 * 1800 * d * 4, 4 * 4 * 2048 * d * 4, iters=5,
             bracket=lambda: sparse_flash_attention_manual_ref(q, k, v, bi, bc,
-                                                              **{**kw, "kv_bias": None}))
+                                                              **{**kw, "kv_bias": None}),
+            lib=sdpa(q, k, v, 5, bias.reshape(1, 1, 1, -1)),
+            ffma=lambda: sparse_flash_attention_manual_ffma(q, k, v, bi, bc, **kw),
+            tf32_bracket=lambda: sparse_flash_attention_manual_ref(*tf32(q, k, v), bi, bc,
+                                                                   **kw))
     q, k, v = (randn(1, 2, 64, 64) for _ in range(3))
     di, dc = dense_tables(4, 4).on(dev)
     kw = dict(scale=64**-0.5, block_q=16, block_kv=16, kv_valid_len=60, softmax="fast")
@@ -5983,7 +6078,8 @@ def check_f32_kernels(torch, card: str) -> dict:
         torch, "flash_manual f32 (1,2,64,64), blocks 16, valid 60", "flash_manual",
         lambda: sparse_flash_attention_manual(q, k, v, di, dc, **kw),
         lambda: sparse_flash_attention_manual_ref(q, k, v, di, dc, **kw), TOL_F32_ATTN,
-        4.0 * 64 * 60 * 64 * 2, 4 * 2 * 64 * 64 * 4, iters=10)
+        4.0 * 64 * 60 * 64 * 2, 4 * 2 * 64 * 64 * 4, iters=10,
+        lib=sdpa(q, k[:, :, :60], v[:, :, :60], 10))
     del q, k, v
 
     # ---- sta_pipe: the routed STA call at 480p x 77f (tile (4, 6, 4), fast, 8 of
@@ -6024,7 +6120,9 @@ def check_f32_kernels(torch, card: str) -> dict:
         torch, "sta_pipe f32 (1,2,64,64), tile (2,2,2), window (3,3,1)", "sta_pipe",
         lambda: sta_pipe_attention(q, k, v, torch.ones(2, device=dev), **kw),
         lambda: sta_pipe_attention_ref(q, k, v, torch.ones(2, device=dev), **kw),
-        TOL_F32_ATTN, 4.0 * 64 * 32 * 64 * 2, 4 * 2 * 64 * 64 * 4, iters=10)
+        TOL_F32_ATTN, 4.0 * 64 * 32 * 64 * 2, 4 * 2 * 64 * 64 * 4, iters=10,
+        lib=sdpa(q, k, v, 10, float_mask(torch, sta_raster_mask(torch, (4, 4, 4), (2, 2, 2), dev,
+                                                                 (3, 3, 1)))))
     del q, k, v, tk, tv
 
     # ---- sta_batched: hunyuan-tiny's joint layout (tile (2, 2, 2): 8-row
@@ -6052,7 +6150,7 @@ def check_f32_kernels(torch, card: str) -> dict:
         rows = torch.cat([torch.arange(hcfg.seq_len, device=dev),
                           lay.text_off + torch.arange(valid, device=dev)])  # what callers read
 
-        def lib_298():
+        def lib_pairs():
             """f32 SDPA with TF32 off on the active heads, the visible pairs
             and the text bias as one (S, S) float mask (9.4 GB at 48,384)."""
             full = vis.repeat_interleave(tpt, 0).repeat_interleave(tpt, 1)
@@ -6072,7 +6170,7 @@ def check_f32_kernels(torch, card: str) -> dict:
                 lambda: sta_flash_headbatched(q, k, v, ji, jc, ja, **kw),
                 lambda: sta_flash_headbatched_ref(q, k, v, ji, jc, ja, **kw), TOL_F32_ATTN,
                 4.0 * pairs * dh * n_on, 4 * lay.total * dh * 4 * n_on, rows=rows, iters=3,
-                lib=lib_298 if name == "hunyuan_45f_298_joint" else None,
+                lib=lib_pairs,
                 bracket=lambda: sta_flash_headbatched_ref(q, k, v, ji, jc, ja,
                                                           **{**kw, "pair_bits": None}))
         del q, k, v
@@ -6250,17 +6348,25 @@ F32_KERNELS = ("flash", "flash_manual", "sta_pipe", "sta_batched", "fused_norm",
                "pool_qkv", "unpool")
 
 
-def f32_launches(want: dict, prologue_rows: bool) -> dict:
+def f32_launches(want: dict, full_width: bool) -> dict:
     """A path's launches in f32 from its bf16 count ``want``: no Hopper
-    path (the f32 modes are their own kernels), the prologue's
-    warp-per-row kernel only where its f32 layout holds (the 1.3B / 13B
-    widths; the tiny models' head dim 64 takes the block kernel), and every
-    launch of the eight serving kernels and of the backward's dq and dk/dv
-    on its f32 mode."""
+    path (the f32 modes are their own kernels), and every launch of the
+    eight serving kernels and of the backward's dq and dk/dv on its f32
+    mode.  ``full_width``: the 1.3B / 13B widths (head dim 128), where the
+    prologue's warp-per-row kernel takes every prologue launch and the
+    tensor-core core every flash / flash_manual launch that bf16 sends to
+    the Hopper path (ops/flash.py:f32_tc_path is wgmma_path's shape rule;
+    flash_manual's int8 QK mode stays on the FFMA core, and on these paths
+    its launches are all at the Hopper shapes); the tiny models' head dim
+    64 takes neither."""
     out = dict(want)
+    out["flash_f32_tc"] = want["flash_wgmma"] if full_width else 0
+    out["flash_manual_f32_tc"] = (
+        want["flash_manual_wgmma"] - min(want["flash_manual_int8"], want["flash_manual_wgmma"])
+        if full_width else 0)
     for k in HOPPER_KERNELS + ("flash_dq", "flash_dkv"):
         out[f"{k}_wgmma"] = 0
-    out["prologue_rows"] = out["prologue"] if prologue_rows else 0
+    out["prologue_rows"] = out["prologue"] if full_width else 0
     for k in F32_KERNELS[:6] + ("flash_dq", "flash_dkv", "sta_window", "sta_row"):
         out[f"{k}_f32"] = out[k]
     out["pool_qkv_f32"] = out["pool_qkv"] + out["pool_qkv_headmap"]
@@ -6555,6 +6661,37 @@ def run_f32_serving_path(torch, card: str):
 
 
 
+def run_f32_profile(torch, card: str) -> dict:
+    """One routed Wan-1.3B 480p x 77f forward in f32 split by op:
+    cli.profile_forward --dtype fp32 --routing hard in-process (random
+    weights and routers, t = 900; a warm-up forward, then one under
+    io/profiling's trace), its report kept off stdout.  Every flash and
+    flash_manual launch of the two forwards on the tensor-core core."""
+    import contextlib
+    import io
+
+    from vorta_tpu_torch.cli import profile_forward
+    from vorta_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = profile_forward.main(["--num_frames", "77", "--routing", "hard", "--dtype", "fp32"])
+    n = {k: _build.launches[k] for k in ("flash", "flash_f32_tc", "flash_manual",
+                                         "flash_manual_f32_tc")}
+    if not (n["flash"] == n["flash_f32_tc"] > 0
+            and n["flash_manual"] == n["flash_manual_f32_tc"] > 0):
+        raise RuntimeError(f"f32 profile: a flash / flash_manual launch off the tensor cores {n}")
+    out = {k: res[k] for k in ("wall_ms", "device_ms", "idle_share", "heads_per_expert",
+                               "max_memory_gib", "groups", "top")}
+    by_group = {g: (round(v["ms"], 3), round(v["share"], 4), v["launches"])
+                for g, v in out["groups"].items()}
+    log(f"f32 profile: one routed Wan-1.3B 480p x 77f forward in f32 on {card}: wall "
+        f"{out['wall_ms']:.1f} ms, device {out['device_ms']:.1f} ms, idle "
+        f"{out['idle_share']:.4f}, heads {out['heads_per_expert']}; by group (ms, share, "
+        f"launches) {by_group}; launches {n}")
+    return out
+
+
 # ---- training in f32: the f32 lse, the f32 dq and dk/dv kernels, cli.train --dtype fp32 ------
 
 # f32 training gates (set before the first run): the kernels against their
@@ -6624,11 +6761,21 @@ def check_f32_training_kernels(torch, card: str) -> dict:
     models' D = 64 shapes, each against its f32 plain version (gates above),
     launched once on its f32 mode and timed beside its bound (67 TFLOP/s
     f32) and f32 SDPA forward / backward with TF32 off; brackets at LOWRES
-    (a kv tail): {"lse" | "dq" | "dkv": {shape: numbers}}."""
+    (a kv tail).  The forward at FULL, LOWRES and cross runs on the
+    tensor-core core (flash_f32_tc), held to the same gates beside the FFMA
+    core at the same call, both timed in turns, its bound the 3xTF32 one
+    (495 TFLOP/s TF32, a third of it f32-exact), with the bracket of q, k, v
+    rounded once to TF32 (>= 2e-4 at FULL and LOWRES): {"lse" | "dq" |
+    "dkv": {shape: numbers}}."""
     import torch.nn.functional as F
 
     from vorta_tpu_torch.ops import _build
-    from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, sparse_flash_attention_ref
+    from vorta_tpu_torch.ops.flash import (
+        f32_tc_path,
+        sparse_flash_attention_ffma,
+        sparse_flash_attention_raw,
+        sparse_flash_attention_ref,
+    )
     from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
 
     check_full_f32(torch)
@@ -6649,12 +6796,19 @@ def check_f32_training_kernels(torch, card: str) -> dict:
         valid = kvv if kvv != skv else None
         fwd = lambda: sparse_flash_attention_raw(q, k, v, ki, kc, kv_valid_len=valid,  # noqa: E731
                                                  return_lse=True, **kw)
+        # the tensor-core core where the rule holds (FULL, LOWRES, cross), timed in
+        # turns with the FFMA core at the same call
+        tc = f32_tc_path(d, c["bq"], c["bkv"])
+        ffma = lambda: sparse_flash_attention_ffma(q, k, v, ki, kc, kv_valid_len=valid,  # noqa: E731
+                                                   return_lse=True, **kw)
         _build.reset_launches()
         out, lse = fwd()
         torch.cuda.synchronize()
-        got_n = tuple(_build.launches[x] for x in ("flash", "flash_f32", "flash_lse", "flash_wgmma"))
-        if got_n != (1, 1, 1, 0):
-            raise RuntimeError(f"f32 lse {name}: launches (flash, _f32, _lse, _wgmma) {got_n}")
+        got_n = tuple(_build.launches[x] for x in ("flash", "flash_f32", "flash_lse", "flash_wgmma",
+                                                   "flash_f32_tc"))
+        if got_n != (1, 1, 1, 0, int(tc)):
+            raise RuntimeError(f"f32 lse {name}: launches (flash, _f32, _lse, _wgmma, _f32_tc) "
+                               f"{got_n}")
         (want_out, want_lse), fwd_plain_ms = timed_once(torch, lambda: sparse_flash_attention_ref(
             q, k, v, ki, kc, kv_valid_len=valid, return_lse=True, **kw))
         out_ratio = worst_ratio(torch, out[:, :, :qv], want_out[:, :, :qv])
@@ -6669,6 +6823,28 @@ def check_f32_training_kernels(torch, card: str) -> dict:
             raise RuntimeError(f"f32 flash + lse {name}: the kernel disagrees with its plain version")
         if sentinel and not (lse[want_lse == 1e30] == 1e30).all():
             raise RuntimeError(f"f32 flash lse {name}: the sentinel rows differ")
+        tc_row = {}
+        if tc:
+            f_out, f_lse = ffma()
+            f_bad = int((f_lse - want_lse).abs().gt(LSE_ATOL + LSE_RTOL * want_lse.abs()).sum())
+            tc_row["ffma_worst_ratio"] = worst_ratio(torch, f_out[:, :, :qv], want_out[:, :, :qv])
+            if not (tc_row["ffma_worst_ratio"] <= TOL_F32_ATTN and f_bad == 0):
+                raise RuntimeError(f"f32 flash + lse {name}: the FFMA core disagrees")
+            del f_out, f_lse
+            miss = sparse_flash_attention_ref(*(tf32_rne(torch, x) for x in (q, k, v)), ki, kc,
+                                              kv_valid_len=valid, **kw)
+            tc_row["tf32_bracket_worst_ratio"] = worst_ratio(torch, miss[:, :, :qv],
+                                                             want_out[:, :, :qv])
+            del miss
+            gated = name in ("full_31200", "lowres_15600")
+            bar = "must be" if gated else "recorded; the bar is"
+            log(f"f32 flash + lse {name}: the FFMA core's worst ratio "
+                f"{tc_row['ffma_worst_ratio']:.3e}; q, k, v rounded to TF32, worst ratio "
+                f"{tc_row['tf32_bracket_worst_ratio']:.3e} ({bar} >= "
+                f"{F32_BRACKET * TOL_F32_ATTN:g})")
+            if gated and not tc_row["tf32_bracket_worst_ratio"] >= F32_BRACKET * TOL_F32_ATTN:
+                raise RuntimeError(f"f32 flash + lse {name}: the gate cannot tell a single TF32 "
+                                   "product")
         del want_out, want_lse
         bkw = dict(kv_valid_len=kvv, **kw)
         args = (q, k, v, out, lse, dout, ki, kc, qi, qc)
@@ -6731,10 +6907,25 @@ def check_f32_training_kernels(torch, card: str) -> dict:
             del qs, ks, vs, mask
             torch.cuda.empty_cache()
         iters = 2 if big else 10
-        res["lse"][name] = dict(ms=time_ms(torch, fwd, iters, 1), plain_ms=fwd_plain_ms,
+        if tc:  # in turns; the 3xTF32 bound, the FFMA one beside it
+            ms, f_ms = [], []
+            for _ in range(2):
+                ms.append(time_ms(torch, fwd, iters, 1))
+                f_ms.append(time_ms(torch, ffma, iters, 1))
+            fwd_ms = sum(ms) / 2
+            tc_row.update(core="tensor_cores", ffma_ms=sum(f_ms) / 2, ffma_bound_ms=fl[0],
+                          ffma_bound_share=fl[0] / (sum(f_ms) / 2),
+                          tc_over_ffma=sum(ms) / sum(f_ms))
+            fl = bound_ms(3 * 4.0 * pairs * d, 2 * rows_q + 2 * rows_kv + qv * h * 4, PEAK_TF32)
+            if not (fl[0] <= fwd_ms and tc_row["ffma_bound_ms"] <= tc_row["ffma_ms"]):
+                raise RuntimeError(f"f32 flash + lse {name}: a time below its bound")
+        else:
+            fwd_ms = time_ms(torch, fwd, iters, 1)
+            tc_row["core"] = "ffma"
+        res["lse"][name] = dict(ms=fwd_ms, plain_ms=fwd_plain_ms,
                                 library_ms=lib_fwd, bound_ms=fl[0], bound_by=fl[1],
                                 max_abs_err=max(out_err, lse_err.max().item()),
-                                worst_ratio=out_ratio, shape=[1, h, sq, d], keys=skv)
+                                worst_ratio=out_ratio, shape=[1, h, sq, d], keys=skv, **tc_row)
         for kind, alone, (b_ms, b_by), i in (("dq", "need_dkv", dq_b, 0), ("dkv", "need_dq", dkv_b, 1)):
             res[kind][name] = dict(ms=time_ms(torch, lambda: bwd(**{alone: False}), iters, 1),
                                    plain_ms=bwd_plain_ms, library_ms=lib_bwd, bound_ms=b_ms,
@@ -7018,7 +7209,7 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
 
     from vorta_tpu_torch.cli.sample import attention_config
     from vorta_tpu_torch.ops import joint_experts as joint
-    from vorta_tpu_torch.ops.flash import dense_tables
+    from vorta_tpu_torch.ops.flash import dense_tables, f32_tc_path
     from vorta_tpu_torch.ops.flash_manual import (
         sparse_flash_attention_manual,
         sparse_flash_attention_manual_ref,
@@ -7046,12 +7237,12 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
     def window_keys(grid, tile):
         return math.prod(min(3, grid[a] // tile[a]) * tile[a] for a in range(3))
 
-    def window_lib(grid, tile, q, k, v, act, tk=None, tv=None, tb=None):
+    def window_lib(grid, tile, q, k, v, act, tk=None, tv=None, tb=None, window=(3, 3, 3)):
         """f32 SDPA over the active heads, the window (and the text keys'
         bias) as a float mask."""
         def run():
             n = q.shape[2]
-            mask = float_mask(torch, sta_raster_mask(torch, grid, tile, dev))
+            mask = float_mask(torch, sta_raster_mask(torch, grid, tile, dev, window))
             ka, va = k[:, act > 0], v[:, act > 0]
             if tk is not None:
                 mask = torch.cat([mask, tb.reshape(1, -1).expand(n, -1)], dim=1)
@@ -7099,7 +7290,7 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
             TOL_F32_ATTN, 4.0 * n * keys * d * n_act, (4 * n + 2 * lt) * d * 4 * n_act,
             iters=iters, zero_heads=act == 0,
             lib=window_lib(grid, tile, q, k, v, act, text.get("text_k"), text.get("text_v"),
-                           text.get("text_bias")) if d == 128 else None,
+                           text.get("text_bias")),
             bracket=(lambda: plain(q, k, v, act, **kw, **{**text, "text_bias": None})) if lt
             else None, bracket_min=F32_BRACKET * TOL_F32_ATTN)
         r["window_keys"] = window_keys(grid, tile)
@@ -7153,9 +7344,11 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
             if bias is not None else None, bracket_min=F32_BRACKET * TOL_F32_ATTN)
         r["f32_mode_ms"] = time_ms(torch, lambda: sparse_flash_attention_manual(
             qf, kf, v, ki, cnt, **kw), iters)
+        r["f32_mode_core"] = "tensor_cores" if f32_tc_path(d, bq, bkv) else "ffma"
         r["int8_over_f32_mode"] = r["ms"] / r["f32_mode_ms"]
         log(f"flash_manual int8 f32 {name}: {r['ms']:.3f} ms against the f32 mode's "
-            f"{r['f32_mode_ms']:.3f} ms at the same call ({r['int8_over_f32_mode']:.3f}x)")
+            f"{r['f32_mode_ms']:.3f} ms ({r['f32_mode_core']}) at the same call "
+            f"({r['int8_over_f32_mode']:.3f}x)")
         del qf, kf, q8, k8, v
         torch.cuda.empty_cache()
 
@@ -7186,8 +7379,6 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
         keys = math.prod(min(window[a], grid[a] // tile[a]) * tile[a] for a in range(3)) + valid
         ops = 2.0 * n * keys * d * n_act
         nbytes = (n * d * (2 + 8) + lt * d * 5) * n_act
-        mask = float_mask(torch, sta_raster_mask(torch, grid, tile, dev, window)) if d == 128 \
-            and not lt else None
         r = out["sta_pipe"][name] = f32_case(
             torch, f"sta_pipe int8 q / k, f32 v {name} (1,{h},{n},{d})"
             f"{f' + {lt} int8 text' * bool(lt)}, tile {tile}", "sta_pipe",
@@ -7195,15 +7386,15 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
             lambda: sta_pipe_attention_ref(q8, k8, v, act, qk_scale=qk_scale, **kw, **text),
             TOL_F32_ATTN, 2 * ops, nbytes, also=("sta_pipe_int8",), iters=iters,
             zero_heads=act == 0, bound=int8_f32_bound(ops, ops, nbytes),
-            lib=sdpa(qf[:, act > 0], kf[:, act > 0], v[:, act > 0], mask) if mask is not None
-            else None,
+            lib=window_lib(grid, tile, qf, kf, v, act, text_f32.get("text_k"),
+                           text_f32.get("text_v"), text_f32.get("text_bias"), window),
             bracket=(lambda: sta_pipe_attention_ref(q8, k8, v, act, qk_scale=qk_scale, **kw,
                                                     **{**text, "text_bias": None}))
             if lt else None, bracket_min=F32_BRACKET * TOL_F32_ATTN)
         r["f32_mode_ms"] = time_ms(torch, lambda: sta_pipe_attention(qf, kf, v, act, **kw,
                                                                       **text_f32), iters)
         r["int8_over_f32_mode"] = r["ms"] / r["f32_mode_ms"]
-        del qf, kf, q8, k8, v, mask, text, text_f32
+        del qf, kf, q8, k8, v, text, text_f32
         torch.cuda.empty_cache()
     return out
 

@@ -71,7 +71,12 @@ on the card; and the f32 modes of sta_window and sta_row (tile_w 8 and 10,
 360-token tiles, text tails of 24 and 88 keys, D 64 / 128) and the int8 QK
 modes of flash_manual and sta_pipe with an f32 v (int8 text keys, kv_bias,
 tails, 64-row parts of 32 rows), each on the same inputs as its plain
-version, with the mixes they refuse.  Tolerances: 1e-5 x max
+version, with the mixes they refuse; and the f32 modes' tensor-core core of
+flash and flash_manual (3xTF32 on wgmma: its probe against f64 products,
+kv tails inside and on the edge of a 64-key chunk, count-0 q blocks, per-head
+tables, the lse, kv_bias with kv_valid_len, either softmax, a head routed
+away, beside the FFMA core at the same call, and the shapes its C entry
+refuses).  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -3323,15 +3328,18 @@ def test_f32_c_entries_refuse_what_their_rules_refuse(card):
     stream = _build.stream_ptr(q.device)
     p = [q.data_ptr()] * 4
 
-    def flash(lse_ptr, d, block):
+    def flash(lse_ptr, d, block, work=None):
         return _flash_f32_fn()(*p, lse_ptr, ki.data_ptr(), kc.data_ptr(), 1, 1, 64, 64, d, 1,
-                               64 // block, 1, block, block, 64, 0.1, stream)
+                               64 // block, 1, block, block, 64, 0.1, work, stream)
 
     assert flash(None, 128, 64) == 0
     torch.cuda.synchronize()
     assert flash(lse.data_ptr(), 128, 64) == 0
     assert flash(None, 96, 64) != 0
     assert flash(None, 128, 12) != 0
+    # the tensor-core core only where f32_tc_path holds (blocks of 64: not multiples of 128)
+    work = torch.zeros(6 * 64 * 128, device=card)
+    assert flash(None, 128, 64, work.data_ptr()) != 0
     act = torch.ones(1, dtype=torch.int32, device=card)
     sta = _sta_f32_fn()
     args = [*p, act.data_ptr(), None, None, None, None, 0, 1, 1, 4, 4, 4]
@@ -3402,6 +3410,130 @@ def test_cli_sample_fp32_on_card_matches_cpu(card, tmp_path):
     for kname in ("flash", "flash_manual", "sta_pipe", "fused_norm", "prologue", "pool_qkv",
                   "unpool"):
         assert n[f"{kname}_f32"] == n[kname] > 0, kname
+
+
+# --- the f32 modes' tensor-core core (csrc/attn_f32_tc.cuh: 3xTF32 on wgmma) ------------
+# flash and flash_manual at D = 128 with blocks that are multiples of 128
+# (ops/flash.py:f32_tc_path) against their plain versions on the same f32
+# inputs, TF32 off, within _close's f32 rule, and against the FFMA core at
+# the same call (sparse_flash_attention_ffma / _manual_ffma: the yardstick).
+
+def test_f32_tc_probe(card):
+    """One 64-row tile's two products on the core's pieces (the Q / K splits
+    in the 128-byte swizzle, V^T's permuted keys, P from the S registers)
+    against f64 products: 3xTF32 holds them to f32's precision."""
+    from vorta_tpu_torch.ops.flash import f32_tc_probe
+
+    g = torch.Generator(device=card).manual_seed(60)
+    q, k, v = (_f32(g, 64, 128) for _ in range(3))
+    s, o = f32_tc_probe(q, k, v)
+    torch.cuda.synchronize()
+    s_want = q.double() @ k.double().T
+    o_want = s.double() @ v.double()
+    assert (s - s_want).abs().max().item() <= 1e-5 * s_want.abs().max().item()
+    assert (o - o_want).abs().max().item() <= 1e-5 * o_want.abs().max().item()
+
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [
+    ("dense", 128, 128, 512, 512, 500),       # the tail inside a 64-key chunk
+    ("dense", 256, 256, 512, 512, 448),       # the tail on a chunk's edge: a chunk skipped
+    ("shared", 256, 256, 1024, 1024, 1000),   # q block 0 with count 0: zeros, lse 1e30
+    ("per_head", 128, 128, 512, 512, None),   # per-head tables
+    ("dense", 2048, 512, 2048, 1024, 600),    # cross-attention's blocks, a kv tail
+    ("dense", 1024, 1024, 2048, 2048, 1500),  # FULL's blocks
+])
+def test_flash_f32_tc_matches_plain(card, kind, bq, bkv, sq, skv, valid):
+    """The tensor-core core with and without the lse, counted as
+    flash_f32_tc (never flash_wgmma), against the plain version and the FFMA
+    core at the same call."""
+    from vorta_tpu_torch.ops.flash import sparse_flash_attention_ffma
+
+    g = torch.Generator(device=card).manual_seed(61)
+    q = _f32(g, 2, 3, sq, 128)
+    k, v = (_f32(g, 2, 3, skv, 128) for _ in range(2))
+    ki, kc = _tables(kind, 3, sq // bq, skv // bkv).on(card)
+    kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, scale=1.1 * 128**-0.5)
+    _build.reset_launches()
+    got = sparse_flash_attention_raw(q, k, v, ki, kc, **kw)
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, return_lse=True, **kw)
+    n = _build.launches
+    assert (n["flash"], n["flash_f32"], n["flash_f32_tc"], n["flash_lse"], n["flash_wgmma"]) == \
+        (2, 2, 2, 1, 0)
+    want, want_lse = sparse_flash_attention_ref(q, k, v, ki, kc, return_lse=True, **kw)
+    _close(got, want)
+    assert torch.equal(out, got)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    if kind == "shared":
+        assert not got[:, :, :bq].any() and (lse[:, :, :bq] == 1e30).all()
+    _build.reset_launches()
+    _close(sparse_flash_attention_ffma(q, k, v, ki, kc, **kw), want)
+    assert (n["flash_f32"], n["flash_f32_tc"]) == (1, 0)
+
+
+@pytest.mark.parametrize("softmax", ["fast", "stable"])
+@pytest.mark.parametrize("bq,bkv,s,valid,bias", [
+    (128, 128, 512, 507, True),      # kv_bias (-1e30 on some keys) with kv_valid_len
+    (256, 1024, 2048, 1900, True),   # the STA text rows' blocks
+    (1024, 1024, 2048, 2048, False),  # FULL / LOWRES's blocks, no tail
+])
+def test_flash_manual_f32_tc_matches_plain(card, softmax, bq, bkv, s, valid, bias):
+    """Either softmax on the tensor-core core, per-head counts with a head
+    routed away (its rows exact zeros), counted as flash_manual_f32_tc."""
+    from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual_ffma
+
+    g = torch.Generator(device=card).manual_seed(62)
+    h = 3
+    q = _f32(g, 1, h, s, 128)
+    k, v = (_f32(g, 1, h, s, 128) for _ in range(2))
+    ki, kc = dense_tables(s // bq, s // bkv).on(card)
+    counts = kc.expand(h, -1).clone()
+    counts[1] = 0
+    kb = None
+    if bias:
+        kb = torch.where(torch.rand((1, s), generator=g, device=card) < 0.2, -1e30,
+                         _f32(g, 1, s))
+    kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, kv_bias=kb, softmax=softmax,
+              scale=0.9 * 128**-0.5)
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q, k, v, ki, counts, **kw)
+    n = _build.launches
+    assert (n["flash_manual"], n["flash_manual_f32"], n["flash_manual_f32_tc"],
+            n["flash_manual_stable"], n["flash_manual_wgmma"]) == \
+        (1, 1, 1, int(softmax == "stable"), 0)
+    want = sparse_flash_attention_manual_ref(q, k, v, ki, counts, **kw)
+    _close(got, want)
+    assert not got[:, 1].any()
+    _build.reset_launches()
+    _close(sparse_flash_attention_manual_ffma(q, k, v, ki, counts, **kw), want)
+    assert (n["flash_manual_f32"], n["flash_manual_f32_tc"]) == (1, 0)
+
+
+def test_f32_tc_c_entries_refuse_what_the_rule_refuses(card):
+    """flash_manual's f32 entry takes the tensor-core core (a scratch
+    pointer) only where f32_tc_path holds and never in the int8 mode: an
+    error code, never a launch, no fallback."""
+    from vorta_tpu_torch.ops.flash import f32_tc_work
+    from vorta_tpu_torch.ops.flash_manual import _flash_manual_f32_fn
+
+    q = torch.zeros((1, 1, 256, 128), device=card)
+    q64 = torch.zeros((1, 1, 256, 64), device=card)
+    ki, kc = dense_tables(2, 2).on(card)
+    qkc = torch.ones(1, device=card)
+    work = f32_tc_work(1, 1, 256, 256, card).data_ptr()
+    stream = _build.stream_ptr(q.device)
+
+    def manual(x, d, block, w, qk=None):
+        return _flash_manual_f32_fn()(*[x.data_ptr()] * 4, ki.data_ptr(), kc.data_ptr(), None,
+                                      qk, 1, 1, 256, 256, d, 1, 1, 256 // block, 256 // block,
+                                      block, block, 256, 0, 0.1, w, stream)
+
+    assert manual(q, 128, 128, work) == 0
+    torch.cuda.synchronize()
+    assert manual(q64, 64, 128, work) != 0
+    assert manual(q, 128, 128, work, qkc.data_ptr()) != 0
+    assert manual(q, 128, 64, work) != 0  # blocks of 64: not the rule's
+    assert manual(q, 128, 128, None) == 0
+    torch.cuda.synchronize()
 
 
 # --- the f32 training path: the f32 lse, the f32 dq and dk/dv kernels -------------------

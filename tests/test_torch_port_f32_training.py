@@ -101,7 +101,9 @@ def _launched(**want):
 def test_f32_lse_calls_the_f32_entry_with_an_lse(meta_card, d, block):
     """An f32 call with return_lse asks the f32 entry, with an lse buffer
     (B, H, Sq, 1) f32 in the lse slot; counted as flash, flash_f32 and
-    flash_lse, never on the Hopper path (its rule is bf16's)."""
+    flash_lse, never on the Hopper path (its rule is bf16's); at D 128 with
+    blocks multiples of 128 on the tensor-core core (its scratch in the
+    next-to-last slot, counted as flash_f32_tc), else on the FFMA core."""
     s = 2 * block
     q = _t(1, 2, s, d)
     ki, kc = _tables(2, 2)
@@ -109,11 +111,13 @@ def test_f32_lse_calls_the_f32_entry_with_an_lse(meta_card, d, block):
                                           kv_valid_len=s - 5, return_lse=True)
     [(lib, entry, args, argtypes)] = meta_card
     assert (lib, entry) == ("flash", "vorta_flash_fwd_f32")
-    assert len(args) == len(argtypes) == 20 and args[4] is not None  # the lse slot
+    assert len(args) == len(argtypes) == 21 and args[4] is not None  # the lse slot
     assert args[7:18] == (1, 2, s, s, d, 1, 2, 2, block, block, s - 5)
+    tc = d == 128
+    assert (args[19] is not None) == tc  # the tensor-core core's scratch
     assert lse.shape == (1, 2, s, 1) and lse.dtype == torch.float32
     assert out.dtype == torch.float32
-    _launched(flash=1, flash_f32=1, flash_lse=1)
+    _launched(flash=1, flash_f32=1, flash_lse=1, **({"flash_f32_tc": 1} if tc else {}))
 
 
 def test_f32_forward_without_lse_passes_none(meta_card):

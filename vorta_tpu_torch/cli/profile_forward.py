@@ -84,11 +84,12 @@ TEXT_VALID = 83
 RANGES = ("joint_reference_attention", "joint_reference_attention_backward")
 
 GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
-    ("flash", ("flash_fwd_kernel", "flash_sm90_kernel", "flash_f32_kernel")),
+    ("flash", ("flash_fwd_kernel", "flash_sm90_kernel", "flash_f32_kernel",
+               "flash_f32_tc_kernel")),
     ("flash_dq", ("flash_dq_kernel", "flash_dq_sm90_kernel", "flash_dq_f32_kernel")),
     ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_sm90_kernel", "flash_dkv_f32_kernel")),
     ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel",
-                      "flash_manual_f32_kernel")),
+                      "flash_manual_f32_kernel", "flash_manual_f32_tc_kernel")),
     ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel", "sta_pipe_f32_kernel")),
     # sta_row's Hopper path is sta_window_sm90_kernel too (one kernel, two
     # wrappers): no served geometry reaches sta_row

@@ -1,10 +1,14 @@
-// The f32 attention core of the port's f32 serving path, for Hopper
-// (sm_90a): one online softmax over a sequence of kv chunks that the caller
-// (a "walk") supplies, with true f32 products on the CUDA cores (FFMA).
+// The FFMA f32 attention core of the port's f32 paths, for Hopper (sm_90a):
+// one online softmax over a sequence of kv chunks that the caller (a
+// "walk") supplies, with true f32 products on the CUDA cores (FFMA).
 //
-// Its users and their walks: csrc/flash.cu and csrc/flash_manual.cu
-// (TableWalk below: the block tables, the kv tail rule, kv_bias, per-head
-// counts), csrc/sta_batched.cu (TableWalk plus the pair bits), and
+// Its users and their walks: csrc/flash.cu and csrc/flash_manual.cu where
+// the tensor-core core does not run (TableWalk below: the block tables, the
+// kv tail rule, kv_bias, per-head counts; head dim 64, blocks 128 does not
+// divide, flash_manual's int8 QK mode, and the FFMA yardsticks; at head dim
+// 128 with blocks that are multiples of 128 csrc/attn_f32_tc.cuh's 3xTF32
+// core runs, ops/flash.py:f32_tc_path), csrc/sta_batched.cu (TableWalk
+// plus the pair bits), and
 // csrc/sta_pipe.cu, csrc/sta_window.cu and csrc/sta_row.cu (WindowWalk of
 // csrc/window_walk_f32.cuh: the window box and the text tail).  They replace
 // the f32 modes of vorta_tpu/ops/flash.py:_flash_kernel,
@@ -53,9 +57,10 @@
 // the row max / sum over the 16 lanes of its half-warp, then P is written
 // over the K tile and the thread's 4 rows x D / 16 output columns take
 // their PV products from float4 reads of P and V.  101 KB of shared memory
-// at D = 128, so two CTAs share an SM.  3xTF32 split products on the tensor
-// cores would raise the reachable rate (a later perf PR); a single TF32
-// product is not an f32 mode.
+// at D = 128, so two CTAs share an SM.  The 3xTF32 split products on the
+// tensor cores reach a higher rate (165 TFLOP/s f32-exact): the block-table
+// walk at the served shapes runs there (csrc/attn_f32_tc.cuh); a single
+// TF32 product is not an f32 mode.
 #pragma once
 
 #include <cuda_runtime.h>

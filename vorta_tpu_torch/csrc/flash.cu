@@ -44,6 +44,7 @@
 //   the next q block's kv list nor overwrite its rows.
 #include "attn_sm90.cuh"
 #include "attn_f32.cuh"
+#include "attn_f32_tc.cuh"
 
 namespace {
 
@@ -382,7 +383,8 @@ extern "C" int vorta_attn_sm90_probe(const void* q, const void* k, const void* v
 // The Hopper path's dynamic shared memory per CTA, in bytes (for reports).
 extern "C" int vorta_attn_sm90_smem_bytes() { return vorta::sm90::SMEM_BYTES; }
 
-// ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the block tables ------
+// ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the block tables, and
+// csrc/attn_f32_tc.cuh's tensor-core core where ops/flash.py:f32_tc_path holds
 
 namespace {
 
@@ -394,6 +396,53 @@ flash_f32_kernel(const float* __restrict__ q, float* __restrict__ out, float* __
   vorta::f32::attend<D>(walk, q, out, scale_log2, true, lse);
 }
 
+// The tensor-core f32 core (csrc/attn_f32_tc.cuh: 3xTF32 on wgmma), D = 128.
+__global__ void __launch_bounds__(vorta::f32tc::THREADS, 1)
+flash_f32_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ vorta::f32::TableParams p, float* __restrict__ out,
+                    float* __restrict__ lse, float scale_log2) {
+  vorta::f32tc::attend(tq, tk, tv, p, out, lse, scale_log2, true);
+}
+
+// Test-only: one 64-row tile's two products on the tensor-core core's pieces,
+// one warpgroup, from the split pre-pass's halves (w: q's, k's, then V^T's,
+// 64 keys) copied into the swizzled tiles: s = q k^T, o = s v, each 3xTF32
+// with P from the S registers against V^T's permuted keys.
+__global__ void __launch_bounds__(128)
+f32_tc_probe_kernel(const uint4* __restrict__ w, float* __restrict__ s_out,
+                    float* __restrict__ o_out) {
+  using namespace vorta::f32tc;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = vorta::sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const int tid = threadIdx.x, wp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  constexpr int C = BQ * D / 4;  // 16-byte chunks of a tile
+  for (int e = tid; e < C; e += 128) {
+    const int r = e / 32, c = e % 32, d = e / 16, ck = e % 16;
+    *reinterpret_cast<uint4*>(smem + QB + kmajor_off(BQ, r, c)) = w[e];
+    *reinterpret_cast<uint4*>(smem + QS + kmajor_off(BQ, r, c)) = w[C + e];
+    *reinterpret_cast<uint4*>(smem + KB + kmajor_off(BK, r, c)) = w[2 * C + e];
+    *reinterpret_cast<uint4*>(smem + KS + kmajor_off(BK, r, c)) = w[3 * C + e];
+    *reinterpret_cast<uint4*>(smem + VB + kmajor_off(D, d, ck)) = w[4 * C + e];
+    *reinterpret_cast<uint4*>(smem + VS + kmajor_off(D, d, ck)) = w[5 * C + e];
+  }
+  vorta::sm90::fence_proxy_async();
+  __syncthreads();
+  float s[32], o[64];
+  qk_product(s, base);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    s_out[(16 * wp + g + 8 * ((i >> 1) & 1)) * BK + 8 * (i / 4) + 2 * t + (i & 1)] = s[i];
+  uint32_t pb[32], ps[32];
+  split_p(s, pb, ps);
+  pv_product(o, pb, ps, base);
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    o_out[(16 * wp + g + 8 * ((i >> 1) & 1)) * D + 8 * (i / 4) + 2 * t + (i & 1)] = o[i];
+}
+
 }  // namespace
 
 // The f32 mode (flash.py's kernel at f32 inputs): q, k, v, out contiguous
@@ -401,12 +450,16 @@ flash_f32_kernel(const float* __restrict__ q, float* __restrict__ out, float* __
 // vorta_flash_fwd_bf16; block_q and block_kv multiples of 8, D 64 or 128.
 // lse: (B, H, Sq) f32 or null, as for vorta_flash_fwd_bf16 (the f32
 // training path's forward).  The stable online softmax, P kept in f32.
+// work: null, or where the wrapper's rule (ops/flash.py:f32_tc_path) chose
+// the tensor-core core (D = 128, blocks multiples of 128; anything else there
+// is an error, never a fallback), scratch for the split halves of q, k and
+// V^T: 2 B H (Sq + 2 Skv) 128 f32, 16-byte aligned; null: the FFMA core.
 // Returns the CUDA error code.
 extern "C" int vorta_flash_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                    void* lse, const void* kv_index, const void* kv_count, int B,
                                    int H, int Sq, int Skv, int D, int h_tab, int nq, int width,
                                    int block_q, int block_kv, int kv_valid_len, float scale_log2,
-                                   void* stream) {
+                                   void* work, void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 ||
       (D != 64 && D != 128) || (h_tab != 1 && h_tab != H) || nq != Sq / block_q)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -416,13 +469,40 @@ extern "C" int vorta_flash_fwd_f32(const void* q, const void* k, const void* v, 
       static_cast<const int*>(kv_index), static_cast<const int*>(kv_count), nullptr, nullptr,
       nullptr, H, Sq, Skv, D, nq, width, h_tab == 1, h_tab == 1, block_q, block_kv,
       has_tail ? kv_valid_len / block_kv : -1, kv_valid_len % block_kv, 1, 1};
-  const dim3 grid = vorta::f32::table_grid(B, p);
   auto st = static_cast<cudaStream_t>(stream);
   auto* qq = static_cast<const float*>(q);
   auto* oo = static_cast<float*>(out);
   auto* ls = static_cast<float*>(lse);
+  if (work != nullptr)
+    return static_cast<int>(vorta::f32tc::launch(flash_f32_tc_kernel, q, k, v, work, B, p, st, p,
+                                                 oo, ls, scale_log2));
+  const dim3 grid = vorta::f32::table_grid(B, p);
   return static_cast<int>(
       D == 128
           ? vorta::f32::launch<128>(flash_f32_kernel<128>, grid, st, qq, oo, ls, p, scale_log2)
           : vorta::f32::launch<64>(flash_f32_kernel<64>, grid, st, qq, oo, ls, p, scale_log2));
+}
+
+// Test-only: the tensor-core f32 core's probe on one (64, 128) f32 tile each
+// of q, k, v (contiguous, 16-byte aligned); work: 6 x 64 x 128 f32 for the
+// split halves; s: (64, 64), o: (64, 128) f32.
+extern "C" int vorta_f32_tc_probe(const void* q, const void* k, const void* v, void* work,
+                                  void* s, void* o, void* stream) {
+  using namespace vorta::f32tc;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* w = static_cast<float*>(work);
+  constexpr long long n4 = BQ * D / 4;
+  f32_tc_split_rows_kernel<<<8, 256, 0, st>>>(static_cast<const float4*>(q),
+                                              reinterpret_cast<uint4*>(w), n4);
+  f32_tc_split_rows_kernel<<<8, 256, 0, st>>>(static_cast<const float4*>(k),
+                                              reinterpret_cast<uint4*>(w + 2 * BQ * D), n4);
+  f32_tc_split_vt_kernel<<<dim3(1, 1), 256, 0, st>>>(static_cast<const float*>(v),
+                                                     reinterpret_cast<uint32_t*>(w + 4 * BQ * D),
+                                                     1, BK, BK, -1, 0);
+  cudaError_t err = cudaFuncSetAttribute(f32_tc_probe_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  f32_tc_probe_kernel<<<1, 128, SMEM_BYTES, st>>>(
+      reinterpret_cast<const uint4*>(w), static_cast<float*>(s), static_cast<float*>(o));
+  return static_cast<int>(cudaGetLastError());
 }

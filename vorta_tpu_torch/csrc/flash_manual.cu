@@ -69,6 +69,7 @@
 
 #include "attn_sm90.cuh"
 #include "attn_f32.cuh"
+#include "attn_f32_tc.cuh"
 #include "mma_s8.cuh"
 
 namespace {
@@ -308,7 +309,8 @@ extern "C" int vorta_flash_manual_fwd_bf16(const void* q, const void* k, const v
   return static_cast<int>(err);
 }
 
-// ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the block tables ------
+// ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the block tables, and
+// csrc/attn_f32_tc.cuh's tensor-core core where ops/flash.py:f32_tc_path holds
 
 namespace {
 
@@ -324,6 +326,17 @@ flash_manual_f32_kernel(const void* __restrict__ q, float* __restrict__ out,
                                                           stable != 0);
 }
 
+// The tensor-core f32 core (csrc/attn_f32_tc.cuh: 3xTF32 on wgmma), D = 128,
+// f32 q / k (not the int8 mode), either softmax, kv_bias in p.
+__global__ void __launch_bounds__(vorta::f32tc::THREADS, 1)
+flash_manual_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ vorta::f32::TableParams p,
+                           float* __restrict__ out, float mul, int stable) {
+  vorta::f32tc::attend(tq, tk, tv, p, out, nullptr, mul, stable != 0);
+}
+
 }  // namespace
 
 // The f32 mode (flash_manual.py's kernel at f32 inputs): q, k, v, out
@@ -333,17 +346,22 @@ flash_manual_f32_kernel(const void* __restrict__ q, float* __restrict__ out,
 // scale * log2(e); else the fast one, q pre-scaled in f32 by the wrapper.
 // P kept in f32.  qk_factor: null, or (H,) f32 qk_scale * scale * log2(e)
 // on the device with q and k int8 (q not pre-scaled; the fast softmax): the
-// int8 QK mode with an f32 v.  Returns the CUDA error code.
+// int8 QK mode with an f32 v.  work: null, or where the wrapper's rule
+// (ops/flash.py:f32_tc_path, f32 q / k) chose the tensor-core core (D = 128,
+// blocks multiples of 128, not the int8 mode; anything else there is an
+// error, never a fallback), scratch for the split halves of q, k and V^T: 2
+// B H (Sq + 2 Skv) 128 f32, 16-byte aligned; null: the FFMA core.  Returns
+// the CUDA error code.
 extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const void* v,
                                           void* out, const void* kv_index, const void* kv_count,
                                           const void* kv_bias, const void* qk_factor, int B,
                                           int H, int Sq, int Skv, int D, int idx_heads,
                                           int cnt_heads, int nq, int width, int block_q,
                                           int block_kv, int kv_valid_len, int stable, float sl,
-                                          void* stream) {
+                                          void* work, void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128) ||
       (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
-      nq != Sq / block_q || (qk_factor && stable))
+      nq != Sq / block_q || (qk_factor && stable) || (qk_factor && work))
     return static_cast<int>(cudaErrorInvalidValue);
   const int has_tail = kv_valid_len % block_kv != 0;
   const bool i8 = qk_factor != nullptr;
@@ -352,10 +370,13 @@ extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const vo
       static_cast<const int*>(kv_count), nullptr, nullptr, static_cast<const float*>(kv_bias),
       H, Sq, Skv, D, nq, width, idx_heads == 1, cnt_heads == 1, block_q, block_kv,
       has_tail ? kv_valid_len / block_kv : -1, kv_valid_len % block_kv, 1, 1, i8 ? 1 : 4};
-  const dim3 grid = vorta::f32::table_grid(B, p);
   const float mul = stable ? sl : 1.f;
   auto st = static_cast<cudaStream_t>(stream);
   auto* oo = static_cast<float*>(out);
+  if (work != nullptr)
+    return static_cast<int>(vorta::f32tc::launch(flash_manual_f32_tc_kernel, q, k, v, work, B, p,
+                                                 st, p, oo, mul, stable));
+  const dim3 grid = vorta::f32::table_grid(B, p);
   auto* qf = static_cast<const float*>(qk_factor);
   auto run = [&](auto kern, auto d) {
     return vorta::f32::launch<decltype(d)::value>(kern, grid, st, q, oo, p, mul, qf, stable);

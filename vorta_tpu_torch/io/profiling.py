@@ -56,6 +56,8 @@ SYMBOL_COUNTERS = {
     "sta_pipe_f32_kernel": "sta_pipe", "sta_batched_f32_kernel": "sta_batched",
     "flash_dq_f32_kernel": "flash_dq", "flash_dkv_f32_kernel": "flash_dkv",
     "sta_window_f32_kernel": "sta_window", "sta_row_f32_kernel": "sta_row",
+    # the f32 modes' tensor-core core (csrc/attn_f32_tc.cuh)
+    "flash_f32_tc_kernel": "flash", "flash_manual_f32_tc_kernel": "flash_manual",
 }
 _SYMBOL = re.compile(r"\b([A-Za-z0-9_]+_kernel)\b")
 

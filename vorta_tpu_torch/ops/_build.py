@@ -48,7 +48,11 @@ their kernel: ``flash_f32``, ``flash_manual_f32``, ``sta_pipe_f32`` and
 ``pool_qkv_f32`` (of ``pool_qkv`` + ``pool_qkv_headmap``) and ``unpool_f32``
 (of ``unpool`` + ``unpool_headmap``); those of the f32 training path's
 backward, ``flash_dq_f32`` and ``flash_dkv_f32`` (``csrc/attn_f32_bwd.cuh``),
-of ``flash_dq`` and ``flash_dkv``.  The int8 QK mode with an f32 v counts in
+of ``flash_dq`` and ``flash_dkv``.  ``flash_f32_tc`` and
+``flash_manual_f32_tc`` count the f32 launches on the tensor-core core
+(``csrc/attn_f32_tc.cuh``: 3xTF32 on wgmma, by ``ops/flash.py:f32_tc_path``),
+subsets of ``flash_f32`` and ``flash_manual_f32``; they never count as
+``*_wgmma``.  The int8 QK mode with an f32 v counts in
 both its modes' counters: ``flash_manual_f32`` and ``flash_manual_int8``,
 ``sta_pipe_f32`` and ``sta_pipe_int8``.
 Headers (``*.cuh``) are part of the hash.
@@ -79,7 +83,8 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "sta_row_wgmma", "prologue_rows", "sta_diag_wgmma", "unpool_rows",
            "fused_norm_range", "flash_f32", "flash_manual_f32", "sta_pipe_f32",
            "sta_batched_f32", "fused_norm_f32", "prologue_f32", "pool_qkv_f32", "unpool_f32",
-           "flash_dq_f32", "flash_dkv_f32", "sta_window_f32", "sta_row_f32")
+           "flash_dq_f32", "flash_dkv_f32", "sta_window_f32", "sta_row_f32", "flash_f32_tc",
+           "flash_manual_f32_tc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

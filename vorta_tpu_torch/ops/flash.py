@@ -21,10 +21,19 @@ does not divide (the 96- and 360-token STA tiles of training, 24-token
 tiles) take its mma.sync kernel.  The rule alone decides: neither path
 falls back to the other.  f32 q / k / v (the f32 serving path: the tiny
 models, ``cli.sample --dtype fp32``, and the forward of f32 training,
-``cli.train --dtype fp32``) take the f32 mode, its own branch:
-``csrc/attn_f32.cuh``'s FFMA core over the same tables (counted as
+``cli.train --dtype fp32``) take the f32 mode, its own branch (counted as
 ``flash_f32`` too), P kept in f32 as the plain version keeps it, the lse
-written by the same core where ``return_lse`` asks for it.
+written by the same core where ``return_lse`` asks for it.  Two f32 cores,
+chosen by the rule ``f32_tc_path`` (``wgmma_path``'s shapes): at head dim
+128 with blocks that are multiples of 128 (every f32 call of the 1.3B / 13B
+paths: self- and cross-attention, training's FULL / LOWRES / cross) the
+tensor-core core of ``csrc/attn_f32_tc.cuh`` (3xTF32 products on wgmma:
+a split pre-pass writes the TF32 halves of q, k and V^T into scratch the
+wrapper allocates, ``f32_tc_work``, and TMA feeds them to the products;
+counted as ``flash_f32_tc`` too); elsewhere (D = 64, the 8- / 16- / 24- /
+96- / 360-token blocks) ``csrc/attn_f32.cuh``'s FFMA core.
+``sparse_flash_attention_ffma`` runs the FFMA core at any shape (the
+yardstick ``chip_smoke.py`` times beside the tensor-core core).
 
 ``sparse_flash_attention_raw`` is forward only, as in the JAX package: on
 CUDA it raises where grad mode is on and an input requires grad.
@@ -187,6 +196,15 @@ def wgmma_path(d: int, block_q: int, block_kv: int) -> bool:
     return d == 128 and block_q % WGMMA_TILE == 0 and block_kv % WGMMA_TILE == 0
 
 
+def f32_tc_path(d: int, block_q: int, block_kv: int) -> bool:
+    """The shape rule of the f32 mode's tensor-core core
+    (``csrc/attn_f32_tc.cuh``, 3xTF32 on wgmma; flash's and flash_manual's
+    f32 q / k): ``wgmma_path``'s shapes, head dim 128 with q and kv blocks
+    that are multiples of 128.  The C entries refuse the core for anything
+    else; elsewhere the FFMA core of ``csrc/attn_f32.cuh`` runs."""
+    return wgmma_path(d, block_q, block_kv)
+
+
 def refuse_unported(kv_valid, pair_bits, tokens_per_tile, cast_p_to_v_dtype: bool) -> None:
     """The TPU wrappers' options that flash and flash_manual do not port
     (ROADMAP section 1 item 11) raise NotImplementedError."""
@@ -208,9 +226,16 @@ def _flash_f32_fn():
     fn = _build.load("flash").vorta_flash_fwd_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i] * 11 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 7 + [i] * 11 + [ctypes.c_float, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def f32_tc_work(b: int, h: int, sq: int, skv: int, device) -> torch.Tensor:
+    """The tensor-core core's scratch for one call: the big and small TF32
+    halves of q (its ``sq`` rows), of k and of V^T (``skv`` each), f32 at
+    head dim 128, which its split pre-pass writes and its TMA copies read."""
+    return torch.empty(2 * b * h * (sq + 2 * skv) * 128, dtype=torch.float32, device=device)
 
 
 def _flash_fn():
@@ -237,6 +262,27 @@ def sm90_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     fn.argtypes, fn.restype = [ctypes.c_void_p] * 6, ctypes.c_int
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(),
                     _build.stream_ptr(dev)), "sm90_probe")
+    return s, o
+
+
+def f32_tc_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Test-only: the f32 tensor-core core's pieces on one (64, 128) f32
+    tile each of q, k, v on the card (``vorta_f32_tc_probe``: the split
+    pre-pass, then the halves copied into the swizzled tiles).  Returns f32
+    (s, o): s = q k^T (64, 64) and o = s v (64, 128), each from three TF32
+    products on wgmma, P from the S registers against V^T's permuted keys."""
+    dev = _build.require_cuda(q, k, v)
+    for t in (q, k, v):
+        if t.shape != (64, 128) or t.dtype != torch.float32:
+            raise ValueError(f"f32_tc_probe takes (64, 128) f32 tiles, got {tuple(t.shape)}")
+    q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
+    s = torch.empty((64, 64), dtype=torch.float32, device=dev)
+    o = torch.empty((64, 128), dtype=torch.float32, device=dev)
+    work = f32_tc_work(1, 1, 64, 64, dev)
+    fn = _build.load("flash").vorta_f32_tc_probe
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 7, ctypes.c_int
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), work.data_ptr(), s.data_ptr(),
+                    o.data_ptr(), _build.stream_ptr(dev)), "f32_tc_probe")
     return s, o
 
 
@@ -268,6 +314,24 @@ def sparse_flash_attention_raw(
     NotImplementedError (ROADMAP section 1 item 11): no JAX call site passes
     them to this kernel.
     """
+    return _flash(q, k, v, kv_index, kv_count, scale=scale, block_q=block_q, block_kv=block_kv,
+                  kv_valid_len=kv_valid_len, kv_valid=kv_valid, pair_bits=pair_bits,
+                  tokens_per_tile=tokens_per_tile, cast_p_to_v_dtype=cast_p_to_v_dtype,
+                  return_lse=return_lse)
+
+
+def sparse_flash_attention_ffma(q, k, v, kv_index, kv_count, **kw):
+    """``sparse_flash_attention_raw`` at f32 on the FFMA core whatever
+    ``f32_tc_path`` says: the card's yardstick beside the tensor-core core
+    at the same call (``chip_smoke.py`` times both), counted in ``flash`` /
+    ``flash_f32`` only."""
+    return _flash(q, k, v, kv_index, kv_count, tc_ok=False, **kw)
+
+
+def _flash(q, k, v, kv_index, kv_count, *, scale: Optional[float] = None, block_q: int = 256,
+           block_kv: int = 256, kv_valid_len: Optional[int] = None, kv_valid=None,
+           pair_bits=None, tokens_per_tile: Optional[int] = None,
+           cast_p_to_v_dtype: bool = True, return_lse: bool = False, tc_ok: bool = True):
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if k.shape != (b, h, skv, d) or v.shape != k.shape:
@@ -297,8 +361,9 @@ def sparse_flash_attention_raw(
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
     kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
-    f32 = q.dtype == torch.float32  # the f32 mode: its own kernel, no Hopper rule
+    f32 = q.dtype == torch.float32  # the f32 mode: its own kernels, no Hopper rule
     hopper = not f32 and wgmma_path(d, block_q, block_kv)
+    tc = f32 and tc_ok and f32_tc_path(d, block_q, block_kv)
     q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=dev) if return_lse else None
@@ -307,12 +372,14 @@ def sparse_flash_attention_raw(
             kv_index.shape[0], kv_index.shape[1], kv_index.shape[2],
             block_q, block_kv, int(kv_valid_len), float(scale * LOG2E))
     if f32:
-        err = _flash_f32_fn()(*args, _build.stream_ptr(dev))
+        work = f32_tc_work(b, h, sq, skv, dev) if tc else None
+        err = _flash_f32_fn()(*args, _build.ptr(work), _build.stream_ptr(dev))
     else:
         err = _flash_fn()(*args, int(hopper), _build.stream_ptr(dev))
     _build.check(err, "flash (f32)" if f32 else "flash")
     _build.launches["flash"] += 1
     _build.launches["flash_f32"] += f32
+    _build.launches["flash_f32_tc"] += tc
     _build.launches["flash_wgmma"] += hopper
     if return_lse:
         _build.launches["flash_lse"] += 1

@@ -42,10 +42,15 @@ TMA-fed K/V ring, warp specialisation; counted as ``flash_manual_wgmma``
 too) where ``manual_wgmma_path`` says so (the fast softmax, bf16 or int8 q /
 k, the shapes of ``ops/flash.py:wgmma_path``: every served geometry), else
 its mma.sync kernel (D = 64, other blocks, the stable softmax); f32 q / k
-/ v take the f32 mode, its own branch (``csrc/attn_f32.cuh``'s FFMA core,
-either softmax, kv_bias, the tail rule, the count-0 rows; q pre-scaled in
-f32 for the fast softmax; P kept in f32; counted as ``flash_manual_f32``
-too), int8 q / k with ``qk_scale`` and an f32 v its int8 mode (the scores
+/ v take the f32 mode, its own branch (either softmax, kv_bias, the tail
+rule, the count-0 rows; q pre-scaled in f32 for the fast softmax; P kept in
+f32; counted as ``flash_manual_f32`` too): the tensor-core core of
+``csrc/attn_f32_tc.cuh`` (3xTF32 on wgmma, counted as
+``flash_manual_f32_tc`` too) where ``ops/flash.py:f32_tc_path`` holds (D =
+128, blocks multiples of 128: every f32 call of the 1.3B / 13B paths), else
+``csrc/attn_f32.cuh``'s FFMA core (``sparse_flash_attention_manual_ffma``
+runs it at any shape, the yardstick); int8 q / k with ``qk_scale`` and an
+f32 v its int8 mode on the FFMA core (the scores
 exact int32 sums by dp4a times the head's factor; counted as
 ``flash_manual_f32`` and ``flash_manual_int8``); on CPU tensors it runs the
 plain version,
@@ -61,7 +66,15 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash import LOG2E, NEG_INF, _kv_column_limit, refuse_unported, wgmma_path
+from .flash import (
+    LOG2E,
+    NEG_INF,
+    _kv_column_limit,
+    f32_tc_path,
+    f32_tc_work,
+    refuse_unported,
+    wgmma_path,
+)
 
 NEG = -1e30
 SOFTMAXES = ("fast", "stable")
@@ -188,7 +201,7 @@ def _flash_manual_fn():
     fn = _build.load("flash_manual").vorta_flash_manual_fwd_bf16
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 13 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 8 + [i] * 13 + [ctypes.c_float, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -197,9 +210,30 @@ def _flash_manual_f32_fn():
     fn = _build.load("flash_manual").vorta_flash_manual_fwd_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 13 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 8 + [i] * 13 + [ctypes.c_float, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def sparse_flash_attention_manual_ffma(q, k, v, kv_index, kv_count, *,
+                                       scale: Optional[float] = None, block_q: int = 512,
+                                       block_kv: int = 512, kv_valid_len: Optional[int] = None,
+                                       kv_bias: Optional[torch.Tensor] = None,
+                                       softmax: str = "stable") -> torch.Tensor:
+    """``sparse_flash_attention_manual`` at f32 on the FFMA core whatever
+    ``f32_tc_path`` says: the card's yardstick beside the tensor-core core
+    at the same call (``chip_smoke.py`` times both), counted in
+    ``flash_manual`` / ``flash_manual_f32`` only.  CUDA f32 q / k / v."""
+    dev = _build.require_cuda(q, k, v)
+    if v.dtype != torch.float32 or softmax not in SOFTMAXES:
+        raise ValueError(f"the FFMA yardstick takes f32 q / k / v and a softmax of {SOFTMAXES}")
+    _build.forward_only("sparse_flash_attention_manual_ffma", q, k, v)
+    _check(q, k, v, kv_index, kv_count, block_q, block_kv)
+    d, skv = q.shape[-1], k.shape[2]
+    return _manual_f32(q, k, v, kv_index, kv_count, dev, scale=d**-0.5 if scale is None else scale,
+                       block_q=block_q, block_kv=block_kv,
+                       kv_valid_len=skv if kv_valid_len is None else int(kv_valid_len),
+                       kv_bias=kv_bias, qk_scale=None, softmax=softmax, tc_ok=False)
 
 
 def sparse_flash_attention_manual(
@@ -286,10 +320,12 @@ def sparse_flash_attention_manual(
 
 
 def _manual_f32(q, k, v, kv_index, kv_count, dev, *, scale: float, block_q: int, block_kv: int,
-                kv_valid_len: int, kv_bias, qk_scale, softmax: str) -> torch.Tensor:
-    """The f32 mode on CUDA: f32 q / k / v, either softmax, or int8 q / k
-    with ``qk_scale`` (the fast softmax, q not pre-scaled), through
-    ``csrc/attn_f32.cuh``."""
+                kv_valid_len: int, kv_bias, qk_scale, softmax: str,
+                tc_ok: bool = True) -> torch.Tensor:
+    """The f32 mode on CUDA: f32 q / k / v, either softmax, on the
+    tensor-core core where ``f32_tc_path`` holds, else on the FFMA core of
+    ``csrc/attn_f32.cuh``, which also takes int8 q / k with ``qk_scale``
+    (the fast softmax, q not pre-scaled)."""
     qk_dtype = torch.float32 if qk_scale is None else torch.int8
     if q.dtype != qk_dtype or k.dtype != qk_dtype:
         raise NotImplementedError(f"the CUDA flash_manual f32 mode takes f32 q / k / v, or int8 "
@@ -307,17 +343,21 @@ def _manual_f32(q, k, v, kv_index, kv_count, dev, *, scale: float, block_q: int,
     qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
     _build.require_cuda(q, bias, qkc)
     stable = softmax == "stable"
+    tc = tc_ok and qkc is None and f32_tc_path(d, block_q, block_kv)
     qs = q if stable or qkc is not None else _prescale(q, scale)
     qs, k, v = (_build.aligned16(t.contiguous()) for t in (qs, k, v))
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    work = f32_tc_work(b, h, sq, skv, dev) if tc else None
     err = _flash_manual_f32_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_index.data_ptr(),
         kv_count.data_ptr(), _build.ptr(bias), _build.ptr(qkc), b, h, sq, skv, d,
         kv_index.shape[0], kv_count.shape[0], kv_index.shape[1], kv_index.shape[2], block_q,
-        block_kv, kv_valid_len, int(stable), float(scale * LOG2E), _build.stream_ptr(dev))
+        block_kv, kv_valid_len, int(stable), float(scale * LOG2E), _build.ptr(work),
+        _build.stream_ptr(dev))
     _build.check(err, "flash_manual (f32)")
     _build.launches["flash_manual"] += 1
     _build.launches["flash_manual_f32"] += 1
+    _build.launches["flash_manual_f32_tc"] += tc
     if qkc is not None:
         _build.launches["flash_manual_int8"] += 1
     if stable:
