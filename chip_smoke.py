@@ -578,12 +578,13 @@ def build_kernels() -> None:
     # sta_batched with and without pair bits), held to 128 registers so that
     # two 101 KB CTAs share an SM, and the f32 backward's 4 (dq, dk/dv at D
     # 64 / 128; one CTA an SM at D 128): spills reported.  The tensor-core
-    # f32 core's 2 (flash's, flash_manual's; one 193 KB CTA an SM): no spills
+    # f32 kernels' 4 (flash's, flash_manual's: one 193 KB CTA an SM; the
+    # backward's dq and dk/dv: one 225 KB CTA an SM): no spills
     for entry, count, spill_free in (("fused_norm_rows_kernel", 72, True),
                                      ("prologue_rows_kernel", 27, True),
                                      ("unpool_rows_kernel", 24, True),
                                      ("_f32_kernel", 22, False),
-                                     ("_f32_tc_kernel", 2, True)):
+                                     ("_f32_tc_kernel", 4, True)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
             f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
@@ -807,9 +808,11 @@ def main() -> int:
                 "replaces": F32_TRAIN_REPLACES[name], "on_main_path": True,
                 **mode_row(shapes), "worst_ratio": max(x["worst_ratio"] for x in shapes.values()),
                 "launches": f32_paths["train_f32_480p_29f"], "launches_by_path": f32_paths}
-            if name == "flash_lse":  # every f32 flash launch on the tensor cores, lse or not
-                k["modes"]["f32"]["tensor_core_launches_by_path"] = {
-                    p: launches_f32_train[p]["flash_f32_tc"] for p in launches_f32_train}
+            # every f32 flash launch on the tensor cores, lse or not; the backward's on its
+            # tensor-core dq and dk/dv
+            tc_counter = "flash_f32_tc" if name == "flash_lse" else f"{name}_f32_tc"
+            k["modes"]["f32"]["tensor_core_launches_by_path"] = {
+                p: launches_f32_train[p][tc_counter] for p in launches_f32_train}
         if name in ("pool_qkv", "unpool"):  # the head-map mode: HunyuanVideo's routed path
             hm_paths = by_path(f"{name}_headmap")
             if not hm_paths["hunyuan"]:
@@ -6357,10 +6360,15 @@ def f32_launches(want: dict, full_width: bool) -> dict:
     tensor-core core every flash / flash_manual launch that bf16 sends to
     the Hopper path (ops/flash.py:f32_tc_path is wgmma_path's shape rule;
     flash_manual's int8 QK mode stays on the FFMA core, and on these paths
-    its launches are all at the Hopper shapes); the tiny models' head dim
-    64 takes neither."""
+    its launches are all at the Hopper shapes), and the backward's
+    tensor-core dq and dk/dv every launch that bf16 sends to its Hopper
+    kernels (ops/flash_bwd.py:bwd_f32_tc_path, the same shapes); the tiny
+    models' head dim 64 takes none of them."""
     out = dict(want)
     out["flash_f32_tc"] = want["flash_wgmma"] if full_width else 0
+    # the backward's rule (ops/flash_bwd.py:bwd_f32_tc_path) is bf16's Hopper rule too
+    out["flash_dq_f32_tc"] = want["flash_dq_wgmma"] if full_width else 0
+    out["flash_dkv_f32_tc"] = want["flash_dkv_wgmma"] if full_width else 0
     out["flash_manual_f32_tc"] = (
         want["flash_manual_wgmma"] - min(want["flash_manual_int8"], want["flash_manual_wgmma"])
         if full_width else 0)
@@ -6757,16 +6765,20 @@ def bwd_rounded_p(torch, q, k, v, out, lse2, dout, kv_index, kv_count, *, scale,
 
 def check_f32_training_kernels(torch, card: str) -> dict:
     """Phase s: the f32 forward with its lse and the f32 dq and dk/dv
-    kernels (csrc/attn_f32_bwd.cuh) at the trainer's six shapes and the tiny
-    models' D = 64 shapes, each against its f32 plain version (gates above),
-    launched once on its f32 mode and timed beside its bound (67 TFLOP/s
-    f32) and f32 SDPA forward / backward with TF32 off; brackets at LOWRES
-    (a kv tail).  The forward at FULL, LOWRES and cross runs on the
-    tensor-core core (flash_f32_tc), held to the same gates beside the FFMA
-    core at the same call, both timed in turns, its bound the 3xTF32 one
-    (495 TFLOP/s TF32, a third of it f32-exact), with the bracket of q, k, v
-    rounded once to TF32 (>= 2e-4 at FULL and LOWRES): {"lse" | "dq" |
-    "dkv": {shape: numbers}}."""
+    kernels at the trainer's six shapes and the tiny models' D = 64 shapes,
+    each against its f32 plain version (gates above), launched once on its
+    f32 mode and timed beside its bound (67 TFLOP/s f32) and f32 SDPA
+    forward / backward with TF32 off; brackets at LOWRES (a kv tail).  At
+    FULL, LOWRES and cross the forward runs on the tensor-core core
+    (flash_f32_tc) and the backward on the tensor-core dq and dk/dv
+    (flash_dq_f32_tc / flash_dkv_f32_tc, csrc/attn_f32_tc_bwd.cuh), each
+    held to the same gates beside the FFMA kernels at the same call
+    (sparse_flash_attention_ffma, flash_backward_ffma), both timed in turns,
+    its bound the 3xTF32 one (495 TFLOP/s TF32, a third of it f32-exact),
+    with the bracket of its inputs rounded once to TF32 (q, k, v; the
+    backward's q, k, v and dO: >= 2e-4 at FULL and LOWRES); the STA tiles
+    and D 64 stay on the FFMA kernels by rule: {"lse" | "dq" | "dkv":
+    {shape: numbers}}."""
     import torch.nn.functional as F
 
     from vorta_tpu_torch.ops import _build
@@ -6776,7 +6788,13 @@ def check_f32_training_kernels(torch, card: str) -> dict:
         sparse_flash_attention_raw,
         sparse_flash_attention_ref,
     )
-    from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
+    from vorta_tpu_torch.ops.flash_bwd import (
+        bwd_f32_tc_path,
+        flash_backward,
+        flash_backward_ffma,
+        flash_backward_ref,
+        transpose_tables,
+    )
 
     check_full_f32(torch)
     dev = torch.device("cuda")
@@ -6849,26 +6867,61 @@ def check_f32_training_kernels(torch, card: str) -> dict:
         bkw = dict(kv_valid_len=kvv, **kw)
         args = (q, k, v, out, lse, dout, ki, kc, qi, qc)
         bwd = lambda **o: flash_backward(*args, **bkw, **o)  # noqa: E731
+        bwd_ffma = lambda **o: flash_backward_ffma(*args, **bkw, **o)  # noqa: E731
         plain = lambda: flash_backward_ref(q, k, v, out, lse, dout, ki, kc, **bkw)  # noqa: E731
+        btc = bwd_f32_tc_path(d, c["bq"], c["bkv"])
+        if btc != tc:
+            raise RuntimeError(f"f32 {name}: the forward and the backward take different designs")
         _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
         got = bwd()
         torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
         got_n = tuple(_build.launches[x] for x in ("flash_dq", "flash_dq_f32", "flash_dkv",
                                                    "flash_dkv_f32", "flash_dq_wgmma",
-                                                   "flash_dkv_wgmma"))
-        if got_n != (1, 1, 1, 1, 0, 0):
-            raise RuntimeError(f"f32 backward {name}: launches {got_n}")
+                                                   "flash_dkv_wgmma", "flash_dq_f32_tc",
+                                                   "flash_dkv_f32_tc"))
+        if got_n != (1, 1, 1, 1, 0, 0, int(btc), int(btc)):
+            raise RuntimeError(f"f32 backward {name}: launches (dq, _f32, dkv, _f32, _wgmma x 2, "
+                               f"_f32_tc x 2) {got_n}")
         want, bwd_plain_ms = timed_once(torch, plain)
         ratios = [worst_ratio(torch, a, w) for a, w in zip(got, want)]
         errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
-        log(f"f32 backward {name}: dq / dk / dv worst ratio {ratios[0]:.3e} / {ratios[1]:.3e} / "
-            f"{ratios[2]:.3e} (tolerance {TOL_F32_ATTN:g}); max |err| {max(errs):.3e}")
+        log(f"f32 backward {name} ({'tensor cores' if btc else 'FFMA'}): dq / dk / dv worst ratio "
+            f"{ratios[0]:.3e} / {ratios[1]:.3e} / {ratios[2]:.3e} (tolerance {TOL_F32_ATTN:g}); "
+            f"max |err| {max(errs):.3e}; peak {peak:.3f} GiB above the inputs")
         if not (max(ratios) <= TOL_F32_ATTN and all(torch.isfinite(a).all() for a in got)):
             raise RuntimeError(f"f32 backward {name}: the kernels disagree with their plain version")
         if got[1][:, :, kvv:].any() or got[2][:, :, kvv:].any():
             raise RuntimeError(f"f32 backward {name}: kv rows past the tail got non-zero dk / dv")
         if not c["tables"].kv_count[0, 0] and got[0][:, :, :c["bq"]].any():
             raise RuntimeError(f"f32 backward {name}: the count-0 q block got non-zero dq")
+        del got
+        btc_row = {"peak_gib": peak}
+        if btc:  # the FFMA kernels at the same call, and the bracket of one TF32 product
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            f_got = bwd_ffma()
+            torch.cuda.synchronize()
+            btc_row["ffma_peak_gib"] = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+            btc_row["ffma_worst_ratio"] = max(worst_ratio(torch, a, w) for a, w in zip(f_got, want))
+            if not btc_row["ffma_worst_ratio"] <= TOL_F32_ATTN:
+                raise RuntimeError(f"f32 backward {name}: the FFMA kernels disagree")
+            del f_got
+            q1, k1, v1, d1 = (tf32_rne(torch, x) for x in (q, k, v, dout))
+            btc_row["tf32_bracket_worst_ratio"] = max(worst_ratio(torch, a, w) for a, w in zip(
+                flash_backward_ref(q1, k1, v1, out, lse, d1, ki, kc, **bkw), want))
+            del q1, k1, v1, d1
+            gated = name in ("full_31200", "lowres_15600")
+            bar = "must be" if gated else "recorded; the bar is"
+            log(f"f32 backward {name}: the FFMA kernels' worst ratio "
+                f"{btc_row['ffma_worst_ratio']:.3e}, peak {btc_row['ffma_peak_gib']:.3f} GiB; q, k, "
+                f"v, dO rounded to TF32, worst ratio {btc_row['tf32_bracket_worst_ratio']:.3e} "
+                f"({bar} >= {F32_BRACKET * TOL_F32_ATTN:g})")
+            if gated and not btc_row["tf32_bracket_worst_ratio"] >= F32_BRACKET * TOL_F32_ATTN:
+                raise RuntimeError(f"f32 backward {name}: the gate cannot tell a single TF32 "
+                                   "product")
         brackets = {}
         if name == "lowres_15600":  # a kv tail at training's size: the gate must see both
             for what, miss in (
@@ -6881,14 +6934,16 @@ def check_f32_training_kernels(torch, card: str) -> dict:
                 f"tail mask / with p and ds in bf16) {brackets}")
             if not min(brackets.values()) >= F32_BRACKET * TOL_F32_ATTN:
                 raise RuntimeError(f"f32 backward {name}: the gate cannot tell a bracket {brackets}")
-        del got, want
+        del want
         torch.cuda.empty_cache()
 
         pairs = visible_pairs(c) * h
         rows_q, rows_kv = qv * h * d * 4, kvv * h * d * 4
         fl = bound_ms(4.0 * pairs * d, 2 * rows_q + 2 * rows_kv + qv * h * 4, PEAK_F32)
-        dq_b = bound_ms(6.0 * pairs * d, 3 * rows_q + 2 * rows_kv + 2 * qv * h * 4, PEAK_F32)
-        dkv_b = bound_ms(8.0 * pairs * d, 2 * rows_q + 4 * rows_kv + 2 * qv * h * 4, PEAK_F32)
+        bwd_bytes = {"dq": 3 * rows_q + 2 * rows_kv + 2 * qv * h * 4,
+                     "dkv": 2 * rows_q + 4 * rows_kv + 2 * qv * h * 4}
+        dq_b = bound_ms(6.0 * pairs * d, bwd_bytes["dq"], PEAK_F32)
+        dkv_b = bound_ms(8.0 * pairs * d, bwd_bytes["dkv"], PEAK_F32)
         lib_fwd = lib_bwd = None
         if d == 128:  # f32 SDPA (TF32 off) on the valid rows, STA with the window's mask
             qs, ks, vs = (x[:, :, :n].detach().requires_grad_() for x, n in
@@ -6926,13 +6981,28 @@ def check_f32_training_kernels(torch, card: str) -> dict:
                                 library_ms=lib_fwd, bound_ms=fl[0], bound_by=fl[1],
                                 max_abs_err=max(out_err, lse_err.max().item()),
                                 worst_ratio=out_ratio, shape=[1, h, sq, d], keys=skv, **tc_row)
-        for kind, alone, (b_ms, b_by), i in (("dq", "need_dkv", dq_b, 0), ("dkv", "need_dq", dkv_b, 1)):
-            res[kind][name] = dict(ms=time_ms(torch, lambda: bwd(**{alone: False}), iters, 1),
-                                   plain_ms=bwd_plain_ms, library_ms=lib_bwd, bound_ms=b_ms,
+        for kind, alone, (b_ms, b_by), i, per_pair in (("dq", "need_dkv", dq_b, 0, 6.0),
+                                                       ("dkv", "need_dq", dkv_b, 1, 8.0)):
+            row = dict(btc_row)
+            if btc:  # in turns; the 3xTF32 bound, the FFMA one beside it
+                ms, f_ms = [], []
+                for _ in range(2):
+                    ms.append(time_ms(torch, lambda: bwd(**{alone: False}), iters, 1))
+                    f_ms.append(time_ms(torch, lambda: bwd_ffma(**{alone: False}), iters, 1))
+                k_ms = sum(ms) / 2
+                row.update(core="tensor_cores", ffma_ms=sum(f_ms) / 2, ffma_bound_ms=b_ms,
+                           ffma_bound_share=b_ms / (sum(f_ms) / 2), tc_over_ffma=sum(ms) / sum(f_ms))
+                b_ms, b_by = bound_ms(3 * per_pair * pairs * d, bwd_bytes[kind], PEAK_TF32)
+                if not (b_ms <= k_ms and row["ffma_bound_ms"] <= row["ffma_ms"]):
+                    raise RuntimeError(f"f32 {kind} {name}: a time below its bound")
+            else:
+                k_ms = time_ms(torch, lambda: bwd(**{alone: False}), iters, 1)
+                row["core"] = "ffma"
+            res[kind][name] = dict(ms=k_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd, bound_ms=b_ms,
                                    bound_by=b_by, max_abs_err=errs[0] if i == 0 else max(errs[1:]),
                                    worst_ratio=ratios[0] if i == 0 else max(ratios[1:]),
                                    shape=[1, h, sq, d], keys=skv,
-                                   **({"brackets": brackets} if brackets else {}))
+                                   **({"brackets": brackets} if brackets else {}), **row)
         for kind, per_pair in (("lse", 4.0), ("dq", 6.0), ("dkv", 8.0)):
             log(f"f32 {kind} {name}: {with_rate(res[kind][name], per_pair * pairs * d)}")
         del q, k, v, dout, out, lse

@@ -3594,23 +3594,90 @@ def test_flash_f32_lse_and_backward_match_plain(card, d, kind, bq, bkv, sq, skv,
 
 def test_flash_f32_backward_c_entries_refuse_what_their_rules_refuse(card):
     """The f32 backward entries refuse a head dim outside 64 / 128 and blocks
-    not multiples of 8: an error code, never a launch."""
-    from vorta_tpu_torch.ops.flash_bwd import _fn
+    not multiples of 8: an error code, never a launch.  Given the
+    tensor-core scratch they refuse every shape off ops/flash_bwd.py:
+    bwd_f32_tc_path (D 64, blocks 128 does not divide), as the split entry
+    does: nothing falls back to the FFMA kernels."""
+    from vorta_tpu_torch.ops.flash_bwd import _fn, _split_fn, f32_tc_bwd_work
 
-    q = torch.zeros((1, 1, 64, 128), device=card)
-    lse = torch.zeros((1, 1, 64), device=card)
+    q = torch.zeros((1, 1, 256, 128), device=card)
+    lse = torch.zeros((1, 1, 256), device=card)
     ki, kc = dense_tables(1, 1).on(card)
     stream = _build.stream_ptr(q.device)
     dq_fn, dkv_fn = _fn("vorta_flash_bwd_dq_f32", 9, 9), _fn("vorta_flash_bwd_dkv_f32", 10, 9)
+    work = f32_tc_bwd_work(1, 1, 256, 256, card)
 
-    def both(d, block):
+    def both(d, block, scratch=None, s=64):
         p = [q.data_ptr()] * 4 + [lse.data_ptr()] * 2
-        tail = [ki.data_ptr(), kc.data_ptr(), 1, 1, 64, 64, d, 1, block, block, 64, 0.1, stream]
+        tail = [ki.data_ptr(), kc.data_ptr(), 1, 1, s, s, d, 1, block, block, s, 0.1, scratch,
+                stream]
         return (dq_fn(*p, q.data_ptr(), *tail), dkv_fn(*p, q.data_ptr(), q.data_ptr(), *tail))
 
+    def split(d, block, s=256):
+        return _split_fn()(*[q.data_ptr()] * 4, work.data_ptr(), 1, 1, s, s, d, block, block, s,
+                           1, 1, stream)
+
     assert both(128, 64) == (0, 0)
+    assert split(128, 256) == 0
+    assert both(128, 256, work.data_ptr(), 256) == (0, 0)
     torch.cuda.synchronize()
     assert all(err != 0 for err in both(96, 64) + both(128, 12))
+    assert all(err != 0 for err in both(128, 64, work.data_ptr()) + both(64, 128, work.data_ptr(), 256)
+               + both(128, 96, work.data_ptr(), 192))
+    assert split(128, 64) != 0 and split(64, 256) != 0 and split(128, 96, 192) != 0
+
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [
+    ("dense", 128, 128, 512, 512, 500),      # the tail inside a 32-key chunk
+    ("dense", 256, 256, 512, 512, 448),      # the tail on a chunk's edge: chunks skipped
+    ("shared", 256, 256, 1024, 1024, 1000),  # q block 0 with count 0: zero dq
+    ("shared", 128, 256, 1024, 512, 512),    # q and kv blocks differ, no tail
+    ("dense", 2048, 512, 2048, 512, 300),    # cross-like 1-block tables, a kv tail
+])
+def test_flash_f32_tc_backward_matches_plain(card, kind, bq, bkv, sq, skv, valid):
+    """The f32 backward on the tensor cores (csrc/attn_f32_tc_bwd.cuh: one
+    split pre-pass, dq and dk/dv on 3xTF32 wgmma), counted once each as
+    flash_dq_f32_tc / flash_dkv_f32_tc and never _wgmma, against the plain
+    version (dq reads each kernel's ds, dv its p, dk its ds) and the FFMA
+    kernels at the same call (flash_backward_ffma); exact zeros for kv rows
+    past the tail and for the count-0 q block; need_dq and need_dkv alone
+    bit for bit."""
+    from vorta_tpu_torch.ops.flash_bwd import (bwd_f32_tc_path, flash_backward,
+                                               flash_backward_ffma, flash_backward_ref,
+                                               transpose_tables)
+
+    assert bwd_f32_tc_path(128, bq, bkv)
+    g = torch.Generator(device=card).manual_seed(62)
+    q, dout = (_f32(g, 2, 3, sq, 128) for _ in range(2))
+    k, v = (_f32(g, 2, 3, skv, 128) for _ in range(2))
+    tab = _tables(kind, 1, sq // bq, skv // bkv)
+    ki, kc = tab.on(card)
+    qi, qc = (torch.from_numpy(a).to(card)
+              for a in transpose_tables(tab.kv_index, tab.kv_count, skv // bkv))
+    kw = dict(scale=1.1 * 128**-0.5, block_q=bq, block_kv=bkv, kv_valid_len=valid)
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, return_lse=True, **kw)
+    args = (q, k, v, out, lse, dout, ki, kc, qi, qc)
+    _build.reset_launches()
+    got = flash_backward(*args, **kw)
+    n = dict(_build.launches)
+    assert tuple(n[x] for x in ("flash_dq", "flash_dq_f32", "flash_dq_f32_tc", "flash_dq_wgmma",
+                                "flash_dkv", "flash_dkv_f32", "flash_dkv_f32_tc",
+                                "flash_dkv_wgmma")) == (1, 1, 1, 0, 1, 1, 1, 0)
+    want = flash_backward_ref(q, k, v, out, lse, dout, ki, kc, **kw)
+    _build.reset_launches()
+    ffma = flash_backward_ffma(*args, **kw)
+    assert (_build.launches["flash_dq_f32"], _build.launches["flash_dq_f32_tc"],
+            _build.launches["flash_dkv_f32"], _build.launches["flash_dkv_f32_tc"]) == (1, 0, 1, 0)
+    for a, f, w in zip(got, ffma, want):
+        _close(a, w)
+        _close(f, w)
+    assert not got[1][:, :, valid:].any() and not got[2][:, :, valid:].any()
+    if kind == "shared":
+        assert not got[0][:, :, :bq].any()
+    dq, dk, dv = flash_backward(*args, need_dkv=False, **kw)
+    assert dk is None and dv is None and torch.equal(dq, got[0])
+    dq, dk, dv = flash_backward(*args, need_dq=False, **kw)
+    assert dq is None and torch.equal(dk, got[1]) and torch.equal(dv, got[2])
 
 
 @pytest.mark.parametrize("block", [16, 128])

@@ -156,21 +156,29 @@ def _bwd(dtype, d=64, block=16, n=3, dout_dtype=None, **kw):
 @pytest.mark.parametrize("d,block", [(64, 8), (64, 24), (128, 128), (128, 360)])
 def test_f32_backward_calls_the_f32_entries(meta_card, d, block):
     """f32 inputs call vorta_flash_bwd_dq_f32 and vorta_flash_bwd_dkv_f32
-    (no Hopper flag: 9 + 9 and 10 + 9 arguments, the scale, the stream) at
-    any shape, the Hopper rule's too; f32 dq, dk, dv; counted as flash_dq /
-    flash_dkv and their _f32 subsets, never _wgmma."""
+    (no Hopper flag: 9 + 9 and 10 + 9 arguments, the scale, the tensor-core
+    kernels' scratch, the stream) at any shape, the Hopper rule's too; f32
+    dq, dk, dv; counted as flash_dq / flash_dkv and their _f32 subsets, never
+    _wgmma.  At D 128 with blocks that 128 divides the split pre-pass runs
+    first and both entries get its scratch (counted as _f32_tc too); else
+    the scratch is None (the FFMA kernels)."""
     s = 3 * block
+    tc = d == 128 and block % 128 == 0
     dq, dk, dv = _bwd(torch.float32, d, block)
-    assert [(c[0], c[1]) for c in meta_card] == [("flash_bwd", "vorta_flash_bwd_dq_f32"),
-                                                 ("flash_bwd", "vorta_flash_bwd_dkv_f32")]
-    for (_, _, args, argtypes), n_ptr in zip(meta_card, (9, 10)):
-        assert len(args) == len(argtypes) == n_ptr + 9 + 2
-        assert argtypes[n_ptr + 9:] == [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+    assert [(c[0], c[1]) for c in meta_card] == (
+        [("flash_bwd", "vorta_flash_bwd_f32_tc_split")] * tc
+        + [("flash_bwd", "vorta_flash_bwd_dq_f32"), ("flash_bwd", "vorta_flash_bwd_dkv_f32")])
+    for (_, _, args, argtypes), n_ptr in zip(meta_card[tc:], (9, 10)):
+        assert len(args) == len(argtypes) == n_ptr + 9 + 3
+        # scale, scratch, stream
+        assert argtypes[n_ptr + 9:] == [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         assert args[n_ptr:n_ptr + 5] == (1, 2, s, s, d)
         assert args[n_ptr + 6:n_ptr + 9] == (block, block, s - 3)
         assert args[n_ptr + 9] == pytest.approx(d**-0.5)
+        assert (args[n_ptr + 10] is not None) == tc
     assert all(t.dtype == torch.float32 and t.shape == (1, 2, s, d) for t in (dq, dk, dv))
-    _launched(flash_dq=1, flash_dkv=1, flash_dq_f32=1, flash_dkv_f32=1)
+    _launched(flash_dq=1, flash_dkv=1, flash_dq_f32=1, flash_dkv_f32=1,
+              **({"flash_dq_f32_tc": 1, "flash_dkv_f32_tc": 1} if tc else {}))
 
 
 @pytest.mark.parametrize("need", ["dq", "dkv"])

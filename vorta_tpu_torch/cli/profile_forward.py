@@ -86,8 +86,12 @@ RANGES = ("joint_reference_attention", "joint_reference_attention_backward")
 GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     ("flash", ("flash_fwd_kernel", "flash_sm90_kernel", "flash_f32_kernel",
                "flash_f32_tc_kernel")),
-    ("flash_dq", ("flash_dq_kernel", "flash_dq_sm90_kernel", "flash_dq_f32_kernel")),
-    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_sm90_kernel", "flash_dkv_f32_kernel")),
+    ("flash_dq", ("flash_dq_kernel", "flash_dq_sm90_kernel", "flash_dq_f32_kernel",
+                  "flash_dq_f32_tc_kernel")),
+    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_sm90_kernel", "flash_dkv_f32_kernel",
+                   "flash_dkv_f32_tc_kernel")),
+    # the tensor-core f32 kernels' split pre-passes (forward and backward)
+    ("f32_tc_split", ("f32_tc_split_rows_kernel", "f32_tc_split_t_kernel")),
     ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel",
                       "flash_manual_f32_kernel", "flash_manual_f32_tc_kernel")),
     ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel", "sta_pipe_f32_kernel")),

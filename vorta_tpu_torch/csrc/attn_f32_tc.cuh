@@ -31,7 +31,7 @@
 // 495 TFLOP/s TF32 that is 165 TFLOP/s of f32-exact products (against 67 on
 // the CUDA cores).  The design:
 //
-// - A split pre-pass (f32_tc_split_rows_kernel, f32_tc_split_vt_kernel)
+// - A split pre-pass (f32_tc_split_rows_kernel, f32_tc_split_t_kernel)
 //   writes each element's halves once per call into the caller's scratch:
 //   q's and k's rows (big rows, then small rows) and V^T's (V transposed,
 //   its keys permuted as below; the tail rule's cut keys stored as 0, so
@@ -219,8 +219,10 @@ __device__ __forceinline__ void pv_product(float (&o)[64], uint32_t (&pb)[32], u
   sm90::fence_regs(ps);
 }
 
-// The chunks of a CTA: for j < count, kv block idx[j] in 64-key chunks up to
-// the tail rule's limit (a chunk the rule masks completely is skipped).
+// The chunks of a CTA: for j < count, kv block idx[j] in C-key chunks up to
+// the tail rule's limit (a chunk the rule masks completely is skipped): 64
+// keys in the forward, 32 in the backward's dq (csrc/attn_f32_tc_bwd.cuh).
+template <int C = BK>
 struct ChunkWalk {
   const int* idx;
   int count, block_kv, last_block, valid_in_block;
@@ -234,8 +236,8 @@ struct ChunkWalk {
       }
       if (n0 < limit) {
         key0 = kvb * block_kv + n0;
-        nvalid = min(BK, limit - n0);
-        n0 += BK;
+        nvalid = min(C, limit - n0);
+        n0 += C;
         return true;
       }
       ++j;
@@ -264,23 +266,24 @@ __global__ void __launch_bounds__(256) f32_tc_split_rows_kernel(const float4* __
   }
 }
 
-// V (B*H, Skv, D) split and transposed: out[half][bh][d][p], half 0 big,
-// 1 small, where key j of each group of 8 sits at column p = 8 (j / 8) +
-// (j % 2 ? 4 : 0) + (j % 8) / 2 (P's fragment order, above).  Keys of the
-// tail rule's cut block at or past valid_in_block are stored as 0.  A CTA
-// transposes 64 keys of one (b, h) through shared memory.
-__global__ void __launch_bounds__(256) f32_tc_split_vt_kernel(const float* __restrict__ v,
-                                                              uint32_t* __restrict__ out, int BH,
-                                                              int Skv, int block_kv,
-                                                              int last_block,
-                                                              int valid_in_block) {
+// Rows of x (B*H, S, D) split and transposed: out[half][bh][d][p], half 0
+// big, 1 small, where row j of each group of 8 sits at column p = 8 (j / 8)
+// + (j % 2 ? 4 : 0) + (j % 8) / 2 (an accumulator's fragment order, above).
+// Rows of block last_block at or past valid_in_block (the tail rule's cut
+// keys; last_block -1: none) are stored as 0.  The forward's V^T; the
+// backward's K^T (keys cut as V^T's), Q^T and dO^T (nothing cut).  A CTA
+// transposes 64 rows of one (b, h) through shared memory.
+__global__ void __launch_bounds__(256) f32_tc_split_t_kernel(const float* __restrict__ x,
+                                                             uint32_t* __restrict__ out, int BH,
+                                                             int S, int block, int last_block,
+                                                             int valid_in_block) {
   __shared__ float tile[BK][D + 1];
   const int key0 = blockIdx.x * BK, bh = blockIdx.y, tid = threadIdx.x;
-  const float* rows = v + (static_cast<long long>(bh) * Skv + key0) * D;
+  const float* rows = x + (static_cast<long long>(bh) * S + key0) * D;
   for (int e = tid; e < BK * D / 4; e += 256) {
     const int j = e / (D / 4), c = (e % (D / 4)) * 4;
     const int key = key0 + j;
-    const bool cut = key / block_kv == last_block && key % block_kv >= valid_in_block;
+    const bool cut = key / block == last_block && key % block >= valid_in_block;
     const float4 x = cut ? make_float4(0.f, 0.f, 0.f, 0.f)
                          : __ldg(reinterpret_cast<const float4*>(rows + j * D + c));
     tile[j][c] = x.x;
@@ -289,13 +292,13 @@ __global__ void __launch_bounds__(256) f32_tc_split_vt_kernel(const float* __res
     tile[j][c + 3] = x.w;
   }
   __syncthreads();
-  const long long half = static_cast<long long>(BH) * D * Skv;
+  const long long half = static_cast<long long>(BH) * D * S;
   for (int e = tid; e < D * BK; e += 256) {
     const int d = e / BK, col = e % BK, c = col % 8;
     const int j = 8 * (col / 8) + (c < 4 ? 2 * c : 2 * (c - 4) + 1);
     uint32_t b, sm;
     split(tile[j][d], b, sm);
-    const long long o = (static_cast<long long>(bh) * D + d) * Skv + key0 + col;
+    const long long o = (static_cast<long long>(bh) * D + d) * S + key0 + col;
     out[o] = b;
     out[half + o] = sm;
   }
@@ -329,7 +332,7 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq, const CUtensorMap&
     if (lse != nullptr && tid < BQ) lse[row0 + tid] = 1e30f;
     return;
   }
-  ChunkWalk walk{p.kv_index + static_cast<long long>((p.idx_shared ? 0 : h) * p.nq + qi) * p.width,
+  ChunkWalk<> walk{p.kv_index + static_cast<long long>((p.idx_shared ? 0 : h) * p.nq + qi) * p.width,
                  count, p.block_kv, p.last_block, p.valid_in_block};
 
   extern __shared__ uint8_t smem_raw[];
@@ -492,7 +495,7 @@ cudaError_t launch(Kern kern, const void* q, const void* k, const void* v, void*
       static_cast<const float4*>(q), reinterpret_cast<uint4*>(wq), qn / 4);
   f32_tc_split_rows_kernel<<<blocks(kn / 4), 256, 0, st>>>(
       static_cast<const float4*>(k), reinterpret_cast<uint4*>(wk), kn / 4);
-  f32_tc_split_vt_kernel<<<dim3(p.Skv / BK, B * p.H), 256, 0, st>>>(
+  f32_tc_split_t_kernel<<<dim3(p.Skv / BK, B * p.H), 256, 0, st>>>(
       static_cast<const float*>(v), reinterpret_cast<uint32_t*>(wv), B * p.H, p.Skv, p.block_kv,
       p.last_block, p.valid_in_block);
   cudaError_t err = cudaGetLastError();

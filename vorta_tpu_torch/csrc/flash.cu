@@ -496,9 +496,9 @@ extern "C" int vorta_f32_tc_probe(const void* q, const void* k, const void* v, v
                                               reinterpret_cast<uint4*>(w), n4);
   f32_tc_split_rows_kernel<<<8, 256, 0, st>>>(static_cast<const float4*>(k),
                                               reinterpret_cast<uint4*>(w + 2 * BQ * D), n4);
-  f32_tc_split_vt_kernel<<<dim3(1, 1), 256, 0, st>>>(static_cast<const float*>(v),
-                                                     reinterpret_cast<uint32_t*>(w + 4 * BQ * D),
-                                                     1, BK, BK, -1, 0);
+  f32_tc_split_t_kernel<<<dim3(1, 1), 256, 0, st>>>(static_cast<const float*>(v),
+                                                    reinterpret_cast<uint32_t*>(w + 4 * BQ * D),
+                                                    1, BK, BK, -1, 0);
   cudaError_t err = cudaFuncSetAttribute(f32_tc_probe_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -74,11 +74,16 @@
 //   registers, synchronously: the C entry's hopper flag 0 keeps this path
 //   reachable at the Hopper path's shapes, as the card's yardstick.
 //
-// The f32 mode (f32 q, k, v, dO: the f32 training path) is its own pair of
-// kernels, csrc/attn_f32_bwd.cuh's FFMA dq and dk/dv over the same tables,
-// entered as vorta_flash_bwd_dq_f32 / vorta_flash_bwd_dkv_f32 at any shape
-// the bf16 entries take; the Hopper rule does not apply to it.
+// The f32 mode (f32 q, k, v, dO: the f32 training path) has kernels of its
+// own over the same tables, entered as vorta_flash_bwd_dq_f32 /
+// vorta_flash_bwd_dkv_f32: csrc/attn_f32_tc_bwd.cuh's tensor-core dq and
+// dk/dv (3xTF32 on wgmma, after the split pre-pass
+// vorta_flash_bwd_f32_tc_split) where the wrapper's rule
+// (ops/flash_bwd.py:bwd_f32_tc_path: D = 128, blocks multiples of 128) holds
+// and it passes the scratch, else csrc/attn_f32_bwd.cuh's FFMA dq and dk/dv
+// at any shape the bf16 entries take.
 #include "attn_f32_bwd.cuh"
+#include "attn_f32_tc_bwd.cuh"
 #include "attn_sm90.cuh"
 
 namespace {
@@ -903,17 +908,20 @@ extern "C" int vorta_flash_bwd_sm90_smem_bytes(int dkv) {
   return dkv ? hop::DKV_SMEM_BYTES : hop::DQ_SMEM_BYTES;
 }
 
-// ---- the f32 mode: csrc/attn_f32_bwd.cuh's FFMA kernels ---------------------------
+// ---- the f32 mode: csrc/attn_f32_tc_bwd.cuh's tensor-core kernels where the
+// wrapper's rule holds, csrc/attn_f32_bwd.cuh's FFMA kernels elsewhere -----------------
 
 namespace {
 
-// BwdParams of an f32 call, or false where the shapes are not the kernels'.
+// BwdParams of an f32 call, or false where the shapes are not the kernels'
+// (work: the tensor-core kernels' scratch, given only where their rule holds).
 bool f32_params(vorta::f32::BwdParams& p, const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta, const void* index,
                 const void* count, int H, int Sq, int Skv, int D, int width, int block_q,
-                int block_kv, int kv_valid_len, float scale) {
+                int block_kv, int kv_valid_len, float scale, const void* work) {
   if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128))
     return false;
+  if (work != nullptr && !vorta::f32tc::path_holds(D, block_q, block_kv)) return false;
   p = vorta::f32::BwdParams{
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
@@ -926,45 +934,75 @@ bool f32_params(vorta::f32::BwdParams& p, const void* q, const void* k, const vo
 
 }  // namespace
 
+// The tensor-core kernels' split pre-pass, once a call before either kernel:
+// q, k, v, dout contiguous (B, H, S, 128) f32 on 16-byte boundaries into
+// work (ops/flash_bwd.py:f32_tc_bwd_work: 2 B H (4 Sq + 3 Skv) 128 f32,
+// 16-byte aligned), the transposed halves each kernel needs (need_dq: K^T;
+// need_dkv: Q^T, dO^T).  Refused (an error) outside the rule
+// (ops/flash_bwd.py:bwd_f32_tc_path).  Returns the CUDA error code.
+extern "C" int vorta_flash_bwd_f32_tc_split(const void* q, const void* k, const void* v,
+                                            const void* dout, void* work, int B, int H, int Sq,
+                                            int Skv, int D, int block_q, int block_kv,
+                                            int kv_valid_len, int need_dq, int need_dkv,
+                                            void* stream) {
+  using namespace vorta::f32tc;
+  if (work == nullptr || Sq % block_q || Skv % block_kv || !path_holds(D, block_q, block_kv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(split_bwd(
+      q, k, v, dout, bwd_work(work, B, H, Sq, Skv), B, H, Sq, Skv, block_q, block_kv,
+      kv_valid_len % block_kv ? kv_valid_len / block_kv : -1, kv_valid_len % block_kv, need_dq,
+      need_dkv, static_cast<cudaStream_t>(stream)));
+}
+
 // The f32 mode of vorta_flash_bwd_dq_bf16: q, k, v, dout, dq contiguous
 // (B, H, S, D) f32 on 16-byte boundaries; lse, delta, the tables and the
-// shapes as there.  Returns the CUDA error code.
+// shapes as there.  work: null (the FFMA kernel, any shape), or where the
+// wrapper's rule chose the tensor-core kernel (D = 128, blocks multiples of
+// 128; anything else there is an error, never a fallback) the scratch that
+// vorta_flash_bwd_f32_tc_split has filled.  Returns the CUDA error code.
 extern "C" int vorta_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dq, const void* kv_index, const void* kv_count, int B,
                                       int H, int Sq, int Skv, int D, int width, int block_q,
-                                      int block_kv, int kv_valid_len, float scale,
+                                      int block_kv, int kv_valid_len, float scale, void* work,
                                       void* stream) {
   using namespace vorta::f32;
   BwdParams p;
   if (!f32_params(p, q, k, v, dout, lse, delta, kv_index, kv_count, H, Sq, Skv, D, width,
-                  block_q, block_kv, kv_valid_len, scale))
+                  block_q, block_kv, kv_valid_len, scale, work))
     return static_cast<int>(cudaErrorInvalidValue);
   p.dq = static_cast<float*>(dq);
-  const dim3 grid(Sq / block_q * ((block_q + BQ - 1) / BQ), H, B);
   auto st = static_cast<cudaStream_t>(stream);
+  if (work != nullptr)
+    return static_cast<int>(
+        vorta::f32tc::launch_dq(vorta::f32tc::bwd_work(work, B, H, Sq, Skv), B, p, st));
+  const dim3 grid(Sq / block_q * ((block_q + BQ - 1) / BQ), H, B);
   return static_cast<int>(
       D == 128 ? launch_bwd(flash_dq_f32_kernel<128>, grid, BwdLayout<128>::DQ_BYTES, st, p)
                : launch_bwd(flash_dq_f32_kernel<64>, grid, BwdLayout<64>::DQ_BYTES, st, p));
 }
 
 // The f32 mode of vorta_flash_bwd_dkv_bf16: dk, dv (B, H, Skv, D) f32; the
-// transposed tables as there.  Returns the CUDA error code.
+// transposed tables as there; work as for vorta_flash_bwd_dq_f32.  Returns
+// the CUDA error code.
 extern "C" int vorta_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dk, void* dv, const void* q_index,
                                        const void* q_count, int B, int H, int Sq, int Skv, int D,
                                        int width_t, int block_q, int block_kv, int kv_valid_len,
-                                       float scale, void* stream) {
+                                       float scale, void* work, void* stream) {
   using namespace vorta::f32;
   BwdParams p;
   if (!f32_params(p, q, k, v, dout, lse, delta, q_index, q_count, H, Sq, Skv, D, width_t,
-                  block_q, block_kv, kv_valid_len, scale))
+                  block_q, block_kv, kv_valid_len, scale, work))
     return static_cast<int>(cudaErrorInvalidValue);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
-  const dim3 grid(Skv / block_kv * ((block_kv + BK - 1) / BK), H, B);
   auto st = static_cast<cudaStream_t>(stream);
+  if (work != nullptr)
+    return static_cast<int>(
+        vorta::f32tc::launch_dkv(vorta::f32tc::bwd_work(work, B, H, Sq, Skv), B, p, st));
+  const dim3 grid(Skv / block_kv * ((block_kv + BK - 1) / BK), H, B);
   return static_cast<int>(
       D == 128 ? launch_bwd(flash_dkv_f32_kernel<128>, grid, BwdLayout<128>::DKV_BYTES, st, p)
                : launch_bwd(flash_dkv_f32_kernel<64>, grid, BwdLayout<64>::DKV_BYTES, st, p));

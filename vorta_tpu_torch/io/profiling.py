@@ -56,8 +56,9 @@ SYMBOL_COUNTERS = {
     "sta_pipe_f32_kernel": "sta_pipe", "sta_batched_f32_kernel": "sta_batched",
     "flash_dq_f32_kernel": "flash_dq", "flash_dkv_f32_kernel": "flash_dkv",
     "sta_window_f32_kernel": "sta_window", "sta_row_f32_kernel": "sta_row",
-    # the f32 modes' tensor-core core (csrc/attn_f32_tc.cuh)
+    # the f32 modes' tensor-core kernels (csrc/attn_f32_tc.cuh, csrc/attn_f32_tc_bwd.cuh)
     "flash_f32_tc_kernel": "flash", "flash_manual_f32_tc_kernel": "flash_manual",
+    "flash_dq_f32_tc_kernel": "flash_dq", "flash_dkv_f32_tc_kernel": "flash_dkv",
 }
 _SYMBOL = re.compile(r"\b([A-Za-z0-9_]+_kernel)\b")
 

@@ -84,7 +84,7 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "fused_norm_range", "flash_f32", "flash_manual_f32", "sta_pipe_f32",
            "sta_batched_f32", "fused_norm_f32", "prologue_f32", "pool_qkv_f32", "unpool_f32",
            "flash_dq_f32", "flash_dkv_f32", "sta_window_f32", "sta_row_f32", "flash_f32_tc",
-           "flash_manual_f32_tc")
+           "flash_manual_f32_tc", "flash_dq_f32_tc", "flash_dkv_f32_tc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

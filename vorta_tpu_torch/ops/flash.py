@@ -238,6 +238,24 @@ def f32_tc_work(b: int, h: int, sq: int, skv: int, device) -> torch.Tensor:
     return torch.empty(2 * b * h * (sq + 2 * skv) * 128, dtype=torch.float32, device=device)
 
 
+def f32_tc_transposed(x: torch.Tensor, block: int, kv_valid_len: int) -> torch.Tensor:
+    """Python mirror of the layout the tensor-core kernels' pre-pass
+    (``f32_tc_split_t_kernel``) writes for a transposed operand, before its
+    split: (B, H, S, 128) -> (B, H, 128, S) with the rows permuted within
+    each group of 8 (column p holds row 8 (p // 8) + 2 (p % 4) + (p % 8) //
+    4: the accumulator's columns 2t and 2t + 1 at a k step's columns t and
+    t + 4, the A fragment's order) and the tail rule's cut rows (block
+    ``kv_valid_len // block`` at or past ``kv_valid_len % block``) zero.
+    The forward's V^T, the backward's K^T (cut as V^T), Q^T and dO^T (no
+    tail: ``kv_valid_len`` = S)."""
+    s = x.shape[2]
+    p = torch.arange(s, device=x.device)
+    rows = 8 * (p // 8) + 2 * (p % 4) + (p % 8) // 4
+    tail = kv_valid_len % block
+    cut = (rows // block == kv_valid_len // block) & (rows % block >= tail) & (tail > 0)
+    return torch.where(cut, 0.0, x.transpose(-1, -2)[..., rows].float())
+
+
 def _flash_fn():
     fn = _build.load("flash").vorta_flash_fwd_bf16
     if fn.argtypes is None:

@@ -21,11 +21,18 @@ On CUDA tensors ``flash_backward`` launches the two kernels of
 ``csrc/flash_bwd.cu`` (bf16 or f32, D 64 or 128, blocks multiples of 8); on
 CPU tensors it runs ``flash_backward_ref``, which repeats their arithmetic.
 f32 inputs (the f32 training path, ``cli.train --dtype fp32``) take the f32
-mode, its own branch: ``csrc/attn_f32_bwd.cuh``'s FFMA dq and dk/dv kernels
-over the same tables, ds and p kept in f32 as the plain version keeps them
-there, counted as ``flash_dq_f32`` / ``flash_dkv_f32`` too; the Hopper rule
-below is bf16's only.
-Which design runs on CUDA is a pure-Python shape rule, ``bwd_wgmma_path``
+mode, its own branch with ds and p kept in f32 as the plain version keeps
+them there, counted as ``flash_dq_f32`` / ``flash_dkv_f32`` too: where
+``bwd_f32_tc_path`` holds (the forward's ``f32_tc_path``: head dim 128,
+blocks that 128 divides, the trainer's FULL, LOWRES and cross-attention) the
+tensor-core kernels of ``csrc/attn_f32_tc_bwd.cuh`` (3xTF32 on wgmma, after a
+split pre-pass into scratch the wrapper allocates, ``f32_tc_bwd_work``;
+counted as ``flash_dq_f32_tc`` / ``flash_dkv_f32_tc`` too), elsewhere (D 64,
+the 96-, 360- and 24-token STA tiles, the tiny models' 8 / 16) the FFMA
+kernels of ``csrc/attn_f32_bwd.cuh``; ``flash_backward_ffma`` runs the FFMA
+kernels at any shape, the card's yardstick.  The Hopper rule below is
+bf16's only.
+Which bf16 design runs on CUDA is a pure-Python shape rule, ``bwd_wgmma_path``
 (the forward's): head dim 128 with blocks that 128 divides (the trainer's
 FULL, LOWRES and cross-attention) take the Hopper kernels (wgmma, TMA,
 warp specialisation; counted as ``flash_dq_wgmma`` / ``flash_dkv_wgmma``
@@ -43,7 +50,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .flash import WGMMA_TILE, wgmma_path
+from .flash import WGMMA_TILE, f32_tc_path, wgmma_path
 
 NEG_INF = float(-1e30)
 POS_BIG = float(1e30)  # the lse of a row that sees no key (ops/flash.py)
@@ -128,6 +135,23 @@ def bwd_wgmma_path(d: int, block_q: int, block_kv: int) -> bool:
     return wgmma_path(d, block_q, block_kv)
 
 
+def bwd_f32_tc_path(d: int, block_q: int, block_kv: int) -> bool:
+    """The shape rule of the f32 backward's tensor-core kernels
+    (``csrc/attn_f32_tc_bwd.cuh``): the f32 forward's (``ops/flash.py:
+    f32_tc_path``), so that a call's f32 forward and backward take one
+    design.  The C entries refuse the tensor-core kernels for anything
+    else; there the FFMA kernels of ``csrc/attn_f32_bwd.cuh`` run."""
+    return f32_tc_path(d, block_q, block_kv)
+
+
+def f32_tc_bwd_work(b: int, h: int, sq: int, skv: int, device) -> torch.Tensor:
+    """The tensor-core backward's scratch for one call: the big and small
+    TF32 halves of q, dout, q^T and dout^T (``sq`` rows each) and of k, v
+    and k^T (``skv`` each), f32 at head dim 128, which its split pre-pass
+    writes once for both kernels and their TMA copies read."""
+    return torch.empty(2 * b * h * (4 * sq + 3 * skv) * 128, dtype=torch.float32, device=device)
+
+
 DKV_Q_TILE = 64  # q rows per ring slot of the dk/dv kernel
 
 
@@ -184,12 +208,21 @@ def dkv_walk(q_index: np.ndarray, q_count: np.ndarray, *, skv: int, block_q: int
 
 def _fn(name: str, n_ptr: int, n_int: int):
     """A C entry of ``csrc/flash_bwd.cu``: n_ptr pointers, n_int ints, the
-    scale, then (bf16 entries) the hopper flag, then the stream."""
+    scale, then the hopper flag (bf16 entries) or the tensor-core scratch
+    pointer (f32 entries), then the stream."""
     fn = getattr(_build.load("flash_bwd"), name)
     if fn.argtypes is None:
-        tail = [ctypes.c_float] + ([] if name.endswith("_f32") else [ctypes.c_int])
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + tail
-                       + [ctypes.c_void_p])
+        tail = ctypes.c_void_p if name.endswith("_f32") else ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float, tail, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _split_fn():
+    fn = _build.load("flash_bwd").vorta_flash_bwd_f32_tc_split
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -221,9 +254,19 @@ def flash_backward_mma_sync(q, k, v, out, lse2, dout, kv_index, kv_count, q_inde
                            hopper_ok=False, **kw)
 
 
+def flash_backward_ffma(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count, **kw):
+    """``flash_backward`` at f32 on the FFMA kernels whatever
+    ``bwd_f32_tc_path`` says: the card's yardstick beside the tensor-core
+    kernels at the same call (``chip_smoke.py`` times both), counted in
+    ``flash_dq`` / ``flash_dkv`` and their ``_f32`` counters only."""
+    return _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count,
+                           tc_ok=False, **kw)
+
+
 def _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count, *,
                     scale: float, block_q: int, block_kv: int, kv_valid_len: int,
-                    need_dq: bool = True, need_dkv: bool = True, hopper_ok: bool = True):
+                    need_dq: bool = True, need_dkv: bool = True, hopper_ok: bool = True,
+                    tc_ok: bool = True):
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if k.shape != (b, h, skv, d) or v.shape != k.shape or out.shape != q.shape \
@@ -254,14 +297,22 @@ def _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_cou
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
     f32 = q.dtype == torch.float32  # the f32 mode: its own kernels, no Hopper rule
     hopper = hopper_ok and not f32 and bwd_wgmma_path(d, block_q, block_kv)
+    tc = f32 and tc_ok and bwd_f32_tc_path(d, block_q, block_kv)
     mode = "f32" if f32 else "bf16"
-    # TMA and the bulk copies of the Hopper path, and the f32 kernels' 16-byte
-    # loads, read from 16-byte boundaries
+    # TMA and the bulk copies of the Hopper path and of the tensor-core
+    # kernels, and the FFMA kernels' 16-byte loads, read from 16-byte boundaries
     q, k, v, dout = (_build.aligned16(t.contiguous()) for t in (q, k, v, dout))
     lse2 = _build.aligned16(lse2.float().contiguous())
     delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
     common = (b, h, sq, skv, d)
-    flags = () if f32 else (int(hopper),)
+    work = None
+    if tc:  # one split pre-pass serves both kernels
+        work = f32_tc_bwd_work(b, h, sq, skv, dev)
+        _build.check(_split_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                                 work.data_ptr(), *common, block_q, block_kv, int(kv_valid_len),
+                                 int(need_dq), int(need_dkv), _build.stream_ptr(dev)),
+                     "flash backward f32 split")
+    flags = (_build.ptr(work),) if f32 else (int(hopper),)
     dq = dk = dv = None
     if need_dq:
         kv_index = torch.as_tensor(kv_index, dtype=torch.int32, device=dev).contiguous()
@@ -275,6 +326,7 @@ def _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_cou
         _build.check(err, f"flash_dq ({mode})")
         _build.launches["flash_dq"] += 1
         _build.launches["flash_dq_f32"] += f32
+        _build.launches["flash_dq_f32_tc"] += tc
         _build.launches["flash_dq_wgmma"] += hopper
     if need_dkv:
         q_index = torch.as_tensor(q_index, dtype=torch.int32, device=dev).contiguous()
@@ -288,5 +340,6 @@ def _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_cou
         _build.check(err, f"flash_dkv ({mode})")
         _build.launches["flash_dkv"] += 1
         _build.launches["flash_dkv_f32"] += f32
+        _build.launches["flash_dkv_f32_tc"] += tc
         _build.launches["flash_dkv_wgmma"] += hopper
     return dq, dk, dv
