@@ -16,7 +16,10 @@ Phases, each raising on failure:
      with its dynamic shared memory, and of the norm's and the qk
      prologue's warp-per-row kernels and unpool's batched 16-byte copy (72,
      27 and 24 in bf16 and f32; no spills either), and the f32 attention
-     core's 10 users (held to 128 registers; their spills reported).
+     core's 10 users (held to 128 registers; their spills reported), the
+     f32 tensor-core kernels and flash_manual's int8 one
+     (flash_manual_int8_tc_kernel, with its dynamic shared memory; none may
+     spill).
      Every flash, flash_manual, sta_pipe,
      sta_window and sta_batched row reports its achieved TFLOP/s, its share
      of the bound and its ratio to the library call; every sta_pipe,
@@ -280,7 +283,7 @@ The f32 serving path (TF32 off for cuBLAS and cuDNN, checked first):
      the 1.3B / 13B widths' flash / flash_manual launches on *_f32_tc)
      and each *_f32 counter non-zero on some path; then (f32_profile) one
      routed 480p x 77f forward in f32 split by op (cli.profile_forward
-     --dtype fp32 --routing hard, in-process).
+     --dtype fp32 --routing hard, in-process), and one with --qk_int8.
   v. f32_window_int8_kernels: sta_window and sta_row in f32 (the f32 core
      over csrc/window_walk_f32.cuh's window walk, stable softmax) and the
      int8 QK modes of flash_manual and sta_pipe with an f32 v (dp4a
@@ -293,6 +296,12 @@ The f32 serving path (TF32 off for cuBLAS and cuDNN, checked first):
      6, 4) and with 256 int8 text keys; D 64 with text tails of 24 and 88
      keys, inactive heads zero; timed beside the plain version, f32 SDPA
      with TF32 off (a float mask) and the int8 modes beside the f32 mode.
+     flash_manual's three served shapes run its tensor-core int8 kernel
+     (csrc/attn_int8_tc.cuh, counted as flash_manual_int8_tc), timed in
+     turns with the dp4a / FFMA mode at the same call, its bound QK at 1,979
+     TOPS plus 3 x PV at 495 TFLOP/s beside the FFMA-rated one, brackets
+     kv_bias dropped and the PV as one TF32 product (each >= 2x the
+     tolerance).
   w. f32_window_int8_models: Wan 2 blocks at 1.3B widths routed at (4, 9,
      10) (sta_window f32) card f32 vs CPU f32 rel L2 <= 1e-4; Wan 2 blocks
      and HunyuanVideo 1 + 1 blocks (routed and off) with qk_int8 in f32,
@@ -302,7 +311,8 @@ The f32 serving path (TF32 off for cuBLAS and cuDNN, checked first):
      Wan-1.3B full width and depth, tile (4, 9, 10), 720p x 29f (sta_window
      f32 once a block with STA heads, sta_pipe never) and cli.sample
      --dtype fp32 --qk_int8 at 480p x 77f (flash_manual only in its int8
-     mode with an f32 v), one UniPC step x CFG each, s per step and peak
+     mode with an f32 v, every launch on its tensor-core kernel), one UniPC
+     step x CFG each, s per step and peak
      GiB; wan-tiny, hunyuan-tiny routed and off through cli.sample --dtype
      fp32 --qk_int8, 2 steps, card vs --device cpu rel L2 <= 1e-3.
 Every main path's launch counts are exact, the Hopper path's subset
@@ -383,7 +393,9 @@ launches are the sta_diag tool's, with "on_main_path": false; the stable softmax
 sta_pipe's variants under their kernels' "modes"; the eight f32 modes
 under theirs as "f32", with their launches on the f32 paths, and sta_window's
 and sta_row's as "f32", flash_manual's int8 QK mode with an f32 v under the
-int8 row as "f32_v", sta_pipe's under its row as "int8_f32_v"), the card
+int8 row as "f32_v" (on its tensor-core kernel at the served shapes: its time, both
+bounds, the dp4a / FFMA mode's time at the same call, its launches on the
+tensor cores), sta_pipe's under its row as "int8_f32_v"), the card
 line, and
 the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, without
@@ -392,6 +404,7 @@ CUDA or without the package beside this file.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -579,12 +592,18 @@ def build_kernels() -> None:
     # two 101 KB CTAs share an SM, and the f32 backward's 4 (dq, dk/dv at D
     # 64 / 128; one CTA an SM at D 128): spills reported.  The tensor-core
     # f32 kernels' 4 (flash's, flash_manual's: one 193 KB CTA an SM; the
-    # backward's dq and dk/dv: one 225 KB CTA an SM): no spills
+    # backward's dq and dk/dv: one 225 KB CTA an SM): no spills; flash_manual's
+    # int8 QK mode with an f32 v on the tensor cores (one 162 KB CTA an SM): no spills
+    i8_smem = _build.load("flash_manual").vorta_flash_manual_int8_tc_smem_bytes()
+    for src, entry, regs, spill in ptxas_entries(_build.ptxas_logs, "_int8_tc_kernel"):
+        log(f"ptxas int8 tensor-core kernel {src} {entry}: {regs}; {spill}; dynamic shared "
+            f"memory {i8_smem} bytes")
     for entry, count, spill_free in (("fused_norm_rows_kernel", 72, True),
                                      ("prologue_rows_kernel", 27, True),
                                      ("unpool_rows_kernel", 24, True),
                                      ("_f32_kernel", 22, False),
-                                     ("_f32_tc_kernel", 4, True)):
+                                     ("_f32_tc_kernel", 4, True),
+                                     ("_int8_tc_kernel", 1, True)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
             f"{sorted({r.split('Used ')[1].split(' ')[0] for _, _, r, _ in rows})}")
@@ -648,7 +667,8 @@ def main() -> int:
                                        check_routed_model(torch, grid=(4, 18, 80),
                                                           tile=WAN_TILE_4910),
                                        [check_routed_model(torch, dispatch=disp)
-                                        for disp in DISPATCHES]))
+                                        for disp in DISPATCHES],
+                                       routed_reference_wan.cache_clear()))
         launches_off, per_step = phase("main_off", run_main_path, torch, card)
         launches_hard, per_step_hard = phase("main_routed", run_routed_main_path, torch, card)
         launches_disp, disp_ms = phase("wan_dispatch", run_wan_dispatch_paths, torch, card)
@@ -733,6 +753,13 @@ def main() -> int:
             "replaces": replaces, "on_main_path": served is not None, **mode_row(shapes),
             "worst_ratio": max(x["worst_ratio"] for x in shapes.values()),
             "launches": paths[served] if served else 0, "launches_by_path": paths}
+        if kernel == "flash_manual":  # the int8 tensor-core kernel's share
+            tc_paths = {p: launches_fwi[p]["flash_manual_int8_tc"] for p in launches_fwi}
+            if tc_paths[served] != paths[served]:
+                raise RuntimeError(f"flash_manual f32_v: {tc_paths[served]} of {paths[served]} "
+                                   "launches on the tensor cores")
+            row["modes"][mode].update(tensor_core_launches=tc_paths[served],
+                                      tensor_core_launches_by_path=tc_paths)
     kernels += phase("training_kernels", check_training_kernels, torch, card)
     phase("train_grads", lambda: (check_train_grads(torch),
                                   check_train_grads(torch, grid=(10, 18, 16), tile=TILE_360)))
@@ -852,7 +879,8 @@ def main() -> int:
     print(json.dumps({"evaluation": {"bench_compare": compare, "calibrate_int8": calib,
                                      "fit_cache_poly": fit, "profiling": prof}}))
     print(json.dumps({"f32": {"model_checks_rel_l2": f32_models, "serving": f32_serving,
-                              "routed_480p_77f_forward_by_op": f32_profile,
+                              "routed_480p_77f_forward_by_op": f32_profile["f32"],
+                              "routed_480p_77f_qk_int8_forward_by_op": f32_profile["f32_qk_int8"],
                               "training": {"gradient_checks": f32_grads, **f32_train},
                               "window_int8": {"model_checks": fwi_models,
                                               "serving": fwi_serving}}}))
@@ -1698,6 +1726,30 @@ def check_model(torch) -> None:
         raise RuntimeError("model check: the card's forward disagrees with the CPU's")
 
 
+ROUTED_EXPERTS = (0, 1, 2) * 4  # the routed model checks' heads per expert: 4 each
+
+
+@functools.lru_cache(maxsize=1)
+def routed_reference_wan(torch):
+    """check_routed_model's CPU reference: 2 blocks at Wan-1.3B widths in f32
+    from seed 5, every router's weights 0 and its biases one-hot logits
+    (ROUTED_EXPERTS), built once for phase 6's six checks, which only read
+    it (the CPU's random init is the slow part of each check)."""
+    import dataclasses
+
+    from vorta_tpu_torch.config import WAN_1_3B
+    from vorta_tpu_torch.models.wan import WanModel
+
+    ref_model = WanModel(dataclasses.replace(WAN_1_3B, num_layers=2), dtype=torch.float32,
+                         device="cpu", seed=5)
+    with torch.no_grad():
+        for block in ref_model.blocks:
+            block.router.linear.weight.zero_()
+            block.router.linear.bias.copy_(
+                4.0 * torch.eye(3)[torch.tensor(ROUTED_EXPERTS)].reshape(-1))
+    return ref_model
+
+
 def check_routed_model(torch, int8: bool = False, grid=(8, 24, 20), tile=(4, 6, 4),
                        dispatch=(None, None, "masked")) -> None:
     """2 blocks at Wan-1.3B widths routed hard: card (bf16, kernels) vs CPU
@@ -1721,12 +1773,8 @@ def check_routed_model(torch, int8: bool = False, grid=(8, 24, 20), tile=(4, 6, 
                            lowres_window=(2, 3, 2), qk_int8=int8)
     sta_kernel = routed_sta_kernel(attn, 128, 2)
     mm = "int8" if int8 else "bf16"
-    ref_model = WanModel(cfg, dtype=torch.float32, device="cpu", seed=5)
-    experts = torch.tensor([0, 1, 2] * 4)
-    with torch.no_grad():
-        for block in ref_model.blocks:
-            block.router.linear.weight.zero_()
-            block.router.linear.bias.copy_(4.0 * torch.eye(3)[experts].reshape(-1))
+    ref_model = routed_reference_wan(torch)
+    experts = torch.tensor(ROUTED_EXPERTS)
     gpu_model = WanModel(cfg, dtype=torch.bfloat16, device="cuda", seed=5)
     gpu_model.load_state_dict(ref_model.state_dict())
     g = torch.Generator().manual_seed(6)
@@ -5817,7 +5865,8 @@ def tf32_rne(torch, x):
 def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: float,
              nbytes: float, *, lib=None, iters: int = 5, rows=None, bracket=None,
              bracket_min=None, also=(), zero_heads=None, bound=None, ffma=None,
-             tf32_bracket=None, tf32_gate: bool = False) -> dict:
+             tf32_bracket=None, tf32_gate: bool = False, tc_counter=None,
+             tc_bound=None) -> dict:
     """One f32 call of a kernel: launched once, on its ``<counter>_f32``
     mode (and once on each counter of ``also``), never on its Hopper path;
     held against its plain version (on ``rows`` of the sequence axis where
@@ -5832,17 +5881,21 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
     launched on ``<counter>_f32_tc`` (else never), the FFMA call is held to
     the same gate and timed in turns with ``kern``, and the row's bound is
     the 3xTF32 one (3 x FLOP at 495 TFLOP/s TF32), the FFMA's 67 TFLOP/s
-    beside it, neither read above 100%.  ``tf32_bracket``: the plain
-    version on q, k, v rounded once to TF32 (a single TF32 product's
-    reading), recorded, and at least F32_BRACKET x ``tol`` where
-    ``tf32_gate``."""
+    beside it, neither read above 100%.  ``tc_counter`` / ``tc_bound``: the
+    tensor-core counter (``<counter>_f32_tc`` by default; the int8 mode's
+    ``flash_manual_int8_tc``) and its (ms, by) where the 3xTF32 one does not
+    fit (the int8 mode: QK at 1,979 TOPS, PV 3xTF32).  ``tf32_bracket``: the
+    plain version with a single TF32 product (f32 q / k / v: q, k, v rounded
+    once to TF32; the int8 mode: P and V), recorded, and at least
+    F32_BRACKET x ``tol`` where ``tf32_gate``."""
     from vorta_tpu_torch.ops import _build
 
     _build.reset_launches()
     got = kern()
     torch.cuda.synchronize()
     counts = tuple(_build.launches[c] for c in (counter, f"{counter}_f32", *also))
-    tc = _build.launches.get(f"{counter}_f32_tc", 0)
+    tc_counter = tc_counter or f"{counter}_f32_tc"
+    tc = _build.launches.get(tc_counter, 0)
     if counts != (1,) * len(counts) or _build.launches.get(f"{counter}_wgmma", 0) \
             or tc != int(ffma is not None):
         raise RuntimeError(f"{name}: launches ({counter}, {counter}_f32, {also}) {counts}, "
@@ -5865,7 +5918,7 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
     if ffma is not None:
         _build.reset_launches()
         alt = ffma()
-        n = (_build.launches[f"{counter}_f32"], _build.launches[f"{counter}_f32_tc"])
+        n = (_build.launches[f"{counter}_f32"], _build.launches[tc_counter])
         r["ffma_worst_ratio"] = worst_ratio(torch, alt if rows is None else alt[:, :, rows], want)
         log(f"{name}: the FFMA core at the same call, worst ratio {r['ffma_worst_ratio']:.3e}")
         if n != (1, 0) or not r["ffma_worst_ratio"] <= tol:
@@ -5875,7 +5928,7 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
         miss = tf32_bracket()
         r["tf32_bracket_worst_ratio"] = worst_ratio(
             torch, miss if rows is None else miss[:, :, rows], want)
-        log(f"{name}: q, k, v rounded to TF32, worst ratio {r['tf32_bracket_worst_ratio']:.3e} "
+        log(f"{name}: one TF32 product, worst ratio {r['tf32_bracket_worst_ratio']:.3e} "
             f"({'must be' if tf32_gate else 'recorded; the bar is'} >= "
             f"{F32_BRACKET * tol:g})")
         if tf32_gate and not r["tf32_bracket_worst_ratio"] >= F32_BRACKET * tol:
@@ -5899,8 +5952,9 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
             ms.append(time_ms(torch, kern, iters))
             f_ms.append(time_ms(torch, ffma, iters))
         r.update(core="tensor_cores", ffma_ms=sum(f_ms) / 2, ffma_bound_ms=b_ms,
-                 ffma_bound_share=b_ms / (sum(f_ms) / 2), tc_over_ffma=sum(ms) / sum(f_ms))
-        b_ms, b_by = bound_ms(3 * flops, nbytes, PEAK_TF32)
+                 ffma_bound_share=b_ms / (sum(f_ms) / 2), tc_over_ffma=sum(ms) / sum(f_ms),
+                 ffma_rated_bound_share=b_ms / (sum(ms) / 2))
+        b_ms, b_by = tc_bound or bound_ms(3 * flops, nbytes, PEAK_TF32)
         r["ms"] = sum(ms) / 2
     else:
         r["ms"] = time_ms(torch, kern, iters)
@@ -6108,6 +6162,17 @@ def check_f32_kernels(torch, card: str) -> dict:
     tk, tv = randn(1, 4, HY_TEXT, d), randn(1, 4, HY_TEXT, d)
     tb = torch.where(hy_text_mask(torch, dev)[0], 0.0, -1e30).reshape(1, HY_TEXT)
     a4 = torch.tensor([1, 0, 1, 1], device=dev)
+
+    def tail_lib():
+        """Masked f32 SDPA over the active heads, the window and the text
+        keys' bias as one float mask (either softmax: the same function)."""
+        sel = a4 > 0
+        mask = torch.cat([float_mask(torch, sta_raster_mask(torch, grid, tile, dev)),
+                          tb.reshape(1, -1).expand(n, -1)], dim=1)
+        return masked_sdpa_ms(torch, "sta_pipe f32 text tail", q[:, sel],
+                              torch.cat([k[:, sel], tk[:, sel]], dim=2),
+                              torch.cat([v[:, sel], tv[:, sel]], dim=2), mask)[0]
+
     for softmax in ("stable", "fast"):
         kw = dict(latent_shape=grid, tile=tile, window=(3, 3, 3), scale=d**-0.5, text_k=tk,
                   text_v=tv, text_bias=tb, softmax=softmax)
@@ -6116,7 +6181,8 @@ def check_f32_kernels(torch, card: str) -> dict:
             f"{softmax}", "sta_pipe", lambda: sta_pipe_attention(q, k, v, a4, **kw),
             lambda: sta_pipe_attention_ref(q, k, v, a4, **kw), TOL_F32_ATTN,
             4.0 * n * (n + HY_VALID) * d * 3, 4 * n * d * 4 * 3, iters=5,
-            bracket=lambda: sta_pipe_attention_ref(q, k, v, a4, **{**kw, "text_bias": None}))
+            bracket=lambda: sta_pipe_attention_ref(q, k, v, a4, **{**kw, "text_bias": None}),
+            lib=tail_lib)
     q, k, v = (randn(1, 2, 4 * 4 * 4, 64) for _ in range(3))
     kw = dict(latent_shape=(4, 4, 4), tile=(2, 2, 2), window=(3, 3, 1), scale=64**-0.5)
     out["sta_pipe"]["d64_tile222"] = f32_case(
@@ -6359,8 +6425,9 @@ def f32_launches(want: dict, full_width: bool) -> dict:
     prologue's warp-per-row kernel takes every prologue launch and the
     tensor-core core every flash / flash_manual launch that bf16 sends to
     the Hopper path (ops/flash.py:f32_tc_path is wgmma_path's shape rule;
-    flash_manual's int8 QK mode stays on the FFMA core, and on these paths
-    its launches are all at the Hopper shapes), and the backward's
+    flash_manual's int8 QK mode there takes its own tensor-core kernel,
+    ``flash_manual_int8_tc``, and on these paths its launches are all at
+    the Hopper shapes), and the backward's
     tensor-core dq and dk/dv every launch that bf16 sends to its Hopper
     kernels (ops/flash_bwd.py:bwd_f32_tc_path, the same shapes); the tiny
     models' head dim 64 takes none of them."""
@@ -6369,9 +6436,12 @@ def f32_launches(want: dict, full_width: bool) -> dict:
     # the backward's rule (ops/flash_bwd.py:bwd_f32_tc_path) is bf16's Hopper rule too
     out["flash_dq_f32_tc"] = want["flash_dq_wgmma"] if full_width else 0
     out["flash_dkv_f32_tc"] = want["flash_dkv_wgmma"] if full_width else 0
-    out["flash_manual_f32_tc"] = (
-        want["flash_manual_wgmma"] - min(want["flash_manual_int8"], want["flash_manual_wgmma"])
-        if full_width else 0)
+    # flash_manual's int8 QK mode takes its tensor-core kernel at the same shapes
+    # (csrc/attn_int8_tc.cuh), counted as flash_manual_int8_tc: on these paths every
+    # int8 launch is at the Hopper shapes
+    int8_tc = min(want["flash_manual_int8"], want["flash_manual_wgmma"]) if full_width else 0
+    out["flash_manual_f32_tc"] = want["flash_manual_wgmma"] - int8_tc if full_width else 0
+    out["flash_manual_int8_tc"] = int8_tc
     for k in HOPPER_KERNELS + ("flash_dq", "flash_dkv"):
         out[f"{k}_wgmma"] = 0
     out["prologue_rows"] = out["prologue"] if full_width else 0
@@ -6670,33 +6740,39 @@ def run_f32_serving_path(torch, card: str):
 
 
 def run_f32_profile(torch, card: str) -> dict:
-    """One routed Wan-1.3B 480p x 77f forward in f32 split by op:
-    cli.profile_forward --dtype fp32 --routing hard in-process (random
-    weights and routers, t = 900; a warm-up forward, then one under
-    io/profiling's trace), its report kept off stdout.  Every flash and
-    flash_manual launch of the two forwards on the tensor-core core."""
+    """One routed Wan-1.3B 480p x 77f forward in f32 split by op, and one
+    with --qk_int8: cli.profile_forward --dtype fp32 --routing hard [--qk_int8]
+    in-process (random weights and routers, t = 900; a warm-up forward, then
+    one under io/profiling's trace), its report kept off stdout.  Every
+    flash and flash_manual launch of the two forwards on the tensor cores
+    (flash_manual's int8 mode on its own kernel, flash_manual_int8_tc):
+    {"f32": ..., "f32_qk_int8": ...}."""
     import contextlib
     import io
 
     from vorta_tpu_torch.cli import profile_forward
     from vorta_tpu_torch.ops import _build
 
-    _build.reset_launches()
-    with contextlib.redirect_stdout(io.StringIO()):
-        res = profile_forward.main(["--num_frames", "77", "--routing", "hard", "--dtype", "fp32"])
-    n = {k: _build.launches[k] for k in ("flash", "flash_f32_tc", "flash_manual",
-                                         "flash_manual_f32_tc")}
-    if not (n["flash"] == n["flash_f32_tc"] > 0
-            and n["flash_manual"] == n["flash_manual_f32_tc"] > 0):
-        raise RuntimeError(f"f32 profile: a flash / flash_manual launch off the tensor cores {n}")
-    out = {k: res[k] for k in ("wall_ms", "device_ms", "idle_share", "heads_per_expert",
-                               "max_memory_gib", "groups", "top")}
-    by_group = {g: (round(v["ms"], 3), round(v["share"], 4), v["launches"])
-                for g, v in out["groups"].items()}
-    log(f"f32 profile: one routed Wan-1.3B 480p x 77f forward in f32 on {card}: wall "
-        f"{out['wall_ms']:.1f} ms, device {out['device_ms']:.1f} ms, idle "
-        f"{out['idle_share']:.4f}, heads {out['heads_per_expert']}; by group (ms, share, "
-        f"launches) {by_group}; launches {n}")
+    out = {}
+    for name, extra, tc in (("f32", [], "flash_manual_f32_tc"),
+                            ("f32_qk_int8", ["--qk_int8"], "flash_manual_int8_tc")):
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = profile_forward.main(["--num_frames", "77", "--routing", "hard", "--dtype",
+                                        "fp32", *extra])
+        n = {k: _build.launches[k] for k in ("flash", "flash_f32_tc", "flash_manual", tc)}
+        if not (n["flash"] == n["flash_f32_tc"] > 0 and n["flash_manual"] == n[tc] > 0):
+            raise RuntimeError(f"{name} profile: a flash / flash_manual launch off the tensor "
+                               f"cores {n}")
+        out[name] = {k: res[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                         "heads_per_expert", "max_memory_gib", "groups", "top")}
+        by_group = {g: (round(v["ms"], 3), round(v["share"], 4), v["launches"])
+                    for g, v in out[name]["groups"].items()}
+        log(f"{name} profile: one routed Wan-1.3B 480p x 77f forward ({' '.join(extra) or 'f32'}) "
+            f"on {card}: wall {out[name]['wall_ms']:.1f} ms, device "
+            f"{out[name]['device_ms']:.1f} ms, idle {out[name]['idle_share']:.4f}, heads "
+            f"{out[name]['heads_per_expert']}; by group (ms, share, launches) {by_group}; "
+            f"launches {n}")
     return out
 
 
@@ -7250,13 +7326,56 @@ WINDOW_INT8_MODES = {"sta_window": ("f32", "vorta_tpu/ops/sta_window.py:596"),
 GRID_720P_29F = (8, 45, 80)
 
 
-def int8_f32_bound(qk_ops: float, pv_flops: float, nbytes: float) -> tuple:
+def int8_f32_bound(qk_ops: float, pv_flops: float, nbytes: float,
+                   tensor_cores: bool = False) -> tuple:
     """The int8 QK mode with an f32 v: the QK products at the int8 tensor
-    cores' 1,979 TOPS plus the PV products at 67 TFLOP/s f32 (FFMA), or the
+    cores' 1,979 TOPS plus the PV products at 67 TFLOP/s f32 (FFMA), or with
+    ``tensor_cores`` as three TF32 products at 495 TFLOP/s (3xTF32), or the
     bytes, whichever is longer."""
-    t_ops = (qk_ops / PEAK_INT8 + pv_flops / PEAK_F32) * 1e3
+    pv_s = 3 * pv_flops / PEAK_TF32 if tensor_cores else pv_flops / PEAK_F32
+    t_ops = (qk_ops / PEAK_INT8 + pv_s) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def int8_one_tf32_pv(torch, q8, k8, v, kv_index, kv_count, *, qk_scale, scale, block_q,
+                     block_kv, kv_valid_len=None, kv_bias=None, softmax="fast"):
+    """flash_manual's plain int8 QK mode with an f32 v, its PV product taken
+    as one TF32 product (P and V rounded once to TF32, then an f32 product):
+    the bracket the kernel's 3xTF32 PV must beat.  For dense tables (each q
+    block visits every kv block, or none: the served FULL, LOWRES and joint
+    calls)."""
+    from vorta_tpu_torch.ops.flash import _kv_column_limit
+    from vorta_tpu_torch.ops.flash_manual import qk_factor
+
+    if softmax != "fast":
+        raise ValueError("the int8 mode is fast-only")
+    b, h, sq, d = q8.shape
+    skv = k8.shape[2]
+    nkv = skv // block_kv
+    ok = _kv_column_limit(skv, block_kv, skv if kv_valid_len is None else kv_valid_len,
+                          q8.device)
+    bias = 0.0 if kv_bias is None else kv_bias.reshape(skv).float()
+    qkc = qk_factor(qk_scale, scale, h).to(q8.device)
+    vt = tf32_rne(torch, v.float().contiguous())
+    out = torch.zeros(v.shape[:2] + (sq, d), dtype=torch.float32, device=v.device)
+    for hh in range(h):
+        cnt = kv_count[hh if kv_count.shape[0] > 1 else 0].tolist()
+        idx = kv_index[hh if kv_index.shape[0] > 1 else 0]
+        kf = k8[:, hh].float()
+        for i, c in enumerate(cnt):
+            if c == 0:
+                continue
+            if c != nkv or sorted(idx[i, :c].tolist()) != list(range(nkv)):
+                raise ValueError("int8_one_tf32_pv takes dense tables")
+            rows = slice(i * block_q, (i + 1) * block_q)
+            sc = (q8[:, hh, rows].float() @ kf.transpose(-1, -2)) * qkc[hh] + bias
+            p = torch.where(ok, torch.exp2(sc), 0.0)
+            l = p.sum(-1, keepdim=True)
+            o = tf32_rne(torch, p) @ vt[:, hh]
+            out[:, hh, rows] = torch.where(l == 0, 0.0, o / torch.where(l == 0, 1.0, l))
+            del sc, p, o
+    return out
 
 
 def float_mask(torch, mask):
@@ -7282,6 +7401,7 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
     from vorta_tpu_torch.ops.flash import dense_tables, f32_tc_path
     from vorta_tpu_torch.ops.flash_manual import (
         sparse_flash_attention_manual,
+        sparse_flash_attention_manual_ffma,
         sparse_flash_attention_manual_ref,
     )
     from vorta_tpu_torch.ops.routed_fused import quantize_per_head, quantize_qk, routed_geometry
@@ -7369,8 +7489,11 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
 
     # ---- flash_manual, int8 q / k with an f32 v: the routed FULL and LOWRES
     # calls at 480p x 77f (8 of 12 heads), HunyuanVideo's joint FULL layout with
-    # kv_bias (8 of 24 heads: the routing-off arm's call), D 64 with 16-row
-    # blocks, a tail and a count-0 head; timed beside the f32 mode (f32 q / k)
+    # kv_bias (8 of 24 heads: the routing-off arm's call), on the tensor cores
+    # (csrc/attn_int8_tc.cuh; brackets: kv_bias dropped, the PV as one TF32
+    # product) and timed in turns with the dp4a / FFMA mode at the same call; D 64
+    # with 16-row blocks, a tail and a count-0 head on dp4a; each timed beside
+    # the f32 mode (f32 q / k) and f32 SDPA
     cfg = attention_config("wan-1_3B", GRID_480P_77F)
     geo = routed_geometry(cfg)
     hcfg = attention_config("hunyuan-13B", GRID_HY_45F)
@@ -7399,26 +7522,38 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
         n = valid or s
         vis = n if bias is None else int((bias > -1e29).sum().item())
         ops = 2.0 * n * vis * d * n_act
+        nbytes = s * d * (2 + 8) * n_act
+        tc = f32_tc_path(d, bq, bkv)  # the served shapes: the tensor-core int8 kernel
         r = out["flash_manual"][name] = f32_case(
             torch, f"flash_manual int8 q / k, f32 v {name} (1,{h},{s},{d}), {n_act} of {h} heads",
             "flash_manual", lambda: sparse_flash_attention_manual(
                 q8, k8, v, ki, cnt, qk_scale=qk_scale, **kw),
             lambda: sparse_flash_attention_manual_ref(q8, k8, v, ki, cnt, qk_scale=qk_scale, **kw),
-            TOL_F32_ATTN, 2 * ops, s * d * (2 + 8) * n_act, also=("flash_manual_int8",),
+            TOL_F32_ATTN, 2 * ops, nbytes, also=("flash_manual_int8",),
             rows=slice(0, n), iters=iters, zero_heads=act == 0,
-            bound=int8_f32_bound(ops, ops, s * d * (2 + 8) * n_act),
+            bound=int8_f32_bound(ops, ops, nbytes),
             lib=sdpa(*(x[:, act > 0, :n] for x in (qf, kf, v)),
                      None if bias is None else bias[:, :n].reshape(1, 1, 1, n), 2),
             bracket=(lambda: sparse_flash_attention_manual_ref(
                 q8, k8, v, ki, cnt, qk_scale=qk_scale, **{**kw, "kv_bias": None}))
-            if bias is not None else None, bracket_min=F32_BRACKET * TOL_F32_ATTN)
+            if bias is not None else None, bracket_min=F32_BRACKET * TOL_F32_ATTN,
+            **(dict(ffma=lambda: sparse_flash_attention_manual_ffma(
+                q8, k8, v, ki, cnt, qk_scale=qk_scale, **kw), tc_counter="flash_manual_int8_tc",
+                tc_bound=int8_f32_bound(ops, ops, nbytes, tensor_cores=True),
+                tf32_bracket=lambda: int8_one_tf32_pv(torch, q8, k8, v, ki, cnt,
+                                                      qk_scale=qk_scale, **kw),
+                tf32_gate=True) if tc else {}))
         r["f32_mode_ms"] = time_ms(torch, lambda: sparse_flash_attention_manual(
             qf, kf, v, ki, cnt, **kw), iters)
-        r["f32_mode_core"] = "tensor_cores" if f32_tc_path(d, bq, bkv) else "ffma"
+        r["f32_mode_core"] = "tensor_cores" if tc else "ffma"
         r["int8_over_f32_mode"] = r["ms"] / r["f32_mode_ms"]
-        log(f"flash_manual int8 f32 {name}: {r['ms']:.3f} ms against the f32 mode's "
-            f"{r['f32_mode_ms']:.3f} ms ({r['f32_mode_core']}) at the same call "
-            f"({r['int8_over_f32_mode']:.3f}x)")
+        log(f"flash_manual int8 f32 {name} on {card}: {r['ms']:.3f} ms "
+            f"({r.get('core', 'ffma')}; {r['tflops']:.1f} TFLOP/s, {r['bound_share']:.1%} of its "
+            f"{r['bound_ms']:.3f} ms bound"
+            + (f", {r['ffma_rated_bound_share']:.1%} of the FFMA-rated {r['ffma_bound_ms']:.3f}"
+               f"; the dp4a / FFMA mode at the same call {r['ffma_ms']:.3f} ms" if tc else "")
+            + f") against the f32 mode's {r['f32_mode_ms']:.3f} ms ({r['f32_mode_core']}, "
+            f"{r['int8_over_f32_mode']:.3f}x) and f32 SDPA's {r['library_ms']:.3f} ms")
         del qf, kf, q8, k8, v
         torch.cuda.empty_cache()
 
@@ -7677,8 +7812,10 @@ def run_f32_window_int8_serving(torch, card: str):
                 or not torch.isfinite(lat).all()):
             raise RuntimeError(f"{name}: launches {got} != {want}, or output "
                                f"{tuple(lat.shape)} {lat.dtype} non-finite")
-        if int8 and not got["flash_manual"] == got["flash_manual_f32"] == got["flash_manual_int8"]:
-            raise RuntimeError(f"{name}: a flash_manual launch outside the int8 f32 mode")
+        if int8 and not (got["flash_manual"] == got["flash_manual_f32"] == got["flash_manual_int8"]
+                         == got["flash_manual_int8_tc"] > 0):
+            raise RuntimeError(f"{name}: a flash_manual launch outside the int8 f32 mode on the "
+                               "tensor cores")
         sta_blocks = int((tables == 2).any(-1).sum())  # blocks with STA heads, over the forwards
         if not int8 and (got["sta_pipe"] or got["sta_window_f32"] != sta_blocks):
             raise RuntimeError(f"{name}: sta_window_f32 {got['sta_window_f32']} is not one "

@@ -101,6 +101,7 @@ from vorta_tpu_torch.ops.coreset_pallas import (
 )
 from vorta_tpu_torch.ops.flash import (
     dense_tables,
+    f32_tc_path,
     sm90_probe,
     sparse_flash_attention_raw,
     sparse_flash_attention_ref,
@@ -3179,7 +3180,8 @@ def test_flash_manual_int8_f32_v_matches_plain(card, d, block_q, block_kv, sq, s
                                                with_bias):
     """The int8 QK mode with an f32 v on the same int8 q / k as the plain
     version (exact int32 scores on both sides), a head routed away; counted
-    as flash_manual, flash_manual_f32 and flash_manual_int8."""
+    as flash_manual, flash_manual_f32 and flash_manual_int8, and as
+    flash_manual_int8_tc where f32_tc_path holds (the tensor-core kernel)."""
     b, h = 2, 3
     g = torch.Generator(device=card).manual_seed(44)
     q8, k8, qk_scale = _int8_qk(card, g, (b, h, sq, d), (b, h, skv, d))
@@ -3195,8 +3197,9 @@ def test_flash_manual_int8_f32_v_matches_plain(card, d, block_q, block_kv, sq, s
     _build.reset_launches()
     got = sparse_flash_attention_manual(q8, k8, v, ki, kc, **kw)
     assert (_build.launches["flash_manual"], _build.launches["flash_manual_f32"],
-            _build.launches["flash_manual_int8"], _build.launches["flash_manual_wgmma"]) == \
-        (1, 1, 1, 0)
+            _build.launches["flash_manual_int8"], _build.launches["flash_manual_wgmma"],
+            _build.launches["flash_manual_int8_tc"], _build.launches["flash_manual_f32_tc"]) == \
+        (1, 1, 1, 0, int(f32_tc_path(d, block_q, block_kv)), 0)
     _close(got, sparse_flash_attention_manual_ref(q8, k8, v, ki, kc, **kw))
     assert not got[:, 1].any()
 
@@ -3509,9 +3512,9 @@ def test_flash_manual_f32_tc_matches_plain(card, softmax, bq, bkv, s, valid, bia
 
 
 def test_f32_tc_c_entries_refuse_what_the_rule_refuses(card):
-    """flash_manual's f32 entry takes the tensor-core core (a scratch
-    pointer) only where f32_tc_path holds and never in the int8 mode: an
-    error code, never a launch, no fallback."""
+    """flash_manual's f32 entry takes the tensor cores (a scratch pointer:
+    the f32 core, or the int8 mode's kernel with a qk factor) only where
+    f32_tc_path holds: an error code, never a launch, no fallback."""
     from vorta_tpu_torch.ops.flash import f32_tc_work
     from vorta_tpu_torch.ops.flash_manual import _flash_manual_f32_fn
 
@@ -3530,10 +3533,54 @@ def test_f32_tc_c_entries_refuse_what_the_rule_refuses(card):
     assert manual(q, 128, 128, work) == 0
     torch.cuda.synchronize()
     assert manual(q64, 64, 128, work) != 0
-    assert manual(q, 128, 128, work, qkc.data_ptr()) != 0
+    assert manual(q, 128, 128, work, qkc.data_ptr()) == 0  # the int8 mode's kernel
+    torch.cuda.synchronize()
+    assert manual(q64, 64, 128, work, qkc.data_ptr()) != 0
+    assert manual(q, 128, 64, work, qkc.data_ptr()) != 0
     assert manual(q, 128, 64, work) != 0  # blocks of 64: not the rule's
     assert manual(q, 128, 128, None) == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bq,bkv,s,valid,bias", [
+    (128, 128, 512, 507, True),       # kv_bias (-1e30 on some keys) with kv_valid_len
+    (256, 1024, 2048, 1900, True),    # q blocks of two 128-row CTAs
+    (1024, 1024, 2048, 2048, False),  # FULL / LOWRES's blocks, no tail
+    (2048, 512, 2048, 1600, False),   # a tail on a chunk boundary: chunks past it skipped
+])
+def test_flash_manual_int8_tc_matches_plain(card, bq, bkv, s, valid, bias):
+    """The int8 QK mode with an f32 v on the tensor cores (csrc/attn_int8_tc.cuh)
+    against the plain version and the dp4a / FFMA mode on the same int8 q / k,
+    per-head counts with a head routed away (exact zeros) and a count-0 q
+    block, counted as flash_manual_int8_tc (never _f32_tc or _wgmma)."""
+    from vorta_tpu_torch.ops.flash_manual import sparse_flash_attention_manual_ffma
+
+    g = torch.Generator(device=card).manual_seed(64)
+    h = 3
+    q8, k8, qk_scale = _int8_qk(card, g, (1, h, s, 128))
+    v = _f32(g, 1, h, s, 128)
+    ki, kc = dense_tables(s // bq, s // bkv).on(card)
+    counts = kc.expand(h, -1).clone()
+    counts[1] = 0
+    counts[2, -1] = 0
+    kb = None
+    if bias:
+        kb = torch.where(torch.rand((1, s), generator=g, device=card) < 0.2, -1e30,
+                         _f32(g, 1, s))
+    kw = dict(block_q=bq, block_kv=bkv, kv_valid_len=valid, kv_bias=kb, softmax="fast",
+              scale=128**-0.5, qk_scale=qk_scale)
+    _build.reset_launches()
+    got = sparse_flash_attention_manual(q8, k8, v, ki, counts, **kw)
+    n = _build.launches
+    assert (n["flash_manual"], n["flash_manual_f32"], n["flash_manual_int8"],
+            n["flash_manual_int8_tc"], n["flash_manual_f32_tc"], n["flash_manual_wgmma"]) == \
+        (1, 1, 1, 1, 0, 0)
+    want = sparse_flash_attention_manual_ref(q8, k8, v, ki, counts, **kw)
+    _close(got, want)
+    assert not got[:, 1].any() and not got[:, 2, -bq:].any()
+    _build.reset_launches()
+    _close(sparse_flash_attention_manual_ffma(q8, k8, v, ki, counts, **kw), want)
+    assert (n["flash_manual_int8"], n["flash_manual_int8_tc"]) == (1, 0)
 
 
 # --- the f32 training path: the f32 lse, the f32 dq and dk/dv kernels -------------------

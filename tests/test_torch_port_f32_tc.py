@@ -3,7 +3,7 @@ wgmma) on the CPU: its shape rule ``ops/flash.py:f32_tc_path`` at every
 f32 call of flash and flash_manual that the 1.3B / 13B paths make (the
 shapes from the port's own table builders on meta tensors), the calls that
 stay on the FFMA core (D 64, 16-row blocks, the STA training tiles, the
-int8 QK mode, the FFMA yardsticks), the wrappers' entry, core argument and
+int8 QK mode at D 64, the FFMA yardsticks), the wrappers' entry, core argument and
 counters on a fake card (meta tensors stand for CUDA ones; the library's
 entries record their arguments and return success), and the arithmetic of
 the split: an emulation of the kernel's 3xTF32 products through a plain
@@ -106,7 +106,8 @@ def fake_card(monkeypatch):
 
 
 COUNTERS = ("flash", "flash_f32", "flash_f32_tc", "flash_wgmma", "flash_manual",
-            "flash_manual_f32", "flash_manual_f32_tc", "flash_manual_wgmma", "flash_manual_int8")
+            "flash_manual_f32", "flash_manual_f32_tc", "flash_manual_wgmma", "flash_manual_int8",
+            "flash_manual_int8_tc")
 
 
 def _took(calls, entry: str, tc: int, **counts):
@@ -233,15 +234,15 @@ def _ffma_calls():
         "flash_ffma_yardstick": flash(128, 1024, 1024, ffma=True),
         "manual_d64": manual(64, 256, 256),
         "manual_blocks16": manual(128, 16, 16),
-        "manual_int8_f32_v": manual(128, 1024, 1024, int8=True),
+        "manual_int8_f32_v": manual(64, 1024, 1024, int8=True),  # D 64: the tiny models
         "manual_ffma_yardstick": manual(128, 1024, 1024, ffma=True),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_ffma_calls()))
 def test_other_f32_calls_stay_on_the_ffma_core(case, fake_card):
-    """D 64, blocks 128 does not divide, the int8 QK mode and the FFMA
-    yardsticks: the f32 entry with no scratch (the FFMA core), counted in
+    """D 64 (in f32 and in the int8 QK mode), blocks 128 does not divide and
+    the FFMA yardsticks: the f32 entry with no scratch (the FFMA core), counted in
     the f32 counters and never as ``*_f32_tc`` or ``*_wgmma``."""
     kernel, call = _ffma_calls()[case]
     call()

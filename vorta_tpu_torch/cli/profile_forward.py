@@ -29,7 +29,9 @@ wan-14B`` too).  ``--vae wan|hunyuan`` profiles one decode of that VAE
 whole-clip or, with ``--vae_tiling``, in tiles (models/vae_tiling.py).
 ``--dtype fp32`` builds the DiT in f32 (every kernel in its f32 mode, TF32
 off, as ``cli.train --dtype fp32`` / ``cli.sample --dtype fp32`` run it),
-e.g. to split an f32 training micro-step's device time by op.
+e.g. to split an f32 training micro-step's device time by op; of the
+quantized flags it takes ``--qk_int8`` (int8 q / k with an f32 v, as
+``cli.sample --dtype fp32 --qk_int8`` serves).
 
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 21 --height 480 --width 832
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --routing hard
@@ -38,6 +40,7 @@ e.g. to split an f32 training micro-step's device time by op.
       --router assets/bench_router_wan1_3b_720p_half.npz
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --train
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --train --dtype fp32
+  python -m vorta_tpu_torch.cli.profile_forward --num_frames 77 --routing hard --dtype fp32 --qk_int8
   python -m vorta_tpu_torch.cli.profile_forward --num_frames 37 --height 720 --width 1280 \
       --train --sta_tile 5 9 8   # the bench router's training geometry
   python -m vorta_tpu_torch.cli.profile_forward --model hunyuan-13B --num_frames 45 \
@@ -93,7 +96,8 @@ GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
     # the tensor-core f32 kernels' split pre-passes (forward and backward)
     ("f32_tc_split", ("f32_tc_split_rows_kernel", "f32_tc_split_t_kernel")),
     ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel",
-                      "flash_manual_f32_kernel", "flash_manual_f32_tc_kernel")),
+                      "flash_manual_f32_kernel", "flash_manual_f32_tc_kernel",
+                      "flash_manual_int8_tc_kernel")),
     ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel", "sta_pipe_f32_kernel")),
     # sta_row's Hopper path is sta_window_sm90_kernel too (one kernel, two
     # wrappers): no served geometry reaches sta_row
@@ -147,8 +151,10 @@ def main(argv=None) -> dict:
     quant = args.mm != "bf16" or args.qk_int8 or args.act_scales or args.quantize_blocks
     if args.train and quant:
         p.error("the quantized serving flags profile forwards, not training")
-    if args.dtype == "fp32" and (quant or args.vae):
-        p.error("--dtype fp32 profiles the DiT unquantized")
+    if args.dtype == "fp32" and (args.mm != "bf16" or args.act_scales or args.quantize_blocks
+                                 or args.vae):
+        p.error("--dtype fp32 profiles the DiT unquantized but for --qk_int8 (as cli.sample "
+                "--dtype fp32 serves it)")
 
     device = resolve_device("cuda")
     dtype = torch.float32 if args.dtype == "fp32" else torch.bfloat16

@@ -5,9 +5,10 @@
 // Its users and their walks: csrc/flash.cu and csrc/flash_manual.cu where
 // the tensor-core core does not run (TableWalk below: the block tables, the
 // kv tail rule, kv_bias, per-head counts; head dim 64, blocks 128 does not
-// divide, flash_manual's int8 QK mode, and the FFMA yardsticks; at head dim
-// 128 with blocks that are multiples of 128 csrc/attn_f32_tc.cuh's 3xTF32
-// core runs, ops/flash.py:f32_tc_path), csrc/sta_batched.cu (TableWalk
+// divide, in f32 or in flash_manual's int8 QK mode, and the FFMA
+// yardsticks; at head dim 128 with blocks that are multiples of 128
+// csrc/attn_f32_tc.cuh's 3xTF32 core runs, and csrc/attn_int8_tc.cuh in the
+// int8 QK mode, ops/flash.py:f32_tc_path), csrc/sta_batched.cu (TableWalk
 // plus the pair bits), and
 // csrc/sta_pipe.cu, csrc/sta_window.cu and csrc/sta_row.cu (WindowWalk of
 // csrc/window_walk_f32.cuh: the window box and the text tail).  They replace

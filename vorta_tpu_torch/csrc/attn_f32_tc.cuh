@@ -68,8 +68,9 @@
 // What stays on csrc/attn_f32.cuh's FFMA core (the wrappers' rule): head dim
 // 64 (the tiny models), q or kv blocks that 128 does not divide (blocks of
 // 8 / 16 / 24 / 96 / 360: the tiny models and the f32 STA training tiles),
-// flash_manual's int8 QK mode, sta_batched's pair-bit walk and the window
-// walks (sta_pipe, sta_window, sta_row).
+// sta_batched's pair-bit walk and the window walks (sta_pipe, sta_window,
+// sta_row).  flash_manual's int8 QK mode at these shapes runs
+// csrc/attn_int8_tc.cuh (wgmma s8 scores, this file's 3xTF32 PV).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -191,11 +192,12 @@ __device__ __forceinline__ void split_p(const float (&p)[32], uint32_t (&pb)[32]
 }
 
 // O = Ps Vb + Pb Vs + Pb Vb, one chunk's product in a fresh accumulator
-// (issued and waited).  K step kk is the S accumulator's columns
-// 8kk..8kk+7: registers 4kk + {0, 2, 1, 3} are the A fragment (rows g, g +
-// 8 at keys 2t, then at 2t + 1), which V^T's permuted key columns match.
+// (issued and waited), Vb^T and Vs^T at vb and vs (128 rows x 64 keys each,
+// K-major).  K step kk is the S accumulator's columns 8kk..8kk+7: registers
+// 4kk + {0, 2, 1, 3} are the A fragment (rows g, g + 8 at keys 2t, then at
+// 2t + 1), which V^T's permuted key columns match.
 __device__ __forceinline__ void pv_product(float (&o)[64], uint32_t (&pb)[32], uint32_t (&ps)[32],
-                                           uint32_t base) {
+                                           uint32_t vb, uint32_t vs) {
   sm90::fence_regs(o);
   sm90::fence_regs(pb);
   sm90::fence_regs(ps);
@@ -203,15 +205,15 @@ __device__ __forceinline__ void pv_product(float (&o)[64], uint32_t (&pb)[32], u
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk)
     wgmma_rs_n128(o, ps[4 * kk], ps[4 * kk + 2], ps[4 * kk + 1], ps[4 * kk + 3],
-                  kdesc(base + VB, D, kk), kk > 0);
+                  kdesc(vb, D, kk), kk > 0);
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk)
     wgmma_rs_n128(o, pb[4 * kk], pb[4 * kk + 2], pb[4 * kk + 1], pb[4 * kk + 3],
-                  kdesc(base + VS, D, kk), 1);
+                  kdesc(vs, D, kk), 1);
 #pragma unroll
   for (int kk = 0; kk < BK / 8; ++kk)
     wgmma_rs_n128(o, pb[4 * kk], pb[4 * kk + 2], pb[4 * kk + 1], pb[4 * kk + 3],
-                  kdesc(base + VB, D, kk), 1);
+                  kdesc(vb, D, kk), 1);
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
   sm90::fence_regs(o);
@@ -431,7 +433,7 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq, const CUtensorMap&
     split_p(s, pb, ps);
     mbar_wait(v_full, phase);
     float oc[64];
-    pv_product(oc, pb, ps, base);
+    pv_product(oc, pb, ps, base + VB, base + VS);
     release(v_empty);
     // the chunk's product joins O in the CUDA cores' rounding to nearest (see
     // "Accumulation" above)

@@ -437,7 +437,7 @@ f32_tc_probe_kernel(const uint4* __restrict__ w, float* __restrict__ s_out,
     s_out[(16 * wp + g + 8 * ((i >> 1) & 1)) * BK + 8 * (i / 4) + 2 * t + (i & 1)] = s[i];
   uint32_t pb[32], ps[32];
   split_p(s, pb, ps);
-  pv_product(o, pb, ps, base);
+  pv_product(o, pb, ps, base + VB, base + VS);
 #pragma unroll
   for (int i = 0; i < 64; ++i)
     o_out[(16 * wp + g + 8 * ((i >> 1) & 1)) * D + 8 * (i / 4) + 2 * t + (i & 1)] = o[i];

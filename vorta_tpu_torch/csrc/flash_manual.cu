@@ -53,9 +53,12 @@
 // K's tiles halve; V, P and the PV product stay bf16.  The card runs int8
 // at twice the bf16 rate (1,979 vs 989 T/s dense), so the QK half of the
 // work is bounded at half the time.  With an f32 v (the JAX CLI's
-// --qk_int8 --dtype fp32) the f32 mode's kernel takes int8 q / k instead
-// (flash_manual_f32_kernel<D, true>: csrc/attn_f32.cuh's int8 QK, exact
-// int32 sums by dp4a times qk_scale[h] * scale * log2(e), P and PV in f32).
+// --qk_int8 --dtype fp32) the f32 mode's kernels take int8 q / k instead:
+// flash_manual_int8_tc_kernel (csrc/attn_int8_tc.cuh: wgmma s8 scores,
+// 3xTF32 PV on wgmma) where ops/flash.py:f32_tc_path holds (every served
+// call), else flash_manual_f32_kernel<D, true> (csrc/attn_f32.cuh's int8 QK:
+// exact int32 sums by dp4a, FFMA PV); both multiply the sums by
+// qk_scale[h] * scale * log2(e), P and PV in f32.
 //
 // The stable softmax (STABLE; flash_manual.py:140-169, the JAX wrapper's
 // default): q is NOT pre-scaled; the f32 scores are scaled by
@@ -70,6 +73,7 @@
 #include "attn_sm90.cuh"
 #include "attn_f32.cuh"
 #include "attn_f32_tc.cuh"
+#include "attn_int8_tc.cuh"
 #include "mma_s8.cuh"
 
 namespace {
@@ -337,6 +341,17 @@ flash_manual_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
   vorta::f32tc::attend(tq, tk, tv, p, out, nullptr, mul, stable != 0);
 }
 
+// The int8 QK mode with an f32 v on the tensor cores (csrc/attn_int8_tc.cuh:
+// wgmma s8 scores, 3xTF32 PV), D = 128, the fast softmax, kv_bias in p.
+__global__ void __launch_bounds__(vorta::i8tc::THREADS, 1)
+flash_manual_int8_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ vorta::f32::TableParams p,
+                            float* __restrict__ out, const float* __restrict__ qkc) {
+  vorta::i8tc::attend(tq, tk, tv, p, out, qkc);
+}
+
 }  // namespace
 
 // The f32 mode (flash_manual.py's kernel at f32 inputs): q, k, v, out
@@ -347,11 +362,12 @@ flash_manual_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // P kept in f32.  qk_factor: null, or (H,) f32 qk_scale * scale * log2(e)
 // on the device with q and k int8 (q not pre-scaled; the fast softmax): the
 // int8 QK mode with an f32 v.  work: null, or where the wrapper's rule
-// (ops/flash.py:f32_tc_path, f32 q / k) chose the tensor-core core (D = 128,
-// blocks multiples of 128, not the int8 mode; anything else there is an
-// error, never a fallback), scratch for the split halves of q, k and V^T: 2
-// B H (Sq + 2 Skv) 128 f32, 16-byte aligned; null: the FFMA core.  Returns
-// the CUDA error code.
+// (ops/flash.py:f32_tc_path) chose the tensor cores (D = 128, blocks
+// multiples of 128; anything else there is an error, never a fallback),
+// scratch 16-byte aligned for the split halves of q, k and V^T (f32 q / k:
+// 2 B H (Sq + 2 Skv) 128 f32, csrc/attn_f32_tc.cuh) or of V^T alone (the
+// int8 mode: 2 B H Skv 128 f32, csrc/attn_int8_tc.cuh); null: the FFMA
+// core.  Returns the CUDA error code.
 extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const void* v,
                                           void* out, const void* kv_index, const void* kv_count,
                                           const void* kv_bias, const void* qk_factor, int B,
@@ -361,7 +377,7 @@ extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const vo
                                           void* work, void* stream) {
   if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128) ||
       (idx_heads != 1 && idx_heads != H) || (cnt_heads != 1 && cnt_heads != H) ||
-      nq != Sq / block_q || (qk_factor && stable) || (qk_factor && work))
+      nq != Sq / block_q || (qk_factor && stable))
     return static_cast<int>(cudaErrorInvalidValue);
   const int has_tail = kv_valid_len % block_kv != 0;
   const bool i8 = qk_factor != nullptr;
@@ -373,11 +389,13 @@ extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const vo
   const float mul = stable ? sl : 1.f;
   auto st = static_cast<cudaStream_t>(stream);
   auto* oo = static_cast<float*>(out);
-  if (work != nullptr)
-    return static_cast<int>(vorta::f32tc::launch(flash_manual_f32_tc_kernel, q, k, v, work, B, p,
-                                                 st, p, oo, mul, stable));
-  const dim3 grid = vorta::f32::table_grid(B, p);
   auto* qf = static_cast<const float*>(qk_factor);
+  if (work != nullptr)
+    return static_cast<int>(
+        i8 ? vorta::i8tc::launch(flash_manual_int8_tc_kernel, q, k, v, work, B, p, st, p, oo, qf)
+           : vorta::f32tc::launch(flash_manual_f32_tc_kernel, q, k, v, work, B, p, st, p, oo, mul,
+                                  stable));
+  const dim3 grid = vorta::f32::table_grid(B, p);
   auto run = [&](auto kern, auto d) {
     return vorta::f32::launch<decltype(d)::value>(kern, grid, st, q, oo, p, mul, qf, stable);
   };
@@ -392,3 +410,7 @@ extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const vo
              : run(flash_manual_f32_kernel<64, false>, D64{});
   return static_cast<int>(err);
 }
+
+// The int8 tensor-core kernel's dynamic shared memory (chip_smoke.py's
+// build report).
+extern "C" int vorta_flash_manual_int8_tc_smem_bytes() { return vorta::i8tc::SMEM_BYTES; }

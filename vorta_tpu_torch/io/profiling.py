@@ -59,6 +59,8 @@ SYMBOL_COUNTERS = {
     # the f32 modes' tensor-core kernels (csrc/attn_f32_tc.cuh, csrc/attn_f32_tc_bwd.cuh)
     "flash_f32_tc_kernel": "flash", "flash_manual_f32_tc_kernel": "flash_manual",
     "flash_dq_f32_tc_kernel": "flash_dq", "flash_dkv_f32_tc_kernel": "flash_dkv",
+    # the int8 QK mode with an f32 v on the tensor cores (csrc/attn_int8_tc.cuh)
+    "flash_manual_int8_tc_kernel": "flash_manual",
 }
 _SYMBOL = re.compile(r"\b([A-Za-z0-9_]+_kernel)\b")
 

@@ -54,7 +54,10 @@ of ``flash_dq`` and ``flash_dkv``.  ``flash_f32_tc`` and
 subsets of ``flash_f32`` and ``flash_manual_f32``; they never count as
 ``*_wgmma``.  The int8 QK mode with an f32 v counts in
 both its modes' counters: ``flash_manual_f32`` and ``flash_manual_int8``,
-``sta_pipe_f32`` and ``sta_pipe_int8``.
+``sta_pipe_f32`` and ``sta_pipe_int8``; ``flash_manual_int8_tc`` counts its
+launches on the tensor cores (``csrc/attn_int8_tc.cuh``, by the same
+``f32_tc_path``), a subset of ``flash_manual_int8``, never of
+``flash_manual_f32_tc`` or ``*_wgmma``.
 Headers (``*.cuh``) are part of the hash.
 """
 
@@ -84,7 +87,8 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "fused_norm_range", "flash_f32", "flash_manual_f32", "sta_pipe_f32",
            "sta_batched_f32", "fused_norm_f32", "prologue_f32", "pool_qkv_f32", "unpool_f32",
            "flash_dq_f32", "flash_dkv_f32", "sta_window_f32", "sta_row_f32", "flash_f32_tc",
-           "flash_manual_f32_tc", "flash_dq_f32_tc", "flash_dkv_f32_tc")
+           "flash_manual_f32_tc", "flash_dq_f32_tc", "flash_dkv_f32_tc",
+           "flash_manual_int8_tc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

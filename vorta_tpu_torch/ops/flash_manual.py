@@ -50,10 +50,12 @@ f32; counted as ``flash_manual_f32`` too): the tensor-core core of
 128, blocks multiples of 128: every f32 call of the 1.3B / 13B paths), else
 ``csrc/attn_f32.cuh``'s FFMA core (``sparse_flash_attention_manual_ffma``
 runs it at any shape, the yardstick); int8 q / k with ``qk_scale`` and an
-f32 v its int8 mode on the FFMA core (the scores
-exact int32 sums by dp4a times the head's factor; counted as
-``flash_manual_f32`` and ``flash_manual_int8``); on CPU tensors it runs the
-plain version,
+f32 v its int8 mode (counted as ``flash_manual_f32`` and
+``flash_manual_int8``): where ``f32_tc_path`` holds (every served call)
+``csrc/attn_int8_tc.cuh`` (the scores exact int32 sums of wgmma s8, the PV
+product 3xTF32 on wgmma; counted as ``flash_manual_int8_tc`` too), else the
+FFMA core (exact int32 sums by dp4a, FFMA PV; the tiny models, and the
+yardstick at any shape); on CPU tensors it runs the plain version,
 ``sparse_flash_attention_manual_ref``.  The TPU wrapper's other options
 (ROADMAP section 1 item 11) raise NotImplementedError.
 """
@@ -190,6 +192,13 @@ def sparse_flash_attention_manual_ref(
     return out
 
 
+def int8_tc_work(b: int, h: int, skv: int, device) -> torch.Tensor:
+    """The int8 mode's scratch on the tensor cores for one call: the big and
+    small TF32 halves of V^T (``skv`` keys, head dim 128), which its split
+    pre-pass writes and its TMA copies read; q and k are exact int8."""
+    return torch.empty(2 * b * h * skv * 128, dtype=torch.float32, device=device)
+
+
 def manual_wgmma_path(d: int, block_q: int, block_kv: int, *, stable: bool = False) -> bool:
     """The Hopper path's rule for this kernel: the fast softmax (bf16 q / k,
     or int8 in the qk_scale mode) at the shapes of ``ops/flash.py:wgmma_path``.
@@ -219,21 +228,26 @@ def sparse_flash_attention_manual_ffma(q, k, v, kv_index, kv_count, *,
                                        scale: Optional[float] = None, block_q: int = 512,
                                        block_kv: int = 512, kv_valid_len: Optional[int] = None,
                                        kv_bias: Optional[torch.Tensor] = None,
-                                       softmax: str = "stable") -> torch.Tensor:
-    """``sparse_flash_attention_manual`` at f32 on the FFMA core whatever
-    ``f32_tc_path`` says: the card's yardstick beside the tensor-core core
-    at the same call (``chip_smoke.py`` times both), counted in
-    ``flash_manual`` / ``flash_manual_f32`` only.  CUDA f32 q / k / v."""
+                                       softmax: str = "stable",
+                                       qk_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sparse_flash_attention_manual`` with an f32 v on the FFMA core
+    whatever ``f32_tc_path`` says: f32 q / k, or int8 q / k with
+    ``qk_scale`` (dp4a scores); the card's yardstick beside the tensor-core
+    kernels at the same call (``chip_smoke.py`` times both), counted in
+    ``flash_manual`` / ``flash_manual_f32`` (and ``flash_manual_int8``)
+    only.  CUDA tensors."""
     dev = _build.require_cuda(q, k, v)
     if v.dtype != torch.float32 or softmax not in SOFTMAXES:
-        raise ValueError(f"the FFMA yardstick takes f32 q / k / v and a softmax of {SOFTMAXES}")
+        raise ValueError(f"the FFMA yardstick takes an f32 v and a softmax of {SOFTMAXES}")
+    if qk_scale is not None:
+        check_int8_qk(q, k, softmax)
     _build.forward_only("sparse_flash_attention_manual_ffma", q, k, v)
     _check(q, k, v, kv_index, kv_count, block_q, block_kv)
     d, skv = q.shape[-1], k.shape[2]
     return _manual_f32(q, k, v, kv_index, kv_count, dev, scale=d**-0.5 if scale is None else scale,
                        block_q=block_q, block_kv=block_kv,
                        kv_valid_len=skv if kv_valid_len is None else int(kv_valid_len),
-                       kv_bias=kv_bias, qk_scale=None, softmax=softmax, tc_ok=False)
+                       kv_bias=kv_bias, qk_scale=qk_scale, softmax=softmax, tc_ok=False)
 
 
 def sparse_flash_attention_manual(
@@ -322,10 +336,11 @@ def sparse_flash_attention_manual(
 def _manual_f32(q, k, v, kv_index, kv_count, dev, *, scale: float, block_q: int, block_kv: int,
                 kv_valid_len: int, kv_bias, qk_scale, softmax: str,
                 tc_ok: bool = True) -> torch.Tensor:
-    """The f32 mode on CUDA: f32 q / k / v, either softmax, on the
-    tensor-core core where ``f32_tc_path`` holds, else on the FFMA core of
-    ``csrc/attn_f32.cuh``, which also takes int8 q / k with ``qk_scale``
-    (the fast softmax, q not pre-scaled)."""
+    """The f32 mode on CUDA: f32 q / k / v, either softmax, or int8 q / k
+    with ``qk_scale`` (the fast softmax, q not pre-scaled), on the tensor
+    cores where ``f32_tc_path`` holds (``csrc/attn_f32_tc.cuh``; the int8
+    mode ``csrc/attn_int8_tc.cuh``), else on the FFMA core of
+    ``csrc/attn_f32.cuh``."""
     qk_dtype = torch.float32 if qk_scale is None else torch.int8
     if q.dtype != qk_dtype or k.dtype != qk_dtype:
         raise NotImplementedError(f"the CUDA flash_manual f32 mode takes f32 q / k / v, or int8 "
@@ -343,11 +358,14 @@ def _manual_f32(q, k, v, kv_index, kv_count, dev, *, scale: float, block_q: int,
     qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
     _build.require_cuda(q, bias, qkc)
     stable = softmax == "stable"
-    tc = tc_ok and qkc is None and f32_tc_path(d, block_q, block_kv)
+    tc = tc_ok and f32_tc_path(d, block_q, block_kv)
     qs = q if stable or qkc is not None else _prescale(q, scale)
     qs, k, v = (_build.aligned16(t.contiguous()) for t in (qs, k, v))
+    bias = _build.aligned16(bias)  # the int8 mode's bulk copies read it in 256-byte slices
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
-    work = f32_tc_work(b, h, sq, skv, dev) if tc else None
+    work = None
+    if tc:  # the split halves the kernel reads: V^T's alone in the int8 mode
+        work = f32_tc_work(b, h, sq, skv, dev) if qkc is None else int8_tc_work(b, h, skv, dev)
     err = _flash_manual_f32_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_index.data_ptr(),
         kv_count.data_ptr(), _build.ptr(bias), _build.ptr(qkc), b, h, sq, skv, d,
@@ -357,9 +375,11 @@ def _manual_f32(q, k, v, kv_index, kv_count, dev, *, scale: float, block_q: int,
     _build.check(err, "flash_manual (f32)")
     _build.launches["flash_manual"] += 1
     _build.launches["flash_manual_f32"] += 1
-    _build.launches["flash_manual_f32_tc"] += tc
     if qkc is not None:
         _build.launches["flash_manual_int8"] += 1
+        _build.launches["flash_manual_int8_tc"] += tc
+    else:
+        _build.launches["flash_manual_f32_tc"] += tc
     if stable:
         _build.launches["flash_manual_stable"] += 1
     return out
