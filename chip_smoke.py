@@ -591,8 +591,10 @@ def build_kernels() -> None:
     # sta_batched with and without pair bits), held to 128 registers so that
     # two 101 KB CTAs share an SM, and the f32 backward's 4 (dq, dk/dv at D
     # 64 / 128; one CTA an SM at D 128): spills reported.  The tensor-core
-    # f32 kernels' 4 (flash's, flash_manual's: one 193 KB CTA an SM; the
-    # backward's dq and dk/dv: one 225 KB CTA an SM): no spills; flash_manual's
+    # f32 kernels' 8 (flash's, flash_manual's: one 193 KB CTA an SM; the
+    # backward's dq with and without a partial 64-row tile, its dk/dv with and
+    # without a partial tile and a partial 32-row q chunk: one 225 KB CTA an
+    # SM): no spills; flash_manual's
     # int8 QK mode with an f32 v on the tensor cores (one 162 KB CTA an SM): no spills
     i8_smem = _build.load("flash_manual").vorta_flash_manual_int8_tc_smem_bytes()
     for src, entry, regs, spill in ptxas_entries(_build.ptxas_logs, "_int8_tc_kernel"):
@@ -602,7 +604,7 @@ def build_kernels() -> None:
                                      ("prologue_rows_kernel", 27, True),
                                      ("unpool_rows_kernel", 24, True),
                                      ("_f32_kernel", 22, False),
-                                     ("_f32_tc_kernel", 4, True),
+                                     ("_f32_tc_kernel", 8, True),
                                      ("_int8_tc_kernel", 1, True)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
@@ -881,7 +883,8 @@ def main() -> int:
     print(json.dumps({"f32": {"model_checks_rel_l2": f32_models, "serving": f32_serving,
                               "routed_480p_77f_forward_by_op": f32_profile["f32"],
                               "routed_480p_77f_qk_int8_forward_by_op": f32_profile["f32_qk_int8"],
-                              "training": {"gradient_checks": f32_grads, **f32_train},
+                              "training": {"gradient_checks": f32_grads, **f32_train,
+                                           "dq_dkv_edges": f32_train_k["dq_dkv_edges"]},
                               "window_int8": {"model_checks": fwi_models,
                                               "serving": fwi_serving}}}))
     print(json.dumps({"kernels": kernels}))
@@ -6428,14 +6431,14 @@ def f32_launches(want: dict, full_width: bool) -> dict:
     flash_manual's int8 QK mode there takes its own tensor-core kernel,
     ``flash_manual_int8_tc``, and on these paths its launches are all at
     the Hopper shapes), and the backward's
-    tensor-core dq and dk/dv every launch that bf16 sends to its Hopper
-    kernels (ops/flash_bwd.py:bwd_f32_tc_path, the same shapes); the tiny
-    models' head dim 64 takes none of them."""
+    tensor-core dq and dk/dv every dq and dk/dv launch, the STA tiles'
+    too (ops/flash_bwd.py:bwd_f32_tc_path: D 128, blocks multiples of 8);
+    the tiny models' head dim 64 takes none of them."""
     out = dict(want)
     out["flash_f32_tc"] = want["flash_wgmma"] if full_width else 0
-    # the backward's rule (ops/flash_bwd.py:bwd_f32_tc_path) is bf16's Hopper rule too
-    out["flash_dq_f32_tc"] = want["flash_dq_wgmma"] if full_width else 0
-    out["flash_dkv_f32_tc"] = want["flash_dkv_wgmma"] if full_width else 0
+    # the backward's own rule (ops/flash_bwd.py:bwd_f32_tc_path) takes every D 128 call
+    out["flash_dq_f32_tc"] = want["flash_dq"] if full_width else 0
+    out["flash_dkv_f32_tc"] = want["flash_dkv"] if full_width else 0
     # flash_manual's int8 QK mode takes its tensor-core kernel at the same shapes
     # (csrc/attn_int8_tc.cuh), counted as flash_manual_int8_tc: on these paths every
     # int8 launch is at the Hopper shapes
@@ -6846,15 +6849,19 @@ def check_f32_training_kernels(torch, card: str) -> dict:
     f32 mode and timed beside its bound (67 TFLOP/s f32) and f32 SDPA
     forward / backward with TF32 off; brackets at LOWRES (a kv tail).  At
     FULL, LOWRES and cross the forward runs on the tensor-core core
-    (flash_f32_tc) and the backward on the tensor-core dq and dk/dv
-    (flash_dq_f32_tc / flash_dkv_f32_tc, csrc/attn_f32_tc_bwd.cuh), each
+    (flash_f32_tc, ops/flash.py:f32_tc_path); the backward runs the
+    tensor-core dq and dk/dv (flash_dq_f32_tc / flash_dkv_f32_tc,
+    csrc/attn_f32_tc_bwd.cuh) at every D 128 call, the STA tiles of 96, 360
+    and 24 tokens too (its own rule, ops/flash_bwd.py:bwd_f32_tc_path),
+    their STA blocks checked again on small tables with a kv tail and a
+    count-0 q block (``check_f32_tc_bwd_edges``).  Each tensor-core call is
     held to the same gates beside the FFMA kernels at the same call
     (sparse_flash_attention_ffma, flash_backward_ffma), both timed in turns,
     its bound the 3xTF32 one (495 TFLOP/s TF32, a third of it f32-exact),
     with the bracket of its inputs rounded once to TF32 (q, k, v; the
-    backward's q, k, v and dO: >= 2e-4 at FULL and LOWRES); the STA tiles
-    and D 64 stay on the FFMA kernels by rule: {"lse" | "dq" | "dkv":
-    {shape: numbers}}."""
+    backward's q, k, v and dO: >= 2e-4 at FULL, LOWRES and STA 96); D 64
+    stays on the FFMA kernels by rule: {"lse" | "dq" | "dkv": {shape:
+    numbers}, "dq_dkv_edges": {block: numbers}}."""
     import torch.nn.functional as F
 
     from vorta_tpu_torch.ops import _build
@@ -6945,9 +6952,7 @@ def check_f32_training_kernels(torch, card: str) -> dict:
         bwd = lambda **o: flash_backward(*args, **bkw, **o)  # noqa: E731
         bwd_ffma = lambda **o: flash_backward_ffma(*args, **bkw, **o)  # noqa: E731
         plain = lambda: flash_backward_ref(q, k, v, out, lse, dout, ki, kc, **bkw)  # noqa: E731
-        btc = bwd_f32_tc_path(d, c["bq"], c["bkv"])
-        if btc != tc:
-            raise RuntimeError(f"f32 {name}: the forward and the backward take different designs")
+        btc = bwd_f32_tc_path(d, c["bq"], c["bkv"])  # its own rule: the STA tiles too
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         mem0 = torch.cuda.memory_allocated()
@@ -6989,7 +6994,7 @@ def check_f32_training_kernels(torch, card: str) -> dict:
             btc_row["tf32_bracket_worst_ratio"] = max(worst_ratio(torch, a, w) for a, w in zip(
                 flash_backward_ref(q1, k1, v1, out, lse, d1, ki, kc, **bkw), want))
             del q1, k1, v1, d1
-            gated = name in ("full_31200", "lowres_15600")
+            gated = name in ("full_31200", "lowres_15600", "sta_31200_tile96")
             bar = "must be" if gated else "recorded; the bar is"
             log(f"f32 backward {name}: the FFMA kernels' worst ratio "
                 f"{btc_row['ffma_worst_ratio']:.3e}, peak {btc_row['ffma_peak_gib']:.3f} GiB; q, k, "
@@ -7083,7 +7088,53 @@ def check_f32_training_kernels(torch, card: str) -> dict:
             log(f"f32 {kind} {name}: {with_rate(res[kind][name], per_pair * pairs * d)}")
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
+    res["dq_dkv_edges"] = {block: check_f32_tc_bwd_edges(torch, block) for block in (96, 360, 24)}
     return res
+
+
+def check_f32_tc_bwd_edges(torch, block: int) -> dict:
+    """The tensor-core dq and dk/dv at an STA block (96, 360, 24) on small
+    tables that the trainer's raster never makes: q block 0 with count 0, a
+    kv tail inside the last block (not a multiple of 8 at 24), other blocks
+    visited at random; 12 x 128 heads, blocks 4 / 3 / 5 a side.  Against the
+    plain version (worst ratio <= 1e-4), exactly zero dq for the count-0
+    block and dk / dv past the tail, counted once each as _f32_tc."""
+    import numpy as np
+
+    from vorta_tpu_torch.ops import _build
+    from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, tables_from_block_mask
+    from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
+
+    n, cut = {96: (4, 40), 360: (3, 100), 24: (5, 5)}[block]
+    s, valid = n * block, n * block - cut
+    rng = np.random.default_rng(block)
+    mask = rng.random((1, n, n)) < 0.6
+    mask[:, 0] = False
+    mask[:, 1:, n - 1] = True
+    tab = tables_from_block_mask(mask)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(block)
+    q, k, v, dout = (torch.randn((1, 12, s, 128), generator=g, device=dev) for _ in range(4))
+    ki, kc = tab.on(dev)
+    qi, qc = (torch.from_numpy(a).to(dev) for a in transpose_tables(tab.kv_index, tab.kv_count, n))
+    kw = dict(scale=128**-0.5, block_q=block, block_kv=block, kv_valid_len=valid)
+    out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, return_lse=True, **kw)
+    _build.reset_launches()
+    got = flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, **kw)
+    torch.cuda.synchronize()
+    n_tc = (_build.launches["flash_dq_f32_tc"], _build.launches["flash_dkv_f32_tc"])
+    want = flash_backward_ref(q, k, v, out, lse, dout, ki, kc, **kw)
+    ratio = max(worst_ratio(torch, a, w) for a, w in zip(got, want))
+    zeros = not got[0][:, :, :block].any() and not got[1][:, :, valid:].any() \
+        and not got[2][:, :, valid:].any()
+    log(f"f32 backward edges, blocks {block}: {n} x {n} blocks, q block 0 empty, kv tail at "
+        f"{valid}: worst ratio {ratio:.3e} (tolerance {TOL_F32_ATTN:g}); exact zeros {zeros}; "
+        f"_f32_tc launches {n_tc}")
+    if not (ratio <= TOL_F32_ATTN and zeros and n_tc == (1, 1)
+            and all(torch.isfinite(a).all() for a in got)):
+        raise RuntimeError(f"f32 backward edges, blocks {block}: the tensor-core kernels disagree "
+                           "with their plain version, or wrote a row they must not")
+    return dict(worst_ratio=ratio, kv_valid_len=valid, blocks=n, shape=[1, 12, s, 128])
 
 
 def check_f32_train_grads(torch) -> dict:

@@ -3643,8 +3643,9 @@ def test_flash_f32_backward_c_entries_refuse_what_their_rules_refuse(card):
     """The f32 backward entries refuse a head dim outside 64 / 128 and blocks
     not multiples of 8: an error code, never a launch.  Given the
     tensor-core scratch they refuse every shape off ops/flash_bwd.py:
-    bwd_f32_tc_path (D 64, blocks 128 does not divide), as the split entry
-    does: nothing falls back to the FFMA kernels."""
+    bwd_f32_tc_path (D 64) and take the rest (D 128, blocks multiples of 8:
+    64, 96), as the split entry does: nothing falls back to the FFMA
+    kernels."""
     from vorta_tpu_torch.ops.flash_bwd import _fn, _split_fn, f32_tc_bwd_work
 
     q = torch.zeros((1, 1, 256, 128), device=card)
@@ -3665,13 +3666,13 @@ def test_flash_f32_backward_c_entries_refuse_what_their_rules_refuse(card):
                            1, 1, stream)
 
     assert both(128, 64) == (0, 0)
-    assert split(128, 256) == 0
-    assert both(128, 256, work.data_ptr(), 256) == (0, 0)
+    for block in (256, 64, 96):  # the rule's shapes (one q and one kv block): split, then both
+        assert split(128, block, block) == 0 and both(128, block, work.data_ptr(), block) == (0, 0)
     torch.cuda.synchronize()
     assert all(err != 0 for err in both(96, 64) + both(128, 12))
-    assert all(err != 0 for err in both(128, 64, work.data_ptr()) + both(64, 128, work.data_ptr(), 256)
-               + both(128, 96, work.data_ptr(), 192))
-    assert split(128, 64) != 0 and split(64, 256) != 0 and split(128, 96, 192) != 0
+    assert all(err != 0 for err in both(64, 128, work.data_ptr(), 256)
+               + both(64, 64, work.data_ptr()) + both(128, 12, work.data_ptr(), 96))
+    assert split(64, 256) != 0 and split(64, 64, 64) != 0 and split(128, 12, 96) != 0
 
 
 @pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [
@@ -3689,6 +3690,30 @@ def test_flash_f32_tc_backward_matches_plain(card, kind, bq, bkv, sq, skv, valid
     kernels at the same call (flash_backward_ffma); exact zeros for kv rows
     past the tail and for the count-0 q block; need_dq and need_dkv alone
     bit for bit."""
+    _tc_backward_case(card, kind, bq, bkv, sq, skv, valid)
+
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [
+    ("shared", 96, 96, 384, 384, 344),       # STA 96: 64 + 32 rows, the tail mid-chunk
+    ("dense", 96, 96, 288, 288, 288),        # no tail, every block visited
+    ("shared", 360, 360, 1080, 1080, 980),   # STA 360: 5 x 64 + 40 rows, 11 x 32 + 8 keys
+    ("shared", 24, 24, 120, 120, 115),       # STA 24: one 24-row CTA, a 19-key tail
+    ("dense", 24, 360, 96, 720, 700),        # q blocks 24, kv blocks 360
+    ("dense", 24, 128, 96, 256, 250),        # a partial q chunk, whole 64-row kv tiles
+    ("dense", 1024, 64, 2048, 128, 100),     # kv blocks of 64
+    ("shared", 16, 16, 96, 96, 90),          # blocks of 16 and 8 at D 128
+    ("dense", 8, 8, 64, 64, 60),
+])
+def test_flash_f32_tc_backward_at_the_sta_blocks(card, kind, bq, bkv, sq, skv, valid):
+    """The tensor-core dq and dk/dv at blocks that 128 does not divide (the
+    STA training tiles 96, 360, 24; kv blocks of 64; 16 and 8): ragged
+    64-row CTAs and 32-row chunks, against the plain version and the FFMA
+    kernels, counted as _f32_tc; exact zeros past the kv tail and for the
+    count-0 q block; need_dq and need_dkv alone bit for bit."""
+    _tc_backward_case(card, kind, bq, bkv, sq, skv, valid)
+
+
+def _tc_backward_case(card, kind, bq, bkv, sq, skv, valid):
     from vorta_tpu_torch.ops.flash_bwd import (bwd_f32_tc_path, flash_backward,
                                                flash_backward_ffma, flash_backward_ref,
                                                transpose_tables)
@@ -3723,6 +3748,8 @@ def test_flash_f32_tc_backward_matches_plain(card, kind, bq, bkv, sq, skv, valid
         assert not got[0][:, :, :bq].any()
     dq, dk, dv = flash_backward(*args, need_dkv=False, **kw)
     assert dk is None and dv is None and torch.equal(dq, got[0])
+    dq, dk, dv = flash_backward(*args, need_dq=False, **kw)
+    assert dq is None and torch.equal(dk, got[1]) and torch.equal(dv, got[2])
     dq, dk, dv = flash_backward(*args, need_dq=False, **kw)
     assert dq is None and torch.equal(dk, got[1]) and torch.equal(dv, got[2])
 

@@ -3,14 +3,17 @@
 ``ops/flash_bwd.py:bwd_f32_tc_path`` at every f32 backward call the trainer
 makes at 480p x 77f and 720p x 37f (the tables and blocks from the experts
 themselves, each call run forward and backward through
-``make_sparse_attention`` on meta tensors), the calls that stay on the FFMA
-kernels (the STA training tiles, D 64, the yardstick
-``flash_backward_ffma``), the wrapper's entries, scratch and counters on a
-fake card (meta tensors stand for CUDA ones; the library's entries record
-their arguments and return success), the split pre-pass's transposed,
-permuted layout mirrored in Python against a plain transpose, and the
+``make_sparse_attention`` on meta tensors: every one on the tensor cores,
+the STA tiles' forward on the FFMA core), the calls that stay on the FFMA
+kernels (D 64, the yardstick ``flash_backward_ffma``), the wrapper's
+entries, scratch and counters on a fake card (meta tensors stand for CUDA
+ones; the library's entries record their arguments and return success),
+the split pre-pass's transposed, permuted layout mirrored in Python against
+a plain transpose, the kernels' walks mirrored in Python at the STA blocks
+(96, 360, 24: every visible pair computed once, one writer a row), and the
 arithmetic of the split: an emulation of the kernels' 3xTF32 products
-through a plain dq / dk / dv, against f64, reads within 1e-5 where single
+through a plain dq / dk / dv, against f64, and through the kernels' walk at
+blocks of 96, against the plain version, reads within 1e-5 where single
 TF32 products read 2e-4 or more (the kernels' gate is 1e-4).  Imports no
 JAX: the plain backward's parity with JAX is held by the other port tests.
 The card runs the kernels themselves: ``tests/test_torch_port_cuda.py``
@@ -27,14 +30,24 @@ import torch
 from vorta_tpu_torch.cli.sample import attention_config
 from vorta_tpu_torch.ops import _build, experts
 from vorta_tpu_torch.ops import flash as flash_ops
-from vorta_tpu_torch.ops.flash import dense_tables, f32_tc_transposed
+from vorta_tpu_torch.ops.flash import (
+    _kv_column_limit,
+    dense_tables,
+    f32_tc_transposed,
+    sparse_flash_attention_ref,
+    tables_from_block_mask,
+)
 from vorta_tpu_torch.ops.flash_bwd import (
     LOG2E,
     bwd_f32_tc_path,
     f32_tc_bwd_work,
+    f32_tc_dkv_walk,
+    f32_tc_dq_walk,
     flash_backward,
     flash_backward_ffma,
+    flash_backward_ref,
     transpose_tables,
+    visible_blocks,
 )
 
 TRAIN = {"480p_77f": ((20, 30, 52), (4, 6, 4)), "720p_37f": ((10, 45, 80), (5, 9, 8))}
@@ -123,25 +136,29 @@ def _trainer_calls(grid, tile, spy):
 @pytest.mark.parametrize("grid", sorted(TRAIN))
 @pytest.mark.parametrize("expert", ["full", "lowres", "cross", "sta"])
 def test_trainer_f32_backward_calls(grid, expert, spy_attention, fake_card):
-    """cli.train --dtype fp32 at 480p x 77f and 720p x 37f: FULL, LOWRES and
-    the cross-attention's backward take the tensor-core kernels (one split
-    pre-pass, both entries given its scratch, counted once each as _f32_tc),
-    the STA tiles (96 / 360 tokens) the FFMA kernels; never _wgmma."""
+    """cli.train --dtype fp32 at 480p x 77f and 720p x 37f: every
+    expert's backward, the STA tiles' (96 / 360 tokens) too, takes the
+    tensor-core kernels (one split pre-pass, both entries given its scratch,
+    counted once each as _f32_tc); the forward takes the tensor-core core
+    (its scratch) at FULL, LOWRES and cross and the FFMA core (no scratch)
+    at the STA tiles; never _wgmma."""
     tables, kw = _trainer_calls(*TRAIN[grid], spy_attention)[expert]
     bq, bkv = kw["block_q"], kw["block_kv"]
-    tc = expert != "sta"
-    assert bwd_f32_tc_path(128, bq, bkv) is tc
+    fwd_tc = expert != "sta"
+    assert bwd_f32_tc_path(128, bq, bkv)
+    assert flash_ops.f32_tc_path(128, bq, bkv) is fwd_tc
     nq, nkv = tables.kv_index.shape[1], kw["n_kv_blocks"]
     q = _meta(1, 12, nq * bq, 128).requires_grad_()
     k, v = (_meta(1, 12, nkv * bkv, 128).requires_grad_() for _ in range(2))
     attn = flash_ops.make_sparse_attention(tables, **kw)
     attn(q, k, v).sum().backward()
     entries = [e for e, _, _ in fake_card]
-    assert entries == ["vorta_flash_fwd_f32"] + [SPLIT] * tc + [
-        "vorta_flash_bwd_dq_f32", "vorta_flash_bwd_dkv_f32"]
-    assert [a[-2] is not None for _, a, _ in fake_card[-2:]] == [tc, tc]  # the scratch
-    _counted(flash_dq=1, flash_dq_f32=1, flash_dkv=1, flash_dkv_f32=1,
-             **({"flash_dq_f32_tc": 1, "flash_dkv_f32_tc": 1} if tc else {}))
+    assert entries == ["vorta_flash_fwd_f32", SPLIT, "vorta_flash_bwd_dq_f32",
+                       "vorta_flash_bwd_dkv_f32"]
+    # the scratch of the forward's core and of the backward's kernels
+    assert [fake_card[i][1][-2] is not None for i in (0, 2, 3)] == [fwd_tc, True, True]
+    _counted(flash_dq=1, flash_dq_f32=1, flash_dkv=1, flash_dkv_f32=1, flash_dq_f32_tc=1,
+             flash_dkv_f32_tc=1)
 
 
 def _bwd(d, bq, bkv, nq=2, nkv=2, fn=flash_backward, valid=None, **kw):
@@ -159,10 +176,6 @@ def _bwd(d, bq, bkv, nq=2, nkv=2, fn=flash_backward, valid=None, **kw):
     (64, 128, 128),    # the tiny models' head dim
     (64, 16, 16),      # wan-tiny's blocks
     (64, 8, 8),
-    (128, 96, 96),     # the f32 STA training tiles
-    (128, 360, 360),
-    (128, 24, 24),
-    (128, 1024, 64),   # a kv block 128 does not divide
 ])
 def test_other_f32_backward_calls_stay_on_the_ffma_kernels(d, bq, bkv, fake_card):
     assert not bwd_f32_tc_path(d, bq, bkv)
@@ -170,6 +183,29 @@ def test_other_f32_backward_calls_stay_on_the_ffma_kernels(d, bq, bkv, fake_card
     assert [(e, a[-2]) for e, a, _ in fake_card] == [("vorta_flash_bwd_dq_f32", None),
                                                      ("vorta_flash_bwd_dkv_f32", None)]
     _counted(flash_dq=1, flash_dq_f32=1, flash_dkv=1, flash_dkv_f32=1)
+
+
+@pytest.mark.parametrize("bq,bkv", [
+    (96, 96),      # the f32 STA training tiles
+    (360, 360),
+    (24, 24),
+    (1024, 64),    # a kv block 128 does not divide
+    (24, 360),     # q and kv blocks of two sizes
+    (16, 16),      # blocks of 16 and 8 at D 128 (tests only)
+    (8, 8),
+])
+def test_f32_backward_at_blocks_128_does_not_divide_takes_the_tensor_cores(bq, bkv, fake_card):
+    """D 128 at blocks that are multiples of 8 but not of 128: one split
+    pre-pass with the blocks and the tail, both entries given its scratch,
+    counted once each as _f32_tc; the forward's rule still refuses them."""
+    assert bwd_f32_tc_path(128, bq, bkv) and not flash_ops.f32_tc_path(128, bq, bkv)
+    _bwd(128, bq, bkv, nq=3, nkv=2, valid=2 * bkv - 3)
+    (split, args, _), *kernels = fake_card
+    assert split == SPLIT and args[5:15] == (1, 2, 3 * bq, 2 * bkv, 128, bq, bkv, 2 * bkv - 3, 1, 1)
+    assert [(e, a[-2]) for e, a, _ in kernels] == [("vorta_flash_bwd_dq_f32", 0),
+                                                   ("vorta_flash_bwd_dkv_f32", 0)]
+    _counted(flash_dq=1, flash_dq_f32=1, flash_dq_f32_tc=1, flash_dkv=1, flash_dkv_f32=1,
+             flash_dkv_f32_tc=1)
 
 
 @pytest.mark.parametrize("need", ["both", "dq", "dkv"])
@@ -222,19 +258,28 @@ def test_ffma_yardstick_at_the_tensor_core_shapes(fake_card):
     _counted(flash_dq=1, flash_dq_f32=1, flash_dkv=1, flash_dkv_f32=1)
 
 
-@pytest.mark.parametrize("d,block_q,block_kv,want", [
-    (128, 1024, 1024, True), (128, 2048, 512, True), (128, 128, 256, True),
-    (64, 1024, 1024, False), (128, 64, 64, False), (128, 96, 96, False),
-    (128, 360, 360, False), (128, 24, 24, False), (128, 16, 16, False),
+@pytest.mark.parametrize("d,block_q,block_kv,want,forward", [
+    (128, 1024, 1024, True, True), (128, 2048, 512, True, True), (128, 128, 256, True, True),
+    (64, 1024, 1024, False, False), (128, 64, 64, True, False), (128, 96, 96, True, False),
+    (128, 360, 360, True, False), (128, 24, 24, True, False), (128, 16, 16, True, False),
+    (128, 8, 8, True, False), (128, 1024, 64, True, False), (128, 24, 360, True, False),
+    (64, 96, 96, False, False), (64, 8, 8, False, False), (128, 12, 12, False, False),
+    (128, 100, 96, False, False), (96, 128, 128, False, False),
 ])
-def test_shape_rule_is_the_forwards(d, block_q, block_kv, want):
+def test_shape_rule_is_the_forwards(d, block_q, block_kv, want, forward):
+    """The backward's own rule (D 128, blocks multiples of 8) agrees with
+    the forward's (D 128, blocks multiples of 128) wherever the forward
+    takes the tensor cores, and goes beyond it at the STA tiles."""
     assert bwd_f32_tc_path(d, block_q, block_kv) is want
-    assert flash_ops.f32_tc_path(d, block_q, block_kv) is want
+    assert flash_ops.f32_tc_path(d, block_q, block_kv) is forward
 
 
 # ---- the pre-pass's transposed layout ----------------------------------------------
 
-@pytest.mark.parametrize("s,block,valid", [(256, 128, 256), (512, 256, 300), (128, 128, 100)])
+@pytest.mark.parametrize("s,block,valid", [
+    (256, 128, 256), (512, 256, 300), (128, 128, 100),
+    (384, 96, 344), (1080, 360, 1000), (120, 24, 115),  # the STA blocks, each with a kv tail
+])
 def test_transposed_layout_is_a_permuted_transpose(s, block, valid):
     """f32_tc_transposed (the Python mirror of f32_tc_split_t_kernel's
     layout) is x^T with its rows permuted within groups of 8 (column p
@@ -315,15 +360,160 @@ def test_3xtf32_backward_holds_the_gate_where_one_tf32_product_cannot(std):
 
 
 
+
+# ---- the kernels' walks at the STA blocks ---------------------------------------------
+
+WALKS = {  # block: (blocks a side, kv_valid_len: a tail inside the last block)
+    96: (4, 4 * 96 - 40),      # the last block's second chunk cut at 24 keys
+    360: (3, 3 * 360 - 100),   # 260 keys of the last block: its 5th CTA keeps 4 rows
+    24: (5, 5 * 24 - 5),       # 19 keys: not a multiple of 8
+}
+
+
+def _walk_case(block, seed=25):
+    """Tables of n x n blocks, q block 0 with count 0, the tail block
+    visited, others at random; the plain version's visible (q, kv) pairs."""
+    n, valid = WALKS[block]
+    rng = np.random.default_rng(seed + block)
+    mask = rng.random((1, n, n)) < 0.6
+    mask[:, 0] = False
+    mask[:, 1:, n - 1] = True
+    tab = tables_from_block_mask(mask)
+    s = n * block
+    pairs = (visible_blocks(tab.kv_index, tab.kv_count, n).repeat_interleave(block, 0)
+             .repeat_interleave(block, 1) & _kv_column_limit(s, block, valid, "cpu")[None])
+    return tab, s, valid, pairs
+
+
+@pytest.mark.parametrize("block", sorted(WALKS))
+def test_tensor_core_walks_cover_each_visible_pair_once(block):
+    """f32_tc_dq_walk / f32_tc_dkv_walk (the kernels' grids, tiles and
+    chunks) at blocks of 96, 360 and 24 with a kv tail and a count-0 q
+    block: ceil(block / 64) CTAs a block; each CTA stores only rows of its
+    own block (the rest of its 64-row tile is masked), each output row has
+    exactly one writer, each chunk lies in one block, and every visible (q,
+    kv) pair is computed by exactly one CTA, no invisible one by any."""
+    tab, s, valid, pairs = _walk_case(block)
+    kw = dict(block_q=block, block_kv=block, kv_valid_len=valid)
+    parts = -(-block // 64)
+    qi, qc = transpose_tables(tab.kv_index, tab.kv_count, s // block)
+
+    def one_block(first, n):
+        return 0 < n and first // block == (first + n - 1) // block
+
+    for walk, width in ((f32_tc_dq_walk(tab.kv_index, tab.kv_count, sq=s, **kw), 3),
+                        (f32_tc_dkv_walk(qi, qc, skv=s, **kw), 4)):
+        assert len(walk) == s // block * parts
+        writers, seen = torch.zeros(s, dtype=torch.int64), torch.zeros(s, s, dtype=torch.int64)
+        for cta in walk:
+            row0, rows, chunks = cta[0], cta[1], cta[-1]
+            assert len(cta) == width and (row0 % block) % 64 == 0 and rows <= 64
+            assert one_block(row0, rows)  # rows past the block are never stored
+            writers[row0:row0 + rows] += 1
+            if width == 3:  # dq: q rows x the chunk's keys not masked
+                for key0, nvalid in chunks:
+                    assert nvalid <= 32 and one_block(key0, nvalid)
+                    seen[row0:row0 + rows, key0:key0 + nvalid] += 1
+            elif chunks is None:  # dk/dv: zeros written, no pair of its rows is visible
+                assert not pairs[:, row0:row0 + rows].any()
+            else:  # dk/dv: the chunk's q rows x the kv rows the tail leaves visible
+                visible = cta[2]
+                assert 0 < visible <= rows and not pairs[:, row0 + visible:row0 + rows].any()
+                for m, nq in chunks:
+                    assert nq <= 32 and one_block(m, nq)
+                    seen[m:m + nq, row0:row0 + visible] += 1
+        assert writers.eq(1).all()
+        assert torch.equal(seen, pairs.long())
+    assert not f32_tc_dq_walk(tab.kv_index, tab.kv_count, sq=s, **kw)[0][2]  # count 0: zeros
+
+
+def _emulate(q, k, v, dout, lse, delta, tab, *, block, valid, scale, mm):
+    """dq, dk, dv as the tensor-core kernels compute them: their walks, their
+    64-row tiles (rows past the block read from the next block, past the
+    tensor TMA's zeros), masks by select, each chunk's products ``mm`` in a
+    fresh f32 accumulator joined in f32; K^T's cut keys 0."""
+    h, s, d = q.shape[1], q.shape[2], q.shape[3]
+    pad = lambda x: torch.cat([x, torch.zeros(1, h, 64, x.shape[-1])], 2)  # noqa: E731
+    keys = torch.arange(s)
+    cut = (keys // block == valid // block) & (keys % block >= valid % block)
+    qp, kp, vp, op, ktp = (pad(x) for x in (q, k, v, dout, torch.where(cut[:, None], 0.0, k)))
+    lp, dp = pad(lse), pad(delta)
+    mul, t = scale * LOG2E, lambda x: x.transpose(-1, -2)  # noqa: E731
+    dq, dk, dv = (torch.zeros(1, h, s, d) for _ in range(3))
+    kw = dict(block_q=block, block_kv=block, kv_valid_len=valid)
+    for row0, rows, chunks in f32_tc_dq_walk(tab.kv_index, tab.kv_count, sq=s, **kw):
+        ok = (torch.arange(64) < rows)[:, None]
+        ls = torch.where(ok, lp[:, :, row0:row0 + 64], 1e30)
+        dl = torch.where(ok, dp[:, :, row0:row0 + 64], 0.0)
+        qt, ot, acc = qp[:, :, row0:row0 + 64], op[:, :, row0:row0 + 64], torch.zeros(1, h, 64, d)
+        for key0, nvalid in chunks:
+            c = slice(key0, key0 + 32)
+            col = torch.arange(32) < nvalid
+            p = torch.where(col, torch.exp2(mm(qt, t(kp[:, :, c])).float() * mul - ls), 0.0)
+            ds = torch.where(col, p * (mm(ot, t(vp[:, :, c])).float() - dl), 0.0)
+            acc += mm(ds, ktp[:, :, c]).float()
+        dq[:, :, row0:row0 + rows] = (acc * scale)[:, :, :rows]
+    qi, qc = transpose_tables(tab.kv_index, tab.kv_count, s // block)
+    for row0, rows, visible, chunks in f32_tc_dkv_walk(qi, qc, skv=s, **kw):
+        r = slice(row0, row0 + 64)
+        acc_k, acc_v = torch.zeros(1, h, 64, d), torch.zeros(1, h, 64, d)
+        for m, nq in chunks or ():
+            c = slice(m, m + 32)
+            col = torch.arange(32) < nq
+            ok = (torch.arange(64) < visible)[:, None] & col
+            ls = torch.where(col, t(lp[:, :, c]), 0.0)
+            dl = torch.where(col, t(dp[:, :, c]), 0.0)
+            pt = torch.where(ok, torch.exp2(mm(kp[:, :, r], t(qp[:, :, c])).float() * mul - ls), 0.0)
+            dst = torch.where(ok, pt * (mm(vp[:, :, r], t(op[:, :, c])).float() - dl), 0.0)
+            acc_v += mm(pt, op[:, :, c]).float()
+            acc_k += mm(dst, qp[:, :, c]).float()
+        dk[:, :, row0:row0 + rows] = (acc_k * scale)[:, :, :rows]
+        dv[:, :, row0:row0 + rows] = acc_v[:, :, :rows]
+    return dq, dk, dv
+
+
+def test_3xtf32_through_the_walk_at_blocks_of_96_holds_the_gate():
+    """The kernels' arithmetic through their walk at the STA 96-token blocks
+    (1, 2, 384, 128), a kv tail inside a chunk, q block 0 with count 0:
+    3xTF32 reads within 1e-5 of flash_backward_ref (worst |diff| /
+    max(|plain|, RMS) over dq, dk, dv), single TF32 products 2e-4 or more;
+    zero dq for the count-0 block and zero dk, dv past the tail, exactly."""
+    tab, s, valid, _ = _walk_case(96)
+    rng = np.random.default_rng(96)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal((1, 2, s, 128))).float()
+                     for _ in range(4))
+    kw = dict(scale=128**-0.5, block_q=96, block_kv=96)
+    out, lse = sparse_flash_attention_ref(q, k, v, tab.kv_index, tab.kv_count,
+                                          kv_valid_len=valid, return_lse=True, **kw)
+    delta = (dout * out).sum(-1, keepdim=True)
+    want = flash_backward_ref(q, k, v, out, lse, dout, tab.kv_index, tab.kv_count,
+                              kv_valid_len=valid, **kw)
+
+    def worst(mm):
+        got = _emulate(q, k, v, dout, lse, delta, tab, block=96, valid=valid,
+                       scale=kw["scale"], mm=mm)
+        assert not got[0][:, :, :96].any() and not got[1][:, :, valid:].any() \
+            and not got[2][:, :, valid:].any()
+        return max(((g - w).abs() / torch.maximum(w.abs(), w.pow(2).mean().sqrt())).max().item()
+                   for g, w in zip(got, want))
+
+    assert worst(_three) <= 1e-5
+    assert worst(_one) >= 2e-4
+
+
 def test_bench_tool_runs_on_the_cpu():
     """tools/bench_f32_bwd at a tiny grid on the CPU (the plain versions):
-    the three calls, each gradient against the plain version, dq and dk/dv
-    alone timed; on the card it times the kernels."""
+    FULL, LOWRES, cross, two STA calls (blocks of 96 and 24 on a (4, 6, 8)
+    grid) and a dense call, each gradient against the plain version, dq and
+    dk/dv alone timed; on the card it times the kernels."""
     from vorta_tpu_torch.tools import bench_f32_bwd
 
     out = bench_f32_bwd.main(["--device", "cpu", "--grid", "2", "6", "8", "--heads", "2",
-                              "--iters", "1", "--ffma"])
+                              "--iters", "1", "--ffma", "--sta", "4", "6", "8", "4", "6", "4",
+                              "--sta", "4", "6", "8", "2", "3", "4",
+                              "--dense", "64", "128", "16", "64"])
     assert out["device"] == "cpu" and "card" not in out
-    for name in ("full", "lowres", "cross"):
+    for name in ("full", "lowres", "cross", "sta96_4x6x8", "sta24_4x6x8",
+                 "dense_64x128_blocks16x64"):
         assert out[name]["worst_ratio"] == 0.0  # the CPU runs the plain version itself
         assert all(out[name][k] > 0 for k in ("dq_ms", "dkv_ms", "ffma_dq_ms", "ffma_dkv_ms"))

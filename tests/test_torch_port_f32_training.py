@@ -159,11 +159,12 @@ def test_f32_backward_calls_the_f32_entries(meta_card, d, block):
     (no Hopper flag: 9 + 9 and 10 + 9 arguments, the scale, the tensor-core
     kernels' scratch, the stream) at any shape, the Hopper rule's too; f32
     dq, dk, dv; counted as flash_dq / flash_dkv and their _f32 subsets, never
-    _wgmma.  At D 128 with blocks that 128 divides the split pre-pass runs
-    first and both entries get its scratch (counted as _f32_tc too); else
-    the scratch is None (the FFMA kernels)."""
+    _wgmma.  At D 128 (blocks multiples of 8: the backward's tensor-core
+    rule) the split pre-pass runs first and both entries get its scratch
+    (counted as _f32_tc too); at D 64 the scratch is None (the FFMA
+    kernels)."""
     s = 3 * block
-    tc = d == 128 and block % 128 == 0
+    tc = d == 128
     dq, dk, dv = _bwd(torch.float32, d, block)
     assert [(c[0], c[1]) for c in meta_card] == (
         [("flash_bwd", "vorta_flash_bwd_f32_tc_split")] * tc

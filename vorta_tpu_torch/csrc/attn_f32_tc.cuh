@@ -274,7 +274,8 @@ __global__ void __launch_bounds__(256) f32_tc_split_rows_kernel(const float4* __
 // Rows of block last_block at or past valid_in_block (the tail rule's cut
 // keys; last_block -1: none) are stored as 0.  The forward's V^T; the
 // backward's K^T (keys cut as V^T's), Q^T and dO^T (nothing cut).  A CTA
-// transposes 64 rows of one (b, h) through shared memory.
+// transposes 64 rows of one (b, h) through shared memory; S is a multiple of
+// 8, the last CTA's rows past S are neither read nor written.
 __global__ void __launch_bounds__(256) f32_tc_split_t_kernel(const float* __restrict__ x,
                                                              uint32_t* __restrict__ out, int BH,
                                                              int S, int block, int last_block,
@@ -285,7 +286,7 @@ __global__ void __launch_bounds__(256) f32_tc_split_t_kernel(const float* __rest
   for (int e = tid; e < BK * D / 4; e += 256) {
     const int j = e / (D / 4), c = (e % (D / 4)) * 4;
     const int key = key0 + j;
-    const bool cut = key / block == last_block && key % block >= valid_in_block;
+    const bool cut = key >= S || (key / block == last_block && key % block >= valid_in_block);
     const float4 x = cut ? make_float4(0.f, 0.f, 0.f, 0.f)
                          : __ldg(reinterpret_cast<const float4*>(rows + j * D + c));
     tile[j][c] = x.x;
@@ -297,6 +298,7 @@ __global__ void __launch_bounds__(256) f32_tc_split_t_kernel(const float* __rest
   const long long half = static_cast<long long>(BH) * D * S;
   for (int e = tid; e < D * BK; e += 256) {
     const int d = e / BK, col = e % BK, c = col % 8;
+    if (key0 + col >= S) continue;
     const int j = 8 * (col / 8) + (c < 4 ? 2 * c : 2 * (c - 4) + 1);
     uint32_t b, sm;
     split(tile[j][d], b, sm);

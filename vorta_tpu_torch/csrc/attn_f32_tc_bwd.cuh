@@ -1,11 +1,14 @@
 // The f32 flash backward on the tensor cores (sm_90a): dq and dk/dv with
 // every product split into three TF32 products (3xTF32) on wgmma, in place
 // of csrc/attn_f32_bwd.cuh's FFMA kernels at head dim 128 with q and kv
-// blocks that are multiples of 128 (ops/flash_bwd.py:bwd_f32_tc_path, the
-// forward's ops/flash.py:f32_tc_path, so that a call's f32 forward and
-// backward take one design).  Included by csrc/flash_bwd.cu, whose C entries
-// vorta_flash_bwd_f32_tc_split, vorta_flash_bwd_dq_f32 and
-// vorta_flash_bwd_dkv_f32 (the last two given the scratch) launch it.
+// blocks that are multiples of 8 (ops/flash_bwd.py:bwd_f32_tc_path, the
+// backward's own rule: FULL, LOWRES and cross at blocks of 128 and more, the
+// STA training tiles at 96, 360 and 24 tokens).  The forward at the STA
+// tiles stays on the FFMA core (ops/flash.py:f32_tc_path); both designs
+// read and write one lse, m + log2(l) with the sentinel 1e30.  Included by
+// csrc/flash_bwd.cu, whose C entries vorta_flash_bwd_f32_tc_split,
+// vorta_flash_bwd_dq_f32 and vorta_flash_bwd_dkv_f32 (the last two given
+// the scratch) launch it.
 //
 // Replaces the f32 modes of vorta_tpu/ops/flash_bwd.py:_dq_kernel and
 // :_dkv_kernel, with csrc/attn_f32_bwd.cuh's semantics (its header): s2 =
@@ -58,19 +61,34 @@
 // Registers: dq holds dQ (64 a thread) and the chunk's n128 accumulator
 // (64); dk/dv holds dK and dV (64 each) and takes each chunk's dV and dK
 // product in two n64 halves through one 32-register accumulator (an n128
-// one with P^T's halves and dS^T live would pass 255): 198 and 236
-// registers, no spills.  Timed against this design on an H100 and not kept
-// (PERF.md, section 6): two CTAs of a cluster sharing the walked operands by
+// one with P^T's halves and dS^T live would pass 255): 198 / 200 registers
+// (dq without / with the ragged tile) and 239-243 (dk/dv's four), no
+// spills.  Timed against this design on an H100 and not kept (PERF.md,
+// section 6): two CTAs of a cluster sharing the walked operands by
 // TMA multicast (2.2x slower: L2 does not bound this kernel; the score
 // products at n32 read 3 KB of shared memory for 16 cycles of products,
 // and the consumer's serial steps do), and a chunk's score products issued
 // behind the previous chunk's last product (dk/dv spills; dq, written
 // either way, made ptxas serialize every wgmma).
 //
+// Blocks that 64 does not divide (the STA tiles: 96 = 64 + 32, 360 = 5 x 64
+// + 40, 24).  The resident side takes ceil(block / 64) CTAs a block; the
+// last one's 64-row tile runs past its block into the next block's rows
+// (or past the tensor, where TMA fills zeros).  Those rows are computed
+// and never stored: each output row has the one CTA of its own block as
+// its writer.  In dk/dv they are masked by select like the tail rule's cut
+// rows (p = 0, ds = 0); in dq, where rows do not mix, their lse reads as the
+// sentinel and their delta as 0, so nothing is read past the tensor.  The
+// walked side takes a block in 32-row chunks, the last one partial (360 =
+// 11 x 32 + 8, 24 < 32): its columns past the block are masked by select
+// (dq: keys past nvalid, as the tail rule's; dk/dv: q rows past the block,
+// whose lse and delta are not read) and its rows past the block come from
+// the next block or TMA's zero fill, met only by those zero columns.  The
+// transposed halves' groups of 8 never straddle a block (blocks are
+// multiples of 8).  A partial chunk costs a full chunk's products.
+//
 // What stays on csrc/attn_f32_bwd.cuh's FFMA kernels (the wrapper's rule):
-// head dim 64 (the tiny models) and q or kv blocks that 128 does not divide
-// (the f32 STA training tiles of 96, 360 and 24 tokens, the tiny models' 8
-// and 16).
+// head dim 64 (the tiny models).
 #pragma once
 
 #include "attn_f32_bwd.cuh"
@@ -277,18 +295,21 @@ struct Ring {
   }
 };
 
-// Zeros over 64 rows of a (.., 128) f32 tensor from o, by every thread.
-__device__ __forceinline__ void zero_rows(float* o, int tid) {
+// Zeros over `rows` rows of a (.., 128) f32 tensor from o, by every thread.
+__device__ __forceinline__ void zero_rows(float* o, int rows, int tid) {
   float4* o4 = reinterpret_cast<float4*>(o);
-  for (int e = tid; e < BQ * D / 4; e += THREADS) o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e = tid; e < rows * D / 4; e += THREADS) o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// A 64 x 128 sum times mul into the warpgroup's rows (row0 + 16 w + g + 8 hr).
-__device__ __forceinline__ void store_sum(float* __restrict__ out, long long row0,
+// A 64 x 128 sum times mul into the warpgroup's rows (row0 + 16 w + g + 8 hr),
+// with `partial` those that lie below `rows`, the CTA's rows of its block.
+template <bool partial>
+__device__ __forceinline__ void store_sum(float* __restrict__ out, long long row0, int rows,
                                           const float (&sum)[64], float mul, int w, int g,
                                           int t) {
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
+    if (partial && 16 * w + g + 8 * hr >= rows) continue;
     float* orow = out + (row0 + 16 * w + g + 8 * hr) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -297,25 +318,31 @@ __device__ __forceinline__ void store_sum(float* __restrict__ out, long long row
   }
 }
 
-// dq.  Grid (Sq / 64, H, B): CTA x is 64 q rows of table q block x / (block_q
-// / 64).  tq, tdo: the Q / dO halves (2 B H Sq rows of 128, boxes of 64
-// rows); tk, tv: K / V halves (boxes of 32 rows); tkt: K^T's halves (2 B H
-// 128 rows of Skv, boxes of 32 keys x 128 rows).  p: the tables (kv_index /
-// kv_count), lse, delta, dq, the shapes and the tail rule.
+// dq.  Grid (Sq / block_q * parts, H, B), parts = ceil(block_q / 64): CTA x
+// is rows 64 (x % parts) .. of table q block x / parts.  tq, tdo: the Q / dO
+// halves (2 B H Sq rows of 128, boxes of 64 rows); tk, tv: K / V halves
+// (boxes of 32 rows); tkt: K^T's halves (2 B H 128 rows of Skv, boxes of 32
+// keys x 128 rows).  p: the tables (kv_index / kv_count), lse, delta, dq,
+// the shapes and the tail rule.  PartialTile: block_q % 64 != 0 (96, 360, 24),
+// the last CTA of a block owning fewer than 64 rows; without it the row
+// guards are compiled out (always on, they slowed FULL by 2% on an H100:
+// PERF.md, section 6).
+template <bool PartialTile>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dq_f32_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap tkt,
                        const __grid_constant__ f32::BwdParams p) {
   using namespace sm90;
-  const int parts = p.block_q / BQ;
-  const int qi = blockIdx.x / parts;
+  const int parts = (p.block_q + BQ - 1) / BQ;
+  const int qi = blockIdx.x / parts, local0 = (blockIdx.x % parts) * BQ;
+  const int rows = PartialTile ? min(BQ, p.block_q - local0) : BQ;  // its rows of the q block
   const long long bh = static_cast<long long>(blockIdx.z) * p.H + blockIdx.y;
-  const long long row0 = bh * p.Sq + static_cast<long long>(blockIdx.x) * BQ;
+  const long long row0 = bh * p.Sq + static_cast<long long>(qi) * p.block_q + local0;
   const int count = p.count[qi];
   const int tid = threadIdx.x;
   if (count == 0) {  // a q block that sees nothing: zero dq, no barrier touched
-    zero_rows(p.dq + row0 * D, tid);
+    zero_rows(p.dq + row0 * D, rows, tid);
     return;
   }
   ChunkWalk<BC> walk{p.index + static_cast<long long>(qi) * p.width, count, p.block_kv,
@@ -345,8 +372,11 @@ flash_dq_f32_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
   // ---- consumer: 64 q rows, dQ in registers -------------------------------------------
   const int w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const long long r0 = row0 + 16 * w + g;  // this thread's rows r0, r0 + 8
-  const float lse[2] = {p.lse[r0], p.lse[r0 + 8]};
-  const float dl[2] = {p.delta[r0], p.delta[r0 + 8]};
+  // rows past the block: never stored; the sentinel lse gives them p = 0
+  const bool row_ok[2] = {!PartialTile || 16 * w + g < rows,
+                          !PartialTile || 16 * w + g + 8 < rows};
+  const float lse[2] = {row_ok[0] ? p.lse[r0] : 1e30f, row_ok[1] ? p.lse[r0 + 8] : 1e30f};
+  const float dl[2] = {row_ok[0] ? p.delta[r0] : 0.f, row_ok[1] ? p.delta[r0 + 8] : 0.f};
   float dq[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) dq[i] = 0.f;
@@ -383,14 +413,20 @@ flash_dq_f32_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_cons
 #pragma unroll
     for (int i = 0; i < 64; ++i) dq[i] += acc[i];
   }
-  store_sum(p.dq, row0, dq, p.scale, w, g, t);
+  store_sum<PartialTile>(p.dq, row0, rows, dq, p.scale, w, g, t);
 }
 
-// dk and dv.  Grid (Skv / 64, H, B): CTA x is 64 kv rows of table kv block x
-// / (block_kv / 64).  tk, tv: K / V halves (boxes of 64 rows); tq, tdo: Q /
-// dO halves (boxes of 32 rows); tqt, tdot: Q^T / dO^T halves (2 B H 128 rows
-// of Sq, boxes of 32 q rows x 128 rows).  p: the transposed tables (q_index /
-// q_count), lse, delta, dk, dv, the shapes and the tail rule.
+// dk and dv.  Grid (Skv / block_kv * parts, H, B), parts = ceil(block_kv /
+// 64): CTA x is rows 64 (x % parts) .. of table kv block x / parts.  tk, tv:
+// K / V halves (boxes of 64 rows); tq, tdo: Q / dO halves (boxes of 32
+// rows); tqt, tdot: Q^T / dO^T halves (2 B H 128 rows of Sq, boxes of 32 q
+// rows x 128 rows).  p: the transposed tables (q_index / q_count), lse,
+// delta, dk, dv, the shapes and the tail rule.  PartialTile: block_kv % 64 !=
+// 0, as in dq.  PartialChunk: block_q % 32 != 0 (360, 24), a q block's last
+// chunk masked past the block; without it (FULL, LOWRES, cross, 96) the walk
+// has no column mask: the masks and guarded loads, always on, slowed the
+// loop at FULL on an H100 (PERF.md, section 6).
+template <bool PartialTile, bool PartialChunk>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_f32_tc_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                         const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
@@ -398,20 +434,22 @@ flash_dkv_f32_tc_kernel(const __grid_constant__ CUtensorMap tk, const __grid_con
                         const __grid_constant__ CUtensorMap tdot,
                         const __grid_constant__ f32::BwdParams p) {
   using namespace sm90;
-  const int parts = p.block_kv / BQ;
+  const int parts = (p.block_kv + BQ - 1) / BQ;
   const int kvb = blockIdx.x / parts, local0 = (blockIdx.x % parts) * BQ;
+  const int rows = PartialTile ? min(BQ, p.block_kv - local0) : BQ;  // its rows of the kv block
   const long long bh = static_cast<long long>(blockIdx.z) * p.H + blockIdx.y;
-  const long long row0 = bh * p.Skv + static_cast<long long>(blockIdx.x) * BQ;
+  const long long row0 = bh * p.Skv + static_cast<long long>(kvb) * p.block_kv + local0;
   const int limit = kvb == p.last_block ? p.valid_in_block : p.block_kv;
   const int count = p.count[kvb];
   const int tid = threadIdx.x;
   if (count == 0 || local0 >= limit) {  // no q block visits, or all rows past the tail
-    zero_rows(p.dk + row0 * D, tid);
-    zero_rows(p.dv + row0 * D, tid);
+    zero_rows(p.dk + row0 * D, rows, tid);
+    zero_rows(p.dv + row0 * D, rows, tid);
     return;
   }
   const int* idx = p.index + static_cast<long long>(kvb) * p.width;
-  const int chunks = count * (p.block_q / BC);
+  const int per_block = (p.block_q + BC - 1) / BC;  // chunks of a q block, the last partial
+  const int chunks = count * per_block;
   extern __shared__ uint8_t smem_raw[];
   const Ring ring{(smem_u32(smem_raw) + 1023) & ~1023u};
   const uint32_t base = ring.base;
@@ -425,7 +463,7 @@ flash_dkv_f32_tc_kernel(const __grid_constant__ CUtensorMap tk, const __grid_con
     const int trows = gridDim.z * p.H * D, trow = static_cast<int>(bh) * D;
     ring.load_resident(&tk, &tv, static_cast<int>(row0), krows);
     for (int c = 0; c < chunks; ++c) {
-      const int m = idx[c / (p.block_q / BC)] * p.block_q + (c % (p.block_q / BC)) * BC;
+      const int m = idx[c / per_block] * p.block_q + (c % per_block) * BC;
       const int qrow = static_cast<int>(bh * p.Sq) + m;
       ring.load(4 * c, &tq, false, 0, qrow, qrows);
       ring.load(4 * c + 1, &tdo, false, 0, qrow, qrows);
@@ -437,21 +475,26 @@ flash_dkv_f32_tc_kernel(const __grid_constant__ CUtensorMap tk, const __grid_con
 
   // ---- consumer: 64 kv rows, dK and dV in registers ---------------------------------
   const int w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  // kv rows the tail rule leaves visible (the rest get p = 0: zero dk, dv)
+  // kv rows the tail rule leaves visible (the rest get p = 0: zero dk, dv; rows
+  // past the block too, never stored)
   const bool row_ok[2] = {local0 + 16 * w + g < limit, local0 + 16 * w + g + 8 < limit};
   float dk[64], dv[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(base + BWD_BAR, 0);
   for (int c = 0; c < chunks; ++c) {
-    const int n = 4 * c;
-    const long long qrow = bh * p.Sq + idx[c / (p.block_q / BC)] * static_cast<long long>(p.block_q) +
-                           (c % (p.block_q / BC)) * BC;
+    const int n = 4 * c, m0 = (c % per_block) * BC;
+    const long long qrow = bh * p.Sq + idx[c / per_block] * static_cast<long long>(p.block_q) + m0;
+    // the chunk's q rows of its block, a multiple of 8
+    const int nq = PartialChunk ? min(BC, p.block_q - m0) : BC;
     float2 ls[4], dl[4];  // lse and delta of this thread's columns 8j + 2t, + 1
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      ls[j] = __ldg(reinterpret_cast<const float2*>(p.lse + qrow + 8 * j + 2 * t));
-      dl[j] = __ldg(reinterpret_cast<const float2*>(p.delta + qrow + 8 * j + 2 * t));
+      const bool in = 8 * j < nq;  // columns past the block: masked below, never read
+      ls[j] = in ? __ldg(reinterpret_cast<const float2*>(p.lse + qrow + 8 * j + 2 * t))
+                 : make_float2(0.f, 0.f);
+      dl[j] = in ? __ldg(reinterpret_cast<const float2*>(p.delta + qrow + 8 * j + 2 * t))
+                 : make_float2(0.f, 0.f);
     }
     // S^T = K Q^T, then dP^T = V dO^T
     float st[16], dpt[16];
@@ -465,7 +508,7 @@ flash_dkv_f32_tc_kernel(const __grid_constant__ CUtensorMap tk, const __grid_con
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const float l = (i & 1) ? ls[i / 4].y : ls[i / 4].x;
-      st[i] = row_ok[(i >> 1) & 1] ? exp2f(st[i] * p.scale_log2 - l) : 0.f;
+      st[i] = row_ok[(i >> 1) & 1] && 8 * (i / 4) < nq ? exp2f(st[i] * p.scale_log2 - l) : 0.f;
     }
     wgmma_wait<0>();
     fence_regs(dpt);
@@ -473,7 +516,7 @@ flash_dkv_f32_tc_kernel(const __grid_constant__ CUtensorMap tk, const __grid_con
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const float d = (i & 1) ? dl[i / 4].y : dl[i / 4].x;
-      dpt[i] = row_ok[(i >> 1) & 1] ? st[i] * (dpt[i] - d) : 0.f;  // ds^T
+      dpt[i] = row_ok[(i >> 1) & 1] && 8 * (i / 4) < nq ? st[i] * (dpt[i] - d) : 0.f;  // ds^T
     }
     // dV += P^T dO, then dK += dS^T Q: fresh accumulators, joined on the CUDA cores
     uint32_t ab[16], as[16];
@@ -486,8 +529,8 @@ flash_dkv_f32_tc_kernel(const __grid_constant__ CUtensorMap tk, const __grid_con
     product_n64x2(dk, ab, as, qt, qt + CT);
     ring.release(n + 3, lane);
   }
-  store_sum(p.dk, row0, dk, p.scale, w, g, t);
-  store_sum(p.dv, row0, dv, 1.f, w, g, t);
+  store_sum<PartialTile>(p.dk, row0, rows, dk, p.scale, w, g, t);
+  store_sum<PartialTile>(p.dv, row0, rows, dv, 1.f, w, g, t);
 }
 
 // ---- host side ---------------------------------------------------------------------
@@ -507,9 +550,15 @@ inline BwdWork bwd_work(void* work, int B, int H, int Sq, int Skv) {
           w + 8 * nq + 4 * nk};
 }
 
+// The backward's shape rule (ops/flash_bwd.py:bwd_f32_tc_path): head dim 128,
+// q and kv blocks multiples of 8.
+inline bool bwd_path_holds(int D_, int block_q, int block_kv) {
+  return D_ == D && block_q % 8 == 0 && block_kv % 8 == 0;
+}
+
 // The pre-pass: the halves of Q, dO, K and V rows (both kernels read them)
 // and of K^T (dq) and Q^T, dO^T (dk/dv) into the scratch.  All tensors
-// contiguous (B, H, S, 128) f32, 16-byte aligned; S multiples of 64.
+// contiguous (B, H, S, 128) f32, 16-byte aligned; S multiples of 8.
 inline cudaError_t split_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const BwdWork& w, int B, int H, int Sq, int Skv, int block_q,
                              int block_kv, int last_block, int valid_in_block, bool need_dq,
@@ -521,7 +570,7 @@ inline cudaError_t split_bwd(const void* q, const void* k, const void* v, const 
         static_cast<const float4*>(x), reinterpret_cast<uint4*>(out), n / 4);
   };
   auto cols = [&](const void* x, float* out, int S, int block, int last, int valid) {
-    f32_tc_split_t_kernel<<<dim3(S / BK, B * H), 256, 0, st>>>(
+    f32_tc_split_t_kernel<<<dim3((S + BK - 1) / BK, B * H), 256, 0, st>>>(
         static_cast<const float*>(x), reinterpret_cast<uint32_t*>(out), B * H, S, block, last,
         valid);
   };
@@ -546,12 +595,13 @@ inline cudaError_t launch_dq(const BwdWork& w, int B, const f32::BwdParams& p,
       !make_map(&tk, w.k, 2 * bh * p.Skv, D, BC) || !make_map(&tv, w.v, 2 * bh * p.Skv, D, BC) ||
       !make_map(&tkt, w.kt, 2 * bh * D, p.Skv, D))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_f32_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         BWD_SMEM_BYTES);
+  auto kern = p.block_q % BQ ? flash_dq_f32_tc_kernel<true> : flash_dq_f32_tc_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  flash_dq_f32_tc_kernel<<<dim3(p.Sq / BQ, p.H, B), THREADS, BWD_SMEM_BYTES, st>>>(tq, tdo, tk,
-                                                                                  tv, tkt, p);
+  const int parts = (p.block_q + BQ - 1) / BQ;
+  kern<<<dim3(p.Sq / p.block_q * parts, p.H, B), THREADS, BWD_SMEM_BYTES, st>>>(tq, tdo, tk, tv,
+                                                                                 tkt, p);
   return cudaGetLastError();
 }
 
@@ -564,11 +614,16 @@ inline cudaError_t launch_dkv(const BwdWork& w, int B, const f32::BwdParams& p,
       !make_map(&tq, w.q, 2 * bh * p.Sq, D, BC) || !make_map(&tdo, w.dout, 2 * bh * p.Sq, D, BC) ||
       !make_map(&tqt, w.qt, 2 * bh * D, p.Sq, D) || !make_map(&tdot, w.dot, 2 * bh * D, p.Sq, D))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_f32_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         BWD_SMEM_BYTES);
+  const bool tile = p.block_kv % BQ, chunk = p.block_q % BC;
+  auto kern = tile ? (chunk ? flash_dkv_f32_tc_kernel<true, true>
+                            : flash_dkv_f32_tc_kernel<true, false>)
+                   : (chunk ? flash_dkv_f32_tc_kernel<false, true>
+                            : flash_dkv_f32_tc_kernel<false, false>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  flash_dkv_f32_tc_kernel<<<dim3(p.Skv / BQ, p.H, B), THREADS, BWD_SMEM_BYTES, st>>>(
+  const int parts = (p.block_kv + BQ - 1) / BQ;
+  kern<<<dim3(p.Skv / p.block_kv * parts, p.H, B), THREADS, BWD_SMEM_BYTES, st>>>(
       tk, tv, tq, tdo, tqt, tdot, p);
   return cudaGetLastError();
 }

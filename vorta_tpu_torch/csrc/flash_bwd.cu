@@ -79,9 +79,9 @@
 // vorta_flash_bwd_dkv_f32: csrc/attn_f32_tc_bwd.cuh's tensor-core dq and
 // dk/dv (3xTF32 on wgmma, after the split pre-pass
 // vorta_flash_bwd_f32_tc_split) where the wrapper's rule
-// (ops/flash_bwd.py:bwd_f32_tc_path: D = 128, blocks multiples of 128) holds
+// (ops/flash_bwd.py:bwd_f32_tc_path: D = 128, blocks multiples of 8) holds
 // and it passes the scratch, else csrc/attn_f32_bwd.cuh's FFMA dq and dk/dv
-// at any shape the bf16 entries take.
+// at any shape the bf16 entries take (the wrapper's choice at D = 64).
 #include "attn_f32_bwd.cuh"
 #include "attn_f32_tc_bwd.cuh"
 #include "attn_sm90.cuh"
@@ -921,7 +921,7 @@ bool f32_params(vorta::f32::BwdParams& p, const void* q, const void* k, const vo
                 int block_kv, int kv_valid_len, float scale, const void* work) {
   if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128))
     return false;
-  if (work != nullptr && !vorta::f32tc::path_holds(D, block_q, block_kv)) return false;
+  if (work != nullptr && !vorta::f32tc::bwd_path_holds(D, block_q, block_kv)) return false;
   p = vorta::f32::BwdParams{
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
@@ -946,7 +946,7 @@ extern "C" int vorta_flash_bwd_f32_tc_split(const void* q, const void* k, const 
                                             int kv_valid_len, int need_dq, int need_dkv,
                                             void* stream) {
   using namespace vorta::f32tc;
-  if (work == nullptr || Sq % block_q || Skv % block_kv || !path_holds(D, block_q, block_kv))
+  if (work == nullptr || Sq % block_q || Skv % block_kv || !bwd_path_holds(D, block_q, block_kv))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(split_bwd(
       q, k, v, dout, bwd_work(work, B, H, Sq, Skv), B, H, Sq, Skv, block_q, block_kv,
@@ -958,7 +958,7 @@ extern "C" int vorta_flash_bwd_f32_tc_split(const void* q, const void* k, const 
 // (B, H, S, D) f32 on 16-byte boundaries; lse, delta, the tables and the
 // shapes as there.  work: null (the FFMA kernel, any shape), or where the
 // wrapper's rule chose the tensor-core kernel (D = 128, blocks multiples of
-// 128; anything else there is an error, never a fallback) the scratch that
+// 8; anything else there is an error, never a fallback) the scratch that
 // vorta_flash_bwd_f32_tc_split has filled.  Returns the CUDA error code.
 extern "C" int vorta_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,

@@ -23,15 +23,15 @@ CPU tensors it runs ``flash_backward_ref``, which repeats their arithmetic.
 f32 inputs (the f32 training path, ``cli.train --dtype fp32``) take the f32
 mode, its own branch with ds and p kept in f32 as the plain version keeps
 them there, counted as ``flash_dq_f32`` / ``flash_dkv_f32`` too: where
-``bwd_f32_tc_path`` holds (the forward's ``f32_tc_path``: head dim 128,
-blocks that 128 divides, the trainer's FULL, LOWRES and cross-attention) the
-tensor-core kernels of ``csrc/attn_f32_tc_bwd.cuh`` (3xTF32 on wgmma, after a
-split pre-pass into scratch the wrapper allocates, ``f32_tc_bwd_work``;
-counted as ``flash_dq_f32_tc`` / ``flash_dkv_f32_tc`` too), elsewhere (D 64,
-the 96-, 360- and 24-token STA tiles, the tiny models' 8 / 16) the FFMA
-kernels of ``csrc/attn_f32_bwd.cuh``; ``flash_backward_ffma`` runs the FFMA
-kernels at any shape, the card's yardstick.  The Hopper rule below is
-bf16's only.
+``bwd_f32_tc_path`` holds (head dim 128, blocks multiples of 8: every f32
+backward call of the 1.3B trainer, FULL, LOWRES, cross-attention and the
+96-, 360- and 24-token STA tiles) the tensor-core kernels of
+``csrc/attn_f32_tc_bwd.cuh`` (3xTF32 on wgmma, after a split pre-pass into
+scratch the wrapper allocates, ``f32_tc_bwd_work``; counted as
+``flash_dq_f32_tc`` / ``flash_dkv_f32_tc`` too), at D 64 (the tiny models)
+the FFMA kernels of ``csrc/attn_f32_bwd.cuh``; ``flash_backward_ffma`` runs
+the FFMA kernels at any shape, the card's yardstick.  The Hopper rule below
+is bf16's only.
 Which bf16 design runs on CUDA is a pure-Python shape rule, ``bwd_wgmma_path``
 (the forward's): head dim 128 with blocks that 128 divides (the trainer's
 FULL, LOWRES and cross-attention) take the Hopper kernels (wgmma, TMA,
@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .flash import WGMMA_TILE, f32_tc_path, wgmma_path
+from .flash import WGMMA_TILE, wgmma_path
 
 NEG_INF = float(-1e30)
 POS_BIG = float(1e30)  # the lse of a row that sees no key (ops/flash.py)
@@ -129,26 +129,40 @@ def bwd_wgmma_path(d: int, block_q: int, block_kv: int) -> bool:
     blocks that the dq kernel's 128-row CTAs tile and kv blocks that its
     128-key ring slots (and the dk/dv kernel's 128-row CTAs) tile.  The
     dk/dv kernel walks q tiles of 64 rows and would take blocks of 64 q
-    rows, but one rule for both kernels, the forward's (``ops/flash.py:
-    wgmma_path``), keeps a call's forward and backward on one design.  The
-    C entry refuses the Hopper path for anything else."""
+    rows; the rule is one for both kernels, and the same shapes as the bf16
+    forward's (``ops/flash.py:wgmma_path``).  The C entry refuses the Hopper
+    path for anything else."""
     return wgmma_path(d, block_q, block_kv)
 
 
 def bwd_f32_tc_path(d: int, block_q: int, block_kv: int) -> bool:
     """The shape rule of the f32 backward's tensor-core kernels
-    (``csrc/attn_f32_tc_bwd.cuh``): the f32 forward's (``ops/flash.py:
-    f32_tc_path``), so that a call's f32 forward and backward take one
-    design.  The C entries refuse the tensor-core kernels for anything
-    else; there the FFMA kernels of ``csrc/attn_f32_bwd.cuh`` run."""
-    return f32_tc_path(d, block_q, block_kv)
+    (``csrc/attn_f32_tc_bwd.cuh``), its own: head dim 128 with q and kv
+    blocks that are multiples of 8.  The kernels' 64-row CTAs and 32-row
+    chunks mask a block's ragged edge (``f32_tc_dq_walk``,
+    ``f32_tc_dkv_walk``): the STA training tiles of 96, 360 and 24 tokens
+    take them, as do FULL, LOWRES and cross-attention.  The forward's rule
+    (``ops/flash.py:f32_tc_path``) keeps blocks that 128 divides, so at the
+    STA tiles a call's forward runs the FFMA core and its backward the
+    tensor cores; both designs read and write one lse (``m + log2(l)``,
+    the sentinel 1e30).  Other multiples of 8 (kv blocks of 64, blocks of 8
+    or 16 at D 128, only in tests) take the tensor cores too, as timed on an
+    H100 (700 W) beside the FFMA kernels at the same dense calls
+    (``tools/bench_f32_bwd --ffma --dense``; 12 heads, dq + dk/dv): 8192 x
+    8192 at blocks 1024 x 64 21.6 ms against 46.7, 4096 x 4096 at blocks of
+    16 41.3 against 174.3, at blocks of 8 158.8 against 691.4 (the FFMA
+    kernels' small CTAs lose more than the tensor cores' padding).  D 64
+    (the tiny models) stays on the FFMA kernels of ``csrc/attn_f32_bwd.cuh``.
+    The C entries refuse the tensor-core kernels for anything else."""
+    return d == 128 and block_q % 8 == 0 and block_kv % 8 == 0
 
 
 def f32_tc_bwd_work(b: int, h: int, sq: int, skv: int, device) -> torch.Tensor:
     """The tensor-core backward's scratch for one call: the big and small
     TF32 halves of q, dout, q^T and dout^T (``sq`` rows each) and of k, v
     and k^T (``skv`` each), f32 at head dim 128, which its split pre-pass
-    writes once for both kernels and their TMA copies read."""
+    writes once for both kernels and their TMA copies read.  It takes
+    nothing from the forward but out and lse, whichever design ran it."""
     return torch.empty(2 * b * h * (4 * sq + 3 * skv) * 128, dtype=torch.float32, device=device)
 
 
@@ -203,6 +217,61 @@ def dkv_walk(q_index: np.ndarray, q_count: np.ndarray, *, skv: int, block_q: int
         tiles = [int(qb) * block_q + m0 for qb in q_index[0, kvb, :count]
                  for m0 in range(0, block_q, DKV_Q_TILE)]
         walks.append((min(WGMMA_TILE, limit - local0), tiles))
+    return walks
+
+
+F32_TC_ROWS, F32_TC_CHUNK = 64, 32  # a tensor-core CTA's resident rows, a walked chunk's
+
+
+def f32_tc_dq_walk(kv_index: np.ndarray, kv_count: np.ndarray, *, sq: int, block_q: int,
+                   block_kv: int, kv_valid_len: int) -> list:
+    """Python mirror of ``flash_dq_f32_tc_kernel``'s walk: per CTA, in grid
+    order, (its first q row, the rows of its q block that it owns and
+    stores, its chunks as (first key, keys not masked)).  A q block takes
+    ceil(block_q / 64) CTAs of a 64-row tile each; the last one's rows past
+    its block are computed and never stored.  Its chunks are 32 keys of its
+    q block's kv blocks up to the tail rule's limit (``ChunkWalk<32>``: a
+    chunk the rule masks completely is skipped; a block's last chunk, or a
+    cut one, masks its keys past the valid count).  No chunks: the CTA
+    writes zero dq."""
+    last, in_last = _tail(block_kv, kv_valid_len)
+    walks = []
+    for qi in range(sq // block_q):
+        chunks = []
+        for kvb in kv_index[0, qi, :kv_count[0, qi]]:
+            limit = in_last if kvb == last else block_kv
+            chunks += [(int(kvb) * block_kv + n0, min(F32_TC_CHUNK, limit - n0))
+                       for n0 in range(0, limit, F32_TC_CHUNK)]
+        walks += [(qi * block_q + local0, min(F32_TC_ROWS, block_q - local0), chunks)
+                  for local0 in range(0, block_q, F32_TC_ROWS)]
+    return walks
+
+
+def f32_tc_dkv_walk(q_index: np.ndarray, q_count: np.ndarray, *, skv: int, block_q: int,
+                    block_kv: int, kv_valid_len: int) -> list:
+    """Python mirror of ``flash_dkv_f32_tc_kernel``'s walk: per CTA, in grid
+    order, (its first kv row, the rows of its kv block that it owns and
+    stores, how many of them the tail rule leaves visible (the rest get p =
+    0: zero dk and dv), its chunks as (first q row, q rows of their block)).
+    A kv block takes ceil(block_kv / 64) CTAs; the last one's rows past its
+    block are masked and never stored.  Its chunks are 32 q rows of each q
+    block that visits its kv block, in the transposed tables' order, the
+    block's last chunk partial (its columns past the block masked).  Chunks
+    None: the CTA writes zero dk and dv before touching a barrier (no q
+    block visits, or every row lies past the tail)."""
+    last, in_last = _tail(block_kv, kv_valid_len)
+    walks = []
+    for kvb in range(skv // block_kv):
+        limit = in_last if kvb == last else block_kv
+        count = int(q_count[0, kvb])
+        for local0 in range(0, block_kv, F32_TC_ROWS):
+            rows = min(F32_TC_ROWS, block_kv - local0)
+            if count == 0 or local0 >= limit:
+                walks.append((kvb * block_kv + local0, rows, 0, None))
+                continue
+            chunks = [(int(qb) * block_q + m0, min(F32_TC_CHUNK, block_q - m0))
+                      for qb in q_index[0, kvb, :count] for m0 in range(0, block_q, F32_TC_CHUNK)]
+            walks.append((kvb * block_kv + local0, rows, min(rows, limit - local0), chunks))
     return walks
 
 
