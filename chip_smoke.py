@@ -6425,18 +6425,19 @@ def f32_launches(want: dict, full_width: bool) -> dict:
     path (the f32 modes are their own kernels), and every launch of the
     eight serving kernels and of the backward's dq and dk/dv on its f32
     mode.  ``full_width``: the 1.3B / 13B widths (head dim 128), where the
-    prologue's warp-per-row kernel takes every prologue launch and the
-    tensor-core core every flash / flash_manual launch that bf16 sends to
-    the Hopper path (ops/flash.py:f32_tc_path is wgmma_path's shape rule;
-    flash_manual's int8 QK mode there takes its own tensor-core kernel,
+    prologue's warp-per-row kernel takes every prologue launch, the
+    tensor-core core every flash launch, the STA tiles' too
+    (ops/flash.py:flash_f32_tc_path: D 128, blocks multiples of 8), and
+    every flash_manual launch that bf16 sends to the Hopper path
+    (ops/flash.py:f32_tc_path is wgmma_path's shape rule; flash_manual's
+    int8 QK mode there takes its own tensor-core kernel,
     ``flash_manual_int8_tc``, and on these paths its launches are all at
-    the Hopper shapes), and the backward's
-    tensor-core dq and dk/dv every dq and dk/dv launch, the STA tiles'
-    too (ops/flash_bwd.py:bwd_f32_tc_path: D 128, blocks multiples of 8);
-    the tiny models' head dim 64 takes none of them."""
+    the Hopper shapes), and the backward's tensor-core dq and dk/dv every dq
+    and dk/dv launch (ops/flash.py:flash_f32_tc_path, the rule of flash's
+    forward and backward); the tiny models' head dim 64 takes none of them."""
     out = dict(want)
-    out["flash_f32_tc"] = want["flash_wgmma"] if full_width else 0
-    # the backward's own rule (ops/flash_bwd.py:bwd_f32_tc_path) takes every D 128 call
+    out["flash_f32_tc"] = want["flash"] if full_width else 0
+    # the backward's rule (ops/flash.py:flash_f32_tc_path) takes every D 128 call
     out["flash_dq_f32_tc"] = want["flash_dq"] if full_width else 0
     out["flash_dkv_f32_tc"] = want["flash_dkv"] if full_width else 0
     # flash_manual's int8 QK mode takes its tensor-core kernel at the same shapes
@@ -6848,31 +6849,31 @@ def check_f32_training_kernels(torch, card: str) -> dict:
     each against its f32 plain version (gates above), launched once on its
     f32 mode and timed beside its bound (67 TFLOP/s f32) and f32 SDPA
     forward / backward with TF32 off; brackets at LOWRES (a kv tail).  At
-    FULL, LOWRES and cross the forward runs on the tensor-core core
-    (flash_f32_tc, ops/flash.py:f32_tc_path); the backward runs the
-    tensor-core dq and dk/dv (flash_dq_f32_tc / flash_dkv_f32_tc,
-    csrc/attn_f32_tc_bwd.cuh) at every D 128 call, the STA tiles of 96, 360
-    and 24 tokens too (its own rule, ops/flash_bwd.py:bwd_f32_tc_path),
-    their STA blocks checked again on small tables with a kv tail and a
-    count-0 q block (``check_f32_tc_bwd_edges``).  Each tensor-core call is
+    every D 128 call, the STA tiles of 96, 360 and 24 tokens too, the
+    forward runs on the tensor-core core (flash_f32_tc,
+    ops/flash.py:flash_f32_tc_path) and the backward on the tensor-core dq
+    and dk/dv (flash_dq_f32_tc / flash_dkv_f32_tc, csrc/attn_f32_tc_bwd.cuh;
+    the same rule), their STA blocks
+    checked again on small tables with a kv tail and a count-0 q block
+    (``check_f32_tc_edges``).  Each tensor-core call is
     held to the same gates beside the FFMA kernels at the same call
     (sparse_flash_attention_ffma, flash_backward_ffma), both timed in turns,
     its bound the 3xTF32 one (495 TFLOP/s TF32, a third of it f32-exact),
     with the bracket of its inputs rounded once to TF32 (q, k, v; the
     backward's q, k, v and dO: >= 2e-4 at FULL, LOWRES and STA 96); D 64
     stays on the FFMA kernels by rule: {"lse" | "dq" | "dkv": {shape:
-    numbers}, "dq_dkv_edges": {block: numbers}}."""
+    numbers}, "dq_dkv_edges": {block: numbers}} (the edges' forward and
+    backward)."""
     import torch.nn.functional as F
 
     from vorta_tpu_torch.ops import _build
     from vorta_tpu_torch.ops.flash import (
-        f32_tc_path,
+        flash_f32_tc_path,
         sparse_flash_attention_ffma,
         sparse_flash_attention_raw,
         sparse_flash_attention_ref,
     )
     from vorta_tpu_torch.ops.flash_bwd import (
-        bwd_f32_tc_path,
         flash_backward,
         flash_backward_ffma,
         flash_backward_ref,
@@ -6897,9 +6898,9 @@ def check_f32_training_kernels(torch, card: str) -> dict:
         valid = kvv if kvv != skv else None
         fwd = lambda: sparse_flash_attention_raw(q, k, v, ki, kc, kv_valid_len=valid,  # noqa: E731
                                                  return_lse=True, **kw)
-        # the tensor-core core where the rule holds (FULL, LOWRES, cross), timed in
-        # turns with the FFMA core at the same call
-        tc = f32_tc_path(d, c["bq"], c["bkv"])
+        # the tensor-core core where the rule holds (every D 128 call, the STA tiles
+        # too), timed in turns with the FFMA core at the same call
+        tc = flash_f32_tc_path(d, c["bq"], c["bkv"])
         ffma = lambda: sparse_flash_attention_ffma(q, k, v, ki, kc, kv_valid_len=valid,  # noqa: E731
                                                    return_lse=True, **kw)
         _build.reset_launches()
@@ -6937,7 +6938,7 @@ def check_f32_training_kernels(torch, card: str) -> dict:
             tc_row["tf32_bracket_worst_ratio"] = worst_ratio(torch, miss[:, :, :qv],
                                                              want_out[:, :, :qv])
             del miss
-            gated = name in ("full_31200", "lowres_15600")
+            gated = name in ("full_31200", "lowres_15600", "sta_31200_tile96")
             bar = "must be" if gated else "recorded; the bar is"
             log(f"f32 flash + lse {name}: the FFMA core's worst ratio "
                 f"{tc_row['ffma_worst_ratio']:.3e}; q, k, v rounded to TF32, worst ratio "
@@ -6952,7 +6953,7 @@ def check_f32_training_kernels(torch, card: str) -> dict:
         bwd = lambda **o: flash_backward(*args, **bkw, **o)  # noqa: E731
         bwd_ffma = lambda **o: flash_backward_ffma(*args, **bkw, **o)  # noqa: E731
         plain = lambda: flash_backward_ref(q, k, v, out, lse, dout, ki, kc, **bkw)  # noqa: E731
-        btc = bwd_f32_tc_path(d, c["bq"], c["bkv"])  # its own rule: the STA tiles too
+        btc = flash_f32_tc_path(d, c["bq"], c["bkv"])  # the forward's rule
         _build.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         mem0 = torch.cuda.memory_allocated()
@@ -7088,21 +7089,27 @@ def check_f32_training_kernels(torch, card: str) -> dict:
             log(f"f32 {kind} {name}: {with_rate(res[kind][name], per_pair * pairs * d)}")
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
-    res["dq_dkv_edges"] = {block: check_f32_tc_bwd_edges(torch, block) for block in (96, 360, 24)}
+    res["dq_dkv_edges"] = {block: check_f32_tc_edges(torch, block) for block in (96, 360, 24)}
     return res
 
 
-def check_f32_tc_bwd_edges(torch, block: int) -> dict:
-    """The tensor-core dq and dk/dv at an STA block (96, 360, 24) on small
-    tables that the trainer's raster never makes: q block 0 with count 0, a
-    kv tail inside the last block (not a multiple of 8 at 24), other blocks
-    visited at random; 12 x 128 heads, blocks 4 / 3 / 5 a side.  Against the
-    plain version (worst ratio <= 1e-4), exactly zero dq for the count-0
-    block and dk / dv past the tail, counted once each as _f32_tc."""
+def check_f32_tc_edges(torch, block: int) -> dict:
+    """The tensor-core forward (with its lse) and dq and dk/dv at an STA
+    block (96, 360, 24) on small tables that the trainer's raster never
+    makes: q block 0 with count 0, a kv tail inside the last block (not a
+    multiple of 8 at 24), other blocks visited at random; 12 x 128 heads,
+    blocks 4 / 3 / 5 a side.  The forward: out against the plain version
+    (worst ratio <= 1e-4), the lse within LSE_ATOL + LSE_RTOL x |plain|,
+    block 0's rows exact zeros with the lse sentinel 1e30 while block 1's
+    rows (the ones block 0's last 64-row tile runs into) match and see
+    keys, counted once as flash_f32_tc.  The backward against the plain
+    version (worst ratio <= 1e-4), exactly zero dq for the count-0 block
+    and dk / dv past the tail, counted once each as _f32_tc."""
     import numpy as np
 
     from vorta_tpu_torch.ops import _build
-    from vorta_tpu_torch.ops.flash import sparse_flash_attention_raw, tables_from_block_mask
+    from vorta_tpu_torch.ops.flash import (sparse_flash_attention_raw, sparse_flash_attention_ref,
+                                           tables_from_block_mask)
     from vorta_tpu_torch.ops.flash_bwd import flash_backward, flash_backward_ref, transpose_tables
 
     n, cut = {96: (4, 40), 360: (3, 100), 24: (5, 5)}[block]
@@ -7118,7 +7125,25 @@ def check_f32_tc_bwd_edges(torch, block: int) -> dict:
     ki, kc = tab.on(dev)
     qi, qc = (torch.from_numpy(a).to(dev) for a in transpose_tables(tab.kv_index, tab.kv_count, n))
     kw = dict(scale=128**-0.5, block_q=block, block_kv=block, kv_valid_len=valid)
+    _build.reset_launches()
     out, lse = sparse_flash_attention_raw(q, k, v, ki, kc, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    fwd_tc = _build.launches["flash_f32_tc"]
+    want_out, want_lse = sparse_flash_attention_ref(q, k, v, ki, kc, return_lse=True, **kw)
+    fwd_ratio = worst_ratio(torch, out, want_out)
+    next_ratio = worst_ratio(torch, out[:, :, block:2 * block], want_out[:, :, block:2 * block])
+    lse_bad = int((lse - want_lse).abs().gt(LSE_ATOL + LSE_RTOL * want_lse.abs()).sum())
+    fwd_edges = (not out[:, :, :block].any() and bool((lse[:, :, :block] == 1e30).all())
+                 and bool((lse[:, :, block:2 * block] < 1e30).all()))
+    log(f"f32 forward edges, blocks {block}: {n} x {n} blocks, q block 0 empty, kv tail at "
+        f"{valid}: worst ratio {fwd_ratio:.3e}, block 1's rows {next_ratio:.3e} (tolerance "
+        f"{TOL_F32_ATTN:g}); lse outside the gate {lse_bad}; block 0 exact zeros and sentinel, "
+        f"block 1 seeing keys: {fwd_edges}; flash_f32_tc launches {fwd_tc}")
+    if not (fwd_ratio <= TOL_F32_ATTN and lse_bad == 0 and fwd_edges and fwd_tc == 1
+            and torch.isfinite(out).all()):
+        raise RuntimeError(f"f32 forward edges, blocks {block}: the tensor-core core disagrees "
+                           "with its plain version, or wrote a row it must not")
+    del want_out, want_lse
     _build.reset_launches()
     got = flash_backward(q, k, v, out, lse, dout, ki, kc, qi, qc, **kw)
     torch.cuda.synchronize()
@@ -7127,14 +7152,15 @@ def check_f32_tc_bwd_edges(torch, block: int) -> dict:
     ratio = max(worst_ratio(torch, a, w) for a, w in zip(got, want))
     zeros = not got[0][:, :, :block].any() and not got[1][:, :, valid:].any() \
         and not got[2][:, :, valid:].any()
-    log(f"f32 backward edges, blocks {block}: {n} x {n} blocks, q block 0 empty, kv tail at "
-        f"{valid}: worst ratio {ratio:.3e} (tolerance {TOL_F32_ATTN:g}); exact zeros {zeros}; "
-        f"_f32_tc launches {n_tc}")
+    log(f"f32 backward edges, blocks {block}: worst ratio {ratio:.3e} (tolerance "
+        f"{TOL_F32_ATTN:g}); exact zeros {zeros}; _f32_tc launches {n_tc}")
     if not (ratio <= TOL_F32_ATTN and zeros and n_tc == (1, 1)
             and all(torch.isfinite(a).all() for a in got)):
         raise RuntimeError(f"f32 backward edges, blocks {block}: the tensor-core kernels disagree "
                            "with their plain version, or wrote a row they must not")
-    return dict(worst_ratio=ratio, kv_valid_len=valid, blocks=n, shape=[1, 12, s, 128])
+    return dict(worst_ratio=ratio, forward_worst_ratio=fwd_ratio,
+                forward_next_block_worst_ratio=next_ratio, kv_valid_len=valid, blocks=n,
+                shape=[1, 12, s, 128])
 
 
 def check_f32_train_grads(torch) -> dict:

@@ -3332,17 +3332,23 @@ def test_f32_c_entries_refuse_what_their_rules_refuse(card):
     p = [q.data_ptr()] * 4
 
     def flash(lse_ptr, d, block, work=None):
-        return _flash_f32_fn()(*p, lse_ptr, ki.data_ptr(), kc.data_ptr(), 1, 1, 64, 64, d, 1,
-                               64 // block, 1, block, block, 64, 0.1, work, stream)
+        tab = dense_tables(64 // block, 64 // block).on(card) if block < 64 else (ki, kc)
+        return _flash_f32_fn()(*p, lse_ptr, tab[0].data_ptr(), tab[1].data_ptr(), 1, 1, 64, 64,
+                               d, 1, 64 // block, 64 // block, block, block, 64, 0.1, work,
+                               stream)
 
     assert flash(None, 128, 64) == 0
     torch.cuda.synchronize()
     assert flash(lse.data_ptr(), 128, 64) == 0
     assert flash(None, 96, 64) != 0
     assert flash(None, 128, 12) != 0
-    # the tensor-core core only where f32_tc_path holds (blocks of 64: not multiples of 128)
+    # the tensor-core core where flash_f32_tc_path holds (D 128, blocks multiples of 8:
+    # 64 and 32 too), refused at D 64: an error, never the FFMA core
     work = torch.zeros(6 * 64 * 128, device=card)
-    assert flash(None, 128, 64, work.data_ptr()) != 0
+    assert flash(None, 128, 64, work.data_ptr()) == 0
+    assert flash(lse.data_ptr(), 128, 32, work.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert flash(None, 64, 64, work.data_ptr()) != 0
     act = torch.ones(1, dtype=torch.int32, device=card)
     sta = _sta_f32_fn()
     args = [*p, act.data_ptr(), None, None, None, None, 0, 1, 1, 4, 4, 4]
@@ -3416,10 +3422,11 @@ def test_cli_sample_fp32_on_card_matches_cpu(card, tmp_path):
 
 
 # --- the f32 modes' tensor-core core (csrc/attn_f32_tc.cuh: 3xTF32 on wgmma) ------------
-# flash and flash_manual at D = 128 with blocks that are multiples of 128
-# (ops/flash.py:f32_tc_path) against their plain versions on the same f32
-# inputs, TF32 off, within _close's f32 rule, and against the FFMA core at
-# the same call (sparse_flash_attention_ffma / _manual_ffma: the yardstick).
+# flash at D = 128 with blocks that are multiples of 8 (ops/flash.py:
+# flash_f32_tc_path) and flash_manual with blocks that are multiples of 128
+# (f32_tc_path) against their plain versions on the same f32 inputs, TF32
+# off, within _close's f32 rule, and against the FFMA core at the same call
+# (sparse_flash_attention_ffma / _manual_ffma: the yardstick).
 
 def test_f32_tc_probe(card):
     """One 64-row tile's two products on the core's pieces (the Q / K splits
@@ -3449,8 +3456,34 @@ def test_flash_f32_tc_matches_plain(card, kind, bq, bkv, sq, skv, valid):
     """The tensor-core core with and without the lse, counted as
     flash_f32_tc (never flash_wgmma), against the plain version and the FFMA
     core at the same call."""
-    from vorta_tpu_torch.ops.flash import sparse_flash_attention_ffma
+    _tc_forward_case(card, kind, bq, bkv, sq, skv, valid)
 
+
+@pytest.mark.parametrize("kind,bq,bkv,sq,skv,valid", [
+    ("shared", 96, 96, 384, 384, 344),       # STA 96: 64 + 32 rows, q block 0 empty, a tail
+    ("dense", 96, 96, 288, 288, 288),        # no tail, every block visited
+    ("shared", 360, 360, 1080, 1080, 980),   # STA 360: 5 x 64 + 40 rows and keys
+    ("shared", 24, 24, 120, 120, 115),       # STA 24: one 24-row CTA, a 19-key tail
+    ("per_head", 96, 96, 384, 384, None),    # per-head tables, a count-0 block per head
+    ("dense", 24, 360, 96, 720, 700),        # q blocks 24, kv blocks 360
+    ("dense", 1024, 64, 2048, 128, 100),     # kv blocks of 64
+    ("shared", 16, 16, 96, 96, 90),          # blocks of 16 and 8 at D 128
+    ("dense", 8, 8, 64, 64, 60),
+])
+def test_flash_f32_tc_at_the_sta_blocks(card, kind, bq, bkv, sq, skv, valid):
+    """The tensor-core core at blocks that 64 does not divide (the STA
+    training tiles 96, 360, 24; 16 and 8) and kv blocks of 64: ragged 64-row
+    CTAs whose rows past the block are never stored, 64-key chunks masked
+    past the block, against the plain version and the FFMA core; a count-0
+    q block's rows exact zeros with the lse sentinel while the next block's
+    rows hold (the early exit writes only its own rows)."""
+    _tc_forward_case(card, kind, bq, bkv, sq, skv, valid)
+
+
+def _tc_forward_case(card, kind, bq, bkv, sq, skv, valid):
+    from vorta_tpu_torch.ops.flash import flash_f32_tc_path, sparse_flash_attention_ffma
+
+    assert flash_f32_tc_path(128, bq, bkv)
     g = torch.Generator(device=card).manual_seed(61)
     q = _f32(g, 2, 3, sq, 128)
     k, v = (_f32(g, 2, 3, skv, 128) for _ in range(2))
@@ -3468,6 +3501,9 @@ def test_flash_f32_tc_matches_plain(card, kind, bq, bkv, sq, skv, valid):
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
     if kind == "shared":
         assert not got[:, :, :bq].any() and (lse[:, :, :bq] == 1e30).all()
+        # block 1 (visited) is not zeroed by block 0's last CTA
+        assert (lse[:, :, bq:2 * bq] < 1e30).all()
+        assert got[:, :, bq:bq + 8].abs().amax(-1).gt(0).all()
     _build.reset_launches()
     _close(sparse_flash_attention_ffma(q, k, v, ki, kc, **kw), want)
     assert (n["flash_f32"], n["flash_f32_tc"]) == (1, 0)
@@ -3642,8 +3678,8 @@ def test_flash_f32_lse_and_backward_match_plain(card, d, kind, bq, bkv, sq, skv,
 def test_flash_f32_backward_c_entries_refuse_what_their_rules_refuse(card):
     """The f32 backward entries refuse a head dim outside 64 / 128 and blocks
     not multiples of 8: an error code, never a launch.  Given the
-    tensor-core scratch they refuse every shape off ops/flash_bwd.py:
-    bwd_f32_tc_path (D 64) and take the rest (D 128, blocks multiples of 8:
+    tensor-core scratch they refuse every shape off ops/flash.py:
+    flash_f32_tc_path (D 64) and take the rest (D 128, blocks multiples of 8:
     64, 96), as the split entry does: nothing falls back to the FFMA
     kernels."""
     from vorta_tpu_torch.ops.flash_bwd import _fn, _split_fn, f32_tc_bwd_work
@@ -3714,11 +3750,11 @@ def test_flash_f32_tc_backward_at_the_sta_blocks(card, kind, bq, bkv, sq, skv, v
 
 
 def _tc_backward_case(card, kind, bq, bkv, sq, skv, valid):
-    from vorta_tpu_torch.ops.flash_bwd import (bwd_f32_tc_path, flash_backward,
-                                               flash_backward_ffma, flash_backward_ref,
-                                               transpose_tables)
+    from vorta_tpu_torch.ops.flash import flash_f32_tc_path
+    from vorta_tpu_torch.ops.flash_bwd import (flash_backward, flash_backward_ffma,
+                                               flash_backward_ref, transpose_tables)
 
-    assert bwd_f32_tc_path(128, bq, bkv)
+    assert flash_f32_tc_path(128, bq, bkv)
     g = torch.Generator(device=card).manual_seed(62)
     q, dout = (_f32(g, 2, 3, sq, 128) for _ in range(2))
     k, v = (_f32(g, 2, 3, skv, 128) for _ in range(2))

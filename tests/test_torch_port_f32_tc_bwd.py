@@ -1,10 +1,10 @@
 """The f32 backward's tensor-core kernels (``csrc/attn_f32_tc_bwd.cuh``:
-3xTF32 on wgmma) on the CPU: their shape rule
-``ops/flash_bwd.py:bwd_f32_tc_path`` at every f32 backward call the trainer
+3xTF32 on wgmma) on the CPU: their shape rule, flash's
+``ops/flash.py:flash_f32_tc_path``, at every f32 backward call the trainer
 makes at 480p x 77f and 720p x 37f (the tables and blocks from the experts
 themselves, each call run forward and backward through
-``make_sparse_attention`` on meta tensors: every one on the tensor cores,
-the STA tiles' forward on the FFMA core), the calls that stay on the FFMA
+``make_sparse_attention`` on meta tensors: every one, forward and backward,
+on the tensor cores), the calls that stay on the FFMA
 kernels (D 64, the yardstick ``flash_backward_ffma``), the wrapper's
 entries, scratch and counters on a fake card (meta tensors stand for CUDA
 ones; the library's entries record their arguments and return success),
@@ -39,7 +39,6 @@ from vorta_tpu_torch.ops.flash import (
 )
 from vorta_tpu_torch.ops.flash_bwd import (
     LOG2E,
-    bwd_f32_tc_path,
     f32_tc_bwd_work,
     f32_tc_dkv_walk,
     f32_tc_dq_walk,
@@ -139,14 +138,11 @@ def test_trainer_f32_backward_calls(grid, expert, spy_attention, fake_card):
     """cli.train --dtype fp32 at 480p x 77f and 720p x 37f: every
     expert's backward, the STA tiles' (96 / 360 tokens) too, takes the
     tensor-core kernels (one split pre-pass, both entries given its scratch,
-    counted once each as _f32_tc); the forward takes the tensor-core core
-    (its scratch) at FULL, LOWRES and cross and the FFMA core (no scratch)
-    at the STA tiles; never _wgmma."""
+    counted once each as _f32_tc), and its forward the tensor-core core (its
+    scratch) by the same rule, the STA tiles' too; never _wgmma."""
     tables, kw = _trainer_calls(*TRAIN[grid], spy_attention)[expert]
     bq, bkv = kw["block_q"], kw["block_kv"]
-    fwd_tc = expert != "sta"
-    assert bwd_f32_tc_path(128, bq, bkv)
-    assert flash_ops.f32_tc_path(128, bq, bkv) is fwd_tc
+    assert flash_ops.flash_f32_tc_path(128, bq, bkv)
     nq, nkv = tables.kv_index.shape[1], kw["n_kv_blocks"]
     q = _meta(1, 12, nq * bq, 128).requires_grad_()
     k, v = (_meta(1, 12, nkv * bkv, 128).requires_grad_() for _ in range(2))
@@ -156,7 +152,7 @@ def test_trainer_f32_backward_calls(grid, expert, spy_attention, fake_card):
     assert entries == ["vorta_flash_fwd_f32", SPLIT, "vorta_flash_bwd_dq_f32",
                        "vorta_flash_bwd_dkv_f32"]
     # the scratch of the forward's core and of the backward's kernels
-    assert [fake_card[i][1][-2] is not None for i in (0, 2, 3)] == [fwd_tc, True, True]
+    assert [fake_card[i][1][-2] is not None for i in (0, 2, 3)] == [True, True, True]
     _counted(flash_dq=1, flash_dq_f32=1, flash_dkv=1, flash_dkv_f32=1, flash_dq_f32_tc=1,
              flash_dkv_f32_tc=1)
 
@@ -178,7 +174,7 @@ def _bwd(d, bq, bkv, nq=2, nkv=2, fn=flash_backward, valid=None, **kw):
     (64, 8, 8),
 ])
 def test_other_f32_backward_calls_stay_on_the_ffma_kernels(d, bq, bkv, fake_card):
-    assert not bwd_f32_tc_path(d, bq, bkv)
+    assert not flash_ops.flash_f32_tc_path(d, bq, bkv)
     _bwd(d, bq, bkv)
     assert [(e, a[-2]) for e, a, _ in fake_card] == [("vorta_flash_bwd_dq_f32", None),
                                                      ("vorta_flash_bwd_dkv_f32", None)]
@@ -197,8 +193,10 @@ def test_other_f32_backward_calls_stay_on_the_ffma_kernels(d, bq, bkv, fake_card
 def test_f32_backward_at_blocks_128_does_not_divide_takes_the_tensor_cores(bq, bkv, fake_card):
     """D 128 at blocks that are multiples of 8 but not of 128: one split
     pre-pass with the blocks and the tail, both entries given its scratch,
-    counted once each as _f32_tc; the forward's rule still refuses them."""
-    assert bwd_f32_tc_path(128, bq, bkv) and not flash_ops.f32_tc_path(128, bq, bkv)
+    counted once each as _f32_tc; flash's forward takes them by the same
+    rule, flash_manual's (blocks of 128) refuses them."""
+    assert flash_ops.flash_f32_tc_path(128, bq, bkv)
+    assert not flash_ops.f32_tc_path(128, bq, bkv)
     _bwd(128, bq, bkv, nq=3, nkv=2, valid=2 * bkv - 3)
     (split, args, _), *kernels = fake_card
     assert split == SPLIT and args[5:15] == (1, 2, 3 * bq, 2 * bkv, 128, bq, bkv, 2 * bkv - 3, 1, 1)
@@ -251,7 +249,7 @@ def test_split_entry_argtypes(fake_card):
 def test_ffma_yardstick_at_the_tensor_core_shapes(fake_card):
     """flash_backward_ffma at FULL's blocks: no split, no scratch, counted
     in flash_dq / flash_dkv and _f32 only."""
-    assert bwd_f32_tc_path(128, 1024, 1024)
+    assert flash_ops.flash_f32_tc_path(128, 1024, 1024)
     _bwd(128, 1024, 1024, fn=flash_backward_ffma)
     assert [(e, a[-2]) for e, a, _ in fake_card] == [("vorta_flash_bwd_dq_f32", None),
                                                      ("vorta_flash_bwd_dkv_f32", None)]
@@ -267,10 +265,11 @@ def test_ffma_yardstick_at_the_tensor_core_shapes(fake_card):
     (128, 100, 96, False, False), (96, 128, 128, False, False),
 ])
 def test_shape_rule_is_the_forwards(d, block_q, block_kv, want, forward):
-    """The backward's own rule (D 128, blocks multiples of 8) agrees with
-    the forward's (D 128, blocks multiples of 128) wherever the forward
-    takes the tensor cores, and goes beyond it at the STA tiles."""
-    assert bwd_f32_tc_path(d, block_q, block_kv) is want
+    """The backward takes flash's forward's rule (``flash_f32_tc_path``: D
+    128, blocks multiples of 8) at every shape, the STA tiles too;
+    flash_manual's f32 rule (``forward``: D 128, blocks multiples of 128)
+    holds only where it does."""
+    assert flash_ops.flash_f32_tc_path(d, block_q, block_kv) is want
     assert flash_ops.f32_tc_path(d, block_q, block_kv) is forward
 
 

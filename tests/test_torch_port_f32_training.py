@@ -97,13 +97,14 @@ def _launched(**want):
 
 # --- the forward's lse ---------------------------------------------------------------
 
-@pytest.mark.parametrize("d,block", [(64, 16), (128, 128), (128, 1024)])
+@pytest.mark.parametrize("d,block", [(64, 16), (128, 128), (128, 1024), (128, 96)])
 def test_f32_lse_calls_the_f32_entry_with_an_lse(meta_card, d, block):
     """An f32 call with return_lse asks the f32 entry, with an lse buffer
     (B, H, Sq, 1) f32 in the lse slot; counted as flash, flash_f32 and
     flash_lse, never on the Hopper path (its rule is bf16's); at D 128 with
-    blocks multiples of 128 on the tensor-core core (its scratch in the
-    next-to-last slot, counted as flash_f32_tc), else on the FFMA core."""
+    blocks multiples of 8 (the STA tiles' 96 too) on the tensor-core core
+    (its scratch in the next-to-last slot, counted as flash_f32_tc), at D 64
+    on the FFMA core."""
     s = 2 * block
     q = _t(1, 2, s, d)
     ki, kc = _tables(2, 2)

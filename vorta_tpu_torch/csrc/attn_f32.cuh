@@ -4,11 +4,12 @@
 //
 // Its users and their walks: csrc/flash.cu and csrc/flash_manual.cu where
 // the tensor-core core does not run (TableWalk below: the block tables, the
-// kv tail rule, kv_bias, per-head counts; head dim 64, blocks 128 does not
-// divide, in f32 or in flash_manual's int8 QK mode, and the FFMA
-// yardsticks; at head dim 128 with blocks that are multiples of 128
-// csrc/attn_f32_tc.cuh's 3xTF32 core runs, and csrc/attn_int8_tc.cuh in the
-// int8 QK mode, ops/flash.py:f32_tc_path), csrc/sta_batched.cu (TableWalk
+// kv tail rule, kv_bias, per-head counts; head dim 64, flash_manual's blocks
+// 128 does not divide, in f32 or in its int8 QK mode, and the FFMA
+// yardsticks; csrc/attn_f32_tc.cuh's 3xTF32 core runs flash at head dim 128
+// (ops/flash.py:flash_f32_tc_path) and flash_manual at head dim 128 with
+// blocks that are multiples of 128 (ops/flash.py:f32_tc_path), and
+// csrc/attn_int8_tc.cuh its int8 QK mode there), csrc/sta_batched.cu (TableWalk
 // plus the pair bits), and
 // csrc/sta_pipe.cu, csrc/sta_window.cu and csrc/sta_row.cu (WindowWalk of
 // csrc/window_walk_f32.cuh: the window box and the text tail).  They replace

@@ -47,11 +47,10 @@
 //   68 tiles, then dV += p^T dO and dK += ds^T Q.  170 KB at D = 128 (one
 //   CTA an SM), 105 KB at D = 64.
 //
-// At head dim 128 with q and kv blocks that 128 divides (the trainer's FULL,
-// LOWRES and cross-attention) the wrapper's rule (ops/flash_bwd.py:
-// bwd_f32_tc_path) runs csrc/attn_f32_tc_bwd.cuh's tensor-core kernels
-// (3xTF32 on wgmma) instead; these FFMA kernels keep head dim 64 and the
-// blocks 128 does not divide (the f32 STA training tiles, the tiny models).
+// At head dim 128 (every call of the 1.3B trainer: FULL, LOWRES, cross and
+// the STA tiles) the wrapper's rule (ops/flash.py:flash_f32_tc_path) runs
+// csrc/attn_f32_tc_bwd.cuh's tensor-core kernels (3xTF32 on wgmma) instead;
+// these FFMA kernels keep head dim 64 (the tiny models) and the yardstick.
 #pragma once
 
 #include "attn_f32.cuh"

@@ -1,8 +1,11 @@
 // The f32 attention core on the tensor cores (sm_90a): the block-table walk
 // of flash and flash_manual at f32 q / k / v with every product split into
 // three TF32 products (3xTF32) on wgmma, in place of csrc/attn_f32.cuh's
-// FFMA core at head dim 128 with q and kv blocks that are multiples of 128
-// (ops/flash.py:f32_tc_path, the same rule on both sides).
+// FFMA core at head dim 128: flash's f32 mode with q and kv blocks that are
+// multiples of 8 (ops/flash.py:flash_f32_tc_path, the rule of the backward
+// too: FULL, LOWRES, cross and the STA training tiles of 96, 360 and 24
+// tokens), flash_manual's f32 mode with blocks that are multiples of 128
+// (ops/flash.py:f32_tc_path).  The same rules on both sides.
 //
 // Users: csrc/flash.cu (flash_f32_tc_kernel: the stable online softmax, the
 // lse of the f32 training forward) and csrc/flash_manual.cu
@@ -64,12 +67,23 @@
 //   chunk's columns past nvalid are -1e30 in S (p = 0, by select).  A CTA
 //   with nothing to attend writes zeros (and the lse sentinel) before any
 //   barrier.
+// - Blocks that 64 does not divide (flash's rule only; the STA tiles: 96 =
+//   64 + 32, 360 = 5 x 64 + 40, 24), as in the backward: a q block takes
+//   ceil(block_q / 64) CTAs, the last one's 64-row tile running past its
+//   block into the next block's rows (or past the tensor: TMA's zeros).
+//   Rows do not mix, so those rows are computed and never stored, neither
+//   out nor lse, the count-0 exit included: each row has the one CTA of its
+//   own block as its writer.  A kv block is walked in 64-key chunks, the
+//   last one partial (nvalid, as the tail rule's cut chunk); its columns
+//   past the block hold the next block's keys or TMA's zeros, masked.  The
+//   row guards run once a CTA, outside the chunk loop, so every shape takes
+//   the one kernel.  A partial tile or chunk costs a whole one's products.
 //
-// What stays on csrc/attn_f32.cuh's FFMA core (the wrappers' rule): head dim
-// 64 (the tiny models), q or kv blocks that 128 does not divide (blocks of
-// 8 / 16 / 24 / 96 / 360: the tiny models and the f32 STA training tiles),
+// What stays on csrc/attn_f32.cuh's FFMA core (the wrappers' rules): head
+// dim 64 (the tiny models), flash_manual's f32 mode at blocks that 128 does
+// not divide (no full-width caller: the tiny models' blocks of 8 / 16),
 // sta_batched's pair-bit walk and the window walks (sta_pipe, sta_window,
-// sta_row).  flash_manual's int8 QK mode at these shapes runs
+// sta_row).  flash_manual's int8 QK mode at its rule's shapes runs
 // csrc/attn_int8_tc.cuh (wgmma s8 scores, this file's 3xTF32 PV).
 #pragma once
 
@@ -310,30 +324,33 @@ __global__ void __launch_bounds__(256) f32_tc_split_t_kernel(const float* __rest
 
 // ---- the attention kernel --------------------------------------------------------
 
-// The kernel body: CTA (blockIdx.x = q block * parts + part, h, b) over
-// TableParams p (the tables, kv_bias (Skv,) or null, the tail rule; p.k and
-// p.v unused: the halves come by TMA) with tq / tk over the q / k halves (2
-// B H S, 128) f32 (big rows, then small rows) in boxes of 32 columns x 64
-// rows and tv over V^T's halves (2 B H 128, Skv) in boxes of 32 keys x 128
-// rows, all with the 128-byte swizzle.  out: (B, H, Sq, 128) f32; lse: (B,
-// H, Sq) f32 or null (stable only).  mul: the scores' factor; stable: the
-// online softmax, else exp2(s).
+// The kernel body: CTA (blockIdx.x = q block * parts + part, h, b), parts =
+// ceil(block_q / 64), over TableParams p (the tables, kv_bias (Skv,) or
+// null, the tail rule; p.k and p.v unused: the halves come by TMA) with tq /
+// tk over the q / k halves (2 B H S, 128) f32 (big rows, then small rows) in
+// boxes of 32 columns x 64 rows and tv over V^T's halves (2 B H 128, Skv) in
+// boxes of 32 keys x 128 rows, all with the 128-byte swizzle.  out: (B, H,
+// Sq, 128) f32; lse: (B, H, Sq) f32 or null (stable only).  mul: the
+// scores' factor; stable: the online softmax, else exp2(s).  Where 64 does
+// not divide block_q, the last CTA of a block owns fewer than 64 rows (the
+// rest never stored).
 __device__ __forceinline__ void attend(const CUtensorMap& tq, const CUtensorMap& tk,
                                        const CUtensorMap& tv, const f32::TableParams& p,
                                        float* __restrict__ out, float* __restrict__ lse,
                                        float mul, bool stable) {
   using namespace sm90;
-  const int parts = p.block_q / BQ;
-  const int qi = blockIdx.x / parts, h = blockIdx.y;
+  const int parts = (p.block_q + BQ - 1) / BQ;
+  const int qi = blockIdx.x / parts, h = blockIdx.y, local0 = (blockIdx.x % parts) * BQ;
+  const int rows = min(BQ, p.block_q - local0);  // its rows of the q block
   const long long bh = static_cast<long long>(blockIdx.z) * p.H + h;
   const long long row0 = bh * p.Sq + static_cast<long long>(qi) * p.block_q +
-                         (blockIdx.x % parts) * BQ;  // the CTA's first row of (B*H*Sq)
+                         local0;  // the CTA's first row of (B*H*Sq)
   const int count = p.kv_count[(p.cnt_shared ? 0 : h) * p.nq + qi];
   const int tid = threadIdx.x;
   if (count == 0) {  // routed away or past the table: zeros, no barrier touched
     float4* o4 = reinterpret_cast<float4*>(out + row0 * D);
-    for (int e = tid; e < BQ * D / 4; e += THREADS) o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (lse != nullptr && tid < BQ) lse[row0 + tid] = 1e30f;
+    for (int e = tid; e < rows * D / 4; e += THREADS) o4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (lse != nullptr && tid < rows) lse[row0 + tid] = 1e30f;
     return;
   }
   ChunkWalk<> walk{p.kv_index + static_cast<long long>((p.idx_shared ? 0 : h) * p.nq + qi) * p.width,
@@ -443,10 +460,11 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq, const CUtensorMap&
     for (int i = 0; i < 64; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], oc[i]);
   }
 
-  // ---- epilogue: rows 16w + g (+ 8) -------------------------------------------------
+  // ---- epilogue: rows 16w + g (+ 8), those of the CTA's block ----------------------
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const float x = quad_sum(l[hr]);
+    if (16 * w + g + 8 * hr >= rows) continue;
     const float inv = x == 0.f ? 0.f : 1.f / x;
     const long long r = row0 + 16 * w + g + 8 * hr;
     if (lse != nullptr && t == 0) lse[r] = x == 0.f ? 1e30f : m[hr] + log2f(x);
@@ -460,9 +478,16 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq, const CUtensorMap&
 
 // ---- host side ---------------------------------------------------------------------
 
-// The entries' shape rule (ops/flash.py:f32_tc_path).
+// flash_manual's shape rule (ops/flash.py:f32_tc_path; its int8 QK mode's
+// too): head dim 128, blocks multiples of 128.
 inline bool path_holds(int D_, int block_q, int block_kv) {
   return D_ == D && block_q % 128 == 0 && block_kv % 128 == 0;
+}
+
+// flash's shape rule, forward and backward (ops/flash.py:flash_f32_tc_path):
+// head dim 128, blocks multiples of 8.
+inline bool flash_path_holds(int D_, int block_q, int block_kv) {
+  return D_ == D && block_q % 8 == 0 && block_kv % 8 == 0;
 }
 
 // A map over `rows` rows of `cols` f32 (row stride cols) in boxes of 32
@@ -481,13 +506,15 @@ inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t 
 }
 
 // Split q, k, v into work (2 B H (Sq + 2 Skv) 128 f32, 16-byte aligned: q's
-// halves, k's, V^T's), then launch kern<<<(nq * block_q / 64, H, B), THREADS,
-// SMEM_BYTES>>>(tq, tk, tv, args...).  q, k, v: contiguous (B, H, S, 128)
-// f32, 16-byte aligned.  The CUDA error code.
+// halves, k's, V^T's), then launch kern<<<(nq * ceil(block_q / 64), H, B),
+// THREADS, SMEM_BYTES>>>(tq, tk, tv, args...).  q, k, v: contiguous (B, H,
+// S, 128) f32, 16-byte aligned.  holds: the caller's rule (flash_path_holds
+// or path_holds).  The CUDA error code.
 template <class Kern, class... Args>
-cudaError_t launch(Kern kern, const void* q, const void* k, const void* v, void* work, int B,
-                   const f32::TableParams& p, cudaStream_t st, Args... args) {
-  if (!path_holds(p.D, p.block_q, p.block_kv) || p.kb != 4 || work == nullptr)
+cudaError_t launch(bool (*holds)(int, int, int), Kern kern, const void* q, const void* k,
+                   const void* v, void* work, int B, const f32::TableParams& p, cudaStream_t st,
+                   Args... args) {
+  if (!holds(p.D, p.block_q, p.block_kv) || p.kb != 4 || work == nullptr)
     return cudaErrorInvalidValue;
   const long long qn = static_cast<long long>(B) * p.H * p.Sq * D;
   const long long kn = static_cast<long long>(B) * p.H * p.Skv * D;
@@ -499,7 +526,7 @@ cudaError_t launch(Kern kern, const void* q, const void* k, const void* v, void*
       static_cast<const float4*>(q), reinterpret_cast<uint4*>(wq), qn / 4);
   f32_tc_split_rows_kernel<<<blocks(kn / 4), 256, 0, st>>>(
       static_cast<const float4*>(k), reinterpret_cast<uint4*>(wk), kn / 4);
-  f32_tc_split_t_kernel<<<dim3(p.Skv / BK, B * p.H), 256, 0, st>>>(
+  f32_tc_split_t_kernel<<<dim3((p.Skv + BK - 1) / BK, B * p.H), 256, 0, st>>>(
       static_cast<const float*>(v), reinterpret_cast<uint32_t*>(wv), B * p.H, p.Skv, p.block_kv,
       p.last_block, p.valid_in_block);
   cudaError_t err = cudaGetLastError();
@@ -511,7 +538,8 @@ cudaError_t launch(Kern kern, const void* q, const void* k, const void* v, void*
     return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(p.nq * (p.block_q / BQ), p.H, B), THREADS, SMEM_BYTES, st>>>(tq, tk, tv, args...);
+  kern<<<dim3(p.nq * ((p.block_q + BQ - 1) / BQ), p.H, B), THREADS, SMEM_BYTES, st>>>(tq, tk, tv,
+                                                                                   args...);
   return cudaGetLastError();
 }
 

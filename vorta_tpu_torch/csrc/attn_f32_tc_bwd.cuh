@@ -1,11 +1,11 @@
 // The f32 flash backward on the tensor cores (sm_90a): dq and dk/dv with
 // every product split into three TF32 products (3xTF32) on wgmma, in place
 // of csrc/attn_f32_bwd.cuh's FFMA kernels at head dim 128 with q and kv
-// blocks that are multiples of 8 (ops/flash_bwd.py:bwd_f32_tc_path, the
-// backward's own rule: FULL, LOWRES and cross at blocks of 128 and more, the
-// STA training tiles at 96, 360 and 24 tokens).  The forward at the STA
-// tiles stays on the FFMA core (ops/flash.py:f32_tc_path); both designs
-// read and write one lse, m + log2(l) with the sentinel 1e30.  Included by
+// blocks that are multiples of 8 (ops/flash.py:flash_f32_tc_path, the
+// forward's rule, flash_path_holds in csrc/attn_f32_tc.cuh: FULL, LOWRES and
+// cross at blocks of 128 and more, the STA training tiles at 96, 360 and 24
+// tokens).  Forward and backward take one design at every call and share
+// the lse, m + log2(l) with the sentinel 1e30.  Included by
 // csrc/flash_bwd.cu, whose C entries vorta_flash_bwd_f32_tc_split,
 // vorta_flash_bwd_dq_f32 and vorta_flash_bwd_dkv_f32 (the last two given
 // the scratch) launch it.
@@ -548,12 +548,6 @@ inline BwdWork bwd_work(void* work, int B, int H, int Sq, int Skv) {
   float* w = static_cast<float*>(work);
   return {w, w + 2 * nq, w + 4 * nq, w + 6 * nq, w + 8 * nq, w + 8 * nq + 2 * nk,
           w + 8 * nq + 4 * nk};
-}
-
-// The backward's shape rule (ops/flash_bwd.py:bwd_f32_tc_path): head dim 128,
-// q and kv blocks multiples of 8.
-inline bool bwd_path_holds(int D_, int block_q, int block_kv) {
-  return D_ == D && block_q % 8 == 0 && block_kv % 8 == 0;
 }
 
 // The pre-pass: the halves of Q, dO, K and V rows (both kernels read them)

@@ -267,7 +267,7 @@ cudaError_t launch(Kern kern, const void* q, const void* k, const void* v, void*
       work == nullptr)
     return cudaErrorInvalidValue;
   float* wv = static_cast<float*>(work);
-  f32tc::f32_tc_split_t_kernel<<<dim3(p.Skv / f32tc::BK, B * p.H), 256, 0, st>>>(
+  f32tc::f32_tc_split_t_kernel<<<dim3((p.Skv + f32tc::BK - 1) / f32tc::BK, B * p.H), 256, 0, st>>>(
       static_cast<const float*>(v), reinterpret_cast<uint32_t*>(wv), B * p.H, p.Skv, p.block_kv,
       p.last_block, p.valid_in_block);
   cudaError_t err = cudaGetLastError();

@@ -384,7 +384,8 @@ extern "C" int vorta_attn_sm90_probe(const void* q, const void* k, const void* v
 extern "C" int vorta_attn_sm90_smem_bytes() { return vorta::sm90::SMEM_BYTES; }
 
 // ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the block tables, and
-// csrc/attn_f32_tc.cuh's tensor-core core where ops/flash.py:f32_tc_path holds
+// csrc/attn_f32_tc.cuh's tensor-core core where ops/flash.py:flash_f32_tc_path
+// holds
 
 namespace {
 
@@ -450,11 +451,11 @@ f32_tc_probe_kernel(const uint4* __restrict__ w, float* __restrict__ s_out,
 // vorta_flash_fwd_bf16; block_q and block_kv multiples of 8, D 64 or 128.
 // lse: (B, H, Sq) f32 or null, as for vorta_flash_fwd_bf16 (the f32
 // training path's forward).  The stable online softmax, P kept in f32.
-// work: null, or where the wrapper's rule (ops/flash.py:f32_tc_path) chose
-// the tensor-core core (D = 128, blocks multiples of 128; anything else there
-// is an error, never a fallback), scratch for the split halves of q, k and
-// V^T: 2 B H (Sq + 2 Skv) 128 f32, 16-byte aligned; null: the FFMA core.
-// Returns the CUDA error code.
+// work: null, or where the wrapper's rule (ops/flash.py:flash_f32_tc_path)
+// chose the tensor-core core (D = 128, blocks multiples of 8: the STA tiles
+// too; anything else there is an error, never a fallback), scratch for the
+// split halves of q, k and V^T: 2 B H (Sq + 2 Skv) 128 f32, 16-byte
+// aligned; null: the FFMA core.  Returns the CUDA error code.
 extern "C" int vorta_flash_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                    void* lse, const void* kv_index, const void* kv_count, int B,
                                    int H, int Sq, int Skv, int D, int h_tab, int nq, int width,
@@ -474,7 +475,8 @@ extern "C" int vorta_flash_fwd_f32(const void* q, const void* k, const void* v, 
   auto* oo = static_cast<float*>(out);
   auto* ls = static_cast<float*>(lse);
   if (work != nullptr)
-    return static_cast<int>(vorta::f32tc::launch(flash_f32_tc_kernel, q, k, v, work, B, p, st, p,
+    return static_cast<int>(vorta::f32tc::launch(vorta::f32tc::flash_path_holds,
+                                                 flash_f32_tc_kernel, q, k, v, work, B, p, st, p,
                                                  oo, ls, scale_log2));
   const dim3 grid = vorta::f32::table_grid(B, p);
   return static_cast<int>(

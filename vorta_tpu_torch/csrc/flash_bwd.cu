@@ -79,7 +79,7 @@
 // vorta_flash_bwd_dkv_f32: csrc/attn_f32_tc_bwd.cuh's tensor-core dq and
 // dk/dv (3xTF32 on wgmma, after the split pre-pass
 // vorta_flash_bwd_f32_tc_split) where the wrapper's rule
-// (ops/flash_bwd.py:bwd_f32_tc_path: D = 128, blocks multiples of 8) holds
+// (ops/flash.py:flash_f32_tc_path: D = 128, blocks multiples of 8) holds
 // and it passes the scratch, else csrc/attn_f32_bwd.cuh's FFMA dq and dk/dv
 // at any shape the bf16 entries take (the wrapper's choice at D = 64).
 #include "attn_f32_bwd.cuh"
@@ -921,7 +921,7 @@ bool f32_params(vorta::f32::BwdParams& p, const void* q, const void* k, const vo
                 int block_kv, int kv_valid_len, float scale, const void* work) {
   if (Sq % block_q || Skv % block_kv || block_q % 8 || block_kv % 8 || (D != 64 && D != 128))
     return false;
-  if (work != nullptr && !vorta::f32tc::bwd_path_holds(D, block_q, block_kv)) return false;
+  if (work != nullptr && !vorta::f32tc::flash_path_holds(D, block_q, block_kv)) return false;
   p = vorta::f32::BwdParams{
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
@@ -939,14 +939,14 @@ bool f32_params(vorta::f32::BwdParams& p, const void* q, const void* k, const vo
 // work (ops/flash_bwd.py:f32_tc_bwd_work: 2 B H (4 Sq + 3 Skv) 128 f32,
 // 16-byte aligned), the transposed halves each kernel needs (need_dq: K^T;
 // need_dkv: Q^T, dO^T).  Refused (an error) outside the rule
-// (ops/flash_bwd.py:bwd_f32_tc_path).  Returns the CUDA error code.
+// (ops/flash.py:flash_f32_tc_path).  Returns the CUDA error code.
 extern "C" int vorta_flash_bwd_f32_tc_split(const void* q, const void* k, const void* v,
                                             const void* dout, void* work, int B, int H, int Sq,
                                             int Skv, int D, int block_q, int block_kv,
                                             int kv_valid_len, int need_dq, int need_dkv,
                                             void* stream) {
   using namespace vorta::f32tc;
-  if (work == nullptr || Sq % block_q || Skv % block_kv || !bwd_path_holds(D, block_q, block_kv))
+  if (work == nullptr || Sq % block_q || Skv % block_kv || !flash_path_holds(D, block_q, block_kv))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(split_bwd(
       q, k, v, dout, bwd_work(work, B, H, Sq, Skv), B, H, Sq, Skv, block_q, block_kv,

@@ -393,8 +393,8 @@ extern "C" int vorta_flash_manual_fwd_f32(const void* q, const void* k, const vo
   if (work != nullptr)
     return static_cast<int>(
         i8 ? vorta::i8tc::launch(flash_manual_int8_tc_kernel, q, k, v, work, B, p, st, p, oo, qf)
-           : vorta::f32tc::launch(flash_manual_f32_tc_kernel, q, k, v, work, B, p, st, p, oo, mul,
-                                  stable));
+           : vorta::f32tc::launch(vorta::f32tc::path_holds, flash_manual_f32_tc_kernel, q, k, v,
+                                  work, B, p, st, p, oo, mul, stable));
   const dim3 grid = vorta::f32::table_grid(B, p);
   auto run = [&](auto kern, auto d) {
     return vorta::f32::launch<decltype(d)::value>(kern, grid, st, q, oo, p, mul, qf, stable);

@@ -50,7 +50,8 @@ their kernel: ``flash_f32``, ``flash_manual_f32``, ``sta_pipe_f32`` and
 backward, ``flash_dq_f32`` and ``flash_dkv_f32`` (``csrc/attn_f32_bwd.cuh``),
 of ``flash_dq`` and ``flash_dkv``.  ``flash_f32_tc`` and
 ``flash_manual_f32_tc`` count the f32 launches on the tensor-core core
-(``csrc/attn_f32_tc.cuh``: 3xTF32 on wgmma, by ``ops/flash.py:f32_tc_path``),
+(``csrc/attn_f32_tc.cuh``: 3xTF32 on wgmma, by ``ops/flash.py:flash_f32_tc_path``
+and ``f32_tc_path``),
 subsets of ``flash_f32`` and ``flash_manual_f32``; they never count as
 ``*_wgmma``.  The int8 QK mode with an f32 v counts in
 both its modes' counters: ``flash_manual_f32`` and ``flash_manual_int8``,

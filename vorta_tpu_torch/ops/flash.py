@@ -24,14 +24,17 @@ models, ``cli.sample --dtype fp32``, and the forward of f32 training,
 ``cli.train --dtype fp32``) take the f32 mode, its own branch (counted as
 ``flash_f32`` too), P kept in f32 as the plain version keeps it, the lse
 written by the same core where ``return_lse`` asks for it.  Two f32 cores,
-chosen by the rule ``f32_tc_path`` (``wgmma_path``'s shapes): at head dim
-128 with blocks that are multiples of 128 (every f32 call of the 1.3B / 13B
-paths: self- and cross-attention, training's FULL / LOWRES / cross) the
-tensor-core core of ``csrc/attn_f32_tc.cuh`` (3xTF32 products on wgmma:
-a split pre-pass writes the TF32 halves of q, k and V^T into scratch the
-wrapper allocates, ``f32_tc_work``, and TMA feeds them to the products;
-counted as ``flash_f32_tc`` too); elsewhere (D = 64, the 8- / 16- / 24- /
-96- / 360-token blocks) ``csrc/attn_f32.cuh``'s FFMA core.
+chosen by the rule ``flash_f32_tc_path`` (the backward's too,
+``ops/flash_bwd.py``): at head dim 128 with blocks that are
+multiples of 8 (every f32 call of the 1.3B / 13B paths: self- and
+cross-attention, training's FULL / LOWRES / cross and the STA expert's 96-,
+360- and 24-token tiles) the tensor-core core of ``csrc/attn_f32_tc.cuh``
+(3xTF32 products on wgmma: a split pre-pass writes the TF32 halves of q, k
+and V^T into scratch the wrapper allocates, ``f32_tc_work``, and TMA feeds
+them to the products; ragged 64-row CTAs and 64-key chunks where 64 does
+not divide a block, ``f32_tc_fwd_walk``; counted as ``flash_f32_tc`` too);
+at D = 64 (the tiny models) ``csrc/attn_f32.cuh``'s FFMA core.  A call's
+forward and backward take one design and share the lse.
 ``sparse_flash_attention_ffma`` runs the FFMA core at any shape (the
 yardstick ``chip_smoke.py`` times beside the tensor-core core).
 
@@ -49,7 +52,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -197,12 +200,76 @@ def wgmma_path(d: int, block_q: int, block_kv: int) -> bool:
 
 
 def f32_tc_path(d: int, block_q: int, block_kv: int) -> bool:
-    """The shape rule of the f32 mode's tensor-core core
-    (``csrc/attn_f32_tc.cuh``, 3xTF32 on wgmma; flash's and flash_manual's
-    f32 q / k): ``wgmma_path``'s shapes, head dim 128 with q and kv blocks
-    that are multiples of 128.  The C entries refuse the core for anything
-    else; elsewhere the FFMA core of ``csrc/attn_f32.cuh`` runs."""
+    """flash_manual's shape rule for the f32 mode's tensor-core core
+    (``csrc/attn_f32_tc.cuh``, 3xTF32 on wgmma) and its int8 QK mode's
+    (``csrc/attn_int8_tc.cuh``): ``wgmma_path``'s shapes, head dim 128 with
+    q and kv blocks that are multiples of 128.  No full-width caller runs
+    flash_manual at other blocks (the tiny models' 8 / 16 at D 64 and 128).
+    The C entry refuses the tensor cores for anything else; elsewhere the
+    FFMA core of ``csrc/attn_f32.cuh`` runs."""
     return wgmma_path(d, block_q, block_kv)
+
+
+def flash_f32_tc_path(d: int, block_q: int, block_kv: int) -> bool:
+    """flash's shape rule for the f32 mode's tensor cores, forward
+    (``csrc/attn_f32_tc.cuh``) and backward (``csrc/attn_f32_tc_bwd.cuh``,
+    ``ops/flash_bwd.py``): head dim 128 with q and kv blocks that are
+    multiples of 8, so that a call's forward and backward take one design
+    and share one lse (``m + log2(l)``, the sentinel 1e30).  The kernels'
+    64-row CTAs and 64-key (forward) or 32-row (backward) chunks mask a
+    block's ragged edge (``f32_tc_fwd_walk``, ``ops/flash_bwd.py:
+    f32_tc_dq_walk`` / ``f32_tc_dkv_walk``): the STA training tiles of 96,
+    360 and 24 tokens take them, as do FULL, LOWRES and cross-attention.
+    Other multiples of 8 (kv blocks of 64, blocks of 8 or 16 at D 128, only
+    in tests) take them too, as timed on an H100 (700 W) beside the FFMA
+    kernels at the same dense calls, 12 heads, in turns: the forward + lse
+    (``tools/bench_f32_fwd --ffma --dense``) at 4096 x 4096 at blocks of
+    16 18.08 ms against 45.59, at blocks of 8 70.45 against 181.45; dq +
+    dk/dv (``tools/bench_f32_bwd --ffma --dense``) at 8192 x 8192 at blocks
+    1024 x 64 21.6 ms against 46.7, 4096 x 4096 at blocks of 16 41.3
+    against 174.3, at blocks of 8 158.8 against 691.4 (the FFMA kernels'
+    small CTAs lose more than the tensor cores' padding).  D 64 (the tiny
+    models) stays on the FFMA kernels.  The C entries refuse the tensor
+    cores for anything else: an error, never a fallback."""
+    return d == 128 and block_q % 8 == 0 and block_kv % 8 == 0
+
+
+F32_TC_ROWS = 64  # q rows of a tensor-core CTA (forward and backward)
+
+
+def _tail(block_kv: int, kv_valid_len: int) -> Tuple[int, int]:
+    """(last_block, valid_in_block) of the tail rule: only block
+    kv_valid_len // block_kv is cut, and only when block_kv does not divide
+    kv_valid_len (last_block -1: nothing is cut)."""
+    cut = kv_valid_len % block_kv
+    return (kv_valid_len // block_kv if cut else -1), cut
+
+
+def f32_tc_fwd_walk(kv_index: np.ndarray, kv_count: np.ndarray, *, sq: int, block_q: int,
+                    block_kv: int, kv_valid_len: int, chunk: int = 64) -> list:
+    """Python mirror of ``flash_f32_tc_kernel``'s walk over head-shared
+    tables: per CTA, in grid order, (its first q row, the rows of its q
+    block that it owns and stores, its chunks as (first key, keys not
+    masked)).  A q block takes ceil(block_q / 64)
+    CTAs of a 64-row tile each; the last one's rows past its block are
+    computed and never stored (neither out nor lse).  Its chunks are
+    ``chunk`` keys of its q block's kv blocks up to the tail rule's limit
+    (``ChunkWalk``: a chunk the rule masks completely is skipped; a block's
+    last chunk, or a cut one, masks its keys past the valid count).  No
+    chunks: the CTA writes zero rows and the lse sentinel.  The backward's
+    dq walks the same with 32-key chunks (``ops/flash_bwd.py:
+    f32_tc_dq_walk``)."""
+    last, in_last = _tail(block_kv, kv_valid_len)
+    walks = []
+    for qi in range(sq // block_q):
+        chunks = []
+        for kvb in kv_index[0, qi, :kv_count[0, qi]]:
+            limit = in_last if kvb == last else block_kv
+            chunks += [(int(kvb) * block_kv + n0, min(chunk, limit - n0))
+                       for n0 in range(0, limit, chunk)]
+        walks += [(qi * block_q + local0, min(F32_TC_ROWS, block_q - local0), chunks)
+                  for local0 in range(0, block_q, F32_TC_ROWS)]
+    return walks
 
 
 def refuse_unported(kv_valid, pair_bits, tokens_per_tile, cast_p_to_v_dtype: bool) -> None:
@@ -340,7 +407,7 @@ def sparse_flash_attention_raw(
 
 def sparse_flash_attention_ffma(q, k, v, kv_index, kv_count, **kw):
     """``sparse_flash_attention_raw`` at f32 on the FFMA core whatever
-    ``f32_tc_path`` says: the card's yardstick beside the tensor-core core
+    ``flash_f32_tc_path`` says: the card's yardstick beside the tensor-core core
     at the same call (``chip_smoke.py`` times both), counted in ``flash`` /
     ``flash_f32`` only."""
     return _flash(q, k, v, kv_index, kv_count, tc_ok=False, **kw)
@@ -381,7 +448,7 @@ def _flash(q, k, v, kv_index, kv_count, *, scale: Optional[float] = None, block_
     kv_count = torch.as_tensor(kv_count, dtype=torch.int32, device=dev).contiguous()
     f32 = q.dtype == torch.float32  # the f32 mode: its own kernels, no Hopper rule
     hopper = not f32 and wgmma_path(d, block_q, block_kv)
-    tc = f32 and tc_ok and f32_tc_path(d, block_q, block_kv)
+    tc = f32 and tc_ok and flash_f32_tc_path(d, block_q, block_kv)
     q, k, v = (_build.aligned16(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=dev) if return_lse else None

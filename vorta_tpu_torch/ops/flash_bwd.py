@@ -23,8 +23,8 @@ CPU tensors it runs ``flash_backward_ref``, which repeats their arithmetic.
 f32 inputs (the f32 training path, ``cli.train --dtype fp32``) take the f32
 mode, its own branch with ds and p kept in f32 as the plain version keeps
 them there, counted as ``flash_dq_f32`` / ``flash_dkv_f32`` too: where
-``bwd_f32_tc_path`` holds (head dim 128, blocks multiples of 8: every f32
-backward call of the 1.3B trainer, FULL, LOWRES, cross-attention and the
+flash's rule ``ops/flash.py:flash_f32_tc_path`` holds, the forward's (head
+dim 128, blocks multiples of 8: every f32 backward call of the 1.3B trainer, FULL, LOWRES, cross-attention and the
 96-, 360- and 24-token STA tiles) the tensor-core kernels of
 ``csrc/attn_f32_tc_bwd.cuh`` (3xTF32 on wgmma, after a split pre-pass into
 scratch the wrapper allocates, ``f32_tc_bwd_work``; counted as
@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .flash import WGMMA_TILE, wgmma_path
+from .flash import (F32_TC_ROWS, WGMMA_TILE, _tail, f32_tc_fwd_walk, flash_f32_tc_path,
+                    wgmma_path)
 
 NEG_INF = float(-1e30)
 POS_BIG = float(1e30)  # the lse of a row that sees no key (ops/flash.py)
@@ -135,28 +136,6 @@ def bwd_wgmma_path(d: int, block_q: int, block_kv: int) -> bool:
     return wgmma_path(d, block_q, block_kv)
 
 
-def bwd_f32_tc_path(d: int, block_q: int, block_kv: int) -> bool:
-    """The shape rule of the f32 backward's tensor-core kernels
-    (``csrc/attn_f32_tc_bwd.cuh``), its own: head dim 128 with q and kv
-    blocks that are multiples of 8.  The kernels' 64-row CTAs and 32-row
-    chunks mask a block's ragged edge (``f32_tc_dq_walk``,
-    ``f32_tc_dkv_walk``): the STA training tiles of 96, 360 and 24 tokens
-    take them, as do FULL, LOWRES and cross-attention.  The forward's rule
-    (``ops/flash.py:f32_tc_path``) keeps blocks that 128 divides, so at the
-    STA tiles a call's forward runs the FFMA core and its backward the
-    tensor cores; both designs read and write one lse (``m + log2(l)``,
-    the sentinel 1e30).  Other multiples of 8 (kv blocks of 64, blocks of 8
-    or 16 at D 128, only in tests) take the tensor cores too, as timed on an
-    H100 (700 W) beside the FFMA kernels at the same dense calls
-    (``tools/bench_f32_bwd --ffma --dense``; 12 heads, dq + dk/dv): 8192 x
-    8192 at blocks 1024 x 64 21.6 ms against 46.7, 4096 x 4096 at blocks of
-    16 41.3 against 174.3, at blocks of 8 158.8 against 691.4 (the FFMA
-    kernels' small CTAs lose more than the tensor cores' padding).  D 64
-    (the tiny models) stays on the FFMA kernels of ``csrc/attn_f32_bwd.cuh``.
-    The C entries refuse the tensor-core kernels for anything else."""
-    return d == 128 and block_q % 8 == 0 and block_kv % 8 == 0
-
-
 def f32_tc_bwd_work(b: int, h: int, sq: int, skv: int, device) -> torch.Tensor:
     """The tensor-core backward's scratch for one call: the big and small
     TF32 halves of q, dout, q^T and dout^T (``sq`` rows each) and of k, v
@@ -167,14 +146,6 @@ def f32_tc_bwd_work(b: int, h: int, sq: int, skv: int, device) -> torch.Tensor:
 
 
 DKV_Q_TILE = 64  # q rows per ring slot of the dk/dv kernel
-
-
-def _tail(block_kv: int, kv_valid_len: int) -> Tuple[int, int]:
-    """(last_block, valid_in_block) of the tail rule: only block
-    kv_valid_len // block_kv is cut, and only when block_kv does not divide
-    kv_valid_len (last_block -1: nothing is cut)."""
-    cut = kv_valid_len % block_kv
-    return (kv_valid_len // block_kv if cut else -1), cut
 
 
 def dq_walk(kv_index: np.ndarray, kv_count: np.ndarray, *, sq: int, block_q: int,
@@ -220,31 +191,18 @@ def dkv_walk(q_index: np.ndarray, q_count: np.ndarray, *, skv: int, block_q: int
     return walks
 
 
-F32_TC_ROWS, F32_TC_CHUNK = 64, 32  # a tensor-core CTA's resident rows, a walked chunk's
+F32_TC_CHUNK = 32  # a walked chunk's rows (F32_TC_ROWS: a tensor-core CTA's resident rows)
 
 
 def f32_tc_dq_walk(kv_index: np.ndarray, kv_count: np.ndarray, *, sq: int, block_q: int,
                    block_kv: int, kv_valid_len: int) -> list:
-    """Python mirror of ``flash_dq_f32_tc_kernel``'s walk: per CTA, in grid
-    order, (its first q row, the rows of its q block that it owns and
-    stores, its chunks as (first key, keys not masked)).  A q block takes
-    ceil(block_q / 64) CTAs of a 64-row tile each; the last one's rows past
-    its block are computed and never stored.  Its chunks are 32 keys of its
-    q block's kv blocks up to the tail rule's limit (``ChunkWalk<32>``: a
-    chunk the rule masks completely is skipped; a block's last chunk, or a
-    cut one, masks its keys past the valid count).  No chunks: the CTA
-    writes zero dq."""
-    last, in_last = _tail(block_kv, kv_valid_len)
-    walks = []
-    for qi in range(sq // block_q):
-        chunks = []
-        for kvb in kv_index[0, qi, :kv_count[0, qi]]:
-            limit = in_last if kvb == last else block_kv
-            chunks += [(int(kvb) * block_kv + n0, min(F32_TC_CHUNK, limit - n0))
-                       for n0 in range(0, limit, F32_TC_CHUNK)]
-        walks += [(qi * block_q + local0, min(F32_TC_ROWS, block_q - local0), chunks)
-                  for local0 in range(0, block_q, F32_TC_ROWS)]
-    return walks
+    """Python mirror of ``flash_dq_f32_tc_kernel``'s walk: the forward's
+    (``ops/flash.py:f32_tc_fwd_walk``) with 32-key chunks (``ChunkWalk<32>``):
+    per CTA, in grid order, (its first q row, the rows of its q block that
+    it owns and stores, its chunks as (first key, keys not masked)).  No
+    chunks: the CTA writes zero dq."""
+    return f32_tc_fwd_walk(kv_index, kv_count, sq=sq, block_q=block_q, block_kv=block_kv,
+                           kv_valid_len=kv_valid_len, chunk=F32_TC_CHUNK)
 
 
 def f32_tc_dkv_walk(q_index: np.ndarray, q_count: np.ndarray, *, skv: int, block_q: int,
@@ -325,7 +283,7 @@ def flash_backward_mma_sync(q, k, v, out, lse2, dout, kv_index, kv_count, q_inde
 
 def flash_backward_ffma(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count, **kw):
     """``flash_backward`` at f32 on the FFMA kernels whatever
-    ``bwd_f32_tc_path`` says: the card's yardstick beside the tensor-core
+    ``flash_f32_tc_path`` says: the card's yardstick beside the tensor-core
     kernels at the same call (``chip_smoke.py`` times both), counted in
     ``flash_dq`` / ``flash_dkv`` and their ``_f32`` counters only."""
     return _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_count,
@@ -366,7 +324,7 @@ def _flash_backward(q, k, v, out, lse2, dout, kv_index, kv_count, q_index, q_cou
                                   f"multiples of 8, got D={d}, blocks ({block_q}, {block_kv})")
     f32 = q.dtype == torch.float32  # the f32 mode: its own kernels, no Hopper rule
     hopper = hopper_ok and not f32 and bwd_wgmma_path(d, block_q, block_kv)
-    tc = f32 and tc_ok and bwd_f32_tc_path(d, block_q, block_kv)
+    tc = f32 and tc_ok and flash_f32_tc_path(d, block_q, block_kv)
     mode = "f32" if f32 else "bf16"
     # TMA and the bulk copies of the Hopper path and of the tensor-core
     # kernels, and the FFMA kernels' 16-byte loads, read from 16-byte boundaries
