@@ -591,7 +591,8 @@ def build_kernels() -> None:
     # sta_batched with and without pair bits), held to 128 registers so that
     # two 101 KB CTAs share an SM, and the f32 backward's 4 (dq, dk/dv at D
     # 64 / 128; one CTA an SM at D 128): spills reported.  The tensor-core
-    # f32 kernels' 8 (flash's, flash_manual's: one 193 KB CTA an SM; the
+    # f32 kernels' 10 (flash's, flash_manual's, the window walks' of sta_pipe
+    # and sta_window: one 193 KB CTA an SM; the
     # backward's dq with and without a partial 64-row tile, its dk/dv with and
     # without a partial tile and a partial 32-row q chunk: one 225 KB CTA an
     # SM): no spills; flash_manual's
@@ -604,7 +605,7 @@ def build_kernels() -> None:
                                      ("prologue_rows_kernel", 27, True),
                                      ("unpool_rows_kernel", 24, True),
                                      ("_f32_kernel", 22, False),
-                                     ("_f32_tc_kernel", 8, True),
+                                     ("_f32_tc_kernel", 10, True),
                                      ("_int8_tc_kernel", 1, True)):
         rows = ptxas_entries(_build.ptxas_logs, entry)
         log(f"ptxas {entry}: {len(rows)} instantiations, registers "
@@ -5880,7 +5881,8 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
     one PyTorch call of the same function, or None).  ``bound``: (ms, by)
     where the work is not all f32 (the int8 modes' QK).  ``ffma``: the same
     call on the FFMA core where the rule sends ``kern`` to the tensor-core
-    core (flash / flash_manual, ops/flash.py:f32_tc_path): ``kern`` is then
+    core (flash / flash_manual, ops/flash.py:f32_tc_path; sta_pipe /
+    sta_window, ops/sta_pipe.py:sta_f32_tc_path): ``kern`` is then
     launched on ``<counter>_f32_tc`` (else never), the FFMA call is held to
     the same gate and timed in turns with ``kern``, and the row's bound is
     the 3xTF32 one (3 x FLOP at 495 TFLOP/s TF32), the FFMA's 67 TFLOP/s
@@ -5961,7 +5963,7 @@ def f32_case(torch, name: str, counter: str, kern, plain, tol: float, flops: flo
         r["ms"] = sum(ms) / 2
     else:
         r["ms"] = time_ms(torch, kern, iters)
-        if counter in ("flash", "flash_manual"):
+        if counter in ("flash", "flash_manual", "sta_pipe", "sta_window"):
             r["core"] = "ffma"
     r.update(plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              library_ms=lib() if lib is not None else None)
@@ -6012,7 +6014,11 @@ def check_f32_kernels(torch, card: str) -> dict:
     from vorta_tpu_torch.ops.rope import rope_cos_sin
     from vorta_tpu_torch.ops.routed_fused import routed_geometry
     from vorta_tpu_torch.ops.sta_batched import sta_flash_headbatched, sta_flash_headbatched_ref
-    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+    from vorta_tpu_torch.ops.sta_pipe import (
+        sta_pipe_attention,
+        sta_pipe_attention_ffma,
+        sta_pipe_attention_ref,
+    )
 
     check_full_f32(torch)
     dev = torch.device("cuda")
@@ -6144,7 +6150,9 @@ def check_f32_kernels(torch, card: str) -> dict:
 
     # ---- sta_pipe: the routed STA call at 480p x 77f (tile (4, 6, 4), fast, 8 of
     # 12 heads active); the text tail (256 keys, 83 valid) in the stable and the
-    # fast softmax at the (6, 9, 8) tile; D 64 at wan-tiny's tile (2, 2, 2)
+    # fast softmax at the (6, 9, 8) tile; D 64 at wan-tiny's tile (2, 2, 2).  The
+    # D = 128 calls run on the tensor-core walk, timed in turns with the FFMA core
+    # (the TF32 bracket gated at 480p)
     n = GRID_480P_77F[0] * GRID_480P_77F[1] * GRID_480P_77F[2]
     q, k, v = (randn(1, h, n, d) for _ in range(3))
     kw = dict(latent_shape=GRID_480P_77F, tile=(4, 6, 4), window=(3, 3, 3), scale=d**-0.5)
@@ -6156,7 +6164,9 @@ def check_f32_kernels(torch, card: str) -> dict:
         lambda: sta_pipe_attention_ref(q, k, v, act, **kw), TOL_F32_ATTN,
         4.0 * n * keys * d * n_act, 4 * n * d * 4 * n_act, iters=5,
         lib=lambda: masked_sdpa_ms(torch, "sta_pipe f32", *(x[:, act > 0] for x in (q, k, v)),
-                                   smask)[0])
+                                   smask)[0],
+        ffma=lambda: sta_pipe_attention_ffma(q, k, v, act, **kw),
+        tf32_bracket=lambda: sta_pipe_attention_ref(*tf32(q, k, v), act, **kw), tf32_gate=True)
     del q, k, v, smask
     torch.cuda.empty_cache()
     grid, tile = (6, 9, 16), (6, 9, 8)
@@ -6185,7 +6195,10 @@ def check_f32_kernels(torch, card: str) -> dict:
             lambda: sta_pipe_attention_ref(q, k, v, a4, **kw), TOL_F32_ATTN,
             4.0 * n * (n + HY_VALID) * d * 3, 4 * n * d * 4 * 3, iters=5,
             bracket=lambda: sta_pipe_attention_ref(q, k, v, a4, **{**kw, "text_bias": None}),
-            lib=tail_lib)
+            lib=tail_lib, ffma=lambda: sta_pipe_attention_ffma(q, k, v, a4, **kw),
+            tf32_bracket=lambda: sta_pipe_attention_ref(*tf32(q, k, v), a4,
+                                                        **{**kw, "text_k": tf32(tk)[0],
+                                                           "text_v": tf32(tv)[0]}))
     q, k, v = (randn(1, 2, 4 * 4 * 4, 64) for _ in range(3))
     kw = dict(latent_shape=(4, 4, 4), tile=(2, 2, 2), window=(3, 3, 1), scale=64**-0.5)
     out["sta_pipe"]["d64_tile222"] = f32_case(
@@ -6432,9 +6445,12 @@ def f32_launches(want: dict, full_width: bool) -> dict:
     (ops/flash.py:f32_tc_path is wgmma_path's shape rule; flash_manual's
     int8 QK mode there takes its own tensor-core kernel,
     ``flash_manual_int8_tc``, and on these paths its launches are all at
-    the Hopper shapes), and the backward's tensor-core dq and dk/dv every dq
+    the Hopper shapes), the backward's tensor-core dq and dk/dv every dq
     and dk/dv launch (ops/flash.py:flash_f32_tc_path, the rule of flash's
-    forward and backward); the tiny models' head dim 64 takes none of them."""
+    forward and backward), and the window walks' tensor-core walk every
+    sta_pipe launch outside the int8 QK mode and every sta_window launch
+    (ops/sta_pipe.py:sta_f32_tc_path); the tiny models' head dim 64 takes
+    none of them."""
     out = dict(want)
     out["flash_f32_tc"] = want["flash"] if full_width else 0
     # the backward's rule (ops/flash.py:flash_f32_tc_path) takes every D 128 call
@@ -6446,6 +6462,11 @@ def f32_launches(want: dict, full_width: bool) -> dict:
     int8_tc = min(want["flash_manual_int8"], want["flash_manual_wgmma"]) if full_width else 0
     out["flash_manual_f32_tc"] = want["flash_manual_wgmma"] - int8_tc if full_width else 0
     out["flash_manual_int8_tc"] = int8_tc
+    # the window walks' tensor-core walk (ops/sta_pipe.py:sta_f32_tc_path) takes every
+    # f32 q / k launch at head dim 128: every tile of these paths holds a multiple of 8
+    # tokens; sta_pipe's int8 QK mode stays on the FFMA core
+    out["sta_pipe_f32_tc"] = want["sta_pipe"] - want["sta_pipe_int8"] if full_width else 0
+    out["sta_window_f32_tc"] = want["sta_window"] if full_width else 0
     for k in HOPPER_KERNELS + ("flash_dq", "flash_dkv"):
         out[f"{k}_wgmma"] = 0
     out["prologue_rows"] = out["prologue"] if full_width else 0
@@ -6748,8 +6769,9 @@ def run_f32_profile(torch, card: str) -> dict:
     with --qk_int8: cli.profile_forward --dtype fp32 --routing hard [--qk_int8]
     in-process (random weights and routers, t = 900; a warm-up forward, then
     one under io/profiling's trace), its report kept off stdout.  Every
-    flash and flash_manual launch of the two forwards on the tensor cores
-    (flash_manual's int8 mode on its own kernel, flash_manual_int8_tc):
+    flash, flash_manual and sta_pipe launch of the two forwards on the
+    tensor cores (flash_manual's int8 mode on its own kernel,
+    flash_manual_int8_tc; sta_pipe's on the window walk, sta_pipe_f32_tc):
     {"f32": ..., "f32_qk_int8": ...}."""
     import contextlib
     import io
@@ -6764,10 +6786,12 @@ def run_f32_profile(torch, card: str) -> dict:
         with contextlib.redirect_stdout(io.StringIO()):
             res = profile_forward.main(["--num_frames", "77", "--routing", "hard", "--dtype",
                                         "fp32", *extra])
-        n = {k: _build.launches[k] for k in ("flash", "flash_f32_tc", "flash_manual", tc)}
-        if not (n["flash"] == n["flash_f32_tc"] > 0 and n["flash_manual"] == n[tc] > 0):
-            raise RuntimeError(f"{name} profile: a flash / flash_manual launch off the tensor "
-                               f"cores {n}")
+        n = {k: _build.launches[k] for k in ("flash", "flash_f32_tc", "flash_manual", tc,
+                                             "sta_pipe", "sta_pipe_f32_tc")}
+        if not (n["flash"] == n["flash_f32_tc"] > 0 and n["flash_manual"] == n[tc] > 0
+                and n["sta_pipe"] == n["sta_pipe_f32_tc"] > 0):
+            raise RuntimeError(f"{name} profile: a flash / flash_manual / sta_pipe launch off "
+                               f"the tensor cores {n}")
         out[name] = {k: res[k] for k in ("wall_ms", "device_ms", "idle_share",
                                          "heads_per_expert", "max_memory_gib", "groups", "top")}
         by_group = {g: (round(v["ms"], 3), round(v["share"], 4), v["launches"])
@@ -7482,9 +7506,17 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
         sparse_flash_attention_manual_ref,
     )
     from vorta_tpu_torch.ops.routed_fused import quantize_per_head, quantize_qk, routed_geometry
-    from vorta_tpu_torch.ops.sta_pipe import sta_pipe_attention, sta_pipe_attention_ref
+    from vorta_tpu_torch.ops.sta_pipe import (
+        sta_f32_tc_path,
+        sta_pipe_attention,
+        sta_pipe_attention_ref,
+    )
     from vorta_tpu_torch.ops.sta_row import sta_row_attention, sta_row_attention_ref
-    from vorta_tpu_torch.ops.sta_window import sta_window_attention, sta_window_attention_ref
+    from vorta_tpu_torch.ops.sta_window import (
+        sta_window_attention,
+        sta_window_attention_ffma,
+        sta_window_attention_ref,
+    )
 
     check_full_f32(torch)
     dev = torch.device("cuda")
@@ -7524,7 +7556,9 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
     # ---- sta_window and sta_row in f32: the served (4, 9, 10) call at 720p x
     # 29f, 720p x 77f (the reference shape) and HunyuanVideo 45f + 256 text
     # keys (83 valid), sta_row at Wan 720p (5, 9, 8); D = 64 with 24 / 88 text
-    # keys
+    # keys.  sta_window's D = 128 calls run on the tensor-core walk, timed in
+    # turns with the FFMA core (the TF32 bracket gated at the served 720p x
+    # 29f); sta_row's stay on the FFMA core
     act12 = torch.tensor(ACTIVE_HEADS, device=dev)
     hy_act = torch.tensor(HY_ACTIVE, device=dev)
     a3 = torch.tensor([1, 0, 1], device=dev)
@@ -7539,6 +7573,10 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
     )
     fns = {"sta_window": (sta_window_attention, sta_window_attention_ref),
            "sta_row": (sta_row_attention, sta_row_attention_ref)}
+
+    def tf32(x):
+        return None if x is None else tf32_rne(torch, x)
+
     for kernel, name, grid, tile, act, d, lt, valid, iters in cases:
         fn, plain = fns[kernel]
         h, n, n_act = act.numel(), math.prod(grid), int(act.sum().item())
@@ -7559,7 +7597,14 @@ def check_f32_window_int8_kernels(torch, card: str) -> dict:
             lib=window_lib(grid, tile, q, k, v, act, text.get("text_k"), text.get("text_v"),
                            text.get("text_bias")),
             bracket=(lambda: plain(q, k, v, act, **kw, **{**text, "text_bias": None})) if lt
-            else None, bracket_min=F32_BRACKET * TOL_F32_ATTN)
+            else None, bracket_min=F32_BRACKET * TOL_F32_ATTN,
+            **(dict(ffma=lambda: sta_window_attention_ffma(q, k, v, act, **kw, **text),
+                    tf32_bracket=lambda: plain(tf32(q), tf32(k), tf32(v), act, **kw, **{
+                        **text, "text_k": tf32(text.get("text_k")),
+                        "text_v": tf32(text.get("text_v"))}),
+                    tf32_gate=name == "wan_720p_29f_4910")
+               if kernel == "sta_window" and sta_f32_tc_path(d, grid, tile, text_len=lt)
+               else {}))
         r["window_keys"] = window_keys(grid, tile)
         del q, k, v, text
         torch.cuda.empty_cache()

@@ -76,7 +76,11 @@ flash and flash_manual (3xTF32 on wgmma: its probe against f64 products,
 kv tails inside and on the edge of a 64-key chunk, count-0 q blocks, per-head
 tables, the lse, kv_bias with kv_valid_len, either softmax, a head routed
 away, beside the FFMA core at the same call, and the shapes its C entry
-refuses).  Tolerances: 1e-5 x max
+refuses), and the f32 window walks of sta_window and sta_pipe on the
+tensor cores (tiles of 48, 96, 360 and 432 tokens, clamped edges, nt <
+win_t, text tails of 8, 24 and 256 keys, either softmax, batch 2, a head
+routed away, beside the FFMA core at the same call, and what their C
+entries refuse).  Tolerances: 1e-5 x max
 |plain| for f32 outputs (the two sides sum in different orders); for bf16
 outputs, element by element, 2^-5 x max(|plain|, RMS(plain)), i.e. 4 to 8
 bf16 ulps at the element's magnitude (an output rounding, and P rounded to
@@ -3350,29 +3354,30 @@ def test_f32_c_entries_refuse_what_their_rules_refuse(card):
     torch.cuda.synchronize()
     assert flash(None, 64, 64, work.data_ptr()) != 0
     act = torch.ones(1, dtype=torch.int32, device=card)
-    sta = _sta_f32_fn()
+    sta = _sta_f32_fn()  # (..., stable, work, stream): work None, the FFMA core
     args = [*p, act.data_ptr(), None, None, None, None, 0, 1, 1, 4, 4, 4]
-    assert sta(*args, 96, 2, 2, 2, 3, 3, 3, 0, stream) != 0
-    assert sta(*args, 128, 2, 2, 2, 3, 3, 3, 0, stream) == 0
-    assert sta(*args, 128, 3, 2, 2, 3, 3, 3, 0, stream) != 0
+    assert sta(*args, 96, 2, 2, 2, 3, 3, 3, 0, None, stream) != 0
+    assert sta(*args, 128, 2, 2, 2, 3, 3, 3, 0, None, stream) == 0
+    assert sta(*args, 128, 3, 2, 2, 3, 3, 3, 0, None, stream) != 0
     # the int8 mode (a qk factor) takes the fast softmax only
     qkc = torch.ones(1, device=card)
     args8 = [*p, act.data_ptr(), None, None, None, qkc.data_ptr(), 0, 1, 1, 4, 4, 4]
-    assert sta(*args8, 128, 2, 2, 2, 3, 3, 3, 1, stream) != 0
+    assert sta(*args8, 128, 2, 2, 2, 3, 3, 3, 1, None, stream) != 0
     for name, tw in (("sta_window", 2), ("sta_row", 8)):
-        fn = getattr(_build.load(name), f"vorta_{name}_fwd_f32")
+        fn = getattr(_build.load(name), f"vorta_{name}_fwd_f32")  # (..., work, stream)
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_int] * 13 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p]
         wq = torch.zeros((1, 1, 4 * 4 * 2 * tw, 128), device=card)
         wp = [wq.data_ptr()] * 4 + [act.data_ptr(), None, None, None, 0.1, 0, 1, 1, 4, 4,
                                     2 * tw]
-        assert fn(*wp, 128, 2, 2, tw, 3, 3, 3, stream) == 0
-        assert fn(*wp, 96, 2, 2, tw, 3, 3, 3, stream) != 0
-        assert fn(*wp, 128, 3, 2, tw, 3, 3, 3, stream) != 0
-        assert fn(*[*wp[:4], None, *wp[5:]], 128, 2, 2, tw, 3, 3, 3, stream) != 0  # no active
+        assert fn(*wp, 128, 2, 2, tw, 3, 3, 3, None, stream) == 0
+        assert fn(*wp, 96, 2, 2, tw, 3, 3, 3, None, stream) != 0
+        assert fn(*wp, 128, 3, 2, tw, 3, 3, 3, None, stream) != 0
+        assert fn(*[*wp[:4], None, *wp[5:]], 128, 2, 2, tw, 3, 3, 3, None,
+                  stream) != 0  # no active
     wr = getattr(_build.load("sta_row"), "vorta_sta_row_fwd_f32")
     assert wr(*[wq.data_ptr()] * 4, act.data_ptr(), None, None, None, 0.1, 0, 1, 1, 4, 4, 16,
-              128, 2, 2, 4, 3, 3, 3, stream) != 0  # tile_w not a multiple of 8
+              128, 2, 2, 4, 3, 3, 3, None, stream) != 0  # tile_w not a multiple of 8
     torch.cuda.synchronize()
 
 
@@ -3617,6 +3622,100 @@ def test_flash_manual_int8_tc_matches_plain(card, bq, bkv, s, valid, bias):
     _build.reset_launches()
     _close(sparse_flash_attention_manual_ffma(q8, k8, v, ki, counts, **kw), want)
     assert (n["flash_manual_int8"], n["flash_manual_int8_tc"]) == (1, 0)
+
+
+# --- the window walks' f32 mode on the tensor cores (csrc/window_walk_f32_tc.cuh) ------
+# sta_window and sta_pipe at D = 128 with q tiles of a multiple of 8 tokens
+# (ops/sta_pipe.py:sta_f32_tc_path) against their plain versions and the FFMA
+# core at the same call (sta_window_attention_ffma / sta_pipe_attention_ffma).
+
+WINDOW_TC_CASES = [  # (kernel, latent, tile, text keys, softmax)
+    ("sta_window", (4, 6, 32), (2, 3, 8), 0, "stable"),     # 48-token tiles, clamped edges
+    ("sta_window", (8, 9, 40), (4, 9, 10), 24, "stable"),   # 360: 5 x 64 + 40, nt = 2 < 3
+    ("sta_window", (4, 9, 80), (4, 9, 10), 256, "stable"),  # 256 text keys, a few padded
+    ("sta_pipe", (8, 12, 16), (4, 6, 4), 0, "fast"),        # 96: runs of 288 keys
+    ("sta_pipe", (8, 12, 16), (4, 6, 4), 0, "stable"),
+    ("sta_pipe", (6, 9, 16), (6, 9, 8), 256, "fast"),       # 432: 7 parts, the text tail
+    ("sta_pipe", (6, 9, 16), (6, 9, 8), 256, "stable"),
+    ("sta_pipe", (4, 4, 8), (2, 2, 8), 8, "fast"),          # the window spans every axis
+]
+
+
+@pytest.mark.parametrize("kernel,latent,tile,lt,softmax", WINDOW_TC_CASES)
+def test_window_f32_tc_matches_plain_and_the_ffma_core(card, kernel, latent, tile, lt, softmax):
+    """The tensor-core walk (batch 2, head 1 routed away: exact zeros; the
+    text bias masking a few keys) against the plain version and the FFMA
+    core at the same call, counted as <kernel>_f32_tc (the FFMA arm never),
+    never on the Hopper path; rows past a q tile are never stored (the
+    plain comparison sees every raster row)."""
+    from vorta_tpu_torch.ops import sta_pipe, sta_window
+
+    fn, ffma, plain = {
+        "sta_window": (sta_window.sta_window_attention, sta_window.sta_window_attention_ffma,
+                       sta_window.sta_window_attention_ref),
+        "sta_pipe": (sta_pipe_attention, sta_pipe.sta_pipe_attention_ffma,
+                     sta_pipe_attention_ref)}[kernel]
+    g = torch.Generator(device=card).manual_seed(70)
+    n = int(np.prod(latent))
+    q, k, v = (_f32(g, 2, 3, n, 128) for _ in range(3))
+    act = torch.tensor([1, 0, 1], device=card)
+    kw = dict(latent_shape=latent, tile=tile, window=(3, 3, 3), scale=128**-0.5)
+    if kernel == "sta_pipe":
+        kw["softmax"] = softmax
+    if lt:
+        kw.update(text_k=_f32(g, 2, 3, lt, 128), text_v=_f32(g, 2, 3, lt, 128),
+                  text_bias=torch.where(torch.arange(lt, device=card) < lt - 5, 0.0,
+                                        -1e30)[None])
+    want = plain(q, k, v, act, **kw)
+    for arm, tc in ((fn, 1), (ffma, 0)):
+        _build.reset_launches()
+        got = arm(q, k, v, act, **kw)
+        assert (_build.launches[kernel], _build.launches[f"{kernel}_f32"],
+                _build.launches[f"{kernel}_f32_tc"], _build.launches[f"{kernel}_wgmma"]) == \
+            (1, 1, tc, 0)
+        _close(got, want)
+        assert not got[:, 1].any()
+
+
+def test_window_f32_tc_c_entries_refuse_what_the_rule_refuses(card):
+    """sta_pipe's and sta_window's f32 entries take the tensor cores (a
+    scratch pointer) only where sta_f32_tc_path holds: D 64, a q tile of 4
+    tokens and sta_pipe's int8 QK mode are error codes, never a launch; a
+    scratch pointer to sta_row's f32 entry too (it has no tensor-core walk)."""
+    from vorta_tpu_torch.ops import sta_pipe
+    from vorta_tpu_torch.ops.flash import f32_tc_work
+
+    shape = (2, 4, 16)
+    s = int(np.prod(shape))
+    x = {d: torch.zeros((1, 1, s, d), device=card) for d in (64, 128)}
+    act = torch.ones(1, dtype=torch.int32, device=card)
+    work = f32_tc_work(1, 1, s, s, card).data_ptr()
+    stream = _build.stream_ptr(card)
+    pipe = sta_pipe._sta_f32_fn()
+
+    def window(lib, d, tile, w):
+        fn = getattr(_build.load(lib), f"vorta_{lib}_fwd_f32")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [i] * 13 + [p, p]
+        fn.restype = ctypes.c_int
+        return fn(*[x[d].data_ptr()] * 4, act.data_ptr(), None, None, None, 0.1, 0, 1, 1,
+                  *shape, d, *tile, 3, 3, 3, w, stream)
+
+    def pipe_call(d, tile, w, qk=None):
+        return pipe(*[x[d].data_ptr()] * 4, act.data_ptr(), None, None, None, qk, 0, 1, 1,
+                    *shape, d, *tile, 3, 3, 3, 0, w, stream)
+
+    assert pipe_call(128, (2, 2, 8), work) == 0
+    assert window("sta_window", 128, (2, 2, 8), work) == 0
+    torch.cuda.synchronize()
+    assert pipe_call(64, (2, 2, 8), work) != 0
+    assert pipe_call(128, (1, 1, 4), work) != 0  # 4 tokens a tile: not the rule's
+    assert pipe_call(128, (2, 2, 8), work, torch.ones(1, device=card).data_ptr()) != 0
+    assert window("sta_window", 64, (2, 2, 8), work) != 0
+    assert window("sta_window", 128, (1, 1, 4), work) != 0
+    assert window("sta_row", 128, (2, 2, 8), work) != 0
+    assert window("sta_row", 128, (2, 2, 8), None) == 0
+    torch.cuda.synchronize()
 
 
 # --- the f32 training path: the f32 lse, the f32 dq and dk/dv kernels -------------------

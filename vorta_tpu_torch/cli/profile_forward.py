@@ -93,15 +93,19 @@ GROUPS = (  # first match wins: "unpool_kernel" contains "pool_kernel"
                   "flash_dq_f32_tc_kernel")),
     ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_sm90_kernel", "flash_dkv_f32_kernel",
                    "flash_dkv_f32_tc_kernel")),
-    # the tensor-core f32 kernels' split pre-passes (forward and backward)
-    ("f32_tc_split", ("f32_tc_split_rows_kernel", "f32_tc_split_t_kernel")),
+    # the tensor-core f32 kernels' split pre-passes (forward and backward; the
+    # window walks' gather the rows into tile-major order as they split them)
+    ("f32_tc_split", ("f32_tc_split_rows_kernel", "f32_tc_split_t_kernel",
+                      "window_tc_split_rows_kernel", "window_tc_split_t_kernel")),
     ("flash_manual", ("flash_manual_kernel", "flash_manual_sm90_kernel",
                       "flash_manual_f32_kernel", "flash_manual_f32_tc_kernel",
                       "flash_manual_int8_tc_kernel")),
-    ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel", "sta_pipe_f32_kernel")),
+    ("sta_pipe", ("sta_kernel", "sta_pipe_sm90_kernel", "sta_pipe_f32_kernel",
+                  "sta_pipe_f32_tc_kernel")),
     # sta_row's Hopper path is sta_window_sm90_kernel too (one kernel, two
     # wrappers): no served geometry reaches sta_row
-    ("sta_window", ("sta_window_kernel", "sta_window_sm90_kernel", "sta_window_f32_kernel")),
+    ("sta_window", ("sta_window_kernel", "sta_window_sm90_kernel", "sta_window_f32_kernel",
+                    "sta_window_f32_tc_kernel")),
     ("sta_row", ("sta_row_kernel", "sta_row_f32_kernel")),
     ("sta_batched", ("sta_batched_kernel", "sta_batched_sm90_kernel", "sta_batched_live_kernel",
                      "sta_batched_f32_kernel")),

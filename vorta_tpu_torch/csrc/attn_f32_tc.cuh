@@ -8,9 +8,12 @@
 // (ops/flash.py:f32_tc_path).  The same rules on both sides.
 //
 // Users: csrc/flash.cu (flash_f32_tc_kernel: the stable online softmax, the
-// lse of the f32 training forward) and csrc/flash_manual.cu
-// (flash_manual_f32_tc_kernel: the stable or the fast softmax, kv_bias).
-// They replace the f32 modes of vorta_tpu/ops/flash.py:_flash_kernel and
+// lse of the f32 training forward), csrc/flash_manual.cu
+// (flash_manual_f32_tc_kernel: the stable or the fast softmax, kv_bias) and
+// csrc/window_walk_f32_tc.cuh (the window walks of sta_pipe's and
+// sta_window's f32 modes: this file's products, barriers and consumer step,
+// consume_chunk, over its own walk and layout).  The first two replace the
+// f32 modes of vorta_tpu/ops/flash.py:_flash_kernel and
 // flash_manual.py:_kernel.  Semantics are csrc/attn_f32.cuh's (its header,
 // "Semantics"): the tail rule cuts block last_block at valid_in_block; s =
 // q.k * mul + bias (mul = scale * log2(e), or 1 where the wrapper pre-scaled
@@ -79,11 +82,14 @@
 //   row guards run once a CTA, outside the chunk loop, so every shape takes
 //   the one kernel.  A partial tile or chunk costs a whole one's products.
 //
-// What stays on csrc/attn_f32.cuh's FFMA core (the wrappers' rules): head
-// dim 64 (the tiny models), flash_manual's f32 mode at blocks that 128 does
-// not divide (no full-width caller: the tiny models' blocks of 8 / 16),
-// sta_batched's pair-bit walk and the window walks (sta_pipe, sta_window,
-// sta_row).  flash_manual's int8 QK mode at its rule's shapes runs
+// The window walks of sta_pipe's and sta_window's f32 modes at head dim 128
+// run these pieces over q, k and V^T gathered into tile-major order
+// (csrc/window_walk_f32_tc.cuh).  What stays on csrc/attn_f32.cuh's FFMA
+// core (the wrappers' rules): head dim 64 (the tiny models), flash_manual's
+// f32 mode at blocks that 128 does not divide (no full-width caller: the
+// tiny models' blocks of 8 / 16), sta_batched's pair-bit walk, sta_row's
+// f32 window walk and sta_pipe's int8 QK mode with an f32 v.
+// flash_manual's int8 QK mode at its rule's shapes runs
 // csrc/attn_int8_tc.cuh (wgmma s8 scores, this file's 3xTF32 PV).
 #pragma once
 
@@ -282,6 +288,26 @@ __global__ void __launch_bounds__(256) f32_tc_split_rows_kernel(const float4* __
   }
 }
 
+// The second half of a transposing split: 64 rows (keys key0..) of one (b,
+// h) staged in tile[row][d] (a CTA of 256 threads, after a barrier) stored
+// split and transposed, out[half][bh][d][p] with half 0 at out and half 1
+// at out + half, p = 8 (j / 8) + (j % 2 ? 4 : 0) + (j % 8) / 2 for row j
+// (the order below); rows at or past S are not stored.
+__device__ __forceinline__ void split_t_store(const float (&tile)[BK][D + 1],
+                                              uint32_t* __restrict__ out, long long half, int bh,
+                                              int S, int key0) {
+  for (int e = threadIdx.x; e < D * BK; e += 256) {
+    const int d = e / BK, col = e % BK, c = col % 8;
+    if (key0 + col >= S) continue;
+    const int j = 8 * (col / 8) + (c < 4 ? 2 * c : 2 * (c - 4) + 1);
+    uint32_t b, sm;
+    split(tile[j][d], b, sm);
+    const long long o = (static_cast<long long>(bh) * D + d) * S + key0 + col;
+    out[o] = b;
+    out[half + o] = sm;
+  }
+}
+
 // Rows of x (B*H, S, D) split and transposed: out[half][bh][d][p], half 0
 // big, 1 small, where row j of each group of 8 sits at column p = 8 (j / 8)
 // + (j % 2 ? 4 : 0) + (j % 8) / 2 (an accumulator's fragment order, above).
@@ -309,20 +335,87 @@ __global__ void __launch_bounds__(256) f32_tc_split_t_kernel(const float* __rest
     tile[j][c + 3] = x.w;
   }
   __syncthreads();
-  const long long half = static_cast<long long>(BH) * D * S;
-  for (int e = tid; e < D * BK; e += 256) {
-    const int d = e / BK, col = e % BK, c = col % 8;
-    if (key0 + col >= S) continue;
-    const int j = 8 * (col / 8) + (c < 4 ? 2 * c : 2 * (c - 4) + 1);
-    uint32_t b, sm;
-    split(tile[j][d], b, sm);
-    const long long o = (static_cast<long long>(bh) * D + d) * S + key0 + col;
-    out[o] = b;
-    out[half + o] = sm;
-  }
+  split_t_store(tile, out, static_cast<long long>(BH) * D * S, bh, S, key0);
 }
 
 // ---- the attention kernel --------------------------------------------------------
+
+// The CTA's barriers at base + BAR: q_full, k_full, k_empty, v_full, v_empty
+// (one stage each of K and V; an empty barrier takes one arrival per
+// consumer warp).  Thread 0 initialises them; every thread syncs.
+__device__ __forceinline__ void init_barriers(uint32_t base) {
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(base + BAR, 1);
+    sm90::mbar_init(base + BAR + 8, 1);
+    sm90::mbar_init(base + BAR + 16, 4);
+    sm90::mbar_init(base + BAR + 24, 1);
+    sm90::mbar_init(base + BAR + 32, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The consumer's step over one 64-key chunk, the walks' common body: waits
+// for K(c), S = Q K^T (small products first), releases K; masks the columns
+// where on(col) is false (-1e30), else s * mul + bias (bias[i]: column 8 (i
+// / 2) + 2t + i % 2); the stable online softmax (running max m, sum l) or
+// the fast exp2(s); P's halves; waits for V(c), the chunk's PV product in a
+// fresh accumulator, releases V, and joins it to O by FMA.
+template <class On>
+__device__ __forceinline__ void consume_chunk(float (&o)[64], float (&m)[2], float (&l)[2],
+                                              const float (&bias)[16], On on, uint32_t base,
+                                              uint32_t phase, float mul, bool stable) {
+  using namespace sm90;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const uint32_t k_full = base + BAR + 8, k_empty = base + BAR + 16, v_full = base + BAR + 24,
+                 v_empty = base + BAR + 32;
+  auto release = [&](uint32_t bar) {  // every warp, once its last reader is done
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  float s[32];
+  uint32_t pb[32], ps[32];
+  mbar_wait(k_full, phase);
+  qk_product(s, base);
+  release(k_empty);
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = 8 * (i / 4) + 2 * t + (i & 1);
+    const float x = on(col) ? fmaf(s[i], mul, bias[2 * (i / 4) + (i & 1)]) : NEG;
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+  float ms[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+  if (stable) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      const float m_new = fmaxf(m[hr], mx[hr]);
+      alpha[hr] = m[hr] <= NEG ? 0.f : exp2f(m[hr] - m_new);  // l and o are 0 until then
+      m[hr] = m_new;
+      ms[hr] = m_new <= NEG ? 0.f : m_new;
+    }
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = exp2f(s[i] - ms[(i >> 1) & 1]);  // exp2(-1e30 - ms) = 0
+    psum[(i >> 1) & 1] += s[i];
+  }
+  l[0] = l[0] * alpha[0] + psum[0];
+  l[1] = l[1] * alpha[1] + psum[1];
+  split_p(s, pb, ps);
+  mbar_wait(v_full, phase);
+  float oc[64];
+  pv_product(oc, pb, ps, base + VB, base + VS);
+  release(v_empty);
+  // the chunk's product joins O in the CUDA cores' rounding to nearest (see
+  // "Accumulation" above)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], oc[i]);
+}
 
 // The kernel body: CTA (blockIdx.x = q block * parts + part, h, b), parts =
 // ceil(block_q / 64), over TableParams p (the tables, kv_bias (Skv,) or
@@ -361,15 +454,7 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq, const CUtensorMap&
   const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t q_full = base + BAR, k_full = q_full + 8, k_empty = q_full + 16,
                  v_full = q_full + 24, v_empty = q_full + 32;
-  if (tid == 0) {
-    mbar_init(q_full, 1);
-    mbar_init(k_full, 1);
-    mbar_init(v_full, 1);
-    mbar_init(k_empty, 4);  // one arrival per consumer warp
-    mbar_init(v_empty, 4);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_barriers(base);
   int key0, nvalid;
 
   if (tid >= 128) {
@@ -406,58 +491,14 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq, const CUtensorMap&
 #pragma unroll
   for (int i = 0; i < 64; ++i) o[i] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
-  float s[32];
-  uint32_t pb[32], ps[32];
-  auto release = [&](uint32_t bar) {  // every warp, once its last reader is done
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar);
-  };
   mbar_wait(q_full, 0);
   for (uint32_t phase = 0; walk.next(key0, nvalid); phase ^= 1) {
     float bias[16];  // columns 8n + 2t + e of this chunk (n = i / 2, e = i % 2)
 #pragma unroll
     for (int i = 0; i < 16; ++i)
       bias[i] = p.kv_bias != nullptr ? __ldg(p.kv_bias + key0 + 8 * (i / 2) + 2 * t + i % 2) : 0.f;
-    mbar_wait(k_full, phase);
-    qk_product(s, base);
-    release(k_empty);
-    float mx[2] = {NEG, NEG};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int col = 8 * (i / 4) + 2 * t + (i & 1);
-      const float x = col < nvalid ? fmaf(s[i], mul, bias[2 * (i / 4) + (i & 1)]) : NEG;
-      s[i] = x;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-    }
-    float ms[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
-    if (stable) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-        const float m_new = fmaxf(m[hr], mx[hr]);
-        alpha[hr] = m[hr] <= NEG ? 0.f : exp2f(m[hr] - m_new);  // l and o are 0 until then
-        m[hr] = m_new;
-        ms[hr] = m_new <= NEG ? 0.f : m_new;
-      }
-    }
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = exp2f(s[i] - ms[(i >> 1) & 1]);  // exp2(-1e30 - ms) = 0
-      psum[(i >> 1) & 1] += s[i];
-    }
-    l[0] = l[0] * alpha[0] + psum[0];
-    l[1] = l[1] * alpha[1] + psum[1];
-    split_p(s, pb, ps);
-    mbar_wait(v_full, phase);
-    float oc[64];
-    pv_product(oc, pb, ps, base + VB, base + VS);
-    release(v_empty);
-    // the chunk's product joins O in the CUDA cores' rounding to nearest (see
-    // "Accumulation" above)
-#pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], oc[i]);
+    consume_chunk(o, m, l, bias, [&](int col) { return col < nvalid; }, base, phase, mul,
+                  stable);
   }
 
   // ---- epilogue: rows 16w + g (+ 8), those of the CTA's block ----------------------

@@ -62,6 +62,15 @@
 // instead (sta_pipe_f32_kernel<D, true>: csrc/attn_f32.cuh's int8 QK, exact
 // dp4a sums times the same factor, P and PV in f32).
 //
+// The f32 mode (f32 q / k / v and text, q pre-scaled in f32, the fast or
+// stable softmax of the full variant, P kept in f32): at D = 128 with q
+// tiles of a multiple of 8 tokens (every f32 call of the 1.3B / 13B paths:
+// the (4, 6, 4) tile's 96, the (6, 9, 8) tile's 432 with the text tail)
+// sta_pipe_f32_tc_kernel, 3xTF32 on wgmma over q, k and V^T gathered into
+// tile-major order (csrc/window_walk_f32_tc.cuh), by the wrapper's rule
+// (ops/sta_pipe.py:sta_f32_tc_path, mirrored by the C entry); else
+// sta_pipe_f32_kernel<D, false> on csrc/attn_f32.cuh's FFMA core.
+//
 // MODE selects the window's softmax and the TPU kernel's diagnostic
 // variants (sta_pipe.py:270-302): FAST (above); STABLE, a running max per
 // row (the online step of sta_common.cuh on the pre-scaled scores, no
@@ -83,6 +92,7 @@
 #include "sta_common.cuh"
 #include "sta_window_src.cuh"
 #include "window_walk_f32.cuh"
+#include "window_walk_f32_tc.cuh"
 
 namespace {
 
@@ -456,6 +466,16 @@ sta_pipe_f32_kernel(const void* __restrict__ q, float* __restrict__ out,
                                                     stable != 0);
 }
 
+// The f32 q / k / v mode on the tensor cores (csrc/window_walk_f32_tc.cuh:
+// 3xTF32 on wgmma), D = 128: q pre-scaled, the scores' factor 1.
+__global__ void __launch_bounds__(vorta::f32tc::THREADS, 1)
+sta_pipe_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ vorta::f32tc::WindowTc p, int stable) {
+  vorta::f32tc::attend_window(tq, tk, tv, p, 1.f, stable != 0);
+}
+
 }  // namespace
 
 // The f32 mode (sta_pipe.py's kernel at f32 inputs, the full variant): q
@@ -465,16 +485,30 @@ sta_pipe_f32_kernel(const void* __restrict__ q, float* __restrict__ out,
 // the text tail (a running max, as the TPU kernel's stable mode), else the
 // fast one.  qk_factor: null, or (H,) f32 qk_scale * scale * log2(e) with q,
 // k and text_k int8 (q not pre-scaled; the fast softmax): the int8 QK mode
-// with an f32 v.  D 64 or 128.  P kept in f32.  Returns the CUDA error code.
+// with an f32 v.  D 64 or 128.  P kept in f32.  work: null (the FFMA core),
+// or where the wrapper's rule (ops/sta_pipe.py:sta_f32_tc_path) chose the
+// tensor cores, the scratch of csrc/window_walk_f32_tc.cuh (2 B H (S + 2 (S
+// + Lt)) 128 f32, 16-byte aligned): then f32 q / k (no qk_factor), D = 128,
+// a q tile of a multiple of 8 tokens and Lt a multiple of 8, else an error,
+// never a fallback.  Returns the CUDA error code.
 extern "C" int vorta_sta_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                  const void* active, const void* text_k, const void* text_v,
                                  const void* text_bias, const void* qk_factor, int Lt, int B,
                                  int H, int T, int HH, int W, int D, int tt, int th, int tw,
-                                 int win_t, int win_h, int win_w, int stable, void* stream) {
+                                 int win_t, int win_h, int win_w, int stable, void* work,
+                                 void* stream) {
   if (!vorta::f32::window_shape_ok(T, HH, W, D, tt, th, tw, win_t, win_h, win_w, Lt, text_k,
                                    text_v, text_bias, active) ||
-      (qk_factor && stable))
+      (qk_factor && stable) || (qk_factor && work))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (work != nullptr) {
+    const vorta::f32tc::WindowTc p = vorta::f32tc::window_tc(
+        active, text_bias, out, Lt, H, T, HH, W, tt, th, tw, win_t, win_h, win_w);
+    return static_cast<int>(vorta::f32tc::launch_window(sta_pipe_f32_tc_kernel, q, k, v, text_k,
+                                                        text_v, work, B, D, p,
+                                                        static_cast<cudaStream_t>(stream),
+                                                        stable));
+  }
   const bool i8 = qk_factor != nullptr;
   const vorta::f32::WindowParams p = vorta::f32::window_params(
       k, v, text_k, text_v, text_bias, active, Lt, H, T, HH, W, D, tt, th, tw, win_t, win_h,

@@ -253,13 +253,15 @@ sta_row_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
 
 // The f32 mode (csrc/window_walk_f32.cuh: launch_window_stable's
 // arguments; an inactive head writes zeros); D 64 or 128; tile_w a multiple of 8.
-// Returns the CUDA error code.
+// work: sta_window's scratch argument, which sta_row's f32 mode refuses: it
+// has no tensor-core walk (it stays on the FFMA core; no served path runs
+// it).  Returns the CUDA error code.
 extern "C" int vorta_sta_row_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                      const void* active, const void* text_k, const void* text_v,
                                      const void* text_bias, float sl, int Lt, int B, int H, int T,
                                      int HH, int W, int D, int tt, int th, int tw, int win_t,
-                                     int win_h, int win_w, void* stream) {
-  if (tw % 8) return static_cast<int>(cudaErrorInvalidValue);
+                                     int win_h, int win_w, void* work, void* stream) {
+  if (tw % 8 || work != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(vorta::f32::launch_window_stable(
       sta_row_f32_kernel<64>, sta_row_f32_kernel<128>, q, k, v, out, active, text_k, text_v,
       text_bias, sl, Lt, B, H, T, HH, W, D, tt, th, tw, win_t, win_h, win_w, stream));

@@ -47,17 +47,25 @@
 //   The q tiles of one window re-read its keys from L2.
 //
 // The f32 mode (f32 q / k / v and text, the JAX package's --dtype fp32 at
-// a --resume_dir tile that sends the STA heads here): sta_window_f32_kernel<D>, the FFMA
-// core of csrc/attn_f32.cuh over the window walk of
-// csrc/window_walk_f32.cuh (per 64-row part of a q tile, every key of the
-// window then the text tail in 64-key chunks, each staged through its own
-// row pointer, so the (4, 9, 10) tile's runs of 30 need no padding and no
-// masked column), the stable softmax with q unscaled and the scores times
-// sl, P kept in f32.  At 720p x 77f, 8 heads, the work is 2.87e12 FLOP:
-// 42.8 ms at 67 TFLOP/s f32, which bounds it.
+// a --resume_dir tile that sends the STA heads here): the stable softmax
+// with q unscaled and the scores times sl, P kept in f32, on one of two
+// kernels by the wrapper's rule (ops/sta_pipe.py:sta_f32_tc_path,
+// mirrored by the C entry: a scratch pointer asks for the tensor cores).
+// At D = 128 with q tiles of a multiple of 8 tokens (the (4, 9, 10) tile's
+// 360: every served call) sta_window_f32_tc_kernel, 3xTF32 on wgmma over q,
+// k and V^T gathered into tile-major order (csrc/window_walk_f32_tc.cuh);
+// at 720p x 77f, 8 heads, the work is 2.87e12 FLOP, 3 x that at 495 TFLOP/s
+// TF32: 17.4 ms bounds it.  Else (D = 64) sta_window_f32_kernel<D>, the FFMA
+// core of csrc/attn_f32.cuh over the window walk of csrc/window_walk_f32.cuh
+// (per 64-row part of a q tile, every key of the window then the text tail
+// in 64-key chunks, each staged through its own row pointer, so runs of any
+// width need no padding and no masked column): 42.8 ms at 67 TFLOP/s f32 at
+// the same call, which sta_window_attention_ffma times beside the tensor
+// cores.
 #include "sta_common.cuh"
 #include "sta_window_src.cuh"
 #include "window_walk_f32.cuh"
+#include "window_walk_f32_tc.cuh"
 
 namespace {
 
@@ -224,7 +232,7 @@ extern "C" int vorta_sta_window_fwd_bf16(const void* q, const void* k, const voi
   return static_cast<int>(D == 128 ? run(launch<128>) : run(launch<64>));
 }
 
-// ---- the f32 mode: csrc/attn_f32.cuh's FFMA core over the window ----------
+// ---- the f32 mode: the tensor-core walk, or csrc/attn_f32.cuh's FFMA core --
 
 namespace {
 
@@ -238,16 +246,41 @@ sta_window_f32_kernel(const float* __restrict__ q, float* __restrict__ out,
   vorta::f32::attend<D>(walk, q, out, sl, /*stable=*/true);
 }
 
+// The same on the tensor cores (csrc/window_walk_f32_tc.cuh: 3xTF32 on wgmma), D = 128.
+__global__ void __launch_bounds__(vorta::f32tc::THREADS, 1)
+sta_window_f32_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ vorta::f32tc::WindowTc p, float sl) {
+  vorta::f32tc::attend_window(tq, tk, tv, p, sl, /*stable=*/true);
+}
+
 }  // namespace
 
 // The f32 mode (csrc/window_walk_f32.cuh: launch_window_stable's
-// arguments; an inactive head writes zeros); D 64 or 128.
-// Returns the CUDA error code.
+// arguments; an inactive head writes zeros); D 64 or 128.  work: null (the
+// FFMA core), or where the wrapper's rule (ops/sta_pipe.py:
+// sta_f32_tc_path) chose the tensor cores, the scratch of
+// csrc/window_walk_f32_tc.cuh (2 B H (S + 2 (S + Lt)) 128 f32, 16-byte
+// aligned): then D = 128, a q tile of a multiple of 8 tokens and Lt a
+// multiple of 8, else an error, never a fallback.  Returns the CUDA error
+// code.
 extern "C" int vorta_sta_window_fwd_f32(const void* q, const void* k, const void* v, void* out,
                                         const void* active, const void* text_k, const void* text_v,
                                         const void* text_bias, float sl, int Lt, int B, int H,
                                         int T, int HH, int W, int D, int tt, int th, int tw,
-                                        int win_t, int win_h, int win_w, void* stream) {
+                                        int win_t, int win_h, int win_w, void* work,
+                                        void* stream) {
+  if (work != nullptr) {
+    if (!vorta::f32::window_shape_ok(T, HH, W, D, tt, th, tw, win_t, win_h, win_w, Lt, text_k,
+                                     text_v, text_bias, active))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const vorta::f32tc::WindowTc p = vorta::f32tc::window_tc(
+        active, text_bias, out, Lt, H, T, HH, W, tt, th, tw, win_t, win_h, win_w);
+    return static_cast<int>(vorta::f32tc::launch_window(
+        sta_window_f32_tc_kernel, q, k, v, text_k, text_v, work, B, D, p,
+        static_cast<cudaStream_t>(stream), sl));
+  }
   return static_cast<int>(vorta::f32::launch_window_stable(
       sta_window_f32_kernel<64>, sta_window_f32_kernel<128>, q, k, v, out, active, text_k, text_v,
       text_bias, sl, Lt, B, H, T, HH, W, D, tt, th, tw, win_t, win_h, win_w, stream));

@@ -3,7 +3,12 @@
 // (csrc/sta_pipe.cu) and the f32 modes of sta_window and sta_row
 // (csrc/sta_window.cu, csrc/sta_row.cu), which compute one function (a q
 // tile over every key of its clamped window, then the joint text tail) and
-// differ only in the softmax and whether q arrives pre-scaled.
+// differ only in the softmax and whether q arrives pre-scaled.  At head dim
+// 128 with q tiles of a multiple of 8 tokens (every f32 call of the 1.3B /
+// 13B paths) sta_pipe's f32 mode and sta_window's run the tensor-core walk
+// of csrc/window_walk_f32_tc.cuh instead (ops/sta_pipe.py:sta_f32_tc_path);
+// this walk serves head dim 64, sta_pipe's int8 QK mode, sta_row's f32 mode
+// and the FFMA yardsticks.
 //
 // The walk names each key's K and V rows for the core, which stages them
 // one row pointer at a time: a window run of any width (the (4, 9, 10)

@@ -56,9 +56,11 @@ SYMBOL_COUNTERS = {
     "sta_pipe_f32_kernel": "sta_pipe", "sta_batched_f32_kernel": "sta_batched",
     "flash_dq_f32_kernel": "flash_dq", "flash_dkv_f32_kernel": "flash_dkv",
     "sta_window_f32_kernel": "sta_window", "sta_row_f32_kernel": "sta_row",
-    # the f32 modes' tensor-core kernels (csrc/attn_f32_tc.cuh, csrc/attn_f32_tc_bwd.cuh)
+    # the f32 modes' tensor-core kernels (csrc/attn_f32_tc.cuh, csrc/attn_f32_tc_bwd.cuh,
+    # csrc/window_walk_f32_tc.cuh)
     "flash_f32_tc_kernel": "flash", "flash_manual_f32_tc_kernel": "flash_manual",
     "flash_dq_f32_tc_kernel": "flash_dq", "flash_dkv_f32_tc_kernel": "flash_dkv",
+    "sta_pipe_f32_tc_kernel": "sta_pipe", "sta_window_f32_tc_kernel": "sta_window",
     # the int8 QK mode with an f32 v on the tensor cores (csrc/attn_int8_tc.cuh)
     "flash_manual_int8_tc_kernel": "flash_manual",
 }

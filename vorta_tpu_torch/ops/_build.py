@@ -53,7 +53,10 @@ of ``flash_dq`` and ``flash_dkv``.  ``flash_f32_tc`` and
 (``csrc/attn_f32_tc.cuh``: 3xTF32 on wgmma, by ``ops/flash.py:flash_f32_tc_path``
 and ``f32_tc_path``),
 subsets of ``flash_f32`` and ``flash_manual_f32``; they never count as
-``*_wgmma``.  The int8 QK mode with an f32 v counts in
+``*_wgmma``.  ``sta_pipe_f32_tc`` and ``sta_window_f32_tc`` count the
+window walks' f32 launches on the tensor cores
+(``csrc/window_walk_f32_tc.cuh``, by ``ops/sta_pipe.py:sta_f32_tc_path``),
+subsets of ``sta_pipe_f32`` and ``sta_window_f32``, never of ``*_wgmma``.  The int8 QK mode with an f32 v counts in
 both its modes' counters: ``flash_manual_f32`` and ``flash_manual_int8``,
 ``sta_pipe_f32`` and ``sta_pipe_int8``; ``flash_manual_int8_tc`` counts its
 launches on the tensor cores (``csrc/attn_int8_tc.cuh``, by the same
@@ -89,7 +92,7 @@ KERNELS = ("flash", "fused_norm", "prologue", "flash_manual", "sta_pipe", "pool_
            "sta_batched_f32", "fused_norm_f32", "prologue_f32", "pool_qkv_f32", "unpool_f32",
            "flash_dq_f32", "flash_dkv_f32", "sta_window_f32", "sta_row_f32", "flash_f32_tc",
            "flash_manual_f32_tc", "flash_dq_f32_tc", "flash_dkv_f32_tc",
-           "flash_manual_int8_tc")
+           "flash_manual_int8_tc", "sta_pipe_f32_tc", "sta_window_f32_tc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -50,10 +50,19 @@ the fast softmax, the full variant, a window whose runs can land on 8-row
 multiples of a slot: every served geometry, with or without the text
 tail), with the slot table of ``window_walk``; else its mma.sync kernel
 (the int8 QK mode, the stable softmax, the variants, D = 64).  f32 q / k /
-v (and text) take the f32 mode, its own branch: ``csrc/attn_f32.cuh``'s FFMA
-core over the window box and the text tail (``csrc/window_walk_f32.cuh``),
-the fast or stable softmax of the full variant, q pre-scaled in f32, P kept
-in f32 (counted as ``sta_pipe_f32`` too); int8 q / k / text_k with
+v (and text) take the f32 mode, its own branch: the fast or stable softmax
+of the full variant, q pre-scaled in f32, P kept in f32 (counted as
+``sta_pipe_f32`` too), on one of two cores chosen by the rule
+``sta_f32_tc_path``: at head dim 128 with q tiles of a multiple of 8 tokens
+(every f32 call of the 1.3B / 13B paths) the tensor-core walk of
+``csrc/window_walk_f32_tc.cuh`` (3xTF32 products on wgmma: a split pre-pass
+gathers q, k and V^T into tile-major order, where a window is runs of
+consecutive tiles, into scratch the wrapper allocates, and the walk pairs
+the runs' 32-key pieces into 64-key chunks, ``window_f32_tc_walk``; counted
+as ``sta_pipe_f32_tc`` too), else ``csrc/attn_f32.cuh``'s FFMA core over
+the window box and the text tail (``csrc/window_walk_f32.cuh``);
+``sta_pipe_attention_ffma`` runs the FFMA core at any shape (the yardstick
+``chip_smoke.py`` times beside the tensor cores); int8 q / k / text_k with
 ``qk_scale`` and an f32 v / text_v take the same kernel's int8 mode (the
 scores exact int32 sums by dp4a times the head's factor, q not pre-scaled;
 counted as ``sta_pipe_f32`` and ``sta_pipe_int8``); the diagnostic variants
@@ -72,7 +81,7 @@ import torch
 
 from ..geometry import row_starts, w_window_starts, window_starts
 from . import _build
-from .flash import LOG2E, NEG_INF  # noqa: F401  (NEG_INF public, as in JAX)
+from .flash import LOG2E, NEG_INF, f32_tc_work  # noqa: F401  (NEG_INF public, as in JAX)
 from .flash_manual import _prescale, check_int8_qk, qk_factor, scores_log2
 from .layout import tile_sequence, untile_sequence
 
@@ -269,6 +278,61 @@ def _text_tail(text_k, text_v, text_bias, q: torch.Tensor):
     return text_k, text_v, text_bias.reshape(lt).float()
 
 
+def sta_f32_tc_path(d: int, latent_shape: Shape3, tile: Shape3, *,
+                    dtype: torch.dtype = torch.float32, qk_int8: bool = False,
+                    variant: str = "full", text_len: int = 0) -> bool:
+    """The rule of the f32 mode's tensor-core walk (``csrc/window_walk_f32_tc.cuh``,
+    3xTF32 on wgmma), sta_pipe's and sta_window's: head dim 128, f32 q / k
+    / v, not the int8 QK mode, the full variant, tiles that divide the grid
+    with a multiple of 8 tokens (so that every window run, a row of
+    consecutive tiles in tile-major order, starts on V^T's permuted groups
+    of 8 keys) and a text tail of a multiple of 8 keys or none: every f32
+    call of the 1.3B / 13B paths ((4, 6, 4), (4, 9, 10), (5, 9, 8), (6, 9,
+    8) tiles).  D 64 (the tiny models) and the int8 QK mode with an f32 v
+    stay on the FFMA core.  The C entries refuse the tensor cores for
+    anything else: an error, never a fallback."""
+    tt, th, tw = tile
+    return (d == 128 and dtype == torch.float32 and not qk_int8 and variant == "full"
+            and not any(latent_shape[a] % tile[a] for a in range(3))
+            and (tt * th * tw) % 8 == 0 and text_len % 8 == 0)
+
+
+F32_TC_PIECE = 32  # keys of a piece of the tensor-core walk: two pieces a chunk
+
+
+@functools.lru_cache(maxsize=16)
+def window_f32_tc_walk(latent_shape: Shape3, tile: Shape3, window: Shape3 = (3, 3, 3),
+                       text_len: int = 0) -> tuple:
+    """Python mirror of the tensor-core walk (``csrc/window_walk_f32_tc.cuh:
+    PieceWalk``): per q tile, in tile-major order (``tile_sequence``'s), its
+    64-key chunks as ((first key, keys kept), (first key, keys kept)) pairs
+    of 32-key pieces in the tile-major key space, where the (b, h)'s S window
+    keys come first and its text keys after them (key S + n is text key n).
+    The pieces cut the window's min(win_t, nt) x min(win_h, nh) runs of
+    min(win_w, nw) consecutive tiles (in (t, h) order), then the text keys,
+    32 keys at a time, the last of each run or of the text cut short; a
+    chunk pairs two consecutive pieces, joining one run's end to the next
+    run's start, and a lone last piece pairs with itself at 0 keys kept.
+    Read-only: it is cached."""
+    t, hh, w = latent_shape
+    nt, nh, nw = (latent_shape[a] // tile[a] for a in range(3))
+    tpt = tile[0] * tile[1] * tile[2]
+    s = t * hh * w
+    wt, wh, ww = (min(window[a], latent_shape[a] // tile[a]) for a in range(3))
+    starts = window_starts(latent_shape, tile, window) // np.asarray(tile)
+    out = []
+    for t0, h0, w0 in starts.tolist():
+        runs = [((((t0 + dt) * nh + h0 + dh) * nw + w0) * tpt, ww * tpt)
+                for dt in range(wt) for dh in range(wh)]
+        runs.append((s, text_len))
+        pieces = [(k0 + off, min(F32_TC_PIECE, n - off)) for k0, n in runs
+                  for off in range(0, n, F32_TC_PIECE)]
+        if len(pieces) % 2:
+            pieces.append((pieces[-1][0], 0))
+        out.append(tuple(zip(pieces[0::2], pieces[1::2])))
+    return tuple(out)
+
+
 SOFTMAXES = ("fast", "stable")
 VARIANTS = ("full", "dots", "qk", "sT")
 NEG = -1e30
@@ -359,7 +423,7 @@ def _sta_f32_fn():
     fn = _build.load("sta_pipe").vorta_sta_fwd_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 14 + [p]
+        fn.argtypes = [p] * 9 + [i] * 14 + [p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -399,11 +463,19 @@ def sta_pipe_attention_mma_sync(q, k, v, active, **kw) -> torch.Tensor:
     return _sta_pipe(q, k, v, active, hopper_ok=False, **kw)
 
 
+def sta_pipe_attention_ffma(q, k, v, active, **kw) -> torch.Tensor:
+    """``sta_pipe_attention`` at f32 on the FFMA core whatever
+    ``sta_f32_tc_path`` says: the card's yardstick beside the tensor-core
+    walk at the same call (``chip_smoke.py`` times both), counted in
+    ``sta_pipe`` / ``sta_pipe_f32`` only."""
+    return _sta_pipe(q, k, v, active, tc_ok=False, **kw)
+
+
 def _sta_pipe(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
               window: Shape3 = (3, 3, 3), scale: Optional[float] = None, text_k=None,
               text_v=None, text_bias=None, cast_p_to_v_dtype: bool = True,
               softmax: str = "fast", variant: str = "full", qk_scale=None,
-              hopper_ok: bool = True) -> torch.Tensor:
+              hopper_ok: bool = True, tc_ok: bool = True) -> torch.Tensor:
     if qk_scale is not None:
         if variant != "full":
             raise ValueError("qk_scale requires softmax='fast', variant='full'")
@@ -436,7 +508,7 @@ def _sta_pipe(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
         return _sta_pipe_f32(q, k, v, active, dev, mode=mode, latent_shape=latent_shape,
                              tile=tile, window=window, scale=scale, text=(text_k, text_v,
                                                                           text_bias),
-                             qk_scale=qk_scale)
+                             qk_scale=qk_scale, tc_ok=tc_ok)
     qk_dtype = torch.bfloat16 if qk_scale is None else torch.int8
     if (any(x is not None and x.dtype != qk_dtype for x in (q, k, text_k))
             or any(x is not None and x.dtype != torch.bfloat16 for x in (v, text_v))):
@@ -481,9 +553,10 @@ def _sta_pipe(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
 
 
 def _sta_pipe_f32(q, k, v, active, dev, *, mode: str, latent_shape: Shape3, tile: Shape3,
-                  window: Shape3, scale: float, text, qk_scale) -> torch.Tensor:
+                  window: Shape3, scale: float, text, qk_scale, tc_ok: bool) -> torch.Tensor:
     """The f32 mode on CUDA: f32 q / k / v and text, the full variant's fast
-    or stable softmax, through ``csrc/attn_f32.cuh``."""
+    or stable softmax, on the tensor-core walk where ``sta_f32_tc_path``
+    holds (and ``tc_ok``), else on ``csrc/attn_f32.cuh``'s FFMA core."""
     text_k, text_v, text_bias = text
     if mode not in SOFTMAXES:
         raise NotImplementedError(f"sta_pipe's diagnostic variant {mode!r} in f32 is {F32_TOOLS}")
@@ -503,18 +576,22 @@ def _sta_pipe_f32(q, k, v, active, dev, *, mode: str, latent_shape: Shape3, tile
     lt = 0 if text_k is None else text_k.shape[2]
     qkc = None if qk_scale is None else qk_factor(qk_scale, scale, h).contiguous()
     _build.require_cuda(q, qkc)
+    tc = tc_ok and sta_f32_tc_path(d, latent_shape, tile, qk_int8=qkc is not None,
+                                   text_len=lt)
     qs = q if qkc is not None else _prescale(q, scale)
     qs, k, v = (_build.aligned16(x.contiguous()) for x in (qs, k, v))
     text = [None if x is None else _build.aligned16(x.contiguous())
             for x in (text_k, text_v, text_bias)]
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    work = f32_tc_work(b, h, t * hh * w, t * hh * w + lt, dev) if tc else None
     err = _sta_f32_fn()(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
         *(_build.ptr(x) for x in text), _build.ptr(qkc), lt, b, h, t, hh, w, d, *tile, *window,
-        int(mode == "stable"), _build.stream_ptr(dev))
+        int(mode == "stable"), _build.ptr(work), _build.stream_ptr(dev))
     _build.check(err, "sta_pipe (f32)")
     _build.launches["sta_pipe"] += 1
     _build.launches["sta_pipe_f32"] += 1
+    _build.launches["sta_pipe_f32_tc"] += tc
     if qkc is not None:
         _build.launches["sta_pipe_int8"] += 1
     if mode == "stable":

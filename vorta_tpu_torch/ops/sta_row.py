@@ -24,8 +24,10 @@ row's lines from L2.  Else its mma.sync kernel (D = 64, windows with no
 box), which ``sta_row_attention_mma_sync`` runs at any shape (the card's
 yardstick).  f32 q / k / v (and text) take its f32 mode, sta_window's f32
 kernel instantiated in ``csrc/sta_row.cu`` over the same window walk
-(counted as ``sta_row_f32`` too).  On CPU tensors it runs the plain version
-``sta_row_attention_ref``, sta_window's.
+(counted as ``sta_row_f32`` too): always its FFMA core, never sta_window's
+tensor-core walk (``ops/sta_pipe.py:sta_f32_tc_path``; no served path
+runs sta_row, and its C entry refuses the walk's scratch).  On CPU tensors
+it runs the plain version ``sta_row_attention_ref``, sta_window's.
 """
 
 from __future__ import annotations

@@ -30,12 +30,22 @@ counted as ``sta_window_wgmma`` too) where ``window_wgmma_path`` says so
 every served geometry, with or without the text tail), with the slot table
 of ``ops/sta_pipe.py:window_walk`` over ``window_box``; else its mma.sync
 kernel (D = 64, the other windows).  f32 q / k / v (and text) take the f32
-mode, its own kernel (``csrc/attn_f32.cuh``'s FFMA core over
-``csrc/window_walk_f32.cuh``'s window walk: every key staged through its
-own row pointer, so a run of any width needs no padding; the stable
-softmax, q unscaled, P kept in f32; counted as ``sta_window_f32`` too,
-never as the Hopper path).  On CPU tensors it runs the plain version
-``sta_window_attention_ref``, which ops/sta_row.py shares.
+mode, its own kernels (the stable softmax, q unscaled, P kept in f32;
+counted as ``sta_window_f32`` too, never as the Hopper path), chosen by the
+rule ``ops/sta_pipe.py:sta_f32_tc_path`` (sta_pipe's, the same
+function): at head dim 128 with q tiles of a multiple of
+8 tokens (every f32 call of the 1.3B / 13B paths: the (4, 9, 10) tile's
+360) the tensor-core walk of ``csrc/window_walk_f32_tc.cuh`` (3xTF32 on
+wgmma over q, k and V^T gathered into tile-major order by a split pre-pass
+into scratch the wrapper allocates; ``ops/sta_pipe.py:window_f32_tc_walk``;
+counted as ``sta_window_f32_tc`` too), else ``csrc/attn_f32.cuh``'s FFMA
+core over ``csrc/window_walk_f32.cuh``'s window walk (every key staged
+through its own row pointer, so a run of any width needs no padding).
+``sta_window_attention_ffma`` runs the FFMA core at any shape, the
+yardstick ``chip_smoke.py`` times beside the tensor cores.  sta_row's f32
+mode (``ops/sta_row.py``, the same launcher) stays on the FFMA core.  On
+CPU tensors it runs the plain version ``sta_window_attention_ref``, which
+ops/sta_row.py shares.
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ import torch
 
 from ..geometry import window_starts  # noqa: F401  (public here, as in the JAX package)
 from . import _build
-from .flash import LOG2E, NEG_INF  # noqa: F401  (NEG_INF public here, as in JAX)
+from .flash import LOG2E, NEG_INF, f32_tc_work  # noqa: F401  (NEG_INF public, as in JAX)
 from .layout import tile_sequence, untile_sequence
 from .sta_pipe import (
     WALK_BN,
@@ -57,6 +67,7 @@ from .sta_pipe import (
     _text_tail,
     _walk_on,
     _window_keys,
+    sta_f32_tc_path,
     walk_box,
     window_walk,
 )
@@ -171,9 +182,10 @@ def sta_window_attention_ref(q, k, v, active, *, latent_shape: Shape3, tile: Sha
 
 def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
                         window: Shape3, scale: float, text_k, text_v, text_bias,
-                        box: Optional[Tuple[int, int]]) -> torch.Tensor:
+                        box: Optional[Tuple[int, int]], tc: bool = False) -> torch.Tensor:
     """Checks and launches ``csrc/<kernel>.cu`` (sta_window or sta_row, one C
-    interface) on CUDA tensors: f32 inputs its f32 mode; bf16 ones its
+    interface) on CUDA tensors: f32 inputs its f32 mode (on the tensor-core
+    walk where ``tc``, the caller's rule: sta_window's only); bf16 ones its
     Hopper path over the walk of ``box`` where the caller's rule gave one,
     else its mma.sync kernel."""
     _build.forward_only(f"{kernel}_attention", q, k, v, text_k, text_v)
@@ -190,7 +202,7 @@ def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, t
         raise ValueError(f"active {tuple(active.shape)} for {h} heads")
     if dtype == torch.float32:
         return _launch_f32(kernel, q, k, v, active, dev, latent_shape=latent_shape, tile=tile,
-                           window=window, scale=scale, text=(text_k, text_v, text_bias))
+                           window=window, scale=scale, text=(text_k, text_v, text_bias), tc=tc)
     fn = getattr(_build.load(kernel), f"vorta_{kernel}_fwd_bf16")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -216,15 +228,17 @@ def launch_window_dense(kernel: str, q, k, v, active, *, latent_shape: Shape3, t
 
 
 def _launch_f32(kernel: str, q, k, v, active, dev, *, latent_shape: Shape3, tile: Shape3,
-                window: Shape3, scale: float, text) -> torch.Tensor:
-    """The f32 mode of ``csrc/<kernel>.cu`` (``csrc/attn_f32.cuh``'s FFMA core
-    over ``csrc/window_walk_f32.cuh``'s window walk, the stable softmax, q
-    not pre-scaled, P kept in f32), counted as ``<kernel>`` and
+                window: Shape3, scale: float, text, tc: bool) -> torch.Tensor:
+    """The f32 mode of ``csrc/<kernel>.cu`` (the stable softmax, q not
+    pre-scaled, P kept in f32): with ``tc`` the tensor-core walk
+    (``csrc/window_walk_f32_tc.cuh``, given its scratch; counted as
+    ``<kernel>_f32_tc`` too), else ``csrc/attn_f32.cuh``'s FFMA core over
+    ``csrc/window_walk_f32.cuh``'s window walk; counted as ``<kernel>`` and
     ``<kernel>_f32``, never as its Hopper path."""
     fn = getattr(_build.load(kernel), f"vorta_{kernel}_fwd_f32")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [ctypes.c_float] + [i] * 13 + [p]
+        fn.argtypes = [p] * 8 + [ctypes.c_float] + [i] * 13 + [p, p]
         fn.restype = ctypes.c_int
     b, h, _, d = q.shape
     text_k, text_v, text_bias = (None if x is None else _build.aligned16(x.contiguous())
@@ -232,12 +246,16 @@ def _launch_f32(kernel: str, q, k, v, active, dev, *, latent_shape: Shape3, tile
     lt = 0 if text_k is None else text_k.shape[2]
     q, k, v = (_build.aligned16(x.contiguous()) for x in (q, k, v))
     out = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    s = q.shape[2]
+    work = f32_tc_work(b, h, s, s + lt, dev) if tc else None
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), active.data_ptr(),
              *(_build.ptr(x) for x in (text_k, text_v, text_bias)), scale * LOG2E, lt, b, h,
-             *latent_shape, d, *tile, *window, _build.stream_ptr(dev))
+             *latent_shape, d, *tile, *window, _build.ptr(work), _build.stream_ptr(dev))
     _build.check(err, f"{kernel} (f32)")
     _build.launches[kernel] += 1
     _build.launches[f"{kernel}_f32"] += 1
+    if tc:
+        _build.launches[f"{kernel}_f32_tc"] += 1
     return out
 
 
@@ -270,10 +288,18 @@ def sta_window_attention_mma_sync(q, k, v, active, **kw) -> torch.Tensor:
     return _sta_window(q, k, v, active, hopper_ok=False, **kw)
 
 
+def sta_window_attention_ffma(q, k, v, active, **kw) -> torch.Tensor:
+    """``sta_window_attention`` at f32 on the FFMA core whatever
+    ``sta_f32_tc_path`` says: the card's yardstick beside the
+    tensor-core walk at the same call (``chip_smoke.py`` times both),
+    counted in ``sta_window`` / ``sta_window_f32`` only."""
+    return _sta_window(q, k, v, active, tc_ok=False, **kw)
+
+
 def _sta_window(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
                 window: Shape3 = (3, 3, 3), scale: Optional[float] = None, text_k=None,
                 text_v=None, text_bias=None, cast_p_to_v_dtype: bool = True,
-                hopper_ok: bool = True) -> torch.Tensor:
+                hopper_ok: bool = True, tc_ok: bool = True) -> torch.Tensor:
     if not cast_p_to_v_dtype:
         raise NotImplementedError("cast_p_to_v_dtype=False (P kept in f32) is ROADMAP section 1 "
                                   "item 11: P is always cast to v's dtype here")
@@ -291,4 +317,6 @@ def _sta_window(q, k, v, active, *, latent_shape: Shape3, tile: Shape3,
     hopper = hopper_ok and window_wgmma_path(q.shape[-1], latent_shape, tile, window,
                                              dtype=q.dtype, text_len=lt)
     box = window_box(tuple(latent_shape), tuple(tile), tuple(window)) if hopper else None
-    return launch_window_dense("sta_window", q, k, v, active, box=box, **kw)
+    tc = tc_ok and sta_f32_tc_path(q.shape[-1], latent_shape, tile, dtype=q.dtype,
+                                   text_len=lt)
+    return launch_window_dense("sta_window", q, k, v, active, box=box, tc=tc, **kw)
